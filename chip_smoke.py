@@ -8,11 +8,17 @@ Phases, in order; any failure exits nonzero:
 1. Identify the card (nvidia-smi name and power limit) and build every CUDA
    kernel from ``flashattention_tpu_torch/csrc`` (one nvcc per source, all
    at once).
-2. Each kernel against its plain PyTorch version on the card, at the serving
-   engine's shapes: max error against the stated tolerance, then the
-   kernel's, the plain version's and one library call's time (CUDA events,
-   median over launches, L2 flushed before each), beside the least time the
-   card could take (bytes over 3.35 TB/s or operations over 989 TFLOP/s).
+2. Each kernel against its plain PyTorch version on the card: the paged
+   kernels at the serving engine's shapes; the flash forward and backward
+   at the training shape and seven more cases (the JAX headline's shape,
+   GQA with window, sinks and soft-cap, segment ids with ALiBi, fp32, a
+   nonzero LSE cotangent, rows with no visible key, fp32 with dropout). Max
+   error against the stated tolerance (fp32 1e-4; bf16 flash two ulps,
+   1.6e-2 relative, plus 1e-3 of the largest value; bf16 paged 2e-2),
+   then the kernel's, the plain version's and one library
+   call's time (CUDA events, median over launches, L2 flushed before each),
+   beside the least time the card could take (bytes over 3.35 TB/s or
+   operations over 989 TFLOP/s bf16, 67 TFLOP/s fp32).
 3. The serving engine at GPT-3 Small widths (TransformerConfig defaults,
    bf16, random weights from a seed): 64 requests, prompts of 32-400
    tokens, 64 new tokens each. Every launch count is set to 0 just before
@@ -21,16 +27,27 @@ Phases, in order; any failure exits nonzero:
    under torch.profiler: the device's busy share and the top kernels.
 4. The card engine's first-token logits (bf16) against the same engine on
    the CPU in float32 (plain versions), and greedy agreement over 16 steps.
+5. Training at GPT-3 Small widths (dropout 0.1, remat "full", bf16 compute,
+   fp32 parameters), TrainConfig(batch_size=8, seq_len=512, grad_accum=2,
+   warmup_steps=2) on the synthetic stream of seed 0: 2 untimed
+   micro-steps, then 8 timed ones (4 optimizer updates), each timed on the
+   host clock up to ``loss.item()``. Launch counts are set to 0 just before
+   and read just after: exactly 24 forward launches per micro-step (12
+   layers and their remat recompute) and 12 backward launches. Then one
+   micro-step under torch.profiler.
+6. One training loss and its gradients at full width (B=1, N=512, dropout
+   0): the bf16 card against the fp32 CPU (plain versions).
 
 The last two lines are the kernels' JSON record and the device line
 ``{"ok": true, "device": {...}}``. ``--cpu-rehearsal`` skips phases 1-2,
-runs 3-4 at a tiny width on the CPU and never prints the device line.
+runs 3-6 at a tiny width on the CPU and never prints the device line.
 Details also go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import statistics
@@ -43,7 +60,9 @@ import numpy as np
 import torch
 
 from flashattention_tpu_torch import _build
+from flashattention_tpu_torch.models import train as ttrain
 from flashattention_tpu_torch.models.transformer import TransformerConfig, init_params
+from flashattention_tpu_torch.ops import flash_attn as fa
 from flashattention_tpu_torch.ops import paged_append as pap
 from flashattention_tpu_torch.ops import paged_attention as pa
 from flashattention_tpu_torch.serving import (
@@ -58,9 +77,20 @@ FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 SEED = 0
 
-# tolerances (|kernel - plain| <= atol + rtol * |plain|)
-TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# Flash kernels vs plain: |kernel - plain| <= atol + rtol * |plain|, for
+# outputs and gradients alike. fp32: 1e-4 each. bf16: the two versions
+# round at the same points and sum in another order, so they differ by
+# about one bf16 ulp; rtol is two ulps (1.6e-2) and atol 1e-3 * max|plain|
+# covers elements that cancel to near zero.
+KERNEL_RTOL = {torch.bfloat16: 1.6e-2, torch.float32: 1e-4}
+KERNEL_ATOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}  # bf16: x max|plain|
+# The paged kernel rounds p at each 32-slot tile's running max, the plain
+# version at the row's final max: at outputs below 0.1 they differ by more
+# than two bf16 ulps (1.95e-3 in the chunk case), so bf16 keeps 2e-2 abs+rel.
+PAGED_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+LSE_TOL = 1e-4     # both versions take the LSE from the same fp32 scores
 LOGITS_TOL = 5e-2  # bf16 rung of the ladder: bf16 card engine vs fp32 CPU
+TRAIN_TOL = 5e-2   # bf16 card training loss and grads vs the fp32 CPU
 
 KERNELS = {
     "paged_attention": dict(
@@ -69,6 +99,12 @@ KERNELS = {
     "paged_append": dict(
         route="cuda", source="flashattention_tpu_torch/csrc/paged_append.cu",
         replaces="flashattention_tpu/ops/pallas_append.py:49"),
+    "flash_fwd": dict(
+        route="cuda", source="flashattention_tpu_torch/csrc/flash_fwd.cu",
+        replaces="flashattention_tpu/ops/pallas_attn.py:391"),
+    "flash_bwd": dict(
+        route="cuda", source="flashattention_tpu_torch/csrc/flash_bwd.cu",
+        replaces="flashattention_tpu/ops/pallas_attn.py:885"),
 }
 
 
@@ -212,15 +248,31 @@ def sdpa_yardstick(q, kp, vp, pi, lengths, scale, window, sinks):
     return lambda: f(qq, k, v, attn_mask=mask, scale=scale)
 
 
-def check_close(name, out, ref, tol):
+def kernel_tol(dtype, ref):
+    """(rtol, atol) of a kernel output against its plain version ``ref``."""
+    atol = KERNEL_ATOL[dtype]
+    if dtype == torch.bfloat16:
+        atol *= float(ref.float().abs().max())
+    return KERNEL_RTOL[dtype], atol
+
+
+def tol_text(dtype):
+    if dtype == torch.bfloat16:
+        return (f"rtol {KERNEL_RTOL[dtype]:g} + atol {KERNEL_ATOL[dtype]:g}"
+                f" x max|plain|")
+    return f"{KERNEL_RTOL[dtype]:g} abs+rel"
+
+
+def check_close(name, out, ref, rtol, atol=None):
+    atol = rtol if atol is None else atol
     err = (out.float() - ref.float()).abs()
     max_err = float(err.max())
-    bad = err > tol + tol * ref.float().abs()
+    bad = err > atol + rtol * ref.float().abs()
     if not torch.isfinite(out.float()).all():
         fail(f"{name}: non-finite output")
     if bool(bad.any()):
-        fail(f"{name}: max |kernel - plain| {max_err:.3e} over tolerance "
-             f"{tol:g} (abs + rel)")
+        fail(f"{name}: max |kernel - plain| {max_err:.3e}; "
+             f"{int(bad.sum())} elements over rtol {rtol:g} + atol {atol:.3e}")
     return max_err
 
 
@@ -232,7 +284,7 @@ def attention_case(timer, gen, dev, name, dtype, *, window=None, sinks=0,
     out = pa.paged_attention(q, kp, vp, pi, ln, softmax_scale=scale, **kw)
     torch.cuda.synchronize()
     ref = pa.paged_attention_plain(q, kp, vp, pi, ln, softmax_scale=scale, **kw)
-    max_err = check_close(name, out, ref, TOL[dtype])
+    max_err = check_close(name, out, ref, PAGED_TOL[dtype])
     call = lambda: pa.paged_attention(q, kp, vp, pi, ln, softmax_scale=scale,
                                       **kw)
     ms, wall_ms = timer(call), timer.wall(call)
@@ -243,15 +295,15 @@ def attention_case(timer, gen, dev, name, dtype, *, window=None, sinks=0,
         library_ms = timer(sdpa_yardstick(q, kp, vp, pi, ln, scale, window,
                                           sinks))
     bound_ms, bound_by = attention_bound(q, kp, pi, ln, window, sinks)
-    rec = dict(case=name, max_abs_err=max_err, tol=TOL[dtype], ms=ms,
+    rec = dict(case=name, max_abs_err=max_err, tol=PAGED_TOL[dtype], ms=ms,
                wall_ms=wall_ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bound_ms,
                bound_by=bound_by, shape={k: v for k, v in shape.items()},
                window=window, sinks=sinks, softcap=softcap,
                dtype=str(dtype).replace("torch.", ""))
     log(f"[kernel] paged_attention {name}: max_abs_err {max_err:.3e} "
-        f"(tol {TOL[dtype]:g} abs+rel)  kernel_ms {ms:.4f} (issued from the "
-        f"host: {wall_ms:.4f})  plain_ms "
+        f"(tol {PAGED_TOL[dtype]:g} abs+rel)  kernel_ms {ms:.4f} (issued "
+        f"from the host: {wall_ms:.4f})  plain_ms "
         f"{plain_ms:.4f}  library_ms "
         f"{'n/a' if library_ms is None else f'{library_ms:.4f}'}  bound_us "
         f"{bound_ms * 1e3:.2f} ({bound_by})")
@@ -312,6 +364,144 @@ def append_case(timer, gen, dev, dtype=torch.bfloat16, *, b=32, h=12, d=64,
     return rec
 
 
+BF16, FP32 = torch.bfloat16, torch.float32
+TRAIN_SHAPE = (8, 12, 12, 512, 512, 64)  # B, H, H_kv, N_q, N_k, D
+# key: (label, shape, dtype, kernel_attention kwargs, extras)
+FLASH_CASES = {
+    "a": ("training B=8 H=12 N=512 D=64 bf16 causal dropout 0.1",
+          TRAIN_SHAPE, BF16,
+          dict(causal=True, dropout_rate=0.1, dropout_seed=1234), ()),
+    "b": ("bench.py shape B=1 H=8 N=8192 D=128 bf16 causal",
+          (1, 8, 8, 8192, 8192, 128), BF16, dict(causal=True), ()),
+    "c": ("GQA 12/4 window 128 sinks 4 softcap 30, B=8 N=512 bf16",
+          (8, 12, 4, 512, 512, 64), BF16,
+          dict(causal=True, window=128, sinks=4, softcap=30.0), ()),
+    "d": ("segment ids (4 per row) + ALiBi, B=8 H=12 N=512 bf16 causal",
+          TRAIN_SHAPE, BF16, dict(causal=True), ("segments", "alibi")),
+    "e": ("fp32 B=8 H=12 N=512 causal", TRAIN_SHAPE, FP32,
+          dict(causal=True), ()),
+    "f": ("nonzero LSE cotangent, B=8 H=12 N=512 bf16 causal", TRAIN_SHAPE,
+          BF16, dict(causal=True), ("dlse",)),
+    "g": ("q_offset -64: 64 rows per head with no visible key, bf16",
+          TRAIN_SHAPE, BF16, dict(causal=True, q_offset=-64), ()),
+    "h": ("fp32 training shape, causal, dropout 0.1", TRAIN_SHAPE, FP32,
+          dict(causal=True, dropout_rate=0.1, dropout_seed=99), ()),
+}
+
+
+def _flash_inputs(gen, dev, shape, dtype, extras):
+    b, h, h_kv, n_q, n_k, d = shape
+
+    def rand(*s):
+        return torch.randn(s, generator=gen).to(dev, dtype)
+
+    q, k, v = rand(b, h, n_q, d), rand(b, h_kv, n_k, d), rand(b, h_kv, n_k, d)
+    do = rand(b, h, n_q, d)
+    dlse = (torch.randn((b, h, n_q), generator=gen).to(dev)
+            if "dlse" in extras else None)
+    more = {}
+    if "segments" in extras:
+        ids = torch.sort(torch.randint(0, 4, (b, n_q), generator=gen))[0]
+        more["segment_ids"] = ids.to(dev, torch.int32)
+    if "alibi" in extras:
+        more["alibi_slopes"] = (0.5 ** torch.arange(1, h + 1)).to(dev)
+    return q, k, v, do, dlse, more
+
+
+def flash_bound(q, k, opts, dlse):
+    """Least times (ms) of the forward and the backward for the pairs these
+    inputs keep: 4·D (forward) and 10·D (backward) flops per visible
+    (head, row, key), against each input read once and each output written
+    once."""
+    b, h, n_q, d = q.shape
+    n_k = k.shape[2]
+    vis = fa.visible_mask(opts, n_q, n_k, q.device)
+    pairs = (b * h * n_q * n_k if vis is None
+             else int(vis.expand(b, 1, n_q, n_k).sum()) * h)
+    el = q.element_size()
+    qo = q.numel() * el                      # q, o, do, dq each
+    kv = k.numel() * el                      # k, v, dk, dv each
+    rows = b * h * n_q * 4                   # lse, dlse
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    out = {}
+    for name, nbytes, flops in (
+        ("fwd", 2 * qo + 2 * kv + rows, 4 * pairs * d),
+        ("bwd", 4 * qo + 4 * kv + rows * (2 if dlse is not None else 1),
+         10 * pairs * d),
+    ):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out, pairs / (b * h * n_q * n_k)
+
+
+def flash_case(timer, gen, dev, key):
+    label, shape, dtype, kw, extras = FLASH_CASES[key]
+    q, k, v, do, dlse, more = _flash_inputs(gen, dev, shape, dtype, extras)
+    opts = fa.make_opts(q, k, **kw, **more)
+    o, lse = fa.flash_fwd(q, k, v, opts)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, opts)
+    tols = {"o": kernel_tol(dtype, o_ref)}
+    err = {"o": check_close(f"flash_fwd {key} o", o, o_ref, *tols["o"])}
+    seen = lse_ref > -1e30  # rows without a key: LSE only <= -1e30
+    if not bool((lse[~seen] <= -1e30).all()):
+        fail(f"flash_fwd {key}: a row without keys has an LSE above -1e30")
+    err["lse"] = check_close(f"flash_fwd {key} lse", lse[seen], lse_ref[seen],
+                             LSE_TOL)
+    grads = fa.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, opts)
+    torch.cuda.synchronize()
+
+    def plain_bwd():
+        di = (o_ref.float() * do.float()).sum(-1)
+        if dlse is not None:
+            di = di - dlse
+        return fa.flash_bwd_plain(q, k, v, do, lse_ref, di, opts)
+
+    for name, g, r in zip(("dq", "dk", "dv"), grads, plain_bwd()):
+        tols[name] = kernel_tol(dtype, r)
+        err[name] = check_close(f"flash_bwd {key} {name}", g, r, *tols[name])
+    del grads
+    big = q.shape[2] > 4096
+    t = dict(
+        fwd_ms=timer(lambda: fa.flash_fwd(q, k, v, opts)),
+        fwd_plain_ms=timer(lambda: fa.flash_fwd_plain(q, k, v, opts),
+                           reps=3 if big else 10, warmup=1),
+        bwd_ms=timer(lambda: fa.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse,
+                                          opts)),
+        bwd_plain_ms=timer(plain_bwd, reps=3 if big else 10, warmup=1),
+    )
+    # Yardstick: scaled_dot_product_attention(is_causal=True), no dropout;
+    # the same function only where the case has no other feature.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = q.shape[1] != k.shape[1]
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    t["library_fwd_ms"] = timer(lambda: sdpa(
+        q, k, v, is_causal=True, scale=opts.scale, enable_gqa=gqa))
+    o_lib = sdpa(*leaves, is_causal=True, scale=opts.scale, enable_gqa=gqa)
+    t["library_bwd_ms"] = timer(lambda: torch.autograd.grad(
+        o_lib, leaves, do, retain_graph=True))
+    same = (not extras or extras == ("dlse",)) and kw == dict(causal=True)
+    bounds, frac = flash_bound(q, k, opts, dlse)
+    rec = dict(case=label, shape=shape, dtype=str(dtype).replace("torch.", ""),
+               max_abs_err=err, tol={n: dict(rtol=r, atol=a)
+                                     for n, (r, a) in tols.items()},
+               visited_fraction=frac, library_same_function=same,
+               fwd_bound_ms=bounds["fwd"][0], fwd_bound_by=bounds["fwd"][1],
+               bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1],
+               **t)
+    log(f"[kernel] flash {key} ({label}): max_abs_err "
+        + " ".join(f"{n} {e:.2e}" for n, e in err.items())
+        + f" ({tol_text(dtype)}; lse {LSE_TOL:g} abs+rel)")
+    log(f"[kernel]   fwd {t['fwd_ms']:.4f} ms (plain {t['fwd_plain_ms']:.4f}, "
+        f"SDPA {t['library_fwd_ms']:.4f}, bound {bounds['fwd'][0]:.4f} "
+        f"{bounds['fwd'][1]})  bwd {t['bwd_ms']:.4f} ms (plain "
+        f"{t['bwd_plain_ms']:.4f}, SDPA {t['library_bwd_ms']:.4f}, bound "
+        f"{bounds['bwd'][0]:.4f} {bounds['bwd'][1]})"
+        + ("" if same else "  [SDPA computes a different function here]"))
+    return rec
+
+
 def phase_kernels(dev):
     gen = torch.Generator().manual_seed(SEED)
     timer = Timer(dev)
@@ -333,6 +523,9 @@ def phase_kernels(dev):
                                torch.float32, b=8, page=16, q_len=0, **gpt3),
         "append": append_case(timer, gen, dev),
     }
+    for key in FLASH_CASES:
+        recs[f"flash_{key}"] = flash_case(timer, gen, dev, key)
+        torch.cuda.empty_cache()
     return recs
 
 
@@ -344,11 +537,15 @@ def phase_kernels(dev):
 def reset_counts():
     pa.paged_attention.launches = 0
     pap.paged_append.launches = 0
+    fa.kernel_attention.fwd_launches = 0
+    fa.kernel_attention.bwd_launches = 0
 
 
 def read_counts():
     return {"paged_attention": pa.paged_attention.launches,
-            "paged_append": pap.paged_append.launches}
+            "paged_append": pap.paged_append.launches,
+            "flash_fwd": fa.kernel_attention.fwd_launches,
+            "flash_bwd": fa.kernel_attention.bwd_launches}
 
 
 def phase_engine(cfg, params, ecfg, dev, n_req, prompt_range, n_new, on_card):
@@ -401,8 +598,8 @@ def phase_engine(cfg, params, ecfg, dev, n_req, prompt_range, n_new, on_card):
         n_layers = cfg.n_layers
         want_app = n_layers * st["decode_steps"]
         want_att = n_layers * (st["decode_steps"] + st["prefill_chunks"])
-        for name, n in counts.items():
-            if n <= 0:
+        for name in ("paged_attention", "paged_append"):
+            if counts[name] <= 0:
                 fail(f"engine phase launched {name} no time")
         if counts["paged_append"] != want_app:
             fail(f"paged_append launched {counts['paged_append']} times, "
@@ -414,6 +611,17 @@ def phase_engine(cfg, params, ecfg, dev, n_req, prompt_range, n_new, on_card):
         log(f"[engine] per decode step: {n_layers} paged_attention + "
             f"{n_layers} paged_append launches (checked)")
     return rec
+
+
+def device_kernels(prof) -> dict[str, float]:
+    """Device microseconds by kernel name from a torch.profiler run."""
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and getattr(e, "device_type", None) is not None and \
+                "CUDA" in str(e.device_type):
+            kernels[e.key] = kernels.get(e.key, 0.0) + us
+    return kernels
 
 
 def phase_profile(cfg, params, ecfg, dev, steps=20):
@@ -440,12 +648,7 @@ def phase_profile(cfg, params, ecfg, dev, steps=20):
             eng.step()
         sync(dev)
         wall = time.perf_counter() - t0
-    kernels = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and getattr(e, "device_type", None) is not None and \
-                "CUDA" in str(e.device_type):
-            kernels[e.key] = kernels.get(e.key, 0.0) + us
+    kernels = device_kernels(prof)
     busy = sum(kernels.values()) / 1e6
     step_ms = wall / steps * 1e3
     rec = dict(steps=steps, batch=ecfg.max_batch_size, step_ms=step_ms,
@@ -497,12 +700,139 @@ def phase_vs_cpu(cfg, params, dev, prompt_len, steps):
 
 
 # ---------------------------------------------------------------------------
+# Phases 5-6: training
+# ---------------------------------------------------------------------------
+
+
+def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8):
+    """The port's training main path: ``train_step`` (forward, backward,
+    optimizer) on the synthetic stream; host-clock time per micro-step up
+    to ``loss.item()``; exact launch counts; one profiled micro-step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=dev)
+    opt = ttrain.make_optimizer(params, tc)
+    batches = list(ttrain.synthetic_batches(tc, cfg.vocab_size,
+                                            n_warm + n_timed + 1, device=dev))
+    log(f"[train] {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, vocab {cfg.vocab_size}, dropout {cfg.dropout_rate}, remat "
+        f"{cfg.remat_policy if cfg.remat else 'off'}, {cfg.dtype}; batch "
+        f"{tc.batch_size} x {tc.seq_len}, grad_accum {tc.grad_accum} "
+        f"(set-up {time.perf_counter() - t0:.1f} s)")
+
+    def micro(step):
+        return ttrain.train_step(params, opt, batches[step],
+                                 ttrain.step_seed(tc, step), cfg)
+
+    for step in range(n_warm):
+        float(micro(step))
+    sync(dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    updates0 = opt.updates
+    times, losses = [], []
+    for step in range(n_warm, n_warm + n_timed):
+        t0 = time.perf_counter()
+        losses.append(micro(step).item())
+        times.append(time.perf_counter() - t0)
+    counts = read_counts()
+    if not all(np.isfinite(losses)):
+        fail(f"training losses are not finite: {losses}")
+    tokens = tc.batch_size * tc.seq_len
+    step_ms = [t * 1e3 for t in times]
+    rec = dict(
+        micro_steps=n_timed, updates=opt.updates - updates0, losses=losses,
+        step_ms=step_ms, median_step_ms=statistics.median(step_ms),
+        tokens_per_s=tokens * n_timed / sum(times), launches=counts,
+        max_memory_allocated=(torch.cuda.max_memory_allocated()
+                              if on_card else None),
+    )
+    log(f"[train] {n_timed} micro-steps ({rec['updates']} optimizer "
+        f"updates): median {rec['median_step_ms']:.2f} ms/micro-step, "
+        f"{rec['tokens_per_s']:.1f} tokens/s; losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    log(f"[train] launches: {counts}")
+    if on_card:
+        per = (2 if cfg.remat else 1) * cfg.n_layers
+        want = {"flash_fwd": per * n_timed, "flash_bwd": cfg.n_layers * n_timed}
+        for name, n in want.items():
+            if counts[name] != n:
+                fail(f"training launched {name} {counts[name]} times, want "
+                     f"{n} ({n // n_timed} per micro-step)")
+        log(f"[train] per micro-step: {per} flash_fwd + {cfg.n_layers} "
+            f"flash_bwd launches (checked); max_memory_allocated "
+            f"{rec['max_memory_allocated'] / 2 ** 30:.3f} GiB")
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        micro(n_warm + n_timed).item()
+        wall = time.perf_counter() - t0
+    kernels = device_kernels(prof)
+    busy = sum(kernels.values()) / 1e6
+    rec["profile"] = dict(
+        wall_ms=wall * 1e3, kernel_ms=busy * 1e3,
+        device_busy_share=busy / wall if kernels else None,
+        top=sorted(((k, v / 1e3) for k, v in kernels.items()),
+                   key=lambda kv: -kv[1])[:12])
+    if kernels:
+        log(f"[train] profiled micro-step: {wall * 1e3:.2f} ms wall, kernels "
+            f"{busy * 1e3:.2f} ms, device busy {100 * busy / wall:.1f}%")
+        for k, v in rec["profile"]["top"]:
+            log(f"[train]   {v:.4f} ms  {k[:90]}")
+    else:
+        log("[train] the profiler recorded no device time: not measured")
+    return rec
+
+
+def phase_train_vs_cpu(cfg, dev, n=512):
+    """One training loss and its gradients (B=1, dropout 0): the bf16 card
+    against the fp32 CPU, from the same fp32 parameters."""
+    cfg = dataclasses.replace(cfg, dropout_rate=0.0)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    ref_params = init_params(cfg32, seed=SEED + 3, device="cpu")
+    card_params = copy.deepcopy(ref_params).to(dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab_size, size=(1, n + 1)))
+    out = {}
+    for tag, params, c in (("card", card_params, cfg),
+                           ("cpu_fp32", ref_params, cfg32)):
+        loss = ttrain.loss_fn(params, {"tokens": toks.to(
+            next(params.parameters()).device)}, c, None)
+        loss.backward()
+        out[tag] = (loss.item(), {name: p.grad.float().cpu()
+                                  for name, p in params.named_parameters()})
+    (lc, gc), (lr, gr) = out["card"], out["cpu_fp32"]
+    if not np.isfinite(lc):
+        fail("card training loss is not finite")
+    loss_err = abs(lc - lr)
+    num = sum(float((gc[k] - gr[k]).square().sum()) for k in gr)
+    den = sum(float(gr[k].square().sum()) for k in gr)
+    rel = (num / den) ** 0.5
+    per = {k: float((gc[k] - gr[k]).norm() / gr[k].norm().clamp(min=1e-30))
+           for k in gr}
+    worst = max(per, key=per.get)
+    log(f"[train_vs_cpu] loss card bf16 {lc:.6f} vs cpu fp32 {lr:.6f} (|diff| "
+        f"{loss_err:.3e}, tol {TRAIN_TOL:g} abs+rel); gradient global "
+        f"relative L2 {rel:.3e} (tol {TRAIN_TOL:g}); worst tensor {worst} "
+        f"{per[worst]:.3e}")
+    if loss_err > TRAIN_TOL + TRAIN_TOL * abs(lr):
+        fail(f"training loss differs by {loss_err:.3e}")
+    if not rel <= TRAIN_TOL:
+        fail(f"gradient relative L2 error {rel:.3e} over {TRAIN_TOL:g}")
+    return dict(loss_card=lc, loss_cpu=lr, loss_abs_err=loss_err,
+                grad_rel_l2=rel, worst_tensor=worst, worst_rel_l2=per[worst],
+                tol=TRAIN_TOL)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="skip phases 1-2; run 3-4 tiny on the CPU")
+                    help="skip phases 1-2; run 3-6 tiny on the CPU")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -513,13 +843,18 @@ def main() -> int:
         cfg = TransformerConfig(vocab_size=97, d_model=64, n_layers=2,
                                 n_heads=4, d_ff=128, max_seq_len=128,
                                 dropout_rate=0.0)
-        params = init_params(cfg, seed=SEED)
+        params = init_params(cfg, seed=SEED, device="cpu")
         ecfg = EngineConfig(max_batch_size=4, page_size=16, num_pages=4 * 8 + 1,
                             max_seq_len=128, prefill_pad=16)
         report["engine"] = phase_engine(cfg, params, ecfg, "cpu", 8, (8, 60),
                                         8, on_card=False)
         report["profile"] = phase_profile(cfg, params, ecfg, "cpu", steps=4)
         report["vs_cpu"] = phase_vs_cpu(cfg, params, "cpu", 40, 8)
+        tcfg = dataclasses.replace(cfg, dropout_rate=0.1)
+        tc = ttrain.TrainConfig(batch_size=2, seq_len=64, grad_accum=2,
+                                warmup_steps=2)
+        report["train"] = phase_train(tcfg, tc, "cpu", on_card=False)
+        report["train_vs_cpu"] = phase_train_vs_cpu(tcfg, "cpu", n=64)
         log("[rehearsal] control flow ran on the CPU; no device result")
         return 0
 
@@ -553,7 +888,7 @@ def main() -> int:
     # Phase 3
     cfg = TransformerConfig(dropout_rate=0.0)  # GPT-3 Small, bf16
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=SEED)  # float32 on the host
+    params = init_params(cfg, seed=SEED, device="cpu")  # float32, host
     log(f"[engine] GPT-3 Small widths ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab_size}), "
         f"random weights seed {SEED} in {time.perf_counter() - t0:.1f} s")
@@ -566,17 +901,39 @@ def main() -> int:
 
     # Phase 4
     report["vs_cpu"] = phase_vs_cpu(cfg, params, dev, 100, 16)
+    del params
 
-    counts = report["engine"]["launches"]
-    rec = {"decode": "paged_attention", "append": "paged_append"}
+    # Phase 5
+    tcfg = TransformerConfig()  # GPT-3 Small, dropout 0.1, remat full, bf16
+    tc = ttrain.TrainConfig(batch_size=8, seq_len=512, grad_accum=2,
+                            warmup_steps=2)
+    report["train"] = phase_train(tcfg, tc, dev, on_card=True)
+    torch.cuda.empty_cache()
+
+    # Phase 6
+    report["train_vs_cpu"] = phase_train_vs_cpu(tcfg, dev)
+
+    counts = {**report["engine"]["launches"],
+              **{k: report["train"]["launches"][k]
+                 for k in ("flash_fwd", "flash_bwd")}}
     kernels = []
-    for case, name in rec.items():
+    for case, name in (("decode", "paged_attention"), ("append", "paged_append")):
         r = report["kernels"][case]
         kernels.append(dict(
             name=name, **KERNELS[name], launches=counts[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], case=r["case"],
+        ))
+    r = report["kernels"]["flash_a"]
+    for name, part, errs in (("flash_fwd", "fwd", ("o", "lse")),
+                             ("flash_bwd", "bwd", ("dq", "dk", "dv"))):
+        kernels.append(dict(
+            name=name, **KERNELS[name], launches=counts[name],
+            max_abs_err=max(r["max_abs_err"][e] for e in errs),
+            ms=r[f"{part}_ms"], plain_ms=r[f"{part}_plain_ms"],
+            bound_ms=r[f"{part}_bound_ms"], bound_by=r[f"{part}_bound_by"],
+            library_ms=r[f"library_{part}_ms"], case=r["case"],
         ))
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(json.dumps({"kernels": kernels}))

@@ -3,21 +3,40 @@
 Beside the JAX package, which stays the reference. This package imports
 torch, numpy and the standard library only. Its kernels are hand-written
 CUDA C++ under ``csrc/``, built at first use by ``_build``; on CPU tensors
-every kernel wrapper runs its plain PyTorch version.
+every kernel wrapper runs its plain PyTorch version. Entry points that make
+tensors run on the card unless given ``device="cpu"``.
 
-Ported so far: the paged serving engine (``serving``) with its two kernels,
-paged attention (``ops.paged_attention``) and the in-place decode append
-(``ops.paged_append``).
+Ported so far:
+
+- the paged serving engine (``serving``) with its two kernels, paged
+  attention (``ops.paged_attention``) and the in-place decode append
+  (``ops.paged_append``);
+- training (``models.train``): the dense decoder forward
+  (``models.transformer.apply_transformer``) over the flash-attention
+  forward and backward kernels (``ops.flash_attn``), the attention API
+  (``ops.api``), the tiled executor and the dense oracle.
 """
 
+from flashattention_tpu_torch.models.train import TrainConfig, train
 from flashattention_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
+    apply_transformer,
     init_params,
     params_from_jax,
 )
+from flashattention_tpu_torch.ops.api import (
+    alibi_slopes,
+    fa1_attention,
+    fa2_attention,
+    fa3_attention,
+    flash_attention,
+)
+from flashattention_tpu_torch.ops.flash_attn import kernel_attention
 from flashattention_tpu_torch.ops.paged_append import paged_append
 from flashattention_tpu_torch.ops.paged_attention import paged_attention
+from flashattention_tpu_torch.ops.reference import reference_attention
+from flashattention_tpu_torch.ops.tiled import tiled_attention
 from flashattention_tpu_torch.serving import (
     EngineConfig,
     GenerationRequest,
@@ -32,10 +51,21 @@ __all__ = [
     "PageAllocator",
     "SamplingConfig",
     "ServingEngine",
+    "TrainConfig",
     "Transformer",
     "TransformerConfig",
+    "alibi_slopes",
+    "apply_transformer",
+    "fa1_attention",
+    "fa2_attention",
+    "fa3_attention",
+    "flash_attention",
     "init_params",
+    "kernel_attention",
     "paged_append",
     "paged_attention",
     "params_from_jax",
+    "reference_attention",
+    "tiled_attention",
+    "train",
 ]

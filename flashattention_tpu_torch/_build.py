@@ -17,9 +17,10 @@ The page allocator (``csrc/page_allocator.cc`` at the repository root) is
 built with g++ into the same ``_build`` directory, never through that
 directory's Makefile, whose output belongs to the JAX package.
 
-A library is rebuilt when its source is newer than the built file. Builds
-write to a temporary name and rename it into place, so processes that build
-at the same time never load a half-written file.
+A library is rebuilt when its source, or a ``csrc/*.cuh`` header, is newer
+than the built file. Builds write to a temporary name and rename it into
+place, so processes that build at the same time never load a half-written
+file.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 ALLOCATOR_SRC = PKG_DIR.parent / "csrc" / "page_allocator.cc"
 
-KERNELS = ("paged_attention", "paged_append")
+KERNELS = ("paged_attention", "paged_append", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -61,7 +62,12 @@ def _nvcc() -> str:
 
 
 def _stale(out: Path, src: Path) -> bool:
-    return not out.exists() or out.stat().st_mtime < src.stat().st_mtime
+    """Missing, or older than its source or a shared header beside it."""
+    if not out.exists():
+        return True
+    newest = max(p.stat().st_mtime
+                 for p in [src, *src.parent.glob("*.cuh")])
+    return out.stat().st_mtime < newest
 
 
 def _compile(cmd_prefix: list[str], src: Path, out: Path) -> str:

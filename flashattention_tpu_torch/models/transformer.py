@@ -1,5 +1,5 @@
-"""Decoder-only transformer: configuration, parameters and the pieces the
-serving engine runs.
+"""Decoder-only transformer: configuration, parameters, the training
+forward and KV-cache decode.
 
 The counterpart of ``flashattention_tpu/models/transformer.py``. Parameters
 keep the JAX package's names and layout (weights are ``(in, out)`` and apply
@@ -7,13 +7,26 @@ as ``x @ w``), so a JAX parameter tree loads by name through
 :func:`params_from_jax`:
 
     tok_emb, pos_emb, lm_head.{w,b}, final_ln.{g,b},
-    blocks.{i}.attn.{w_qkv,b_qkv,w_o,b_o}, blocks.{i}.ln1.{g,b},
-    blocks.{i}.mlp.{w_in,b_in,w_out,b_out}, blocks.{i}.ln2.{g,b}
+    blocks.{i}.attn.{w_qkv,b_qkv,w_o,b_o}   (or w_q,b_q,w_k,b_k,w_v,b_v),
+    blocks.{i}.ln1.{g,b}, blocks.{i}.mlp.{w_in,b_in,w_out,b_out},
+    blocks.{i}.ln2.{g,b}
+
+Post-LN blocks (attention -> residual -> LN -> MLP -> residual -> LN), as
+in the JAX package. Attention goes through ``ops.api.flash_attention``: the
+CUDA flash kernels on the card.
+
+Dropout under recomputation: with ``remat`` every block runs its forward
+twice, and ``torch.utils.checkpoint`` restores only the global generators.
+So each dropout site takes one integer seed, drawn per step before the
+forward (:func:`dropout_site_seeds`, the counterpart of
+``jax.random.split(dropout_key, 3 * n_layers)``), and builds its mask from
+that seed inside the block; the recompute draws the same mask.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -21,6 +34,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
+
+from flashattention_tpu_torch.ops.api import flash_attention
+from flashattention_tpu_torch.ops.tiled import tiled_attention
+from flashattention_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +76,7 @@ class TransformerConfig:
     param_dtype: Any = torch.float32
     attention_backend: str = "auto"
     remat: bool = True
-    remat_policy: str = "full"
+    remat_policy: str = "full"     # "full" | "dots"
 
     @property
     def d_head(self) -> int:
@@ -83,19 +105,17 @@ def _check_supported(cfg: TransformerConfig) -> None:
         raise ValueError("attention_window must be >= 1")
     if cfg.attention_sinks and cfg.attention_window is None:
         raise ValueError("attention_sinks require attention_window")
-    if not cfg.fused_qkv:
-        raise NotImplementedError("separate q/k/v projections are not ported yet")
     if cfg.moe_experts:
         raise NotImplementedError("mixture-of-experts blocks are not ported yet")
 
 
 class _Params(nn.Module):
-    """A module that only holds named parameters."""
+    """A module that only holds named, trainable parameters."""
 
     def __init__(self, **tensors: torch.Tensor):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(t))
 
 
 def _ln(d, dtype, device):
@@ -117,26 +137,30 @@ class Transformer(nn.Module):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
-        self.tok_emb = nn.Parameter(tok_emb, requires_grad=False)
-        if pos_emb is not None:
-            self.pos_emb = nn.Parameter(pos_emb, requires_grad=False)
-        else:
-            self.pos_emb = None
+        self.tok_emb = nn.Parameter(tok_emb)
+        self.pos_emb = nn.Parameter(pos_emb) if pos_emb is not None else None
         self.blocks = nn.ModuleList(blocks)
         self.final_ln = final_ln
         self.lm_head = lm_head
 
 
+_QKV_NAMES = {True: ("w_qkv", "b_qkv", "w_o", "b_o"),
+              False: ("w_q", "b_q", "w_k", "b_k", "w_v", "b_v", "w_o", "b_o")}
+
+
 def init_params(cfg: TransformerConfig, seed: int = 0,
-                device: str | torch.device = "cpu") -> Transformer:
+                device: str | torch.device | None = None) -> Transformer:
     """Random parameters with the JAX package's init distribution (normal,
     std 0.02; residual-branch outputs 0.02 / sqrt(2 · n_layers); zero
     biases, unit LN gains), drawn from a ``torch.Generator`` seeded with
-    ``seed`` (not the JAX package's numbers)."""
+    ``seed`` (not the JAX package's numbers), on ``device`` (None: the
+    card)."""
     _check_supported(cfg)
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     pd = cfg.param_dtype
     d, dff = cfg.d_model, cfg.d_ff
+    qd, kvd = cfg.n_heads * cfg.d_head, cfg.kv_heads * cfg.d_head
 
     def normal(shape, std=0.02):
         return (torch.randn(shape, generator=gen, device=device,
@@ -151,8 +175,14 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     lm_head = _Params(w=normal((d, cfg.vocab_size)), b=zeros(cfg.vocab_size))
     blocks = []
     for _ in range(cfg.n_layers):
-        attn = _Params(w_qkv=normal((d, cfg.qkv_dim)), b_qkv=zeros(cfg.qkv_dim),
-                       w_o=normal((d, d), out_scale), b_o=zeros(d))
+        if cfg.fused_qkv:
+            attn = _Params(w_qkv=normal((d, cfg.qkv_dim)), b_qkv=zeros(cfg.qkv_dim),
+                           w_o=normal((d, d), out_scale), b_o=zeros(d))
+        else:
+            attn = _Params(w_q=normal((d, qd)), b_q=zeros(qd),
+                           w_k=normal((d, kvd)), b_k=zeros(kvd),
+                           w_v=normal((d, kvd)), b_v=zeros(kvd),
+                           w_o=normal((d, d), out_scale), b_o=zeros(d))
         mlp = _Params(w_in=normal((d, dff)), b_in=zeros(dff),
                       w_out=normal((dff, d), out_scale), b_out=zeros(d))
         blocks.append(Block(attn, _ln(d, pd, device), mlp, _ln(d, pd, device)))
@@ -160,10 +190,12 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
 
 
 def params_from_jax(tree, cfg: TransformerConfig,
-                    device: str | torch.device = "cpu") -> Transformer:
+                    device: str | torch.device | None = None) -> Transformer:
     """Load a JAX parameter tree (nested dicts/lists of arrays, e.g. after
-    ``jax.tree.map(np.asarray, params)``) into a :class:`Transformer`,
-    keeping names and the ``(in, out)`` weight layout."""
+    ``jax.tree.map(np.asarray, params)``) into a :class:`Transformer` on
+    ``device`` (None: the card), keeping names and the ``(in, out)`` weight
+    layout."""
+    device = resolve_device(device)
 
     def t(x):
         return torch.from_numpy(np.array(x, dtype=np.float32, copy=True)).to(
@@ -175,7 +207,7 @@ def params_from_jax(tree, cfg: TransformerConfig,
 
     blocks = [
         Block(
-            group(bp["attn"], ("w_qkv", "b_qkv", "w_o", "b_o")),
+            group(bp["attn"], _QKV_NAMES["w_qkv" in bp["attn"]]),
             group(bp["ln1"], ("g", "b")),
             group(bp["mlp"], ("w_in", "b_in", "w_out", "b_out")),
             group(bp["ln2"], ("g", "b")),
@@ -189,6 +221,11 @@ def params_from_jax(tree, cfg: TransformerConfig,
         cfg, t(tree["tok_emb"]), pos_emb, blocks,
         group(tree["final_ln"], ("g", "b")), group(tree["lm_head"], ("w", "b")),
     )
+
+
+# ---------------------------------------------------------------------------
+# Pieces shared by training, decode and the serving engine
+# ---------------------------------------------------------------------------
 
 
 def lm_head_logits(lm, x: torch.Tensor) -> torch.Tensor:
@@ -219,3 +256,266 @@ def rope(t: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     t1 = t[..., :half].float()
     t2 = t[..., half:].float()
     return torch.cat([t1 * cos - t2 * sin, t2 * cos + t1 * sin], dim=-1).to(t.dtype)
+
+
+def block_sparse_mask(n_q: int, n_k: int, block: int,
+                      pattern: torch.Tensor) -> torch.Tensor:
+    """Expand an (n_q_blocks, n_k_blocks) tile pattern to an elementwise
+    (n_q, n_k) bool mask; each tile entry covers ``block`` rows and cols."""
+    if pattern.shape[0] * block < n_q or pattern.shape[1] * block < n_k:
+        raise ValueError(f"pattern {tuple(pattern.shape)} x block {block} "
+                         f"cannot cover ({n_q}, {n_k})")
+    m = pattern.bool().repeat_interleave(block, 0).repeat_interleave(block, 1)
+    return m[:n_q, :n_k]
+
+
+def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Position of each token inside its segment: (B, N) ids of contiguous
+    runs -> (B, N) int64, restarting at 0 on every id change."""
+    b, n = segment_ids.shape
+    ar = torch.arange(n, device=segment_ids.device)
+    changed = torch.cat([
+        torch.ones((b, 1), dtype=torch.bool, device=segment_ids.device),
+        segment_ids[:, 1:] != segment_ids[:, :-1]], dim=1)
+    start = torch.cummax(torch.where(changed, ar[None, :], 0), dim=1).values
+    return ar[None, :] - start
+
+
+def dropout_site_seeds(dropout_seed: int, n_layers: int) -> list[int]:
+    """1 + 3·n_layers seeds: the embedding dropout, then per block the
+    attention kernel's, the attention output's and the MLP output's."""
+    rng = np.random.default_rng(int(dropout_seed))
+    return [int(s) for s in rng.integers(0, 2 ** 31, size=1 + 3 * n_layers)]
+
+
+def _dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    """Inverted dropout whose mask depends only on ``seed`` (and the
+    device: CPU and CUDA generators draw different streams), so a
+    recomputed forward replays it."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    u = torch.rand(x.shape, generator=gen, device=x.device, dtype=torch.float32)
+    return torch.where(u < 1.0 - rate, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _embed(params: Transformer, tokens, cfg, positions=None, start: int = 0):
+    x = params.tok_emb[tokens].to(cfg.dtype) * torch.tensor(
+        math.sqrt(cfg.d_model), dtype=cfg.dtype, device=tokens.device)
+    if cfg.pos_encoding == "learned":
+        if positions is not None:
+            x = x + params.pos_emb[positions].to(cfg.dtype)
+        else:
+            x = x + params.pos_emb[start:start + tokens.shape[1]].to(cfg.dtype)
+    return x
+
+
+def _project_qkv(x, p, cfg):
+    dt = x.dtype
+    h, h_kv, dh = cfg.n_heads, cfg.kv_heads, cfg.d_head
+    if hasattr(p, "w_qkv"):
+        qkv = x @ p.w_qkv.to(dt) + p.b_qkv.to(dt)
+        q, k, v = torch.split(qkv, [h * dh, h_kv * dh, h_kv * dh], dim=-1)
+    else:
+        q = x @ p.w_q.to(dt) + p.b_q.to(dt)
+        k = x @ p.w_k.to(dt) + p.b_k.to(dt)
+        v = x @ p.w_v.to(dt) + p.b_v.to(dt)
+    b, n, _ = x.shape
+
+    def heads(t, nh):  # (B, N, nh*dh) -> (B, nh, N, dh)
+        return t.reshape(b, n, nh, dh).transpose(1, 2)
+
+    return heads(q, h), heads(k, h_kv), heads(v, h_kv)
+
+
+def _attention(x, p, cfg: TransformerConfig, *, dropout_seed, train,
+               kv_cache=None, cache_index: int = 0, segment_ids=None,
+               positions=None):
+    b, n, d = x.shape
+    q, k, v = _project_qkv(x, p, cfg)
+    if cfg.pos_encoding == "rope":
+        if positions is not None:
+            pos = positions
+        else:
+            start = cache_index if kv_cache is not None else 0
+            pos = start + torch.arange(n, device=x.device)
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)  # rotated before caching
+
+    if kv_cache is not None:
+        # Decode: write this chunk's K/V at cache_index (in place), attend
+        # to the written prefix through the tiled executor and a mask.
+        kc, vc = kv_cache["k"], kv_cache["v"]
+        kc[:, :, cache_index:cache_index + n] = k.to(kc.dtype)
+        vc[:, :, cache_index:cache_index + n] = v.to(vc.dtype)
+        n_cache = kc.shape[2]
+        rows = torch.arange(n, device=x.device)[:, None] + cache_index
+        cols = torch.arange(n_cache, device=x.device)[None, :]
+        mask = cols <= rows
+        if cfg.attention_window is not None:
+            band = cols > rows - cfg.attention_window
+            if cfg.attention_sinks:
+                band = band | (cols < cfg.attention_sinks)
+            mask = mask & band
+        kk, vv = kc.to(q.dtype), vc.to(q.dtype)
+        if cfg.kv_heads != cfg.n_heads:
+            g = cfg.n_heads // cfg.kv_heads
+            kk = kk.repeat_interleave(g, dim=1)
+            vv = vv.repeat_interleave(g, dim=1)
+        o, _ = tiled_attention(q, kk, vv, softmax_scale=cfg.softmax_scale,
+                               block_k=min(cfg.block_size, n_cache), mask=mask,
+                               softcap=cfg.attn_softcap)
+    else:
+        rate = cfg.dropout_rate if train else 0.0
+        o, _ = flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            causal=True, softmax_scale=cfg.softmax_scale,
+            backend=cfg.attention_backend, block_k=cfg.block_size,
+            dropout_rate=rate,
+            dropout_seed=dropout_seed if rate > 0 else None,
+            window=cfg.attention_window, segment_ids=segment_ids,
+            softcap=cfg.attn_softcap, sinks=cfg.attention_sinks,
+        )
+    o = o.transpose(1, 2).reshape(b, n, d)
+    return o @ p.w_o.to(o.dtype) + p.b_o.to(o.dtype)
+
+
+def _mlp(x, p):
+    dt = x.dtype
+    hidden = F.gelu(x @ p.w_in.to(dt) + p.b_in.to(dt), approximate="tanh")
+    return hidden @ p.w_out.to(dt) + p.b_out.to(dt)
+
+
+def _block(x, bp, cfg, *, seeds, train, segment_ids=None, positions=None):
+    """One post-LN block; ``seeds`` are its three dropout-site seeds."""
+    drop = train and cfg.dropout_rate > 0
+    attn_out = _attention(x, bp.attn, cfg, dropout_seed=seeds[0], train=train,
+                          segment_ids=segment_ids, positions=positions)
+    if drop:
+        attn_out = _dropout(attn_out, seeds[1], cfg.dropout_rate)
+    x = layer_norm(x + attn_out, bp.ln1)
+    mlp_out = _mlp(x, bp.mlp)
+    if drop:
+        mlp_out = _dropout(mlp_out, seeds[2], cfg.dropout_rate)
+    return layer_norm(x + mlp_out, bp.ln2)
+
+
+_SAVED_BY_DOTS = frozenset({torch.ops.aten.mm.default,
+                            torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Remat "dots": keep the outputs of unbatched matrix products (the
+    projections and the MLP), recompute the rest (the JAX package's
+    ``dots_with_no_batch_dims_saveable``)."""
+    if op in _SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: TransformerConfig):
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy must be 'full' or 'dots', got "
+                         f"{cfg.remat_policy!r}")
+    if not cfg.remat or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat_policy == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    ctx_fn = functools.partial(create_selective_checkpoint_contexts,
+                               _dots_policy)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False, context_fn=ctx_fn)
+
+
+def apply_transformer(
+    params: Transformer,
+    tokens: torch.Tensor,
+    cfg: TransformerConfig,
+    *,
+    train: bool = False,
+    dropout_seed: int | None = None,
+    sparse_pattern: torch.Tensor | None = None,
+    segment_ids: torch.Tensor | None = None,
+    return_hidden: bool = False,
+    return_aux: bool = False,
+):
+    """tokens (B, N) -> float32 logits (B, N, vocab), or the final-LN hidden
+    states with ``return_hidden``; with ``return_aux`` also the MoE
+    load-balance loss (0: no MoE block is ported).
+
+    ``train`` turns dropout on; it then needs ``dropout_seed`` (an int),
+    from which every site's seed is drawn. ``segment_ids`` (B, N): packed
+    rows, attention within each segment and positions restarting per
+    segment. ``sparse_pattern`` (the block-sparse kernels) is not ported
+    yet and raises."""
+    _check_supported(cfg)
+    if sparse_pattern is not None:
+        raise NotImplementedError(
+            "block-sparse attention (sparse_pattern) is not ported yet")
+    drop = train and cfg.dropout_rate > 0
+    if drop and dropout_seed is None:
+        raise ValueError("train with dropout_rate > 0 requires dropout_seed")
+    positions = None
+    if segment_ids is not None:
+        segment_ids = segment_ids.to(tokens.device)
+        positions = segment_positions(segment_ids)
+    x = _embed(params, tokens, cfg, positions)
+    seeds = (dropout_site_seeds(dropout_seed, cfg.n_layers) if drop
+             else [None] * (1 + 3 * cfg.n_layers))
+    if drop:
+        x = _dropout(x, seeds[0], cfg.dropout_rate)
+
+    for i, bp in enumerate(params.blocks):
+        one_block = functools.partial(
+            _block, bp=bp, cfg=cfg, seeds=seeds[1 + 3 * i: 4 + 3 * i],
+            train=train, segment_ids=segment_ids, positions=positions)
+        x = _remat(one_block, cfg)(x)
+    x = layer_norm(x, params.final_ln)
+    out = x if return_hidden else lm_head_logits(params.lm_head, x)
+    if return_aux:
+        return out, torch.zeros((), dtype=torch.float32, device=x.device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decode
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int | None = None,
+                  dtype=None, device=None) -> list[dict[str, torch.Tensor]]:
+    """Per layer {"k", "v"} of (B, H_kv, max_len, dh) zeros on ``device``
+    (None: the card)."""
+    device = resolve_device(device)
+    shape = (batch, cfg.kv_heads, max_len or cfg.max_seq_len, cfg.d_head)
+    dtype = dtype or cfg.dtype
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in range(cfg.n_layers)]
+
+
+@torch.no_grad()
+def _decode_chunk_impl(params, caches, tokens, cache_index: int, cfg):
+    n = tokens.shape[1]
+    # the learned table is sliced as lax.dynamic_slice does: clamped in range
+    start = min(max(int(cache_index), 0), cfg.max_seq_len - n)
+    x = _embed(params, tokens, cfg, start=start)
+    for bp, cache in zip(params.blocks, caches):
+        attn_out = _attention(x, bp.attn, cfg, dropout_seed=None, train=False,
+                              kv_cache=cache, cache_index=int(cache_index))
+        x = layer_norm(x + attn_out, bp.ln1)
+        x = layer_norm(x + _mlp(x, bp.mlp), bp.ln2)
+    x = layer_norm(x, params.final_ln)
+    return lm_head_logits(params.lm_head, x), caches
+
+
+def decode_step(params, caches, tokens, cache_index: int, cfg):
+    """One decode step for tokens (B, 1) at ``cache_index``: returns
+    (logits (B, vocab), caches). The caches are updated in place (the JAX
+    version returns new arrays)."""
+    logits, caches = _decode_chunk_impl(params, caches, tokens, cache_index, cfg)
+    return logits[:, -1], caches
+
+
+def decode_chunk(params, caches, tokens, cache_index: int, cfg):
+    """Append the chunk tokens (B, n) at ``cache_index`` and attend causally
+    to the cache prefix and the chunk: (logits (B, n, vocab), caches); row j
+    predicts position cache_index + j + 1. Caches update in place."""
+    return _decode_chunk_impl(params, caches, tokens, cache_index, cfg)

@@ -30,9 +30,7 @@ import ctypes
 import torch
 
 from flashattention_tpu_torch import _build
-
-# -0.7 * float32 max: the finite value masked scores take.
-DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+from flashattention_tpu_torch.ops.reference import score_pipeline
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 MAX_HEAD_DIM = 128
@@ -75,8 +73,6 @@ def paged_attention_plain(
     scale = torch.tensor(softmax_scale, dtype=cdt, device=q.device)
     qc = (q.to(cdt) * scale).float().reshape(b, h_kv, g * t, d)
     s = torch.einsum("bhrd,bhld->bhrl", qc, k)
-    if softcap is not None:
-        s = softcap * torch.tanh(s * (1.0 / softcap))
     pos = row_positions(lengths, t, g * t)[:, None, :, None]  # (B, 1, R, 1)
     slots = torch.arange(k.shape[2], device=q.device)[None, None, None, :]
     in_range = slots <= pos
@@ -85,7 +81,7 @@ def paged_attention_plain(
         if sinks:
             band = band | (slots < sinks)
         in_range = in_range & band
-    s = torch.where(in_range, s, torch.full_like(s, DEFAULT_MASK_VALUE))
+    s, _ = score_pipeline(s, softcap=softcap, visible=in_range)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(in_range, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)

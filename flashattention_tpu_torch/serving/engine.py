@@ -46,6 +46,7 @@ from flashattention_tpu_torch.serving.paged_kv import (
     init_paged_cache,
 )
 from flashattention_tpu_torch.serving.sampling import SamplingConfig, sample_logits
+from flashattention_tpu_torch.utils.device import resolve_device
 
 
 def _prefix_keys(prompt, n_pages: int, page_size: int) -> list[bytes]:
@@ -96,17 +97,6 @@ class _Slot:
     freed_pages: int = 0  # logical pages reclaimed below the sliding window
 
 
-def _resolve_device(device) -> torch.device:
-    """``None`` means CUDA; a CUDA device without a card raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the engine runs on the card unless it is given "
-            "device='cpu'"
-        )
-    return dev
-
-
 # ---------------------------------------------------------------------------
 # Model programs over the paged cache
 # ---------------------------------------------------------------------------
@@ -126,10 +116,18 @@ def _serving_weights(params: Transformer, cfg: TransformerConfig, device):
     def ln(p):
         return SimpleNamespace(g=f32(p.g), b=f32(p.b))
 
+    def attn(a):
+        if cfg.fused_qkv:
+            w_qkv, b_qkv = a.w_qkv, a.b_qkv
+        else:  # separate projections: fused once here, same columns
+            w_qkv = torch.cat([a.w_q, a.w_k, a.w_v], dim=1)
+            b_qkv = torch.cat([a.b_q, a.b_k, a.b_v])
+        return SimpleNamespace(w_qkv=cast(w_qkv), b_qkv=cast(b_qkv),
+                               w_o=cast(a.w_o), b_o=cast(a.b_o))
+
     blocks = [
         SimpleNamespace(
-            attn=SimpleNamespace(**{n: cast(getattr(bp.attn, n))
-                                    for n in ("w_qkv", "b_qkv", "w_o", "b_o")}),
+            attn=attn(bp.attn),
             mlp=SimpleNamespace(**{n: cast(getattr(bp.mlp, n))
                                    for n in ("w_in", "b_in", "w_out", "b_out")}),
             ln1=ln(bp.ln1),
@@ -276,7 +274,7 @@ class ServingEngine:
                 "prefix_cache cannot combine with attention_window: window "
                 "reclamation frees prefix pages other requests may share"
             )
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg
         self.weights = _serving_weights(params, cfg, self.device)

@@ -19,6 +19,7 @@ import torch
 
 from flashattention_tpu_torch.ops.paged_append import paged_append
 from flashattention_tpu_torch.ops.paged_attention import paged_attention_plain
+from flashattention_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -48,10 +49,12 @@ def init_paged_cache(
     *,
     quant: str | None = None,
     dtype: torch.dtype = torch.bfloat16,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> PagedKVCache:
+    """Zeroed pages on ``device`` (None: the card)."""
     if quant is not None:
         raise NotImplementedError("quantized page payloads are not ported yet")
+    device = resolve_device(device)
     shape = (num_kv_heads, num_pages, page_size, head_dim)
     return PagedKVCache(
         k_pages=torch.zeros(shape, dtype=dtype, device=device),

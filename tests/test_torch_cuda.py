@@ -11,11 +11,16 @@ tests (``test_torch_paged_attention.py``, ``test_torch_paged_append.py``)
 feed to the JAX package.
 """
 
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from flashattention_tpu_torch.models import train as ttrain
 from flashattention_tpu_torch.models.transformer import TransformerConfig, init_params
+from flashattention_tpu_torch.ops import flash_attn as fa
 from flashattention_tpu_torch.ops import paged_append as pap
 from flashattention_tpu_torch.ops import paged_attention as pa
 from flashattention_tpu_torch.serving import (
@@ -92,8 +97,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# bf16: the kernel and the plain version round at the same points but sum in
-# another order; one bf16 ulp of an output near 2 is 1.6e-2.
+# bf16: the paged kernel rounds p at each tile's running max, the plain
+# version at the row's final max; one bf16 ulp of an output near 2 is 1.6e-2.
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -161,7 +166,7 @@ def test_engine_on_card_matches_cpu(cuda_device):
                             n_kv_heads=2, d_ff=128, max_seq_len=128,
                             dropout_rate=0.0, dtype=torch.float32,
                             attention_window=20, attention_sinks=4)
-    params = init_params(cfg, seed=1)
+    params = init_params(cfg, seed=1, device=cuda_device)
     ecfg = EngineConfig(max_batch_size=3, page_size=8, num_pages=40,
                         max_seq_len=128, prefill_pad=16)
     rng = np.random.default_rng(2)
@@ -178,3 +183,179 @@ def test_engine_on_card_matches_cpu(cuda_device):
     assert out["cpu"] == out[str(cuda_device)]
     assert launches[0] > 0 and launches[1] > 0
     assert launches[1] == cfg.n_layers * eng.stats["decode_steps"]
+
+
+# ---------------------------------------------------------------------------
+# Flash attention forward and backward kernels
+# ---------------------------------------------------------------------------
+
+# name: ((b, h, h_kv, n_q, n_k, d), dtype, kernel_attention kwargs, extras);
+# one case per chip_smoke.py flash case (the bench shape cut to N = 2048),
+# plus ragged and head-dim edges.
+FLASH_CASES = {
+    "a_train": ((8, 12, 12, 512, 512, 64), torch.bfloat16,
+                dict(causal=True, dropout_rate=0.1, dropout_seed=3), ()),
+    "b_bench": ((1, 8, 8, 2048, 2048, 128), torch.bfloat16,
+                dict(causal=True), ()),
+    "c_gqa_window": ((2, 12, 4, 300, 300, 64), torch.bfloat16,
+                     dict(causal=True, window=128, sinks=4, softcap=30.0), ()),
+    "d_segments_alibi": ((2, 4, 4, 256, 256, 64), torch.bfloat16,
+                         dict(causal=True), ("segments", "alibi")),
+    "e_fp32": ((2, 4, 2, 200, 200, 64), torch.float32, dict(causal=True), ()),
+    "f_dlse": ((2, 4, 4, 128, 128, 64), torch.bfloat16, dict(causal=True),
+               ("dlse",)),
+    "g_empty_rows": ((1, 4, 4, 64, 64, 64), torch.float32,
+                     dict(causal=True, q_offset=-10), ()),
+    "d256_full_ragged": ((1, 2, 2, 100, 77, 256), torch.float32,
+                         dict(causal=False, dropout_rate=0.25,
+                              dropout_seed=11), ()),
+    "d40_offset": ((2, 2, 1, 77, 130, 40), torch.float32,
+                   dict(causal=True, q_offset=20), ("dlse",)),
+    "h_fp32_dropout": ((2, 12, 12, 512, 512, 64), torch.float32,
+                       dict(causal=True, dropout_rate=0.1, dropout_seed=99),
+                       ()),
+}
+
+
+def flash_tol(dtype, ref):
+    """(rtol, atol) of a flash kernel output against its plain version
+    ``ref``: fp32 1e-4 each; bf16, where the two round at the same points
+    and sum in another order, two ulps (rtol 1.6e-2) and atol
+    1e-3 * max|ref| for elements that cancel to near zero."""
+    if dtype == torch.bfloat16:
+        return 1.6e-2, 1e-3 * float(ref.float().abs().max())
+    return 1e-4, 1e-4
+
+
+def flash_inputs(shape, dtype, extras, device, seed=0):
+    b, h, h_kv, n_q, n_k, d = shape
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*s):
+        return torch.randn(s, generator=gen).to(device, dtype)
+
+    q, k, v = rand(b, h, n_q, d), rand(b, h_kv, n_k, d), rand(b, h_kv, n_k, d)
+    do = rand(b, h, n_q, d)
+    dlse = (torch.randn((b, h, n_q), generator=gen).to(device)
+            if "dlse" in extras else None)
+    kw = {}
+    if "segments" in extras:
+        ids = torch.sort(torch.randint(0, 4, (b, n_q), generator=gen))[0]
+        kw["segment_ids"] = ids.to(device, torch.int32)
+    if "alibi" in extras:
+        kw["alibi_slopes"] = (0.5 ** torch.arange(1, h + 1)).to(device)
+    return q, k, v, do, dlse, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda_device, case):
+    shape, dtype, kw, extras = FLASH_CASES[case]
+    q, k, v, do, dlse, more = flash_inputs(shape, dtype, extras, cuda_device)
+    opts = fa.make_opts(q, k, **kw, **more)
+    f0, b0 = fa.kernel_attention.fwd_launches, fa.kernel_attention.bwd_launches
+    o, lse = fa.flash_fwd(q, k, v, opts)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, opts)
+    rtol, atol = flash_tol(dtype, o_ref)
+    assert_allclose(o, o_ref, rtol=rtol, atol=atol, err_msg=f"{case} o")
+    seen = lse_ref > -1e30  # rows without a key: LSE only <= -1e30
+    assert bool((lse[~seen] <= -1e30).all())
+    assert_allclose(lse[seen], lse_ref[seen], rtol=1e-4, atol=1e-4,
+                    err_msg=f"{case} lse")
+    grads = fa.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, opts)
+    torch.cuda.synchronize()
+    di = (o_ref.float() * do.float()).sum(-1)
+    if dlse is not None:
+        di = di - dlse
+    refs = fa.flash_bwd_plain(q, k, v, do, lse_ref, di, opts)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        rtol, atol = flash_tol(dtype, r)
+        assert_allclose(g, r, rtol=rtol, atol=atol, err_msg=f"{case} {name}")
+    assert (fa.kernel_attention.fwd_launches - f0,
+            fa.kernel_attention.bwd_launches - b0) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_on_card_matches_cpu(cuda_device):
+    """kernel_attention's autograd on the card against the same call on
+    the CPU (plain versions), fp32, with dropout, GQA and a window."""
+    gen = torch.Generator().manual_seed(4)
+    base = [torch.randn(s, generator=gen) for s in
+            ((2, 4, 96, 32), (2, 2, 96, 32), (2, 2, 96, 32))]
+    kw = dict(causal=True, window=40, sinks=2, dropout_rate=0.2,
+              dropout_seed=17)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in base]
+        o, lse = fa.kernel_attention(*leaves, **kw)
+        (o.square().sum() + lse.sum()).backward()
+        out[str(dev)] = [o, lse] + [t.grad for t in leaves]
+    for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), out[str(cuda_device)],
+                          out["cpu"]):
+        assert_allclose(a, r, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
+    q = torch.zeros(1, 2, 16, 32, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.kernel_attention(q, q, q)
+    q32 = q.float()
+    with pytest.raises(ValueError):
+        fa.kernel_attention(q32, q32.cpu(), q32)
+
+
+def _tiny_train_config(**kw):
+    return TransformerConfig(vocab_size=97, d_model=64, n_layers=2, n_heads=4,
+                             n_kv_heads=2, d_ff=128, max_seq_len=64,
+                             block_size=32, **kw)
+
+
+def _loss_and_grads(params, cfg, tokens, seed):
+    params.zero_grad(set_to_none=True)
+    loss = ttrain.loss_fn(params, {"tokens": tokens}, cfg, seed)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().float().cpu()
+                         for n, p in params.named_parameters()}
+
+
+@pytest.mark.cuda
+def test_training_loss_on_card_matches_cpu(cuda_device):
+    """A float32 training loss and its gradients (remat full, GQA) on the
+    card against the CPU. Dropout is off: residual dropout draws from the
+    device's generator, whose CUDA and CPU streams differ."""
+    cfg = _tiny_train_config(dtype=torch.float32, dropout_rate=0.0)
+    cpu_params = init_params(cfg, seed=3, device="cpu")
+    card_params = copy.deepcopy(cpu_params).to(cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 97, (2, 49)))
+    f0, b0 = fa.kernel_attention.fwd_launches, fa.kernel_attention.bwd_launches
+    l_card, g_card = _loss_and_grads(card_params, cfg, tokens.to(cuda_device),
+                                     None)
+    assert (fa.kernel_attention.fwd_launches - f0,
+            fa.kernel_attention.bwd_launches - b0) == (2 * cfg.n_layers,
+                                                       cfg.n_layers)
+    l_cpu, g_cpu = _loss_and_grads(cpu_params, cfg, tokens, None)
+    assert abs(l_card - l_cpu) <= 1e-4 * (1 + abs(l_cpu))
+    for name in g_cpu:
+        assert_allclose(g_card[name], g_cpu[name], rtol=1e-4, atol=1e-4,
+                        err_msg=name)
+
+
+@pytest.mark.cuda
+def test_remat_policies_agree_on_card(cuda_device):
+    """bf16 with dropout: remat "full", "dots" and none give the same loss
+    and gradients on the card (the recompute replays every mask)."""
+    cfg = _tiny_train_config(dropout_rate=0.1, remat=False)
+    params = init_params(cfg, seed=4, device=cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 97, (2, 49))).to(cuda_device)
+    ref = _loss_and_grads(params, cfg, tokens, 5)
+    for policy in ("full", "dots"):
+        got = _loss_and_grads(params, dataclasses.replace(
+            cfg, remat=True, remat_policy=policy), tokens, 5)
+        assert abs(got[0] - ref[0]) <= 1e-6 * abs(ref[0]), policy
+        for name in ref[1]:
+            assert_allclose(got[1][name], ref[1][name], rtol=1e-5, atol=1e-6,
+                            err_msg=f"{policy} {name}")

@@ -52,7 +52,8 @@ def port_config(cfg: JaxConfig) -> TransformerConfig:
 def port_engine(cfg, jparams, ecfg_kw, **port_kw):
     """The port's CPU engine over the JAX parameters ``jparams``."""
     pcfg = port_config(cfg)
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), pcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), pcfg,
+                             device="cpu")
     return ServingEngine(params, pcfg, EngineConfig(**ecfg_kw), device="cpu",
                          **port_kw)
 
@@ -83,13 +84,14 @@ ECFG_SMALL = dict(max_batch_size=2, page_size=8, num_pages=32,
 
 def test_params_from_jax_keeps_names_and_values():
     jparams = init_transformer(jax.random.key(0), CFG)
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), port_config(CFG))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), port_config(CFG),
+                             device="cpu")
     names = dict(params.named_parameters())
     assert "blocks.1.attn.w_qkv" in names and "blocks.0.mlp.b_out" in names
     assert "blocks.0.ln1.g" in names and "lm_head.w" in names
     assert "pos_emb" in names and "final_ln.b" in names
     np.testing.assert_array_equal(
-        names["blocks.1.attn.w_qkv"].numpy(),
+        names["blocks.1.attn.w_qkv"].detach().numpy(),
         np.asarray(jparams["blocks"][1]["attn"]["w_qkv"]),
     )
     assert names["blocks.1.attn.w_qkv"].shape == (CFG.d_model, CFG.qkv_dim)
@@ -235,7 +237,8 @@ def test_stochastic_sampling_is_seeded():
 def test_engine_without_device_needs_cuda():
     jparams = init_transformer(jax.random.key(0), CFG)
     pcfg = port_config(CFG)
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), pcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), pcfg,
+                             device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -245,7 +248,8 @@ def test_engine_without_device_needs_cuda():
 def test_unported_options_raise():
     jparams = init_transformer(jax.random.key(0), CFG)
     pcfg = port_config(CFG)
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), pcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), pcfg,
+                             device="cpu")
     for ecfg, kw in ((EngineConfig(quant="int8"), {}),
                      (EngineConfig(spec_gamma=2), {}),
                      (EngineConfig(), {"draft_params": params})):

@@ -1,0 +1,202 @@
+"""The port's flash attention (plain versions, CPU) against the JAX package's
+Pallas kernels in interpret mode: o, lse, dq, dk and dv for every feature of
+the forward kernel, from the same numpy inputs and the same dropout seed.
+
+Tolerances: the JAX ladder, fp32 1e-4 and bf16 5e-2. The bf16 forward of
+the JAX package rounds q * scale to bf16 before the dot, the port's scales
+the fp32 dot; both are inside the bf16 rung.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flashattention_tpu.ops.pallas_attn import _keep_mask, pallas_attention
+from flashattention_tpu_torch.ops import flash_attn as fa
+from flashattention_tpu_torch.utils.testing import assert_allclose
+
+TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def _inputs(b, h, h_kv, n_q, n_k, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, n_q, d)).astype(np.float32)
+    k = rng.standard_normal((b, h_kv, n_k, d)).astype(np.float32)
+    v = rng.standard_normal((b, h_kv, n_k, d)).astype(np.float32)
+    do = rng.standard_normal((b, h, n_q, d)).astype(np.float32)
+    dlse = rng.standard_normal((b, h, n_q)).astype(np.float32)
+    return q, k, v, do, dlse
+
+
+def _segments(b, n, seed=1):
+    rng = np.random.default_rng(seed)
+    ids = np.sort(rng.integers(0, 4, size=(b, n)), axis=1)
+    return ids.astype(np.int32)
+
+
+# name: (shape (b, h, h_kv, n_q, n_k, d), kwargs, use dlse)
+CASES = {
+    "causal": ((2, 4, 4, 200, 200, 64), dict(causal=True), False),
+    "full": ((2, 2, 2, 64, 200, 32), dict(causal=False), False),
+    "gqa": ((1, 4, 2, 200, 200, 32), dict(causal=True), False),
+    "window_sinks": ((1, 2, 1, 200, 200, 32),
+                     dict(causal=True, window=37, sinks=5), False),
+    "segments": ((2, 2, 2, 200, 200, 32), dict(causal=True, segments=True),
+                 False),
+    "softcap": ((1, 2, 2, 64, 64, 64),
+                dict(causal=True, softcap=2.0, softmax_scale=0.9), False),
+    "alibi": ((1, 4, 4, 200, 200, 32), dict(causal=True, alibi=True), False),
+    "dropout": ((2, 2, 1, 200, 200, 32),
+                dict(causal=True, dropout_rate=0.2, dropout_seed=1234), False),
+    "dropout_full": ((1, 2, 2, 64, 200, 64),
+                     dict(causal=False, dropout_rate=0.3, dropout_seed=99),
+                     False),
+    "q_offset": ((1, 2, 2, 64, 200, 32), dict(causal=True, q_offset=100),
+                 False),
+    "dlse": ((1, 2, 2, 64, 64, 32), dict(causal=True), True),
+    "all": ((2, 4, 2, 200, 200, 32),
+            dict(causal=True, window=64, sinks=3, softcap=5.0, alibi=True,
+                 segments=True, dropout_rate=0.1, dropout_seed=5), True),
+}
+
+
+def _run_jax(q, k, v, do, dlse, kw, dtype):
+    jdt = jnp.dtype(dtype)
+    args = [jnp.asarray(x, jdt) for x in (q, k, v)]
+
+    def f(q_, k_, v_):
+        return pallas_attention(q_, k_, v_, interpret=True, **kw)
+
+    (o, lse), vjp = jax.vjp(f, *args)
+    dq, dk, dv = vjp((jnp.asarray(do, jdt), jnp.asarray(dlse)))
+    return [np.asarray(x, np.float32) for x in (o, lse, dq, dk, dv)]
+
+
+def _run_port(q, k, v, do, dlse, kw, dtype):
+    tdt = getattr(torch, dtype)
+    leaves = [torch.from_numpy(x).to(tdt).requires_grad_(True)
+              for x in (q, k, v)]
+    o, lse = fa.kernel_attention(*leaves, **kw)
+    torch.autograd.backward([o, lse], [torch.from_numpy(do).to(tdt),
+                                       torch.from_numpy(dlse)])
+    return [o, lse] + [t.grad for t in leaves]
+
+
+def _kwargs(case, shape):
+    b, h, _, n_q, n_k, _ = shape
+    kw = dict(CASES[case][1])
+    jkw, tkw = dict(kw), dict(kw)
+    if kw.pop("segments", False):
+        ids = _segments(b, n_q)
+        for d in (jkw, tkw):
+            d.pop("segments")
+        jkw["segment_ids"] = jnp.asarray(ids)
+        tkw["segment_ids"] = torch.from_numpy(ids)
+    if kw.pop("alibi", False):
+        slopes = (0.5 ** np.arange(1, h + 1)).astype(np.float32)
+        for d in (jkw, tkw):
+            d.pop("alibi")
+        jkw["alibi_slopes"] = jnp.asarray(slopes)
+        tkw["alibi_slopes"] = torch.from_numpy(slopes)
+    return jkw, tkw
+
+
+# every feature in fp32; a subset in bf16
+PARAMS = ([(c, "float32") for c in sorted(CASES)]
+          + [(c, "bfloat16") for c in ("causal", "gqa", "dropout", "all")])
+
+
+@pytest.mark.parametrize("case,dtype", PARAMS)
+def test_plain_flash_matches_pallas_interpret(case, dtype):
+    shape, _, use_dlse = CASES[case]
+    b, h, h_kv, n_q, n_k, d = shape
+    q, k, v, do, dlse = _inputs(b, h, h_kv, n_q, n_k, d)
+    if not use_dlse:
+        dlse = np.zeros_like(dlse)
+    jkw, tkw = _kwargs(case, shape)
+    ref = _run_jax(q, k, v, do, dlse, jkw, dtype)
+    out = _run_port(q, k, v, do, dlse, tkw, dtype)
+    tol = TOL[dtype]
+    for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), out, ref):
+        assert_allclose(a, r, rtol=tol, atol=tol, err_msg=f"{case} {name}")
+
+
+def test_keep_mask_is_bit_exact_with_pallas():
+    n_q, n_k, b, h = 96, 160, 2, 3
+    for seed, rate in ((0, 0.1), (123456789, 0.5), (-5, 0.9)):
+        ours = fa.keep_mask(seed, b, h, torch.arange(n_q), torch.arange(n_k),
+                            rate).numpy()
+        for bh in range(b * h):
+            theirs = np.asarray(_keep_mask(
+                jnp.asarray(seed, jnp.int32), jnp.asarray(bh, jnp.int32), 0, 0,
+                n_q, n_k, rate))
+            np.testing.assert_array_equal(ours[bh // h, bh % h], theirs)
+        kept = ours.mean()
+        assert abs(kept - (1 - rate)) < 0.02
+
+
+def test_row_without_keys_gives_zeros():
+    """q_offset < 0: the first rows see no key. o and every gradient are 0
+    there (the LSE is <= -1e30, not compared), as in the Pallas kernel."""
+    q, k, v, do, dlse = _inputs(1, 2, 2, 64, 64, 32)
+    kw = dict(causal=True, q_offset=-10)
+    ref = _run_jax(q, k, v, do, np.zeros_like(dlse), kw, "float32")
+    out = _run_port(q, k, v, do, np.zeros_like(dlse), kw, "float32")
+    assert float(out[0][:, :, :10].abs().max()) == 0.0
+    assert float(out[1][:, :, :10].max()) <= -1e30
+    assert float(out[2][:, :, :10].abs().max()) == 0.0
+    for name, i in (("o", 0), ("dq", 2), ("dk", 3), ("dv", 4)):
+        assert_allclose(out[i], ref[i], rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_same_seed_same_output_and_lse_ignores_dropout():
+    q, k, v, _, _ = _inputs(1, 2, 2, 64, 64, 32)
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    o1, l1 = fa.kernel_attention(*t, causal=True, dropout_rate=0.3,
+                                 dropout_seed=7)
+    o2, _ = fa.kernel_attention(*t, causal=True, dropout_rate=0.3,
+                                dropout_seed=7)
+    o3, _ = fa.kernel_attention(*t, causal=True, dropout_rate=0.3,
+                                dropout_seed=8)
+    _, l0 = fa.kernel_attention(*t, causal=True)
+    assert torch.equal(o1, o2)
+    assert not torch.equal(o1, o3)
+    assert torch.equal(l1, l0)
+
+
+@pytest.mark.parametrize("bad", ["d", "heads", "window", "sinks", "seed",
+                                 "segments", "slopes"])
+def test_contract_errors(bad):
+    q = torch.zeros(1, 4, 16, 32)
+    k = torch.zeros(1, 2, 16, 32)
+    kw = dict(causal=True)
+    if bad == "d":
+        q, k = torch.zeros(1, 4, 16, 36), torch.zeros(1, 2, 16, 36)
+    elif bad == "heads":
+        k = torch.zeros(1, 3, 16, 32)
+    elif bad == "window":
+        kw = dict(causal=False, window=4)
+    elif bad == "sinks":
+        kw["sinks"] = 2
+    elif bad == "seed":
+        kw["dropout_rate"] = 0.1
+    elif bad == "segments":
+        kw["segment_ids"] = torch.zeros(1, 15, dtype=torch.int32)
+    elif bad == "slopes":
+        kw["alibi_slopes"] = torch.ones(3)
+    with pytest.raises(ValueError):
+        fa.kernel_attention(q, k, k, **kw)
+
+
+def test_cpu_path_launches_no_kernel():
+    q, k, v, _, _ = _inputs(1, 2, 2, 32, 32, 32)
+    t = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    before = (fa.kernel_attention.fwd_launches, fa.kernel_attention.bwd_launches)
+    o, _ = fa.kernel_attention(*t, causal=True)
+    o.sum().backward()
+    assert (fa.kernel_attention.fwd_launches,
+            fa.kernel_attention.bwd_launches) == before
+    o_plain, _ = fa.kernel_attention_plain(*[x.detach() for x in t], causal=True)
+    assert torch.equal(o.detach(), o_plain)

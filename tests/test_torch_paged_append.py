@@ -63,7 +63,8 @@ def test_prefill_scatter_matches_jax_bit_exact(with_valid):
         jnp.asarray(lengths),
         valid_len=jnp.asarray(valid) if with_valid else None,
     )
-    tc = paged_kv.init_paged_cache(h, num_pages, page, d, dtype=torch.float32)
+    tc = paged_kv.init_paged_cache(h, num_pages, page, d, dtype=torch.float32,
+                                  device="cpu")
     paged_kv.append_to_pages(
         tc, torch.from_numpy(kn), torch.from_numpy(vn), torch.from_numpy(pi),
         torch.from_numpy(lengths),
@@ -92,7 +93,8 @@ def test_decode_append_through_cache_matches_jax():
         jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(pi),
         jnp.asarray(lengths), valid_len=jnp.asarray(valid),
     )
-    tc = paged_kv.init_paged_cache(h, num_pages, page, d, dtype=torch.float32)
+    tc = paged_kv.init_paged_cache(h, num_pages, page, d, dtype=torch.float32,
+                                  device="cpu")
     paged_kv.append_to_pages(
         tc, torch.from_numpy(kn), torch.from_numpy(vn), torch.from_numpy(pi),
         torch.from_numpy(lengths), valid_len=torch.from_numpy(valid),
@@ -121,7 +123,8 @@ def test_gather_pages_matches_jax():
         jnp.asarray(vn), jnp.asarray(pi), jnp.asarray(lengths),
         valid_len=jnp.asarray(valid),
     )
-    tc = paged_kv.init_paged_cache(h, num_pages, page, d, dtype=torch.float32)
+    tc = paged_kv.init_paged_cache(h, num_pages, page, d, dtype=torch.float32,
+                                  device="cpu")
     paged_kv.append_to_pages(
         tc, torch.from_numpy(kn), torch.from_numpy(vn), torch.from_numpy(pi),
         torch.from_numpy(lengths), valid_len=torch.from_numpy(valid),
