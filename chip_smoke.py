@@ -18,7 +18,14 @@ Phases, in order; any failure exits nonzero:
    then the kernel's, the plain version's and one library
    call's time (CUDA events, median over launches, L2 flushed before each),
    beside the least time the card could take (bytes over 3.35 TB/s or
-   operations over 989 TFLOP/s bf16, 67 TFLOP/s fp32).
+   operations over 989 TFLOP/s bf16, 67 TFLOP/s fp32). Quantized pages:
+   int8 (int8-qk and convert), e4m3 and e5m2 at the engine's decode shape,
+   an e4m3 chunk, and bf16 vs int8 vs e4m3 at scripts/bench_decode.py's
+   shape (paged limit; yardstick SDPA over pre-gathered dequantized K/V,
+   another function); the quantized append bit-exact. The FA3 8-bit
+   forward (flash_fwd_fp8) in seven cases, each launched once through
+   fp8_attention (checked), plus its straight-through backward (o and
+   gradients at the bf16 flash limit: p is bf16 on the 8-bit path).
 3. The serving engine at GPT-3 Small widths (TransformerConfig defaults,
    bf16, random weights from a seed): 64 requests, prompts of 32-400
    tokens, 64 new tokens each. Every launch count is set to 0 just before
@@ -27,6 +34,12 @@ Phases, in order; any failure exits nonzero:
    under torch.profiler: the device's busy share and the top kernels.
 4. The card engine's first-token logits (bf16) against the same engine on
    the CPU in float32 (plain versions), and greedy agreement over 16 steps.
+3b. Phase 3 with quant="fp8" pages (64 requests), then quant="int8" (16
+   requests, decode through the int8-qk schedule), with the same launch
+   checks.
+4b. The fp8 card engine's first-token logits against the fp8 engine on the
+   CPU in float32, at the FP8 rung (1e-1 abs+rel); its distance to the bf16
+   card engine and their greedy agreement are reported, not gated.
 5. Training at GPT-3 Small widths (dropout 0.1, remat "full", bf16 compute,
    fp32 parameters), TrainConfig(batch_size=8, seq_len=512, grad_accum=2,
    warmup_steps=2) on the synthetic stream of seed 0: 2 untimed
@@ -37,10 +50,18 @@ Phases, in order; any failure exits nonzero:
    micro-step under torch.profiler.
 6. One training loss and its gradients at full width (B=1, N=512, dropout
    0): the bf16 card against the fp32 CPU (plain versions).
+5b. fa3_attention(fp8=True) forward and backward at (1, 8, 8192, 128)
+   causal, e4m3 (auto: predecode, one flash_fwd) and int8 (auto: fused, one
+   flash_fwd_fp8), counts set to 0 before each and read after; o's distance
+   to exact attention reported; at (1, 8, 1024, 128) the card held against
+   the CPU (plain versions): o and gradients at the bf16 flash limit, LSE
+   at 1e-4; the CPU's backward takes the card's o and LSE, so both read one
+   di = rowsum(o * do).
 
 The last two lines are the kernels' JSON record and the device line
 ``{"ok": true, "device": {...}}``. ``--cpu-rehearsal`` skips phases 1-2,
-runs 3-6 at a tiny width on the CPU and never prints the device line.
+runs the others at a tiny width on the CPU and never prints the device
+line.
 Details also go to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -55,6 +76,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -63,8 +85,11 @@ from flashattention_tpu_torch import _build
 from flashattention_tpu_torch.models import train as ttrain
 from flashattention_tpu_torch.models.transformer import TransformerConfig, init_params
 from flashattention_tpu_torch.ops import flash_attn as fa
+from flashattention_tpu_torch.ops import fp8_attn as f8
 from flashattention_tpu_torch.ops import paged_append as pap
 from flashattention_tpu_torch.ops import paged_attention as pa
+from flashattention_tpu_torch.ops.api import fa3_attention
+from flashattention_tpu_torch.ops.quant import quantize_tokens
 from flashattention_tpu_torch.serving import (
     EngineConfig,
     GenerationRequest,
@@ -73,6 +98,7 @@ from flashattention_tpu_torch.serving import (
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor rate
+INT8_FP8_OPS_PER_S = 1979e12  # H100 SXM dense fp8 (TFLOP/s) and int8 (TOPS)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 SEED = 0
@@ -90,6 +116,7 @@ KERNEL_ATOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}  # bf16: x max|plain|
 PAGED_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_TOL = 1e-4     # both versions take the LSE from the same fp32 scores
 LOGITS_TOL = 5e-2  # bf16 rung of the ladder: bf16 card engine vs fp32 CPU
+FP8_TOL = 1e-1     # FP8 rung: the fp8 card engine vs the fp32 CPU fp8 engine
 TRAIN_TOL = 5e-2   # bf16 card training loss and grads vs the fp32 CPU
 
 KERNELS = {
@@ -105,6 +132,9 @@ KERNELS = {
     "flash_bwd": dict(
         route="cuda", source="flashattention_tpu_torch/csrc/flash_bwd.cu",
         replaces="flashattention_tpu/ops/pallas_attn.py:885"),
+    "flash_fwd_fp8": dict(
+        route="cuda", source="flashattention_tpu_torch/csrc/flash_fwd_fp8.cu",
+        replaces="flashattention_tpu/ops/pallas_fp8.py:92"),
 }
 
 
@@ -206,19 +236,25 @@ def _visible(q, kp, pi, lengths, window, sinks):
     return vis
 
 
-def attention_bound(q, kp, pi, lengths, window=None, sinks=0):
+def attention_bound(q, kp, pi, lengths, window=None, sinks=0,
+                    quantized=False, schedule=None):
     """Least time for the work these inputs need: every visible K/V slot
-    read once per KV head, q read and o written once; 4·D flops per visible
-    (query head, row, slot)."""
+    read once per KV head (payload, and its two fp32 scales when
+    quantized), q read and o written once; 4·D flops per visible (query
+    head, row, slot), half of them Q.K and half P.V, each at the rate of
+    its operands' type (int8 for Q.K under the int8 schedules "qk" and
+    "full", and for P.V under "full")."""
     h_kv, _, page, d = kp.shape
     vis = _visible(q, kp, pi, lengths, window, sinks)
     slots = int(vis.any(dim=1).sum())             # per sequence, any row
     pairs = int(vis.sum()) * h_kv                  # (kv head, row, slot)
-    el = kp.element_size()
+    el = kp.element_size() + (4 / d if quantized else 0)
     nbytes = 2 * slots * h_kv * d * el + 2 * q.numel() * q.element_size()
-    flops = 4 * pairs * d
-    peak = BF16_FLOPS_PER_S if kp.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    peak = FP32_FLOPS_PER_S if q.dtype == torch.float32 else BF16_FLOPS_PER_S
+    qk_peak = INT8_FP8_OPS_PER_S if schedule in ("qk", "full") else peak
+    pv_peak = INT8_FP8_OPS_PER_S if schedule == "full" else peak
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * pairs * d / qk_peak + 2 * pairs * d / pv_peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -276,10 +312,29 @@ def check_close(name, out, ref, rtol, atol=None):
     return max_err
 
 
+def quantize_pages(kp, vp, quant):
+    """(k payload, k scales, v payload, v scales) of float pages, quantized
+    per slot as the engine writes them."""
+    out = []
+    for x in (kp, vp):
+        p, sc = quantize_tokens(x, quant)
+        out += [p, sc[..., None].contiguous()]
+    return out
+
+
 def attention_case(timer, gen, dev, name, dtype, *, window=None, sinks=0,
-                   softcap=None, **shape):
-    q, kp, vp, pi, ln = _paged_inputs(gen, dev, dtype, **shape)
+                   softcap=None, quant=None, int8_qk=None, **shape):
+    q, kp, vp, pi, ln = _paged_inputs(
+        gen, dev, torch.float32 if quant else dtype, **shape)
     kw = dict(window=window, sinks=sinks, softcap=softcap)
+    library_pages = None
+    if quant:
+        q = q.to(dtype)
+        kp, ks, vp, vs = quantize_pages(kp, vp, quant)
+        kw.update(k_scales=ks, v_scales=vs, int8_qk=int8_qk)
+        # the yardstick attends over the dequantized pages, in bf16
+        library_pages = [(x.float() * sc).to(torch.bfloat16)
+                         for x, sc in ((kp, ks), (vp, vs))]
     scale = q.shape[-1] ** -0.5
     out = pa.paged_attention(q, kp, vp, pi, ln, softmax_scale=scale, **kw)
     torch.cuda.synchronize()
@@ -290,23 +345,88 @@ def attention_case(timer, gen, dev, name, dtype, *, window=None, sinks=0,
     ms, wall_ms = timer(call), timer.wall(call)
     plain_ms = timer(lambda: pa.paged_attention_plain(
         q, kp, vp, pi, ln, softmax_scale=scale, **kw), reps=10)
-    library_ms = None
+    sdpa_ms = None
     if softcap is None:  # SDPA has no soft-capping
-        library_ms = timer(sdpa_yardstick(q, kp, vp, pi, ln, scale, window,
-                                          sinks))
-    bound_ms, bound_by = attention_bound(q, kp, pi, ln, window, sinks)
+        lk, lv = library_pages or (kp, vp)
+        sdpa_ms = timer(sdpa_yardstick(q, lk, lv, pi, ln, scale, window,
+                                       sinks))
+    mode = (pa.int8_mode(kp, q.dtype, 1 if q.dim() == 3 else q.shape[2],
+                         int8_qk) if quant else None)
+    bound_ms, bound_by = attention_bound(q, kp, pi, ln, window, sinks,
+                                         quantized=quant is not None,
+                                         schedule=mode)
+    # over quantized pages SDPA (on the dequantized pages) computes another
+    # function: a yardstick, not the library call
+    library_ms, yardstick_ms = (None, sdpa_ms) if quant else (sdpa_ms, None)
     rec = dict(case=name, max_abs_err=max_err, tol=PAGED_TOL[dtype], ms=ms,
                wall_ms=wall_ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=bound_ms,
+               yardstick_ms=yardstick_ms, bound_ms=bound_ms,
                bound_by=bound_by, shape={k: v for k, v in shape.items()},
-               window=window, sinks=sinks, softcap=softcap,
-               dtype=str(dtype).replace("torch.", ""))
+               window=window, sinks=sinks, softcap=softcap, quant=quant,
+               schedule=mode, dtype=str(dtype).replace("torch.", ""))
     log(f"[kernel] paged_attention {name}: max_abs_err {max_err:.3e} "
         f"(tol {PAGED_TOL[dtype]:g} abs+rel)  kernel_ms {ms:.4f} (issued "
         f"from the host: {wall_ms:.4f})  plain_ms "
         f"{plain_ms:.4f}  library_ms "
-        f"{'n/a' if library_ms is None else f'{library_ms:.4f}'}  bound_us "
-        f"{bound_ms * 1e3:.2f} ({bound_by})")
+        f"{'n/a' if library_ms is None else f'{library_ms:.4f}'}"
+        + ("" if yardstick_ms is None else
+           f" (SDPA on the dequantized pages {yardstick_ms:.4f})")
+        + f"  bound_us {bound_ms * 1e3:.2f} ({bound_by})")
+    return rec
+
+
+def quant_append_case(timer, gen, dev, quant, *, b=32, h=12, d=64, page=16,
+                      max_len=512):
+    """The quantized decode append (bf16 tokens in, payload + scale out)
+    against its plain version: bit-exact outside the dump page."""
+    pps = -(-max_len // page)
+    num_pages = b * pps + 1
+    dump = 0
+    pages = quantize_pages(
+        torch.randn((h, num_pages, page, d), generator=gen).to(dev),
+        torch.randn((h, num_pages, page, d), generator=gen).to(dev), quant)
+    kn = torch.randn((b, h, d), generator=gen).to(dev, torch.bfloat16)
+    vn = torch.randn((b, h, d), generator=gen).to(dev, torch.bfloat16)
+    phys = (torch.randperm(num_pages - 1, generator=gen)[:b] + 1).to(torch.int32)
+    slot = torch.randint(0, page, (b,), generator=gen).to(torch.int32)
+    ok = torch.ones(b, dtype=torch.int32)
+    idle = torch.arange(b) % 4 == 3
+    phys[idle], slot[idle] = dump, 0
+    ok[b - 1] = 0
+    phys, slot, ok = phys.to(dev), slot.to(dev), ok.to(dev)
+    got = [t.clone() for t in pages]
+    want = [t.clone() for t in pages]
+
+    def call(t):
+        return pap.paged_append(t[0], t[2], kn, vn, phys, slot, ok, t[1], t[3])
+
+    call(got)
+    torch.cuda.synchronize()
+    pap.paged_append_plain(want[0], want[2], kn, vn, phys, slot, ok, want[1],
+                           want[3])
+    keep = torch.arange(num_pages, device=dev) != dump
+    diff = sum(int((g[:, keep].view(torch.uint8)
+                    != w[:, keep].view(torch.uint8)).sum())
+               for g, w in zip(got, want))
+    if diff:
+        fail(f"paged_append {quant}: {diff} bytes differ from the plain version")
+    ms, wall_ms = timer(lambda: call(got), reps=50), timer.wall(
+        lambda: call(got), reps=50)
+    plain_ms = timer(lambda: pap.paged_append_plain(
+        want[0], want[2], kn, vn, phys, slot, ok, want[1], want[3]), reps=50)
+    n_ok = int(ok.sum())
+    # bf16 tokens read; 1-byte payloads and fp32 scales written
+    nbytes = 2 * n_ok * h * (d * 2 + d + 4)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = dict(case=f"{quant} decode append B={b} H_kv={h} D={d} page={page},"
+                    f" {int(idle.sum())} idle rows on the dump page, 1 ok=0",
+               max_abs_err=0.0, tol=0.0, ms=ms, wall_ms=wall_ms,
+               plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+               bound_by="bytes")
+    log(f"[kernel] paged_append {quant}: bit-exact (dump page excluded)  "
+        f"kernel_ms {ms:.4f} (issued from the host: {wall_ms:.4f})  plain_ms "
+        f"{plain_ms:.4f}  library_ms n/a  bound_us {bound_ms * 1e3:.3f} "
+        f"(bytes)")
     return rec
 
 
@@ -502,6 +622,149 @@ def flash_case(timer, gen, dev, key):
     return rec
 
 
+# key: (label, (B, H, H_kv, N, D), fp8_attention kwargs, extras)
+FP8_CASES = {
+    "a": ("BASELINE (1, 8, 8192, 128) e4m3 causal, mode fused",
+          (1, 8, 8, 8192, 128), dict(causal=True, mode="fused"), ()),
+    "b": ("(1, 8, 8192, 128) int8 causal, auto (fused)",
+          (1, 8, 8, 8192, 128), dict(causal=True, fmt="int8"), ()),
+    "c": ("(1, 8, 8192, 128) e5m2 causal, mode fused",
+          (1, 8, 8, 8192, 128), dict(causal=True, mode="fused", fmt="e5m2"),
+          ()),
+    "d": ("(8, 12, 512, 64) e4m3 causal, auto (one q block: fused), "
+          "dropout 0.1", (8, 12, 12, 512, 64),
+          dict(causal=True, dropout_rate=0.1, dropout_seed=77), ()),
+    "e": ("GQA 12/4 window 128 sinks 4 softcap 30, B=8 N=512 e4m3",
+          (8, 12, 4, 512, 64),
+          dict(causal=True, window=128, sinks=4, softcap=30.0), ()),
+    "f": ("segment ids (4 per row) + ALiBi, B=8 H=12 N=512 e4m3",
+          (8, 12, 12, 512, 64), dict(causal=True), ("segments", "alibi")),
+    "g": ("int8 PV s8, (1, 8, 2048, 128) causal", (1, 8, 8, 2048, 128),
+          dict(causal=True, fmt="int8", int8_pv="s8"), ()),
+}
+FP8_STE_SHAPE = (8, 12, 12, 512, 64)
+
+
+def fp8_bound(q8, k8, opts, bq, bk, out_el, int8_pv):
+    """Least time of one 8-bit forward: payloads and scales read once, o and
+    the LSE written once; 4·D operations per visible (head, row, key): 2·D
+    of Q.K on 8-bit operands at the fp8/int8 tensor rate, 2·D of P.V at the
+    bf16 rate (p is bf16), or at the int8 rate with ``int8_pv="s8"``."""
+    b, h, n_q, d = q8.shape
+    n_k = k8.shape[2]
+    vis = fa.visible_mask(opts, n_q, n_k, q8.device)
+    pairs = (b * h * n_q * n_k if vis is None
+             else int(vis.expand(b, 1, n_q, n_k).sum()) * h)
+    nbytes = (q8.numel() + 2 * k8.numel()
+              + 4 * (b * h * -(-n_q // bq) + 2 * k8.shape[0] * k8.shape[1]
+                     * -(-n_k // bk))
+              + q8.numel() * out_el + b * h * n_q * 4)
+    pv_peak = INT8_FP8_OPS_PER_S if int8_pv == "s8" else BF16_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * pairs * d / INT8_FP8_OPS_PER_S + 2 * pairs * d / pv_peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def fp8_case(timer, gen, dev, key):
+    label, shape, kw, extras = FP8_CASES[key]
+    b, h, h_kv, n, d = shape
+    q, k, v, _, _, more = _flash_inputs(gen, dev, (b, h, h_kv, n, n, d), BF16,
+                                        extras)
+    kw = dict(kw)
+    fmt, int8_pv = kw.pop("fmt", "fp8"), kw.pop("int8_pv", "bf16")
+    mode = kw.pop("mode", "auto")
+    # the public call: it must launch the 8-bit kernel once
+    f8.fp8_attention.launches = 0
+    o_api, _ = f8.fp8_attention(q, k, v, fmt=fmt, int8_pv=int8_pv, mode=mode,
+                                **kw, **more)
+    torch.cuda.synchronize()
+    if f8.fp8_attention.launches != 1:
+        fail(f"fp8 {key}: fp8_attention launched flash_fwd_fp8 "
+             f"{f8.fp8_attention.launches} times, want 1")
+    del o_api
+    opts = fa.make_opts(q, k, **kw, **more)
+    q8, k8, v8, sq, sk, sv, bq, bk = f8.quantize_inputs(
+        q, k, v, f8.FP8_KERNEL_BLOCK_Q, f8.FP8_KERNEL_BLOCK_K, fmt)
+    args = (q8, k8, v8, sq, sk, sv, bq, bk, opts)
+    o, lse = f8.fp8_fwd(*args, int8_pv=int8_pv, out_dtype=BF16)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = f8.fp8_fwd_plain(*args, int8_pv=int8_pv, out_dtype=BF16)
+    tol = kernel_tol(BF16, o_ref)
+    err = {"o": check_close(f"fp8 {key} o", o, o_ref, *tol)}
+    err["lse"] = check_close(f"fp8 {key} lse", lse, lse_ref, LSE_TOL)
+    del o_ref, lse_ref
+    big = n > 4096
+    ms = timer(lambda: f8.fp8_fwd(*args, int8_pv=int8_pv, out_dtype=BF16))
+    plain_ms = timer(lambda: f8.fp8_fwd_plain(*args, int8_pv=int8_pv,
+                                              out_dtype=BF16),
+                     reps=3 if big else 10, warmup=1)
+    # yardstick: SDPA on the dequantized inputs (another function)
+    qd, kd, vd = (f8.dequantize_bf16(x, sc, blk) for x, sc, blk in
+                  ((q8, sq, bq), (k8, sk, bk), (v8, sv, bk)))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    yardstick_ms = timer(lambda: sdpa(qd, kd, vd, is_causal=True,
+                                      scale=opts.scale, enable_gqa=h != h_kv))
+    bound_ms, bound_by = fp8_bound(q8, k8, opts, bq, bk, 2, int8_pv)
+    rec = dict(case=label, shape=shape, fmt=fmt, int8_pv=int8_pv,
+               blocks=(bq, bk), max_abs_err=err,
+               tol=dict(o=dict(rtol=tol[0], atol=tol[1]), lse=LSE_TOL),
+               ms=ms, plain_ms=plain_ms, library_ms=None,
+               yardstick_ms=yardstick_ms, bound_ms=bound_ms,
+               bound_by=bound_by, api_launches=1)
+    log(f"[kernel] flash_fwd_fp8 {key} ({label}): max_abs_err o "
+        f"{err['o']:.2e} lse {err['lse']:.2e} ({tol_text(BF16)}: p is bf16; "
+        f"lse {LSE_TOL:g})  kernel {ms:.4f} ms (plain {plain_ms:.4f}, SDPA on "
+        f"the dequantized inputs {yardstick_ms:.4f}, bound {bound_ms:.4f} "
+        f"{bound_by}); fp8_attention launched it once (checked)")
+    return rec
+
+
+def fp8_ste_case(timer, gen, dev):
+    """The straight-through backward of fp8_attention on the card (kernel
+    B4, then the flash backward kernels on the dequantized inputs) against
+    the plain versions on the same inputs."""
+    b, h, h_kv, n, d = FP8_STE_SHAPE
+    q, k, v, do, _, _ = _flash_inputs(gen, dev, (b, h, h_kv, n, n, d), BF16, ())
+    kw = dict(causal=True, dropout_rate=0.1, dropout_seed=5)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    f8.fp8_attention.launches = 0
+    b0 = fa.kernel_attention.bwd_launches
+    o, _ = f8.fp8_attention(*leaves, **kw)
+    o.backward(do)
+    torch.cuda.synchronize()
+    if (f8.fp8_attention.launches, fa.kernel_attention.bwd_launches - b0) != (1, 1):
+        fail("fp8 STE: want one flash_fwd_fp8 and one flash_bwd launch")
+    opts = fa.make_opts(q, k, **kw)
+    q8, k8, v8, sq, sk, sv, bq, bk = f8.quantize_inputs(
+        q, k, v, f8.FP8_KERNEL_BLOCK_Q, f8.FP8_KERNEL_BLOCK_K, "fp8")
+    o_p, lse_p = f8.fp8_fwd_plain(q8, k8, v8, sq, sk, sv, bq, bk, opts,
+                                  out_dtype=BF16)
+    qd, kd, vd = (f8.dequantize_bf16(x, sc, blk) for x, sc, blk in
+                  ((q8, sq, bq), (k8, sk, bk), (v8, sv, bk)))
+    di = (o_p.float() * do.float()).sum(-1)
+    refs = fa.flash_bwd_plain(qd, kd, vd, do, lse_p, di, opts)
+    err, tols = {}, {}
+    for name, leaf, r in zip(("dq", "dk", "dv"), leaves, refs):
+        tols[name] = kernel_tol(BF16, r)
+        err[name] = check_close(f"fp8 STE {name}", leaf.grad, r, *tols[name])
+
+    def step():
+        for x in leaves:
+            x.grad = None
+        o, _ = f8.fp8_attention(*leaves, **kw)
+        o.backward(do)
+
+    ms = timer(step)
+    log(f"[kernel] fp8 STE backward {FP8_STE_SHAPE} e4m3 dropout 0.1: max_abs_err "
+        + " ".join(f"{k_} {e:.2e}" for k_, e in err.items())
+        + f" ({tol_text(BF16)})  forward+backward {ms:.4f} ms")
+    return dict(case=f"STE backward {FP8_STE_SHAPE} e4m3 causal dropout 0.1",
+                max_abs_err=err, tol={n_: dict(rtol=r, atol=a)
+                                      for n_, (r, a) in tols.items()},
+                fwd_bwd_ms=ms)
+
+
 def phase_kernels(dev):
     gen = torch.Generator().manual_seed(SEED)
     timer = Timer(dev)
@@ -523,9 +786,32 @@ def phase_kernels(dev):
                                torch.float32, b=8, page=16, q_len=0, **gpt3),
         "append": append_case(timer, gen, dev),
     }
+    # Quantized pages: the engine's decode shape in every format and the
+    # int8 schedules, an e4m3 chunk, and scripts/bench_decode.py's shape.
+    for key, quant, int8_qk in (("int8_qk", "int8", None),
+                                ("int8_convert", "int8", False),
+                                ("fp8", "fp8", None), ("e5m2", "e5m2", None)):
+        recs[f"decode_{key}"] = attention_case(
+            timer, gen, dev, f"decode B=32 page=16 {key}", bf, b=32, page=16,
+            q_len=0, quant=quant, int8_qk=int8_qk, **gpt3)
+    recs["chunk_fp8"] = attention_case(
+        timer, gen, dev, "chunk B=1 T=64 page=16 fp8", bf, b=1, page=16,
+        q_len=64, lengths=[448], quant="fp8", **gpt3)
+    bench = dict(b=64, h=8, h_kv=8, d=128, page=64, max_len=2048, q_len=0,
+                 lengths=[2048] * 64)
+    for quant in (None, "int8", "fp8"):
+        recs[f"bench_decode_{quant or 'bf16'}"] = attention_case(
+            timer, gen, dev, f"bench_decode B=64 H=8 D=128 len 2048 page 64 "
+            f"{quant or 'bf16'}", bf, quant=quant, **bench)
+    for quant in ("fp8", "int8"):
+        recs[f"append_{quant}"] = quant_append_case(timer, gen, dev, quant)
     for key in FLASH_CASES:
         recs[f"flash_{key}"] = flash_case(timer, gen, dev, key)
         torch.cuda.empty_cache()
+    for key in FP8_CASES:
+        recs[f"fp8_{key}"] = fp8_case(timer, gen, dev, key)
+        torch.cuda.empty_cache()
+    recs["fp8_ste"] = fp8_ste_case(timer, gen, dev)
     return recs
 
 
@@ -539,13 +825,15 @@ def reset_counts():
     pap.paged_append.launches = 0
     fa.kernel_attention.fwd_launches = 0
     fa.kernel_attention.bwd_launches = 0
+    f8.fp8_attention.launches = 0
 
 
 def read_counts():
     return {"paged_attention": pa.paged_attention.launches,
             "paged_append": pap.paged_append.launches,
             "flash_fwd": fa.kernel_attention.fwd_launches,
-            "flash_bwd": fa.kernel_attention.bwd_launches}
+            "flash_bwd": fa.kernel_attention.bwd_launches,
+            "flash_fwd_fp8": f8.fp8_attention.launches}
 
 
 def phase_engine(cfg, params, ecfg, dev, n_req, prompt_range, n_new, on_card):
@@ -667,36 +955,145 @@ def phase_profile(cfg, params, ecfg, dev, steps=20):
     return rec
 
 
-def phase_vs_cpu(cfg, params, dev, prompt_len, steps):
+def _first_logits(params, cfg, dev, prompt, steps, quant=None):
+    """First-token logits (float32, host) and greedy tokens of a one-slot
+    engine serving ``prompt``."""
+    ecfg = EngineConfig(max_batch_size=1, page_size=16, num_pages=40,
+                        max_seq_len=cfg.max_seq_len, prefill_pad=64,
+                        quant=quant)
+    eng = ServingEngine(params, cfg, ecfg, device=dev)
+    eng.submit(GenerationRequest(0, prompt, steps))
+    toks = eng.run()[0]
+    return eng.last_prefill_logits.float().cpu(), toks
+
+
+def _agreement(tc, tr):
+    agree = sum(a == b for a, b in zip(tc, tr))
+    prefix = next((i for i, (a, b) in enumerate(zip(tc, tr)) if a != b),
+                  len(tc))
+    return agree, prefix
+
+
+def phase_vs_cpu(cfg, params, dev, prompt_len, steps, quant=None):
+    """The card engine's first-token logits against the same engine on the
+    CPU in float32 (plain versions): the bf16 rung for bf16 pages, the FP8
+    rung for quantized pages; the latter also reports, ungated, its distance
+    to the bf16 unquantized card engine."""
     rng = np.random.default_rng(SEED + 1)
     prompt = [int(t) for t in rng.integers(0, cfg.vocab_size, size=prompt_len)]
-    ecfg = EngineConfig(max_batch_size=1, page_size=16, num_pages=40,
-                        max_seq_len=cfg.max_seq_len, prefill_pad=64)
-    out = {}
-    for tag, c, d in (("card", cfg, dev),
-                      ("cpu_fp32", dataclasses.replace(cfg, dtype=torch.float32),
-                       "cpu")):
-        eng = ServingEngine(params, c, ecfg, device=d)
-        eng.submit(GenerationRequest(0, prompt, steps))
-        toks = eng.run()[0]
-        out[tag] = (eng.last_prefill_logits.float().cpu(), toks)
-    (lc, tc), (lr, tr) = out["card"], out["cpu_fp32"]
+    tol = LOGITS_TOL if quant is None else FP8_TOL
+    lc, tc = _first_logits(params, cfg, dev, prompt, steps, quant)
+    lr, tr = _first_logits(params, dataclasses.replace(cfg, dtype=torch.float32),
+                           "cpu", prompt, steps, quant)
     err = (lc - lr).abs()
     max_err = float(err.max())
     if not torch.isfinite(lc).all():
         fail("card engine logits are not finite")
-    if bool((err > LOGITS_TOL + LOGITS_TOL * lr.abs()).any()):
-        fail(f"first-token logits differ by {max_err:.3e}, over tolerance "
-             f"{LOGITS_TOL:g} (abs + rel)")
-    agree = sum(a == b for a, b in zip(tc, tr))
-    prefix = next((i for i, (a, b) in enumerate(zip(tc, tr)) if a != b),
-                  len(tc))
-    log(f"[vs_cpu] first-token logits: max |card bf16 - cpu fp32| "
-        f"{max_err:.3e} (tol {LOGITS_TOL:g} abs+rel; max |logit| "
+    if bool((err > tol + tol * lr.abs()).any()):
+        fail(f"first-token logits ({quant or 'bf16'} pages) differ by "
+             f"{max_err:.3e}, over tolerance {tol:g} (abs + rel)")
+    agree, prefix = _agreement(tc, tr)
+    tag = f"{quant} pages" if quant else "bf16"
+    log(f"[vs_cpu] {tag}: first-token logits max |card - cpu fp32| "
+        f"{max_err:.3e} (tol {tol:g} abs+rel; max |logit| "
         f"{float(lr.abs().max()):.3e}); greedy tokens equal at {agree}/{steps}"
         f" steps, first {prefix} identical")
-    return dict(max_abs_err=max_err, tol=LOGITS_TOL, greedy_agree=agree,
-                greedy_prefix=prefix, steps=steps)
+    rec = dict(quant=quant, max_abs_err=max_err, tol=tol, greedy_agree=agree,
+               greedy_prefix=prefix, steps=steps)
+    if quant is not None:
+        lb, tb = _first_logits(params, cfg, dev, prompt, steps)
+        agree_b, prefix_b = _agreement(tc, tb)
+        rec.update(vs_bf16_card_max_abs=float((lc - lb).abs().max()),
+                   vs_bf16_card_greedy_agree=agree_b,
+                   vs_bf16_card_greedy_prefix=prefix_b)
+        log(f"[vs_cpu] {tag} vs bf16 pages on the card (not gated): max "
+            f"|diff| {rec['vs_bf16_card_max_abs']:.3e}; greedy tokens equal "
+            f"at {agree_b}/{steps} steps, first {prefix_b} identical")
+    return rec
+
+
+def _fa3_fp8_run(q, k, v, do, fmt, saved=None):
+    """fa3_attention(fp8=True) forward and backward: (o, lse, dq, dk, dv).
+    With ``saved`` = (o, lse) of another run, the straight-through backward
+    takes those in place of this forward's own: its di = rowsum(o * do) then
+    reads the same o as that run's backward did."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    o, lse = fa3_attention(*leaves, causal=True, fp8=True, fp8_fmt=fmt)
+    if saved is None:
+        o.backward(do)
+    else:
+        flash_bwd = fa.flash_bwd
+
+        def with_saved(qd, kd, vd, o_, lse_, *rest):
+            return flash_bwd(qd, kd, vd, saved[0].to(o_), saved[1].to(lse_),
+                             *rest)
+
+        with mock.patch.object(fa, "flash_bwd", with_saved):
+            o.backward(do)
+    return [o.detach(), lse.detach()] + [x.grad for x in leaves]
+
+
+def phase_fa3_fp8(dev, shape, check_shape, on_card):
+    """The FA3 8-bit path through its public entry point:
+    ``fa3_attention(fp8=True)`` forward and backward on the kernel backend,
+    e4m3 (auto mode: more than one q block, so predecode = dequantize +
+    flash_fwd) and int8 (auto mode: fused = flash_fwd_fp8).
+
+    At ``shape`` counts are set to 0 just before each run and read just
+    after (one 8-bit or flash forward and one flash backward), outputs must
+    be finite, and the distance of o to exact attention is reported (the
+    quantization's error, not gated). At ``check_shape`` the card's o, LSE
+    and gradients are held against the same call on the CPU (plain
+    versions), all at the kernels' limits; the CPU's backward takes the
+    card's o and LSE, so both backward runs read the same di."""
+    gen = torch.Generator().manual_seed(SEED + 4)
+    base = [torch.randn(shape, generator=gen) for _ in range(4)]
+    q, k, v, do = (x.to(dev, torch.bfloat16) for x in base)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    exact = sdpa(q.float(), k.float(), v.float(), is_causal=True)
+    small = [x[:, :, :check_shape[2]].contiguous() for x in base]
+    out = {}
+    for fmt, want in (("fp8", "flash_fwd"), ("int8", "flash_fwd_fp8")):
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = _fa3_fp8_run(q, k, v, do, fmt)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        o = res[0]
+        if (not all(torch.isfinite(x.float()).all() for x in res)
+                or o.shape != q.shape):
+            fail(f"fa3_attention(fp8=True, {fmt}): non-finite or misshapen "
+                 f"output")
+        if on_card:
+            other = "flash_fwd_fp8" if want == "flash_fwd" else "flash_fwd"
+            if (counts[want], counts[other], counts["flash_bwd"]) != (1, 0, 1):
+                fail(f"fa3_attention(fp8=True, {fmt}) launched {counts}; want "
+                     f"one {want} and one flash_bwd")
+        vs_exact = float((o.float() - exact).abs().max())
+        del res, o
+        # the same call on the CPU at the small shape
+        card = _fa3_fp8_run(*(x.to(dev, torch.bfloat16) for x in small), fmt)
+        cpu = _fa3_fp8_run(*(x.to(torch.bfloat16) for x in small), fmt,
+                           saved=[x.cpu() for x in card[:2]])
+        err = {}
+        for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), card, cpu):
+            tol = ((LSE_TOL, LSE_TOL) if name == "lse"
+                   else kernel_tol(BF16, r))
+            err[name] = check_close(f"fa3 fp8 {fmt} {name} card vs cpu",
+                                    a.cpu(), r, *tol)
+        out[fmt] = dict(max_abs_vs_exact=vs_exact, fwd_bwd_wall_ms=wall * 1e3,
+                        launches=counts, check_shape=check_shape,
+                        card_vs_cpu_max_abs=err)
+        log(f"[fa3_fp8] {shape} causal {fmt}: forward+backward {wall * 1e3:.2f}"
+            f" ms wall (first call); launches {counts}; max |o - exact| "
+            f"{vs_exact:.3e} (quantization error, not gated); at "
+            f"{check_shape} card vs cpu: "
+            + " ".join(f"{n_} {e:.2e}" for n_, e in err.items())
+            + f" (o and gradients {tol_text(BF16)}; lse {LSE_TOL:g}; the "
+            f"cpu backward takes the card's o and lse)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -832,7 +1229,7 @@ def phase_train_vs_cpu(cfg, dev, n=512):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="skip phases 1-2; run 3-6 tiny on the CPU")
+                    help="skip phases 1-2; run the others tiny on the CPU")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -850,6 +1247,14 @@ def main() -> int:
                                         8, on_card=False)
         report["profile"] = phase_profile(cfg, params, ecfg, "cpu", steps=4)
         report["vs_cpu"] = phase_vs_cpu(cfg, params, "cpu", 40, 8)
+        for quant, n_req in (("fp8", 8), ("int8", 4)):
+            report[f"engine_{quant}"] = phase_engine(
+                cfg, params, dataclasses.replace(ecfg, quant=quant), "cpu",
+                n_req, (8, 60), 8, on_card=False)
+        report["vs_cpu_fp8"] = phase_vs_cpu(cfg, params, "cpu", 40, 8,
+                                            quant="fp8")
+        report["fa3_fp8"] = phase_fa3_fp8("cpu", (1, 2, 1024, 64),
+                                          (1, 2, 640, 64), False)
         tcfg = dataclasses.replace(cfg, dropout_rate=0.1)
         tc = ttrain.TrainConfig(batch_size=2, seq_len=64, grad_accum=2,
                                 warmup_steps=2)
@@ -901,6 +1306,15 @@ def main() -> int:
 
     # Phase 4
     report["vs_cpu"] = phase_vs_cpu(cfg, params, dev, 100, 16)
+
+    # Phase 3b: quantized pages, same config and traffic (int8: 16 requests)
+    for quant, n_req in (("fp8", 64), ("int8", 16)):
+        report[f"engine_{quant}"] = phase_engine(
+            cfg, params, dataclasses.replace(ecfg, quant=quant), dev, n_req,
+            (32, 400), 64, on_card=True)
+
+    # Phase 4b
+    report["vs_cpu_fp8"] = phase_vs_cpu(cfg, params, dev, 100, 16, quant="fp8")
     del params
 
     # Phase 5
@@ -912,18 +1326,37 @@ def main() -> int:
 
     # Phase 6
     report["train_vs_cpu"] = phase_train_vs_cpu(tcfg, dev)
+    torch.cuda.empty_cache()
+
+    # Phase 5b: the FA3 8-bit path at the BASELINE shape
+    report["fa3_fp8"] = phase_fa3_fp8(dev, (1, 8, 8192, 128),
+                                      (1, 8, 1024, 128), True)
 
     counts = {**report["engine"]["launches"],
               **{k: report["train"]["launches"][k]
                  for k in ("flash_fwd", "flash_bwd")}}
     kernels = []
-    for case, name in (("decode", "paged_attention"), ("append", "paged_append")):
+    # (kernel, name in the record, phase-2 case, launches of its main path)
+    for name, tag, case, n in (
+        ("paged_attention", "paged_attention", "decode",
+         counts["paged_attention"]),
+        ("paged_attention", "paged_attention[int8]", "decode_int8_qk",
+         report["engine_int8"]["launches"]["paged_attention"]),
+        ("paged_attention", "paged_attention[fp8]", "decode_fp8",
+         report["engine_fp8"]["launches"]["paged_attention"]),
+        ("paged_append", "paged_append", "append", counts["paged_append"]),
+        ("paged_append", "paged_append[int8]", "append_int8",
+         report["engine_int8"]["launches"]["paged_append"]),
+        ("paged_append", "paged_append[fp8]", "append_fp8",
+         report["engine_fp8"]["launches"]["paged_append"]),
+    ):
         r = report["kernels"][case]
         kernels.append(dict(
-            name=name, **KERNELS[name], launches=counts[name],
+            name=tag, **KERNELS[name], launches=n,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], case=r["case"],
+            library_ms=r["library_ms"], yardstick_ms=r.get("yardstick_ms"),
+            case=r["case"],
         ))
     r = report["kernels"]["flash_a"]
     for name, part, errs in (("flash_fwd", "fwd", ("o", "lse")),
@@ -935,6 +1368,20 @@ def main() -> int:
             bound_ms=r[f"{part}_bound_ms"], bound_by=r[f"{part}_bound_by"],
             library_ms=r[f"library_{part}_ms"], case=r["case"],
         ))
+    # flash_fwd_fp8: its main path is fa3_attention(fp8=True, int8) (phase
+    # 5b); its numbers come from phase-2 case (b), that call's shape.
+    r = report["kernels"]["fp8_b"]
+    kernels.append(dict(
+        name="flash_fwd_fp8", **KERNELS["flash_fwd_fp8"],
+        launches=report["fa3_fp8"]["int8"]["launches"]["flash_fwd_fp8"],
+        max_abs_err=max(r["max_abs_err"].values()), ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=None,
+        yardstick_ms=r["yardstick_ms"], case=r["case"],
+    ))
+    for k in kernels:
+        if k["launches"] <= 0:
+            fail(f"{k['name']} was launched no time on its main path")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -14,7 +14,11 @@ Ported so far:
 - training (``models.train``): the dense decoder forward
   (``models.transformer.apply_transformer``) over the flash-attention
   forward and backward kernels (``ops.flash_attn``), the attention API
-  (``ops.api``), the tiled executor and the dense oracle.
+  (``ops.api``), the tiled executor and the dense oracle;
+- the 8-bit path: FA3 8-bit attention (``ops.fp8_attn``, kernel
+  ``csrc/flash_fwd_fp8.cu``) behind ``fa3_attention(fp8=True)``, and
+  int8/e4m3/e5m2 paged caches (``init_paged_cache(quant=...)``,
+  ``EngineConfig(quant=...)``) through the paged kernels.
 """
 
 from flashattention_tpu_torch.models.train import TrainConfig, train
@@ -33,6 +37,7 @@ from flashattention_tpu_torch.ops.api import (
     flash_attention,
 )
 from flashattention_tpu_torch.ops.flash_attn import kernel_attention
+from flashattention_tpu_torch.ops.fp8_attn import fp8_attention
 from flashattention_tpu_torch.ops.paged_append import paged_append
 from flashattention_tpu_torch.ops.paged_attention import paged_attention
 from flashattention_tpu_torch.ops.reference import reference_attention
@@ -60,6 +65,7 @@ __all__ = [
     "fa2_attention",
     "fa3_attention",
     "flash_attention",
+    "fp8_attention",
     "init_params",
     "kernel_attention",
     "paged_append",

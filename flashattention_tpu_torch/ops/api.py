@@ -26,9 +26,17 @@ import warnings
 
 import torch
 
+from flashattention_tpu_torch.ops import quant
 from flashattention_tpu_torch.ops.flash_attn import kernel_attention
+from flashattention_tpu_torch.ops.fp8_attn import fp8_attention
 from flashattention_tpu_torch.ops.reference import band_mask, reference_attention
-from flashattention_tpu_torch.ops.specs import TILED_BLOCK_K
+from flashattention_tpu_torch.ops.specs import (
+    FA3_BLOCK_K,
+    FP8_KERNEL_BLOCK_Q,
+    TILED_BLOCK_K,
+    fa3_block_q,
+    fp8_block,
+)
 from flashattention_tpu_torch.ops.tiled import tiled_attention
 
 BACKENDS = ("auto", "kernel", "tiled", "reference")
@@ -197,14 +205,39 @@ def fa3_attention(q, k, v, causal: bool = False, softmax_scale=None,
                   backend: str = "auto", fp8: bool = False, fp8_seed: int = 0,
                   dropout_rate: float = 0.0, dropout_seed: int | None = None,
                   generator: torch.Generator | None = None,
-                  fp8_fmt: str = "fp8"):
-    """FA3 generation. ``fp8=True`` (8-bit payloads, kernel B4) is not
-    ported yet and raises."""
-    if fp8:
-        raise NotImplementedError("fa3_attention(fp8=True) is not ported yet")
-    return flash_attention(q, k, v, causal=causal, softmax_scale=softmax_scale,
-                           backend=backend, dropout_rate=dropout_rate,
-                           dropout_seed=dropout_seed, generator=generator)
+                  fp8_fmt: str = "fp8", fp8_sign: torch.Tensor | None = None):
+    """FA3 generation; ``fp8=True`` runs the 8-bit path.
+
+    q and k first go through the randomized-Hadamard rotation
+    (``quant.incoherent_process``) with the signs ``fp8_sign``, by default
+    drawn from a ``torch.Generator`` seeded with ``fp8_seed`` (JAX draws
+    them with ``jax.random``; pass its vector to match). The kernel backend
+    then runs ``fp8_attention`` (payloads of ``fp8_fmt``, q blocks of 512,
+    k/v blocks of 1024, clamped to the sequence); the tiled and reference
+    backends run on e4m3 fake-quantized inputs (blocks: the largest
+    divisors of N up to ``specs.fa3_block_q`` and ``specs.FA3_BLOCK_K``),
+    whatever ``fp8_fmt`` says, as in the JAX package."""
+    if not fp8:
+        return flash_attention(q, k, v, causal=causal,
+                               softmax_scale=softmax_scale, backend=backend,
+                               dropout_rate=dropout_rate,
+                               dropout_seed=dropout_seed, generator=generator)
+    backend = _resolve_backend(backend)
+    seed = _seed(dropout_rate, dropout_seed, generator)
+    qr, kr = quant.incoherent_process(q, k, seed=fp8_seed, sign=fp8_sign)
+    if backend == "kernel":
+        return fp8_attention(
+            qr, kr, v, causal=causal, softmax_scale=softmax_scale,
+            block_q=min(fa3_block_q(q.shape[-1]), FP8_KERNEL_BLOCK_Q),
+            block_k=FA3_BLOCK_K, dropout_rate=dropout_rate,
+            dropout_seed=seed, fmt=fp8_fmt)
+    blk_q = fp8_block(q.shape[-2], fa3_block_q(q.shape[-1]))
+    blk_k = fp8_block(k.shape[-2], FA3_BLOCK_K)
+    return flash_attention(
+        quant.fake_quant_fp8(qr, blk_q), quant.fake_quant_fp8(kr, blk_k),
+        quant.fake_quant_fp8(v, blk_k), causal=causal,
+        softmax_scale=softmax_scale, backend=backend,
+        dropout_rate=dropout_rate, dropout_seed=seed)
 
 
 def alibi_slopes(n_heads: int) -> torch.Tensor:

@@ -10,7 +10,8 @@ raises.
 Layout (as in the JAX package):
 
     q             (B, H, D) decode, or (B, H, T, D) chunk
-    k/v_pages     (H_kv, P, page, D)
+    k/v_pages     (H_kv, P, page, D) bf16/fp32, or int8/e4m3/e5m2 payloads
+    k/v_scales    (H_kv, P, page, 1) fp32 per-slot scales of a quantized cache
     page_indices  (B, pages_per_seq) int32, logical -> physical page
     lengths       (B,) int32, slots written per sequence, the chunk included
 
@@ -18,9 +19,31 @@ Row t of a chunk sits at position ``lengths - T + t`` and attends to slots
 ``<= position``; with ``window`` W only to slots ``> position - W``, plus
 the first ``sinks`` slots. A row that sees no slot returns zeros.
 
-The compute type is the pages' dtype: q is scaled in it before QK, scores
-accumulate in float32, and p is rounded to it before PV (the TPU kernel's
-rounding points). float32 pages give the exact float32 computation.
+Rounding points follow the TPU kernel. The compute type is the pages' dtype
+for bf16/fp32 pages and q's dtype for quantized pages (bf16 on the card
+engine, fp32 in the CPU tests): q is scaled in it before QK, scores
+accumulate in float32, and p is rounded to it before PV. Quantized payloads
+convert to the compute type exactly; the fp32 scores are multiplied by
+``k_scale[slot]`` after QK (before soft-cap and mask), ``l`` sums the
+unscaled p, and ``p * v_scale[slot]`` is rounded to the compute type before
+PV.
+
+int8 pages have two more schedules (``int8_qk``), as the JAX kernel's
+``FAT_PAGED_INT8_MXU`` knob:
+
+- ``"qk"``: q is quantized per row, ``qs = max(max|q_row|, 1e-9) * (1/127)``,
+  ``q8 = round(q / qs)``; scores are ``float(q8 . k8) * (qs * scale) *
+  k_scale``; V converts as above.
+- ``"full"``: as ``"qk"``, and ``pv = p * v_scale`` is re-quantized per row
+  over each step of the page walk (the JAX merged kernel's steps of
+  max(1, min(512 // page, pages_per_seq)) pages):
+  ``ps = max(max pv, 1e-30) * (1/127)``, contribution ``round(pv / ps) * ps
+  . v8``.
+
+``int8_qk=None`` is the JAX default: ``"qk"`` for int8 pages, bf16 compute,
+q_len 1 and page % 16 == 0, else the convert path. ``True`` means
+``"qk"``, ``False`` the convert path. Either int8 schedule needs
+page % 16 == 0 (the TPU merged schedule); other page sizes convert.
 """
 
 from __future__ import annotations
@@ -30,9 +53,13 @@ import ctypes
 import torch
 
 from flashattention_tpu_torch import _build
+from flashattention_tpu_torch.ops.quant import inv_qmax
 from flashattention_tpu_torch.ops.reference import score_pipeline
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+# payload format codes of the kernel: 0 = the compute type itself
+_FMT_CODE = {torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
+_MODE_CODE = {"convert": 0, "qk": 1, "full": 2}
 MAX_HEAD_DIM = 128
 
 
@@ -43,6 +70,44 @@ def row_positions(lengths, q_len, rows_per_head):
     return lengths.to(torch.int64)[:, None] - q_len + t[None, :]
 
 
+def int8_mode(k_pages, q_dtype, q_len, int8_qk) -> str:
+    """The schedule of a call: "convert", "qk" or "full" (module
+    docstring)."""
+    if k_pages.dtype != torch.int8 or k_pages.shape[2] % 16:
+        return "convert"
+    if int8_qk is None:
+        return "qk" if (q_dtype == torch.bfloat16 and q_len == 1) else "convert"
+    if int8_qk is False:
+        return "convert"
+    if int8_qk is True or int8_qk == "qk":
+        return "qk"
+    if int8_qk == "full":
+        return "full"
+    raise ValueError(f"int8_qk must be None, a bool, 'qk' or 'full', got "
+                     f"{int8_qk!r}")
+
+
+def full_step_pages(page_size: int, pps: int) -> int:
+    """Pages per step of the "full" schedule's p re-quantization."""
+    return max(1, min(max(1, 512 // page_size), pps))
+
+
+def _walk_steps(lengths, q_len, page, pps, window, sinks, n_slots):
+    """(B, L) step of the page walk holding each slot (module docstring,
+    "full"): the walk visits the sink pages, then the band from the first
+    page of the sequence's oldest in-band slot."""
+    lp = torch.arange(n_slots, device=lengths.device) // page
+    lp = lp[None, :].expand(lengths.shape[0], -1)
+    if window is not None:
+        first = torch.clamp(
+            torch.div(lengths.long() - q_len - window + 1, page,
+                      rounding_mode="floor"), min=0)[:, None]
+        sink_pages = -(-sinks // page) if sinks else 0
+        base = torch.clamp(first, min=sink_pages) if sink_pages else first
+        lp = torch.where(lp < sink_pages, lp, lp - base + sink_pages)
+    return torch.clamp(lp, min=0) // full_step_pages(page, pps)
+
+
 def paged_attention_plain(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -50,10 +115,13 @@ def paged_attention_plain(
     page_indices: torch.Tensor,
     lengths: torch.Tensor,
     *,
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
     softmax_scale: float | None = None,
     window: int | None = None,
     softcap: float | None = None,
     sinks: int = 0,
+    int8_qk: bool | str | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch paged attention: gather every page of the table, mask,
     softmax once. Same contract and rounding points as the kernel."""
@@ -63,16 +131,31 @@ def paged_attention_plain(
     b, h, t, d = q.shape
     h_kv, _, page, _ = k_pages.shape
     g = h // h_kv
-    cdt = k_pages.dtype
+    quantized = k_scales is not None
+    cdt = q.dtype if quantized else k_pages.dtype
+    mode = int8_mode(k_pages, q.dtype, t, int8_qk) if quantized else "convert"
     if softmax_scale is None:
         softmax_scale = d ** -0.5
     pi = page_indices.long()
-    # (H_kv, B, pps, page, D) -> (B, H_kv, L, D)
-    k = k_pages[:, pi].permute(1, 0, 2, 3, 4).reshape(b, h_kv, -1, d).float()
-    v = v_pages[:, pi].permute(1, 0, 2, 3, 4).reshape(b, h_kv, -1, d).float()
-    scale = torch.tensor(softmax_scale, dtype=cdt, device=q.device)
-    qc = (q.to(cdt) * scale).float().reshape(b, h_kv, g * t, d)
-    s = torch.einsum("bhrd,bhld->bhrl", qc, k)
+
+    def gather(pages):  # (H_kv, B, pps, page, X) -> (B, H_kv, L, X)
+        x = pages[:, pi].permute(1, 0, 2, 3, 4)
+        return x.reshape(b, h_kv, -1, x.shape[-1]).float()
+
+    k, v = gather(k_pages), gather(v_pages)
+    if mode == "convert":
+        scale = torch.tensor(softmax_scale, dtype=cdt, device=q.device)
+        qc = (q.to(cdt) * scale).float().reshape(b, h_kv, g * t, d)
+        s = torch.einsum("bhrd,bhld->bhrl", qc, k)
+    else:
+        qf = q.float().reshape(b, h_kv, g * t, d)
+        qs = torch.clamp(qf.abs().amax(dim=-1, keepdim=True), min=1e-9)
+        qs = qs * inv_qmax("int8")
+        q8 = torch.round(qf / qs)
+        s = torch.einsum("bhrd,bhld->bhrl", q8, k) * (qs * softmax_scale)
+    if quantized:
+        ks, vs = gather(k_scales)[..., 0], gather(v_scales)[..., 0]
+        s = s * ks[:, :, None, :]
     pos = row_positions(lengths, t, g * t)[:, None, :, None]  # (B, 1, R, 1)
     slots = torch.arange(k.shape[2], device=q.device)[None, None, None, :]
     in_range = slots <= pos
@@ -85,22 +168,53 @@ def paged_attention_plain(
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(in_range, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhrl,bhld->bhrd", p.to(cdt).float(), v)
+    if not quantized:
+        pv = p.to(cdt).float()
+    elif mode != "full":
+        pv = (p * vs[:, :, None, :]).to(cdt).float()
+    else:
+        pv = p * vs[:, :, None, :]
+        step = _walk_steps(lengths, t, page, page_indices.shape[1], window,
+                           sinks, k.shape[2])
+        idx = step[:, None, None, :].expand_as(pv)
+        pmax = torch.zeros(pv.shape[:-1] + (int(step.max()) + 1,),
+                           device=q.device).scatter_reduce(
+            -1, idx, pv, "amax", include_self=True)
+        ps = torch.clamp(pmax, min=1e-30) * inv_qmax("int8")
+        ps = ps.gather(-1, idx)
+        pv = torch.round(pv / ps) * ps
+    o = torch.einsum("bhrl,bhld->bhrd", pv, v)
     o = o / torch.where(l == 0, torch.ones_like(l), l)
     o = o.reshape(b, h, t, d).to(q.dtype)
     return o[:, :, 0] if decode else o
 
 
-def _check_cuda_args(q, k_pages, v_pages, page_indices, lengths):
+def _check_cuda_args(q, k_pages, v_pages, page_indices, lengths, k_scales,
+                     v_scales):
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"paged_attention kernel takes bf16/fp32, got {q.dtype}")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(f"paged_attention kernel takes bf16/fp32 q, got {q.dtype}")
+    if k_pages.dtype != v_pages.dtype:
+        raise TypeError(f"k_pages ({k_pages.dtype}) and v_pages "
+                        f"({v_pages.dtype}) must share a dtype")
+    if k_scales is None and k_pages.dtype != q.dtype:
         raise TypeError(
             f"q ({q.dtype}) and pages ({k_pages.dtype}, {v_pages.dtype}) "
             "must share a dtype"
         )
+    if k_scales is not None and k_pages.dtype not in _FMT_CODE:
+        raise TypeError(f"quantized pages must be int8/e4m3/e5m2, got "
+                        f"{k_pages.dtype}")
+    scale_shape = tuple(k_pages.shape[:3]) + (1,)
+    for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if t is not None and (t.dtype != torch.float32
+                              or tuple(t.shape) != scale_shape):
+            raise ValueError(f"{name} must be float32 {scale_shape}, is "
+                             f"{t.dtype} {tuple(t.shape)}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_indices", page_indices), ("lengths", lengths)):
+                    ("page_indices", page_indices), ("lengths", lengths),
+                    ("k_scales", k_scales), ("v_scales", v_scales)):
+        if t is None:
+            continue
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be on {q.device}, is on {t.device}")
         if not t.is_contiguous():
@@ -126,15 +240,15 @@ def paged_attention(
     window: int | None = None,
     softcap: float | None = None,
     sinks: int = 0,
+    int8_qk: bool | str | None = None,
 ) -> torch.Tensor:
     """Paged attention (module docstring). Returns o in q's shape and dtype.
 
     Launches the CUDA kernel for CUDA tensors (counted in
     ``paged_attention.launches``) and runs the plain version for CPU
-    tensors. Quantized pages (``k_scales``/``v_scales``) are not supported
-    yet and raise."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError("quantized page payloads are not ported yet")
+    tensors. Quantized pages pass both ``k_scales`` and ``v_scales``."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales, or neither")
     decode = q.dim() == 3
     qq = q[:, :, None, :] if decode else q
     b, h, t, d = qq.shape
@@ -149,25 +263,39 @@ def paged_attention(
         raise ValueError(f"window must be >= 1, got {window}")
     if softmax_scale is None:
         softmax_scale = d ** -0.5
+    quantized = k_scales is not None
+    mode = int8_mode(k_pages, q.dtype, t, int8_qk) if quantized else "convert"
     if not q.is_cuda:
         return paged_attention_plain(
-            q, k_pages, v_pages, page_indices, lengths,
-            softmax_scale=softmax_scale, window=window, softcap=softcap,
-            sinks=sinks,
+            q, k_pages, v_pages, page_indices, lengths, k_scales=k_scales,
+            v_scales=v_scales, softmax_scale=softmax_scale, window=window,
+            softcap=softcap, sinks=sinks, int8_qk=int8_qk,
         )
-    _check_cuda_args(qq, k_pages, v_pages, page_indices, lengths)
+    _check_cuda_args(qq, k_pages, v_pages, page_indices, lengths, k_scales,
+                     v_scales)
     qq = qq.contiguous()
     out = torch.empty_like(qq)
     if b == 0:
         return out[:, :, 0] if decode else out
+    pps = page_indices.shape[1]
     lib = _build.load_kernel("paged_attention", _declare)
     err = lib.fat_paged_attention(
         qq.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_indices.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, h_kv, t, d, num_pages, page_size, page_indices.shape[1],
+        b, h, h_kv, t, d, num_pages, page_size, pps,
         float(softmax_scale), int(window) if window is not None else 0,
         int(sinks), float(softcap) if softcap is not None else 0.0,
         _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    ) if not quantized else lib.fat_paged_attention_quant(
+        qq.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr(), v_scales.data_ptr(),
+        page_indices.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        b, h, h_kv, t, d, num_pages, page_size, pps,
+        float(softmax_scale), int(window) if window is not None else 0,
+        int(sinks), float(softcap) if softcap is not None else 0.0,
+        _DTYPE_CODE[q.dtype], _FMT_CODE[k_pages.dtype], _MODE_CODE[mode],
+        full_step_pages(page_size, pps),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "paged_attention launch")
     paged_attention.launches += 1
@@ -183,4 +311,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fat_paged_attention.argtypes = [
         p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, f, i, p,
     ]
-
+    lib.fat_paged_attention_quant.restype = ctypes.c_int
+    lib.fat_paged_attention_quant.argtypes = [
+        p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, f, i, i, i,
+        i, p,
+    ]

@@ -70,7 +70,7 @@ class EngineConfig:
     num_pages: int = 512           # physical pages per layer
     max_seq_len: int = 512         # per-sequence cap
     prefill_pad: int = 64          # prefill chunk length
-    quant: str | None = None       # quantized pages: not ported yet
+    quant: str | None = None       # None | "int8" | "fp8" | "e5m2" pages
     prefix_cache: bool = False     # share full prompt-prefix pages
     eos_token: int | None = None
     sampling: SamplingConfig | None = None  # None / temperature 0 = greedy
@@ -193,8 +193,11 @@ def _maybe_rope(q, k, cfg, pos):
     return rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
 
 
-def _attn_kwargs(cfg):
-    return dict(softmax_scale=cfg.softmax_scale, window=cfg.attention_window,
+def _attn_kwargs(cfg, cache: PagedKVCache):
+    """Paged-attention arguments of one layer: the model's, and the scale
+    planes of a quantized cache (the compute type is then q's dtype)."""
+    return dict(k_scales=cache.k_scales, v_scales=cache.v_scales,
+                softmax_scale=cfg.softmax_scale, window=cfg.attention_window,
                 softcap=cfg.attn_softcap, sinks=cfg.attention_sinks)
 
 
@@ -216,7 +219,7 @@ def chunk_prefill(w, cfg, caches: list[PagedKVCache], tokens, page_row,
         q, k = _maybe_rope(q, k, cfg, pos)
         append_to_pages(cache, k, v, page_row, base_b, valid_len=valid_b)
         o = paged_attention(q.contiguous(), cache.k_pages, cache.v_pages,
-                            page_row, lengths, **_attn_kwargs(cfg))
+                            page_row, lengths, **_attn_kwargs(cfg, cache))
         x = layer_norm(x + _proj_out(o, bp.attn), bp.ln1)
         x = layer_norm(x + _mlp(x, bp.mlp), bp.ln2)
     return x
@@ -241,7 +244,7 @@ def decode_logits(w, cfg, caches: list[PagedKVCache], tokens, page_indices,
         append_to_pages(cache, k, v, page_indices, lengths)
         o = paged_attention(q[:, :, 0].contiguous(), cache.k_pages,
                             cache.v_pages, page_indices, lengths + 1,
-                            **_attn_kwargs(cfg))
+                            **_attn_kwargs(cfg, cache))
         x = layer_norm(x + _proj_out(o[:, :, None], bp.attn), bp.ln1)
         x = layer_norm(x + _mlp(x, bp.mlp), bp.ln2)
     x = layer_norm(x, w.final_ln)
@@ -267,8 +270,6 @@ class ServingEngine:
     ):
         if draft_params is not None or draft_cfg is not None or ecfg.spec_gamma:
             raise NotImplementedError("speculative decoding is not ported yet")
-        if ecfg.quant is not None:
-            raise NotImplementedError("quantized page payloads are not ported yet")
         if ecfg.prefix_cache and cfg.attention_window is not None:
             raise ValueError(
                 "prefix_cache cannot combine with attention_window: window "
@@ -280,7 +281,8 @@ class ServingEngine:
         self.weights = _serving_weights(params, cfg, self.device)
         self.caches = [
             init_paged_cache(cfg.kv_heads, ecfg.num_pages, ecfg.page_size,
-                             cfg.d_head, dtype=cfg.dtype, device=self.device)
+                             cfg.d_head, quant=ecfg.quant, dtype=cfg.dtype,
+                             device=self.device)
             for _ in range(cfg.n_layers)
         ]
         self.allocator = PageAllocator(ecfg.num_pages, native=native_allocator)

@@ -6,7 +6,11 @@ The counterpart of ``flashattention_tpu/serving/paged_kv.py``. Layout:
     page_indices:     (batch, pages_per_seq) int32, logical -> physical
     lengths:          (batch,) int32, tokens written per sequence
 
-Pages hold bf16 or fp32 payloads; quantized payloads are not ported yet.
+Pages hold bf16 or fp32 values, or int8 / float8_e4m3fn / float8_e5m2
+payloads (``quant="int8"|"fp8"|"e5m2"``) with per (head, page, slot) fp32
+scales of shape (H_kv, P, page, 1): per-token scales stay right under
+incremental appends. Tokens are quantized as they are written
+(``ops/quant.quantize_tokens``), bit for bit as the JAX package does.
 Unlike the JAX package, whose arrays are immutable, appends here update
 the cache's tensors in place (no copy of the pool per step).
 """
@@ -19,16 +23,17 @@ import torch
 
 from flashattention_tpu_torch.ops.paged_append import paged_append
 from flashattention_tpu_torch.ops.paged_attention import paged_attention_plain
+from flashattention_tpu_torch.ops.quant import PAYLOAD_DTYPE, quantize_tokens
 from flashattention_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
 class PagedKVCache:
-    """One layer's paged cache."""
+    """One layer's paged cache. ``quant`` in {None, "int8", "fp8", "e5m2"}."""
 
-    k_pages: torch.Tensor            # (H_kv, P, page, D)
+    k_pages: torch.Tensor            # (H_kv, P, page, D) values or payload
     v_pages: torch.Tensor
-    k_scales: torch.Tensor | None = None
+    k_scales: torch.Tensor | None = None  # (H_kv, P, page, 1) fp32 or None
     v_scales: torch.Tensor | None = None
     quant: str | None = None
 
@@ -51,15 +56,24 @@ def init_paged_cache(
     dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device | None = None,
 ) -> PagedKVCache:
-    """Zeroed pages on ``device`` (None: the card)."""
-    if quant is not None:
-        raise NotImplementedError("quantized page payloads are not ported yet")
+    """Zeroed pages on ``device`` (None: the card): ``dtype`` values, or
+    the payloads of ``quant`` with scale planes of ones."""
+    if quant is not None and quant not in PAYLOAD_DTYPE:
+        raise ValueError(
+            f"quant must be None|'int8'|'fp8'|'e5m2', got {quant!r}")
     device = resolve_device(device)
     shape = (num_kv_heads, num_pages, page_size, head_dim)
-    return PagedKVCache(
-        k_pages=torch.zeros(shape, dtype=dtype, device=device),
-        v_pages=torch.zeros(shape, dtype=dtype, device=device),
+    payload = PAYLOAD_DTYPE[quant] if quant else dtype
+    cache = PagedKVCache(
+        k_pages=torch.zeros(shape, dtype=payload, device=device),
+        v_pages=torch.zeros(shape, dtype=payload, device=device),
+        quant=quant,
     )
+    if quant:
+        cache.k_scales, cache.v_scales = (
+            torch.ones(shape[:3] + (1,), dtype=torch.float32, device=device)
+            for _ in range(2))
+    return cache
 
 
 def append_to_pages(
@@ -72,8 +86,9 @@ def append_to_pages(
 ) -> PagedKVCache:
     """Write new K/V tokens into their pages, in place; returns ``cache``.
 
-    T == 1 (decode) goes through the append kernel (:func:`paged_append`).
-    T > 1 (prefill) is one index_put_ over the kept (b, t) targets.
+    T == 1 (decode) goes through the append kernel (:func:`paged_append`),
+    which quantizes the token itself for a quantized cache. T > 1 (prefill)
+    is one index_put_ over the kept (b, t) targets, payloads and scales.
     Positions past the sequence's page capacity and padding past
     ``valid_len`` are dropped: they are filtered out before the write, never
     written back with their current value (a masked position may alias a
@@ -89,12 +104,13 @@ def append_to_pages(
         logical = torch.clamp(lengths // page, max=pps - 1).long()
         phys = page_indices.gather(1, logical[:, None])[:, 0]
         slot = lengths % page
+        tok_dtype = k_new.dtype if cache.quant else cache.k_pages.dtype
         paged_append(
             cache.k_pages, cache.v_pages,
-            k_new[:, :, 0].to(cache.k_pages.dtype).contiguous(),
-            v_new[:, :, 0].to(cache.v_pages.dtype).contiguous(),
+            k_new[:, :, 0].to(tok_dtype).contiguous(),
+            v_new[:, :, 0].to(tok_dtype).contiguous(),
             phys.to(torch.int32).contiguous(), slot.to(torch.int32),
-            ok.to(torch.int32),
+            ok.to(torch.int32), cache.k_scales, cache.v_scales,
         )
         return cache
 
@@ -107,23 +123,32 @@ def append_to_pages(
     phys = page_indices.long().gather(1, logical)[ok]
     slot = (pos % page)[ok]
 
-    def write(pages, new):
-        tok = new.transpose(1, 2)[ok].to(pages.dtype)      # (N, H, D)
-        pages[:, phys, slot] = tok.transpose(0, 1)
+    def write(pages, scales, new):
+        tok = new.transpose(1, 2)[ok]                       # (N, H, D)
+        if cache.quant:
+            tok, sc = quantize_tokens(tok, cache.quant)
+            scales[:, phys, slot, 0] = sc.transpose(0, 1)
+        pages[:, phys, slot] = tok.to(pages.dtype).transpose(0, 1)
 
-    write(cache.k_pages, k_new)
-    write(cache.v_pages, v_new)
+    write(cache.k_pages, cache.k_scales, k_new)
+    write(cache.v_pages, cache.v_scales, v_new)
     return cache
 
 
 def gather_pages(cache: PagedKVCache, page_indices: torch.Tensor):
-    """Per-sequence contiguous K/V: (B, H_kv, pages*page, D) float32."""
+    """Per-sequence contiguous K/V: (B, H_kv, pages*page, D) float32,
+    dequantized (payload times its slot's scale) for a quantized cache."""
     pi = page_indices.long()
     b = pi.shape[0]
-    h, d = cache.k_pages.shape[0], cache.k_pages.shape[-1]
-    k = cache.k_pages[:, pi].float().transpose(0, 1).reshape(b, h, -1, d)
-    v = cache.v_pages[:, pi].float().transpose(0, 1).reshape(b, h, -1, d)
-    return k, v
+
+    def gather(pages, scales):
+        x = pages[:, pi].float()
+        if scales is not None:
+            x = x * scales[:, pi]
+        return x.transpose(0, 1).reshape(b, x.shape[0], -1, x.shape[-1])
+
+    return (gather(cache.k_pages, cache.k_scales),
+            gather(cache.v_pages, cache.v_scales))
 
 
 def paged_attention_decode(
@@ -137,11 +162,15 @@ def paged_attention_decode(
     softcap: float | None = None,
     sinks: int = 0,
 ) -> torch.Tensor:
-    """Decode attention over the gathered pages in float32 (the JAX
-    package's gather executor): a CPU oracle, returned in q's dtype."""
-    f32 = lambda x: x.float()
+    """Decode attention over the gathered, dequantized pages in float32
+    (the JAX package's gather executor): a CPU oracle, returned in q's
+    dtype."""
+    k, v = gather_pages(cache, page_indices)   # (B, H_kv, L, D)
+    # one page per sequence holding its whole gathered row
+    pi = torch.arange(k.shape[0], dtype=torch.int32, device=k.device)[:, None]
     o = paged_attention_plain(
-        f32(q), f32(cache.k_pages), f32(cache.v_pages), page_indices, lengths,
+        q.float(), k.transpose(0, 1).contiguous(),
+        v.transpose(0, 1).contiguous(), pi, lengths,
         softmax_scale=softmax_scale, window=window, softcap=softcap,
         sinks=sinks,
     )

@@ -146,9 +146,11 @@ def test_generation_entry_points(gen):
                  backend="xla")
     assert_allclose(o, np.asarray(jo), rtol=TOL, atol=TOL)
     assert_allclose(lse, np.asarray(jl), rtol=TOL, atol=TOL)
-    if gen == "fa3":
-        with pytest.raises(NotImplementedError):
-            fn(*[torch.from_numpy(x) for x in (q, k, v)], fp8=True)
+    if gen == "fa3":  # the 8-bit path (parity: test_torch_fp8_attn.py)
+        o8, _ = fn(*[torch.from_numpy(x) for x in (q, k, v)], causal=True,
+                   fp8=True)
+        assert o8.shape == o.shape and torch.isfinite(o8).all()
+        assert_allclose(o8, o, rtol=1e-1, atol=1e-1)  # the FP8 rung
 
 
 @pytest.mark.parametrize("n_heads", [1, 4, 8, 12, 20])

@@ -21,8 +21,10 @@ import torch
 from flashattention_tpu_torch.models import train as ttrain
 from flashattention_tpu_torch.models.transformer import TransformerConfig, init_params
 from flashattention_tpu_torch.ops import flash_attn as fa
+from flashattention_tpu_torch.ops import fp8_attn
 from flashattention_tpu_torch.ops import paged_append as pap
 from flashattention_tpu_torch.ops import paged_attention as pa
+from flashattention_tpu_torch.ops.quant import quantize_tokens
 from flashattention_tpu_torch.serving import (
     EngineConfig,
     GenerationRequest,
@@ -359,3 +361,245 @@ def test_remat_policies_agree_on_card(cuda_device):
         for name in ref[1]:
             assert_allclose(got[1][name], ref[1][name], rtol=1e-5, atol=1e-6,
                             err_msg=f"{policy} {name}")
+
+
+# ---------------------------------------------------------------------------
+# Quantized pages (int8, e4m3, e5m2) and the FA3 8-bit forward
+# ---------------------------------------------------------------------------
+
+QUANT_FORMATS = ["int8", "fp8", "e5m2"]
+
+
+def quantized_pages(kp, vp, quant, device):
+    """(payload, (..., 1) scales) of K and V pages, on ``device``."""
+    out = []
+    for x in (kp, vp):
+        p, s = quantize_tokens(torch.from_numpy(x), quant)
+        out += [p.to(device), s[..., None].contiguous().to(device)]
+    return out
+
+
+# name: (paged case, int8_qk)
+QUANT_PAGED = {
+    "decode": ("decode_p16", None), "decode_p8": ("decode_p8", None),
+    "chunk": ("chunk_p16", None), "gqa": ("gqa_decode", None),
+    "window_sinks": ("window_sinks_chunk", None), "softcap": ("softcap", None),
+    "empty": ("empty_decode", None), "wide": ("wide_rows_d128", None),
+    "qk_decode": ("decode_p16", "qk"), "qk_chunk": ("window_sinks_chunk", "qk"),
+    "full_decode": ("gqa_decode", "full"),
+    "full_window": ("window_sinks_chunk", "full"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, quant", [
+    (n, f) for n in sorted(QUANT_PAGED) for f in QUANT_FORMATS
+    if QUANT_PAGED[n][1] is None or f == "int8"])  # int8 schedules: int8 only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_paged_attention_kernel_matches_plain(cuda_device, name,
+                                                        quant, dtype):
+    case, int8_qk = QUANT_PAGED[name]
+    shape, kw = CASES[case]
+    q, kp, vp, pi, ln = paged_inputs(**shape)
+    k8, ks, v8, vs = quantized_pages(kp, vp, quant, cuda_device)
+    q = torch.from_numpy(q).to(cuda_device, dtype)
+    pi, ln = (torch.from_numpy(x).to(cuda_device) for x in (pi, ln))
+    kw = dict(kw, k_scales=ks, v_scales=vs, int8_qk=int8_qk)
+    before = pa.paged_attention.launches
+    o = pa.paged_attention(q, k8, v8, pi, ln, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    assert o.dtype == dtype and o.shape == q.shape
+    ref = pa.paged_attention_plain(q, k8, v8, pi, ln, **kw)
+    tol = KERNEL_TOL[dtype]
+    assert_allclose(o, ref, rtol=tol, atol=tol, err_msg=f"{name} {quant}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", QUANT_FORMATS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_paged_append_kernel_bit_exact(cuda_device, quant, dtype):
+    kp, vp, kn, vn, phys, slot, ok = decode_rows(b=6, d=64, page=16)
+    dump = 9
+    phys[1] = phys[4] = dump
+    slot[1] = slot[4] = 0
+    kn[2] *= 1e-8  # a token below the 1e-6 scale floor
+    k8, ks, v8, vs = quantized_pages(kp, vp, quant, cuda_device)
+    cast = lambda x: torch.from_numpy(x).to(cuda_device, dtype)
+    idx = lambda x: torch.from_numpy(x).to(cuda_device)
+    got = [t.clone() for t in (k8, v8, ks, vs)]
+    want = [t.clone() for t in (k8, v8, ks, vs)]
+    before = pap.paged_append.launches
+    pap.paged_append(got[0], got[1], cast(kn), cast(vn), idx(phys), idx(slot),
+                     idx(ok), got[2], got[3])
+    torch.cuda.synchronize()
+    assert pap.paged_append.launches == before + 1
+    pap.paged_append_plain(want[0], want[1], cast(kn), cast(vn), idx(phys),
+                           idx(slot), idx(ok), want[2], want[3])
+    keep = [p for p in range(kp.shape[1]) if p != dump]
+    for g, w in zip(got, want):
+        assert torch.equal(g[:, keep].view(torch.uint8),
+                           w[:, keep].view(torch.uint8))
+    # ok = 0 rows wrote nothing, scales included
+    rows = np.flatnonzero(ok == 0)
+    for g, w in zip(got, (k8, v8, ks, vs)):
+        for r in rows:
+            assert torch.equal(g[:, phys[r]].view(torch.uint8),
+                               w[:, phys[r]].view(torch.uint8))
+
+
+# name: ((b, h, h_kv, n, d), dtype, fp8_attention kwargs, extras)
+FP8_CASES = {
+    "e4m3_causal": ((1, 4, 4, 1024, 128), torch.bfloat16,
+                    dict(causal=True, mode="fused"), ()),
+    "int8_causal": ((1, 4, 4, 1024, 128), torch.bfloat16,
+                    dict(causal=True, fmt="int8"), ()),
+    "e5m2_causal": ((1, 4, 4, 1024, 128), torch.bfloat16,
+                    dict(causal=True, mode="fused", fmt="e5m2"), ()),
+    "dropout_one_tile": ((2, 12, 12, 512, 64), torch.bfloat16,
+                         dict(causal=True, dropout_rate=0.1,
+                              dropout_seed=5), ()),
+    "gqa_window_sinks_softcap": ((2, 12, 4, 512, 64), torch.bfloat16,
+                                 dict(causal=True, mode="fused", window=128,
+                                      sinks=4, softcap=30.0), ()),
+    "segments_alibi": ((2, 12, 12, 512, 64), torch.bfloat16,
+                       dict(causal=True, mode="fused"),
+                       ("segments", "alibi")),
+    "s8": ((1, 4, 4, 1024, 64), torch.bfloat16,
+           dict(causal=True, fmt="int8", int8_pv="s8", block_k=256), ()),
+    "s8_dropout_window": ((1, 4, 2, 700, 64), torch.float32,
+                          dict(causal=True, fmt="int8", int8_pv="s8",
+                               block_k=128, window=300, sinks=8,
+                               dropout_rate=0.2, dropout_seed=9), ()),
+    "fp32_ragged_full": ((2, 2, 1, 200, 64), torch.float32,
+                         dict(causal=False, mode="fused", fmt="e5m2"), ()),
+    "d256_int8": ((1, 2, 2, 300, 256), torch.float32,
+                  dict(causal=True, fmt="int8"), ()),
+}
+
+
+def fp8_inputs(shape, dtype, extras, device, seed=0):
+    b, h, h_kv, n, d = shape
+    q, k, v, do, _, kw = flash_inputs((b, h, h_kv, n, n, d), dtype, extras,
+                                      device, seed)
+    return q, k, v, do, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FP8_CASES))
+def test_fp8_kernel_matches_plain(cuda_device, case):
+    shape, dtype, kw, extras = FP8_CASES[case]
+    q, k, v, _, more = fp8_inputs(shape, dtype, extras, cuda_device)
+    kw = dict(kw, **more)
+    fmt = kw.pop("fmt", "fp8")
+    int8_pv = kw.pop("int8_pv", "bf16")
+    bk = kw.pop("block_k", 1024)
+    mode = fp8_attn.resolve_mode(kw.pop("mode", "auto"), fmt, q.shape[2], 512)
+    assert mode == "fused"
+    opts = fa.make_opts(q, k, **kw)
+    q8, k8, v8, sq, sk, sv, bq, bk = fp8_attn.quantize_inputs(
+        q, k, v, 512, bk, fmt)
+    before = fp8_attn.fp8_attention.launches
+    o, lse = fp8_attn.fp8_fwd(q8, k8, v8, sq, sk, sv, bq, bk, opts,
+                              int8_pv=int8_pv, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert fp8_attn.fp8_attention.launches == before + 1
+    o_ref, lse_ref = fp8_attn.fp8_fwd_plain(q8, k8, v8, sq, sk, sv, bq, bk,
+                                            opts, int8_pv=int8_pv,
+                                            out_dtype=dtype)
+    # p is rounded to bf16 before P.V whatever the output dtype, at the
+    # kernel's running max and the plain version's final max: the bf16 limit
+    rtol, atol = flash_tol(torch.bfloat16, o_ref)
+    assert_allclose(o, o_ref, rtol=rtol, atol=atol, err_msg=f"{case} o")
+    assert_allclose(lse, lse_ref, rtol=1e-4, atol=1e-4, err_msg=f"{case} lse")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ste", ["dequant", "original"])
+def test_fp8_attention_autograd_on_card_matches_cpu(cuda_device, ste):
+    """fp8_attention's STE autograd on the card (kernel B4, then B2/B3)
+    against the same call on the CPU (plain versions)."""
+    gen = torch.Generator().manual_seed(6)
+    base = [torch.randn(s, generator=gen) for s in
+            ((2, 4, 256, 64), (2, 2, 256, 64), (2, 2, 256, 64))]
+    do = torch.randn((2, 4, 256, 64), generator=gen)
+    kw = dict(causal=True, window=100, sinks=2, dropout_rate=0.1,
+              dropout_seed=4, mode="fused", ste=ste)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in base]
+        o, lse = fp8_attn.fp8_attention(*leaves, **kw)
+        # fixed cotangents: card and CPU backwards see the same do
+        ((o * do.to(dev)).sum() + lse.sum()).backward()
+        out[str(dev)] = [o, lse] + [t.grad for t in leaves]
+    for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), out[str(cuda_device)],
+                          out["cpu"]):
+        # lse: fp32 scores; o: p in bf16 (see above); grads: bf16 backward
+        rtol, atol = ((1e-4, 1e-4) if name == "lse"
+                      else flash_tol(torch.bfloat16, r))
+        assert_allclose(a, r, rtol=rtol, atol=atol, err_msg=f"{ste} {name}")
+
+
+@pytest.mark.cuda
+def test_fp8_kernel_rejects_what_it_does_not_take(cuda_device):
+    q = torch.zeros(1, 2, 64, 32, device=cuda_device)
+    q8, k8, v8, sq, sk, sv, bq, bk = fp8_attn.quantize_inputs(q, q, q, 512,
+                                                             1024, "fp8")
+    opts = fa.make_opts(q, q)
+    with pytest.raises(TypeError):
+        fp8_attn.fp8_fwd(q8, k8.view(torch.int8), v8, sq, sk, sv, bq, bk, opts)
+    with pytest.raises(ValueError):
+        fp8_attn.fp8_fwd(q8, k8, v8, sq.cpu(), sk, sv, bq, bk, opts)
+    with pytest.raises(TypeError):
+        fp8_attn.fp8_fwd(q8, k8, v8, sq, sk, sv, bq, bk, opts,
+                         out_dtype=torch.float16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", QUANT_FORMATS)
+def test_quantized_engine_on_card_matches_cpu(cuda_device, quant):
+    """A float32 engine with quantized pages: the card's greedy tokens equal
+    the CPU's, and every decode step launches both kernels per layer."""
+    cfg = TransformerConfig(vocab_size=89, d_model=64, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=128, max_seq_len=128,
+                            dropout_rate=0.0, dtype=torch.float32)
+    params = init_params(cfg, seed=1, device=cuda_device)
+    ecfg = EngineConfig(max_batch_size=3, page_size=16, num_pages=40,
+                        max_seq_len=128, prefill_pad=16, quant=quant)
+    rng = np.random.default_rng(3)
+    reqs = [GenerationRequest(i, [int(t) for t in rng.integers(0, 89, n)], 10)
+            for i, n in enumerate((5, 30, 17, 9))]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        eng = ServingEngine(params, cfg, ecfg, device=dev)
+        for r in reqs:
+            eng.submit(r)
+        pa.paged_attention.launches = pap.paged_append.launches = 0
+        out[str(dev)] = eng.run()
+        launches = (pa.paged_attention.launches, pap.paged_append.launches)
+    assert out["cpu"] == out[str(cuda_device)]
+    steps = eng.stats["decode_steps"]
+    assert launches == (cfg.n_layers * (steps + eng.stats["prefill_chunks"]),
+                        cfg.n_layers * steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", QUANT_FORMATS)
+def test_quantizers_on_card_match_cpu(cuda_device, fmt):
+    """Block and token quantization, and the Hadamard rotation, give the
+    same bytes on the card as on the CPU (PyTorch's CUDA division by a
+    scalar is a reciprocal multiply; the port divides by device tensors)."""
+    from flashattention_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn((2, 3, 256, 128), generator=gen) * 3
+    q, k = quant.incoherent_process(x, x.flip(2), seed=1)
+    qc, kc = quant.incoherent_process(x.to(cuda_device),
+                                      x.flip(2).to(cuda_device), seed=1)
+    assert torch.equal(qc.cpu(), q) and torch.equal(kc.cpu(), k)
+    for got, want in ((quant.quantize_blocks(q.to(cuda_device), 64, fmt),
+                       quant.quantize_blocks(q, 64, fmt)),
+                      (quant.quantize_tokens(q.to(cuda_device), fmt),
+                       quant.quantize_tokens(q, fmt))):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu().view(torch.uint8), w.view(torch.uint8))

@@ -250,8 +250,8 @@ def test_unported_options_raise():
     pcfg = port_config(CFG)
     params = params_from_jax(jax.tree.map(np.asarray, jparams), pcfg,
                              device="cpu")
-    for ecfg, kw in ((EngineConfig(quant="int8"), {}),
-                     (EngineConfig(spec_gamma=2), {}),
+    # quantized pages are ported (test_torch_paged_quant.py)
+    for ecfg, kw in ((EngineConfig(spec_gamma=2), {}),
                      (EngineConfig(), {"draft_params": params})):
         with pytest.raises(NotImplementedError):
             ServingEngine(params, pcfg, ecfg, device="cpu", **kw)

@@ -1,0 +1,198 @@
+"""The port's FA3 8-bit attention (plain versions, CPU) against the JAX
+package's ``pallas_fp8_attention`` in Pallas interpret mode, from the same
+numpy inputs: fused and predecode, e4m3/e5m2/int8 payloads, GQA, window +
+sinks, soft-cap + segments + ALiBi, dropout with the same seed, int8 PV in
+s8, and the straight-through backward in both flavours.
+
+Limits: o and LSE at 5e-3 abs+rel, the JAX package's own fused-vs-oracle
+limit (``tests/test_fp8.py``); STE gradients at 5e-3 abs+rel. The e4m3
+decode of the JAX fused kernel flushes denormal payloads to zero; the
+port decodes them exactly (an error below absmax/28672 of a block).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flashattention_tpu import fa3_attention as jax_fa3
+from flashattention_tpu.ops.pallas_fp8 import pallas_fp8_attention
+from flashattention_tpu_torch.ops import api, fp8_attn
+from flashattention_tpu_torch.utils.testing import assert_allclose
+
+BQ = BK = 128
+TOL = 5e-3
+
+
+def _inputs(b, h, h_kv, n, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, n, d)).astype(np.float32)
+    k = rng.standard_normal((b, h_kv, n, d)).astype(np.float32)
+    v = rng.standard_normal((b, h_kv, n, d)).astype(np.float32)
+    do = 0.1 * rng.standard_normal((b, h, n, d)).astype(np.float32)
+    dlse = 0.1 * rng.standard_normal((b, h, n)).astype(np.float32)
+    return q, k, v, do, dlse
+
+
+def _both(q, k, v, kw, jkw=None):
+    """(o, lse) of the JAX kernel (interpret) and of the port."""
+    jkw = dict(kw if jkw is None else jkw)
+    jo, jl = pallas_fp8_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=BQ,
+        block_k=BK, interpret=True, **jkw)
+    to, tl = fp8_attn.fp8_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        block_q=BQ, block_k=BK, **kw)
+    return (np.asarray(jo), np.asarray(jl)), (to, tl)
+
+
+def _check(j, t, name):
+    (jo, jl), (to, tl) = j, t
+    assert to.dtype == torch.float32 and tuple(to.shape) == jo.shape
+    assert_allclose(to, jo, rtol=TOL, atol=TOL, err_msg=f"{name} o")
+    assert_allclose(tl, jl, rtol=TOL, atol=TOL, err_msg=f"{name} lse")
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 256, 64), (2, 1, 384, 128)])
+@pytest.mark.parametrize("mode", ["fused", "predecode"])
+@pytest.mark.parametrize("fmt", ["fp8", "e5m2", "int8"])
+def test_fp8_forward_matches_pallas(shape, mode, fmt):
+    b, h, n, d = shape
+    q, k, v, _, _ = _inputs(b, h, h, n, d)
+    kw = dict(causal=True, mode=mode, fmt=fmt)
+    _check(*_both(q, k, v, kw), f"{shape} {mode} {fmt}")
+
+
+@pytest.mark.parametrize("mode", ["fused", "predecode"])
+def test_fp8_gqa_noncausal(mode):
+    q, k, v, _, _ = _inputs(2, 8, 2, 256, 64, seed=1)
+    _check(*_both(q, k, v, dict(causal=False, mode=mode)), f"gqa {mode}")
+
+
+@pytest.mark.parametrize("mode", ["fused", "predecode"])
+@pytest.mark.parametrize("sinks", [0, 48])
+def test_fp8_window_sinks(mode, sinks):
+    q, k, v, _, _ = _inputs(1, 2, 2, 384, 64, seed=2)
+    kw = dict(causal=True, mode=mode, window=128, sinks=sinks)
+    _check(*_both(q, k, v, kw), f"window {mode} {sinks}")
+
+
+@pytest.mark.parametrize("fmt", ["fp8", "int8"])
+@pytest.mark.parametrize("mode", ["fused", "predecode"])
+def test_fp8_softcap_segments_alibi(fmt, mode):
+    q, k, v, _, _ = _inputs(1, 2, 2, 256, 64, seed=3)
+    ids = np.zeros((1, 256), np.int32)
+    ids[0, 100:] = 1
+    slopes = np.asarray([0.5, 0.25], np.float32)
+    kw = dict(causal=True, mode=mode, fmt=fmt, softcap=8.0)
+    j = pallas_fp8_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=BQ,
+        block_k=BK, interpret=True, segment_ids=jnp.asarray(ids),
+        alibi_slopes=jnp.asarray(slopes), **kw)
+    t = fp8_attn.fp8_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        block_q=BQ, block_k=BK, segment_ids=torch.from_numpy(ids),
+        alibi_slopes=torch.from_numpy(slopes), **kw)
+    _check((np.asarray(j[0]), np.asarray(j[1])), t, f"features {fmt} {mode}")
+
+
+@pytest.mark.parametrize("fmt", ["fp8", "int8"])
+def test_fp8_dropout_same_seed(fmt):
+    q, k, v, _, _ = _inputs(1, 2, 2, 256, 64, seed=4)
+    kw = dict(causal=True, mode="fused", fmt=fmt, dropout_rate=0.3,
+              dropout_seed=7)
+    _check(*_both(q, k, v, kw), f"dropout {fmt}")
+
+
+def test_int8_pv_s8(monkeypatch):
+    q, k, v, _, _ = _inputs(1, 2, 2, 384, 64, seed=5)
+    monkeypatch.setenv("FAT_INT8_PV", "s8")
+    kw = dict(causal=True, mode="fused", fmt="int8")
+    j, t = _both(q, k, v, dict(kw, int8_pv="s8"), kw)
+    _check(j, t, "s8")
+    # s8 really re-quantizes p: it differs from the bf16 PV
+    o_bf16, _ = fp8_attn.fp8_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), block_q=BQ, block_k=BK,
+        **kw)
+    assert float((o_bf16 - t[0]).abs().max()) > 0
+
+
+def test_auto_mode_rule():
+    rm = fp8_attn.resolve_mode
+    assert rm("auto", "fp8", 128, 128) == "fused"
+    assert rm("auto", "fp8", 129, 128) == "predecode"
+    assert rm("auto", "int8", 4096, 128) == "fused"
+    assert rm("fused_cached", "e5m2", 4096, 128) == "fused"
+    with pytest.raises(ValueError, match="mode"):
+        rm("turbo", "fp8", 1, 1)
+    x = torch.zeros(1, 1, 128, 64)
+    with pytest.raises(ValueError, match="fmt"):
+        fp8_attn.fp8_attention(x, x, x, fmt="int4")
+    with pytest.raises(ValueError, match="sinks require"):
+        fp8_attn.fp8_attention(x, x, x, causal=True, sinks=16)
+
+
+@pytest.mark.parametrize("ste", ["dequant", "original"])
+@pytest.mark.parametrize("fmt", ["fp8", "int8"])
+def test_ste_backward_matches_pallas(monkeypatch, ste, fmt):
+    """dq, dk, dv of sum(o * do) + sum(lse * dlse), GQA with dropout."""
+    q, k, v, do, dlse = _inputs(1, 4, 2, 256, 64, seed=6)
+    kw = dict(causal=True, dropout_rate=0.1, dropout_seed=3, fmt=fmt)
+    if ste == "original":
+        monkeypatch.setenv("FAT_STE_GRADS", "original")
+
+    def jloss(t):
+        o, lse = pallas_fp8_attention(*t, block_q=BQ, block_k=BK,
+                                      interpret=True, **kw)
+        return jnp.sum(o * do) + jnp.sum(lse * dlse)
+
+    jg = jax.grad(jloss)(tuple(jnp.asarray(x) for x in (q, k, v)))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    o, lse = fp8_attn.fp8_attention(*leaves, block_q=BQ, block_k=BK,
+                                    ste=ste, **kw)
+    ((o * torch.from_numpy(do)).sum()
+     + (lse * torch.from_numpy(dlse)).sum()).backward()
+    for name, t, j in zip(("dq", "dk", "dv"), leaves, jg):
+        assert t.grad.dtype == torch.float32
+        assert_allclose(t.grad, np.asarray(j), rtol=TOL, atol=TOL,
+                        err_msg=f"{ste} {fmt} {name}")
+
+
+@pytest.mark.parametrize("backend, jax_backend", [("kernel", "pallas"),
+                                                  ("tiled", "xla")])
+def test_fa3_fp8_end_to_end(backend, jax_backend):
+    """fa3_attention(fp8=True): the rotation with JAX's signs, then the
+    kernel path (fused, q blocks of 512 clamped to N) or the fake-quant
+    path."""
+    q, k, v, _, _ = _inputs(1, 2, 2, 200, 64, seed=7)
+    jo, jl = jax_fa3(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=True, fp8=True, fp8_seed=5, backend=jax_backend)
+    sign = np.array(jax.random.rademacher(jax.random.key(5), (64,),
+                                          dtype=jnp.float32))
+    to, tl = api.fa3_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal=True, fp8=True,
+        backend=backend, fp8_sign=torch.from_numpy(sign))
+    _check((np.asarray(jo), np.asarray(jl)), (to, tl), f"fa3 {backend}")
+
+
+def test_prequant_matches_pallas():
+    """fp8_attention_prequant: blocks follow from the scale shapes."""
+    from flashattention_tpu.ops.pallas_fp8 import (
+        pallas_fp8_attention_prequant,
+        quantize_tiles,
+    )
+    from flashattention_tpu_torch.ops.quant import quantize_blocks
+
+    q, k, v, _, _ = _inputs(1, 2, 2, 256, 64, seed=8)
+    jq = [quantize_tiles(jnp.asarray(x), b) for x, b in ((q, 64), (k, 128),
+                                                         (v, 128))]
+    tq = [quantize_blocks(torch.from_numpy(x), b)
+          for x, b in ((q, 64), (k, 128), (v, 128))]
+    jo, jl = pallas_fp8_attention_prequant(
+        *(p for p, _ in jq), *(s for _, s in jq), causal=True,
+        out_dtype=jnp.float32, interpret=True)
+    to, tl = fp8_attn.fp8_attention_prequant(
+        *(p for p, _ in tq), *(s for _, s in tq), causal=True,
+        out_dtype=torch.float32)
+    _check((np.asarray(jo), np.asarray(jl)), (to, tl), "prequant")

@@ -92,8 +92,9 @@ def test_cpu_call_never_counts_a_launch():
 def test_rejects_quantized_pages_and_bad_window():
     q, kp, vp, pi, ln = (torch.from_numpy(x) for x in
                          _inputs(**CASES["decode_p8"][0]))
-    with pytest.raises(NotImplementedError):
-        pa.paged_attention(q, kp, vp, pi, ln, k_scales=kp[..., :1],
-                           v_scales=vp[..., :1])
+    # quantized pages are ported (test_torch_paged_quant.py); a cache
+    # with only one of its two scale planes is rejected
+    with pytest.raises(ValueError, match="both"):
+        pa.paged_attention(q, kp, vp, pi, ln, k_scales=kp[..., :1])
     with pytest.raises(ValueError):
         pa.paged_attention(q, kp, vp, pi, ln, window=0)
