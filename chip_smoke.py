@@ -25,7 +25,15 @@ Phases, in order; any failure exits nonzero:
    another function); the quantized append bit-exact. The FA3 8-bit
    forward (flash_fwd_fp8) in seven cases, each launched once through
    fp8_attention (checked), plus its straight-through backward (o and
-   gradients at the bf16 flash limit: p is bf16 on the 8-bit path).
+   gradients at the bf16 flash limit: p is bf16 on the 8-bit path). The
+   block-sparse forward (sparse_fwd) and backward (sparse_bwd) in four
+   cases: the model phase's call (2, 12, 4096, 64) and the BASELINE head
+   dim (1, 8, 8192, 128) with the local + global pattern, GQA 12/4 at a
+   ragged N = 1000 in fp32 with an empty q-block row, and N_q != N_k with
+   an LSE cotangent; o and gradients at the flash limit, LSE at 1e-4 where
+   a row sees a key and -inf exactly on empty q blocks; bounds from the
+   pairs the pattern keeps; SDPA with the expanded boolean mask as the
+   library call (a yardstick where a row sees no key).
 3. The serving engine at GPT-3 Small widths (TransformerConfig defaults,
    bf16, random weights from a seed): 64 requests, prompts of 32-400
    tokens, 64 new tokens each. Every launch count is set to 0 just before
@@ -57,6 +65,14 @@ Phases, in order; any failure exits nonzero:
    the CPU (plain versions): o and gradients at the bf16 flash limit, LSE
    at 1e-4; the CPU's backward takes the card's o and LSE, so both read one
    di = rowsum(o * do).
+7. The block-sparse model at GPT-3 Small widths (dropout 0, remat "full",
+   bf16, max_seq_len 4096), B=2, N=4096, with the local + global pattern
+   of Longformer/BigBird on 32 x 32 tiles (P[i, j] = 0 <= i - j < 4 or
+   j == 0): one no-grad forward (exactly 12 sparse_fwd, no flash_fwd),
+   then forward + CE + backward, one untimed and three timed (exactly 24
+   sparse_fwd, 12 sparse_bwd and no flash launch per step), one profiled
+   step, card vs CPU loss and gradients at N=512 with a 4 x 4 pattern, and
+   an all-ones pattern against no pattern (logits at the bf16 rung).
 
 The last two lines are the kernels' JSON record and the device line
 ``{"ok": true, "device": {...}}``. ``--cpu-rehearsal`` skips phases 1-2,
@@ -83,11 +99,16 @@ import torch
 
 from flashattention_tpu_torch import _build
 from flashattention_tpu_torch.models import train as ttrain
-from flashattention_tpu_torch.models.transformer import TransformerConfig, init_params
+from flashattention_tpu_torch.models.transformer import (
+    TransformerConfig,
+    apply_transformer,
+    init_params,
+)
 from flashattention_tpu_torch.ops import flash_attn as fa
 from flashattention_tpu_torch.ops import fp8_attn as f8
 from flashattention_tpu_torch.ops import paged_append as pap
 from flashattention_tpu_torch.ops import paged_attention as pa
+from flashattention_tpu_torch.ops import sparse_attn as sa
 from flashattention_tpu_torch.ops.api import fa3_attention
 from flashattention_tpu_torch.ops.quant import quantize_tokens
 from flashattention_tpu_torch.serving import (
@@ -135,6 +156,14 @@ KERNELS = {
     "flash_fwd_fp8": dict(
         route="cuda", source="flashattention_tpu_torch/csrc/flash_fwd_fp8.cu",
         replaces="flashattention_tpu/ops/pallas_fp8.py:92"),
+    "sparse_fwd": dict(
+        route="cuda", source="flashattention_tpu_torch/csrc/sparse_fwd.cu",
+        replaces="flashattention_tpu/ops/pallas_sparse.py:96"),
+    # one call of two kernels: dK/dV (:259), then dQ (:311)
+    "sparse_bwd": dict(
+        route="cuda", source="flashattention_tpu_torch/csrc/sparse_bwd.cu",
+        replaces="flashattention_tpu/ops/pallas_sparse.py:259",
+        also_replaces=["flashattention_tpu/ops/pallas_sparse.py:311"]),
 }
 
 
@@ -538,6 +567,15 @@ def flash_bound(q, k, opts, dlse):
     vis = fa.visible_mask(opts, n_q, n_k, q.device)
     pairs = (b * h * n_q * n_k if vis is None
              else int(vis.expand(b, 1, n_q, n_k).sum()) * h)
+    return attention_bounds(q, k, pairs, dlse), pairs / (b * h * n_q * n_k)
+
+
+def attention_bounds(q, k, pairs, dlse):
+    """{"fwd"|"bwd": (least ms, what bounds it)} for ``pairs`` visible
+    (head, row, key) triples: 4·D and 10·D flops per pair against q, k, v
+    read and o, the LSE written once (forward), and q, k, v, o, do, the
+    LSE (and its cotangent) read and dq, dk, dv written once (backward)."""
+    b, h, n_q, d = q.shape
     el = q.element_size()
     qo = q.numel() * el                      # q, o, do, dq each
     kv = k.numel() * el                      # k, v, dk, dv each
@@ -552,7 +590,7 @@ def flash_bound(q, k, opts, dlse):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
         out[name] = (max(t_bytes, t_ops) * 1e3,
                      "bytes" if t_bytes >= t_ops else "operations")
-    return out, pairs / (b * h * n_q * n_k)
+    return out
 
 
 def flash_case(timer, gen, dev, key):
@@ -619,6 +657,130 @@ def flash_case(timer, gen, dev, key):
         f"{t['bwd_plain_ms']:.4f}, SDPA {t['library_bwd_ms']:.4f}, bound "
         f"{bounds['bwd'][0]:.4f} {bounds['bwd'][1]})"
         + ("" if same else "  [SDPA computes a different function here]"))
+    return rec
+
+
+def local_global(n_q_tiles, n_k_tiles, width=4):
+    """The local + global block layout of Longformer/BigBird (no random
+    blocks): q tile i sees tiles i - width + 1 .. i and tile 0."""
+    i = torch.arange(n_q_tiles)[:, None]
+    j = torch.arange(n_k_tiles)[None, :]
+    return ((i - j >= 0) & (i - j < width)) | (j == 0)
+
+
+def random_pattern(n_q_tiles, n_k_tiles, density, empty_row, seed):
+    gen = torch.Generator().manual_seed(seed)
+    p = torch.rand((n_q_tiles, n_k_tiles), generator=gen) < density
+    p[empty_row] = False
+    return p
+
+
+# key: (label, shape, dtype, causal, (block_q, block_k), pattern, use dlse)
+SPARSE_CASES = {
+    "a": ("the model phase's call (2, 12, 4096, 64) bf16 causal, local+global "
+          "on 32 x 32 tiles of 128", (2, 12, 12, 4096, 4096, 64), BF16, True,
+          (128, 128), local_global(32, 32), False),
+    "b": ("BASELINE head dim (1, 8, 8192, 128) bf16 causal, local+global on "
+          "64 x 64 tiles of 128", (1, 8, 8, 8192, 8192, 128), BF16, True,
+          (128, 128), local_global(64, 64), False),
+    "c": ("GQA 12/4, N=1000 fp32 non-causal, random density 0.3 with an "
+          "empty q-block row, tiles of 64", (1, 12, 4, 1000, 1000, 64), FP32,
+          False, (64, 64), random_pattern(16, 16, 0.3, 5, SEED), False),
+    "d": ("N_q 384 != N_k 512 bf16 causal, blocks 64 x 128, local+global, "
+          "LSE cotangent", (2, 8, 8, 384, 512, 64), BF16, True, (64, 128),
+          local_global(6, 4), True),
+}
+
+
+def sparse_case(timer, gen, dev, key):
+    """The sparse forward and backward kernels against their plain versions
+    (o and gradients at the flash limit; LSE at 1e-4 where a row sees a
+    key, -inf exactly on empty q blocks), their times, the bound of the
+    pairs the pattern keeps, and SDPA with the expanded boolean mask."""
+    label, shape, dtype, causal, (bq, bk), pattern, use_dlse = SPARSE_CASES[key]
+    q, k, v, do, dlse, _ = _flash_inputs(gen, dev, shape, dtype,
+                                         ("dlse",) if use_dlse else ())
+    spec = sa.SparseSpec(causal=causal, scale=shape[-1] ** -0.5, block_q=bq,
+                         block_k=bk)
+    n_q, n_k = shape[3], shape[4]
+    active = sa.tile_pattern(pattern.to(dev), *pattern.shape, bq, bk, causal,
+                             n_k - n_q)
+    o, lse = sa.sparse_fwd(q, k, v, active, spec)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = sa.sparse_fwd_plain(q, k, v, active, spec)
+    tols = {"o": kernel_tol(dtype, o_ref)}
+    err = {"o": check_close(f"sparse_fwd {key} o", o, o_ref, *tols["o"])}
+    empty = torch.isneginf(lse_ref)
+    if not torch.equal(torch.isneginf(lse), empty):
+        fail(f"sparse_fwd {key}: -inf LSE rows differ from the plain version's")
+    seen = lse_ref > -1e30
+    if not torch.equal(lse[~seen & ~empty], lse_ref[~seen & ~empty]):
+        fail(f"sparse_fwd {key}: rows that see no key differ in LSE")
+    err["lse"] = check_close(f"sparse_fwd {key} lse", lse[seen], lse_ref[seen],
+                             LSE_TOL)
+    grads = sa.sparse_bwd(q, k, v, o_ref, lse_ref, do, dlse, active, spec)
+    torch.cuda.synchronize()
+
+    def plain_bwd():
+        di = (o_ref.float() * do.float()).sum(-1)
+        if dlse is not None:
+            di = di - dlse
+        return sa.sparse_bwd_plain(q, k, v, do, lse_ref, di, active, spec)
+
+    for name, g, r in zip(("dq", "dk", "dv"), grads, plain_bwd()):
+        tols[name] = kernel_tol(dtype, r)
+        err[name] = check_close(f"sparse_bwd {key} {name}", g, r, *tols[name])
+    del grads
+    big = n_q * n_k * shape[1] * shape[0] > 2 ** 27
+    t = dict(
+        fwd_ms=timer(lambda: sa.sparse_fwd(q, k, v, active, spec)),
+        fwd_plain_ms=timer(lambda: sa.sparse_fwd_plain(q, k, v, active, spec),
+                           reps=3 if big else 10, warmup=1),
+        bwd_ms=timer(lambda: sa.sparse_bwd(q, k, v, o_ref, lse_ref, do, dlse,
+                                           active, spec)),
+        bwd_plain_ms=timer(plain_bwd, reps=3 if big else 10, warmup=1),
+    )
+    # SDPA with the expanded element mask: the same function only where
+    # every row sees a key (an all-masked row gives NaN there, 0 here)
+    vis = sa.element_mask(active, n_q, n_k, spec)
+    every_row = bool(vis.any(dim=-1).all())
+    same = dict(fwd=every_row, bwd=every_row and not use_dlse,
+                fwd_bwd=every_row and not use_dlse)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = q.shape[1] != k.shape[1]
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    lib = dict(fwd=timer(lambda: sdpa(q, k, v, attn_mask=vis, scale=spec.scale,
+                                      enable_gqa=gqa)))
+    o_lib = sdpa(*leaves, attn_mask=vis, scale=spec.scale, enable_gqa=gqa)
+    lib["bwd"] = timer(lambda: torch.autograd.grad(o_lib, leaves, do,
+                                                   retain_graph=True))
+    lib["fwd_bwd"] = timer(lambda: torch.autograd.grad(
+        sdpa(*leaves, attn_mask=vis, scale=spec.scale, enable_gqa=gqa),
+        leaves, do))
+    del o_lib, leaves
+    pairs = int(vis.sum()) * shape[0] * shape[1]
+    bounds = attention_bounds(q, k, pairs, dlse)
+    rec = dict(case=label, shape=shape, dtype=str(dtype).replace("torch.", ""),
+               blocks=(bq, bk), active_tiles=int(active.sum()),
+               visible_pairs=pairs, max_abs_err=err,
+               tol={n: dict(rtol=r, atol=a) for n, (r, a) in tols.items()},
+               empty_rows=int(empty.sum()), library_same_function=same,
+               fwd_bound_ms=bounds["fwd"][0], fwd_bound_by=bounds["fwd"][1],
+               bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1],
+               **{f"{'library' if same[n] else 'yardstick'}_{n}_ms": x
+                  for n, x in lib.items()}, **t)
+    log(f"[kernel] sparse {key} ({label}): {int(active.sum())} active tiles, "
+        f"{pairs} visible pairs; max_abs_err "
+        + " ".join(f"{n} {e:.2e}" for n, e in err.items())
+        + f" ({tol_text(dtype)}; lse {LSE_TOL:g} abs+rel, -inf rows exact)")
+    log(f"[kernel]   fwd {t['fwd_ms']:.4f} ms (plain {t['fwd_plain_ms']:.4f}, "
+        f"SDPA {lib['fwd']:.4f}, bound {bounds['fwd'][0]:.4f} "
+        f"{bounds['fwd'][1]})  bwd {t['bwd_ms']:.4f} ms (plain "
+        f"{t['bwd_plain_ms']:.4f}, SDPA backward {lib['bwd']:.4f}, forward + "
+        f"backward {lib['fwd_bwd']:.4f}, bound {bounds['bwd'][0]:.4f} "
+        f"{bounds['bwd'][1]})"
+        + ("" if same["bwd"] else "  [SDPA computes another function here"
+           + (" in the backward" if same["fwd"] else "") + ": a yardstick]"))
     return rec
 
 
@@ -808,6 +970,9 @@ def phase_kernels(dev):
     for key in FLASH_CASES:
         recs[f"flash_{key}"] = flash_case(timer, gen, dev, key)
         torch.cuda.empty_cache()
+    for key in SPARSE_CASES:
+        recs[f"sparse_{key}"] = sparse_case(timer, gen, dev, key)
+        torch.cuda.empty_cache()
     for key in FP8_CASES:
         recs[f"fp8_{key}"] = fp8_case(timer, gen, dev, key)
         torch.cuda.empty_cache()
@@ -826,6 +991,8 @@ def reset_counts():
     fa.kernel_attention.fwd_launches = 0
     fa.kernel_attention.bwd_launches = 0
     f8.fp8_attention.launches = 0
+    sa.sparse_attention.fwd_launches = 0
+    sa.sparse_attention.bwd_launches = 0
 
 
 def read_counts():
@@ -833,7 +1000,9 @@ def read_counts():
             "paged_append": pap.paged_append.launches,
             "flash_fwd": fa.kernel_attention.fwd_launches,
             "flash_bwd": fa.kernel_attention.bwd_launches,
-            "flash_fwd_fp8": f8.fp8_attention.launches}
+            "flash_fwd_fp8": f8.fp8_attention.launches,
+            "sparse_fwd": sa.sparse_attention.fwd_launches,
+            "sparse_bwd": sa.sparse_attention.bwd_launches}
 
 
 def phase_engine(cfg, params, ecfg, dev, n_req, prompt_range, n_new, on_card):
@@ -1224,6 +1393,179 @@ def phase_train_vs_cpu(cfg, dev, n=512):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the block-sparse model
+# ---------------------------------------------------------------------------
+
+
+def _sparse_loss(params, toks, cfg, pattern):
+    """Next-token CE of toks (B, N+1) through the model with a pattern."""
+    logits = apply_transformer(params, toks[:, :-1], cfg,
+                               sparse_pattern=pattern)
+    return ttrain.token_nll(logits, toks[:, 1:]).mean()
+
+
+def _sparse_vs_cpu(cfg, dev, n, pattern):
+    """Loss and gradients through the sparse route: the bf16 card against
+    the fp32 CPU (plain versions), from the same fp32 parameters."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    ref_params = init_params(cfg32, seed=SEED + 5, device="cpu")
+    card_params = copy.deepcopy(ref_params).to(dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, size=(1, n + 1)))
+    out = {}
+    for tag, params, c, d in (("card", card_params, cfg, dev),
+                              ("cpu_fp32", ref_params, cfg32, "cpu")):
+        loss = _sparse_loss(params, toks.to(d), c, pattern.to(d))
+        loss.backward()
+        out[tag] = (loss.item(), {name: p.grad.float().cpu()
+                                  for name, p in params.named_parameters()})
+    (lc, gc), (lr, gr) = out["card"], out["cpu_fp32"]
+    loss_err = abs(lc - lr)
+    rel = (sum(float((gc[k] - gr[k]).square().sum()) for k in gr)
+           / sum(float(gr[k].square().sum()) for k in gr)) ** 0.5
+    log(f"[sparse] card vs cpu at N={n}, pattern {pattern.int().tolist()}: "
+        f"loss bf16 {lc:.6f} vs fp32 {lr:.6f} (|diff| {loss_err:.3e}, tol "
+        f"{TRAIN_TOL:g} abs+rel); gradient global relative L2 {rel:.3e} (tol "
+        f"{TRAIN_TOL:g})")
+    if not np.isfinite(lc) or loss_err > TRAIN_TOL + TRAIN_TOL * abs(lr):
+        fail(f"sparse model loss card vs cpu differs by {loss_err:.3e}")
+    if not rel <= TRAIN_TOL:
+        fail(f"sparse model gradient relative L2 error {rel:.3e} over "
+             f"{TRAIN_TOL:g}")
+    return dict(n=n, loss_card=lc, loss_cpu=lr, loss_abs_err=loss_err,
+                grad_rel_l2=rel, tol=TRAIN_TOL)
+
+
+def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3):
+    """The block-sparse slice's main path at ``cfg``: the local + global
+    pattern on the n / block_size square of tiles, through
+    ``apply_transformer(sparse_pattern=...)``. (1) one no-grad forward;
+    (2) forward, next-token CE and backward, one untimed then ``n_timed``
+    timed on the host clock up to ``loss.item()``; counts set to 0 just
+    before each and read just after; (3) one step under torch.profiler;
+    (4) loss and gradients, bf16 card vs fp32 CPU, at ``check_n`` with the
+    4 x 4 pattern of tests/test_sparse.py; (5) an all-ones pattern (the
+    sparse route) against no pattern (the flash route), logits at the bf16
+    rung."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=dev)
+    n_tiles = -(-n // cfg.block_size)
+    pattern = local_global(n_tiles, n_tiles).to(dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 6).integers(
+        0, cfg.vocab_size, size=(b, n + 1))).to(dev)
+    reach = sa.tile_pattern(pattern, n_tiles, n_tiles, cfg.block_size,
+                            cfg.block_size, True, 0)
+    log(f"[sparse] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, vocab {cfg.vocab_size}, remat "
+        f"{cfg.remat_policy if cfg.remat else 'off'}, {cfg.dtype}; B={b} "
+        f"N={n}; local+global pattern: {int(reach.sum())} of "
+        f"{n_tiles * (n_tiles + 1) // 2} causally reachable tiles (set-up "
+        f"{time.perf_counter() - t0:.1f} s)")
+    L = cfg.n_layers
+    rec = dict(b=b, n=n, active_tiles=int(reach.sum()),
+               reachable_tiles=n_tiles * (n_tiles + 1) // 2)
+
+    sync(dev)
+    reset_counts()
+    with torch.no_grad():
+        logits = apply_transformer(params, toks[:, :-1], cfg,
+                                   sparse_pattern=pattern)
+    sync(dev)
+    rec["forward_launches"] = counts = read_counts()
+    if logits.shape != (b, n, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        fail("sparse model logits are misshapen or not finite")
+    del logits
+    log(f"[sparse] no-grad forward launches: {counts}")
+    if on_card and (counts["sparse_fwd"], counts["flash_fwd"]) != (L, 0):
+        fail(f"no-grad forward launched {counts}; want {L} sparse_fwd and "
+             f"no flash_fwd")
+
+    def step():
+        params.zero_grad(set_to_none=True)
+        loss = _sparse_loss(params, toks, cfg, pattern)
+        loss.backward()
+        return loss.item()
+
+    step()
+    sync(dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses = [], []
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        losses.append(step())
+        times.append(time.perf_counter() - t0)
+    rec["launches"] = counts = read_counts()
+    step_ms = [x * 1e3 for x in times]
+    rec.update(step_ms=step_ms, median_step_ms=statistics.median(step_ms),
+               losses=losses, tokens_per_s=b * n * n_timed / sum(times),
+               max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                     if on_card else None))
+    if not all(np.isfinite(losses)):
+        fail(f"sparse model losses are not finite: {losses}")
+    log(f"[sparse] {n_timed} forward+backward steps: median "
+        f"{rec['median_step_ms']:.2f} ms, {rec['tokens_per_s']:.1f} tokens/s; "
+        f"losses " + " ".join(f"{x:.4f}" for x in losses))
+    log(f"[sparse] launches: {counts}")
+    if on_card:
+        want = dict(sparse_fwd=2 * L * n_timed, sparse_bwd=L * n_timed,
+                    flash_fwd=0, flash_bwd=0)
+        got = {k: counts[k] for k in want}
+        if got != want:
+            fail(f"sparse steps launched {got}; want {want} ({2 * L} "
+                 f"sparse_fwd and {L} sparse_bwd per step)")
+        log(f"[sparse] per step: {2 * L} sparse_fwd + {L} sparse_bwd, no "
+            f"flash launch (checked); max_memory_allocated "
+            f"{rec['max_memory_allocated'] / 2 ** 30:.3f} GiB")
+
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        wall = time.perf_counter() - t0
+    kernels = device_kernels(prof)
+    busy = sum(kernels.values()) / 1e6
+    rec["profile"] = dict(
+        wall_ms=wall * 1e3, kernel_ms=busy * 1e3,
+        device_busy_share=busy / wall if kernels else None,
+        top=sorted(((k, v / 1e3) for k, v in kernels.items()),
+                   key=lambda kv: -kv[1])[:12])
+    if kernels:
+        log(f"[sparse] profiled step: {wall * 1e3:.2f} ms wall, kernels "
+            f"{busy * 1e3:.2f} ms, device busy {100 * busy / wall:.1f}%")
+        for k, v in rec["profile"]["top"]:
+            log(f"[sparse]   {v:.4f} ms  {k[:90]}")
+    else:
+        log("[sparse] the profiler recorded no device time: not measured")
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+
+    p4 = torch.tensor([[1, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 1]],
+                      dtype=torch.bool)
+    rec["vs_cpu"] = _sparse_vs_cpu(cfg, dev, check_n, p4)
+
+    params = init_params(cfg, seed=SEED + 7, device=dev)
+    with torch.no_grad():
+        ones = apply_transformer(params, toks[:, :-1], cfg,
+                                 sparse_pattern=torch.ones_like(pattern))
+        dense = apply_transformer(params, toks[:, :-1], cfg)
+    err = (ones - dense).abs()
+    rec["ones_vs_dense_max_abs"] = max_err = float(err.max())
+    log(f"[sparse] all-ones pattern vs no pattern (flash route): logits max "
+        f"|diff| {max_err:.3e} (tol {LOGITS_TOL:g} abs+rel; max |logit| "
+        f"{float(dense.abs().max()):.3e})")
+    if bool((err > LOGITS_TOL + LOGITS_TOL * dense.abs()).any()):
+        fail(f"all-ones pattern logits differ from the dense route by "
+             f"{max_err:.3e}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1260,6 +1602,9 @@ def main() -> int:
                                 warmup_steps=2)
         report["train"] = phase_train(tcfg, tc, "cpu", on_card=False)
         report["train_vs_cpu"] = phase_train_vs_cpu(tcfg, "cpu", n=64)
+        report["sparse_model"] = phase_sparse_model(
+            dataclasses.replace(cfg, block_size=16), "cpu", False, b=2, n=128,
+            check_n=64)
         log("[rehearsal] control flow ran on the CPU; no device result")
         return 0
 
@@ -1331,6 +1676,13 @@ def main() -> int:
     # Phase 5b: the FA3 8-bit path at the BASELINE shape
     report["fa3_fp8"] = phase_fa3_fp8(dev, (1, 8, 8192, 128),
                                       (1, 8, 1024, 128), True)
+    torch.cuda.empty_cache()
+
+    # Phase 7: the block-sparse model at GPT-3 Small widths, N = 4096 (only
+    # the position table grows)
+    scfg = TransformerConfig(dropout_rate=0.0, max_seq_len=4096)
+    report["sparse_model"] = phase_sparse_model(scfg, dev, True, b=2, n=4096,
+                                                check_n=512)
 
     counts = {**report["engine"]["launches"],
               **{k: report["train"]["launches"][k]
@@ -1379,6 +1731,20 @@ def main() -> int:
         bound_by=r["bound_by"], library_ms=None,
         yardstick_ms=r["yardstick_ms"], case=r["case"],
     ))
+    # sparse_fwd / sparse_bwd: launches of phase 7's forward+backward
+    # steps; numbers of phase-2 case (a), the model phase's call
+    r = report["kernels"]["sparse_a"]
+    for name, part, errs in (("sparse_fwd", "fwd", ("o", "lse")),
+                             ("sparse_bwd", "bwd", ("dq", "dk", "dv"))):
+        kernels.append(dict(
+            name=name, **KERNELS[name],
+            launches=report["sparse_model"]["launches"][name],
+            max_abs_err=max(r["max_abs_err"][e] for e in errs),
+            ms=r[f"{part}_ms"], plain_ms=r[f"{part}_plain_ms"],
+            bound_ms=r[f"{part}_bound_ms"], bound_by=r[f"{part}_bound_by"],
+            library_ms=r.get(f"library_{part}_ms"),
+            yardstick_ms=r.get(f"yardstick_{part}_ms"), case=r["case"],
+        ))
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was launched no time on its main path")

@@ -18,7 +18,10 @@ Ported so far:
 - the 8-bit path: FA3 8-bit attention (``ops.fp8_attn``, kernel
   ``csrc/flash_fwd_fp8.cu``) behind ``fa3_attention(fp8=True)``, and
   int8/e4m3/e5m2 paged caches (``init_paged_cache(quant=...)``,
-  ``EngineConfig(quant=...)``) through the paged kernels.
+  ``EngineConfig(quant=...)``) through the paged kernels;
+- block-sparse attention (``ops.sparse_attn.sparse_attention``, kernels
+  ``csrc/sparse_fwd.cu`` and ``csrc/sparse_bwd.cu``) and the model's
+  ``apply_transformer(sparse_pattern=...)``.
 """
 
 from flashattention_tpu_torch.models.train import TrainConfig, train
@@ -41,6 +44,7 @@ from flashattention_tpu_torch.ops.fp8_attn import fp8_attention
 from flashattention_tpu_torch.ops.paged_append import paged_append
 from flashattention_tpu_torch.ops.paged_attention import paged_attention
 from flashattention_tpu_torch.ops.reference import reference_attention
+from flashattention_tpu_torch.ops.sparse_attn import sparse_attention
 from flashattention_tpu_torch.ops.tiled import tiled_attention
 from flashattention_tpu_torch.serving import (
     EngineConfig,
@@ -72,6 +76,7 @@ __all__ = [
     "paged_attention",
     "params_from_jax",
     "reference_attention",
+    "sparse_attention",
     "tiled_attention",
     "train",
 ]

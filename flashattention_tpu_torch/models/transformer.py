@@ -13,7 +13,10 @@ as ``x @ w``), so a JAX parameter tree loads by name through
 
 Post-LN blocks (attention -> residual -> LN -> MLP -> residual -> LN), as
 in the JAX package. Attention goes through ``ops.api.flash_attention``: the
-CUDA flash kernels on the card.
+CUDA flash kernels on the card; with a block-sparse pattern, through
+``ops.sparse_attn.sparse_attention`` (kernels B8-B10) when there is no
+attention dropout and no soft-cap, else through the tiled executor with the
+pattern expanded to an element mask.
 
 Dropout under recomputation: with ``remat`` every block runs its forward
 twice, and ``torch.utils.checkpoint`` restores only the global generators.
@@ -41,6 +44,7 @@ from torch.utils.checkpoint import (
 )
 
 from flashattention_tpu_torch.ops.api import flash_attention
+from flashattention_tpu_torch.ops.sparse_attn import sparse_attention
 from flashattention_tpu_torch.ops.tiled import tiled_attention
 from flashattention_tpu_torch.utils.device import resolve_device
 
@@ -327,8 +331,8 @@ def _project_qkv(x, p, cfg):
 
 
 def _attention(x, p, cfg: TransformerConfig, *, dropout_seed, train,
-               kv_cache=None, cache_index: int = 0, segment_ids=None,
-               positions=None):
+               kv_cache=None, cache_index: int = 0, sparse_mask=None,
+               segment_ids=None, positions=None):
     b, n, d = x.shape
     q, k, v = _project_qkv(x, p, cfg)
     if cfg.pos_encoding == "rope":
@@ -365,15 +369,30 @@ def _attention(x, p, cfg: TransformerConfig, *, dropout_seed, train,
                                softcap=cfg.attn_softcap)
     else:
         rate = cfg.dropout_rate if train else 0.0
-        o, _ = flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            causal=True, softmax_scale=cfg.softmax_scale,
-            backend=cfg.attention_backend, block_k=cfg.block_size,
-            dropout_rate=rate,
-            dropout_seed=dropout_seed if rate > 0 else None,
-            window=cfg.attention_window, segment_ids=segment_ids,
-            softcap=cfg.attn_softcap, sinks=cfg.attention_sinks,
-        )
+        if sparse_mask is not None and cfg.attention_window is not None:
+            raise ValueError(
+                "attention_window and a block-sparse pattern cannot combine")
+        if sparse_mask is not None and segment_ids is not None:
+            raise ValueError("segment_ids (packed varlen) and a block-sparse "
+                             "pattern cannot combine")
+        if sparse_mask is not None and rate == 0.0 and cfg.attn_softcap is None:
+            # the sparse kernels take GQA natively: K/V are not repeated
+            o, _ = sparse_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), sparse_mask,
+                causal=True, softmax_scale=cfg.softmax_scale,
+                block_q=cfg.block_size, block_k=cfg.block_size)
+        else:
+            o, _ = flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                causal=True, softmax_scale=cfg.softmax_scale,
+                backend=cfg.attention_backend, block_k=cfg.block_size,
+                mask=(block_sparse_mask(n, n, cfg.block_size, sparse_mask)
+                      if sparse_mask is not None else None),
+                dropout_rate=rate,
+                dropout_seed=dropout_seed if rate > 0 else None,
+                window=cfg.attention_window, segment_ids=segment_ids,
+                softcap=cfg.attn_softcap, sinks=cfg.attention_sinks,
+            )
     o = o.transpose(1, 2).reshape(b, n, d)
     return o @ p.w_o.to(o.dtype) + p.b_o.to(o.dtype)
 
@@ -384,11 +403,13 @@ def _mlp(x, p):
     return hidden @ p.w_out.to(dt) + p.b_out.to(dt)
 
 
-def _block(x, bp, cfg, *, seeds, train, segment_ids=None, positions=None):
+def _block(x, bp, cfg, *, seeds, train, sparse_mask=None, segment_ids=None,
+           positions=None):
     """One post-LN block; ``seeds`` are its three dropout-site seeds."""
     drop = train and cfg.dropout_rate > 0
     attn_out = _attention(x, bp.attn, cfg, dropout_seed=seeds[0], train=train,
-                          segment_ids=segment_ids, positions=positions)
+                          sparse_mask=sparse_mask, segment_ids=segment_ids,
+                          positions=positions)
     if drop:
         attn_out = _dropout(attn_out, seeds[1], cfg.dropout_rate)
     x = layer_norm(x + attn_out, bp.ln1)
@@ -443,12 +464,12 @@ def apply_transformer(
     ``train`` turns dropout on; it then needs ``dropout_seed`` (an int),
     from which every site's seed is drawn. ``segment_ids`` (B, N): packed
     rows, attention within each segment and positions restarting per
-    segment. ``sparse_pattern`` (the block-sparse kernels) is not ported
-    yet and raises."""
+    segment. ``sparse_pattern``: a bool block pattern, True = attend,
+    normalized as the JAX package does to the ceil(N / block_size) square
+    of tiles (each entry repeated ceil(n_tiles / its side) times, then
+    sliced); causal attention then runs only the active tiles. It cannot
+    combine with a window or ``segment_ids``."""
     _check_supported(cfg)
-    if sparse_pattern is not None:
-        raise NotImplementedError(
-            "block-sparse attention (sparse_pattern) is not ported yet")
     drop = train and cfg.dropout_rate > 0
     if drop and dropout_seed is None:
         raise ValueError("train with dropout_rate > 0 requires dropout_seed")
@@ -462,10 +483,20 @@ def apply_transformer(
     if drop:
         x = _dropout(x, seeds[0], cfg.dropout_rate)
 
+    sparse_mask = None
+    if sparse_pattern is not None:
+        n = tokens.shape[1]
+        n_tiles = -(-n // cfg.block_size)
+        pat = torch.as_tensor(sparse_pattern, device=tokens.device).bool()
+        sparse_mask = pat.repeat_interleave(
+            -(-n_tiles // pat.shape[0]), 0).repeat_interleave(
+            -(-n_tiles // pat.shape[1]), 1)[:n_tiles, :n_tiles]
+
     for i, bp in enumerate(params.blocks):
         one_block = functools.partial(
             _block, bp=bp, cfg=cfg, seeds=seeds[1 + 3 * i: 4 + 3 * i],
-            train=train, segment_ids=segment_ids, positions=positions)
+            train=train, sparse_mask=sparse_mask, segment_ids=segment_ids,
+            positions=positions)
         x = _remat(one_block, cfg)(x)
     x = layer_norm(x, params.final_ln)
     out = x if return_hidden else lm_head_logits(params.lm_head, x)

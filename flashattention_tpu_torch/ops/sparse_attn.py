@@ -1,0 +1,338 @@
+"""Block-sparse flash attention: kernels B8 (forward) and B9/B10 (backward).
+
+The counterpart of ``flashattention_tpu/ops/pallas_sparse.py``
+(``pallas_sparse_attention`` and its custom VJP). A bool tile pattern
+(ceil(N_q / block_q), ceil(N_k / block_k)) says which (q block, KV block)
+pairs attend; with ``causal`` it is ANDed with tile-granular causal
+reachability (:func:`tile_pattern`). Each q block's active KV blocks, and
+each KV block's active q blocks, are compacted into int32 lists with
+counts (:func:`compact_rows`), built with tensor ops on the inputs' device
+without a host sync; a kernel reads its loop bound from the count.
+
+On CUDA tensors :func:`sparse_attention` launches ``csrc/sparse_fwd.cu``
+(counted in ``sparse_attention.fwd_launches``) and, in the backward,
+``csrc/sparse_bwd.cu`` (a dK/dV kernel over the transposed lists, then a
+dQ kernel; ``sparse_attention.bwd_launches``). On CPU tensors it runs the
+plain versions :func:`sparse_fwd_plain` and :func:`sparse_bwd_plain`.
+Nothing falls back: a CUDA input the kernels do not take (fp16, a head dim
+that is not a multiple of 8 up to 256, tensors on different devices)
+raises, and so does a failed build or launch.
+
+The function. Query row r sits at key position r + (N_k - N_q). Inside an
+active block pair an element is kept iff col < N_k and, when causal,
+col <= r + N_k - N_q. ``s = (q·k in fp32) * scale`` in the forward and the
+backward alike (the dense backward instead rounds q * scale to the input
+type); a masked score takes ``DEFAULT_MASK_VALUE`` and its p is zeroed; p
+is rounded to v's type before P·V and to do's before Pᵀ·dO; dK sums
+``round(ds)ᵀ·q`` and dQ ``round(ds)·k`` unscaled, times the scale at the
+end. Rows of a q block with no active KV block give o = 0 and
+lse = -inf; a row of a visited block that sees no key gives o = 0 and
+lse = ``DEFAULT_MASK_VALUE``. The plain versions are dense functions over
+the expanded element mask with these rounding points, so kernel and plain
+agree to about one bf16 ulp.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from flashattention_tpu_torch import _build
+from flashattention_tpu_torch.ops.flash_attn import (
+    _DTYPE_CODE,
+    MAX_HEAD_DIM,
+    _expand_kv,
+    _group_sum,
+)
+from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseSpec:
+    """Everything but q, k, v and the pattern that fixes the function."""
+
+    causal: bool
+    scale: float
+    block_q: int
+    block_k: int
+
+
+# ---------------------------------------------------------------------------
+# Block lists
+# ---------------------------------------------------------------------------
+
+
+def tile_pattern(pattern: torch.Tensor | None, n_q_tiles: int, n_k_tiles: int,
+                 block_q: int, block_k: int, causal: bool, offset: int,
+                 device=None) -> torch.Tensor:
+    """The user pattern (all ones when None, on ``device``) ANDed, when
+    ``causal``, with tile-granular causal reachability at ``offset``
+    (``pallas_sparse._tile_pattern``): (n_q_tiles, n_k_tiles) bool."""
+    if pattern is None:
+        active = torch.ones((n_q_tiles, n_k_tiles), dtype=torch.bool,
+                            device=device)
+    else:
+        if tuple(pattern.shape) != (n_q_tiles, n_k_tiles):
+            raise ValueError(
+                f"pattern must be (n_q_tiles, n_k_tiles)=({n_q_tiles}, "
+                f"{n_k_tiles}), got {tuple(pattern.shape)}")
+        active = pattern.bool()
+    if causal:
+        iq = torch.arange(n_q_tiles, device=active.device)[:, None]
+        ik = torch.arange(n_k_tiles, device=active.device)[None, :]
+        active = active & ((iq * block_q + block_q - 1 + offset) >= ik * block_k)
+    return active
+
+
+def compact_rows(active: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(R, C) bool -> (order (R, C) int32: each row's active column indices
+    first, ascending, padded with its last active one (0 for an empty row);
+    counts (R,) int32), as ``pallas_sparse._compact_rows``."""
+    c = active.shape[1]
+    counts = active.sum(dim=1, dtype=torch.int32)
+    order = torch.argsort((~active).to(torch.int8), dim=1, stable=True)
+    last = order.gather(1, (counts.long() - 1).clamp(min=0)[:, None])
+    pos = torch.arange(c, device=active.device)[None, :]
+    order = torch.where(pos < counts[:, None], order, last)
+    return order.to(torch.int32).contiguous(), counts
+
+
+def _active(pattern, q, k, spec: SparseSpec) -> torch.Tensor:
+    n_q, n_k = q.shape[2], k.shape[2]
+    return tile_pattern(pattern, -(-n_q // spec.block_q),
+                        -(-n_k // spec.block_k), spec.block_q, spec.block_k,
+                        spec.causal, n_k - n_q, device=q.device)
+
+
+def element_mask(active: torch.Tensor, n_q: int, n_k: int,
+                 spec: SparseSpec) -> torch.Tensor:
+    """(N_q, N_k) bool: the tile map expanded to elements, ANDed with the
+    causal edge when ``spec.causal``."""
+    vis = active.repeat_interleave(spec.block_q, 0).repeat_interleave(
+        spec.block_k, 1)[:n_q, :n_k]
+    if spec.causal:
+        rows = torch.arange(n_q, device=active.device)[:, None] + (n_k - n_q)
+        vis = vis & (torch.arange(n_k, device=active.device)[None, :] <= rows)
+    return vis
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def sparse_fwd_plain(q, k, v, active, spec: SparseSpec):
+    """The forward kernel's function in plain PyTorch, dense over the
+    expanded element mask: (o, lse)."""
+    h, n_q = q.shape[1], q.shape[2]
+    n_k = k.shape[2]
+    vis = element_mask(active.to(q.device), n_q, n_k, spec)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     _expand_kv(k, h).float()) * spec.scale
+    s = torch.where(vis, s, torch.full_like(s, DEFAULT_MASK_VALUE))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(vis, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(),
+                     _expand_kv(v, h).float())
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    lse = (m + torch.log(l_safe))[..., 0]
+    # rows of a q block with no active KV block were never visited
+    row_on = active.to(q.device).any(dim=1).repeat_interleave(
+        spec.block_q)[:n_q]
+    lse = torch.where(row_on, lse, torch.full_like(lse, float("-inf")))
+    return (o / l_safe).to(q.dtype), lse
+
+
+def sparse_bwd_plain(q, k, v, do, lse, di, active, spec: SparseSpec):
+    """The backward kernels' function in plain PyTorch, dense over the
+    expanded element mask: dq, dk, dv from the saved LSE and
+    ``di = rowsum(o·do) - dlse``."""
+    h, n_q = q.shape[1], q.shape[2]
+    h_kv, n_k = k.shape[1], k.shape[2]
+    vis = element_mask(active.to(q.device), n_q, n_k, spec)
+    qf, kf, dof = q.float(), _expand_kv(k, h).float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * spec.scale
+    p = torch.where(vis, torch.exp(s - lse.float()[..., None]),
+                    torch.zeros_like(s))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, _expand_kv(v, h).float())
+    ds = p * (dp - di.float()[..., None])
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), qf)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(), kf)
+    return ((dq * spec.scale).to(q.dtype),
+            (_group_sum(dk, h_kv) * spec.scale).to(k.dtype),
+            _group_sum(dv, h_kv).to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(q, k, v, active, spec: SparseSpec, do=None, lse=None):
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"sparse attention kernels take bf16/fp32, got {q.dtype}")
+    for name, t in (("k", k), ("v", v), ("do", do)):
+        if t is not None and t.dtype != q.dtype:
+            raise TypeError(f"{name} ({t.dtype}) must have q's dtype ({q.dtype})")
+    b, h, n_q, d = q.shape
+    if d > MAX_HEAD_DIM or d % 8:
+        raise ValueError(f"head_dim must be a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    n_k = k.shape[2]
+    want = {"k": tuple(v.shape), "pattern": (-(-n_q // spec.block_q),
+                                             -(-n_k // spec.block_k)),
+            "do": tuple(q.shape), "lse": (b, h, n_q)}
+    for name, t in (("k", k), ("pattern", active), ("do", do), ("lse", lse)):
+        if t is not None and tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, is "
+                             f"{tuple(t.shape)}")
+    if k.shape[0] != b or k.shape[3] != d or h % k.shape[1]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         f"fit together")
+    for name, t in (("q", q), ("k", k), ("v", v), ("pattern", active),
+                    ("do", do), ("lse", lse)):
+        if t is not None and (not t.is_cuda or t.device != q.device):
+            raise ValueError(f"{name} must be on {q.device}, is on {t.device}")
+
+
+def _shape_args(q, k, spec: SparseSpec):
+    b, h, n_q, d = q.shape
+    return [b, h, k.shape[1], n_q, k.shape[2], d, float(spec.scale),
+            int(spec.causal), int(spec.block_q), int(spec.block_k)]
+
+
+def _fwd_cuda(q, k, v, active, spec: SparseSpec):
+    _check_cuda(q, k, v, active, spec)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    b, h, n_q, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
+    if o.numel() == 0 or k.shape[2] == 0:
+        return o.zero_(), lse.fill_(float("-inf"))
+    kv_list, kv_count = compact_rows(active)
+    lib = _build.load_kernel("sparse_fwd", _declare_fwd)
+    err = lib.fat_sparse_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        kv_list.data_ptr(), kv_count.data_ptr(), *_shape_args(q, k, spec),
+        kv_list.shape[1], _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "sparse_fwd launch")
+    sparse_attention.fwd_launches += 1
+    return o, lse
+
+
+def _bwd_cuda(q, k, v, do, lse, di, active, spec: SparseSpec):
+    _check_cuda(q, k, v, active, spec, do, lse)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    do, lse, di = do.contiguous(), lse.float().contiguous(), di.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.shape[2] == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    kv_list, kv_count = compact_rows(active)
+    q_list, q_count = compact_rows(active.t())
+    lib = _build.load_kernel("sparse_bwd", _declare_bwd)
+    err = lib.fat_sparse_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), kv_list.data_ptr(), kv_count.data_ptr(),
+        q_list.data_ptr(), q_count.data_ptr(), *_shape_args(q, k, spec),
+        kv_list.shape[1], q_list.shape[1], _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "sparse_bwd launch")
+    sparse_attention.bwd_launches += 1
+    return dq, dk, dv
+
+
+_SHAPE_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3
+
+
+def _declare_fwd(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fat_sparse_fwd.restype = ctypes.c_int
+    lib.fat_sparse_fwd.argtypes = [p] * 7 + _SHAPE_ARGTYPES + [i, i, p]
+
+
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fat_sparse_bwd.restype = ctypes.c_int
+    lib.fat_sparse_bwd.argtypes = [p] * 13 + _SHAPE_ARGTYPES + [i, i, i, p]
+
+
+# ---------------------------------------------------------------------------
+# Dispatch and autograd
+# ---------------------------------------------------------------------------
+
+
+def sparse_fwd(q, k, v, active, spec: SparseSpec):
+    """(o, lse) for the tile map ``active`` (after :func:`tile_pattern`):
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if q.is_cuda:
+        return _fwd_cuda(q, k, v, active, spec)
+    return sparse_fwd_plain(q, k, v, active, spec)
+
+
+def sparse_bwd(q, k, v, o, lse, do, dlse, active, spec: SparseSpec):
+    """(dq, dk, dv) from the forward's o and LSE and the cotangents of both
+    (``dlse`` may be None). ``di = rowsum(o·do) - dlse`` is a PyTorch op
+    outside the kernels, as in ``ops/flash_attn.flash_bwd``."""
+    di = (o.float() * do.float()).sum(dim=-1)
+    if dlse is not None:
+        di = di - dlse.float()
+    if q.is_cuda:
+        return _bwd_cuda(q, k, v, do, lse, di, active, spec)
+    return sparse_bwd_plain(q, k, v, do, lse, di, active, spec)
+
+
+class _SparseAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, pattern, spec):
+        o, lse = sparse_fwd(q, k, v, _active(pattern, q, k, spec), spec)
+        ctx.save_for_backward(q, k, v, pattern, o, lse)
+        ctx.spec = spec
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, pattern, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        # the lists are rebuilt from the saved pattern, as the JAX VJP does
+        active = _active(pattern, q, k, ctx.spec)
+        dq, dk, dv = sparse_bwd(q, k, v, o, lse, do.to(o.dtype), dlse, active,
+                                ctx.spec)
+        return dq, dk, dv, None, None
+
+
+def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pattern: torch.Tensor | None, *, causal: bool = False,
+                     softmax_scale: float | None = None, block_q: int = 128,
+                     block_k: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """Block-sparse flash attention (module docstring): q (B, H, N_q, D),
+    k/v (B, H_kv, N_k, D) with H % H_kv == 0, ``pattern`` a bool
+    (ceil(N_q / block_q), ceil(N_k / block_k)) tile map, True = attend, or
+    None for all tiles. Returns (o in q's shape and dtype, fp32 LSE
+    (B, H, N_q)), differentiable in q, k and v through both."""
+    if q.dim() != 4:
+        raise ValueError(f"expected (B, H, N, D), got {tuple(q.shape)}")
+    if k.dim() != 4 or tuple(v.shape) != tuple(k.shape) or \
+            k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] or \
+            q.shape[1] % k.shape[1]:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not fit together")
+    spec = SparseSpec(
+        causal=bool(causal),
+        scale=float(q.shape[-1] ** -0.5 if softmax_scale is None
+                    else softmax_scale),
+        block_q=int(block_q), block_k=int(block_k))
+    if pattern is not None:
+        pattern = torch.as_tensor(pattern)
+    return _SparseAttention.apply(q, k, v, pattern, spec)
+
+
+sparse_attention.fwd_launches = 0
+sparse_attention.bwd_launches = 0

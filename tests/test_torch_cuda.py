@@ -603,3 +603,166 @@ def test_quantizers_on_card_match_cpu(cuda_device, fmt):
                        quant.quantize_tokens(q, fmt))):
         for g, w in zip(got, want):
             assert torch.equal(g.cpu().view(torch.uint8), w.view(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# Block-sparse attention (kernels B8, B9 + B10)
+# ---------------------------------------------------------------------------
+
+
+def local_global(n_tiles, width=4):
+    """Longformer/BigBird local + global layout: each q tile sees the
+    ``width`` tiles ending at its own and the first tile."""
+    i = torch.arange(n_tiles)[:, None]
+    j = torch.arange(n_tiles)[None, :]
+    return ((i - j >= 0) & (i - j < width)) | (j == 0)
+
+
+def random_pattern(n_q_tiles, n_k_tiles, density, empty_row, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    p = torch.rand((n_q_tiles, n_k_tiles), generator=gen) < density
+    p[empty_row] = False
+    return p
+
+
+# name: ((b, h, h_kv, n_q, n_k, d), dtype, causal, (block_q, block_k),
+# pattern, use dlse); chip_smoke.py's sparse cases (a)-(d) at reduced sizes,
+# plus ragged block and head-dim edges with masked rows.
+SPARSE_CASES = {
+    "a_model": ((2, 12, 12, 1024, 1024, 64), torch.bfloat16, True, (128, 128),
+                local_global(8), False),
+    "b_d128": ((1, 8, 8, 2048, 2048, 128), torch.bfloat16, True, (128, 128),
+               local_global(16), False),
+    "c_gqa_ragged": ((1, 12, 4, 1000, 1000, 64), torch.float32, False, (64, 64),
+                     random_pattern(16, 16, 0.3, 5), False),
+    "d_nq_ne_nk": ((2, 8, 8, 384, 512, 64), torch.bfloat16, True, (64, 128),
+                   local_global(6)[:, :4], True),
+    "e_edges_d40": ((1, 4, 2, 200, 328, 40), torch.float32, True, (48, 80),
+                    random_pattern(5, 5, 0.5, 2, seed=1), True),
+    "f_d256_masked_rows": ((1, 2, 1, 256, 256, 256), torch.float32, True,
+                           (128, 64), torch.tensor([[0, 1, 0, 0], [1, 0, 1, 1]],
+                                                   dtype=torch.bool), False),
+}
+
+
+def _sparse_case(name, device):
+    from flashattention_tpu_torch.ops import sparse_attn as sa
+
+    shape, dtype, causal, (bq, bk), pattern, use_dlse = SPARSE_CASES[name]
+    q, k, v, do, dlse, _ = flash_inputs(shape, dtype,
+                                        ("dlse",) if use_dlse else (), device)
+    spec = sa.SparseSpec(causal=causal, scale=shape[-1] ** -0.5, block_q=bq,
+                         block_k=bk)
+    active = sa.tile_pattern(pattern.to(device), pattern.shape[0],
+                             pattern.shape[1], bq, bk, causal,
+                             shape[4] - shape[3])
+    return sa, q, k, v, do, dlse, pattern, spec, active
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SPARSE_CASES))
+def test_sparse_kernels_match_plain(cuda_device, case):
+    sa, q, k, v, do, dlse, _, spec, active = _sparse_case(case, cuda_device)
+    f0 = sa.sparse_attention.fwd_launches
+    b0 = sa.sparse_attention.bwd_launches
+    o, lse = sa.sparse_fwd(q, k, v, active, spec)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = sa.sparse_fwd_plain(q, k, v, active, spec)
+    rtol, atol = flash_tol(q.dtype, o_ref)
+    assert_allclose(o, o_ref, rtol=rtol, atol=atol, err_msg=f"{case} o")
+    # rows of empty q blocks: -inf; rows that see no key: the mask value
+    empty = torch.isneginf(lse_ref)
+    masked = lse_ref <= -1e30
+    assert torch.equal(torch.isneginf(lse), empty)
+    assert torch.equal(lse[masked], lse_ref[masked])
+    assert_allclose(lse[~masked], lse_ref[~masked], rtol=1e-4, atol=1e-4,
+                    err_msg=f"{case} lse")
+    grads = sa.sparse_bwd(q, k, v, o_ref, lse_ref, do, dlse, active, spec)
+    torch.cuda.synchronize()
+    di = (o_ref.float() * do.float()).sum(-1)
+    if dlse is not None:
+        di = di - dlse
+    refs = sa.sparse_bwd_plain(q, k, v, do, lse_ref, di, active, spec)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        rtol, atol = flash_tol(q.dtype, r)
+        assert_allclose(g, r, rtol=rtol, atol=atol, err_msg=f"{case} {name}")
+    assert (sa.sparse_attention.fwd_launches - f0,
+            sa.sparse_attention.bwd_launches - b0) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_sparse_autograd_on_card_matches_cpu(cuda_device):
+    """sparse_attention's autograd on the card against the same call on the
+    CPU (plain versions), fp32, GQA, causal, ragged N, LSE cotangent."""
+    from flashattention_tpu_torch.ops import sparse_attention
+
+    gen = torch.Generator().manual_seed(6)
+    base = [torch.randn(s, generator=gen) for s in
+            ((2, 4, 150, 32), (2, 2, 150, 32), (2, 2, 150, 32))]
+    pattern = torch.tensor([[1, 0, 0], [1, 1, 0], [0, 1, 1]], dtype=torch.bool)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in base]
+        o, lse = sparse_attention(*leaves, pattern.to(dev), causal=True,
+                                  block_q=64, block_k=64)
+        (o.square().sum() + lse.sum()).backward()
+        out[str(dev)] = [o, lse] + [t.grad for t in leaves]
+    for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), out[str(cuda_device)],
+                          out["cpu"]):
+        assert_allclose(a, r, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_sparse_kernel_rejects_what_it_does_not_take(cuda_device):
+    from flashattention_tpu_torch.ops import sparse_attention
+
+    pat = torch.ones(2, 2, dtype=torch.bool, device=cuda_device)
+    q = torch.zeros(1, 2, 256, 32, device=cuda_device)
+    with pytest.raises(TypeError):
+        sparse_attention(q.half(), q.half(), q.half(), pat)
+    for d in (36, 264):
+        x = torch.zeros(1, 2, 256, d, device=cuda_device)
+        with pytest.raises(ValueError, match="head_dim"):
+            sparse_attention(x, x, x, pat)
+    with pytest.raises(ValueError, match="pattern must be"):
+        sparse_attention(q, q, q, pat[:1])
+    with pytest.raises(ValueError, match="pattern must be on"):
+        sparse_attention(q, q, q, pat.cpu())
+    with pytest.raises(ValueError, match="k must be on"):
+        sparse_attention(q, q.cpu(), q, pat)
+
+
+@pytest.mark.cuda
+def test_sparse_model_launch_counts(cuda_device):
+    """A bf16 model with a pattern (remat "full"): one no-grad forward runs
+    one sparse forward per layer; forward and backward run two (the remat
+    recompute) and one sparse backward per layer; no flash kernel runs."""
+    from flashattention_tpu_torch.models.train import token_nll
+    from flashattention_tpu_torch.models.transformer import apply_transformer
+    from flashattention_tpu_torch.ops import sparse_attn as sa
+
+    cfg = dataclasses.replace(_tiny_train_config(dropout_rate=0.0),
+                              block_size=16)
+    params = init_params(cfg, seed=6, device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 97, (2, 65))).to(cuda_device)
+    pattern = local_global(4, width=2).to(cuda_device)
+
+    def counts():
+        return (sa.sparse_attention.fwd_launches,
+                sa.sparse_attention.bwd_launches,
+                fa.kernel_attention.fwd_launches,
+                fa.kernel_attention.bwd_launches)
+
+    c0 = counts()
+    with torch.no_grad():
+        apply_transformer(params, toks[:, :-1], cfg, sparse_pattern=pattern)
+    c1 = counts()
+    logits = apply_transformer(params, toks[:, :-1], cfg, sparse_pattern=pattern)
+    token_nll(logits, toks[:, 1:]).mean().backward()
+    c2 = counts()
+    n = cfg.n_layers
+    assert tuple(b - a for a, b in zip(c0, c1)) == (n, 0, 0, 0)
+    assert tuple(b - a for a, b in zip(c1, c2)) == (2 * n, n, 0, 0)
+    assert all(torch.isfinite(p.grad).all() for p in params.parameters())

@@ -1,0 +1,156 @@
+"""The port's block-sparse attention (plain versions, CPU) against the JAX
+package's ``pallas_sparse_attention`` in interpret mode: the tile map and
+the compacted lists exactly, then o, lse, dq, dk and dv through autograd
+and ``jax.vjp`` from the same numpy inputs.
+
+Tolerances: the JAX ladder, fp32 1e-4 for o and the gradients and 5e-3
+for the LSE. Empty rows are compared exactly: o = 0 with lse = -inf where
+a q block has no active KV block, lse = the mask value where a visited
+block's row sees no key.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flashattention_tpu.ops.pallas_sparse import (
+    _compact_rows,
+    _tile_pattern,
+    pallas_sparse_attention,
+)
+from flashattention_tpu_torch.ops import sparse_attention
+from flashattention_tpu_torch.ops import sparse_attn as sa
+from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
+from flashattention_tpu_torch.utils.testing import assert_allclose
+
+TOL = 1e-4
+LSE_TOL = 5e-3
+
+P4 = [[1, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 1]]
+# name: ((b, h, h_kv, n_q, n_k, d), pattern or None, kwargs, use dlse)
+CASES = {
+    "causal_4x4": ((1, 2, 2, 512, 512, 64), P4, dict(causal=True), False),
+    "full_4x4": ((1, 2, 2, 512, 512, 64), P4, dict(causal=False), False),
+    "pattern_none": ((1, 2, 2, 384, 384, 64), None, dict(causal=True), False),
+    "empty_q_block": ((1, 1, 1, 256, 256, 64), [[1, 1], [0, 0]],
+                      dict(causal=False), False),
+    "unaligned_200": ((1, 1, 1, 200, 200, 64), [[1, 1], [1, 1]],
+                      dict(causal=True), False),
+    "gqa_4_2": ((1, 4, 2, 256, 256, 64), [[1, 0], [1, 1]], dict(causal=True),
+                False),
+    "block_q_ne_block_k": ((1, 2, 2, 256, 256, 64),
+                           [[1, 0], [0, 1], [1, 1], [1, 0]],
+                           dict(causal=True, block_q=64, block_k=128), False),
+    "nq_ne_nk": ((2, 2, 1, 128, 256, 64), [[1, 0, 1, 1], [0, 1, 0, 1]],
+                 dict(causal=True, block_q=64, block_k=64), False),
+    "dlse": ((1, 2, 2, 256, 256, 64), [[1, 0], [1, 1]], dict(causal=True),
+             True),
+    # rows 0-63 of q block 0 see no key of KV block 1 (cols 64-127)
+    "masked_rows": ((1, 2, 2, 256, 256, 64), [[0, 1, 0, 0], [1, 0, 1, 1]],
+                    dict(causal=True, block_q=128, block_k=64), True),
+}
+
+
+def _inputs(b, h, h_kv, n_q, n_k, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, n_q, d)).astype(np.float32)
+    k = rng.standard_normal((b, h_kv, n_k, d)).astype(np.float32)
+    v = rng.standard_normal((b, h_kv, n_k, d)).astype(np.float32)
+    do = rng.standard_normal((b, h, n_q, d)).astype(np.float32)
+    dlse = rng.standard_normal((b, h, n_q)).astype(np.float32)
+    return q, k, v, do, dlse
+
+
+def _run_jax(q, k, v, do, dlse, pattern, kw):
+    pat = None if pattern is None else jnp.asarray(pattern, bool)
+
+    def f(q_, k_, v_):
+        return pallas_sparse_attention(q_, k_, v_, pat, interpret=True, **kw)
+
+    (o, lse), vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    grads = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+    return [np.asarray(x, np.float32) for x in (o, lse, *grads)]
+
+
+def _run_port(q, k, v, do, dlse, pattern, kw):
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    pat = None if pattern is None else torch.tensor(pattern, dtype=torch.bool)
+    o, lse = sparse_attention(*leaves, pat, **kw)
+    torch.autograd.backward([o, lse], [torch.from_numpy(do),
+                                       torch.from_numpy(dlse)])
+    return [o, lse] + [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_sparse_attention_matches_jax(case):
+    shape, pattern, kw, use_dlse = CASES[case]
+    q, k, v, do, dlse = _inputs(*shape)
+    if not use_dlse:
+        dlse = np.zeros_like(dlse)
+    ref = _run_jax(q, k, v, do, dlse, pattern, kw)
+    got = _run_port(q, k, v, do, dlse, pattern, kw)
+    for name, g, r in zip(("o", "lse", "dq", "dk", "dv"), got, ref):
+        assert tuple(g.shape) == r.shape, name
+        tol = LSE_TOL if name == "lse" else TOL
+        assert_allclose(g, r, rtol=tol, atol=tol, err_msg=f"{case} {name}")
+
+
+def _port_case(case):
+    shape, pattern, kw, _ = CASES[case]
+    q, k, v, do, _ = _inputs(*shape)
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    o, lse = sparse_attention(*leaves, torch.tensor(pattern, dtype=torch.bool),
+                              **kw)
+    (o * torch.from_numpy(do)).sum().backward()
+    return o.detach(), lse.detach(), leaves[0].grad
+
+
+def test_empty_rows_are_exact():
+    """o = 0 and lse = -inf on a q block with no active KV block (and no
+    gradient reaches it); o = 0 and lse = the mask value on a visited
+    block's rows that see no key."""
+    o, lse, dq = _port_case("empty_q_block")
+    assert torch.equal(o[:, :, 128:], torch.zeros_like(o[:, :, 128:]))
+    assert bool(torch.isneginf(lse[:, :, 128:]).all())
+    assert bool((lse[:, :, :128] > -1e30).all())
+    assert torch.equal(dq[:, :, 128:], torch.zeros_like(dq[:, :, 128:]))
+    o, lse, dq = _port_case("masked_rows")
+    assert torch.equal(o[:, :, :64], torch.zeros_like(o[:, :, :64]))
+    assert bool((lse[:, :, :64] == DEFAULT_MASK_VALUE).all())
+    assert bool((lse[:, :, 64:] > -1e30).all())
+    assert torch.equal(dq[:, :, :64], torch.zeros_like(dq[:, :, :64]))
+
+
+@pytest.mark.parametrize("n_q,n_k,bq,bk,causal", [
+    (512, 512, 128, 128, True), (512, 512, 128, 128, False),
+    (384, 1024, 64, 128, True), (1000, 600, 128, 64, True),
+])
+def test_tile_lists_equal_jax(n_q, n_k, bq, bk, causal):
+    rng = np.random.default_rng(n_q + n_k)
+    nqt, nkt = -(-n_q // bq), -(-n_k // bk)
+    pattern = rng.random((nqt, nkt)) < 0.4
+    pattern[1] = False  # an empty row
+    off = n_k - n_q
+    ja = _tile_pattern(jnp.asarray(pattern), nqt, nkt, bq, bk, causal, off)
+    ta = sa.tile_pattern(torch.from_numpy(pattern), nqt, nkt, bq, bk, causal,
+                         off)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    for jt, tt in ((ja, ta), (ja.T, ta.t())):
+        jl, jc = _compact_rows(jt)
+        tl, tc = sa.compact_rows(tt)
+        assert tl.dtype == tc.dtype == torch.int32
+        np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+def test_rejects_like_jax():
+    q = torch.zeros(1, 2, 256, 64)
+    with pytest.raises(ValueError, match=r"pattern must be \(n_q_tiles"):
+        sparse_attention(q, q, q, torch.ones(3, 2, dtype=torch.bool))
+    with pytest.raises(ValueError, match=r"pattern must be \(n_q_tiles"):
+        pallas_sparse_attention(*(jnp.zeros((1, 2, 256, 64)),) * 3,
+                                jnp.ones((3, 2), bool), interpret=True)
+    with pytest.raises(ValueError, match="expected"):
+        sparse_attention(q[0], q[0], q[0], None)

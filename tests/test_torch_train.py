@@ -370,9 +370,12 @@ def test_separate_qkv_serves_like_fused():
 
 
 def test_sparse_pattern_and_moe_raise():
-    cfg = port_config(jax_config())
+    """A block-sparse pattern runs (tests/test_torch_sparse_model.py) and
+    raises only where the JAX model does, with a window; MoE blocks are not
+    ported and raise."""
+    cfg = port_config(jax_config(attention_window=4))
     params = init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="attention_window"):
         apply_transformer(params, torch.zeros(1, 8, dtype=torch.long), cfg,
                           sparse_pattern=torch.ones(1, 1))
     with pytest.raises(NotImplementedError):
