@@ -7,18 +7,25 @@ Phases, in order; any failure exits nonzero:
 
 1. Identify the card (nvidia-smi name and power limit) and build every CUDA
    kernel from ``flashattention_tpu_torch/csrc`` (one nvcc per source, all
-   at once).
+   at once). The flash sources' six tensor-core kernels (forward, dK/dV,
+   dQ at D 64 and 128) must show HGMMA (wgmma) and UTMALDG (TMA) in their
+   SASS (cuobjdump) and spill nothing (ptxas report of this build).
 2. Each kernel against its plain PyTorch version on the card: the paged
    kernels at the serving engine's shapes; the flash forward and backward
-   at the training shape and seven more cases (the JAX headline's shape,
-   GQA with window, sinks and soft-cap, segment ids with ALiBi, fp32, a
-   nonzero LSE cotangent, rows with no visible key, fp32 with dropout). Max
-   error against the stated tolerance (fp32 1e-4; bf16 flash two ulps,
-   1.6e-2 relative, plus 1e-3 of the largest value; bf16 paged 2e-2),
-   then the kernel's, the plain version's and one library
-   call's time (CUDA events, median over launches, L2 flushed before each),
-   beside the least time the card could take (bytes over 3.35 TB/s or
-   operations over 989 TFLOP/s bf16, 67 TFLOP/s fp32). Quantized pages:
+   at the training shape with dropout (a) and without (a0) and seven more
+   cases (the JAX headline's shape, GQA with window, sinks and soft-cap,
+   segment ids with ALiBi, fp32, a nonzero LSE cotangent, rows with no
+   visible key, fp32 with dropout), each launched once on the route it
+   must take (bf16 with D <= 128: the tensor cores; else the FMA kernels;
+   checked by the route counters). Max error against the stated tolerance
+   (fp32 1e-4; bf16 flash two ulps, 1.6e-2 relative, plus 1e-3 of the
+   largest value; bf16 paged 2e-2), then the kernel's, the plain version's
+   and one library call's time (CUDA events, median over launches, L2
+   flushed before each; SDPA is the library call where it computes the
+   case's function, else a yardstick), beside the least time the card could
+   take (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16, 67
+   TFLOP/s fp32); the flash cases also time the call as issued from the
+   host, and (a), (a0), (b) the FMA kernels on the same bf16 inputs. Quantized pages:
    int8 (int8-qk and convert), e4m3 and e5m2 at the engine's decode shape,
    an e4m3 chunk, and bf16 vs int8 vs e4m3 at scripts/bench_decode.py's
    shape (paged limit; yardstick SDPA over pre-gathered dequantized K/V,
@@ -54,8 +61,9 @@ Phases, in order; any failure exits nonzero:
    micro-steps, then 8 timed ones (4 optimizer updates), each timed on the
    host clock up to ``loss.item()``. Launch counts are set to 0 just before
    and read just after: exactly 24 forward launches per micro-step (12
-   layers and their remat recompute) and 12 backward launches. Then one
-   micro-step under torch.profiler.
+   layers and their remat recompute) and 12 backward launches, all on the
+   tensor-core route. Then one micro-step under torch.profiler, with the
+   flash kernels' device time.
 6. One training loss and its gradients at full width (B=1, N=512, dropout
    0): the bf16 card against the fp32 CPU (plain versions).
 5b. fa3_attention(fp8=True) forward and backward at (1, 8, 8192, 128)
@@ -87,6 +95,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -514,12 +523,18 @@ def append_case(timer, gen, dev, dtype=torch.bfloat16, *, b=32, h=12, d=64,
 
 
 BF16, FP32 = torch.bfloat16, torch.float32
+# Cases whose bf16 D <= 128 inputs are also timed on the FMA route (the
+# first kernels, which fp32 and D > 128 keep): the redesign's before/after
+# on one card in one call.
+FMA_COMPARE = ("a", "a0", "b")
 TRAIN_SHAPE = (8, 12, 12, 512, 512, 64)  # B, H, H_kv, N_q, N_k, D
 # key: (label, shape, dtype, kernel_attention kwargs, extras)
 FLASH_CASES = {
     "a": ("training B=8 H=12 N=512 D=64 bf16 causal dropout 0.1",
           TRAIN_SHAPE, BF16,
           dict(causal=True, dropout_rate=0.1, dropout_seed=1234), ()),
+    "a0": ("training shape B=8 H=12 N=512 D=64 bf16 causal, no dropout",
+           TRAIN_SHAPE, BF16, dict(causal=True), ()),
     "b": ("bench.py shape B=1 H=8 N=8192 D=128 bf16 causal",
           (1, 8, 8, 8192, 8192, 128), BF16, dict(causal=True), ()),
     "c": ("GQA 12/4 window 128 sinks 4 softcap 30, B=8 N=512 bf16",
@@ -593,10 +608,38 @@ def attention_bounds(q, k, pairs, dlse):
     return out
 
 
+def fma_route(q, k, v, o, lse, do, dlse, opts):
+    """(forward, backward) callables that launch the FMA-route entry points
+    (``fat_flash_fwd`` / ``fat_flash_bwd``) on bf16 inputs the wrapper would
+    send to the tensor cores: the first kernels' time on the same card."""
+    fwd = _build.load_kernel("flash_fwd", fa._declare_fwd)
+    bwd = _build.load_kernel("flash_bwd", fa._declare_bwd)
+    o_out, lse_out = torch.empty_like(o), torch.empty_like(lse)
+    grads = [torch.empty_like(x) for x in (q, k, v)]
+    di = (o.float() * do.float()).sum(-1)
+    if dlse is not None:
+        di = di - dlse
+    ext = (fa._ptr(opts.q_ids), fa._ptr(opts.kv_ids), fa._ptr(opts.slopes))
+
+    def run_fwd():
+        _build.check(fwd.fat_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o_out.data_ptr(),
+            lse_out.data_ptr(), *ext, *fa._scalars(q, k, opts)), "fma fwd")
+
+    def run_bwd():
+        _build.check(bwd.fat_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), *(g.data_ptr() for g in grads),
+            *ext, *fa._scalars(q, k, opts)), "fma bwd")
+    return run_fwd, run_bwd
+
+
 def flash_case(timer, gen, dev, key):
     label, shape, dtype, kw, extras = FLASH_CASES[key]
     q, k, v, do, dlse, more = _flash_inputs(gen, dev, shape, dtype, extras)
     opts = fa.make_opts(q, k, **kw, **more)
+    tc = fa._tensor_core_route(dtype, shape[-1])
+    reset_counts()
     o, lse = fa.flash_fwd(q, k, v, opts)
     torch.cuda.synchronize()
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, opts)
@@ -609,6 +652,12 @@ def flash_case(timer, gen, dev, key):
                              LSE_TOL)
     grads = fa.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, opts)
     torch.cuda.synchronize()
+    c = read_counts()
+    if (c["flash_fwd"], c["flash_bwd"], c["flash_fwd_tc"],
+            c["flash_bwd_tc"]) != (1, 1, int(tc), int(tc)):
+        fail(f"flash {key}: launches {c}; want the "
+             f"{'tensor-core' if tc else 'FMA'} route once each way")
+    route = "tensor cores (wgmma + TMA)" if tc else "FMA"
 
     def plain_bwd():
         di = (o_ref.float() * do.float()).sum(-1)
@@ -621,42 +670,55 @@ def flash_case(timer, gen, dev, key):
         err[name] = check_close(f"flash_bwd {key} {name}", g, r, *tols[name])
     del grads
     big = q.shape[2] > 4096
+    fwd_call = lambda: fa.flash_fwd(q, k, v, opts)
+    bwd_call = lambda: fa.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, opts)
     t = dict(
-        fwd_ms=timer(lambda: fa.flash_fwd(q, k, v, opts)),
+        fwd_ms=timer(fwd_call),
+        fwd_wall_ms=timer.wall(fwd_call),
         fwd_plain_ms=timer(lambda: fa.flash_fwd_plain(q, k, v, opts),
                            reps=3 if big else 10, warmup=1),
-        bwd_ms=timer(lambda: fa.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse,
-                                          opts)),
+        bwd_ms=timer(bwd_call),
+        bwd_wall_ms=timer.wall(bwd_call),
         bwd_plain_ms=timer(plain_bwd, reps=3 if big else 10, warmup=1),
     )
-    # Yardstick: scaled_dot_product_attention(is_causal=True), no dropout;
-    # the same function only where the case has no other feature.
+    if tc and key in FMA_COMPARE:
+        fma_fwd, fma_bwd = fma_route(q, k, v, o_ref, lse_ref, do, dlse, opts)
+        t["fwd_fma_ms"] = timer(fma_fwd, reps=10 if big else 30)
+        t["bwd_fma_ms"] = timer(fma_bwd, reps=10 if big else 30)
+    # SDPA(is_causal=True), no dropout: the library call where the case has
+    # no other feature (the same function), else a yardstick.
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gqa = q.shape[1] != k.shape[1]
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-    t["library_fwd_ms"] = timer(lambda: sdpa(
+    sdpa_fwd = timer(lambda: sdpa(
         q, k, v, is_causal=True, scale=opts.scale, enable_gqa=gqa))
     o_lib = sdpa(*leaves, is_causal=True, scale=opts.scale, enable_gqa=gqa)
-    t["library_bwd_ms"] = timer(lambda: torch.autograd.grad(
+    sdpa_bwd = timer(lambda: torch.autograd.grad(
         o_lib, leaves, do, retain_graph=True))
     same = (not extras or extras == ("dlse",)) and kw == dict(causal=True)
+    lib_key = "library" if same else "yardstick"
+    t[f"{lib_key}_fwd_ms"], t[f"{lib_key}_bwd_ms"] = sdpa_fwd, sdpa_bwd
     bounds, frac = flash_bound(q, k, opts, dlse)
     rec = dict(case=label, shape=shape, dtype=str(dtype).replace("torch.", ""),
-               max_abs_err=err, tol={n: dict(rtol=r, atol=a)
-                                     for n, (r, a) in tols.items()},
+               route=route, max_abs_err=err,
+               tol={n: dict(rtol=r, atol=a) for n, (r, a) in tols.items()},
                visited_fraction=frac, library_same_function=same,
                fwd_bound_ms=bounds["fwd"][0], fwd_bound_by=bounds["fwd"][1],
                bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1],
                **t)
-    log(f"[kernel] flash {key} ({label}): max_abs_err "
+    log(f"[kernel] flash {key} ({label}) on the {route} route: max_abs_err "
         + " ".join(f"{n} {e:.2e}" for n, e in err.items())
         + f" ({tol_text(dtype)}; lse {LSE_TOL:g} abs+rel)")
-    log(f"[kernel]   fwd {t['fwd_ms']:.4f} ms (plain {t['fwd_plain_ms']:.4f}, "
-        f"SDPA {t['library_fwd_ms']:.4f}, bound {bounds['fwd'][0]:.4f} "
-        f"{bounds['fwd'][1]})  bwd {t['bwd_ms']:.4f} ms (plain "
-        f"{t['bwd_plain_ms']:.4f}, SDPA {t['library_bwd_ms']:.4f}, bound "
-        f"{bounds['bwd'][0]:.4f} {bounds['bwd'][1]})"
-        + ("" if same else "  [SDPA computes a different function here]"))
+    fma = (f"; FMA route fwd {t['fwd_fma_ms']:.4f} bwd {t['bwd_fma_ms']:.4f}"
+           if "fwd_fma_ms" in t else "")
+    log(f"[kernel]   fwd {t['fwd_ms']:.4f} ms (issued from the host "
+        f"{t['fwd_wall_ms']:.4f}, plain {t['fwd_plain_ms']:.4f}, SDPA "
+        f"{sdpa_fwd:.4f}, bound {bounds['fwd'][0]:.4f} {bounds['fwd'][1]})  "
+        f"bwd {t['bwd_ms']:.4f} ms (issued from the host "
+        f"{t['bwd_wall_ms']:.4f}, plain {t['bwd_plain_ms']:.4f}, SDPA "
+        f"{sdpa_bwd:.4f}, bound {bounds['bwd'][0]:.4f} {bounds['bwd'][1]})"
+        + fma + ("" if same else "  [SDPA, a yardstick: it computes a "
+                 "different function here]"))
     return rec
 
 
@@ -990,6 +1052,8 @@ def reset_counts():
     pap.paged_append.launches = 0
     fa.kernel_attention.fwd_launches = 0
     fa.kernel_attention.bwd_launches = 0
+    fa.kernel_attention.fwd_tc_launches = 0
+    fa.kernel_attention.bwd_tc_launches = 0
     f8.fp8_attention.launches = 0
     sa.sparse_attention.fwd_launches = 0
     sa.sparse_attention.bwd_launches = 0
@@ -1000,6 +1064,8 @@ def read_counts():
             "paged_append": pap.paged_append.launches,
             "flash_fwd": fa.kernel_attention.fwd_launches,
             "flash_bwd": fa.kernel_attention.bwd_launches,
+            "flash_fwd_tc": fa.kernel_attention.fwd_tc_launches,
+            "flash_bwd_tc": fa.kernel_attention.bwd_tc_launches,
             "flash_fwd_fp8": f8.fp8_attention.launches,
             "sparse_fwd": sa.sparse_attention.fwd_launches,
             "sparse_bwd": sa.sparse_attention.bwd_launches}
@@ -1323,12 +1389,15 @@ def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8):
     if on_card:
         per = (2 if cfg.remat else 1) * cfg.n_layers
         want = {"flash_fwd": per * n_timed, "flash_bwd": cfg.n_layers * n_timed}
+        want["flash_fwd_tc"] = want["flash_fwd"]  # bf16, D = 64: every one
+        want["flash_bwd_tc"] = want["flash_bwd"]  # on the tensor cores
         for name, n in want.items():
             if counts[name] != n:
                 fail(f"training launched {name} {counts[name]} times, want "
                      f"{n} ({n // n_timed} per micro-step)")
         log(f"[train] per micro-step: {per} flash_fwd + {cfg.n_layers} "
-            f"flash_bwd launches (checked); max_memory_allocated "
+            f"flash_bwd launches, all on the tensor-core route (checked); "
+            f"max_memory_allocated "
             f"{rec['max_memory_allocated'] / 2 ** 30:.3f} GiB")
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1337,14 +1406,19 @@ def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8):
         wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
     busy = sum(kernels.values()) / 1e6
+    flash = {part: sum(v for k, v in kernels.items() if part in k) / 1e3
+             for part in ("flash_fwd", "flash_bwd")}
     rec["profile"] = dict(
         wall_ms=wall * 1e3, kernel_ms=busy * 1e3,
         device_busy_share=busy / wall if kernels else None,
+        flash_ms=flash,
         top=sorted(((k, v / 1e3) for k, v in kernels.items()),
                    key=lambda kv: -kv[1])[:12])
     if kernels:
         log(f"[train] profiled micro-step: {wall * 1e3:.2f} ms wall, kernels "
-            f"{busy * 1e3:.2f} ms, device busy {100 * busy / wall:.1f}%")
+            f"{busy * 1e3:.2f} ms, device busy {100 * busy / wall:.1f}%; "
+            f"flash kernels: forward {flash['flash_fwd']:.4f} ms, backward "
+            f"{flash['flash_bwd']:.4f} ms")
         for k, v in rec["profile"]["top"]:
             log(f"[train]   {v:.4f} ms  {k[:90]}")
     else:
@@ -1568,6 +1642,61 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3):
 # ---------------------------------------------------------------------------
 
 
+def ptxas_entries(text):
+    """{mangled kernel: (registers, spill bytes)} from a ptxas -v report."""
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill stores" in line:
+            words = line.replace(",", "").split()
+            spill = (int(words[words.index("spill") - 2])
+                     + int(words[words.index("spill", words.index("spill") + 1)
+                                 - 2]))
+            out[name] = [None, spill]
+        elif name and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            out.setdefault(name, [None, None])[0] = int(
+                words[words.index("registers") - 1])
+    return out
+
+
+def sass_report():
+    """Phase 1's check that the tensor-core route is what it claims: per
+    kernel of libflash_fwd.so and libflash_bwd.so, the HGMMA (wgmma) and
+    UTMALDG (TMA load) instructions in its SASS (cuobjdump) and, for the
+    tensor-core kernels, registers and spill bytes from the build's ptxas
+    report. Fails if a tensor-core kernel has no HGMMA or no UTMALDG, or
+    spills."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for name in ("flash_fwd", "flash_bwd"):
+        sass = subprocess.run([tool, "--dump-sass",
+                               str(_build.kernel_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        ptxas = ptxas_entries(_build.BUILD_LOG.get(name, ""))
+        for part in sass.split("Function : ")[1:]:
+            fn = part.split()[0]
+            if "sm90" not in fn:
+                continue
+            regs, spill = ptxas.get(fn, (None, None))
+            rec = dict(hgmma=part.count("HGMMA"), utmaldg=part.count("UTMALDG"),
+                       registers=regs, spill_bytes=spill)
+            out[fn] = rec
+            log(f"[sass] {name}: {fn}: {rec['hgmma']} HGMMA, {rec['utmaldg']} "
+                f"UTMALDG; ptxas: {regs} registers at entry, {spill} spill "
+                f"bytes")
+            if not rec["hgmma"] or not rec["utmaldg"]:
+                fail(f"{fn}: the tensor-core kernel has no HGMMA or no UTMALDG")
+            if spill:
+                fail(f"{fn}: spills {spill} bytes")
+    if len(out) != 6:
+        fail(f"expected 6 tensor-core kernels (fwd, dkv, dq at D 64 and 128), "
+             f"found {sorted(out)}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -1630,7 +1759,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {name}: {line.strip()}")
-    report.update(card=smi, build_s=per)
+    report.update(card=smi, build_s=per, tensor_core_kernels=sass_report())
 
     # Phase 2
     report["kernels"] = phase_kernels(dev)
@@ -1686,7 +1815,8 @@ def main() -> int:
 
     counts = {**report["engine"]["launches"],
               **{k: report["train"]["launches"][k]
-                 for k in ("flash_fwd", "flash_bwd")}}
+                 for k in ("flash_fwd", "flash_bwd", "flash_fwd_tc",
+                           "flash_bwd_tc")}}
     kernels = []
     # (kernel, name in the record, phase-2 case, launches of its main path)
     for name, tag, case, n in (
@@ -1710,15 +1840,28 @@ def main() -> int:
             library_ms=r["library_ms"], yardstick_ms=r.get("yardstick_ms"),
             case=r["case"],
         ))
-    r = report["kernels"]["flash_a"]
+    # flash_fwd / flash_bwd: launches of the training phase (all on the
+    # tensor-core route); numbers of case (a), the training call, whose
+    # dropout no PyTorch call computes (its SDPA is a yardstick). The library
+    # call is SDPA at (a0), the same shape without dropout, beside the
+    # kernel's (a0) time; (b) is the 8K shape; fma_ms the first kernels.
+    r, r0, rb = (report["kernels"][f"flash_{c}"] for c in ("a", "a0", "b"))
     for name, part, errs in (("flash_fwd", "fwd", ("o", "lse")),
                              ("flash_bwd", "bwd", ("dq", "dk", "dv"))):
         kernels.append(dict(
             name=name, **KERNELS[name], launches=counts[name],
+            launches_tensor_core=counts[f"{name}_tc"],
             max_abs_err=max(r["max_abs_err"][e] for e in errs),
             ms=r[f"{part}_ms"], plain_ms=r[f"{part}_plain_ms"],
             bound_ms=r[f"{part}_bound_ms"], bound_by=r[f"{part}_bound_by"],
-            library_ms=r[f"library_{part}_ms"], case=r["case"],
+            library_ms=r0[f"library_{part}_ms"],
+            yardstick_ms=r[f"yardstick_{part}_ms"], case=r["case"],
+            fma_ms=r[f"{part}_fma_ms"], wall_ms=r[f"{part}_wall_ms"],
+            ms_a0=r0[f"{part}_ms"], library_case=r0["case"],
+            ms_b=rb[f"{part}_ms"], plain_ms_b=rb[f"{part}_plain_ms"],
+            bound_ms_b=rb[f"{part}_bound_ms"],
+            library_ms_b=rb[f"library_{part}_ms"],
+            fma_ms_b=rb[f"{part}_fma_ms"], case_b=rb["case"],
         ))
     # flash_fwd_fp8: its main path is fa3_attention(fp8=True, int8) (phase
     # 5b); its numbers come from phase-2 case (b), that call's shape.

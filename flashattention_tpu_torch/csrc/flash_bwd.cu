@@ -23,11 +23,30 @@
 //
 // What bounds it on this card: 10·B·H·Nq·Nk·D flops (half of that causal)
 // against q, k, v, o, do and the three gradients read or written once, so
-// the tensor-core rate. Like the forward, this first version runs fp32 FMAs
-// on the CUDA cores and recomputes the scores in both kernels (7 products
-// per element instead of 5).
+// the tensor-core rate. Both kernels recompute the scores (7 products per
+// element instead of 5), the price of having no atomics.
+//
+// Two routes, chosen by the caller (ops/flash_attn.py):
+//
+//   fat_flash_bwd_sm90 (bf16, D <= 128): every product on the tensor cores
+//     (wgmma, bf16 in, fp32 accumulate), tiles by TMA into mbarrier-guarded
+//     rings, warpgroup 0 loading and warpgroups 1-2 computing.
+//     dkv: 128 keys per CTA, 64 per consumer, K and V resident in shared
+//       memory; q, dO (and the LSE and di rows) stream in tiles of 64 rows
+//       (products over fewer of them at a time at D = 128, for registers).
+//       The consumers first round the landed q tile to q_s in place, behind
+//       a named barrier, then compute transposed products so that Pᵀ and
+//       dSᵀ come out in the register A layout: Sᵀ = K·q_sᵀ and dPᵀ = V·dOᵀ
+//       from shared memory, dV += round(p_v)ᵀ·dO and dK += round(ds)ᵀ·q_s
+//       from registers (dO, q_s MN-major). dK and dV stay in registers.
+//     dq: 128 query rows per CTA (64 per consumer), q and dO resident, K and
+//       V tiles of 64 keys streamed over the forward's walk: S = q_s·Kᵀ,
+//       dP = dO·Vᵀ, dQ += round(ds)·K (K MN-major), scaled at the store.
+//   fat_flash_bwd (fp32, and bf16 with D > 128): the first version below,
+//     fp32 FMAs on the CUDA cores (for the reasons given in flash_fwd.cu).
 
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -389,6 +408,436 @@ cudaError_t dispatch(const AttnArgs& a, const void* dout, const float* lse,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The tensor-core route (bf16, D <= 128)
+// ---------------------------------------------------------------------------
+
+namespace fat {
+namespace sm90 {
+
+constexpr int kDkvKeys = 128;  // keys per dK/dV CTA, 64 per consumer
+constexpr int kDkvRows = 64;   // query rows per streamed q / dO tile
+constexpr int kDqRows = 128;   // query rows per dQ CTA, 64 per consumer
+
+template <int DP>
+struct DkvSm90Cfg {
+  static constexpr int STAGES = 2;
+  static constexpr int KV_BYTES = kDkvKeys * DP * 2;  // K or V, resident
+  static constexpr int T_BYTES = kDkvRows * DP * 2;   // one q or dO tile
+  static constexpr int BARS = 1 + 2 * STAGES;
+  static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + 2 * STAGES * T_BYTES +
+                                 2 * STAGES * kDkvRows * 4 + 8 * BARS;
+};
+
+template <int DP>
+struct DqSm90Cfg {
+  static constexpr int KEYS = 64;  // keys per K/V tile (128 spills at D 64)
+  static constexpr int STAGES = 2;
+  static constexpr int Q_BYTES = kDqRows * DP * 2;  // q or dO, resident
+  static constexpr int KV_BYTES = KEYS * DP * 2;    // one K or V tile
+  static constexpr int BARS = 1 + 2 * STAGES;
+  static constexpr size_t SMEM =
+      1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARS;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreadsWS, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo, AttnArgs a,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ di,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv) {
+  using Cfg = DkvSm90Cfg<DP>;
+  constexpr int STAGES = Cfg::STAGES;
+  // Query rows per Sᵀ/dPᵀ product: at D = 128 the dK and dV accumulators
+  // (128 registers) leave room for 32 rows of both, not 64.
+  constexpr int QS = DP <= 64 ? kDkvRows : kDkvRows / 2;
+  extern __shared__ char smem_raw[];
+  char* k_s = align_1024(smem_raw);          // [DP/64][128][64], resident
+  char* v_s = k_s + Cfg::KV_BYTES;           // resident
+  char* q_s = v_s + Cfg::KV_BYTES;           // [STAGES] tiles of 64 rows
+  char* do_s = q_s + STAGES * Cfg::T_BYTES;  // [STAGES] tiles of 64 rows
+  float* lse_s = reinterpret_cast<float*>(do_s + STAGES * Cfg::T_BYTES);
+  float* di_s = lse_s + STAGES * kDkvRows;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(di_s + STAGES * kDkvRows);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int b = blockIdx.z, hk = blockIdx.y, c0 = blockIdx.x * kDkvKeys;
+  const int G = a.H / a.H_kv;
+  // Query rows that can see some key of [c0, c0 + kDkvKeys).
+  const int c_last = min(c0 + kDkvKeys, a.Nk) - 1;
+  int r_begin = 0, r_end = a.Nq;
+  if (a.causal) {
+    r_begin = max(0, c0 - a.offset);
+    if (a.window > 0 && !(a.sinks > 0 && c0 < a.sinks)) {
+      r_end = min(a.Nq, c_last - a.offset + a.window);
+    }
+  }
+  const int t0 = (r_begin / kDkvRows) * kDkvRows;
+  const int n_rt = r_end > t0 ? (r_end - t0 + kDkvRows - 1) / kDkvRows : 0;
+  const int n_it = G * n_rt;  // (query head, row tile) steps
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer: warp 0
+    reg_dealloc<kProducerRegs>();
+    const int lane = threadIdx.x;
+    if (lane < 32 && n_it > 0) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * Cfg::KV_BYTES);
+        tma_tile<kDkvKeys, DP>(k_s, &tk, kv_full, c0, b * a.H_kv + hk);
+        tma_tile<kDkvKeys, DP>(v_s, &tv, kv_full, c0, b * a.H_kv + hk);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % STAGES;
+        const int plane = b * a.H + hk * G + it / n_rt;
+        const int r0 = t0 + (it % n_rt) * kDkvRows;
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        for (int j = lane; j < kDkvRows; j += 32) {
+          const int row = r0 + j;
+          const size_t at = (size_t)plane * a.Nq + row;
+          lse_s[s * kDkvRows + j] = row < a.Nq ? lse[at] : 0.f;
+          di_s[s * kDkvRows + j] = row < a.Nq ? di[at] : 0.f;
+        }
+        __threadfence_block();
+        __syncwarp();  // the rows above land before lane 0 arrives
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * Cfg::T_BYTES);
+          tma_tile<kDkvRows, DP>(q_s + s * Cfg::T_BYTES, &tq, &full[s], r0,
+                                 plane);
+          tma_tile<kDkvRows, DP>(do_s + s * Cfg::T_BYTES, &tdo, &full[s], r0,
+                                 plane);
+        }
+      }
+    }
+  } else {  // consumers: 64 keys each
+    reg_alloc<kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int key0 = c0 + 64 * cw;
+    const float scale_c = Num<__nv_bfloat16>::round(a.scale);
+    const bool post = a.slopes != nullptr || a.softcap > 0.f;
+    float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    if (n_it > 0) mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % STAGES, ph = (it / STAGES) & 1;
+      const int h = hk * G + it / n_rt;
+      const int r0 = t0 + (it % n_rt) * kDkvRows;
+      const uint32_t bh = (uint32_t)(b * a.H + h);
+      char* qt = q_s + s * Cfg::T_BYTES;
+      const char* dot = do_s + s * Cfg::T_BYTES;
+      const float* ls = lse_s + s * kDkvRows;
+      const float* di_t = di_s + s * kDkvRows;
+
+      mbar_wait(&full[s], ph);
+      // q_s = bf16(q * bf16(scale)), in place, before any wgmma reads it.
+      scale_bf16(qt, Cfg::T_BYTES, scale_c, threadIdx.x - 128, 256);
+      fence_proxy_async();
+      named_sync(1, 256);
+
+      // Sᵀ and dPᵀ over QS query rows at a time (64 keys x QS each), one
+      // slice after the other (unrolled, the slices' values overlap and
+      // spill at D = 128).
+#pragma unroll 1
+      for (int q0 = 0; q0 < kDkvRows; q0 += QS) {
+        float st[QS / 2], dpt[QS / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          wgmma_ss<QS>(st, desc_k<kDkvKeys>(k_s, 64 * cw, kk),
+                       desc_k<kDkvRows>(qt, q0, kk), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          wgmma_ss<QS>(dpt, desc_k<kDkvKeys>(v_s, 64 * cw, kk),
+                       desc_k<kDkvRows>(dot, q0, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+
+        const int cls =
+            tile_class(a, r0 + q0, r0 + q0 + QS - 1, key0, key0 + 63);
+        uint32_t seg[2] = {0u, 0u};  // rows: keys; columns: query rows
+        if (cls == kSegments) {
+          segment_bits<QS>(a.kv_ids + (size_t)b * a.Nk, key0, a.Nk,
+                           a.q_ids + (size_t)b * a.Nq, r0 + q0, a.Nq, t, seg);
+        }
+        dispatch_tile(cls, post, [&](auto c, auto pp) {
+#pragma unroll
+          for (int i = 0; i < QS / 2; ++i) {
+            const int key = key0 + acc_row(t, i), j = q0 + acc_col(t, i);
+            const int row = r0 + j;
+            float pv = 0.f, ds = 0.f;
+            if (tile_visible<decltype(c)::value>(a, b, row, key, seg, i)) {
+              float dcap;
+              const float x = tile_score<decltype(pp)::value>(
+                  a, h, row, key, st[i], &dcap);
+              const float p = expf(x - ls[j]);
+              float dp = dpt[i];
+              pv = p;
+              if (a.dropout) {
+                const bool kept = keep(a, bh, row, key);
+                pv = kept ? p * a.drop_inv : 0.f;
+                dp = kept ? dp * a.drop_inv : 0.f;
+              }
+              ds = p * (dp - di_t[j]);
+              ds = ds * dcap;
+            }
+            st[i] = pv;
+            dpt[i] = ds;
+          }
+        });
+        uint32_t pa[QS / 16][4], da[QS / 16][4];
+        acc_to_a<QS>(st, pa);
+        acc_to_a<QS>(dpt, da);
+
+        wgmma_fence();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+#pragma unroll
+        for (int kk = 0; kk < QS / 16; ++kk) {
+          const int k16 = q0 / 16 + kk;
+          wgmma_rs<DP>(dv_acc, pa[kk], desc_mn<kDkvRows>(dot, k16));
+          wgmma_rs<DP>(dk_acc, da[kk], desc_mn<kDkvRows>(qt, k16));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+      }
+      mbar_arrive(&empty[s]);
+    }
+
+    // Keys no row sees write zeros.
+    const size_t kv_off = ((size_t)b * a.H_kv + hk) * a.Nk;
+#pragma unroll
+    for (int i = 0; i < DP / 2; i += 2) {
+      const int key = key0 + acc_row(t, i), col = acc_col(t, i);
+      if (key < a.Nk && col < a.D) {
+        const size_t at = (kv_off + key) * a.D + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+      }
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreadsWS, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo, AttnArgs a,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ di,
+                         __nv_bfloat16* __restrict__ dq) {
+  using Cfg = DqSm90Cfg<DP>;
+  constexpr int STAGES = Cfg::STAGES, KEYS = Cfg::KEYS;
+  extern __shared__ char smem_raw[];
+  char* q_s = align_1024(smem_raw);          // [DP/64][128][64], resident
+  char* do_s = q_s + Cfg::Q_BYTES;           // resident
+  char* k_s = do_s + Cfg::Q_BYTES;           // [STAGES] tiles
+  char* v_s = k_s + STAGES * Cfg::KV_BYTES;  // [STAGES] tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + STAGES * Cfg::KV_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int b = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * kDqRows;
+  const int hk = h / (a.H / a.H_kv);
+  const TileWalk walk = key_tiles(a, r0, min(r0 + kDqRows, a.Nq) - 1, KEYS);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0 && walk.n_walk > 0) {
+      const int kplane = b * a.H_kv + hk;
+      mbar_expect_tx(q_full, 2 * Cfg::Q_BYTES);
+      tma_tile<kDqRows, DP>(q_s, &tq, q_full, r0, b * a.H + h);
+      tma_tile<kDqRows, DP>(do_s, &tdo, q_full, r0, b * a.H + h);
+      for (int w = 0; w < walk.n_walk; ++w) {
+        const int s = w % STAGES;
+        mbar_wait(&empty[s], ((w / STAGES) & 1) ^ 1);
+        const int c0 = walk.tile(w) * KEYS;
+        mbar_expect_tx(&full[s], 2 * Cfg::KV_BYTES);
+        tma_tile<KEYS, DP>(k_s + s * Cfg::KV_BYTES, &tk, &full[s], c0, kplane);
+        tma_tile<KEYS, DP>(v_s + s * Cfg::KV_BYTES, &tv, &full[s], c0, kplane);
+      }
+    }
+  } else {  // consumers: 64 query rows each
+    reg_alloc<kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int row0 = r0 + 64 * cw;
+    const uint32_t bh = (uint32_t)(b * a.H + h);
+    const bool post = a.slopes != nullptr || a.softcap > 0.f;
+    float lse_r[2], di_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + acc_row(t, 2 * r);
+      lse_r[r] = row < a.Nq ? lse[(size_t)bh * a.Nq + row] : 0.f;
+      di_r[r] = row < a.Nq ? di[(size_t)bh * a.Nq + row] : 0.f;
+    }
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+    if (walk.n_walk > 0) {
+      mbar_wait(q_full, 0);
+      // q_s = bf16(q * bf16(scale)) over this warpgroup's 64 rows.
+      const float scale_c = Num<__nv_bfloat16>::round(a.scale);
+#pragma unroll
+      for (int hf = 0; hf < DP / 64; ++hf) {
+        scale_bf16(q_s + (hf * kDqRows + 64 * cw) * 128, 64 * 128, scale_c, t,
+                   128);
+      }
+      fence_proxy_async();
+      if (cw == 0) {  // a constant id each: the CTA keeps 3 of 16 barriers
+        named_sync(1, 128);
+      } else {
+        named_sync(2, 128);
+      }
+    }
+    for (int w = 0; w < walk.n_walk; ++w) {
+      const int s = w % STAGES, ph = (w / STAGES) & 1;
+      const int c0 = walk.tile(w) * KEYS;
+      const char* kt = k_s + s * Cfg::KV_BYTES;
+      const char* vt = v_s + s * Cfg::KV_BYTES;
+
+      float sc[KEYS / 2], dp[KEYS / 2];  // S and dP: 64 rows x KEYS
+      mbar_wait(&full[s], ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        wgmma_ss<KEYS>(sc, desc_k<kDqRows>(q_s, 64 * cw, kk),
+                       desc_k<KEYS>(kt, 0, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        wgmma_ss<KEYS>(dp, desc_k<kDqRows>(do_s, 64 * cw, kk),
+                       desc_k<KEYS>(vt, 0, kk), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      const int cls = tile_class(a, row0, row0 + 63, c0, c0 + KEYS - 1);
+      uint32_t seg[2] = {0u, 0u};
+      if (cls == kSegments) {
+        segment_bits<KEYS>(a.q_ids + (size_t)b * a.Nq, row0, a.Nq,
+                           a.kv_ids + (size_t)b * a.Nk, c0, a.Nk, t, seg);
+      }
+      dispatch_tile(cls, post, [&](auto c, auto pp) {
+#pragma unroll
+        for (int i = 0; i < KEYS / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          const int row = row0 + acc_row(t, i), col = c0 + acc_col(t, i);
+          float ds = 0.f;
+          if (tile_visible<decltype(c)::value>(a, b, row, col, seg, i)) {
+            float dcap;
+            const float x =
+                tile_score<decltype(pp)::value>(a, h, row, col, sc[i], &dcap);
+            const float p = expf(x - lse_r[r]);
+            float d = dp[i];
+            if (a.dropout) d = keep(a, bh, row, col) ? d * a.drop_inv : 0.f;
+            ds = p * (d - di_r[r]);
+            ds = ds * dcap;
+          }
+          sc[i] = ds;
+        }
+      });
+      uint32_t da[KEYS / 16][4];
+      acc_to_a<KEYS>(sc, da);
+
+      wgmma_fence();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < KEYS / 16; ++kk) {
+        wgmma_rs<DP>(acc, da[kk], desc_mn<KEYS>(kt, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + acc_row(t, 2 * r);
+      if (row >= a.Nq) continue;
+      const size_t base = ((size_t)bh * a.Nq + row) * a.D;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = acc_col(t, 4 * n);
+        if (col < a.D) {
+          *reinterpret_cast<__nv_bfloat162*>(dq + base + col) =
+              __floats2bfloat162_rn(acc[4 * n + 2 * r] * a.scale,
+                                    acc[4 * n + 2 * r + 1] * a.scale);
+        }
+      }
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_bwd_sm90(const AttnArgs& a, const void* dout,
+                            const float* lse, const float* di, void* dq,
+                            void* dk, void* dv, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = make_map(&tq, a.q, a.B * a.H, a.Nq, a.D);
+  if (err == cudaSuccess) err = make_map(&tdo, dout, a.B * a.H, a.Nq, a.D);
+  if (err == cudaSuccess) err = make_map(&tk, a.k, a.B * a.H_kv, a.Nk, a.D);
+  if (err == cudaSuccess) err = make_map(&tv, a.v, a.B * a.H_kv, a.Nk, a.D);
+  if (err != cudaSuccess) return err;
+  using Bf = __nv_bfloat16;
+
+  auto dkv_kernel = flash_bwd_dkv_sm90_kernel<DP>;
+  err = set_smem(dkv_kernel, DkvSm90Cfg<DP>::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv((a.Nk + kDkvKeys - 1) / kDkvKeys, a.H_kv, a.B);
+  dkv_kernel<<<grid_kv, kThreadsWS, DkvSm90Cfg<DP>::SMEM, st>>>(
+      tq, tk, tv, tdo, a, lse, di, static_cast<Bf*>(dk), static_cast<Bf*>(dv));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto dq_kernel = flash_bwd_dq_sm90_kernel<DP>;
+  err = set_smem(dq_kernel, DqSm90Cfg<DP>::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((a.Nq + kDqRows - 1) / kDqRows, a.H, a.B);
+  dq_kernel<<<grid_q, kThreadsWS, DqSm90Cfg<DP>::SMEM, st>>>(
+      tq, tk, tv, tdo, a, lse, di, static_cast<Bf*>(dq));
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+}  // namespace fat
+
 extern "C" {
 
 // dtype: 0 = bfloat16, 1 = float32 (q, k, v, do and the gradients share
@@ -422,6 +871,36 @@ int fat_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)err;
+}
+
+// The tensor-core route: bf16 only, D <= 128; q, k, v and dout 16-byte
+// aligned (TMA). Same arguments as fat_flash_bwd (dtype must be 0).
+int fat_flash_bwd_sm90(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* di,
+                       void* dq, void* dk, void* dv, const void* q_ids,
+                       const void* kv_ids, const void* slopes, int B, int H,
+                       int H_kv, int Nq, int Nk, int D, float scale,
+                       int causal, int offset, int window, int sinks,
+                       float softcap, float softcap_inv, int dropout,
+                       uint32_t drop_threshold, uint32_t seed, float drop_inv,
+                       int dtype, void* stream) {
+  using namespace fat;
+  if (dtype != 0 || D < 8 || D > 128 || D % 8 != 0 || H_kv < 1 ||
+      H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AttnArgs a{q, k, v, static_cast<const int32_t*>(q_ids),
+             static_cast<const int32_t*>(kv_ids),
+             static_cast<const float*>(slopes), B, H, H_kv, Nq, Nk, D, scale,
+             causal, offset, window, sinks, softcap, softcap_inv, dropout,
+             drop_threshold, seed, drop_inv};
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* l = static_cast<const float*>(lse);
+  const auto* d = static_cast<const float*>(di);
+  const cudaError_t err =
+      D <= 64 ? sm90::launch_bwd_sm90<64>(a, dout, l, d, dq, dk, dv, st)
+              : sm90::launch_bwd_sm90<128>(a, dout, l, d, dq, dk, dv, st);
   return (int)err;
 }
 

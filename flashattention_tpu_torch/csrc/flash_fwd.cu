@@ -14,12 +14,237 @@
 //
 // What bounds it on this card: at D = 64 a (query row, key) pair costs
 // 4·D flops against a few bytes, so the tensor-core rate bounds it
-// (4·B·H·Nq·Nk·D flops, half of that causal, over 989 TFLOP/s). This first
-// version does not reach for that bound: it runs fp32 FMAs on the CUDA cores.
+// (4·B·H·Nq·Nk·D flops, half of that causal, over 989 TFLOP/s).
 //
-// The kernel body is flash_fwd.cuh's, instantiated for plain inputs.
+// Two routes, chosen by the caller (ops/flash_attn.py):
+//
+//   fat_flash_fwd_sm90 (bf16, D <= 128): both products on the tensor cores.
+//     One CTA per (128 query rows, head, batch), three warpgroups. Warpgroup
+//     0 loads: one thread issues TMA for the Q tile once and for K and V
+//     tiles (128 keys at D <= 64, 64 at D <= 128, for the consumers'
+//     registers) into a two-stage ring guarded by mbarriers ("full" per K
+//     and per V, "empty" per stage), walking the tiles the rows can see
+//     (key_tiles: sink tiles, then the band). Warpgroups 1-2 own 64 rows
+//     each: S = Q·Kᵀ by wgmma from shared memory (both K-major), then the
+//     score pipeline and the online softmax on the fp32 accumulator
+//     fragment at absolute (row, col), then p, dropped and rounded to bf16,
+//     as the register A operand of O += P·V (V MN-major). Head dims below
+//     the instantiation's 64 or 128 read zeros from TMA.
+//   fat_flash_fwd (fp32, and bf16 with D > 128): the first version, fp32
+//     FMAs on the CUDA cores, body flash_fwd.cuh (shared with B4). fp32 stays
+//     there because the tensor cores would round it to TF32, beyond the
+//     fp32 1e-4 limit; D > 128 because the backward's dK and dV
+//     accumulators do not fit the tensor-core kernels' registers.
 
 #include "flash_fwd.cuh"
+#include "flash_sm90.cuh"
+
+namespace fat {
+namespace sm90 {
+
+constexpr int kFwdRows = 128;  // query rows per CTA, 64 per consumer
+
+template <int DP>
+struct FwdSm90Cfg {
+  // Keys per K/V tile. At D = 128 the O accumulator (64 registers) and a
+  // 64 x 128 score fragment (64 more) with the score pipeline's values
+  // overflow a consumer's 240 registers: 64 keys there.
+  static constexpr int KEYS = DP <= 64 ? 128 : 64;
+  static constexpr int STAGES = 2;
+  static constexpr int Q_BYTES = kFwdRows * DP * 2;
+  static constexpr int KV_BYTES = KEYS * DP * 2;  // one K or V tile
+  static constexpr int BARS = 1 + 3 * STAGES;
+  static constexpr size_t SMEM =
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARS;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreadsWS, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, AttnArgs a,
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse) {
+  using Cfg = FwdSm90Cfg<DP>;
+  constexpr int STAGES = Cfg::STAGES, KEYS = Cfg::KEYS;
+  extern __shared__ char smem_raw[];
+  char* q_s = align_1024(smem_raw);              // [DP/64][128][64]
+  char* k_s = q_s + Cfg::Q_BYTES;                // [STAGES] tiles
+  char* v_s = k_s + STAGES * Cfg::KV_BYTES;      // [STAGES] tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + STAGES * Cfg::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int b = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * kFwdRows;
+  const int hk = h / (a.H / a.H_kv);
+  const TileWalk walk =
+      key_tiles(a, r0, min(r0 + kFwdRows, a.Nq) - 1, KEYS);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 256);  // every consumer thread releases a stage
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0 && walk.n_walk > 0) {
+      const int kplane = b * a.H_kv + hk;
+      mbar_expect_tx(q_full, Cfg::Q_BYTES);
+      tma_tile<kFwdRows, DP>(q_s, &tq, q_full, r0, b * a.H + h);
+      for (int w = 0; w < walk.n_walk; ++w) {
+        const int s = w % STAGES;
+        mbar_wait(&empty[s], ((w / STAGES) & 1) ^ 1);
+        const int c0 = walk.tile(w) * KEYS;
+        mbar_expect_tx(&k_full[s], Cfg::KV_BYTES);
+        tma_tile<KEYS, DP>(k_s + s * Cfg::KV_BYTES, &tk, &k_full[s], c0,
+                               kplane);
+        mbar_expect_tx(&v_full[s], Cfg::KV_BYTES);
+        tma_tile<KEYS, DP>(v_s + s * Cfg::KV_BYTES, &tv, &v_full[s], c0,
+                               kplane);
+      }
+    }
+  } else {  // consumers
+    reg_alloc<kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1;  // 64-row slice of the q tile
+    const int t = threadIdx.x % 128;
+    const int row0 = r0 + 64 * cw;
+    const uint32_t bh = (uint32_t)(b * a.H + h);
+    const bool post = a.slopes != nullptr || a.softcap > 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+    if (walk.n_walk > 0) mbar_wait(q_full, 0);
+    for (int w = 0; w < walk.n_walk; ++w) {
+      const int s = w % STAGES, ph = (w / STAGES) & 1;
+      const int c0 = walk.tile(w) * KEYS;
+      const char* kt = k_s + s * Cfg::KV_BYTES;
+      const char* vt = v_s + s * Cfg::KV_BYTES;
+
+      float sc[KEYS / 2];  // S: 64 rows x KEYS
+      mbar_wait(&k_full[s], ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        wgmma_ss<KEYS>(sc, desc_k<kFwdRows>(q_s, 64 * cw, kk),
+                       desc_k<KEYS>(kt, 0, kk), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // Score pipeline at absolute (row, col); masked scores count in the
+      // row max as the mask value and give p = 0 (held as -inf).
+      float mx[2] = {m[0], m[1]};
+      const int cls =
+          tile_class(a, row0, row0 + 63, c0, c0 + KEYS - 1);
+      uint32_t seg[2] = {0u, 0u};
+      if (cls == kSegments) {
+        segment_bits<KEYS>(a.q_ids + (size_t)b * a.Nq, row0, a.Nq,
+                               a.kv_ids + (size_t)b * a.Nk, c0, a.Nk, t, seg);
+      }
+      dispatch_tile(cls, post, [&](auto c, auto pp) {
+#pragma unroll
+        for (int i = 0; i < KEYS / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          const int row = row0 + acc_row(t, i), col = c0 + acc_col(t, i);
+          const bool vis =
+              tile_visible<decltype(c)::value>(a, b, row, col, seg, i);
+          float dcap;
+          const float x = tile_score<decltype(pp)::value>(
+              a, h, row, col, sc[i] * a.scale, &dcap);
+          mx[r] = fmaxf(mx[r], vis ? x : kMaskValue);
+          sc[i] = vis ? x : -INFINITY;
+        }
+      });
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        const float alpha = expf(m[r] - mx[r]);
+        l[r] *= alpha;
+        m[r] = mx[r];
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) {
+          if (((i >> 1) & 1) == r) acc[i] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < KEYS / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = expf(sc[i] - m[r]);
+        l[r] += p;
+        if (a.dropout) {
+          const int row = row0 + acc_row(t, i), col = c0 + acc_col(t, i);
+          p = keep(a, bh, row, col) ? p * a.drop_inv : 0.f;
+        }
+        sc[i] = p;
+      }
+      uint32_t pa[KEYS / 16][4];
+      acc_to_a<KEYS>(sc, pa);
+
+      mbar_wait(&v_full[s], ph);
+      wgmma_fence();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < KEYS / 16; ++kk) {
+        wgmma_rs<DP>(acc, pa[kk], desc_mn<KEYS>(vt, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[s]);
+    }
+
+    // Epilogue: each row's l is spread over the 4 threads of a quad.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(kFull, l[r], 1);
+      l[r] += __shfl_xor_sync(kFull, l[r], 2);
+      const int row = row0 + acc_row(t, 2 * r);
+      if (row >= a.Nq) continue;
+      const float l_safe = l[r] == 0.f ? 1.f : l[r];
+      const size_t base = (size_t)bh * a.Nq + row;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = acc_col(t, 4 * n);
+        if (col < a.D) {
+          *reinterpret_cast<__nv_bfloat162*>(o + base * a.D + col) =
+              __floats2bfloat162_rn(acc[4 * n + 2 * r] / l_safe,
+                                    acc[4 * n + 2 * r + 1] / l_safe);
+        }
+      }
+      if ((t & 3) == 0) lse[base] = m[r] + logf(l_safe);
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_fwd_sm90(const AttnArgs& a, void* o, float* lse,
+                            cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map(&tq, a.q, a.B * a.H, a.Nq, a.D);
+  if (err == cudaSuccess) err = make_map(&tk, a.k, a.B * a.H_kv, a.Nk, a.D);
+  if (err == cudaSuccess) err = make_map(&tv, a.v, a.B * a.H_kv, a.Nk, a.D);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_sm90_kernel<DP>;
+  err = set_smem(kernel, FwdSm90Cfg<DP>::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Nq + kFwdRows - 1) / kFwdRows, a.H, a.B);
+  kernel<<<grid, kThreadsWS, FwdSm90Cfg<DP>::SMEM, st>>>(
+      tq, tk, tv, a, static_cast<__nv_bfloat16*>(o), lse);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+}  // namespace fat
 
 extern "C" {
 
@@ -53,6 +278,32 @@ int fat_flash_fwd(const void* q, const void* k, const void* v, void* o,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)err;
+}
+
+// The tensor-core route: bf16 only, D <= 128; q, k and v 16-byte aligned
+// (TMA). Same arguments as fat_flash_fwd (dtype must be 0).
+int fat_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                       void* lse, const void* q_ids, const void* kv_ids,
+                       const void* slopes, int B, int H, int H_kv, int Nq,
+                       int Nk, int D, float scale, int causal, int offset,
+                       int window, int sinks, float softcap, float softcap_inv,
+                       int dropout, uint32_t drop_threshold, uint32_t seed,
+                       float drop_inv, int dtype, void* stream) {
+  using namespace fat;
+  if (dtype != 0 || D < 8 || D > 128 || D % 8 != 0 || H_kv < 1 ||
+      H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AttnArgs a{q, k, v, static_cast<const int32_t*>(q_ids),
+             static_cast<const int32_t*>(kv_ids),
+             static_cast<const float*>(slopes), B, H, H_kv, Nq, Nk, D, scale,
+             causal, offset, window, sinks, softcap, softcap_inv, dropout,
+             drop_threshold, seed, drop_inv};
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* l = static_cast<float*>(lse);
+  const cudaError_t err = D <= 64 ? sm90::launch_fwd_sm90<64>(a, o, l, st)
+                                  : sm90::launch_fwd_sm90<128>(a, o, l, st);
   return (int)err;
 }
 

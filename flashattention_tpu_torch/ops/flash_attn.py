@@ -2,12 +2,19 @@
 
 The counterpart of ``flashattention_tpu/ops/pallas_attn.py``
 (``pallas_attention`` and its custom VJP). On CUDA tensors
-:func:`kernel_attention` launches two hand-written kernels,
+:func:`kernel_attention` launches hand-written kernels from
 ``csrc/flash_fwd.cu`` (the forward) and ``csrc/flash_bwd.cu`` (the
 backward, one call of two ``__global__`` kernels: dK/dV, then dQ); on CPU
 tensors it runs their plain PyTorch versions, :func:`flash_fwd_plain` and
 :func:`flash_bwd_plain`. Nothing falls back: a CUDA input the kernels do
 not take raises, and so does a failed build or launch.
+
+Each source has two routes, chosen by :func:`_tensor_core_route`: bf16
+with D <= 128 runs the Hopper kernels (``fat_flash_fwd_sm90``,
+``fat_flash_bwd_sm90``: wgmma on the tensor cores, tiles by TMA); fp32 and
+bf16 with D > 128 run the first kernels (fp32 FMAs on the CUDA cores).
+``kernel_attention.fwd_launches`` and ``bwd_launches`` count every call;
+``fwd_tc_launches`` and ``bwd_tc_launches`` count the tensor-core route.
 
 Contract (as in the JAX package): q (B, H, N_q, D), k/v (B, H_kv, N_k, D)
 with H % H_kv == 0; returns o in q's shape and dtype and an fp32 LSE
@@ -211,6 +218,21 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _tensor_core_route(dtype, d: int) -> bool:
+    """True where the tensor-core kernels take the call: bf16 with
+    D <= 128. fp32 would round to TF32 on the tensor cores (beyond its
+    1e-4 limit), and above D = 128 the backward's dK and dV accumulators do
+    not fit the registers."""
+    return dtype == torch.bfloat16 and d <= 128
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if its data starts on a 16-byte boundary (as TMA needs),
+    else a contiguous copy; never refused."""
+    return t if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format)
+
+
 def _check_cuda(q, k, v, opts: AttnOpts, *others):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash attention kernels take bf16/fp32, got {q.dtype}")
@@ -253,34 +275,39 @@ def _scalars(q, k, opts: AttnOpts):
 
 def _fwd_cuda(q, k, v, opts: AttnOpts):
     _check_cuda(q, k, v, opts)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    b, h, n_q, _ = q.shape
+    q, k, v = (_aligned16(t.contiguous()) for t in (q, k, v))
+    b, h, n_q, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
     if o.numel() == 0 or k.shape[2] == 0:
         return o.zero_(), lse.fill_(float("-inf"))
     lib = _build.load_kernel("flash_fwd", _declare_fwd)
-    err = lib.fat_flash_fwd(
+    tc = _tensor_core_route(q.dtype, d)
+    fn = lib.fat_flash_fwd_sm90 if tc else lib.fat_flash_fwd
+    err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         _ptr(opts.q_ids), _ptr(opts.kv_ids), _ptr(opts.slopes),
         *_scalars(q, k, opts),
     )
     _build.check(err, "flash_fwd launch")
     kernel_attention.fwd_launches += 1
+    kernel_attention.fwd_tc_launches += tc
     return o, lse
 
 
 def _bwd_cuda(q, k, v, do, lse, di, opts: AttnOpts):
     _check_cuda(q, k, v, opts, ("do", do), ("lse", lse))
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    do, lse, di = do.contiguous(), lse.contiguous(), di.contiguous()
+    q, k, v, do = (_aligned16(t.contiguous()) for t in (q, k, v, do))
+    lse, di = lse.contiguous(), di.contiguous()
     if do.dtype != q.dtype:
         raise TypeError(f"do ({do.dtype}) must have q's dtype ({q.dtype})")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.shape[2] == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     lib = _build.load_kernel("flash_bwd", _declare_bwd)
-    err = lib.fat_flash_bwd(
+    tc = _tensor_core_route(q.dtype, q.shape[3])
+    fn = lib.fat_flash_bwd_sm90 if tc else lib.fat_flash_bwd
+    err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _ptr(opts.q_ids), _ptr(opts.kv_ids), _ptr(opts.slopes),
@@ -288,6 +315,7 @@ def _bwd_cuda(q, k, v, do, lse, di, opts: AttnOpts):
     )
     _build.check(err, "flash_bwd launch")
     kernel_attention.bwd_launches += 1
+    kernel_attention.bwd_tc_launches += tc
     return dq, dk, dv
 
 
@@ -298,14 +326,16 @@ def _scalar_argtypes():
 
 def _declare_fwd(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
-    lib.fat_flash_fwd.restype = ctypes.c_int
-    lib.fat_flash_fwd.argtypes = [p] * 8 + _scalar_argtypes()
+    for fn in (lib.fat_flash_fwd, lib.fat_flash_fwd_sm90):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p] * 8 + _scalar_argtypes()
 
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
-    lib.fat_flash_bwd.restype = ctypes.c_int
-    lib.fat_flash_bwd.argtypes = [p] * 12 + _scalar_argtypes()
+    for fn in (lib.fat_flash_bwd, lib.fat_flash_bwd_sm90):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p] * 12 + _scalar_argtypes()
 
 
 # ---------------------------------------------------------------------------
@@ -432,8 +462,10 @@ def kernel_attention(q, k, v, *, causal=False, softmax_scale=None,
 
     Launches ``csrc/flash_fwd.cu`` for CUDA tensors (counted in
     ``kernel_attention.fwd_launches``) and, in the backward,
-    ``csrc/flash_bwd.cu`` (``kernel_attention.bwd_launches``); CPU tensors
-    run the plain versions. ``dropout_seed`` is an int (taken mod 2**32)."""
+    ``csrc/flash_bwd.cu`` (``kernel_attention.bwd_launches``); launches on
+    the tensor-core route also count in ``fwd_tc_launches`` and
+    ``bwd_tc_launches``. CPU tensors run the plain versions.
+    ``dropout_seed`` is an int (taken mod 2**32)."""
     opts = make_opts(q, k, causal=causal, softmax_scale=softmax_scale,
                      dropout_rate=dropout_rate, dropout_seed=dropout_seed,
                      q_offset=q_offset, window=window, segment_ids=segment_ids,
@@ -445,6 +477,8 @@ def kernel_attention(q, k, v, *, causal=False, softmax_scale=None,
 
 kernel_attention.fwd_launches = 0
 kernel_attention.bwd_launches = 0
+kernel_attention.fwd_tc_launches = 0
+kernel_attention.bwd_tc_launches = 0
 
 
 def kernel_attention_plain(q, k, v, **kwargs):

@@ -193,7 +193,8 @@ def test_engine_on_card_matches_cpu(cuda_device):
 
 # name: ((b, h, h_kv, n_q, n_k, d), dtype, kernel_attention kwargs, extras);
 # one case per chip_smoke.py flash case (the bench shape cut to N = 2048),
-# plus ragged and head-dim edges.
+# plus ragged and head-dim edges, in fp32 (the FMA route) and in bf16 (the
+# tensor-core route wherever D <= 128).
 FLASH_CASES = {
     "a_train": ((8, 12, 12, 512, 512, 64), torch.bfloat16,
                 dict(causal=True, dropout_rate=0.1, dropout_seed=3), ()),
@@ -216,6 +217,22 @@ FLASH_CASES = {
     "h_fp32_dropout": ((2, 12, 12, 512, 512, 64), torch.float32,
                        dict(causal=True, dropout_rate=0.1, dropout_seed=99),
                        ()),
+    # bf16 edges of the tensor-core kernels: D zero-padded by TMA, ragged
+    # N_q / N_k, a query offset, GQA, an LSE cotangent
+    "bf16_d40_offset": ((2, 2, 1, 77, 130, 40), torch.bfloat16,
+                        dict(causal=True, q_offset=20), ("dlse",)),
+    "bf16_empty_rows": ((1, 4, 4, 64, 64, 64), torch.bfloat16,
+                        dict(causal=True, q_offset=-10), ()),
+    "bf16_d128_gqa_window_dropout": (
+        (2, 8, 2, 300, 300, 128), torch.bfloat16,
+        dict(causal=True, window=96, sinks=4, softcap=30.0, dropout_rate=0.1,
+             dropout_seed=21), ()),
+    "bf16_full_segments_alibi": ((2, 4, 4, 192, 320, 64), torch.bfloat16,
+                                 dict(causal=False), ("segments", "alibi")),
+    "bf16_d256_fma_route": ((1, 2, 2, 100, 77, 256), torch.bfloat16,
+                            dict(causal=True), ()),
+    "bf16_k_unaligned_view": ((2, 4, 2, 128, 128, 64), torch.bfloat16,
+                              dict(causal=True), ("k_unaligned",)),
 }
 
 
@@ -242,10 +259,16 @@ def flash_inputs(shape, dtype, extras, device, seed=0):
             if "dlse" in extras else None)
     kw = {}
     if "segments" in extras:
-        ids = torch.sort(torch.randint(0, 4, (b, n_q), generator=gen))[0]
-        kw["segment_ids"] = ids.to(device, torch.int32)
+        ids = [torch.sort(torch.randint(0, 4, (b, n), generator=gen))[0]
+               .to(device, torch.int32)
+               for n in ([n_q] if n_q == n_k else [n_q, n_k])]
+        kw["segment_ids"] = ids[0] if n_q == n_k else (ids[0], ids[1])
     if "alibi" in extras:
         kw["alibi_slopes"] = (0.5 ** torch.arange(1, h + 1)).to(device)
+    if "k_unaligned" in extras:  # a view 2 bytes past a 16-byte boundary
+        buf = torch.empty(k.numel() + 1, dtype=dtype, device=device)
+        k = buf[1:].view(k.shape).copy_(k)
+        assert k.data_ptr() % 16 != 0
     return q, k, v, do, dlse, kw
 
 
@@ -255,7 +278,9 @@ def test_flash_kernels_match_plain(cuda_device, case):
     shape, dtype, kw, extras = FLASH_CASES[case]
     q, k, v, do, dlse, more = flash_inputs(shape, dtype, extras, cuda_device)
     opts = fa.make_opts(q, k, **kw, **more)
-    f0, b0 = fa.kernel_attention.fwd_launches, fa.kernel_attention.bwd_launches
+    ka = fa.kernel_attention
+    before = (ka.fwd_launches, ka.bwd_launches, ka.fwd_tc_launches,
+              ka.bwd_tc_launches)
     o, lse = fa.flash_fwd(q, k, v, opts)
     torch.cuda.synchronize()
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, opts)
@@ -275,8 +300,27 @@ def test_flash_kernels_match_plain(cuda_device, case):
         assert g.dtype == r.dtype and g.shape == r.shape
         rtol, atol = flash_tol(dtype, r)
         assert_allclose(g, r, rtol=rtol, atol=atol, err_msg=f"{case} {name}")
-    assert (fa.kernel_attention.fwd_launches - f0,
-            fa.kernel_attention.bwd_launches - b0) == (1, 1)
+    tc = int(dtype == torch.bfloat16 and shape[-1] <= 128)
+    after = (ka.fwd_launches, ka.bwd_launches, ka.fwd_tc_launches,
+             ka.bwd_tc_launches)
+    assert tuple(x - y for x, y in zip(after, before)) == (1, 1, tc, tc)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_backward_is_deterministic(cuda_device):
+    """The tensor-core backward at the training shape with dropout, twice:
+    bit-equal gradients (no atomics, so no dependence on block order)."""
+    shape, dtype, kw, extras = FLASH_CASES["a_train"]
+    q, k, v, do, _, _ = flash_inputs(shape, dtype, extras, cuda_device)
+    opts = fa.make_opts(q, k, **kw)
+    o, lse = fa.flash_fwd(q, k, v, opts)
+    t0 = fa.kernel_attention.bwd_tc_launches
+    first = fa.flash_bwd(q, k, v, o, lse, do, None, opts)
+    second = fa.flash_bwd(q, k, v, o, lse, do, None, opts)
+    torch.cuda.synchronize()
+    assert fa.kernel_attention.bwd_tc_launches - t0 == 2
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.cuda

@@ -200,3 +200,27 @@ def test_cpu_path_launches_no_kernel():
             fa.kernel_attention.bwd_launches) == before
     o_plain, _ = fa.kernel_attention_plain(*[x.detach() for x in t], causal=True)
     assert torch.equal(o.detach(), o_plain)
+
+
+# (dtype, head dim, tensor-core route?): bf16 up to D = 128 goes to the
+# Hopper kernels; fp32 at any D and bf16 above 128 keep the FMA kernels.
+ROUTES = ([("bfloat16", d, True) for d in (40, 64, 128)]
+          + [("float32", d, False) for d in (40, 64, 128, 256)]
+          + [("bfloat16", d, False) for d in (136, 256)])
+
+
+@pytest.mark.parametrize("dtype,d,want", ROUTES)
+def test_tensor_core_route(dtype, d, want):
+    assert fa._tensor_core_route(getattr(torch, dtype), d) is want
+
+
+def test_aligned16_copies_an_unaligned_view_only():
+    buf = torch.arange(1 + 4 * 8 * 40, dtype=torch.bfloat16)
+    aligned = buf[: 4 * 8 * 40].view(4, 8, 40)
+    assert aligned.data_ptr() % 16 == 0
+    assert fa._aligned16(aligned) is aligned
+    view = buf[1:].view(4, 8, 40)  # 2 bytes past the boundary
+    assert view.data_ptr() % 16 != 0
+    got = fa._aligned16(view)
+    assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+    assert torch.equal(got, view)
