@@ -6,10 +6,12 @@
 Phases, in order; any failure exits nonzero:
 
 1. Identify the card (nvidia-smi name and power limit) and build every CUDA
-   kernel from ``flashattention_tpu_torch/csrc`` (one nvcc per source, all
-   at once). The flash sources' six tensor-core kernels (forward, dK/dV,
-   dQ at D 64 and 128) must show HGMMA (wgmma) and UTMALDG (TMA) in their
-   SASS (cuobjdump) and spill nothing (ptxas report of this build).
+   kernel from ``flashattention_tpu_torch/csrc`` anew (one nvcc per source,
+   all at once). The tensor-core kernels (flash: forward, dK/dV, dQ at D 64
+   and 128; sparse: the same three at D 64 and 128, each with one and two
+   consumer warpgroups; 18 in all) must show HGMMA (wgmma) and UTMALDG
+   (TMA) in their SASS (cuobjdump) and spill nothing (ptxas report of this
+   build).
 2. Each kernel against its plain PyTorch version on the card: the paged
    kernels at the serving engine's shapes; the flash forward and backward
    at the training shape with dropout (a) and without (a0) and seven more
@@ -34,13 +36,21 @@ Phases, in order; any failure exits nonzero:
    fp8_attention (checked), plus its straight-through backward (o and
    gradients at the bf16 flash limit: p is bf16 on the 8-bit path). The
    block-sparse forward (sparse_fwd) and backward (sparse_bwd) in four
-   cases: the model phase's call (2, 12, 4096, 64) and the BASELINE head
-   dim (1, 8, 8192, 128) with the local + global pattern, GQA 12/4 at a
-   ragged N = 1000 in fp32 with an empty q-block row, and N_q != N_k with
-   an LSE cotangent; o and gradients at the flash limit, LSE at 1e-4 where
-   a row sees a key and -inf exactly on empty q blocks; bounds from the
-   pairs the pattern keeps; SDPA with the expanded boolean mask as the
-   library call (a yardstick where a row sees no key).
+   cases, each launched once on the route it must take (checked by the
+   route counters): the model phase's call (2, 12, 4096, 64) and the
+   BASELINE head dim (1, 8, 8192, 128) with the local + global pattern,
+   and N_q != N_k with 64-row q blocks and an LSE cotangent, on the tensor
+   cores; GQA 12/4 at a ragged N = 1000 in fp32 with an empty q-block row,
+   on the FMA kernels. o and gradients at the flash limit, LSE at 1e-4
+   where a row sees a key, -inf exactly on empty q blocks and the mask
+   value exactly on rows of visited blocks that see no key, dK = dV = 0
+   exactly on KV blocks no q block visits; bounds from the pairs the
+   pattern keeps; times of the wrapper (which builds the lists on the
+   device, and di in the backward), also issued from the host, and of the
+   kernels alone with the lists built beforehand, for the tensor-core
+   cases also of the FMA kernels on the same inputs; SDPA with the
+   expanded boolean mask as the library call (a yardstick where a row sees
+   no key).
 3. The serving engine at GPT-3 Small widths (TransformerConfig defaults,
    bf16, random weights from a seed): 64 requests, prompts of 32-400
    tokens, 64 new tokens each. Every launch count is set to 0 just before
@@ -78,7 +88,9 @@ Phases, in order; any failure exits nonzero:
    of Longformer/BigBird on 32 x 32 tiles (P[i, j] = 0 <= i - j < 4 or
    j == 0): one no-grad forward (exactly 12 sparse_fwd, no flash_fwd),
    then forward + CE + backward, one untimed and three timed (exactly 24
-   sparse_fwd, 12 sparse_bwd and no flash launch per step), one profiled
+   sparse_fwd, 12 sparse_bwd and no flash launch per step, every sparse
+   launch on the tensor-core route), one profiled (the sparse kernels'
+   device time summed by name)
    step, card vs CPU loss and gradients at N=512 with a 4 x 4 pattern, and
    an all-ones pattern against no pattern (logits at the bf16 rung).
 
@@ -754,10 +766,51 @@ SPARSE_CASES = {
 }
 
 
+def sparse_launch(q, k, v, o, lse, do, dlse, active, spec, sm90):
+    """(forward, backward) callables that launch one route's entry points
+    (``fat_sparse_*_sm90`` where ``sm90``, else the FMA kernels'
+    ``fat_sparse_*``) with the lists and di built once beforehand: the
+    kernels' own time, without the wrapper's list building."""
+    fwd = _build.load_kernel("sparse_fwd", sa._declare_fwd)
+    bwd = _build.load_kernel("sparse_bwd", sa._declare_bwd)
+    fwd_fn = fwd.fat_sparse_fwd_sm90 if sm90 else fwd.fat_sparse_fwd
+    bwd_fn = bwd.fat_sparse_bwd_sm90 if sm90 else bwd.fat_sparse_bwd
+    o_out, lse_out = torch.empty_like(o), torch.empty_like(lse)
+    grads = [torch.empty_like(x) for x in (q, k, v)]
+    di = (o.float() * do.float()).sum(-1)
+    if dlse is not None:
+        di = di - dlse
+    kv_list, kv_count = sa.compact_rows(active)
+    q_list, q_count = sa.compact_rows(active.t())
+    code = fa._DTYPE_CODE[q.dtype]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run_fwd():
+        _build.check(fwd_fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o_out.data_ptr(),
+            lse_out.data_ptr(), kv_list.data_ptr(), kv_count.data_ptr(),
+            *sa._shape_args(q, k, spec), kv_list.shape[1], code, stream),
+            "sparse fwd")
+
+    def run_bwd():
+        _build.check(bwd_fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), *(g.data_ptr() for g in grads),
+            kv_list.data_ptr(), kv_count.data_ptr(), q_list.data_ptr(),
+            q_count.data_ptr(), *sa._shape_args(q, k, spec),
+            kv_list.shape[1], q_list.shape[1], code, stream),
+            "sparse bwd")
+    return run_fwd, run_bwd
+
+
 def sparse_case(timer, gen, dev, key):
     """The sparse forward and backward kernels against their plain versions
     (o and gradients at the flash limit; LSE at 1e-4 where a row sees a
-    key, -inf exactly on empty q blocks), their times, the bound of the
+    key, -inf exactly on empty q blocks, the mask value exactly on rows of
+    visited blocks that see no key; dK = dV = 0 exactly on KV blocks no q
+    block visits), each launched once on the route it must take (checked
+    by the route counters), their times (also issued from the host, and on
+    the FMA route where the tensor cores take the case), the bound of the
     pairs the pattern keeps, and SDPA with the expanded boolean mask."""
     label, shape, dtype, causal, (bq, bk), pattern, use_dlse = SPARSE_CASES[key]
     q, k, v, do, dlse, _ = _flash_inputs(gen, dev, shape, dtype,
@@ -767,6 +820,8 @@ def sparse_case(timer, gen, dev, key):
     n_q, n_k = shape[3], shape[4]
     active = sa.tile_pattern(pattern.to(dev), *pattern.shape, bq, bk, causal,
                              n_k - n_q)
+    tc = sa._tensor_core_route(dtype, shape[-1], spec)
+    reset_counts()
     o, lse = sa.sparse_fwd(q, k, v, active, spec)
     torch.cuda.synchronize()
     o_ref, lse_ref = sa.sparse_fwd_plain(q, k, v, active, spec)
@@ -782,6 +837,12 @@ def sparse_case(timer, gen, dev, key):
                              LSE_TOL)
     grads = sa.sparse_bwd(q, k, v, o_ref, lse_ref, do, dlse, active, spec)
     torch.cuda.synchronize()
+    c = read_counts()
+    if (c["sparse_fwd"], c["sparse_bwd"], c["sparse_fwd_tc"],
+            c["sparse_bwd_tc"]) != (1, 1, int(tc), int(tc)):
+        fail(f"sparse {key}: launches {c}; want the "
+             f"{'tensor-core' if tc else 'FMA'} route once each way")
+    route = "tensor cores (wgmma + TMA)" if tc else "FMA"
 
     def plain_bwd():
         di = (o_ref.float() * do.float()).sum(-1)
@@ -792,16 +853,31 @@ def sparse_case(timer, gen, dev, key):
     for name, g, r in zip(("dq", "dk", "dv"), grads, plain_bwd()):
         tols[name] = kernel_tol(dtype, r)
         err[name] = check_close(f"sparse_bwd {key} {name}", g, r, *tols[name])
+    unvisited = (~active.any(0)).repeat_interleave(bk)[:n_k]
+    if any(bool(g[:, :, unvisited].any()) for g in grads[1:]):
+        fail(f"sparse_bwd {key}: dK or dV is nonzero on an unvisited KV block")
     del grads
     big = n_q * n_k * shape[1] * shape[0] > 2 ** 27
+    fwd_call = lambda: sa.sparse_fwd(q, k, v, active, spec)
+    bwd_call = lambda: sa.sparse_bwd(q, k, v, o_ref, lse_ref, do, dlse,
+                                     active, spec)
     t = dict(
-        fwd_ms=timer(lambda: sa.sparse_fwd(q, k, v, active, spec)),
+        fwd_ms=timer(fwd_call),
+        fwd_wall_ms=timer.wall(fwd_call),
         fwd_plain_ms=timer(lambda: sa.sparse_fwd_plain(q, k, v, active, spec),
                            reps=3 if big else 10, warmup=1),
-        bwd_ms=timer(lambda: sa.sparse_bwd(q, k, v, o_ref, lse_ref, do, dlse,
-                                           active, spec)),
+        bwd_ms=timer(bwd_call),
+        bwd_wall_ms=timer.wall(bwd_call),
         bwd_plain_ms=timer(plain_bwd, reps=3 if big else 10, warmup=1),
     )
+    # the kernels alone (lists and di built beforehand), and for the
+    # tensor-core cases the FMA kernels on the same inputs
+    for which in ("kernel", "fma") if tc else ("kernel",):
+        run_fwd, run_bwd = sparse_launch(q, k, v, o_ref, lse_ref, do, dlse,
+                                         active, spec, tc and which == "kernel")
+        reps = 30 if which == "kernel" else 10
+        t[f"fwd_{which}_ms"] = timer(run_fwd, reps=reps)
+        t[f"bwd_{which}_ms"] = timer(run_bwd, reps=reps)
     # SDPA with the expanded element mask: the same function only where
     # every row sees a key (an all-masked row gives NaN there, 0 here)
     vis = sa.element_mask(active, n_q, n_k, spec)
@@ -823,7 +899,7 @@ def sparse_case(timer, gen, dev, key):
     pairs = int(vis.sum()) * shape[0] * shape[1]
     bounds = attention_bounds(q, k, pairs, dlse)
     rec = dict(case=label, shape=shape, dtype=str(dtype).replace("torch.", ""),
-               blocks=(bq, bk), active_tiles=int(active.sum()),
+               blocks=(bq, bk), route=route, active_tiles=int(active.sum()),
                visible_pairs=pairs, max_abs_err=err,
                tol={n: dict(rtol=r, atol=a) for n, (r, a) in tols.items()},
                empty_rows=int(empty.sum()), library_same_function=same,
@@ -831,16 +907,23 @@ def sparse_case(timer, gen, dev, key):
                bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1],
                **{f"{'library' if same[n] else 'yardstick'}_{n}_ms": x
                   for n, x in lib.items()}, **t)
-    log(f"[kernel] sparse {key} ({label}): {int(active.sum())} active tiles, "
-        f"{pairs} visible pairs; max_abs_err "
-        + " ".join(f"{n} {e:.2e}" for n, e in err.items())
-        + f" ({tol_text(dtype)}; lse {LSE_TOL:g} abs+rel, -inf rows exact)")
-    log(f"[kernel]   fwd {t['fwd_ms']:.4f} ms (plain {t['fwd_plain_ms']:.4f}, "
-        f"SDPA {lib['fwd']:.4f}, bound {bounds['fwd'][0]:.4f} "
-        f"{bounds['fwd'][1]})  bwd {t['bwd_ms']:.4f} ms (plain "
-        f"{t['bwd_plain_ms']:.4f}, SDPA backward {lib['bwd']:.4f}, forward + "
-        f"backward {lib['fwd_bwd']:.4f}, bound {bounds['bwd'][0]:.4f} "
-        f"{bounds['bwd'][1]})"
+    log(f"[kernel] sparse {key} ({label}) on the {route} route: "
+        f"{int(active.sum())} active tiles, {pairs} visible pairs; "
+        f"max_abs_err " + " ".join(f"{n} {e:.2e}" for n, e in err.items())
+        + f" ({tol_text(dtype)}; lse {LSE_TOL:g} abs+rel, -inf and "
+        f"mask-value rows exact)")
+    fma = (f"; FMA kernels fwd {t['fwd_fma_ms']:.4f} bwd "
+           f"{t['bwd_fma_ms']:.4f}" if tc else "")
+    log(f"[kernel]   kernels alone: fwd {t['fwd_kernel_ms']:.4f} bwd "
+        f"{t['bwd_kernel_ms']:.4f} ms" + fma)
+    log(f"[kernel]   wrapper (lists built on the device): fwd "
+        f"{t['fwd_ms']:.4f} ms (issued from the host "
+        f"{t['fwd_wall_ms']:.4f}, plain {t['fwd_plain_ms']:.4f}, SDPA "
+        f"{lib['fwd']:.4f}, bound {bounds['fwd'][0]:.4f} {bounds['fwd'][1]})  "
+        f"bwd {t['bwd_ms']:.4f} ms (issued from the host "
+        f"{t['bwd_wall_ms']:.4f}, plain {t['bwd_plain_ms']:.4f}, SDPA "
+        f"backward {lib['bwd']:.4f}, forward + backward {lib['fwd_bwd']:.4f}, "
+        f"bound {bounds['bwd'][0]:.4f} {bounds['bwd'][1]})"
         + ("" if same["bwd"] else "  [SDPA computes another function here"
            + (" in the backward" if same["fwd"] else "") + ": a yardstick]"))
     return rec
@@ -1057,6 +1140,8 @@ def reset_counts():
     f8.fp8_attention.launches = 0
     sa.sparse_attention.fwd_launches = 0
     sa.sparse_attention.bwd_launches = 0
+    sa.sparse_attention.fwd_tc_launches = 0
+    sa.sparse_attention.bwd_tc_launches = 0
 
 
 def read_counts():
@@ -1068,7 +1153,9 @@ def read_counts():
             "flash_bwd_tc": fa.kernel_attention.bwd_tc_launches,
             "flash_fwd_fp8": f8.fp8_attention.launches,
             "sparse_fwd": sa.sparse_attention.fwd_launches,
-            "sparse_bwd": sa.sparse_attention.bwd_launches}
+            "sparse_bwd": sa.sparse_attention.bwd_launches,
+            "sparse_fwd_tc": sa.sparse_attention.fwd_tc_launches,
+            "sparse_bwd_tc": sa.sparse_attention.bwd_tc_launches}
 
 
 def phase_engine(cfg, params, ecfg, dev, n_req, prompt_range, n_new, on_card):
@@ -1553,9 +1640,10 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3):
         fail("sparse model logits are misshapen or not finite")
     del logits
     log(f"[sparse] no-grad forward launches: {counts}")
-    if on_card and (counts["sparse_fwd"], counts["flash_fwd"]) != (L, 0):
-        fail(f"no-grad forward launched {counts}; want {L} sparse_fwd and "
-             f"no flash_fwd")
+    if on_card and (counts["sparse_fwd"], counts["sparse_fwd_tc"],
+                    counts["flash_fwd"]) != (L, L, 0):
+        fail(f"no-grad forward launched {counts}; want {L} sparse_fwd on the "
+             f"tensor-core route and no flash_fwd")
 
     def step():
         params.zero_grad(set_to_none=True)
@@ -1587,13 +1675,16 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3):
     log(f"[sparse] launches: {counts}")
     if on_card:
         want = dict(sparse_fwd=2 * L * n_timed, sparse_bwd=L * n_timed,
+                    sparse_fwd_tc=2 * L * n_timed, sparse_bwd_tc=L * n_timed,
                     flash_fwd=0, flash_bwd=0)
         got = {k: counts[k] for k in want}
         if got != want:
             fail(f"sparse steps launched {got}; want {want} ({2 * L} "
-                 f"sparse_fwd and {L} sparse_bwd per step)")
-        log(f"[sparse] per step: {2 * L} sparse_fwd + {L} sparse_bwd, no "
-            f"flash launch (checked); max_memory_allocated "
+                 f"sparse_fwd and {L} sparse_bwd per step, all on the "
+                 f"tensor-core route)")
+        log(f"[sparse] per step: {2 * L} sparse_fwd + {L} sparse_bwd, all on "
+            f"the tensor-core route, no flash launch (checked); "
+            f"max_memory_allocated "
             f"{rec['max_memory_allocated'] / 2 ** 30:.3f} GiB")
 
     sync(dev)
@@ -1603,14 +1694,19 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3):
         wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
     busy = sum(kernels.values()) / 1e6
+    sparse_ms = {k: v / 1e3 for k, v in kernels.items() if "sparse_" in k}
     rec["profile"] = dict(
         wall_ms=wall * 1e3, kernel_ms=busy * 1e3,
         device_busy_share=busy / wall if kernels else None,
+        sparse_kernels_ms=sparse_ms,
         top=sorted(((k, v / 1e3) for k, v in kernels.items()),
                    key=lambda kv: -kv[1])[:12])
     if kernels:
         log(f"[sparse] profiled step: {wall * 1e3:.2f} ms wall, kernels "
-            f"{busy * 1e3:.2f} ms, device busy {100 * busy / wall:.1f}%")
+            f"{busy * 1e3:.2f} ms, device busy {100 * busy / wall:.1f}%; "
+            f"sparse kernels {sum(sparse_ms.values()):.4f} ms ("
+            + ", ".join(f"{k.split('<')[0].split('::')[-1]} {v:.4f}"
+                        for k, v in sorted(sparse_ms.items())) + ")")
         for k, v in rec["profile"]["top"]:
             log(f"[sparse]   {v:.4f} ms  {k[:90]}")
     else:
@@ -1661,25 +1757,33 @@ def ptxas_entries(text):
     return out
 
 
+# Tensor-core kernels per library: forward at D 64 and 128; dK/dV and dQ at
+# D 64 and 128; the sparse ones each with one and two consumer warpgroups.
+SM90_KERNELS = {"flash_fwd": 2, "flash_bwd": 4, "sparse_fwd": 4,
+                "sparse_bwd": 8}
+
+
 def sass_report():
-    """Phase 1's check that the tensor-core route is what it claims: per
-    kernel of libflash_fwd.so and libflash_bwd.so, the HGMMA (wgmma) and
-    UTMALDG (TMA load) instructions in its SASS (cuobjdump) and, for the
+    """Phase 1's check that the tensor-core routes are what they claim: per
+    kernel of the flash and sparse libraries, the HGMMA (wgmma) and UTMALDG
+    (TMA load) instructions in its SASS (cuobjdump) and, for the
     tensor-core kernels, registers and spill bytes from the build's ptxas
     report. Fails if a tensor-core kernel has no HGMMA or no UTMALDG, or
-    spills."""
+    spills, or one is missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
-    for name in ("flash_fwd", "flash_bwd"):
+    for name, want in SM90_KERNELS.items():
         sass = subprocess.run([tool, "--dump-sass",
                                str(_build.kernel_path(name))],
                               capture_output=True, text=True, check=True,
                               timeout=120).stdout
         ptxas = ptxas_entries(_build.BUILD_LOG.get(name, ""))
+        found = 0
         for part in sass.split("Function : ")[1:]:
             fn = part.split()[0]
             if "sm90" not in fn:
                 continue
+            found += 1
             regs, spill = ptxas.get(fn, (None, None))
             rec = dict(hgmma=part.count("HGMMA"), utmaldg=part.count("UTMALDG"),
                        registers=regs, spill_bytes=spill)
@@ -1689,11 +1793,12 @@ def sass_report():
                 f"bytes")
             if not rec["hgmma"] or not rec["utmaldg"]:
                 fail(f"{fn}: the tensor-core kernel has no HGMMA or no UTMALDG")
+            if spill is None:
+                fail(f"{fn}: no ptxas report from this run's build")
             if spill:
                 fail(f"{fn}: spills {spill} bytes")
-    if len(out) != 6:
-        fail(f"expected 6 tensor-core kernels (fwd, dkv, dq at D 64 and 128), "
-             f"found {sorted(out)}")
+        if found != want:
+            fail(f"{name}: expected {want} tensor-core kernels, found {found}")
     return out
 
 
@@ -1751,6 +1856,10 @@ def main() -> int:
     log(f"[card] {smi}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    # every kernel is built anew, so the ptxas report checked below is
+    # this build's, also where an earlier run left its libraries
+    for name in _build.KERNELS:
+        _build.kernel_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
     per = _build.build_all()
     log(f"[build] {len(per)} kernels in {time.perf_counter() - t0:.2f} s "
@@ -1877,16 +1986,19 @@ def main() -> int:
     # sparse_fwd / sparse_bwd: launches of phase 7's forward+backward
     # steps; numbers of phase-2 case (a), the model phase's call
     r = report["kernels"]["sparse_a"]
+    sparse_counts = report["sparse_model"]["launches"]
     for name, part, errs in (("sparse_fwd", "fwd", ("o", "lse")),
                              ("sparse_bwd", "bwd", ("dq", "dk", "dv"))):
         kernels.append(dict(
-            name=name, **KERNELS[name],
-            launches=report["sparse_model"]["launches"][name],
+            name=name, **KERNELS[name], launches=sparse_counts[name],
+            launches_tensor_core=sparse_counts[f"{name}_tc"],
             max_abs_err=max(r["max_abs_err"][e] for e in errs),
             ms=r[f"{part}_ms"], plain_ms=r[f"{part}_plain_ms"],
             bound_ms=r[f"{part}_bound_ms"], bound_by=r[f"{part}_bound_by"],
             library_ms=r.get(f"library_{part}_ms"),
             yardstick_ms=r.get(f"yardstick_{part}_ms"), case=r["case"],
+            kernel_ms=r[f"{part}_kernel_ms"], fma_ms=r[f"{part}_fma_ms"],
+            wall_ms=r[f"{part}_wall_ms"],
         ))
     for k in kernels:
         if k["launches"] <= 0:

@@ -5,31 +5,69 @@
 // flash_bwd.cu does, and uses no atomics, so the result does not depend on
 // block order:
 //
-//   dkv: one block per (sub-tile of KEYS keys of one KV block, KV head,
-//        batch). It walks its KV block's transposed list q_list[ik][0 ..
-//        q_count[ik]) and, for each, the rows of that q block that can see
-//        its keys, looping over the query heads of its GQA group, so dK and
-//        dV sum in fp32 registers (the TPU kernel writes per-query-head fp32
-//        partials and group-sums them in XLA: the same sum). A KV block with
-//        count 0 stores zeros.
-//   dq:  one block per (sub-tile of ROWS rows of one q block, head, batch).
-//        It walks the q block's list kv_list[iq][0 .. kv_count[iq]) in 32-key
-//        sub-tiles, as the forward does.
+//   dkv: one block per (key sub-tile of one KV block, KV head, batch). It
+//        walks its KV block's transposed list q_list[ik][0 .. q_count[ik])
+//        and, for each, the rows of that q block that can see its keys,
+//        looping over the query heads of its GQA group, so dK and dV sum in
+//        fp32 registers (the TPU kernel writes per-query-head fp32 partials
+//        and group-sums them in XLA: the same sum). A KV block with count 0
+//        stores zeros.
+//   dq:  one block per (query sub-tile of one q block, head, batch). It
+//        walks the q block's list kv_list[iq][0 .. kv_count[iq]) as the
+//        forward does.
 //
 // Per kept element, with the TPU kernels' rounding points (not the dense
-// backward's): s = (q . k in fp32) * scale; p = exp(s - lse) (zero where
-// masked); dV += round_T(p) . do; dp = do . v; ds = p * (dp - di);
-// dK += round_T(ds) . q and dQ += round_T(ds) . k, both unscaled and times
-// the scale at the store. di = rowsum(o . do) - dlse comes from the caller;
-// the element mask is the forward's (col < Nk and, when causal,
-// col <= r + offset inside an active block).
+// backward's): s = (q . k in fp32) * scale (no q * scale rounded first);
+// p = exp(s - lse) (zero where masked); dV += round_T(p) . do;
+// dp = do . v; ds = p * (dp - di); dK += round_T(ds) . q and
+// dQ += round_T(ds) . k, both unscaled and times the scale at the store.
+// di = rowsum(o . do) - dlse comes from the caller; the element mask is the
+// forward's (col < Nk and, when causal, col <= r + offset inside an active
+// block). The grid is never sized from the counts.
 //
-// What bounds it on this card: 10 D flops per kept (head, row, key) against
-// q, k, v, do and the three gradients moved once, so the tensor-core rate.
-// This first version runs fp32 FMAs on the CUDA cores and recomputes the
-// scores in both kernels (7 products per element instead of 5).
+// What bounds it on this card: 10 D flops per kept (head, row, key) on the
+// tensor cores (989 TFLOP/s bf16) against q, k, v, do and the three
+// gradients moved once, so the operations. Both kernels recompute the
+// scores (7 products per element instead of 5), the price of having no
+// atomics.
+//
+// Two routes, chosen by the caller (ops/sparse_attn.py):
+//
+//   fat_sparse_bwd_sm90 (bf16, D <= 128, block_q and block_k multiples of
+//     64): every product on the tensor cores (wgmma, bf16 in, fp32
+//     accumulate), tiles by TMA into mbarrier-guarded two-stage rings,
+//     warpgroup 0 loading and NC consumer warpgroups computing (NC = 2
+//     where the block holds 128 rows or keys, else 1: a CTA never spans two
+//     blocks of the pattern).
+//     dkv: 64 NC keys per CTA, K and V resident in shared memory; the
+//       producer walks the transposed list for each query head of the group
+//       and streams q, dO (and the LSE and di rows) in tiles of 64 rows.
+//       The consumers compute transposed products so that Pᵀ and dSᵀ come
+//       out in the register A layout: Sᵀ = K.qᵀ and dPᵀ = V.dOᵀ from shared
+//       memory, dV += round(p)ᵀ.dO and dK += round(ds)ᵀ.q from registers
+//       (dO, q MN-major; over 32 rows at a time at D = 128, for registers).
+//     dq: 64 NC query rows per CTA, q and dO resident, K and V sub-tiles of
+//       64 keys streamed over the q block's list up to the causal stop:
+//       S = q.Kᵀ, dP = dO.Vᵀ, dQ += round(ds).K (K MN-major).
+//     Each product's tile is classified once, interior or band, and the
+//     element loop specialised for it.
+//   fat_sparse_bwd (fp32, bf16 with D > 128 or blocks that are not
+//     multiples of 64): the first version below, fp32 FMAs on the CUDA
+//     cores (for the reasons given in sparse_fwd.cu), 32-row / 32-key
+//     sub-tiles staged as fp32.
 
 #include "flash_common.cuh"
+#include "sparse_sm90.cuh"
+
+namespace fat {
+
+// The call's four lists and block sizes.
+struct Lists {
+  const int32_t *kv_list, *kv_count, *q_list, *q_count;
+  int kv_stride, q_stride, block_q, block_k;
+};
+
+}  // namespace fat
 
 namespace {
 
@@ -356,12 +394,6 @@ sparse_bwd_dq_kernel(AttnArgs a, const T* __restrict__ dout,
   }
 }
 
-// The call's four lists and block sizes.
-struct Lists {
-  const int32_t *kv_list, *kv_count, *q_list, *q_count;
-  int kv_stride, q_stride, block_q, block_k;
-};
-
 template <typename T, int DMAX>
 cudaError_t launch(const AttnArgs& a, const Lists& s, const void* dout,
                    const float* lse, const float* di, void* dq, void* dk,
@@ -404,6 +436,476 @@ cudaError_t dispatch(const AttnArgs& a, const Lists& s, const void* dout,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The tensor-core route (bf16, D <= 128, blocks multiples of 64)
+// ---------------------------------------------------------------------------
+
+namespace fat {
+namespace sm90 {
+
+constexpr int kSpRows = 64;  // query rows per streamed q / dO tile (dkv)
+constexpr int kSpKeys = 64;  // keys per streamed K / V tile (dq)
+
+template <int DP, int NC>
+struct SparseDkvCfg {
+  static constexpr int KEYS = 64 * NC;  // keys per CTA, resident
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = 128 * (1 + NC);
+  static constexpr int KV_BYTES = KEYS * DP * 2;     // K or V
+  static constexpr int T_BYTES = kSpRows * DP * 2;   // one q or dO tile
+  static constexpr int BARS = 1 + 2 * STAGES;
+  static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + 2 * STAGES * T_BYTES +
+                                 2 * STAGES * kSpRows * 4 + 8 * BARS;
+};
+
+template <int DP, int NC>
+struct SparseDqCfg {
+  static constexpr int ROWS = 64 * NC;  // query rows per CTA, resident
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = 128 * (1 + NC);
+  static constexpr int Q_BYTES = ROWS * DP * 2;      // q or dO
+  static constexpr int KV_BYTES = kSpKeys * DP * 2;  // one K or V tile
+  static constexpr int BARS = 1 + 2 * STAGES;
+  static constexpr size_t SMEM =
+      1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARS;
+};
+
+// The 64-row tiles [first, end) of the q block starting at row r_lo whose
+// rows can see keys from c0 on.
+struct RowTiles {
+  int first, end;
+};
+
+__device__ __forceinline__ RowTiles row_tiles(const AttnArgs& a, int r_lo,
+                                              int block_q, int c0) {
+  const int r_hi = min(r_lo + block_q, a.Nq);
+  // rows below c0 - offset see none of the CTA's keys
+  const int r_begin = a.causal ? max(r_lo, c0 - a.offset) : r_lo;
+  return {r_begin >= r_hi ? r_hi : r_lo + (r_begin - r_lo) / kSpRows * kSpRows,
+          r_hi};
+}
+
+template <int DP, int NC>
+__global__ void __launch_bounds__(SparseDkvCfg<DP, NC>::THREADS, 1)
+sparse_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo, AttnArgs a,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ di,
+                           const int32_t* __restrict__ q_list,
+                           const int32_t* __restrict__ q_count, int stride,
+                           int block_q, int block_k,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv) {
+  using Cfg = SparseDkvCfg<DP, NC>;
+  constexpr int STAGES = Cfg::STAGES, KEYS = Cfg::KEYS;
+  // Query rows per Sᵀ/dPᵀ product: at D = 128 the dK and dV accumulators
+  // (128 registers) leave room for 32 rows of both, not 64.
+  constexpr int QS = DP <= 64 ? kSpRows : kSpRows / 2;
+  // Heavy first: causal, an earlier KV block is seen by more q blocks, so
+  // the grid's slowest dimension takes the KV blocks from the first one.
+  const int sub = block_k / KEYS;
+  const int ik = blockIdx.z / sub;
+  const int c0 = ik * block_k + (blockIdx.z % sub) * KEYS;
+  const int c_end = min(ik * block_k + block_k, a.Nk);  // this KV block's keys
+  if (c0 >= c_end) return;
+
+  extern __shared__ char smem_raw[];
+  char* k_s = align_1024(smem_raw);          // [DP/64][KEYS][64], resident
+  char* v_s = k_s + Cfg::KV_BYTES;           // resident
+  char* q_s = v_s + Cfg::KV_BYTES;           // [STAGES] tiles of 64 rows
+  char* do_s = q_s + STAGES * Cfg::T_BYTES;  // [STAGES] tiles of 64 rows
+  float* lse_s = reinterpret_cast<float*>(do_s + STAGES * Cfg::T_BYTES);
+  float* di_s = lse_s + STAGES * kSpRows;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(di_s + STAGES * kSpRows);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int b = blockIdx.y, hk = blockIdx.x;
+  const int G = a.H / a.H_kv;
+  const int n_active = q_count[ik];
+  const int32_t* blocks = q_list + (size_t)ik * stride;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * NC);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer: warp 0
+    if constexpr (NC == 2) reg_dealloc<kProducerRegs>();
+    const int lane = threadIdx.x;
+    if (lane < 32) {
+      int it = 0;
+      for (int g = 0; g < G; ++g) {
+        const int plane = b * a.H + hk * G + g;
+        for (int w = 0; w < n_active; ++w) {
+          const RowTiles rt = row_tiles(a, blocks[w] * block_q, block_q, c0);
+          for (int r0 = rt.first; r0 < rt.end; r0 += kSpRows, ++it) {
+            if (it == 0 && lane == 0) {
+              mbar_expect_tx(kv_full, 2 * Cfg::KV_BYTES);
+              tma_tile<KEYS, DP>(k_s, &tk, kv_full, c0, b * a.H_kv + hk);
+              tma_tile<KEYS, DP>(v_s, &tv, kv_full, c0, b * a.H_kv + hk);
+            }
+            const int s = it % STAGES;
+            mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+            for (int j = lane; j < kSpRows; j += 32) {
+              const int row = r0 + j;
+              const size_t at = (size_t)plane * a.Nq + row;
+              lse_s[s * kSpRows + j] = row < a.Nq ? lse[at] : 0.f;
+              di_s[s * kSpRows + j] = row < a.Nq ? di[at] : 0.f;
+            }
+            __threadfence_block();
+            __syncwarp();  // the rows above land before lane 0 arrives
+            if (lane == 0) {
+              mbar_expect_tx(&full[s], 2 * Cfg::T_BYTES);
+              tma_tile<kSpRows, DP>(q_s + s * Cfg::T_BYTES, &tq, &full[s], r0,
+                                    plane);
+              tma_tile<kSpRows, DP>(do_s + s * Cfg::T_BYTES, &tdo, &full[s],
+                                    r0, plane);
+            }
+          }
+        }
+      }
+    }
+  } else {  // consumers: 64 keys each
+    if constexpr (NC == 2) reg_alloc<kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int key0 = c0 + 64 * cw;
+    float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    int it = 0;
+    for (int g = 0; g < G; ++g) {
+      for (int w = 0; w < n_active; ++w) {
+        const RowTiles rt = row_tiles(a, blocks[w] * block_q, block_q, c0);
+        for (int r0 = rt.first; r0 < rt.end; r0 += kSpRows, ++it) {
+          const int s = it % STAGES, ph = (it / STAGES) & 1;
+          const char* qt = q_s + s * Cfg::T_BYTES;
+          const char* dot = do_s + s * Cfg::T_BYTES;
+          const float* ls = lse_s + s * kSpRows;
+          const float* di_t = di_s + s * kSpRows;
+          if (it == 0) mbar_wait(kv_full, 0);
+          mbar_wait(&full[s], ph);
+
+          // Sᵀ and dPᵀ over QS query rows at a time (64 keys x QS each),
+          // one slice after the other (kept rolled: unrolled, the slices'
+          // values overlap and spill at D = 128).
+#pragma unroll 1
+          for (int q0 = 0; q0 < kSpRows; q0 += QS) {
+            float st[QS / 2], dpt[QS / 2];
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < DP / 16; ++kk) {
+              wgmma_ss<QS>(st, desc_k<KEYS>(k_s, 64 * cw, kk),
+                           desc_k<kSpRows>(qt, q0, kk), kk > 0);
+            }
+#pragma unroll
+            for (int kk = 0; kk < DP / 16; ++kk) {
+              wgmma_ss<QS>(dpt, desc_k<KEYS>(v_s, 64 * cw, kk),
+                           desc_k<kSpRows>(dot, q0, kk), kk > 0);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(st);
+            fence_regs(dpt);
+
+            // Rows of the slice: r0 + q0 ..; interior: every pair kept.
+            const int rq = r0 + q0;
+            const bool interior =
+                key0 + 63 < c_end && rq + QS - 1 < a.Nq &&
+                (!a.causal || key0 + 63 <= rq + a.offset);
+            auto loop = [&](auto in) {
+#pragma unroll
+              for (int i = 0; i < QS / 2; ++i) {
+                const int key = key0 + acc_row(t, i), j = q0 + acc_col(t, i);
+                const int row = r0 + j;
+                const bool vis = decltype(in)::value ||
+                                 (row < a.Nq && kept(a, row, key, c_end));
+                const float p = vis ? expf(st[i] * a.scale - ls[j]) : 0.f;
+                st[i] = p;
+                dpt[i] = p * (dpt[i] - di_t[j]);
+              }
+            };
+            if (interior) {
+              loop(Int<1>{});
+            } else {
+              loop(Int<0>{});
+            }
+            uint32_t pa[QS / 16][4], da[QS / 16][4];
+            acc_to_a<QS>(st, pa);
+            acc_to_a<QS>(dpt, da);
+
+            wgmma_fence();
+            fence_regs(dv_acc);
+            fence_regs(dk_acc);
+#pragma unroll
+            for (int kk = 0; kk < QS / 16; ++kk) {
+              const int k16 = q0 / 16 + kk;
+              wgmma_rs<DP>(dv_acc, pa[kk], desc_mn<kSpRows>(dot, k16));
+              wgmma_rs<DP>(dk_acc, da[kk], desc_mn<kSpRows>(qt, k16));
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(dv_acc);
+            fence_regs(dk_acc);
+          }
+          mbar_arrive(&empty[s]);
+        }
+      }
+    }
+
+    // Keys of a KV block no q block visits write zeros.
+    const size_t kv_off = ((size_t)b * a.H_kv + hk) * a.Nk;
+#pragma unroll
+    for (int i = 0; i < DP / 2; i += 2) {
+      const int key = key0 + acc_row(t, i), col = acc_col(t, i);
+      if (key < c_end && col < a.D) {
+        const size_t at = (kv_off + key) * a.D + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
+            dk_acc[i] * a.scale, dk_acc[i + 1] * a.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+      }
+    }
+  }
+}
+
+template <int DP, int NC>
+__global__ void __launch_bounds__(SparseDqCfg<DP, NC>::THREADS, 1)
+sparse_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo, AttnArgs a,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ di,
+                          const int32_t* __restrict__ kv_list,
+                          const int32_t* __restrict__ kv_count, int stride,
+                          int block_q, int block_k,
+                          __nv_bfloat16* __restrict__ dq) {
+  using Cfg = SparseDqCfg<DP, NC>;
+  constexpr int STAGES = Cfg::STAGES, ROWS = Cfg::ROWS, KEYS = kSpKeys;
+  // Heavy first, as the forward: the q blocks from the last one.
+  const int sub = block_q / ROWS;
+  const int iq = (a.Nq + block_q - 1) / block_q - 1 - blockIdx.z / sub;
+  const int r0 = iq * block_q + (blockIdx.z % sub) * ROWS;
+  const int r_end = min(iq * block_q + block_q, a.Nq);  // this q block's rows
+  if (r0 >= r_end) return;
+
+  extern __shared__ char smem_raw[];
+  char* q_s = align_1024(smem_raw);          // [DP/64][ROWS][64], resident
+  char* do_s = q_s + Cfg::Q_BYTES;           // resident
+  char* k_s = do_s + Cfg::Q_BYTES;           // [STAGES] tiles
+  char* v_s = k_s + STAGES * Cfg::KV_BYTES;  // [STAGES] tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + STAGES * Cfg::KV_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int b = blockIdx.y, h = blockIdx.x;
+  const int hk = h / (a.H / a.H_kv);
+  const ListWalk walk = list_walk(a, kv_list, kv_count, stride, iq, block_k,
+                                  min(r0 + ROWS, r_end) - 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * NC);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer
+    if constexpr (NC == 2) reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const int kplane = b * a.H_kv + hk;
+      int it = 0;
+      for (int w = 0; w < walk.n_active; ++w) {
+        for (int c0 = walk.lo(w); c0 < walk.stop_of(w); c0 += KEYS, ++it) {
+          if (it == 0) {
+            mbar_expect_tx(q_full, 2 * Cfg::Q_BYTES);
+            tma_tile<ROWS, DP>(q_s, &tq, q_full, r0, b * a.H + h);
+            tma_tile<ROWS, DP>(do_s, &tdo, q_full, r0, b * a.H + h);
+          }
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], 2 * Cfg::KV_BYTES);
+          tma_tile<KEYS, DP>(k_s + s * Cfg::KV_BYTES, &tk, &full[s], c0,
+                             kplane);
+          tma_tile<KEYS, DP>(v_s + s * Cfg::KV_BYTES, &tv, &full[s], c0,
+                             kplane);
+        }
+      }
+    }
+  } else {  // consumers: 64 query rows each
+    if constexpr (NC == 2) reg_alloc<kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int row0 = r0 + 64 * cw;
+    const size_t bh = (size_t)b * a.H + h;
+    float lse_r[2], di_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + acc_row(t, 2 * r);
+      lse_r[r] = row < a.Nq ? lse[bh * a.Nq + row] : 0.f;
+      di_r[r] = row < a.Nq ? di[bh * a.Nq + row] : 0.f;
+    }
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+    int it = 0;
+    for (int w = 0; w < walk.n_active; ++w) {
+      const int c_end = walk.end(w);
+      for (int c0 = walk.lo(w); c0 < walk.stop_of(w); c0 += KEYS, ++it) {
+        const int s = it % STAGES, ph = (it / STAGES) & 1;
+        const char* kt = k_s + s * Cfg::KV_BYTES;
+        const char* vt = v_s + s * Cfg::KV_BYTES;
+        if (it == 0) mbar_wait(q_full, 0);
+
+        float sc[KEYS / 2], dp[KEYS / 2];  // S and dP: 64 rows x KEYS
+        mbar_wait(&full[s], ph);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          wgmma_ss<KEYS>(sc, desc_k<ROWS>(q_s, 64 * cw, kk),
+                         desc_k<KEYS>(kt, 0, kk), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          wgmma_ss<KEYS>(dp, desc_k<ROWS>(do_s, 64 * cw, kk),
+                         desc_k<KEYS>(vt, 0, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        const bool interior = c0 + KEYS <= c_end &&
+                              (!a.causal || c0 + KEYS - 1 <= row0 + a.offset);
+        auto loop = [&](auto in) {
+#pragma unroll
+          for (int i = 0; i < KEYS / 2; ++i) {
+            const int r = (i >> 1) & 1;
+            const int row = row0 + acc_row(t, i), col = c0 + acc_col(t, i);
+            const bool vis = decltype(in)::value || kept(a, row, col, c_end);
+            const float p = vis ? expf(sc[i] * a.scale - lse_r[r]) : 0.f;
+            sc[i] = p * (dp[i] - di_r[r]);
+          }
+        };
+        if (interior) {
+          loop(Int<1>{});
+        } else {
+          loop(Int<0>{});
+        }
+        uint32_t da[KEYS / 16][4];
+        acc_to_a<KEYS>(sc, da);
+
+        wgmma_fence();
+        fence_regs(acc);
+#pragma unroll
+        for (int kk = 0; kk < KEYS / 16; ++kk) {
+          wgmma_rs<DP>(acc, da[kk], desc_mn<KEYS>(kt, kk));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(&empty[s]);
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + acc_row(t, 2 * r);
+      if (row >= r_end) continue;
+      const size_t base = (bh * a.Nq + row) * a.D;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = acc_col(t, 4 * n);
+        if (col < a.D) {
+          *reinterpret_cast<__nv_bfloat162*>(dq + base + col) =
+              __floats2bfloat162_rn(acc[4 * n + 2 * r] * a.scale,
+                                    acc[4 * n + 2 * r + 1] * a.scale);
+        }
+      }
+    }
+  }
+}
+
+template <int DP, int NC>
+cudaError_t launch_dkv_sm90(const CUtensorMap (&maps)[4], const AttnArgs& a,
+                            const float* lse, const float* di,
+                            const int32_t* q_list, const int32_t* q_count,
+                            int stride, int block_q, int block_k, void* dk,
+                            void* dv, cudaStream_t st) {
+  using Cfg = SparseDkvCfg<DP, NC>;
+  auto kernel = sparse_bwd_dkv_sm90_kernel<DP, NC>;
+  const cudaError_t err = set_smem(kernel, Cfg::SMEM);
+  if (err != cudaSuccess) return err;
+  const int n_k_blocks = (a.Nk + block_k - 1) / block_k;
+  const dim3 grid(a.H_kv, a.B, n_k_blocks * (block_k / Cfg::KEYS));
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, st>>>(
+      maps[0], maps[1], maps[2], maps[3], a, lse, di, q_list, q_count, stride,
+      block_q, block_k, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv));
+  return cudaGetLastError();
+}
+
+template <int DP, int NC>
+cudaError_t launch_dq_sm90(const CUtensorMap (&maps)[4], const AttnArgs& a,
+                           const float* lse, const float* di,
+                           const int32_t* kv_list, const int32_t* kv_count,
+                           int stride, int block_q, int block_k, void* dq,
+                           cudaStream_t st) {
+  using Cfg = SparseDqCfg<DP, NC>;
+  auto kernel = sparse_bwd_dq_sm90_kernel<DP, NC>;
+  const cudaError_t err = set_smem(kernel, Cfg::SMEM);
+  if (err != cudaSuccess) return err;
+  const int n_q_blocks = (a.Nq + block_q - 1) / block_q;
+  const dim3 grid(a.H, a.B, n_q_blocks * (block_q / Cfg::ROWS));
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, st>>>(
+      maps[0], maps[1], maps[2], maps[3], a, lse, di, kv_list, kv_count,
+      stride, block_q, block_k, static_cast<__nv_bfloat16*>(dq));
+  return cudaGetLastError();
+}
+
+// The dK/dV kernel, then the dQ kernel; maps: q, k, v, dout.
+template <int DP>
+cudaError_t sparse_bwd_sm90(const AttnArgs& a, const Lists& s,
+                            const void* dout, const float* lse,
+                            const float* di, void* dq, void* dk, void* dv,
+                            cudaStream_t st) {
+  CUtensorMap maps[4];
+  cudaError_t err = make_map(&maps[0], a.q, a.B * a.H, a.Nq, a.D);
+  if (err == cudaSuccess) err = make_map(&maps[1], a.k, a.B * a.H_kv, a.Nk, a.D);
+  if (err == cudaSuccess) err = make_map(&maps[2], a.v, a.B * a.H_kv, a.Nk, a.D);
+  if (err == cudaSuccess) err = make_map(&maps[3], dout, a.B * a.H, a.Nq, a.D);
+  if (err != cudaSuccess) return err;
+  err = s.block_k % 128 == 0
+            ? launch_dkv_sm90<DP, 2>(maps, a, lse, di, s.q_list, s.q_count,
+                                     s.q_stride, s.block_q, s.block_k, dk, dv,
+                                     st)
+            : launch_dkv_sm90<DP, 1>(maps, a, lse, di, s.q_list, s.q_count,
+                                     s.q_stride, s.block_q, s.block_k, dk, dv,
+                                     st);
+  if (err != cudaSuccess) return err;
+  return s.block_q % 128 == 0
+             ? launch_dq_sm90<DP, 2>(maps, a, lse, di, s.kv_list, s.kv_count,
+                                     s.kv_stride, s.block_q, s.block_k, dq, st)
+             : launch_dq_sm90<DP, 1>(maps, a, lse, di, s.kv_list, s.kv_count,
+                                     s.kv_stride, s.block_q, s.block_k, dq,
+                                     st);
+}
+
+}  // namespace sm90
+}  // namespace fat
+
 extern "C" {
 
 // dtype: 0 = bfloat16, 1 = float32 (q, k, v, do and the gradients share
@@ -442,6 +944,42 @@ int fat_sparse_bwd(const void* q, const void* k, const void* v,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)err;
+}
+
+// The tensor-core route: bf16 only, D <= 128, block_q and block_k multiples
+// of 64; q, k, v and dout 16-byte aligned (TMA). Same arguments as
+// fat_sparse_bwd (dtype must be 0).
+int fat_sparse_bwd_sm90(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* di,
+                        void* dq, void* dk, void* dv, const void* kv_list,
+                        const void* kv_count, const void* q_list,
+                        const void* q_count, int B, int H, int H_kv, int Nq,
+                        int Nk, int D, float scale, int causal, int block_q,
+                        int block_k, int kv_stride, int q_stride, int dtype,
+                        void* stream) {
+  using namespace fat;
+  if (dtype != 0 || D < 8 || D > 128 || D % 8 != 0 || H_kv < 1 ||
+      H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535 ||
+      block_q < 64 || block_k < 64 || block_q % 64 != 0 ||
+      block_k % 64 != 0 || kv_stride < (Nk + block_k - 1) / block_k ||
+      q_stride < (Nq + block_q - 1) / block_q || (Nq + 63) / 64 > 65535 ||
+      (Nk + 63) / 64 > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AttnArgs a{q, k, v, nullptr, nullptr, nullptr, B, H, H_kv, Nq, Nk, D, scale,
+             causal, Nk - Nq, 0, 0, 0.f, 0.f, 0, 0u, 0u, 1.f};
+  const Lists s{static_cast<const int32_t*>(kv_list),
+                static_cast<const int32_t*>(kv_count),
+                static_cast<const int32_t*>(q_list),
+                static_cast<const int32_t*>(q_count),
+                kv_stride, q_stride, block_q, block_k};
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* l = static_cast<const float*>(lse);
+  const auto* d = static_cast<const float*>(di);
+  const cudaError_t err =
+      D <= 64 ? sm90::sparse_bwd_sm90<64>(a, s, dout, l, d, dq, dk, dv, st)
+              : sm90::sparse_bwd_sm90<128>(a, s, dout, l, d, dq, dk, dv, st);
   return (int)err;
 }
 

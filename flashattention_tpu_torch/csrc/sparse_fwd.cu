@@ -15,28 +15,53 @@
 // give o = 0 and lse = -inf; a row of a visited block that sees no key gives
 // o = 0 and lse = the mask value, as the TPU kernel does.
 //
-// Design. The pattern's blocks (block_q, block_k) set the function only; the
-// CUDA tile is free of them. Grid (q block x its sub-tiles of ROWS rows, H,
-// B): a block of 4 warps owns ROWS rows of one q block, staged once in shared
-// memory as fp32, reads its list and count from device memory (the grid is
-// never sized from the counts) and walks each active KV block in 32-key
-// sub-tiles, skipping sub-tiles wholly above the causal diagonal. GQA: query
-// head h reads KV head h / (H / H_kv), so K/V are never repeated. A lane owns
-// one key for the scores and output columns lane, lane + 32, ... for P.V (as
-// in flash_fwd.cuh). The walk runs twice: the first pass stages K only and
-// takes each row's max, the second computes p = exp(s - max), l and P.V.
-// Rounding p to bf16 at the row's final max, as the plain version does, keeps
-// kernel and plain within two bf16 ulps; an online softmax rounds p at the
-// running max, and at a cancelling output that difference exceeded the limit
-// (case d of tests/test_torch_cuda.py). The price is a third product per
-// element (Q.K twice).
+// Rounding point. p is rounded to bf16 at each row's final max, as the plain
+// version does, so every route walks each q block's list twice: the first
+// pass takes each row's max, the second computes p = exp(s - max), l and P.V.
+// An online softmax rounds p at the running max, and at a cancelling output
+// that difference exceeded the two-ulp limit (case d of
+// tests/test_torch_cuda.py). The price is a third product per element (Q.K
+// twice).
 //
 // What bounds it on this card: 4 D flops per kept (head, row, key) on the
-// tensor cores against q, the active K/V blocks, o and the LSE moved once, so
-// the operations. Like B1, this first version runs fp32 FMAs on the CUDA
-// cores, without cp.async, TMA or mma.
+// tensor cores (989 TFLOP/s bf16) against q, the active K/V blocks, o and the
+// LSE moved once, so the operations. The grid is never sized from the counts:
+// every block reads its list and count from device memory. GQA: query head h
+// reads KV head h / (H / H_kv), so K/V are never repeated.
+//
+// Two routes, chosen by the caller (ops/sparse_attn.py):
+//
+//   fat_sparse_fwd_sm90 (bf16, D <= 128, block_q and block_k multiples of
+//     64): every product on the tensor cores. One CTA per (64 NC query rows
+//     of one q block, head, batch): NC = 2 consumer warpgroups of 64 rows
+//     where block_q % 128 == 0, else 1, so a CTA never spans two q blocks
+//     (each has its own list). Warpgroup 0 loads: one thread reads the count
+//     and the list, issues TMA for the Q tile once, then walks each active
+//     block's sub-tiles of KEYS keys (128 at D <= 64, 64 at D <= 128, for
+//     the consumers' registers) up to the causal stop into a two-stage ring
+//     guarded by mbarriers; pass 1 loads K only, pass 2 K and V again (the
+//     K tiles of pass 1 are not kept: L2 holds them). The consumers compute
+//     S = Q.Kᵀ by wgmma from shared memory in both passes (the same
+//     instructions on the same tiles, so pass 2 meets the scores whose max
+//     pass 1 took), and O += round(p).V with p as the register A operand (V
+//     MN-major). Each sub-tile is classified once, interior (every element
+//     kept) or band (the causal diagonal, the end of the KV block or of Nk),
+//     and the element loop specialised for it. A sub-tile that runs past
+//     its KV block (block_k = 64 at D <= 64) is masked there. A q block
+//     with count 0 issues nothing: its consumers skip every wait and still
+//     write o = 0 and lse = -inf.
+//   fat_sparse_fwd (fp32, bf16 with D > 128 or blocks that are not multiples
+//     of 64): the first version, fp32 FMAs on the CUDA cores. A block of 4
+//     warps owns ROWS rows of one q block, staged once in shared memory as
+//     fp32, and walks each active KV block in 32-key sub-tiles, skipping
+//     sub-tiles wholly above the causal diagonal; a lane owns one key for
+//     the scores and output columns lane, lane + 32, ... for P.V. fp32 stays
+//     there because the tensor cores would round it to TF32, beyond the
+//     fp32 1e-4 limit; D > 128 for registers; other blocks because the TMA
+//     box and a consumer's rows are 64.
 
 #include "flash_common.cuh"
+#include "sparse_sm90.cuh"
 
 namespace {
 
@@ -241,6 +266,255 @@ cudaError_t dispatch(const AttnArgs& a, const int32_t* kv_list,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The tensor-core route (bf16, D <= 128, blocks multiples of 64)
+// ---------------------------------------------------------------------------
+
+namespace fat {
+namespace sm90 {
+
+template <int DP, int NC>
+struct SparseFwdCfg {
+  static constexpr int ROWS = 64 * NC;  // query rows per CTA
+  // Keys per K/V sub-tile: 64 at D = 128, where the O accumulator and a
+  // 128-key score fragment overflow a consumer's registers (as flash_fwd.cu).
+  static constexpr int KEYS = DP <= 64 ? 128 : 64;
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = 128 * (1 + NC);
+  static constexpr int Q_BYTES = ROWS * DP * 2;
+  static constexpr int KV_BYTES = KEYS * DP * 2;  // one K or V tile
+  static constexpr int BARS = 1 + 3 * STAGES;
+  static constexpr size_t SMEM =
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARS;
+};
+
+template <int DP, int NC>
+__global__ void __launch_bounds__(SparseFwdCfg<DP, NC>::THREADS, 1)
+sparse_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, AttnArgs a,
+                       const int32_t* __restrict__ kv_list,
+                       const int32_t* __restrict__ kv_count, int stride,
+                       int block_q, int block_k,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse) {
+  using Cfg = SparseFwdCfg<DP, NC>;
+  constexpr int STAGES = Cfg::STAGES, KEYS = Cfg::KEYS, ROWS = Cfg::ROWS;
+  // Heavy first: causal, a later q block sees more keys, so the grid's
+  // slowest dimension takes the q blocks from the last one.
+  const int sub = block_q / ROWS;
+  const int iq = (a.Nq + block_q - 1) / block_q - 1 - blockIdx.z / sub;
+  const int r0 = iq * block_q + (blockIdx.z % sub) * ROWS;
+  const int r_end = min(iq * block_q + block_q, a.Nq);  // this q block's rows
+  if (r0 >= r_end) return;
+
+  extern __shared__ char smem_raw[];
+  char* q_s = align_1024(smem_raw);          // [DP/64][ROWS][64]
+  char* k_s = q_s + Cfg::Q_BYTES;            // [STAGES] tiles
+  char* v_s = k_s + STAGES * Cfg::KV_BYTES;  // [STAGES] tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + STAGES * Cfg::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int b = blockIdx.y, h = blockIdx.x;
+  const int hk = h / (a.H / a.H_kv);
+  const int r_last = min(r0 + ROWS, r_end) - 1;
+  const ListWalk walk =
+      list_walk(a, kv_list, kv_count, stride, iq, block_k, r_last);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 128 * NC);  // every consumer thread releases
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer
+    if constexpr (NC == 2) reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const int kplane = b * a.H_kv + hk;
+      int it = 0;
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int w = 0; w < walk.n_active; ++w) {
+          for (int c0 = walk.lo(w); c0 < walk.stop_of(w); c0 += KEYS, ++it) {
+            if (it == 0) {
+              mbar_expect_tx(q_full, Cfg::Q_BYTES);
+              tma_tile<ROWS, DP>(q_s, &tq, q_full, r0, b * a.H + h);
+            }
+            const int s = it % STAGES;
+            mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+            mbar_expect_tx(&k_full[s], Cfg::KV_BYTES);
+            tma_tile<KEYS, DP>(k_s + s * Cfg::KV_BYTES, &tk, &k_full[s], c0,
+                               kplane);
+            if (pass == 1) {
+              mbar_expect_tx(&v_full[s], Cfg::KV_BYTES);
+              tma_tile<KEYS, DP>(v_s + s * Cfg::KV_BYTES, &tv, &v_full[s], c0,
+                                 kplane);
+            }
+          }
+        }
+      }
+    }
+  } else {  // consumers: 64 query rows each
+    if constexpr (NC == 2) reg_alloc<kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int row0 = r0 + 64 * cw;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+    int it = 0, it_v = 0;  // ring steps; it_v: the first step of pass 2
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int w = 0; w < walk.n_active; ++w) {
+        const int c_end = walk.end(w);
+        for (int c0 = walk.lo(w); c0 < walk.stop_of(w); c0 += KEYS, ++it) {
+          const int s = it % STAGES, ph = (it / STAGES) & 1;
+          const char* kt = k_s + s * Cfg::KV_BYTES;
+          const char* vt = v_s + s * Cfg::KV_BYTES;
+          if (it == 0) mbar_wait(q_full, 0);
+
+          float sc[KEYS / 2];  // S: 64 rows x KEYS
+          mbar_wait(&k_full[s], ph);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk) {
+            wgmma_ss<KEYS>(sc, desc_k<ROWS>(q_s, 64 * cw, kk),
+                           desc_k<KEYS>(kt, 0, kk), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sc);
+          if (pass == 0) mbar_arrive(&empty[s]);  // K read; V not loaded
+
+          // Interior: every element kept; else the band mask per element.
+          // fn(i, r, kept, scaled score) on each element of the fragment.
+          const bool interior =
+              c0 + KEYS <= c_end &&
+              (!a.causal || c0 + KEYS - 1 <= row0 + a.offset);
+          auto visit = [&](auto fn) {
+            auto loop = [&](auto in) {
+#pragma unroll
+              for (int i = 0; i < KEYS / 2; ++i) {
+                const int row = row0 + acc_row(t, i), col = c0 + acc_col(t, i);
+                const bool vis =
+                    decltype(in)::value || kept(a, row, col, c_end);
+                fn(i, (i >> 1) & 1, vis, sc[i] * a.scale);
+              }
+            };
+            if (interior) {
+              loop(Int<1>{});
+            } else {
+              loop(Int<0>{});
+            }
+          };
+          if (pass == 0) {
+            visit([&](int, int r, bool vis, float x) {
+              m[r] = fmaxf(m[r], vis ? x : kMaskValue);
+            });
+            continue;
+          }
+          visit([&](int i, int r, bool vis, float x) {
+            const float p = vis ? expf(x - m[r]) : 0.f;
+            l[r] += p;
+            sc[i] = p;
+          });
+
+          uint32_t pa[KEYS / 16][4];
+          acc_to_a<KEYS>(sc, pa);
+          mbar_wait(&v_full[s], ((it - it_v) / STAGES) & 1);
+          wgmma_fence();
+          fence_regs(acc);
+#pragma unroll
+          for (int kk = 0; kk < KEYS / 16; ++kk) {
+            wgmma_rs<DP>(acc, pa[kk], desc_mn<KEYS>(vt, kk));
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc);
+          mbar_arrive(&empty[s]);
+        }
+      }
+      if (pass == 0) {
+        // Each row's max is spread over the 4 threads of a quad. A visited
+        // block's row that met no key (or whose sub-tiles were all past the
+        // stop) holds the mask value, as the TPU kernel's masked tile max.
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          m[r] = fmaxf(m[r], __shfl_xor_sync(kFull, m[r], 1));
+          m[r] = fmaxf(m[r], __shfl_xor_sync(kFull, m[r], 2));
+          if (walk.n_active > 0) m[r] = fmaxf(m[r], kMaskValue);
+        }
+        it_v = it;
+      }
+    }
+
+    // Epilogue: each row's l is spread over the 4 threads of a quad.
+    const size_t bh = (size_t)b * a.H + h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(kFull, l[r], 1);
+      l[r] += __shfl_xor_sync(kFull, l[r], 2);
+      const int row = row0 + acc_row(t, 2 * r);
+      if (row >= r_end) continue;
+      const float l_safe = l[r] == 0.f ? 1.f : l[r];
+      const size_t base = bh * a.Nq + row;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = acc_col(t, 4 * n);
+        if (col < a.D) {
+          *reinterpret_cast<__nv_bfloat162*>(o + base * a.D + col) =
+              __floats2bfloat162_rn(acc[4 * n + 2 * r] / l_safe,
+                                    acc[4 * n + 2 * r + 1] / l_safe);
+        }
+      }
+      if ((t & 3) == 0) lse[base] = m[r] + logf(l_safe);
+    }
+  }
+}
+
+template <int DP, int NC>
+cudaError_t launch_sparse_fwd_sm90(const AttnArgs& a, const int32_t* kv_list,
+                                   const int32_t* kv_count, int stride,
+                                   int block_q, int block_k, void* o,
+                                   float* lse, cudaStream_t st) {
+  using Cfg = SparseFwdCfg<DP, NC>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map(&tq, a.q, a.B * a.H, a.Nq, a.D);
+  if (err == cudaSuccess) err = make_map(&tk, a.k, a.B * a.H_kv, a.Nk, a.D);
+  if (err == cudaSuccess) err = make_map(&tv, a.v, a.B * a.H_kv, a.Nk, a.D);
+  if (err != cudaSuccess) return err;
+  auto kernel = sparse_fwd_sm90_kernel<DP, NC>;
+  err = set_smem(kernel, Cfg::SMEM);
+  if (err != cudaSuccess) return err;
+  const int n_q_blocks = (a.Nq + block_q - 1) / block_q;
+  const dim3 grid(a.H, a.B, n_q_blocks * (block_q / Cfg::ROWS));
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, st>>>(
+      tq, tk, tv, a, kv_list, kv_count, stride, block_q, block_k,
+      static_cast<__nv_bfloat16*>(o), lse);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t sparse_fwd_sm90(const AttnArgs& a, const int32_t* kv_list,
+                            const int32_t* kv_count, int stride, int block_q,
+                            int block_k, void* o, float* lse,
+                            cudaStream_t st) {
+  if (block_q % 128 == 0) {
+    return launch_sparse_fwd_sm90<DP, 2>(a, kv_list, kv_count, stride, block_q,
+                                         block_k, o, lse, st);
+  }
+  return launch_sparse_fwd_sm90<DP, 1>(a, kv_list, kv_count, stride, block_q,
+                                       block_k, o, lse, st);
+}
+
+}  // namespace sm90
+}  // namespace fat
+
 extern "C" {
 
 // dtype: 0 = bfloat16, 1 = float32 (q, k, v and o share it); lse is fp32
@@ -270,6 +544,36 @@ int fat_sparse_fwd(const void* q, const void* k, const void* v, void* o,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)err;
+}
+
+// The tensor-core route: bf16 only, D <= 128, block_q and block_k multiples
+// of 64; q, k and v 16-byte aligned (TMA). Same arguments as fat_sparse_fwd
+// (dtype must be 0).
+int fat_sparse_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                        void* lse, const void* kv_list, const void* kv_count,
+                        int B, int H, int H_kv, int Nq, int Nk, int D,
+                        float scale, int causal, int block_q, int block_k,
+                        int stride, int dtype, void* stream) {
+  using namespace fat;
+  if (dtype != 0 || D < 8 || D > 128 || D % 8 != 0 || H_kv < 1 ||
+      H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535 ||
+      block_q < 64 || block_k < 64 || block_q % 64 != 0 ||
+      block_k % 64 != 0 || stride < (Nk + block_k - 1) / block_k ||
+      (Nq + 63) / 64 > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AttnArgs a{q, k, v, nullptr, nullptr, nullptr, B, H, H_kv, Nq, Nk, D, scale,
+             causal, Nk - Nq, 0, 0, 0.f, 0.f, 0, 0u, 0u, 1.f};
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* list = static_cast<const int32_t*>(kv_list);
+  const auto* count = static_cast<const int32_t*>(kv_count);
+  auto* l = static_cast<float*>(lse);
+  const cudaError_t err =
+      D <= 64 ? sm90::sparse_fwd_sm90<64>(a, list, count, stride, block_q,
+                                          block_k, o, l, st)
+              : sm90::sparse_fwd_sm90<128>(a, list, count, stride, block_q,
+                                           block_k, o, l, st);
   return (int)err;
 }
 

@@ -12,11 +12,17 @@ without a host sync; a kernel reads its loop bound from the count.
 On CUDA tensors :func:`sparse_attention` launches ``csrc/sparse_fwd.cu``
 (counted in ``sparse_attention.fwd_launches``) and, in the backward,
 ``csrc/sparse_bwd.cu`` (a dK/dV kernel over the transposed lists, then a
-dQ kernel; ``sparse_attention.bwd_launches``). On CPU tensors it runs the
-plain versions :func:`sparse_fwd_plain` and :func:`sparse_bwd_plain`.
-Nothing falls back: a CUDA input the kernels do not take (fp16, a head dim
-that is not a multiple of 8 up to 256, tensors on different devices)
-raises, and so does a failed build or launch.
+dQ kernel; ``sparse_attention.bwd_launches``). Each source has two routes,
+chosen by :func:`_tensor_core_route`: bf16 with D <= 128 and both blocks
+multiples of 64 goes to the tensor-core kernels (wgmma fed by TMA;
+``fat_sparse_fwd_sm90`` / ``fat_sparse_bwd_sm90``, also counted in
+``sparse_attention.fwd_tc_launches`` / ``bwd_tc_launches``), everything
+else to the FMA kernels (``fat_sparse_fwd`` / ``fat_sparse_bwd``). On CPU
+tensors it runs the plain versions :func:`sparse_fwd_plain` and
+:func:`sparse_bwd_plain`. Nothing falls back: a CUDA input the kernels do
+not take (fp16, a head dim that is not a multiple of 8 up to 256, tensors
+on different devices) raises, and so does a failed build or launch of
+either route.
 
 The function. Query row r sits at key position r + (N_k - N_q). Inside an
 active block pair an element is kept iff col < N_k and, when causal,
@@ -43,6 +49,7 @@ from flashattention_tpu_torch import _build
 from flashattention_tpu_torch.ops.flash_attn import (
     _DTYPE_CODE,
     MAX_HEAD_DIM,
+    _aligned16,
     _expand_kv,
     _group_sum,
 )
@@ -205,37 +212,52 @@ def _shape_args(q, k, spec: SparseSpec):
             int(spec.causal), int(spec.block_q), int(spec.block_k)]
 
 
+def _tensor_core_route(dtype, d: int, spec: SparseSpec) -> bool:
+    """True where the tensor-core kernels take the call: bf16 with
+    D <= 128 and ``block_q``, ``block_k`` multiples of 64 (the TMA box and
+    a consumer warpgroup's rows). fp32 would round to TF32 on the tensor
+    cores (beyond its 1e-4 limit), and above D = 128 the dK and dV
+    accumulators do not fit the registers."""
+    return (dtype == torch.bfloat16 and d <= 128 and spec.block_q % 64 == 0
+            and spec.block_k % 64 == 0)
+
+
 def _fwd_cuda(q, k, v, active, spec: SparseSpec):
     _check_cuda(q, k, v, active, spec)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    b, h, n_q, _ = q.shape
+    q, k, v = (_aligned16(t.contiguous()) for t in (q, k, v))
+    b, h, n_q, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
     if o.numel() == 0 or k.shape[2] == 0:
         return o.zero_(), lse.fill_(float("-inf"))
     kv_list, kv_count = compact_rows(active)
     lib = _build.load_kernel("sparse_fwd", _declare_fwd)
-    err = lib.fat_sparse_fwd(
+    tc = _tensor_core_route(q.dtype, d, spec)
+    fn = lib.fat_sparse_fwd_sm90 if tc else lib.fat_sparse_fwd
+    err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         kv_list.data_ptr(), kv_count.data_ptr(), *_shape_args(q, k, spec),
         kv_list.shape[1], _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "sparse_fwd launch")
     sparse_attention.fwd_launches += 1
+    sparse_attention.fwd_tc_launches += tc
     return o, lse
 
 
 def _bwd_cuda(q, k, v, do, lse, di, active, spec: SparseSpec):
     _check_cuda(q, k, v, active, spec, do, lse)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    do, lse, di = do.contiguous(), lse.float().contiguous(), di.contiguous()
+    q, k, v, do = (_aligned16(t.contiguous()) for t in (q, k, v, do))
+    lse, di = lse.float().contiguous(), di.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.shape[2] == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     kv_list, kv_count = compact_rows(active)
     q_list, q_count = compact_rows(active.t())
     lib = _build.load_kernel("sparse_bwd", _declare_bwd)
-    err = lib.fat_sparse_bwd(
+    tc = _tensor_core_route(q.dtype, q.shape[3], spec)
+    fn = lib.fat_sparse_bwd_sm90 if tc else lib.fat_sparse_bwd
+    err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), kv_list.data_ptr(), kv_count.data_ptr(),
@@ -244,6 +266,7 @@ def _bwd_cuda(q, k, v, do, lse, di, active, spec: SparseSpec):
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "sparse_bwd launch")
     sparse_attention.bwd_launches += 1
+    sparse_attention.bwd_tc_launches += tc
     return dq, dk, dv
 
 
@@ -252,14 +275,16 @@ _SHAPE_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3
 
 def _declare_fwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fat_sparse_fwd.restype = ctypes.c_int
-    lib.fat_sparse_fwd.argtypes = [p] * 7 + _SHAPE_ARGTYPES + [i, i, p]
+    for fn in (lib.fat_sparse_fwd, lib.fat_sparse_fwd_sm90):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p] * 7 + _SHAPE_ARGTYPES + [i, i, p]
 
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fat_sparse_bwd.restype = ctypes.c_int
-    lib.fat_sparse_bwd.argtypes = [p] * 13 + _SHAPE_ARGTYPES + [i, i, i, p]
+    for fn in (lib.fat_sparse_bwd, lib.fat_sparse_bwd_sm90):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p] * 13 + _SHAPE_ARGTYPES + [i, i, i, p]
 
 
 # ---------------------------------------------------------------------------
@@ -336,3 +361,5 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 sparse_attention.fwd_launches = 0
 sparse_attention.bwd_launches = 0
+sparse_attention.fwd_tc_launches = 0
+sparse_attention.bwd_tc_launches = 0

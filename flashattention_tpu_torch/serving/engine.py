@@ -292,8 +292,10 @@ class ServingEngine:
             collections.OrderedDict()
         )
         # The dump page: inactive decode slots and dead window positions.
-        # It holds one page for good; admission (below) still checks
-        # against the whole pool, as the JAX engine does.
+        # It holds one page for good, so admission (below) rejects a request
+        # that needs more than num_pages - 1 pages (the JAX engine checks
+        # against the whole pool and livelocks on one that needs exactly
+        # num_pages).
         if not self.allocator.grow(-1, 1):
             raise RuntimeError("page pool too small for the dump page")
         self.dump_page = self.allocator.pages(-1)[0]
@@ -380,9 +382,10 @@ class ServingEngine:
                     shared = 0  # unreachable while entries hold pins
             # all-or-nothing page reservation for prompt + one decode token
             need_total = self._pages_needed(prompt_len + 1)
-            if need_total > self.allocator.num_pages:
-                # Larger than the physical pool: no eviction can ever make
-                # room, and waiting[0] would block everything behind it.
+            if need_total > self.allocator.num_pages - 1:
+                # Larger than the pool less the dump page: no eviction can
+                # ever make room, and waiting[0] would block everything
+                # behind it.
                 self.waiting.pop(0)
                 self.allocator.release(req.request_id)  # undo adoption
                 self.finished[req.request_id] = []  # rejected: can't fit

@@ -671,7 +671,9 @@ def random_pattern(n_q_tiles, n_k_tiles, density, empty_row, seed=0):
 
 # name: ((b, h, h_kv, n_q, n_k, d), dtype, causal, (block_q, block_k),
 # pattern, use dlse); chip_smoke.py's sparse cases (a)-(d) at reduced sizes,
-# plus ragged block and head-dim edges with masked rows.
+# plus ragged block and head-dim edges with masked rows, in fp32 (the FMA
+# route) and in bf16 (the tensor-core route wherever D <= 128 and both
+# blocks are multiples of 64).
 SPARSE_CASES = {
     "a_model": ((2, 12, 12, 1024, 1024, 64), torch.bfloat16, True, (128, 128),
                 local_global(8), False),
@@ -686,7 +688,23 @@ SPARSE_CASES = {
     "f_d256_masked_rows": ((1, 2, 1, 256, 256, 256), torch.float32, True,
                            (128, 64), torch.tensor([[0, 1, 0, 0], [1, 0, 1, 1]],
                                                    dtype=torch.bool), False),
+    # bf16 edges of the tensor-core kernels: GQA at a ragged N with an empty
+    # q-block row (one consumer per CTA, 64-key blocks); D = 128 with rows
+    # that see no key of a visited block and a KV block no q block visits
+    "g_bf16_gqa_ragged": ((1, 12, 4, 1000, 1000, 64), torch.bfloat16, False,
+                          (64, 64), random_pattern(16, 16, 0.3, 5), True),
+    "h_bf16_d128_masked_rows": ((1, 2, 1, 256, 256, 128), torch.bfloat16, True,
+                                (128, 64),
+                                torch.tensor([[0, 1, 0, 0], [1, 0, 1, 0]],
+                                             dtype=torch.bool), False),
+    # bf16 with blocks that are not multiples of 64: the FMA route
+    "i_bf16_blocks_48_80": ((1, 4, 2, 200, 328, 40), torch.bfloat16, True,
+                            (48, 80), random_pattern(5, 5, 0.5, 2, seed=1),
+                            True),
 }
+# The cases the tensor-core route takes; the others stay on the FMA kernels.
+SPARSE_TENSOR_CORE = {"a_model", "b_d128", "d_nq_ne_nk", "g_bf16_gqa_ragged",
+                      "h_bf16_d128_masked_rows"}
 
 
 def _sparse_case(name, device):
@@ -703,12 +721,17 @@ def _sparse_case(name, device):
     return sa, q, k, v, do, dlse, pattern, spec, active
 
 
+def _sparse_counts(sa):
+    c = sa.sparse_attention
+    return (c.fwd_launches, c.bwd_launches, c.fwd_tc_launches,
+            c.bwd_tc_launches)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(SPARSE_CASES))
 def test_sparse_kernels_match_plain(cuda_device, case):
     sa, q, k, v, do, dlse, _, spec, active = _sparse_case(case, cuda_device)
-    f0 = sa.sparse_attention.fwd_launches
-    b0 = sa.sparse_attention.bwd_launches
+    before = _sparse_counts(sa)
     o, lse = sa.sparse_fwd(q, k, v, active, spec)
     torch.cuda.synchronize()
     o_ref, lse_ref = sa.sparse_fwd_plain(q, k, v, active, spec)
@@ -731,8 +754,55 @@ def test_sparse_kernels_match_plain(cuda_device, case):
         assert g.dtype == r.dtype and g.shape == r.shape
         rtol, atol = flash_tol(q.dtype, r)
         assert_allclose(g, r, rtol=rtol, atol=atol, err_msg=f"{case} {name}")
-    assert (sa.sparse_attention.fwd_launches - f0,
-            sa.sparse_attention.bwd_launches - b0) == (1, 1)
+    # keys of KV blocks no q block visits: dK = dV = 0 exactly
+    unvisited = (~active.any(0)).repeat_interleave(spec.block_k)[:k.shape[2]]
+    for g in grads[1:]:
+        assert not g[:, :, unvisited].any()
+    tc = int(case in SPARSE_TENSOR_CORE)
+    assert tc == sa._tensor_core_route(q.dtype, q.shape[3], spec)
+    after = _sparse_counts(sa)
+    assert tuple(x - y for x, y in zip(after, before)) == (1, 1, tc, tc)
+
+
+@pytest.mark.cuda
+def test_sparse_bf16_backward_is_deterministic(cuda_device):
+    """The tensor-core sparse backward at the model case, twice: bit-equal
+    gradients (no atomics, so no dependence on block order)."""
+    sa, q, k, v, do, dlse, _, spec, active = _sparse_case("a_model",
+                                                          cuda_device)
+    o, lse = sa.sparse_fwd(q, k, v, active, spec)
+    t0 = sa.sparse_attention.bwd_tc_launches
+    first = sa.sparse_bwd(q, k, v, o, lse, do, dlse, active, spec)
+    second = sa.sparse_bwd(q, k, v, o, lse, do, dlse, active, spec)
+    torch.cuda.synchronize()
+    assert sa.sparse_attention.bwd_tc_launches - t0 == 2
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", ["fwd", "bwd"])
+def test_sparse_tensor_core_failure_raises(cuda_device, monkeypatch, part):
+    """A tensor-core launch that reports an error raises; nothing falls
+    back to the FMA kernels or the plain version."""
+    sa, q, k, v, do, dlse, _, spec, active = _sparse_case("a_model",
+                                                          cuda_device)
+    calls = []
+
+    class Lib:  # the tensor-core entry fails (cudaErrorInvalidValue)
+        def __getattr__(self, name):
+            if name.endswith("_sm90"):
+                return lambda *args: 1
+            return lambda *args: calls.append(name) or 0
+
+    monkeypatch.setattr(sa._build, "load_kernel", lambda name, declare: Lib())
+    with pytest.raises(RuntimeError, match=f"sparse_{part} launch"):
+        if part == "fwd":
+            sa.sparse_fwd(q, k, v, active, spec)
+        else:
+            sa.sparse_bwd(q, k, v, q, torch.zeros_like(q[..., 0]).float(), do,
+                          dlse, active, spec)
+    assert calls == []
 
 
 @pytest.mark.cuda

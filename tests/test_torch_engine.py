@@ -171,13 +171,32 @@ def test_prefix_cache_matches_jax(prefix_cache):
 
 
 def test_rejects_request_larger_than_pool_like_jax():
-    # need_total = 3 pages > num_pages = 2: rejected (the dump page's hold
-    # is not counted, as in the JAX engine).
+    # need_total = 3 pages > num_pages = 2: rejected by both engines (the
+    # port counts the dump page's hold, num_pages - 1 = 1; JAX the pool).
     reqs = [(0, prompts(2, (20,))[0], 2), (1, prompts(3, (5,))[0], 2)]
     ecfg = dict(max_batch_size=1, page_size=8, num_pages=2, max_seq_len=64,
                 prefill_pad=8)
     res_jax, res, _ = serve_both(CFG, 0, ecfg, reqs)
     assert res == res_jax and res[0] == []
+
+
+def test_rejects_request_needing_the_whole_pool():
+    """A request needing exactly num_pages pages can never be granted (the
+    dump page holds one for good): the port rejects it, and the request
+    behind it is served with the JAX engine's tokens for that request
+    alone (the JAX engine would wait on the first until max_steps)."""
+    big, small = prompts(4, (20, 5))
+    ecfg = dict(max_batch_size=1, page_size=8, num_pages=3, max_seq_len=64,
+                prefill_pad=8)
+    # 20 prompt tokens + 1 decode token: ceil(21 / 8) = 3 = num_pages
+    res_jax, _, _ = serve_both(CFG, 0, ecfg, [(1, small, 2)])
+    jparams = init_transformer(jax.random.key(0), CFG)
+    eng = port_engine(CFG, jparams, ecfg)
+    eng.submit(GenerationRequest(request_id=0, prompt=big, max_new_tokens=2))
+    eng.submit(GenerationRequest(request_id=1, prompt=small, max_new_tokens=2))
+    res = eng.run(max_steps=50)
+    assert res[0] == []
+    assert res[1] == res_jax[1] and len(res[1]) == 2
 
 
 @pytest.mark.parametrize("native", [False, None])

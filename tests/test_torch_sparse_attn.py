@@ -154,3 +154,30 @@ def test_rejects_like_jax():
                                 jnp.ones((3, 2), bool), interpret=True)
     with pytest.raises(ValueError, match="expected"):
         sparse_attention(q[0], q[0], q[0], None)
+
+
+# (dtype, head dim, (block_q, block_k)) -> does the tensor-core route take it?
+# The shapes of the card cases in tests/test_torch_cuda.py.
+ROUTES = [
+    (torch.bfloat16, 64, (128, 128), True),    # a_model
+    (torch.bfloat16, 128, (128, 128), True),   # b_d128
+    (torch.float32, 64, (64, 64), False),      # c_gqa_ragged: fp32
+    (torch.bfloat16, 64, (64, 128), True),     # d_nq_ne_nk: one consumer
+    (torch.float32, 40, (48, 80), False),      # e_edges_d40
+    (torch.float32, 256, (128, 64), False),    # f_d256_masked_rows
+    (torch.bfloat16, 64, (64, 64), True),      # g_bf16_gqa_ragged
+    (torch.bfloat16, 128, (128, 64), True),    # h_bf16_d128_masked_rows
+    (torch.bfloat16, 40, (48, 80), False),     # i_bf16_blocks_48_80
+    (torch.bfloat16, 256, (128, 128), False),  # D > 128: registers
+    (torch.bfloat16, 64, (192, 128), True),    # multiples of 64, not of 128
+    (torch.bfloat16, 64, (128, 32), False),    # block_k below the TMA box
+]
+
+
+@pytest.mark.parametrize("dtype,d,blocks,tc", ROUTES)
+def test_tensor_core_route(dtype, d, blocks, tc):
+    """bf16 with D <= 128 and both blocks multiples of 64 take the
+    tensor-core kernels; fp32, D > 128 and other blocks the FMA kernels."""
+    spec = sa.SparseSpec(causal=True, scale=0.125, block_q=blocks[0],
+                         block_k=blocks[1])
+    assert sa._tensor_core_route(dtype, d, spec) is tc
