@@ -9,11 +9,16 @@ Phases, in order; any failure exits nonzero:
    kernel from ``flashattention_tpu_torch/csrc`` anew (one nvcc per source,
    all at once). The tensor-core kernels (flash: forward, dK/dV, dQ at D 64
    and 128; sparse: the same three at D 64 and 128, each with one and two
-   consumer warpgroups; 18 in all) must show HGMMA (wgmma) and UTMALDG
-   (TMA) in their SASS (cuobjdump) and spill nothing (ptxas report of this
-   build).
+   consumer warpgroups; the 8-bit forward at D 64 and 128 in e4m3, e5m2
+   and int8; 24 in all) must show HGMMA (wgmma) and UTMALDG (TMA) in their
+   SASS (cuobjdump) and spill nothing (ptxas report of this build); the 15
+   paged split kernels must show UBLKCP (1-D bulk copies) and spill
+   nothing.
 2. Each kernel against its plain PyTorch version on the card: the paged
-   kernels at the serving engine's shapes; the flash forward and backward
+   kernels at the serving engine's shapes, each case on the route the
+   wrapper picks (the split walk for bf16 q over bf16 and 1-byte pages,
+   convert and "qk"; two calls bit-equal) and, beside it, the first kernel
+   on the same inputs (time and "issued from the host" time both); the flash forward and backward
    at the training shape with dropout (a) and without (a0) and seven more
    cases (the JAX headline's shape, GQA with window, sinks and soft-cap,
    segment ids with ALiBi, fp32, a nonzero LSE cotangent, rows with no
@@ -33,7 +38,9 @@ Phases, in order; any failure exits nonzero:
    shape (paged limit; yardstick SDPA over pre-gathered dequantized K/V,
    another function); the quantized append bit-exact. The FA3 8-bit
    forward (flash_fwd_fp8) in seven cases, each launched once through
-   fp8_attention (checked), plus its straight-through backward (o and
+   fp8_attention on the route it must take (checked: the tensor cores but
+   for the s8 case), timed beside the FMA kernel on the same inputs, plus
+   its straight-through backward (o and
    gradients at the bf16 flash limit: p is bf16 on the 8-bit path). The
    block-sparse forward (sparse_fwd) and backward (sparse_bwd) in four
    cases, each launched once on the route it must take (checked by the
@@ -55,7 +62,8 @@ Phases, in order; any failure exits nonzero:
    bf16, random weights from a seed): 64 requests, prompts of 32-400
    tokens, 64 new tokens each. Every launch count is set to 0 just before
    and read just after; each kernel must have run, 12 paged-attention and
-   12 append launches per decode step. Then 20 decode steps at batch 32
+   12 append launches per decode step, every paged-attention launch (decode
+   and prefill chunk) on the split route. Then 20 decode steps at batch 32
    under torch.profiler: the device's busy share and the top kernels.
 4. The card engine's first-token logits (bf16) against the same engine on
    the CPU in float32 (plain versions), and greedy agreement over 16 steps.
@@ -78,7 +86,8 @@ Phases, in order; any failure exits nonzero:
    0): the bf16 card against the fp32 CPU (plain versions).
 5b. fa3_attention(fp8=True) forward and backward at (1, 8, 8192, 128)
    causal, e4m3 (auto: predecode, one flash_fwd) and int8 (auto: fused, one
-   flash_fwd_fp8), counts set to 0 before each and read after; o's distance
+   flash_fwd_fp8 on the tensor cores), counts set to 0 before each and read
+   after; o's distance
    to exact attention reported; at (1, 8, 1024, 128) the card held against
    the CPU (plain versions): o and gradients at the bf16 flash limit, LSE
    at 1e-4; the CPU's backward takes the card's o and LSE, so both read one
@@ -386,13 +395,26 @@ def attention_case(timer, gen, dev, name, dtype, *, window=None, sinks=0,
         library_pages = [(x.float() * sc).to(torch.bfloat16)
                          for x, sc in ((kp, ks), (vp, vs))]
     scale = q.shape[-1] ** -0.5
+    s0 = pa.paged_attention.split_launches
     out = pa.paged_attention(q, kp, vp, pi, ln, softmax_scale=scale, **kw)
     torch.cuda.synchronize()
+    route = "split" if pa.paged_attention.split_launches > s0 else "first"
     ref = pa.paged_attention_plain(q, kp, vp, pi, ln, softmax_scale=scale, **kw)
     max_err = check_close(name, out, ref, PAGED_TOL[dtype])
+    if route == "split":
+        if not torch.equal(out, pa.paged_attention(
+                q, kp, vp, pi, ln, softmax_scale=scale, **kw)):
+            fail(f"{name}: two split-route calls differ")
     call = lambda: pa.paged_attention(q, kp, vp, pi, ln, softmax_scale=scale,
                                       **kw)
     ms, wall_ms = timer(call), timer.wall(call)
+    first = {}
+    if route == "split":  # the first kernel on the same inputs
+        with mock.patch.object(pa, "split_route", lambda *a_: False):
+            first["first_max_abs_err"] = check_close(
+                f"{name} (first kernel)", call(), ref, PAGED_TOL[dtype])
+            first["first_ms"] = timer(call)
+            first["first_wall_ms"] = timer.wall(call)
     plain_ms = timer(lambda: pa.paged_attention_plain(
         q, kp, vp, pi, ln, softmax_scale=scale, **kw), reps=10)
     sdpa_ms = None
@@ -408,15 +430,20 @@ def attention_case(timer, gen, dev, name, dtype, *, window=None, sinks=0,
     # over quantized pages SDPA (on the dequantized pages) computes another
     # function: a yardstick, not the library call
     library_ms, yardstick_ms = (None, sdpa_ms) if quant else (sdpa_ms, None)
-    rec = dict(case=name, max_abs_err=max_err, tol=PAGED_TOL[dtype], ms=ms,
-               wall_ms=wall_ms, plain_ms=plain_ms, library_ms=library_ms,
+    rec = dict(case=name, route=route, max_abs_err=max_err,
+               tol=PAGED_TOL[dtype], ms=ms, wall_ms=wall_ms, **first,
+               plain_ms=plain_ms, library_ms=library_ms,
                yardstick_ms=yardstick_ms, bound_ms=bound_ms,
                bound_by=bound_by, shape={k: v for k, v in shape.items()},
                window=window, sinks=sinks, softcap=softcap, quant=quant,
                schedule=mode, dtype=str(dtype).replace("torch.", ""))
-    log(f"[kernel] paged_attention {name}: max_abs_err {max_err:.3e} "
-        f"(tol {PAGED_TOL[dtype]:g} abs+rel)  kernel_ms {ms:.4f} (issued "
-        f"from the host: {wall_ms:.4f})  plain_ms "
+    log(f"[kernel] paged_attention {name}: {route} route, max_abs_err "
+        f"{max_err:.3e} (tol {PAGED_TOL[dtype]:g} abs+rel)  kernel_ms "
+        f"{ms:.4f} (issued from the host: {wall_ms:.4f})"
+        + ("" if not first else
+           f"  first kernel {first['first_ms']:.4f} (issued from the host: "
+           f"{first['first_wall_ms']:.4f})")
+        + f"  plain_ms "
         f"{plain_ms:.4f}  library_ms "
         f"{'n/a' if library_ms is None else f'{library_ms:.4f}'}"
         + ("" if yardstick_ms is None else
@@ -982,13 +1009,16 @@ def fp8_case(timer, gen, dev, key):
     fmt, int8_pv = kw.pop("fmt", "fp8"), kw.pop("int8_pv", "bf16")
     mode = kw.pop("mode", "auto")
     # the public call: it must launch the 8-bit kernel once
-    f8.fp8_attention.launches = 0
+    f8.fp8_attention.launches = f8.fp8_attention.tc_launches = 0
     o_api, _ = f8.fp8_attention(q, k, v, fmt=fmt, int8_pv=int8_pv, mode=mode,
                                 **kw, **more)
     torch.cuda.synchronize()
-    if f8.fp8_attention.launches != 1:
+    want_tc = int(int8_pv != "s8")  # every case but (g) has D 64 or 128
+    if (f8.fp8_attention.launches, f8.fp8_attention.tc_launches) != (
+            1, want_tc):
         fail(f"fp8 {key}: fp8_attention launched flash_fwd_fp8 "
-             f"{f8.fp8_attention.launches} times, want 1")
+             f"{f8.fp8_attention.launches} times, {f8.fp8_attention.tc_launches}"
+             f" on the tensor cores; want 1, {want_tc}")
     del o_api
     opts = fa.make_opts(q, k, **kw, **more)
     q8, k8, v8, sq, sk, sv, bq, bk = f8.quantize_inputs(
@@ -1003,6 +1033,11 @@ def fp8_case(timer, gen, dev, key):
     del o_ref, lse_ref
     big = n > 4096
     ms = timer(lambda: f8.fp8_fwd(*args, int8_pv=int8_pv, out_dtype=BF16))
+    fma_ms = None
+    if want_tc:  # the FMA kernel on the same inputs, through the wrapper
+        with mock.patch.object(f8, "_tensor_core_route", lambda *a_: False):
+            fma = lambda: f8.fp8_fwd(*args, int8_pv=int8_pv, out_dtype=BF16)
+            fma_ms = timer(fma, reps=3 if big else 10, warmup=1)
     plain_ms = timer(lambda: f8.fp8_fwd_plain(*args, int8_pv=int8_pv,
                                               out_dtype=BF16),
                      reps=3 if big else 10, warmup=1)
@@ -1016,12 +1051,16 @@ def fp8_case(timer, gen, dev, key):
     rec = dict(case=label, shape=shape, fmt=fmt, int8_pv=int8_pv,
                blocks=(bq, bk), max_abs_err=err,
                tol=dict(o=dict(rtol=tol[0], atol=tol[1]), lse=LSE_TOL),
-               ms=ms, plain_ms=plain_ms, library_ms=None,
+               route="tensor cores" if want_tc else "FMA", ms=ms,
+               fma_ms=fma_ms, plain_ms=plain_ms, library_ms=None,
                yardstick_ms=yardstick_ms, bound_ms=bound_ms,
                bound_by=bound_by, api_launches=1)
-    log(f"[kernel] flash_fwd_fp8 {key} ({label}): max_abs_err o "
+    log(f"[kernel] flash_fwd_fp8 {key} ({label}): {rec['route']}, "
+        f"max_abs_err o "
         f"{err['o']:.2e} lse {err['lse']:.2e} ({tol_text(BF16)}: p is bf16; "
-        f"lse {LSE_TOL:g})  kernel {ms:.4f} ms (plain {plain_ms:.4f}, SDPA on "
+        f"lse {LSE_TOL:g})  kernel {ms:.4f} ms ("
+        + ("" if fma_ms is None else f"FMA kernel {fma_ms:.4f}, ")
+        + f"plain {plain_ms:.4f}, SDPA on "
         f"the dequantized inputs {yardstick_ms:.4f}, bound {bound_ms:.4f} "
         f"{bound_by}); fp8_attention launched it once (checked)")
     return rec
@@ -1132,6 +1171,8 @@ def phase_kernels(dev):
 
 def reset_counts():
     pa.paged_attention.launches = 0
+    pa.paged_attention.split_launches = 0
+    f8.fp8_attention.tc_launches = 0
     pap.paged_append.launches = 0
     fa.kernel_attention.fwd_launches = 0
     fa.kernel_attention.bwd_launches = 0
@@ -1146,6 +1187,8 @@ def reset_counts():
 
 def read_counts():
     return {"paged_attention": pa.paged_attention.launches,
+            "paged_attention_split": pa.paged_attention.split_launches,
+            "flash_fwd_fp8_tc": f8.fp8_attention.tc_launches,
             "paged_append": pap.paged_append.launches,
             "flash_fwd": fa.kernel_attention.fwd_launches,
             "flash_bwd": fa.kernel_attention.bwd_launches,
@@ -1218,8 +1261,15 @@ def phase_engine(cfg, params, ecfg, dev, n_req, prompt_range, n_new, on_card):
             fail(f"paged_attention launched {counts['paged_attention']} times,"
                  f" want {n_layers} per decode step and prefill chunk = "
                  f"{want_att}")
+        if counts["paged_attention_split"] != want_att:
+            fail(f"paged_attention took the split route "
+                 f"{counts['paged_attention_split']} times, want every one of"
+                 f" its {want_att} launches")
         log(f"[engine] per decode step: {n_layers} paged_attention + "
-            f"{n_layers} paged_append launches (checked)")
+            f"{n_layers} paged_append launches, every paged_attention launch "
+            f"({n_layers * st['decode_steps']} decode, "
+            f"{n_layers * st['prefill_chunks']} chunk) on the split route "
+            f"(checked)")
     return rec
 
 
@@ -1393,6 +1443,9 @@ def phase_fa3_fp8(dev, shape, check_shape, on_card):
             if (counts[want], counts[other], counts["flash_bwd"]) != (1, 0, 1):
                 fail(f"fa3_attention(fp8=True, {fmt}) launched {counts}; want "
                      f"one {want} and one flash_bwd")
+            if want == "flash_fwd_fp8" and counts["flash_fwd_fp8_tc"] != 1:
+                fail(f"fa3_attention(fp8=True, {fmt}): flash_fwd_fp8 did not "
+                     f"take the tensor-core route")
         vs_exact = float((o.float() - exact).abs().max())
         del res, o
         # the same call on the CPU at the small shape
@@ -1758,9 +1811,46 @@ def ptxas_entries(text):
 
 
 # Tensor-core kernels per library: forward at D 64 and 128; dK/dV and dQ at
-# D 64 and 128; the sparse ones each with one and two consumer warpgroups.
+# D 64 and 128; the sparse ones each with one and two consumer warpgroups;
+# the 8-bit forward at D 64 and 128 for e4m3, e5m2 and int8.
 SM90_KERNELS = {"flash_fwd": 2, "flash_bwd": 4, "sparse_fwd": 4,
-                "sparse_bwd": 8}
+                "sparse_bwd": 8, "flash_fwd_fp8": 6}
+# The paged split kernels: bf16, int8 (convert and "qk"), e4m3 and e5m2
+# pages, each at 1, 2 and 4 rows a row set.
+SPLIT_KERNELS = 15
+
+
+def split_report():
+    """Phase 1's report of the paged split route: per split kernel its
+    registers and spill bytes (this build's ptxas report) and the 1-D bulk
+    copies (UBLKCP) in its SASS. Fails if one has no bulk copy, spills, or
+    is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass",
+                           str(_build.kernel_path("paged_attention"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    ptxas = ptxas_entries(_build.BUILD_LOG.get("paged_attention", ""))
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split()[0]
+        if "paged_split_kernel" not in fn:
+            continue
+        regs, spill = ptxas.get(fn, (None, None))
+        out[fn] = dict(ublkcp=part.count("UBLKCP"), registers=regs,
+                       spill_bytes=spill)
+        log(f"[sass] paged_attention: {fn}: {out[fn]['ublkcp']} UBLKCP (1-D "
+            f"bulk copies); ptxas: {regs} registers, {spill} spill bytes")
+        if not out[fn]["ublkcp"]:
+            fail(f"{fn}: the split kernel has no bulk copy")
+        if spill is None:
+            fail(f"{fn}: no ptxas report from this run's build")
+        if spill:
+            fail(f"{fn}: spills {spill} bytes")
+    if len(out) != SPLIT_KERNELS:
+        fail(f"paged_attention: expected {SPLIT_KERNELS} split kernels, "
+             f"found {len(out)}")
+    return out
 
 
 def sass_report():
@@ -1785,12 +1875,13 @@ def sass_report():
                 continue
             found += 1
             regs, spill = ptxas.get(fn, (None, None))
-            rec = dict(hgmma=part.count("HGMMA"), utmaldg=part.count("UTMALDG"),
-                       registers=regs, spill_bytes=spill)
+            rec = dict(hgmma=part.count("HGMMA"), igmma=part.count("IGMMA"),
+                       utmaldg=part.count("UTMALDG"), registers=regs,
+                       spill_bytes=spill)
             out[fn] = rec
-            log(f"[sass] {name}: {fn}: {rec['hgmma']} HGMMA, {rec['utmaldg']} "
-                f"UTMALDG; ptxas: {regs} registers at entry, {spill} spill "
-                f"bytes")
+            log(f"[sass] {name}: {fn}: {rec['hgmma']} HGMMA, {rec['igmma']} "
+                f"IGMMA, {rec['utmaldg']} UTMALDG; ptxas: {regs} registers at "
+                f"entry, {spill} spill bytes")
             if not rec["hgmma"] or not rec["utmaldg"]:
                 fail(f"{fn}: the tensor-core kernel has no HGMMA or no UTMALDG")
             if spill is None:
@@ -1868,7 +1959,8 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {name}: {line.strip()}")
-    report.update(card=smi, build_s=per, tensor_core_kernels=sass_report())
+    report.update(card=smi, build_s=per, tensor_core_kernels=sass_report(),
+                  paged_split_kernels=split_report())
 
     # Phase 2
     report["kernels"] = phase_kernels(dev)
@@ -1927,27 +2019,45 @@ def main() -> int:
                  for k in ("flash_fwd", "flash_bwd", "flash_fwd_tc",
                            "flash_bwd_tc")}}
     kernels = []
-    # (kernel, name in the record, phase-2 case, launches of its main path)
-    for name, tag, case, n in (
+    layers = cfg.n_layers
+
+    def paged_split(run):  # launches of an engine run by kind and route
+        e = report[run]
+        return dict(launches_decode=layers * e["decode_steps"],
+                    launches_chunk=layers * e["prefill_chunks"],
+                    launches_split=e["launches"]["paged_attention_split"])
+
+    # (kernel, name in the record, phase-2 case, launches of its main path,
+    # more keys). paged_attention: the engine's decode case carries the
+    # whole run's launches; the chunk rows carry the prefill chunks'.
+    for name, tag, case, n, more in (
         ("paged_attention", "paged_attention", "decode",
-         counts["paged_attention"]),
+         counts["paged_attention"], paged_split("engine")),
+        ("paged_attention", "paged_attention[chunk]", "chunk",
+         layers * report["engine"]["prefill_chunks"], {}),
         ("paged_attention", "paged_attention[int8]", "decode_int8_qk",
-         report["engine_int8"]["launches"]["paged_attention"]),
+         report["engine_int8"]["launches"]["paged_attention"],
+         paged_split("engine_int8")),
         ("paged_attention", "paged_attention[fp8]", "decode_fp8",
-         report["engine_fp8"]["launches"]["paged_attention"]),
-        ("paged_append", "paged_append", "append", counts["paged_append"]),
+         report["engine_fp8"]["launches"]["paged_attention"],
+         paged_split("engine_fp8")),
+        ("paged_attention", "paged_attention[chunk,fp8]", "chunk_fp8",
+         layers * report["engine_fp8"]["prefill_chunks"], {}),
+        ("paged_append", "paged_append", "append", counts["paged_append"], {}),
         ("paged_append", "paged_append[int8]", "append_int8",
-         report["engine_int8"]["launches"]["paged_append"]),
+         report["engine_int8"]["launches"]["paged_append"], {}),
         ("paged_append", "paged_append[fp8]", "append_fp8",
-         report["engine_fp8"]["launches"]["paged_append"]),
+         report["engine_fp8"]["launches"]["paged_append"], {}),
     ):
         r = report["kernels"][case]
         kernels.append(dict(
-            name=tag, **KERNELS[name], launches=n,
+            name=tag, **KERNELS[name], launches=n, **more,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], yardstick_ms=r.get("yardstick_ms"),
-            case=r["case"],
+            case=r["case"], **{k: r[k] for k in (
+                "wall_ms", "first_ms", "first_wall_ms") if k in r},
+            **({"path": r["route"]} if "route" in r else {}),
         ))
     # flash_fwd / flash_bwd: launches of the training phase (all on the
     # tensor-core route); numbers of case (a), the training call, whose
@@ -1975,13 +2085,16 @@ def main() -> int:
     # flash_fwd_fp8: its main path is fa3_attention(fp8=True, int8) (phase
     # 5b); its numbers come from phase-2 case (b), that call's shape.
     r = report["kernels"]["fp8_b"]
+    fa3_int8 = report["fa3_fp8"]["int8"]["launches"]
     kernels.append(dict(
         name="flash_fwd_fp8", **KERNELS["flash_fwd_fp8"],
-        launches=report["fa3_fp8"]["int8"]["launches"]["flash_fwd_fp8"],
+        launches=fa3_int8["flash_fwd_fp8"],
+        launches_tensor_core=fa3_int8["flash_fwd_fp8_tc"],
         max_abs_err=max(r["max_abs_err"].values()), ms=r["ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=None,
-        yardstick_ms=r["yardstick_ms"], case=r["case"],
+        yardstick_ms=r["yardstick_ms"], case=r["case"], path=r["route"],
+        fma_ms=r["fma_ms"],
     ))
     # sparse_fwd / sparse_bwd: launches of phase 7's forward+backward
     # steps; numbers of phase-2 case (a), the model phase's call

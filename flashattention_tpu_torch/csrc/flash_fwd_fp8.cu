@@ -31,14 +31,46 @@
 // What bounds it on this card: the tensor-core rate. At the (1, 8, 8192, 128)
 // causal shape the work is 4 * B * H * N^2 * D / 2 flops (about 0.137 TFLOP):
 // Q.K, half of it, on 8-bit operands and P.V on bf16 p (both 8-bit with
-// pv_s8), against 24 MB of payloads. This first version does not reach for
-// that bound: it is flash_fwd.cu's kernel (flash_fwd.cuh), running fp32 FMAs
-// on the CUDA cores on payloads decoded into fp32 shared-memory tiles. fp8
-// wgmma with the scales folded into the epilogue is later work.
+// pv_s8), against 24 MB of payloads.
+//
+// Two routes, chosen by the caller (ops/fp8_attn._tensor_core_route):
+//
+//   fat_flash_fwd_fp8_sm90 (D <= 128 with D % 32 == 0, int8_pv "bf16", key
+//     blocks bk a multiple of 128; every format, bf16 or fp32 output): the
+//     structure of flash_fwd.cu's fat_flash_fwd_sm90. One CTA per (128
+//     query rows, head, batch); warpgroup 0's thread 0 issues TMA loads of
+//     the 1-byte Q tile once and of 1-byte K and V tiles of 64 keys (the
+//     consumers' registers) into a two-stage ring; its warps 1-3 decode
+//     tiles exactly to bf16 (e4m3 and e5m2 through f16, int8 directly) in
+//     the layout flash_sm90.cuh's descriptors read and signal a second
+//     mbarrier per stage. Warpgroups 1-2 own 64 rows each. S = Q·Kᵀ: for
+//     int8 an s8 wgmma m64nNk32 straight from the 1-byte tiles, into s32,
+//     which converts to float exactly (|sum| <= 127^2 * 128 < 2^24); for
+//     e4m3 and e5m2 a bf16 wgmma on the decoded Q and K, exact products
+//     with fp32 accumulation. (The e4m3 wgmma was tried first: its
+//     accumulation keeps fewer bits than fp32, and the LSE missed the 1e-4
+//     limit against fp8_fwd_plain; the bf16 decode is exact, so the scores
+//     equal the plain version's but for summation order.) Scores are
+//     float(S) * ((sq[row / bq] * sk[col / bk]) * scale), then B1's per-tile
+//     score pipeline. Two passes over the walk, as the sparse forward's:
+//     pass 0 brings K alone and takes each row's final max; pass 1 brings K
+//     and V again, recomputes S with the same instructions, and rounds p =
+//     exp(s - m) to bf16 at that max, as the plain version does (rounding
+//     at the running max missed the two-ulp limit at near-zero outputs of a
+//     ragged N_q != N_k case). p, dropped, is the register A operand of a
+//     bf16 wgmma on the decoded V (p in 8 bits would be another function,
+//     and 8-bit wgmma cannot read V, which is MN-major for P·V) into a fresh
+//     fragment, folded in as acc += pv * sv[col / bk] (sv is constant over a
+//     key tile, which divides bk). Maps, the s8 wgmma and the decode are in
+//     fp8_sm90.cuh, so flash_sm90.cuh and B1-B3 do not change.
+//   fat_flash_fwd_fp8 (int8_pv "s8", other head dims): the first version,
+//     flash_fwd.cu's FMA body (flash_fwd.cuh) on payloads decoded into fp32
+//     shared-memory tiles.
 
 #include <cuda_fp8.h>
 
 #include "flash_fwd.cuh"
+#include "fp8_sm90.cuh"
 
 namespace {
 
@@ -78,6 +110,320 @@ cudaError_t by_fmt(int fmt, const AttnArgs& a, const Scales& f, void* o,
 
 }  // namespace
 
+namespace fat {
+namespace sm90 {
+
+// Producer warpgroup (TMA issue and the V decode) and consumer warpgroups:
+// 40 + 2 x 232 registers of a 384-thread block fit the SM's 64K.
+constexpr int kFp8ProducerRegs = 40;
+constexpr int kFp8ConsumerRegs = 232;
+constexpr int kFp8Rows = 128;  // query rows per CTA, 64 per consumer
+constexpr int kDecoders = 96;  // warps 1-3 of the producer warpgroup
+
+template <int DP, int FMT>
+struct Fp8Sm90Cfg {
+  // Keys per tile: 64. At D = 128 the O accumulator, the fresh P·V
+  // fragment (64 registers each) and the score fragment must fit 232
+  // registers; with 128-key tiles at D = 64 the two-pass kernels spilled
+  // 56-64 bytes (int8, e5m2).
+  static constexpr int KEYS = 64;
+  static constexpr int STAGES = 2;
+  static constexpr bool kDecQK = FMT != 2;  // Q·Kᵀ on decoded bf16 tiles
+  static constexpr int Q_BYTES = kFp8Rows * kRow8;
+  static constexpr int T_BYTES = KEYS * kRow8;    // one 1-byte K or V tile
+  static constexpr int VB_BYTES = KEYS * DP * 2;  // a K or V tile in bf16
+  static constexpr int QB_BYTES = kDecQK ? kFp8Rows * DP * 2 : 0;
+  static constexpr int KB_BYTES = kDecQK ? VB_BYTES : 0;
+  static constexpr int BARS = 2 + 5 * STAGES;
+  static constexpr size_t SMEM = 1024 + Q_BYTES + QB_BYTES +
+                                 STAGES * (2 * T_BYTES + VB_BYTES + KB_BYTES) +
+                                 8 * BARS;
+};
+
+template <int DP, int FMT>
+__global__ void __launch_bounds__(kThreadsWS, 1)
+flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, AttnArgs a,
+                          Scales f, void* __restrict__ o, int out_f32,
+                          float* __restrict__ lse) {
+  using Cfg = Fp8Sm90Cfg<DP, FMT>;
+  constexpr int STAGES = Cfg::STAGES, KEYS = Cfg::KEYS;
+  constexpr bool kDecQK = Cfg::kDecQK;
+  extern __shared__ char smem_raw[];
+  char* q_s = align_1024(smem_raw);                 // [128][128] bytes
+  char* k_s = q_s + Cfg::Q_BYTES;                   // [STAGES] 1-byte tiles
+  char* vr_s = k_s + STAGES * Cfg::T_BYTES;         // [STAGES] 1-byte tiles
+  char* vb_s = vr_s + STAGES * Cfg::T_BYTES;        // [STAGES] bf16 tiles
+  char* kb_s = vb_s + STAGES * Cfg::VB_BYTES;       // [STAGES] bf16 (e4m3,
+  char* qb_s = kb_s + STAGES * Cfg::KB_BYTES;       //   e5m2) and Q in bf16
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(qb_s + Cfg::QB_BYTES);
+  uint64_t* q_dec = q_full + 1;         // Q decoded to bf16 (e4m3, e5m2)
+  uint64_t* k_full = q_dec + 1;
+  uint64_t* k_dec = k_full + STAGES;    // K decoded to bf16 (e4m3, e5m2)
+  uint64_t* v_full = k_dec + STAGES;    // the 1-byte V tile arrived
+  uint64_t* v_dec = v_full + STAGES;    // ... and was decoded to bf16
+  uint64_t* empty = v_dec + STAGES;
+
+  const int b = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * kFp8Rows;
+  const int hk = h / (a.H / a.H_kv);
+  const TileWalk walk =
+      key_tiles(a, r0, min(r0 + kFp8Rows, a.Nq) - 1, KEYS);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_dec, kDecoders);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&k_dec[s], kDecoders);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_dec[s], kDecoders);
+      mbar_init(&empty[s], 256);  // every consumer thread releases a stage
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup
+    reg_dealloc<kFp8ProducerRegs>();
+    if (threadIdx.x == 0 && walk.n_walk > 0) {
+      const int kplane = b * a.H_kv + hk;
+      mbar_expect_tx(q_full, Cfg::Q_BYTES);
+      tma_tile8<kFp8Rows>(q_s, &tq, q_full, r0, b * a.H + h);
+      for (int i = 0; i < 2 * walk.n_walk; ++i) {  // pass 0 K, pass 1 K, V
+        const int s = i % STAGES;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        const int c0 = walk.tile(i % walk.n_walk) * KEYS;
+        mbar_expect_tx(&k_full[s], Cfg::T_BYTES);
+        tma_tile8<KEYS>(k_s + s * Cfg::T_BYTES, &tk, &k_full[s], c0, kplane);
+        if (i >= walk.n_walk) {
+          mbar_expect_tx(&v_full[s], Cfg::T_BYTES);
+          tma_tile8<KEYS>(vr_s + s * Cfg::T_BYTES, &tv, &v_full[s], c0,
+                          kplane);
+        }
+      }
+    } else if (threadIdx.x >= 32) {  // the decoders
+      const int tid = threadIdx.x - 32;
+      if (kDecQK && walk.n_walk > 0) {
+        mbar_wait(q_full, 0);
+        decode_tile<FMT, kFp8Rows, DP>(q_s, qb_s, tid, kDecoders);
+        fence_proxy_async();  // the bf16 tiles are read by wgmma
+        mbar_arrive(q_dec);
+      }
+      for (int i = 0; i < 2 * walk.n_walk; ++i) {
+        const int s = i % STAGES;
+        if constexpr (kDecQK) {
+          mbar_wait(&k_full[s], (i / STAGES) & 1);
+          decode_tile<FMT, KEYS, DP>(k_s + s * Cfg::T_BYTES,
+                                     kb_s + s * Cfg::KB_BYTES, tid, kDecoders);
+          fence_proxy_async();
+          mbar_arrive(&k_dec[s]);
+        }
+        if (i >= walk.n_walk) {  // V's barriers count pass 1's steps only
+          const int w = i - walk.n_walk;
+          mbar_wait(&v_full[s], (w / STAGES) & 1);
+          decode_tile<FMT, KEYS, DP>(vr_s + s * Cfg::T_BYTES,
+                                     vb_s + s * Cfg::VB_BYTES, tid, kDecoders);
+          fence_proxy_async();
+          mbar_arrive(&v_dec[s]);
+        }
+      }
+    }
+  } else {  // consumers
+    reg_alloc<kFp8ConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1;  // 64-row slice of the q tile
+    const int t = threadIdx.x % 128;
+    const int row0 = r0 + 64 * cw;
+    const uint32_t bh = (uint32_t)(b * a.H + h);
+    const bool post = a.slopes != nullptr || a.softcap > 0.f;
+    const size_t kvb = ((size_t)b * a.H_kv + hk) * f.nkb;
+    float sqr[2];  // the q scale of this thread's two rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + acc_row(t, 2 * r);
+      sqr[r] = row < a.Nq ? f.sq[(size_t)bh * f.nqb + row / f.bq] : 0.f;
+    }
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+    if (walk.n_walk > 0) mbar_wait(kDecQK ? q_dec : q_full, 0);
+    // Step i of the ring: pass 0 (i < n_walk) brings K alone, pass 1 K and
+    // V again; both passes run the same S instructions on the same tiles.
+    auto scores = [&](int i, float (&sc)[KEYS / 2], float (&mx)[2]) {
+      const int s = i % STAGES, ph = (i / STAGES) & 1;
+      const int c0 = walk.tile(i % walk.n_walk) * KEYS;
+      const float skt = f.sk[kvb + c0 / f.bk];
+      if constexpr (kDecQK) {  // exact bf16 decodes, fp32 accumulation
+        mbar_wait(&k_dec[s], ph);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          wgmma_ss<KEYS>(sc, desc_k<kFp8Rows>(qb_s, 64 * cw, kk),
+                         desc_k<KEYS>(kb_s + s * Cfg::KB_BYTES, 0, kk),
+                         kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+      } else {  // int8: s8 wgmma, exact, into sc's registers as s32
+        auto& si = reinterpret_cast<uint32_t(&)[KEYS / 2]>(sc);
+        mbar_wait(&k_full[s], ph);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 32; ++kk) {
+          wgmma_s8<KEYS>(si, desc_k<kFp8Rows>(q_s, 64 * cw, kk),
+                         desc_k<KEYS>(k_s + s * Cfg::T_BYTES, 0, kk),
+                         kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(si);
+#pragma unroll
+        for (int k = 0; k < KEYS / 2; ++k) {
+          sc[k] = (float)__float_as_int(sc[k]);  // the s32 sum, exactly
+        }
+      }
+      const float fac[2] = {(sqr[0] * skt) * a.scale,
+                            (sqr[1] * skt) * a.scale};
+      // Score pipeline at absolute (row, col), as B1's; masked scores count
+      // in the row max as the mask value and are held as -inf.
+      const int cls = tile_class(a, row0, row0 + 63, c0, c0 + KEYS - 1);
+      uint32_t seg[2] = {0u, 0u};
+      if (cls == kSegments) {
+        segment_bits<KEYS>(a.q_ids + (size_t)b * a.Nq, row0, a.Nq,
+                           a.kv_ids + (size_t)b * a.Nk, c0, a.Nk, t, seg);
+      }
+      dispatch_tile(cls, post, [&](auto c, auto pp) {
+#pragma unroll
+        for (int k = 0; k < KEYS / 2; ++k) {
+          const int r = (k >> 1) & 1;
+          const int row = row0 + acc_row(t, k), col = c0 + acc_col(t, k);
+          const bool vis =
+              tile_visible<decltype(c)::value>(a, b, row, col, seg, k);
+          float dcap;
+          const float x = tile_score<decltype(pp)::value>(
+              a, h, row, col, sc[k] * fac[r], &dcap);
+          mx[r] = fmaxf(mx[r], vis ? x : kMaskValue);
+          sc[k] = vis ? x : -INFINITY;
+        }
+      });
+      return c0;
+    };
+
+    // Pass 0: each row's final max, so that p is rounded to bf16 at it, as
+    // fp8_fwd_plain rounds (a one-pass online softmax rounding at the
+    // running max missed the two-ulp limit at near-zero outputs).
+    for (int w = 0; w < walk.n_walk; ++w) {
+      float sc[KEYS / 2];
+      scores(w, sc, m);
+      mbar_arrive(&empty[w % STAGES]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = fmaxf(m[r], __shfl_xor_sync(kFull, m[r], 1));
+      m[r] = fmaxf(m[r], __shfl_xor_sync(kFull, m[r], 2));
+    }
+
+    // Pass 1: p = exp(s - m), l, and P·V.
+    for (int w = 0; w < walk.n_walk; ++w) {
+      const int i = walk.n_walk + w, s = i % STAGES;
+      float sc[KEYS / 2], unused[2] = {-INFINITY, -INFINITY};
+      const int c0 = scores(i, sc, unused);
+      const float svt = f.sv[kvb + c0 / f.bk];
+#pragma unroll
+      for (int k = 0; k < KEYS / 2; ++k) {
+        const int r = (k >> 1) & 1;
+        float p = expf(sc[k] - m[r]);
+        l[r] += p;
+        if (a.dropout) {
+          const int row = row0 + acc_row(t, k), col = c0 + acc_col(t, k);
+          p = keep(a, bh, row, col) ? p * a.drop_inv : 0.f;
+        }
+        sc[k] = p;
+      }
+      uint32_t pa[KEYS / 16][4];
+      acc_to_a<KEYS>(sc, pa);
+
+      float pv[DP / 2];  // P·V of this tile, before its v scale
+#pragma unroll
+      for (int k = 0; k < DP / 2; ++k) pv[k] = 0.f;
+      mbar_wait(&v_dec[s], (w / STAGES) & 1);
+      wgmma_fence();
+      fence_regs(pv);
+#pragma unroll
+      for (int kk = 0; kk < KEYS / 16; ++kk) {
+        wgmma_rs<DP>(pv, pa[kk], desc_mn<KEYS>(vb_s + s * Cfg::VB_BYTES, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(pv);
+      mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int k = 0; k < DP / 2; ++k) acc[k] = fmaf(pv[k], svt, acc[k]);
+    }
+
+    // Epilogue: each row's l is spread over the 4 threads of a quad.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(kFull, l[r], 1);
+      l[r] += __shfl_xor_sync(kFull, l[r], 2);
+      const int row = row0 + acc_row(t, 2 * r);
+      if (row >= a.Nq) continue;
+      const float l_safe = l[r] == 0.f ? 1.f : l[r];
+      const size_t base = (size_t)bh * a.Nq + row;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = acc_col(t, 4 * n);
+        if (col < a.D) {
+          const float x0 = acc[4 * n + 2 * r] / l_safe;
+          const float x1 = acc[4 * n + 2 * r + 1] / l_safe;
+          if (out_f32) {
+            *reinterpret_cast<float2*>(static_cast<float*>(o) +
+                                       base * a.D + col) = make_float2(x0, x1);
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(
+                static_cast<__nv_bfloat16*>(o) + base * a.D + col) =
+                __floats2bfloat162_rn(x0, x1);
+          }
+        }
+      }
+      if ((t & 3) == 0) lse[base] = m[r] + logf(l_safe);
+    }
+  }
+}
+
+template <int DP, int FMT>
+cudaError_t launch_fp8_sm90(const AttnArgs& a, const Scales& f, void* o,
+                            int out_f32, float* lse, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map8(&tq, a.q, a.B * a.H, a.Nq, a.D);
+  if (err == cudaSuccess) err = make_map8(&tk, a.k, a.B * a.H_kv, a.Nk, a.D);
+  if (err == cudaSuccess) err = make_map8(&tv, a.v, a.B * a.H_kv, a.Nk, a.D);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_fp8_sm90_kernel<DP, FMT>;
+  constexpr size_t smem = Fp8Sm90Cfg<DP, FMT>::SMEM;
+  err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Nq + kFp8Rows - 1) / kFp8Rows, a.H, a.B);
+  kernel<<<grid, kThreadsWS, smem, st>>>(tq, tk, tv, a, f, o, out_f32, lse);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t fp8_sm90_by_fmt(int fmt, const AttnArgs& a, const Scales& f,
+                            void* o, int out_f32, float* lse,
+                            cudaStream_t st) {
+  if (fmt == 0) return launch_fp8_sm90<DP, 0>(a, f, o, out_f32, lse, st);
+  if (fmt == 1) return launch_fp8_sm90<DP, 1>(a, f, o, out_f32, lse, st);
+  if (fmt == 2) return launch_fp8_sm90<DP, 2>(a, f, o, out_f32, lse, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace sm90
+}  // namespace fat
+
 extern "C" {
 
 // fmt: 0 = e4m3, 1 = e5m2, 2 = int8 (q8, k8, v8 share it); pv_s8 only with
@@ -115,6 +461,43 @@ int fat_flash_fwd_fp8(const void* q8, const void* k8, const void* v8,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)err;
+}
+
+
+// The tensor-core route: D <= 128 with D % 32 == 0, pv_s8 == 0, bk a
+// multiple of 128; q8, k8 and v8 16-byte aligned (TMA). Same arguments as
+// fat_flash_fwd_fp8.
+int fat_flash_fwd_fp8_sm90(const void* q8, const void* k8, const void* v8,
+                           const void* sq, const void* sk, const void* sv,
+                           void* o, void* lse, const void* q_ids,
+                           const void* kv_ids, const void* slopes, int B,
+                           int H, int H_kv, int Nq, int Nk, int D, float scale,
+                           int causal, int offset, int window, int sinks,
+                           float softcap, float softcap_inv, int dropout,
+                           uint32_t drop_threshold, uint32_t seed,
+                           float drop_inv, int bq, int bk, int fmt, int pv_s8,
+                           int out_dtype, void* stream) {
+  using namespace fat;
+  if (D < 32 || D > 128 || D % 32 != 0 || H_kv < 1 || H % H_kv != 0 ||
+      B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535 || bq < 1 ||
+      bk < 1 || bk % 128 != 0 || pv_s8 || fmt < 0 || fmt > 2 ||
+      out_dtype < 0 || out_dtype > 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AttnArgs a{q8, k8, v8, static_cast<const int32_t*>(q_ids),
+             static_cast<const int32_t*>(kv_ids),
+             static_cast<const float*>(slopes), B, H, H_kv, Nq, Nk, D, scale,
+             causal, offset, window, sinks, softcap, softcap_inv, dropout,
+             drop_threshold, seed, drop_inv};
+  Scales f{static_cast<const float*>(sq), static_cast<const float*>(sk),
+           static_cast<const float*>(sv), bq, bk, (Nq + bq - 1) / bq,
+           (Nk + bk - 1) / bk, 0};
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* l = static_cast<float*>(lse);
+  const cudaError_t err =
+      D <= 64 ? sm90::fp8_sm90_by_fmt<64>(fmt, a, f, o, out_dtype, l, st)
+              : sm90::fp8_sm90_by_fmt<128>(fmt, a, f, o, out_dtype, l, st);
   return (int)err;
 }
 

@@ -11,7 +11,12 @@ quantized function:
   ``fp8_attention.launches``), or to its plain version
   :func:`fp8_fwd_plain` on CPU tensors. ``"fused_cached"`` runs the same
   kernel: decoding each tile once was a TPU VMEM schedule, not another
-  function.
+  function. The kernel has two routes, chosen by
+  :func:`_tensor_core_route`: Q·Kᵀ on 8-bit wgmma and P·V on bf16 wgmma
+  (``fat_flash_fwd_fp8_sm90``, counted also in
+  ``fp8_attention.tc_launches``) for ``int8_pv="bf16"``, D <= 128 with
+  D % 32 == 0 and key blocks a multiple of 128; the fp32 FMA kernel
+  (``fat_flash_fwd_fp8``) for ``int8_pv="s8"`` and other head dims.
 - ``"predecode"``: the payloads are dequantized to bf16 in PyTorch ops and
   the flash forward (``ops/flash_attn.flash_fwd``, kernel B1) runs on them.
 
@@ -157,6 +162,15 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _tensor_core_route(int8_pv: str, d: int, bk: int) -> bool:
+    """True where the tensor-core kernel takes the call: p in bf16
+    (``int8_pv="bf16"``), D <= 128 with D % 32 == 0 (whole k32 steps of
+    the 8-bit product), and key blocks a multiple of 128, so that one key
+    tile never spans two v scales. ``int8_pv="s8"`` re-quantizes p per key
+    block, which the FMA kernel keeps."""
+    return int8_pv != "s8" and d <= 128 and d % 32 == 0 and bk % 128 == 0
+
+
 def _fwd_cuda(q8, k8, v8, sq, sk, sv, bq, bk, opts, int8_pv, out_dtype):
     fmt = FMT_OF_DTYPE.get(q8.dtype)
     if fmt is None or k8.dtype != q8.dtype or v8.dtype != q8.dtype:
@@ -179,7 +193,7 @@ def _fwd_cuda(q8, k8, v8, sq, sk, sv, bq, bk, opts, int8_pv, out_dtype):
             if t.dtype != torch.float32 or tuple(t.shape) != want[name]:
                 raise ValueError(f"{name} must be float32 {want[name]}, is "
                                  f"{t.dtype} {tuple(t.shape)}")
-    q8, k8, v8 = q8.contiguous(), k8.contiguous(), v8.contiguous()
+    q8, k8, v8 = (fa._aligned16(x.contiguous()) for x in (q8, k8, v8))
     sq, sk, sv = sq.contiguous(), sk.contiguous(), sv.contiguous()
     o = torch.empty((b, h, n_q, d), dtype=out_dtype, device=q8.device)
     lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q8.device)
@@ -187,7 +201,9 @@ def _fwd_cuda(q8, k8, v8, sq, sk, sv, bq, bk, opts, int8_pv, out_dtype):
         return o.zero_(), lse.fill_(float("-inf"))
     cap, rate = opts.softcap, opts.dropout_rate
     lib = _build.load_kernel("flash_fwd_fp8", _declare)
-    err = lib.fat_flash_fwd_fp8(
+    tc = _tensor_core_route(int8_pv, d, bk)
+    fn = lib.fat_flash_fwd_fp8_sm90 if tc else lib.fat_flash_fwd_fp8
+    err = fn(
         q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), sq.data_ptr(),
         sk.data_ptr(), sv.data_ptr(), o.data_ptr(), lse.data_ptr(),
         _ptr(opts.q_ids), _ptr(opts.kv_ids), _ptr(opts.slopes),
@@ -202,15 +218,17 @@ def _fwd_cuda(q8, k8, v8, sq, sk, sv, bq, bk, opts, int8_pv, out_dtype):
     )
     _build.check(err, "flash_fwd_fp8 launch")
     fp8_attention.launches += 1
+    fp8_attention.tc_launches += tc
     return o, lse
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-    lib.fat_flash_fwd_fp8.restype = ctypes.c_int
-    lib.fat_flash_fwd_fp8.argtypes = (
-        [p] * 11 + [i, i, i, i, i, i, f, i, i, i, i, f, f, i, u, u, f]
-        + [i, i, i, i, i, p])
+    for fn in (lib.fat_flash_fwd_fp8, lib.fat_flash_fwd_fp8_sm90):
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [p] * 11 + [i, i, i, i, i, i, f, i, i, i, i, f, f, i, u, u, f]
+            + [i, i, i, i, i, p])
 
 
 def fp8_fwd(q8, k8, v8, sq, sk, sv, bq, bk, opts, *, int8_pv="bf16",
@@ -316,6 +334,7 @@ def fp8_attention(q, k, v, *, causal=False, softmax_scale=None,
 
 
 fp8_attention.launches = 0
+fp8_attention.tc_launches = 0
 
 
 def fp8_attention_prequant(q8, k8, v8, sq, sk, sv, *, causal=False,

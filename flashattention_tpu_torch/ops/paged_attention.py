@@ -2,10 +2,19 @@
 
 The counterpart of ``flashattention_tpu/ops/pallas_paged.py``
 (``pallas_paged_attention``). On a CUDA tensor :func:`paged_attention`
-launches the hand-written kernel ``csrc/paged_attention.cu``; on a CPU
+launches a hand-written kernel of ``csrc/paged_attention.cu``; on a CPU
 tensor it runs :func:`paged_attention_plain`, the same function written in
 plain PyTorch. Nothing falls back: a CUDA input the kernel does not take
-raises.
+raises, and a launch that fails raises.
+
+Two routes, chosen by :func:`split_route` from the inputs alone: the split
+page walk (``fat_paged_attention_split``: the walk cut across CTAs, pages
+brought in by 1-D bulk copies, a second kernel merging the splits) for
+bf16 q over bf16 or 1-byte pages in the convert and "qk" schedules, and
+the first kernel (``fat_paged_attention``, ``fat_paged_attention_quant``)
+for fp32 pages or q, the "full" schedule and shapes the bulk copies cannot
+take. ``paged_attention.launches`` counts every call,
+``paged_attention.split_launches`` the split route's.
 
 Layout (as in the JAX package):
 
@@ -49,6 +58,7 @@ page % 16 == 0 (the TPU merged schedule); other page sizes convert.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -85,6 +95,67 @@ def int8_mode(k_pages, q_dtype, q_len, int8_qk) -> str:
         return "full"
     raise ValueError(f"int8_qk must be None, a bool, 'qk' or 'full', got "
                      f"{int8_qk!r}")
+
+
+# The split route's bulk copies: a stage of the ring holds one page's K and
+# V slabs (and scale planes); at least 3 stages must fit this many bytes.
+SPLIT_RING_BYTES = 192 * 1024
+# A ring of 4 stages where it stays within this many bytes (several CTAs an
+# SM hide the walk's latency), else 3.
+SPLIT_RING_TARGET = 64 * 1024
+# Slots a split walks at least (and 4 pages or more): 128 where a CTA holds
+# one row set (decode), 64 where it holds up to 16 rows (chunks, whose CTAs
+# do more work a page). 8-page splits were the fastest at the engine's
+# decode shape and 4-page ones at its T = 64 chunk (PERF.md, the paged rows).
+SPLIT_SLOTS = {True: 128, False: 64}
+SPLIT_MAX_PAGES = 64    # pages a split may walk (the kernel's list)
+SPLIT_THREADS = 128
+
+
+def split_route(q_dtype, page_dtype, mode, page_size, d, aligned=True):
+    """True where the split kernel takes the call: bf16 q over bf16 pages,
+    or over 1-byte pages in the "convert" or "qk" schedule; D <= 128 with
+    D % 8 == 0; a page's K (or V) slab of one KV head, ``page * D * elt``
+    bytes, and for 1-byte pages its scale plane, ``page * 4`` bytes,
+    multiples of 16; three stages of the ring within
+    :data:`SPLIT_RING_BYTES`; every tensor the copies read 16-byte aligned
+    (``aligned``). Everything else takes the first kernel."""
+    if q_dtype != torch.bfloat16 or mode == "full":
+        return False
+    quant = page_dtype in _FMT_CODE
+    if not quant and page_dtype != torch.bfloat16:
+        return False
+    if d > MAX_HEAD_DIM or d % 8:
+        return False
+    slab = page_size * d * (1 if quant else 2)
+    if slab % 16 or (quant and page_size % 4):
+        return False
+    return aligned and 3 * (2 * slab + (8 * page_size if quant else 0)) \
+        <= SPLIT_RING_BYTES
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(h, h_kv, q_len, d, page_size, pps, quantized):
+    """The split kernel's launch plan, from shapes only (lengths live on
+    the device): ``split_pages`` pages per split (at least 4 and
+    :data:`SPLIT_SLOTS` slots), ``n_splits`` to cover ``pps`` pages;
+    ``lg`` lanes a slot (8 columns a lane); ``rps`` rows a row set and
+    ``nrs`` row sets a CTA (a 1-row decode puts all 128 threads on its
+    slots); ``row_groups`` CTAs per KV head; ``stages`` of the ring."""
+    rows = (h // h_kv) * q_len
+    rps = 1 if rows == 1 else (2 if rows == 2 else 4)
+    sets = -(-rows // rps)
+    nrs = 1 if sets == 1 else (2 if sets == 2 else 4)
+    split_pages = min(SPLIT_MAX_PAGES,
+                      max(4, SPLIT_SLOTS[nrs == 1] // page_size))
+    stage = 2 * page_size * d * (1 if quantized else 2) + (
+        8 * page_size if quantized else 0)
+    return dict(
+        split_pages=split_pages, n_splits=-(-pps // split_pages),
+        lg=4 if d <= 32 else (8 if d <= 64 else 16), rps=rps, nrs=nrs,
+        row_groups=-(-rows // (rps * nrs)),
+        stages=max(3, min(4, SPLIT_RING_TARGET // stage)))
+
 
 
 def full_step_pages(page_size: int, pps: int) -> int:
@@ -244,9 +315,10 @@ def paged_attention(
 ) -> torch.Tensor:
     """Paged attention (module docstring). Returns o in q's shape and dtype.
 
-    Launches the CUDA kernel for CUDA tensors (counted in
-    ``paged_attention.launches``) and runs the plain version for CPU
-    tensors. Quantized pages pass both ``k_scales`` and ``v_scales``."""
+    Launches a CUDA kernel for CUDA tensors, the one :func:`split_route`
+    picks (counted in ``paged_attention.launches``; the split route also
+    in ``split_launches``), and runs the plain version for CPU tensors.
+    Quantized pages pass both ``k_scales`` and ``v_scales``."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError("pass both k_scales and v_scales, or neither")
     decode = q.dim() == 3
@@ -279,13 +351,36 @@ def paged_attention(
         return out[:, :, 0] if decode else out
     pps = page_indices.shape[1]
     lib = _build.load_kernel("paged_attention", _declare)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    aligned = all(x.data_ptr() % 16 == 0 for x in
+                  (qq, k_pages, v_pages, k_scales, v_scales) if x is not None)
+    if split_route(q.dtype, k_pages.dtype, mode, page_size, d, aligned):
+        plan = split_plan(h, h_kv, t, d, page_size, pps, quantized)
+        part = torch.empty(plan["n_splits"] * b * h * t * (d + 2),
+                           dtype=torch.float32, device=q.device)
+        err = lib.fat_paged_attention_split(
+            qq.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr() if quantized else None,
+            v_scales.data_ptr() if quantized else None,
+            page_indices.data_ptr(), lengths.data_ptr(), part.data_ptr(),
+            out.data_ptr(), b, h, h_kv, t, d, num_pages, page_size, pps,
+            float(softmax_scale), int(window) if window is not None else 0,
+            int(sinks), float(softcap) if softcap is not None else 0.0,
+            _FMT_CODE.get(k_pages.dtype, 0), _MODE_CODE[mode],
+            plan["split_pages"], plan["n_splits"], plan["lg"], plan["rps"],
+            plan["nrs"], plan["stages"], stream,
+        )
+        _build.check(err, "paged_attention split launch")
+        paged_attention.launches += 1
+        paged_attention.split_launches += 1
+        return out[:, :, 0] if decode else out
     err = lib.fat_paged_attention(
         qq.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_indices.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, h, h_kv, t, d, num_pages, page_size, pps,
         float(softmax_scale), int(window) if window is not None else 0,
         int(sinks), float(softcap) if softcap is not None else 0.0,
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        _DTYPE_CODE[q.dtype], stream,
     ) if not quantized else lib.fat_paged_attention_quant(
         qq.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr(), v_scales.data_ptr(),
@@ -294,8 +389,7 @@ def paged_attention(
         float(softmax_scale), int(window) if window is not None else 0,
         int(sinks), float(softcap) if softcap is not None else 0.0,
         _DTYPE_CODE[q.dtype], _FMT_CODE[k_pages.dtype], _MODE_CODE[mode],
-        full_step_pages(page_size, pps),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        full_step_pages(page_size, pps), stream,
     )
     _build.check(err, "paged_attention launch")
     paged_attention.launches += 1
@@ -303,6 +397,7 @@ def paged_attention(
 
 
 paged_attention.launches = 0
+paged_attention.split_launches = 0
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -315,4 +410,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fat_paged_attention_quant.argtypes = [
         p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, f, i, i, i,
         i, p,
+    ]
+    lib.fat_paged_attention_split.restype = ctypes.c_int
+    lib.fat_paged_attention_split.argtypes = [
+        p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, f, i, i,
+        i, i, i, i, i, i, p,
     ]

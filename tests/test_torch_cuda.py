@@ -75,7 +75,27 @@ CASES = {
                          lengths=[0, 9]), {}),
     "wide_rows_d128": (dict(b=1, h=16, h_kv=2, d=128, page=24, pps=4, q_len=12,
                             lengths=[90]), {}),
+    # The split page walk (decode splits of 128 slots, chunk splits of 64):
+    # one slot, exactly one split, one slot past its boundary, and empty.
+    "split_lengths": (dict(b=4, h=4, h_kv=4, d=32, page=16, pps=20, q_len=0,
+                           lengths=[1, 128, 129, 0]), {}),
+    # sinks, then a band of 26 pages across two 16-page splits
+    "split_window_sinks": (dict(b=2, h=8, h_kv=2, d=32, page=8, pps=40,
+                                q_len=0, lengths=[300, 150]),
+                           dict(window=200, sinks=20)),
+    "split_gqa_chunk64": (dict(b=1, h=12, h_kv=4, d=32, page=16, pps=8,
+                               q_len=64, lengths=[100]), {}),
+    "split_page24": (dict(b=3, h=4, h_kv=4, d=32, page=24, pps=8, q_len=0,
+                          lengths=[170, 24, 25]), {}),
 }
+# bf16 cases the split route must take (the counter checks it); fp32 takes
+# the first kernel.
+PAGED_SPLIT = {"decode_p16", "decode_p8", "chunk_p16", "chunk_p8",
+               "gqa_decode", "gqa_chunk", "window_sinks_decode",
+               "window_sinks_chunk", "window_chunk", "softcap",
+               "empty_decode", "empty_chunk", "wide_rows_d128",
+               "split_lengths", "split_window_sinks", "split_gqa_chunk64",
+               "split_page24"}
 
 
 def decode_rows(b=6, h=3, d=16, num_pages=10, page=8, seed=0):
@@ -112,14 +132,20 @@ def test_paged_attention_kernel_matches_plain(cuda_device, case, dtype):
     args = [torch.from_numpy(x).to(cuda_device) for x in paged_inputs(**shape)]
     for i in range(3):
         args[i] = args[i].to(dtype)
-    before = pa.paged_attention.launches
+    before = pa.paged_attention.launches, pa.paged_attention.split_launches
     o = pa.paged_attention(*args, **kw)
     torch.cuda.synchronize()
-    assert pa.paged_attention.launches == before + 1
+    split = int(dtype == torch.bfloat16 and case in PAGED_SPLIT)
+    assert (pa.paged_attention.launches - before[0],
+            pa.paged_attention.split_launches - before[1]) == (1, split)
     assert o.dtype == dtype and o.shape == args[0].shape
     ref = pa.paged_attention_plain(*args, **kw)
     tol = KERNEL_TOL[dtype]
     assert_allclose(o, ref, rtol=tol, atol=tol, err_msg=case)
+    # rows of empty sequences are exactly zero
+    for i, n in enumerate(shape["lengths"]):
+        if n == 0:
+            assert not o[i].any()
 
 
 @pytest.mark.cuda
@@ -432,6 +458,12 @@ QUANT_PAGED = {
     "qk_decode": ("decode_p16", "qk"), "qk_chunk": ("window_sinks_chunk", "qk"),
     "full_decode": ("gqa_decode", "full"),
     "full_window": ("window_sinks_chunk", "full"),
+    "split_lengths": ("split_lengths", None),
+    "split_lengths_convert": ("split_lengths", False),
+    "split_window": ("split_window_sinks", None),
+    "split_window_qk_chunk": ("window_sinks_chunk", "qk"),
+    "split_gqa_chunk": ("split_gqa_chunk64", None),
+    "split_page24": ("split_page24", None),
 }
 
 
@@ -449,10 +481,13 @@ def test_quantized_paged_attention_kernel_matches_plain(cuda_device, name,
     q = torch.from_numpy(q).to(cuda_device, dtype)
     pi, ln = (torch.from_numpy(x).to(cuda_device) for x in (pi, ln))
     kw = dict(kw, k_scales=ks, v_scales=vs, int8_qk=int8_qk)
-    before = pa.paged_attention.launches
+    before = pa.paged_attention.launches, pa.paged_attention.split_launches
     o = pa.paged_attention(q, k8, v8, pi, ln, **kw)
     torch.cuda.synchronize()
-    assert pa.paged_attention.launches == before + 1
+    # bf16 q takes the split route in every schedule but "full"
+    split = int(dtype == torch.bfloat16 and int8_qk != "full")
+    assert (pa.paged_attention.launches - before[0],
+            pa.paged_attention.split_launches - before[1]) == (1, split)
     assert o.dtype == dtype and o.shape == q.shape
     ref = pa.paged_attention_plain(q, k8, v8, pi, ln, **kw)
     tol = KERNEL_TOL[dtype]
@@ -492,7 +527,75 @@ def test_quantized_paged_append_kernel_bit_exact(cuda_device, quant, dtype):
                                w[:, phys[r]].view(torch.uint8))
 
 
-# name: ((b, h, h_kv, n, d), dtype, fp8_attention kwargs, extras)
+def _engine_decode_pages(quant, device, seed=0):
+    """The engine's decode shape (B = 32, 12 heads, D = 64, page 16, 512
+    slots a sequence): q, pages (quantized if ``quant``), table, lengths."""
+    q, kp, vp, pi, ln = paged_inputs(
+        b=32, h=12, h_kv=12, d=64, page=16, pps=32, q_len=0,
+        lengths=np.random.default_rng(seed).integers(0, 513, size=32),
+        seed=seed)
+    q = torch.from_numpy(q).to(device, torch.bfloat16)
+    pi, ln = (torch.from_numpy(x).to(device) for x in (pi, ln))
+    if quant is None:
+        return q, *(torch.from_numpy(x).to(device, torch.bfloat16)
+                    for x in (kp, vp)), pi, ln, {}
+    k8, ks, v8, vs = quantized_pages(kp, vp, quant, device)
+    return q, k8, v8, pi, ln, dict(k_scales=ks, v_scales=vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None] + QUANT_FORMATS)
+def test_paged_split_is_deterministic(cuda_device, quant):
+    """Two calls of the split route are bit-equal: splits merge in a fixed
+    order, with no atomics."""
+    q, kp, vp, pi, ln, kw = _engine_decode_pages(quant, cuda_device)
+    s0 = pa.paged_attention.split_launches
+    first = pa.paged_attention(q, kp, vp, pi, ln, **kw)
+    second = pa.paged_attention(q, kp, vp, pi, ln, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.split_launches - s0 == 2
+    assert torch.equal(first, second)
+    ref = pa.paged_attention_plain(q, kp, vp, pi, ln, **kw)
+    tol = KERNEL_TOL[torch.bfloat16]
+    assert_allclose(first, ref, rtol=tol, atol=tol, err_msg=str(quant))
+
+
+@pytest.mark.cuda
+def test_paged_first_kernel_on_split_inputs(cuda_device, monkeypatch):
+    """The first kernel still takes inputs the split route takes (as
+    chip_smoke.py times it beside the split route) and agrees with the
+    plain version there."""
+    q, kp, vp, pi, ln, _ = _engine_decode_pages(None, cuda_device)
+    monkeypatch.setattr(pa, "split_route", lambda *a: False)
+    s0 = pa.paged_attention.split_launches
+    o = pa.paged_attention(q, kp, vp, pi, ln)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.split_launches == s0
+    ref = pa.paged_attention_plain(q, kp, vp, pi, ln)
+    tol = KERNEL_TOL[torch.bfloat16]
+    assert_allclose(o, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_paged_split_failure_raises(cuda_device, monkeypatch):
+    """A split launch that reports an error raises; nothing falls back to
+    the first kernel or the plain version."""
+    q, kp, vp, pi, ln, _ = _engine_decode_pages(None, cuda_device)
+    calls = []
+
+    class Lib:  # the split entry fails (cudaErrorInvalidValue)
+        def __getattr__(self, name):
+            if name.endswith("_split"):
+                return lambda *args: 1
+            return lambda *args: calls.append(name) or 0
+
+    monkeypatch.setattr(pa._build, "load_kernel", lambda name, declare: Lib())
+    with pytest.raises(RuntimeError, match="paged_attention split launch"):
+        pa.paged_attention(q, kp, vp, pi, ln)
+    assert calls == []
+
+
+# name: ((b, h, h_kv, n[, n_k], d), dtype, fp8_attention kwargs, extras)
 FP8_CASES = {
     "e4m3_causal": ((1, 4, 4, 1024, 128), torch.bfloat16,
                     dict(causal=True, mode="fused"), ()),
@@ -519,13 +622,28 @@ FP8_CASES = {
                          dict(causal=False, mode="fused", fmt="e5m2"), ()),
     "d256_int8": ((1, 2, 2, 300, 256), torch.float32,
                   dict(causal=True, fmt="int8"), ()),
+    "int8_d64": ((2, 4, 4, 512, 64), torch.bfloat16,
+                 dict(causal=True, fmt="int8"), ()),
+    "e4m3_ragged_1000_d128": ((1, 4, 4, 1000, 128), torch.bfloat16,
+                              dict(causal=True, mode="fused"), ()),
+    "e4m3_nq_ne_nk_fp32": ((1, 4, 2, 600, 1000, 64), torch.float32,
+                           dict(causal=True, mode="fused"), ()),
+    "int8_nq_ne_nk_ragged": ((1, 4, 4, 384, 1000, 128), torch.bfloat16,
+                             dict(causal=True, fmt="int8"), ()),
 }
+# The cases the tensor-core route takes (int8_pv "bf16", D <= 128 with
+# D % 32 == 0); the s8 cases and D = 256 stay on the FMA kernel.
+FP8_TENSOR_CORE = {"e4m3_causal", "int8_causal", "e5m2_causal",
+                   "dropout_one_tile", "gqa_window_sinks_softcap",
+                   "segments_alibi", "fp32_ragged_full", "int8_d64",
+                   "e4m3_ragged_1000_d128", "e4m3_nq_ne_nk_fp32",
+                   "int8_nq_ne_nk_ragged"}
 
 
 def fp8_inputs(shape, dtype, extras, device, seed=0):
-    b, h, h_kv, n, d = shape
-    q, k, v, do, _, kw = flash_inputs((b, h, h_kv, n, n, d), dtype, extras,
-                                      device, seed)
+    b, h, h_kv, n, *n_k, d = shape
+    q, k, v, do, _, kw = flash_inputs((b, h, h_kv, n, (n_k or [n])[0], d),
+                                      dtype, extras, device, seed)
     return q, k, v, do, kw
 
 
@@ -543,11 +661,14 @@ def test_fp8_kernel_matches_plain(cuda_device, case):
     opts = fa.make_opts(q, k, **kw)
     q8, k8, v8, sq, sk, sv, bq, bk = fp8_attn.quantize_inputs(
         q, k, v, 512, bk, fmt)
-    before = fp8_attn.fp8_attention.launches
+    before = fp8_attn.fp8_attention.launches, fp8_attn.fp8_attention.tc_launches
     o, lse = fp8_attn.fp8_fwd(q8, k8, v8, sq, sk, sv, bq, bk, opts,
                               int8_pv=int8_pv, out_dtype=dtype)
     torch.cuda.synchronize()
-    assert fp8_attn.fp8_attention.launches == before + 1
+    tc = int(case in FP8_TENSOR_CORE)
+    assert tc == fp8_attn._tensor_core_route(int8_pv, q.shape[3], bk)
+    assert (fp8_attn.fp8_attention.launches - before[0],
+            fp8_attn.fp8_attention.tc_launches - before[1]) == (1, tc)
     o_ref, lse_ref = fp8_attn.fp8_fwd_plain(q8, k8, v8, sq, sk, sv, bq, bk,
                                             opts, int8_pv=int8_pv,
                                             out_dtype=dtype)
@@ -582,6 +703,28 @@ def test_fp8_attention_autograd_on_card_matches_cpu(cuda_device, ste):
         rtol, atol = ((1e-4, 1e-4) if name == "lse"
                       else flash_tol(torch.bfloat16, r))
         assert_allclose(a, r, rtol=rtol, atol=atol, err_msg=f"{ste} {name}")
+
+
+@pytest.mark.cuda
+def test_fp8_tensor_core_failure_raises(cuda_device, monkeypatch):
+    """A tensor-core launch of the 8-bit forward that reports an error
+    raises; nothing falls back to the FMA kernel or the plain version."""
+    q = torch.randn(1, 2, 256, 64, device=cuda_device)
+    args = fp8_attn.quantize_inputs(q, q, q, 512, 1024, "fp8")
+    opts = fa.make_opts(q, q, causal=True)
+    calls = []
+
+    class Lib:  # the tensor-core entry fails (cudaErrorInvalidValue)
+        def __getattr__(self, name):
+            if name.endswith("_sm90"):
+                return lambda *a: 1
+            return lambda *a: calls.append(name) or 0
+
+    monkeypatch.setattr(fp8_attn._build, "load_kernel",
+                        lambda name, declare: Lib())
+    with pytest.raises(RuntimeError, match="flash_fwd_fp8 launch"):
+        fp8_attn.fp8_fwd(*args, opts)
+    assert calls == []
 
 
 @pytest.mark.cuda

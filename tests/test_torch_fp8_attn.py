@@ -196,3 +196,30 @@ def test_prequant_matches_pallas():
         *(p for p, _ in tq), *(s for _, s in tq), causal=True,
         out_dtype=torch.float32)
     _check((np.asarray(jo), np.asarray(jl)), (to, tl), "prequant")
+
+
+@pytest.mark.parametrize("int8_pv, d, bk, want", [
+    ("bf16", 64, 1024, True),     # the training/BASELINE head dims
+    ("bf16", 128, 1024, True),
+    ("bf16", 32, 128, True),      # one k32 step
+    ("bf16", 96, 256, True),
+    ("s8", 128, 1024, False),     # p re-quantized per key block: FMA
+    ("bf16", 48, 1024, False),    # not whole k32 steps
+    ("bf16", 256, 1024, False),   # beyond the registers of a consumer
+    ("bf16", 64, 64, False),      # a key tile would span two v scales
+])
+def test_tensor_core_route_rule(int8_pv, d, bk, want):
+    """The 8-bit forward's route, from the inputs alone: wgmma for p in
+    bf16 with D <= 128, D % 32 == 0 and key blocks of whole 128s; the FMA
+    kernel otherwise."""
+    assert fp8_attn._tensor_core_route(int8_pv, d, bk) is want
+
+
+def test_kernel_path_blocks_take_the_tensor_core_route():
+    """The blocks fp8_attention quantizes in (ops/specs.fp8_kernel_blocks)
+    are whole 128s of keys for every length, so int8_pv="bf16" at D = 64 or
+    128 always takes the tensor cores."""
+    from flashattention_tpu_torch.ops.specs import fp8_kernel_blocks
+    for n in (1, 100, 200, 1000, 4096, 8192):
+        _, bk = fp8_kernel_blocks(n, n)
+        assert fp8_attn._tensor_core_route("bf16", 128, bk)

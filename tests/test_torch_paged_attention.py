@@ -98,3 +98,88 @@ def test_rejects_quantized_pages_and_bad_window():
         pa.paged_attention(q, kp, vp, pi, ln, k_scales=kp[..., :1])
     with pytest.raises(ValueError):
         pa.paged_attention(q, kp, vp, pi, ln, window=0)
+
+
+# name: (q dtype, page dtype, schedule, page, D, aligned, split route?)
+SPLIT_ROUTE = {
+    "bf16_decode": (torch.bfloat16, torch.bfloat16, "convert", 16, 64, True,
+                    True),
+    "bf16_page24_d128": (torch.bfloat16, torch.bfloat16, "convert", 24, 128,
+                         True, True),
+    "int8_qk": (torch.bfloat16, torch.int8, "qk", 16, 64, True, True),
+    "int8_convert": (torch.bfloat16, torch.int8, "convert", 16, 64, True,
+                     True),
+    "e4m3_page24": (torch.bfloat16, torch.float8_e4m3fn, "convert", 24, 64,
+                    True, True),
+    "e5m2": (torch.bfloat16, torch.float8_e5m2, "convert", 16, 64, True,
+             True),
+    "fp32": (torch.float32, torch.float32, "convert", 16, 64, True, False),
+    "fp32_q_int8": (torch.float32, torch.int8, "convert", 16, 64, True,
+                    False),
+    "int8_full": (torch.bfloat16, torch.int8, "full", 16, 64, True, False),
+    "d_not_8": (torch.bfloat16, torch.bfloat16, "convert", 16, 36, True,
+                False),
+    "d_above_128": (torch.bfloat16, torch.bfloat16, "convert", 16, 256, True,
+                    False),
+    # page 6 x D 8 x 1 byte = 48 bytes: 16-byte multiple, but a scale plane
+    # of 24 bytes is not
+    "e4m3_page6": (torch.bfloat16, torch.float8_e4m3fn, "convert", 6, 8,
+                   True, False),
+    # 2 x 8 bytes of a 1-byte slab: not a 16-byte multiple
+    "e4m3_slab_8": (torch.bfloat16, torch.float8_e4m3fn, "convert", 1, 8,
+                    True, False),
+    "bf16_page2_d8": (torch.bfloat16, torch.bfloat16, "convert", 2, 8, True,
+                      True),
+    "unaligned": (torch.bfloat16, torch.bfloat16, "convert", 16, 64, False,
+                  False),
+    # three stages of 2 x 512 x 128 x 2 bytes exceed the ring's budget
+    "ring_too_big": (torch.bfloat16, torch.bfloat16, "convert", 512, 128,
+                     True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_ROUTE))
+def test_split_route_rule(case):
+    """Which kernel a CUDA call takes, from its inputs alone."""
+    *args, want = SPLIT_ROUTE[case]
+    assert pa.split_route(*args) is want
+
+
+@pytest.mark.parametrize("page, q_len, pages", [(16, 1, 8), (8, 1, 16),
+                                                 (24, 1, 5), (64, 1, 4),
+                                                 (16, 64, 4), (8, 64, 8)])
+def test_split_plan_pages_per_split(page, q_len, pages):
+    """Splits of at least 4 pages: 128 slots at decode, 64 for chunks,
+    enough splits to cover every page of the table."""
+    plan = pa.split_plan(12, 12, q_len, 64, page, 40, False)
+    assert plan["split_pages"] == pages
+    assert plan["n_splits"] * pages >= 40
+    assert (plan["n_splits"] - 1) * pages < 40
+
+
+def test_split_plan_fills_the_card_at_the_engine_decode_shape():
+    """The serving engine's decode step (B = 32, GPT-3 Small's 12 heads,
+    D = 64, page 16, 512 slots a sequence) gives at least two CTAs per SM
+    of the H100's 132, where the first kernel had 384 CTAs of which one
+    warp in four computed."""
+    def ctas(b, plan):  # grid (B * H_kv, splits, row groups)
+        return b * 12 * plan["n_splits"] * plan["row_groups"]
+
+    plan = pa.split_plan(12, 12, 1, 64, 16, 32, False)
+    assert (plan["rps"], plan["nrs"], plan["lg"]) == (1, 1, 8)
+    assert ctas(32, plan) >= 2 * 132
+    chunk = pa.split_plan(12, 12, 64, 64, 16, 32, False)
+    assert ctas(1, chunk) >= 2 * 132  # the first kernel: 48
+
+
+@pytest.mark.parametrize("h, h_kv, q_len, rps, nrs, groups", [
+    (12, 12, 1, 1, 1, 1), (12, 6, 1, 2, 1, 1), (12, 4, 1, 4, 1, 1),
+    (12, 1, 1, 4, 4, 1), (12, 12, 64, 4, 4, 4), (12, 4, 64, 4, 4, 12),
+    (4, 4, 5, 4, 2, 1)])
+def test_split_plan_rows(h, h_kv, q_len, rps, nrs, groups):
+    """Rows of a KV head (GQA group x chunk) into row sets of rps rows,
+    nrs sets a CTA (at most 16 rows), row_groups CTAs."""
+    plan = pa.split_plan(h, h_kv, q_len, 64, 16, 32, False)
+    assert (plan["rps"], plan["nrs"], plan["row_groups"]) == (rps, nrs,
+                                                              groups)
+    assert plan["rps"] * plan["nrs"] * plan["row_groups"] >= (h // h_kv) * q_len
