@@ -3,6 +3,9 @@
     python3 chip_smoke.py                  # on a machine with an H100
     python3 chip_smoke.py --cpu-rehearsal  # control flow only, tiny, on CPU
 
+``scripts/profile_serving.py`` runs phase 3's and 3b's serving profile
+alone, also against the package of another checkout (an A/B on one card).
+
 Phases, in order; any failure exits nonzero:
 
 1. Identify the card (nvidia-smi name and power limit) and build every CUDA
@@ -13,7 +16,8 @@ Phases, in order; any failure exits nonzero:
    and int8; 24 in all) must show HGMMA (wgmma) and UTMALDG (TMA) in their
    SASS (cuobjdump) and spill nothing (ptxas report of this build); the 15
    paged split kernels must show UBLKCP (1-D bulk copies) and spill
-   nothing.
+   nothing; the 20 append kernels must spill nothing, and those of 8
+   elements a lane show 16-byte loads (LDG.E.128).
 2. Each kernel against its plain PyTorch version on the card: the paged
    kernels at the serving engine's shapes, each case on the route the
    wrapper picks (the split walk for bf16 q over bf16 and 1-byte pages,
@@ -36,7 +40,14 @@ Phases, in order; any failure exits nonzero:
    int8 (int8-qk and convert), e4m3 and e5m2 at the engine's decode shape,
    an e4m3 chunk, and bf16 vs int8 vs e4m3 at scripts/bench_decode.py's
    shape (paged limit; yardstick SDPA over pre-gathered dequantized K/V,
-   another function); the quantized append bit-exact. The FA3 8-bit
+   another function). The append (paged_append) in every page format
+   (bf16, fp32, int8, e4m3, e5m2) at the engine's decode step (B=32, T=1)
+   and at a prefill chunk (B=1, T=64), tokens as views of a fused QKV
+   projection: bit-exact against the plain version outside the dump page,
+   payloads and scales; the kernel's time, append_to_pages issued from the
+   host, the plain version, index_put_ (bf16 and fp32 pages), the byte
+   bound and the card's smallest launch (a one-element zero_, a floor and
+   not a bound). The FA3 8-bit
    forward (flash_fwd_fp8) in seven cases, each launched once through
    fp8_attention on the route it must take (checked: the tensor cores but
    for the s8 case), timed beside the FMA kernel on the same inputs, plus
@@ -62,14 +73,18 @@ Phases, in order; any failure exits nonzero:
    bf16, random weights from a seed): 64 requests, prompts of 32-400
    tokens, 64 new tokens each. Every launch count is set to 0 just before
    and read just after; each kernel must have run, 12 paged-attention and
-   12 append launches per decode step, every paged-attention launch (decode
-   and prefill chunk) on the split route. Then 20 decode steps at batch 32
-   under torch.profiler: the device's busy share and the top kernels.
+   12 append launches per decode step and per prefill chunk (those of
+   the chunks counted apart, T > 1), every paged-attention launch on the
+   split route. Then 32 admissions (128 prefill chunks) and 20 decode
+   steps at batch 32, on the host clock and again under torch.profiler:
+   wall ms, kernel ms and device ops per chunk and per step, the device's
+   busy share and the top kernels; host syncs per chunk and per step (sync
+   debug mode "warn") on the warm-up engine.
 4. The card engine's first-token logits (bf16) against the same engine on
    the CPU in float32 (plain versions), and greedy agreement over 16 steps.
 3b. Phase 3 with quant="fp8" pages (64 requests), then quant="int8" (16
    requests, decode through the int8-qk schedule), with the same launch
-   checks.
+   checks; phase 3's profile with fp8 pages.
 4b. The fp8 card engine's first-token logits against the fp8 engine on the
    CPU in float32, at the FP8 rung (1e-1 abs+rel); its distance to the bf16
    card engine and their greedy agreement are reported, not gated.
@@ -145,6 +160,10 @@ from flashattention_tpu_torch.serving import (
     EngineConfig,
     GenerationRequest,
     ServingEngine,
+)
+from flashattention_tpu_torch.serving.paged_kv import (
+    PagedKVCache,
+    append_to_pages,
 )
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM
@@ -452,112 +471,121 @@ def attention_case(timer, gen, dev, name, dtype, *, window=None, sinks=0,
     return rec
 
 
-def quant_append_case(timer, gen, dev, quant, *, b=32, h=12, d=64, page=16,
-                      max_len=512):
-    """The quantized decode append (bf16 tokens in, payload + scale out)
-    against its plain version: bit-exact outside the dump page."""
+APPEND_FORMATS = ("bf16", "fp32", "int8", "fp8", "e5m2")
+
+
+def append_case(timer, gen, dev, fmt, kind, *, h=12, d=64, page=16,
+                max_len=512):
+    """B7 through ``paged_append`` at the engine's decode step (B = 32, T =
+    1) or at a prefill chunk (B = 1, T = 64 from position 384), ``fmt``
+    pages, tokens as the head views of a fused QKV projection (bf16; fp32
+    for fp32 pages), against its plain version: bit-exact outside the dump
+    page, payloads and scales. Decode: a quarter of the slots idle on the
+    dump page as the engine routes them, one sequence full (its token
+    drops). Times: the kernel, ``append_to_pages`` issued from the host,
+    the plain version, ``index_put_`` of the kept tokens (bf16 and fp32
+    pages; a quantizing append has no library call), the byte bound and,
+    beside it, a floor that is not a bound: the card's smallest launch on
+    this stream (a one-element ``zero_``)."""
+    quant = None if fmt in ("bf16", "fp32") else fmt
+    src = torch.float32 if fmt == "fp32" else torch.bfloat16
     pps = -(-max_len // page)
-    num_pages = b * pps + 1
-    dump = 0
-    pages = quantize_pages(
-        torch.randn((h, num_pages, page, d), generator=gen).to(dev),
-        torch.randn((h, num_pages, page, d), generator=gen).to(dev), quant)
-    kn = torch.randn((b, h, d), generator=gen).to(dev, torch.bfloat16)
-    vn = torch.randn((b, h, d), generator=gen).to(dev, torch.bfloat16)
-    phys = (torch.randperm(num_pages - 1, generator=gen)[:b] + 1).to(torch.int32)
-    slot = torch.randint(0, page, (b,), generator=gen).to(torch.int32)
-    ok = torch.ones(b, dtype=torch.int32)
-    idle = torch.arange(b) % 4 == 3
-    phys[idle], slot[idle] = dump, 0
-    ok[b - 1] = 0
-    phys, slot, ok = phys.to(dev), slot.to(dev), ok.to(dev)
-    got = [t.clone() for t in pages]
-    want = [t.clone() for t in pages]
+    b, t = (32, 1) if kind == "decode" else (1, 64)
+    num_pages, dump = b * pps + 1, 0
+    noise = [torch.randn((h, num_pages, page, d), generator=gen).to(dev)
+             for _ in range(2)]
+    if quant:
+        pages = quantize_pages(*noise, quant)
+    else:
+        pages = [noise[0].to(src), None, noise[1].to(src), None]
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen).to(dev, src)
+    k, v = (x.reshape(b, t, h, d).transpose(1, 2)
+            for x in torch.split(qkv, h * d, dim=-1)[1:])
+    pi = (torch.randperm(num_pages - 1, generator=gen)[: b * pps] + 1
+          ).reshape(b, pps)
+    if kind == "decode":
+        lengths = torch.randint(0, max_len, (b,), generator=gen)
+        idle = torch.arange(b) % 4 == 3
+        pi[idle], lengths[idle] = dump, 0
+        lengths[b - 1] = max_len   # full: its token drops
+        valid = None
+    else:
+        lengths, valid = torch.tensor([max_len - 2 * t]), torch.tensor([t])
+    pi, lengths = pi.to(dev, torch.int32), lengths.to(dev, torch.int32)
+    if valid is not None:
+        valid = valid.to(dev, torch.int32)
+    got = [x if x is None else x.clone() for x in pages]
+    want = [x if x is None else x.clone() for x in pages]
 
-    def call(t):
-        return pap.paged_append(t[0], t[2], kn, vn, phys, slot, ok, t[1], t[3])
+    def kernel():
+        pap.paged_append(got[0], got[2], k, v, pi, lengths, valid, got[1],
+                         got[3])
 
-    call(got)
+    def plain():
+        pap.paged_append_plain(want[0], want[2], k, v, pi, lengths, valid,
+                               want[1], want[3])
+
+    before = pap.paged_append.launches
+    kernel()
     torch.cuda.synchronize()
-    pap.paged_append_plain(want[0], want[2], kn, vn, phys, slot, ok, want[1],
-                           want[3])
+    if pap.paged_append.launches != before + 1:
+        fail(f"paged_append {fmt} {kind}: not one launch")
+    plain()
     keep = torch.arange(num_pages, device=dev) != dump
     diff = sum(int((g[:, keep].view(torch.uint8)
                     != w[:, keep].view(torch.uint8)).sum())
-               for g, w in zip(got, want))
+               for g, w in zip(got, want) if g is not None)
     if diff:
-        fail(f"paged_append {quant}: {diff} bytes differ from the plain version")
-    ms, wall_ms = timer(lambda: call(got), reps=50), timer.wall(
-        lambda: call(got), reps=50)
-    plain_ms = timer(lambda: pap.paged_append_plain(
-        want[0], want[2], kn, vn, phys, slot, ok, want[1], want[3]), reps=50)
-    n_ok = int(ok.sum())
-    # bf16 tokens read; 1-byte payloads and fp32 scales written
-    nbytes = 2 * n_ok * h * (d * 2 + d + 4)
+        fail(f"paged_append {fmt} {kind}: {diff} bytes differ from the plain "
+             f"version")
+    cache = PagedKVCache(k_pages=got[0], v_pages=got[2], k_scales=got[1],
+                         v_scales=got[3], quant=quant)
+    ms = timer(kernel, reps=50)
+    wall_ms = timer.wall(lambda: append_to_pages(cache, k, v, pi, lengths,
+                                                 valid), reps=50)
+    plain_ms = timer(plain, reps=20)
+    tiny = torch.zeros(1, device=dev)
+    floor_ms = timer(tiny.zero_, reps=50)
+    # the tokens the kernel writes, as the plain version selects them
+    pos = lengths.long()[:, None] + torch.arange(t, device=dev)[None, :]
+    sel = pos < pps * page
+    if valid is not None:
+        sel &= torch.arange(t, device=dev)[None, :] < valid.long()[:, None]
+    n_kept = int(sel.sum())
+    library_ms = None
+    if not quant:
+        p_ok = pi.long().gather(1, (pos // page).clamp(max=pps - 1))[sel]
+        s_ok = (pos % page)[sel]
+        k_ok, v_ok = (x.transpose(1, 2)[sel].transpose(0, 1) for x in (k, v))
+
+        def library():  # advanced-index assignment: index_put_
+            want[0][:, p_ok, s_ok] = k_ok
+            want[2][:, p_ok, s_ok] = v_ok
+
+        library_ms = timer(library, reps=50)
+    # each input read once, each output written once: tokens, lengths,
+    # valid_len and the page-table entry of every written page in; the
+    # payloads (and scales) out
+    src_el, dst_el = qkv.element_size(), got[0].element_size()
+    n_pages = int(torch.unique((pos // page)[sel] + pps * torch.arange(
+        b, device=dev)[:, None].expand_as(pos)[sel]).numel())
+    nbytes = (2 * n_kept * h * (d * (src_el + dst_el) + (4 if quant else 0))
+              + 4 * b * (1 if valid is None else 2) + 4 * n_pages)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    rec = dict(case=f"{quant} decode append B={b} H_kv={h} D={d} page={page},"
-                    f" {int(idle.sum())} idle rows on the dump page, 1 ok=0",
+    rec = dict(case=f"{fmt} {kind} append B={b} T={t} H_kv={h} D={d} "
+                    f"page={page}, tokens as fused-projection views, "
+                    + ("8 idle slots on the dump page, 1 full sequence"
+                       if kind == "decode" else
+                       f"position {max_len - 2 * t}, valid_len {t}"),
                max_abs_err=0.0, tol=0.0, ms=ms, wall_ms=wall_ms,
-               plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-               bound_by="bytes")
-    log(f"[kernel] paged_append {quant}: bit-exact (dump page excluded)  "
-        f"kernel_ms {ms:.4f} (issued from the host: {wall_ms:.4f})  plain_ms "
-        f"{plain_ms:.4f}  library_ms n/a  bound_us {bound_ms * 1e3:.3f} "
-        f"(bytes)")
-    return rec
-
-
-def append_case(timer, gen, dev, dtype=torch.bfloat16, *, b=32, h=12, d=64,
-                page=16, max_len=512):
-    pps = -(-max_len // page)
-    num_pages = b * pps + 1
-    dump = 0
-    kp = torch.randn((h, num_pages, page, d), generator=gen).to(dev, dtype)
-    vp = torch.randn((h, num_pages, page, d), generator=gen).to(dev, dtype)
-    kn = torch.randn((b, h, d), generator=gen).to(dev, dtype)
-    vn = torch.randn((b, h, d), generator=gen).to(dev, dtype)
-    phys = (torch.randperm(num_pages - 1, generator=gen)[:b] + 1).to(torch.int32)
-    slot = torch.randint(0, page, (b,), generator=gen).to(torch.int32)
-    ok = torch.ones(b, dtype=torch.int32)
-    idle = torch.arange(b) % 4 == 3          # a quarter of the slots idle
-    phys[idle], slot[idle] = dump, 0         # as the engine routes them ...
-    ok[b - 1] = 0                            # ... and one row past capacity
-    phys, slot, ok = phys.to(dev), slot.to(dev), ok.to(dev)
-    kk, vk = kp.clone(), vp.clone()
-    pap.paged_append(kk, vk, kn, vn, phys, slot, ok)
-    torch.cuda.synchronize()
-    kr, vr = kp.clone(), vp.clone()
-    pap.paged_append_plain(kr, vr, kn, vn, phys, slot, ok)
-    keep = torch.arange(num_pages, device=dev) != dump  # dump page excluded
-    max_err = max(float((kk[:, keep].float() - kr[:, keep].float()).abs().max()),
-                  float((vk[:, keep].float() - vr[:, keep].float()).abs().max()))
-    if max_err != 0.0:
-        fail(f"paged_append: cache differs from the plain version ({max_err})")
-    call = lambda: pap.paged_append(kk, vk, kn, vn, phys, slot, ok)
-    ms, wall_ms = timer(call, reps=50), timer.wall(call, reps=50)
-    plain_ms = timer(lambda: pap.paged_append_plain(kr, vr, kn, vn, phys, slot,
-                                                    ok), reps=50)
-    sel = ok.bool()
-    p_ok, s_ok = phys[sel].long(), slot[sel].long()
-    k_ok, v_ok = kn[sel].transpose(0, 1), vn[sel].transpose(0, 1)
-
-    def library():  # advanced-index assignment: index_put_
-        kr[:, p_ok, s_ok] = k_ok
-        vr[:, p_ok, s_ok] = v_ok
-
-    library_ms = timer(library, reps=50)
-    n_ok = int(sel.sum())
-    nbytes = 2 * 2 * n_ok * h * d * kp.element_size()  # K,V read + written
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    rec = dict(case=f"decode append B={b} H_kv={h} D={d} page={page}, "
-                    f"{int(idle.sum())} idle rows on the dump page, 1 ok=0",
-               max_abs_err=max_err, tol=0.0, ms=ms, wall_ms=wall_ms,
-               plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes")
-    log(f"[kernel] paged_append: max_abs_err {max_err:.1e} (tol 0, dump page "
-        f"excluded)  kernel_ms {ms:.4f} (issued from the host: {wall_ms:.4f})"
-        f"  plain_ms {plain_ms:.4f}  library_ms "
-        f"{library_ms:.4f}  bound_us {bound_ms * 1e3:.3f} (bytes)")
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_by="bytes", floor_ms=floor_ms, tokens_written=n_kept)
+    log(f"[kernel] paged_append {fmt} {kind}: bit-exact (dump page excluded)"
+        f"  kernel_ms {ms:.4f} (append_to_pages issued from the host: "
+        f"{wall_ms:.4f})  plain_ms {plain_ms:.4f}  library_ms "
+        f"{'n/a' if library_ms is None else f'{library_ms:.4f}'}  bound_us "
+        f"{bound_ms * 1e3:.3f} (bytes)  floor_us {floor_ms * 1e3:.3f} "
+        f"(one-element zero_: the smallest launch, a floor, not a bound)")
     return rec
 
 
@@ -1130,8 +1158,12 @@ def phase_kernels(dev):
                               softcap=30.0),
         "fp32": attention_case(timer, gen, dev, "decode fp32 B=8 page=16",
                                torch.float32, b=8, page=16, q_len=0, **gpt3),
-        "append": append_case(timer, gen, dev),
     }
+    # B7 at the engine's decode step and at a prefill chunk, every format
+    for fmt in APPEND_FORMATS:
+        for kind in ("decode", "chunk"):
+            recs[f"append_{fmt}_{kind}"] = append_case(timer, gen, dev, fmt,
+                                                       kind)
     # Quantized pages: the engine's decode shape in every format and the
     # int8 schedules, an e4m3 chunk, and scripts/bench_decode.py's shape.
     for key, quant, int8_qk in (("int8_qk", "int8", None),
@@ -1149,8 +1181,6 @@ def phase_kernels(dev):
         recs[f"bench_decode_{quant or 'bf16'}"] = attention_case(
             timer, gen, dev, f"bench_decode B=64 H=8 D=128 len 2048 page 64 "
             f"{quant or 'bf16'}", bf, quant=quant, **bench)
-    for quant in ("fp8", "int8"):
-        recs[f"append_{quant}"] = quant_append_case(timer, gen, dev, quant)
     for key in FLASH_CASES:
         recs[f"flash_{key}"] = flash_case(timer, gen, dev, key)
         torch.cuda.empty_cache()
@@ -1172,8 +1202,10 @@ def phase_kernels(dev):
 def reset_counts():
     pa.paged_attention.launches = 0
     pa.paged_attention.split_launches = 0
+    pa.paged_attention.chunk_launches = 0
     f8.fp8_attention.tc_launches = 0
     pap.paged_append.launches = 0
+    pap.paged_append.chunk_launches = 0
     fa.kernel_attention.fwd_launches = 0
     fa.kernel_attention.bwd_launches = 0
     fa.kernel_attention.fwd_tc_launches = 0
@@ -1188,8 +1220,10 @@ def reset_counts():
 def read_counts():
     return {"paged_attention": pa.paged_attention.launches,
             "paged_attention_split": pa.paged_attention.split_launches,
+            "paged_attention_chunk": pa.paged_attention.chunk_launches,
             "flash_fwd_fp8_tc": f8.fp8_attention.tc_launches,
             "paged_append": pap.paged_append.launches,
+            "paged_append_chunk": pap.paged_append.chunk_launches,
             "flash_fwd": fa.kernel_attention.fwd_launches,
             "flash_bwd": fa.kernel_attention.bwd_launches,
             "flash_fwd_tc": fa.kernel_attention.fwd_tc_launches,
@@ -1199,6 +1233,14 @@ def read_counts():
             "sparse_bwd": sa.sparse_attention.bwd_launches,
             "sparse_fwd_tc": sa.sparse_attention.fwd_tc_launches,
             "sparse_bwd_tc": sa.sparse_attention.bwd_tc_launches}
+
+
+def serving_config():
+    """Phase 3's model and engine: GPT-3 Small widths in bf16, batch 32."""
+    return (TransformerConfig(dropout_rate=0.0),
+            EngineConfig(max_batch_size=32, page_size=16,
+                         num_pages=32 * 32 + 1, max_seq_len=512,
+                         prefill_pad=64))
 
 
 def phase_engine(cfg, params, ecfg, dev, n_req, prompt_range, n_new, on_card):
@@ -1249,14 +1291,14 @@ def phase_engine(cfg, params, ecfg, dev, n_req, prompt_range, n_new, on_card):
         f"decode steps {st['decode_steps']}")
     if on_card:
         n_layers = cfg.n_layers
-        want_app = n_layers * st["decode_steps"]
         want_att = n_layers * (st["decode_steps"] + st["prefill_chunks"])
         for name in ("paged_attention", "paged_append"):
             if counts[name] <= 0:
                 fail(f"engine phase launched {name} no time")
-        if counts["paged_append"] != want_app:
+        if counts["paged_append"] != want_att:
             fail(f"paged_append launched {counts['paged_append']} times, "
-                 f"want {n_layers} per decode step = {want_app}")
+                 f"want {n_layers} per decode step and prefill chunk = "
+                 f"{want_att}")
         if counts["paged_attention"] != want_att:
             fail(f"paged_attention launched {counts['paged_attention']} times,"
                  f" want {n_layers} per decode step and prefill chunk = "
@@ -1265,11 +1307,16 @@ def phase_engine(cfg, params, ecfg, dev, n_req, prompt_range, n_new, on_card):
             fail(f"paged_attention took the split route "
                  f"{counts['paged_attention_split']} times, want every one of"
                  f" its {want_att} launches")
-        log(f"[engine] per decode step: {n_layers} paged_attention + "
-            f"{n_layers} paged_append launches, every paged_attention launch "
-            f"({n_layers * st['decode_steps']} decode, "
-            f"{n_layers * st['prefill_chunks']} chunk) on the split route "
-            f"(checked)")
+        want_chunk = n_layers * st["prefill_chunks"]
+        for name in ("paged_attention", "paged_append"):
+            if counts[f"{name}_chunk"] != want_chunk:
+                fail(f"{name} launched {counts[f'{name}_chunk']} times at "
+                     f"T > 1, want {n_layers} per prefill chunk = "
+                     f"{want_chunk}")
+        log(f"[engine] per decode step and per prefill chunk: {n_layers} "
+            f"paged_attention + {n_layers} paged_append launches, every "
+            f"paged_attention launch ({n_layers * st['decode_steps']} decode,"
+            f" {want_chunk} chunk, counted) on the split route (checked)")
     return rec
 
 
@@ -1284,46 +1331,132 @@ def device_kernels(prof) -> dict[str, float]:
     return kernels
 
 
+def device_ops(prof) -> int:
+    """Device operations (kernels, copies, memsets) of a torch.profiler
+    run."""
+    return sum(e.count for e in prof.key_averages()
+               if (getattr(e, "self_device_time_total", 0) or 0) > 0
+               and "CUDA" in str(getattr(e, "device_type", "")))
+
+
+def count_syncs(fn) -> int:
+    """Host syncs that PyTorch ops made in ``fn()`` (sync debug mode
+    "warn": one warning each)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _window(prof, wall, n, unit, tag):
+    """Per-``unit`` wall ms, kernel ms, device ops, busy share and top
+    kernels of a profiled window of ``n`` units."""
+    kernels = device_kernels(prof)
+    busy = sum(kernels.values()) / 1e6
+    rec = dict(count=n, wall_ms=wall / n * 1e3,
+               kernel_ms=busy / n * 1e3 if kernels else None,
+               device_ops=device_ops(prof) / n if kernels else None,
+               device_busy_share=busy / wall if kernels else None,
+               top=sorted(((k, v / n / 1e3) for k, v in kernels.items()),
+                          key=lambda kv: -kv[1])[:10])
+    if not kernels:
+        log(f"[profile{tag}] the profiler recorded no device time: not "
+            f"measured")
+        return rec
+    log(f"[profile{tag}] {n} {unit}s: {rec['wall_ms']:.3f} ms/{unit} wall, "
+        f"kernels {rec['kernel_ms']:.3f} ms/{unit}, {rec['device_ops']:.1f} "
+        f"device ops/{unit}, device busy {100 * rec['device_busy_share']:.1f}%")
+    for k, v in rec["top"]:
+        log(f"[profile{tag}]   {v:.4f} ms/{unit}  {k[:90]}")
+    return rec
+
+
 def phase_profile(cfg, params, ecfg, dev, steps=20):
-    """Where a decode step's time goes: 32 requests admitted, then
-    ``steps`` decode-only steps under torch.profiler. Device busy share =
-    summed kernel time over the window's wall time."""
+    """Where a prefill chunk's and a decode step's time goes. 32 requests
+    of 200-token prompts: their admission (128 chunks of 64; each
+    admission's first-token logits and readback included), then ``steps``
+    decode-only steps at batch 32, first timed on the host clock alone,
+    then on a fresh engine under torch.profiler. Per chunk and per step:
+    wall ms (both), kernel ms, device ops (kernels, copies, memsets), the
+    device's busy share (kernel time over the profiled wall time) and the
+    top kernels. On the card, the warm-up engine (first calls: library
+    handles, kernel loads) counts the host syncs per chunk and per step.
+    Admission is timed apart from decoding through the engine's
+    ``_admit``."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(SEED + 2)
     plen = min(200, ecfg.max_seq_len // 2)
-    eng = ServingEngine(params, cfg, ecfg, device=dev)
-    for i in range(ecfg.max_batch_size):
-        eng.submit(GenerationRequest(
-            i, [int(t) for t in rng.integers(0, cfg.vocab_size, size=plen)],
-            steps + 8))
-    eng.step()  # admits every request (prefill) and decodes once
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=plen)]
+               for _ in range(ecfg.max_batch_size)]
+    tag = f" {ecfg.quant}" if ecfg.quant else ""
+
+    def engine():
+        eng = ServingEngine(params, cfg, ecfg, device=dev)
+        for i, prompt in enumerate(prompts):
+            eng.submit(GenerationRequest(i, prompt, steps + 8))
+        return eng
+
+    warm = engine()
+    if torch.device(dev).type == "cuda":
+        syncs = (count_syncs(warm._admit) / warm.stats["prefill_chunks"],
+                 count_syncs(lambda: [warm.step() for _ in range(4)]) / 4)
+    else:
+        warm.step()
+    del warm
+    # the same windows without the profiler: wall ms per chunk and step
+    eng = engine()
+    sync(dev)
+    t0 = time.perf_counter()
+    eng._admit()
+    sync(dev)
+    chunk_ms = (time.perf_counter() - t0) / eng.stats["prefill_chunks"] * 1e3
+    eng.step()
+    eng.step()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    sync(dev)
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    log(f"[profile{tag}] unprofiled: {chunk_ms:.3f} ms/chunk, {step_ms:.3f} "
+        f"ms/step wall")
+    del eng
+    eng = engine()
+    sync(dev)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng._admit()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    rec = {"prefill": _window(prof, wall, eng.stats["prefill_chunks"],
+                              "chunk", tag)}
+    eng.step()
     eng.step()
     if eng._num_active() != ecfg.max_batch_size:
         fail("profile window: not every decode slot is busy")
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         sync(dev)
         wall = time.perf_counter() - t0
-    kernels = device_kernels(prof)
-    busy = sum(kernels.values()) / 1e6
-    step_ms = wall / steps * 1e3
-    rec = dict(steps=steps, batch=ecfg.max_batch_size, step_ms=step_ms,
-               device_busy_share=(busy / wall) if kernels else None,
-               kernel_ms_per_step=busy / steps * 1e3 if kernels else None,
-               top=sorted(((k, v / steps / 1e3) for k, v in kernels.items()),
-                          key=lambda kv: -kv[1])[:10])
-    if not kernels:
-        log("[profile] the profiler recorded no device time: not measured")
-        return rec
-    log(f"[profile] {steps} decode steps at batch {ecfg.max_batch_size}: "
-        f"{step_ms:.3f} ms/step wall, kernels {rec['kernel_ms_per_step']:.3f}"
-        f" ms/step, device busy {100 * rec['device_busy_share']:.1f}%")
-    for k, v in rec["top"]:
-        log(f"[profile]   {v:.4f} ms/step  {k[:90]}")
+    rec["decode"] = _window(prof, wall, steps, "step", tag)
+    rec["prefill"]["unprofiled_wall_ms"] = chunk_ms
+    rec["decode"]["unprofiled_wall_ms"] = step_ms
+    rec["batch"] = ecfg.max_batch_size
+    if torch.device(dev).type == "cuda":
+        rec["prefill"]["syncs"], rec["decode"]["syncs"] = syncs
+        log(f"[profile{tag}] host syncs: {rec['prefill']['syncs']:.2f} a "
+            f"prefill chunk, {rec['decode']['syncs']:.2f} a decode step")
     return rec
 
 
@@ -1853,6 +1986,44 @@ def split_report():
     return out
 
 
+# The append kernels: bf16 and fp32 tokens into five page formats, each
+# with 8 elements a lane (16-byte accesses) and with one.
+APPEND_KERNELS = 20
+
+
+def append_report():
+    """Phase 1's report of B7: per append kernel its registers and spill
+    bytes (this build's ptxas report) and its 16-byte global loads
+    (LDG.E.128) in the SASS. Fails if one spills or is missing, or if an
+    instantiation of 8 elements a lane has no 16-byte load."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass",
+                           str(_build.kernel_path("paged_append"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    ptxas = ptxas_entries(_build.BUILD_LOG.get("paged_append", ""))
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split()[0]
+        if "paged_append_tokens_kernel" not in fn:
+            continue
+        regs, spill = ptxas.get(fn, (None, None))
+        out[fn] = dict(ldg128=part.count("LDG.E.128"), registers=regs,
+                       spill_bytes=spill)
+        log(f"[sass] paged_append: {fn}: {out[fn]['ldg128']} LDG.E.128; "
+            f"ptxas: {regs} registers, {spill} spill bytes")
+        if spill is None:
+            fail(f"{fn}: no ptxas report from this run's build")
+        if spill:
+            fail(f"{fn}: spills {spill} bytes")
+        if fn.endswith("Li8EEEvNS_10AppendArgsE") and not out[fn]["ldg128"]:
+            fail(f"{fn}: 8 elements a lane but no 16-byte load")
+    if len(out) != APPEND_KERNELS:
+        fail(f"paged_append: expected {APPEND_KERNELS} kernels, found "
+             f"{len(out)}")
+    return out
+
+
 def sass_report():
     """Phase 1's check that the tensor-core routes are what they claim: per
     kernel of the flash and sparse libraries, the HGMMA (wgmma) and UTMALDG
@@ -1938,13 +2109,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-
-    # Phase 1
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     log(f"[card] {smi}")
+    cfg, ecfg = serving_config()
+
+    # Phase 1
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     # every kernel is built anew, so the ptxas report checked below is
@@ -1960,20 +2132,18 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {name}: {line.strip()}")
     report.update(card=smi, build_s=per, tensor_core_kernels=sass_report(),
-                  paged_split_kernels=split_report())
+                  paged_split_kernels=split_report(),
+                  append_kernels=append_report())
 
     # Phase 2
     report["kernels"] = phase_kernels(dev)
 
     # Phase 3
-    cfg = TransformerConfig(dropout_rate=0.0)  # GPT-3 Small, bf16
     t0 = time.perf_counter()
     params = init_params(cfg, seed=SEED, device="cpu")  # float32, host
     log(f"[engine] GPT-3 Small widths ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab_size}), "
         f"random weights seed {SEED} in {time.perf_counter() - t0:.1f} s")
-    ecfg = EngineConfig(max_batch_size=32, page_size=16, num_pages=32 * 32 + 1,
-                        max_seq_len=512, prefill_pad=64)
     report["engine"] = phase_engine(cfg, params, ecfg, dev, 64, (32, 400), 64,
                                     on_card=True)
 
@@ -1987,6 +2157,8 @@ def main() -> int:
         report[f"engine_{quant}"] = phase_engine(
             cfg, params, dataclasses.replace(ecfg, quant=quant), dev, n_req,
             (32, 400), 64, on_card=True)
+    report["profile_fp8"] = phase_profile(
+        cfg, params, dataclasses.replace(ecfg, quant="fp8"), dev)
 
     # Phase 4b
     report["vs_cpu_fp8"] = phase_vs_cpu(cfg, params, dev, 100, 16, quant="fp8")
@@ -2021,34 +2193,37 @@ def main() -> int:
     kernels = []
     layers = cfg.n_layers
 
-    def paged_split(run):  # launches of an engine run by kind and route
-        e = report[run]
-        return dict(launches_decode=layers * e["decode_steps"],
-                    launches_chunk=layers * e["prefill_chunks"],
-                    launches_split=e["launches"]["paged_attention_split"])
+    def by_kind(run, name):  # counted launches of an engine run by kind
+        c = report[run]["launches"]
+        more = dict(launches_decode=c[name] - c[f"{name}_chunk"],
+                    launches_chunk=c[f"{name}_chunk"])
+        if name == "paged_attention":
+            more["launches_split"] = c["paged_attention_split"]
+        return c[name], c[f"{name}_chunk"], more
 
     # (kernel, name in the record, phase-2 case, launches of its main path,
-    # more keys). paged_attention: the engine's decode case carries the
-    # whole run's launches; the chunk rows carry the prefill chunks'.
-    for name, tag, case, n, more in (
-        ("paged_attention", "paged_attention", "decode",
-         counts["paged_attention"], paged_split("engine")),
-        ("paged_attention", "paged_attention[chunk]", "chunk",
-         layers * report["engine"]["prefill_chunks"], {}),
-        ("paged_attention", "paged_attention[int8]", "decode_int8_qk",
-         report["engine_int8"]["launches"]["paged_attention"],
-         paged_split("engine_int8")),
-        ("paged_attention", "paged_attention[fp8]", "decode_fp8",
-         report["engine_fp8"]["launches"]["paged_attention"],
-         paged_split("engine_fp8")),
-        ("paged_attention", "paged_attention[chunk,fp8]", "chunk_fp8",
-         layers * report["engine_fp8"]["prefill_chunks"], {}),
-        ("paged_append", "paged_append", "append", counts["paged_append"], {}),
-        ("paged_append", "paged_append[int8]", "append_int8",
-         report["engine_int8"]["launches"]["paged_append"], {}),
-        ("paged_append", "paged_append[fp8]", "append_fp8",
-         report["engine_fp8"]["launches"]["paged_append"], {}),
+    # more keys), every launch count as counted in phase 3/3b: the decode
+    # rows carry the whole run's launches and their split by kind (T = 1,
+    # T > 1), the chunk rows the run's T > 1 launches.
+    rows = []
+    for name, cases in (
+        ("paged_attention", (("engine", "", "decode", "chunk"),
+                             ("engine_int8", "int8", "decode_int8_qk", None),
+                             ("engine_fp8", "fp8", "decode_fp8",
+                              "chunk_fp8"))),
+        ("paged_append", tuple((f"engine{q and '_' + q}", q,
+                                f"append_{q or 'bf16'}_decode",
+                                f"append_{q or 'bf16'}_chunk")
+                               for q in ("", "int8", "fp8"))),
     ):
+        for run, q, decode_case, chunk_case in cases:
+            n, n_chunk, more = by_kind(run, name)
+            rows.append((name, f"{name}[{q}]" if q else name, decode_case, n,
+                         more))
+            if chunk_case:
+                rows.append((name, f"{name}[chunk{q and ',' + q}]",
+                             chunk_case, n_chunk, {}))
+    for name, tag, case, n, more in rows:
         r = report["kernels"][case]
         kernels.append(dict(
             name=tag, **KERNELS[name], launches=n, **more,
@@ -2056,7 +2231,7 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], yardstick_ms=r.get("yardstick_ms"),
             case=r["case"], **{k: r[k] for k in (
-                "wall_ms", "first_ms", "first_wall_ms") if k in r},
+                "wall_ms", "first_ms", "first_wall_ms", "floor_ms") if k in r},
             **({"path": r["route"]} if "route" in r else {}),
         ))
     # flash_fwd / flash_bwd: launches of the training phase (all on the

@@ -9,8 +9,8 @@ tensors run on the card unless given ``device="cpu"``.
 Ported so far:
 
 - the paged serving engine (``serving``) with its two kernels, paged
-  attention (``ops.paged_attention``) and the in-place decode append
-  (``ops.paged_append``);
+  attention (``ops.paged_attention``) and the in-place append of decode
+  tokens and prefill chunks (``ops.paged_append``);
 - training (``models.train``): the dense decoder forward
   (``models.transformer.apply_transformer``) over the flash-attention
   forward and backward kernels (``ops.flash_attn``), the attention API

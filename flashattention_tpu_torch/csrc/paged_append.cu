@@ -1,207 +1,375 @@
-// In-place decode append into the paged KV cache on Hopper (sm_90a).
+// Append of new K/V tokens into the paged KV cache on Hopper (sm_90a), at a
+// decode step (T = 1) and at a prefill chunk (T > 1), in one launch.
 //
 // Replaces: flashattention_tpu/ops/pallas_append.py, function _kernel
-// (launched by pallas_append_decode).
+// (launched by pallas_append_decode), together with the index arithmetic
+// and the prefill scatter around it in flashattention_tpu/serving/paged_kv.py
+// (append_to_pages), which the JAX package jits into one program. The TPU
+// kernel gets each sequence's physical page, slot and keep flag by scalar
+// prefetch; this kernel computes them itself from the page table and the
+// lengths.
 //
-// Contract. k_new, v_new (B, H_kv, D) hold one token per sequence; row b is
-// written into k_pages, v_pages (H_kv, P, page, D) at physical page phys[b],
-// slot slot[b], for every KV head, where ok[b] is nonzero. Rows with ok[b]
-// zero (or an index out of range) write nothing. The pages are updated in
-// place.
+// Contract (fat_paged_append_tokens). k_pages, v_pages (H_kv, P, page, D)
+// hold bf16, fp32, int8, e4m3 or e5m2 values; 1-byte pages carry fp32
+// scales k_scales, v_scales (H_kv, P, page) beside them. The new tokens
+// k_new, v_new (B, H_kv, T, D) are bf16 or fp32, given as a pointer and
+// element strides for B, H_kv and T (D has stride 1), so the head views of
+// a fused QKV projection go in without a copy. page_indices (B, pps) int32
+// with row stride pi_stride, lengths (B,) int32 (before the append) and
+// valid_len (B,) int32 or null. Token (b, t) goes to position
+// pos = lengths[b] + t: physical page page_indices[b, pos / page], slot
+// pos % page. It writes nothing, payload or scale, where pos < 0, where
+// pos >= pps * page, where t >= valid_len[b], or where the physical page is
+// outside [0, P). The kernel never reads the cache. Several rows may name
+// one (page, slot), as the serving engine's idle decode slots all name slot
+// 0 of its dump page: which row lands there is unspecified.
 //
-// Unlike the TPU kernel, which runs its grid in order and rewrites a whole
-// 16-slot sub-block (read-modify-write), blocks here run concurrently: the
-// serving engine points every idle decode slot at slot 0 of one shared dump
-// page, so several blocks may write that one row at once. Each block
-// therefore writes only its own (H_kv, D) row, and never reads a byte of the
-// cache back. Which idle row lands on the dump page is unspecified; nothing
-// reads it.
+// Conversions, with the bits of the PyTorch ops of the plain version: bf16
+// into fp32 pages is exact, fp32 into bf16 pages rounds to nearest even
+// (__float2bfloat16_rn, as .to() does), like types are copied as raw bits.
+// 1-byte pages quantize each (b, t, K|V, head) row over D, as
+// ops/quant.quantize_tokens does: scale = max(absmax * (1 / qmax), 1e-6)
+// with the fp32 reciprocal passed in, payload = x / scale (an IEEE
+// division), rounded half to even with __float2int_rn for int8 and
+// converted round-to-nearest-even with __NV_SATFINITE for fp8, which gives
+// the unclamped cast's bytes because |x / scale| rounds to at most qmax.
 //
-// Quantized caches (fat_paged_append_quant): the pages hold int8, e4m3 or
-// e5m2 payloads with per-slot fp32 scales k_scales, v_scales (H_kv, P, page).
-// The kernel takes the tokens in bf16 or fp32 and quantizes each (row, head)
-// over D in the same launch, as paged_kv._quantize_tokens does inside the
-// JAX package's jitted append: scale = max(absmax * (1 / qmax), 1e-6) (the
-// reciprocal passed in as fp32), payload = x / scale (an IEEE division; the
-// build has no fast-math), rounded half to even with __float2int_rn for int8
-// and converted round-to-nearest-even with __NV_SATFINITE for fp8, which
-// gives the unclamped cast's bytes because |x / scale| rounds to at most
-// qmax. One warp owns one head's row: the absmax is a warp reduction, lane 0
-// writes the scale. Rows with ok[b] zero write neither payload nor scale.
+// What bounds it on this card: latency, not bytes. A decode step of the
+// serving engine (B = 32, H_kv = 12, D = 64, bf16) moves about 100 KB, some
+// 30 ns of HBM time, against a few microseconds for the launch and two
+// dependent reads from device memory (lengths, then the page-table entry)
+// before the first store.
 //
-// What bounds it on this card: launch latency. It moves 2 * B * H_kv * D
-// elements read and written (about 100 KB at B = 32, H_kv = 12, D = 64 in
-// bfloat16), some 60 ns of HBM time against a few microseconds of launch.
-// The design keeps it to one launch for K and V together, one block per
-// sequence, with elements copied as raw bits (2 or 4 bytes) and neighbouring
-// threads on neighbouring addresses.
+// What the design does about it. One lane group per (b, t, K|V, head)
+// row: G lanes (G = D / 8 rounded up to a power of two, at most 32) hold
+// the row, 8 elements a lane, with 16-byte loads and stores, neighbouring
+// lanes on neighbouring addresses; rows are ordered (b, t, K|V,
+// head), so a block reads one contiguous run of a fused projection. The grid
+// has one lane group per row (768 rows at the engine's decode step, 1536 at
+// a 64-token chunk). Each lane issues its token load and the loads of
+// lengths[b] and valid_len[b] before the page-table load that needs the
+// length, so the store waits on two round trips to device memory, the
+// second for one 4-byte entry. On an NVIDIA H100 (700 W) a call takes
+// 1.3-1.4x the time of the card's smallest launch, a one-element zero_
+// (PERF.md). For
+// 1-byte pages the absmax is a shuffle inside the lane group and one lane
+// writes the scale. Where D is not a multiple of 8, or a tensor or stride
+// is not 16-byte aligned, the same kernel is instantiated with one element
+// a lane (W = 1); the host picks the instantiation.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMaxChunks = 8;  // elements a lane holds at W = 1
+constexpr int kMaxD = 256;     // kMaxChunks * 32 lanes at W = 1, 32 * 8 at W = 8
 
-template <typename E>
-__global__ void __launch_bounds__(kThreads)
-paged_append_kernel(E* __restrict__ k_pages, E* __restrict__ v_pages,
-                    const E* __restrict__ k_new, const E* __restrict__ v_new,
-                    const int32_t* __restrict__ phys,
-                    const int32_t* __restrict__ slot,
-                    const int32_t* __restrict__ ok, int H, int num_pages,
-                    int page_size, int D) {
-  const int b = blockIdx.x;
-  if (!ok[b]) return;
-  const int p = phys[b], s = slot[b];
-  if (p < 0 || p >= num_pages || s < 0 || s >= page_size) return;
-  const size_t src = (size_t)b * H * D;
-  for (int i = threadIdx.x; i < H * D; i += kThreads) {
-    const int h = i / D, d = i % D;
-    const size_t dst = (((size_t)h * num_pages + p) * page_size + s) * D + d;
-    k_pages[dst] = k_new[src + i];
-    v_pages[dst] = v_new[src + i];
-  }
-}
+// Page formats (page_fmt) and token types (src_dtype) of the C interface.
+enum PageFmt { kBf16 = 0, kF32 = 1, kInt8 = 2, kE4m3 = 3, kE5m2 = 4 };
 
-template <typename S>
-__device__ __forceinline__ float to_float(S x);
-
+template <int FMT>
+struct PageType {
+  using type = uint8_t;
+};
 template <>
-__device__ __forceinline__ float to_float<float>(float x) {
-  return x;
-}
-
+struct PageType<kBf16> {
+  using type = __nv_bfloat16;
+};
 template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
+struct PageType<kF32> {
+  using type = float;
+};
+
+struct AppendArgs {
+  void* k_pages;
+  void* v_pages;
+  float* k_scales;  // 1-byte pages, else null
+  float* v_scales;
+  const void* k_new;
+  const void* v_new;
+  long long k_sb, k_sh, k_st;  // element strides of B, H_kv, T
+  long long v_sb, v_sh, v_st;
+  const int32_t* page_indices;
+  long long pi_stride;
+  const int32_t* lengths;
+  const int32_t* valid_len;  // null: every token of the T is valid
+  int B, T, H, num_pages, page_size, pps, D;
+  int lanes_log2;       // lanes a row, log2
+  int chunks_per_lane;  // 1 at W = 8, <= kMaxChunks at W = 1
+  float inv_qmax;
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// FMT: 1 = int8, 2 = e4m3, 3 = e5m2.
+template <typename Dt, typename S>
+__device__ __forceinline__ Dt convert(S x) {
+  if constexpr (std::is_same_v<Dt, S>) {
+    return x;
+  } else if constexpr (std::is_same_v<Dt, float>) {
+    return __bfloat162float(x);
+  } else {
+    return __float2bfloat16_rn(x);
+  }
+}
+
 template <int FMT>
 __device__ __forceinline__ uint8_t encode(float y) {
-  if (FMT == 1) return (uint8_t)(int8_t)__float2int_rn(y);
-  return (uint8_t)__nv_cvt_float_to_fp8(
-      y, __NV_SATFINITE, FMT == 2 ? __NV_E4M3 : __NV_E5M2);
+  if constexpr (FMT == kInt8) {
+    return (uint8_t)(int8_t)__float2int_rn(y);
+  } else {
+    return (uint8_t)__nv_cvt_float_to_fp8(
+        y, __NV_SATFINITE, FMT == kE4m3 ? __NV_E4M3 : __NV_E5M2);
+  }
+}
+
+// W elements at p: 16-byte accesses where W elements fill whole 16 bytes
+// (W = 8: bf16 and fp32 tokens, bf16 and fp32 pages), one 8-byte access for
+// 8 one-byte payloads, element by element at W = 1.
+template <typename T, int W>
+__device__ __forceinline__ void load_chunk(const T* __restrict__ p,
+                                           T (&x)[W]) {
+  constexpr int kBytes = W * (int)sizeof(T);
+  if constexpr (kBytes % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < kBytes / 16; ++i) {
+      reinterpret_cast<uint4*>(x)[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) x[i] = p[i];
+  }
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void store_chunk(T* __restrict__ p,
+                                            const T (&y)[W]) {
+  constexpr int kBytes = W * (int)sizeof(T);
+  if constexpr (kBytes % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < kBytes / 16; ++i) {
+      reinterpret_cast<uint4*>(p)[i] = reinterpret_cast<const uint4*>(y)[i];
+    }
+  } else if constexpr (kBytes == 8) {
+    *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(y);
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) p[i] = y[i];
+  }
+}
+
+template <typename S, int FMT, int W>
+__global__ void __launch_bounds__(kThreads)
+paged_append_tokens_kernel(const AppendArgs a) {
+  using Dt = typename PageType<FMT>::type;
+  constexpr int NC = W == 1 ? kMaxChunks : 1;  // chunks a lane holds
+  const int G = 1 << a.lanes_log2;
+  const int lane = threadIdx.x & (G - 1);
+  const int rows = a.B * a.T * 2 * a.H;
+  const int row = blockIdx.x * (kThreads >> a.lanes_log2) +
+                  (threadIdx.x >> a.lanes_log2);
+  const bool live = row < rows;
+  // row = ((b * T + t) * 2 + kv) * H + h
+  int h = 0, kv = 0, t = 0, b = 0;
+  if (live) {
+    int r = row;
+    h = r % a.H;
+    r /= a.H;
+    kv = r & 1;
+    r >>= 1;
+    t = r % a.T;
+    b = r / a.T;
+  }
+
+  // Independent loads first: the token, lengths[b] and valid_len[b].
+  const S* src = static_cast<const S*>(kv ? a.v_new : a.k_new) +
+                 b * (kv ? a.v_sb : a.k_sb) + h * (kv ? a.v_sh : a.k_sh) +
+                 t * (kv ? a.v_st : a.k_st);
+  alignas(16) S x[NC][W];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int c = lane + i * G;
+    if (live && i < a.chunks_per_lane && c * W < a.D) {
+      load_chunk<S, W>(src + c * W, x[i]);
+    }
+  }
+  const int len = live ? __ldg(a.lengths + b) : 0;
+  const int vlen = (live && a.valid_len != nullptr) ? __ldg(a.valid_len + b)
+                                                    : a.T;
+
+  // Then the page-table entry, which needs the length.
+  const long long pos = (long long)len + t;
+  bool keep = live && t < vlen && pos >= 0 &&
+              pos < (long long)a.pps * a.page_size;
+  int p = -1;
+  if (keep) {
+    p = __ldg(a.page_indices + b * a.pi_stride + (int)(pos / a.page_size));
+  }
+  keep = keep && p >= 0 && p < a.num_pages;
+  const int s = keep ? (int)(pos % a.page_size) : 0;
+  const size_t at = ((size_t)h * a.num_pages + (keep ? p : 0)) * a.page_size + s;
+  Dt* dst = static_cast<Dt*>(kv ? a.v_pages : a.k_pages) + at * a.D;
+
+  if constexpr (FMT == kBf16 || FMT == kF32) {
+    if (keep) {
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = lane + i * G;
+        if (i < a.chunks_per_lane && c * W < a.D) {
+          alignas(16) Dt y[W];
+#pragma unroll
+          for (int e = 0; e < W; ++e) y[e] = convert<Dt>(x[i][e]);
+          store_chunk<Dt, W>(dst + c * W, y);
+        }
+      }
+    }
+  } else {
+    // Every lane of the warp reaches the shuffles: rows past the end and
+    // dropped rows take part with what they hold and store nothing.
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane + i * G;
+      if (live && i < a.chunks_per_lane && c * W < a.D) {
+#pragma unroll
+        for (int e = 0; e < W; ++e) amax = fmaxf(amax, fabsf(to_float(x[i][e])));
+      }
+    }
+    for (int o = G >> 1; o > 0; o >>= 1) {
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    }
+    const float scale = fmaxf(amax * a.inv_qmax, 1e-6f);
+    if (keep) {
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = lane + i * G;
+        if (i < a.chunks_per_lane && c * W < a.D) {
+          alignas(16) uint8_t y[W];
+#pragma unroll
+          for (int e = 0; e < W; ++e) {
+            y[e] = encode<FMT>(__fdiv_rn(to_float(x[i][e]), scale));
+          }
+          store_chunk<uint8_t, W>(dst + c * W, y);
+        }
+      }
+      if (lane == 0) (kv ? a.v_scales : a.k_scales)[at] = scale;
+    }
+  }
 }
 
 template <typename S, int FMT>
-__global__ void __launch_bounds__(kThreads)
-paged_append_quant_kernel(uint8_t* __restrict__ k_pages,
-                          uint8_t* __restrict__ v_pages,
-                          float* __restrict__ k_scales,
-                          float* __restrict__ v_scales,
-                          const S* __restrict__ k_new,
-                          const S* __restrict__ v_new,
-                          const int32_t* __restrict__ phys,
-                          const int32_t* __restrict__ slot,
-                          const int32_t* __restrict__ ok, int H,
-                          int num_pages, int page_size, int D,
-                          float inv_qmax) {
-  const int b = blockIdx.x;
-  if (!ok[b]) return;
-  const int p = phys[b], s = slot[b];
-  if (p < 0 || p >= num_pages || s < 0 || s >= page_size) return;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int row = warp; row < 2 * H; row += kThreads / 32) {
-    const int h = row % H;
-    const bool is_v = row >= H;
-    const S* src = (is_v ? v_new : k_new) + ((size_t)b * H + h) * D;
-    float amax = 0.f;
-    for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(to_float(src[d])));
-    for (int o = 16; o > 0; o >>= 1) {
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    }
-    const float scale = fmaxf(amax * inv_qmax, 1e-6f);
-    const size_t at = ((size_t)h * num_pages + p) * page_size + s;
-    uint8_t* dst = (is_v ? v_pages : k_pages) + at * D;
-    for (int d = lane; d < D; d += 32) dst[d] = encode<FMT>(to_float(src[d]) / scale);
-    if (lane == 0) (is_v ? v_scales : k_scales)[at] = scale;
+void launch(const AppendArgs& a, bool vec, int rows, cudaStream_t st) {
+  const int per_block = kThreads >> a.lanes_log2;
+  const int grid = (rows + per_block - 1) / per_block;
+  if (vec) {
+    paged_append_tokens_kernel<S, FMT, 8><<<grid, kThreads, 0, st>>>(a);
+  } else {
+    paged_append_tokens_kernel<S, FMT, 1><<<grid, kThreads, 0, st>>>(a);
   }
 }
 
 template <typename S>
-int launch_quant(int fmt, void* k_pages, void* v_pages, void* k_scales,
-                 void* v_scales, const void* k_new, const void* v_new,
-                 const int32_t* ph, const int32_t* sl, const int32_t* okp,
-                 int B, int H, int num_pages, int page_size, int D,
-                 float inv_qmax, cudaStream_t st) {
-#define FAT_Q(F_)                                                             \
-  paged_append_quant_kernel<S, F_><<<B, kThreads, 0, st>>>(                    \
-      static_cast<uint8_t*>(k_pages), static_cast<uint8_t*>(v_pages),          \
-      static_cast<float*>(k_scales), static_cast<float*>(v_scales),            \
-      static_cast<const S*>(k_new), static_cast<const S*>(v_new), ph, sl, okp, \
-      H, num_pages, page_size, D, inv_qmax)
-  if (fmt == 1) {
-    FAT_Q(1);
-  } else if (fmt == 2) {
-    FAT_Q(2);
-  } else if (fmt == 3) {
-    FAT_Q(3);
-  } else {
-    return (int)cudaErrorInvalidValue;
+int launch_src(int page_fmt, const AppendArgs& a, bool vec, int rows,
+               cudaStream_t st) {
+  switch (page_fmt) {
+    case kBf16: launch<S, kBf16>(a, vec, rows, st); break;
+    case kF32: launch<S, kF32>(a, vec, rows, st); break;
+    case kInt8: launch<S, kInt8>(a, vec, rows, st); break;
+    case kE4m3: launch<S, kE4m3>(a, vec, rows, st); break;
+    case kE5m2: launch<S, kE5m2>(a, vec, rows, st); break;
+    default: return (int)cudaErrorInvalidValue;
   }
-#undef FAT_Q
   return 0;
 }
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// elem_bytes: 2 (bfloat16) or 4 (float32). Returns cudaGetLastError().
-int fat_paged_append(void* k_pages, void* v_pages, const void* k_new,
-                     const void* v_new, const void* phys, const void* slot,
-                     const void* ok, int B, int H, int num_pages,
-                     int page_size, int D, int elem_bytes, void* stream) {
-  if (B < 1 || H < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  const auto* ph = static_cast<const int32_t*>(phys);
-  const auto* sl = static_cast<const int32_t*>(slot);
-  const auto* okp = static_cast<const int32_t*>(ok);
-  if (elem_bytes == 2) {
-    paged_append_kernel<uint16_t><<<B, kThreads, 0, st>>>(
-        static_cast<uint16_t*>(k_pages), static_cast<uint16_t*>(v_pages),
-        static_cast<const uint16_t*>(k_new), static_cast<const uint16_t*>(v_new),
-        ph, sl, okp, H, num_pages, page_size, D);
-  } else if (elem_bytes == 4) {
-    paged_append_kernel<uint32_t><<<B, kThreads, 0, st>>>(
-        static_cast<uint32_t*>(k_pages), static_cast<uint32_t*>(v_pages),
-        static_cast<const uint32_t*>(k_new), static_cast<const uint32_t*>(v_new),
-        ph, sl, okp, H, num_pages, page_size, D);
-  } else {
+// page_fmt: 0 = bfloat16, 1 = float32, 2 = int8, 3 = e4m3, 4 = e5m2 (k and
+// v pages); src_dtype: 0 = bfloat16, 1 = float32 (k_new, v_new). Strides
+// count elements (a dimension of size 1 may pass any). inv_qmax: fp32
+// 1 / (127, 448 or 57344) for 1-byte pages, whose k_scales, v_scales are
+// (H_kv, P, page) fp32; null for bf16 and fp32 pages. valid_len may be
+// null. Returns cudaGetLastError().
+int fat_paged_append_tokens(
+    void* k_pages, void* v_pages, void* k_scales, void* v_scales,
+    const void* k_new, const void* v_new, long long k_sb, long long k_sh,
+    long long k_st, long long v_sb, long long v_sh, long long v_st,
+    const void* page_indices, long long pi_stride, const void* lengths,
+    const void* valid_len, int B, int T, int H, int num_pages, int page_size,
+    int pps, int D, int page_fmt, int src_dtype, float inv_qmax,
+    void* stream) {
+  if (B < 1 || T < 1 || H < 1 || D < 1 || D > kMaxD || num_pages < 1 ||
+      page_size < 1 || pps < 1 || page_fmt < kBf16 || page_fmt > kE5m2 ||
+      (long long)B * T * 2 * H > INT_MAX) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
-}
-
-// Quantized pages. fmt: 1 = int8, 2 = e4m3, 3 = e5m2 (k and v pages);
-// src_dtype: 0 = bfloat16, 1 = float32 (k_new, v_new); inv_qmax: fp32
-// 1 / (127, 448 or 57344). k_scales, v_scales: (H_kv, P, page) fp32.
-// Returns cudaGetLastError().
-int fat_paged_append_quant(void* k_pages, void* v_pages, void* k_scales,
-                           void* v_scales, const void* k_new,
-                           const void* v_new, const void* phys,
-                           const void* slot, const void* ok, int B, int H,
-                           int num_pages, int page_size, int D, int fmt,
-                           int src_dtype, float inv_qmax, void* stream) {
-  if (B < 1 || H < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  const bool quant = page_fmt >= kInt8;
+  if (quant != (k_scales != nullptr && v_scales != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // the stride of a dimension of size 1 is never used
+  if (B == 1) k_sb = v_sb = 0;
+  if (H == 1) k_sh = v_sh = 0;
+  if (T == 1) k_st = v_st = 0;
+  const int src_bytes = src_dtype == 0 ? 2 : 4;
+  const long long strides[6] = {k_sb, k_sh, k_st, v_sb, v_sh, v_st};
+  bool vec = D % 8 == 0 && aligned16(k_new) && aligned16(v_new) &&
+             aligned16(k_pages) && aligned16(v_pages);
+  for (long long s : strides) vec = vec && (s * src_bytes) % 16 == 0;
+  const int W = vec ? 8 : 1;
+  const int chunks = D / W;
+  int lanes_log2 = 0;
+  while ((1 << lanes_log2) < chunks && lanes_log2 < 5) ++lanes_log2;
+  AppendArgs a;
+  a.k_pages = k_pages;
+  a.v_pages = v_pages;
+  a.k_scales = static_cast<float*>(k_scales);
+  a.v_scales = static_cast<float*>(v_scales);
+  a.k_new = k_new;
+  a.v_new = v_new;
+  a.k_sb = k_sb;
+  a.k_sh = k_sh;
+  a.k_st = k_st;
+  a.v_sb = v_sb;
+  a.v_sh = v_sh;
+  a.v_st = v_st;
+  a.page_indices = static_cast<const int32_t*>(page_indices);
+  a.pi_stride = pi_stride;
+  a.lengths = static_cast<const int32_t*>(lengths);
+  a.valid_len = static_cast<const int32_t*>(valid_len);
+  a.B = B;
+  a.T = T;
+  a.H = H;
+  a.num_pages = num_pages;
+  a.page_size = page_size;
+  a.pps = pps;
+  a.D = D;
+  a.lanes_log2 = lanes_log2;
+  a.chunks_per_lane = (chunks + (1 << lanes_log2) - 1) >> lanes_log2;
+  a.inv_qmax = inv_qmax;
+  if (a.chunks_per_lane > (vec ? 1 : kMaxChunks)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int rows = B * T * 2 * H;
   auto st = static_cast<cudaStream_t>(stream);
-  const auto* ph = static_cast<const int32_t*>(phys);
-  const auto* sl = static_cast<const int32_t*>(slot);
-  const auto* okp = static_cast<const int32_t*>(ok);
   int err;
   if (src_dtype == 0) {
-    err = launch_quant<__nv_bfloat16>(fmt, k_pages, v_pages, k_scales,
-                                      v_scales, k_new, v_new, ph, sl, okp, B,
-                                      H, num_pages, page_size, D, inv_qmax,
-                                      st);
+    err = launch_src<__nv_bfloat16>(page_fmt, a, vec, rows, st);
   } else if (src_dtype == 1) {
-    err = launch_quant<float>(fmt, k_pages, v_pages, k_scales, v_scales,
-                              k_new, v_new, ph, sl, okp, B, H, num_pages,
-                              page_size, D, inv_qmax, st);
+    err = launch_src<float>(page_fmt, a, vec, rows, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,25 +1,35 @@
-"""In-place decode append: one new K/V token per sequence into its page.
+"""Append of new K/V tokens into the paged cache, in place: a decode step
+(T = 1) or a prefill chunk (T > 1), payloads and scales, in one launch.
 
 The counterpart of ``flashattention_tpu/ops/pallas_append.py``
-(``pallas_append_decode``) and, for quantized caches, of the token
-quantization and scale scatter around it in
-``flashattention_tpu/serving/paged_kv.py``. On CUDA tensors
-:func:`paged_append` launches the hand-written kernel
-``csrc/paged_append.cu``; on CPU tensors it runs
+(``pallas_append_decode``) together with the index arithmetic, the token
+quantization and the prefill scatter around it in
+``flashattention_tpu/serving/paged_kv.py`` (``append_to_pages``), which the
+JAX package jits into one program. On CUDA tensors :func:`paged_append`
+launches the hand-written kernel ``csrc/paged_append.cu``
+(``fat_paged_append_tokens``), which computes every target from the page
+table and the lengths itself; on CPU tensors it runs
 :func:`paged_append_plain`. Both update the pages in place and return them.
 
-Row b of ``k_new``/``v_new`` (B, H_kv, D) lands at page ``phys[b]``, slot
-``slot[b]`` of every KV head where ``ok[b]`` is true; other rows write
-nothing, scales included. When several rows name the same (page, slot), as
-idle decode slots all name slot 0 of the engine's dump page, which row
-lands is unspecified.
+Token (b, t) of ``k_new``/``v_new`` (B, H_kv, T, D) lands at position
+``lengths[b] + t``: physical page ``page_indices[b, pos // page]``, slot
+``pos % page``, for every KV head. It writes nothing, payload or scale,
+where ``pos < 0``, where ``pos >= pps * page``, where ``t >= valid_len[b]``
+or where the physical page is outside ``[0, P)``. When several tokens name
+the same (page, slot), as idle decode slots all name slot 0 of the engine's
+dump page, which one lands is unspecified.
 
-Quantized caches (int8/e4m3/e5m2 pages with (H_kv, P, page, 1) fp32
-``k_scales``/``v_scales``) take each token in bf16/fp32 and quantize it on
-the way in, per (row, head) over D (``ops/quant.quantize_tokens``):
-``scale = max(absmax * fp32(1 / qmax), 1e-6)``, payload ``x / scale``
-rounded half to even (int8) or cast to nearest even (fp8). The kernel does
-this in the same launch, and its bytes equal the plain version's.
+Pages hold bf16 or fp32 values (tokens converted as ``.to()`` does) or
+int8/e4m3/e5m2 payloads with (H_kv, P, page, 1) fp32
+``k_scales``/``v_scales``: each token row is quantized over D on the way
+in (``ops/quant.quantize_tokens``), ``scale = max(absmax * fp32(1 / qmax),
+1e-6)``, payload ``x / scale`` rounded half to even (int8) or cast to
+nearest even (fp8). The kernel's bytes equal the plain version's.
+
+The one-token-per-row form of the JAX package's ``pallas_append_decode``
+(physical page, slot and keep flag per row) is this call with
+``page_indices = phys[:, None]``, ``lengths = slot``, ``valid_len = ok``
+and T = 1.
 """
 
 from __future__ import annotations
@@ -35,122 +45,158 @@ from flashattention_tpu_torch.ops.quant import (
     quantize_tokens,
 )
 
-_ELEM_BYTES = {torch.bfloat16: 2, torch.float32: 4}
-_FMT_CODE = {"int8": 1, "fp8": 2, "e5m2": 3}
+# page_fmt and src_dtype codes of fat_paged_append_tokens
+_PAGE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2,
+              torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
 _SRC_CODE = {torch.bfloat16: 0, torch.float32: 1}
+_INV_QMAX = {dt: inv_qmax(fmt) for dt, fmt in FMT_OF_DTYPE.items()}
+_MAX_D = 256  # the kernel holds a row in one warp's registers
 
 
-def paged_append_plain(k_pages, v_pages, k_new, v_new, phys, slot, ok,
-                       k_scales=None, v_scales=None):
-    """Plain PyTorch append: an index_put_ of the rows where ``ok``."""
-    sel = ok.bool()
-    p, s = phys[sel].long(), slot[sel].long()
+def paged_append_plain(k_pages, v_pages, k_new, v_new, page_indices, lengths,
+                       valid_len=None, k_scales=None, v_scales=None):
+    """Plain PyTorch append: one index_put_ of the kept (b, t) tokens."""
+    b, _, t, _ = k_new.shape
+    num_pages, page = k_pages.shape[1], k_pages.shape[2]
+    pps = page_indices.shape[1]
+    steps = torch.arange(t, device=lengths.device)
+    pos = lengths.long()[:, None] + steps[None, :]             # (B, T)
+    ok = (pos >= 0) & (pos < pps * page)
+    if valid_len is not None:
+        ok &= steps[None, :] < valid_len.long()[:, None]
+    logical = torch.clamp(pos.div(page, rounding_mode="floor"), 0, pps - 1)
+    phys = page_indices.long().gather(1, logical)
+    ok &= (phys >= 0) & (phys < num_pages)
+    phys, slot = phys[ok], (pos % page)[ok]
     for pages, scales, new in ((k_pages, k_scales, k_new),
                                (v_pages, v_scales, v_new)):
-        tok = new[sel]
+        tok = new.transpose(1, 2)[ok]                          # (N, H, D)
         if scales is not None:
             tok, sc = quantize_tokens(tok, FMT_OF_DTYPE[pages.dtype])
-            scales[:, p, s, 0] = sc.transpose(0, 1)
-        pages[:, p, s] = tok.to(pages.dtype).transpose(0, 1)
+            scales[:, phys, slot, 0] = sc.transpose(0, 1)
+        pages[:, phys, slot] = tok.to(pages.dtype).transpose(0, 1)
     return k_pages, v_pages
 
 
-def _check_cuda_args(k_pages, v_pages, k_new, v_new, phys, slot, ok,
-                     k_scales, v_scales):
-    dev = k_pages.device
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("k_new", k_new), ("v_new", v_new), ("phys", phys),
-                    ("slot", slot), ("ok", ok), ("k_scales", k_scales),
-                    ("v_scales", v_scales)):
-        if t is None:
-            continue
-        if t.device != dev:
-            raise ValueError(f"{name} must be on {dev}, is on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if k_pages.shape != v_pages.shape or v_pages.dtype != k_pages.dtype:
+def _check_args(k_pages, v_pages, k_new, v_new, page_indices, lengths,
+                valid_len, k_scales, v_scales):
+    """Shapes and the scale planes' presence, on every device."""
+    if k_pages.dim() != 4 or k_new.dim() != 4:
+        raise ValueError("pages must be (H_kv, P, page, D) and new tokens "
+                         "(B, H_kv, T, D)")
+    h, num_pages, page, d = k_pages.shape
+    b, _, t, _ = k_new.shape
+    if v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype:
         raise ValueError("k_pages and v_pages differ in shape or dtype")
-    if k_scales is None:
-        if k_pages.dtype not in _ELEM_BYTES:
-            raise TypeError(f"paged_append kernel takes bf16/fp32, got "
-                            f"{k_pages.dtype}")
-        if not (k_new.dtype == v_new.dtype == k_pages.dtype):
-            raise TypeError("pages and new tokens must share a dtype")
-    else:
-        if k_pages.dtype not in FMT_OF_DTYPE:
-            raise TypeError(f"quantized pages must be int8/e4m3/e5m2, got "
-                            f"{k_pages.dtype}")
-        if k_new.dtype not in _SRC_CODE or v_new.dtype != k_new.dtype:
-            raise TypeError("new tokens must be bf16/fp32 and share a dtype")
+    if k_new.shape != (b, h, t, d) or v_new.shape != (b, h, t, d):
+        raise ValueError(
+            f"new tokens must be (B, {h}, T, {d}), got {tuple(k_new.shape)}, "
+            f"{tuple(v_new.shape)}")
+    if page_indices.dim() != 2 or page_indices.shape[0] != b:
+        raise ValueError(f"page_indices must be ({b}, pages_per_seq)")
+    for name, x in (("lengths", lengths), ("valid_len", valid_len)):
+        if x is not None and tuple(x.shape) != (b,):
+            raise ValueError(f"{name} must be ({b},), is {tuple(x.shape)}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales, or neither")
+    if (k_scales is not None) != (k_pages.dtype in FMT_OF_DTYPE):
+        raise ValueError("1-byte pages take k_scales and v_scales; bf16 and "
+                         "fp32 pages take none")
+
+
+def _check_cuda_args(k_pages, v_pages, k_new, v_new, page_indices, lengths,
+                     valid_len, k_scales, v_scales):
+    """What the kernel takes; raises on anything else."""
+    dev = k_pages.device
+    for name, x in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("k_new", k_new), ("v_new", v_new),
+                    ("page_indices", page_indices), ("lengths", lengths),
+                    ("valid_len", valid_len), ("k_scales", k_scales),
+                    ("v_scales", v_scales)):
+        if x is not None and x.device != dev:
+            raise ValueError(f"{name} must be on {dev}, is on {x.device}")
+    if k_pages.dtype not in _PAGE_CODE:
+        raise TypeError(f"pages must be bf16/fp32/int8/e4m3/e5m2, got "
+                        f"{k_pages.dtype}")
+    if k_new.dtype not in _SRC_CODE or v_new.dtype != k_new.dtype:
+        raise TypeError(f"new tokens must be bf16 or fp32 and share a dtype, "
+                        f"got {k_new.dtype}, {v_new.dtype}")
+    if k_new.stride(3) != 1 or v_new.stride(3) != 1:
+        raise ValueError("new tokens must have a D stride of 1")
+    if k_pages.shape[3] > _MAX_D:
+        raise ValueError(f"head dim {k_pages.shape[3]} > {_MAX_D}")
+    for name, x in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("k_scales", k_scales), ("v_scales", v_scales),
+                    ("lengths", lengths), ("valid_len", valid_len)):
+        if x is not None and not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if page_indices.stride(1) != 1:
+        raise ValueError("page_indices must have a column stride of 1")
+    for name, x in (("page_indices", page_indices), ("lengths", lengths),
+                    ("valid_len", valid_len)):
+        if x is not None and x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, is {x.dtype}")
+    if k_scales is not None:
         want = tuple(k_pages.shape[:3]) + (1,)
-        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
-            if t.dtype != torch.float32 or tuple(t.shape) != want:
+        for name, x in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if x.dtype != torch.float32 or tuple(x.shape) != want:
                 raise ValueError(f"{name} must be float32 {want}")
-    for name, t in (("phys", phys), ("slot", slot), ("ok", ok)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, is {t.dtype}")
 
 
 def paged_append(
-    k_pages: torch.Tensor,   # (H_kv, P, page, D)
+    k_pages: torch.Tensor,       # (H_kv, P, page, D)
     v_pages: torch.Tensor,
-    k_new: torch.Tensor,     # (B, H_kv, D)
+    k_new: torch.Tensor,         # (B, H_kv, T, D), D stride 1
     v_new: torch.Tensor,
-    phys: torch.Tensor,      # (B,) int32 physical page of the write slot
-    slot: torch.Tensor,      # (B,) int32 slot within that page
-    ok: torch.Tensor,        # (B,) int32 / bool; 0 rows write nothing
-    k_scales: torch.Tensor | None = None,  # (H_kv, P, page, 1) fp32
+    page_indices: torch.Tensor,  # (B, pages_per_seq) int32
+    lengths: torch.Tensor,       # (B,) int32, lengths before the append
+    valid_len: torch.Tensor | None = None,  # (B,) int32: real tokens of T
+    k_scales: torch.Tensor | None = None,   # (H_kv, P, page, 1) fp32
     v_scales: torch.Tensor | None = None,
 ):
-    """Write one token per sequence into the pages, in place (module
-    docstring). Kernel launches are counted in ``paged_append.launches``."""
-    h, num_pages, page_size, d = k_pages.shape
-    b = k_new.shape[0]
-    if k_new.shape != (b, h, d) or v_new.shape != (b, h, d):
-        raise ValueError(
-            f"new tokens must be (B, {h}, {d}), got {tuple(k_new.shape)}, "
-            f"{tuple(v_new.shape)}"
-        )
-    if phys.shape != (b,) or slot.shape != (b,) or ok.shape != (b,):
-        raise ValueError("phys / slot / ok must be (B,)")
-    if (k_scales is None) != (v_scales is None):
-        raise ValueError("pass both k_scales and v_scales, or neither")
+    """Write new K/V tokens into their pages, in place (module docstring).
+    On the card: one kernel launch and no host sync, counted in
+    ``paged_append.launches``, and also in ``paged_append.chunk_launches``
+    where T > 1."""
+    _check_args(k_pages, v_pages, k_new, v_new, page_indices, lengths,
+                valid_len, k_scales, v_scales)
     if not k_pages.is_cuda:
-        return paged_append_plain(k_pages, v_pages, k_new, v_new, phys, slot,
-                                  ok, k_scales, v_scales)
-    _check_cuda_args(k_pages, v_pages, k_new, v_new, phys, slot, ok,
-                     k_scales, v_scales)
-    if b == 0:
+        return paged_append_plain(k_pages, v_pages, k_new, v_new,
+                                  page_indices, lengths, valid_len, k_scales,
+                                  v_scales)
+    _check_cuda_args(k_pages, v_pages, k_new, v_new, page_indices, lengths,
+                     valid_len, k_scales, v_scales)
+    h, num_pages, page, d = k_pages.shape
+    b, _, t, _ = k_new.shape
+    if b == 0 or t == 0 or h == 0:
         return k_pages, v_pages
+    quant = k_scales is not None
     lib = _build.load_kernel("paged_append", _declare)
     stream = torch.cuda.current_stream(k_pages.device).cuda_stream
-    if k_scales is None:
-        err = lib.fat_paged_append(
-            k_pages.data_ptr(), v_pages.data_ptr(), k_new.data_ptr(),
-            v_new.data_ptr(), phys.data_ptr(), slot.data_ptr(), ok.data_ptr(),
-            b, h, num_pages, page_size, d, _ELEM_BYTES[k_pages.dtype], stream,
-        )
-    else:
-        err = lib.fat_paged_append_quant(
-            k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(),
-            v_scales.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            phys.data_ptr(), slot.data_ptr(), ok.data_ptr(),
-            b, h, num_pages, page_size, d,
-            _FMT_CODE[FMT_OF_DTYPE[k_pages.dtype]], _SRC_CODE[k_new.dtype],
-            inv_qmax(FMT_OF_DTYPE[k_pages.dtype]), stream,
-        )
+    err = lib.fat_paged_append_tokens(
+        k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr() if quant else None,
+        v_scales.data_ptr() if quant else None,
+        k_new.data_ptr(), v_new.data_ptr(), *k_new.stride()[:3],
+        *v_new.stride()[:3], page_indices.data_ptr(), page_indices.stride(0),
+        lengths.data_ptr(),
+        valid_len.data_ptr() if valid_len is not None else None,
+        b, t, h, num_pages, page, page_indices.shape[1], d,
+        _PAGE_CODE[k_pages.dtype], _SRC_CODE[k_new.dtype],
+        _INV_QMAX.get(k_pages.dtype, 0.0), stream,
+    )
     _build.check(err, "paged_append launch")
     paged_append.launches += 1
+    paged_append.chunk_launches += t > 1
     return k_pages, v_pages
 
 
 paged_append.launches = 0
+paged_append.chunk_launches = 0
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fat_paged_append.restype = ctypes.c_int
-    lib.fat_paged_append.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.fat_paged_append_quant.restype = ctypes.c_int
-    lib.fat_paged_append_quant.argtypes = [p] * 9 + [i] * 7 + [
-        ctypes.c_float, p]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fat_paged_append_tokens.restype = ctypes.c_int
+    lib.fat_paged_append_tokens.argtypes = (
+        [p] * 6 + [ll] * 6 + [p, ll, p, p] + [i] * 9 + [ctypes.c_float, p])

@@ -14,7 +14,9 @@ bf16 q over bf16 or 1-byte pages in the convert and "qk" schedules, and
 the first kernel (``fat_paged_attention``, ``fat_paged_attention_quant``)
 for fp32 pages or q, the "full" schedule and shapes the bulk copies cannot
 take. ``paged_attention.launches`` counts every call,
-``paged_attention.split_launches`` the split route's.
+``paged_attention.split_launches`` the split route's and
+``paged_attention.chunk_launches`` those with more than one query a
+sequence (T > 1).
 
 Layout (as in the JAX package):
 
@@ -373,6 +375,7 @@ def paged_attention(
         _build.check(err, "paged_attention split launch")
         paged_attention.launches += 1
         paged_attention.split_launches += 1
+        paged_attention.chunk_launches += t > 1
         return out[:, :, 0] if decode else out
     err = lib.fat_paged_attention(
         qq.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -393,11 +396,13 @@ def paged_attention(
     )
     _build.check(err, "paged_attention launch")
     paged_attention.launches += 1
+    paged_attention.chunk_launches += t > 1
     return out[:, :, 0] if decode else out
 
 
 paged_attention.launches = 0
 paged_attention.split_launches = 0
+paged_attention.chunk_launches = 0
 
 
 def _declare(lib: ctypes.CDLL) -> None:

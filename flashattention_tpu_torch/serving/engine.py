@@ -238,12 +238,13 @@ def decode_logits(w, cfg, caches: list[PagedKVCache], tokens, page_indices,
     slot attends to lengths + 1 entries."""
     x = _embed_decode(w, tokens, cfg, lengths)
     pos = lengths[:, None]
+    attended = lengths + 1
     for bp, cache in zip(w.blocks, caches):
         q, k, v = _qkv(x, bp.attn, cfg)  # (B, H, 1, dh)
         q, k = _maybe_rope(q, k, cfg, pos)
         append_to_pages(cache, k, v, page_indices, lengths)
         o = paged_attention(q[:, :, 0].contiguous(), cache.k_pages,
-                            cache.v_pages, page_indices, lengths + 1,
+                            cache.v_pages, page_indices, attended,
                             **_attn_kwargs(cfg, cache))
         x = layer_norm(x + _proj_out(o[:, :, None], bp.attn), bp.ln1)
         x = layer_norm(x + _mlp(x, bp.mlp), bp.ln2)

@@ -23,7 +23,7 @@ import torch
 
 from flashattention_tpu_torch.ops.paged_append import paged_append
 from flashattention_tpu_torch.ops.paged_attention import paged_attention_plain
-from flashattention_tpu_torch.ops.quant import PAYLOAD_DTYPE, quantize_tokens
+from flashattention_tpu_torch.ops.quant import PAYLOAD_DTYPE
 from flashattention_tpu_torch.utils.device import resolve_device
 
 
@@ -86,52 +86,16 @@ def append_to_pages(
 ) -> PagedKVCache:
     """Write new K/V tokens into their pages, in place; returns ``cache``.
 
-    T == 1 (decode) goes through the append kernel (:func:`paged_append`),
-    which quantizes the token itself for a quantized cache. T > 1 (prefill)
-    is one index_put_ over the kept (b, t) targets, payloads and scales.
-    Positions past the sequence's page capacity and padding past
-    ``valid_len`` are dropped: they are filtered out before the write, never
-    written back with their current value (a masked position may alias a
-    live write at the same slot).
+    One call of :func:`paged_append` for any T, which validates the
+    arguments; on the card it is one kernel launch and no host sync (the
+    kernel reads the page table and the lengths itself, and quantizes the
+    tokens of a quantized cache). Positions
+    past the sequence's page capacity and padding past ``valid_len`` are
+    dropped: they are never written, not even with their current value (a
+    masked position may alias a live write at the same slot).
     """
-    b, h, t, d = k_new.shape
-    page = cache.page_size
-    pps = page_indices.shape[1]
-    if t == 1:
-        ok = lengths < pps * page
-        if valid_len is not None:
-            ok = ok & (valid_len > 0)
-        logical = torch.clamp(lengths // page, max=pps - 1).long()
-        phys = page_indices.gather(1, logical[:, None])[:, 0]
-        slot = lengths % page
-        tok_dtype = k_new.dtype if cache.quant else cache.k_pages.dtype
-        paged_append(
-            cache.k_pages, cache.v_pages,
-            k_new[:, :, 0].to(tok_dtype).contiguous(),
-            v_new[:, :, 0].to(tok_dtype).contiguous(),
-            phys.to(torch.int32).contiguous(), slot.to(torch.int32),
-            ok.to(torch.int32), cache.k_scales, cache.v_scales,
-        )
-        return cache
-
-    steps = torch.arange(t, device=lengths.device)
-    pos = lengths.long()[:, None] + steps[None, :]          # (B, T)
-    ok = pos < pps * page
-    if valid_len is not None:
-        ok = ok & (steps[None, :] < valid_len.long()[:, None])
-    logical = torch.clamp(pos // page, max=pps - 1)
-    phys = page_indices.long().gather(1, logical)[ok]
-    slot = (pos % page)[ok]
-
-    def write(pages, scales, new):
-        tok = new.transpose(1, 2)[ok]                       # (N, H, D)
-        if cache.quant:
-            tok, sc = quantize_tokens(tok, cache.quant)
-            scales[:, phys, slot, 0] = sc.transpose(0, 1)
-        pages[:, phys, slot] = tok.to(pages.dtype).transpose(0, 1)
-
-    write(cache.k_pages, cache.k_scales, k_new)
-    write(cache.v_pages, cache.v_scales, v_new)
+    paged_append(cache.k_pages, cache.v_pages, k_new, v_new, page_indices,
+                 lengths, valid_len, cache.k_scales, cache.v_scales)
     return cache
 
 

@@ -13,6 +13,7 @@ feed to the JAX package.
 
 import copy
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -112,6 +113,81 @@ def decode_rows(b=6, h=3, d=16, num_pages=10, page=8, seed=0):
     return kp, vp, kn, vn, phys, slot, ok
 
 
+def append_rows(k_pages, v_pages, kn, vn, phys, slot, ok):
+    """``pallas_append_decode``'s one-token-per-row form (row b of
+    ``kn``/``vn`` (B, H_kv, D) to page ``phys[b]``, slot ``slot[b]`` where
+    ``ok[b]``) through ``paged_append``: ``page_indices = phys[:, None]``,
+    ``lengths = slot``, ``valid_len = ok``, so a page outside [0, P) or a
+    slot outside [0, page) drops the row too."""
+    return pap.paged_append(k_pages, v_pages, kn[:, :, None], vn[:, :, None],
+                            phys[:, None], slot, ok.to(torch.int32))
+
+
+def fused_tokens(rng, b, h, t, d, dtype, device="cpu", offset=0):
+    """K and V (B, H, T, D) as the serving engine's ``_qkv`` makes them: head
+    views of one fused (B, T, 3·H·D) projection (D stride 1, not
+    contiguous). ``offset`` elements ahead of Q in each projection row move
+    every view off its alignment."""
+    qkv = torch.from_numpy(
+        rng.standard_normal((b, t, offset + 3 * h * d)).astype(np.float32))
+    _, k, v = torch.split(qkv.to(device, dtype)[..., offset:], h * d, dim=-1)
+    return tuple(x.reshape(b, t, h, d).transpose(1, 2) for x in (k, v))
+
+
+PAGE_FORMATS = ["bf16", "fp32", "int8", "fp8", "e5m2"]
+PAGE_DTYPE = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def append_inputs(kind, fmt, src, device, seed=0, d=64, offset=0):
+    """The engine's append shapes (H_kv = 12, D = 64, page 16, 512 slots a
+    sequence) on ``device``: pages of noise in ``fmt`` ((payload, scales)
+    or (values, None) for K and V), K/V views of a fused projection in
+    ``src`` (``offset`` elements off its start, as ``fused_tokens``), page
+    table, lengths, valid_len and the dump page.
+
+    decode: B = 32, T = 1; every fourth slot idle on the dump page (length
+    0, a row of dump pages, as the engine routes it), one sequence full
+    (length 512: dropped), one with valid_len 0 (dropped), one token below
+    the 1e-6 scale floor. chunk: B = 1, T = 64 from position 480 with
+    valid_len 50: tokens 32-49 pass the capacity and drop, 50-63 are
+    padding."""
+    rng = np.random.default_rng(seed)
+    h, page, pps = 12, 16, 32
+    b, t = (32, 1) if kind == "decode" else (1, 64)
+    num_pages, dump = b * pps + 1, 0
+    kp, vp = (rng.standard_normal((h, num_pages, page, d)).astype(np.float32)
+              for _ in range(2))
+    if fmt in PAGE_DTYPE:
+        pages = [torch.from_numpy(x).to(device, PAGE_DTYPE[fmt])
+                 for x in (kp, vp)]
+        pages = [pages[0], None, pages[1], None]
+    else:
+        pages = quantized_pages(kp, vp, fmt, device)
+    k, v = fused_tokens(rng, b, h, t, d, src, device, offset)
+    pi = (rng.permutation(num_pages - 1)[: b * pps] + 1).reshape(b, pps)
+    if kind == "decode":
+        lengths = rng.integers(0, pps * page, size=b)
+        idle = np.arange(b) % 4 == 3
+        pi[idle], lengths[idle] = dump, 0
+        lengths[0] = pps * page
+        valid = np.ones(b, np.int64)
+        valid[5] = 0
+        k[2] *= 1e-8
+    else:
+        lengths, valid = np.array([480]), np.array([50])
+    pi, lengths, valid = (torch.from_numpy(x.astype(np.int32)).to(device)
+                          for x in (pi, lengths, valid))
+    return pages, k, v, pi, lengths, valid, dump
+
+
+def append_bytes_equal(got, want, dump):
+    """Payloads and scales equal bit for bit outside the dump page."""
+    keep = [p for p in range(got[0].shape[1]) if p != dump]
+    return all(torch.equal(g[:, keep].view(torch.uint8),
+                           w[:, keep].view(torch.uint8))
+               for g, w in zip(got, want) if g is not None)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -161,29 +237,162 @@ def test_paged_attention_kernel_rejects_what_it_does_not_take(cuda_device):
         pa.paged_attention(q, kp, vp, pi.cpu(), ln)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_append_kernel_matches_plain(cuda_device, dtype):
-    kp, vp, kn, vn, phys, slot, ok = decode_rows(b=6, page=16)
-    dump = 9
-    phys[1] = phys[4] = dump  # two idle rows name the dump page ...
-    slot[1] = slot[4] = 0
-    ok[1] = ok[4] = 1         # ... and, as in the engine, write it
-    cast = lambda x: torch.from_numpy(x).to(cuda_device, dtype)
-    idx = lambda x: torch.from_numpy(x).to(cuda_device)
-    kk, vk = cast(kp), cast(vp)
-    kr, vr = kk.clone(), vk.clone()
+def device_kernels_of(fn, tries=3):
+    """Names of the device events that ``fn()`` runs, under torch.profiler,
+    in launch order, between two marker fills of one element. CUPTI now and
+    then records nothing of so short a window; the window is then profiled
+    again (``fn`` must be idempotent), at most ``tries`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = torch.empty(1, device="cuda")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            marker.fill_(1.0)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            marker.fill_(2.0)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        fills = [i for i, e in enumerate(events) if "FillFunctor" in e.name]
+        if len(fills) == 2:
+            return [e.name for e in events[fills[0] + 1: fills[1]]]
+    pytest.fail(f"the profiler recorded no marker pair in {tries} windows")
+
+
+def _append_both(pages, k, v, pi, lengths, valid):
+    """The kernel and the plain version on copies of ``pages``."""
+    got = [x if x is None else x.clone() for x in pages]
+    want = [x if x is None else x.clone() for x in pages]
     before = pap.paged_append.launches
-    pap.paged_append(kk, vk, cast(kn), cast(vn), idx(phys), idx(slot), idx(ok))
+    pap.paged_append(got[0], got[2], k, v, pi, lengths, valid, got[1], got[3])
     torch.cuda.synchronize()
     assert pap.paged_append.launches == before + 1
-    pap.paged_append_plain(kr, vr, cast(kn), cast(vn), idx(phys), idx(slot),
-                           idx(ok))
-    # the dump page is written concurrently: which idle row lands there is
-    # unspecified, so equality excludes it
-    keep = [p for p in range(kp.shape[1]) if p != dump]
-    assert torch.equal(kk[:, keep], kr[:, keep])
-    assert torch.equal(vk[:, keep], vr[:, keep])
+    pap.paged_append_plain(want[0], want[2], k, v, pi, lengths, valid,
+                           want[1], want[3])
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "chunk"])
+@pytest.mark.parametrize("src", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", ["bf16", "fp32"])
+def test_paged_append_kernel_matches_plain(cuda_device, fmt, src, kind):
+    """bf16 and fp32 pages: the kernel equals its plain version bit for bit
+    outside the dump page (which idle row lands there is unspecified), for
+    tokens of either type given as strided views, with the idle rows,
+    over-capacity and valid_len drops of ``append_inputs``."""
+    pages, k, v, pi, lengths, valid, dump = append_inputs(
+        kind, fmt, src, cuda_device)
+    got, want = _append_both(pages, k, v, pi, lengths, valid)
+    assert append_bytes_equal(got, want, dump)
+    assert not append_bytes_equal(got, pages, dump)  # it did write
+
+
+# Inputs the 16-byte route cannot take: D = 100 is no multiple of 8
+# (decode), and views one element off the projection's start leave every
+# token unaligned (chunk).
+SCALAR_ROUTE = {"d100": dict(kind="decode", d=100),
+                "unaligned": dict(kind="chunk", offset=1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("why", sorted(SCALAR_ROUTE))
+@pytest.mark.parametrize("src", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", PAGE_FORMATS)
+def test_paged_append_scalar_route_matches_plain(cuda_device, fmt, src, why):
+    """Where D is not a multiple of 8 or a token is not 16-byte aligned the
+    kernel holds one element a lane (W = 1, up to eight chunks a lane, the
+    absmax shuffled over all 32 lanes); that instantiation ran (its name
+    in torch.profiler) and equals the plain version bit for bit outside the
+    dump page, payloads and scales, in every format."""
+    kw = SCALAR_ROUTE[why]
+    pages, k, v, pi, lengths, valid, dump = append_inputs(
+        kw["kind"], fmt, src, cuda_device, d=kw.get("d", 64),
+        offset=kw.get("offset", 0))
+    if "offset" in kw:
+        assert k.data_ptr() % 16 and v.data_ptr() % 16
+    got, want = _append_both(pages, k, v, pi, lengths, valid)
+    names = device_kernels_of(lambda: pap.paged_append(
+        got[0], got[2], k, v, pi, lengths, valid, got[1], got[3]))
+    # the last template argument is W: "<..., 1>" (or "Li1EE" mangled)
+    assert len(names) == 1 and re.search(
+        r"paged_append_tokens_kernel(<[^>]*\b1>|I.*Li1EE)", names[0]), names
+    assert append_bytes_equal(got, want, dump)
+    assert not append_bytes_equal(got, pages, dump)  # it did write
+
+
+@pytest.mark.cuda
+def test_paged_append_rows_kernel_matches_plain(cuda_device):
+    """The phys/slot/ok form on the card: ok = 0 rows and rows with a page
+    or slot out of range write nothing."""
+    kp, vp, kn, vn, phys, slot, ok = decode_rows(b=6, page=16)
+    phys[0], slot[2], phys[3] = -1, 16, kp.shape[1]
+    cast = lambda x: torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+    idx = lambda x: torch.from_numpy(x).to(cuda_device)
+    got, want = [cast(kp), cast(vp)], [cast(kp), cast(vp)]
+    before = pap.paged_append.launches
+    append_rows(*got, cast(kn), cast(vn), idx(phys), idx(slot), idx(ok))
+    torch.cuda.synchronize()
+    assert pap.paged_append.launches == before + 1
+    pap.paged_append_plain(*want, cast(kn)[:, :, None], cast(vn)[:, :, None],
+                           idx(phys)[:, None], idx(slot), idx(ok))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # row 5 only (rows 0, 2 and 3 out of range, 1 and 4 ok = 0)
+    assert int((got[0] != cast(kp)).any(-1).sum()) == kp.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "chunk"])
+@pytest.mark.parametrize("fmt", PAGE_FORMATS)
+def test_append_to_pages_is_one_kernel_and_no_sync(cuda_device, fmt, kind):
+    """One append_to_pages on a card cache runs exactly one device kernel
+    (torch.profiler) and never waits for the card (sync debug mode
+    "error"), at a decode step and at a prefill chunk, in every format."""
+    from flashattention_tpu_torch.serving import paged_kv
+
+    _, k, v, pi, lengths, valid, _ = append_inputs(
+        kind, fmt, torch.bfloat16, cuda_device)
+    cache = paged_kv.init_paged_cache(
+        12, pi.numel() + 1, 16, 64, quant=None if fmt in PAGE_DTYPE else fmt,
+        dtype=PAGE_DTYPE.get(fmt, torch.bfloat16), device=cuda_device)
+    valid = valid if kind == "chunk" else None  # as the engine passes them
+    paged_kv.append_to_pages(cache, k, v, pi, lengths, valid)  # build, warm
+    torch.cuda.synchronize()
+
+    def append_without_sync():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            paged_kv.append_to_pages(cache, k, v, pi, lengths, valid)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    names = device_kernels_of(append_without_sync)
+    assert len(names) == 1 and "paged_append_tokens_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+def test_paged_append_kernel_rejects_what_it_does_not_take(cuda_device):
+    pages, k, v, pi, lengths, valid, _ = append_inputs(
+        "decode", "bf16", torch.bfloat16, cuda_device)
+    kp, vp = pages[0], pages[2]
+    with pytest.raises(ValueError):  # D stride 2
+        wide = torch.cat([k, k], dim=-1)[..., ::2]
+        pap.paged_append(kp, vp, wide, wide, pi, lengths)
+    with pytest.raises(TypeError):  # fp16 tokens
+        pap.paged_append(kp, vp, k.half(), v.half(), pi, lengths)
+    with pytest.raises(TypeError):  # fp16 pages
+        pap.paged_append(kp.half(), vp.half(), k, v, pi, lengths)
+    with pytest.raises(TypeError):  # int64 lengths
+        pap.paged_append(kp, vp, k, v, pi, lengths.long())
+    with pytest.raises(ValueError):  # lengths on another device
+        pap.paged_append(kp, vp, k, v, pi, lengths.cpu())
+    with pytest.raises(ValueError):  # 1-byte pages without their scales
+        pap.paged_append(kp.to(torch.int8), vp.to(torch.int8), k, v, pi,
+                         lengths)
 
 
 @pytest.mark.cuda
@@ -210,7 +419,9 @@ def test_engine_on_card_matches_cpu(cuda_device):
         launches = (pa.paged_attention.launches, pap.paged_append.launches)
     assert out["cpu"] == out[str(cuda_device)]
     assert launches[0] > 0 and launches[1] > 0
-    assert launches[1] == cfg.n_layers * eng.stats["decode_steps"]
+    # one append launch a layer per decode step and per prefill chunk
+    assert launches[1] == cfg.n_layers * (eng.stats["decode_steps"]
+                                          + eng.stats["prefill_chunks"])
 
 
 # ---------------------------------------------------------------------------
@@ -495,36 +706,19 @@ def test_quantized_paged_attention_kernel_matches_plain(cuda_device, name,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("quant", QUANT_FORMATS)
+@pytest.mark.parametrize("kind", ["decode", "chunk"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_quantized_paged_append_kernel_bit_exact(cuda_device, quant, dtype):
-    kp, vp, kn, vn, phys, slot, ok = decode_rows(b=6, d=64, page=16)
-    dump = 9
-    phys[1] = phys[4] = dump
-    slot[1] = slot[4] = 0
-    kn[2] *= 1e-8  # a token below the 1e-6 scale floor
-    k8, ks, v8, vs = quantized_pages(kp, vp, quant, cuda_device)
-    cast = lambda x: torch.from_numpy(x).to(cuda_device, dtype)
-    idx = lambda x: torch.from_numpy(x).to(cuda_device)
-    got = [t.clone() for t in (k8, v8, ks, vs)]
-    want = [t.clone() for t in (k8, v8, ks, vs)]
-    before = pap.paged_append.launches
-    pap.paged_append(got[0], got[1], cast(kn), cast(vn), idx(phys), idx(slot),
-                     idx(ok), got[2], got[3])
-    torch.cuda.synchronize()
-    assert pap.paged_append.launches == before + 1
-    pap.paged_append_plain(want[0], want[1], cast(kn), cast(vn), idx(phys),
-                           idx(slot), idx(ok), want[2], want[3])
-    keep = [p for p in range(kp.shape[1]) if p != dump]
-    for g, w in zip(got, want):
-        assert torch.equal(g[:, keep].view(torch.uint8),
-                           w[:, keep].view(torch.uint8))
-    # ok = 0 rows wrote nothing, scales included
-    rows = np.flatnonzero(ok == 0)
-    for g, w in zip(got, (k8, v8, ks, vs)):
-        for r in rows:
-            assert torch.equal(g[:, phys[r]].view(torch.uint8),
-                               w[:, phys[r]].view(torch.uint8))
+@pytest.mark.parametrize("quant", QUANT_FORMATS)
+def test_quantized_paged_append_kernel_bit_exact(cuda_device, quant, dtype,
+                                                 kind):
+    """1-byte pages: payloads and scales equal the plain version's bit for
+    bit outside the dump page, tokens of either type quantized in the
+    launch; dropped tokens write neither payload nor scale."""
+    pages, k, v, pi, lengths, valid, dump = append_inputs(
+        kind, quant, dtype, cuda_device)
+    got, want = _append_both(pages, k, v, pi, lengths, valid)
+    assert append_bytes_equal(got, want, dump)
+    assert not append_bytes_equal(got, pages, dump)
 
 
 def _engine_decode_pages(quant, device, seed=0):
@@ -746,7 +940,8 @@ def test_fp8_kernel_rejects_what_it_does_not_take(cuda_device):
 @pytest.mark.parametrize("quant", QUANT_FORMATS)
 def test_quantized_engine_on_card_matches_cpu(cuda_device, quant):
     """A float32 engine with quantized pages: the card's greedy tokens equal
-    the CPU's, and every decode step launches both kernels per layer."""
+    the CPU's, and every decode step and prefill chunk launches both
+    kernels per layer."""
     cfg = TransformerConfig(vocab_size=89, d_model=64, n_layers=2, n_heads=4,
                             n_kv_heads=2, d_ff=128, max_seq_len=128,
                             dropout_rate=0.0, dtype=torch.float32)
@@ -765,9 +960,8 @@ def test_quantized_engine_on_card_matches_cpu(cuda_device, quant):
         out[str(dev)] = eng.run()
         launches = (pa.paged_attention.launches, pap.paged_append.launches)
     assert out["cpu"] == out[str(cuda_device)]
-    steps = eng.stats["decode_steps"]
-    assert launches == (cfg.n_layers * (steps + eng.stats["prefill_chunks"]),
-                        cfg.n_layers * steps)
+    runs = eng.stats["decode_steps"] + eng.stats["prefill_chunks"]
+    assert launches == (cfg.n_layers * runs, cfg.n_layers * runs)
 
 
 @pytest.mark.cuda

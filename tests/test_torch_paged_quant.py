@@ -1,9 +1,10 @@
 """The port's quantized paged cache against the JAX package: int8, e4m3 and
 e5m2 payloads with per-slot fp32 scales.
 
-- ``init_paged_cache(quant=...)`` and ``append_to_pages`` (T = 1 through the
-  append kernel's plain version, T > 1 through the scatter): payload bytes
-  and scales bit-equal to JAX's;
+- ``init_paged_cache(quant=...)`` and ``append_to_pages`` (the append
+  kernel's plain version, T = 1 and T > 1, tokens also as strided views of
+  a fused projection in bf16 and fp32): payload bytes and scales bit-equal
+  to JAX's;
 - the plain quantized paged attention against ``pallas_paged_attention``
   (interpret mode) with float32 compute at the fp32 rung (1e-4), and with
   bf16 compute at the bf16 rung (5e-2; JAX's e4m3 decode there flushes
@@ -35,7 +36,7 @@ from flashattention_tpu_torch.ops import paged_attention as pa
 from flashattention_tpu_torch.ops.quant import PAYLOAD_DTYPE, quantize_tokens
 from flashattention_tpu_torch.serving import GenerationRequest, paged_kv
 from flashattention_tpu_torch.utils.testing import assert_allclose
-from test_torch_cuda import CASES, paged_inputs
+from test_torch_cuda import CASES, fused_tokens, paged_inputs
 from test_torch_engine import CFG, port_engine, prompts
 
 QUANTS = ["int8", "fp8", "e5m2"]
@@ -113,6 +114,37 @@ def test_prefill_append_bit_equal(quant):
     paged_kv.append_to_pages(tc, *(torch.from_numpy(x) for x in
                                    (kn, vn, pi, lengths, valid)))
     _assert_cache_equal(tc, jc, quant)
+
+
+@pytest.mark.parametrize("t", [1, 6])
+@pytest.mark.parametrize("src", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("quant", QUANTS)
+def test_fused_projection_append_bit_equal(quant, src, t):
+    """Tokens as the head views of a fused QKV projection, bf16 or fp32,
+    into 1-byte pages: payloads and scales bit-equal to JAX's jitted
+    ``append_to_pages`` (D = 128: T = 1 runs its Pallas append in interpret
+    mode), padding and over-capacity positions dropped, scales included."""
+    b, h, d, page, pps = 4, 2, 128, 4, 3
+    num_pages = b * pps + 1
+    rng = np.random.default_rng(20 + t)
+    k, v = fused_tokens(rng, b, h, t, d, src)
+    pi = rng.permutation(num_pages)[: b * pps].reshape(b, pps).astype(np.int32)
+    lengths = np.array([0, 5, 12, 9], np.int32)   # row 2 full; row 3 overruns
+    valid = np.array([t, t, t, 0 if t == 1 else 4], np.int32)
+    jdt = jnp.bfloat16 if src == torch.bfloat16 else jnp.float32
+    jc = jax_append_to_pages(
+        jax_init(h, num_pages, page, d, quant=quant),
+        *(jnp.asarray(x.float().numpy()).astype(jdt) for x in (k, v)),
+        jnp.asarray(pi), jnp.asarray(lengths), jnp.asarray(valid))
+    tc = paged_kv.init_paged_cache(h, num_pages, page, d, quant=quant,
+                                   device="cpu")
+    paged_kv.append_to_pages(tc, k, v, torch.from_numpy(pi),
+                             torch.from_numpy(lengths),
+                             torch.from_numpy(valid))
+    _assert_cache_equal(tc, jc, quant)
+    kept = sum(max(0, min(int(n), pps * page - int(ln)))
+               for ln, n in zip(lengths, valid))
+    assert int((tc.k_scales != 1).sum()) == kept * h
 
 
 def _quantized(kp, vp, quant):
