@@ -47,7 +47,11 @@ Phases, in order; any failure exits nonzero:
    payloads and scales; the kernel's time, append_to_pages issued from the
    host, the plain version, index_put_ (bf16 and fp32 pages), the byte
    bound and the card's smallest launch (a one-element zero_, a floor and
-   not a bound). The FA3 8-bit
+   not a bound). The speculative engine's verify chunk (B=32 slots of T=5
+   rows, lengths 33-505 and one slot at 508 whose rows pass the 512-slot
+   capacity, one chunk across a page boundary): paged attention over bf16
+   and e4m3 pages (paged limit) and the append into bf16 and e4m3 pages
+   (bit-exact, the rows past capacity dropped), timed as above. The FA3 8-bit
    forward (flash_fwd_fp8) in seven cases, each launched once through
    fp8_attention on the route it must take (checked: the tensor cores but
    for the s8 case), timed beside the FMA kernel on the same inputs, plus
@@ -117,17 +121,43 @@ Phases, in order; any failure exits nonzero:
    device time summed by name)
    step, card vs CPU loss and gradients at N=512 with a 4 x 4 pattern, and
    an all-ones pattern against no pattern (logits at the bf16 rung).
+8. The speculative engine: phase 3's config with spec_gamma=4, 32 requests
+   of 32-400-token prompts (phase 3's draws), 32 new tokens each, in three
+   arms, each after a warm-up engine: plain (no draft; the reference
+   tokens), self (the target as its own draft: the acceptance ceiling) and
+   draft2 (GPT-3 Small widths at 2 layers, random weights from seed 1: the
+   floor). Gates: every request served in full; exact launch counts (paged
+   attention and append each 12 a verify plus L_d x 5 a tick, L_d = 12 or
+   2, and 12 + L_d a prefill chunk; 12 of each inside every verify pass;
+   every paged launch split); the self arm's acceptance >= 0.9; one tick's
+   verify logits (B=32, T=5) on the card against the same call on the CPU
+   in float32 (5e-2 abs+rel). Reported: tokens equal to the plain arm's,
+   tokens a tick, spec tok/s beside plain decode tok/s, and for each spec
+   arm 5 ticks at batch 32 (32-128-token prompts) on the host clock and under
+   torch.profiler (wall, kernel ms, device ops a tick, busy share) with the
+   host syncs a tick.
+9. Multi-host serving: two ProcessEngine workers on the card (GPT-3 Small,
+   param seeds 0 and 1, max_batch_size 8) under MultiHostScheduler, 16
+   requests drained with run_async/wait_run, against two in-process engines
+   from the same seeds under the same scheduler: the same routes and the
+   same tokens exactly; then a speculative pair (the 2-layer draft, seed 1,
+   gamma 4) likewise. All four workers start at once and are stopped at the
+   end; a worker that fails to start or raises fails the phase.
 
 The last two lines are the kernels' JSON record and the device line
-``{"ok": true, "device": {...}}``. ``--cpu-rehearsal`` skips phases 1-2,
-runs the others at a tiny width on the CPU and never prints the device
-line.
+``{"ok": true, "device": {...}}``; the kernels' record carries the verify
+chunk's two rows (``paged_attention[verify]``, ``paged_append[verify]``:
+launches inside phase 8's self-arm verify passes, numbers of the phase-2
+verify cases). ``--cpu-rehearsal`` skips phases 1-2, runs the others at a
+tiny width on the CPU (phase 9's workers on the CPU) and never prints the
+device line.
 Details also go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import dataclasses
 import json
@@ -159,8 +189,11 @@ from flashattention_tpu_torch.ops.quant import quantize_tokens
 from flashattention_tpu_torch.serving import (
     EngineConfig,
     GenerationRequest,
+    MultiHostScheduler,
+    ProcessEngine,
     ServingEngine,
 )
+from flashattention_tpu_torch.serving import engine as eng_mod
 from flashattention_tpu_torch.serving.paged_kv import (
     PagedKVCache,
     append_to_pages,
@@ -474,23 +507,36 @@ def attention_case(timer, gen, dev, name, dtype, *, window=None, sinks=0,
 APPEND_FORMATS = ("bf16", "fp32", "int8", "fp8", "e5m2")
 
 
+def verify_lengths(gen, b=32, t=5, max_len=512):
+    """Slot lengths before a speculative verify chunk of ``t`` rows: drawn
+    from [33, 505], then slot 0 at 508 (its rows pass the 512-slot page
+    capacity), slot 1 at 46 (its chunk crosses a page boundary), slots 2
+    and 3 at the range's ends."""
+    lengths = torch.randint(33, 506, (b,), generator=gen)
+    lengths[:4] = torch.tensor([max_len - t + 1, 46, 33, 505])
+    return lengths
+
+
 def append_case(timer, gen, dev, fmt, kind, *, h=12, d=64, page=16,
                 max_len=512):
     """B7 through ``paged_append`` at the engine's decode step (B = 32, T =
-    1) or at a prefill chunk (B = 1, T = 64 from position 384), ``fmt``
-    pages, tokens as the head views of a fused QKV projection (bf16; fp32
-    for fp32 pages), against its plain version: bit-exact outside the dump
-    page, payloads and scales. Decode: a quarter of the slots idle on the
-    dump page as the engine routes them, one sequence full (its token
-    drops). Times: the kernel, ``append_to_pages`` issued from the host,
-    the plain version, ``index_put_`` of the kept tokens (bf16 and fp32
-    pages; a quantizing append has no library call), the byte bound and,
-    beside it, a floor that is not a bound: the card's smallest launch on
-    this stream (a one-element ``zero_``)."""
+    1), at a prefill chunk (B = 1, T = 64 from position 384) or at a
+    speculative verify chunk (B = 32, T = 5 from ``verify_lengths``),
+    ``fmt`` pages, tokens as the head views of a fused QKV projection
+    (bf16; fp32 for fp32 pages), against its plain version: bit-exact
+    outside the dump page, payloads and scales. Decode and verify: a
+    quarter of the slots idle on the dump page as the engine routes them;
+    decode: one sequence full (its token drops); verify: the rows of the
+    slot at 508 past position 511 drop. Times: the kernel,
+    ``append_to_pages`` issued from the host, the plain version,
+    ``index_put_`` of the kept tokens (bf16 and fp32 pages; a quantizing
+    append has no library call), the byte bound and, beside it, a floor
+    that is not a bound: the card's smallest launch on this stream (a
+    one-element ``zero_``)."""
     quant = None if fmt in ("bf16", "fp32") else fmt
     src = torch.float32 if fmt == "fp32" else torch.bfloat16
     pps = -(-max_len // page)
-    b, t = (32, 1) if kind == "decode" else (1, 64)
+    b, t = {"decode": (32, 1), "chunk": (1, 64), "verify": (32, 5)}[kind]
     num_pages, dump = b * pps + 1, 0
     noise = [torch.randn((h, num_pages, page, d), generator=gen).to(dev)
              for _ in range(2)]
@@ -503,11 +549,14 @@ def append_case(timer, gen, dev, fmt, kind, *, h=12, d=64, page=16,
             for x in torch.split(qkv, h * d, dim=-1)[1:])
     pi = (torch.randperm(num_pages - 1, generator=gen)[: b * pps] + 1
           ).reshape(b, pps)
-    if kind == "decode":
-        lengths = torch.randint(0, max_len, (b,), generator=gen)
+    if kind in ("decode", "verify"):
+        if kind == "decode":
+            lengths = torch.randint(0, max_len, (b,), generator=gen)
+            lengths[b - 1] = max_len   # full: its token drops
+        else:
+            lengths = verify_lengths(gen, b, t, max_len)
         idle = torch.arange(b) % 4 == 3
         pi[idle], lengths[idle] = dump, 0
-        lengths[b - 1] = max_len   # full: its token drops
         valid = None
     else:
         lengths, valid = torch.tensor([max_len - 2 * t]), torch.tensor([t])
@@ -574,9 +623,13 @@ def append_case(timer, gen, dev, fmt, kind, *, h=12, d=64, page=16,
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     rec = dict(case=f"{fmt} {kind} append B={b} T={t} H_kv={h} D={d} "
                     f"page={page}, tokens as fused-projection views, "
-                    + ("8 idle slots on the dump page, 1 full sequence"
-                       if kind == "decode" else
-                       f"position {max_len - 2 * t}, valid_len {t}"),
+                    + {"decode": "8 idle slots on the dump page, 1 full "
+                                 "sequence",
+                       "verify": "8 idle slots on the dump page, lengths "
+                                 "33-505 and one at 508 (rows past 511 "
+                                 "drop)",
+                       "chunk": f"position {max_len - 2 * t}, valid_len "
+                                f"{t}"}[kind],
                max_abs_err=0.0, tol=0.0, ms=ms, wall_ms=wall_ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                bound_by="bytes", floor_ms=floor_ms, tokens_written=n_kept)
@@ -1164,6 +1217,17 @@ def phase_kernels(dev):
         for kind in ("decode", "chunk"):
             recs[f"append_{fmt}_{kind}"] = append_case(timer, gen, dev, fmt,
                                                        kind)
+    # B5/B6 and B7 at the speculative engine's verify chunk (phase 8): B=32
+    # slots of T = gamma + 1 = 5 rows, each slot at its own length
+    for key, quant in (("", None), ("_fp8", "fp8")):
+        recs[f"verify{key}"] = attention_case(
+            timer, gen, dev, f"verify B=32 T=5 page=16 lengths 33-505 + one "
+            f"at capacity{' fp8' if quant else ''}", bf, b=32, page=16,
+            q_len=5, lengths=(verify_lengths(gen) + 5).tolist(), quant=quant,
+            **gpt3)
+        fmt = quant or "bf16"
+        recs[f"append_{fmt}_verify"] = append_case(timer, gen, dev, fmt,
+                                                   "verify")
     # Quantized pages: the engine's decode shape in every format and the
     # int8 schedules, an e4m3 chunk, and scripts/bench_decode.py's shape.
     for key, quant, int8_qk in (("int8_qk", "int8", None),
@@ -1514,6 +1578,338 @@ def phase_vs_cpu(cfg, params, dev, prompt_len, steps, quant=None):
         log(f"[vs_cpu] {tag} vs bf16 pages on the card (not gated): max "
             f"|diff| {rec['vs_bf16_card_max_abs']:.3e}; greedy tokens equal "
             f"at {agree_b}/{steps} steps, first {prefix_b} identical")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the speculative engine; phase 9: multi-host serving
+# ---------------------------------------------------------------------------
+
+SPEC_GAMMA = 4
+# A self-draft proposes the target's own greedy tokens; only ties that the
+# T = 1 draft steps and the T = 5 verify break differently in bf16 reject.
+SPEC_ACCEPT_MIN = 0.9
+
+
+def _requests(cfg, seed, n_req, prompt_range, n_new):
+    """``n_req`` requests of random prompts, lengths in ``prompt_range``,
+    drawn as phase 3 draws them."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompt_range[0], prompt_range[1] + 1, size=n_req)
+    return [GenerationRequest(i, [int(t) for t in
+                                  rng.integers(0, cfg.vocab_size, size=n)],
+                              n_new) for i, n in enumerate(lens)]
+
+
+def _count_verify(tally):
+    """Patch the engine's verify pass to add the paged-attention and append
+    launches made inside each call to ``tally``."""
+    real = eng_mod.verify_logits
+
+    def counted(*args):
+        p0, a0 = pa.paged_attention.launches, pap.paged_append.launches
+        out = real(*args)
+        tally["verify_calls"] += 1
+        tally["verify_paged"] += pa.paged_attention.launches - p0
+        tally["verify_append"] += pap.paged_append.launches - a0
+        return out
+
+    return mock.patch.object(eng_mod, "verify_logits", counted)
+
+
+def _spec_kw(draft):
+    return {} if draft is None else dict(draft_params=draft[0],
+                                         draft_cfg=draft[1])
+
+
+def spec_arm(name, cfg, params, ecfg, dev, reqs, draft, on_card):
+    """One arm of phase 8: a warm-up engine, then the engine serving
+    ``reqs`` with every launch count set to 0 just before and read just
+    after. ``draft`` = (params, cfg) or None for the plain engine."""
+    ecfg = ecfg if draft else dataclasses.replace(ecfg, spec_gamma=0)
+    warm = ServingEngine(params, cfg, dataclasses.replace(ecfg, num_pages=64),
+                         device=dev, **_spec_kw(draft))
+    warm.submit(GenerationRequest(-1, reqs[0].prompt[:40], 4))
+    warm.run()
+    del warm
+    eng = ServingEngine(params, cfg, ecfg, device=dev, **_spec_kw(draft))
+    for r in reqs:
+        eng.submit(r)
+    sync(dev)
+    tally = collections.Counter()
+    reset_counts()
+    with _count_verify(tally):
+        t0 = time.perf_counter()
+        results = eng.run()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    st = eng.stats
+    if len(results) != len(reqs) or any(
+            len(results[r.request_id]) != r.max_new_tokens for r in reqs):
+        fail(f"phase 8 {name}: served {len(results)} of {len(reqs)} requests "
+             f"in full")
+    rec = dict(arm=name, requests=len(reqs), wall_s=wall,
+               prefill_s=st["prefill_s"], prefill_chunks=st["prefill_chunks"],
+               decode_tokens=st["decode_tokens"], launches=counts)
+    lt, chunks = cfg.n_layers, st["prefill_chunks"]
+    if draft is None:
+        rec.update(decode_steps=st["decode_steps"], decode_s=st["decode_s"],
+                   decode_tok_per_s=st["decode_tokens"] / st["decode_s"])
+        want, want_chunk = lt * (st["decode_steps"] + chunks), lt * chunks
+        log(f"[spec] {name}: {st['decode_tokens']} decode tokens in "
+            f"{st['decode_steps']} steps, {rec['decode_tok_per_s']:.1f} tok/s "
+            f"(decode_s {st['decode_s']:.3f}), wall {wall:.3f} s")
+    else:
+        ld, ticks = draft[1].n_layers, st["spec_ticks"]
+        rec.update(
+            draft_layers=ld, spec_ticks=ticks, spec_s=st["spec_s"],
+            spec_tok_per_s=st["decode_tokens"] / st["spec_s"],
+            tokens_per_tick=st["decode_tokens"] / ticks,
+            tokens_per_slot_tick=st["decode_tokens"] / st["spec_slot_ticks"],
+            proposed=eng.spec_proposed, accepted=eng.spec_accepted,
+            acceptance=eng.spec_accepted / max(eng.spec_proposed, 1),
+            verify=dict(tally))
+        # L_t per verify, L_d per draft step (gamma + 1 a tick), L_t + L_d
+        # per prefill chunk
+        want = (lt + ld * (SPEC_GAMMA + 1)) * ticks + (lt + ld) * chunks
+        want_chunk = lt * ticks + (lt + ld) * chunks
+        log(f"[spec] {name} ({ld}-layer draft, gamma {SPEC_GAMMA}): "
+            f"{st['decode_tokens']} decode tokens in {ticks} ticks "
+            f"({rec['tokens_per_tick']:.3f} a tick, "
+            f"{rec['tokens_per_slot_tick']:.3f} a busy slot), "
+            f"{rec['spec_tok_per_s']:.1f}"
+            f" tok/s (spec_s {st['spec_s']:.3f}), acceptance "
+            f"{eng.spec_accepted}/{eng.spec_proposed} = "
+            f"{rec['acceptance']:.4f}, wall {wall:.3f} s")
+    log(f"[spec] {name} launches: {counts}  prefill chunks {chunks}")
+    if on_card:
+        for kname in ("paged_attention", "paged_append"):
+            if counts[kname] != want or counts[f"{kname}_chunk"] != want_chunk:
+                fail(f"phase 8 {name}: {kname} launched {counts[kname]} times "
+                     f"({counts[f'{kname}_chunk']} at T > 1), want {want} "
+                     f"({want_chunk})")
+        if counts["paged_attention_split"] != want:
+            fail(f"phase 8 {name}: {counts['paged_attention_split']} of "
+                 f"{want} paged launches on the split route")
+        if draft is not None and not (
+                tally["verify_calls"] == st["spec_ticks"]
+                and tally["verify_paged"] == tally["verify_append"]
+                == lt * st["spec_ticks"]):
+            fail(f"phase 8 {name}: verify launches {dict(tally)}, want "
+                 f"{lt} paged + {lt} append in each of {st['spec_ticks']} "
+                 f"ticks")
+        log(f"[spec] {name}: launch counts exact (paged and append {want} "
+            f"each, {want_chunk} at T > 1, every paged launch split)")
+    return rec, results
+
+
+def _verify_vs_cpu(cfg, params, eng):
+    """One speculative tick of ``eng`` with its verify pass's inputs
+    snapshotted (caches copied to the CPU, page rows, lengths, chunk
+    tokens); ``verify_logits`` on the same inputs on the CPU in float32
+    against the card's."""
+    snap = {}
+    real = eng_mod.verify_logits
+
+    def capture(w, c, caches, tokens, pi, ln):
+        if not snap:
+            snap["args"] = (
+                [PagedKVCache(k_pages=x.k_pages.float().cpu(),
+                              v_pages=x.v_pages.float().cpu())
+                 for x in caches], tokens.cpu(), pi.cpu(), ln.cpu())
+            out = real(w, c, caches, tokens, pi, ln)
+            snap["logits"] = out.float().cpu()
+            return out
+        return real(w, c, caches, tokens, pi, ln)
+
+    with mock.patch.object(eng_mod, "verify_logits", capture):
+        eng.step()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    w32 = eng_mod._serving_weights(params, cfg32, "cpu")
+    lr = eng_mod.verify_logits(w32, cfg32, *snap["args"])
+    lc = snap["logits"]
+    err = (lc - lr).abs()
+    max_err = float(err.max())
+    if not torch.isfinite(lc).all():
+        fail("phase 8: card verify logits are not finite")
+    if bool((err > LOGITS_TOL + LOGITS_TOL * lr.abs()).any()):
+        fail(f"phase 8: verify logits differ from the CPU's by {max_err:.3e}, "
+             f"over {LOGITS_TOL:g} abs+rel")
+    lengths = snap["args"][3]
+    log(f"[spec] verify logits {tuple(lc.shape)} at lengths "
+        f"{int(lengths.min())}-{int(lengths.max())}: max |card - cpu fp32| "
+        f"{max_err:.3e} (tol {LOGITS_TOL:g} abs+rel)")
+    return dict(max_abs_err=max_err, tol=LOGITS_TOL, shape=list(lc.shape),
+                lengths=lengths.tolist())
+
+
+def spec_profile(name, cfg, params, ecfg, dev, draft, ticks=5,
+                 snapshot=False):
+    """Where a speculative tick's time goes: 32 requests of 32-128-token
+    prompts (64 new tokens each) admitted, two ticks, then ``ticks`` ticks
+    on the host clock, then on a fresh engine ``ticks`` ticks under
+    torch.profiler (wall ms, kernel ms, device ops per tick, the device's
+    busy share, the top kernels); host syncs per tick on a warm-up engine
+    (card only). ``snapshot``: one more tick first, with its verify pass
+    held against the CPU (``_verify_vs_cpu``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(SEED + 2)
+    plen = min(128, ecfg.max_seq_len // 4)
+    n_new = min(64, ecfg.max_seq_len // 2)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=n)]
+               for n in rng.integers(plen // 4, plen + 1,
+                                     size=ecfg.max_batch_size)]
+    tag = f" {name}"
+
+    def engine():
+        eng = ServingEngine(params, cfg, ecfg, device=dev, **_spec_kw(draft))
+        for i, prompt in enumerate(prompts):
+            eng.submit(GenerationRequest(i, prompt, n_new))
+        eng._admit()
+        eng.step()
+        eng.step()
+        sync(dev)
+        return eng
+
+    rec = {}
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        warm = engine()
+        rec["syncs"] = count_syncs(
+            lambda: [warm.step() for _ in range(ticks)]) / ticks
+        del warm
+    eng = engine()
+    if snapshot:
+        rec["verify_vs_cpu"] = _verify_vs_cpu(cfg, params, eng)
+    tokens0 = eng.stats["decode_tokens"]
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        eng.step()
+    sync(dev)
+    rec["unprofiled_wall_ms"] = (time.perf_counter() - t0) / ticks * 1e3
+    rec["tokens_per_tick"] = (eng.stats["decode_tokens"] - tokens0) / ticks
+    if eng._num_active() != ecfg.max_batch_size:
+        fail(f"phase 8 {name} profile: not every slot stayed busy")
+    del eng
+    eng = engine()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.step()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    rec.update(_window(prof, wall, ticks, "tick", tag))
+    log(f"[profile{tag}] unprofiled: {rec['unprofiled_wall_ms']:.3f} ms/tick "
+        f"wall, {rec['tokens_per_tick']:.2f} tokens a tick"
+        + (f"; host syncs {rec['syncs']:.2f} a tick" if on_card else ""))
+    return rec
+
+
+def _agreements(results, ref):
+    """Per request: (tokens equal to ``ref``'s, length of the equal
+    prefix)."""
+    return {rid: _agreement(results[rid], ref[rid]) for rid in ref}
+
+
+def phase_spec(cfg, params, ecfg, dev, n_req, prompt_range, n_new, draft2,
+               on_card):
+    """The speculative engine (spec_gamma 4) in three arms on the same
+    requests: plain (no draft; its tokens are the reference), self (the
+    target as its own draft: the acceptance ceiling) and draft2 (a 2-layer
+    draft of random weights: the floor); then each spec arm's profile, the
+    self arm's with the verify pass held against the CPU."""
+    reqs = _requests(cfg, SEED, n_req, prompt_range, n_new)
+    ecfg = dataclasses.replace(ecfg, spec_gamma=SPEC_GAMMA)
+    arms = {"plain": None, "self": (params, cfg), "draft2": draft2}
+    rec, results = {}, {}
+    for name, draft in arms.items():
+        rec[name], results[name] = spec_arm(name, cfg, params, ecfg, dev, reqs,
+                                            draft, on_card)
+    for name in ("self", "draft2"):
+        agree = _agreements(results[name], results["plain"])
+        rec[name]["agreement"] = {
+            "tokens_equal": sum(a for a, _ in agree.values()),
+            "tokens": sum(len(v) for v in results["plain"].values()),
+            "requests_identical": sum(p == n_new for _, p in agree.values())}
+        log(f"[spec] {name} vs plain: {rec[name]['agreement']} (not gated)")
+    acc = rec["self"]["acceptance"]
+    if acc < SPEC_ACCEPT_MIN:
+        fail(f"phase 8: self-draft acceptance {acc:.4f} < {SPEC_ACCEPT_MIN}")
+    log(f"[spec] self-draft acceptance {acc:.4f} >= {SPEC_ACCEPT_MIN}")
+    for name in ("self", "draft2"):
+        rec[name]["profile"] = spec_profile(name, cfg, params, ecfg, dev,
+                                            arms[name],
+                                            snapshot=name == "self")
+    return rec
+
+
+def phase_multihost(cfg, ecfg, dev, n_req, prompt_range, n_new, draft_cfg):
+    """Two ProcessEngine workers on ``dev`` (seeds 0 and 1) under
+    MultiHostScheduler, drained with run_async / wait_run, against two
+    in-process engines from the same seeds under the same scheduler: the
+    same routes and the same tokens, exactly. Plain, then speculative
+    (``draft_cfg``, draft seed SEED + 1, gamma 4). All four workers start
+    at once; a worker that fails to start or raises fails the phase."""
+    reqs = _requests(cfg, SEED + 3, n_req, prompt_range, n_new)
+    arms = {"plain": (ecfg, None),
+            "spec": (dataclasses.replace(ecfg, spec_gamma=SPEC_GAMMA),
+                     draft_cfg)}
+    procs, rec = {}, {}
+    try:
+        for arm, (e, dcfg) in arms.items():
+            procs[arm] = [ProcessEngine(cfg, e, param_seed=i, device=dev,
+                                        draft_cfg=dcfg, draft_seed=SEED + 1)
+                          for i in range(2)]
+        for arm, (e, dcfg) in arms.items():
+            kw = ({} if dcfg is None else
+                  dict(draft_params=init_params(dcfg, SEED + 1, device=dev),
+                       draft_cfg=dcfg))
+            sched = MultiHostScheduler([
+                ServingEngine(init_params(cfg, i, device=dev), cfg, e,
+                              device=dev, **kw) for i in range(2)])
+            routes = [sched.submit(r) for r in reqs]
+            t1 = time.perf_counter()
+            expected = sched.run()
+            sync(dev)
+            in_process_s = time.perf_counter() - t1
+            del sched, kw
+            t1 = time.perf_counter()
+            psched = MultiHostScheduler(procs[arm])
+            proutes = [psched.submit(r) for r in reqs]
+            submit_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            for p in procs[arm]:
+                p.run_async()
+            got = {}
+            for p in procs[arm]:
+                got.update(p.wait_run())
+            workers_s = time.perf_counter() - t1
+            if proutes != routes:
+                fail(f"phase 9 {arm}: workers routed {proutes}, in-process "
+                     f"{routes}")
+            if len(got) != n_req or any(len(v) != n_new for v in got.values()):
+                fail(f"phase 9 {arm}: workers served {len(got)} of {n_req} "
+                     f"requests in full")
+            if got != expected:
+                bad = [r for r in expected if got.get(r) != expected[r]]
+                fail(f"phase 9 {arm}: worker tokens differ from the "
+                     f"in-process engines' for requests {bad}")
+            rec[arm] = dict(routes=routes, in_process_s=in_process_s,
+                            submit_s=submit_s, workers_run_s=workers_s)
+            log(f"[multihost] {arm}: {n_req} requests routed {routes.count(0)}"
+                f"/{routes.count(1)}; two workers on {dev} equal two "
+                f"in-process engines exactly (workers drained in "
+                f"{workers_s:.3f} s, in-process {in_process_s:.3f} s; first "
+                f"submits {submit_s:.3f} s, worker start included)")
+    except RuntimeError as e:
+        fail(f"phase 9: {e}")
+    finally:
+        for ps in procs.values():
+            for p in ps:
+                p.close()
     return rec
 
 
@@ -2069,6 +2465,7 @@ def main() -> int:
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="skip phases 1-2; run the others tiny on the CPU")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     OUT_DIR.mkdir(exist_ok=True)
@@ -2101,6 +2498,14 @@ def main() -> int:
         report["sparse_model"] = phase_sparse_model(
             dataclasses.replace(cfg, block_size=16), "cpu", False, b=2, n=128,
             check_n=64)
+        draft = dataclasses.replace(cfg, n_layers=1)
+        report["spec"] = phase_spec(
+            cfg, params, ecfg, "cpu", 8, (8, 60), 8,
+            (init_params(draft, seed=SEED + 1, device="cpu"), draft), False)
+        report["multihost"] = phase_multihost(
+            cfg, dataclasses.replace(ecfg, max_batch_size=2,
+                                     num_pages=2 * 8 + 1),
+            "cpu", 4, (8, 40), 6, draft)
         log("[rehearsal] control flow ran on the CPU; no device result")
         return 0
 
@@ -2162,7 +2567,6 @@ def main() -> int:
 
     # Phase 4b
     report["vs_cpu_fp8"] = phase_vs_cpu(cfg, params, dev, 100, 16, quant="fp8")
-    del params
 
     # Phase 5
     tcfg = TransformerConfig()  # GPT-3 Small, dropout 0.1, remat full, bf16
@@ -2185,6 +2589,29 @@ def main() -> int:
     scfg = TransformerConfig(dropout_rate=0.0, max_seq_len=4096)
     report["sparse_model"] = phase_sparse_model(scfg, dev, True, b=2, n=4096,
                                                 check_n=512)
+    torch.cuda.empty_cache()
+
+    # Phase 8: the speculative engine, phase 3's config with gamma 4; the
+    # floor's draft is GPT-3 Small at 2 layers
+    t0 = time.perf_counter()
+    draft2 = dataclasses.replace(cfg, n_layers=2)
+    report["spec"] = phase_spec(
+        cfg, params, ecfg, dev, 32, (32, 400), 32,
+        (init_params(draft2, seed=SEED + 1, device="cpu"), draft2), True)
+    del params
+    torch.cuda.empty_cache()
+    report["spec"]["phase_s"] = time.perf_counter() - t0
+
+    # Phase 9: two engine processes on the card under the scheduler
+    t0 = time.perf_counter()
+    report["multihost"] = phase_multihost(
+        cfg, dataclasses.replace(ecfg, max_batch_size=8, num_pages=8 * 32 + 1),
+        dev, 16, (32, 200), 16, draft2)
+    report["multihost"]["phase_s"] = time.perf_counter() - t0
+    report["total_s"] = time.perf_counter() - t_start
+    log(f"[card] phase 8 {report['spec']['phase_s']:.1f} s, phase 9 "
+        f"{report['multihost']['phase_s']:.1f} s, whole run "
+        f"{report['total_s']:.1f} s")
 
     counts = {**report["engine"]["launches"],
               **{k: report["train"]["launches"][k]
@@ -2223,6 +2650,13 @@ def main() -> int:
             if chunk_case:
                 rows.append((name, f"{name}[chunk{q and ',' + q}]",
                              chunk_case, n_chunk, {}))
+    # the verify chunk (B = 32, T = 5): launches inside the verify passes of
+    # phase 8's self arm, numbers of the phase-2 verify cases
+    verify = report["spec"]["self"]["verify"]
+    rows += [("paged_attention", "paged_attention[verify]", "verify",
+              verify["verify_paged"], {}),
+             ("paged_append", "paged_append[verify]", "append_bf16_verify",
+              verify["verify_append"], {})]
     for name, tag, case, n, more in rows:
         r = report["kernels"][case]
         kernels.append(dict(

@@ -21,7 +21,12 @@ Ported so far:
   ``EngineConfig(quant=...)``) through the paged kernels;
 - block-sparse attention (``ops.sparse_attn.sparse_attention``, kernels
   ``csrc/sparse_fwd.cu`` and ``csrc/sparse_bwd.cu``) and the model's
-  ``apply_transformer(sparse_pattern=...)``.
+  ``apply_transformer(sparse_pattern=...)``;
+- speculative decoding on the paged engine (``ServingEngine(draft_params=,
+  draft_cfg=)`` with ``EngineConfig(spec_gamma=)``, through the paged
+  kernels), dense speculative generation (``speculative_generate``,
+  ``generate``) and multi-host routing (``MultiHostScheduler`` over
+  in-process engines or ``ProcessEngine`` workers).
 """
 
 from flashattention_tpu_torch.models.train import TrainConfig, train
@@ -49,17 +54,26 @@ from flashattention_tpu_torch.ops.tiled import tiled_attention
 from flashattention_tpu_torch.serving import (
     EngineConfig,
     GenerationRequest,
+    MultiHostScheduler,
     PageAllocator,
+    ProcessEngine,
     SamplingConfig,
     ServingEngine,
+    SpecStats,
+    generate,
+    spec_accept_emit,
+    speculative_generate,
 )
 
 __all__ = [
     "EngineConfig",
     "GenerationRequest",
+    "MultiHostScheduler",
     "PageAllocator",
+    "ProcessEngine",
     "SamplingConfig",
     "ServingEngine",
+    "SpecStats",
     "TrainConfig",
     "Transformer",
     "TransformerConfig",
@@ -70,6 +84,7 @@ __all__ = [
     "fa3_attention",
     "flash_attention",
     "fp8_attention",
+    "generate",
     "init_params",
     "kernel_attention",
     "paged_append",
@@ -77,6 +92,8 @@ __all__ = [
     "params_from_jax",
     "reference_attention",
     "sparse_attention",
+    "spec_accept_emit",
+    "speculative_generate",
     "tiled_attention",
     "train",
 ]

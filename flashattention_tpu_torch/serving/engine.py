@@ -9,7 +9,12 @@ device programs:
   kernel;
 - the first-token epilogue: final layer norm and LM head on one row;
 - batched decode: every decode slot advances one token; the new K/V go into
-  the pages through the append kernel and attend through the paged kernel.
+  the pages through the append kernel and attend through the paged kernel;
+- speculative decoding (a draft model and ``EngineConfig(spec_gamma=g)``):
+  the draft proposes g tokens for every slot over its own paged cache
+  (:func:`spec_propose`), the target scores the (B, g+1) chunk in one
+  batched pass through the same two kernels (:func:`verify_logits`), and
+  each slot advances by its accepted prefix plus one token.
 
 Inactive slots point at a reserved dump page with length 0, so the batched
 decode keeps one shape; their outputs are discarded.
@@ -39,13 +44,19 @@ from flashattention_tpu_torch.models.transformer import (
     rope,
 )
 from flashattention_tpu_torch.ops.paged_attention import paged_attention
+from flashattention_tpu_torch.ops.tiled import tiled_attention
 from flashattention_tpu_torch.serving.allocator import PageAllocator
 from flashattention_tpu_torch.serving.paged_kv import (
     PagedKVCache,
     append_to_pages,
     init_paged_cache,
 )
-from flashattention_tpu_torch.serving.sampling import SamplingConfig, sample_logits
+from flashattention_tpu_torch.serving.sampling import (
+    SamplingConfig,
+    filter_logits,
+    sample_logits,
+    spec_accept_emit,
+)
 from flashattention_tpu_torch.utils.device import resolve_device
 
 
@@ -75,7 +86,10 @@ class EngineConfig:
     eos_token: int | None = None
     sampling: SamplingConfig | None = None  # None / temperature 0 = greedy
     seed: int = 0
-    spec_gamma: int = 0            # speculative decoding: not ported yet
+    # Speculative decoding (needs draft_params/draft_cfg at construction):
+    # every tick the draft proposes spec_gamma tokens per slot and the
+    # target verifies them in one batched chunk.
+    spec_gamma: int = 0
 
     @property
     def pages_per_seq(self) -> int:
@@ -180,11 +194,18 @@ def _embed(w, tokens, cfg, position0: int):
     return x
 
 
-def _embed_decode(w, tokens, cfg, lengths):
+def _embed_positions(w, tokens, cfg, pos):
+    """Embed tokens (B, T) at positions (B, T). Positions past the table
+    read its last row, as JAX's gather clamps: a draft or verify row near
+    max_seq_len may overrun it, and such a row is never accepted."""
     x = w.tok_emb[tokens] * w.emb_scale
     if cfg.pos_encoding == "learned":
-        x = x + w.pos_emb[lengths.long()][:, None, :]
+        x = x + w.pos_emb[torch.clamp(pos.long(), max=w.pos_emb.shape[0] - 1)]
     return x
+
+
+def _embed_decode(w, tokens, cfg, lengths):
+    return _embed_positions(w, tokens, cfg, lengths[:, None])
 
 
 def _maybe_rope(q, k, cfg, pos):
@@ -231,11 +252,10 @@ def last_logits(w, x, idx: int):
     return lm_head_logits(w.lm_head, x)[:, 0]
 
 
-def decode_logits(w, cfg, caches: list[PagedKVCache], tokens, page_indices,
-                  lengths):
-    """One batched decode step: tokens (B, 1) at positions ``lengths``
-    (B,) -> float32 logits (B, V). The new K/V land at ``lengths`` and each
-    slot attends to lengths + 1 entries."""
+def _decode_hidden(w, cfg, caches: list[PagedKVCache], tokens, page_indices,
+                   lengths):
+    """The layers of one batched decode step: x (B, 1, D) before the final
+    layer norm."""
     x = _embed_decode(w, tokens, cfg, lengths)
     pos = lengths[:, None]
     attended = lengths + 1
@@ -248,8 +268,110 @@ def decode_logits(w, cfg, caches: list[PagedKVCache], tokens, page_indices,
                             **_attn_kwargs(cfg, cache))
         x = layer_norm(x + _proj_out(o[:, :, None], bp.attn), bp.ln1)
         x = layer_norm(x + _mlp(x, bp.mlp), bp.ln2)
+    return x
+
+
+def decode_logits(w, cfg, caches: list[PagedKVCache], tokens, page_indices,
+                  lengths):
+    """One batched decode step: tokens (B, 1) at positions ``lengths``
+    (B,) -> float32 logits (B, V). The new K/V land at ``lengths`` and each
+    slot attends to lengths + 1 entries."""
+    x = _decode_hidden(w, cfg, caches, tokens, page_indices, lengths)
     x = layer_norm(x, w.final_ln)
     return lm_head_logits(w.lm_head, x)[:, 0]
+
+
+def spec_propose(w, cfg, caches: list[PagedKVCache], tokens, page_indices,
+                 lengths, gamma: int, *,
+                 sampling: SamplingConfig | None = None,
+                 generator: torch.Generator | None = None):
+    """The draft's proposal over its paged cache: gamma + 1 one-token
+    decode steps at ``lengths + i`` from tokens (B, 1), each step's token
+    feeding the next on the device (no host read). The last step only
+    writes d_gamma's K/V, so the draft cache covers the longest prefix the
+    target can accept.
+
+    Returns (proposals (B, gamma), q_dist). Greedy (``sampling`` None or
+    temperature 0): each step takes the argmax and q_dist is None.
+    Stochastic: each step draws from its filtered distribution with
+    ``generator``, and q_dist (B, gamma, V) holds those distributions, the
+    q of the acceptance test."""
+    stochastic = sampling is not None and not sampling.greedy
+    toks, dists = [], []
+    tok = tokens
+    for i in range(gamma):
+        logits = decode_logits(w, cfg, caches, tok, page_indices, lengths + i)
+        if stochastic:
+            probs = torch.softmax(filter_logits(logits, sampling), dim=-1)
+            tok = torch.multinomial(probs, 1, generator=generator)
+            dists.append(probs)
+        else:
+            tok = torch.argmax(logits, dim=-1, keepdim=True)
+        toks.append(tok)
+    _decode_hidden(w, cfg, caches, tok, page_indices, lengths + gamma)
+    q_dist = torch.stack(dists, dim=1) if stochastic else None
+    return torch.cat(toks, dim=1), q_dist
+
+
+def verify_logits(w, cfg, caches: list[PagedKVCache], tokens, page_indices,
+                  lengths):
+    """The target's verify pass: tokens (B, T) [last token, d_1..d_{T-1}]
+    at positions ``lengths + t`` -> float32 logits (B, T, V); row t scores
+    position lengths + t + 1. The chunk's K/V land at ``lengths`` (tokens
+    past a sequence's page capacity are dropped) and the paged kernel
+    attends with lengths + T, which puts row t at lengths + t."""
+    b, t = tokens.shape
+    pos = lengths.long()[:, None] + torch.arange(t, device=tokens.device)
+    x = _embed_positions(w, tokens, cfg, pos)
+    attended = lengths + t
+    for bp, cache in zip(w.blocks, caches):
+        q, k, v = _qkv(x, bp.attn, cfg)  # (B, H, T, dh)
+        q, k = _maybe_rope(q, k, cfg, pos)
+        append_to_pages(cache, k, v, page_indices, lengths)
+        o = paged_attention(q.contiguous(), cache.k_pages, cache.v_pages,
+                            page_indices, attended, **_attn_kwargs(cfg, cache))
+        x = layer_norm(x + _proj_out(o, bp.attn), bp.ln1)
+        x = layer_norm(x + _mlp(x, bp.mlp), bp.ln2)
+    x = layer_norm(x, w.final_ln)
+    return lm_head_logits(w.lm_head, x)
+
+
+def prefill(w, cfg, caches: list[PagedKVCache], tokens, page_indices,
+            prompt_len: int):
+    """Whole-prompt prefill through the tiled executor (not the engine's
+    path, which prefills in chunks through the paged kernel): tokens
+    (1, Tp) of which the first ``prompt_len`` are real; their K/V go into
+    the pages from position 0 and the prompt attends causally to itself.
+    Returns the greedy next token (1,)."""
+    b, tp = tokens.shape
+    dev = tokens.device
+    x = _embed(w, tokens, cfg, 0)
+    rows = torch.arange(tp, device=dev)[:, None]
+    cols = torch.arange(tp, device=dev)[None, :]
+    mask = (cols <= rows) & (cols < prompt_len)
+    if cfg.attention_window is not None:
+        band = cols > rows - cfg.attention_window
+        if cfg.attention_sinks:
+            band = band | (cols < cfg.attention_sinks)
+        mask = mask & band
+    zero = torch.zeros((b,), dtype=torch.int32, device=dev)
+    valid = torch.full((b,), prompt_len, dtype=torch.int32, device=dev)
+    pos = torch.arange(tp, device=dev)
+    groups = cfg.n_heads // cfg.kv_heads
+    for bp, cache in zip(w.blocks, caches):
+        q, k, v = _qkv(x, bp.attn, cfg)
+        q, k = _maybe_rope(q, k, cfg, pos)
+        append_to_pages(cache, k, v, page_indices, zero, valid_len=valid)
+        if groups > 1:  # GQA: expand for the executor
+            k = k.repeat_interleave(groups, dim=1)
+            v = v.repeat_interleave(groups, dim=1)
+        o, _ = tiled_attention(q, k, v, softmax_scale=cfg.softmax_scale,
+                               block_k=min(cfg.block_size, tp), mask=mask,
+                               softcap=cfg.attn_softcap)
+        x = layer_norm(x + _proj_out(o, bp.attn), bp.ln1)
+        x = layer_norm(x + _mlp(x, bp.mlp), bp.ln2)
+    logits = last_logits(w, x, prompt_len - 1)
+    return torch.argmax(logits, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -269,8 +391,20 @@ class ServingEngine:
         draft_params=None,
         draft_cfg: TransformerConfig | None = None,
     ):
-        if draft_params is not None or draft_cfg is not None or ecfg.spec_gamma:
-            raise NotImplementedError("speculative decoding is not ported yet")
+        # Speculative decoding: the draft keeps its own page pools (one per
+        # draft layer) but shares the target's page tables, so one
+        # allocator chain addresses both models' caches.
+        self.spec = draft_params is not None
+        if self.spec:
+            if draft_cfg is None:
+                raise ValueError("draft_params requires draft_cfg")
+            if ecfg.spec_gamma < 1:
+                raise ValueError(f"speculative engine needs spec_gamma >= 1, "
+                                 f"got {ecfg.spec_gamma}")
+            if cfg.vocab_size != draft_cfg.vocab_size:
+                raise ValueError("target and draft must share a vocabulary")
+        elif ecfg.spec_gamma:
+            raise ValueError("spec_gamma > 0 requires draft_params/draft_cfg")
         if ecfg.prefix_cache and cfg.attention_window is not None:
             raise ValueError(
                 "prefix_cache cannot combine with attention_window: window "
@@ -286,6 +420,23 @@ class ServingEngine:
                              device=self.device)
             for _ in range(cfg.n_layers)
         ]
+        if self.spec:
+            # A prefix-cache page is pinned and both models write their
+            # pools during the prefill that filled it, so an adopted page
+            # holds the draft's K/V too.
+            self.draft_cfg = draft_cfg
+            self.draft_weights = _serving_weights(draft_params, draft_cfg,
+                                                  self.device)
+            self.draft_caches = [
+                init_paged_cache(draft_cfg.kv_heads, ecfg.num_pages,
+                                 ecfg.page_size, draft_cfg.d_head,
+                                 quant=ecfg.quant, dtype=draft_cfg.dtype,
+                                 device=self.device)
+                for _ in range(draft_cfg.n_layers)
+            ]
+            self.spec_proposed = 0
+            self.spec_accepted = 0
+            self.spec_rounds = 0
         self.allocator = PageAllocator(ecfg.num_pages, native=native_allocator)
         # Prefix cache: prompt-prefix digest -> physical page, LRU order.
         # Every cached page holds one allocator pin.
@@ -310,9 +461,10 @@ class ServingEngine:
         )
         self._gen = torch.Generator(device=self.device).manual_seed(ecfg.seed)
         # Work done, for throughput: prefill chunks and prompt tokens run,
-        # decode steps and the tokens they produced, and the host seconds
-        # each phase took (each ends by reading its tokens back, so the
-        # device work is inside).
+        # decode steps (or speculative ticks, and the busy slots summed over
+        # them) and the tokens they produced, and the host seconds each
+        # phase took (prefill_s, decode_s, spec_s; each ends by reading its
+        # tokens back, so the device work is inside).
         self.stats = collections.Counter()
         # float32 logits (1, V) of the last admitted request's first token.
         self.last_prefill_logits: torch.Tensor | None = None
@@ -334,7 +486,10 @@ class ServingEngine:
         """One scheduler tick: admit -> batched decode -> retire."""
         self._admit()
         if self._num_active():
-            self._decode_once()
+            if self.spec:
+                self._spec_decode_once()
+            else:
+                self._decode_once()
 
     # -- internals ----------------------------------------------------------
 
@@ -413,11 +568,14 @@ class ServingEngine:
                 valid = min(chunk, prompt_len - base)
                 toks = np.zeros((1, chunk), np.int64)
                 toks[0, :valid] = req.prompt[base: base + valid]
-                x = chunk_prefill(
-                    self.weights, self.cfg, self.caches,
-                    torch.from_numpy(toks).to(self.device), page_row,
-                    base, valid,
-                )
+                toks_d = torch.from_numpy(toks).to(self.device)
+                x = chunk_prefill(self.weights, self.cfg, self.caches, toks_d,
+                                  page_row, base, valid)
+                if self.spec:
+                    # the draft prefills the same chunks into its own pools
+                    chunk_prefill(self.draft_weights, self.draft_cfg,
+                                  self.draft_caches, toks_d, page_row, base,
+                                  valid)
                 last_base = base
                 self.stats["prefill_chunks"] += 1
                 self.stats["prefill_tokens"] += valid
@@ -449,8 +607,14 @@ class ServingEngine:
             row[keep + freed: keep + freed + len(pages) - keep] = pages[keep:]
         return row
 
-    def _decode_once(self) -> None:
-        t0 = time.perf_counter()
+    def _batch(self, ahead: int):
+        """The batch of one tick: every busy slot's chain grown to hold
+        positions ``length`` .. ``length + ahead`` (0 for a decode step,
+        spec_gamma for a speculative tick; at most the sequence's page
+        capacity: writes past it are dropped and never accepted). Returns
+        tokens (B, 1), page rows (B, pps) and lengths (B,) on the device;
+        idle slots, and a slot evicted here, attend nothing on the dump
+        page."""
         B = self.ecfg.max_batch_size
         tokens = np.zeros((B, 1), np.int64)
         lengths = np.zeros((B,), np.int32)
@@ -459,28 +623,31 @@ class ServingEngine:
             if slot.request is None:
                 page_rows.append(self._page_row_np(None))
                 continue
-            # grow pages to hold position `length` (the token being written);
             # the physical chain is shorter by the reclaimed window prefix
-            need = self._pages_needed(slot.length + 1) - slot.freed_pages
-            if not self.allocator.grow(slot.request.request_id, need):
-                # Drop LRU prefix-cache pins before evicting a sequence.
-                self._shrink_prefix_cache(1)
-                if not self.allocator.grow(slot.request.request_id, need):
-                    self._evict(slot)  # OOM mid-flight: release + requeue
+            rid = slot.request.request_id
+            need = min(self._pages_needed(slot.length + ahead + 1),
+                       self.ecfg.pages_per_seq) - slot.freed_pages
+            if not self.allocator.grow(rid, need):
+                # Drop LRU prefix-cache pins before evicting a sequence: as
+                # many as the pages missing (a speculative grow can miss
+                # several), then evict (release + requeue).
+                deficit = need - len(self.allocator.pages(rid))
+                self._shrink_prefix_cache(max(1, deficit))
+                if not self.allocator.grow(rid, need):
+                    self._evict(slot)
                     page_rows.append(self._page_row_np(None))
                     continue
             tokens[i, 0] = slot.generated[-1]
             lengths[i] = slot.length
-            page_rows.append(
-                self._page_row_np(slot.request.request_id, slot.freed_pages)
-            )
+            page_rows.append(self._page_row_np(rid, slot.freed_pages))
+        return (torch.from_numpy(tokens).to(self.device),
+                torch.from_numpy(np.stack(page_rows)).to(self.device),
+                torch.from_numpy(lengths).to(self.device))
 
-        logits = decode_logits(
-            self.weights, self.cfg, self.caches,
-            torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(np.stack(page_rows)).to(self.device),
-            torch.from_numpy(lengths).to(self.device),
-        )
+    def _decode_once(self) -> None:
+        t0 = time.perf_counter()
+        logits = decode_logits(self.weights, self.cfg, self.caches,
+                               *self._batch(0))
         next_np = self._select(logits).cpu().numpy()
         self.stats["decode_steps"] += 1
         self.stats["decode_s"] += time.perf_counter() - t0
@@ -490,6 +657,67 @@ class ServingEngine:
             self.stats["decode_tokens"] += 1
             slot.length += 1  # the fed token is now in cache
             slot.generated.append(int(next_np[i]))
+            self._reclaim_window(slot)
+            self._maybe_finish(slot)
+
+    def _spec_decode_once(self) -> None:
+        """One speculative tick: the draft proposes ``spec_gamma`` tokens
+        per slot over its paged cache, the target scores the whole
+        [last, d_1..d_g] chunk in one batched pass, and each slot advances
+        by its accepted prefix plus one token. Greedy emission is the
+        target's own greedy continuation.
+
+        Rollback is free: cache entries past the accepted prefix are not
+        counted in ``slot.length`` and the next tick overwrites them."""
+        t0 = time.perf_counter()
+        g = self.ecfg.spec_gamma
+        tok, pi, ln = self._batch(g)
+        drafts, q_dist = spec_propose(
+            self.draft_weights, self.draft_cfg, self.draft_caches, tok, pi,
+            ln, g, sampling=self.ecfg.sampling, generator=self._gen)
+        logits = verify_logits(self.weights, self.cfg, self.caches,
+                               torch.cat([tok, drafts], dim=1), pi, ln)
+        if q_dist is not None:  # stochastic: the acceptance test on device
+            p_dist = torch.softmax(filter_logits(logits, self.ecfg.sampling),
+                                   dim=-1)
+            a_dev, emit = spec_accept_emit(p_dist, q_dist, drafts, self._gen)
+            host = torch.cat([a_dev[:, None].to(emit.dtype), emit],
+                             dim=1).cpu().numpy()  # one read back
+            a_np, t_np, d_np = host[:, 0], host[:, 1:], None
+        else:
+            # row j: the target's greedy token for position lengths + j + 1
+            host = torch.cat([drafts, torch.argmax(logits, dim=-1)],
+                             dim=1).cpu().numpy()  # one read back
+            a_np, d_np, t_np = None, host[:, :g], host[:, g:]
+        self.spec_rounds += 1
+        self.stats["spec_ticks"] += 1
+        self.stats["spec_slot_ticks"] += self._num_active()
+        self.stats["spec_s"] += time.perf_counter() - t0
+        for i, slot in enumerate(self.slots):
+            if slot.request is None:
+                continue
+            if a_np is not None:
+                a = int(a_np[i])
+                emitted = [int(t) for t in t_np[i, : a + 1]]
+            else:
+                a = 0
+                while a < g and t_np[i, a] == d_np[i, a]:
+                    a += 1
+                emitted = [int(t) for t in d_np[i, :a]]
+                emitted.append(int(t_np[i, a]))  # correction or bonus
+            remaining = slot.request.max_new_tokens - len(slot.generated)
+            emitted = emitted[:remaining]
+            eos = self.ecfg.eos_token
+            if eos is not None and eos in emitted:
+                emitted = emitted[: emitted.index(eos) + 1]
+            # Counted as the JAX engine counts them: proposals that could
+            # have landed (at most ``remaining``), and accepted draft tokens
+            # that were emitted.
+            self.spec_proposed += min(g, remaining)
+            self.spec_accepted += min(a, len(emitted))
+            self.stats["decode_tokens"] += len(emitted)
+            slot.length += len(emitted)
+            slot.generated.extend(emitted)
             self._reclaim_window(slot)
             self._maybe_finish(slot)
 

@@ -3,7 +3,8 @@
 The counterpart of ``flashattention_tpu/serving/sampling.py``. Greedy
 argmax is the default. Stochastic draws come from an explicit
 ``torch.Generator``; they cannot reproduce the JAX package's PRNG stream,
-so the two agree in distribution, not draw by draw.
+so the two agree in distribution, not draw by draw. The same holds for
+:func:`spec_accept_emit`, the speculative engine's acceptance test.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["SamplingConfig", "filter_logits", "sample_logits"]
+__all__ = ["SamplingConfig", "filter_logits", "sample_logits",
+           "spec_accept_emit"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,3 +81,41 @@ def sample_logits(
         raise ValueError("stochastic sampling needs a torch.Generator")
     probs = torch.softmax(filter_logits(logits, cfg), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def spec_accept_emit(
+    p_dist: torch.Tensor,   # (B, g+1, V) target filtered probs per chunk row
+    q_dist: torch.Tensor,   # (B, g, V)   draft filtered probs per proposal
+    draft: torch.Tensor,    # (B, g)      proposed tokens
+    generator: torch.Generator,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched distribution-preserving speculative acceptance (Leviathan
+    et al. 2023), on the tensors' device with no host read.
+
+    Per slot: accept draft token j while u_j * q(d_j) < p(d_j); at the
+    first rejection draw the correction from the normalized residual
+    max(p - q, 0) (p itself where the residual has no mass); when all g
+    are accepted draw the bonus from the target's row g. Every emitted
+    token is marginally distributed as the target's filtered distribution.
+
+    Returns (a (B,) int32 accepted counts, emit (B, g+1) in ``draft``'s
+    dtype): emit[b, :a[b]] are the accepted draft tokens and emit[b, a[b]]
+    the correction or bonus; the engine emits emit[b, :a[b]+1]."""
+    b, g = draft.shape
+    idx = draft.long()[..., None]
+    p_tok = p_dist[:, :g].gather(-1, idx)[..., 0]
+    q_tok = q_dist.gather(-1, idx)[..., 0]
+    u = torch.rand((b, g), generator=generator, device=p_dist.device)
+    accept = u * torch.clamp(q_tok, min=1e-30) < p_tok
+    a = torch.cumprod(accept.long(), dim=1).sum(dim=1)
+    rows = torch.arange(b, device=p_dist.device)
+    pa = p_dist[rows, a]
+    qa = q_dist[rows, torch.clamp(a, max=g - 1)]
+    res = torch.clamp(pa - qa, min=0.0)
+    s = res.sum(dim=-1, keepdim=True)
+    res = torch.where(s > 0, res / torch.clamp(s, min=1e-30), pa)
+    dist = torch.where((a == g)[:, None], pa, res)  # a == g: the bonus row
+    corr = torch.multinomial(dist, 1, generator=generator)[:, 0]
+    emit = torch.cat([draft, torch.zeros_like(draft[:, :1])], dim=1)
+    emit[rows, a] = corr.to(draft.dtype)
+    return a.to(torch.int32), emit

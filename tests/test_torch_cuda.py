@@ -150,10 +150,12 @@ def append_inputs(kind, fmt, src, device, seed=0, d=64, offset=0):
     (length 512: dropped), one with valid_len 0 (dropped), one token below
     the 1e-6 scale floor. chunk: B = 1, T = 64 from position 480 with
     valid_len 50: tokens 32-49 pass the capacity and drop, 50-63 are
-    padding."""
+    padding. verify (the speculative engine's chunk): B = 32, T = 5 at
+    ``verify_lengths``, every fourth slot idle; slot 0's rows past
+    position 511 drop."""
     rng = np.random.default_rng(seed)
     h, page, pps = 12, 16, 32
-    b, t = (32, 1) if kind == "decode" else (1, 64)
+    b, t = {"decode": (32, 1), "chunk": (1, 64), "verify": (32, 5)}[kind]
     num_pages, dump = b * pps + 1, 0
     kp, vp = (rng.standard_normal((h, num_pages, page, d)).astype(np.float32)
               for _ in range(2))
@@ -173,11 +175,27 @@ def append_inputs(kind, fmt, src, device, seed=0, d=64, offset=0):
         valid = np.ones(b, np.int64)
         valid[5] = 0
         k[2] *= 1e-8
+    elif kind == "verify":
+        lengths = verify_lengths(rng)
+        idle = np.arange(b) % 4 == 3
+        pi[idle], lengths[idle] = dump, 0
+        valid = np.full(b, t)
     else:
         lengths, valid = np.array([480]), np.array([50])
     pi, lengths, valid = (torch.from_numpy(x.astype(np.int32)).to(device)
                           for x in (pi, lengths, valid))
     return pages, k, v, pi, lengths, valid, dump
+
+
+def verify_lengths(rng, b=32, t=5, capacity=512):
+    """Slot lengths before a speculative verify chunk of ``t`` rows (the
+    engine's B = 32, gamma = 4): drawn from [33, 505], slot 0 at
+    ``capacity - t + 1`` (its last row passes the page capacity), slot 1
+    at 46 (its chunk crosses a page boundary), slots 2 and 3 at 33 and
+    505."""
+    lengths = rng.integers(33, 506, size=b)
+    lengths[:4] = [capacity - t + 1, 46, 33, 505]
+    return lengths
 
 
 def append_bytes_equal(got, want, dump):
@@ -422,6 +440,109 @@ def test_engine_on_card_matches_cpu(cuda_device):
     # one append launch a layer per decode step and per prefill chunk
     assert launches[1] == cfg.n_layers * (eng.stats["decode_steps"]
                                           + eng.stats["prefill_chunks"])
+
+
+# ---------------------------------------------------------------------------
+# The speculative engine's verify chunk (B = 32, T = gamma + 1 = 5)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "fp8", "int8"])
+def test_paged_attention_at_the_verify_shape(cuda_device, pages):
+    """GPT-3 Small heads (12, D = 64), page 16, 512 slots a sequence, bf16
+    q of T = 5 rows a slot at lengths spread over [33, 505] plus one slot
+    whose rows pass the page capacity: the split route (int8 pages take the
+    convert schedule at T > 1) within the paged limit of the plain
+    version."""
+    rng = np.random.default_rng(9)
+    q, kp, vp, pi, ln = paged_inputs(
+        b=32, h=12, h_kv=12, d=64, page=16, pps=32, q_len=5,
+        lengths=verify_lengths(rng) + 5, seed=9)
+    q = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+    pi, ln = (torch.from_numpy(x).to(cuda_device) for x in (pi, ln))
+    if pages == "bf16":
+        kp, vp = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+                  for x in (kp, vp))
+        kw = {}
+    else:
+        kp, ks, vp, vs = quantized_pages(kp, vp, pages, cuda_device)
+        kw = dict(k_scales=ks, v_scales=vs)
+        assert pa.int8_mode(kp, q.dtype, 5, None) == "convert"
+    before = (pa.paged_attention.launches, pa.paged_attention.split_launches,
+              pa.paged_attention.chunk_launches)
+    o = pa.paged_attention(q, kp, vp, pi, ln, **kw)
+    torch.cuda.synchronize()
+    assert (pa.paged_attention.launches - before[0],
+            pa.paged_attention.split_launches - before[1],
+            pa.paged_attention.chunk_launches - before[2]) == (1, 1, 1)
+    ref = pa.paged_attention_plain(q, kp, vp, pi, ln, **kw)
+    tol = KERNEL_TOL[torch.bfloat16]
+    assert torch.isfinite(o.float()).all()
+    assert_allclose(o, ref, rtol=tol, atol=tol, err_msg=pages)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", PAGE_FORMATS)
+def test_paged_append_at_the_verify_shape(cuda_device, fmt):
+    """B = 32 slots of T = 5 tokens (bf16 views of a fused projection; fp32
+    for fp32 pages): bit-exact against the plain version outside the dump
+    page, and the rows past slot 0's capacity write nothing."""
+    src = torch.float32 if fmt == "fp32" else torch.bfloat16
+    pages, k, v, pi, lengths, valid, dump = append_inputs(
+        "verify", fmt, src, cuda_device)
+    chunks0 = pap.paged_append.chunk_launches
+    got, want = _append_both(pages, k, v, pi, lengths, valid)
+    assert pap.paged_append.chunk_launches == chunks0 + 1
+    assert append_bytes_equal(got, want, dump)
+    assert not append_bytes_equal(got, pages, dump)
+    # slot 0 sits at 508: positions 508-511 land on its last page, 512 drops
+    last = int(pi[0, -1])
+    for g, p in zip(got, pages):
+        if g is not None:
+            assert torch.equal(g[:, last, :12].view(torch.uint8),
+                               p[:, last, :12].view(torch.uint8))
+            assert not torch.equal(g[:, last, 12:].view(torch.uint8),
+                                   p[:, last, 12:].view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft_layers", [2, 1])
+def test_spec_engine_on_card(cuda_device, draft_layers):
+    """A tiny bf16 speculative engine on the card: the launch counts of the
+    speculative tick (paged attention and append: L_t a verify, L_d x
+    (gamma + 1) a tick, L_t + L_d a prefill chunk), every paged launch on
+    the split route, and a self-draft (``draft_layers`` 2, the target
+    itself) accepting at least 0.9 of its proposals."""
+    cfg = TransformerConfig(vocab_size=89, d_model=64, n_layers=2, n_heads=4,
+                            d_ff=128, max_seq_len=128, dropout_rate=0.0)
+    params = init_params(cfg, seed=3, device=cuda_device)
+    draft = (params, cfg)
+    if draft_layers != cfg.n_layers:
+        dcfg = dataclasses.replace(cfg, n_layers=draft_layers)
+        draft = (init_params(dcfg, seed=4, device=cuda_device), dcfg)
+    gamma = 4
+    ecfg = EngineConfig(max_batch_size=4, page_size=16, num_pages=40,
+                        max_seq_len=128, prefill_pad=16, spec_gamma=gamma)
+    rng = np.random.default_rng(5)
+    eng = ServingEngine(params, cfg, ecfg, device=cuda_device,
+                        draft_params=draft[0], draft_cfg=draft[1])
+    for i, n in enumerate((5, 30, 17, 9, 60, 3)):
+        prompt = [int(t) for t in rng.integers(0, 89, n)]
+        eng.submit(GenerationRequest(i, prompt, 20))
+    pa.paged_attention.launches = pa.paged_attention.split_launches = 0
+    pap.paged_append.launches = 0
+    out = eng.run()
+    assert sorted(out) == list(range(6)) and all(len(v) == 20
+                                                 for v in out.values())
+    lt, ld = cfg.n_layers, draft[1].n_layers
+    ticks, chunks = eng.stats["spec_ticks"], eng.stats["prefill_chunks"]
+    want = (lt + ld * (gamma + 1)) * ticks + (lt + ld) * chunks
+    assert pa.paged_attention.launches == want
+    assert pa.paged_attention.split_launches == want
+    assert pap.paged_append.launches == want
+    if draft_layers == cfg.n_layers:
+        assert eng.spec_accepted / eng.spec_proposed >= 0.9
 
 
 # ---------------------------------------------------------------------------

@@ -269,10 +269,13 @@ def test_unported_options_raise():
     pcfg = port_config(CFG)
     params = params_from_jax(jax.tree.map(np.asarray, jparams), pcfg,
                              device="cpu")
-    # quantized pages are ported (test_torch_paged_quant.py)
-    for ecfg, kw in ((EngineConfig(spec_gamma=2), {}),
-                     (EngineConfig(), {"draft_params": params})):
-        with pytest.raises(NotImplementedError):
+    # quantized pages (test_torch_paged_quant.py) and speculative decoding
+    # (test_torch_spec_engine.py) are ported: half-given speculative
+    # options raise the JAX engine's ValueErrors
+    for ecfg, kw, match in ((EngineConfig(spec_gamma=2), {}, "draft_params"),
+                            (EngineConfig(), {"draft_params": params},
+                             "draft_cfg")):
+        with pytest.raises(ValueError, match=match):
             ServingEngine(params, pcfg, ecfg, device="cpu", **kw)
 
 
