@@ -143,14 +143,46 @@ Phases, in order; any failure exits nonzero:
    same tokens exactly; then a speculative pair (the 2-layer draft, seed 1,
    gamma 4) likewise. All four workers start at once and are stopped at the
    end; a worker that fails to start or raises fails the phase.
+10. Context parallelism and the parallel steps. At (1, 8, 8192, 128) bf16
+   causal, and again with segment ids (8 documents a row across the shard
+   boundaries), the ring, bidirectional-ring and all-gather schedules of 4
+   ranks (shards of 2048) run rank by rank on the card
+   (``parallel.ring.schedules_on_one_device``; NCCL puts no two ranks on
+   one card): the concatenated o, the LSE and dq, dk, dv (with an LSE
+   cotangent) against one flash call over the whole 8192 on the same route
+   at the flash limit (LSE 1e-4); exactly 10 / 20 / 4 forward and backward
+   flash launches (the ring r + 1 partials on rank r, the bidirectional
+   ring twice as many halves, no launch for a future shard), all on the
+   tensor cores; every partial held against its plain version (the whole
+   call's flash limit); each rank's schedule timed (device time under a
+   stream hold long enough for its host issue; kernels, merges and copies)
+   beside the one call and the schedules on the plain versions. Then one
+   NCCL rank (``tcp://127.0.0.1``): ``make_mesh``, the sharded step with
+   ZeRO-1 and the pipelined step (S = 1, one microbatch) at phase 5's
+   widths and batch with dropout 0, two micro-steps each, against
+   ``models/train.py``'s ``train_step`` from the same parameters: loss and
+   every gradient within 1e-6 relative, phase 5's flash launches a
+   micro-step.
+11. The MoE model: GPT-3 Small with 8 experts, top 2 (capacity 1.25,
+   groups of 512, aux 0.01): phase 5's training at 2 + 4 micro-steps (24
+   forward and 12 backward flash launches a micro-step, checked; one
+   profiled), one loss and its gradients at (B=1, N=512) with fp32 compute
+   on the card against the CPU (1e-3, and every token's experts equal;
+   the bf16 card's distance and its tokens routed elsewhere reported), the
+   engine serving 32 requests (32-400-token prompts, 32 new tokens each; 12
+   paged-attention and 12 append launches a decode step and chunk,
+   checked), and phase 4's first-token logits and greedy agreement.
 
 The last two lines are the kernels' JSON record and the device line
 ``{"ok": true, "device": {...}}``; the kernels' record carries the verify
 chunk's two rows (``paged_attention[verify]``, ``paged_append[verify]``:
 launches inside phase 8's self-arm verify passes, numbers of the phase-2
-verify cases). ``--cpu-rehearsal`` skips phases 1-2, runs the others at a
-tiny width on the CPU (phase 9's workers on the CPU) and never prints the
-device line.
+verify cases) and the rows of phases 10-11's paths
+(``flash_fwd[ring]`` ... ``[all_gather]`` with the schedules' summed
+per-rank times, ``[sharded_zero1]``, ``[pipelined]``, ``[moe]`` with the
+numbers of phase 2's matching cases). ``--cpu-rehearsal`` skips phases
+1-2, runs the others at a tiny width on the CPU (phase 9's workers on the
+CPU, phase 10's rank over gloo) and never prints the device line.
 Details also go to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -162,6 +194,7 @@ import copy
 import dataclasses
 import json
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -171,8 +204,10 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from flashattention_tpu_torch import _build
+from flashattention_tpu_torch.models import moe
 from flashattention_tpu_torch.models import train as ttrain
 from flashattention_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -186,6 +221,14 @@ from flashattention_tpu_torch.ops import paged_attention as pa
 from flashattention_tpu_torch.ops import sparse_attn as sa
 from flashattention_tpu_torch.ops.api import fa3_attention
 from flashattention_tpu_torch.ops.quant import quantize_tokens
+from flashattention_tpu_torch.parallel import (
+    make_mesh,
+    make_pipelined_train_state,
+    make_pipelined_train_step,
+    make_sharded_train_state,
+    make_sharded_train_step,
+    ring,
+)
 from flashattention_tpu_torch.serving import (
     EngineConfig,
     GenerationRequest,
@@ -221,6 +264,7 @@ LSE_TOL = 1e-4     # both versions take the LSE from the same fp32 scores
 LOGITS_TOL = 5e-2  # bf16 rung of the ladder: bf16 card engine vs fp32 CPU
 FP8_TOL = 1e-1     # FP8 rung: the fp8 card engine vs the fp32 CPU fp8 engine
 TRAIN_TOL = 5e-2   # bf16 card training loss and grads vs the fp32 CPU
+MOE_TOL = 1e-3     # the MoE loss and grads, fp32 card vs fp32 CPU
 
 KERNELS = {
     "paged_attention": dict(
@@ -279,9 +323,10 @@ class Timer:
 
     SLEEP_CYCLES = 2_000_000  # ~1 ms: longer than any call takes to issue
 
-    def __init__(self, device):
+    def __init__(self, device, sleep_cycles=SLEEP_CYCLES):
         self.flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
                                  device=device)
+        self.sleep_cycles = sleep_cycles
 
     def _run(self, fn, reps, warmup, hold):
         for _ in range(warmup):
@@ -292,7 +337,7 @@ class Timer:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             if hold:
-                torch.cuda._sleep(self.SLEEP_CYCLES)
+                torch.cuda._sleep(self.sleep_cycles)
             else:
                 torch.cuda.synchronize()
             start.record()
@@ -2005,7 +2050,8 @@ def phase_fa3_fp8(dev, shape, check_shape, on_card):
 # ---------------------------------------------------------------------------
 
 
-def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8):
+def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8,
+                tag="train"):
     """The port's training main path: ``train_step`` (forward, backward,
     optimizer) on the synthetic stream; host-clock time per micro-step up
     to ``loss.item()``; exact launch counts; one profiled micro-step."""
@@ -2016,7 +2062,7 @@ def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8):
     opt = ttrain.make_optimizer(params, tc)
     batches = list(ttrain.synthetic_batches(tc, cfg.vocab_size,
                                             n_warm + n_timed + 1, device=dev))
-    log(f"[train] {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+    log(f"[{tag}] {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
         f"heads, vocab {cfg.vocab_size}, dropout {cfg.dropout_rate}, remat "
         f"{cfg.remat_policy if cfg.remat else 'off'}, {cfg.dtype}; batch "
         f"{tc.batch_size} x {tc.seq_len}, grad_accum {tc.grad_accum} "
@@ -2050,11 +2096,11 @@ def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8):
         max_memory_allocated=(torch.cuda.max_memory_allocated()
                               if on_card else None),
     )
-    log(f"[train] {n_timed} micro-steps ({rec['updates']} optimizer "
+    log(f"[{tag}] {n_timed} micro-steps ({rec['updates']} optimizer "
         f"updates): median {rec['median_step_ms']:.2f} ms/micro-step, "
         f"{rec['tokens_per_s']:.1f} tokens/s; losses "
         + " ".join(f"{x:.4f}" for x in losses))
-    log(f"[train] launches: {counts}")
+    log(f"[{tag}] launches: {counts}")
     if on_card:
         per = (2 if cfg.remat else 1) * cfg.n_layers
         want = {"flash_fwd": per * n_timed, "flash_bwd": cfg.n_layers * n_timed}
@@ -2064,7 +2110,7 @@ def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8):
             if counts[name] != n:
                 fail(f"training launched {name} {counts[name]} times, want "
                      f"{n} ({n // n_timed} per micro-step)")
-        log(f"[train] per micro-step: {per} flash_fwd + {cfg.n_layers} "
+        log(f"[{tag}] per micro-step: {per} flash_fwd + {cfg.n_layers} "
             f"flash_bwd launches, all on the tensor-core route (checked); "
             f"max_memory_allocated "
             f"{rec['max_memory_allocated'] / 2 ** 30:.3f} GiB")
@@ -2084,14 +2130,14 @@ def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8):
         top=sorted(((k, v / 1e3) for k, v in kernels.items()),
                    key=lambda kv: -kv[1])[:12])
     if kernels:
-        log(f"[train] profiled micro-step: {wall * 1e3:.2f} ms wall, kernels "
+        log(f"[{tag}] profiled micro-step: {wall * 1e3:.2f} ms wall, kernels "
             f"{busy * 1e3:.2f} ms, device busy {100 * busy / wall:.1f}%; "
             f"flash kernels: forward {flash['flash_fwd']:.4f} ms, backward "
             f"{flash['flash_bwd']:.4f} ms")
         for k, v in rec["profile"]["top"]:
-            log(f"[train]   {v:.4f} ms  {k[:90]}")
+            log(f"[{tag}]   {v:.4f} ms  {k[:90]}")
     else:
-        log("[train] the profiler recorded no device time: not measured")
+        log(f"[{tag}] the profiler recorded no device time: not measured")
     return rec
 
 
@@ -2318,6 +2364,345 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: context parallelism on one card; the parallel steps on one rank
+# ---------------------------------------------------------------------------
+
+CP_WORLD = 4
+CP_KINDS = ring.KINDS
+# Forward (and backward) partials of the causal schedules of 4 ranks: r + 1
+# on rank r for the ring (10), twice as many halves for the bidirectional
+# ring, one call a rank for all-gather. A future shard launches nothing.
+CP_LAUNCHES = {"ring": 10, "bidir": 20, "all_gather": 4}
+STEP_TOL = 1e-6  # the parallel steps on one rank against models/train.py
+
+
+def _plain_schedules():
+    """Sends the schedules' flash calls to the plain versions (on the card
+    too): the schedules' plain time."""
+    return (mock.patch.object(fa, "flash_fwd", fa.flash_fwd_plain),
+            mock.patch.object(fa, "flash_bwd_di", fa.flash_bwd_plain))
+
+
+def _checked_schedules(err, tag, atol):
+    """Holds every flash launch of the schedules against its plain version
+    on the same inputs, keeping the largest error of each output in
+    ``err``: the flash limit of the whole attention the partials make up
+    (rtol two ulps, ``atol[name]`` 1e-3 of the whole call's largest value,
+    as phase 2 holds the same kernel on a whole call: a partial over one
+    shard of keys has only small outputs, so its own largest value would
+    set no limit), the LSE at 1e-4 where a row sees a key, else the mask
+    value. Each partial is checked, not the sum of bf16 partials, which a
+    kernel and its plain version round apart."""
+    kernel_fwd, kernel_bwd = fa.flash_fwd, fa.flash_bwd_di
+
+    def keep(name, a, r, dtype):
+        e = check_close(f"phase 10 {tag} partial {name}", a, r,
+                        KERNEL_RTOL[dtype], atol[name])
+        err[name] = max(err.get(name, 0.0), e)
+
+    def fwd(q, k, v, opts):
+        o, lse = kernel_fwd(q, k, v, opts)
+        o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, opts)
+        keep("o", o, o_ref, q.dtype)
+        seen = lse_ref > -1e30
+        if not bool((lse[~seen] <= -1e30).all()):
+            fail(f"phase 10 {tag}: a row without keys has an LSE above -1e30")
+        if bool(seen.any()):  # segment ids can hide a whole shard
+            e = check_close(f"phase 10 {tag} partial lse", lse[seen],
+                            lse_ref[seen], LSE_TOL)
+            err["lse"] = max(err.get("lse", 0.0), e)
+        return o, lse
+
+    def bwd(q, k, v, do, lse, di, opts):
+        out = kernel_bwd(q, k, v, do, lse, di, opts)
+        for name, a, r in zip(("dq", "dk", "dv"), out,
+                              fa.flash_bwd_plain(q, k, v, do, lse, di, opts)):
+            keep(name, a, r, q.dtype)
+        return out
+
+    return (mock.patch.object(fa, "flash_fwd", fwd),
+            mock.patch.object(fa, "flash_bwd_di", bwd))
+
+
+def cp_case(gen, dev, shape, dtype, seg, on_card):
+    """The ring, bidirectional-ring and all-gather schedules of CP_WORLD
+    ranks, rank by rank on one device, against one flash call over the whole
+    sequence (causal, same route): o, dq, dk, dv at the flash limit, the LSE
+    at 1e-4; exact launches; every partial launch held against its plain
+    version; each rank's schedule timed (a stream hold long enough for the
+    host to issue all its partials, so the events bracket device work), and
+    on the plain versions."""
+    b, h, n, d = shape
+    q, k, v, do = (torch.randn(shape, generator=gen).to(dev, dtype)
+                   for _ in range(4))
+    dlse = torch.randn((b, h, n), generator=gen).to(dev)
+    ids = None
+    if seg:  # 8 documents of random lengths a row, across shard boundaries
+        cuts = torch.sort(torch.randint(1, n, (b, 7), generator=gen)).values
+        ids = (torch.arange(n)[None, :, None] >= cuts[:, None, :]).sum(-1)
+        ids = ids.to(dev, torch.int32)
+    opts = fa.make_opts(q, k, causal=True, segment_ids=ids)
+    o_ref, lse_ref = fa.flash_fwd(q, k, v, opts)
+    grads = fa.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, opts)
+    refs = dict(zip(("o", "lse", "dq", "dk", "dv"), (o_ref, lse_ref, *grads)))
+    bounds, _ = flash_bound(q, k, opts, dlse)
+    tag = "segment ids" if seg else "causal"
+    rec = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+               segments=seg, fwd_bound_ms=bounds["fwd"][0],
+               fwd_bound_by=bounds["fwd"][1], bwd_bound_ms=bounds["bwd"][0],
+               bwd_bound_by=bounds["bwd"][1])
+    if on_card:
+        timer = Timer(dev, sleep_cycles=40 * Timer.SLEEP_CYCLES)  # 8 partials
+        rec["single_fwd_ms"] = timer(lambda: fa.flash_fwd(q, k, v, opts),
+                                     reps=10)
+        rec["single_bwd_ms"] = timer(lambda: fa.flash_bwd(
+            q, k, v, o_ref, lse_ref, do, dlse, opts), reps=10)
+    w = CP_WORLD
+    qs, dos, dlses = q.chunk(w, 2), do.chunk(w, 2), dlse.chunk(w, 2)
+    q_ids = [None] * w if ids is None else ids.chunk(w, 1)
+    names = ("o", "lse", "dq", "dk", "dv")
+    for kind in CP_KINDS:
+        sync(dev)
+        reset_counts()
+        out = ring.schedules_on_one_device(kind, q, k, v, w, causal=True,
+                                           segment_ids=ids, do=do, dlse=dlse)
+        sync(dev)
+        counts = read_counts()
+        err = {}
+        for name, a in zip(names, out):
+            r = refs[name]
+            tol = (LSE_TOL, LSE_TOL) if name == "lse" else kernel_tol(dtype, r)
+            err[name] = check_close(f"phase 10 {kind} ({tag}) {name} vs one "
+                                    "call", a, r, *tol)
+        kr = dict(launches=counts, max_abs_err_vs_single=err)
+        if on_card:
+            want = CP_LAUNCHES[kind]
+            got = [counts[c] for c in ("flash_fwd", "flash_fwd_tc",
+                                       "flash_bwd", "flash_bwd_tc")]
+            if got != [want] * 4:
+                fail(f"phase 10 {kind} ({tag}): flash launches (fwd, fwd on "
+                     f"the tensor cores, bwd, bwd on the tensor cores) {got},"
+                     f" want {want} each")
+            o_r, lse_r = out[0].chunk(w, 2), out[1].chunk(w, 2)
+            dk, dv = (torch.zeros(k.shape, device=dev) for _ in range(2))
+            kw = dict(causal=True, kv_ids=ids)
+
+            def fwd(r):
+                return ring.rank_forward(kind, qs[r], k, v, r, w,
+                                         q_ids=q_ids[r], **kw)
+
+            def bwd(r):
+                return ring.rank_backward(kind, qs[r], k, v, o_r[r], lse_r[r],
+                                          dos[r], dlses[r], dk, dv, r, w,
+                                          q_ids=q_ids[r], **kw)
+
+            kr["fwd_rank_ms"] = [timer(lambda r=r: fwd(r), reps=10)
+                                 for r in range(w)]
+            kr["bwd_rank_ms"] = [timer(lambda r=r: bwd(r), reps=10)
+                                 for r in range(w)]
+            kr["max_abs_err"] = {}
+            atol = {n: kernel_tol(dtype, r)[1] for n, r in refs.items()}
+            patch_f, patch_b = _checked_schedules(kr["max_abs_err"],
+                                                  f"{kind} ({tag})", atol)
+            with patch_f, patch_b:
+                ring.schedules_on_one_device(kind, q, k, v, w, causal=True,
+                                             segment_ids=ids, do=do, dlse=dlse)
+            patch_f, patch_b = _plain_schedules()
+            with patch_f, patch_b:
+                kr["plain_fwd_ms"] = sum(timer(lambda r=r: fwd(r), reps=3,
+                                               warmup=1) for r in range(w))
+                kr["plain_bwd_ms"] = sum(timer(lambda r=r: bwd(r), reps=3,
+                                               warmup=1) for r in range(w))
+            kr["fwd_ms"], kr["bwd_ms"] = sum(kr["fwd_rank_ms"]), \
+                sum(kr["bwd_rank_ms"])
+            log(f"[cp] {kind} ({tag}, {w} ranks on one card): max |schedule -"
+                f" one call| " + " ".join(f"{n} {e:.2e}" for n, e in err.items())
+                + f"; {want} fwd + {want} bwd partials on the tensor cores "
+                f"(checked); per-rank schedule ms fwd "
+                + " ".join(f"{t:.4f}" for t in kr["fwd_rank_ms"])
+                + f" (sum {kr['fwd_ms']:.4f}, one call "
+                f"{rec['single_fwd_ms']:.4f}, plain {kr['plain_fwd_ms']:.4f},"
+                f" bound {bounds['fwd'][0]:.4f}) bwd "
+                + " ".join(f"{t:.4f}" for t in kr["bwd_rank_ms"])
+                + f" (sum {kr['bwd_ms']:.4f}, one call "
+                f"{rec['single_bwd_ms']:.4f}, plain {kr['plain_bwd_ms']:.4f},"
+                f" bound {bounds['bwd'][0]:.4f})")
+        else:
+            log(f"[cp] {kind} ({tag}): max |schedule - one call| "
+                + " ".join(f"{n} {e:.2e}" for n, e in err.items()))
+        rec[kind] = kr
+    return rec
+
+
+def phase_cp(dev, shape, dtype, on_card):
+    gen = torch.Generator().manual_seed(SEED + 10)
+    return {("segments" if seg else "causal"):
+            cp_case(gen, dev, shape, dtype, seg, on_card)
+            for seg in (False, True)}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp(
+        min=1e-30))
+
+
+def phase_parallel_steps(cfg, tc, dev, on_card):
+    """One NCCL rank (gloo only in the CPU rehearsal): ``make_mesh``, the
+    sharded step with ZeRO-1 and the pipelined step (S = 1, one
+    microbatch) against ``models/train.py``'s step from the same parameters
+    and batches: two micro-steps (grad_accum 2: gradients after the first,
+    the update after the second). Gates: loss and every gradient within
+    STEP_TOL relative; phase 5's launch counts per micro-step."""
+    backend = "nccl" if on_card else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        params = init_params(cfg, seed=SEED + 5, device=dev)
+        batches = list(ttrain.synthetic_batches(tc, cfg.vocab_size, 2,
+                                                device=dev))
+        seeds = [ttrain.step_seed(tc, i) for i in range(2)]
+        ref = copy.deepcopy(params)
+        ref_opt = ttrain.make_optimizer(ref, tc)
+        local, sopt, _ = make_sharded_train_state(mesh, params, tc, zero1=True)
+        sstep = make_sharded_train_step(mesh, cfg)
+        stage, popt, _ = make_pipelined_train_state(mesh, params, tc)
+        pstep = make_pipelined_train_step(mesh, cfg, n_micro=1)
+        del params
+        runs = {
+            "train_step": (ref, lambda i: ttrain.train_step(
+                ref, ref_opt, batches[i], seeds[i], cfg)),
+            "sharded_zero1": (local, lambda i: sstep(local, sopt, batches[i],
+                                                     seeds[i])),
+            "pipelined": (stage, lambda i: pstep(stage, popt, batches[i],
+                                                 seeds[i])),
+        }
+        got = {}
+        for name, (p, run) in runs.items():
+            sync(dev)
+            reset_counts()
+            loss = float(run(0))
+            sync(dev)
+            counts = read_counts()
+            grads = {n: t.grad.detach().clone() for n, t in p.named_parameters()}
+            loss2 = float(run(1))
+            got[name] = dict(loss=loss, loss2=loss2, counts=counts, grads=grads,
+                             after={n: t.detach().clone()
+                                    for n, t in p.named_parameters()})
+        want = got.pop("train_step")
+        rec = dict(backend=backend, loss=want["loss"], loss2=want["loss2"])
+        per = (2 if cfg.remat else 1) * cfg.n_layers
+        for name, g in got.items():
+            loss_rel = abs(g["loss"] - want["loss"]) / abs(want["loss"])
+            grad_rel = max(_rel(g["grads"][n], want["grads"][n])
+                           for n in want["grads"])
+            param_rel = max(_rel(g["after"][n], want["after"][n])
+                            for n in want["after"])
+            rec[name] = dict(loss=g["loss"], loss_rel=loss_rel,
+                             grad_max_rel_l2=grad_rel, loss2=g["loss2"],
+                             params_after_max_rel_l2=param_rel,
+                             launches=g["counts"])
+            log(f"[parallel] {name} on one {backend} rank vs train_step: loss "
+                f"{g['loss']:.6f} vs {want['loss']:.6f} (rel {loss_rel:.2e}), "
+                f"worst gradient rel L2 {grad_rel:.2e}, after the update: "
+                f"loss {g['loss2']:.6f} vs {want['loss2']:.6f}, worst "
+                f"parameter rel L2 {param_rel:.2e} (tol {STEP_TOL:g}); "
+                f"launches {g['counts']['flash_fwd']} fwd "
+                f"{g['counts']['flash_bwd']} bwd")
+            if loss_rel > STEP_TOL or grad_rel > STEP_TOL:
+                fail(f"phase 10 {name}: loss rel {loss_rel:.2e}, worst "
+                     f"gradient rel L2 {grad_rel:.2e}, over {STEP_TOL:g}")
+            if on_card:
+                c = g["counts"]
+                have = (c["flash_fwd"], c["flash_fwd_tc"], c["flash_bwd"],
+                        c["flash_bwd_tc"])
+                if have != (per, per, cfg.n_layers, cfg.n_layers):
+                    fail(f"phase 10 {name}: flash launches {have} in a "
+                         f"micro-step, want ({per}, {per}, {cfg.n_layers}, "
+                         f"{cfg.n_layers}) as phase 5")
+        return rec
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the MoE model
+# ---------------------------------------------------------------------------
+
+
+def _record_routes():
+    """(patch, calls): while the patch is on, every ``moe.route`` call
+    appends its expert indices (BG, G, k) to ``calls``."""
+    calls = []
+    orig = moe.route
+
+    def route(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        calls.append(out[4].detach().cpu())
+        return out
+
+    return mock.patch.object(moe, "route", route), calls
+
+
+def phase_moe_vs_cpu(cfg, dev, n=512):
+    """One MoE training loss and its gradients (B=1, dropout 0, capacity
+    routing) on the card with fp32 compute against the CPU in fp32: loss
+    and gradients within 1e-3 and the same experts for every token of every
+    layer (gated); the bf16 card's distance and its tokens routed to another
+    expert set (reported)."""
+    cfg = dataclasses.replace(cfg, dropout_rate=0.0)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    ref = init_params(cfg32, seed=SEED + 7, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab_size, size=(1, n + 1)))
+    out = {}
+    for tag, c, device in (("cpu_fp32", cfg32, "cpu"), ("card_fp32", cfg32, dev),
+                           ("card_bf16", cfg, dev)):
+        params = copy.deepcopy(ref).to(device)
+        patch, calls = _record_routes()
+        with patch:
+            loss = ttrain.loss_fn(params, {"tokens": toks.to(device)}, c, None)
+            loss.backward()
+        out[tag] = (loss.item(), {k: p.grad.float().cpu()
+                                  for k, p in params.named_parameters()},
+                    calls[:cfg.n_layers])  # the forward's; then the recompute
+        del params
+    lr, gr, er = out["cpu_fp32"]
+    rec = dict(loss_cpu=lr, tol=MOE_TOL)
+    for tag in ("card_fp32", "card_bf16"):
+        lc, gc, ec = out[tag]
+        sets = [(torch.sort(a, -1).values != torch.sort(b, -1).values).any(-1)
+                for a, b in zip(ec, er)]
+        moved = [int(x.sum()) for x in sets]
+        num = sum(float((gc[k] - gr[k]).square().sum()) for k in gr)
+        den = sum(float(gr[k].square().sum()) for k in gr)
+        rel = (num / den) ** 0.5
+        rec[tag] = dict(loss=lc, loss_abs_err=abs(lc - lr), grad_rel_l2=rel,
+                        tokens_other_experts=moved,
+                        first_choice_differs=sum(int((a[..., 0] != b[..., 0])
+                                                     .sum())
+                                                 for a, b in zip(ec, er)))
+        log(f"[moe_vs_cpu] {tag}: loss {lc:.6f} vs cpu fp32 {lr:.6f} (|diff| "
+            f"{abs(lc - lr):.3e}), gradient relative L2 {rel:.3e}; tokens with"
+            f" another expert set, per layer: {moved} of {n}")
+        if tag == "card_fp32":
+            if not np.isfinite(lc) or abs(lc - lr) > MOE_TOL * (1 + abs(lr)):
+                fail(f"MoE loss on the card (fp32) differs by {abs(lc - lr):.3e}")
+            if not rel <= MOE_TOL:
+                fail(f"MoE gradient relative L2 {rel:.3e} over {MOE_TOL:g}")
+            if any(moved) or rec[tag]["first_choice_differs"]:
+                fail(f"MoE experts differ between the card (fp32) and the "
+                     f"CPU: {moved} tokens per layer")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 
 def ptxas_entries(text):
@@ -2506,6 +2891,17 @@ def main() -> int:
             cfg, dataclasses.replace(ecfg, max_batch_size=2,
                                      num_pages=2 * 8 + 1),
             "cpu", 4, (8, 40), 6, draft)
+        report["cp"] = phase_cp("cpu", (1, 2, 256, 64), torch.float32, False)
+        report["parallel_steps"] = phase_parallel_steps(cfg, tc, "cpu", False)
+        mcfg = dataclasses.replace(cfg, moe_experts=4, moe_group_size=32)
+        report["moe_train"] = phase_train(
+            dataclasses.replace(mcfg, dropout_rate=0.1), tc, "cpu", False,
+            n_timed=4, tag="moe_train")
+        report["moe_vs_cpu"] = phase_moe_vs_cpu(mcfg, "cpu", n=64)
+        mparams = init_params(mcfg, seed=SEED, device="cpu")
+        report["moe_engine"] = phase_engine(mcfg, mparams, ecfg, "cpu", 8,
+                                            (8, 60), 8, on_card=False)
+        report["moe_vs_cpu_engine"] = phase_vs_cpu(mcfg, mparams, "cpu", 40, 8)
         log("[rehearsal] control flow ran on the CPU; no device result")
         return 0
 
@@ -2608,9 +3004,40 @@ def main() -> int:
         cfg, dataclasses.replace(ecfg, max_batch_size=8, num_pages=8 * 32 + 1),
         dev, 16, (32, 200), 16, draft2)
     report["multihost"]["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # Phase 10: the context-parallel schedules of 4 ranks on the card at the
+    # BASELINE shape; the sharded and pipelined steps on one NCCL rank at
+    # phase 5's widths and batch, dropout 0
+    t0 = time.perf_counter()
+    report["cp"] = phase_cp(dev, (1, 8, 8192, 128), torch.bfloat16, True)
+    torch.cuda.empty_cache()
+    report["parallel_steps"] = phase_parallel_steps(
+        dataclasses.replace(tcfg, dropout_rate=0.0), tc, dev, True)
+    torch.cuda.empty_cache()
+    report["cp"]["phase_s"] = time.perf_counter() - t0
+
+    # Phase 11: GPT-3 Small with 8 experts, top 2 (JAX defaults otherwise)
+    t0 = time.perf_counter()
+    mcfg = TransformerConfig(moe_experts=8)
+    report["moe_train"] = phase_train(mcfg, tc, dev, on_card=True, n_warm=2,
+                                      n_timed=4, tag="moe_train")
+    torch.cuda.empty_cache()
+    report["moe_vs_cpu"] = phase_moe_vs_cpu(mcfg, dev)
+    torch.cuda.empty_cache()
+    mserve = dataclasses.replace(cfg, moe_experts=8)
+    mparams = init_params(mserve, seed=SEED, device="cpu")
+    report["moe_engine"] = phase_engine(mserve, mparams, ecfg, dev, 32,
+                                        (32, 400), 32, on_card=True)
+    report["moe_vs_cpu_engine"] = phase_vs_cpu(mserve, mparams, dev, 100, 16)
+    del mparams
+    torch.cuda.empty_cache()
+    report["moe_train"]["phase_s"] = time.perf_counter() - t0
     report["total_s"] = time.perf_counter() - t_start
     log(f"[card] phase 8 {report['spec']['phase_s']:.1f} s, phase 9 "
-        f"{report['multihost']['phase_s']:.1f} s, whole run "
+        f"{report['multihost']['phase_s']:.1f} s, phase 10 "
+        f"{report['cp']['phase_s']:.1f} s, phase 11 "
+        f"{report['moe_train']['phase_s']:.1f} s, whole run "
         f"{report['total_s']:.1f} s")
 
     counts = {**report["engine"]["launches"],
@@ -2722,6 +3149,55 @@ def main() -> int:
             kernel_ms=r[f"{part}_kernel_ms"], fma_ms=r[f"{part}_fma_ms"],
             wall_ms=r[f"{part}_wall_ms"],
         ))
+    # Phase 10: the context-parallel schedules (causal, no segment ids):
+    # launches of the 4 ranks' schedules, times summed over the ranks
+    # (kernels and merge), held against the schedules on the plain versions;
+    # the bound and SDPA are those of the whole causal attention, the same
+    # function.
+    cp = report["cp"]["causal"]
+    for kind in CP_KINDS:
+        kr = cp[kind]
+        for name, part, errs in (("flash_fwd", "fwd", ("o", "lse")),
+                                 ("flash_bwd", "bwd", ("dq", "dk", "dv"))):
+            kernels.append(dict(
+                name=f"{name}[{kind}]", **KERNELS[name],
+                launches=kr["launches"][name],
+                launches_tensor_core=kr["launches"][f"{name}_tc"],
+                max_abs_err=max(kr["max_abs_err"][e] for e in errs),
+                ms=kr[f"{part}_ms"], plain_ms=kr[f"plain_{part}_ms"],
+                bound_ms=cp[f"{part}_bound_ms"],
+                bound_by=cp[f"{part}_bound_by"],
+                library_ms=rb[f"library_{part}_ms"],
+                rank_ms=kr[f"{part}_rank_ms"],
+                single_call_ms=cp[f"single_{part}_ms"],
+                case=f"{CP_WORLD} ranks of {kind} on one card, "
+                     f"{tuple(cp['shape'])} bf16 causal"))
+    # Phase 10's steps on one NCCL rank and phase 11's MoE model: launches
+    # of each path, numbers of the phase-2 cases their calls match (the
+    # training call (a); the engine's decode and append cases)
+    r = report["kernels"]["flash_a"]
+    paths = [(f"[{n}]", report["parallel_steps"][n]["launches"])
+             for n in ("sharded_zero1", "pipelined")]
+    paths.append(("[moe]", report["moe_train"]["launches"]))
+    for tag, c in paths:
+        for name, part, errs in (("flash_fwd", "fwd", ("o", "lse")),
+                                 ("flash_bwd", "bwd", ("dq", "dk", "dv"))):
+            kernels.append(dict(
+                name=name + tag, **KERNELS[name], launches=c[name],
+                launches_tensor_core=c[f"{name}_tc"],
+                max_abs_err=max(r["max_abs_err"][e] for e in errs),
+                ms=r[f"{part}_ms"], plain_ms=r[f"{part}_plain_ms"],
+                bound_ms=r[f"{part}_bound_ms"], bound_by=r[f"{part}_bound_by"],
+                library_ms=r0[f"library_{part}_ms"], case=r["case"]))
+    for name, case in (("paged_attention", "decode"),
+                       ("paged_append", "append_bf16_decode")):
+        r = report["kernels"][case]
+        n, n_chunk, more = by_kind("moe_engine", name)
+        kernels.append(dict(
+            name=f"{name}[moe]", **KERNELS[name], launches=n, **more,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], case=r["case"]))
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was launched no time on its main path")

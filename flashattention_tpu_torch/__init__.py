@@ -26,7 +26,12 @@ Ported so far:
   draft_cfg=)`` with ``EngineConfig(spec_gamma=)``, through the paged
   kernels), dense speculative generation (``speculative_generate``,
   ``generate``) and multi-host routing (``MultiHostScheduler`` over
-  in-process engines or ``ProcessEngine`` workers).
+  in-process engines or ``ProcessEngine`` workers);
+- mixture-of-experts blocks (``models.moe``) in training, decode and the
+  serving engine, and the parallel layer on ``torch.distributed``
+  (``parallel``): the mesh, dp x tp and expert-parallel training with
+  ZeRO-1, head-parallel attention, ring, bidirectional-ring and all-gather
+  context parallelism over the flash kernels, and GPipe.
 """
 
 from flashattention_tpu_torch.models.train import TrainConfig, train
@@ -51,6 +56,22 @@ from flashattention_tpu_torch.ops.paged_attention import paged_attention
 from flashattention_tpu_torch.ops.reference import reference_attention
 from flashattention_tpu_torch.ops.sparse_attn import sparse_attention
 from flashattention_tpu_torch.ops.tiled import tiled_attention
+from flashattention_tpu_torch.parallel import (
+    all_gather_attention,
+    head_sharded_attention,
+    make_mesh,
+    make_pipeline_forward,
+    make_pipelined_train_state,
+    make_pipelined_train_step,
+    make_ring_attention,
+    make_sharded_train_state,
+    make_sharded_train_step,
+    param_partition_specs,
+    ring_attention,
+    ring_attention_bidir,
+    stack_pipeline_params,
+    unstack_pipeline_params,
+)
 from flashattention_tpu_torch.serving import (
     EngineConfig,
     GenerationRequest,
@@ -78,6 +99,7 @@ __all__ = [
     "Transformer",
     "TransformerConfig",
     "alibi_slopes",
+    "all_gather_attention",
     "apply_transformer",
     "fa1_attention",
     "fa2_attention",
@@ -85,15 +107,28 @@ __all__ = [
     "flash_attention",
     "fp8_attention",
     "generate",
+    "head_sharded_attention",
     "init_params",
     "kernel_attention",
+    "make_mesh",
+    "make_pipeline_forward",
+    "make_pipelined_train_state",
+    "make_pipelined_train_step",
+    "make_ring_attention",
+    "make_sharded_train_state",
+    "make_sharded_train_step",
     "paged_append",
     "paged_attention",
+    "param_partition_specs",
     "params_from_jax",
     "reference_attention",
+    "ring_attention",
+    "ring_attention_bidir",
     "sparse_attention",
     "spec_accept_emit",
     "speculative_generate",
+    "stack_pipeline_params",
     "tiled_attention",
     "train",
+    "unstack_pipeline_params",
 ]

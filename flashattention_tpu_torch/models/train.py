@@ -38,6 +38,7 @@ from flashattention_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
     apply_transformer,
+    head_logits,
     init_params,
 )
 from flashattention_tpu_torch.utils.device import resolve_device
@@ -85,18 +86,31 @@ def lr_schedule(tc: TrainConfig):
 class Optimizer:
     """clip -> AdamW(schedule), applied once every ``grad_accum`` calls of
     :meth:`step` to the mean of the micro-steps' gradients (which
-    ``backward`` sums into ``.grad``)."""
+    ``backward`` sums into ``.grad``).
 
-    def __init__(self, params: Transformer, tc: TrainConfig):
+    ``adam_params`` (optional) are the tensors AdamW updates in place of
+    the parameters themselves (the sharded optimizer's ZeRO-1 slices)."""
+
+    def __init__(self, params: Transformer, tc: TrainConfig,
+                 adam_params=None):
         self.tc = tc
         self.params = [p for p in params.parameters() if p.requires_grad]
         self.accum = max(1, tc.grad_accum)
         self.schedule = lr_schedule(tc)
         self.adamw = torch.optim.AdamW(
-            self.params, lr=0.0, betas=(tc.beta1, tc.beta2), eps=1e-8,
+            self.params if adam_params is None else adam_params, lr=0.0,
+            betas=(tc.beta1, tc.beta2), eps=1e-8,
             weight_decay=tc.weight_decay)
         self.micro = 0    # micro-steps since the last update
         self.updates = 0  # optimizer updates applied
+
+    def _norms(self, params) -> torch.Tensor:
+        """L2 norms of the parameters' gradients, stacked."""
+        return torch.stack([torch.linalg.vector_norm(p.grad.float())
+                            for p in params])
+
+    def _adamw_step(self) -> None:
+        self.adamw.step()
 
     def step(self) -> bool:
         """Count one micro-step; apply an update when ``grad_accum`` have
@@ -104,18 +118,19 @@ class Optimizer:
         self.micro += 1
         if self.micro < self.accum:
             return False
-        grads = [p.grad for p in self.params if p.grad is not None]
+        with_grad = [p for p in self.params if p.grad is not None]
+        grads = [p.grad for p in with_grad]
         if self.accum > 1:
             torch._foreach_div_(grads, float(self.accum))
-        norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        norm = torch.linalg.vector_norm(self._norms(with_grad))
         clip = float(self.tc.grad_clip)
         scale = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
         torch._foreach_mul_(grads, scale)
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.updates)
-        self.adamw.step()
-        self.adamw.zero_grad(set_to_none=True)
+        self._adamw_step()
+        for p in self.params:
+            p.grad = None
         self.updates += 1
         self.micro = 0
         return True
@@ -147,7 +162,8 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
                            reduction="none").view(b, n)
 
 
-def chunked_cross_entropy(x, lm_head, targets, chunk: int, valid=None):
+def chunked_cross_entropy(x, lm_head, targets, chunk: int, valid=None,
+                          shard=None):
     """Mean next-token CE with per-chunk fp32 logits (B, chunk, V): each
     chunk is checkpointed, so the backward recomputes its logits instead of
     keeping (B, N, V). ``valid`` (B, N) bool masks targets."""
@@ -156,8 +172,7 @@ def chunked_cross_entropy(x, lm_head, targets, chunk: int, valid=None):
         valid = torch.ones((b, n), dtype=torch.bool, device=x.device)
 
     def one(xc, tc, vc):
-        logits = xc.float() @ lm_head.w.float() + lm_head.b.float()
-        nll = token_nll(logits, tc)
+        nll = token_nll(head_logits(lm_head, xc, shard), tc)
         return torch.where(vc, nll, torch.zeros_like(nll)).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -168,34 +183,51 @@ def chunked_cross_entropy(x, lm_head, targets, chunk: int, valid=None):
             total = total + checkpoint(one, *args, use_reentrant=False)
         else:
             total = total + one(*args)
-    return total / valid.sum().clamp(min=1)
+    return total / _count(valid, shard)
+
+
+def _count(valid, shard):
+    """The mean's denominator: the valid targets of the whole batch. Under
+    ``shard`` with data ranks, the count of every rank, scaled so that the
+    mean of the ranks' losses is the whole batch's loss."""
+    n = valid.sum()
+    if shard is not None and shard.n_data > 1:
+        n = shard.data_sum(n) / shard.n_data
+    return n.clamp(min=1)
 
 
 def loss_fn(params: Transformer, batch: dict, cfg: TransformerConfig,
-            dropout_seed: int | None):
-    """Next-token cross entropy of ``batch["tokens"]`` (B, N+1).
+            dropout_seed: int | None, shard=None):
+    """Next-token cross entropy of ``batch["tokens"]`` (B, N+1), plus
+    ``cfg.moe_aux_coef`` times the load-balance loss of an MoE model.
 
     ``batch["segment_ids"]`` (B, N+1), optional: packed rows; attention and
     positions stay within a segment, and targets that cross a segment
-    boundary or sit in a padding segment (id < 0) leave the mean."""
+    boundary or sit in a padding segment (id < 0) leave the mean.
+    ``shard``: this rank's share of a sharded step
+    (``parallel.sharded``)."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     seg = batch.get("segment_ids")
     valid = None
     if seg is not None:
         valid = (seg[:, :-1] == seg[:, 1:]) & (seg[:, :-1] >= 0)
-    kw = dict(train=True, dropout_seed=dropout_seed,
-              segment_ids=None if seg is None else seg[:, :-1])
+    kw = dict(train=True, dropout_seed=dropout_seed, return_aux=True,
+              segment_ids=None if seg is None else seg[:, :-1], shard=shard)
     if cfg.loss_chunk:
-        x = apply_transformer(params, inputs, cfg, return_hidden=True, **kw)
-        return chunked_cross_entropy(x, params.lm_head, targets,
-                                     cfg.loss_chunk, valid=valid)
-    logits = apply_transformer(params, inputs, cfg, **kw)
-    nll = token_nll(logits, targets)
-    if valid is None:
-        return nll.mean()
-    return torch.where(valid, nll, torch.zeros_like(nll)).sum() / \
-        valid.sum().clamp(min=1)
+        x, aux = apply_transformer(params, inputs, cfg, return_hidden=True,
+                                   **kw)
+        ce = chunked_cross_entropy(x, params.lm_head, targets,
+                                   cfg.loss_chunk, valid=valid, shard=shard)
+    else:
+        logits, aux = apply_transformer(params, inputs, cfg, **kw)
+        nll = token_nll(logits, targets)
+        if valid is None:
+            ce = nll.mean()
+        else:
+            ce = torch.where(valid, nll, torch.zeros_like(nll)).sum() / \
+                _count(valid, shard)
+    return ce + cfg.moe_aux_coef * aux if cfg.moe_experts else ce
 
 
 def step_seed(tc: TrainConfig, step: int) -> int:

@@ -11,12 +11,22 @@ as ``x @ w``), so a JAX parameter tree loads by name through
     blocks.{i}.ln1.{g,b}, blocks.{i}.mlp.{w_in,b_in,w_out,b_out},
     blocks.{i}.ln2.{g,b}
 
+and, with ``moe_experts > 0``, blocks.{i}.mlp.{router, w_in, b_in, w_out,
+b_out} with a leading expert dim (``models/moe.py``).
+
 Post-LN blocks (attention -> residual -> LN -> MLP -> residual -> LN), as
 in the JAX package. Attention goes through ``ops.api.flash_attention``: the
 CUDA flash kernels on the card; with a block-sparse pattern, through
 ``ops.sparse_attn.sparse_attention`` (kernels B8-B10) when there is no
 attention dropout and no soft-cap, else through the tiled executor with the
 pattern expanded to an element mask.
+
+Tensor parallelism: the forward takes an optional ``shard`` (a
+``parallel.sharded.ShardContext``). With it, the parameters are this model
+rank's shards: attention runs the rank's heads, the MLP its columns of
+``w_in`` (or its experts), and ``shard.enter`` / ``shard.exit`` put the
+Megatron collectives around the column- and row-parallel products; the LM
+head's vocab shards are gathered. Without it nothing changes.
 
 Dropout under recomputation: with ``remat`` every block runs its forward
 twice, and ``torch.utils.checkpoint`` restores only the global generators.
@@ -43,6 +53,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from flashattention_tpu_torch.models.moe import moe_mlp
 from flashattention_tpu_torch.ops.api import flash_attention
 from flashattention_tpu_torch.ops.sparse_attn import sparse_attention
 from flashattention_tpu_torch.ops.tiled import tiled_attention
@@ -109,8 +120,9 @@ def _check_supported(cfg: TransformerConfig) -> None:
         raise ValueError("attention_window must be >= 1")
     if cfg.attention_sinks and cfg.attention_window is None:
         raise ValueError("attention_sinks require attention_window")
-    if cfg.moe_experts:
-        raise NotImplementedError("mixture-of-experts blocks are not ported yet")
+    if cfg.moe_experts and not 1 <= cfg.moe_top_k <= cfg.moe_experts:
+        raise ValueError(f"moe_top_k must be in [1, {cfg.moe_experts}], got "
+                         f"{cfg.moe_top_k}")
 
 
 class _Params(nn.Module):
@@ -150,15 +162,17 @@ class Transformer(nn.Module):
 
 _QKV_NAMES = {True: ("w_qkv", "b_qkv", "w_o", "b_o"),
               False: ("w_q", "b_q", "w_k", "b_k", "w_v", "b_v", "w_o", "b_o")}
+_MLP_NAMES = {False: ("w_in", "b_in", "w_out", "b_out"),
+              True: ("router", "w_in", "b_in", "w_out", "b_out")}
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0,
                 device: str | torch.device | None = None) -> Transformer:
     """Random parameters with the JAX package's init distribution (normal,
     std 0.02; residual-branch outputs 0.02 / sqrt(2 · n_layers); zero
-    biases, unit LN gains), drawn from a ``torch.Generator`` seeded with
-    ``seed`` (not the JAX package's numbers), on ``device`` (None: the
-    card)."""
+    biases, unit LN gains; MoE blocks as ``init_moe_mlp``), drawn from a
+    ``torch.Generator`` seeded with ``seed`` (not the JAX package's
+    numbers), on ``device`` (None: the card)."""
     _check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -187,8 +201,15 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
                            w_k=normal((d, kvd)), b_k=zeros(kvd),
                            w_v=normal((d, kvd)), b_v=zeros(kvd),
                            w_o=normal((d, d), out_scale), b_o=zeros(d))
-        mlp = _Params(w_in=normal((d, dff)), b_in=zeros(dff),
-                      w_out=normal((dff, d), out_scale), b_out=zeros(d))
+        if cfg.moe_experts:
+            e = cfg.moe_experts
+            mlp = _Params(router=normal((d, e)), w_in=normal((e, d, dff)),
+                          b_in=zeros((e, dff)),
+                          w_out=normal((e, dff, d), out_scale),
+                          b_out=zeros((e, d)))
+        else:
+            mlp = _Params(w_in=normal((d, dff)), b_in=zeros(dff),
+                          w_out=normal((dff, d), out_scale), b_out=zeros(d))
         blocks.append(Block(attn, _ln(d, pd, device), mlp, _ln(d, pd, device)))
     return Transformer(cfg, tok_emb, pos_emb, blocks, _ln(d, pd, device), lm_head)
 
@@ -213,7 +234,7 @@ def params_from_jax(tree, cfg: TransformerConfig,
         Block(
             group(bp["attn"], _QKV_NAMES["w_qkv" in bp["attn"]]),
             group(bp["ln1"], ("g", "b")),
-            group(bp["mlp"], ("w_in", "b_in", "w_out", "b_out")),
+            group(bp["mlp"], _MLP_NAMES["router" in bp["mlp"]]),
             group(bp["ln2"], ("g", "b")),
         )
         for bp in tree["blocks"]
@@ -235,6 +256,14 @@ def params_from_jax(tree, cfg: TransformerConfig,
 def lm_head_logits(lm, x: torch.Tensor) -> torch.Tensor:
     """float32 LM-head projection."""
     return x.float() @ lm.w.float() + lm.b.float()
+
+
+def head_logits(lm, x: torch.Tensor, shard=None) -> torch.Tensor:
+    """:func:`lm_head_logits`; under ``shard`` the vocab shards of every
+    model rank, gathered."""
+    if shard is None:
+        return lm_head_logits(lm, x)
+    return shard.gather_vocab(lm_head_logits(lm, shard.enter(x)))
 
 
 def layer_norm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
@@ -312,9 +341,10 @@ def _embed(params: Transformer, tokens, cfg, positions=None, start: int = 0):
     return x
 
 
-def _project_qkv(x, p, cfg):
+def _project_qkv(x, p, cfg, n_model: int = 1):
+    """q, k, v (B, heads, N, dh) of this model rank's heads."""
     dt = x.dtype
-    h, h_kv, dh = cfg.n_heads, cfg.kv_heads, cfg.d_head
+    h, h_kv, dh = cfg.n_heads // n_model, cfg.kv_heads // n_model, cfg.d_head
     if hasattr(p, "w_qkv"):
         qkv = x @ p.w_qkv.to(dt) + p.b_qkv.to(dt)
         q, k, v = torch.split(qkv, [h * dh, h_kv * dh, h_kv * dh], dim=-1)
@@ -332,9 +362,16 @@ def _project_qkv(x, p, cfg):
 
 def _attention(x, p, cfg: TransformerConfig, *, dropout_seed, train,
                kv_cache=None, cache_index: int = 0, sparse_mask=None,
-               segment_ids=None, positions=None):
+               segment_ids=None, positions=None, shard=None):
     b, n, d = x.shape
-    q, k, v = _project_qkv(x, p, cfg)
+    n_model = 1
+    if shard is not None:
+        x, n_model = shard.enter(x), shard.n_model
+        if dropout_seed is not None and n_model > 1:
+            # other heads on every rank: other masks
+            dropout_seed = (dropout_seed + shard.model_rank * 0x9E3779B1) \
+                & 0xFFFFFFFF
+    q, k, v = _project_qkv(x, p, cfg, n_model)
     if cfg.pos_encoding == "rope":
         if positions is not None:
             pos = positions
@@ -393,30 +430,55 @@ def _attention(x, p, cfg: TransformerConfig, *, dropout_seed, train,
                 window=cfg.attention_window, segment_ids=segment_ids,
                 softcap=cfg.attn_softcap, sinks=cfg.attention_sinks,
             )
-    o = o.transpose(1, 2).reshape(b, n, d)
-    return o @ p.w_o.to(o.dtype) + p.b_o.to(o.dtype)
+    o = o.transpose(1, 2).reshape(b, n, -1) @ p.w_o.to(o.dtype)
+    if shard is not None:
+        o = shard.exit(o)
+    return o + p.b_o.to(o.dtype)
 
 
-def _mlp(x, p):
+def _dense_mlp(x, p, shard=None):
     dt = x.dtype
+    if shard is not None:
+        x = shard.enter(x)
     hidden = F.gelu(x @ p.w_in.to(dt) + p.b_in.to(dt), approximate="tanh")
-    return hidden @ p.w_out.to(dt) + p.b_out.to(dt)
+    y = hidden @ p.w_out.to(dt)
+    if shard is not None:
+        y = shard.exit(y)
+    return y + p.b_out.to(dt)
+
+
+def _mlp(x, p, cfg):
+    """The MLP of the inference paths (KV-cache decode): dense, or the
+    mixture routed dropless (exact, causal, the same for a whole sequence
+    and one token)."""
+    if hasattr(p, "router"):
+        return moe_mlp(x, p, cfg, dropless=True)[0]
+    return _dense_mlp(x, p)
+
+
+def _mlp_aux(x, p, cfg, *, train, shard=None):
+    """(y, fp32 load-balance aux): MoE blocks route with capacity drops
+    in training and dropless otherwise; dense blocks give aux None."""
+    if hasattr(p, "router"):
+        return moe_mlp(x, p, cfg, dropless=not train, shard=shard)
+    return _dense_mlp(x, p, shard), None
 
 
 def _block(x, bp, cfg, *, seeds, train, sparse_mask=None, segment_ids=None,
-           positions=None):
-    """One post-LN block; ``seeds`` are its three dropout-site seeds."""
+           positions=None, shard=None):
+    """One post-LN block; ``seeds`` are its three dropout-site seeds.
+    Returns (x, the block's MoE aux loss, None for a dense block)."""
     drop = train and cfg.dropout_rate > 0
     attn_out = _attention(x, bp.attn, cfg, dropout_seed=seeds[0], train=train,
                           sparse_mask=sparse_mask, segment_ids=segment_ids,
-                          positions=positions)
+                          positions=positions, shard=shard)
     if drop:
         attn_out = _dropout(attn_out, seeds[1], cfg.dropout_rate)
     x = layer_norm(x + attn_out, bp.ln1)
-    mlp_out = _mlp(x, bp.mlp)
+    mlp_out, aux = _mlp_aux(x, bp.mlp, cfg, train=train, shard=shard)
     if drop:
         mlp_out = _dropout(mlp_out, seeds[2], cfg.dropout_rate)
-    return layer_norm(x + mlp_out, bp.ln2)
+    return layer_norm(x + mlp_out, bp.ln2), aux
 
 
 _SAVED_BY_DOTS = frozenset({torch.ops.aten.mm.default,
@@ -456,10 +518,13 @@ def apply_transformer(
     segment_ids: torch.Tensor | None = None,
     return_hidden: bool = False,
     return_aux: bool = False,
+    shard=None,
 ):
     """tokens (B, N) -> float32 logits (B, N, vocab), or the final-LN hidden
-    states with ``return_hidden``; with ``return_aux`` also the MoE
-    load-balance loss (0: no MoE block is ported).
+    states with ``return_hidden``; with ``return_aux`` also the summed MoE
+    load-balance loss of the blocks (fp32, 0 for a dense model). MoE blocks
+    keep capacity drops under ``train`` and route dropless otherwise.
+    ``shard``: tensor parallelism (module docstring).
 
     ``train`` turns dropout on; it then needs ``dropout_seed`` (an int),
     from which every site's seed is drawn. ``segment_ids`` (B, N): packed
@@ -492,17 +557,18 @@ def apply_transformer(
             -(-n_tiles // pat.shape[0]), 0).repeat_interleave(
             -(-n_tiles // pat.shape[1]), 1)[:n_tiles, :n_tiles]
 
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, bp in enumerate(params.blocks):
         one_block = functools.partial(
             _block, bp=bp, cfg=cfg, seeds=seeds[1 + 3 * i: 4 + 3 * i],
             train=train, sparse_mask=sparse_mask, segment_ids=segment_ids,
-            positions=positions)
-        x = _remat(one_block, cfg)(x)
+            positions=positions, shard=shard)
+        x, aux = _remat(one_block, cfg)(x)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = layer_norm(x, params.final_ln)
-    out = x if return_hidden else lm_head_logits(params.lm_head, x)
-    if return_aux:
-        return out, torch.zeros((), dtype=torch.float32, device=x.device)
-    return out
+    out = x if return_hidden else head_logits(params.lm_head, x, shard)
+    return (out, aux_total) if return_aux else out
 
 
 # ---------------------------------------------------------------------------
@@ -532,7 +598,7 @@ def _decode_chunk_impl(params, caches, tokens, cache_index: int, cfg):
         attn_out = _attention(x, bp.attn, cfg, dropout_seed=None, train=False,
                               kv_cache=cache, cache_index=int(cache_index))
         x = layer_norm(x + attn_out, bp.ln1)
-        x = layer_norm(x + _mlp(x, bp.mlp), bp.ln2)
+        x = layer_norm(x + _mlp(x, bp.mlp, cfg), bp.ln2)
     x = layer_norm(x, params.final_ln)
     return lm_head_logits(params.lm_head, x), caches
 

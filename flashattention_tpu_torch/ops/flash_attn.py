@@ -358,6 +358,13 @@ def flash_bwd(q, k, v, o, lse, do, dlse, opts: AttnOpts):
     di = (o.float() * do.float()).sum(dim=-1)
     if dlse is not None:
         di = di - dlse.float()
+    return flash_bwd_di(q, k, v, do, lse, di, opts)
+
+
+def flash_bwd_di(q, k, v, do, lse, di, opts: AttnOpts):
+    """(dq, dk, dv) from a given LSE and ``di``: the backward kernels (CUDA
+    tensors) or their plain version (CPU tensors). Ring attention passes
+    the merged output's LSE and di to every partial."""
     if q.is_cuda:
         return _bwd_cuda(q, k, v, do, lse, di, opts)
     return flash_bwd_plain(q, k, v, do, lse, di, opts)

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from flashattention_tpu_torch.models.moe import moe_mlp
 from flashattention_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
@@ -139,11 +140,17 @@ def _serving_weights(params: Transformer, cfg: TransformerConfig, device):
         return SimpleNamespace(w_qkv=cast(w_qkv), b_qkv=cast(b_qkv),
                                w_o=cast(a.w_o), b_o=cast(a.b_o))
 
+    def mlp(m):  # an MoE router stays float32, as moe_mlp computes in it
+        names = ("w_in", "b_in", "w_out", "b_out")
+        out = SimpleNamespace(**{n: cast(getattr(m, n)) for n in names})
+        if hasattr(m, "router"):
+            out.router = f32(m.router)
+        return out
+
     blocks = [
         SimpleNamespace(
             attn=attn(bp.attn),
-            mlp=SimpleNamespace(**{n: cast(getattr(bp.mlp, n))
-                                   for n in ("w_in", "b_in", "w_out", "b_out")}),
+            mlp=mlp(bp.mlp),
             ln1=ln(bp.ln1),
             ln2=ln(bp.ln2),
         )
@@ -177,7 +184,12 @@ def _proj_out(o, a):
     return o.transpose(1, 2).reshape(b, n, h * dh) @ a.w_o + a.b_o
 
 
-def _mlp(x, m):
+def _mlp(x, m, cfg):
+    """The MLP of every serving pass (prefill chunks, decode, the
+    speculative verify): dense, or the mixture routed dropless, so that a
+    token's experts never depend on the other tokens of its pass."""
+    if hasattr(m, "router"):
+        return moe_mlp(x, m, cfg, dropless=True)[0]
     return F.gelu(x @ m.w_in + m.b_in, approximate="tanh") @ m.w_out + m.b_out
 
 
@@ -242,7 +254,7 @@ def chunk_prefill(w, cfg, caches: list[PagedKVCache], tokens, page_row,
         o = paged_attention(q.contiguous(), cache.k_pages, cache.v_pages,
                             page_row, lengths, **_attn_kwargs(cfg, cache))
         x = layer_norm(x + _proj_out(o, bp.attn), bp.ln1)
-        x = layer_norm(x + _mlp(x, bp.mlp), bp.ln2)
+        x = layer_norm(x + _mlp(x, bp.mlp, cfg), bp.ln2)
     return x
 
 
@@ -267,7 +279,7 @@ def _decode_hidden(w, cfg, caches: list[PagedKVCache], tokens, page_indices,
                             cache.v_pages, page_indices, attended,
                             **_attn_kwargs(cfg, cache))
         x = layer_norm(x + _proj_out(o[:, :, None], bp.attn), bp.ln1)
-        x = layer_norm(x + _mlp(x, bp.mlp), bp.ln2)
+        x = layer_norm(x + _mlp(x, bp.mlp, cfg), bp.ln2)
     return x
 
 
@@ -331,7 +343,7 @@ def verify_logits(w, cfg, caches: list[PagedKVCache], tokens, page_indices,
         o = paged_attention(q.contiguous(), cache.k_pages, cache.v_pages,
                             page_indices, attended, **_attn_kwargs(cfg, cache))
         x = layer_norm(x + _proj_out(o, bp.attn), bp.ln1)
-        x = layer_norm(x + _mlp(x, bp.mlp), bp.ln2)
+        x = layer_norm(x + _mlp(x, bp.mlp, cfg), bp.ln2)
     x = layer_norm(x, w.final_ln)
     return lm_head_logits(w.lm_head, x)
 
@@ -369,7 +381,7 @@ def prefill(w, cfg, caches: list[PagedKVCache], tokens, page_indices,
                                block_k=min(cfg.block_size, tp), mask=mask,
                                softcap=cfg.attn_softcap)
         x = layer_norm(x + _proj_out(o, bp.attn), bp.ln1)
-        x = layer_norm(x + _mlp(x, bp.mlp), bp.ln2)
+        x = layer_norm(x + _mlp(x, bp.mlp, cfg), bp.ln2)
     logits = last_logits(w, x, prompt_len - 1)
     return torch.argmax(logits, dim=-1)
 

@@ -1338,3 +1338,106 @@ def test_sparse_model_launch_counts(cuda_device):
     assert tuple(b - a for a, b in zip(c0, c1)) == (n, 0, 0, 0)
     assert tuple(b - a for a, b in zip(c1, c2)) == (2 * n, n, 0, 0)
     assert all(torch.isfinite(p.grad).all() for p in params.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Context parallelism (all ranks of a ring on one card) and MoE blocks
+# ---------------------------------------------------------------------------
+
+# kind: forward partials a causal ring of 4 ranks launches (rank r: r + 1
+# for the ring, 2 (r + 1) halves for the bidirectional ring, one call each
+# for all-gather); non-causal rings launch every step
+CP_CAUSAL_LAUNCHES = {"ring": 10, "bidir": 20, "all_gather": 4}
+CP_FULL_LAUNCHES = {"ring": 16, "bidir": 32, "all_gather": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ring", "bidir", "all_gather"])
+@pytest.mark.parametrize("causal,seg", [(True, False), (True, True),
+                                        (False, True)])
+def test_context_parallel_schedules_on_card(cuda_device, kind, causal, seg):
+    """The schedules of 4 ranks run in turn on the card (bf16, the
+    tensor-core kernels) against one flash call over the whole sequence:
+    o, LSE and the three gradients, with an LSE cotangent; the exact
+    partial launches, none for a future shard.
+
+    Limit: the flash limit, plus, where the schedule merges or sums up to
+    4 partials that the kernels return rounded to bf16, half an ulp of each
+    (4 * 2**-9 * max|ref|). A non-causal row's output averages every key,
+    so all outputs are small and the flash limit's atol (1e-3 * max|ref|)
+    alone is below one rounding of a partial."""
+    from flashattention_tpu_torch.parallel.ring import schedules_on_one_device
+
+    b, h, n, d = 1, 4, 1024, 128
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn((b, h, n, d), generator=gen).to(
+        cuda_device, torch.bfloat16) for _ in range(4))
+    dlse = torch.randn((b, h, n), generator=gen).to(cuda_device)
+    ids = None
+    if seg:
+        ids = torch.zeros((b, n), dtype=torch.int32)
+        ids[:, 300:] = 1
+        ids[:, 700:] = 2
+        ids = ids.to(cuda_device)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o_ref, lse_ref = fa.kernel_attention(*leaves, causal=causal,
+                                         segment_ids=ids)
+    torch.autograd.backward([o_ref, lse_ref], [do, dlse])
+    f0, t0 = fa.kernel_attention.fwd_launches, fa.kernel_attention.fwd_tc_launches
+    got = schedules_on_one_device(kind, q, k, v, 4, causal=causal,
+                                  segment_ids=ids, do=do, dlse=dlse)
+    torch.cuda.synchronize()
+    want_launches = (CP_CAUSAL_LAUNCHES if causal else CP_FULL_LAUNCHES)[kind]
+    assert fa.kernel_attention.fwd_launches - f0 == want_launches
+    assert fa.kernel_attention.fwd_tc_launches - t0 == want_launches
+    refs = [o_ref, lse_ref] + [t.grad for t in leaves]
+    for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), got, refs):
+        assert torch.isfinite(a.float()).all(), name
+        if name == "lse":
+            assert_allclose(a, r, rtol=1e-4, atol=1e-4, err_msg=name)
+        else:
+            rtol, atol = flash_tol(torch.bfloat16, r)
+            atol += 4 * 2 ** -9 * float(r.float().abs().max())
+            assert_allclose(a, r, rtol=rtol, atol=atol, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_moe_block_on_card_matches_cpu(cuda_device):
+    """One MoE layer forward and backward (capacity routing), bf16 on the
+    card against fp32 on the CPU from the same bf16-representable inputs:
+    output and gradients within 5e-2 relative L2, the same experts."""
+    from types import SimpleNamespace
+
+    from flashattention_tpu_torch.models import moe
+
+    cfg = TransformerConfig(d_model=256, d_ff=512, moe_experts=8, moe_top_k=2,
+                            moe_group_size=128)
+    gen = torch.Generator().manual_seed(6)
+
+    def rnd(*s, scale=1.0):
+        return (torch.randn(s, generator=gen) * scale).bfloat16().float()
+
+    base = dict(router=rnd(256, 8, scale=0.1), w_in=rnd(8, 256, 512, scale=0.05),
+                b_in=rnd(8, 512, scale=0.05), w_out=rnd(8, 512, 256, scale=0.05),
+                b_out=rnd(8, 256, scale=0.05))
+    x0, dy = rnd(2, 256, 256), rnd(2, 256, 256)
+    out = {}
+    for dev, dt in (("cpu", torch.float32), (cuda_device, torch.bfloat16)):
+        p = {n: t.to(dev).clone().requires_grad_(True)
+             for n, t in base.items()}
+        x = x0.to(dev, dt).clone().requires_grad_(True)
+        y, aux = moe.moe_mlp(x, SimpleNamespace(**p), cfg)
+        torch.autograd.backward([y, aux], [dy.to(dev, dt),
+                                           torch.tensor(0.5, device=dev)])
+        g = moe.group_size(256, cfg)
+        _, _, _, _, idx = moe.route(x.detach().reshape(-1, g, 256), p["router"],
+                                    cfg, moe.capacity(g, cfg, False))
+        out[str(dev)] = dict(y=y, aux=aux, x=x.grad, idx=idx.cpu(),
+                             **{n: t.grad for n, t in p.items()})
+    card, cpu = out[str(cuda_device)], out["cpu"]
+    assert torch.equal(card["idx"], cpu["idx"])
+    assert abs(card["aux"].item() - cpu["aux"].item()) <= 5e-2
+    for name in ("y", "x", "router", "w_in", "b_in", "w_out", "b_out"):
+        a, r = card[name].float().cpu(), cpu[name].float()
+        rel = float((a - r).norm() / r.norm())
+        assert rel <= 5e-2, (name, rel)

@@ -371,12 +371,15 @@ def test_separate_qkv_serves_like_fused():
 
 def test_sparse_pattern_and_moe_raise():
     """A block-sparse pattern runs (tests/test_torch_sparse_model.py) and
-    raises only where the JAX model does, with a window; MoE blocks are not
-    ported and raise."""
+    raises only where the JAX model does, with a window; MoE blocks build
+    (tests/test_torch_moe.py) and raise only on a top-k beyond the experts."""
     cfg = port_config(jax_config(attention_window=4))
     params = init_params(cfg, device="cpu")
     with pytest.raises(ValueError, match="attention_window"):
         apply_transformer(params, torch.zeros(1, 8, dtype=torch.long), cfg,
                           sparse_pattern=torch.ones(1, 1))
-    with pytest.raises(NotImplementedError):
-        init_params(dataclasses.replace(cfg, moe_experts=4), device="cpu")
+    moe = init_params(dataclasses.replace(cfg, moe_experts=4), device="cpu")
+    assert moe.blocks[0].mlp.router.shape == (cfg.d_model, 4)
+    with pytest.raises(ValueError, match="moe_top_k"):
+        init_params(dataclasses.replace(cfg, moe_experts=4, moe_top_k=5),
+                    device="cpu")
