@@ -26,7 +26,8 @@ Phases, in order; any failure exits nonzero:
    at the training shape with dropout (a) and without (a0) and seven more
    cases (the JAX headline's shape, GQA with window, sinks and soft-cap,
    segment ids with ALiBi, fp32, a nonzero LSE cotangent, rows with no
-   visible key, fp32 with dropout), each launched once on the route it
+   visible key, fp32 with dropout, fp32 non-causal, segment ids with
+   dropout), each launched once on the route it
    must take (bf16 with D <= 128: the tensor cores; else the FMA kernels;
    checked by the route counters). Max error against the stated tolerance
    (fp32 1e-4; bf16 flash two ulps, 1.6e-2 relative, plus 1e-3 of the
@@ -172,6 +173,25 @@ Phases, in order; any failure exits nonzero:
    engine serving 32 requests (32-400-token prompts, 32 new tokens each; 12
    paged-attention and 12 append launches a decode step and chunk,
    checked), and phase 4's first-token logits and greedy agreement.
+12. The last modules. A BPE (vocab 512) learned from the repository's
+   ``*.md`` text, the native engine's ids equal to the Python merge loop's
+   on the whole text, each file one document packed into rows of 513
+   (``data.pack_documents``). A reference-layout checkpoint at GPT-3 Small
+   widths (fused QKV, biases, spare projections, vocab 50257, seed 0)
+   through ``models.compat`` in fp32 on 8 packed rows: logits and loss on
+   the card against the same calls on the CPU (1e-4 of the largest logit),
+   exactly 24 flash_fwd launches a forward on the FMA route and nothing
+   else, loss and perplexity, the forward's time, one forward traced by
+   ``utils.profiling.trace`` (its Chrome trace must hold flash_fwd
+   kernels). Phase 5's training on the packed rows through
+   ``data.prefetch`` (2 + 4 micro-steps, 24 + 12 flash launches a
+   micro-step on the tensor cores, the loss without dropout of a batch it
+   never trains on falling). ``bench.sweep.run_config`` at phase-2 case
+   (b)'s (1, 8, 8192, 128) causal: fa2 forward, fa2 forward + backward and
+   fa3 int8 forward (the 8-bit kernel), each record "ok" with a roofline
+   share of the card's peak in (0, 1.05] and a time within 1.25x of one
+   traced call's kernels; ``profiling.timed`` on one flash call;
+   ``bench.scaling`` at size 1 on one NCCL rank.
 
 The last two lines are the kernels' JSON record and the device line
 ``{"ok": true, "device": {...}}``; the kernels' record carries the verify
@@ -180,9 +200,14 @@ launches inside phase 8's self-arm verify passes, numbers of the phase-2
 verify cases) and the rows of phases 10-11's paths
 (``flash_fwd[ring]`` ... ``[all_gather]`` with the schedules' summed
 per-rank times, ``[sharded_zero1]``, ``[pipelined]``, ``[moe]`` with the
-numbers of phase 2's matching cases). ``--cpu-rehearsal`` skips phases
-1-2, runs the others at a tiny width on the CPU (phase 9's workers on the
-CPU, phase 10's rank over gloo) and never prints the device line.
+numbers of phase 2's matching cases) and of phase 12's
+(``flash_fwd[compat]`` with the numbers of phase-2 cases (e) and (i),
+``flash_fwd[packed]`` and ``flash_bwd[packed]`` with case (j),
+``flash_fwd[sweep]`` and ``flash_bwd[sweep]`` with case (b),
+``flash_fwd_fp8[sweep]`` with fp8 case (b)).
+``--cpu-rehearsal`` skips phases 1-2, runs the others at a tiny width on
+the CPU (phase 9's workers on the CPU, phase 10's rank over gloo) and
+never prints the device line.
 Details also go to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -193,6 +218,7 @@ import collections
 import copy
 import dataclasses
 import json
+import math
 import shutil
 import socket
 import statistics
@@ -207,6 +233,9 @@ import torch
 import torch.distributed as dist
 
 from flashattention_tpu_torch import _build
+from flashattention_tpu_torch import data as tdata
+from flashattention_tpu_torch.bench import harness, scaling, sweep
+from flashattention_tpu_torch.models import compat
 from flashattention_tpu_torch.models import moe
 from flashattention_tpu_torch.models import train as ttrain
 from flashattention_tpu_torch.models.transformer import (
@@ -241,6 +270,8 @@ from flashattention_tpu_torch.serving.paged_kv import (
     PagedKVCache,
     append_to_pages,
 )
+from flashattention_tpu_torch.tokenizer import BPETokenizer
+from flashattention_tpu_torch.utils.testing import reference_state_dict
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor rate
@@ -312,7 +343,8 @@ def sync(dev) -> None:
 
 
 class Timer:
-    """Median device time of one call of ``fn``, from CUDA events.
+    """Median device time of one call of ``fn``, from CUDA events
+    (``bench.harness.time_calls``, the sweep's timer).
 
     Before each timed call a 128 MB write evicts the 50 MB L2 (as the
     engine's other layers do between two calls on one layer's cache), then
@@ -321,37 +353,20 @@ class Timer:
     not the host's time to issue it. ``wall`` instead times the call the way
     the engine meets it: the host issuing it to an idle card, in sequence."""
 
-    SLEEP_CYCLES = 2_000_000  # ~1 ms: longer than any call takes to issue
+    SLEEP_CYCLES = harness.HOLD_CYCLES  # ~1 ms
 
     def __init__(self, device, sleep_cycles=SLEEP_CYCLES):
-        self.flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
-                                 device=device)
+        self.flush = harness.l2_flush_buffer(device)
         self.sleep_cycles = sleep_cycles
 
-    def _run(self, fn, reps, warmup, hold):
-        for _ in range(warmup):
-            fn()
-        times = []
-        for _ in range(reps):
-            self.flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            if hold:
-                torch.cuda._sleep(self.sleep_cycles)
-            else:
-                torch.cuda.synchronize()
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
     def __call__(self, fn, reps=30, warmup=3) -> float:
-        return self._run(fn, reps, warmup, hold=True)
+        return statistics.median(harness.time_calls(
+            fn, self.flush, reps=reps, warmup=warmup,
+            hold_cycles=self.sleep_cycles)[0])
 
     def wall(self, fn, reps=30, warmup=3) -> float:
-        return self._run(fn, reps, warmup, hold=False)
+        return statistics.median(harness.time_calls(
+            fn, self.flush, reps=reps, warmup=warmup, hold_cycles=None)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -715,6 +730,13 @@ FLASH_CASES = {
           TRAIN_SHAPE, BF16, dict(causal=True, q_offset=-64), ()),
     "h": ("fp32 training shape, causal, dropout 0.1", TRAIN_SHAPE, FP32,
           dict(causal=True, dropout_rate=0.1, dropout_seed=99), ()),
+    # phase 12's calls: compat's "ffn" block (case e is its causal MHA) and
+    # training on packed documents
+    "i": ("fp32 B=8 H=12 N=512 non-causal (compat's ffn block)", TRAIN_SHAPE,
+          FP32, dict(causal=False), ()),
+    "j": ("packed rows: segment ids (4 per row) + dropout 0.1, B=8 H=12 "
+          "N=512 bf16 causal", TRAIN_SHAPE, BF16,
+          dict(causal=True, dropout_rate=0.1, dropout_seed=7), ("segments",)),
 }
 
 
@@ -850,17 +872,18 @@ def flash_case(timer, gen, dev, key):
         fma_fwd, fma_bwd = fma_route(q, k, v, o_ref, lse_ref, do, dlse, opts)
         t["fwd_fma_ms"] = timer(fma_fwd, reps=10 if big else 30)
         t["bwd_fma_ms"] = timer(fma_bwd, reps=10 if big else 30)
-    # SDPA(is_causal=True), no dropout: the library call where the case has
-    # no other feature (the same function), else a yardstick.
+    # SDPA(is_causal=causal), no dropout: the library call where the case
+    # has no other feature (the same function), else a yardstick.
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gqa = q.shape[1] != k.shape[1]
+    causal = kw.get("causal", False)
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
     sdpa_fwd = timer(lambda: sdpa(
-        q, k, v, is_causal=True, scale=opts.scale, enable_gqa=gqa))
-    o_lib = sdpa(*leaves, is_causal=True, scale=opts.scale, enable_gqa=gqa)
+        q, k, v, is_causal=causal, scale=opts.scale, enable_gqa=gqa))
+    o_lib = sdpa(*leaves, is_causal=causal, scale=opts.scale, enable_gqa=gqa)
     sdpa_bwd = timer(lambda: torch.autograd.grad(
         o_lib, leaves, do, retain_graph=True))
-    same = (not extras or extras == ("dlse",)) and kw == dict(causal=True)
+    same = (not extras or extras == ("dlse",)) and kw == dict(causal=causal)
     lib_key = "library" if same else "yardstick"
     t[f"{lib_key}_fwd_ms"], t[f"{lib_key}_bwd_ms"] = sdpa_fwd, sdpa_bwd
     bounds, frac = flash_bound(q, k, opts, dlse)
@@ -2051,17 +2074,22 @@ def phase_fa3_fp8(dev, shape, check_shape, on_card):
 
 
 def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8,
-                tag="train"):
+                tag="train", batches=None, check_batch=None):
     """The port's training main path: ``train_step`` (forward, backward,
-    optimizer) on the synthetic stream; host-clock time per micro-step up
-    to ``loss.item()``; exact launch counts; one profiled micro-step."""
+    optimizer) on the synthetic stream, or on ``batches`` (an iterator of
+    CPU batches, moved to the card as ``train`` moves them); host-clock
+    time per micro-step up to ``loss.item()``; exact launch counts; one
+    profiled micro-step. ``check_batch``: a batch whose loss (no dropout)
+    is taken before the first micro-step and after the timed ones."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
     params = init_params(cfg, seed=SEED, device=dev)
     opt = ttrain.make_optimizer(params, tc)
-    batches = list(ttrain.synthetic_batches(tc, cfg.vocab_size,
-                                            n_warm + n_timed + 1, device=dev))
+    if batches is None:
+        batches = list(ttrain.synthetic_batches(
+            tc, cfg.vocab_size, n_warm + n_timed + 1, device=dev))
+    batches = iter(batches)
     log(f"[{tag}] {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
         f"heads, vocab {cfg.vocab_size}, dropout {cfg.dropout_rate}, remat "
         f"{cfg.remat_policy if cfg.remat else 'off'}, {cfg.dtype}; batch "
@@ -2069,11 +2097,20 @@ def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8,
         f"(set-up {time.perf_counter() - t0:.1f} s)")
 
     def micro(step):
-        return ttrain.train_step(params, opt, batches[step],
+        batch = {k: v.to(dev) for k, v in next(batches).items()}
+        return ttrain.train_step(params, opt, batch,
                                  ttrain.step_seed(tc, step), cfg)
 
-    for step in range(n_warm):
-        float(micro(step))
+    def check_loss():
+        if check_batch is None:
+            return None
+        with torch.no_grad():
+            return float(ttrain.loss_fn(
+                params, {k: v.to(dev) for k, v in check_batch.items()},
+                dataclasses.replace(cfg, dropout_rate=0.0), None))
+
+    check_before = check_loss()
+    warm_losses = [float(micro(step)) for step in range(n_warm)]
     sync(dev)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -2087,10 +2124,13 @@ def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8,
     counts = read_counts()
     if not all(np.isfinite(losses)):
         fail(f"training losses are not finite: {losses}")
+    check_after = check_loss()
     tokens = tc.batch_size * tc.seq_len
     step_ms = [t * 1e3 for t in times]
     rec = dict(
         micro_steps=n_timed, updates=opt.updates - updates0, losses=losses,
+        warm_losses=warm_losses, check_loss_before=check_before,
+        check_loss_after=check_after,
         step_ms=step_ms, median_step_ms=statistics.median(step_ms),
         tokens_per_s=tokens * n_timed / sum(times), launches=counts,
         max_memory_allocated=(torch.cuda.max_memory_allocated()
@@ -2703,6 +2743,262 @@ def phase_moe_vs_cpu(cfg, dev, n=512):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: tokenizer and data, compat, training on packed documents, the
+# bench harness and profiling
+# ---------------------------------------------------------------------------
+
+REPO_DIR = Path(__file__).resolve().parent
+BPE_VOCAB = 512
+COMPAT_TOL = 1e-4  # fp32 rung: card vs CPU, relative to the largest logit
+ROOFLINE_MAX = 1.05
+
+
+def phase_text(vocab, seq_len):
+    """A BPE learned from the repository's ``*.md`` text; the native
+    engine's ids against the Python loop's on the whole text; each file one
+    document, packed into rows of seq_len + 1."""
+    docs = [p.read_text(encoding="utf-8") for p in sorted(REPO_DIR.glob("*.md"))]
+    text = "".join(docs)
+    t0 = time.perf_counter()
+    tok = BPETokenizer.train(text, vocab)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids = tok.encode(text)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = tok.encode_plain(text)
+    plain_s = time.perf_counter() - t0
+    if not np.array_equal(ids, plain):
+        fail("the BPE engine's ids differ from the Python merge loop's")
+    if tok.decode(ids) != text:
+        fail("the BPE round trip changed the text")
+    tokens, seg = tdata.pack_documents([tok.encode(d) for d in docs], seq_len)
+    rec = dict(files=len(docs), text_bytes=len(text.encode("utf-8")),
+               vocab=tok.vocab_size, tokens=len(ids), train_s=train_s,
+               encode_s=encode_s, encode_plain_s=plain_s,
+               rows=tokens.shape[0], row_len=tokens.shape[1],
+               padded_share=float((seg < 0).float().mean()))
+    log(f"[text] BPE vocab {tok.vocab_size} learned from {len(docs)} *.md "
+        f"files ({rec['text_bytes']} bytes) in {train_s:.2f} s; {len(ids)} "
+        f"tokens, engine {encode_s:.3f} s = Python loop {plain_s:.3f} s "
+        f"(ids equal); packed into {rec['rows']} rows of {rec['row_len']} "
+        f"({100 * rec['padded_share']:.2f}% padding)")
+    return tokens, seg, rec
+
+
+def phase_compat(tokens, dev, on_card, size, heads, rows=8, timer=None):
+    """A seeded reference-layout checkpoint (fused QKV, biases, spare
+    projections) converted and evaluated on ``rows`` packed rows in fp32:
+    logits and loss against the same calls on the CPU, exact flash launch
+    counts, the forward's time, and one profiled forward."""
+    from flashattention_tpu_torch.utils import profiling
+
+    sd = reference_state_dict(**size, fused=True, bias=True, spare=True,
+                              seed=SEED)
+    ids, tgt = tokens[:rows, :-1], tokens[:rows, 1:]
+    out = {}
+    for tag, d in (("card", dev), ("cpu", "cpu")):
+        params = compat.convert_reference_state_dict(sd, heads, device=d)
+        with torch.no_grad():
+            reset_counts()
+            logits = compat.apply_reference_transformer(params, ids)
+            sync(d)
+            counts = read_counts()
+            loss = float(compat.reference_lm_loss(params, ids, tgt))
+        out[tag] = (params, logits.cpu(), loss, counts)
+    params, logits, loss, counts = out["card"]
+    _, ref, ref_loss, _ = out["cpu"]
+    if not (torch.isfinite(logits).all() and np.isfinite(loss)):
+        fail("compat logits or loss are not finite")
+    if logits.shape != (rows, ids.shape[1], size["vocab"]):
+        fail(f"compat logits of shape {tuple(logits.shape)}")
+    scale = float(ref.abs().max())
+    err = float((logits - ref).abs().max())
+    loss_err = abs(loss - ref_loss)
+    rec = dict(heads=heads, **size, rows=rows, loss=loss, perplexity=math.exp(loss),
+               loss_cpu=ref_loss, logits_max_abs_err=err, logits_scale=scale,
+               loss_abs_err=loss_err, tol=COMPAT_TOL, launches=counts)
+    log(f"[compat] reference checkpoint ({size['n_layers']} layers, d_model "
+        f"{size['d_model']}, {heads} heads, vocab {size['vocab']}, fp32) on "
+        f"{rows} packed rows: loss {loss:.6f}, perplexity "
+        f"{rec['perplexity']:.2f}; card vs CPU logits max |diff| {err:.3e} "
+        f"of max |logit| {scale:.3f}, loss |diff| {loss_err:.3e} (tol "
+        f"{COMPAT_TOL:g} relative)")
+    if err > COMPAT_TOL * scale or loss_err > COMPAT_TOL * abs(ref_loss):
+        fail(f"compat on the card differs from the CPU: logits {err:.3e}, "
+             f"loss {loss_err:.3e}")
+    want = 2 * size["n_layers"]
+    if on_card:
+        others = {k: v for k, v in counts.items() if v and k != "flash_fwd"}
+        if counts["flash_fwd"] != want or others:
+            fail(f"compat forward launched {counts}; want {want} flash_fwd on "
+                 "the FMA route and nothing else")
+        log(f"[compat] {want} flash_fwd launches a forward, all on the FMA "
+            "route (checked)")
+        fwd = lambda: compat.apply_reference_transformer(params, ids)
+        with torch.no_grad():
+            # from an idle card, host issue included: the forward issues
+            # more work than the timer's stream hold covers
+            rec["forward_ms"] = timer.wall(fwd, reps=10, warmup=2)
+            with profiling.trace(OUT_DIR / "traces") as prof:
+                fwd()
+        kernels = device_kernels(prof)
+        flash = {k: v / 1e3 for k, v in kernels.items()
+                 if "flash_fwd_kernel" in k}
+        rec["profile"] = dict(trace=str(prof.trace_path.relative_to(REPO_DIR)),
+                              kernel_ms=sum(kernels.values()) / 1e3,
+                              flash_fwd_ms=flash)
+        if not flash:
+            fail("the compat forward's trace holds no flash_fwd kernel")
+        log(f"[compat] forward {rec['forward_ms']:.3f} ms (median of 10); "
+            f"traced: {rec['profile']['kernel_ms']:.3f} ms of kernels, "
+            f"flash_fwd {sum(flash.values()):.3f} ms, trace "
+            f"{rec['profile']['trace']}")
+    return rec
+
+
+def packed_batches(tokens, seg, batch_size):
+    """Batches of packed rows, built on a host thread (``data.prefetch``)."""
+    rows = tokens.shape[0] - tokens.shape[0] % batch_size
+    return tdata.prefetch(
+        {"tokens": tokens[i:i + batch_size],
+         "segment_ids": seg[i:i + batch_size]}
+        for i in range(0, rows, batch_size))
+
+
+def phase_packed_train(cfg, tc, tokens, seg, dev, on_card, n_warm=2,
+                       n_timed=4):
+    """Phase 5's training on packed documents; the loss (no dropout) of the
+    last full batch of rows, which the micro-steps never train on, must
+    fall over them (two updates at a nonzero learning rate)."""
+    bs = tc.batch_size
+    last = tokens.shape[0] - tokens.shape[0] % bs - bs
+    if last < (n_warm + n_timed + 1) * bs:  # + phase_train's profiled step
+        fail(f"{tokens.shape[0]} packed rows leave no batch unseen by the "
+             "micro-steps")
+    held_out = {"tokens": tokens[last:last + bs],
+                "segment_ids": seg[last:last + bs]}
+    rec = phase_train(cfg, tc, dev, on_card, n_warm=n_warm, n_timed=n_timed,
+                      tag="packed_train", check_batch=held_out,
+                      batches=packed_batches(tokens, seg, bs))
+    before, after = rec["check_loss_before"], rec["check_loss_after"]
+    log(f"[packed_train] loss of rows {last}-{last + bs - 1} (never trained "
+        f"on), no dropout: {before:.6f} before, {after:.6f} after the "
+        "micro-steps")
+    if not after < before:
+        fail(f"the loss on packed documents did not fall: {before} -> {after}")
+    return rec
+
+
+# The sweep cells run at phase-2 case (b)'s shape, where flash case (b) and
+# fp8 case (b) hold B1-B3 and B4 against their plain versions.
+BENCH_SHAPE = (1, 8, 8192, 128)  # (B, H, N, D), causal
+BENCH_CELLS = {
+    # name: sweep cell (bench.sweep.cell arguments), counter that must move
+    "fa2_fwd": (("fa2", "forward"), {}, "flash_fwd_tc"),
+    "fa2_bwd": (("fa2", "backward"), {}, "flash_bwd_tc"),
+    "fa3_int8_fwd": (("fa3", "forward"), dict(fp8=True, fp8_fmt="int8"),
+                     "flash_fwd_fp8_tc"),
+}
+# a cell's events may exceed its traced kernel time by the gaps between
+# its kernels and the cold L2; a host wait inside them would add far more
+DEVICE_TIME_SLACK = 1.25
+
+
+def traced_kernel_ms(fn, tries=3) -> float | None:
+    """Summed device ms of the kernels ``fn()`` runs, from torch.profiler,
+    between two one-element marker fills; None where no try recorded the
+    whole window. CUPTI now and then misses the first milliseconds of a
+    profile, so a ~5 ms sleep kernel opens it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = torch.empty(1, device="cuda")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(5 * harness.HOLD_CYCLES)
+            marker.fill_(1.0)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            marker.fill_(2.0)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        fills = [i for i, e in enumerate(events) if "FillFunctor" in e.name]
+        # the markers: the first fill after the sleep and the last event
+        # (fn may run fills of its own in between)
+        if fills and fills[0] > 0 and "spin" in events[fills[0] - 1].name \
+                and fills[-1] == len(events) - 1 > fills[0] + 1:
+            return sum(e.time_range.elapsed_us()
+                       for e in events[fills[0] + 1:-1]) / 1e3
+    return None
+
+
+def phase_bench(dev, on_card, scaling_kw):
+    """Sweep cells in-process (records with status "ok" and a roofline share
+    in (0, 1.05] of the card's peak; each cell's time against the kernel
+    time of one traced call of the same function), ``profiling.timed`` on
+    one flash call, and ``bench.scaling`` at size 1 on one rank."""
+    from flashattention_tpu_torch.ops.api import flash_attention
+    from flashattention_tpu_torch.utils import profiling
+
+    rec = {}
+    if on_card:
+        b, h, n, d = BENCH_SHAPE
+        launches = collections.Counter()
+        for name, (args, kw, counter) in BENCH_CELLS.items():
+            ns = sweep.cell(*args, n, d, batch=b, heads=h, causal=True, **kw)
+            reset_counts()
+            r = sweep.run_config(ns)
+            counts = read_counts()
+            launches.update(counts)
+            fn, fn_args, _ = sweep.cell_call(ns)
+            fn(*fn_args)
+            traced = traced_kernel_ms(lambda: fn(*fn_args))
+            rec[name] = dict(record=r.row(), launches=counts,
+                             traced_kernel_ms=traced)
+            log(f"[bench] {name} {BENCH_SHAPE} causal: {r.status} "
+                f"{r.mean_ms:.4f} ms (pstdev {r.pstdev_ms:.4f}; one traced "
+                f"call's kernels "
+                + ("not measured" if traced is None else f"{traced:.4f} ms")
+                + f"), {r.tflops:.1f} TFLOP/s = "
+                f"{100 * r.roofline_frac:.2f}% of the card's {r.dtype} peak, "
+                f"peak memory {r.peak_mem_mb:.1f} MB; {counter} "
+                f"{counts[counter]}")
+            if r.status != "ok" or not 0 < r.roofline_frac <= ROOFLINE_MAX:
+                fail(f"bench cell {name}: {r.status} {r.error} roofline "
+                     f"{r.roofline_frac}")
+            if counts[counter] <= 0:
+                fail(f"bench cell {name} launched no {counter}")
+            if traced is not None and r.mean_ms > DEVICE_TIME_SLACK * traced:
+                fail(f"bench cell {name}: {r.mean_ms} ms against {traced} ms "
+                     "of kernels: the events held more than device work")
+        rec["launches"] = dict(launches)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        q, k, v = (torch.randn((b, h, n, d), generator=gen, device=dev,
+                               dtype=BF16) for _ in range(3))
+        rec["timed_fwd_ms"] = 1e3 * profiling.timed(
+            lambda q_, k_, v_: flash_attention(q_, k_, v_, causal=True),
+            q, k, v)
+        log(f"[bench] profiling.timed flash forward {BENCH_SHAPE} bf16 "
+            f"causal, 20 chained calls: {rec['timed_fwd_ms']:.4f} ms a call")
+    backend = "nccl" if on_card else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        tps = scaling.measure_train_tokens_per_s(make_mesh(), device=dev,
+                                                 **scaling_kw)
+    finally:
+        dist.destroy_process_group()
+    rec["scaling_size1_tokens_per_s"] = tps
+    log(f"[bench] bench.scaling at size 1 on one {backend} rank: {tps:.1f} "
+        "tokens/s")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 
 def ptxas_entries(text):
@@ -2902,6 +3198,18 @@ def main() -> int:
         report["moe_engine"] = phase_engine(mcfg, mparams, ecfg, "cpu", 8,
                                             (8, 60), 8, on_card=False)
         report["moe_vs_cpu_engine"] = phase_vs_cpu(mcfg, mparams, "cpu", 40, 8)
+        tokens, seg, report["text"] = phase_text(300, tc.seq_len)
+        report["compat"] = phase_compat(
+            tokens, "cpu", False, dict(vocab=300, d_model=64, n_layers=2,
+                                       max_len=tc.seq_len), 4)
+        report["packed_train"] = phase_packed_train(
+            dataclasses.replace(tcfg, vocab_size=300), tc, tokens, seg, "cpu",
+            False)
+        report["bench"] = phase_bench("cpu", False, dict(
+            cfg=scaling.bench_config(seq_len=32, vocab_size=97, d_model=32,
+                                     n_layers=2, n_heads=4, d_ff=64,
+                                     dtype=torch.float32),
+            batch_per_device=2, seq_len=32, steps=2))
         log("[rehearsal] control flow ran on the CPU; no device result")
         return 0
 
@@ -3033,11 +3341,33 @@ def main() -> int:
     del mparams
     torch.cuda.empty_cache()
     report["moe_train"]["phase_s"] = time.perf_counter() - t0
+
+    # Phase 12: a BPE learned from the repository's text, packed documents,
+    # a full-width reference checkpoint through compat (fp32), phase 5's
+    # training on the packed rows, the bench harness and profiling
+    t0 = time.perf_counter()
+    tokens, seg, report["text"] = phase_text(BPE_VOCAB, tc.seq_len)
+    report["compat"] = phase_compat(
+        tokens, dev, True, dict(vocab=tcfg.vocab_size, d_model=tcfg.d_model,
+                                n_layers=tcfg.n_layers,
+                                max_len=tcfg.max_seq_len),
+        tcfg.n_heads, timer=Timer(dev))
+    torch.cuda.empty_cache()
+    report["packed_train"] = phase_packed_train(tcfg, tc, tokens, seg, dev,
+                                                True)
+    log(f"[packed_train] median {report['packed_train']['median_step_ms']:.2f}"
+        f" ms a micro-step on packed documents, phase 5's synthetic stream "
+        f"{report['train']['median_step_ms']:.2f}")
+    torch.cuda.empty_cache()
+    report["bench"] = phase_bench(dev, True, {})
+    torch.cuda.empty_cache()
+    report["text"]["phase_s"] = time.perf_counter() - t0
     report["total_s"] = time.perf_counter() - t_start
     log(f"[card] phase 8 {report['spec']['phase_s']:.1f} s, phase 9 "
         f"{report['multihost']['phase_s']:.1f} s, phase 10 "
         f"{report['cp']['phase_s']:.1f} s, phase 11 "
-        f"{report['moe_train']['phase_s']:.1f} s, whole run "
+        f"{report['moe_train']['phase_s']:.1f} s, phase 12 "
+        f"{report['text']['phase_s']:.1f} s, whole run "
         f"{report['total_s']:.1f} s")
 
     counts = {**report["engine"]["launches"],
@@ -3198,6 +3528,61 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], case=r["case"]))
+    # Phase 12: compat's forward (fp32, every launch on the FMA route),
+    # numbers of case (e), its causal attention call, with case (i), the
+    # "ffn" block's non-causal call, beside them; training on packed
+    # documents, numbers of case (j), the same call (no PyTorch call
+    # computes its dropout: SDPA is a yardstick)
+    r, ri = report["kernels"]["flash_e"], report["kernels"]["flash_i"]
+    c = report["compat"]["launches"]
+    kernels.append(dict(
+        name="flash_fwd[compat]", **KERNELS["flash_fwd"],
+        launches=c["flash_fwd"], launches_tensor_core=c["flash_fwd_tc"],
+        max_abs_err=max(r["max_abs_err"][e] for e in ("o", "lse")),
+        ms=r["fwd_ms"], plain_ms=r["fwd_plain_ms"], bound_ms=r["fwd_bound_ms"],
+        bound_by=r["fwd_bound_by"], library_ms=r["library_fwd_ms"],
+        case=r["case"], ms_noncausal=ri["fwd_ms"],
+        plain_ms_noncausal=ri["fwd_plain_ms"],
+        bound_ms_noncausal=ri["fwd_bound_ms"],
+        library_ms_noncausal=ri["library_fwd_ms"], case_noncausal=ri["case"],
+        compat_logits_max_abs_err=report["compat"]["logits_max_abs_err"]))
+    r, c = report["kernels"]["flash_j"], report["packed_train"]["launches"]
+    for name, part, errs in (("flash_fwd", "fwd", ("o", "lse")),
+                             ("flash_bwd", "bwd", ("dq", "dk", "dv"))):
+        kernels.append(dict(
+            name=f"{name}[packed]", **KERNELS[name], launches=c[name],
+            launches_tensor_core=c[f"{name}_tc"],
+            max_abs_err=max(r["max_abs_err"][e] for e in errs),
+            ms=r[f"{part}_ms"], plain_ms=r[f"{part}_plain_ms"],
+            bound_ms=r[f"{part}_bound_ms"], bound_by=r[f"{part}_bound_by"],
+            library_ms=None, yardstick_ms=r[f"yardstick_{part}_ms"],
+            case=r["case"]))
+    # the sweep cells: launches of the three cells, numbers of flash case
+    # (b) and fp8 case (b), the cells' shape and calls
+    bench = report["bench"]
+    rb, c = report["kernels"]["flash_b"], bench["launches"]
+    for name, part, errs, cell in (
+            ("flash_fwd", "fwd", ("o", "lse"), "fa2_fwd"),
+            ("flash_bwd", "bwd", ("dq", "dk", "dv"), "fa2_bwd")):
+        kernels.append(dict(
+            name=f"{name}[sweep]", **KERNELS[name], launches=c[name],
+            launches_tensor_core=c[f"{name}_tc"],
+            max_abs_err=max(rb["max_abs_err"][e] for e in errs),
+            ms=rb[f"{part}_ms"], plain_ms=rb[f"{part}_plain_ms"],
+            bound_ms=rb[f"{part}_bound_ms"], bound_by=rb[f"{part}_bound_by"],
+            library_ms=rb[f"library_{part}_ms"], case=rb["case"],
+            sweep_cell=cell, sweep_ms=bench[cell]["record"]["mean_ms"]))
+    r = report["kernels"]["fp8_b"]
+    kernels.append(dict(
+        name="flash_fwd_fp8[sweep]", **KERNELS["flash_fwd_fp8"],
+        launches=c["flash_fwd_fp8"],
+        launches_tensor_core=c["flash_fwd_fp8_tc"],
+        max_abs_err=max(r["max_abs_err"].values()), ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=None,
+        yardstick_ms=r["yardstick_ms"], case=r["case"],
+        sweep_cell="fa3_int8_fwd",
+        sweep_ms=bench["fa3_int8_fwd"]["record"]["mean_ms"]))
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was launched no time on its main path")

@@ -31,7 +31,11 @@ Ported so far:
   serving engine, and the parallel layer on ``torch.distributed``
   (``parallel``): the mesh, dp x tp and expert-parallel training with
   ZeRO-1, head-parallel attention, ring, bidirectional-ring and all-gather
-  context parallelism over the flash kernels, and GPipe.
+  context parallelism over the flash kernels, and GPipe;
+- reference-checkpoint migration (``models.compat``, on the flash
+  forward kernel), the BPE tokenizer (``tokenizer``, with its native merge
+  engine) and data pipeline (``data``), profiling (``utils.profiling``)
+  and the benchmark harness (``bench``).
 """
 
 from flashattention_tpu_torch.models.train import TrainConfig, train

@@ -13,9 +13,10 @@ not include PyTorch's headers, so a build takes seconds. Pointers pass as
 ``cudaGetLastError()`` after its launch; :func:`check` raises on a nonzero
 value, so a refused launch never passes silently.
 
-The page allocator (``csrc/page_allocator.cc`` at the repository root) is
-built with g++ into the same ``_build`` directory, never through that
-directory's Makefile, whose output belongs to the JAX package.
+The page allocator (``csrc/page_allocator.cc`` at the repository root) and
+the tokenizer's BPE merge engine (``csrc/bpe_encoder.cc``) are built with
+g++ into the same ``_build`` directory, never through that directory's
+Makefile, whose output belongs to the JAX package.
 
 A library is rebuilt when its source, or a ``csrc/*.cuh`` header, is newer
 than the built file. Builds write to a temporary name and rename it into
@@ -39,6 +40,7 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 ALLOCATOR_SRC = PKG_DIR.parent / "csrc" / "page_allocator.cc"
+BPE_SRC = PKG_DIR.parent / "csrc" / "bpe_encoder.cc"
 
 KERNELS = ("paged_attention", "paged_append", "flash_fwd", "flash_bwd",
            "flash_fwd_fp8", "sparse_fwd", "sparse_bwd")
@@ -133,13 +135,25 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def build_allocator() -> Path:
-    """The allocator's shared library, built with g++ if missing or stale."""
-    out = BUILD_DIR / "libfat_allocator.so"
-    if _stale(out, ALLOCATOR_SRC):
+def _build_host(src: Path, out: Path, what: str) -> Path:
+    """``src`` (standard C++ only) built with g++ into ``out`` if missing or
+    stale; raises where g++ is missing or the build fails."""
+    if _stale(out, src):
         gxx = shutil.which("g++")
         if gxx is None:
-            raise RuntimeError("g++ not found: the allocator cannot be built")
-        _compile([gxx, "-O2", "-fPIC", "-std=c++17", "-shared"],
-                 ALLOCATOR_SRC, out)
+            raise RuntimeError(f"g++ not found: {what} cannot be built")
+        _compile([gxx, "-O2", "-fPIC", "-std=c++17", "-shared"], src, out)
     return out
+
+
+def build_allocator() -> Path:
+    """The allocator's shared library, built with g++ if missing or stale."""
+    return _build_host(ALLOCATOR_SRC, BUILD_DIR / "libfat_allocator.so",
+                       "the allocator")
+
+
+def build_bpe() -> Path:
+    """The tokenizer's BPE merge engine, built with g++ if missing or
+    stale."""
+    return _build_host(BPE_SRC, BUILD_DIR / "libfat_bpe.so",
+                       "the BPE engine")

@@ -155,10 +155,12 @@ def make_optimizer(params: Transformer, tc: TrainConfig) -> Optimizer:
 
 
 def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """(B, N) negative log-likelihoods of ``targets`` under fp32 logits
-    (B, N, V), computed over rows of V (the fast softmax layout)."""
+    """(B, N) negative log-likelihoods of ``targets`` (any integer dtype;
+    the JAX package's streams are int32) under fp32 logits (B, N, V),
+    computed over rows of V (the fast softmax layout)."""
     b, n, v = logits.shape
-    return F.cross_entropy(logits.reshape(b * n, v), targets.reshape(b * n),
+    return F.cross_entropy(logits.reshape(b * n, v),
+                           targets.reshape(b * n).long(),
                            reduction="none").view(b, n)
 
 

@@ -17,6 +17,8 @@ default here draws them from a ``torch.Generator`` seeded with ``seed``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 FP8_MAX = 448.0       # float8_e4m3fn max normal
@@ -34,8 +36,9 @@ def _device_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     """``value`` as a 0-dim float32 tensor on ``like``'s device. Dividing
     by it is an IEEE division on every device: PyTorch's CUDA kernels turn a
     division by a Python or CPU scalar into a multiply by its reciprocal,
-    which would give other scales on the card than on the CPU."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    which would give other scales on the card than on the CPU. Filled on
+    the device: no host-to-device copy, so no wait for the card."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
 def _check_fmt(fmt: str) -> None:
@@ -71,6 +74,13 @@ def rademacher_signs(d: int, seed: int = 0) -> torch.Tensor:
     return torch.randint(0, 2, (d,), generator=gen).float() * 2.0 - 1.0
 
 
+@functools.lru_cache(maxsize=None)
+def _signs_on(device: torch.device, d: int, seed: int) -> torch.Tensor:
+    """:func:`rademacher_signs` copied to ``device`` once: a copy from host
+    memory on every call would make the host wait for the card."""
+    return rademacher_signs(d, seed).to(device)
+
+
 def incoherent_process(q: torch.Tensor, k: torch.Tensor, *, seed: int = 0,
                        sign: torch.Tensor | None = None):
     """Randomized-Hadamard rotation of q and k: x' = (x * sign) H / sqrt(d)
@@ -81,8 +91,10 @@ def incoherent_process(q: torch.Tensor, k: torch.Tensor, *, seed: int = 0,
     if d & (d - 1):
         return q, k
     if sign is None:
-        sign = rademacher_signs(d, seed)
-    sign = torch.as_tensor(sign, dtype=torch.float32).to(q.device).reshape(d)
+        sign = _signs_on(q.device, d, int(seed))
+    else:
+        sign = torch.as_tensor(sign, dtype=torch.float32).to(q.device)
+    sign = sign.reshape(d)
     qr = hadamard_transform(q.float() * sign, normalize=True)
     kr = hadamard_transform(k.float() * sign, normalize=True)
     return qr.to(q.dtype), kr.to(k.dtype)

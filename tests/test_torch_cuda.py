@@ -14,6 +14,7 @@ feed to the JAX package.
 import copy
 import dataclasses
 import re
+import time
 
 import numpy as np
 import pytest
@@ -1441,3 +1442,98 @@ def test_moe_block_on_card_matches_cpu(cuda_device):
         a, r = card[name].float().cpu(), cpu[name].float()
         rel = float((a - r).norm() / r.norm())
         assert rel <= 5e-2, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused,bias", [(True, True), (False, False)])
+def test_compat_forward_on_card_matches_cpu(cuda_device, fused, bias):
+    """A reference checkpoint (fp32) through compat: logits and loss on the
+    card against the CPU at 1e-4 relative to the largest logit; two
+    flash_fwd launches a layer, all on the FMA route."""
+    from flashattention_tpu_torch.models import compat
+    from flashattention_tpu_torch.utils.testing import reference_state_dict
+
+    sd = reference_state_dict(vocab=211, d_model=128, n_layers=2, max_len=96,
+                              fused=fused, bias=bias, seed=5)
+    gen = torch.Generator().manual_seed(2)
+    ids = torch.randint(0, 211, (3, 96), generator=gen)
+    tgt = torch.randint(0, 211, (3, 96), generator=gen)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = compat.convert_reference_state_dict(sd, 2, device=dev)
+        fa.kernel_attention.fwd_launches = 0
+        fa.kernel_attention.fwd_tc_launches = 0
+        with torch.no_grad():
+            logits = compat.apply_reference_transformer(params, ids, tau=0.9)
+            loss = compat.reference_lm_loss(params, ids, tgt, tau=0.9)
+        out[str(dev)] = (logits.cpu(), float(loss),
+                         fa.kernel_attention.fwd_launches,
+                         fa.kernel_attention.fwd_tc_launches)
+    (a, la, n, n_tc), (r, lr, _, _) = out[str(cuda_device)], out["cpu"]
+    assert (n, n_tc) == (8, 0)  # two forwards, 2 x 2 layers each, FMA route
+    scale = float(r.abs().max())
+    assert float((a - r).abs().max()) <= 1e-4 * scale
+    assert abs(la - lr) <= 1e-4 * abs(lr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", [("fa2", "forward", {}),
+                                  ("fa2", "backward", {}),
+                                  ("fa3", "forward",
+                                   dict(fp8=True, fp8_fmt="int8"))])
+def test_sweep_record_on_card(cuda_device, cell):
+    """One sweep cell in-process: status ok, a roofline share of the card's
+    peak in (0, 1.05], peak memory from the allocator."""
+    from flashattention_tpu_torch.bench import sweep
+
+    algo, direction, kw = cell
+    rec = sweep.run_config(sweep.cell(algo, direction, 1024, 128, **kw))
+    assert rec.status == "ok", rec.error
+    assert rec.mean_ms > 0 and 0 < rec.roofline_frac <= 1.05
+    assert rec.mem_source == "cuda_max_allocated" and rec.peak_mem_mb > 0
+    assert rec.dtype == kw.get("fp8_fmt", "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,n", [("int8", 1024), ("fp8", 512),
+                                   ("fp8", 1024)])
+def test_fa3_fp8_call_does_not_wait_for_the_card(cuda_device, fmt, n):
+    """fa3_attention(fp8=True) issues its rotation, quantizers and kernel
+    without the host waiting for the card (sync debug mode "error"): the
+    fused 8-bit kernel (int8 at any length, e4m3 in one q block) and e4m3
+    predecoded onto the flash forward."""
+    from flashattention_tpu_torch.ops.api import fa3_attention
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((1, 2, n, 128), generator=gen, device=cuda_device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    with torch.no_grad():
+        ref, _ = fa3_attention(q, k, v, causal=True, fp8=True, fp8_fmt=fmt)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            o, _ = fa3_attention(q, k, v, causal=True, fp8=True, fp8_fmt=fmt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(o, ref)
+
+
+@pytest.mark.cuda
+def test_benchmark_call_times_device_work_only(cuda_device):
+    """benchmark_call refuses a call that makes the host wait for the card,
+    and lengthens its stream hold until it covers a call that takes longer
+    to issue than the hold: 3 ms of host time before a one-element add
+    stays out of the events."""
+    from flashattention_tpu_torch.bench.harness import benchmark_call
+
+    x = torch.ones(4, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        benchmark_call(lambda t: t.sum().item(), (x,), warmup=1, iters=2)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+    def slow_issue(t):
+        time.sleep(0.003)
+        return t + 1
+
+    ms, _, _ = benchmark_call(slow_issue, (x,), warmup=1, iters=5)
+    assert ms < 1.0
