@@ -11,9 +11,9 @@ Phases, in order; any failure exits nonzero:
 1. Identify the card (nvidia-smi name and power limit) and build every CUDA
    kernel from ``flashattention_tpu_torch/csrc`` anew (one nvcc per source,
    all at once). The tensor-core kernels (flash: forward, dK/dV, dQ at D 64
-   and 128; sparse: the same three at D 64 and 128, each with one and two
-   consumer warpgroups; the 8-bit forward at D 64 and 128 in e4m3, e5m2
-   and int8; 24 in all) must show HGMMA (wgmma) and UTMALDG (TMA) in their
+   and 128, each in bf16 and in fp32 on 3xTF32; sparse: the same three at
+   D 64 and 128, each with one and two consumer warpgroups; the 8-bit
+   forward at D 64 and 128 in e4m3, e5m2 and int8; 30 in all) must show HGMMA (wgmma) and UTMALDG (TMA) in their
    SASS (cuobjdump) and spill nothing (ptxas report of this build); the 15
    paged split kernels must show UBLKCP (1-D bulk copies) and spill
    nothing; the 20 append kernels must spill nothing, and those of 8
@@ -28,16 +28,18 @@ Phases, in order; any failure exits nonzero:
    segment ids with ALiBi, fp32, a nonzero LSE cotangent, rows with no
    visible key, fp32 with dropout, fp32 non-causal, segment ids with
    dropout), each launched once on the route it
-   must take (bf16 with D <= 128: the tensor cores; else the FMA kernels;
-   checked by the route counters). Max error against the stated tolerance
+   must take (D <= 128: the tensor cores, bf16 on bf16 wgmma and fp32 on
+   3xTF32 wgmma; else the FMA kernels; checked by the route counters). Max error against the stated tolerance
    (fp32 1e-4; bf16 flash two ulps, 1.6e-2 relative, plus 1e-3 of the
    largest value; bf16 paged 2e-2), then the kernel's, the plain version's
    and one library call's time (CUDA events, median over launches, L2
    flushed before each; SDPA is the library call where it computes the
    case's function, else a yardstick), beside the least time the card could
-   take (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16, 67
-   TFLOP/s fp32); the flash cases also time the call as issued from the
-   host, and (a), (a0), (b) the FMA kernels on the same bf16 inputs. Quantized pages:
+   take (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16, 165
+   TFLOP/s fp32 on the tensor cores (3xTF32: three TF32 products at 495),
+   67 on the FMA route); the flash cases also time the call as issued from
+   the host, and (a), (a0), (b), (e), (h), (i) the FMA kernels on the same
+   inputs, with the FMA route's bound beside them for fp32. Quantized pages:
    int8 (int8-qk and convert), e4m3 and e5m2 at the engine's decode shape,
    an e4m3 chunk, and bf16 vs int8 vs e4m3 at scripts/bench_decode.py's
    shape (paged limit; yardstick SDPA over pre-gathered dequantized K/V,
@@ -168,7 +170,8 @@ Phases, in order; any failure exits nonzero:
    groups of 512, aux 0.01): phase 5's training at 2 + 4 micro-steps (24
    forward and 12 backward flash launches a micro-step, checked; one
    profiled), one loss and its gradients at (B=1, N=512) with fp32 compute
-   on the card against the CPU (1e-3, and every token's experts equal;
+   on the card (its flash launches on the 3xTF32 kernels, checked) against
+   the CPU (1e-3, and every token's experts equal;
    the bf16 card's distance and its tokens routed elsewhere reported), the
    engine serving 32 requests (32-400-token prompts, 32 new tokens each; 12
    paged-attention and 12 append launches a decode step and chunk,
@@ -180,8 +183,8 @@ Phases, in order; any failure exits nonzero:
    widths (fused QKV, biases, spare projections, vocab 50257, seed 0)
    through ``models.compat`` in fp32 on 8 packed rows: logits and loss on
    the card against the same calls on the CPU (1e-4 of the largest logit),
-   exactly 24 flash_fwd launches a forward on the FMA route and nothing
-   else, loss and perplexity, the forward's time, one forward traced by
+   exactly 24 flash_fwd launches a forward, all on the 3xTF32 tensor-core
+   route, and nothing else, loss and perplexity, the forward's time, one forward traced by
    ``utils.profiling.trace`` (its Chrome trace must hold flash_fwd
    kernels). Phase 5's training on the packed rows through
    ``data.prefetch`` (2 + 4 micro-steps, 24 + 12 flash launches a
@@ -202,6 +205,8 @@ verify cases) and the rows of phases 10-11's paths
 per-rank times, ``[sharded_zero1]``, ``[pipelined]``, ``[moe]`` with the
 numbers of phase 2's matching cases) and of phase 12's
 (``flash_fwd[compat]`` with the numbers of phase-2 cases (e) and (i),
+``flash_fwd[fp32]`` with compat's launches and ``flash_bwd[fp32]`` with
+phase 11's fp32 card check's, numbers of cases (e) and (h),
 ``flash_fwd[packed]`` and ``flash_bwd[packed]`` with case (j),
 ``flash_fwd[sweep]`` and ``flash_bwd[sweep]`` with case (b),
 ``flash_fwd_fp8[sweep]`` with fp8 case (b)).
@@ -277,6 +282,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor rate
 INT8_FP8_OPS_PER_S = 1979e12  # H100 SXM dense fp8 (TFLOP/s) and int8 (TOPS)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+# fp32-exact products on the tensor cores: 3xTF32 is three TF32 products
+# (495 TFLOP/s dense) per fp32 product, the rate of the fp32 flash route
+TF32X3_FLOPS_PER_S = 495e12 / 3
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 SEED = 0
 
@@ -703,10 +711,10 @@ def append_case(timer, gen, dev, fmt, kind, *, h=12, d=64, page=16,
 
 
 BF16, FP32 = torch.bfloat16, torch.float32
-# Cases whose bf16 D <= 128 inputs are also timed on the FMA route (the
-# first kernels, which fp32 and D > 128 keep): the redesign's before/after
-# on one card in one call.
-FMA_COMPARE = ("a", "a0", "b")
+# Cases whose D <= 128 inputs are also timed on the FMA route (the first
+# kernels, which D > 128 keeps): each redesign's before/after on one card in
+# one call (bf16: (a), (a0), (b); fp32 on 3xTF32: (e), (h), (i)).
+FMA_COMPARE = ("a", "a0", "b", "e", "h", "i")
 TRAIN_SHAPE = (8, 12, 12, 512, 512, 64)  # B, H, H_kv, N_q, N_k, D
 # key: (label, shape, dtype, kernel_attention kwargs, extras)
 FLASH_CASES = {
@@ -759,7 +767,7 @@ def _flash_inputs(gen, dev, shape, dtype, extras):
     return q, k, v, do, dlse, more
 
 
-def flash_bound(q, k, opts, dlse):
+def flash_bound(q, k, opts, dlse, peak=None):
     """Least times (ms) of the forward and the backward for the pairs these
     inputs keep: 4·D (forward) and 10·D (backward) flops per visible
     (head, row, key), against each input read once and each output written
@@ -769,20 +777,31 @@ def flash_bound(q, k, opts, dlse):
     vis = fa.visible_mask(opts, n_q, n_k, q.device)
     pairs = (b * h * n_q * n_k if vis is None
              else int(vis.expand(b, 1, n_q, n_k).sum()) * h)
-    return attention_bounds(q, k, pairs, dlse), pairs / (b * h * n_q * n_k)
+    return (attention_bounds(q, k, pairs, dlse, peak),
+            pairs / (b * h * n_q * n_k))
 
 
-def attention_bounds(q, k, pairs, dlse):
+def flash_peak(dtype, d):
+    """The operations rate of the flash route a call takes: bf16 wgmma,
+    3xTF32 wgmma for fp32, CUDA-core FMAs above D = 128."""
+    if not fa._tensor_core_route(dtype, d):
+        return FP32_FLOPS_PER_S
+    return BF16_FLOPS_PER_S if dtype == torch.bfloat16 else TF32X3_FLOPS_PER_S
+
+
+def attention_bounds(q, k, pairs, dlse, peak=None):
     """{"fwd"|"bwd": (least ms, what bounds it)} for ``pairs`` visible
-    (head, row, key) triples: 4·D and 10·D flops per pair against q, k, v
-    read and o, the LSE written once (forward), and q, k, v, o, do, the
-    LSE (and its cotangent) read and dq, dk, dv written once (backward)."""
+    (head, row, key) triples: 4·D and 10·D flops per pair at ``peak``
+    (default: the rate of the route the call takes) against q, k, v read
+    and o, the LSE written once (forward), and q, k, v, o, do, the LSE (and
+    its cotangent) read and dq, dk, dv written once (backward)."""
     b, h, n_q, d = q.shape
     el = q.element_size()
     qo = q.numel() * el                      # q, o, do, dq each
     kv = k.numel() * el                      # k, v, dk, dv each
     rows = b * h * n_q * 4                   # lse, dlse
-    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    if peak is None:
+        peak = flash_peak(q.dtype, d)
     out = {}
     for name, nbytes, flops in (
         ("fwd", 2 * qo + 2 * kv + rows, 4 * pairs * d),
@@ -797,7 +816,7 @@ def attention_bounds(q, k, pairs, dlse):
 
 def fma_route(q, k, v, o, lse, do, dlse, opts):
     """(forward, backward) callables that launch the FMA-route entry points
-    (``fat_flash_fwd`` / ``fat_flash_bwd``) on bf16 inputs the wrapper would
+    (``fat_flash_fwd`` / ``fat_flash_bwd``) on inputs the wrapper would
     send to the tensor cores: the first kernels' time on the same card."""
     fwd = _build.load_kernel("flash_fwd", fa._declare_fwd)
     bwd = _build.load_kernel("flash_bwd", fa._declare_bwd)
@@ -844,7 +863,8 @@ def flash_case(timer, gen, dev, key):
             c["flash_bwd_tc"]) != (1, 1, int(tc), int(tc)):
         fail(f"flash {key}: launches {c}; want the "
              f"{'tensor-core' if tc else 'FMA'} route once each way")
-    route = "tensor cores (wgmma + TMA)" if tc else "FMA"
+    route = ("FMA" if not tc else "tensor cores (wgmma + TMA)"
+             if dtype == torch.bfloat16 else "tensor cores (3xTF32 wgmma + TMA)")
 
     def plain_bwd():
         di = (o_ref.float() * do.float()).sum(-1)
@@ -872,6 +892,10 @@ def flash_case(timer, gen, dev, key):
         fma_fwd, fma_bwd = fma_route(q, k, v, o_ref, lse_ref, do, dlse, opts)
         t["fwd_fma_ms"] = timer(fma_fwd, reps=10 if big else 30)
         t["bwd_fma_ms"] = timer(fma_bwd, reps=10 if big else 30)
+        if dtype == torch.float32:  # the first kernels' bound, at 67 TFLOP/s
+            fma_bounds, _ = flash_bound(q, k, opts, dlse, FP32_FLOPS_PER_S)
+            t["fwd_fma_bound_ms"] = fma_bounds["fwd"][0]
+            t["bwd_fma_bound_ms"] = fma_bounds["bwd"][0]
     # SDPA(is_causal=causal), no dropout: the library call where the case
     # has no other feature (the same function), else a yardstick.
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -899,6 +923,9 @@ def flash_case(timer, gen, dev, key):
         + f" ({tol_text(dtype)}; lse {LSE_TOL:g} abs+rel)")
     fma = (f"; FMA route fwd {t['fwd_fma_ms']:.4f} bwd {t['bwd_fma_ms']:.4f}"
            if "fwd_fma_ms" in t else "")
+    if "fwd_fma_bound_ms" in t:
+        fma += (f" (its bound at {FP32_FLOPS_PER_S / 1e12:g} TFLOP/s: fwd "
+                f"{t['fwd_fma_bound_ms']:.4f} bwd {t['bwd_fma_bound_ms']:.4f})")
     log(f"[kernel]   fwd {t['fwd_ms']:.4f} ms (issued from the host "
         f"{t['fwd_wall_ms']:.4f}, plain {t['fwd_plain_ms']:.4f}, SDPA "
         f"{sdpa_fwd:.4f}, bound {bounds['fwd'][0]:.4f} {bounds['fwd'][1]})  "
@@ -1073,7 +1100,8 @@ def sparse_case(timer, gen, dev, key):
         leaves, do))
     del o_lib, leaves
     pairs = int(vis.sum()) * shape[0] * shape[1]
-    bounds = attention_bounds(q, k, pairs, dlse)
+    bounds = attention_bounds(q, k, pairs, dlse, BF16_FLOPS_PER_S
+                              if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
     rec = dict(case=label, shape=shape, dtype=str(dtype).replace("torch.", ""),
                blocks=(bq, bk), route=route, active_tiles=int(active.sum()),
                visible_pairs=pairs, max_abs_err=err,
@@ -2694,8 +2722,9 @@ def phase_moe_vs_cpu(cfg, dev, n=512):
     """One MoE training loss and its gradients (B=1, dropout 0, capacity
     routing) on the card with fp32 compute against the CPU in fp32: loss
     and gradients within 1e-3 and the same experts for every token of every
-    layer (gated); the bf16 card's distance and its tokens routed to another
-    expert set (reported)."""
+    layer (gated), every flash launch of the fp32 card run on the 3xTF32
+    tensor-core kernels (gated on the card); the bf16 card's distance and
+    its tokens routed to another expert set (reported)."""
     cfg = dataclasses.replace(cfg, dropout_rate=0.0)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     ref = init_params(cfg32, seed=SEED + 7, device="cpu")
@@ -2706,17 +2735,21 @@ def phase_moe_vs_cpu(cfg, dev, n=512):
                            ("card_bf16", cfg, dev)):
         params = copy.deepcopy(ref).to(device)
         patch, calls = _record_routes()
+        reset_counts()
         with patch:
             loss = ttrain.loss_fn(params, {"tokens": toks.to(device)}, c, None)
             loss.backward()
+        sync(device)
+        counts = read_counts()
         out[tag] = (loss.item(), {k: p.grad.float().cpu()
                                   for k, p in params.named_parameters()},
-                    calls[:cfg.n_layers])  # the forward's; then the recompute
+                    calls[:cfg.n_layers],  # the forward's; then the recompute
+                    counts)
         del params
-    lr, gr, er = out["cpu_fp32"]
+    lr, gr, er, _ = out["cpu_fp32"]
     rec = dict(loss_cpu=lr, tol=MOE_TOL)
     for tag in ("card_fp32", "card_bf16"):
-        lc, gc, ec = out[tag]
+        lc, gc, ec, counts = out[tag]
         sets = [(torch.sort(a, -1).values != torch.sort(b, -1).values).any(-1)
                 for a, b in zip(ec, er)]
         moved = [int(x.sum()) for x in sets]
@@ -2724,7 +2757,7 @@ def phase_moe_vs_cpu(cfg, dev, n=512):
         den = sum(float(gr[k].square().sum()) for k in gr)
         rel = (num / den) ** 0.5
         rec[tag] = dict(loss=lc, loss_abs_err=abs(lc - lr), grad_rel_l2=rel,
-                        tokens_other_experts=moved,
+                        tokens_other_experts=moved, launches=counts,
                         first_choice_differs=sum(int((a[..., 0] != b[..., 0])
                                                      .sum())
                                                  for a, b in zip(ec, er)))
@@ -2732,6 +2765,14 @@ def phase_moe_vs_cpu(cfg, dev, n=512):
             f"{abs(lc - lr):.3e}), gradient relative L2 {rel:.3e}; tokens with"
             f" another expert set, per layer: {moved} of {n}")
         if tag == "card_fp32":
+            flash = [counts[k] for k in ("flash_fwd", "flash_fwd_tc",
+                                         "flash_bwd", "flash_bwd_tc")]
+            if torch.device(dev).type == "cuda" and (
+                    flash[0] != flash[1] or flash[2] != flash[3]
+                    or not flash[0] or not flash[2]):
+                fail(f"MoE fp32 card run: flash launches {flash} (fwd, fwd "
+                     "tensor-core, bwd, bwd tensor-core); want all on the "
+                     "3xTF32 kernels")
             if not np.isfinite(lc) or abs(lc - lr) > MOE_TOL * (1 + abs(lr)):
                 fail(f"MoE loss on the card (fp32) differs by {abs(lc - lr):.3e}")
             if not rel <= MOE_TOL:
@@ -2829,12 +2870,14 @@ def phase_compat(tokens, dev, on_card, size, heads, rows=8, timer=None):
              f"loss {loss_err:.3e}")
     want = 2 * size["n_layers"]
     if on_card:
-        others = {k: v for k, v in counts.items() if v and k != "flash_fwd"}
-        if counts["flash_fwd"] != want or others:
+        others = {k: v for k, v in counts.items()
+                  if v and k not in ("flash_fwd", "flash_fwd_tc")}
+        if counts["flash_fwd"] != want or counts["flash_fwd_tc"] != want \
+                or others:
             fail(f"compat forward launched {counts}; want {want} flash_fwd on "
-                 "the FMA route and nothing else")
-        log(f"[compat] {want} flash_fwd launches a forward, all on the FMA "
-            "route (checked)")
+                 "the 3xTF32 tensor-core route and nothing else")
+        log(f"[compat] {want} flash_fwd launches a forward, all on the 3xTF32 "
+            "tensor-core route (checked)")
         fwd = lambda: compat.apply_reference_transformer(params, ids)
         with torch.no_grad():
             # from an idle card, host issue included: the forward issues
@@ -2844,7 +2887,7 @@ def phase_compat(tokens, dev, on_card, size, heads, rows=8, timer=None):
                 fwd()
         kernels = device_kernels(prof)
         flash = {k: v / 1e3 for k, v in kernels.items()
-                 if "flash_fwd_kernel" in k}
+                 if "flash_fwd_f32_sm90_kernel" in k}
         rec["profile"] = dict(trace=str(prof.trace_path.relative_to(REPO_DIR)),
                               kernel_ms=sum(kernels.values()) / 1e3,
                               flash_fwd_ms=flash)
@@ -3020,10 +3063,11 @@ def ptxas_entries(text):
     return out
 
 
-# Tensor-core kernels per library: forward at D 64 and 128; dK/dV and dQ at
-# D 64 and 128; the sparse ones each with one and two consumer warpgroups;
-# the 8-bit forward at D 64 and 128 for e4m3, e5m2 and int8.
-SM90_KERNELS = {"flash_fwd": 2, "flash_bwd": 4, "sparse_fwd": 4,
+# Tensor-core kernels per library: forward at D 64 and 128, dK/dV and dQ at
+# D 64 and 128, each in bf16 and in fp32 (3xTF32); the sparse ones each
+# with one and two consumer warpgroups; the 8-bit forward at D 64 and 128
+# for e4m3, e5m2 and int8.
+SM90_KERNELS = {"flash_fwd": 4, "flash_bwd": 8, "sparse_fwd": 4,
                 "sparse_bwd": 8, "flash_fwd_fp8": 6}
 # The paged split kernels: bf16, int8 (convert and "qk"), e4m3 and e5m2
 # pages, each at 1, 2 and 4 rows a row set.
@@ -3528,11 +3572,11 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], case=r["case"]))
-    # Phase 12: compat's forward (fp32, every launch on the FMA route),
-    # numbers of case (e), its causal attention call, with case (i), the
-    # "ffn" block's non-causal call, beside them; training on packed
-    # documents, numbers of case (j), the same call (no PyTorch call
-    # computes its dropout: SDPA is a yardstick)
+    # Phase 12: compat's forward (fp32, every launch on the 3xTF32
+    # tensor-core route), numbers of case (e), its causal attention call,
+    # with case (i), the "ffn" block's non-causal call, beside them; the
+    # FMA route's time on the same inputs (fma_ms) and its bound at 67
+    # TFLOP/s (fma_bound_ms) beside each
     r, ri = report["kernels"]["flash_e"], report["kernels"]["flash_i"]
     c = report["compat"]["launches"]
     kernels.append(dict(
@@ -3541,11 +3585,43 @@ def main() -> int:
         max_abs_err=max(r["max_abs_err"][e] for e in ("o", "lse")),
         ms=r["fwd_ms"], plain_ms=r["fwd_plain_ms"], bound_ms=r["fwd_bound_ms"],
         bound_by=r["fwd_bound_by"], library_ms=r["library_fwd_ms"],
-        case=r["case"], ms_noncausal=ri["fwd_ms"],
+        case=r["case"], fma_ms=r["fwd_fma_ms"],
+        fma_bound_ms=r["fwd_fma_bound_ms"], ms_noncausal=ri["fwd_ms"],
         plain_ms_noncausal=ri["fwd_plain_ms"],
         bound_ms_noncausal=ri["fwd_bound_ms"],
-        library_ms_noncausal=ri["library_fwd_ms"], case_noncausal=ri["case"],
+        library_ms_noncausal=ri["library_fwd_ms"],
+        fma_ms_noncausal=ri["fwd_fma_ms"],
+        fma_bound_ms_noncausal=ri["fwd_fma_bound_ms"],
+        case_noncausal=ri["case"],
         compat_logits_max_abs_err=report["compat"]["logits_max_abs_err"]))
+    # The fp32 route (3xTF32 wgmma) each way: the forward's launches of the
+    # compat forward, the backward's of phase 11's fp32 card check (its
+    # forward's launches beside them); numbers of case (e) with the library
+    # call (SDPA, the same function) and case (h), the training call with
+    # dropout (SDPA a yardstick), each beside the FMA route on its inputs
+    rh = report["kernels"]["flash_h"]
+    moe32 = report["moe_vs_cpu"]["card_fp32"]["launches"]
+    for name, part, errs, c in (
+            ("flash_fwd", "fwd", ("o", "lse"), report["compat"]["launches"]),
+            ("flash_bwd", "bwd", ("dq", "dk", "dv"), moe32)):
+        kernels.append(dict(
+            name=f"{name}[fp32]", **KERNELS[name], launches=c[name],
+            launches_tensor_core=c[f"{name}_tc"],
+            max_abs_err=max(max(x["max_abs_err"][e] for e in errs)
+                            for x in (r, rh)),
+            ms=r[f"{part}_ms"], plain_ms=r[f"{part}_plain_ms"],
+            bound_ms=r[f"{part}_bound_ms"], bound_by=r[f"{part}_bound_by"],
+            library_ms=r[f"library_{part}_ms"], case=r["case"],
+            fma_ms=r[f"{part}_fma_ms"], fma_bound_ms=r[f"{part}_fma_bound_ms"],
+            wall_ms=r[f"{part}_wall_ms"], ms_h=rh[f"{part}_ms"],
+            plain_ms_h=rh[f"{part}_plain_ms"],
+            bound_ms_h=rh[f"{part}_bound_ms"],
+            yardstick_ms_h=rh[f"yardstick_{part}_ms"],
+            fma_ms_h=rh[f"{part}_fma_ms"], case_h=rh["case"],
+            **({"launches_fwd_moe_fp32": moe32["flash_fwd"]}
+               if name == "flash_bwd" else {})))
+    # Training on packed documents, numbers of case (j), the same call (no
+    # PyTorch call computes its dropout: SDPA is a yardstick)
     r, c = report["kernels"]["flash_j"], report["packed_train"]["launches"]
     for name, part, errs in (("flash_fwd", "fwd", ("o", "lse")),
                              ("flash_bwd", "bwd", ("dq", "dk", "dv"))):

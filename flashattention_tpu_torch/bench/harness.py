@@ -30,10 +30,12 @@ import torch
 # Dense peaks of the cards the port is measured on, TFLOP/s (TOPS for
 # int8), by device name (``torch.cuda.get_device_name``).
 CARD_PEAKS = {
-    # H100 SXM: 989 bf16 tensor, 1979 fp8/int8 tensor, 67 fp32 (no tensor
-    # cores; the FMA kernels' rate)
+    # H100 SXM: 989 bf16 tensor, 1979 fp8/int8 tensor; fp32 165, the
+    # fp32-exact tensor-core rate the flash kernels run fp32 at (3xTF32:
+    # three TF32 products at 495 a product), above the CUDA cores' 67, so
+    # no fp32 cell can read a roofline share above 1
     "NVIDIA H100 80GB HBM3": {"bfloat16": 989.0, "fp8": 1979.0,
-                              "int8": 1979.0, "float32": 67.0},
+                              "int8": 1979.0, "float32": 165.0},
 }
 # the record's dtype names -> the peak they run at
 _PEAK_OF = {"bf16": "bfloat16", "bfloat16": "bfloat16", "fp32": "float32",

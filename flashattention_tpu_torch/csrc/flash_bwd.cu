@@ -23,10 +23,11 @@
 //
 // What bounds it on this card: 10·B·H·Nq·Nk·D flops (half of that causal)
 // against q, k, v, o, do and the three gradients read or written once, so
-// the tensor-core rate. Both kernels recompute the scores (7 products per
-// element instead of 5), the price of having no atomics.
+// the tensor-core rate (989 TFLOP/s bf16; 165 fp32 on 3xTF32). Both
+// kernels recompute the scores (7 products per element instead of 5), the
+// price of having no atomics.
 //
-// Two routes, chosen by the caller (ops/flash_attn.py):
+// Three routes, chosen by the caller (ops/flash_attn.py):
 //
 //   fat_flash_bwd_sm90 (bf16, D <= 128): every product on the tensor cores
 //     (wgmma, bf16 in, fp32 accumulate), tiles by TMA into mbarrier-guarded
@@ -42,11 +43,15 @@
 //     dq: 128 query rows per CTA (64 per consumer), q and dO resident, K and
 //       V tiles of 64 keys streamed over the forward's walk: S = q_s·Kᵀ,
 //       dP = dO·Vᵀ, dQ += round(ds)·K (K MN-major), scaled at the store.
-//   fat_flash_bwd (fp32, and bf16 with D > 128): the first version below,
-//     fp32 FMAs on the CUDA cores (for the reasons given in flash_fwd.cu).
+//   fat_flash_bwd_sm90_f32 (fp32, D <= 128): the same two kernels with
+//     every product in 3xTF32 (tf32_sm90.cuh; the tiles and stages are set
+//     out where the kernels are defined, below).
+//   fat_flash_bwd (D > 128): the first version below, fp32 FMAs on the
+//     CUDA cores (for the reason given in flash_fwd.cu).
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
+#include "tf32_sm90.cuh"
 
 namespace {
 
@@ -835,6 +840,485 @@ cudaError_t launch_bwd_sm90(const AttnArgs& a, const void* dout,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 tensor-core route (3xTF32, D <= 128)
+// ---------------------------------------------------------------------------
+//
+// The bf16 route's two kernels with every product in 3xTF32. Operands that
+// stay resident (K and V in dkv; q_s and dO in dq) land by TMA and are split
+// in place (big) and into a small part once; streamed tiles land in their
+// stage and warps 1-3 of the producer warpgroup transpose (for the products
+// that read them MN-major) and split them, then release the stage. Shared
+// memory holds ~225 KB in each instantiation:
+//   dkv: 64 keys per consumer (NC of them), K and V in two parts resident
+//     (128 KB); q and dO tiles of 16 rows in two parts, and q_sᵀ and dOᵀ in
+//     two parts, padded to 32 columns, per stage (48 KB at D = 64: NC = 2,
+//     two stages; 96 KB at D = 128: NC = 1, one stage).
+//   dq: 64 query rows per consumer, q_s and dO in two parts resident (128
+//     KB); K and V tiles of 32 keys in two parts and Kᵀ in two parts per
+//     stage (48 KB at D = 64: NC = 2, two stages; 96 KB at D = 128: NC = 1,
+//     one stage).
+
+template <int DP>
+struct DkvF32Cfg {
+  static constexpr int NC = DP <= 64 ? 2 : 1;
+  static constexpr int KEYS = 64 * NC;          // keys per CTA
+  static constexpr int R = 16;                  // query rows per step
+  static constexpr int STAGES = DP <= 64 ? 2 : 1;
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int KV_BYTES = KEYS * DP * 4;  // K or V, one part
+  static constexpr int T_BYTES = R * DP * 4;      // q or dO, one part
+  static constexpr int TT_BYTES = transposed_bytes<R, DP>();  // q_sᵀ, dOᵀ
+  // stage: q big, q small, dO big, dO small, q_sᵀ b, s, dOᵀ b, s
+  static constexpr int STAGE_BYTES = 4 * T_BYTES + 4 * TT_BYTES;
+  static constexpr int BARS = 2 + 3 * STAGES;
+  static constexpr size_t SMEM = 1024 + 4 * KV_BYTES + STAGES * STAGE_BYTES +
+                                 2 * STAGES * R * 4 + 8 * BARS;
+};
+
+template <int DP>
+struct DqF32Cfg {
+  static constexpr int NC = DP <= 64 ? 2 : 1;
+  static constexpr int ROWS = 64 * NC;  // query rows per CTA
+  static constexpr int KEYS = 32;       // keys per step
+  static constexpr int STAGES = DP <= 64 ? 2 : 1;
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int Q_BYTES = ROWS * DP * 4;  // q_s or dO, one part
+  static constexpr int T_BYTES = KEYS * DP * 4;  // K, V or Kᵀ, one part
+  static_assert(transposed_bytes<KEYS, DP>() == T_BYTES, "Kᵀ tile size");
+  // stage: K big, K small, V big, V small, Kᵀ big, Kᵀ small
+  static constexpr int STAGE_BYTES = 6 * T_BYTES;
+  static constexpr int BARS = 2 + 3 * STAGES;
+  static constexpr size_t SMEM =
+      1024 + 4 * Q_BYTES + STAGES * STAGE_BYTES + 8 * BARS;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(DkvF32Cfg<DP>::THREADS, 1)
+flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              AttnArgs a, const float* __restrict__ lse,
+                              const float* __restrict__ di,
+                              float* __restrict__ dk, float* __restrict__ dv) {
+  using Cfg = DkvF32Cfg<DP>;
+  constexpr int NC = Cfg::NC, KEYS = Cfg::KEYS, R = Cfg::R;
+  constexpr int STAGES = Cfg::STAGES, KVB = Cfg::KV_BYTES;
+  constexpr int TB = Cfg::T_BYTES, TT = Cfg::TT_BYTES;
+  extern __shared__ char smem_raw[];
+  char* kb = align_1024(smem_raw);  // [DP/32][KEYS][32] fp32
+  char* ks = kb + KVB;
+  char* vb = ks + KVB;
+  char* vs = vb + KVB;
+  char* stage0 = vs + KVB;
+  float* lse_s = reinterpret_cast<float*>(stage0 + STAGES * Cfg::STAGE_BYTES);
+  float* di_s = lse_s + STAGES * R;
+  uint64_t* kv_landed = reinterpret_cast<uint64_t*>(di_s + STAGES * R);
+  uint64_t* kv_ready = kv_landed + 1;
+  uint64_t* landed = kv_ready + 1;
+  uint64_t* ready = landed + STAGES;
+  uint64_t* empty = ready + STAGES;
+
+  const int b = blockIdx.z, hk = blockIdx.y, c0 = blockIdx.x * KEYS;
+  const int G = a.H / a.H_kv;
+  // Query rows that can see some key of [c0, c0 + KEYS).
+  const int c_last = min(c0 + KEYS, a.Nk) - 1;
+  int r_begin = 0, r_end = a.Nq;
+  if (a.causal) {
+    r_begin = max(0, c0 - a.offset);
+    if (a.window > 0 && !(a.sinks > 0 && c0 < a.sinks)) {
+      r_end = min(a.Nq, c_last - a.offset + a.window);
+    }
+  }
+  const int t0 = (r_begin / R) * R;
+  const int n_rt = r_end > t0 ? (r_end - t0 + R - 1) / R : 0;
+  const int n_it = G * n_rt;  // (query head, row tile) steps
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_landed, 1);
+    mbar_init(kv_ready, kPrepThreads);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&landed[s], 1);
+      mbar_init(&ready[s], kPrepThreads);
+      mbar_init(&empty[s], 128 * NC);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer
+    if constexpr (NC == 2) reg_dealloc<kProducerRegs32>();
+    if (threadIdx.x == 0 && n_it > 0) {
+      mbar_expect_tx(kv_landed, 2 * KVB);
+      tma_tile32<KEYS, DP>(kb, &tk, kv_landed, c0, b * a.H_kv + hk);
+      tma_tile32<KEYS, DP>(vb, &tv, kv_landed, c0, b * a.H_kv + hk);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % STAGES;
+        char* st = stage0 + s * Cfg::STAGE_BYTES;
+        const int plane = b * a.H + hk * G + it / n_rt;
+        const int r0 = t0 + (it % n_rt) * R;
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&landed[s], 2 * TB);
+        tma_tile32<R, DP>(st, &tq, &landed[s], r0, plane);
+        tma_tile32<R, DP>(st + 2 * TB, &tdo, &landed[s], r0, plane);
+      }
+    } else if (threadIdx.x >= 32 && n_it > 0) {
+      const int tid = threadIdx.x - 32;
+      mbar_wait(kv_landed, 0);
+      split_tile(kb, kb, ks, KVB, 1.f, tid, kPrepThreads);
+      split_tile(vb, vb, vs, KVB, 1.f, tid, kPrepThreads);
+      fence_proxy_async();
+      mbar_arrive(kv_ready);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % STAGES;
+        char* st = stage0 + s * Cfg::STAGE_BYTES;
+        char* tt = st + 4 * TB;  // q_sᵀ b, s, dOᵀ b, s
+        const int plane = b * a.H + hk * G + it / n_rt;
+        const int r0 = t0 + (it % n_rt) * R;
+        // The stage is free once its tiles have landed (thread 0 waited
+        // for the consumers before loading them).
+        mbar_wait(&landed[s], (it / STAGES) & 1);
+        for (int j = tid; j < R; j += kPrepThreads) {
+          const int row = r0 + j;
+          const size_t at = (size_t)plane * a.Nq + row;
+          lse_s[s * R + j] = row < a.Nq ? lse[at] : 0.f;
+          di_s[s * R + j] = row < a.Nq ? di[at] : 0.f;
+        }
+        // q_s = q * scale (fp32) and dO, transposed from the landed tiles,
+        // then (once every thread has read them) split in place.
+        transpose_split<R, DP>(st, tt, tt + TT, a.scale, tid, kPrepThreads);
+        transpose_split<R, DP>(st + 2 * TB, tt + 2 * TT, tt + 3 * TT, 1.f,
+                               tid, kPrepThreads);
+        named_sync(1, kPrepThreads);
+        split_tile(st, st, st + TB, TB, a.scale, tid, kPrepThreads);
+        split_tile(st + 2 * TB, st + 2 * TB, st + 3 * TB, TB, 1.f, tid,
+                   kPrepThreads);
+        fence_proxy_async();
+        mbar_arrive(&ready[s]);
+      }
+    }
+  } else {  // consumers: 64 keys each
+    if constexpr (NC == 2) reg_alloc<kConsumerRegs32>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int key0 = c0 + 64 * cw;
+    const bool post = a.slopes != nullptr || a.softcap > 0.f;
+    float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    if (n_it > 0) mbar_wait(kv_ready, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % STAGES;
+      const int h = hk * G + it / n_rt;
+      const int r0 = t0 + (it % n_rt) * R;
+      const uint32_t bh = (uint32_t)(b * a.H + h);
+      const char* st = stage0 + s * Cfg::STAGE_BYTES;
+      const char* tt = st + 4 * TB;
+      const float* ls = lse_s + s * R;
+      const float* di_t = di_s + s * R;
+
+      // Sᵀ = K·q_sᵀ and dPᵀ = V·dOᵀ (64 keys x R rows each).
+      float sct[R / 2], dpt[R / 2];
+      mbar_wait(&ready[s], (it / STAGES) & 1);
+      wgmma_fence();
+      mma3_ss<KEYS, R, DP / 8>(sct, kb, ks, 64 * cw, st, st + TB);
+      mma3_ss<KEYS, R, DP / 8>(dpt, vb, vs, 64 * cw, st + 2 * TB,
+                               st + 3 * TB);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sct);
+      fence_regs(dpt);
+
+      const int cls = tile_class(a, r0, r0 + R - 1, key0, key0 + 63);
+      uint32_t seg[2] = {0u, 0u};  // rows: keys; columns: query rows
+      if (cls == kSegments) {
+        segment_bits<R>(a.kv_ids + (size_t)b * a.Nk, key0, a.Nk,
+                        a.q_ids + (size_t)b * a.Nq, r0, a.Nq, t, seg);
+      }
+      dispatch_tile(cls, post, [&](auto c, auto pp) {
+#pragma unroll
+        for (int i = 0; i < R / 2; ++i) {
+          const int key = key0 + acc_row(t, i), j = acc_col(t, i);
+          const int row = r0 + j;
+          float pv = 0.f, ds = 0.f;
+          if (tile_visible<decltype(c)::value>(a, b, row, key, seg, i)) {
+            float dcap;
+            const float x = tile_score<decltype(pp)::value>(
+                a, h, row, key, sct[i], &dcap);
+            const float p = expf(x - ls[j]);
+            float dp = dpt[i];
+            pv = p;
+            if (a.dropout) {
+              const bool kept = keep(a, bh, row, key);
+              pv = kept ? p * a.drop_inv : 0.f;
+              dp = kept ? dp * a.drop_inv : 0.f;
+            }
+            ds = p * (dp - di_t[j]);
+            ds = ds * dcap;
+          }
+          sct[i] = pv;
+          dpt[i] = ds;
+        }
+      });
+      uint32_t pb[R / 8][4], ps[R / 8][4], db[R / 8][4], dsm[R / 8][4];
+      acc_to_tf32_a<R>(sct, pb, ps);
+      acc_to_tf32_a<R>(dpt, db, dsm);
+
+      // dV += p_vᵀ·dO and dK += dsᵀ·q_s, against dOᵀ and q_sᵀ.
+      wgmma_fence();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      mma3_rs<DP, R / 8>(dv_acc, pb, ps, tt + 2 * TT, tt + 3 * TT);
+      mma3_rs<DP, R / 8>(dk_acc, db, dsm, tt, tt + TT);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      keep_regs(pb);
+      keep_regs(ps);
+      keep_regs(db);
+      keep_regs(dsm);
+      mbar_arrive(&empty[s]);
+    }
+
+    // Keys no row sees write zeros.
+    const size_t kv_off = ((size_t)b * a.H_kv + hk) * a.Nk;
+#pragma unroll
+    for (int i = 0; i < DP / 2; i += 2) {
+      const int key = key0 + acc_row(t, i), col = acc_col(t, i);
+      if (key < a.Nk && col < a.D) {
+        const size_t at = (kv_off + key) * a.D + col;
+        *reinterpret_cast<float2*>(dk + at) =
+            make_float2(dk_acc[i], dk_acc[i + 1]);
+        *reinterpret_cast<float2*>(dv + at) =
+            make_float2(dv_acc[i], dv_acc[i + 1]);
+      }
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(DqF32Cfg<DP>::THREADS, 1)
+flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             AttnArgs a, const float* __restrict__ lse,
+                             const float* __restrict__ di,
+                             float* __restrict__ dq) {
+  using Cfg = DqF32Cfg<DP>;
+  constexpr int NC = Cfg::NC, ROWS = Cfg::ROWS, KEYS = Cfg::KEYS;
+  constexpr int STAGES = Cfg::STAGES, QB = Cfg::Q_BYTES, TB = Cfg::T_BYTES;
+  extern __shared__ char smem_raw[];
+  char* qb = align_1024(smem_raw);  // [DP/32][ROWS][32] fp32, q * scale
+  char* qs = qb + QB;
+  char* dob = qs + QB;
+  char* dos = dob + QB;
+  char* stage0 = dos + QB;  // [STAGES][K b, s, V b, s, Kᵀ b, s]
+  uint64_t* q_landed =
+      reinterpret_cast<uint64_t*>(stage0 + STAGES * Cfg::STAGE_BYTES);
+  uint64_t* q_ready = q_landed + 1;
+  uint64_t* landed = q_ready + 1;
+  uint64_t* ready = landed + STAGES;
+  uint64_t* empty = ready + STAGES;
+
+  const int b = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * ROWS;
+  const int hk = h / (a.H / a.H_kv);
+  const TileWalk walk = key_tiles(a, r0, min(r0 + ROWS, a.Nq) - 1, KEYS);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_landed, 1);
+    mbar_init(q_ready, kPrepThreads);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&landed[s], 1);
+      mbar_init(&ready[s], kPrepThreads);
+      mbar_init(&empty[s], 128 * NC);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer
+    if constexpr (NC == 2) reg_dealloc<kProducerRegs32>();
+    if (threadIdx.x == 0 && walk.n_walk > 0) {
+      const int kplane = b * a.H_kv + hk;
+      mbar_expect_tx(q_landed, 2 * QB);
+      tma_tile32<ROWS, DP>(qb, &tq, q_landed, r0, b * a.H + h);
+      tma_tile32<ROWS, DP>(dob, &tdo, q_landed, r0, b * a.H + h);
+      for (int w = 0; w < walk.n_walk; ++w) {
+        const int s = w % STAGES;
+        char* st = stage0 + s * Cfg::STAGE_BYTES;
+        mbar_wait(&empty[s], ((w / STAGES) & 1) ^ 1);
+        const int c0 = walk.tile(w) * KEYS;
+        mbar_expect_tx(&landed[s], 2 * TB);
+        tma_tile32<KEYS, DP>(st, &tk, &landed[s], c0, kplane);
+        tma_tile32<KEYS, DP>(st + 2 * TB, &tv, &landed[s], c0, kplane);
+      }
+    } else if (threadIdx.x >= 32 && walk.n_walk > 0) {
+      const int tid = threadIdx.x - 32;
+      mbar_wait(q_landed, 0);
+      split_tile(qb, qb, qs, QB, a.scale, tid, kPrepThreads);
+      split_tile(dob, dob, dos, QB, 1.f, tid, kPrepThreads);
+      fence_proxy_async();
+      mbar_arrive(q_ready);
+      for (int w = 0; w < walk.n_walk; ++w) {
+        const int s = w % STAGES;
+        char* st = stage0 + s * Cfg::STAGE_BYTES;
+        mbar_wait(&landed[s], (w / STAGES) & 1);
+        // Kᵀ from the landed K, V split; K split in place once every
+        // thread has read it.
+        transpose_split<KEYS, DP>(st, st + 4 * TB, st + 5 * TB, 1.f, tid,
+                                  kPrepThreads);
+        split_tile(st + 2 * TB, st + 2 * TB, st + 3 * TB, TB, 1.f, tid,
+                   kPrepThreads);
+        named_sync(1, kPrepThreads);
+        split_tile(st, st, st + TB, TB, 1.f, tid, kPrepThreads);
+        fence_proxy_async();
+        mbar_arrive(&ready[s]);
+      }
+    }
+  } else {  // consumers: 64 query rows each
+    if constexpr (NC == 2) reg_alloc<kConsumerRegs32>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int row0 = r0 + 64 * cw;
+    const uint32_t bh = (uint32_t)(b * a.H + h);
+    const bool post = a.slopes != nullptr || a.softcap > 0.f;
+    float lse_r[2], di_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + acc_row(t, 2 * r);
+      lse_r[r] = row < a.Nq ? lse[(size_t)bh * a.Nq + row] : 0.f;
+      di_r[r] = row < a.Nq ? di[(size_t)bh * a.Nq + row] : 0.f;
+    }
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+    if (walk.n_walk > 0) mbar_wait(q_ready, 0);
+    for (int w = 0; w < walk.n_walk; ++w) {
+      const int s = w % STAGES;
+      const int c0 = walk.tile(w) * KEYS;
+      const char* st = stage0 + s * Cfg::STAGE_BYTES;
+
+      float sc[KEYS / 2], dp[KEYS / 2];  // S and dP: 64 rows x KEYS
+      mbar_wait(&ready[s], (w / STAGES) & 1);
+      wgmma_fence();
+      mma3_ss<ROWS, KEYS, DP / 8>(sc, qb, qs, 64 * cw, st, st + TB);
+      mma3_ss<ROWS, KEYS, DP / 8>(dp, dob, dos, 64 * cw, st + 2 * TB,
+                                  st + 3 * TB);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      const int cls = tile_class(a, row0, row0 + 63, c0, c0 + KEYS - 1);
+      uint32_t seg[2] = {0u, 0u};
+      if (cls == kSegments) {
+        segment_bits<KEYS>(a.q_ids + (size_t)b * a.Nq, row0, a.Nq,
+                           a.kv_ids + (size_t)b * a.Nk, c0, a.Nk, t, seg);
+      }
+      dispatch_tile(cls, post, [&](auto c, auto pp) {
+#pragma unroll
+        for (int i = 0; i < KEYS / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          const int row = row0 + acc_row(t, i), col = c0 + acc_col(t, i);
+          float ds = 0.f;
+          if (tile_visible<decltype(c)::value>(a, b, row, col, seg, i)) {
+            float dcap;
+            const float x =
+                tile_score<decltype(pp)::value>(a, h, row, col, sc[i], &dcap);
+            const float p = expf(x - lse_r[r]);
+            float d = dp[i];
+            if (a.dropout) d = keep(a, bh, row, col) ? d * a.drop_inv : 0.f;
+            ds = p * (d - di_r[r]);
+            ds = ds * dcap;
+          }
+          sc[i] = ds;
+        }
+      });
+      uint32_t db[KEYS / 8][4], dsm[KEYS / 8][4];
+      acc_to_tf32_a<KEYS>(sc, db, dsm);
+
+      wgmma_fence();
+      fence_regs(acc);
+      mma3_rs<DP, KEYS / 8>(acc, db, dsm, st + 4 * TB, st + 5 * TB);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      keep_regs(db);
+      keep_regs(dsm);
+      mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + acc_row(t, 2 * r);
+      if (row >= a.Nq) continue;
+      const size_t base = ((size_t)bh * a.Nq + row) * a.D;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = acc_col(t, 4 * n);
+        if (col < a.D) {
+          *reinterpret_cast<float2*>(dq + base + col) =
+              make_float2(acc[4 * n + 2 * r] * a.scale,
+                          acc[4 * n + 2 * r + 1] * a.scale);
+        }
+      }
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_bwd_f32_sm90(const AttnArgs& a, const void* dout,
+                                const float* lse, const float* di, void* dq,
+                                void* dk, void* dv, cudaStream_t st) {
+  using Kv = DkvF32Cfg<DP>;
+  using Dq = DqF32Cfg<DP>;
+  const int QH = a.B * a.H, KH = a.B * a.H_kv;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = make_map32(&tq, a.q, QH, a.Nq, a.D, box_rows<Kv::R>());
+  if (err == cudaSuccess) {
+    err = make_map32(&tdo, dout, QH, a.Nq, a.D, box_rows<Kv::R>());
+  }
+  if (err == cudaSuccess) {
+    err = make_map32(&tk, a.k, KH, a.Nk, a.D, box_rows<Kv::KEYS>());
+  }
+  if (err == cudaSuccess) {
+    err = make_map32(&tv, a.v, KH, a.Nk, a.D, box_rows<Kv::KEYS>());
+  }
+  if (err != cudaSuccess) return err;
+  auto dkv_kernel = flash_bwd_dkv_f32_sm90_kernel<DP>;
+  err = set_smem(dkv_kernel, Kv::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv((a.Nk + Kv::KEYS - 1) / Kv::KEYS, a.H_kv, a.B);
+  dkv_kernel<<<grid_kv, Kv::THREADS, Kv::SMEM, st>>>(
+      tq, tk, tv, tdo, a, lse, di, static_cast<float*>(dk),
+      static_cast<float*>(dv));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // The dQ kernel reads q and dO in tiles of ROWS, K and V of KEYS rows.
+  err = make_map32(&tq, a.q, QH, a.Nq, a.D, box_rows<Dq::ROWS>());
+  if (err == cudaSuccess) {
+    err = make_map32(&tdo, dout, QH, a.Nq, a.D, box_rows<Dq::ROWS>());
+  }
+  if (err == cudaSuccess) {
+    err = make_map32(&tk, a.k, KH, a.Nk, a.D, box_rows<Dq::KEYS>());
+  }
+  if (err == cudaSuccess) {
+    err = make_map32(&tv, a.v, KH, a.Nk, a.D, box_rows<Dq::KEYS>());
+  }
+  if (err != cudaSuccess) return err;
+  auto dq_kernel = flash_bwd_dq_f32_sm90_kernel<DP>;
+  err = set_smem(dq_kernel, Dq::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((a.Nq + Dq::ROWS - 1) / Dq::ROWS, a.H, a.B);
+  dq_kernel<<<grid_q, Dq::THREADS, Dq::SMEM, st>>>(
+      tq, tk, tv, tdo, a, lse, di, static_cast<float*>(dq));
+  return cudaGetLastError();
+}
+
 }  // namespace sm90
 }  // namespace fat
 
@@ -901,6 +1385,37 @@ int fat_flash_bwd_sm90(const void* q, const void* k, const void* v,
   const cudaError_t err =
       D <= 64 ? sm90::launch_bwd_sm90<64>(a, dout, l, d, dq, dk, dv, st)
               : sm90::launch_bwd_sm90<128>(a, dout, l, d, dq, dk, dv, st);
+  return (int)err;
+}
+
+// The fp32 tensor-core route (3xTF32): fp32 only, D <= 128; q, k, v and
+// dout 16-byte aligned (TMA). Same arguments as fat_flash_bwd (dtype must
+// be 1).
+int fat_flash_bwd_sm90_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse, const void* di,
+                           void* dq, void* dk, void* dv, const void* q_ids,
+                           const void* kv_ids, const void* slopes, int B,
+                           int H, int H_kv, int Nq, int Nk, int D, float scale,
+                           int causal, int offset, int window, int sinks,
+                           float softcap, float softcap_inv, int dropout,
+                           uint32_t drop_threshold, uint32_t seed,
+                           float drop_inv, int dtype, void* stream) {
+  using namespace fat;
+  if (dtype != 1 || D < 8 || D > 128 || D % 8 != 0 || H_kv < 1 ||
+      H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AttnArgs a{q, k, v, static_cast<const int32_t*>(q_ids),
+             static_cast<const int32_t*>(kv_ids),
+             static_cast<const float*>(slopes), B, H, H_kv, Nq, Nk, D, scale,
+             causal, offset, window, sinks, softcap, softcap_inv, dropout,
+             drop_threshold, seed, drop_inv};
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* l = static_cast<const float*>(lse);
+  const auto* d = static_cast<const float*>(di);
+  const cudaError_t err =
+      D <= 64 ? sm90::launch_bwd_f32_sm90<64>(a, dout, l, d, dq, dk, dv, st)
+              : sm90::launch_bwd_f32_sm90<128>(a, dout, l, d, dq, dk, dv, st);
   return (int)err;
 }
 

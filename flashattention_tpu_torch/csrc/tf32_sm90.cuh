@@ -1,0 +1,399 @@
+// Hopper (sm_90a) machinery of the fp32 tensor-core flash kernels (the fp32,
+// D <= 128 routes of flash_fwd.cu and flash_bwd.cu), beside flash_sm90.cuh,
+// which it reuses and leaves unchanged: fp32 tensor maps, the 3xTF32 split,
+// the transposing pass, and the m64nNk8 .f32.tf32.tf32 wgmma.
+//
+// 3xTF32. A tensor core reads an fp32 operand as TF32 (10 mantissa bits), so
+// one product is good to about 5e-4, beyond fp32's 1e-4 limit. Each operand x
+// is split into big = tf32(x) and small = tf32(x - big), both rounded to
+// nearest by tf32_round, so both are exact TF32 values (low 13 bits zero)
+// and it does not matter which bits the tensor core reads. A product a·b is
+// summed as a_s·b_b + a_b·b_s, then + a_b·b_b, in the fp32 accumulator: x -
+// big - small is below 2^-23 |x| and the dropped a_s·b_s below 2^-22 |a| |b|.
+// Three TF32 products at 495 TFLOP/s are ~165 TFLOP/s of fp32-exact work,
+// against 67 on the CUDA cores.
+//
+// Tiles. An fp32 tile is a stack of "halves" of R rows x 32 fp32 (128 bytes
+// a row), one per 32 columns, with the 128-byte swizzle (16-byte chunk c of
+// row r at chunk c ^ (r % 8), sw_off): flash_sm90.cuh's bf16 halves measured
+// in bytes. A tf32 k8 step is 32 bytes, as a bf16 k16 step is, so desc_k
+// reads a K-major k8 step of an fp32 tile as it reads a bf16 k16 step (kk
+// counts k8 steps here). TMA writes that layout from boxes of 32 columns.
+//
+// Operand layout. TF32 wgmma reads both shared-memory operands K-major only
+// (there is no transpose bit), so a product whose B operand is stored
+// MN-major (P·V, Pᵀ·dO, dSᵀ·q_s, dS·K) reads a transposed copy that the
+// producer warpgroup writes (transpose_split): DP rows of the head dim, the
+// source rows as columns (32 of them a half; fewer are used when a tile has
+// fewer rows).
+//
+// A operands in registers. P, Pᵀ, dS and dSᵀ come out of a product as m64nN
+// accumulator fragments: a thread holds columns 2 tq and 2 tq + 1 of each
+// 8-column step (tq = lane % 4), where the TF32 A fragment holds columns tq
+// and tq + 4. Instead of shuffling, the k index is permuted: register j of k
+// step kk takes the accumulator element acc_to_tf32_a names, and the
+// transposed B tile puts source row 8 g + p at column kcol(8 g + p) = 8 g +
+// p / 2 + 4 (p % 2), so both sides agree on which k each term pairs.
+#pragma once
+
+#include "flash_sm90.cuh"
+
+namespace fat {
+namespace sm90 {
+
+// ---------------------------------------------------------------------------
+// Host: fp32 tensor maps
+// ---------------------------------------------------------------------------
+
+constexpr int kHalf32 = 32;  // fp32 columns of a 128-byte tile row
+
+// Map of a contiguous fp32 tensor (planes, rows, cols), 16-byte aligned,
+// cols % 4 == 0, read in boxes of `box_rows` rows x 32 columns with the
+// 128-byte swizzle. Returns a CUDA error code.
+inline cudaError_t make_map32(CUtensorMap* m, const void* base, int planes,
+                              int rows, int cols, int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || cols % 4 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 4,
+                                 (cuuint64_t)cols * rows * 4};
+  const cuuint32_t box[3] = {kHalf32, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = enc(
+      m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Rows of a box for a tile of R rows: the map and the loads must agree.
+template <int R>
+__host__ __device__ constexpr int box_rows() {
+  return R < 64 ? R : 64;
+}
+
+// ---------------------------------------------------------------------------
+// Device: tiles
+// ---------------------------------------------------------------------------
+
+// Rows [row, row + R) of `plane`, all DP columns, into the fp32 tile at
+// `dst` (DP / 32 halves of R x 32). R * DP * 4 bytes complete on `bar`.
+template <int R, int DP>
+__device__ __forceinline__ void tma_tile32(char* dst, const CUtensorMap* map,
+                                           uint64_t* bar, int row,
+                                           int plane) {
+  constexpr int BOX = box_rows<R>();
+#pragma unroll
+  for (int hf = 0; hf < DP / kHalf32; ++hf) {
+#pragma unroll
+    for (int rb = 0; rb < R / BOX; ++rb) {
+      tma_load(dst + (hf * R + rb * BOX) * 128, map, bar, hf * kHalf32,
+               row + rb * BOX, plane);
+    }
+  }
+}
+
+// Byte offset of element (r, c) of an R-row fp32 tile, c a multiple of 4.
+template <int R>
+__device__ __forceinline__ int sw_off(int r, int c) {
+  return (c >> 5) * R * 128 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4);
+}
+
+// Column of source row k in a transposed tile (see the header comment).
+__device__ __forceinline__ int kcol(int k) {
+  return (k & ~7) + ((k & 7) >> 1) + 4 * (k & 1);
+}
+
+// x rounded to the nearest TF32 value, ties away from zero: the low 13 bits
+// cleared after adding half of their range.
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+__device__ __forceinline__ void split4(float4 x, float scale, float4& big,
+                                       float4& small) {
+  const float v[4] = {x.x * scale, x.y * scale, x.z * scale, x.w * scale};
+  float b[4], s[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    b[j] = tf32_round(v[j]);
+    s[j] = tf32_round(v[j] - b[j]);
+  }
+  big = make_float4(b[0], b[1], b[2], b[3]);
+  small = make_float4(s[0], s[1], s[2], s[3]);
+}
+
+// Element j (a constant once unrolled) of a float4.
+__device__ __forceinline__ float elem(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// The tile at `src` (`bytes`, a multiple of 16) times `scale`, split into
+// `big` and `small` at the same offsets (big may be src: in place), thread
+// tid of n.
+__device__ __forceinline__ void split_tile(const char* src, char* big,
+                                           char* small, int bytes, float scale,
+                                           int tid, int n) {
+  for (int i = tid * 16; i < bytes; i += n * 16) {
+    float4 b, s;
+    split4(*reinterpret_cast<const float4*>(src + i), scale, b, s);
+    *reinterpret_cast<float4*>(big + i) = b;
+    *reinterpret_cast<float4*>(small + i) = s;
+  }
+}
+
+// The R-row x DP-column tile at `src` times `scale`, transposed and split
+// into the DP-row tiles `big` and `small`: source row k goes to column
+// kcol(k), so the source rows 8 g + p + 2 m (m = 0..3) of one parity p land
+// in the four adjacent columns 8 g + 4 p + m. Thread tid of n takes such a
+// 4-row unit at 4 columns (16 values) at a time.
+template <int R, int DP>
+__device__ __forceinline__ void transpose_split(const char* src, char* big,
+                                                char* small, float scale,
+                                                int tid, int n) {
+  constexpr int UNITS = R / 4;  // (g, p) pairs
+  for (int u = tid; u < UNITS * (DP / 4); u += n) {
+    const int kq = u % UNITS, c = 4 * (u / UNITS);
+    const int k0 = 8 * (kq >> 1) + (kq & 1);
+    float4 x[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      x[m] = *reinterpret_cast<const float4*>(src +
+                                              sw_off<R>(k0 + 2 * m, c));
+    }
+    const int col = 8 * (kq >> 1) + 4 * (kq & 1);
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd) {
+      float4 b, s;
+      split4(make_float4(elem(x[0], dd), elem(x[1], dd), elem(x[2], dd),
+                         elem(x[3], dd)),
+             scale, b, s);
+      const int at = sw_off<DP>(c + dd, col);
+      *reinterpret_cast<float4*>(big + at) = b;
+      *reinterpret_cast<float4*>(small + at) = s;
+    }
+  }
+}
+
+// Shared-memory bytes of a transposed tile of R source rows: DP rows x 32
+// columns a half, ceil(R / 32) halves.
+template <int R, int DP>
+__host__ __device__ constexpr int transposed_bytes() {
+  return ((R + kHalf32 - 1) / kHalf32) * DP * 128;
+}
+
+// ---------------------------------------------------------------------------
+// Register A operands
+// ---------------------------------------------------------------------------
+
+// An m64nN fp32 accumulator fragment as the split TF32 A operands of N / 8
+// k steps. Step kk's registers hold (row g, k tq), (g + 8, tq), (g, tq + 4),
+// (g + 8, tq + 4) of the A layout; they take the accumulator's columns 2 tq,
+// 2 tq, 2 tq + 1, 2 tq + 1 of the step (elements 4 kk + 0, 2, 1, 3), the
+// column order kcol gives the transposed B tiles.
+template <int N>
+__device__ __forceinline__ void acc_to_tf32_a(const float (&f)[N / 2],
+                                              uint32_t (&big)[N / 8][4],
+                                              uint32_t (&small)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    const float v[4] = {f[4 * kk], f[4 * kk + 2], f[4 * kk + 1],
+                        f[4 * kk + 3]};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float b = tf32_round(v[j]);
+      big[kk][j] = __float_as_uint(b);
+      small[kk][j] = __float_as_uint(tf32_round(v[j] - b));
+    }
+  }
+}
+
+// Keeps A-operand registers alive (and unchanged) until the wgmma that
+// reads them has been waited for.
+template <int KS>
+__device__ __forceinline__ void keep_regs(uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[kk][j])::"memory");
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wgmma, tf32
+// ---------------------------------------------------------------------------
+
+// D (64 x 16, fp32) {+}= A (64 x 8) * B (8 x 16), tf32, A and B K-major in
+// shared memory (descriptors); D += only where scale_d != 0.
+__device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[8], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, fp32) {+}= A (64 x 8) * B (8 x 32), tf32, A and B K-major in
+// shared memory (descriptors); D += only where scale_d != 0.
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) {+}= A (64 x 8) * B (8 x 64), tf32, A and B K-major in
+// shared memory (descriptors); D += only where scale_d != 0.
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) += A (64 x 8, tf32 registers in the A layout) *
+// B (8 x 64); B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 8, tf32 registers in the A layout) *
+// B (8 x 128); B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma_tf32_ss: N is 16-64");
+  if constexpr (N == 16) {
+    wgmma_tf32_ss_n16(d, da, db, scale_d);
+  } else if constexpr (N == 32) {
+    wgmma_tf32_ss_n32(d, da, db, scale_d);
+  } else {
+    wgmma_tf32_ss_n64(d, da, db, scale_d);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  static_assert(N == 64 || N == 128, "wgmma_tf32_rs: N is 64 or 128");
+  if constexpr (N == 64) {
+    wgmma_tf32_rs_n64(d, a, db);
+  } else {
+    wgmma_tf32_rs_n128(d, a, db);
+  }
+}
+
+// D = A·Bᵀ in 3xTF32 over KS k8 steps: A is rows [row0, row0 + 64) of the
+// RA-row tile pair (ab, as), B the RB-row tile pair (bb, bs), both K-major;
+// N = RB. Issues the 3 KS wgmmas (small terms first); the caller fences,
+// commits and waits.
+template <int RA, int RB, int KS>
+__device__ __forceinline__ void mma3_ss(float (&d)[RB / 2], const char* ab,
+                                        const char* as, int row0,
+                                        const char* bb, const char* bs) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_tf32_ss<RB>(d, desc_k<RA>(as, row0, kk), desc_k<RB>(bb, 0, kk),
+                      kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_tf32_ss<RB>(d, desc_k<RA>(ab, row0, kk), desc_k<RB>(bs, 0, kk), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_tf32_ss<RB>(d, desc_k<RA>(ab, row0, kk), desc_k<RB>(bb, 0, kk), 1);
+  }
+}
+
+// D += A·B in 3xTF32 over KS k8 steps: A the split register operands (ab,
+// as), B the N-row transposed tile pair (bb, bs), K-major.
+template <int N, int KS>
+__device__ __forceinline__ void mma3_rs(float (&d)[N / 2],
+                                        const uint32_t (&ab)[KS][4],
+                                        const uint32_t (&as)[KS][4],
+                                        const char* bb, const char* bs) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_tf32_rs<N>(d, as[kk], desc_k<N>(bb, 0, kk));
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_tf32_rs<N>(d, ab[kk], desc_k<N>(bs, 0, kk));
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_tf32_rs<N>(d, ab[kk], desc_k<N>(bb, 0, kk));
+  }
+}
+
+// Register split of the fp32 kernels' blocks of two consumer warpgroups:
+// 72 + 2 x 216 registers of a 384-thread block fit the SM's 64K (the
+// producer's splitting and transposing needs more than the bf16 kernels'
+// 24, and spilled at 56 in the dK/dV kernel; the consumers' fragments need
+// less than their 240).
+constexpr int kProducerRegs32 = 72;
+constexpr int kConsumerRegs32 = 216;
+
+// The producer warpgroup: thread 0 issues TMA; warps 1-3 split and
+// transpose landed tiles.
+constexpr int kPrepThreads = 96;
+
+}  // namespace sm90
+}  // namespace fat

@@ -16,9 +16,9 @@ copy:
 - a bias-free LM head.
 
 Both attentions go through ``ops.api.flash_attention``: on the card the
-flash forward kernel (``csrc/flash_fwd.cu``; fp32 checkpoints take its FMA
-route, bf16 inputs with D <= 128 its tensor-core route), on CPU tensors its
-plain version. Eval only: the reference's dropout is identity in eval.
+flash forward kernel (``csrc/flash_fwd.cu``; with D <= 128 fp32 checkpoints
+take its 3xTF32 tensor-core route, bf16 inputs its bf16 one), on CPU
+tensors its plain version. Eval only: the reference's dropout is identity in eval.
 """
 
 from __future__ import annotations

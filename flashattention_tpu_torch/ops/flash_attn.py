@@ -9,12 +9,15 @@ tensors it runs their plain PyTorch versions, :func:`flash_fwd_plain` and
 :func:`flash_bwd_plain`. Nothing falls back: a CUDA input the kernels do
 not take raises, and so does a failed build or launch.
 
-Each source has two routes, chosen by :func:`_tensor_core_route`: bf16
-with D <= 128 runs the Hopper kernels (``fat_flash_fwd_sm90``,
-``fat_flash_bwd_sm90``: wgmma on the tensor cores, tiles by TMA); fp32 and
-bf16 with D > 128 run the first kernels (fp32 FMAs on the CUDA cores).
-``kernel_attention.fwd_launches`` and ``bwd_launches`` count every call;
-``fwd_tc_launches`` and ``bwd_tc_launches`` count the tensor-core route.
+Each source has three entry points, chosen by :func:`_tensor_core_route`:
+with D <= 128 bf16 runs ``fat_flash_fwd_sm90`` / ``fat_flash_bwd_sm90``
+(wgmma on the tensor cores, tiles by TMA) and fp32 runs
+``fat_flash_fwd_sm90_f32`` / ``fat_flash_bwd_sm90_f32`` (the same on
+3xTF32 wgmma: each fp32 operand split into two TF32 parts, three products
+summed in fp32, ``csrc/tf32_sm90.cuh``); above D = 128 both run the first
+kernels (fp32 FMAs on the CUDA cores). ``kernel_attention.fwd_launches``
+and ``bwd_launches`` count every call; ``fwd_tc_launches`` and
+``bwd_tc_launches`` count the tensor-core routes.
 
 Contract (as in the JAX package): q (B, H, N_q, D), k/v (B, H_kv, N_k, D)
 with H % H_kv == 0; returns o in q's shape and dtype and an fp32 LSE
@@ -219,11 +222,19 @@ def _ptr(t):
 
 
 def _tensor_core_route(dtype, d: int) -> bool:
-    """True where the tensor-core kernels take the call: bf16 with
-    D <= 128. fp32 would round to TF32 on the tensor cores (beyond its
-    1e-4 limit), and above D = 128 the backward's dK and dV accumulators do
-    not fit the registers."""
-    return dtype == torch.bfloat16 and d <= 128
+    """True where the tensor-core kernels take the call: bf16 or fp32 with
+    D <= 128 (fp32 on 3xTF32, which keeps the fp32 1e-4 limit where one
+    TF32 product would not). Above D = 128 the backward's dK and dV
+    accumulators do not fit the registers."""
+    return dtype in (torch.bfloat16, torch.float32) and d <= 128
+
+
+def _entry(lib: ctypes.CDLL, prefix: str, dtype, d: int):
+    """(C entry point, tensor-core route?) of ``prefix`` for dtype and D."""
+    if not _tensor_core_route(dtype, d):
+        return getattr(lib, prefix), False
+    suffix = "_sm90_f32" if dtype == torch.float32 else "_sm90"
+    return getattr(lib, prefix + suffix), True
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -281,9 +292,8 @@ def _fwd_cuda(q, k, v, opts: AttnOpts):
     lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
     if o.numel() == 0 or k.shape[2] == 0:
         return o.zero_(), lse.fill_(float("-inf"))
-    lib = _build.load_kernel("flash_fwd", _declare_fwd)
-    tc = _tensor_core_route(q.dtype, d)
-    fn = lib.fat_flash_fwd_sm90 if tc else lib.fat_flash_fwd
+    fn, tc = _entry(_build.load_kernel("flash_fwd", _declare_fwd),
+                    "fat_flash_fwd", q.dtype, d)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         _ptr(opts.q_ids), _ptr(opts.kv_ids), _ptr(opts.slopes),
@@ -304,9 +314,8 @@ def _bwd_cuda(q, k, v, do, lse, di, opts: AttnOpts):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.shape[2] == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lib = _build.load_kernel("flash_bwd", _declare_bwd)
-    tc = _tensor_core_route(q.dtype, q.shape[3])
-    fn = lib.fat_flash_bwd_sm90 if tc else lib.fat_flash_bwd
+    fn, tc = _entry(_build.load_kernel("flash_bwd", _declare_bwd),
+                    "fat_flash_bwd", q.dtype, q.shape[3])
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -326,14 +335,16 @@ def _scalar_argtypes():
 
 def _declare_fwd(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
-    for fn in (lib.fat_flash_fwd, lib.fat_flash_fwd_sm90):
+    for fn in (lib.fat_flash_fwd, lib.fat_flash_fwd_sm90,
+               lib.fat_flash_fwd_sm90_f32):
         fn.restype = ctypes.c_int
         fn.argtypes = [p] * 8 + _scalar_argtypes()
 
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
-    for fn in (lib.fat_flash_bwd, lib.fat_flash_bwd_sm90):
+    for fn in (lib.fat_flash_bwd, lib.fat_flash_bwd_sm90,
+               lib.fat_flash_bwd_sm90_f32):
         fn.restype = ctypes.c_int
         fn.argtypes = [p] * 12 + _scalar_argtypes()
 

@@ -90,7 +90,7 @@ def test_plots_and_tables(tmp_path):
 def test_peak_tflops_from_the_card_name():
     h100 = "NVIDIA H100 80GB HBM3"
     assert harness.peak_tflops("bf16", h100) == 989.0
-    assert harness.peak_tflops("fp32", h100) == 67.0
+    assert harness.peak_tflops("fp32", h100) == 165.0  # 3xTF32: 495 / 3
     for fmt in ("fp8", "e5m2", "int8"):
         assert harness.peak_tflops(fmt, h100) == 1979.0
     with pytest.raises(ValueError, match="no peak rates known"):

@@ -552,8 +552,9 @@ def test_spec_engine_on_card(cuda_device, draft_layers):
 
 # name: ((b, h, h_kv, n_q, n_k, d), dtype, kernel_attention kwargs, extras);
 # one case per chip_smoke.py flash case (the bench shape cut to N = 2048),
-# plus ragged and head-dim edges, in fp32 (the FMA route) and in bf16 (the
-# tensor-core route wherever D <= 128).
+# plus ragged and head-dim edges, in fp32 and in bf16: the tensor-core
+# routes (bf16 wgmma, fp32 3xTF32 wgmma) wherever D <= 128, the FMA route
+# above.
 FLASH_CASES = {
     "a_train": ((8, 12, 12, 512, 512, 64), torch.bfloat16,
                 dict(causal=True, dropout_rate=0.1, dropout_seed=3), ()),
@@ -592,6 +593,15 @@ FLASH_CASES = {
                             dict(causal=True), ()),
     "bf16_k_unaligned_view": ((2, 4, 2, 128, 128, 64), torch.bfloat16,
                               dict(causal=True), ("k_unaligned",)),
+    # the same edges on the fp32 (3xTF32) kernels
+    "fp32_d128_gqa_window_dropout": (
+        (2, 8, 2, 300, 300, 128), torch.float32,
+        dict(causal=True, window=96, sinks=4, softcap=30.0, dropout_rate=0.1,
+             dropout_seed=21), ()),
+    "fp32_full_segments_alibi": ((2, 4, 4, 192, 320, 64), torch.float32,
+                                 dict(causal=False), ("segments", "alibi")),
+    "fp32_k_unaligned_view": ((2, 4, 2, 128, 128, 64), torch.float32,
+                              dict(causal=True), ("k_unaligned",)),
 }
 
 
@@ -624,7 +634,7 @@ def flash_inputs(shape, dtype, extras, device, seed=0):
         kw["segment_ids"] = ids[0] if n_q == n_k else (ids[0], ids[1])
     if "alibi" in extras:
         kw["alibi_slopes"] = (0.5 ** torch.arange(1, h + 1)).to(device)
-    if "k_unaligned" in extras:  # a view 2 bytes past a 16-byte boundary
+    if "k_unaligned" in extras:  # a view one element past a 16-byte boundary
         buf = torch.empty(k.numel() + 1, dtype=dtype, device=device)
         k = buf[1:].view(k.shape).copy_(k)
         assert k.data_ptr() % 16 != 0
@@ -659,7 +669,7 @@ def test_flash_kernels_match_plain(cuda_device, case):
         assert g.dtype == r.dtype and g.shape == r.shape
         rtol, atol = flash_tol(dtype, r)
         assert_allclose(g, r, rtol=rtol, atol=atol, err_msg=f"{case} {name}")
-    tc = int(dtype == torch.bfloat16 and shape[-1] <= 128)
+    tc = int(shape[-1] <= 128)  # bf16 and fp32 alike
     after = (ka.fwd_launches, ka.bwd_launches, ka.fwd_tc_launches,
              ka.bwd_tc_launches)
     assert tuple(x - y for x, y in zip(after, before)) == (1, 1, tc, tc)
@@ -1449,7 +1459,7 @@ def test_moe_block_on_card_matches_cpu(cuda_device):
 def test_compat_forward_on_card_matches_cpu(cuda_device, fused, bias):
     """A reference checkpoint (fp32) through compat: logits and loss on the
     card against the CPU at 1e-4 relative to the largest logit; two
-    flash_fwd launches a layer, all on the FMA route."""
+    flash_fwd launches a layer, all on the fp32 tensor-core route (D = 64)."""
     from flashattention_tpu_torch.models import compat
     from flashattention_tpu_torch.utils.testing import reference_state_dict
 
@@ -1470,7 +1480,7 @@ def test_compat_forward_on_card_matches_cpu(cuda_device, fused, bias):
                          fa.kernel_attention.fwd_launches,
                          fa.kernel_attention.fwd_tc_launches)
     (a, la, n, n_tc), (r, lr, _, _) = out[str(cuda_device)], out["cpu"]
-    assert (n, n_tc) == (8, 0)  # two forwards, 2 x 2 layers each, FMA route
+    assert (n, n_tc) == (8, 8)  # two forwards, 2 x 2 layers each, 3xTF32
     scale = float(r.abs().max())
     assert float((a - r).abs().max()) <= 1e-4 * scale
     assert abs(la - lr) <= 1e-4 * abs(lr)

@@ -7,6 +7,8 @@ the JAX package rounds q * scale to bf16 before the dot, the port's scales
 the fp32 dot; both are inside the bf16 rung.
 """
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -202,10 +204,11 @@ def test_cpu_path_launches_no_kernel():
     assert torch.equal(o.detach(), o_plain)
 
 
-# (dtype, head dim, tensor-core route?): bf16 up to D = 128 goes to the
-# Hopper kernels; fp32 at any D and bf16 above 128 keep the FMA kernels.
+# (dtype, head dim, tensor-core route?): bf16 and fp32 up to D = 128 go to
+# the Hopper kernels (fp32 on 3xTF32); both keep the FMA kernels above.
 ROUTES = ([("bfloat16", d, True) for d in (40, 64, 128)]
-          + [("float32", d, False) for d in (40, 64, 128, 256)]
+          + [("float32", d, True) for d in (40, 64, 128)]
+          + [("float32", d, False) for d in (136, 256)]
           + [("bfloat16", d, False) for d in (136, 256)])
 
 
@@ -224,3 +227,73 @@ def test_aligned16_copies_an_unaligned_view_only():
     got = fa._aligned16(view)
     assert got.data_ptr() % 16 == 0 and got.is_contiguous()
     assert torch.equal(got, view)
+
+
+# ---------------------------------------------------------------------------
+# The fp32 tensor-core route's arithmetic (csrc/tf32_sm90.cuh), emulated
+# ---------------------------------------------------------------------------
+
+
+def _tf32(x):
+    """x rounded to the nearest TF32 value, ties away from zero, as the
+    kernels' tf32_round: 0x1000 added to the bits, the low 13 cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _products_3xtf32(einsum):
+    """einsum with each operand split into big = tf32(x) and small =
+    tf32(x - big), summed as the kernels' wgmmas sum them: the two small
+    terms, then big·big, in fp32."""
+    def product(spec, a, b):
+        ab, bb = _tf32(a), _tf32(b)
+        as_, bs = _tf32(a - ab), _tf32(b - bb)
+        return (einsum(spec, as_, bb) + einsum(spec, ab, bs)) + einsum(
+            spec, ab, bb)
+    return product
+
+
+def _products_1xtf32(einsum):
+    """einsum on one TF32 product: both operands rounded to TF32."""
+    return lambda spec, a, b: einsum(spec, _tf32(a), _tf32(b))
+
+
+def _plain_with_products(split, causal, rate):
+    """(o, lse, dq, dk, dv) of flash_fwd_plain / flash_bwd_plain with every
+    product (Q·Kᵀ and P·V; S, dP, dV, dK and dQ) taken through ``split``,
+    and the same of the plain versions as they are, from one numpy input
+    at (2, 12, 512, 64)."""
+    q, k, v, do, _ = _inputs(2, 12, 12, 512, 512, 64, seed=3)
+    q, k, v, do = (torch.from_numpy(x) for x in (q, k, v, do))
+    opts = fa.make_opts(q, k, causal=causal, dropout_rate=rate,
+                        dropout_seed=11 if rate else None)
+
+    def run():
+        o, lse = fa.flash_fwd_plain(q, k, v, opts)
+        di = (o * do).sum(-1)
+        return [o, lse, *fa.flash_bwd_plain(q, k, v, do, lse, di, opts)]
+
+    ref = run()
+    with mock.patch.object(torch, "einsum", split(torch.einsum)):
+        got = run()
+    return got, ref
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_3xtf32_products_keep_the_fp32_limit(causal, rate):
+    """The split the fp32 kernels run every product in holds o, LSE, dQ, dK
+    and dV within fp32's 1e-4 of the plain versions."""
+    got, ref = _plain_with_products(_products_3xtf32, causal, rate)
+    for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), got, ref):
+        assert_allclose(a, r, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_one_tf32_product_misses_the_fp32_limit(causal):
+    """Why the split: with one TF32 product per fp32 product, some output
+    leaves the 1e-4 rung."""
+    got, ref = _plain_with_products(_products_1xtf32, causal, 0.0)
+    excess = max(float(((a - r).abs() - 1e-4 - 1e-4 * r.abs()).max())
+                 for a, r in zip(got, ref))
+    assert excess > 0
