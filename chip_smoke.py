@@ -11,9 +11,11 @@ Phases, in order; any failure exits nonzero:
 1. Identify the card (nvidia-smi name and power limit) and build every CUDA
    kernel from ``flashattention_tpu_torch/csrc`` anew (one nvcc per source,
    all at once). The tensor-core kernels (flash: forward, dK/dV, dQ at D 64
-   and 128, each in bf16 and in fp32 on 3xTF32; sparse: the same three at
+   and 128, each in bf16 and in fp32 on 3xTF32, and the bf16 three at D
+   256, the dK/dV one split over the head dim; sparse: the same three at
    D 64 and 128, each with one and two consumer warpgroups; the 8-bit
-   forward at D 64 and 128 in e4m3, e5m2 and int8; 30 in all) must show HGMMA (wgmma) and UTMALDG (TMA) in their
+   forward at D 64 and 128 in e4m3, e5m2 and int8; 33 in all) must show
+   HGMMA (wgmma) and UTMALDG (TMA) in their
    SASS (cuobjdump) and spill nothing (ptxas report of this build); the 15
    paged split kernels must show UBLKCP (1-D bulk copies) and spill
    nothing; the 20 append kernels must spill nothing, and those of 8
@@ -23,13 +25,16 @@ Phases, in order; any failure exits nonzero:
    wrapper picks (the split walk for bf16 q over bf16 and 1-byte pages,
    convert and "qk"; two calls bit-equal) and, beside it, the first kernel
    on the same inputs (time and "issued from the host" time both); the flash forward and backward
-   at the training shape with dropout (a) and without (a0) and seven more
-   cases (the JAX headline's shape, GQA with window, sinks and soft-cap,
+   at the training shape with dropout (a) and without (a0) and more cases
+   (the JAX headline's shape, GQA with window, sinks and soft-cap,
    segment ids with ALiBi, fp32, a nonzero LSE cotangent, rows with no
    visible key, fp32 with dropout, fp32 non-causal, segment ids with
-   dropout), each launched once on the route it
-   must take (D <= 128: the tensor cores, bf16 on bf16 wgmma and fp32 on
-   3xTF32 wgmma; else the FMA kernels; checked by the route counters). Max error against the stated tolerance
+   dropout, the sweep's d = 256 cell at 8K (k), GQA with window, sinks,
+   soft-cap and dropout at D = 256 (l)), each launched once on the route
+   it must take (bf16 on bf16 wgmma up to D = 256, fp32 on 3xTF32 wgmma up
+   to D = 128, fp32 above on the FMA kernels; checked by the route
+   counters); case (k) also times the backward's dK/dV and dQ kernels
+   apart (torch.profiler). Max error against the stated tolerance
    (fp32 1e-4; bf16 flash two ulps, 1.6e-2 relative, plus 1e-3 of the
    largest value; bf16 paged 2e-2), then the kernel's, the plain version's
    and one library call's time (CUDA events, median over launches, L2
@@ -38,8 +43,8 @@ Phases, in order; any failure exits nonzero:
    take (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16, 165
    TFLOP/s fp32 on the tensor cores (3xTF32: three TF32 products at 495),
    67 on the FMA route); the flash cases also time the call as issued from
-   the host, and (a), (a0), (b), (e), (h), (i) the FMA kernels on the same
-   inputs, with the FMA route's bound beside them for fp32. Quantized pages:
+   the host, and (a), (a0), (b), (e), (h), (i), (k), (l) the FMA kernels on
+   the same inputs, with the FMA route's bound beside them. Quantized pages:
    int8 (int8-qk and convert), e4m3 and e5m2 at the engine's decode shape,
    an e4m3 chunk, and bf16 vs int8 vs e4m3 at scripts/bench_decode.py's
    shape (paged limit; yardstick SDPA over pre-gathered dequantized K/V,
@@ -191,7 +196,8 @@ Phases, in order; any failure exits nonzero:
    micro-step on the tensor cores, the loss without dropout of a batch it
    never trains on falling). ``bench.sweep.run_config`` at phase-2 case
    (b)'s (1, 8, 8192, 128) causal: fa2 forward, fa2 forward + backward and
-   fa3 int8 forward (the 8-bit kernel), each record "ok" with a roofline
+   fa3 int8 forward (the 8-bit kernel), and at case (k)'s (1, 8, 8192,
+   256) fa2 forward and forward + backward, each record "ok" with a roofline
    share of the card's peak in (0, 1.05] and a time within 1.25x of one
    traced call's kernels; ``profiling.timed`` on one flash call;
    ``bench.scaling`` at size 1 on one NCCL rank.
@@ -209,7 +215,9 @@ numbers of phase 2's matching cases) and of phase 12's
 phase 11's fp32 card check's, numbers of cases (e) and (h),
 ``flash_fwd[packed]`` and ``flash_bwd[packed]`` with case (j),
 ``flash_fwd[sweep]`` and ``flash_bwd[sweep]`` with case (b),
-``flash_fwd_fp8[sweep]`` with fp8 case (b)).
+``flash_fwd_fp8[sweep]`` with fp8 case (b), ``flash_fwd[d256]`` and
+``flash_bwd[d256]``: launches of the d = 256 sweep cells, numbers of case
+(k) with case (l) beside them).
 ``--cpu-rehearsal`` skips phases 1-2, runs the others at a tiny width on
 the CPU (phase 9's workers on the CPU, phase 10's rank over gloo) and
 never prints the device line.
@@ -222,6 +230,7 @@ import argparse
 import collections
 import copy
 import dataclasses
+import importlib.util
 import json
 import math
 import shutil
@@ -711,10 +720,15 @@ def append_case(timer, gen, dev, fmt, kind, *, h=12, d=64, page=16,
 
 
 BF16, FP32 = torch.bfloat16, torch.float32
-# Cases whose D <= 128 inputs are also timed on the FMA route (the first
-# kernels, which D > 128 keeps): each redesign's before/after on one card in
-# one call (bf16: (a), (a0), (b); fp32 on 3xTF32: (e), (h), (i)).
-FMA_COMPARE = ("a", "a0", "b", "e", "h", "i")
+# Cases whose inputs are also timed on the FMA route (the first kernels,
+# which fp32 above D = 128 keeps): each redesign's before/after on one card
+# in one call (bf16: (a), (a0), (b); fp32 on 3xTF32: (e), (h), (i); bf16 at
+# D = 256: (k), (l)).
+FMA_COMPARE = ("a", "a0", "b", "e", "h", "i", "k", "l")
+# Cases also timed kernel by kernel (torch.profiler, by
+# scripts/flash_kernel_split.py's kernel_ms: only causal or not, no other
+# option)
+FLASH_SPLIT = ("k",)
 TRAIN_SHAPE = (8, 12, 12, 512, 512, 64)  # B, H, H_kv, N_q, N_k, D
 # key: (label, shape, dtype, kernel_attention kwargs, extras)
 FLASH_CASES = {
@@ -745,6 +759,14 @@ FLASH_CASES = {
     "j": ("packed rows: segment ids (4 per row) + dropout 0.1, B=8 H=12 "
           "N=512 bf16 causal", TRAIN_SHAPE, BF16,
           dict(causal=True, dropout_rate=0.1, dropout_seed=7), ("segments",)),
+    # head dim 256: the sweep's d = 256 cell at N = 8K (phase 12), and the
+    # features on the D-split backward
+    "k": ("sweep's d=256 cell B=1 H=8 N=8192 D=256 bf16 causal",
+          (1, 8, 8, 8192, 8192, 256), BF16, dict(causal=True), ()),
+    "l": ("GQA 8/2 window 96 sinks 4 softcap 30 dropout 0.1, B=2 N=300 "
+          "D=256 bf16", (2, 8, 2, 300, 300, 256), BF16,
+          dict(causal=True, window=96, sinks=4, softcap=30.0,
+               dropout_rate=0.1, dropout_seed=21), ()),
 }
 
 
@@ -783,7 +805,7 @@ def flash_bound(q, k, opts, dlse, peak=None):
 
 def flash_peak(dtype, d):
     """The operations rate of the flash route a call takes: bf16 wgmma,
-    3xTF32 wgmma for fp32, CUDA-core FMAs above D = 128."""
+    3xTF32 wgmma for fp32 up to D = 128, CUDA-core FMAs for fp32 above."""
     if not fa._tensor_core_route(dtype, d):
         return FP32_FLOPS_PER_S
     return BF16_FLOPS_PER_S if dtype == torch.bfloat16 else TF32X3_FLOPS_PER_S
@@ -840,6 +862,18 @@ def fma_route(q, k, v, o, lse, do, dlse, opts):
     return run_fwd, run_bwd
 
 
+def kernel_split_ms(q, k, v, do, causal) -> dict[str, float]:
+    """{flash kernel: device ms a call} of scripts/flash_kernel_split.py,
+    loaded by its path (a package named ``scripts`` elsewhere on the path
+    would shadow the directory)."""
+    path = (Path(__file__).resolve().parent / "scripts"
+            / "flash_kernel_split.py")
+    spec = importlib.util.spec_from_file_location("flash_kernel_split", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.kernel_ms(q, k, v, do, causal)
+
+
 def flash_case(timer, gen, dev, key):
     label, shape, dtype, kw, extras = FLASH_CASES[key]
     q, k, v, do, dlse, more = _flash_inputs(gen, dev, shape, dtype, extras)
@@ -892,10 +926,12 @@ def flash_case(timer, gen, dev, key):
         fma_fwd, fma_bwd = fma_route(q, k, v, o_ref, lse_ref, do, dlse, opts)
         t["fwd_fma_ms"] = timer(fma_fwd, reps=10 if big else 30)
         t["bwd_fma_ms"] = timer(fma_bwd, reps=10 if big else 30)
-        if dtype == torch.float32:  # the first kernels' bound, at 67 TFLOP/s
-            fma_bounds, _ = flash_bound(q, k, opts, dlse, FP32_FLOPS_PER_S)
-            t["fwd_fma_bound_ms"] = fma_bounds["fwd"][0]
-            t["bwd_fma_bound_ms"] = fma_bounds["bwd"][0]
+        # the first kernels' bound, at 67 TFLOP/s
+        fma_bounds, _ = flash_bound(q, k, opts, dlse, FP32_FLOPS_PER_S)
+        t["fwd_fma_bound_ms"] = fma_bounds["fwd"][0]
+        t["bwd_fma_bound_ms"] = fma_bounds["bwd"][0]
+    if key in FLASH_SPLIT:
+        t["kernel_ms"] = kernel_split_ms(q, k, v, do, kw["causal"])
     # SDPA(is_causal=causal), no dropout: the library call where the case
     # has no other feature (the same function), else a yardstick.
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -926,6 +962,10 @@ def flash_case(timer, gen, dev, key):
     if "fwd_fma_bound_ms" in t:
         fma += (f" (its bound at {FP32_FLOPS_PER_S / 1e12:g} TFLOP/s: fwd "
                 f"{t['fwd_fma_bound_ms']:.4f} bwd {t['bwd_fma_bound_ms']:.4f})")
+    if "kernel_ms" in t:
+        log("[kernel]   device ms a call by kernel (torch.profiler): "
+            + (", ".join(f"{n} {v:.4f}" for n, v in t["kernel_ms"].items())
+               or "not measured (no kernel recorded)"))
     log(f"[kernel]   fwd {t['fwd_ms']:.4f} ms (issued from the host "
         f"{t['fwd_wall_ms']:.4f}, plain {t['fwd_plain_ms']:.4f}, SDPA "
         f"{sdpa_fwd:.4f}, bound {bounds['fwd'][0]:.4f} {bounds['fwd'][1]})  "
@@ -2934,14 +2974,21 @@ def phase_packed_train(cfg, tc, tokens, seg, dev, on_card, n_warm=2,
 
 
 # The sweep cells run at phase-2 case (b)'s shape, where flash case (b) and
-# fp8 case (b) hold B1-B3 and B4 against their plain versions.
+# fp8 case (b) hold B1-B3 and B4 against their plain versions, and the d =
+# 256 cells at case (k)'s, where flash case (k) holds the D = 256 kernels.
 BENCH_SHAPE = (1, 8, 8192, 128)  # (B, H, N, D), causal
+BENCH_SHAPE_D256 = (1, 8, 8192, 256)
 BENCH_CELLS = {
-    # name: sweep cell (bench.sweep.cell arguments), counter that must move
-    "fa2_fwd": (("fa2", "forward"), {}, "flash_fwd_tc"),
-    "fa2_bwd": (("fa2", "backward"), {}, "flash_bwd_tc"),
+    # name: sweep cell (bench.sweep.cell arguments), counter that must move,
+    # shape
+    "fa2_fwd": (("fa2", "forward"), {}, "flash_fwd_tc", BENCH_SHAPE),
+    "fa2_bwd": (("fa2", "backward"), {}, "flash_bwd_tc", BENCH_SHAPE),
     "fa3_int8_fwd": (("fa3", "forward"), dict(fp8=True, fp8_fmt="int8"),
-                     "flash_fwd_fp8_tc"),
+                     "flash_fwd_fp8_tc", BENCH_SHAPE),
+    "fa2_fwd_d256": (("fa2", "forward"), {}, "flash_fwd_tc",
+                     BENCH_SHAPE_D256),
+    "fa2_bwd_d256": (("fa2", "backward"), {}, "flash_bwd_tc",
+                     BENCH_SHAPE_D256),
 }
 # a cell's events may exceed its traced kernel time by the gaps between
 # its kernels and the cold L2; a host wait inside them would add far more
@@ -2989,20 +3036,23 @@ def phase_bench(dev, on_card, scaling_kw):
 
     rec = {}
     if on_card:
-        b, h, n, d = BENCH_SHAPE
-        launches = collections.Counter()
-        for name, (args, kw, counter) in BENCH_CELLS.items():
+        # launches summed over the cells of each shape: "launches" at
+        # BENCH_SHAPE, "launches_d256" at BENCH_SHAPE_D256
+        launches = {BENCH_SHAPE: collections.Counter(),
+                    BENCH_SHAPE_D256: collections.Counter()}
+        for name, (args, kw, counter, shape) in BENCH_CELLS.items():
+            b, h, n, d = shape
             ns = sweep.cell(*args, n, d, batch=b, heads=h, causal=True, **kw)
             reset_counts()
             r = sweep.run_config(ns)
             counts = read_counts()
-            launches.update(counts)
+            launches[shape].update(counts)
             fn, fn_args, _ = sweep.cell_call(ns)
             fn(*fn_args)
             traced = traced_kernel_ms(lambda: fn(*fn_args))
             rec[name] = dict(record=r.row(), launches=counts,
                              traced_kernel_ms=traced)
-            log(f"[bench] {name} {BENCH_SHAPE} causal: {r.status} "
+            log(f"[bench] {name} {shape} causal: {r.status} "
                 f"{r.mean_ms:.4f} ms (pstdev {r.pstdev_ms:.4f}; one traced "
                 f"call's kernels "
                 + ("not measured" if traced is None else f"{traced:.4f} ms")
@@ -3018,7 +3068,9 @@ def phase_bench(dev, on_card, scaling_kw):
             if traced is not None and r.mean_ms > DEVICE_TIME_SLACK * traced:
                 fail(f"bench cell {name}: {r.mean_ms} ms against {traced} ms "
                      "of kernels: the events held more than device work")
-        rec["launches"] = dict(launches)
+        rec["launches"] = dict(launches[BENCH_SHAPE])
+        rec["launches_d256"] = dict(launches[BENCH_SHAPE_D256])
+        b, h, n, d = BENCH_SHAPE
         gen = torch.Generator(device=dev).manual_seed(SEED)
         q, k, v = (torch.randn((b, h, n, d), generator=gen, device=dev,
                                dtype=BF16) for _ in range(3))
@@ -3064,10 +3116,10 @@ def ptxas_entries(text):
 
 
 # Tensor-core kernels per library: forward at D 64 and 128, dK/dV and dQ at
-# D 64 and 128, each in bf16 and in fp32 (3xTF32); the sparse ones each
-# with one and two consumer warpgroups; the 8-bit forward at D 64 and 128
-# for e4m3, e5m2 and int8.
-SM90_KERNELS = {"flash_fwd": 4, "flash_bwd": 8, "sparse_fwd": 4,
+# D 64 and 128, each in bf16 and in fp32 (3xTF32), and the bf16 three at
+# D 256; the sparse ones each with one and two consumer warpgroups; the
+# 8-bit forward at D 64 and 128 for e4m3, e5m2 and int8.
+SM90_KERNELS = {"flash_fwd": 5, "flash_bwd": 10, "sparse_fwd": 4,
                 "sparse_bwd": 8, "flash_fwd_fp8": 6}
 # The paged split kernels: bf16, int8 (convert and "qk"), e4m3 and e5m2
 # pages, each at 1, 2 and 4 rows a row set.
@@ -3659,6 +3711,33 @@ def main() -> int:
         yardstick_ms=r["yardstick_ms"], case=r["case"],
         sweep_cell="fa3_int8_fwd",
         sweep_ms=bench["fa3_int8_fwd"]["record"]["mean_ms"]))
+    # head dim 256 (bf16 wgmma; the dK/dV kernel split over the head dim):
+    # launches of the two d = 256 sweep cells, numbers of flash case (k),
+    # their shape and call, with case (l) (GQA, window, sinks, soft-cap,
+    # dropout) beside them; fma_ms the first kernels on the same inputs,
+    # with their bound at 67 TFLOP/s
+    rk, rl = report["kernels"]["flash_k"], report["kernels"]["flash_l"]
+    c = bench["launches_d256"]
+    for name, part, errs, cell in (
+            ("flash_fwd", "fwd", ("o", "lse"), "fa2_fwd_d256"),
+            ("flash_bwd", "bwd", ("dq", "dk", "dv"), "fa2_bwd_d256")):
+        kernels.append(dict(
+            name=f"{name}[d256]", **KERNELS[name], launches=c[name],
+            launches_tensor_core=c[f"{name}_tc"],
+            max_abs_err=max(x["max_abs_err"][e] for e in errs
+                            for x in (rk, rl)),
+            ms=rk[f"{part}_ms"], plain_ms=rk[f"{part}_plain_ms"],
+            bound_ms=rk[f"{part}_bound_ms"], bound_by=rk[f"{part}_bound_by"],
+            library_ms=rk[f"library_{part}_ms"], case=rk["case"],
+            fma_ms=rk[f"{part}_fma_ms"],
+            fma_bound_ms=rk[f"{part}_fma_bound_ms"],
+            wall_ms=rk[f"{part}_wall_ms"],
+            **({"kernel_ms": rk["kernel_ms"]} if part == "bwd" else {}),
+            ms_l=rl[f"{part}_ms"], plain_ms_l=rl[f"{part}_plain_ms"],
+            bound_ms_l=rl[f"{part}_bound_ms"],
+            yardstick_ms_l=rl[f"yardstick_{part}_ms"],
+            fma_ms_l=rl[f"{part}_fma_ms"], case_l=rl["case"],
+            sweep_cell=cell, sweep_ms=bench[cell]["record"]["mean_ms"]))
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was launched no time on its main path")

@@ -29,25 +29,38 @@
 //
 // Three routes, chosen by the caller (ops/flash_attn.py):
 //
-//   fat_flash_bwd_sm90 (bf16, D <= 128): every product on the tensor cores
+//   fat_flash_bwd_sm90 (bf16, D <= 256): every product on the tensor cores
 //     (wgmma, bf16 in, fp32 accumulate), tiles by TMA into mbarrier-guarded
 //     rings, warpgroup 0 loading and warpgroups 1-2 computing.
-//     dkv: 128 keys per CTA, 64 per consumer, K and V resident in shared
-//       memory; q, dO (and the LSE and di rows) stream in tiles of 64 rows
-//       (products over fewer of them at a time at D = 128, for registers).
-//       The consumers first round the landed q tile to q_s in place, behind
-//       a named barrier, then compute transposed products so that Pᵀ and
-//       dSᵀ come out in the register A layout: Sᵀ = K·q_sᵀ and dPᵀ = V·dOᵀ
-//       from shared memory, dV += round(p_v)ᵀ·dO and dK += round(ds)ᵀ·q_s
-//       from registers (dO, q_s MN-major). dK and dV stay in registers.
+//     dkv, D <= 128: 128 keys per CTA, 64 per consumer, K and V resident in
+//       shared memory; q, dO (and the LSE and di rows) stream in tiles of 64
+//       rows (products over fewer of them at a time at D = 128, for
+//       registers). The consumers first round the landed q tile to q_s in
+//       place, behind a named barrier, then compute transposed products so
+//       that Pᵀ and dSᵀ come out in the register A layout: Sᵀ = K·q_sᵀ and
+//       dPᵀ = V·dOᵀ from shared memory, dV += round(p_v)ᵀ·dO and dK +=
+//       round(ds)ᵀ·q_s from registers (dO, q_s MN-major). dK and dV stay in
+//       registers.
+//     dkv, 128 < D <= 256 (the D split): one consumer's dK and dV over 64
+//       keys at D = 256 would take 256 registers a thread, above the 240 it
+//       has. So both consumers share one CTA's 64 keys, and each holds
+//       columns [128 cw, 128 cw + 128) of dK and dV (128 registers). Each
+//       computes Sᵀ and dPᵀ for all 64 keys over its 32 of the tile's 64
+//       query rows, writes round(p_v)ᵀ and round(ds)ᵀ into shared memory
+//       (swizzled as TMA would, so wgmma reads them K-major), and after a
+//       named barrier both run dV[:, half] += P_vᵀ·dO[:, half] and
+//       dK[:, half] += dSᵀ·q_s[:, half] over all 64 rows from shared memory.
+//       K and V (32 KB each) stay resident; q and dO tiles (32 KB each) in
+//       two stages; Pᵀ and dSᵀ 8 KB each: ~210 KB.
 //     dq: 128 query rows per CTA (64 per consumer), q and dO resident, K and
-//       V tiles of 64 keys streamed over the forward's walk: S = q_s·Kᵀ,
-//       dP = dO·Vᵀ, dQ += round(ds)·K (K MN-major), scaled at the store.
+//       V tiles streamed over the forward's walk (64 keys; 32 at D = 256,
+//       where dQ takes 128 registers): S = q_s·Kᵀ, dP = dO·Vᵀ, dQ +=
+//       round(ds)·K (K MN-major), scaled at the store.
 //   fat_flash_bwd_sm90_f32 (fp32, D <= 128): the same two kernels with
 //     every product in 3xTF32 (tf32_sm90.cuh; the tiles and stages are set
 //     out where the kernels are defined, below).
-//   fat_flash_bwd (D > 128): the first version below, fp32 FMAs on the
-//     CUDA cores (for the reason given in flash_fwd.cu).
+//   fat_flash_bwd (fp32 with D > 128): the first version below, fp32 FMAs
+//     on the CUDA cores (for the reason given in flash_fwd.cu).
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -414,29 +427,36 @@ cudaError_t dispatch(const AttnArgs& a, const void* dout, const float* lse,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The tensor-core route (bf16, D <= 128)
+// The tensor-core route (bf16, D <= 256)
 // ---------------------------------------------------------------------------
 
 namespace fat {
 namespace sm90 {
 
-constexpr int kDkvKeys = 128;  // keys per dK/dV CTA, 64 per consumer
 constexpr int kDkvRows = 64;   // query rows per streamed q / dO tile
 constexpr int kDqRows = 128;   // query rows per dQ CTA, 64 per consumer
 
 template <int DP>
 struct DkvSm90Cfg {
+  // Above D = 128 the two consumers split the head dim of one 64-key tile
+  // (file header); below, each owns 64 of the CTA's 128 keys.
+  static constexpr bool SPLIT = DP > 128;
+  static constexpr int KEYS = SPLIT ? 64 : 128;  // keys per CTA
   static constexpr int STAGES = 2;
-  static constexpr int KV_BYTES = kDkvKeys * DP * 2;  // K or V, resident
-  static constexpr int T_BYTES = kDkvRows * DP * 2;   // one q or dO tile
+  static constexpr int KV_BYTES = KEYS * DP * 2;     // K or V, resident
+  static constexpr int T_BYTES = kDkvRows * DP * 2;  // one q or dO tile
+  static constexpr int X_BYTES = SPLIT ? KEYS * kDkvRows * 2 : 0;  // Pᵀ, dSᵀ
   static constexpr int BARS = 1 + 2 * STAGES;
   static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + 2 * STAGES * T_BYTES +
-                                 2 * STAGES * kDkvRows * 4 + 8 * BARS;
+                                 2 * X_BYTES + 2 * STAGES * kDkvRows * 4 +
+                                 8 * BARS;
 };
 
 template <int DP>
 struct DqSm90Cfg {
-  static constexpr int KEYS = 64;  // keys per K/V tile (128 spills at D 64)
+  // Keys per K/V tile: 128 spills at D = 64; at D = 256 the dQ accumulator
+  // (128 registers) leaves room for S and dP of 32 keys (16 + 16).
+  static constexpr int KEYS = DP <= 128 ? 64 : 32;
   static constexpr int STAGES = 2;
   static constexpr int Q_BYTES = kDqRows * DP * 2;  // q or dO, resident
   static constexpr int KV_BYTES = KEYS * DP * 2;    // one K or V tile
@@ -456,25 +476,28 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           __nv_bfloat16* __restrict__ dk,
                           __nv_bfloat16* __restrict__ dv) {
   using Cfg = DkvSm90Cfg<DP>;
-  constexpr int STAGES = Cfg::STAGES;
+  constexpr int STAGES = Cfg::STAGES, KEYS = Cfg::KEYS;
   // Query rows per Sᵀ/dPᵀ product: at D = 128 the dK and dV accumulators
-  // (128 registers) leave room for 32 rows of both, not 64.
+  // (128 registers) leave room for 32 rows of both, not 64; in the D split
+  // each consumer takes 32 of the 64.
   constexpr int QS = DP <= 64 ? kDkvRows : kDkvRows / 2;
   extern __shared__ char smem_raw[];
-  char* k_s = align_1024(smem_raw);          // [DP/64][128][64], resident
+  char* k_s = align_1024(smem_raw);          // [DP/64][KEYS][64], resident
   char* v_s = k_s + Cfg::KV_BYTES;           // resident
   char* q_s = v_s + Cfg::KV_BYTES;           // [STAGES] tiles of 64 rows
   char* do_s = q_s + STAGES * Cfg::T_BYTES;  // [STAGES] tiles of 64 rows
-  float* lse_s = reinterpret_cast<float*>(do_s + STAGES * Cfg::T_BYTES);
+  char* pt_s = do_s + STAGES * Cfg::T_BYTES;  // D split: round(p_v)ᵀ
+  char* dst_s = pt_s + Cfg::X_BYTES;          // D split: round(ds)ᵀ
+  float* lse_s = reinterpret_cast<float*>(dst_s + Cfg::X_BYTES);
   float* di_s = lse_s + STAGES * kDkvRows;
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(di_s + STAGES * kDkvRows);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + STAGES;
 
-  const int b = blockIdx.z, hk = blockIdx.y, c0 = blockIdx.x * kDkvKeys;
+  const int b = blockIdx.z, hk = blockIdx.y, c0 = blockIdx.x * KEYS;
   const int G = a.H / a.H_kv;
-  // Query rows that can see some key of [c0, c0 + kDkvKeys).
-  const int c_last = min(c0 + kDkvKeys, a.Nk) - 1;
+  // Query rows that can see some key of [c0, c0 + KEYS).
+  const int c_last = min(c0 + KEYS, a.Nk) - 1;
   int r_begin = 0, r_end = a.Nq;
   if (a.causal) {
     r_begin = max(0, c0 - a.offset);
@@ -502,8 +525,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane < 32 && n_it > 0) {
       if (lane == 0) {
         mbar_expect_tx(kv_full, 2 * Cfg::KV_BYTES);
-        tma_tile<kDkvKeys, DP>(k_s, &tk, kv_full, c0, b * a.H_kv + hk);
-        tma_tile<kDkvKeys, DP>(v_s, &tv, kv_full, c0, b * a.H_kv + hk);
+        tma_tile<KEYS, DP>(k_s, &tk, kv_full, c0, b * a.H_kv + hk);
+        tma_tile<KEYS, DP>(v_s, &tv, kv_full, c0, b * a.H_kv + hk);
       }
       for (int it = 0; it < n_it; ++it) {
         const int s = it % STAGES;
@@ -527,15 +550,21 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
     }
-  } else {  // consumers: 64 keys each
+  } else {  // consumers: 64 keys each, or in the D split 64 keys shared
     reg_alloc<kConsumerRegs>();
+    constexpr bool SPLIT = Cfg::SPLIT;
+    constexpr int DA = SPLIT ? DP / 2 : DP;  // columns of dK, dV held here
     const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
-    const int key0 = c0 + 64 * cw;
+    const int krow = SPLIT ? 0 : 64 * cw;  // first key in the K/V tiles
+    const int key0 = c0 + krow, col0 = SPLIT ? DA * cw : 0;
+    // Query rows of Sᵀ and dPᵀ this consumer takes: all 64, QS at a time,
+    // or in the D split its QS.
+    const int q_lo = SPLIT ? QS * cw : 0, q_hi = SPLIT ? q_lo + QS : kDkvRows;
     const float scale_c = Num<__nv_bfloat16>::round(a.scale);
     const bool post = a.slopes != nullptr || a.softcap > 0.f;
-    float dk_acc[DP / 2], dv_acc[DP / 2];
+    float dk_acc[DA / 2], dv_acc[DA / 2];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < DA / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     if (n_it > 0) mbar_wait(kv_full, 0);
     for (int it = 0; it < n_it; ++it) {
@@ -550,6 +579,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
       mbar_wait(&full[s], ph);
       // q_s = bf16(q * bf16(scale)), in place, before any wgmma reads it.
+      // In the D split, passing this barrier also means both consumers'
+      // products of the step before, which read Pᵀ and dSᵀ, have completed.
       scale_bf16(qt, Cfg::T_BYTES, scale_c, threadIdx.x - 128, 256);
       fence_proxy_async();
       named_sync(1, 256);
@@ -558,17 +589,17 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       // slice after the other (unrolled, the slices' values overlap and
       // spill at D = 128).
 #pragma unroll 1
-      for (int q0 = 0; q0 < kDkvRows; q0 += QS) {
+      for (int q0 = q_lo; q0 < q_hi; q0 += QS) {
         float st[QS / 2], dpt[QS / 2];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk) {
-          wgmma_ss<QS>(st, desc_k<kDkvKeys>(k_s, 64 * cw, kk),
+          wgmma_ss<QS>(st, desc_k<KEYS>(k_s, krow, kk),
                        desc_k<kDkvRows>(qt, q0, kk), kk > 0);
         }
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk) {
-          wgmma_ss<QS>(dpt, desc_k<kDkvKeys>(v_s, 64 * cw, kk),
+          wgmma_ss<QS>(dpt, desc_k<KEYS>(v_s, krow, kk),
                        desc_k<kDkvRows>(dot, q0, kk), kk > 0);
         }
         wgmma_commit();
@@ -608,18 +639,51 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
             dpt[i] = ds;
           }
         });
-        uint32_t pa[QS / 16][4], da[QS / 16][4];
-        acc_to_a<QS>(st, pa);
-        acc_to_a<QS>(dpt, da);
 
-        wgmma_fence();
-        fence_regs(dv_acc);
-        fence_regs(dk_acc);
+        if constexpr (!SPLIT) {
+          // dV += round(p_v)ᵀ·dO, dK += round(ds)ᵀ·q_s over this slice's
+          // rows, Pᵀ and dSᵀ as register A operands.
+          uint32_t pa[QS / 16][4], da[QS / 16][4];
+          acc_to_a<QS>(st, pa);
+          acc_to_a<QS>(dpt, da);
+
+          wgmma_fence();
+          fence_regs(dv_acc);
+          fence_regs(dk_acc);
 #pragma unroll
-        for (int kk = 0; kk < QS / 16; ++kk) {
-          const int k16 = q0 / 16 + kk;
-          wgmma_rs<DP>(dv_acc, pa[kk], desc_mn<kDkvRows>(dot, k16));
-          wgmma_rs<DP>(dk_acc, da[kk], desc_mn<kDkvRows>(qt, k16));
+          for (int kk = 0; kk < QS / 16; ++kk) {
+            const int k16 = q0 / 16 + kk;
+            wgmma_rs<DP>(dv_acc, pa[kk], desc_mn<kDkvRows>(dot, k16));
+            wgmma_rs<DP>(dk_acc, da[kk], desc_mn<kDkvRows>(qt, k16));
+          }
+        } else {
+          // round(p_v)ᵀ and round(ds)ᵀ at (key, query row of the tile),
+          // where the other consumer's products read them; then both run
+          // dV[:, half] += P_vᵀ·dO[:, half] and dK[:, half] +=
+          // dSᵀ·q_s[:, half] over the tile's 64 rows (A K-major, B
+          // MN-major from this consumer's two 64-column halves).
+#pragma unroll
+          for (int i = 0; i < QS / 2; i += 2) {
+            const int at = swizzle128(acc_row(t, i), q0 + acc_col(t, i));
+            *reinterpret_cast<uint32_t*>(pt_s + at) =
+                pack_bf16(st[i], st[i + 1]);
+            *reinterpret_cast<uint32_t*>(dst_s + at) =
+                pack_bf16(dpt[i], dpt[i + 1]);
+          }
+          fence_proxy_async();
+          named_sync(2, 256);
+
+          const int hoff = 2 * cw * kDkvRows * 128;
+          wgmma_fence();
+          fence_regs(dv_acc);
+          fence_regs(dk_acc);
+#pragma unroll
+          for (int kk = 0; kk < kDkvRows / 16; ++kk) {
+            wgmma_ss_mn_n128(dv_acc, desc_k<KEYS>(pt_s, 0, kk),
+                             desc_mn<kDkvRows>(dot + hoff, kk));
+            wgmma_ss_mn_n128(dk_acc, desc_k<KEYS>(dst_s, 0, kk),
+                             desc_mn<kDkvRows>(qt + hoff, kk));
+          }
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -632,8 +696,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // Keys no row sees write zeros.
     const size_t kv_off = ((size_t)b * a.H_kv + hk) * a.Nk;
 #pragma unroll
-    for (int i = 0; i < DP / 2; i += 2) {
-      const int key = key0 + acc_row(t, i), col = acc_col(t, i);
+    for (int i = 0; i < DA / 2; i += 2) {
+      const int key = key0 + acc_row(t, i), col = col0 + acc_col(t, i);
       if (key < a.Nk && col < a.D) {
         const size_t at = (kv_off + key) * a.D + col;
         *reinterpret_cast<__nv_bfloat162*>(dk + at) =
@@ -821,16 +885,27 @@ cudaError_t launch_bwd_sm90(const AttnArgs& a, const void* dout,
   if (err == cudaSuccess) err = make_map(&tv, a.v, a.B * a.H_kv, a.Nk, a.D);
   if (err != cudaSuccess) return err;
   using Bf = __nv_bfloat16;
+  using Kv = DkvSm90Cfg<DP>;
 
   auto dkv_kernel = flash_bwd_dkv_sm90_kernel<DP>;
-  err = set_smem(dkv_kernel, DkvSm90Cfg<DP>::SMEM);
+  err = set_smem(dkv_kernel, Kv::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid_kv((a.Nk + kDkvKeys - 1) / kDkvKeys, a.H_kv, a.B);
-  dkv_kernel<<<grid_kv, kThreadsWS, DkvSm90Cfg<DP>::SMEM, st>>>(
+  const dim3 grid_kv((a.Nk + Kv::KEYS - 1) / Kv::KEYS, a.H_kv, a.B);
+  dkv_kernel<<<grid_kv, kThreadsWS, Kv::SMEM, st>>>(
       tq, tk, tv, tdo, a, lse, di, static_cast<Bf*>(dk), static_cast<Bf*>(dv));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
+  // The dQ kernel's K/V tiles of fewer than 64 keys need boxes of as many
+  // rows (the launch above took its maps by value).
+  constexpr int DQ_KEYS = DqSm90Cfg<DP>::KEYS;
+  if constexpr (DQ_KEYS < kBox) {
+    err = make_map(&tk, a.k, a.B * a.H_kv, a.Nk, a.D, DQ_KEYS);
+    if (err == cudaSuccess) {
+      err = make_map(&tv, a.v, a.B * a.H_kv, a.Nk, a.D, DQ_KEYS);
+    }
+    if (err != cudaSuccess) return err;
+  }
   auto dq_kernel = flash_bwd_dq_sm90_kernel<DP>;
   err = set_smem(dq_kernel, DqSm90Cfg<DP>::SMEM);
   if (err != cudaSuccess) return err;
@@ -1358,7 +1433,7 @@ int fat_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
   return (int)err;
 }
 
-// The tensor-core route: bf16 only, D <= 128; q, k, v and dout 16-byte
+// The tensor-core route: bf16 only, D <= 256; q, k, v and dout 16-byte
 // aligned (TMA). Same arguments as fat_flash_bwd (dtype must be 0).
 int fat_flash_bwd_sm90(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* di,
@@ -1370,7 +1445,7 @@ int fat_flash_bwd_sm90(const void* q, const void* k, const void* v,
                        uint32_t drop_threshold, uint32_t seed, float drop_inv,
                        int dtype, void* stream) {
   using namespace fat;
-  if (dtype != 0 || D < 8 || D > 128 || D % 8 != 0 || H_kv < 1 ||
+  if (dtype != 0 || D < 8 || D > 256 || D % 8 != 0 || H_kv < 1 ||
       H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1383,8 +1458,9 @@ int fat_flash_bwd_sm90(const void* q, const void* k, const void* v,
   const auto* l = static_cast<const float*>(lse);
   const auto* d = static_cast<const float*>(di);
   const cudaError_t err =
-      D <= 64 ? sm90::launch_bwd_sm90<64>(a, dout, l, d, dq, dk, dv, st)
-              : sm90::launch_bwd_sm90<128>(a, dout, l, d, dq, dk, dv, st);
+      D <= 64    ? sm90::launch_bwd_sm90<64>(a, dout, l, d, dq, dk, dv, st)
+      : D <= 128 ? sm90::launch_bwd_sm90<128>(a, dout, l, d, dq, dk, dv, st)
+                 : sm90::launch_bwd_sm90<256>(a, dout, l, d, dq, dk, dv, st);
   return (int)err;
 }
 

@@ -19,18 +19,21 @@
 //
 // Three routes, chosen by the caller (ops/flash_attn.py):
 //
-//   fat_flash_fwd_sm90 (bf16, D <= 128): both products on the tensor cores.
+//   fat_flash_fwd_sm90 (bf16, D <= 256): both products on the tensor cores.
 //     One CTA per (128 query rows, head, batch), three warpgroups. Warpgroup
 //     0 loads: one thread issues TMA for the Q tile once and for K and V
-//     tiles (128 keys at D <= 64, 64 at D <= 128, for the consumers'
-//     registers) into a two-stage ring guarded by mbarriers ("full" per K
-//     and per V, "empty" per stage), walking the tiles the rows can see
-//     (key_tiles: sink tiles, then the band). Warpgroups 1-2 own 64 rows
-//     each: S = Q·Kᵀ by wgmma from shared memory (both K-major), then the
-//     score pipeline and the online softmax on the fp32 accumulator
-//     fragment at absolute (row, col), then p, dropped and rounded to bf16,
-//     as the register A operand of O += P·V (V MN-major). Head dims below
-//     the instantiation's 64 or 128 read zeros from TMA.
+//     tiles (128 keys at D <= 64, 64 above, for the consumers' registers)
+//     into a two-stage ring guarded by mbarriers ("full" per K and per V,
+//     "empty" per stage), walking the tiles the rows can see (key_tiles:
+//     sink tiles, then the band). Warpgroups 1-2 own 64 rows each: S = Q·Kᵀ
+//     by wgmma from shared memory (both K-major), then the score pipeline
+//     and the online softmax on the fp32 accumulator fragment at absolute
+//     (row, col), then p, dropped and rounded to bf16, as the register A
+//     operand of O += P·V (V MN-major). Head dims below the instantiation's
+//     64, 128 or 256 read zeros from TMA. At D = 256 (the instantiation for
+//     128 < D <= 256) O holds 128 registers a thread beside the 64-key score
+//     fragment's 32, P·V is two n128 products over V's column halves, and
+//     shared memory holds Q (64 KB) and two stages of K and V (128 KB).
 //   fat_flash_fwd_sm90_f32 (fp32, D <= 128): the same schedule with both
 //     products in 3xTF32 (tf32_sm90.cuh): each fp32 operand split into two
 //     TF32 parts, three wgmmas a product, which keeps the fp32 1e-4 limit
@@ -39,9 +42,10 @@
 //     landed K tile and write Vᵀ in two parts for P·V; p is split in
 //     registers. Q (128 rows at D <= 64, 64 at D <= 128) stays resident in
 //     two parts; K/V tiles of 64 or 32 keys in two stages (~225 KB).
-//   fat_flash_fwd (D > 128): the first version, fp32 FMAs on the CUDA
-//     cores, body flash_fwd.cuh (shared with B4), because the backward's dK
-//     and dV accumulators do not fit the tensor-core kernels' registers.
+//   fat_flash_fwd (fp32 with D > 128): the first version, fp32 FMAs on the
+//     CUDA cores, body flash_fwd.cuh (shared with B4). 3xTF32 at D = 256
+//     would need two parts of a 64-row Q tile alone (128 KB of shared
+//     memory), so fp32 keeps this kernel there.
 
 #include "flash_fwd.cuh"
 #include "flash_sm90.cuh"
@@ -56,7 +60,8 @@ template <int DP>
 struct FwdSm90Cfg {
   // Keys per K/V tile. At D = 128 the O accumulator (64 registers) and a
   // 64 x 128 score fragment (64 more) with the score pipeline's values
-  // overflow a consumer's 240 registers: 64 keys there.
+  // overflow a consumer's 240 registers: 64 keys there, and at D = 256
+  // (O 128 registers).
   static constexpr int KEYS = DP <= 64 ? 128 : 64;
   static constexpr int STAGES = 2;
   static constexpr int Q_BYTES = kFwdRows * DP * 2;
@@ -523,7 +528,7 @@ int fat_flash_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)err;
 }
 
-// The tensor-core route: bf16 only, D <= 128; q, k and v 16-byte aligned
+// The tensor-core route: bf16 only, D <= 256; q, k and v 16-byte aligned
 // (TMA). Same arguments as fat_flash_fwd (dtype must be 0).
 int fat_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                        void* lse, const void* q_ids, const void* kv_ids,
@@ -533,7 +538,7 @@ int fat_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                        int dropout, uint32_t drop_threshold, uint32_t seed,
                        float drop_inv, int dtype, void* stream) {
   using namespace fat;
-  if (dtype != 0 || D < 8 || D > 128 || D % 8 != 0 || H_kv < 1 ||
+  if (dtype != 0 || D < 8 || D > 256 || D % 8 != 0 || H_kv < 1 ||
       H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535) {
     return (int)cudaErrorInvalidValue;
   }
@@ -544,8 +549,9 @@ int fat_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
              drop_threshold, seed, drop_inv};
   auto st = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<float*>(lse);
-  const cudaError_t err = D <= 64 ? sm90::launch_fwd_sm90<64>(a, o, l, st)
-                                  : sm90::launch_fwd_sm90<128>(a, o, l, st);
+  const cudaError_t err = D <= 64    ? sm90::launch_fwd_sm90<64>(a, o, l, st)
+                          : D <= 128 ? sm90::launch_fwd_sm90<128>(a, o, l, st)
+                                     : sm90::launch_fwd_sm90<256>(a, o, l, st);
   return (int)err;
 }
 

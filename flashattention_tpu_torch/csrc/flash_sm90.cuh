@@ -1,5 +1,5 @@
-// Hopper (sm_90a) machinery of the tensor-core flash kernels (the bf16,
-// D <= 128 routes of flash_fwd.cu and flash_bwd.cu): tensor maps made on the
+// Hopper (sm_90a) machinery of the tensor-core flash kernels (the bf16
+// routes of flash_fwd.cu and flash_bwd.cu): tensor maps made on the
 // host, TMA loads that complete on mbarriers, wgmma descriptors for
 // 128-byte-swizzled bf16 tiles in K-major and MN-major form, the wgmma
 // instructions the kernels issue, setmaxnreg, and the map from an element of
@@ -8,11 +8,13 @@
 // Tiles. Every tile in shared memory is a stack of "halves" of R rows x 64
 // bf16 columns (128 bytes a row), one per 64 columns of the head dim, each
 // written by TMA with the 128-byte swizzle (16-byte chunk c of row r lands
-// at chunk c ^ (r % 8)) from boxes of 64 rows x 64 columns. That is the
+// at chunk c ^ (r % 8)) from boxes of 64 (or, for a 32-row tile, 32) rows x
+// 64 columns. That is the
 // layout wgmma reads with layout type SWIZZLE_128B: 8-row groups 1024 bytes
 // apart. Tiles start 1024-byte aligned. TMA fills reads past the tensor's
-// rows or columns with zeros, so a head dim below 64 or 128 and a ragged
-// row count need no code of their own.
+// rows or columns with zeros (a box wholly past the head dim included), so
+// a head dim below 64, 128 or 256 and a ragged row count need no code of
+// their own.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
@@ -58,9 +60,10 @@ inline EncodeTiled encode_tiled() {
 constexpr int kBox = 64;  // TMA box: 64 rows x 64 columns (8 KB)
 
 // Map of a contiguous bf16 tensor (planes, rows, cols), 16-byte aligned, read
-// in kBox x kBox boxes with the 128-byte swizzle. Returns a CUDA error code.
+// in boxes of box_rows x kBox with the 128-byte swizzle. Returns a CUDA
+// error code.
 inline cudaError_t make_map(CUtensorMap* m, const void* base, int planes,
-                            int rows, int cols) {
+                            int rows, int cols, int box_rows = kBox) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || cols % 8 != 0) {
@@ -70,7 +73,7 @@ inline cudaError_t make_map(CUtensorMap* m, const void* base, int planes,
                               (cuuint64_t)planes};
   const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
                                  (cuuint64_t)cols * rows * 2};
-  const cuuint32_t box[3] = {kBox, kBox, 1};
+  const cuuint32_t box[3] = {kBox, (cuuint32_t)box_rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUresult r = enc(
       m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
@@ -150,16 +153,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 }
 
 // Rows [row, row + R) of `plane`, all DP columns, into the tile at `dst`
-// (DP / 64 halves of R x 64). R * DP * 2 bytes complete on `bar`.
+// (DP / 64 halves of R x 64). R * DP * 2 bytes complete on `bar`. A tile of
+// fewer than 64 rows needs a map of R-row boxes.
 template <int R, int DP>
 __device__ __forceinline__ void tma_tile(char* dst, const CUtensorMap* map,
                                          uint64_t* bar, int row, int plane) {
+  constexpr int BR = R < kBox ? R : kBox;  // rows per box
 #pragma unroll
   for (int hf = 0; hf < DP / 64; ++hf) {
 #pragma unroll
-    for (int rb = 0; rb < R / kBox; ++rb) {
-      tma_load(dst + (hf * R + rb * kBox) * 128, map, bar, hf * 64,
-               row + rb * kBox, plane);
+    for (int rb = 0; rb < R / BR; ++rb) {
+      tma_load(dst + (hf * R + rb * BR) * 128, map, bar, hf * 64,
+               row + rb * BR, plane);
     }
   }
 }
@@ -296,6 +301,27 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 128, fp32) += A (64 x 16) * B (16 x 128); A K-major and B
+// MN-major (transpose bit set) in shared memory.
+__device__ __forceinline__ void wgmma_ss_mn_n128(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "n"(1));
+}
+
 // D (64 x 64, fp32) += A (64 x 16, bf16 registers in the A layout) *
 // B (16 x 64); B MN-major in shared memory (transpose bit set).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -386,15 +412,29 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
   }
 }
 
+// N = 256 (the head dim 256 accumulators) is two n128 products over the
+// fragment's halves (elements 0-63 hold columns 0-127): B's columns 128-255
+// start two 64-column halves, 2 LBO, further on.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma_rs: N is 64-256");
   if constexpr (N == 64) {
     wgmma_rs_n64(d, a, db);
-  } else {
+  } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, db);
+  } else {
+    const uint64_t lbo16 = (db >> 16) & 0x3FFF;  // LBO in 16-byte units
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d), a, db);
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d + 64), a, db + 2 * lbo16);
   }
+}
+
+// Byte offset of bf16 element (r, c) in a tile of 128-byte rows (64
+// columns) written as TMA's 128-byte swizzle lays it out, so that
+// desc_k reads it as a K-major operand; the tile is 1024-byte aligned.
+__device__ __forceinline__ int swizzle128(int r, int c) {
+  return r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
 }
 
 // Rounds `bytes` of bf16 at p (a multiple of 16) to bf16(x * scale) in

@@ -10,14 +10,15 @@ tensors it runs their plain PyTorch versions, :func:`flash_fwd_plain` and
 not take raises, and so does a failed build or launch.
 
 Each source has three entry points, chosen by :func:`_tensor_core_route`:
-with D <= 128 bf16 runs ``fat_flash_fwd_sm90`` / ``fat_flash_bwd_sm90``
-(wgmma on the tensor cores, tiles by TMA) and fp32 runs
-``fat_flash_fwd_sm90_f32`` / ``fat_flash_bwd_sm90_f32`` (the same on
-3xTF32 wgmma: each fp32 operand split into two TF32 parts, three products
-summed in fp32, ``csrc/tf32_sm90.cuh``); above D = 128 both run the first
-kernels (fp32 FMAs on the CUDA cores). ``kernel_attention.fwd_launches``
-and ``bwd_launches`` count every call; ``fwd_tc_launches`` and
-``bwd_tc_launches`` count the tensor-core routes.
+bf16 with D <= 256 runs ``fat_flash_fwd_sm90`` / ``fat_flash_bwd_sm90``
+(wgmma on the tensor cores, tiles by TMA; above D = 128 the dK/dV kernel
+splits the head dim between its two consumer warpgroups); fp32 with
+D <= 128 runs ``fat_flash_fwd_sm90_f32`` / ``fat_flash_bwd_sm90_f32`` (the
+same on 3xTF32 wgmma: each fp32 operand split into two TF32 parts, three
+products summed in fp32, ``csrc/tf32_sm90.cuh``); fp32 above D = 128 runs
+the first kernels (fp32 FMAs on the CUDA cores).
+``kernel_attention.fwd_launches`` and ``bwd_launches`` count every call;
+``fwd_tc_launches`` and ``bwd_tc_launches`` count the tensor-core routes.
 
 Contract (as in the JAX package): q (B, H, N_q, D), k/v (B, H_kv, N_k, D)
 with H % H_kv == 0; returns o in q's shape and dtype and an fp32 LSE
@@ -222,11 +223,14 @@ def _ptr(t):
 
 
 def _tensor_core_route(dtype, d: int) -> bool:
-    """True where the tensor-core kernels take the call: bf16 or fp32 with
-    D <= 128 (fp32 on 3xTF32, which keeps the fp32 1e-4 limit where one
-    TF32 product would not). Above D = 128 the backward's dK and dV
-    accumulators do not fit the registers."""
-    return dtype in (torch.bfloat16, torch.float32) and d <= 128
+    """True where the tensor-core kernels take the call: bf16 with
+    D <= MAX_HEAD_DIM (256), or fp32 with D <= 128 (on 3xTF32, which keeps
+    the fp32 1e-4 limit where one TF32 product would not). fp32 above
+    D = 128 stays on the FMA kernels: the two TF32 parts of a 64-row Q tile
+    alone would take 128 KB of shared memory at D = 256."""
+    if dtype == torch.bfloat16:
+        return d <= MAX_HEAD_DIM
+    return dtype == torch.float32 and d <= 128
 
 
 def _entry(lib: ctypes.CDLL, prefix: str, dtype, d: int):

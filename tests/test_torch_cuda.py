@@ -553,8 +553,8 @@ def test_spec_engine_on_card(cuda_device, draft_layers):
 # name: ((b, h, h_kv, n_q, n_k, d), dtype, kernel_attention kwargs, extras);
 # one case per chip_smoke.py flash case (the bench shape cut to N = 2048),
 # plus ragged and head-dim edges, in fp32 and in bf16: the tensor-core
-# routes (bf16 wgmma, fp32 3xTF32 wgmma) wherever D <= 128, the FMA route
-# above.
+# routes (bf16 wgmma up to D = 256, fp32 3xTF32 wgmma up to D = 128), the
+# FMA route for fp32 above D = 128.
 FLASH_CASES = {
     "a_train": ((8, 12, 12, 512, 512, 64), torch.bfloat16,
                 dict(causal=True, dropout_rate=0.1, dropout_seed=3), ()),
@@ -589,10 +589,40 @@ FLASH_CASES = {
              dropout_seed=21), ()),
     "bf16_full_segments_alibi": ((2, 4, 4, 192, 320, 64), torch.bfloat16,
                                  dict(causal=False), ("segments", "alibi")),
-    "bf16_d256_fma_route": ((1, 2, 2, 100, 77, 256), torch.bfloat16,
-                            dict(causal=True), ()),
+    "bf16_d256_ragged": ((1, 2, 2, 100, 77, 256), torch.bfloat16,
+                         dict(causal=True), ()),
     "bf16_k_unaligned_view": ((2, 4, 2, 128, 128, 64), torch.bfloat16,
                               dict(causal=True), ("k_unaligned",)),
+    # the same edges at D = 256 and 192 (the D-split dK/dV kernel; columns
+    # past D read as zeros from TMA) and at D = 136
+    "bf16_d256_gqa_window_dropout": (
+        (2, 8, 2, 300, 300, 256), torch.bfloat16,
+        dict(causal=True, window=96, sinks=4, softcap=30.0, dropout_rate=0.1,
+             dropout_seed=21), ()),
+    "bf16_d192_gqa_window_dropout": (
+        (2, 8, 2, 300, 300, 192), torch.bfloat16,
+        dict(causal=True, window=96, sinks=4, softcap=30.0, dropout_rate=0.1,
+             dropout_seed=21), ()),
+    "bf16_d256_full_segments_alibi": ((2, 4, 4, 192, 320, 256),
+                                      torch.bfloat16, dict(causal=False),
+                                      ("segments", "alibi")),
+    "bf16_d192_full_segments_alibi": ((2, 4, 4, 192, 320, 192),
+                                      torch.bfloat16, dict(causal=False),
+                                      ("segments", "alibi")),
+    "bf16_d256_offset": ((2, 2, 1, 77, 130, 256), torch.bfloat16,
+                         dict(causal=True, q_offset=20), ("dlse",)),
+    "bf16_d136_offset": ((2, 2, 1, 77, 130, 136), torch.bfloat16,
+                         dict(causal=True, q_offset=20), ("dlse",)),
+    "bf16_d256_empty_rows": ((1, 4, 4, 64, 64, 256), torch.bfloat16,
+                             dict(causal=True, q_offset=-10), ()),
+    "bf16_d136_gqa_window_empty_rows": (
+        (2, 4, 2, 100, 100, 136), torch.bfloat16,
+        dict(causal=True, q_offset=-10, window=30, sinks=2), ()),
+    "bf16_d192_gqa_window_empty_rows": (
+        (2, 4, 2, 100, 100, 192), torch.bfloat16,
+        dict(causal=True, q_offset=-10, window=30, sinks=2), ()),
+    "bf16_d256_k_unaligned_view": ((2, 4, 2, 128, 128, 256), torch.bfloat16,
+                                   dict(causal=True), ("k_unaligned",)),
     # the same edges on the fp32 (3xTF32) kernels
     "fp32_d128_gqa_window_dropout": (
         (2, 8, 2, 300, 300, 128), torch.float32,
@@ -669,7 +699,8 @@ def test_flash_kernels_match_plain(cuda_device, case):
         assert g.dtype == r.dtype and g.shape == r.shape
         rtol, atol = flash_tol(dtype, r)
         assert_allclose(g, r, rtol=rtol, atol=atol, err_msg=f"{case} {name}")
-    tc = int(shape[-1] <= 128)  # bf16 and fp32 alike
+    tc = int(fa._tensor_core_route(dtype, shape[-1]))  # fp32 D > 128: FMA
+    assert tc == int(dtype == torch.bfloat16 or shape[-1] <= 128)
     after = (ka.fwd_launches, ka.bwd_launches, ka.fwd_tc_launches,
              ka.bwd_tc_launches)
     assert tuple(x - y for x, y in zip(after, before)) == (1, 1, tc, tc)
@@ -680,6 +711,23 @@ def test_flash_bf16_backward_is_deterministic(cuda_device):
     """The tensor-core backward at the training shape with dropout, twice:
     bit-equal gradients (no atomics, so no dependence on block order)."""
     shape, dtype, kw, extras = FLASH_CASES["a_train"]
+    q, k, v, do, _, _ = flash_inputs(shape, dtype, extras, cuda_device)
+    opts = fa.make_opts(q, k, **kw)
+    o, lse = fa.flash_fwd(q, k, v, opts)
+    t0 = fa.kernel_attention.bwd_tc_launches
+    first = fa.flash_bwd(q, k, v, o, lse, do, None, opts)
+    second = fa.flash_bwd(q, k, v, o, lse, do, None, opts)
+    torch.cuda.synchronize()
+    assert fa.kernel_attention.bwd_tc_launches - t0 == 2
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_flash_bf16_d256_backward_is_deterministic(cuda_device):
+    """The D = 256 backward, whose two consumers pass Pᵀ and dSᵀ through
+    shared memory, twice at GQA with a window and dropout: bit-equal."""
+    shape, dtype, kw, extras = FLASH_CASES["bf16_d256_gqa_window_dropout"]
     q, k, v, do, _, _ = flash_inputs(shape, dtype, extras, cuda_device)
     opts = fa.make_opts(q, k, **kw)
     o, lse = fa.flash_fwd(q, k, v, opts)

@@ -61,6 +61,14 @@ CASES = {
     "all": ((2, 4, 2, 200, 200, 32),
             dict(causal=True, window=64, sinks=3, softcap=5.0, alibi=True,
                  segments=True, dropout_rate=0.1, dropout_seed=5), True),
+    # head dims above 128 (bf16 on the card: the D = 256 tensor-core kernels)
+    "d256_window_dropout": ((1, 4, 2, 96, 130, 256),
+                            dict(causal=True, window=40, sinks=3,
+                                 softcap=20.0, dropout_rate=0.2,
+                                 dropout_seed=31), True),
+    "d192_segments_alibi": ((2, 2, 2, 64, 100, 192),
+                            dict(causal=False, segments=True, alibi=True),
+                            False),
 }
 
 
@@ -91,11 +99,16 @@ def _kwargs(case, shape):
     kw = dict(CASES[case][1])
     jkw, tkw = dict(kw), dict(kw)
     if kw.pop("segments", False):
-        ids = _segments(b, n_q)
         for d in (jkw, tkw):
             d.pop("segments")
-        jkw["segment_ids"] = jnp.asarray(ids)
-        tkw["segment_ids"] = torch.from_numpy(ids)
+        if n_q == n_k:
+            ids = _segments(b, n_q)
+            jkw["segment_ids"] = jnp.asarray(ids)
+            tkw["segment_ids"] = torch.from_numpy(ids)
+        else:  # a (q_ids, kv_ids) pair
+            ids = (_segments(b, n_q), _segments(b, n_k, seed=2))
+            jkw["segment_ids"] = tuple(jnp.asarray(x) for x in ids)
+            tkw["segment_ids"] = tuple(torch.from_numpy(x) for x in ids)
     if kw.pop("alibi", False):
         slopes = (0.5 ** np.arange(1, h + 1)).astype(np.float32)
         for d in (jkw, tkw):
@@ -107,7 +120,9 @@ def _kwargs(case, shape):
 
 # every feature in fp32; a subset in bf16
 PARAMS = ([(c, "float32") for c in sorted(CASES)]
-          + [(c, "bfloat16") for c in ("causal", "gqa", "dropout", "all")])
+          + [(c, "bfloat16") for c in ("causal", "gqa", "dropout", "all",
+                                        "d256_window_dropout",
+                                        "d192_segments_alibi")])
 
 
 @pytest.mark.parametrize("case,dtype", PARAMS)
@@ -168,14 +183,17 @@ def test_same_seed_same_output_and_lse_ignores_dropout():
     assert torch.equal(l1, l0)
 
 
-@pytest.mark.parametrize("bad", ["d", "heads", "window", "sinks", "seed",
-                                 "segments", "slopes"])
+@pytest.mark.parametrize("bad", ["d", "d264", "heads", "window", "sinks",
+                                 "seed", "segments", "slopes"])
 def test_contract_errors(bad):
     q = torch.zeros(1, 4, 16, 32)
     k = torch.zeros(1, 2, 16, 32)
     kw = dict(causal=True)
     if bad == "d":
         q, k = torch.zeros(1, 4, 16, 36), torch.zeros(1, 2, 16, 36)
+    elif bad == "d264":  # above MAX_HEAD_DIM, in bf16 as in fp32
+        q = torch.zeros(1, 4, 16, 264, dtype=torch.bfloat16)
+        k = torch.zeros(1, 2, 16, 264, dtype=torch.bfloat16)
     elif bad == "heads":
         k = torch.zeros(1, 3, 16, 32)
     elif bad == "window":
@@ -204,12 +222,13 @@ def test_cpu_path_launches_no_kernel():
     assert torch.equal(o.detach(), o_plain)
 
 
-# (dtype, head dim, tensor-core route?): bf16 and fp32 up to D = 128 go to
-# the Hopper kernels (fp32 on 3xTF32); both keep the FMA kernels above.
-ROUTES = ([("bfloat16", d, True) for d in (40, 64, 128)]
+# (dtype, head dim, tensor-core route?): bf16 up to D = 256 and fp32 up to
+# D = 128 go to the Hopper kernels (fp32 on 3xTF32); fp32 keeps the FMA
+# kernels above D = 128. No route takes D = 264 (make_opts refuses it).
+ROUTES = ([("bfloat16", d, True) for d in (40, 64, 128, 136, 192, 256)]
           + [("float32", d, True) for d in (40, 64, 128)]
           + [("float32", d, False) for d in (136, 256)]
-          + [("bfloat16", d, False) for d in (136, 256)])
+          + [("bfloat16", 264, False)])
 
 
 @pytest.mark.parametrize("dtype,d,want", ROUTES)
