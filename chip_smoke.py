@@ -13,8 +13,10 @@ Phases, in order; any failure exits nonzero:
    all at once). The tensor-core kernels (flash: forward, dK/dV, dQ at D 64
    and 128, each in bf16 and in fp32 on 3xTF32, and the bf16 three at D
    256, the dK/dV one split over the head dim; sparse: the same three at
-   D 64 and 128, each with one and two consumer warpgroups; the 8-bit
-   forward at D 64 and 128 in e4m3, e5m2 and int8; 33 in all) must show
+   D 64 and 128, each with one and two consumer warpgroups, and at D 256
+   the forward and dQ with one and two and the dK/dV one split over the
+   head dim; the 8-bit forward at D 64 and 128 in e4m3, e5m2 and int8; 38
+   in all) must show
    HGMMA (wgmma) and UTMALDG (TMA) in their
    SASS (cuobjdump) and spill nothing (ptxas report of this build); the 15
    paged split kernels must show UBLKCP (1-D bulk copies) and spill
@@ -65,14 +67,20 @@ Phases, in order; any failure exits nonzero:
    for the s8 case), timed beside the FMA kernel on the same inputs, plus
    its straight-through backward (o and
    gradients at the bf16 flash limit: p is bf16 on the 8-bit path). The
-   block-sparse forward (sparse_fwd) and backward (sparse_bwd) in four
+   block-sparse forward (sparse_fwd) and backward (sparse_bwd) in eight
    cases, each launched once on the route it must take (checked by the
    route counters): the model phase's call (2, 12, 4096, 64) and the
    BASELINE head dim (1, 8, 8192, 128) with the local + global pattern,
    and N_q != N_k with 64-row q blocks and an LSE cotangent, on the tensor
    cores; GQA 12/4 at a ragged N = 1000 in fp32 with an empty q-block row,
-   on the FMA kernels. o and gradients at the flash limit, LSE at 1e-4
-   where a row sees a key, -inf exactly on empty q blocks and the mask
+   on the FMA kernels; at head dim 256 on the tensor cores, flash case
+   (k)'s shape (1, 8, 8192, 256) with the local + global pattern (e),
+   GQA 8/2 at D = 136 with N_q != N_k, blocks 64 x 128, an emptied q-block
+   row and an LSE cotangent (f), phase 7b's call (1, 8, 1, 4096, 4096, 256)
+   (g: MQA, phase 7's pattern) and the same at the attention widths of
+   Qwen3.8-Flash-Next's block-sparse (QSA) layers, 24 query heads over 2
+   KV heads (h). o and gradients at the flash limit, LSE
+   at 1e-4 where a row sees a key, -inf exactly on empty q blocks and the mask
    value exactly on rows of visited blocks that see no key, dK = dV = 0
    exactly on KV blocks no q block visits; bounds from the pairs the
    pattern keeps; times of the wrapper (which builds the lists on the
@@ -129,6 +137,13 @@ Phases, in order; any failure exits nonzero:
    device time summed by name)
    step, card vs CPU loss and gradients at N=512 with a 4 x 4 pattern, and
    an all-ones pattern against no pattern (logits at the bf16 rung).
+7b. Phase 7 at head dim 256: Gemma 2B's attention widths (google/gemma-2b
+   config.json: hidden 2048, 8 query heads, 1 KV head, head_dim 256,
+   intermediate 16384; cut to 2 layers, the port's vocab 50257, its GELU
+   MLP and LayerNorm; rope), B=1, N=4096, the same pattern: exactly 2
+   sparse_fwd per no-grad forward, 4 sparse_fwd and 2 sparse_bwd per step,
+   all on the tensor-core route (the D = 256 kernels), no flash launch;
+   card vs CPU at N=512; the all-ones pattern against the flash route.
 8. The speculative engine: phase 3's config with spec_gamma=4, 32 requests
    of 32-400-token prompts (phase 3's draws), 32 new tokens each, in three
    arms, each after a warm-up engine: plain (no draft; the reference
@@ -217,7 +232,9 @@ phase 11's fp32 card check's, numbers of cases (e) and (h),
 ``flash_fwd[sweep]`` and ``flash_bwd[sweep]`` with case (b),
 ``flash_fwd_fp8[sweep]`` with fp8 case (b), ``flash_fwd[d256]`` and
 ``flash_bwd[d256]``: launches of the d = 256 sweep cells, numbers of case
-(k) with case (l) beside them).
+(k) with case (l) beside them; ``sparse_fwd[d256]`` and
+``sparse_bwd[d256]``: launches of phase 7b's steps, numbers of sparse case
+(g), phase 7b's call, with cases (e), (f) and (h) beside them).
 ``--cpu-rehearsal`` skips phases 1-2, runs the others at a tiny width on
 the CPU (phase 9's workers on the CPU, phase 10's rank over gloo) and
 never prints the device line.
@@ -239,6 +256,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -992,6 +1010,13 @@ def random_pattern(n_q_tiles, n_k_tiles, density, empty_row, seed):
     return p
 
 
+def emptied(pattern, row):
+    """``pattern`` with q-block row ``row`` attending to nothing."""
+    p = pattern.clone()
+    p[row] = False
+    return p
+
+
 # key: (label, shape, dtype, causal, (block_q, block_k), pattern, use dlse)
 SPARSE_CASES = {
     "a": ("the model phase's call (2, 12, 4096, 64) bf16 causal, local+global "
@@ -1006,6 +1031,26 @@ SPARSE_CASES = {
     "d": ("N_q 384 != N_k 512 bf16 causal, blocks 64 x 128, local+global, "
           "LSE cotangent", (2, 8, 8, 384, 512, 64), BF16, True, (64, 128),
           local_global(6, 4), True),
+    # head dim 256 on the tensor cores: flash case (k)'s shape, and the
+    # edges of the D-split kernels (GQA, one consumer in the forward and dQ,
+    # a 128-key block over two dK/dV CTAs, a 64-column half past D = 136)
+    "e": ("flash case (k)'s shape (1, 8, 8192, 256) bf16 causal, "
+          "local+global on 64 x 64 tiles of 128", (1, 8, 8, 8192, 8192, 256),
+          BF16, True, (128, 128), local_global(64, 64), False),
+    "f": ("GQA 8/2, N_q 384 != N_k 512, D=136 bf16 causal, blocks 64 x 128, "
+          "local+global with q-block row 2 emptied, LSE cotangent",
+          (2, 8, 2, 384, 512, 136), BF16, True, (64, 128),
+          emptied(local_global(6, 4), 2), True),
+    # phase 7b's call (Gemma 2B's MQA: one dK/dV CTA walks 8 heads), and
+    # the attention widths of Qwen3.8-Flash-Next's QSA block-sparse layers
+    # (Qwen/Qwen3.8-Flash-Next config.json: head_dim 256, 24 query heads,
+    # 2 KV heads) on the same call
+    "g": ("phase 7b's call (1, 8, 1, 4096, 4096, 256) bf16 causal, "
+          "local+global on 32 x 32 tiles of 128", (1, 8, 1, 4096, 4096, 256),
+          BF16, True, (128, 128), local_global(32, 32), False),
+    "h": ("QSA widths (1, 24, 2, 4096, 4096, 256) bf16 causal, local+global "
+          "on 32 x 32 tiles of 128", (1, 24, 2, 4096, 4096, 256), BF16, True,
+          (128, 128), local_global(32, 32), False),
 }
 
 
@@ -1230,7 +1275,7 @@ def fp8_case(timer, gen, dev, key):
     o_api, _ = f8.fp8_attention(q, k, v, fmt=fmt, int8_pv=int8_pv, mode=mode,
                                 **kw, **more)
     torch.cuda.synchronize()
-    want_tc = int(int8_pv != "s8")  # every case but (g) has D 64 or 128
+    want_tc = int(f8._tensor_core_route(int8_pv, d, f8.FP8_KERNEL_BLOCK_K))
     if (f8.fp8_attention.launches, f8.fp8_attention.tc_launches) != (
             1, want_tc):
         fail(f"fp8 {key}: fp8_attention launched flash_fwd_fp8 "
@@ -2301,7 +2346,7 @@ def _sparse_loss(params, toks, cfg, pattern):
     return ttrain.token_nll(logits, toks[:, 1:]).mean()
 
 
-def _sparse_vs_cpu(cfg, dev, n, pattern):
+def _sparse_vs_cpu(cfg, dev, n, pattern, tag):
     """Loss and gradients through the sparse route: the bf16 card against
     the fp32 CPU (plain versions), from the same fp32 parameters."""
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
@@ -2310,17 +2355,17 @@ def _sparse_vs_cpu(cfg, dev, n, pattern):
     toks = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
         0, cfg.vocab_size, size=(1, n + 1)))
     out = {}
-    for tag, params, c, d in (("card", card_params, cfg, dev),
-                              ("cpu_fp32", ref_params, cfg32, "cpu")):
+    for side, params, c, d in (("card", card_params, cfg, dev),
+                               ("cpu_fp32", ref_params, cfg32, "cpu")):
         loss = _sparse_loss(params, toks.to(d), c, pattern.to(d))
         loss.backward()
-        out[tag] = (loss.item(), {name: p.grad.float().cpu()
-                                  for name, p in params.named_parameters()})
+        out[side] = (loss.item(), {name: p.grad.float().cpu()
+                                   for name, p in params.named_parameters()})
     (lc, gc), (lr, gr) = out["card"], out["cpu_fp32"]
     loss_err = abs(lc - lr)
     rel = (sum(float((gc[k] - gr[k]).square().sum()) for k in gr)
            / sum(float(gr[k].square().sum()) for k in gr)) ** 0.5
-    log(f"[sparse] card vs cpu at N={n}, pattern {pattern.int().tolist()}: "
+    log(f"[{tag}] card vs cpu at N={n}, pattern {pattern.int().tolist()}: "
         f"loss bf16 {lc:.6f} vs fp32 {lr:.6f} (|diff| {loss_err:.3e}, tol "
         f"{TRAIN_TOL:g} abs+rel); gradient global relative L2 {rel:.3e} (tol "
         f"{TRAIN_TOL:g})")
@@ -2333,7 +2378,20 @@ def _sparse_vs_cpu(cfg, dev, n, pattern):
                 grad_rel_l2=rel, tol=TRAIN_TOL)
 
 
-def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3):
+def gemma_sparse_config():
+    """Phase 7b's model: Gemma 2B's attention widths (google/gemma-2b
+    config.json: hidden 2048, 8 query heads, 1 KV head, head_dim 256,
+    intermediate 16384) cut to 2 layers, with the port's vocabulary (50257),
+    GELU MLP and LayerNorm at that d_ff; rope, dropout 0, remat "full",
+    bf16, 128-token tiles."""
+    return TransformerConfig(d_model=2048, n_heads=8, n_kv_heads=1,
+                             d_ff=16384, pos_encoding="rope", n_layers=2,
+                             max_seq_len=4096, dropout_rate=0.0,
+                             block_size=128)
+
+
+def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
+                       tag="sparse"):
     """The block-sparse slice's main path at ``cfg``: the local + global
     pattern on the n / block_size square of tiles, through
     ``apply_transformer(sparse_pattern=...)``. (1) one no-grad forward;
@@ -2343,7 +2401,7 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3):
     (4) loss and gradients, bf16 card vs fp32 CPU, at ``check_n`` with the
     4 x 4 pattern of tests/test_sparse.py; (5) an all-ones pattern (the
     sparse route) against no pattern (the flash route), logits at the bf16
-    rung."""
+    rung. Log lines start with ``[tag]``."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -2354,7 +2412,7 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3):
         0, cfg.vocab_size, size=(b, n + 1))).to(dev)
     reach = sa.tile_pattern(pattern, n_tiles, n_tiles, cfg.block_size,
                             cfg.block_size, True, 0)
-    log(f"[sparse] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"[{tag}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads, vocab {cfg.vocab_size}, remat "
         f"{cfg.remat_policy if cfg.remat else 'off'}, {cfg.dtype}; B={b} "
         f"N={n}; local+global pattern: {int(reach.sum())} of "
@@ -2375,7 +2433,7 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3):
             not torch.isfinite(logits).all():
         fail("sparse model logits are misshapen or not finite")
     del logits
-    log(f"[sparse] no-grad forward launches: {counts}")
+    log(f"[{tag}] no-grad forward launches: {counts}")
     if on_card and (counts["sparse_fwd"], counts["sparse_fwd_tc"],
                     counts["flash_fwd"]) != (L, L, 0):
         fail(f"no-grad forward launched {counts}; want {L} sparse_fwd on the "
@@ -2405,10 +2463,10 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3):
                                      if on_card else None))
     if not all(np.isfinite(losses)):
         fail(f"sparse model losses are not finite: {losses}")
-    log(f"[sparse] {n_timed} forward+backward steps: median "
+    log(f"[{tag}] {n_timed} forward+backward steps: median "
         f"{rec['median_step_ms']:.2f} ms, {rec['tokens_per_s']:.1f} tokens/s; "
         f"losses " + " ".join(f"{x:.4f}" for x in losses))
-    log(f"[sparse] launches: {counts}")
+    log(f"[{tag}] launches: {counts}")
     if on_card:
         want = dict(sparse_fwd=2 * L * n_timed, sparse_bwd=L * n_timed,
                     sparse_fwd_tc=2 * L * n_timed, sparse_bwd_tc=L * n_timed,
@@ -2418,7 +2476,7 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3):
             fail(f"sparse steps launched {got}; want {want} ({2 * L} "
                  f"sparse_fwd and {L} sparse_bwd per step, all on the "
                  f"tensor-core route)")
-        log(f"[sparse] per step: {2 * L} sparse_fwd + {L} sparse_bwd, all on "
+        log(f"[{tag}] per step: {2 * L} sparse_fwd + {L} sparse_bwd, all on "
             f"the tensor-core route, no flash launch (checked); "
             f"max_memory_allocated "
             f"{rec['max_memory_allocated'] / 2 ** 30:.3f} GiB")
@@ -2438,22 +2496,22 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3):
         top=sorted(((k, v / 1e3) for k, v in kernels.items()),
                    key=lambda kv: -kv[1])[:12])
     if kernels:
-        log(f"[sparse] profiled step: {wall * 1e3:.2f} ms wall, kernels "
+        log(f"[{tag}] profiled step: {wall * 1e3:.2f} ms wall, kernels "
             f"{busy * 1e3:.2f} ms, device busy {100 * busy / wall:.1f}%; "
             f"sparse kernels {sum(sparse_ms.values()):.4f} ms ("
             + ", ".join(f"{k.split('<')[0].split('::')[-1]} {v:.4f}"
                         for k, v in sorted(sparse_ms.items())) + ")")
         for k, v in rec["profile"]["top"]:
-            log(f"[sparse]   {v:.4f} ms  {k[:90]}")
+            log(f"[{tag}]   {v:.4f} ms  {k[:90]}")
     else:
-        log("[sparse] the profiler recorded no device time: not measured")
+        log(f"[{tag}] the profiler recorded no device time: not measured")
     del params
     if on_card:
         torch.cuda.empty_cache()
 
     p4 = torch.tensor([[1, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 1]],
                       dtype=torch.bool)
-    rec["vs_cpu"] = _sparse_vs_cpu(cfg, dev, check_n, p4)
+    rec["vs_cpu"] = _sparse_vs_cpu(cfg, dev, check_n, p4, tag)
 
     params = init_params(cfg, seed=SEED + 7, device=dev)
     with torch.no_grad():
@@ -2462,7 +2520,7 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3):
         dense = apply_transformer(params, toks[:, :-1], cfg)
     err = (ones - dense).abs()
     rec["ones_vs_dense_max_abs"] = max_err = float(err.max())
-    log(f"[sparse] all-ones pattern vs no pattern (flash route): logits max "
+    log(f"[{tag}] all-ones pattern vs no pattern (flash route): logits max "
         f"|diff| {max_err:.3e} (tol {LOGITS_TOL:g} abs+rel; max |logit| "
         f"{float(dense.abs().max()):.3e})")
     if bool((err > LOGITS_TOL + LOGITS_TOL * dense.abs()).any()):
@@ -3117,25 +3175,36 @@ def ptxas_entries(text):
 
 # Tensor-core kernels per library: forward at D 64 and 128, dK/dV and dQ at
 # D 64 and 128, each in bf16 and in fp32 (3xTF32), and the bf16 three at
-# D 256; the sparse ones each with one and two consumer warpgroups; the
-# 8-bit forward at D 64 and 128 for e4m3, e5m2 and int8.
-SM90_KERNELS = {"flash_fwd": 5, "flash_bwd": 10, "sparse_fwd": 4,
-                "sparse_bwd": 8, "flash_fwd_fp8": 6}
+# D 256; the sparse ones (bf16) at D 64, 128 and 256, each with one and two
+# consumer warpgroups but the D-split dK/dV at 256 (two); the 8-bit forward
+# at D 64 and 128 for e4m3, e5m2 and int8.
+SM90_KERNELS = {"flash_fwd": 5, "flash_bwd": 10, "sparse_fwd": 6,
+                "sparse_bwd": 11, "flash_fwd_fp8": 6}
 # The paged split kernels: bf16, int8 (convert and "qk"), e4m3 and e5m2
 # pages, each at 1, 2 and 4 rows a row set.
 SPLIT_KERNELS = 15
 
 
-def split_report():
-    """Phase 1's report of the paged split route: per split kernel its
-    registers and spill bytes (this build's ptxas report) and the 1-D bulk
-    copies (UBLKCP) in its SASS. Fails if one has no bulk copy, spills, or
-    is missing."""
+def dump_sass(names) -> dict[str, str]:
+    """{library: its SASS (cuobjdump --dump-sass)}, one cuobjdump per
+    library, all started together."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "--dump-sass",
-                           str(_build.kernel_path("paged_attention"))],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
+
+    def one(name):
+        return subprocess.run([tool, "--dump-sass",
+                               str(_build.kernel_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(one, names)))
+
+
+def split_report(sass):
+    """Phase 1's report of the paged split route from the SASS of
+    paged_attention: per split kernel its registers and spill bytes (this
+    build's ptxas report) and the 1-D bulk copies (UBLKCP). Fails if one
+    has no bulk copy, spills, or is missing."""
     ptxas = ptxas_entries(_build.BUILD_LOG.get("paged_attention", ""))
     out = {}
     for part in sass.split("Function : ")[1:]:
@@ -3164,16 +3233,12 @@ def split_report():
 APPEND_KERNELS = 20
 
 
-def append_report():
-    """Phase 1's report of B7: per append kernel its registers and spill
-    bytes (this build's ptxas report) and its 16-byte global loads
-    (LDG.E.128) in the SASS. Fails if one spills or is missing, or if an
-    instantiation of 8 elements a lane has no 16-byte load."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "--dump-sass",
-                           str(_build.kernel_path("paged_append"))],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
+def append_report(sass):
+    """Phase 1's report of B7 from the SASS of paged_append: per append
+    kernel its registers and spill bytes (this build's ptxas report) and
+    its 16-byte global loads (LDG.E.128). Fails if one spills or is
+    missing, or if an instantiation of 8 elements a lane has no 16-byte
+    load."""
     ptxas = ptxas_entries(_build.BUILD_LOG.get("paged_append", ""))
     out = {}
     for part in sass.split("Function : ")[1:]:
@@ -3197,20 +3262,16 @@ def append_report():
     return out
 
 
-def sass_report():
+def sass_report(dumps):
     """Phase 1's check that the tensor-core routes are what they claim: per
     kernel of the flash and sparse libraries, the HGMMA (wgmma) and UTMALDG
-    (TMA load) instructions in its SASS (cuobjdump) and, for the
+    (TMA load) instructions in its SASS (``dumps[library]``) and, for the
     tensor-core kernels, registers and spill bytes from the build's ptxas
     report. Fails if a tensor-core kernel has no HGMMA or no UTMALDG, or
     spills, or one is missing."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
     for name, want in SM90_KERNELS.items():
-        sass = subprocess.run([tool, "--dump-sass",
-                               str(_build.kernel_path(name))],
-                              capture_output=True, text=True, check=True,
-                              timeout=120).stdout
+        sass = dumps[name]
         ptxas = ptxas_entries(_build.BUILD_LOG.get(name, ""))
         found = 0
         for part in sass.split("Function : ")[1:]:
@@ -3275,6 +3336,10 @@ def main() -> int:
         report["sparse_model"] = phase_sparse_model(
             dataclasses.replace(cfg, block_size=16), "cpu", False, b=2, n=128,
             check_n=64)
+        report["sparse_model_d256"] = phase_sparse_model(
+            dataclasses.replace(cfg, d_model=512, n_heads=2, n_kv_heads=1,
+                                pos_encoding="rope", block_size=16),
+            "cpu", False, b=1, n=128, check_n=64, tag="sparse_d256")
         draft = dataclasses.replace(cfg, n_layers=1)
         report["spec"] = phase_spec(
             cfg, params, ecfg, "cpu", 8, (8, 60), 8,
@@ -3336,12 +3401,20 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {name}: {line.strip()}")
-    report.update(card=smi, build_s=per, tensor_core_kernels=sass_report(),
-                  paged_split_kernels=split_report(),
-                  append_kernels=append_report())
+    t0 = time.perf_counter()
+    dumps = dump_sass([*SM90_KERNELS, "paged_attention", "paged_append"])
+    log(f"[sass] {len(dumps)} libraries dumped in "
+        f"{time.perf_counter() - t0:.2f} s")
+    report.update(card=smi, build_s=per,
+                  tensor_core_kernels=sass_report(dumps),
+                  paged_split_kernels=split_report(dumps["paged_attention"]),
+                  append_kernels=append_report(dumps["paged_append"]))
 
     # Phase 2
+    t0 = time.perf_counter()
+    report["phase_1_s"] = t0 - t_start
     report["kernels"] = phase_kernels(dev)
+    report["phase_2_s"] = time.perf_counter() - t0
 
     # Phase 3
     t0 = time.perf_counter()
@@ -3389,6 +3462,17 @@ def main() -> int:
     scfg = TransformerConfig(dropout_rate=0.0, max_seq_len=4096)
     report["sparse_model"] = phase_sparse_model(scfg, dev, True, b=2, n=4096,
                                                 check_n=512)
+    torch.cuda.empty_cache()
+
+    # Phase 7b: phase 7 at head dim 256, Gemma 2B's attention widths
+    # (google/gemma-2b config.json) at 2 layers, B = 1, N = 4096
+    t0 = time.perf_counter()
+    report["phases_3_7_s"] = t0 - t_start - report["phase_1_s"] - \
+        report["phase_2_s"]
+    report["sparse_model_d256"] = phase_sparse_model(
+        gemma_sparse_config(), dev, True, b=1, n=4096, check_n=512,
+        tag="sparse_d256")
+    report["sparse_model_d256"]["phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
     # Phase 8: the speculative engine, phase 3's config with gamma 4; the
@@ -3459,7 +3543,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["text"]["phase_s"] = time.perf_counter() - t0
     report["total_s"] = time.perf_counter() - t_start
-    log(f"[card] phase 8 {report['spec']['phase_s']:.1f} s, phase 9 "
+    log(f"[card] phase 1 {report['phase_1_s']:.1f} s, phase 2 "
+        f"{report['phase_2_s']:.1f} s, phases 3-7 "
+        f"{report['phases_3_7_s']:.1f} s, phase 7b "
+        f"{report['sparse_model_d256']['phase_s']:.1f} s, "
+        f"phase 8 {report['spec']['phase_s']:.1f} s, phase 9 "
         f"{report['multihost']['phase_s']:.1f} s, phase 10 "
         f"{report['cp']['phase_s']:.1f} s, phase 11 "
         f"{report['moe_train']['phase_s']:.1f} s, phase 12 "
@@ -3738,6 +3826,40 @@ def main() -> int:
             yardstick_ms_l=rl[f"yardstick_{part}_ms"],
             fma_ms_l=rl[f"{part}_fma_ms"], case_l=rl["case"],
             sweep_cell=cell, sweep_ms=bench[cell]["record"]["mean_ms"]))
+    # sparse at head dim 256 (bf16 wgmma; the dK/dV kernel split over the
+    # head dim): launches of phase 7b's forward+backward steps, numbers of
+    # sparse case (g), phase 7b's call, with cases (e) (flash case (k)'s
+    # shape), (f) (GQA, D = 136, ragged blocks) and (h) (QSA widths) beside
+    # them, each key suffixed with its case; fma_ms the FMA kernels on the
+    # same inputs, kernel_ms the kernels alone with the lists built
+    # beforehand
+    recs = {x: report["kernels"][f"sparse_{x}"] for x in "efgh"}
+    rg = recs["g"]
+    c = report["sparse_model_d256"]["launches"]
+    for name, part, errs in (("sparse_fwd", "fwd", ("o", "lse")),
+                             ("sparse_bwd", "bwd", ("dq", "dk", "dv"))):
+        beside = {}
+        for x in "efh":
+            r = recs[x]
+            beside.update({
+                f"{key}_{x}": r[f"{part}_{key}"]
+                for key in ("ms", "kernel_ms", "fma_ms", "plain_ms",
+                            "bound_ms")})
+            lib = "library" if f"library_{part}_ms" in r else "yardstick"
+            beside[f"{lib}_ms_{x}"] = r[f"{lib}_{part}_ms"]
+            beside[f"case_{x}"] = r["case"]
+        kernels.append(dict(
+            name=f"{name}[d256]", **KERNELS[name], launches=c[name],
+            launches_tensor_core=c[f"{name}_tc"],
+            max_abs_err=max(r["max_abs_err"][e] for e in errs
+                            for r in recs.values()),
+            ms=rg[f"{part}_ms"], plain_ms=rg[f"{part}_plain_ms"],
+            bound_ms=rg[f"{part}_bound_ms"],
+            bound_by=rg[f"{part}_bound_by"],
+            library_ms=rg.get(f"library_{part}_ms"),
+            yardstick_ms=rg.get(f"yardstick_{part}_ms"), case=rg["case"],
+            kernel_ms=rg[f"{part}_kernel_ms"], fma_ms=rg[f"{part}_fma_ms"],
+            wall_ms=rg[f"{part}_wall_ms"], **beside))
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was launched no time on its main path")

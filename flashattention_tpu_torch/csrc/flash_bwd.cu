@@ -657,33 +657,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
             wgmma_rs<DP>(dk_acc, da[kk], desc_mn<kDkvRows>(qt, k16));
           }
         } else {
-          // round(p_v)ᵀ and round(ds)ᵀ at (key, query row of the tile),
-          // where the other consumer's products read them; then both run
-          // dV[:, half] += P_vᵀ·dO[:, half] and dK[:, half] +=
-          // dSᵀ·q_s[:, half] over the tile's 64 rows (A K-major, B
-          // MN-major from this consumer's two 64-column halves).
-#pragma unroll
-          for (int i = 0; i < QS / 2; i += 2) {
-            const int at = swizzle128(acc_row(t, i), q0 + acc_col(t, i));
-            *reinterpret_cast<uint32_t*>(pt_s + at) =
-                pack_bf16(st[i], st[i + 1]);
-            *reinterpret_cast<uint32_t*>(dst_s + at) =
-                pack_bf16(dpt[i], dpt[i + 1]);
-          }
-          fence_proxy_async();
-          named_sync(2, 256);
-
-          const int hoff = 2 * cw * kDkvRows * 128;
-          wgmma_fence();
-          fence_regs(dv_acc);
-          fence_regs(dk_acc);
-#pragma unroll
-          for (int kk = 0; kk < kDkvRows / 16; ++kk) {
-            wgmma_ss_mn_n128(dv_acc, desc_k<KEYS>(pt_s, 0, kk),
-                             desc_mn<kDkvRows>(dot + hoff, kk));
-            wgmma_ss_mn_n128(dk_acc, desc_k<KEYS>(dst_s, 0, kk),
-                             desc_mn<kDkvRows>(qt + hoff, kk));
-          }
+          // dV[:, half] += P_vᵀ·dO[:, half], dK[:, half] += dSᵀ·q_s[:, half]
+          // over the tile's 64 rows, through shared memory; the next
+          // step's q-scaling barrier orders the buffers' reuse.
+          dsplit_products<KEYS, kDkvRows, QS>(st, dpt, pt_s, dst_s, dot, qt,
+                                              q0, cw, t, dv_acc, dk_acc);
         }
         wgmma_commit();
         wgmma_wait<0>();

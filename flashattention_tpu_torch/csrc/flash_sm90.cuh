@@ -437,6 +437,42 @@ __device__ __forceinline__ int swizzle128(int r, int c) {
   return r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
 }
 
+// The exchange of the dK/dV kernels' head-dim split (D = 256: two consumers
+// share a 64-key tile, consumer cw holding columns 128 cw .. 128 cw + 127 of
+// dK and dV). This consumer's round(p)ᵀ and round(ds)ᵀ (fragments of keys x
+// QS query rows, from row q0 of the ROWS-row tile) go to pt_s and dst_s at
+// (key, query row) in the 128-byte swizzle, where the other consumer's
+// products read them; after named barrier 2 both issue dV[:, half] +=
+// Pᵀ·dO[:, half] and dK[:, half] += dSᵀ·q[:, half] over all ROWS rows (A
+// K-major; B MN-major from this consumer's two 64-column halves of the dO
+// and q tiles). The caller commits and waits.
+template <int KEYS, int ROWS, int QS>
+__device__ __forceinline__ void dsplit_products(
+    const float (&pt)[QS / 2], const float (&dst)[QS / 2], char* pt_s,
+    char* dst_s, const char* dot, const char* qt, int q0, int cw, int t,
+    float (&dv_acc)[64], float (&dk_acc)[64]) {
+#pragma unroll
+  for (int i = 0; i < QS / 2; i += 2) {
+    const int at = swizzle128(acc_row(t, i), q0 + acc_col(t, i));
+    *reinterpret_cast<uint32_t*>(pt_s + at) = pack_bf16(pt[i], pt[i + 1]);
+    *reinterpret_cast<uint32_t*>(dst_s + at) = pack_bf16(dst[i], dst[i + 1]);
+  }
+  fence_proxy_async();
+  named_sync(2, 256);
+
+  const int hoff = 2 * cw * ROWS * 128;
+  wgmma_fence();
+  fence_regs(dv_acc);
+  fence_regs(dk_acc);
+#pragma unroll
+  for (int kk = 0; kk < ROWS / 16; ++kk) {
+    wgmma_ss_mn_n128(dv_acc, desc_k<KEYS>(pt_s, 0, kk),
+                     desc_mn<ROWS>(dot + hoff, kk));
+    wgmma_ss_mn_n128(dk_acc, desc_k<KEYS>(dst_s, 0, kk),
+                     desc_mn<ROWS>(qt + hoff, kk));
+  }
+}
+
 // Rounds `bytes` of bf16 at p (a multiple of 16) to bf16(x * scale) in
 // place, thread `tid` of `n` taking every n-th 16 bytes: the backward's q_s.
 __device__ __forceinline__ void scale_bf16(char* p, int bytes, float scale,

@@ -33,28 +33,49 @@
 //
 // Two routes, chosen by the caller (ops/sparse_attn.py):
 //
-//   fat_sparse_bwd_sm90 (bf16, D <= 128, block_q and block_k multiples of
+//   fat_sparse_bwd_sm90 (bf16, D <= 256, block_q and block_k multiples of
 //     64): every product on the tensor cores (wgmma, bf16 in, fp32
 //     accumulate), tiles by TMA into mbarrier-guarded two-stage rings,
 //     warpgroup 0 loading and NC consumer warpgroups computing (NC = 2
 //     where the block holds 128 rows or keys, else 1: a CTA never spans two
-//     blocks of the pattern).
-//     dkv: 64 NC keys per CTA, K and V resident in shared memory; the
-//       producer walks the transposed list for each query head of the group
-//       and streams q, dO (and the LSE and di rows) in tiles of 64 rows.
-//       The consumers compute transposed products so that Pᵀ and dSᵀ come
-//       out in the register A layout: Sᵀ = K.qᵀ and dPᵀ = V.dOᵀ from shared
-//       memory, dV += round(p)ᵀ.dO and dK += round(ds)ᵀ.q from registers
-//       (dO, q MN-major; over 32 rows at a time at D = 128, for registers).
-//     dq: 64 NC query rows per CTA, q and dO resident, K and V sub-tiles of
-//       64 keys streamed over the q block's list up to the causal stop:
-//       S = q.Kᵀ, dP = dO.Vᵀ, dQ += round(ds).K (K MN-major).
+//     blocks of the pattern). Instantiated at D 64, 128 and 256 (any D in
+//     (128, 256] runs the 256 kernels; TMA reads zeros past D, a 64-column
+//     half wholly past it included).
+//     dkv, D <= 128: 64 NC keys per CTA, K and V resident in shared memory;
+//       the producer walks the transposed list for each query head of the
+//       group and streams q, dO (and the LSE and di rows) in tiles of 64
+//       rows. The consumers compute transposed products so that Pᵀ and dSᵀ
+//       come out in the register A layout: Sᵀ = K.qᵀ and dPᵀ = V.dOᵀ from
+//       shared memory, dV += round(p)ᵀ.dO and dK += round(ds)ᵀ.q from
+//       registers (dO, q MN-major; over 32 rows at a time at D = 128, for
+//       registers).
+//     dkv, 128 < D <= 256 (the D split, as flash_bwd.cu): one consumer's dK
+//       and dV over 64 keys would take 256 registers a thread, above the
+//       240 it has. So a CTA takes 64 keys whatever block_k is (a 128-key
+//       block is two CTAs), both consumers share them, and each holds
+//       columns [128 cw, 128 cw + 128) of dK and dV (128 registers). For
+//       each (query head, q tile) step of the walk, each consumer computes
+//       Sᵀ and dPᵀ for the 64 keys over its 32 of the tile's 64 rows,
+//       writes round(p)ᵀ and round(ds)ᵀ into shared memory (swizzled as TMA
+//       would, so wgmma reads them K-major), and after a named barrier both
+//       run dV[:, half] += Pᵀ.dO[:, half] and dK[:, half] += dSᵀ.q[:, half]
+//       over all 64 rows from shared memory. Nothing else orders the reuse
+//       of the two buffers (the sparse backward rounds no q tile in place,
+//       which orders it in flash_bwd.cu), so a second named barrier before
+//       the writes waits until both consumers' products of the step before
+//       have completed. K and V (32 KB each) stay resident; q and dO tiles
+//       (32 KB each) in two stages; Pᵀ and dSᵀ 8 KB each: ~210 KB.
+//     dq: 64 NC query rows per CTA, q and dO resident, K and V sub-tiles
+//       streamed over the q block's list up to the causal stop (64 keys; 32
+//       at D = 256, where dQ takes 128 registers, so a 64- or 128-key block
+//       is walked in 32-key steps): S = q.Kᵀ, dP = dO.Vᵀ, dQ += round(ds).K
+//       (K MN-major).
 //     Each product's tile is classified once, interior or band, and the
 //     element loop specialised for it.
-//   fat_sparse_bwd (fp32, bf16 with D > 128 or blocks that are not
-//     multiples of 64): the first version below, fp32 FMAs on the CUDA
-//     cores (for the reasons given in sparse_fwd.cu), 32-row / 32-key
-//     sub-tiles staged as fp32.
+//   fat_sparse_bwd (fp32, bf16 with blocks that are not multiples of 64):
+//     the first version below, fp32 FMAs on the CUDA cores (for the
+//     reasons given in sparse_fwd.cu), 32-row / 32-key sub-tiles staged as
+//     fp32.
 
 #include "flash_common.cuh"
 #include "sparse_sm90.cuh"
@@ -437,34 +458,43 @@ cudaError_t dispatch(const AttnArgs& a, const Lists& s, const void* dout,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The tensor-core route (bf16, D <= 128, blocks multiples of 64)
+// The tensor-core route (bf16, D <= 256, blocks multiples of 64)
 // ---------------------------------------------------------------------------
 
 namespace fat {
 namespace sm90 {
 
 constexpr int kSpRows = 64;  // query rows per streamed q / dO tile (dkv)
-constexpr int kSpKeys = 64;  // keys per streamed K / V tile (dq)
 
 template <int DP, int NC>
 struct SparseDkvCfg {
-  static constexpr int KEYS = 64 * NC;  // keys per CTA, resident
+  // Above D = 128 the two consumers split the head dim of one 64-key tile
+  // (file header; NC is 2 there); below, each owns 64 of the CTA's keys.
+  static constexpr bool SPLIT = DP > 128;
+  static_assert(!SPLIT || NC == 2, "the D split takes two consumers");
+  static constexpr int KEYS = SPLIT ? 64 : 64 * NC;  // keys per CTA, resident
   static constexpr int STAGES = 2;
   static constexpr int THREADS = 128 * (1 + NC);
   static constexpr int KV_BYTES = KEYS * DP * 2;     // K or V
   static constexpr int T_BYTES = kSpRows * DP * 2;   // one q or dO tile
+  static constexpr int X_BYTES = SPLIT ? KEYS * kSpRows * 2 : 0;  // Pᵀ, dSᵀ
   static constexpr int BARS = 1 + 2 * STAGES;
   static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + 2 * STAGES * T_BYTES +
-                                 2 * STAGES * kSpRows * 4 + 8 * BARS;
+                                 2 * X_BYTES + 2 * STAGES * kSpRows * 4 +
+                                 8 * BARS;
 };
 
 template <int DP, int NC>
 struct SparseDqCfg {
   static constexpr int ROWS = 64 * NC;  // query rows per CTA, resident
+  // Keys per streamed K/V tile: at D = 256 the dQ accumulator (128
+  // registers) leaves room for S and dP of 32 keys (16 + 16), as in
+  // flash_bwd.cu.
+  static constexpr int KEYS = DP <= 128 ? 64 : 32;
   static constexpr int STAGES = 2;
   static constexpr int THREADS = 128 * (1 + NC);
-  static constexpr int Q_BYTES = ROWS * DP * 2;      // q or dO
-  static constexpr int KV_BYTES = kSpKeys * DP * 2;  // one K or V tile
+  static constexpr int Q_BYTES = ROWS * DP * 2;   // q or dO
+  static constexpr int KV_BYTES = KEYS * DP * 2;  // one K or V tile
   static constexpr int BARS = 1 + 2 * STAGES;
   static constexpr size_t SMEM =
       1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARS;
@@ -501,7 +531,8 @@ sparse_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   using Cfg = SparseDkvCfg<DP, NC>;
   constexpr int STAGES = Cfg::STAGES, KEYS = Cfg::KEYS;
   // Query rows per Sᵀ/dPᵀ product: at D = 128 the dK and dV accumulators
-  // (128 registers) leave room for 32 rows of both, not 64.
+  // (128 registers) leave room for 32 rows of both, not 64; in the D split
+  // each consumer takes 32 of the 64.
   constexpr int QS = DP <= 64 ? kSpRows : kSpRows / 2;
   // Heavy first: causal, an earlier KV block is seen by more q blocks, so
   // the grid's slowest dimension takes the KV blocks from the first one.
@@ -516,7 +547,9 @@ sparse_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   char* v_s = k_s + Cfg::KV_BYTES;           // resident
   char* q_s = v_s + Cfg::KV_BYTES;           // [STAGES] tiles of 64 rows
   char* do_s = q_s + STAGES * Cfg::T_BYTES;  // [STAGES] tiles of 64 rows
-  float* lse_s = reinterpret_cast<float*>(do_s + STAGES * Cfg::T_BYTES);
+  char* pt_s = do_s + STAGES * Cfg::T_BYTES;  // D split: round(p)ᵀ
+  char* dst_s = pt_s + Cfg::X_BYTES;          // D split: round(ds)ᵀ
+  float* lse_s = reinterpret_cast<float*>(dst_s + Cfg::X_BYTES);
   float* di_s = lse_s + STAGES * kSpRows;
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(di_s + STAGES * kSpRows);
   uint64_t* full = kv_full + 1;
@@ -573,13 +606,19 @@ sparse_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
     }
-  } else {  // consumers: 64 keys each
+  } else {  // consumers: 64 keys each, or in the D split 64 keys shared
     if constexpr (NC == 2) reg_alloc<kConsumerRegs>();
+    constexpr bool SPLIT = Cfg::SPLIT;
+    constexpr int DA = SPLIT ? DP / 2 : DP;  // columns of dK, dV held here
     const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
-    const int key0 = c0 + 64 * cw;
-    float dk_acc[DP / 2], dv_acc[DP / 2];
+    const int krow = SPLIT ? 0 : 64 * cw;  // first key in the K/V tiles
+    const int key0 = c0 + krow, col0 = SPLIT ? DA * cw : 0;
+    // Query rows of Sᵀ and dPᵀ this consumer takes: all 64, QS at a time,
+    // or in the D split its QS.
+    const int q_lo = SPLIT ? QS * cw : 0, q_hi = SPLIT ? q_lo + QS : kSpRows;
+    float dk_acc[DA / 2], dv_acc[DA / 2];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < DA / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     int it = 0;
     for (int g = 0; g < G; ++g) {
@@ -598,17 +637,17 @@ sparse_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           // one slice after the other (kept rolled: unrolled, the slices'
           // values overlap and spill at D = 128).
 #pragma unroll 1
-          for (int q0 = 0; q0 < kSpRows; q0 += QS) {
+          for (int q0 = q_lo; q0 < q_hi; q0 += QS) {
             float st[QS / 2], dpt[QS / 2];
             wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < DP / 16; ++kk) {
-              wgmma_ss<QS>(st, desc_k<KEYS>(k_s, 64 * cw, kk),
+              wgmma_ss<QS>(st, desc_k<KEYS>(k_s, krow, kk),
                            desc_k<kSpRows>(qt, q0, kk), kk > 0);
             }
 #pragma unroll
             for (int kk = 0; kk < DP / 16; ++kk) {
-              wgmma_ss<QS>(dpt, desc_k<KEYS>(v_s, 64 * cw, kk),
+              wgmma_ss<QS>(dpt, desc_k<KEYS>(v_s, krow, kk),
                            desc_k<kSpRows>(dot, q0, kk), kk > 0);
             }
             wgmma_commit();
@@ -638,18 +677,29 @@ sparse_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
             } else {
               loop(Int<0>{});
             }
-            uint32_t pa[QS / 16][4], da[QS / 16][4];
-            acc_to_a<QS>(st, pa);
-            acc_to_a<QS>(dpt, da);
+            if constexpr (!SPLIT) {
+              uint32_t pa[QS / 16][4], da[QS / 16][4];
+              acc_to_a<QS>(st, pa);
+              acc_to_a<QS>(dpt, da);
 
-            wgmma_fence();
-            fence_regs(dv_acc);
-            fence_regs(dk_acc);
+              wgmma_fence();
+              fence_regs(dv_acc);
+              fence_regs(dk_acc);
 #pragma unroll
-            for (int kk = 0; kk < QS / 16; ++kk) {
-              const int k16 = q0 / 16 + kk;
-              wgmma_rs<DP>(dv_acc, pa[kk], desc_mn<kSpRows>(dot, k16));
-              wgmma_rs<DP>(dk_acc, da[kk], desc_mn<kSpRows>(qt, k16));
+              for (int kk = 0; kk < QS / 16; ++kk) {
+                const int k16 = q0 / 16 + kk;
+                wgmma_rs<DP>(dv_acc, pa[kk], desc_mn<kSpRows>(dot, k16));
+                wgmma_rs<DP>(dk_acc, da[kk], desc_mn<kSpRows>(qt, k16));
+              }
+            } else {
+              // Both consumers' products of the step before, which read
+              // Pᵀ and dSᵀ, have completed once both pass this barrier.
+              named_sync(1, 256);
+              // dV[:, half] += Pᵀ·dO[:, half], dK[:, half] += dSᵀ·q[:, half]
+              // over the tile's 64 rows, through shared memory.
+              dsplit_products<KEYS, kSpRows, QS>(st, dpt, pt_s, dst_s, dot,
+                                                 qt, q0, cw, t, dv_acc,
+                                                 dk_acc);
             }
             wgmma_commit();
             wgmma_wait<0>();
@@ -664,8 +714,8 @@ sparse_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // Keys of a KV block no q block visits write zeros.
     const size_t kv_off = ((size_t)b * a.H_kv + hk) * a.Nk;
 #pragma unroll
-    for (int i = 0; i < DP / 2; i += 2) {
-      const int key = key0 + acc_row(t, i), col = acc_col(t, i);
+    for (int i = 0; i < DA / 2; i += 2) {
+      const int key = key0 + acc_row(t, i), col = col0 + acc_col(t, i);
       if (key < c_end && col < a.D) {
         const size_t at = (kv_off + key) * a.D + col;
         *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
@@ -690,7 +740,7 @@ sparse_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           int block_q, int block_k,
                           __nv_bfloat16* __restrict__ dq) {
   using Cfg = SparseDqCfg<DP, NC>;
-  constexpr int STAGES = Cfg::STAGES, ROWS = Cfg::ROWS, KEYS = kSpKeys;
+  constexpr int STAGES = Cfg::STAGES, ROWS = Cfg::ROWS, KEYS = Cfg::KEYS;
   // Heavy first, as the forward: the q blocks from the last one.
   const int sub = block_q / ROWS;
   const int iq = (a.Nq + block_q - 1) / block_q - 1 - blockIdx.z / sub;
@@ -875,7 +925,9 @@ cudaError_t launch_dq_sm90(const CUtensorMap (&maps)[4], const AttnArgs& a,
   return cudaGetLastError();
 }
 
-// The dK/dV kernel, then the dQ kernel; maps: q, k, v, dout.
+// The dK/dV kernel, then the dQ kernel; maps: q, k, v, dout. At D = 256
+// the dK/dV kernel is the D split (two consumers on 64 keys whatever
+// block_k is).
 template <int DP>
 cudaError_t sparse_bwd_sm90(const AttnArgs& a, const Lists& s,
                             const void* dout, const float* lse,
@@ -887,14 +939,29 @@ cudaError_t sparse_bwd_sm90(const AttnArgs& a, const Lists& s,
   if (err == cudaSuccess) err = make_map(&maps[2], a.v, a.B * a.H_kv, a.Nk, a.D);
   if (err == cudaSuccess) err = make_map(&maps[3], dout, a.B * a.H, a.Nq, a.D);
   if (err != cudaSuccess) return err;
-  err = s.block_k % 128 == 0
-            ? launch_dkv_sm90<DP, 2>(maps, a, lse, di, s.q_list, s.q_count,
-                                     s.q_stride, s.block_q, s.block_k, dk, dv,
-                                     st)
-            : launch_dkv_sm90<DP, 1>(maps, a, lse, di, s.q_list, s.q_count,
-                                     s.q_stride, s.block_q, s.block_k, dk, dv,
-                                     st);
+  if constexpr (SparseDkvCfg<DP, 2>::SPLIT) {
+    err = launch_dkv_sm90<DP, 2>(maps, a, lse, di, s.q_list, s.q_count,
+                                 s.q_stride, s.block_q, s.block_k, dk, dv, st);
+  } else {
+    err = s.block_k % 128 == 0
+              ? launch_dkv_sm90<DP, 2>(maps, a, lse, di, s.q_list, s.q_count,
+                                       s.q_stride, s.block_q, s.block_k, dk,
+                                       dv, st)
+              : launch_dkv_sm90<DP, 1>(maps, a, lse, di, s.q_list, s.q_count,
+                                       s.q_stride, s.block_q, s.block_k, dk,
+                                       dv, st);
+  }
   if (err != cudaSuccess) return err;
+  // The dQ kernel's K/V tiles of fewer than 64 keys need boxes of as many
+  // rows (the launch above took its maps by value).
+  constexpr int DQ_KEYS = SparseDqCfg<DP, 1>::KEYS;
+  if constexpr (DQ_KEYS < kBox) {
+    err = make_map(&maps[1], a.k, a.B * a.H_kv, a.Nk, a.D, DQ_KEYS);
+    if (err == cudaSuccess) {
+      err = make_map(&maps[2], a.v, a.B * a.H_kv, a.Nk, a.D, DQ_KEYS);
+    }
+    if (err != cudaSuccess) return err;
+  }
   return s.block_q % 128 == 0
              ? launch_dq_sm90<DP, 2>(maps, a, lse, di, s.kv_list, s.kv_count,
                                      s.kv_stride, s.block_q, s.block_k, dq, st)
@@ -947,7 +1014,7 @@ int fat_sparse_bwd(const void* q, const void* k, const void* v,
   return (int)err;
 }
 
-// The tensor-core route: bf16 only, D <= 128, block_q and block_k multiples
+// The tensor-core route: bf16 only, D <= 256, block_q and block_k multiples
 // of 64; q, k, v and dout 16-byte aligned (TMA). Same arguments as
 // fat_sparse_bwd (dtype must be 0).
 int fat_sparse_bwd_sm90(const void* q, const void* k, const void* v,
@@ -959,7 +1026,7 @@ int fat_sparse_bwd_sm90(const void* q, const void* k, const void* v,
                         int block_k, int kv_stride, int q_stride, int dtype,
                         void* stream) {
   using namespace fat;
-  if (dtype != 0 || D < 8 || D > 128 || D % 8 != 0 || H_kv < 1 ||
+  if (dtype != 0 || D < 8 || D > 256 || D % 8 != 0 || H_kv < 1 ||
       H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535 ||
       block_q < 64 || block_k < 64 || block_q % 64 != 0 ||
       block_k % 64 != 0 || kv_stride < (Nk + block_k - 1) / block_k ||
@@ -977,9 +1044,10 @@ int fat_sparse_bwd_sm90(const void* q, const void* k, const void* v,
   auto st = static_cast<cudaStream_t>(stream);
   const auto* l = static_cast<const float*>(lse);
   const auto* d = static_cast<const float*>(di);
-  const cudaError_t err =
-      D <= 64 ? sm90::sparse_bwd_sm90<64>(a, s, dout, l, d, dq, dk, dv, st)
-              : sm90::sparse_bwd_sm90<128>(a, s, dout, l, d, dq, dk, dv, st);
+  auto* run = D <= 64    ? sm90::sparse_bwd_sm90<64>
+              : D <= 128 ? sm90::sparse_bwd_sm90<128>
+                         : sm90::sparse_bwd_sm90<256>;
+  const cudaError_t err = run(a, s, dout, l, d, dq, dk, dv, st);
   return (int)err;
 }
 

@@ -31,14 +31,14 @@
 //
 // Two routes, chosen by the caller (ops/sparse_attn.py):
 //
-//   fat_sparse_fwd_sm90 (bf16, D <= 128, block_q and block_k multiples of
+//   fat_sparse_fwd_sm90 (bf16, D <= 256, block_q and block_k multiples of
 //     64): every product on the tensor cores. One CTA per (64 NC query rows
 //     of one q block, head, batch): NC = 2 consumer warpgroups of 64 rows
 //     where block_q % 128 == 0, else 1, so a CTA never spans two q blocks
 //     (each has its own list). Warpgroup 0 loads: one thread reads the count
 //     and the list, issues TMA for the Q tile once, then walks each active
-//     block's sub-tiles of KEYS keys (128 at D <= 64, 64 at D <= 128, for
-//     the consumers' registers) up to the causal stop into a two-stage ring
+//     block's sub-tiles of KEYS keys (128 at D <= 64, 64 above, for the
+//     consumers' registers) up to the causal stop into a two-stage ring
 //     guarded by mbarriers; pass 1 loads K only, pass 2 K and V again (the
 //     K tiles of pass 1 are not kept: L2 holds them). The consumers compute
 //     S = Q.Kᵀ by wgmma from shared memory in both passes (the same
@@ -49,16 +49,21 @@
 //     and the element loop specialised for it. A sub-tile that runs past
 //     its KV block (block_k = 64 at D <= 64) is masked there. A q block
 //     with count 0 issues nothing: its consumers skip every wait and still
-//     write o = 0 and lse = -inf.
-//   fat_sparse_fwd (fp32, bf16 with D > 128 or blocks that are not multiples
-//     of 64): the first version, fp32 FMAs on the CUDA cores. A block of 4
+//     write o = 0 and lse = -inf. Instantiated at D 64, 128 and 256 (any D
+//     in (128, 256] runs the 256 kernel; TMA reads zeros past D). At D = 256
+//     O holds 128 registers a thread beside the 64-key score fragment's 32,
+//     P.V is two n128 products over V's column halves (wgmma_rs<256>), and
+//     shared memory holds Q (32 KB a consumer) and two stages of K and V
+//     (32 KB each): 192 KB at NC = 2, 160 KB at NC = 1.
+//   fat_sparse_fwd (fp32, bf16 with blocks that are not multiples of 64):
+//     the first version, fp32 FMAs on the CUDA cores. A block of 4
 //     warps owns ROWS rows of one q block, staged once in shared memory as
 //     fp32, and walks each active KV block in 32-key sub-tiles, skipping
 //     sub-tiles wholly above the causal diagonal; a lane owns one key for
 //     the scores and output columns lane, lane + 32, ... for P.V. fp32 stays
 //     there because the tensor cores would round it to TF32, beyond the
-//     fp32 1e-4 limit; D > 128 for registers; other blocks because the TMA
-//     box and a consumer's rows are 64.
+//     fp32 1e-4 limit; other blocks because the TMA box and a consumer's
+//     rows are 64.
 
 #include "flash_common.cuh"
 #include "sparse_sm90.cuh"
@@ -267,7 +272,7 @@ cudaError_t dispatch(const AttnArgs& a, const int32_t* kv_list,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The tensor-core route (bf16, D <= 128, blocks multiples of 64)
+// The tensor-core route (bf16, D <= 256, blocks multiples of 64)
 // ---------------------------------------------------------------------------
 
 namespace fat {
@@ -276,8 +281,9 @@ namespace sm90 {
 template <int DP, int NC>
 struct SparseFwdCfg {
   static constexpr int ROWS = 64 * NC;  // query rows per CTA
-  // Keys per K/V sub-tile: 64 at D = 128, where the O accumulator and a
-  // 128-key score fragment overflow a consumer's registers (as flash_fwd.cu).
+  // Keys per K/V sub-tile: 64 at D = 128 and 256, where the O accumulator
+  // and a 128-key score fragment overflow a consumer's registers (as
+  // flash_fwd.cu).
   static constexpr int KEYS = DP <= 64 ? 128 : 64;
   static constexpr int STAGES = 2;
   static constexpr int THREADS = 128 * (1 + NC);
@@ -547,7 +553,7 @@ int fat_sparse_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)err;
 }
 
-// The tensor-core route: bf16 only, D <= 128, block_q and block_k multiples
+// The tensor-core route: bf16 only, D <= 256, block_q and block_k multiples
 // of 64; q, k and v 16-byte aligned (TMA). Same arguments as fat_sparse_fwd
 // (dtype must be 0).
 int fat_sparse_fwd_sm90(const void* q, const void* k, const void* v, void* o,
@@ -556,7 +562,7 @@ int fat_sparse_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                         float scale, int causal, int block_q, int block_k,
                         int stride, int dtype, void* stream) {
   using namespace fat;
-  if (dtype != 0 || D < 8 || D > 128 || D % 8 != 0 || H_kv < 1 ||
+  if (dtype != 0 || D < 8 || D > 256 || D % 8 != 0 || H_kv < 1 ||
       H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535 ||
       block_q < 64 || block_k < 64 || block_q % 64 != 0 ||
       block_k % 64 != 0 || stride < (Nk + block_k - 1) / block_k ||
@@ -570,10 +576,12 @@ int fat_sparse_fwd_sm90(const void* q, const void* k, const void* v, void* o,
   const auto* count = static_cast<const int32_t*>(kv_count);
   auto* l = static_cast<float*>(lse);
   const cudaError_t err =
-      D <= 64 ? sm90::sparse_fwd_sm90<64>(a, list, count, stride, block_q,
-                                          block_k, o, l, st)
-              : sm90::sparse_fwd_sm90<128>(a, list, count, stride, block_q,
-                                           block_k, o, l, st);
+      D <= 64    ? sm90::sparse_fwd_sm90<64>(a, list, count, stride, block_q,
+                                             block_k, o, l, st)
+      : D <= 128 ? sm90::sparse_fwd_sm90<128>(a, list, count, stride,
+                                              block_q, block_k, o, l, st)
+                 : sm90::sparse_fwd_sm90<256>(a, list, count, stride,
+                                              block_q, block_k, o, l, st);
   return (int)err;
 }
 

@@ -13,7 +13,7 @@ On CUDA tensors :func:`sparse_attention` launches ``csrc/sparse_fwd.cu``
 (counted in ``sparse_attention.fwd_launches``) and, in the backward,
 ``csrc/sparse_bwd.cu`` (a dK/dV kernel over the transposed lists, then a
 dQ kernel; ``sparse_attention.bwd_launches``). Each source has two routes,
-chosen by :func:`_tensor_core_route`: bf16 with D <= 128 and both blocks
+chosen by :func:`_tensor_core_route`: bf16 with D <= 256 and both blocks
 multiples of 64 goes to the tensor-core kernels (wgmma fed by TMA;
 ``fat_sparse_fwd_sm90`` / ``fat_sparse_bwd_sm90``, also counted in
 ``sparse_attention.fwd_tc_launches`` / ``bwd_tc_launches``), everything
@@ -214,12 +214,12 @@ def _shape_args(q, k, spec: SparseSpec):
 
 def _tensor_core_route(dtype, d: int, spec: SparseSpec) -> bool:
     """True where the tensor-core kernels take the call: bf16 with
-    D <= 128 and ``block_q``, ``block_k`` multiples of 64 (the TMA box and
-    a consumer warpgroup's rows). fp32 would round to TF32 on the tensor
-    cores (beyond its 1e-4 limit), and above D = 128 the dK and dV
-    accumulators do not fit the registers."""
-    return (dtype == torch.bfloat16 and d <= 128 and spec.block_q % 64 == 0
-            and spec.block_k % 64 == 0)
+    D <= 256 and ``block_q``, ``block_k`` multiples of 64 (the TMA box and
+    a consumer warpgroup's rows); above D = 128 the dK/dV kernel splits the
+    head dim between its two consumers. fp32 would round to TF32 on the
+    tensor cores (beyond its 1e-4 limit), so it keeps the FMA kernels."""
+    return (dtype == torch.bfloat16 and d <= MAX_HEAD_DIM
+            and spec.block_q % 64 == 0 and spec.block_k % 64 == 0)
 
 
 def _fwd_cuda(q, k, v, active, spec: SparseSpec):

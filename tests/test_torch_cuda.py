@@ -1189,7 +1189,7 @@ def random_pattern(n_q_tiles, n_k_tiles, density, empty_row, seed=0):
 # name: ((b, h, h_kv, n_q, n_k, d), dtype, causal, (block_q, block_k),
 # pattern, use dlse); chip_smoke.py's sparse cases (a)-(d) at reduced sizes,
 # plus ragged block and head-dim edges with masked rows, in fp32 (the FMA
-# route) and in bf16 (the tensor-core route wherever D <= 128 and both
+# route) and in bf16 (the tensor-core route wherever D <= 256 and both
 # blocks are multiples of 64).
 SPARSE_CASES = {
     "a_model": ((2, 12, 12, 1024, 1024, 64), torch.bfloat16, True, (128, 128),
@@ -1218,10 +1218,29 @@ SPARSE_CASES = {
     "i_bf16_blocks_48_80": ((1, 4, 2, 200, 328, 40), torch.bfloat16, True,
                             (48, 80), random_pattern(5, 5, 0.5, 2, seed=1),
                             True),
+    # bf16 at head dim 256 (the D-split dK/dV kernel, 32-key dQ tiles):
+    # rows that see no key of a visited block and a KV block no q block
+    # visits; and D = 136 (a 64-column half wholly past D) with GQA, N_q !=
+    # N_k ragged, 64-row q blocks (one consumer in the forward and dQ),
+    # 128-key blocks (two dK/dV CTAs each), an emptied q-block row and an
+    # LSE cotangent: chip_smoke.py's case (f) at a reduced size
+    "j_bf16_d256_masked_rows": ((1, 2, 1, 256, 256, 256), torch.bfloat16,
+                                True, (128, 64),
+                                torch.tensor([[0, 1, 0, 0], [1, 0, 1, 0]],
+                                             dtype=torch.bool), False),
+    "k_bf16_d136_gqa_ragged": ((1, 4, 2, 320, 448, 136), torch.bfloat16, True,
+                               (64, 128), local_global(5)[:, :4]
+                               & (torch.arange(5) != 2)[:, None], True),
+    # the attention widths of Qwen3.8-Flash-Next's block-sparse layers (24
+    # query heads over 2 KV heads at D = 256: each dK/dV CTA walks a group
+    # of 12 heads): chip_smoke.py's case (h) at a reduced N
+    "l_bf16_d256_gqa12": ((1, 24, 2, 1024, 1024, 256), torch.bfloat16, True,
+                          (128, 128), local_global(8), False),
 }
 # The cases the tensor-core route takes; the others stay on the FMA kernels.
 SPARSE_TENSOR_CORE = {"a_model", "b_d128", "d_nq_ne_nk", "g_bf16_gqa_ragged",
-                      "h_bf16_d128_masked_rows"}
+                      "h_bf16_d128_masked_rows", "j_bf16_d256_masked_rows",
+                      "k_bf16_d136_gqa_ragged", "l_bf16_d256_gqa12"}
 
 
 def _sparse_case(name, device):
@@ -1282,11 +1301,12 @@ def test_sparse_kernels_match_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
-def test_sparse_bf16_backward_is_deterministic(cuda_device):
-    """The tensor-core sparse backward at the model case, twice: bit-equal
-    gradients (no atomics, so no dependence on block order)."""
-    sa, q, k, v, do, dlse, _, spec, active = _sparse_case("a_model",
-                                                          cuda_device)
+@pytest.mark.parametrize("case", ["a_model", "j_bf16_d256_masked_rows"])
+def test_sparse_bf16_backward_is_deterministic(cuda_device, case):
+    """The tensor-core sparse backward at the model case and at D = 256,
+    twice: bit-equal gradients (no atomics, so no dependence on block
+    order)."""
+    sa, q, k, v, do, dlse, _, spec, active = _sparse_case(case, cuda_device)
     o, lse = sa.sparse_fwd(q, k, v, active, spec)
     t0 = sa.sparse_attention.bwd_tc_launches
     first = sa.sparse_bwd(q, k, v, o, lse, do, dlse, active, spec)
@@ -1298,12 +1318,13 @@ def test_sparse_bf16_backward_is_deterministic(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["a_model", "j_bf16_d256_masked_rows"])
 @pytest.mark.parametrize("part", ["fwd", "bwd"])
-def test_sparse_tensor_core_failure_raises(cuda_device, monkeypatch, part):
+def test_sparse_tensor_core_failure_raises(cuda_device, monkeypatch, part,
+                                           case):
     """A tensor-core launch that reports an error raises; nothing falls
     back to the FMA kernels or the plain version."""
-    sa, q, k, v, do, dlse, _, spec, active = _sparse_case("a_model",
-                                                          cuda_device)
+    sa, q, k, v, do, dlse, _, spec, active = _sparse_case(case, cuda_device)
     calls = []
 
     class Lib:  # the tensor-core entry fails (cudaErrorInvalidValue)

@@ -50,6 +50,12 @@ CASES = {
     # rows 0-63 of q block 0 see no key of KV block 1 (cols 64-127)
     "masked_rows": ((1, 2, 2, 256, 256, 64), [[0, 1, 0, 0], [1, 0, 1, 1]],
                     dict(causal=True, block_q=128, block_k=64), True),
+    # head dim 256 (the D-split kernels on the card): MQA over 4 heads, and
+    # D = 136 with rows that see no key
+    "d256_gqa": ((1, 4, 1, 256, 256, 256), None, dict(causal=True), True),
+    "d136_masked_rows": ((1, 2, 2, 256, 256, 136),
+                         [[0, 1, 0, 0], [1, 0, 1, 1]],
+                         dict(causal=True, block_q=128, block_k=64), False),
 }
 
 
@@ -168,16 +174,19 @@ ROUTES = [
     (torch.bfloat16, 64, (64, 64), True),      # g_bf16_gqa_ragged
     (torch.bfloat16, 128, (128, 64), True),    # h_bf16_d128_masked_rows
     (torch.bfloat16, 40, (48, 80), False),     # i_bf16_blocks_48_80
-    (torch.bfloat16, 256, (128, 128), False),  # D > 128: registers
+    (torch.bfloat16, 256, (128, 128), True),   # D = 256: the D split
     (torch.bfloat16, 64, (192, 128), True),    # multiples of 64, not of 128
     (torch.bfloat16, 64, (128, 32), False),    # block_k below the TMA box
+    (torch.bfloat16, 136, (64, 128), True),    # k_bf16_d136_gqa_ragged
+    (torch.bfloat16, 256, (128, 32), False),   # D = 256, block_k below 64
+    (torch.bfloat16, 256, (128, 64), True),    # j_bf16_d256_masked_rows
 ]
 
 
 @pytest.mark.parametrize("dtype,d,blocks,tc", ROUTES)
 def test_tensor_core_route(dtype, d, blocks, tc):
-    """bf16 with D <= 128 and both blocks multiples of 64 take the
-    tensor-core kernels; fp32, D > 128 and other blocks the FMA kernels."""
+    """bf16 with D <= 256 and both blocks multiples of 64 take the
+    tensor-core kernels; fp32 and other blocks the FMA kernels."""
     spec = sa.SparseSpec(causal=True, scale=0.125, block_q=blocks[0],
                          block_k=blocks[1])
     assert sa._tensor_core_route(dtype, d, spec) is tc

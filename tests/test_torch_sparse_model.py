@@ -39,12 +39,15 @@ TOL = 1e-4
 N = 64
 BASE = dict(vocab_size=97, d_model=64, n_layers=2, n_heads=4, d_ff=128,
             max_seq_len=64, block_size=16, dropout_rate=0.0)
+D256 = dict(d_model=512, n_heads=2, n_kv_heads=1, pos_encoding="rope")
 # name: (config overrides, pattern); patterns are normalized onto 4 x 4 tiles
 CASES = {
     "learned": ({}, [[1, 0], [0, 1]]),
     "rope_3x3": (dict(pos_encoding="rope"), [[1, 0, 0], [1, 1, 0], [0, 1, 1]]),
     "gqa_empty_rows": (dict(n_kv_heads=2), [[0, 0], [1, 1]]),
     "softcap_fallback": (dict(attn_softcap=3.0), [[1, 0], [1, 1]]),
+    # head dim 256 (the D-split sparse kernels on the card), one KV head
+    "d256_mqa_rope": (dict(D256), [[1, 0], [1, 1]]),
 }
 
 
@@ -125,9 +128,10 @@ def _port_loss(params, cfg, toks, pattern, **kw):
     return token_nll(logits, t[:, 1:]).mean()
 
 
-@pytest.mark.parametrize("case", ["learned", "gqa_rope"])
+@pytest.mark.parametrize("case", ["learned", "gqa_rope", "d256_mqa_rope"])
 def test_sparse_loss_and_grads_match_jax(case):
-    over = dict(n_kv_heads=2, pos_encoding="rope") if case == "gqa_rope" else {}
+    over = {"learned": {}, "gqa_rope": dict(n_kv_heads=2, pos_encoding="rope"),
+            "d256_mqa_rope": D256}[case]
     pattern = _pattern([[1, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 1]])
     jcfg = jax_config(**over)
     jp = init_transformer(jax.random.key(1), jcfg)
