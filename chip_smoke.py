@@ -10,13 +10,14 @@ Phases, in order; any failure exits nonzero:
 
 1. Identify the card (nvidia-smi name and power limit) and build every CUDA
    kernel from ``flashattention_tpu_torch/csrc`` anew (one nvcc per source,
-   all at once). The tensor-core kernels (flash: forward, dK/dV, dQ at D 64
-   and 128, each in bf16 and in fp32 on 3xTF32, and the bf16 three at D
-   256, the dK/dV one split over the head dim; sparse: the same three at
-   D 64 and 128, each with one and two consumer warpgroups, and at D 256
-   the forward and dQ with one and two and the dK/dV one split over the
-   head dim; the 8-bit forward at D 64 and 128 in e4m3, e5m2 and int8; 38
-   in all) must show
+   all at once). The tensor-core kernels (flash: forward, dK/dV, dQ at D
+   64, 128 and 256, each in bf16 and in fp32 on 3xTF32, the bf16 dK/dV one
+   at 256 split over the head dim, the fp32 three at 256 the wide kernels
+   that split operands in registers; sparse: the same three at D 64 and
+   128, each with one and two consumer warpgroups, and at D 256 the
+   forward and dQ with one and two and the dK/dV one split over the head
+   dim; the 8-bit forward at D 64 and 128 in e4m3, e5m2 and int8; 41 in
+   all) must show
    HGMMA (wgmma) and UTMALDG (TMA) in their
    SASS (cuobjdump) and spill nothing (ptxas report of this build); the 15
    paged split kernels must show UBLKCP (1-D bulk copies) and spill
@@ -32,11 +33,11 @@ Phases, in order; any failure exits nonzero:
    segment ids with ALiBi, fp32, a nonzero LSE cotangent, rows with no
    visible key, fp32 with dropout, fp32 non-causal, segment ids with
    dropout, the sweep's d = 256 cell at 8K (k), GQA with window, sinks,
-   soft-cap and dropout at D = 256 (l)), each launched once on the route
-   it must take (bf16 on bf16 wgmma up to D = 256, fp32 on 3xTF32 wgmma up
-   to D = 128, fp32 above on the FMA kernels; checked by the route
-   counters); case (k) also times the backward's dK/dV and dQ kernels
-   apart (torch.profiler). Max error against the stated tolerance
+   soft-cap and dropout at D = 256 (l), both in fp32 (m), (n), and phase
+   7c's MQA call (o)), each launched once each way (bf16 on bf16 wgmma,
+   fp32 on 3xTF32 wgmma, both up to D = 256); cases (k), (m) and (o) also
+   time the backward's kernels apart (torch.profiler), whose names must be
+   those of the case's route. Max error against the stated tolerance
    (fp32 1e-4; bf16 flash two ulps, 1.6e-2 relative, plus 1e-3 of the
    largest value; bf16 paged 2e-2), then the kernel's, the plain version's
    and one library call's time (CUDA events, median over launches, L2
@@ -45,8 +46,10 @@ Phases, in order; any failure exits nonzero:
    take (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16, 165
    TFLOP/s fp32 on the tensor cores (3xTF32: three TF32 products at 495),
    67 on the FMA route); the flash cases also time the call as issued from
-   the host, and (a), (a0), (b), (e), (h), (i), (k), (l) the FMA kernels on
-   the same inputs, with the FMA route's bound beside them. Quantized pages:
+   the host, and (a), (a0), (b), (e), (h), (i), (k), (l), (m)-(o) the FMA
+   kernels on the same inputs, held against the plain version at the
+   case's limits, with the FMA route's bound beside them; fp32
+   SDPA runs with TF32 off for matmuls and cuDNN. Quantized pages:
    int8 (int8-qk and convert), e4m3 and e5m2 at the engine's decode shape,
    an e4m3 chunk, and bf16 vs int8 vs e4m3 at scripts/bench_decode.py's
    shape (paged limit; yardstick SDPA over pre-gathered dequantized K/V,
@@ -114,9 +117,9 @@ Phases, in order; any failure exits nonzero:
    micro-steps, then 8 timed ones (4 optimizer updates), each timed on the
    host clock up to ``loss.item()``. Launch counts are set to 0 just before
    and read just after: exactly 24 forward launches per micro-step (12
-   layers and their remat recompute) and 12 backward launches, all on the
-   tensor-core route. Then one micro-step under torch.profiler, with the
-   flash kernels' device time.
+   layers and their remat recompute) and 12 backward launches. Then one
+   micro-step under torch.profiler, with the flash kernels' device time;
+   its flash kernels must be those of the bf16 route at D = 64.
 6. One training loss and its gradients at full width (B=1, N=512, dropout
    0): the bf16 card against the fp32 CPU (plain versions).
 5b. fa3_attention(fp8=True) forward and backward at (1, 8, 8192, 128)
@@ -144,6 +147,15 @@ Phases, in order; any failure exits nonzero:
    sparse_fwd per no-grad forward, 4 sparse_fwd and 2 sparse_bwd per step,
    all on the tensor-core route (the D = 256 kernels), no flash launch;
    card vs CPU at N=512; the all-ones pattern against the flash route.
+7c. Phase 7b's widths dense and in fp32 (``gemma_dense_fp32_config``), so
+   every attention call runs the fp32 flash kernels at D = 256 (MQA 8/1):
+   one loss and its gradients at B=1, N=512 on the card against the CPU in
+   fp32 (1e-3, the MoE fp32 rung), then ``train_step`` at B=1, N=4096: 2
+   untimed and 3 timed micro-steps, exactly 4 forward and 2 backward flash
+   launches each (checked), and one profiled micro-step with the flash
+   kernels' share of it, whose flash kernels must be the wide 3xTF32 ones
+   (with the sum of the dK/dV partials). Flash case (o) holds these
+   kernels at this call's shape.
 8. The speculative engine: phase 3's config with spec_gamma=4, 32 requests
    of 32-400-token prompts (phase 3's draws), 32 new tokens each, in three
    arms, each after a warm-up engine: plain (no draft; the reference
@@ -232,9 +244,12 @@ phase 11's fp32 card check's, numbers of cases (e) and (h),
 ``flash_fwd[sweep]`` and ``flash_bwd[sweep]`` with case (b),
 ``flash_fwd_fp8[sweep]`` with fp8 case (b), ``flash_fwd[d256]`` and
 ``flash_bwd[d256]``: launches of the d = 256 sweep cells, numbers of case
-(k) with case (l) beside them; ``sparse_fwd[d256]`` and
-``sparse_bwd[d256]``: launches of phase 7b's steps, numbers of sparse case
-(g), phase 7b's call, with cases (e), (f) and (h) beside them).
+(k) with case (l) beside them; ``flash_fwd[fp32_d256]`` and
+``flash_bwd[fp32_d256]``: launches of phase 7c's timed micro-steps,
+numbers of case (o), its call, with cases (m) and (n) beside them;
+``sparse_fwd[d256]`` and ``sparse_bwd[d256]``: launches of phase 7b's
+steps, numbers of sparse case (g), phase 7b's call, with cases (e), (f)
+and (h) beside them).
 ``--cpu-rehearsal`` skips phases 1-2, runs the others at a tiny width on
 the CPU (phase 9's workers on the CPU, phase 10's rank over gloo) and
 never prints the device line.
@@ -250,6 +265,7 @@ import dataclasses
 import importlib.util
 import json
 import math
+import re
 import shutil
 import socket
 import statistics
@@ -738,15 +754,16 @@ def append_case(timer, gen, dev, fmt, kind, *, h=12, d=64, page=16,
 
 
 BF16, FP32 = torch.bfloat16, torch.float32
-# Cases whose inputs are also timed on the FMA route (the first kernels,
-# which fp32 above D = 128 keeps): each redesign's before/after on one card
-# in one call (bf16: (a), (a0), (b); fp32 on 3xTF32: (e), (h), (i); bf16 at
-# D = 256: (k), (l)).
-FMA_COMPARE = ("a", "a0", "b", "e", "h", "i", "k", "l")
+# Cases whose inputs are also run on the FMA route (the first kernels,
+# which no call takes any more), held against the plain version and timed:
+# each redesign's before/after on one card in one call (bf16: (a), (a0),
+# (b); fp32 on 3xTF32: (e), (h), (i); bf16 at D = 256: (k), (l); fp32 at
+# D = 256: (m), (n), (o)).
+FMA_COMPARE = ("a", "a0", "b", "e", "h", "i", "k", "l", "m", "n", "o")
 # Cases also timed kernel by kernel (torch.profiler, by
 # scripts/flash_kernel_split.py's kernel_ms: only causal or not, no other
-# option)
-FLASH_SPLIT = ("k",)
+# option), which also shows the kernels of the case's route ran
+FLASH_SPLIT = ("k", "m", "o")
 TRAIN_SHAPE = (8, 12, 12, 512, 512, 64)  # B, H, H_kv, N_q, N_k, D
 # key: (label, shape, dtype, kernel_attention kwargs, extras)
 FLASH_CASES = {
@@ -785,6 +802,17 @@ FLASH_CASES = {
           "D=256 bf16", (2, 8, 2, 300, 300, 256), BF16,
           dict(causal=True, window=96, sinks=4, softcap=30.0,
                dropout_rate=0.1, dropout_seed=21), ()),
+    # (k) and (l) in fp32: the wide 3xTF32 kernels (phase 7c's route), and
+    # (o), phase 7c's exact call: MQA, where the dK/dV kernel spreads the 8
+    # query heads of the KV head over CTAs and a sum kernel adds them
+    "m": ("fp32 B=1 H=8 N=8192 D=256 causal", (1, 8, 8, 8192, 8192, 256),
+          FP32, dict(causal=True), ()),
+    "n": ("GQA 8/2 window 96 sinks 4 softcap 30 dropout 0.1, B=2 N=300 "
+          "D=256 fp32", (2, 8, 2, 300, 300, 256), FP32,
+          dict(causal=True, window=96, sinks=4, softcap=30.0,
+               dropout_rate=0.1, dropout_seed=21), ()),
+    "o": ("phase 7c's call: MQA 8/1 B=1 N=4096 D=256 fp32 causal",
+          (1, 8, 1, 4096, 4096, 256), FP32, dict(causal=True), ()),
 }
 
 
@@ -821,11 +849,9 @@ def flash_bound(q, k, opts, dlse, peak=None):
             pairs / (b * h * n_q * n_k))
 
 
-def flash_peak(dtype, d):
-    """The operations rate of the flash route a call takes: bf16 wgmma,
-    3xTF32 wgmma for fp32 up to D = 128, CUDA-core FMAs for fp32 above."""
-    if not fa._tensor_core_route(dtype, d):
-        return FP32_FLOPS_PER_S
+def flash_peak(dtype):
+    """The operations rate of the flash route a call takes: bf16 wgmma, or
+    3xTF32 wgmma for fp32 (every head dim make_opts accepts)."""
     return BF16_FLOPS_PER_S if dtype == torch.bfloat16 else TF32X3_FLOPS_PER_S
 
 
@@ -841,7 +867,7 @@ def attention_bounds(q, k, pairs, dlse, peak=None):
     kv = k.numel() * el                      # k, v, dk, dv each
     rows = b * h * n_q * 4                   # lse, dlse
     if peak is None:
-        peak = flash_peak(q.dtype, d)
+        peak = flash_peak(q.dtype)
     out = {}
     for name, nbytes, flops in (
         ("fwd", 2 * qo + 2 * kv + rows, 4 * pairs * d),
@@ -857,7 +883,8 @@ def attention_bounds(q, k, pairs, dlse, peak=None):
 def fma_route(q, k, v, o, lse, do, dlse, opts):
     """(forward, backward) callables that launch the FMA-route entry points
     (``fat_flash_fwd`` / ``fat_flash_bwd``) on inputs the wrapper would
-    send to the tensor cores: the first kernels' time on the same card."""
+    send to the tensor cores: the first kernels' time on the same card.
+    They return their outputs, (o, lse) and [dq, dk, dv]."""
     fwd = _build.load_kernel("flash_fwd", fa._declare_fwd)
     bwd = _build.load_kernel("flash_bwd", fa._declare_bwd)
     o_out, lse_out = torch.empty_like(o), torch.empty_like(lse)
@@ -871,12 +898,14 @@ def fma_route(q, k, v, o, lse, do, dlse, opts):
         _build.check(fwd.fat_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o_out.data_ptr(),
             lse_out.data_ptr(), *ext, *fa._scalars(q, k, opts)), "fma fwd")
+        return o_out, lse_out
 
     def run_bwd():
         _build.check(bwd.fat_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), di.data_ptr(), *(g.data_ptr() for g in grads),
             *ext, *fa._scalars(q, k, opts)), "fma bwd")
+        return grads
     return run_fwd, run_bwd
 
 
@@ -896,7 +925,6 @@ def flash_case(timer, gen, dev, key):
     label, shape, dtype, kw, extras = FLASH_CASES[key]
     q, k, v, do, dlse, more = _flash_inputs(gen, dev, shape, dtype, extras)
     opts = fa.make_opts(q, k, **kw, **more)
-    tc = fa._tensor_core_route(dtype, shape[-1])
     reset_counts()
     o, lse = fa.flash_fwd(q, k, v, opts)
     torch.cuda.synchronize()
@@ -911,12 +939,10 @@ def flash_case(timer, gen, dev, key):
     grads = fa.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, opts)
     torch.cuda.synchronize()
     c = read_counts()
-    if (c["flash_fwd"], c["flash_bwd"], c["flash_fwd_tc"],
-            c["flash_bwd_tc"]) != (1, 1, int(tc), int(tc)):
-        fail(f"flash {key}: launches {c}; want the "
-             f"{'tensor-core' if tc else 'FMA'} route once each way")
-    route = ("FMA" if not tc else "tensor cores (wgmma + TMA)"
-             if dtype == torch.bfloat16 else "tensor cores (3xTF32 wgmma + TMA)")
+    if (c["flash_fwd"], c["flash_bwd"]) != (1, 1):
+        fail(f"flash {key}: launches {c}; want one each way")
+    route = ("tensor cores (wgmma + TMA)" if dtype == torch.bfloat16
+             else "tensor cores (3xTF32 wgmma + TMA)")
 
     def plain_bwd():
         di = (o_ref.float() * do.float()).sum(-1)
@@ -940,8 +966,22 @@ def flash_case(timer, gen, dev, key):
         bwd_wall_ms=timer.wall(bwd_call),
         bwd_plain_ms=timer(plain_bwd, reps=3 if big else 10, warmup=1),
     )
-    if tc and key in FMA_COMPARE:
+    if key in FMA_COMPARE:
+        # the FMA kernels, held against the plain version at the case's
+        # limits before they are timed
         fma_fwd, fma_bwd = fma_route(q, k, v, o_ref, lse_ref, do, dlse, opts)
+        fma_out = [*fma_fwd(), *fma_bwd()]
+        torch.cuda.synchronize()
+        fma_err = {
+            "o": check_close(f"FMA flash_fwd {key} o", fma_out[0], o_ref,
+                             *tols["o"]),
+            "lse": check_close(f"FMA flash_fwd {key} lse", fma_out[1][seen],
+                               lse_ref[seen], LSE_TOL)}
+        for name, g, r in zip(("dq", "dk", "dv"), fma_out[2:], plain_bwd()):
+            fma_err[name] = check_close(f"FMA flash_bwd {key} {name}", g, r,
+                                        *tols[name])
+        t["fma_max_abs_err"] = fma_err
+        del fma_out
         t["fwd_fma_ms"] = timer(fma_fwd, reps=10 if big else 30)
         t["bwd_fma_ms"] = timer(fma_bwd, reps=10 if big else 30)
         # the first kernels' bound, at 67 TFLOP/s
@@ -950,6 +990,11 @@ def flash_case(timer, gen, dev, key):
         t["bwd_fma_bound_ms"] = fma_bounds["bwd"][0]
     if key in FLASH_SPLIT:
         t["kernel_ms"] = kernel_split_ms(q, k, v, do, kw["causal"])
+        ran = {n.split("<")[0] for n in t["kernel_ms"]}
+        if t["kernel_ms"] and ran - {"flash_bwd_sum_kernel"} != \
+                fa.route_kernels(dtype, shape[-1]):
+            fail(f"flash {key}: the profiler saw {sorted(ran)}; want "
+                 f"{sorted(fa.route_kernels(dtype, shape[-1]))}")
     # SDPA(is_causal=causal), no dropout: the library call where the case
     # has no other feature (the same function), else a yardstick.
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -976,7 +1021,9 @@ def flash_case(timer, gen, dev, key):
         + " ".join(f"{n} {e:.2e}" for n, e in err.items())
         + f" ({tol_text(dtype)}; lse {LSE_TOL:g} abs+rel)")
     fma = (f"; FMA route fwd {t['fwd_fma_ms']:.4f} bwd {t['bwd_fma_ms']:.4f}"
-           if "fwd_fma_ms" in t else "")
+           " (max_abs_err vs plain "
+           + " ".join(f"{n} {e:.2e}" for n, e in t["fma_max_abs_err"].items())
+           + ")" if "fwd_fma_ms" in t else "")
     if "fwd_fma_bound_ms" in t:
         fma += (f" (its bound at {FP32_FLOPS_PER_S / 1e12:g} TFLOP/s: fwd "
                 f"{t['fwd_fma_bound_ms']:.4f} bwd {t['bwd_fma_bound_ms']:.4f})")
@@ -1453,8 +1500,6 @@ def reset_counts():
     pap.paged_append.chunk_launches = 0
     fa.kernel_attention.fwd_launches = 0
     fa.kernel_attention.bwd_launches = 0
-    fa.kernel_attention.fwd_tc_launches = 0
-    fa.kernel_attention.bwd_tc_launches = 0
     f8.fp8_attention.launches = 0
     sa.sparse_attention.fwd_launches = 0
     sa.sparse_attention.bwd_launches = 0
@@ -1471,8 +1516,6 @@ def read_counts():
             "paged_append_chunk": pap.paged_append.chunk_launches,
             "flash_fwd": fa.kernel_attention.fwd_launches,
             "flash_bwd": fa.kernel_attention.bwd_launches,
-            "flash_fwd_tc": fa.kernel_attention.fwd_tc_launches,
-            "flash_bwd_tc": fa.kernel_attention.bwd_tc_launches,
             "flash_fwd_fp8": f8.fp8_attention.launches,
             "sparse_fwd": sa.sparse_attention.fwd_launches,
             "sparse_bwd": sa.sparse_attention.bwd_launches,
@@ -2257,15 +2300,12 @@ def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8,
     if on_card:
         per = (2 if cfg.remat else 1) * cfg.n_layers
         want = {"flash_fwd": per * n_timed, "flash_bwd": cfg.n_layers * n_timed}
-        want["flash_fwd_tc"] = want["flash_fwd"]  # bf16, D = 64: every one
-        want["flash_bwd_tc"] = want["flash_bwd"]  # on the tensor cores
         for name, n in want.items():
             if counts[name] != n:
                 fail(f"training launched {name} {counts[name]} times, want "
                      f"{n} ({n // n_timed} per micro-step)")
         log(f"[{tag}] per micro-step: {per} flash_fwd + {cfg.n_layers} "
-            f"flash_bwd launches, all on the tensor-core route (checked); "
-            f"max_memory_allocated "
+            f"flash_bwd launches (checked); max_memory_allocated "
             f"{rec['max_memory_allocated'] / 2 ** 30:.3f} GiB")
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2276,17 +2316,29 @@ def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8,
     busy = sum(kernels.values()) / 1e6
     flash = {part: sum(v for k, v in kernels.items() if part in k) / 1e3
              for part in ("flash_fwd", "flash_bwd")}
+    flash_s = sum(flash.values()) / 1e3
+    # the flash kernels of the step: those of the dtype's and head dim's
+    # route (the dK/dV partials' sum where a GQA/MQA group is split)
+    ran = {n for k in kernels for n in re.findall(r"flash_\w+_kernel", k)}
+    want = fa.route_kernels(cfg.dtype, cfg.d_head)
+    if on_card and kernels and ran - {"flash_bwd_sum_kernel"} != want:
+        fail(f"[{tag}] the profiled micro-step ran the flash kernels "
+             f"{sorted(ran)}; want {sorted(want)}")
     rec["profile"] = dict(
         wall_ms=wall * 1e3, kernel_ms=busy * 1e3,
         device_busy_share=busy / wall if kernels else None,
-        flash_ms=flash,
+        flash_ms=flash, flash_kernels=sorted(ran),
+        flash_share_of_step=flash_s / wall if kernels else None,
+        flash_share_of_kernels=flash_s / busy if kernels else None,
         top=sorted(((k, v / 1e3) for k, v in kernels.items()),
                    key=lambda kv: -kv[1])[:12])
     if kernels:
         log(f"[{tag}] profiled micro-step: {wall * 1e3:.2f} ms wall, kernels "
             f"{busy * 1e3:.2f} ms, device busy {100 * busy / wall:.1f}%; "
             f"flash kernels: forward {flash['flash_fwd']:.4f} ms, backward "
-            f"{flash['flash_bwd']:.4f} ms")
+            f"{flash['flash_bwd']:.4f} ms ({100 * flash_s / wall:.2f}% of "
+            f"the step, {100 * flash_s / busy:.2f}% of its kernel time); "
+            f"flash kernels {', '.join(sorted(ran))}")
         for k, v in rec["profile"]["top"]:
             log(f"[{tag}]   {v:.4f} ms  {k[:90]}")
     else:
@@ -2294,9 +2346,11 @@ def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8,
     return rec
 
 
-def phase_train_vs_cpu(cfg, dev, n=512):
-    """One training loss and its gradients (B=1, dropout 0): the bf16 card
-    against the fp32 CPU, from the same fp32 parameters."""
+def phase_train_vs_cpu(cfg, dev, n=512, tol=TRAIN_TOL, tag="train_vs_cpu"):
+    """One training loss and its gradients (B=1, dropout 0): the card in
+    cfg's compute dtype against the fp32 CPU, from the same fp32
+    parameters, within ``tol`` (the loss abs+rel, the gradients' global
+    relative L2); on the card both flash kernels must have run."""
     cfg = dataclasses.replace(cfg, dropout_rate=0.0)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     ref_params = init_params(cfg32, seed=SEED + 3, device="cpu")
@@ -2304,16 +2358,23 @@ def phase_train_vs_cpu(cfg, dev, n=512):
     toks = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
         0, cfg.vocab_size, size=(1, n + 1)))
     out = {}
-    for tag, params, c in (("card", card_params, cfg),
-                           ("cpu_fp32", ref_params, cfg32)):
-        loss = ttrain.loss_fn(params, {"tokens": toks.to(
-            next(params.parameters()).device)}, c, None)
+    for side, params, c in (("card", card_params, cfg),
+                            ("cpu_fp32", ref_params, cfg32)):
+        device = next(params.parameters()).device
+        reset_counts()
+        loss = ttrain.loss_fn(params, {"tokens": toks.to(device)}, c, None)
         loss.backward()
-        out[tag] = (loss.item(), {name: p.grad.float().cpu()
-                                  for name, p in params.named_parameters()})
-    (lc, gc), (lr, gr) = out["card"], out["cpu_fp32"]
+        sync(device)
+        out[side] = (loss.item(), {name: p.grad.float().cpu()
+                                   for name, p in params.named_parameters()},
+                     read_counts())
+    (lc, gc, counts), (lr, gr, _) = out["card"], out["cpu_fp32"]
     if not np.isfinite(lc):
-        fail("card training loss is not finite")
+        fail(f"[{tag}] card training loss is not finite")
+    flash = [counts["flash_fwd"], counts["flash_bwd"]]
+    if torch.device(dev).type == "cuda" and not all(flash):
+        fail(f"[{tag}] flash launches {flash} (fwd, bwd); want both on the "
+             "card")
     loss_err = abs(lc - lr)
     num = sum(float((gc[k] - gr[k]).square().sum()) for k in gr)
     den = sum(float(gr[k].square().sum()) for k in gr)
@@ -2321,17 +2382,18 @@ def phase_train_vs_cpu(cfg, dev, n=512):
     per = {k: float((gc[k] - gr[k]).norm() / gr[k].norm().clamp(min=1e-30))
            for k in gr}
     worst = max(per, key=per.get)
-    log(f"[train_vs_cpu] loss card bf16 {lc:.6f} vs cpu fp32 {lr:.6f} (|diff| "
-        f"{loss_err:.3e}, tol {TRAIN_TOL:g} abs+rel); gradient global "
-        f"relative L2 {rel:.3e} (tol {TRAIN_TOL:g}); worst tensor {worst} "
-        f"{per[worst]:.3e}")
-    if loss_err > TRAIN_TOL + TRAIN_TOL * abs(lr):
-        fail(f"training loss differs by {loss_err:.3e}")
-    if not rel <= TRAIN_TOL:
-        fail(f"gradient relative L2 error {rel:.3e} over {TRAIN_TOL:g}")
-    return dict(loss_card=lc, loss_cpu=lr, loss_abs_err=loss_err,
+    dname = str(cfg.dtype).replace("torch.", "")
+    log(f"[{tag}] N={n}: loss card {dname} {lc:.6f} vs cpu fp32 {lr:.6f} "
+        f"(|diff| {loss_err:.3e}, tol {tol:g} abs+rel); gradient global "
+        f"relative L2 {rel:.3e} (tol {tol:g}); worst tensor {worst} "
+        f"{per[worst]:.3e}; card flash launches (fwd, bwd) {flash}")
+    if loss_err > tol + tol * abs(lr):
+        fail(f"[{tag}] training loss differs by {loss_err:.3e}")
+    if not rel <= tol:
+        fail(f"[{tag}] gradient relative L2 error {rel:.3e} over {tol:g}")
+    return dict(n=n, loss_card=lc, loss_cpu=lr, loss_abs_err=loss_err,
                 grad_rel_l2=rel, worst_tensor=worst, worst_rel_l2=per[worst],
-                tol=TRAIN_TOL)
+                tol=tol, launches=counts)
 
 
 # ---------------------------------------------------------------------------
@@ -2388,6 +2450,14 @@ def gemma_sparse_config():
                              d_ff=16384, pos_encoding="rope", n_layers=2,
                              max_seq_len=4096, dropout_rate=0.0,
                              block_size=128)
+
+
+def gemma_dense_fp32_config():
+    """Phase 7c's model: phase 7b's (gemma_sparse_config: Gemma 2B's
+    attention widths, 8 query heads over 1 KV head at head dim 256, cut to
+    2 layers) in fp32 and dense, so that every attention call runs the
+    fp32 flash kernels at D = 256 (the wide 3xTF32 pair)."""
+    return dataclasses.replace(gemma_sparse_config(), dtype=torch.float32)
 
 
 def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
@@ -2643,12 +2713,10 @@ def cp_case(gen, dev, shape, dtype, seg, on_card):
         kr = dict(launches=counts, max_abs_err_vs_single=err)
         if on_card:
             want = CP_LAUNCHES[kind]
-            got = [counts[c] for c in ("flash_fwd", "flash_fwd_tc",
-                                       "flash_bwd", "flash_bwd_tc")]
-            if got != [want] * 4:
-                fail(f"phase 10 {kind} ({tag}): flash launches (fwd, fwd on "
-                     f"the tensor cores, bwd, bwd on the tensor cores) {got},"
-                     f" want {want} each")
+            got = [counts["flash_fwd"], counts["flash_bwd"]]
+            if got != [want] * 2:
+                fail(f"phase 10 {kind} ({tag}): flash launches (fwd, bwd) "
+                     f"{got}, want {want} each")
             o_r, lse_r = out[0].chunk(w, 2), out[1].chunk(w, 2)
             dk, dv = (torch.zeros(k.shape, device=dev) for _ in range(2))
             kw = dict(causal=True, kv_ids=ids)
@@ -2786,12 +2854,11 @@ def phase_parallel_steps(cfg, tc, dev, on_card):
                      f"gradient rel L2 {grad_rel:.2e}, over {STEP_TOL:g}")
             if on_card:
                 c = g["counts"]
-                have = (c["flash_fwd"], c["flash_fwd_tc"], c["flash_bwd"],
-                        c["flash_bwd_tc"])
-                if have != (per, per, cfg.n_layers, cfg.n_layers):
+                have = (c["flash_fwd"], c["flash_bwd"])
+                if have != (per, cfg.n_layers):
                     fail(f"phase 10 {name}: flash launches {have} in a "
-                         f"micro-step, want ({per}, {per}, {cfg.n_layers}, "
-                         f"{cfg.n_layers}) as phase 5")
+                         f"micro-step, want ({per}, {cfg.n_layers}) as phase "
+                         f"5")
         return rec
     finally:
         dist.destroy_process_group()
@@ -2863,14 +2930,10 @@ def phase_moe_vs_cpu(cfg, dev, n=512):
             f"{abs(lc - lr):.3e}), gradient relative L2 {rel:.3e}; tokens with"
             f" another expert set, per layer: {moved} of {n}")
         if tag == "card_fp32":
-            flash = [counts[k] for k in ("flash_fwd", "flash_fwd_tc",
-                                         "flash_bwd", "flash_bwd_tc")]
-            if torch.device(dev).type == "cuda" and (
-                    flash[0] != flash[1] or flash[2] != flash[3]
-                    or not flash[0] or not flash[2]):
-                fail(f"MoE fp32 card run: flash launches {flash} (fwd, fwd "
-                     "tensor-core, bwd, bwd tensor-core); want all on the "
-                     "3xTF32 kernels")
+            flash = [counts["flash_fwd"], counts["flash_bwd"]]
+            if torch.device(dev).type == "cuda" and not all(flash):
+                fail(f"MoE fp32 card run: flash launches {flash} (fwd, bwd); "
+                     "want both on the card")
             if not np.isfinite(lc) or abs(lc - lr) > MOE_TOL * (1 + abs(lr)):
                 fail(f"MoE loss on the card (fp32) differs by {abs(lc - lr):.3e}")
             if not rel <= MOE_TOL:
@@ -2969,13 +3032,12 @@ def phase_compat(tokens, dev, on_card, size, heads, rows=8, timer=None):
     want = 2 * size["n_layers"]
     if on_card:
         others = {k: v for k, v in counts.items()
-                  if v and k not in ("flash_fwd", "flash_fwd_tc")}
-        if counts["flash_fwd"] != want or counts["flash_fwd_tc"] != want \
-                or others:
-            fail(f"compat forward launched {counts}; want {want} flash_fwd on "
-                 "the 3xTF32 tensor-core route and nothing else")
-        log(f"[compat] {want} flash_fwd launches a forward, all on the 3xTF32 "
-            "tensor-core route (checked)")
+                  if v and k != "flash_fwd"}
+        if counts["flash_fwd"] != want or others:
+            fail(f"compat forward launched {counts}; want {want} flash_fwd "
+                 "and nothing else")
+        log(f"[compat] {want} flash_fwd launches a forward, nothing else "
+            "(checked)")
         fwd = lambda: compat.apply_reference_transformer(params, ids)
         with torch.no_grad():
             # from an idle card, host issue included: the forward issues
@@ -3039,14 +3101,12 @@ BENCH_SHAPE_D256 = (1, 8, 8192, 256)
 BENCH_CELLS = {
     # name: sweep cell (bench.sweep.cell arguments), counter that must move,
     # shape
-    "fa2_fwd": (("fa2", "forward"), {}, "flash_fwd_tc", BENCH_SHAPE),
-    "fa2_bwd": (("fa2", "backward"), {}, "flash_bwd_tc", BENCH_SHAPE),
+    "fa2_fwd": (("fa2", "forward"), {}, "flash_fwd", BENCH_SHAPE),
+    "fa2_bwd": (("fa2", "backward"), {}, "flash_bwd", BENCH_SHAPE),
     "fa3_int8_fwd": (("fa3", "forward"), dict(fp8=True, fp8_fmt="int8"),
                      "flash_fwd_fp8_tc", BENCH_SHAPE),
-    "fa2_fwd_d256": (("fa2", "forward"), {}, "flash_fwd_tc",
-                     BENCH_SHAPE_D256),
-    "fa2_bwd_d256": (("fa2", "backward"), {}, "flash_bwd_tc",
-                     BENCH_SHAPE_D256),
+    "fa2_fwd_d256": (("fa2", "forward"), {}, "flash_fwd", BENCH_SHAPE_D256),
+    "fa2_bwd_d256": (("fa2", "backward"), {}, "flash_bwd", BENCH_SHAPE_D256),
 }
 # a cell's events may exceed its traced kernel time by the gaps between
 # its kernels and the cold L2; a host wait inside them would add far more
@@ -3173,12 +3233,12 @@ def ptxas_entries(text):
     return out
 
 
-# Tensor-core kernels per library: forward at D 64 and 128, dK/dV and dQ at
-# D 64 and 128, each in bf16 and in fp32 (3xTF32), and the bf16 three at
-# D 256; the sparse ones (bf16) at D 64, 128 and 256, each with one and two
-# consumer warpgroups but the D-split dK/dV at 256 (two); the 8-bit forward
-# at D 64 and 128 for e4m3, e5m2 and int8.
-SM90_KERNELS = {"flash_fwd": 5, "flash_bwd": 10, "sparse_fwd": 6,
+# Tensor-core kernels per library: forward, dK/dV and dQ at D 64, 128 and
+# 256, each in bf16 and in fp32 (3xTF32; at 256 the wide kernels); the
+# sparse ones (bf16) at D 64, 128 and 256, each with one and two consumer
+# warpgroups but the D-split dK/dV at 256 (two); the 8-bit forward at D 64
+# and 128 for e4m3, e5m2 and int8.
+SM90_KERNELS = {"flash_fwd": 6, "flash_bwd": 12, "sparse_fwd": 6,
                 "sparse_bwd": 11, "flash_fwd_fp8": 6}
 # The paged split kernels: bf16, int8 (convert and "qk"), e4m3 and e5m2
 # pages, each at 1, 2 and 4 rows a row set.
@@ -3340,6 +3400,14 @@ def main() -> int:
             dataclasses.replace(cfg, d_model=512, n_heads=2, n_kv_heads=1,
                                 pos_encoding="rope", block_size=16),
             "cpu", False, b=1, n=128, check_n=64, tag="sparse_d256")
+        dcfg = dataclasses.replace(cfg, d_model=512, n_heads=2, n_kv_heads=1,
+                                   pos_encoding="rope", dtype=torch.float32)
+        report["dense_fp32_vs_cpu"] = phase_train_vs_cpu(
+            dcfg, "cpu", n=64, tol=MOE_TOL, tag="dense_fp32_vs_cpu")
+        report["dense_fp32"] = phase_train(
+            dcfg, ttrain.TrainConfig(batch_size=1, seq_len=64, grad_accum=1,
+                                     warmup_steps=2),
+            "cpu", on_card=False, n_warm=1, n_timed=2, tag="dense_fp32")
         draft = dataclasses.replace(cfg, n_layers=1)
         report["spec"] = phase_spec(
             cfg, params, ecfg, "cpu", 8, (8, 60), 8,
@@ -3475,6 +3543,21 @@ def main() -> int:
     report["sparse_model_d256"]["phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
+    # Phase 7c: phase 7b's widths dense in fp32 (the wide 3xTF32 flash
+    # kernels at D = 256): card vs CPU at N = 512, then train_step at B = 1,
+    # N = 4096
+    t0 = time.perf_counter()
+    dcfg = gemma_dense_fp32_config()
+    report["dense_fp32_vs_cpu"] = phase_train_vs_cpu(
+        dcfg, dev, n=512, tol=MOE_TOL, tag="dense_fp32_vs_cpu")
+    torch.cuda.empty_cache()
+    report["dense_fp32"] = phase_train(
+        dcfg, ttrain.TrainConfig(batch_size=1, seq_len=4096, grad_accum=1,
+                                 warmup_steps=2),
+        dev, on_card=True, n_warm=2, n_timed=3, tag="dense_fp32")
+    report["dense_fp32"]["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
     # Phase 8: the speculative engine, phase 3's config with gamma 4; the
     # floor's draft is GPT-3 Small at 2 layers
     t0 = time.perf_counter()
@@ -3546,7 +3629,8 @@ def main() -> int:
     log(f"[card] phase 1 {report['phase_1_s']:.1f} s, phase 2 "
         f"{report['phase_2_s']:.1f} s, phases 3-7 "
         f"{report['phases_3_7_s']:.1f} s, phase 7b "
-        f"{report['sparse_model_d256']['phase_s']:.1f} s, "
+        f"{report['sparse_model_d256']['phase_s']:.1f} s, phase 7c "
+        f"{report['dense_fp32']['phase_s']:.1f} s, "
         f"phase 8 {report['spec']['phase_s']:.1f} s, phase 9 "
         f"{report['multihost']['phase_s']:.1f} s, phase 10 "
         f"{report['cp']['phase_s']:.1f} s, phase 11 "
@@ -3556,8 +3640,7 @@ def main() -> int:
 
     counts = {**report["engine"]["launches"],
               **{k: report["train"]["launches"][k]
-                 for k in ("flash_fwd", "flash_bwd", "flash_fwd_tc",
-                           "flash_bwd_tc")}}
+                 for k in ("flash_fwd", "flash_bwd")}}
     kernels = []
     layers = cfg.n_layers
 
@@ -3619,7 +3702,6 @@ def main() -> int:
                              ("flash_bwd", "bwd", ("dq", "dk", "dv"))):
         kernels.append(dict(
             name=name, **KERNELS[name], launches=counts[name],
-            launches_tensor_core=counts[f"{name}_tc"],
             max_abs_err=max(r["max_abs_err"][e] for e in errs),
             ms=r[f"{part}_ms"], plain_ms=r[f"{part}_plain_ms"],
             bound_ms=r[f"{part}_bound_ms"], bound_by=r[f"{part}_bound_by"],
@@ -3676,7 +3758,6 @@ def main() -> int:
             kernels.append(dict(
                 name=f"{name}[{kind}]", **KERNELS[name],
                 launches=kr["launches"][name],
-                launches_tensor_core=kr["launches"][f"{name}_tc"],
                 max_abs_err=max(kr["max_abs_err"][e] for e in errs),
                 ms=kr[f"{part}_ms"], plain_ms=kr[f"plain_{part}_ms"],
                 bound_ms=cp[f"{part}_bound_ms"],
@@ -3698,7 +3779,6 @@ def main() -> int:
                                  ("flash_bwd", "bwd", ("dq", "dk", "dv"))):
             kernels.append(dict(
                 name=name + tag, **KERNELS[name], launches=c[name],
-                launches_tensor_core=c[f"{name}_tc"],
                 max_abs_err=max(r["max_abs_err"][e] for e in errs),
                 ms=r[f"{part}_ms"], plain_ms=r[f"{part}_plain_ms"],
                 bound_ms=r[f"{part}_bound_ms"], bound_by=r[f"{part}_bound_by"],
@@ -3721,7 +3801,7 @@ def main() -> int:
     c = report["compat"]["launches"]
     kernels.append(dict(
         name="flash_fwd[compat]", **KERNELS["flash_fwd"],
-        launches=c["flash_fwd"], launches_tensor_core=c["flash_fwd_tc"],
+        launches=c["flash_fwd"],
         max_abs_err=max(r["max_abs_err"][e] for e in ("o", "lse")),
         ms=r["fwd_ms"], plain_ms=r["fwd_plain_ms"], bound_ms=r["fwd_bound_ms"],
         bound_by=r["fwd_bound_by"], library_ms=r["library_fwd_ms"],
@@ -3746,7 +3826,6 @@ def main() -> int:
             ("flash_bwd", "bwd", ("dq", "dk", "dv"), moe32)):
         kernels.append(dict(
             name=f"{name}[fp32]", **KERNELS[name], launches=c[name],
-            launches_tensor_core=c[f"{name}_tc"],
             max_abs_err=max(max(x["max_abs_err"][e] for e in errs)
                             for x in (r, rh)),
             ms=r[f"{part}_ms"], plain_ms=r[f"{part}_plain_ms"],
@@ -3767,7 +3846,6 @@ def main() -> int:
                              ("flash_bwd", "bwd", ("dq", "dk", "dv"))):
         kernels.append(dict(
             name=f"{name}[packed]", **KERNELS[name], launches=c[name],
-            launches_tensor_core=c[f"{name}_tc"],
             max_abs_err=max(r["max_abs_err"][e] for e in errs),
             ms=r[f"{part}_ms"], plain_ms=r[f"{part}_plain_ms"],
             bound_ms=r[f"{part}_bound_ms"], bound_by=r[f"{part}_bound_by"],
@@ -3782,7 +3860,6 @@ def main() -> int:
             ("flash_bwd", "bwd", ("dq", "dk", "dv"), "fa2_bwd")):
         kernels.append(dict(
             name=f"{name}[sweep]", **KERNELS[name], launches=c[name],
-            launches_tensor_core=c[f"{name}_tc"],
             max_abs_err=max(rb["max_abs_err"][e] for e in errs),
             ms=rb[f"{part}_ms"], plain_ms=rb[f"{part}_plain_ms"],
             bound_ms=rb[f"{part}_bound_ms"], bound_by=rb[f"{part}_bound_by"],
@@ -3811,7 +3888,6 @@ def main() -> int:
             ("flash_bwd", "bwd", ("dq", "dk", "dv"), "fa2_bwd_d256")):
         kernels.append(dict(
             name=f"{name}[d256]", **KERNELS[name], launches=c[name],
-            launches_tensor_core=c[f"{name}_tc"],
             max_abs_err=max(x["max_abs_err"][e] for e in errs
                             for x in (rk, rl)),
             ms=rk[f"{part}_ms"], plain_ms=rk[f"{part}_plain_ms"],
@@ -3826,6 +3902,42 @@ def main() -> int:
             yardstick_ms_l=rl[f"yardstick_{part}_ms"],
             fma_ms_l=rl[f"{part}_fma_ms"], case_l=rl["case"],
             sweep_cell=cell, sweep_ms=bench[cell]["record"]["mean_ms"]))
+    # fp32 at head dim 256 (the wide 3xTF32 kernels): launches of phase
+    # 7c's timed micro-steps, numbers of flash case (o), that phase's call
+    # (MQA: the dK/dV kernel's query-head split and the sum of its
+    # partials), with case (m) (MHA at N = 8192, the shape of rows 1fw /
+    # 2fw) and case (n) (GQA, window, sinks, soft-cap, dropout) beside them,
+    # each key suffixed with its case; fma_ms the first kernels on the same
+    # inputs, with their bound at 67 TFLOP/s; step_flash_ms the flash
+    # kernels' device time in phase 7c's profiled micro-step
+    ro, rm, rn = (report["kernels"][f"flash_{x}"] for x in "omn")
+    dense = report["dense_fp32"]
+    c = dense["launches"]
+    for name, part, errs in (("flash_fwd", "fwd", ("o", "lse")),
+                             ("flash_bwd", "bwd", ("dq", "dk", "dv"))):
+        beside = {}
+        for x, r in (("m", rm), ("n", rn)):
+            lib = "library" if f"library_{part}_ms" in r else "yardstick"
+            beside.update({f"{key}_{x}": r[f"{part}_{key}"]
+                           for key in ("ms", "plain_ms", "bound_ms",
+                                       "fma_ms", "fma_bound_ms")})
+            beside[f"{lib}_ms_{x}"] = r[f"{lib}_{part}_ms"]
+            beside[f"case_{x}"] = r["case"]
+        if part == "bwd":
+            beside.update(kernel_ms=ro["kernel_ms"],
+                          kernel_ms_m=rm["kernel_ms"])
+        kernels.append(dict(
+            name=f"{name}[fp32_d256]", **KERNELS[name], launches=c[name],
+            max_abs_err=max(x["max_abs_err"][e] for e in errs
+                            for x in (ro, rm, rn)),
+            ms=ro[f"{part}_ms"], plain_ms=ro[f"{part}_plain_ms"],
+            bound_ms=ro[f"{part}_bound_ms"], bound_by=ro[f"{part}_bound_by"],
+            library_ms=ro[f"library_{part}_ms"], case=ro["case"],
+            fma_ms=ro[f"{part}_fma_ms"],
+            fma_bound_ms=ro[f"{part}_fma_bound_ms"],
+            wall_ms=ro[f"{part}_wall_ms"], **beside,
+            step_flash_ms=dense["profile"]["flash_ms"][name],
+            step_median_ms=dense["median_step_ms"]))
     # sparse at head dim 256 (bf16 wgmma; the dK/dV kernel split over the
     # head dim): launches of phase 7b's forward+backward steps, numbers of
     # sparse case (g), phase 7b's call, with cases (e) (flash case (k)'s

@@ -27,7 +27,7 @@
 // kernels recompute the scores (7 products per element instead of 5), the
 // price of having no atomics.
 //
-// Three routes, chosen by the caller (ops/flash_attn.py):
+// Three entry points; the caller (ops/flash_attn.py) takes the first two:
 //
 //   fat_flash_bwd_sm90 (bf16, D <= 256): every product on the tensor cores
 //     (wgmma, bf16 in, fp32 accumulate), tiles by TMA into mbarrier-guarded
@@ -56,11 +56,15 @@
 //       V tiles streamed over the forward's walk (64 keys; 32 at D = 256,
 //       where dQ takes 128 registers): S = q_s·Kᵀ, dP = dO·Vᵀ, dQ +=
 //       round(ds)·K (K MN-major), scaled at the store.
-//   fat_flash_bwd_sm90_f32 (fp32, D <= 128): the same two kernels with
+//   fat_flash_bwd_sm90_f32 (fp32, D <= 256): the same two kernels with
 //     every product in 3xTF32 (tf32_sm90.cuh; the tiles and stages are set
-//     out where the kernels are defined, below).
-//   fat_flash_bwd (fp32 with D > 128): the first version below, fp32 FMAs
-//     on the CUDA cores (for the reason given in flash_fwd.cu).
+//     out where the kernels are defined, below). Above D = 128 the wide
+//     pair keeps its resident operands as landed and splits them in
+//     registers, and computes dVᵀ, dKᵀ and dQᵀ instead of dV, dK and dQ.
+//   fat_flash_bwd (fp32 FMAs on the CUDA cores): the first version, below.
+//     The wrapper no longer takes it (above D = 256 make_opts refuses the
+//     call); it stays as the comparison that chip_smoke.py times on the
+//     tensor-core cases' inputs.
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -1372,6 +1376,660 @@ cudaError_t launch_bwd_f32_sm90(const AttnArgs& a, const void* dout,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 tensor-core route at 128 < D <= 256 (3xTF32, A operands split in
+// registers)
+// ---------------------------------------------------------------------------
+//
+// At D = 256 a fp32 row is 1 KB, so the D <= 128 layout (both parts of the
+// resident operands, transposed copies of the streamed ones) does not fit.
+// Resident operands stay as TMA landed them and are the A operands of their
+// products, split in registers k8 step by k8 step (mma3_ra); the products
+// that would read a transposed copy are computed transposed, with the
+// transposed side as a register A operand read across a two-part tile
+// (tile_at): dVᵀ += dOᵀ·P_v, dKᵀ += q_sᵀ·dS and dQᵀ += Kᵀ·dSᵀ. Only B
+// operands hold two parts in shared memory; split_pairs makes them once a
+// call into the wrapper's scratch, and TMA lands both parts (split by the
+// producer in each CTA, once a tile, they sat on the one stage's critical
+// path). A tf32 wgmma of small N runs far below the tensor rate (at N = 16
+// about a quarter of it, its A from registers or from shared memory
+// alike), and two warpgroups issuing at once raise that by a quarter or
+// more (scripts/tf32_wgmma_rates.py), so both kernels have two consumer
+// warpgroups that split the small-N products between them; with one
+// stage, the producer also fetches the next step's tiles into L2.
+//   dkv: 64 keys a CTA; K and V as landed (128 KB, A of Sᵀ = K·q_sᵀ and
+//     dPᵀ = V·dOᵀ). Per step of 16 query rows (one stage): q_s and dO in
+//     two parts (64 KB), the B operands of Sᵀ and dPᵀ and, read across,
+//     the A operands of the transposed products; P_vᵀ and dSᵀ in two parts
+//     (32 KB), their B operands: 224 KB. Warps 1-3 of the producer stage
+//     the rows' LSE and di. Consumer 0 computes Sᵀ while consumer 1 computes
+//     dPᵀ; each hands the other the half of its fragment the other needs
+//     (through the 16 columns of P_vᵀ's and dSᵀ's tiles that no product
+//     reads), runs the score pipeline on half of the 64 x 16 pairs and
+//     writes its half of P_vᵀ and dSᵀ; then each takes 128 of the head
+//     dim's columns of dVᵀ and dKᵀ (2 x 64 registers), as the bf16 D split
+//     does.
+//   dq: 64 query rows a CTA, row tiles taken last to first (in a causal
+//     call the longest walks start first); q and dO as landed (128 KB, A
+//     of S = q_s·Kᵀ and dP = dO·Vᵀ, q times the scale before the split).
+//     Per step of 16 keys (one stage): K and V in two parts (64 KB), dS in
+//     two parts (16 KB): 208 KB. Consumer 0 computes S while consumer 1
+//     computes dP, the hand-over and the score pipeline as in dkv; each
+//     holds 128 columns of dQᵀ (2 x 64 x 64, 64 registers).
+
+template <int DP>
+struct DkvWideCfg {
+  static constexpr int KEYS = 64, R = 16, THREADS = 384;
+  static constexpr int GS = 2, NB = 2;  // Sᵀ, dPᵀ k8 steps (mma3_ra)
+  static constexpr int KV_BYTES = KEYS * DP * 4;  // K or V as landed
+  static constexpr int T_BYTES = R * DP * 4;      // q_s or dO, one part
+  static constexpr int X_BYTES = KEYS * kHalf32 * 4;  // P_vᵀ or dSᵀ, a part
+  static constexpr int BARS = 4;
+  static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + 4 * T_BYTES +
+                                 4 * X_BYTES + 2 * R * 4 + 8 * BARS;
+};
+
+template <int DP>
+struct DqWideCfg {
+  static constexpr int ROWS = 64, KEYS = 16, THREADS = 384;
+  static constexpr int GS = 8, NB = 1;  // S, dP k8 steps (mma3_ra)
+  static constexpr int Q_BYTES = ROWS * DP * 4;  // q or dO as landed
+  static constexpr int T_BYTES = KEYS * DP * 4;  // K or V, one part
+  static constexpr int X_BYTES = ROWS * kHalf32 * 4;  // dS, one part
+  static constexpr int BARS = 3;
+  static constexpr size_t SMEM =
+      1024 + 2 * Q_BYTES + 4 * T_BYTES + 2 * X_BYTES + 8 * BARS;
+};
+
+// The hand-over of the wide kernels' product split: consumer HF holds
+// fragment `mine` (64 rows x 16 columns: Sᵀ or S on consumer 0, dPᵀ or dP
+// on consumer 1) and takes its elements [4 HF, 4 HF + 4) (columns 8 HF ..
+// 8 HF + 7). It writes the other consumer's four elements into its slot of
+// its tile (xchg_off: consumer 0 writes into x0, consumer 1 into x1), and
+// after named barrier 2 reads the other product's values at its own four
+// elements into `theirs`. HF is a constant, so no register array is
+// indexed at run time.
+template <int HF>
+__device__ __forceinline__ void hand_over(const float (&mine)[8],
+                                          float (&theirs)[4], char* x0,
+                                          char* x1, int t) {
+  constexpr int GIVE = 4 * (1 - HF);
+  const int at = xchg_off(t);
+  *reinterpret_cast<float4*>((HF == 0 ? x0 : x1) + at) =
+      make_float4(mine[GIVE], mine[GIVE + 1], mine[GIVE + 2],
+                  mine[GIVE + 3]);
+  named_sync(2, 256);
+  const float4 v = *reinterpret_cast<const float4*>((HF == 0 ? x1 : x0) + at);
+  theirs[0] = v.x;
+  theirs[1] = v.y;
+  theirs[2] = v.z;
+  theirs[3] = v.w;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(DkvWideCfg<DP>::THREADS, 1)
+flash_bwd_dkv_f32_wide_sm90_kernel(const __grid_constant__ CUtensorMap tqb,
+                                   const __grid_constant__ CUtensorMap tqs,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const __grid_constant__ CUtensorMap tdob,
+                                   const __grid_constant__ CUtensorMap tdos,
+                                   AttnArgs a, const float* __restrict__ lse,
+                                   const float* __restrict__ di,
+                                   float* __restrict__ dk,
+                                   float* __restrict__ dv, int splits,
+                                   float* __restrict__ part) {
+  using Cfg = DkvWideCfg<DP>;
+  constexpr int KEYS = Cfg::KEYS, R = Cfg::R, KVB = Cfg::KV_BYTES;
+  constexpr int TB = Cfg::T_BYTES, XB = Cfg::X_BYTES;
+  extern __shared__ char smem_raw[];
+  char* kx = align_1024(smem_raw);  // [DP/32][KEYS][32] fp32 as landed
+  char* vx = kx + KVB;
+  char* qb = vx + KVB;  // q_s and dO in two parts, as split before the call
+  char* qs = qb + TB;
+  char* dob = qs + TB;
+  char* dos = dob + TB;
+  char* ptb = dos + TB;  // P_vᵀ and dSᵀ: [KEYS][32], query rows as columns
+  char* pts = ptb + XB;
+  char* dtb = pts + XB;
+  char* dts = dtb + XB;
+  float* lse_s = reinterpret_cast<float*>(dts + XB);
+  float* di_s = lse_s + R;
+  uint64_t* kv_landed = reinterpret_cast<uint64_t*>(di_s + R);
+  uint64_t* landed = kv_landed + 1;
+  uint64_t* ready = kv_landed + 2;
+  uint64_t* empty = kv_landed + 3;
+
+  // A KV head's group of query heads is split over `splits` CTAs, each
+  // walking G / splits of them and writing its sums to `part` (null when
+  // splits is 1: dk and dv directly).
+  const int b = blockIdx.z, c0 = blockIdx.x * KEYS;
+  const int hk = blockIdx.y / splits, sp = blockIdx.y % splits;
+  const int G = a.H / a.H_kv, GW = G / splits;
+  const int h_first = hk * G + sp * GW;  // first query head walked
+  // Query rows that can see some key of [c0, c0 + KEYS).
+  const int c_last = min(c0 + KEYS, a.Nk) - 1;
+  int r_begin = 0, r_end = a.Nq;
+  if (a.causal) {
+    r_begin = max(0, c0 - a.offset);
+    if (a.window > 0 && !(a.sinks > 0 && c0 < a.sinks)) {
+      r_end = min(a.Nq, c_last - a.offset + a.window);
+    }
+  }
+  const int t0 = (r_begin / R) * R;
+  const int n_rt = r_end > t0 ? (r_end - t0 + R - 1) / R : 0;
+  const int n_it = GW * n_rt;  // (query head, row tile) steps
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_landed, 1);
+    mbar_init(landed, 1);
+    mbar_init(ready, kPrepThreads);
+    mbar_init(empty, 256);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer
+    reg_dealloc<kProducerRegsWide>();
+    if (threadIdx.x == 0 && n_it > 0) {
+      mbar_expect_tx(kv_landed, 2 * KVB);
+      tma_tile32<KEYS, DP>(kx, &tk, kv_landed, c0, b * a.H_kv + hk);
+      tma_tile32<KEYS, DP>(vx, &tv, kv_landed, c0, b * a.H_kv + hk);
+      for (int it = 0; it < n_it; ++it) {
+        const int plane = b * a.H + h_first + it / n_rt;
+        const int r0 = t0 + (it % n_rt) * R;
+        mbar_wait(empty, (it & 1) ^ 1);
+        mbar_expect_tx(landed, 4 * TB);
+        tma_tile32<R, DP>(qb, &tqb, landed, r0, plane);
+        tma_tile32<R, DP>(qs, &tqs, landed, r0, plane);
+        tma_tile32<R, DP>(dob, &tdob, landed, r0, plane);
+        tma_tile32<R, DP>(dos, &tdos, landed, r0, plane);
+        if (it + 1 < n_it) {  // the next step's tiles, into L2
+          const int p1 = b * a.H + h_first + (it + 1) / n_rt;
+          const int r1 = t0 + ((it + 1) % n_rt) * R;
+          tma_prefetch32<R, DP>(&tqb, r1, p1);
+          tma_prefetch32<R, DP>(&tqs, r1, p1);
+          tma_prefetch32<R, DP>(&tdob, r1, p1);
+          tma_prefetch32<R, DP>(&tdos, r1, p1);
+        }
+      }
+    } else if (threadIdx.x >= 32 && n_it > 0) {
+      const int tid = threadIdx.x - 32;
+      for (int it = 0; it < n_it; ++it) {
+        const int plane = b * a.H + h_first + it / n_rt;
+        const int r0 = t0 + (it % n_rt) * R;
+        // The stage is free once its tiles have landed (thread 0 waited
+        // for the consumers before loading them).
+        mbar_wait(landed, it & 1);
+        for (int j = tid; j < R; j += kPrepThreads) {
+          const int row = r0 + j;
+          const size_t at = (size_t)plane * a.Nq + row;
+          lse_s[j] = row < a.Nq ? lse[at] : 0.f;
+          di_s[j] = row < a.Nq ? di[at] : 0.f;
+        }
+        mbar_arrive(ready);
+      }
+    }
+  } else {  // consumers: 64 keys, 128 of the head dim's columns each
+    reg_alloc<kConsumerRegsWide>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const bool post = a.slopes != nullptr || a.softcap > 0.f;
+    float dk_acc[2][32], dv_acc[2][32];  // dKᵀ, dVᵀ: 2 x (64 cols x 64 keys)
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk_acc[m][i] = dv_acc[m][i] = 0.f;
+    }
+
+    if (n_it > 0) mbar_wait(kv_landed, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int h = h_first + it / n_rt;
+      const int r0 = t0 + (it % n_rt) * R;
+      const uint32_t bh = (uint32_t)(b * a.H + h);
+
+      // Sᵀ (consumer 0) or dPᵀ (consumer 1): 64 keys x R query rows
+      float x[R / 2];
+#pragma unroll
+      for (int i = 0; i < R / 2; ++i) x[i] = 0.f;
+      mbar_wait(ready, it & 1);
+      mma3_ra<KEYS, R, DP / 8, Cfg::GS, Cfg::NB>(
+          x, cw == 0 ? kx : vx, 1.f, cw == 0 ? qb : dob, cw == 0 ? qs : dos,
+          t);
+
+      // The LSE and di of this consumer's two query rows.
+      const int jc = 8 * cw + 2 * (t & 3);  // = acc_col(t, 4 cw)
+      const float ls[2] = {lse_s[jc], lse_s[jc + 1]};
+      const float dd[2] = {di_s[jc], di_s[jc + 1]};
+
+      // The score pipeline on this consumer's half of the pairs (elements
+      // [4 HF, 4 HF + 4): query rows 8 HF .. 8 HF + 7 of the step).
+      auto half = [&](auto hf) {
+        constexpr int HF = decltype(hf)::value;
+        float y[4];  // the other product at this consumer's elements
+        hand_over<HF>(x, y, ptb, dtb, t);
+        const int cls = tile_class(a, r0 + 8 * HF, r0 + 8 * HF + 7, c0,
+                                   c0 + KEYS - 1);
+        uint32_t seg[2] = {0u, 0u};  // rows: keys; columns: query rows
+        if (cls == kSegments) {
+          segment_bits<R>(a.kv_ids + (size_t)b * a.Nk, c0, a.Nk,
+                          a.q_ids + (size_t)b * a.Nq, r0, a.Nq, t, seg);
+        }
+        float pv[4], ds[4];
+        dispatch_tile(cls, post, [&](auto c, auto pp) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * HF + e;
+            const int key = c0 + acc_row(t, i), j = acc_col(t, i);
+            const int row = r0 + j;
+            pv[e] = 0.f;
+            ds[e] = 0.f;
+            if (tile_visible<decltype(c)::value>(a, b, row, key, seg, i)) {
+              float dcap;
+              const float s = tile_score<decltype(pp)::value>(
+                  a, h, row, key, HF == 0 ? x[i] : y[e], &dcap);
+              const float p = expf(s - ls[e & 1]);
+              float dp = HF == 0 ? y[e] : x[i];
+              pv[e] = p;
+              if (a.dropout) {
+                const bool kept = keep(a, bh, row, key);
+                pv[e] = kept ? p * a.drop_inv : 0.f;
+                dp = kept ? dp * a.drop_inv : 0.f;
+              }
+              ds[e] = p * (dp - dd[e & 1]) * dcap;
+            }
+          }
+        });
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int i = 4 * HF + e;
+          const int at = sw_off1<KEYS>(acc_row(t, i), acc_col(t, i));
+          store_split2(ptb, pts, at, pv[e], pv[e + 1]);
+          store_split2(dtb, dts, at, ds[e], ds[e + 1]);
+        }
+      };
+      if (cw == 0) {
+        half(Int<0>{});
+      } else {
+        half(Int<1>{});
+      }
+      fence_proxy_async();
+
+      // dVᵀ[cols] += dOᵀ[cols]·P_v and dKᵀ[cols] += q_sᵀ[cols]·dS, A read
+      // across the stage's tiles; the stage is free once they are loaded.
+      uint32_t ob[2][R / 8][4], os[2][R / 8][4];
+      uint32_t qab[2][R / 8][4], qas[2][R / 8][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int kk = 0; kk < R / 8; ++kk) {
+          const int m0 = 128 * cw + 64 * m;
+          tile_at<R>(dob, dos, m0, kk, t, ob[m][kk], os[m][kk]);
+          tile_at<R>(qb, qs, m0, kk, t, qab[m][kk], qas[m][kk]);
+        }
+      }
+      mbar_arrive(empty);
+      named_sync(3, 256);  // P_vᵀ and dSᵀ are in place
+
+      wgmma_fence();
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        fence_regs(dv_acc[m]);
+        fence_regs(dk_acc[m]);
+      }
+      mma3_rs_m<KEYS, R / 8, 2>(dv_acc, ob, os, ptb, pts);
+      mma3_rs_m<KEYS, R / 8, 2>(dk_acc, qab, qas, dtb, dts);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        fence_regs(dv_acc[m]);
+        fence_regs(dk_acc[m]);
+        keep_regs(ob[m]);
+        keep_regs(os[m]);
+        keep_regs(qab[m]);
+        keep_regs(qas[m]);
+      }
+    }
+
+    // dKᵀ and dVᵀ fragments: rows are head-dim columns, columns keys. Keys
+    // no row sees write zeros.
+    const size_t kv_off = ((size_t)b * a.H_kv + hk) * a.Nk;
+    if (part != nullptr) {  // partial sums of split sp, summed later
+      const size_t nk = (size_t)a.B * a.H_kv * a.Nk * a.D;
+      dk = part + 2 * sp * nk;
+      dv = dk + nk;
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 128 * cw + 64 * m + acc_row(t, i);
+        const int key = c0 + acc_col(t, i);
+        if (key < a.Nk && col < a.D) {
+          const size_t at = (kv_off + key) * a.D + col;
+          dk[at] = dk_acc[m][i];
+          dv[at] = dv_acc[m][i];
+        }
+      }
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(DqWideCfg<DP>::THREADS, 1)
+flash_bwd_dq_f32_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tkb,
+                                  const __grid_constant__ CUtensorMap tks,
+                                  const __grid_constant__ CUtensorMap tvb,
+                                  const __grid_constant__ CUtensorMap tvs,
+                                  const __grid_constant__ CUtensorMap tdo,
+                                  AttnArgs a, const float* __restrict__ lse,
+                                  const float* __restrict__ di,
+                                  float* __restrict__ dq) {
+  using Cfg = DqWideCfg<DP>;
+  constexpr int ROWS = Cfg::ROWS, KEYS = Cfg::KEYS, QB = Cfg::Q_BYTES;
+  constexpr int TB = Cfg::T_BYTES, XB = Cfg::X_BYTES;
+  extern __shared__ char smem_raw[];
+  char* qx = align_1024(smem_raw);  // [DP/32][ROWS][32] fp32 as landed
+  char* dox = qx + QB;
+  char* kb = dox + QB;  // K and V in two parts, as split before the call
+  char* ks = kb + TB;
+  char* vb = ks + TB;
+  char* vs = vb + TB;
+  char* dsb = vs + TB;  // dS: [ROWS][32], keys as columns
+  char* dss = dsb + XB;
+  uint64_t* q_landed = reinterpret_cast<uint64_t*>(dss + XB);
+  uint64_t* landed = q_landed + 1;
+  uint64_t* empty = q_landed + 2;
+
+  // Row tiles last to first: in a causal call the tiles that walk the
+  // most keys start first and the short ones fill the last wave.
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
+  const int hk = h / (a.H / a.H_kv);
+  const TileWalk walk = key_tiles(a, r0, min(r0 + ROWS, a.Nq) - 1, KEYS);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_landed, 1);
+    mbar_init(landed, 1);
+    mbar_init(empty, 256);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer: thread 0 issues TMA
+    reg_dealloc<kProducerRegsWide>();
+    if (threadIdx.x == 0 && walk.n_walk > 0) {
+      const int kplane = b * a.H_kv + hk;
+      mbar_expect_tx(q_landed, 2 * QB);
+      tma_tile32<ROWS, DP>(qx, &tq, q_landed, r0, b * a.H + h);
+      tma_tile32<ROWS, DP>(dox, &tdo, q_landed, r0, b * a.H + h);
+      for (int w = 0; w < walk.n_walk; ++w) {
+        const int c0 = walk.tile(w) * KEYS;
+        mbar_wait(empty, (w & 1) ^ 1);
+        mbar_expect_tx(landed, 4 * TB);
+        tma_tile32<KEYS, DP>(kb, &tkb, landed, c0, kplane);
+        tma_tile32<KEYS, DP>(ks, &tks, landed, c0, kplane);
+        tma_tile32<KEYS, DP>(vb, &tvb, landed, c0, kplane);
+        tma_tile32<KEYS, DP>(vs, &tvs, landed, c0, kplane);
+        if (w + 1 < walk.n_walk) {  // the next step's tiles, into L2
+          const int c1 = walk.tile(w + 1) * KEYS;
+          tma_prefetch32<KEYS, DP>(&tkb, c1, kplane);
+          tma_prefetch32<KEYS, DP>(&tks, c1, kplane);
+          tma_prefetch32<KEYS, DP>(&tvb, c1, kplane);
+          tma_prefetch32<KEYS, DP>(&tvs, c1, kplane);
+        }
+      }
+    }
+  } else {  // consumers: 64 query rows, 128 of the head dim's columns each
+    reg_alloc<kConsumerRegsWide>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const uint32_t bh = (uint32_t)(b * a.H + h);
+    const bool post = a.slopes != nullptr || a.softcap > 0.f;
+    float lse_r[2], di_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + acc_row(t, 2 * r);
+      lse_r[r] = row < a.Nq ? lse[(size_t)bh * a.Nq + row] : 0.f;
+      di_r[r] = row < a.Nq ? di[(size_t)bh * a.Nq + row] : 0.f;
+    }
+    float acc[2][32];  // dQᵀ: 2 tiles of 64 cols x 64 rows
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[m][i] = 0.f;
+    }
+
+    if (walk.n_walk > 0) mbar_wait(q_landed, 0);
+    for (int w = 0; w < walk.n_walk; ++w) {
+      const int c0 = walk.tile(w) * KEYS;
+
+      float x[KEYS / 2];  // S (consumer 0) or dP (consumer 1): 64 x KEYS
+#pragma unroll
+      for (int i = 0; i < KEYS / 2; ++i) x[i] = 0.f;
+      mbar_wait(landed, w & 1);
+      mma3_ra<ROWS, KEYS, DP / 8, Cfg::GS, Cfg::NB>(
+          x, cw == 0 ? qx : dox, cw == 0 ? a.scale : 1.f, cw == 0 ? kb : vb,
+          cw == 0 ? ks : vs, t);
+      // dQᵀ[cols] += Kᵀ[cols]·dSᵀ: its A operands, read across the K tile;
+      // then the stage is free.
+      uint32_t kab[2][KEYS / 8][4], kas[2][KEYS / 8][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int kk = 0; kk < KEYS / 8; ++kk) {
+          tile_at<KEYS>(kb, ks, 128 * cw + 64 * m, kk, t, kab[m][kk],
+                        kas[m][kk]);
+        }
+      }
+      mbar_arrive(empty);
+
+      // The score pipeline on this consumer's half of the pairs (elements
+      // [4 HF, 4 HF + 4): keys 8 HF .. 8 HF + 7 of the step); dS in two
+      // parts at (row, key), dQᵀ's B operand, K-major over keys.
+      auto half = [&](auto hf) {
+        constexpr int HF = decltype(hf)::value;
+        float y[4];  // the other product at this consumer's elements
+        hand_over<HF>(x, y, dsb, dss, t);
+        const int cls =
+            tile_class(a, r0, r0 + 63, c0 + 8 * HF, c0 + 8 * HF + 7);
+        uint32_t seg[2] = {0u, 0u};
+        if (cls == kSegments) {
+          segment_bits<KEYS>(a.q_ids + (size_t)b * a.Nq, r0, a.Nq,
+                             a.kv_ids + (size_t)b * a.Nk, c0, a.Nk, t, seg);
+        }
+        float ds[4];
+        dispatch_tile(cls, post, [&](auto c, auto pp) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * HF + e;
+            const int r = (i >> 1) & 1;
+            const int row = r0 + acc_row(t, i), col = c0 + acc_col(t, i);
+            ds[e] = 0.f;
+            if (tile_visible<decltype(c)::value>(a, b, row, col, seg, i)) {
+              float dcap;
+              const float s = tile_score<decltype(pp)::value>(
+                  a, h, row, col, HF == 0 ? x[i] : y[e], &dcap);
+              const float p = expf(s - lse_r[r]);
+              float d = HF == 0 ? y[e] : x[i];
+              if (a.dropout) d = keep(a, bh, row, col) ? d * a.drop_inv : 0.f;
+              ds[e] = p * (d - di_r[r]) * dcap;
+            }
+          }
+        });
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int i = 4 * HF + e;
+          store_split2(dsb, dss,
+                       sw_off1<ROWS>(acc_row(t, i), acc_col(t, i)), ds[e],
+                       ds[e + 1]);
+        }
+      };
+      if (cw == 0) {
+        half(Int<0>{});
+      } else {
+        half(Int<1>{});
+      }
+      fence_proxy_async();
+      named_sync(3, 256);  // dS is in place
+
+      wgmma_fence();
+#pragma unroll
+      for (int m = 0; m < 2; ++m) fence_regs(acc[m]);
+      mma3_rs_m<ROWS, KEYS / 8, 2>(acc, kab, kas, dsb, dss);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        fence_regs(acc[m]);
+        keep_regs(kab[m]);
+        keep_regs(kas[m]);
+      }
+    }
+
+    // dQᵀ fragments: rows are head-dim columns, columns query rows.
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 128 * cw + 64 * m + acc_row(t, i);
+        const int row = r0 + acc_col(t, i);
+        if (row < a.Nq && col < a.D) {
+          dq[((size_t)bh * a.Nq + row) * a.D + col] = acc[m][i] * a.scale;
+        }
+      }
+    }
+  }
+}
+
+}  // namespace sm90
+
+// x times `scale` split into `big` and `small` (n4 float4s): the two TF32
+// parts of an operand that the wide kernels read as a B operand, made once
+// a call instead of once a tile in each CTA.
+__global__ void flash_bwd_split_kernel(const float4* __restrict__ x,
+                                       float scale, float4* __restrict__ big,
+                                       float4* __restrict__ small, size_t n4) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float4 b, s;
+    sm90::split4(x[i], scale, b, s);
+    big[i] = b;
+    small[i] = s;
+  }
+}
+
+inline cudaError_t split_pairs(const void* x, float scale, float* big,
+                               float* small, size_t n, cudaStream_t st) {
+  const size_t n4 = n / 4;
+  const size_t want = (n4 + 255) / 256;
+  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+  flash_bwd_split_kernel<<<blocks, 256, 0, st>>>(
+      static_cast<const float4*>(x), scale, reinterpret_cast<float4*>(big),
+      reinterpret_cast<float4*>(small), n4);
+  return cudaGetLastError();
+}
+
+// dk and dv as the sums, in split order, of `splits` pairs of partials
+// (part: [splits][dk, dv][n4 float4s]): the fixed order keeps the result
+// independent of which CTA ran first.
+__global__ void flash_bwd_sum_kernel(const float4* __restrict__ part,
+                                     int splits, float4* __restrict__ dk,
+                                     float4* __restrict__ dv, size_t n4) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float4 k = part[i], v = part[n4 + i];
+    for (int s = 1; s < splits; ++s) {
+      const float4 pk = part[2 * s * n4 + i], pv = part[(2 * s + 1) * n4 + i];
+      k = make_float4(k.x + pk.x, k.y + pk.y, k.z + pk.z, k.w + pk.w);
+      v = make_float4(v.x + pv.x, v.y + pv.y, v.z + pv.z, v.w + pv.w);
+    }
+    dk[i] = k;
+    dv[i] = v;
+  }
+}
+
+namespace sm90 {
+
+// `scratch` holds 2 (|q| + |do| + |k| + |v|) floats: q times the scale, dO,
+// K and V, each split into its two parts by split_pairs; with `splits` > 1
+// (query heads of a KV head's group walked by that many dK/dV CTAs) then
+// 2 splits |k| more for their partial sums.
+template <int DP>
+cudaError_t launch_bwd_f32_wide_sm90(const AttnArgs& a, const void* dout,
+                                     const float* lse, const float* di,
+                                     void* dq, void* dk, void* dv,
+                                     float* scratch, int splits,
+                                     cudaStream_t st) {
+  using Kv = DkvWideCfg<DP>;
+  using Dq = DqWideCfg<DP>;
+  const int QH = a.B * a.H, KH = a.B * a.H_kv;
+  const size_t nq = (size_t)QH * a.Nq * a.D, nk = (size_t)KH * a.Nk * a.D;
+  float* qb = scratch;
+  float* qs = qb + nq;
+  float* dob = qs + nq;
+  float* dos = dob + nq;
+  float* kb = dos + nq;
+  float* ks = kb + nk;
+  float* vb = ks + nk;
+  float* vs = vb + nk;
+  cudaError_t err = split_pairs(a.q, a.scale, qb, qs, nq, st);
+  if (err == cudaSuccess) err = split_pairs(dout, 1.f, dob, dos, nq, st);
+  if (err == cudaSuccess) err = split_pairs(a.k, 1.f, kb, ks, nk, st);
+  if (err == cudaSuccess) err = split_pairs(a.v, 1.f, vb, vs, nk, st);
+  if (err != cudaSuccess) return err;
+
+  // dkv: K and V as landed in KEYS-row boxes, the parts of q_s and dO in
+  // R-row boxes
+  CUtensorMap m[6];
+  constexpr int RB = box_rows<Kv::R>(), KB = box_rows<Kv::KEYS>();
+  err = make_map32(&m[0], qb, QH, a.Nq, a.D, RB);
+  if (err == cudaSuccess) err = make_map32(&m[1], qs, QH, a.Nq, a.D, RB);
+  if (err == cudaSuccess) err = make_map32(&m[2], a.k, KH, a.Nk, a.D, KB);
+  if (err == cudaSuccess) err = make_map32(&m[3], a.v, KH, a.Nk, a.D, KB);
+  if (err == cudaSuccess) err = make_map32(&m[4], dob, QH, a.Nq, a.D, RB);
+  if (err == cudaSuccess) err = make_map32(&m[5], dos, QH, a.Nq, a.D, RB);
+  if (err != cudaSuccess) return err;
+  auto dkv_kernel = flash_bwd_dkv_f32_wide_sm90_kernel<DP>;
+  err = set_smem(dkv_kernel, Kv::SMEM);
+  if (err != cudaSuccess) return err;
+  float* part = splits > 1 ? vs + nk : nullptr;
+  const dim3 grid_kv((a.Nk + Kv::KEYS - 1) / Kv::KEYS, a.H_kv * splits, a.B);
+  dkv_kernel<<<grid_kv, Kv::THREADS, Kv::SMEM, st>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], a, lse, di,
+      static_cast<float*>(dk), static_cast<float*>(dv), splits, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (part != nullptr) {
+    const size_t n4 = nk / 4, want = (n4 + 255) / 256;
+    flash_bwd_sum_kernel<<<(int)(want < 132 * 16 ? want : 132 * 16), 256, 0,
+                           st>>>(reinterpret_cast<const float4*>(part),
+                                 splits, static_cast<float4*>(dk),
+                                 static_cast<float4*>(dv), n4);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+
+  // dq: q and dO as landed in ROWS-row boxes, the parts of K and V in
+  // KEYS-row boxes
+  constexpr int QR = box_rows<Dq::ROWS>(), KR = box_rows<Dq::KEYS>();
+  err = make_map32(&m[0], a.q, QH, a.Nq, a.D, QR);
+  if (err == cudaSuccess) err = make_map32(&m[1], kb, KH, a.Nk, a.D, KR);
+  if (err == cudaSuccess) err = make_map32(&m[2], ks, KH, a.Nk, a.D, KR);
+  if (err == cudaSuccess) err = make_map32(&m[3], vb, KH, a.Nk, a.D, KR);
+  if (err == cudaSuccess) err = make_map32(&m[4], vs, KH, a.Nk, a.D, KR);
+  if (err == cudaSuccess) err = make_map32(&m[5], dout, QH, a.Nq, a.D, QR);
+  if (err != cudaSuccess) return err;
+  auto dq_kernel = flash_bwd_dq_f32_wide_sm90_kernel<DP>;
+  err = set_smem(dq_kernel, Dq::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((a.Nq + Dq::ROWS - 1) / Dq::ROWS, a.H, a.B);
+  dq_kernel<<<grid_q, Dq::THREADS, Dq::SMEM, st>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], a, lse, di,
+      static_cast<float*>(dq));
+  return cudaGetLastError();
+}
+
 }  // namespace sm90
 }  // namespace fat
 
@@ -1442,9 +2100,13 @@ int fat_flash_bwd_sm90(const void* q, const void* k, const void* v,
   return (int)err;
 }
 
-// The fp32 tensor-core route (3xTF32): fp32 only, D <= 128; q, k, v and
+// The fp32 tensor-core route (3xTF32): fp32 only, D <= 256; q, k, v and
 // dout 16-byte aligned (TMA). Same arguments as fat_flash_bwd (dtype must
-// be 1).
+// be 1), then `scratch` and `kv_splits`, both unused (null, 1) for
+// D <= 128. For D > 128 a KV head's query heads are walked by kv_splits
+// dK/dV CTAs (it divides H / H_kv), and scratch holds 2 (|q| + |dout| + |k|
+// + |v|) fp32 values, plus 2 kv_splits |k| where kv_splits > 1, 16-byte
+// aligned.
 int fat_flash_bwd_sm90_f32(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse, const void* di,
                            void* dq, void* dk, void* dv, const void* q_ids,
@@ -1453,10 +2115,15 @@ int fat_flash_bwd_sm90_f32(const void* q, const void* k, const void* v,
                            int causal, int offset, int window, int sinks,
                            float softcap, float softcap_inv, int dropout,
                            uint32_t drop_threshold, uint32_t seed,
-                           float drop_inv, int dtype, void* stream) {
+                           float drop_inv, int dtype, void* stream,
+                           void* scratch, int kv_splits) {
   using namespace fat;
-  if (dtype != 1 || D < 8 || D > 128 || D % 8 != 0 || H_kv < 1 ||
-      H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535) {
+  if (dtype != 1 || D < 8 || D > 256 || D % 8 != 0 || H_kv < 1 ||
+      H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535 ||
+      (D > 128 && (scratch == nullptr ||
+                   reinterpret_cast<uintptr_t>(scratch) % 16 != 0 ||
+                   kv_splits < 1 || (H / H_kv) % kv_splits != 0 ||
+                   H_kv * kv_splits > 65535))) {
     return (int)cudaErrorInvalidValue;
   }
   AttnArgs a{q, k, v, static_cast<const int32_t*>(q_ids),
@@ -1469,7 +2136,11 @@ int fat_flash_bwd_sm90_f32(const void* q, const void* k, const void* v,
   const auto* d = static_cast<const float*>(di);
   const cudaError_t err =
       D <= 64 ? sm90::launch_bwd_f32_sm90<64>(a, dout, l, d, dq, dk, dv, st)
-              : sm90::launch_bwd_f32_sm90<128>(a, dout, l, d, dq, dk, dv, st);
+      : D <= 128
+          ? sm90::launch_bwd_f32_sm90<128>(a, dout, l, d, dq, dk, dv, st)
+          : sm90::launch_bwd_f32_wide_sm90<256>(
+                a, dout, l, d, dq, dk, dv, static_cast<float*>(scratch),
+                kv_splits, st);
   return (int)err;
 }
 

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) machinery of the fp32 tensor-core flash kernels (the fp32,
-// D <= 128 routes of flash_fwd.cu and flash_bwd.cu), beside flash_sm90.cuh,
-// which it reuses and leaves unchanged: fp32 tensor maps, the 3xTF32 split,
-// the transposing pass, and the m64nNk8 .f32.tf32.tf32 wgmma.
+// Hopper (sm_90a) machinery of the fp32 tensor-core flash kernels (the fp32
+// routes of flash_fwd.cu and flash_bwd.cu), beside flash_sm90.cuh, which it
+// reuses and leaves unchanged: fp32 tensor maps, the 3xTF32 split, the
+// transposing pass, A operands split in registers, and the m64nNk8
+// .f32.tf32.tf32 wgmma.
 //
 // 3xTF32. A tensor core reads an fp32 operand as TF32 (10 mantissa bits), so
 // one product is good to about 5e-4, beyond fp32's 1e-4 limit. Each operand x
@@ -34,6 +35,15 @@
 // step kk takes the accumulator element acc_to_tf32_a names, and the
 // transposed B tile puts source row 8 g + p at column kcol(8 g + p) = 8 g +
 // p / 2 + 4 (p % 2), so both sides agree on which k each term pairs.
+//
+// Head dims above 128 (the "wide" kernels). Two parts of every operand do
+// not fit: at D = 256 a 64-row fp32 tile is 64 KB a part. So an operand
+// used as A is kept once, as TMA landed it, and each thread loads its A
+// fragment of a k8 step from the swizzled tile and splits it in registers
+// (tile_a_split; with a transposing access, tile_at, where the product is
+// computed transposed so that the transposed side is the A operand: dVᵀ +=
+// dOᵀ·P instead of dV += Pᵀ·dO). Only B operands hold both parts in shared
+// memory, and no transposed copy is made but the forward's Vᵀ.
 #pragma once
 
 #include "flash_sm90.cuh"
@@ -94,6 +104,25 @@ __device__ __forceinline__ void tma_tile32(char* dst, const CUtensorMap* map,
     for (int rb = 0; rb < R / BOX; ++rb) {
       tma_load(dst + (hf * R + rb * BOX) * 128, map, bar, hf * kHalf32,
                row + rb * BOX, plane);
+    }
+  }
+}
+
+// Rows [row, row + R) of `plane`, all DP columns, fetched into L2 (no
+// shared memory, no barrier): the next step's tile while this one runs.
+template <int R, int DP>
+__device__ __forceinline__ void tma_prefetch32(const CUtensorMap* map, int row,
+                                               int plane) {
+  constexpr int BOX = box_rows<R>();
+#pragma unroll
+  for (int hf = 0; hf < DP / kHalf32; ++hf) {
+#pragma unroll
+    for (int rb = 0; rb < R / BOX; ++rb) {
+      asm volatile(
+          "cp.async.bulk.prefetch.tensor.3d.L2.global.tile [%0, {%1, %2, %3}];"
+          ::"l"(reinterpret_cast<uint64_t>(map)), "r"(hf * kHalf32),
+          "r"(row + rb * BOX), "r"(plane)
+          : "memory");
     }
   }
 }
@@ -213,6 +242,71 @@ __device__ __forceinline__ void acc_to_tf32_a(const float (&f)[N / 2],
   }
 }
 
+// Byte offset of element (r, c) of an R-row fp32 tile, any c.
+template <int R>
+__device__ __forceinline__ int sw_off1(int r, int c) {
+  return sw_off<R>(r, c) + ((c & 3) << 2);
+}
+
+__device__ __forceinline__ void split1(float x, uint32_t& big,
+                                       uint32_t& small) {
+  const float b = tf32_round(x);
+  big = __float_as_uint(b);
+  small = __float_as_uint(tf32_round(x - b));
+}
+
+// The split TF32 A fragment of k8 step kk for rows [row0, row0 + 64) of the
+// R-row fp32 tile `a` as TMA landed it (row-major, K-major as A), times
+// `scale`: thread t holds (row g, k tq), (g + 8, tq), (g, tq + 4),
+// (g + 8, tq + 4) of its warp's 16 rows (g = lane / 4, tq = lane % 4).
+// The eight lanes of a row group read eight distinct 16-byte chunks, so
+// the four loads are free of bank conflicts.
+template <int R>
+__device__ __forceinline__ void tile_a_split(const char* a, int row0, int kk,
+                                             float scale, int t,
+                                             uint32_t (&big)[4],
+                                             uint32_t (&small)[4]) {
+  const int r = row0 + 16 * (t >> 5) + ((t & 31) >> 2);
+  const int c = 8 * kk + (t & 3);
+  const int at[4] = {sw_off1<R>(r, c), sw_off1<R>(r + 8, c),
+                     sw_off1<R>(r, c + 4), sw_off1<R>(r + 8, c + 4)};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    split1(*reinterpret_cast<const float*>(a + at[j]) * scale, big[j],
+           small[j]);
+  }
+}
+
+// The TF32 A fragment of k8 step kk of Xᵀ, rows [m0, m0 + 64): A[m][k] =
+// X[k][m], X the R-row fp32 tile pair (xb, xs) already split (k runs over
+// X's rows, m over its columns). Both parts are loaded as they are.
+template <int R>
+__device__ __forceinline__ void tile_at(const char* xb, const char* xs,
+                                        int m0, int kk, int t,
+                                        uint32_t (&big)[4],
+                                        uint32_t (&small)[4]) {
+  const int m = m0 + 16 * (t >> 5) + ((t & 31) >> 2);
+  const int k = 8 * kk + (t & 3);
+  const int at[4] = {sw_off1<R>(k, m), sw_off1<R>(k, m + 8),
+                     sw_off1<R>(k + 4, m), sw_off1<R>(k + 4, m + 8)};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    big[j] = *reinterpret_cast<const uint32_t*>(xb + at[j]);
+    small[j] = *reinterpret_cast<const uint32_t*>(xs + at[j]);
+  }
+}
+
+// x0, x1 split into the two-part tile (big, small) at byte offset `at`
+// (8-byte aligned: an even column).
+__device__ __forceinline__ void store_split2(char* big, char* small, int at,
+                                             float x0, float x1) {
+  uint32_t b0, s0, b1, s1;
+  split1(x0, b0, s0);
+  split1(x1, b1, s1);
+  *reinterpret_cast<uint2*>(big + at) = make_uint2(b0, b1);
+  *reinterpret_cast<uint2*>(small + at) = make_uint2(s0, s1);
+}
+
 // Keeps A-operand registers alive (and unchanged) until the wgmma that
 // reads them has been waited for.
 template <int KS>
@@ -274,6 +368,37 @@ __device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 16, fp32) += A (64 x 8, tf32 registers in the A layout) *
+// B (8 x 16); B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[8],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+// D (64 x 32, fp32) += A (64 x 8, tf32 registers in the A layout) *
+// B (8 x 32); B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
 // D (64 x 64, fp32) += A (64 x 8, tf32 registers in the A layout) *
 // B (8 x 64); B K-major in shared memory.
 __device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
@@ -331,11 +456,34 @@ template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
-  static_assert(N == 64 || N == 128, "wgmma_tf32_rs: N is 64 or 128");
-  if constexpr (N == 64) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "wgmma_tf32_rs: N is 16-128");
+  if constexpr (N == 16) {
+    wgmma_tf32_rs_n16(d, a, db);
+  } else if constexpr (N == 32) {
+    wgmma_tf32_rs_n32(d, a, db);
+  } else if constexpr (N == 64) {
     wgmma_tf32_rs_n64(d, a, db);
   } else {
     wgmma_tf32_rs_n128(d, a, db);
+  }
+}
+
+// D += A·B over k8 step kk, A in registers, B k8 step kk of the N-row
+// K-major tile `bt`. N = 256 (the head dim 256 accumulators) is two n128
+// products over the fragment's halves (elements 0-63 hold columns 0-127)
+// and the tile's rows 0-127 and 128-255.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs_tile(float (&d)[N / 2],
+                                                   const uint32_t (&a)[4],
+                                                   const char* bt, int kk) {
+  if constexpr (N == 256) {
+    wgmma_tf32_rs_n128(*reinterpret_cast<float(*)[64]>(d), a,
+                       desc_k<256>(bt, 0, kk));
+    wgmma_tf32_rs_n128(*reinterpret_cast<float(*)[64]>(d + 64), a,
+                       desc_k<256>(bt, 128, kk));
+  } else {
+    wgmma_tf32_rs<N>(d, a, desc_k<N>(bt, 0, kk));
   }
 }
 
@@ -370,17 +518,92 @@ __device__ __forceinline__ void mma3_rs(float (&d)[N / 2],
                                         const uint32_t (&as)[KS][4],
                                         const char* bb, const char* bs) {
 #pragma unroll
+  for (int kk = 0; kk < KS; ++kk) wgmma_tf32_rs_tile<N>(d, as[kk], bb, kk);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) wgmma_tf32_rs_tile<N>(d, ab[kk], bs, kk);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) wgmma_tf32_rs_tile<N>(d, ab[kk], bb, kk);
+}
+
+// D_m += A_m·B in 3xTF32 for M accumulators that share the B tile pair
+// (bb, bs) (N-row, K-major): A_m the split register operands of KS k8
+// steps. The accumulators' wgmmas alternate, so M chains run at once. The
+// caller fences, commits and waits.
+template <int N, int KS, int M>
+__device__ __forceinline__ void mma3_rs_m(float (&d)[M][N / 2],
+                                          const uint32_t (&ab)[M][KS][4],
+                                          const uint32_t (&as)[M][KS][4],
+                                          const char* bb, const char* bs) {
+#pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    wgmma_tf32_rs<N>(d, as[kk], desc_k<N>(bb, 0, kk));
+#pragma unroll
+    for (int m = 0; m < M; ++m) wgmma_tf32_rs_tile<N>(d[m], as[m][kk], bb, kk);
   }
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    wgmma_tf32_rs<N>(d, ab[kk], desc_k<N>(bs, 0, kk));
+#pragma unroll
+    for (int m = 0; m < M; ++m) wgmma_tf32_rs_tile<N>(d[m], ab[m][kk], bs, kk);
   }
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    wgmma_tf32_rs<N>(d, ab[kk], desc_k<N>(bb, 0, kk));
+#pragma unroll
+    for (int m = 0; m < M; ++m) wgmma_tf32_rs_tile<N>(d[m], ab[m][kk], bb, kk);
   }
+}
+
+// D += A·Bᵀ in 3xTF32 over KS k8 steps: A rows [0, 64) of the RA-row fp32
+// tile `a` as TMA landed it, times `scale`, split in registers
+// (tile_a_split); B the N-row tile pair (bb, bs), K-major. The steps go in
+// groups of GS, one commit each, with the A registers of NB groups live
+// (the oldest group is waited for before its registers are loaded again).
+// Fences first; waits for every product before it returns.
+template <int RA, int N, int KS, int GS, int NB>
+__device__ __forceinline__ void mma3_ra(float (&d)[N / 2], const char* a,
+                                        float scale, const char* bb,
+                                        const char* bs, int t) {
+  static_assert(KS % GS == 0, "mma3_ra: groups of GS k8 steps");
+  static_assert(NB == 1 || NB == 2, "mma3_ra: one or two register sets");
+  uint32_t ab[NB][GS][4], as[NB][GS][4];
+#pragma unroll
+  for (int g = 0; g < KS / GS; ++g) {
+    const int sl = g % NB;
+    if (g >= NB) {
+      wgmma_wait<NB - 1>();
+      keep_regs(ab[sl]);
+      keep_regs(as[sl]);
+    }
+#pragma unroll
+    for (int j = 0; j < GS; ++j) {
+      tile_a_split<RA>(a, 0, g * GS + j, scale, t, ab[sl][j], as[sl][j]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < GS; ++j) {  // small terms first
+      wgmma_tf32_rs_tile<N>(d, as[sl][j], bb, g * GS + j);
+    }
+#pragma unroll
+    for (int j = 0; j < GS; ++j) {
+      wgmma_tf32_rs_tile<N>(d, ab[sl][j], bs, g * GS + j);
+    }
+#pragma unroll
+    for (int j = 0; j < GS; ++j) {
+      wgmma_tf32_rs_tile<N>(d, ab[sl][j], bb, g * GS + j);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(d);
+#pragma unroll
+  for (int sl = 0; sl < NB; ++sl) {
+    keep_regs(ab[sl]);
+    keep_regs(as[sl]);
+  }
+}
+
+// Byte offset of thread t's 16-byte hand-over slot in columns 16-23 of a
+// 64-row fp32 tile of 32 columns whose products read columns 0-15 only.
+__device__ __forceinline__ int xchg_off(int t) {
+  return sw_off<64>(t >> 1, 16 + 4 * (t & 1));
 }
 
 // Register split of the fp32 kernels' blocks of two consumer warpgroups:
@@ -390,6 +613,14 @@ __device__ __forceinline__ void mma3_rs(float (&d)[N / 2],
 // less than their 240).
 constexpr int kProducerRegs32 = 72;
 constexpr int kConsumerRegs32 = 216;
+// The wide backward kernels' split: their producer only splits tiles in
+// place (no transposing pass), and a dK/dV consumer holds 128 accumulator
+// registers beside 64 of A fragments: 40 + 2 x 232. The three warpgroups
+// together stay at 64,512 registers, as every split here does: at the
+// SM's full 65,536 (32 + 2 x 240) setmaxnreg.inc never returned on the
+// card and the kernel hung.
+constexpr int kProducerRegsWide = 40;
+constexpr int kConsumerRegsWide = 232;
 
 // The producer warpgroup: thread 0 issues TMA; warps 1-3 split and
 // transpose landed tiles.

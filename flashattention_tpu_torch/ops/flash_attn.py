@@ -9,16 +9,18 @@ tensors it runs their plain PyTorch versions, :func:`flash_fwd_plain` and
 :func:`flash_bwd_plain`. Nothing falls back: a CUDA input the kernels do
 not take raises, and so does a failed build or launch.
 
-Each source has three entry points, chosen by :func:`_tensor_core_route`:
-bf16 with D <= 256 runs ``fat_flash_fwd_sm90`` / ``fat_flash_bwd_sm90``
-(wgmma on the tensor cores, tiles by TMA; above D = 128 the dK/dV kernel
-splits the head dim between its two consumer warpgroups); fp32 with
-D <= 128 runs ``fat_flash_fwd_sm90_f32`` / ``fat_flash_bwd_sm90_f32`` (the
-same on 3xTF32 wgmma: each fp32 operand split into two TF32 parts, three
-products summed in fp32, ``csrc/tf32_sm90.cuh``); fp32 above D = 128 runs
-the first kernels (fp32 FMAs on the CUDA cores).
-``kernel_attention.fwd_launches`` and ``bwd_launches`` count every call;
-``fwd_tc_launches`` and ``bwd_tc_launches`` count the tensor-core routes.
+Every call runs on the tensor cores, by dtype (:func:`_entry`): bf16 runs
+``fat_flash_fwd_sm90`` / ``fat_flash_bwd_sm90`` (wgmma, tiles by TMA; above
+D = 128 the dK/dV kernel splits the head dim between its two consumer
+warpgroups); fp32 runs ``fat_flash_fwd_sm90_f32`` /
+``fat_flash_bwd_sm90_f32`` (the same on 3xTF32 wgmma: each fp32 operand
+split into two TF32 parts, three products summed in fp32,
+``csrc/tf32_sm90.cuh``; above D = 128 the operands too large to keep in two
+parts are split in registers). Both up to D = 256, the most
+:func:`make_opts` takes. The sources' third entry points, the first
+kernels (fp32 FMAs on the CUDA cores), are no route of this module: they
+stay as the comparison ``chip_smoke.py`` times.
+``kernel_attention.fwd_launches`` and ``bwd_launches`` count every call.
 
 Contract (as in the JAX package): q (B, H, N_q, D), k/v (B, H_kv, N_k, D)
 with H % H_kv == 0; returns o in q's shape and dtype and an fp32 LSE
@@ -222,23 +224,30 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _tensor_core_route(dtype, d: int) -> bool:
-    """True where the tensor-core kernels take the call: bf16 with
-    D <= MAX_HEAD_DIM (256), or fp32 with D <= 128 (on 3xTF32, which keeps
-    the fp32 1e-4 limit where one TF32 product would not). fp32 above
-    D = 128 stays on the FMA kernels: the two TF32 parts of a 64-row Q tile
-    alone would take 128 KB of shared memory at D = 256."""
+def _entry(lib: ctypes.CDLL, prefix: str, dtype):
+    """The tensor-core entry point of ``prefix`` for ``dtype``, which takes
+    every head dim up to MAX_HEAD_DIM (256) and refuses one above: bf16
+    wgmma, or fp32 on 3xTF32, which keeps the fp32 1e-4 limit where one TF32
+    product would not (above D = 128 its kernels split the operands they
+    keep as landed in registers, ``csrc/tf32_sm90.cuh``)."""
+    return getattr(lib, prefix + ("_sm90_f32" if dtype == torch.float32
+                                  else "_sm90"))
+
+
+def route_kernels(dtype, d: int) -> frozenset[str]:
+    """The ``__global__`` kernels a forward and a backward call launch for
+    ``dtype`` and head dim ``d`` (their names in a profiler trace). fp32
+    above D = 128 adds the split of the backward's B operands, and under
+    GQA/MQA may add ``flash_bwd_sum_kernel`` (:func:`_kv_splits`)."""
     if dtype == torch.bfloat16:
-        return d <= MAX_HEAD_DIM
-    return dtype == torch.float32 and d <= 128
-
-
-def _entry(lib: ctypes.CDLL, prefix: str, dtype, d: int):
-    """(C entry point, tensor-core route?) of ``prefix`` for dtype and D."""
-    if not _tensor_core_route(dtype, d):
-        return getattr(lib, prefix), False
-    suffix = "_sm90_f32" if dtype == torch.float32 else "_sm90"
-    return getattr(lib, prefix + suffix), True
+        tag = "sm90"
+    else:
+        tag = "f32_wide_sm90" if d > 128 else "f32_sm90"
+    names = {f"flash_fwd_{tag}_kernel", f"flash_bwd_dkv_{tag}_kernel",
+             f"flash_bwd_dq_{tag}_kernel"}
+    if tag == "f32_wide_sm90":
+        names.add("flash_bwd_split_kernel")
+    return frozenset(names)
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -291,13 +300,13 @@ def _scalars(q, k, opts: AttnOpts):
 def _fwd_cuda(q, k, v, opts: AttnOpts):
     _check_cuda(q, k, v, opts)
     q, k, v = (_aligned16(t.contiguous()) for t in (q, k, v))
-    b, h, n_q, d = q.shape
+    b, h, n_q, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
     if o.numel() == 0 or k.shape[2] == 0:
         return o.zero_(), lse.fill_(float("-inf"))
-    fn, tc = _entry(_build.load_kernel("flash_fwd", _declare_fwd),
-                    "fat_flash_fwd", q.dtype, d)
+    fn = _entry(_build.load_kernel("flash_fwd", _declare_fwd),
+                "fat_flash_fwd", q.dtype)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         _ptr(opts.q_ids), _ptr(opts.kv_ids), _ptr(opts.slopes),
@@ -305,7 +314,6 @@ def _fwd_cuda(q, k, v, opts: AttnOpts):
     )
     _build.check(err, "flash_fwd launch")
     kernel_attention.fwd_launches += 1
-    kernel_attention.fwd_tc_launches += tc
     return o, lse
 
 
@@ -318,18 +326,47 @@ def _bwd_cuda(q, k, v, do, lse, di, opts: AttnOpts):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.shape[2] == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    fn, tc = _entry(_build.load_kernel("flash_bwd", _declare_bwd),
-                    "fat_flash_bwd", q.dtype, q.shape[3])
+    lib = _build.load_kernel("flash_bwd", _declare_bwd)
+    fn = _entry(lib, "fat_flash_bwd", q.dtype)
+    more = []
+    if fn is lib.fat_flash_bwd_sm90_f32:
+        splits, scratch = 1, None
+        if q.shape[3] > 128:
+            # the two TF32 parts of q * scale, do, k and v, made once by the
+            # call (csrc/flash_bwd.cu, split_pairs), then the dK/dV partial
+            # sums of a split query-head group
+            splits = _kv_splits(
+                k.shape[0] * k.shape[1], k.shape[2], q.shape[1] // k.shape[1],
+                torch.cuda.get_device_properties(
+                    q.device).multi_processor_count)
+            scratch = torch.empty(
+                4 * (q.numel() + k.numel())
+                + (2 * splits * k.numel() if splits > 1 else 0),
+                dtype=torch.float32, device=q.device)
+        more = [_ptr(scratch), splits]
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _ptr(opts.q_ids), _ptr(opts.kv_ids), _ptr(opts.slopes),
-        *_scalars(q, k, opts),
+        *_scalars(q, k, opts), *more,
     )
     _build.check(err, "flash_bwd launch")
     kernel_attention.bwd_launches += 1
-    kernel_attention.bwd_tc_launches += tc
     return dq, dk, dv
+
+
+def _kv_splits(kv_heads: int, n_k: int, group: int, sms: int) -> int:
+    """How many CTAs of the fp32 dK/dV kernel above D = 128 share one KV
+    head's group of query heads (``kv_heads`` = B * H_kv, 64 keys a CTA):
+    doubled, while it divides the group, until the kernel has two CTAs for
+    each of the card's ``sms``. A GQA or MQA call with few KV heads
+    otherwise leaves SMs idle while each CTA walks every query head of its
+    group."""
+    ctas = kv_heads * -(-n_k // 64)
+    splits = 1
+    while group % (2 * splits) == 0 and ctas * splits < 2 * sms:
+        splits *= 2
+    return splits
 
 
 def _scalar_argtypes():
@@ -351,6 +388,10 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
                lib.fat_flash_bwd_sm90_f32):
         fn.restype = ctypes.c_int
         fn.argtypes = [p] * 12 + _scalar_argtypes()
+    # the fp32 route takes its scratch and query-head splits (used above
+    # D = 128) last
+    lib.fat_flash_bwd_sm90_f32.argtypes = ([p] * 12 + _scalar_argtypes()
+                                           + [p, ctypes.c_int])
 
 
 # ---------------------------------------------------------------------------
@@ -484,9 +525,8 @@ def kernel_attention(q, k, v, *, causal=False, softmax_scale=None,
 
     Launches ``csrc/flash_fwd.cu`` for CUDA tensors (counted in
     ``kernel_attention.fwd_launches``) and, in the backward,
-    ``csrc/flash_bwd.cu`` (``kernel_attention.bwd_launches``); launches on
-    the tensor-core route also count in ``fwd_tc_launches`` and
-    ``bwd_tc_launches``. CPU tensors run the plain versions.
+    ``csrc/flash_bwd.cu`` (``kernel_attention.bwd_launches``). CPU tensors
+    run the plain versions.
     ``dropout_seed`` is an int (taken mod 2**32)."""
     opts = make_opts(q, k, causal=causal, softmax_scale=softmax_scale,
                      dropout_rate=dropout_rate, dropout_seed=dropout_seed,
@@ -499,8 +539,6 @@ def kernel_attention(q, k, v, *, causal=False, softmax_scale=None,
 
 kernel_attention.fwd_launches = 0
 kernel_attention.bwd_launches = 0
-kernel_attention.fwd_tc_launches = 0
-kernel_attention.bwd_tc_launches = 0
 
 
 def kernel_attention_plain(q, k, v, **kwargs):

@@ -1,5 +1,7 @@
 """Device time of each flash kernel of the PyTorch port on one NVIDIA GPU:
-the forward and the backward's two kernels (dK/dV, then dQ) of
+the forward and the backward's two kernels (dK/dV, then dQ; above D = 128
+in fp32 also the split of its B operands and, where a GQA/MQA group is
+spread over dK/dV CTAs, the sum of their partials) of
 ``kernel_attention``'s routes at the training shape (8, 12, 512, D), bf16
 and fp32 (3xTF32) at D = 64 and fp32 at D = 128, causal and not, from
 ``torch.profiler`` over 20 forward + backward calls. Prints the card's
@@ -43,7 +45,8 @@ def kernel_ms(q, k, v, do, causal):
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        name = re.search(r"flash_\w+<[^>]*>", e.key)
+        name = re.search(
+            r"flash_\w+<[^>]*>|flash_bwd_(?:split|sum)_kernel", e.key)
         if name:
             total = (e.device_time_total if hasattr(e, "device_time_total")
                      else e.cuda_time_total)  # µs over the CALLS calls

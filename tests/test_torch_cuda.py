@@ -259,14 +259,19 @@ def test_paged_attention_kernel_rejects_what_it_does_not_take(cuda_device):
 def device_kernels_of(fn, tries=3):
     """Names of the device events that ``fn()`` runs, under torch.profiler,
     in launch order, between two marker fills of one element. CUPTI now and
-    then records nothing of so short a window; the window is then profiled
-    again (``fn`` must be idempotent), at most ``tries`` times."""
+    then misses the first milliseconds of a profile, several at times, so
+    a ~20 ms sleep kernel opens it; where it still misses a marker, the
+    window is profiled again (``fn`` must be idempotent), at most
+    ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from flashattention_tpu_torch.bench.harness import HOLD_CYCLES
 
     marker = torch.empty(1, device="cuda")
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(20 * HOLD_CYCLES)
             marker.fill_(1.0)
             torch.cuda.synchronize()
             fn()
@@ -277,8 +282,11 @@ def device_kernels_of(fn, tries=3):
                          if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
         fills = [i for i, e in enumerate(events) if "FillFunctor" in e.name]
-        if len(fills) == 2:
-            return [e.name for e in events[fills[0] + 1: fills[1]]]
+        # the markers: the first fill after the sleep and the last event
+        # (fn may run fills of its own in between)
+        if fills and fills[0] > 0 and "spin" in events[fills[0] - 1].name \
+                and fills[-1] == len(events) - 1 > fills[0]:
+            return [e.name for e in events[fills[0] + 1:-1]]
     pytest.fail(f"the profiler recorded no marker pair in {tries} windows")
 
 
@@ -552,9 +560,8 @@ def test_spec_engine_on_card(cuda_device, draft_layers):
 
 # name: ((b, h, h_kv, n_q, n_k, d), dtype, kernel_attention kwargs, extras);
 # one case per chip_smoke.py flash case (the bench shape cut to N = 2048),
-# plus ragged and head-dim edges, in fp32 and in bf16: the tensor-core
-# routes (bf16 wgmma up to D = 256, fp32 3xTF32 wgmma up to D = 128), the
-# FMA route for fp32 above D = 128.
+# plus ragged and head-dim edges, in fp32 and in bf16: every one on the
+# tensor-core routes (bf16 wgmma, fp32 3xTF32 wgmma, both up to D = 256).
 FLASH_CASES = {
     "a_train": ((8, 12, 12, 512, 512, 64), torch.bfloat16,
                 dict(causal=True, dropout_rate=0.1, dropout_seed=3), ()),
@@ -632,6 +639,37 @@ FLASH_CASES = {
                                  dict(causal=False), ("segments", "alibi")),
     "fp32_k_unaligned_view": ((2, 4, 2, 128, 128, 64), torch.float32,
                               dict(causal=True), ("k_unaligned",)),
+    # and at D = 256, 192 and 136 on the wide fp32 kernels (operands split
+    # in registers; columns past D read as zeros from TMA)
+    "fp32_d256_gqa_window_dropout": (
+        (2, 8, 2, 300, 300, 256), torch.float32,
+        dict(causal=True, window=96, sinks=4, softcap=30.0, dropout_rate=0.1,
+             dropout_seed=21), ()),
+    "fp32_d192_gqa_window_dropout": (
+        (2, 8, 2, 300, 300, 192), torch.float32,
+        dict(causal=True, window=96, sinks=4, softcap=30.0, dropout_rate=0.1,
+             dropout_seed=21), ()),
+    "fp32_d256_full_segments_alibi": ((2, 4, 4, 192, 320, 256),
+                                      torch.float32, dict(causal=False),
+                                      ("segments", "alibi")),
+    "fp32_d192_full_segments_alibi": ((2, 4, 4, 192, 320, 192),
+                                      torch.float32, dict(causal=False),
+                                      ("segments", "alibi")),
+    "fp32_d256_offset": ((2, 2, 1, 77, 130, 256), torch.float32,
+                         dict(causal=True, q_offset=20), ("dlse",)),
+    "fp32_d136_offset": ((2, 2, 1, 77, 130, 136), torch.float32,
+                         dict(causal=True, q_offset=20), ("dlse",)),
+    "fp32_d256_empty_rows": ((1, 4, 4, 64, 64, 256), torch.float32,
+                             dict(causal=True, q_offset=-10), ()),
+    "fp32_d136_gqa_window_empty_rows": (
+        (2, 4, 2, 100, 100, 136), torch.float32,
+        dict(causal=True, q_offset=-10, window=30, sinks=2), ()),
+    "fp32_d256_k_unaligned_view": ((2, 4, 2, 128, 128, 256), torch.float32,
+                                   dict(causal=True), ("k_unaligned",)),
+    # MQA (phase 7c's 8 query heads over one KV head): dK/dV's query heads
+    # split over 8 CTAs, their partials summed after
+    "fp32_d256_mqa": ((1, 8, 1, 512, 512, 256), torch.float32,
+                      dict(causal=True), ()),
 }
 
 
@@ -643,6 +681,12 @@ def flash_tol(dtype, ref):
     if dtype == torch.bfloat16:
         return 1.6e-2, 1e-3 * float(ref.float().abs().max())
     return 1e-4, 1e-4
+
+
+def flash_kernels_launched(fn):
+    """Names of the flash kernels ``fn()`` launches (torch.profiler)."""
+    return {n for e in device_kernels_of(fn)
+            for n in re.findall(r"flash_\w+_kernel", e)}
 
 
 def flash_inputs(shape, dtype, extras, device, seed=0):
@@ -678,8 +722,7 @@ def test_flash_kernels_match_plain(cuda_device, case):
     q, k, v, do, dlse, more = flash_inputs(shape, dtype, extras, cuda_device)
     opts = fa.make_opts(q, k, **kw, **more)
     ka = fa.kernel_attention
-    before = (ka.fwd_launches, ka.bwd_launches, ka.fwd_tc_launches,
-              ka.bwd_tc_launches)
+    before = (ka.fwd_launches, ka.bwd_launches)
     o, lse = fa.flash_fwd(q, k, v, opts)
     torch.cuda.synchronize()
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, opts)
@@ -699,11 +742,15 @@ def test_flash_kernels_match_plain(cuda_device, case):
         assert g.dtype == r.dtype and g.shape == r.shape
         rtol, atol = flash_tol(dtype, r)
         assert_allclose(g, r, rtol=rtol, atol=atol, err_msg=f"{case} {name}")
-    tc = int(fa._tensor_core_route(dtype, shape[-1]))  # fp32 D > 128: FMA
-    assert tc == int(dtype == torch.bfloat16 or shape[-1] <= 128)
-    after = (ka.fwd_launches, ka.bwd_launches, ka.fwd_tc_launches,
-             ka.bwd_tc_launches)
-    assert tuple(x - y for x, y in zip(after, before)) == (1, 1, tc, tc)
+    after = (ka.fwd_launches, ka.bwd_launches)
+    assert tuple(x - y for x, y in zip(after, before)) == (1, 1)
+    # the kernels of the dtype's and head dim's tensor-core route ran (the
+    # dK/dV partials' sum only where a GQA/MQA group is split)
+    ran = flash_kernels_launched(lambda: (
+        fa.flash_fwd(q, k, v, opts),
+        fa.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, opts)))
+    assert ran - {"flash_bwd_sum_kernel"} == fa.route_kernels(dtype,
+                                                              shape[-1])
 
 
 @pytest.mark.cuda
@@ -714,11 +761,11 @@ def test_flash_bf16_backward_is_deterministic(cuda_device):
     q, k, v, do, _, _ = flash_inputs(shape, dtype, extras, cuda_device)
     opts = fa.make_opts(q, k, **kw)
     o, lse = fa.flash_fwd(q, k, v, opts)
-    t0 = fa.kernel_attention.bwd_tc_launches
+    t0 = fa.kernel_attention.bwd_launches
     first = fa.flash_bwd(q, k, v, o, lse, do, None, opts)
     second = fa.flash_bwd(q, k, v, o, lse, do, None, opts)
     torch.cuda.synchronize()
-    assert fa.kernel_attention.bwd_tc_launches - t0 == 2
+    assert fa.kernel_attention.bwd_launches - t0 == 2
     for name, x, y in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(x, y), name
 
@@ -731,11 +778,11 @@ def test_flash_bf16_d256_backward_is_deterministic(cuda_device):
     q, k, v, do, _, _ = flash_inputs(shape, dtype, extras, cuda_device)
     opts = fa.make_opts(q, k, **kw)
     o, lse = fa.flash_fwd(q, k, v, opts)
-    t0 = fa.kernel_attention.bwd_tc_launches
+    t0 = fa.kernel_attention.bwd_launches
     first = fa.flash_bwd(q, k, v, o, lse, do, None, opts)
     second = fa.flash_bwd(q, k, v, o, lse, do, None, opts)
     torch.cuda.synchronize()
-    assert fa.kernel_attention.bwd_tc_launches - t0 == 2
+    assert fa.kernel_attention.bwd_launches - t0 == 2
     for name, x, y in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(x, y), name
 
@@ -1463,13 +1510,12 @@ def test_context_parallel_schedules_on_card(cuda_device, kind, causal, seg):
     o_ref, lse_ref = fa.kernel_attention(*leaves, causal=causal,
                                          segment_ids=ids)
     torch.autograd.backward([o_ref, lse_ref], [do, dlse])
-    f0, t0 = fa.kernel_attention.fwd_launches, fa.kernel_attention.fwd_tc_launches
+    f0 = fa.kernel_attention.fwd_launches
     got = schedules_on_one_device(kind, q, k, v, 4, causal=causal,
                                   segment_ids=ids, do=do, dlse=dlse)
     torch.cuda.synchronize()
     want_launches = (CP_CAUSAL_LAUNCHES if causal else CP_FULL_LAUNCHES)[kind]
     assert fa.kernel_attention.fwd_launches - f0 == want_launches
-    assert fa.kernel_attention.fwd_tc_launches - t0 == want_launches
     refs = [o_ref, lse_ref] + [t.grad for t in leaves]
     for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), got, refs):
         assert torch.isfinite(a.float()).all(), name
@@ -1541,15 +1587,13 @@ def test_compat_forward_on_card_matches_cpu(cuda_device, fused, bias):
     for dev in ("cpu", cuda_device):
         params = compat.convert_reference_state_dict(sd, 2, device=dev)
         fa.kernel_attention.fwd_launches = 0
-        fa.kernel_attention.fwd_tc_launches = 0
         with torch.no_grad():
             logits = compat.apply_reference_transformer(params, ids, tau=0.9)
             loss = compat.reference_lm_loss(params, ids, tgt, tau=0.9)
         out[str(dev)] = (logits.cpu(), float(loss),
-                         fa.kernel_attention.fwd_launches,
-                         fa.kernel_attention.fwd_tc_launches)
-    (a, la, n, n_tc), (r, lr, _, _) = out[str(cuda_device)], out["cpu"]
-    assert (n, n_tc) == (8, 8)  # two forwards, 2 x 2 layers each, 3xTF32
+                         fa.kernel_attention.fwd_launches)
+    (a, la, n), (r, lr, _) = out[str(cuda_device)], out["cpu"]
+    assert n == 8  # two forwards, 2 x 2 layers each, 3xTF32
     scale = float(r.abs().max())
     assert float((a - r).abs().max()) <= 1e-4 * scale
     assert abs(la - lr) <= 1e-4 * abs(lr)

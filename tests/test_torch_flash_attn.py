@@ -222,18 +222,48 @@ def test_cpu_path_launches_no_kernel():
     assert torch.equal(o.detach(), o_plain)
 
 
-# (dtype, head dim, tensor-core route?): bf16 up to D = 256 and fp32 up to
-# D = 128 go to the Hopper kernels (fp32 on 3xTF32); fp32 keeps the FMA
-# kernels above D = 128. No route takes D = 264 (make_opts refuses it).
+# (dtype, head dim, tensor-core route?): bf16 and fp32 up to D = 256 go to
+# the Hopper kernels (fp32 on 3xTF32). No route takes D = 264 (make_opts
+# refuses it).
 ROUTES = ([("bfloat16", d, True) for d in (40, 64, 128, 136, 192, 256)]
           + [("float32", d, True) for d in (40, 64, 128)]
-          + [("float32", d, False) for d in (136, 256)]
-          + [("bfloat16", 264, False)])
+          + [("float32", d, True) for d in (136, 256)]
+          + [("bfloat16", 264, False), ("float32", 264, False)])
+
+
+class _EntryNames:
+    """Stands in for a kernel library: each entry point is its name."""
+
+    def __getattr__(self, name):
+        return name
 
 
 @pytest.mark.parametrize("dtype,d,want", ROUTES)
 def test_tensor_core_route(dtype, d, want):
-    assert fa._tensor_core_route(getattr(torch, dtype), d) is want
+    """Every head dim make_opts takes goes to its dtype's tensor-core entry
+    points (fp32 to the 3xTF32 ones); make_opts refuses the rest."""
+    dt = getattr(torch, dtype)
+    q = torch.zeros(1, 2, 4, d, dtype=dt)
+    if not want:
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.make_opts(q, q)
+        return
+    fa.make_opts(q, q)
+    suffix = "_sm90_f32" if dt == torch.float32 else "_sm90"
+    for prefix in ("fat_flash_fwd", "fat_flash_bwd"):
+        assert fa._entry(_EntryNames(), prefix, dt) == prefix + suffix
+
+
+# (B * H_kv, N_k, group, SMs, splits): the fp32 dK/dV kernel above D = 128
+# splits a query-head group until it has two CTAs an SM, by halving steps
+# that divide the group; MHA (group 1) and a full grid never split.
+KV_SPLITS = [(8, 8192, 1, 132, 1), (2, 300, 4, 132, 4), (1, 4096, 8, 132, 8),
+             (1, 8192, 8, 132, 4), (4, 4096, 6, 132, 2), (16, 8192, 8, 132, 1)]
+
+
+@pytest.mark.parametrize("kv_heads,n_k,group,sms,want", KV_SPLITS)
+def test_kv_splits_fill_the_card(kv_heads, n_k, group, sms, want):
+    assert fa._kv_splits(kv_heads, n_k, group, sms) == want
 
 
 def test_aligned16_copies_an_unaligned_view_only():
@@ -277,12 +307,13 @@ def _products_1xtf32(einsum):
     return lambda spec, a, b: einsum(spec, _tf32(a), _tf32(b))
 
 
-def _plain_with_products(split, causal, rate):
+def _plain_with_products(split, causal, rate, shape=(2, 12, 512, 64)):
     """(o, lse, dq, dk, dv) of flash_fwd_plain / flash_bwd_plain with every
     product (Q·Kᵀ and P·V; S, dP, dV, dK and dQ) taken through ``split``,
     and the same of the plain versions as they are, from one numpy input
-    at (2, 12, 512, 64)."""
-    q, k, v, do, _ = _inputs(2, 12, 12, 512, 512, 64, seed=3)
+    at ``shape`` (B, H, N, D)."""
+    b, h, n, d = shape
+    q, k, v, do, _ = _inputs(b, h, h, n, n, d, seed=3)
     q, k, v, do = (torch.from_numpy(x) for x in (q, k, v, do))
     opts = fa.make_opts(q, k, causal=causal, dropout_rate=rate,
                         dropout_seed=11 if rate else None)
@@ -304,6 +335,16 @@ def test_3xtf32_products_keep_the_fp32_limit(causal, rate):
     """The split the fp32 kernels run every product in holds o, LSE, dQ, dK
     and dV within fp32's 1e-4 of the plain versions."""
     got, ref = _plain_with_products(_products_3xtf32, causal, rate)
+    for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), got, ref):
+        assert_allclose(a, r, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_products_keep_the_fp32_limit_at_d256(causal):
+    """The same at head dim 256, the wide kernels' (S and dP sum 256 terms),
+    with dropout: o, LSE, dQ, dK and dV within fp32's 1e-4."""
+    got, ref = _plain_with_products(_products_3xtf32, causal, 0.1,
+                                    shape=(1, 4, 512, 256))
     for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), got, ref):
         assert_allclose(a, r, rtol=1e-4, atol=1e-4, err_msg=name)
 
