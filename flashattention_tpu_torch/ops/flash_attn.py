@@ -23,7 +23,8 @@ stay as the comparison ``chip_smoke.py`` times.
 ``kernel_attention.fwd_launches`` and ``bwd_launches`` count every call.
 
 Contract (as in the JAX package): q (B, H, N_q, D), k/v (B, H_kv, N_k, D)
-with H % H_kv == 0; returns o in q's shape and dtype and an fp32 LSE
+with H % H_kv == 0 and D <= 256 (:func:`kernel_attention` pads a D that is
+not a multiple of 8); returns o in q's shape and dtype and an fp32 LSE
 (B, H, N_q). Query row r sits at key position r + q_offset (default
 N_k - N_q). Scores go through one pipeline, in this order:
 
@@ -527,14 +528,25 @@ def kernel_attention(q, k, v, *, causal=False, softmax_scale=None,
     ``kernel_attention.fwd_launches``) and, in the backward,
     ``csrc/flash_bwd.cu`` (``kernel_attention.bwd_launches``). CPU tensors
     run the plain versions.
-    ``dropout_seed`` is an int (taken mod 2**32)."""
+    ``dropout_seed`` is an int (taken mod 2**32). A head dim that is not a
+    multiple of 8 is padded with zeros up to the next one, as
+    ``pallas_attention`` pads its head dim: zero columns change no score,
+    the default scale is the unpadded D's, and o and the gradients are
+    sliced back to D."""
+    d = q.shape[-1]
+    pad = -d % 8 if d <= MAX_HEAD_DIM else 0
+    if pad:
+        if softmax_scale is None:
+            softmax_scale = d ** -0.5
+        q, k, v = (torch.nn.functional.pad(x, (0, pad)) for x in (q, k, v))
     opts = make_opts(q, k, causal=causal, softmax_scale=softmax_scale,
                      dropout_rate=dropout_rate, dropout_seed=dropout_seed,
                      q_offset=q_offset, window=window, segment_ids=segment_ids,
                      softcap=softcap, alibi_slopes=alibi_slopes, sinks=sinks)
     if tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"v {tuple(v.shape)} must match k {tuple(k.shape)}")
-    return _FlashAttention.apply(q, k, v, opts)
+    o, lse = _FlashAttention.apply(q, k, v, opts)
+    return (o[..., :d], lse) if pad else (o, lse)
 
 
 kernel_attention.fwd_launches = 0

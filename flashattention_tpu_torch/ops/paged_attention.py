@@ -13,7 +13,11 @@ brought in by 1-D bulk copies, a second kernel merging the splits) for
 bf16 q over bf16 or 1-byte pages in the convert and "qk" schedules, and
 the first kernel (``fat_paged_attention``, ``fat_paged_attention_quant``)
 for fp32 pages or q, the "full" schedule and shapes the bulk copies cannot
-take. ``paged_attention.launches`` counts every call,
+take. Both take head dims up to :data:`MAX_HEAD_DIM` (256); the split
+route needs D % 8 == 0, and above D = 128 the first kernel cuts its walk
+into splits too (:func:`first_plan`), merged by the split route's merge
+kernel. A larger head dim raises on the card (the CPU
+plain version takes any). ``paged_attention.launches`` counts every call,
 ``paged_attention.split_launches`` the split route's and
 ``paged_attention.chunk_launches`` those with more than one query a
 sequence (T > 1).
@@ -72,7 +76,7 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 # payload format codes of the kernel: 0 = the compute type itself
 _FMT_CODE = {torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
 _MODE_CODE = {"convert": 0, "qk": 1, "full": 2}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 
 def row_positions(lengths, q_len, rows_per_head):
@@ -106,17 +110,23 @@ SPLIT_RING_BYTES = 192 * 1024
 # SM hide the walk's latency), else 3.
 SPLIT_RING_TARGET = 64 * 1024
 # Slots a split walks at least (and 4 pages or more): 128 where a CTA holds
-# one row set (decode), 64 where it holds up to 16 rows (chunks, whose CTAs
-# do more work a page). 8-page splits were the fastest at the engine's
-# decode shape and 4-page ones at its T = 64 chunk (PERF.md, the paged rows).
+# one row set (decode) or D > 128, else 64 (chunks, whose CTAs do more work
+# a page). 8-page splits were the fastest at the engine's decode shape and
+# 4-page ones at its T = 64 chunk (PERF.md, the paged rows). Above D = 128,
+# at Gemma 2B's MQA decode (8 rows a KV head) and its chunks, the kernel's
+# time follows the (row, slot) pairs, and 64-slot splits add CTAs and merge
+# work (PERF.md, row 7w).
 SPLIT_SLOTS = {True: 128, False: 64}
 SPLIT_MAX_PAGES = 64    # pages a split may walk (the kernel's list)
 SPLIT_THREADS = 128
+# CTAs the first kernel's splits aim at above D = 128: two on each of the
+# H100's 132 SMs.
+FIRST_TARGET_CTAS = 264
 
 
 def split_route(q_dtype, page_dtype, mode, page_size, d, aligned=True):
     """True where the split kernel takes the call: bf16 q over bf16 pages,
-    or over 1-byte pages in the "convert" or "qk" schedule; D <= 128 with
+    or over 1-byte pages in the "convert" or "qk" schedule; D <= 256 with
     D % 8 == 0; a page's K (or V) slab of one KV head, ``page * D * elt``
     bytes, and for 1-byte pages its scale plane, ``page * 4`` bytes,
     multiples of 16; three stages of the ring within
@@ -141,23 +151,49 @@ def split_plan(h, h_kv, q_len, d, page_size, pps, quantized):
     """The split kernel's launch plan, from shapes only (lengths live on
     the device): ``split_pages`` pages per split (at least 4 and
     :data:`SPLIT_SLOTS` slots), ``n_splits`` to cover ``pps`` pages;
-    ``lg`` lanes a slot (8 columns a lane); ``rps`` rows a row set and
-    ``nrs`` row sets a CTA (a 1-row decode puts all 128 threads on its
-    slots); ``row_groups`` CTAs per KV head; ``stages`` of the ring."""
+    ``rps`` rows a row set and ``nrs`` row sets a CTA (a 1-row decode puts
+    all 128 threads on its slots); ``row_groups`` CTAs per KV head;
+    ``stages`` of the ring. ``lg`` lanes a slot hold ``epl`` columns each:
+    8 columns and D / 8 lanes (4, 8 or 16) up to D = 128; above, 16 lanes
+    at 16 columns, which beat a warp a slot at 8 columns at Gemma 2B's MQA
+    shapes (PERF.md, row 7w)."""
     rows = (h // h_kv) * q_len
     rps = 1 if rows == 1 else (2 if rows == 2 else 4)
     sets = -(-rows // rps)
     nrs = 1 if sets == 1 else (2 if sets == 2 else 4)
-    split_pages = min(SPLIT_MAX_PAGES,
-                      max(4, SPLIT_SLOTS[nrs == 1] // page_size))
+    slots = SPLIT_SLOTS[nrs == 1 or d > 128]
+    split_pages = min(SPLIT_MAX_PAGES, max(4, slots // page_size))
     stage = 2 * page_size * d * (1 if quantized else 2) + (
         8 * page_size if quantized else 0)
+    if d <= 128:
+        lg, epl = (4 if d <= 32 else (8 if d <= 64 else 16)), 8
+    else:
+        lg, epl = 16, 16
     return dict(
         split_pages=split_pages, n_splits=-(-pps // split_pages),
-        lg=4 if d <= 32 else (8 if d <= 64 else 16), rps=rps, nrs=nrs,
+        lg=lg, epl=epl, rps=rps, nrs=nrs,
         row_groups=-(-rows // (rps * nrs)),
         stages=max(3, min(4, SPLIT_RING_TARGET // stage)))
 
+
+@functools.lru_cache(maxsize=256)
+def first_plan(b, h, h_kv, q_len, d, pps, unit_pages):
+    """``(split_units, n_splits)`` of the first kernel. Up to D = 128 it
+    walks each sequence whole, ``(1, 1)``. Above, its walk is cut into
+    ``n_splits`` splits of ``split_units`` units of ``unit_pages`` pages
+    (the "full" schedule's walk step, so a step stays in one split; else
+    1), at least 4 pages a split and enough splits that its blocks, (B,
+    H_kv, row groups of 4, 8 or 16 rows) times the splits, reach
+    :data:`FIRST_TARGET_CTAS`."""
+    if d <= 128:
+        return 1, 1
+    rows = (h // h_kv) * q_len
+    rpw = 1 if rows <= 4 else (2 if rows <= 64 else 4)
+    blocks = b * h_kv * -(-rows // (4 * rpw))
+    units = -(-pps // unit_pages)
+    want = -(-FIRST_TARGET_CTAS // blocks)
+    split_units = max(-(-4 // unit_pages), -(-units // want))
+    return split_units, -(-units // split_units)
 
 
 def full_step_pages(page_size: int, pps: int) -> int:
@@ -264,6 +300,11 @@ def paged_attention_plain(
 
 def _check_cuda_args(q, k_pages, v_pages, page_indices, lengths, k_scales,
                      v_scales):
+    if q.shape[-1] > MAX_HEAD_DIM:
+        # the kernels stop at 256 (a larger head dim needs more kernel
+        # instantiations); the CPU plain version takes any
+        raise ValueError(f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM}: the "
+                         f"paged kernels take head dims up to {MAX_HEAD_DIM}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"paged_attention kernel takes bf16/fp32 q, got {q.dtype}")
     if k_pages.dtype != v_pages.dtype:
@@ -296,8 +337,6 @@ def _check_cuda_args(q, k_pages, v_pages, page_indices, lengths, k_scales,
         raise TypeError("page_indices and lengths must be int32")
     if k_pages.shape != v_pages.shape:
         raise ValueError("k_pages and v_pages shapes differ")
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM}")
 
 
 def paged_attention(
@@ -369,21 +408,27 @@ def paged_attention(
             float(softmax_scale), int(window) if window is not None else 0,
             int(sinks), float(softcap) if softcap is not None else 0.0,
             _FMT_CODE.get(k_pages.dtype, 0), _MODE_CODE[mode],
-            plan["split_pages"], plan["n_splits"], plan["lg"], plan["rps"],
-            plan["nrs"], plan["stages"], stream,
+            plan["split_pages"], plan["n_splits"], plan["lg"], plan["epl"],
+            plan["rps"], plan["nrs"], plan["stages"], stream,
         )
         _build.check(err, "paged_attention split launch")
         paged_attention.launches += 1
         paged_attention.split_launches += 1
         paged_attention.chunk_launches += t > 1
         return out[:, :, 0] if decode else out
+    step = full_step_pages(page_size, pps)
+    units, n_splits = first_plan(b, h, h_kv, t, d, pps,
+                                 step if mode == "full" else 1)
+    part = (torch.empty(n_splits * b * h * t * (d + 2), dtype=torch.float32,
+                        device=q.device) if d > 128 else None)
+    part_ptr = part.data_ptr() if part is not None else None
     err = lib.fat_paged_attention(
         qq.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_indices.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, h, h_kv, t, d, num_pages, page_size, pps,
         float(softmax_scale), int(window) if window is not None else 0,
         int(sinks), float(softcap) if softcap is not None else 0.0,
-        _DTYPE_CODE[q.dtype], stream,
+        _DTYPE_CODE[q.dtype], part_ptr, n_splits, units, stream,
     ) if not quantized else lib.fat_paged_attention_quant(
         qq.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr(), v_scales.data_ptr(),
@@ -392,7 +437,7 @@ def paged_attention(
         float(softmax_scale), int(window) if window is not None else 0,
         int(sinks), float(softcap) if softcap is not None else 0.0,
         _DTYPE_CODE[q.dtype], _FMT_CODE[k_pages.dtype], _MODE_CODE[mode],
-        full_step_pages(page_size, pps), stream,
+        step, part_ptr, n_splits, units, stream,
     )
     _build.check(err, "paged_attention launch")
     paged_attention.launches += 1
@@ -409,15 +454,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fat_paged_attention.restype = ctypes.c_int
     lib.fat_paged_attention.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, f, i, p,
+        p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, f, i, p, i, i, p,
     ]
     lib.fat_paged_attention_quant.restype = ctypes.c_int
     lib.fat_paged_attention_quant.argtypes = [
         p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, f, i, i, i,
-        i, p,
+        i, p, i, i, p,
     ]
     lib.fat_paged_attention_split.restype = ctypes.c_int
     lib.fat_paged_attention_split.argtypes = [
         p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, f, i, i,
-        i, i, i, i, i, i, p,
+        i, i, i, i, i, i, i, p,
     ]

@@ -20,8 +20,9 @@ multiples of 64 goes to the tensor-core kernels (wgmma fed by TMA;
 else to the FMA kernels (``fat_sparse_fwd`` / ``fat_sparse_bwd``). On CPU
 tensors it runs the plain versions :func:`sparse_fwd_plain` and
 :func:`sparse_bwd_plain`. Nothing falls back: a CUDA input the kernels do
-not take (fp16, a head dim that is not a multiple of 8 up to 256, tensors
-on different devices) raises, and so does a failed build or launch of
+not take (fp16, a head dim above 256, tensors on different devices; a
+head dim that is not a multiple of 8 is padded, as in the flash wrapper)
+raises, and so does a failed build or launch of
 either route.
 
 The function. Query row r sits at key position r + (N_k - N_q). Inside an
@@ -341,7 +342,10 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k/v (B, H_kv, N_k, D) with H % H_kv == 0, ``pattern`` a bool
     (ceil(N_q / block_q), ceil(N_k / block_k)) tile map, True = attend, or
     None for all tiles. Returns (o in q's shape and dtype, fp32 LSE
-    (B, H, N_q)), differentiable in q, k and v through both."""
+    (B, H, N_q)), differentiable in q, k and v through both. A head dim
+    that is not a multiple of 8 is padded with zeros up to the next one
+    (``flash_attn.kernel_attention`` does the same), the default scale
+    taken from the unpadded D, and o and the gradients sliced back."""
     if q.dim() != 4:
         raise ValueError(f"expected (B, H, N, D), got {tuple(q.shape)}")
     if k.dim() != 4 or tuple(v.shape) != tuple(k.shape) or \
@@ -349,14 +353,18 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.shape[1] % k.shape[1]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not fit together")
+    d = q.shape[-1]
     spec = SparseSpec(
         causal=bool(causal),
-        scale=float(q.shape[-1] ** -0.5 if softmax_scale is None
-                    else softmax_scale),
+        scale=float(d ** -0.5 if softmax_scale is None else softmax_scale),
         block_q=int(block_q), block_k=int(block_k))
     if pattern is not None:
         pattern = torch.as_tensor(pattern)
-    return _SparseAttention.apply(q, k, v, pattern, spec)
+    pad = -d % 8 if d <= MAX_HEAD_DIM else 0
+    if pad:
+        q, k, v = (torch.nn.functional.pad(x, (0, pad)) for x in (q, k, v))
+    o, lse = _SparseAttention.apply(q, k, v, pattern, spec)
+    return (o[..., :d], lse) if pad else (o, lse)
 
 
 sparse_attention.fwd_launches = 0

@@ -89,6 +89,19 @@ CASES = {
                                q_len=64, lengths=[100]), {}),
     "split_page24": (dict(b=3, h=4, h_kv=4, d=32, page=24, pps=8, q_len=0,
                           lengths=[170, 24, 25]), {}),
+    # head dims above 128: Gemma 2B's MQA (8 query heads over 1 KV head,
+    # D = 256) at decode with an empty sequence and as a chunk with window,
+    # sinks and soft-cap; GQA at D = 192 over 8-slot pages; D = 136, whose
+    # last lane group holds 8 of its 16 columns
+    "mqa_d256_decode": (dict(b=2, h=8, h_kv=1, d=256, page=16, pps=6,
+                             q_len=0, lengths=[70, 0]), {}),
+    "mqa_d256_chunk_window_sinks_softcap": (
+        dict(b=2, h=8, h_kv=1, d=256, page=16, pps=5, q_len=4,
+             lengths=[60, 37]), dict(window=24, sinks=4, softcap=30.0)),
+    "gqa_d192_decode": (dict(b=2, h=4, h_kv=2, d=192, page=8, pps=7,
+                             q_len=0, lengths=[45, 19]), {}),
+    "gqa_d136_chunk": (dict(b=1, h=4, h_kv=2, d=136, page=16, pps=4,
+                            q_len=3, lengths=[50]), {}),
 }
 # bf16 cases the split route must take (the counter checks it); fp32 takes
 # the first kernel.
@@ -97,7 +110,11 @@ PAGED_SPLIT = {"decode_p16", "decode_p8", "chunk_p16", "chunk_p8",
                "window_sinks_chunk", "window_chunk", "softcap",
                "empty_decode", "empty_chunk", "wide_rows_d128",
                "split_lengths", "split_window_sinks", "split_gqa_chunk64",
-               "split_page24"}
+               "split_page24", "mqa_d256_decode",
+               "mqa_d256_chunk_window_sinks_softcap", "gqa_d192_decode",
+               "gqa_d136_chunk"}
+# the cases above D = 128
+PAGED_WIDE = sorted(c for c in CASES if CASES[c][0]["d"] > 128)
 
 
 def decode_rows(b=6, h=3, d=16, num_pages=10, page=8, seed=0):
@@ -244,6 +261,52 @@ def test_paged_attention_kernel_matches_plain(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_WIDE)
+@pytest.mark.parametrize("quant", [None, "int8", "fp8", "e5m2"])
+def test_paged_first_kernel_above_128_matches_plain(cuda_device, case, quant,
+                                                    monkeypatch):
+    """bf16 q above D = 128 on the first kernel too (its D = 256
+    instantiation, tiles in dynamic shared memory), over bf16 and 1-byte
+    pages, as it serves shapes the split route cannot copy; fp32 takes it
+    in the tests of every case."""
+    shape, kw = CASES[case]
+    args = [torch.from_numpy(x).to(cuda_device) for x in paged_inputs(**shape)]
+    args[0] = args[0].to(torch.bfloat16)
+    if quant is None:
+        args[1], args[2] = args[1].to(torch.bfloat16), args[2].to(torch.bfloat16)
+    else:
+        k8, ks, v8, vs = quantized_pages(args[1].cpu().numpy(),
+                                         args[2].cpu().numpy(), quant,
+                                         cuda_device)
+        args[1], args[2] = k8, v8
+        kw = dict(kw, k_scales=ks, v_scales=vs)
+    monkeypatch.setattr(pa, "split_route", lambda *a: False)
+    before = pa.paged_attention.launches, pa.paged_attention.split_launches
+    o = pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert (pa.paged_attention.launches - before[0],
+            pa.paged_attention.split_launches - before[1]) == (1, 0)
+    ref = pa.paged_attention_plain(*args, **kw)
+    tol = KERNEL_TOL[torch.bfloat16]
+    assert_allclose(o, ref, rtol=tol, atol=tol, err_msg=case)
+    for i, n in enumerate(shape["lengths"]):
+        if n == 0:
+            assert not o[i].any()
+
+
+@pytest.mark.cuda
+def test_paged_attention_above_256_raises(cuda_device):
+    """No kernel takes D > 256: the call raises, nothing falls back."""
+    shape = dict(CASES["decode_p16"][0], d=264)
+    q, kp, vp, pi, ln = (torch.from_numpy(x).to(cuda_device)
+                         for x in paged_inputs(**shape))
+    before = pa.paged_attention.launches
+    with pytest.raises(ValueError, match="head_dim 264"):
+        pa.paged_attention(q.bfloat16(), kp.bfloat16(), vp.bfloat16(), pi, ln)
+    assert pa.paged_attention.launches == before
+
+
+@pytest.mark.cuda
 def test_paged_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     shape, _ = CASES["decode_p8"]
     q, kp, vp, pi, ln = (torch.from_numpy(x).to(cuda_device)
@@ -256,38 +319,60 @@ def test_paged_attention_kernel_rejects_what_it_does_not_take(cuda_device):
         pa.paged_attention(q, kp, vp, pi.cpu(), ln)
 
 
-def device_kernels_of(fn, tries=3):
+def device_kernels_of(fn, tries=3, want=()):
     """Names of the device events that ``fn()`` runs, under torch.profiler,
-    in launch order, between two marker fills of one element. CUPTI now and
-    then misses the first milliseconds of a profile, several at times, so
-    a ~20 ms sleep kernel opens it; where it still misses a marker, the
-    window is profiled again (``fn`` must be idempotent), at most
-    ``tries`` times."""
+    in launch order, between two marker fills of one element. CUPTI on the
+    card drops records of a profile now and then (the first ones, or the
+    first of fn's) and hands the last records over late, into the next
+    profile, whose first records are then another window's tail. So the
+    window is [fill] [long sleep] [fill] fn [fill] [sleep] [fill]: the
+    first fill only takes a drop, what comes before the long sleep is
+    another window's, the fill after it opens the window, the fill before
+    the next sleep closes it, and the last fill only takes the delay. A
+    record can go missing but never enter the window from elsewhere, so
+    where a marker, or a name of ``want`` (substrings of the kernels fn
+    must launch), is missing, the window is profiled again (``fn`` must be
+    idempotent), at most ``tries`` times; an extra kernel is never retried
+    away: the caller's check sees it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from flashattention_tpu_torch.bench.harness import HOLD_CYCLES
 
     marker = torch.empty(1, device="cuda")
+    seen = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            marker.fill_(0.0)
             torch.cuda._sleep(20 * HOLD_CYCLES)
             marker.fill_(1.0)
             torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
             marker.fill_(2.0)
+            torch.cuda._sleep(HOLD_CYCLES)
+            marker.fill_(3.0)
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events()
                          if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
-        fills = [i for i, e in enumerate(events) if "FillFunctor" in e.name]
-        # the markers: the first fill after the sleep and the last event
-        # (fn may run fills of its own in between)
-        if fills and fills[0] > 0 and "spin" in events[fills[0] - 1].name \
-                and fills[-1] == len(events) - 1 > fills[0]:
-            return [e.name for e in events[fills[0] + 1:-1]]
-    pytest.fail(f"the profiler recorded no marker pair in {tries} windows")
+        names = [e.name for e in events]
+        spins = [i for i, n in enumerate(names) if "spin" in n]
+        if spins:  # the long sleep opens the window, the next one ends it
+            lead = max(spins, key=lambda i: (events[i].time_range.end
+                                             - events[i].time_range.start))
+            trail = [i for i in spins if i > lead]
+            if trail and trail[0] - lead >= 3 \
+                    and "FillFunctor" in names[lead + 1] \
+                    and "FillFunctor" in names[trail[0] - 1]:
+                inside = names[lead + 2:trail[0] - 1]
+                if all(any(w in n for n in inside) for w in want):
+                    return inside
+        seen.append([n[:40] for n in names[:3]] + ["..."]
+                    + [n[:40] for n in names[-2:]])
+    pytest.fail(f"the profiler recorded no marker pair, or not all of "
+                f"{sorted(want)} between them, in {tries} windows; their "
+                f"first and last device events: {seen}")
 
 
 def _append_both(pages, k, v, pi, lengths, valid):
@@ -344,7 +429,8 @@ def test_paged_append_scalar_route_matches_plain(cuda_device, fmt, src, why):
         assert k.data_ptr() % 16 and v.data_ptr() % 16
     got, want = _append_both(pages, k, v, pi, lengths, valid)
     names = device_kernels_of(lambda: pap.paged_append(
-        got[0], got[2], k, v, pi, lengths, valid, got[1], got[3]))
+        got[0], got[2], k, v, pi, lengths, valid, got[1], got[3]),
+        want=("paged_append_tokens_kernel",))
     # the last template argument is W: "<..., 1>" (or "Li1EE" mangled)
     assert len(names) == 1 and re.search(
         r"paged_append_tokens_kernel(<[^>]*\b1>|I.*Li1EE)", names[0]), names
@@ -397,7 +483,8 @@ def test_append_to_pages_is_one_kernel_and_no_sync(cuda_device, fmt, kind):
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
-    names = device_kernels_of(append_without_sync)
+    names = device_kernels_of(append_without_sync,
+                              want=("paged_append_tokens_kernel",))
     assert len(names) == 1 and "paged_append_tokens_kernel" in names[0], names
 
 
@@ -683,9 +770,10 @@ def flash_tol(dtype, ref):
     return 1e-4, 1e-4
 
 
-def flash_kernels_launched(fn):
-    """Names of the flash kernels ``fn()`` launches (torch.profiler)."""
-    return {n for e in device_kernels_of(fn)
+def flash_kernels_launched(fn, want=()):
+    """Names of the flash kernels ``fn()`` launches (torch.profiler;
+    ``want``: as in device_kernels_of)."""
+    return {n for e in device_kernels_of(fn, want=want)
             for n in re.findall(r"flash_\w+_kernel", e)}
 
 
@@ -746,11 +834,11 @@ def test_flash_kernels_match_plain(cuda_device, case):
     assert tuple(x - y for x, y in zip(after, before)) == (1, 1)
     # the kernels of the dtype's and head dim's tensor-core route ran (the
     # dK/dV partials' sum only where a GQA/MQA group is split)
+    route = fa.route_kernels(dtype, shape[-1])
     ran = flash_kernels_launched(lambda: (
         fa.flash_fwd(q, k, v, opts),
-        fa.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, opts)))
-    assert ran - {"flash_bwd_sum_kernel"} == fa.route_kernels(dtype,
-                                                              shape[-1])
+        fa.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, opts)), want=route)
+    assert ran - {"flash_bwd_sum_kernel"} == route
 
 
 @pytest.mark.cuda
@@ -805,6 +893,45 @@ def test_flash_autograd_on_card_matches_cpu(cuda_device):
     for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), out[str(cuda_device)],
                           out["cpu"]):
         assert_allclose(a, r, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flash", "sparse"])
+def test_padded_head_dim_on_card_matches_cpu(cuda_device, kind):
+    """D = 36, padded to 40 by the wrapper: fp32 autograd on the card
+    against the CPU at 1e-4, and bf16 on the tensor-core route."""
+    from flashattention_tpu_torch.ops import sparse_attn as sa
+
+    gen = torch.Generator().manual_seed(6)
+    base = [torch.randn(s, generator=gen) for s in
+            ((1, 4, 128, 36), (1, 2, 128, 36), (1, 2, 128, 36))]
+    if kind == "flash":
+        def call(*t):
+            return fa.kernel_attention(*t, causal=True)
+    else:
+        pattern = torch.tensor([[1, 0], [1, 1]], dtype=torch.bool)
+
+        def call(*t):
+            return sa.sparse_attention(*t, pattern, causal=True, block_q=64,
+                                       block_k=64)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in base]
+        if kind == "sparse":
+            pattern = pattern.to(dev)
+        o, lse = call(*leaves)
+        assert o.shape == base[0].shape
+        (o.square().sum() + lse.sum()).backward()
+        out[str(dev)] = [o, lse] + [t.grad for t in leaves]
+    for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), out[str(cuda_device)],
+                          out["cpu"]):
+        assert_allclose(a, r, rtol=1e-4, atol=1e-4, err_msg=name)
+    tc0 = sa.sparse_attention.fwd_tc_launches
+    o, _ = call(*(t.to(cuda_device, torch.bfloat16) for t in base))
+    torch.cuda.synchronize()
+    assert o.shape == base[0].shape and torch.isfinite(o).all()
+    if kind == "sparse":
+        assert sa.sparse_attention.fwd_tc_launches == tc0 + 1
 
 
 @pytest.mark.cuda
@@ -902,6 +1029,16 @@ QUANT_PAGED = {
     "split_window_qk_chunk": ("window_sinks_chunk", "qk"),
     "split_gqa_chunk": ("split_gqa_chunk64", None),
     "split_page24": ("split_page24", None),
+    # above D = 128: every format and schedule
+    "d256_decode": ("mqa_d256_decode", None),
+    "d256_convert": ("mqa_d256_decode", False),
+    "d256_qk": ("mqa_d256_decode", "qk"),
+    "d256_full": ("mqa_d256_decode", "full"),
+    "d256_chunk": ("mqa_d256_chunk_window_sinks_softcap", None),
+    "d256_qk_chunk": ("mqa_d256_chunk_window_sinks_softcap", "qk"),
+    "d192_decode": ("gqa_d192_decode", None),
+    "d136_chunk": ("gqa_d136_chunk", None),
+    "d136_full": ("gqa_d136_chunk", "full"),
 }
 
 
@@ -948,12 +1085,14 @@ def test_quantized_paged_append_kernel_bit_exact(cuda_device, quant, dtype,
     assert not append_bytes_equal(got, pages, dump)
 
 
-def _engine_decode_pages(quant, device, seed=0):
+def _engine_decode_pages(quant, device, seed=0, b=32, h=12, h_kv=12, d=64,
+                         pps=32):
     """The engine's decode shape (B = 32, 12 heads, D = 64, page 16, 512
-    slots a sequence): q, pages (quantized if ``quant``), table, lengths."""
+    slots a sequence; or the shape given): q, pages (quantized if
+    ``quant``), table, lengths."""
     q, kp, vp, pi, ln = paged_inputs(
-        b=32, h=12, h_kv=12, d=64, page=16, pps=32, q_len=0,
-        lengths=np.random.default_rng(seed).integers(0, 513, size=32),
+        b=b, h=h, h_kv=h_kv, d=d, page=16, pps=pps, q_len=0,
+        lengths=np.random.default_rng(seed).integers(0, 16 * pps + 1, size=b),
         seed=seed)
     q = torch.from_numpy(q).to(device, torch.bfloat16)
     pi, ln = (torch.from_numpy(x).to(device) for x in (pi, ln))
@@ -979,6 +1118,97 @@ def test_paged_split_is_deterministic(cuda_device, quant):
     ref = pa.paged_attention_plain(q, kp, vp, pi, ln, **kw)
     tol = KERNEL_TOL[torch.bfloat16]
     assert_allclose(first, ref, rtol=tol, atol=tol, err_msg=str(quant))
+
+
+def _gemma_decode_pages(quant, device):
+    """Gemma 2B's MQA decode step at a cut batch (B = 8, 8 query heads
+    over 1 KV head, D = 256, page 16, 1024 slots a sequence)."""
+    return _engine_decode_pages(quant, device, b=8, h=8, h_kv=1, d=256,
+                                pps=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None] + QUANT_FORMATS)
+def test_paged_split_is_deterministic_d256(cuda_device, quant):
+    """The determinism test above at head dim 256 (MQA 8/1)."""
+    q, kp, vp, pi, ln, kw = _gemma_decode_pages(quant, cuda_device)
+    s0 = pa.paged_attention.split_launches
+    first = pa.paged_attention(q, kp, vp, pi, ln, **kw)
+    second = pa.paged_attention(q, kp, vp, pi, ln, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.split_launches - s0 == 2
+    assert torch.equal(first, second)
+    ref = pa.paged_attention_plain(q, kp, vp, pi, ln, **kw)
+    tol = KERNEL_TOL[torch.bfloat16]
+    assert_allclose(first, ref, rtol=tol, atol=tol, err_msg=str(quant))
+
+
+@pytest.mark.cuda
+def test_paged_split_wide_lane_layouts_match_plain(cuda_device):
+    """The split kernel's lane layout above D = 128 (16 lanes a slot at 16
+    columns a lane) against the plain version, bf16 and int8-qk pages at
+    D = 256, and D = 136, whose last lane group holds 8 of its columns."""
+    assert {(p["lg"], p["epl"]) for p in (
+        pa.split_plan(8, 1, 1, d, 16, 64, False) for d in (136, 256))} == {
+        (16, 16)}
+    for quant in (None, "int8"):
+        q, kp, vp, pi, ln, kw = _gemma_decode_pages(quant, cuda_device)
+        o = pa.paged_attention(q, kp, vp, pi, ln, **kw)
+        ref = pa.paged_attention_plain(q, kp, vp, pi, ln, **kw)
+        tol = KERNEL_TOL[torch.bfloat16]
+        assert_allclose(o, ref, rtol=tol, atol=tol, err_msg=str(quant))
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in paged_inputs(**CASES["gqa_d136_chunk"][0])]
+    for i in range(3):
+        args[i] = args[i].to(torch.bfloat16)
+    s0 = pa.paged_attention.split_launches
+    o = pa.paged_attention(*args)
+    assert pa.paged_attention.split_launches == s0 + 1
+    ref = pa.paged_attention_plain(*args)
+    assert_allclose(o, ref, rtol=2e-2, atol=2e-2, err_msg="d136")
+
+
+# The first kernel's splits above D = 128 (name: (dtype, quant, int8_qk,
+# window, sinks)): Gemma 2B's MQA at 1024 slots a sequence, so several
+# splits a sequence, and "full", whose splits hold whole 32-page steps.
+FIRST_SPLITS = {
+    "fp32": (torch.float32, None, None, None, 0),
+    "bf16": (torch.bfloat16, None, None, None, 0),
+    "fp32_window_sinks": (torch.float32, None, None, 700, 20),
+    "bf16_int8_full": (torch.bfloat16, "int8", "full", None, 0),
+    "fp32_int8_full_window_sinks": (torch.float32, "int8", "full", 600, 4),
+    "bf16_fp8": (torch.bfloat16, "fp8", None, None, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FIRST_SPLITS))
+def test_paged_first_kernel_splits_at_d256(cuda_device, name, monkeypatch):
+    """Above D = 128 the first kernel cuts each sequence's walk into
+    splits merged in split order: it agrees with the plain version, two
+    calls are bit-equal, and empty sequences write zeros."""
+    dtype, quant, int8_qk, window, sinks = FIRST_SPLITS[name]
+    q, kp, vp, pi, ln, kw = _gemma_decode_pages(quant, cuda_device)
+    ln[0] = 0
+    q = q.to(dtype)
+    if quant is None:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    else:
+        kw["int8_qk"] = int8_qk
+    step = pa.full_step_pages(16, 64) if int8_qk == "full" else 1
+    assert pa.first_plan(8, 8, 1, 1, 256, 64, step)[1] > 1
+    kw.update(window=window, sinks=sinks)
+    monkeypatch.setattr(pa, "split_route", lambda *a: False)
+    s0 = pa.paged_attention.launches
+    first = pa.paged_attention(q, kp, vp, pi, ln, **kw)
+    second = pa.paged_attention(q, kp, vp, pi, ln, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches - s0 == 2
+    assert torch.equal(first, second)
+    assert not first[0].any()
+    ref = pa.paged_attention_plain(q, kp, vp, pi, ln, **kw)
+    tol = KERNEL_TOL[dtype]
+    assert_allclose(first, ref, rtol=tol, atol=tol, err_msg=name)
 
 
 @pytest.mark.cuda
@@ -1420,10 +1650,12 @@ def test_sparse_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros(1, 2, 256, 32, device=cuda_device)
     with pytest.raises(TypeError):
         sparse_attention(q.half(), q.half(), q.half(), pat)
-    for d in (36, 264):
-        x = torch.zeros(1, 2, 256, d, device=cuda_device)
-        with pytest.raises(ValueError, match="head_dim"):
-            sparse_attention(x, x, x, pat)
+    x = torch.zeros(1, 2, 256, 264, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        sparse_attention(x, x, x, pat)
+    # a head dim that is not a multiple of 8 is padded, not refused
+    x = torch.zeros(1, 2, 256, 36, device=cuda_device)
+    assert sparse_attention(x, x, x, pat)[0].shape == x.shape
     with pytest.raises(ValueError, match="pattern must be"):
         sparse_attention(q, q, q, pat[:1])
     with pytest.raises(ValueError, match="pattern must be on"):

@@ -183,15 +183,29 @@ def test_same_seed_same_output_and_lse_ignores_dropout():
     assert torch.equal(l1, l0)
 
 
-@pytest.mark.parametrize("bad", ["d", "d264", "heads", "window", "sinks",
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_not_a_multiple_of_8_is_padded(dtype):
+    """D = 36: padded with zeros to 40 as ``pallas_attention`` pads its
+    head dim, the default scale of D = 36; o, LSE and every gradient
+    against Pallas interpret, in D = 36."""
+    q, k, v, do, dlse = _inputs(1, 4, 2, 80, 80, 36)
+    kw = dict(causal=True, window=50, sinks=2, dropout_rate=0.1,
+              dropout_seed=3)
+    ref = _run_jax(q, k, v, do, dlse, kw, dtype)
+    out = _run_port(q, k, v, do, dlse, kw, dtype)
+    tol = TOL[dtype]
+    for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), out, ref):
+        assert tuple(a.shape) == r.shape, name
+        assert_allclose(a, r, rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("bad", ["d264", "heads", "window", "sinks",
                                  "seed", "segments", "slopes"])
 def test_contract_errors(bad):
     q = torch.zeros(1, 4, 16, 32)
     k = torch.zeros(1, 2, 16, 32)
     kw = dict(causal=True)
-    if bad == "d":
-        q, k = torch.zeros(1, 4, 16, 36), torch.zeros(1, 2, 16, 36)
-    elif bad == "d264":  # above MAX_HEAD_DIM, in bf16 as in fp32
+    if bad == "d264":  # above MAX_HEAD_DIM, in bf16 as in fp32
         q = torch.zeros(1, 4, 16, 264, dtype=torch.bfloat16)
         k = torch.zeros(1, 2, 16, 264, dtype=torch.bfloat16)
     elif bad == "heads":

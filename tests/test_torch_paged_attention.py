@@ -120,7 +120,10 @@ SPLIT_ROUTE = {
     "d_not_8": (torch.bfloat16, torch.bfloat16, "convert", 16, 36, True,
                 False),
     "d_above_128": (torch.bfloat16, torch.bfloat16, "convert", 16, 256, True,
+                    True),
+    "d_above_256": (torch.bfloat16, torch.bfloat16, "convert", 16, 264, True,
                     False),
+    "int8_qk_d256": (torch.bfloat16, torch.int8, "qk", 16, 256, True, True),
     # page 6 x D 8 x 1 byte = 48 bytes: 16-byte multiple, but a scale plane
     # of 24 bytes is not
     "e4m3_page6": (torch.bfloat16, torch.float8_e4m3fn, "convert", 6, 8,
@@ -183,3 +186,43 @@ def test_split_plan_rows(h, h_kv, q_len, rps, nrs, groups):
     assert (plan["rps"], plan["nrs"], plan["row_groups"]) == (rps, nrs,
                                                               groups)
     assert plan["rps"] * plan["nrs"] * plan["row_groups"] >= (h // h_kv) * q_len
+
+
+def test_split_plan_at_head_dim_256():
+    """Gemma 2B's MQA decode step on the engine's shape (B = 32, 8 query
+    heads over 1 KV head, D = 256, page 16, 4096 slots a sequence): 8 rows
+    a KV head in 2 row sets of 4, lane groups of 16 lanes at 16 columns
+    covering the head dim, 8-page splits over 256 pages, a ring of 4
+    stages (bf16: 16 KB each; 1-byte pages: 8 KB and the scales); above
+    D = 256 no route takes the call."""
+    plan = pa.split_plan(8, 1, 1, 256, 16, 256, False)
+    assert (plan["lg"], plan["epl"]) == (16, 16)
+    assert plan["lg"] * plan["epl"] >= 256
+    assert (plan["rps"], plan["nrs"], plan["row_groups"]) == (4, 2, 1)
+    assert (plan["split_pages"], plan["n_splits"], plan["stages"]) == (8, 32,
+                                                                       4)
+    assert pa.split_plan(8, 1, 1, 256, 16, 256, True)["stages"] == 4
+    below = pa.split_plan(8, 1, 1, 128, 16, 256, False)
+    assert (below["lg"], below["epl"]) == (16, 8)
+    with pytest.raises(ValueError, match="head_dim 264"):
+        pa._check_cuda_args(*(torch.zeros(1, 1, 264),) * 3, None, None, None,
+                            None)
+
+
+@pytest.mark.parametrize("b, h, h_kv, q_len, d, pps, unit, want", [
+    (8, 8, 1, 1, 256, 256, 1, (8, 32)),     # fp32 decode: 8 blocks -> 256
+    (32, 8, 1, 1, 256, 256, 32, (1, 8)),    # "full": whole 32-page steps
+    (1, 8, 1, 64, 256, 128, 1, (15, 9)),    # a chunk: 32 row groups
+    (2, 8, 1, 1, 256, 3, 1, (4, 1)),        # fewer pages than a split
+    (8, 8, 1, 1, 128, 256, 1, (1, 1)),      # D <= 128 walks whole
+])
+def test_first_plan_splits_above_head_dim_128(b, h, h_kv, q_len, d, pps,
+                                              unit, want):
+    """The first kernel's splits above D = 128: at least 4 pages a split,
+    enough splits for its blocks to reach FIRST_TARGET_CTAS where the
+    pages allow, and splits covering every unit of the table."""
+    units, n_splits = pa.first_plan(b, h, h_kv, q_len, d, pps, unit)
+    assert (units, n_splits) == want
+    if d > 128:
+        assert n_splits * units * unit >= pps
+        assert units * unit >= 4

@@ -197,10 +197,21 @@ def test_quantized_plain_matches_pallas_bf16(case, quant):
     assert_allclose(o, o_jax, rtol=5e-2, atol=5e-2, err_msg=f"{case} {quant}")
 
 
+@pytest.mark.parametrize("quant, case", [
+    ("int8", "mqa_d256_decode"), ("fp8", "mqa_d256_decode"),
+    ("fp8", "mqa_d256_chunk_window_sinks_softcap"),
+    ("int8", "gqa_d192_decode")])
+def test_d256_quantized_plain_matches_pallas_fp32(case, quant):
+    """Head dims above 128 over 1-byte pages (Gemma 2B's MQA at D = 256,
+    GQA at D = 192): the convert path at the fp32 rung."""
+    o, o_jax = _run_both(case, quant, jnp.float32)
+    assert_allclose(o, o_jax, rtol=1e-4, atol=1e-4, err_msg=f"{case} {quant}")
+
+
 @pytest.mark.parametrize("mode, env", [("qk", "qk"), ("full", "full"),
                                        (False, "0")])
 @pytest.mark.parametrize("case", ["decode_p16", "chunk_p16", "gqa_decode",
-                                  "window_sinks_chunk"])
+                                  "window_sinks_chunk", "mqa_d256_decode"])
 def test_int8_schedules_match_pallas(monkeypatch, case, mode, env):
     monkeypatch.setenv("FAT_PAGED_INT8_MXU", env)
     o, o_jax = _run_both(case, "int8", jnp.float32,
@@ -283,6 +294,31 @@ def test_engine_quantized_matches_jax(quant):
     assert len(logits) == len(logits_jax) == len(reqs)
     for got, want in zip(logits, logits_jax):
         assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("quant", ["fp8"])
+def test_engine_quantized_d256_mqa_matches_jax(quant):
+    """Head dim 256 with one KV head (Gemma 2B's attention shape at 2
+    query heads) over e4m3 pages: the port's CPU fp32 engine against the
+    JAX CPU engine, greedy tokens and first-token logits."""
+    import dataclasses
+
+    cfg = dataclasses.replace(CFG, d_model=512, n_heads=2, n_kv_heads=1,
+                              d_ff=512, pos_encoding="rope")
+    reqs = [(i, p, 5) for i, p in enumerate(prompts(10, (9, 26)))]
+    ecfg = dict(max_batch_size=2, page_size=16, num_pages=16, max_seq_len=64,
+                prefill_pad=16, quant=quant)
+    jparams = init_transformer(jax.random.key(2), cfg)
+    jeng = JaxEngine(jparams, cfg, JaxEngineConfig(**ecfg))
+    for rid, prompt, n in reqs:
+        jeng.submit(JaxRequest(request_id=rid, prompt=prompt,
+                               max_new_tokens=n))
+    res_jax = jeng.run()
+    eng = port_engine(cfg, jparams, ecfg)
+    assert eng.caches[0].k_pages.shape[-1] == 256
+    for rid, prompt, n in reqs:
+        eng.submit(GenerationRequest(rid, prompt, n))
+    assert eng.run() == res_jax
 
 
 @pytest.mark.parametrize("quant", ["int8", "fp8"])

@@ -56,6 +56,9 @@ CASES = {
     "d136_masked_rows": ((1, 2, 2, 256, 256, 136),
                          [[0, 1, 0, 0], [1, 0, 1, 1]],
                          dict(causal=True, block_q=128, block_k=64), False),
+    # a head dim that is not a multiple of 8: the wrapper pads it to 40
+    "d36": ((1, 2, 1, 256, 256, 36), [[1, 0], [1, 1]], dict(causal=True),
+            True),
 }
 
 
