@@ -19,8 +19,10 @@ Phases, in order; any failure exits nonzero:
    dim; the 8-bit forward at D 64 and 128 in e4m3, e5m2 and int8; 41 in
    all) must show
    HGMMA (wgmma) and UTMALDG (TMA) in their
-   SASS (cuobjdump) and spill nothing (ptxas report of this build); the 30
-   paged split kernels (8 columns a lane up to D = 128, 16 above) must show
+   SASS (cuobjdump) and spill nothing (ptxas report of this build); the 25
+   paged split kernels (10 on the lane-group walk, D <= 128 at 1 or 2 rows
+   a KV head; 15 on the tensor-core walk, which must also show HMMA,
+   mma.sync) must show
    UBLKCP (1-D bulk copies) and spill nothing, as must the first paged
    kernel's 36 D = 256 instantiations and the 4 merge kernels; the 20
    append kernels must
@@ -59,7 +61,8 @@ Phases, in order; any failure exits nonzero:
    another function). At head dim 256 (Gemma 2B's MQA, 8 query heads over
    1 KV head: phase 3c's calls): decode B=32 at lengths 256-4096 over
    bf16, int8 ("qk") and e4m3 pages, a T=64 chunk at 2048 and the verify
-   chunk (B=32, T=5) on the split route; fp32 decode (B=8) and the int8
+   chunk (B=32, T=5) on the split route's tensor-core walk (each case
+   reports its walk, checked); fp32 decode (B=8) and the int8
    "full" schedule on the first kernel (routes checked); the append at
    decode and a chunk; SDPA reads the KV head itself (enable_gqa) there.
    The append (paged_append) in every page format
@@ -107,7 +110,9 @@ Phases, in order; any failure exits nonzero:
    and read just after; each kernel must have run, 12 paged-attention and
    12 append launches per decode step and per prefill chunk (those of
    the chunks counted apart, T > 1), every paged-attention launch on the
-   split route. Then 32 admissions (128 prefill chunks) and 20 decode
+   split route, and on its tensor-core walk exactly those of calls with 3
+   rows or more a KV head (here the prefill chunks). Then 32 admissions
+   (128 prefill chunks) and 20 decode
    steps at batch 32, on the host clock and again under torch.profiler:
    wall ms, kernel ms and device ops per chunk and per step, the device's
    busy share and the top kernels; host syncs per chunk and per step (sync
@@ -130,7 +135,7 @@ Phases, in order; any failure exits nonzero:
    drawn on the card from the seed), batch 32 on 16-slot pages up to 4096
    slots: 32 requests of 256-3072-token prompts, 64 new tokens each, with
    bf16, e4m3 and int8 pages, phase 3's launch checks (every paged launch
-   on the split route at D = 256); phase 3's profile with 1024-token
+   on the split route's tensor-core walk at D = 256); phase 3's profile with 1024-token
    prompts, the decode window alone under the profiler (20 steps), with
    the paged kernels' share.
 4c. Phase 4 at phase 3c's widths cut to 2 layers (``gemma_sparse_config``,
@@ -608,10 +613,15 @@ def attention_case(timer, gen, dev, name, dtype, *, window=None, sinks=0,
         library_pages = [(x.float() * sc).to(torch.bfloat16)
                          for x, sc in ((kp, ks), (vp, vs))]
     scale = q.shape[-1] ** -0.5
-    s0 = pa.paged_attention.split_launches
+    # the split kernel's walk: tensor cores or lane groups (a package
+    # without the tensor-core walk, as scripts/paged_ab.py may time, has no
+    # tc_launches)
+    tc_count = lambda: getattr(pa.paged_attention, "tc_launches", 0)
+    s0, t0 = pa.paged_attention.split_launches, tc_count()
     out = pa.paged_attention(q, kp, vp, pi, ln, softmax_scale=scale, **kw)
     torch.cuda.synchronize()
     route = "split" if pa.paged_attention.split_launches > s0 else "first"
+    walk = ("tc" if tc_count() > t0 else "lanes") if route == "split" else None
     ref = pa.paged_attention_plain(q, kp, vp, pi, ln, softmax_scale=scale, **kw)
     rtol, atol = paged_tol(dtype, q.shape[-1], ref)
     max_err = check_close(name, out, ref, rtol, atol)
@@ -644,14 +654,16 @@ def attention_case(timer, gen, dev, name, dtype, *, window=None, sinks=0,
     # over quantized pages SDPA (on the dequantized pages) computes another
     # function: a yardstick, not the library call
     library_ms, yardstick_ms = (None, sdpa_ms) if quant else (sdpa_ms, None)
-    rec = dict(case=name, route=route, max_abs_err=max_err, rtol=rtol,
+    rec = dict(case=name, route=route, walk=walk, max_abs_err=max_err,
+               rtol=rtol,
                atol=atol, ms=ms, wall_ms=wall_ms, **first,
                plain_ms=plain_ms, library_ms=library_ms,
                yardstick_ms=yardstick_ms, bound_ms=bound_ms,
                bound_by=bound_by, shape={k: v for k, v in shape.items()},
                window=window, sinks=sinks, softcap=softcap, quant=quant,
                schedule=mode, dtype=str(dtype).replace("torch.", ""))
-    log(f"[kernel] paged_attention {name}: {route} route, max_abs_err "
+    log(f"[kernel] paged_attention {name}: {route} route"
+        + (f" ({walk} walk)" if walk else "") + ", max_abs_err "
         f"{max_err:.3e} (rtol {rtol:g} + atol {atol:.3e})  kernel_ms "
         f"{ms:.4f} (issued from the host: {wall_ms:.4f})"
         + ("" if not first else
@@ -1555,39 +1567,48 @@ def gemma_decode_lengths(gen, b=32):
     return lengths.tolist()
 
 
-def paged_d256_cases(timer, gen, dev):
-    """B5/B6 and B7 at head dim 256 (Gemma 2B's MQA, 8 query heads over 1
-    KV head; phase 3c's engine): the decode step (B = 32, page 16, lengths
-    256-4096) over bf16, int8 ("qk") and e4m3 pages, a T = 64 chunk at
-    length 2048 and the verify chunk (B = 32, T = 5) on the split route
-    (16 lanes a slot, 16 columns a lane); fp32 decode (B = 8) and the int8
-    "full" schedule on the first kernel (its D = 256 instantiation, each
-    walk cut into splits); the append at the decode step and a T = 64
-    chunk. SDPA reads the one KV head itself (``enable_gqa``). bf16 is
-    held to ``paged_tol``'s limit scaled to max|plain|."""
+def paged_d256_table(gen):
+    """Phase 2's paged-attention cases at head dim 256 (Gemma 2B's MQA, 8
+    query heads over 1 KV head; phase 3c's calls; PERF.md rows 7w-8w), as
+    ``paged_cases`` gives them: the decode step (B = 32, page 16, lengths
+    256-4096) over bf16, int8 ("qk"), e4m3 pages and int8 "full", fp32
+    decode (B = 8), a T = 64 chunk at length 2048 and the verify chunk (B =
+    32, T = 5). SDPA reads the one KV head itself (``enable_gqa``)."""
     bf = torch.bfloat16
     gemma = dict(h=8, h_kv=1, d=256, page=16, max_len=4096, gqa=True)
-    recs = {}
+    cases = {}
     for key, quant, int8_qk in (("d256_decode", None, None),
                                 ("d256_decode_int8_qk", "int8", None),
                                 ("d256_decode_fp8", "fp8", None),
                                 ("d256_decode_int8_full", "int8", "full")):
-        recs[key] = attention_case(
-            timer, gen, dev, f"{key} B=32 H=8/1 D=256 page=16 lengths "
-            f"256-4096", bf, b=32, q_len=0, quant=quant, int8_qk=int8_qk,
-            lengths=gemma_decode_lengths(gen), **gemma)
+        cases[key] = (f"{key} B=32 H=8/1 D=256 page=16 lengths 256-4096", bf,
+                      dict(b=32, q_len=0, quant=quant, int8_qk=int8_qk,
+                           lengths=gemma_decode_lengths(gen), **gemma))
+    cases["d256_decode_fp32"] = (
+        "d256_decode_fp32 B=8 H=8/1 D=256 page=16 lengths 256-4096",
+        torch.float32, dict(b=8, q_len=0, lengths=gemma_decode_lengths(gen, 8),
+                            **gemma))
+    cases["d256_chunk"] = ("d256_chunk B=1 T=64 H=8/1 D=256 page=16 length "
+                           "2048", bf, dict(b=1, q_len=64, lengths=[2048],
+                                            **gemma))
+    cases["d256_verify"] = (
+        "d256_verify B=32 T=5 H=8/1 D=256 page=16 lengths 256-4096", bf,
+        dict(b=32, q_len=5, lengths=[n + 5 for n in gemma_decode_lengths(gen)],
+             **gemma))
+    return cases
+
+
+def paged_d256_cases(timer, gen, dev):
+    """B5/B6 and B7 at head dim 256: ``paged_d256_table``'s cases, the
+    split route's on its tensor-core walk, fp32 decode and the int8 "full"
+    schedule on the first kernel (its D = 256 instantiation, each walk cut
+    into splits), each route and walk checked; the append at the decode
+    step and a T = 64 chunk. bf16 is held to ``paged_tol``'s limit scaled
+    to max|plain|."""
+    recs = {}
+    for key, (name, dtype, kw) in paged_d256_table(gen).items():
+        recs[key] = attention_case(timer, gen, dev, name, dtype, **kw)
         torch.cuda.empty_cache()
-    recs["d256_decode_fp32"] = attention_case(
-        timer, gen, dev, "d256_decode_fp32 B=8 H=8/1 D=256 page=16 lengths "
-        "256-4096", torch.float32, b=8, q_len=0,
-        lengths=gemma_decode_lengths(gen, 8), **gemma)
-    recs["d256_chunk"] = attention_case(
-        timer, gen, dev, "d256_chunk B=1 T=64 H=8/1 D=256 page=16 length "
-        "2048", bf, b=1, q_len=64, lengths=[2048], **gemma)
-    recs["d256_verify"] = attention_case(
-        timer, gen, dev, "d256_verify B=32 T=5 H=8/1 D=256 page=16 lengths "
-        "256-4096", bf, b=32, q_len=5,
-        lengths=[n + 5 for n in gemma_decode_lengths(gen)], **gemma)
     for kind in ("decode", "chunk"):
         recs[f"append_bf16_{kind}_d256"] = append_case(
             timer, gen, dev, "bf16", kind, h=1, d=256, max_len=4096)
@@ -1598,9 +1619,10 @@ def paged_d256_cases(timer, gen, dev):
                  f"first kernel")
     for key in ("d256_decode", "d256_decode_int8_qk", "d256_decode_fp8",
                 "d256_chunk", "d256_verify"):
-        if recs[key]["route"] != "split":
-            fail(f"paged_attention {key}: took the first kernel, want the "
-                 f"split route")
+        if recs[key]["route"] != "split" or recs[key]["walk"] != "tc":
+            fail(f"paged_attention {key}: took the {recs[key]['route']} "
+                 f"route ({recs[key]['walk']} walk), want the split route's "
+                 f"tensor-core walk")
     return recs
 
 
@@ -1612,6 +1634,7 @@ def paged_d256_cases(timer, gen, dev):
 def reset_counts():
     pa.paged_attention.launches = 0
     pa.paged_attention.split_launches = 0
+    pa.paged_attention.tc_launches = 0
     pa.paged_attention.chunk_launches = 0
     f8.fp8_attention.tc_launches = 0
     pap.paged_append.launches = 0
@@ -1628,6 +1651,7 @@ def reset_counts():
 def read_counts():
     return {"paged_attention": pa.paged_attention.launches,
             "paged_attention_split": pa.paged_attention.split_launches,
+            "paged_attention_tc": pa.paged_attention.tc_launches,
             "paged_attention_chunk": pa.paged_attention.chunk_launches,
             "flash_fwd_fp8_tc": f8.fp8_attention.tc_launches,
             "paged_append": pap.paged_append.launches,
@@ -1713,6 +1737,15 @@ def phase_engine(cfg, params, ecfg, dev, n_req, prompt_range, n_new, on_card):
             fail(f"paged_attention took the split route "
                  f"{counts['paged_attention_split']} times, want every one of"
                  f" its {want_att} launches")
+        # the walk of each kind's calls: G rows at decode, G * T a chunk
+        g = cfg.n_heads // cfg.kv_heads
+        want_tc = n_layers * (
+            st["decode_steps"] * (pa.split_walk(cfg.d_head, g) == "tc")
+            + st["prefill_chunks"]
+            * (pa.split_walk(cfg.d_head, g * ecfg.prefill_pad) == "tc"))
+        if counts["paged_attention_tc"] != want_tc:
+            fail(f"paged_attention took the tensor-core walk "
+                 f"{counts['paged_attention_tc']} times, want {want_tc}")
         want_chunk = n_layers * st["prefill_chunks"]
         for name in ("paged_attention", "paged_append"):
             if counts[f"{name}_chunk"] != want_chunk:
@@ -1722,7 +1755,9 @@ def phase_engine(cfg, params, ecfg, dev, n_req, prompt_range, n_new, on_card):
         log(f"[engine] per decode step and per prefill chunk: {n_layers} "
             f"paged_attention + {n_layers} paged_append launches, every "
             f"paged_attention launch ({n_layers * st['decode_steps']} decode,"
-            f" {want_chunk} chunk, counted) on the split route (checked)")
+            f" {want_chunk} chunk, counted) on the split route (checked), "
+            f"{counts['paged_attention_tc']} on its tensor-core walk "
+            f"(checked)")
     return rec
 
 
@@ -1760,7 +1795,8 @@ def count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-PAGED_KERNEL_NAMES = ("paged_split_kernel", "paged_merge_kernel",
+PAGED_KERNEL_NAMES = ("paged_split_kernel", "paged_split_tc_kernel",
+                      "paged_merge_kernel",
                       "paged_attention_kernel",
                       "paged_attention_wide_kernel")
 
@@ -3416,9 +3452,10 @@ def ptxas_entries(text):
 SM90_KERNELS = {"flash_fwd": 6, "flash_bwd": 12, "sparse_fwd": 6,
                 "sparse_bwd": 11, "flash_fwd_fp8": 6}
 # The paged split kernels: bf16, int8 (convert and "qk"), e4m3 and e5m2
-# pages, each at 1, 2 and 4 rows a row set, with 8 columns a lane (D <=
-# 128) and with 16 (above).
-SPLIT_KERNELS = 30
+# pages, each on the lane-group walk at 1 and 2 rows (D <= 128) and on the
+# tensor-core walk at 1, 2 and 4 row tiles a CTA.
+SPLIT_KERNELS = 25
+SPLIT_TC_KERNELS = 15
 
 
 def dump_sass(names) -> dict[str, str]:
@@ -3439,28 +3476,36 @@ def dump_sass(names) -> dict[str, str]:
 def split_report(sass):
     """Phase 1's report of the paged split route from the SASS of
     paged_attention: per split kernel its registers and spill bytes (this
-    build's ptxas report) and the 1-D bulk copies (UBLKCP). Fails if one
-    has no bulk copy, spills, or is missing."""
+    build's ptxas report), the 1-D bulk copies (UBLKCP) and, on the
+    tensor-core walk, the mma.sync products (HMMA). Fails if one has no
+    bulk copy, a tensor-core kernel no HMMA, one spills, or one is
+    missing."""
     ptxas = ptxas_entries(_build.BUILD_LOG.get("paged_attention", ""))
     out = {}
     for part in sass.split("Function : ")[1:]:
         fn = part.split()[0]
-        if "paged_split_kernel" not in fn:
+        tc = "paged_split_tc_kernel" in fn
+        if "paged_split_kernel" not in fn and not tc:
             continue
         regs, spill = ptxas.get(fn, (None, None))
-        out[fn] = dict(ublkcp=part.count("UBLKCP"), registers=regs,
-                       spill_bytes=spill)
+        out[fn] = dict(ublkcp=part.count("UBLKCP"), hmma=part.count("HMMA"),
+                       tensor_cores=tc, registers=regs, spill_bytes=spill)
         log(f"[sass] paged_attention: {fn}: {out[fn]['ublkcp']} UBLKCP (1-D "
-            f"bulk copies); ptxas: {regs} registers, {spill} spill bytes")
+            f"bulk copies), {out[fn]['hmma']} HMMA (mma.sync); ptxas: {regs} "
+            f"registers, {spill} spill bytes")
         if not out[fn]["ublkcp"]:
             fail(f"{fn}: the split kernel has no bulk copy")
+        if tc and not out[fn]["hmma"]:
+            fail(f"{fn}: the tensor-core walk has no HMMA")
         if spill is None:
             fail(f"{fn}: no ptxas report from this run's build")
         if spill:
             fail(f"{fn}: spills {spill} bytes")
-    if len(out) != SPLIT_KERNELS:
+    n_tc = sum(r["tensor_cores"] for r in out.values())
+    if len(out) != SPLIT_KERNELS or n_tc != SPLIT_TC_KERNELS:
         fail(f"paged_attention: expected {SPLIT_KERNELS} split kernels, "
-             f"found {len(out)}")
+             f"{SPLIT_TC_KERNELS} of them on the tensor cores, found "
+             f"{len(out)}, {n_tc}")
     return out
 
 
@@ -3909,6 +3954,7 @@ def main() -> int:
                     launches_chunk=c[f"{name}_chunk"])
         if name == "paged_attention":
             more["launches_split"] = c["paged_attention_split"]
+            more["launches_tc"] = c["paged_attention_tc"]
         return c[name], c[f"{name}_chunk"], more
 
     # (kernel, name in the record, phase-2 case, launches of its main path,
@@ -3959,7 +4005,8 @@ def main() -> int:
             library_ms=r["library_ms"], yardstick_ms=r.get("yardstick_ms"),
             case=r["case"], **{k: r[k] for k in (
                 "wall_ms", "first_ms", "first_wall_ms", "floor_ms") if k in r},
-            **({"path": r["route"]} if "route" in r else {}),
+            **({"path": r["route"], "walk": r["walk"]} if "route" in r
+               else {}),
         ))
     # flash_fwd / flash_bwd: launches of the training phase (all on the
     # tensor-core route); numbers of case (a), the training call, whose

@@ -16,11 +16,15 @@ for fp32 pages or q, the "full" schedule and shapes the bulk copies cannot
 take. Both take head dims up to :data:`MAX_HEAD_DIM` (256); the split
 route needs D % 8 == 0, and above D = 128 the first kernel cuts its walk
 into splits too (:func:`first_plan`), merged by the split route's merge
-kernel. A larger head dim raises on the card (the CPU
-plain version takes any). ``paged_attention.launches`` counts every call,
-``paged_attention.split_launches`` the split route's and
-``paged_attention.chunk_launches`` those with more than one query a
-sequence (T > 1).
+kernel. The split kernel walks a page on the tensor cores above D = 128
+and wherever a KV head has 3 query rows or more, else in lane groups on
+the CUDA cores (:func:`split_walk`). A larger head dim raises on the card
+(the CPU plain version takes any).
+``paged_attention.launches`` counts every call,
+``paged_attention.split_launches`` the split route's,
+``paged_attention.tc_launches`` those of the split route on the tensor
+cores and ``paged_attention.chunk_launches`` those with more than one
+query a sequence (T > 1).
 
 Layout (as in the JAX package):
 
@@ -109,19 +113,30 @@ SPLIT_RING_BYTES = 192 * 1024
 # A ring of 4 stages where it stays within this many bytes (several CTAs an
 # SM hide the walk's latency), else 3.
 SPLIT_RING_TARGET = 64 * 1024
-# Slots a split walks at least (and 4 pages or more): 128 where a CTA holds
-# one row set (decode) or D > 128, else 64 (chunks, whose CTAs do more work
-# a page). 8-page splits were the fastest at the engine's decode shape and
-# 4-page ones at its T = 64 chunk (PERF.md, the paged rows). Above D = 128,
-# at Gemma 2B's MQA decode (8 rows a KV head) and its chunks, the kernel's
-# time follows the (row, slot) pairs, and 64-slot splits add CTAs and merge
-# work (PERF.md, row 7w).
+# Slots a split walks at least (and 4 pages or more) up to D = 128: 128
+# where a CTA holds one row set or tile (decode, the verify chunk), else 64
+# (a T = 64 chunk, whose CTAs do more work a page). 8-page splits were the
+# fastest at the engine's decode shape and 4-page ones at its T = 64 chunk
+# (PERF.md, the paged rows).
 SPLIT_SLOTS = {True: 128, False: 64}
 SPLIT_MAX_PAGES = 64    # pages a split may walk (the kernel's list)
 SPLIT_THREADS = 128
+# The tensor-core walk: rows of a row tile (the N of mma.sync m16n8k16);
+# the CTAs of 1, 2 and 4 row tiles its registers let an SM hold (4, 3, 2),
+# whose share of the H100's 227 KB of shared memory (less the kernel's
+# static arrays) bounds the ring; the shared memory one CTA may take.
+TC_ROWS = 8
+TC_CTAS_PER_SM = {1: 4, 2: 3, 4: 2}
+TC_SMEM_BYTES = 227 * 1024 - 1024
+# Slots a tensor-core split walks above D = 128: 256 for bf16 pages at one
+# row tile (decode), else 128. 1-byte pages decode each tile to bf16 in
+# shared memory and want twice the CTAs; the chunk's 16 row groups already
+# give 256 CTAs (PERF.md, row 7w). Up to D = 128, SPLIT_SLOTS.
+TC_WIDE_SLOTS = {True: 256, False: 128}
 # CTAs the first kernel's splits aim at above D = 128: two on each of the
 # H100's 132 SMs.
 FIRST_TARGET_CTAS = 264
+_WALK_CODE = {"lanes": 0, "tc": 1}
 
 
 def split_route(q_dtype, page_dtype, mode, page_size, d, aligned=True):
@@ -146,34 +161,66 @@ def split_route(q_dtype, page_dtype, mode, page_size, d, aligned=True):
         <= SPLIT_RING_BYTES
 
 
+def tc_row_bytes(d):
+    """Bytes between two slot rows of the tensor-core walk's bf16 tiles:
+    D * 2 rounded up to an odd count of 16-byte units (``tc_row_bytes`` in
+    the kernel), so ldmatrix reads them without bank conflicts."""
+    return ((d // 8) | 1) * 16
+
+
+def split_walk(d, rows):
+    """The split kernel's walk for head dim ``d`` and ``rows`` = G * T
+    query rows a KV head: "tc" (mma.sync products over each page, the head
+    dim cut over the CTA's 4 warps) above D = 128 and wherever a KV head
+    has 3 rows or more, "lanes" (lane groups of D / 8 lanes a slot on the
+    CUDA cores) for 1 or 2 rows up to D = 128. At GPT-3 Small's widths (D =
+    64) the tensor cores are faster from 3 rows on and slower at 1: PERF.md,
+    row 7 (scripts/paged_ab.py, scripts/paged_tc_variants.py)."""
+    return "tc" if d > 128 or rows >= 3 else "lanes"
+
+
 @functools.lru_cache(maxsize=256)
 def split_plan(h, h_kv, q_len, d, page_size, pps, quantized):
     """The split kernel's launch plan, from shapes only (lengths live on
     the device): ``split_pages`` pages per split (at least 4 and
     :data:`SPLIT_SLOTS` slots), ``n_splits`` to cover ``pps`` pages;
-    ``rps`` rows a row set and ``nrs`` row sets a CTA (a 1-row decode puts
-    all 128 threads on its slots); ``row_groups`` CTAs per KV head;
-    ``stages`` of the ring. ``lg`` lanes a slot hold ``epl`` columns each:
-    8 columns and D / 8 lanes (4, 8 or 16) up to D = 128; above, 16 lanes
-    at 16 columns, which beat a warp a slot at 8 columns at Gemma 2B's MQA
-    shapes (PERF.md, row 7w)."""
+    ``walk`` (:func:`split_walk`); ``row_groups`` CTAs per KV head;
+    ``stages`` of the ring.
+
+    On the tensor-core walk a CTA holds ``nrs`` row tiles of ``rps`` =
+    :data:`TC_ROWS` rows (1, 2 or 4 tiles: 8, 16 or more rows a KV head),
+    its splits take :data:`TC_WIDE_SLOTS` slots above D = 128, and
+    ``stages`` (2-4) are as many as fit, beside its decoded tiles and score
+    buffers, in its share of an SM's shared memory (:data:`TC_CTAS_PER_SM`):
+    resident CTAs, not a deeper ring, set the 1-byte pages' time (PERF.md,
+    row 7w). On the lane-group walk a CTA holds the ``rps`` = 1 or 2 rows
+    (``nrs`` = 1), and ``lg`` = D / 8 lanes (4, 8 or 16) hold 8 columns each
+    of a slot."""
     rows = (h // h_kv) * q_len
-    rps = 1 if rows == 1 else (2 if rows == 2 else 4)
-    sets = -(-rows // rps)
-    nrs = 1 if sets == 1 else (2 if sets == 2 else 4)
-    slots = SPLIT_SLOTS[nrs == 1 or d > 128]
+    walk = split_walk(d, rows)
+    if walk == "tc":
+        lg, rps = 0, TC_ROWS
+        nrs = 1 if rows <= TC_ROWS else (2 if rows <= 2 * TC_ROWS else 4)
+        stage = (2 * page_size * d + 8 * page_size if quantized
+                 else 2 * page_size * tc_row_bytes(d))
+        extra = ((2 * (32 * tc_row_bytes(d) + 128) if quantized else 0)
+                 + 2 * 4 * nrs * 32 * 16)
+        share = TC_SMEM_BYTES // TC_CTAS_PER_SM[nrs]
+        stages = max(2, min(4, (share - extra) // stage))
+        slots = (TC_WIDE_SLOTS[nrs == 1 and not quantized] if d > 128
+                 else SPLIT_SLOTS[nrs == 1])
+    else:  # 1 or 2 rows, all in the one CTA
+        lg = 4 if d <= 32 else (8 if d <= 64 else 16)
+        rps, nrs = rows, 1
+        stage = 2 * page_size * d * (1 if quantized else 2) + (
+            8 * page_size if quantized else 0)
+        stages = max(3, min(4, SPLIT_RING_TARGET // stage))
+        slots = SPLIT_SLOTS[True]
     split_pages = min(SPLIT_MAX_PAGES, max(4, slots // page_size))
-    stage = 2 * page_size * d * (1 if quantized else 2) + (
-        8 * page_size if quantized else 0)
-    if d <= 128:
-        lg, epl = (4 if d <= 32 else (8 if d <= 64 else 16)), 8
-    else:
-        lg, epl = 16, 16
     return dict(
-        split_pages=split_pages, n_splits=-(-pps // split_pages),
-        lg=lg, epl=epl, rps=rps, nrs=nrs,
-        row_groups=-(-rows // (rps * nrs)),
-        stages=max(3, min(4, SPLIT_RING_TARGET // stage)))
+        split_pages=split_pages, n_splits=-(-pps // split_pages), walk=walk,
+        lg=lg, rps=rps, nrs=nrs, row_groups=-(-rows // (rps * nrs)),
+        stages=stages)
 
 
 @functools.lru_cache(maxsize=256)
@@ -358,7 +405,8 @@ def paged_attention(
 
     Launches a CUDA kernel for CUDA tensors, the one :func:`split_route`
     picks (counted in ``paged_attention.launches``; the split route also
-    in ``split_launches``), and runs the plain version for CPU tensors.
+    in ``split_launches``, and on the tensor cores in ``tc_launches``), and
+    runs the plain version for CPU tensors.
     Quantized pages pass both ``k_scales`` and ``v_scales``."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError("pass both k_scales and v_scales, or neither")
@@ -408,12 +456,13 @@ def paged_attention(
             float(softmax_scale), int(window) if window is not None else 0,
             int(sinks), float(softcap) if softcap is not None else 0.0,
             _FMT_CODE.get(k_pages.dtype, 0), _MODE_CODE[mode],
-            plan["split_pages"], plan["n_splits"], plan["lg"], plan["epl"],
-            plan["rps"], plan["nrs"], plan["stages"], stream,
+            plan["split_pages"], plan["n_splits"], _WALK_CODE[plan["walk"]],
+            plan["lg"], plan["rps"], plan["nrs"], plan["stages"], stream,
         )
         _build.check(err, "paged_attention split launch")
         paged_attention.launches += 1
         paged_attention.split_launches += 1
+        paged_attention.tc_launches += plan["walk"] == "tc"
         paged_attention.chunk_launches += t > 1
         return out[:, :, 0] if decode else out
     step = full_step_pages(page_size, pps)
@@ -447,6 +496,7 @@ def paged_attention(
 
 paged_attention.launches = 0
 paged_attention.split_launches = 0
+paged_attention.tc_launches = 0
 paged_attention.chunk_launches = 0
 
 

@@ -1,7 +1,9 @@
 """Phase 2's paged-attention cases at D <= 128 (``chip_smoke.paged_cases``,
-PERF.md rows 7-8) for the package of one checkout, on one NVIDIA GPU,
-printed as one JSON line of kernel ms (split route and first kernel) per
-case, after the ptxas spill report of the paged library, built anew.
+PERF.md rows 7-8) and at head dim 256 (``chip_smoke.paged_d256_table``,
+rows 7w-8w) for the package of one checkout, on one NVIDIA GPU, printed as
+one JSON line of kernel ms (split route and its walk, and the first
+kernel) per case, after the ptxas spill report of the paged library, built
+anew.
 
     python3 scripts/paged_ab.py              # this checkout
     python3 scripts/paged_ab.py --tree DIR   # another checkout
@@ -49,12 +51,12 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(cs.SEED)
     timer = cs.Timer(dev)
-    cases = cs.paged_cases(gen)
+    cases = {**cs.paged_cases(gen), **cs.paged_d256_table(gen)}
     out = {}
     for key, (name, dtype, kw) in cases.items():
         r = cs.attention_case(timer, gen, dev, name, dtype, **kw)
         out[key] = dict(ms=r["ms"], first_ms=r.get("first_ms"),
-                        route=r["route"])
+                        route=r["route"], walk=r["walk"])
         torch.cuda.empty_cache()
     print(json.dumps(dict(tree=str(tree), spills=spills, cases=out)))
     return 0

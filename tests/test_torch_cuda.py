@@ -47,6 +47,11 @@ def paged_inputs(*, b, h, h_kv, d, page, pps, q_len, lengths, seed=0):
     return q, kp, vp, pi, np.asarray(lengths, np.int32)
 
 
+def case_rows(shape):
+    """Query rows a KV head (G * T) of a ``CASES`` shape."""
+    return shape["h"] // shape["h_kv"] * max(shape["q_len"], 1)
+
+
 CASES = {
     # name: (shape kwargs, attention kwargs); q_len 0 means decode (B, H, D)
     "decode_p16": (dict(b=3, h=4, h_kv=4, d=32, page=16, pps=4, q_len=0,
@@ -102,6 +107,17 @@ CASES = {
                              q_len=0, lengths=[45, 19]), {}),
     "gqa_d136_chunk": (dict(b=1, h=4, h_kv=2, d=136, page=16, pps=4,
                             q_len=3, lengths=[50]), {}),
+    # the tensor-core walk: the verify chunk's 40 rows a KV head (row tiles
+    # of 8 over two CTAs) with window, sinks and soft-cap; a page of 24
+    # slots, whose second 16-slot tile is half past the page; 16 query
+    # heads over one KV head at D = 128 as a T = 3 chunk (48 rows)
+    "mqa_d256_verify_window_sinks_softcap": (
+        dict(b=2, h=8, h_kv=1, d=256, page=16, pps=6, q_len=5,
+             lengths=[70, 33]), dict(window=24, sinks=4, softcap=30.0)),
+    "gqa16_d128_chunk": (dict(b=1, h=16, h_kv=1, d=128, page=16, pps=4,
+                              q_len=3, lengths=[45]), {}),
+    "mqa_d256_page24": (dict(b=2, h=8, h_kv=1, d=256, page=24, pps=4,
+                             q_len=0, lengths=[70, 24]), {}),
 }
 # bf16 cases the split route must take (the counter checks it); fp32 takes
 # the first kernel.
@@ -112,7 +128,8 @@ PAGED_SPLIT = {"decode_p16", "decode_p8", "chunk_p16", "chunk_p8",
                "split_lengths", "split_window_sinks", "split_gqa_chunk64",
                "split_page24", "mqa_d256_decode",
                "mqa_d256_chunk_window_sinks_softcap", "gqa_d192_decode",
-               "gqa_d136_chunk"}
+               "gqa_d136_chunk", "mqa_d256_verify_window_sinks_softcap",
+               "gqa16_d128_chunk", "mqa_d256_page24"}
 # the cases above D = 128
 PAGED_WIDE = sorted(c for c in CASES if CASES[c][0]["d"] > 128)
 
@@ -244,12 +261,15 @@ def test_paged_attention_kernel_matches_plain(cuda_device, case, dtype):
     args = [torch.from_numpy(x).to(cuda_device) for x in paged_inputs(**shape)]
     for i in range(3):
         args[i] = args[i].to(dtype)
-    before = pa.paged_attention.launches, pa.paged_attention.split_launches
+    before = (pa.paged_attention.launches, pa.paged_attention.split_launches,
+              pa.paged_attention.tc_launches)
     o = pa.paged_attention(*args, **kw)
     torch.cuda.synchronize()
     split = int(dtype == torch.bfloat16 and case in PAGED_SPLIT)
+    tc = split * (pa.split_walk(shape["d"], case_rows(shape)) == "tc")
     assert (pa.paged_attention.launches - before[0],
-            pa.paged_attention.split_launches - before[1]) == (1, split)
+            pa.paged_attention.split_launches - before[1],
+            pa.paged_attention.tc_launches - before[2]) == (1, split, tc)
     assert o.dtype == dtype and o.shape == args[0].shape
     ref = pa.paged_attention_plain(*args, **kw)
     tol = KERNEL_TOL[dtype]
@@ -1056,13 +1076,16 @@ def test_quantized_paged_attention_kernel_matches_plain(cuda_device, name,
     q = torch.from_numpy(q).to(cuda_device, dtype)
     pi, ln = (torch.from_numpy(x).to(cuda_device) for x in (pi, ln))
     kw = dict(kw, k_scales=ks, v_scales=vs, int8_qk=int8_qk)
-    before = pa.paged_attention.launches, pa.paged_attention.split_launches
+    before = (pa.paged_attention.launches, pa.paged_attention.split_launches,
+              pa.paged_attention.tc_launches)
     o = pa.paged_attention(q, k8, v8, pi, ln, **kw)
     torch.cuda.synchronize()
     # bf16 q takes the split route in every schedule but "full"
     split = int(dtype == torch.bfloat16 and int8_qk != "full")
+    tc = split * (pa.split_walk(shape["d"], case_rows(shape)) == "tc")
     assert (pa.paged_attention.launches - before[0],
-            pa.paged_attention.split_launches - before[1]) == (1, split)
+            pa.paged_attention.split_launches - before[1],
+            pa.paged_attention.tc_launches - before[2]) == (1, split, tc)
     assert o.dtype == dtype and o.shape == q.shape
     ref = pa.paged_attention_plain(q, k8, v8, pi, ln, **kw)
     tol = KERNEL_TOL[dtype]
@@ -1130,42 +1153,60 @@ def _gemma_decode_pages(quant, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [None] + QUANT_FORMATS)
 def test_paged_split_is_deterministic_d256(cuda_device, quant):
-    """The determinism test above at head dim 256 (MQA 8/1)."""
+    """The determinism test above at head dim 256 (MQA 8/1), on the
+    tensor-core walk: the warps' partial scores are summed in warp order."""
     q, kp, vp, pi, ln, kw = _gemma_decode_pages(quant, cuda_device)
-    s0 = pa.paged_attention.split_launches
+    s0 = pa.paged_attention.split_launches, pa.paged_attention.tc_launches
     first = pa.paged_attention(q, kp, vp, pi, ln, **kw)
     second = pa.paged_attention(q, kp, vp, pi, ln, **kw)
     torch.cuda.synchronize()
-    assert pa.paged_attention.split_launches - s0 == 2
+    assert (pa.paged_attention.split_launches - s0[0],
+            pa.paged_attention.tc_launches - s0[1]) == (2, 2)
     assert torch.equal(first, second)
     ref = pa.paged_attention_plain(q, kp, vp, pi, ln, **kw)
     tol = KERNEL_TOL[torch.bfloat16]
     assert_allclose(first, ref, rtol=tol, atol=tol, err_msg=str(quant))
 
 
+# (D, G, T) of the tensor-core walk's card cases: D in {136, 192, 256}, G
+# in {1, 2, 8, 16}, T in {1, 5, 64} (T = 0: decode, q of (B, H, D)).
+TC_SHAPES = [(256, 8, 0), (256, 8, 5), (256, 8, 64), (256, 1, 64),
+             (256, 16, 5), (192, 2, 5), (192, 1, 0), (136, 16, 0),
+             (136, 2, 64)]
+
+
 @pytest.mark.cuda
-def test_paged_split_wide_lane_layouts_match_plain(cuda_device):
-    """The split kernel's lane layout above D = 128 (16 lanes a slot at 16
-    columns a lane) against the plain version, bf16 and int8-qk pages at
-    D = 256, and D = 136, whose last lane group holds 8 of its columns."""
-    assert {(p["lg"], p["epl"]) for p in (
-        pa.split_plan(8, 1, 1, d, 16, 64, False) for d in (136, 256))} == {
-        (16, 16)}
-    for quant in (None, "int8"):
-        q, kp, vp, pi, ln, kw = _gemma_decode_pages(quant, cuda_device)
-        o = pa.paged_attention(q, kp, vp, pi, ln, **kw)
-        ref = pa.paged_attention_plain(q, kp, vp, pi, ln, **kw)
-        tol = KERNEL_TOL[torch.bfloat16]
-        assert_allclose(o, ref, rtol=tol, atol=tol, err_msg=str(quant))
-    args = [torch.from_numpy(x).to(cuda_device)
-            for x in paged_inputs(**CASES["gqa_d136_chunk"][0])]
-    for i in range(3):
-        args[i] = args[i].to(torch.bfloat16)
-    s0 = pa.paged_attention.split_launches
-    o = pa.paged_attention(*args)
-    assert pa.paged_attention.split_launches == s0 + 1
-    ref = pa.paged_attention_plain(*args)
-    assert_allclose(o, ref, rtol=2e-2, atol=2e-2, err_msg="d136")
+@pytest.mark.parametrize("d, g, t", TC_SHAPES)
+@pytest.mark.parametrize("pages", ["bf16", "int8", "int8_qk", "fp8", "e5m2"])
+def test_paged_tc_walk_matches_plain(cuda_device, d, g, t, pages):
+    """The split kernel's tensor-core walk against the plain version over
+    every page format and schedule, row tiles of 1, 2 and 4 a CTA and more
+    than one row group; sequence 0 has length 0 and writes zeros."""
+    h_kv = 1 if g >= 8 else 2
+    q, kp, vp, pi, ln = paged_inputs(b=3, h=g * h_kv, h_kv=h_kv, d=d, page=16,
+                                     pps=10, q_len=t, lengths=[0, 150, 77],
+                                     seed=d + g + t)
+    q = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+    pi, ln = (torch.from_numpy(x).to(cuda_device) for x in (pi, ln))
+    if pages == "bf16":
+        kp, vp = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+                  for x in (kp, vp))
+        kw = {}
+    else:
+        quant = "int8" if pages.startswith("int8") else pages
+        kp, ks, vp, vs = quantized_pages(kp, vp, quant, cuda_device)
+        kw = dict(k_scales=ks, v_scales=vs,
+                  int8_qk="qk" if pages == "int8_qk" else False)
+    before = pa.paged_attention.split_launches, pa.paged_attention.tc_launches
+    o = pa.paged_attention(q, kp, vp, pi, ln, **kw)
+    torch.cuda.synchronize()
+    assert (pa.paged_attention.split_launches - before[0],
+            pa.paged_attention.tc_launches - before[1]) == (1, 1)
+    ref = pa.paged_attention_plain(q, kp, vp, pi, ln, **kw)
+    tol = KERNEL_TOL[torch.bfloat16]
+    assert torch.isfinite(o.float()).all()
+    assert_allclose(o, ref, rtol=tol, atol=tol, err_msg=f"{d} {g} {t} {pages}")
+    assert not o[0].any()
 
 
 # The first kernel's splits above D = 128 (name: (dtype, quant, int8_qk,

@@ -164,24 +164,29 @@ def test_split_plan_fills_the_card_at_the_engine_decode_shape():
     """The serving engine's decode step (B = 32, GPT-3 Small's 12 heads,
     D = 64, page 16, 512 slots a sequence) gives at least two CTAs per SM
     of the H100's 132, where the first kernel had 384 CTAs of which one
-    warp in four computed."""
-    def ctas(b, plan):  # grid (B * H_kv, splits, row groups)
+    warp in four computed; its T = 64 prefill chunk, on the tensor cores
+    in 2 row groups of 32 rows, at least one CTA per SM (the first kernel:
+    48)."""
+    def ctas(b, plan):  # (B * H_kv * row groups, splits)
         return b * 12 * plan["n_splits"] * plan["row_groups"]
 
     plan = pa.split_plan(12, 12, 1, 64, 16, 32, False)
-    assert (plan["rps"], plan["nrs"], plan["lg"]) == (1, 1, 8)
+    assert (plan["walk"], plan["rps"], plan["nrs"], plan["lg"]) == (
+        "lanes", 1, 1, 8)
     assert ctas(32, plan) >= 2 * 132
     chunk = pa.split_plan(12, 12, 64, 64, 16, 32, False)
-    assert ctas(1, chunk) >= 2 * 132  # the first kernel: 48
+    assert (chunk["walk"], chunk["nrs"], chunk["row_groups"]) == ("tc", 4, 2)
+    assert ctas(1, chunk) >= 132
 
 
 @pytest.mark.parametrize("h, h_kv, q_len, rps, nrs, groups", [
-    (12, 12, 1, 1, 1, 1), (12, 6, 1, 2, 1, 1), (12, 4, 1, 4, 1, 1),
-    (12, 1, 1, 4, 4, 1), (12, 12, 64, 4, 4, 4), (12, 4, 64, 4, 4, 12),
-    (4, 4, 5, 4, 2, 1)])
+    (12, 12, 1, 1, 1, 1), (12, 6, 1, 2, 1, 1), (12, 4, 1, 8, 1, 1),
+    (12, 1, 1, 8, 2, 1), (12, 12, 64, 8, 4, 2), (12, 4, 64, 8, 4, 6),
+    (4, 4, 5, 8, 1, 1)])
 def test_split_plan_rows(h, h_kv, q_len, rps, nrs, groups):
-    """Rows of a KV head (GQA group x chunk) into row sets of rps rows,
-    nrs sets a CTA (at most 16 rows), row_groups CTAs."""
+    """Rows of a KV head (GQA group x chunk): 1 or 2 in one CTA on the
+    lane-group walk; 3 or more in row tiles of rps = 8 rows on the tensor
+    cores, nrs tiles a CTA (at most 32 rows), row_groups CTAs."""
     plan = pa.split_plan(h, h_kv, q_len, 64, 16, 32, False)
     assert (plan["rps"], plan["nrs"], plan["row_groups"]) == (rps, nrs,
                                                               groups)
@@ -190,23 +195,71 @@ def test_split_plan_rows(h, h_kv, q_len, rps, nrs, groups):
 
 def test_split_plan_at_head_dim_256():
     """Gemma 2B's MQA decode step on the engine's shape (B = 32, 8 query
-    heads over 1 KV head, D = 256, page 16, 4096 slots a sequence): 8 rows
-    a KV head in 2 row sets of 4, lane groups of 16 lanes at 16 columns
-    covering the head dim, 8-page splits over 256 pages, a ring of 4
-    stages (bf16: 16 KB each; 1-byte pages: 8 KB and the scales); above
-    D = 256 no route takes the call."""
+    heads over 1 KV head, D = 256, page 16, 4096 slots a sequence): the
+    tensor-core walk with its 8 rows in one row tile and one CTA a split;
+    bf16 pages in 16-page splits over 256 pages with a ring of 3 stages
+    (16.5 KB each, the rows padded to 528 bytes), 1-byte pages in 8-page
+    splits with 2 stages (8 KB and the scales, beside two decoded bf16
+    tiles), so 4 CTAs fit an SM; at D = 128 the same 8 rows also take the
+    tensor cores; above D = 256 no route takes the call."""
     plan = pa.split_plan(8, 1, 1, 256, 16, 256, False)
-    assert (plan["lg"], plan["epl"]) == (16, 16)
-    assert plan["lg"] * plan["epl"] >= 256
-    assert (plan["rps"], plan["nrs"], plan["row_groups"]) == (4, 2, 1)
-    assert (plan["split_pages"], plan["n_splits"], plan["stages"]) == (8, 32,
-                                                                       4)
-    assert pa.split_plan(8, 1, 1, 256, 16, 256, True)["stages"] == 4
+    assert plan["walk"] == "tc"
+    assert (plan["rps"], plan["nrs"], plan["row_groups"]) == (8, 1, 1)
+    assert (plan["split_pages"], plan["n_splits"], plan["stages"]) == (16, 16,
+                                                                       3)
+    assert pa.tc_row_bytes(256) == 528
+    quant = pa.split_plan(8, 1, 1, 256, 16, 256, True)
+    assert (quant["split_pages"], quant["n_splits"], quant["stages"]) == (
+        8, 32, 2)
     below = pa.split_plan(8, 1, 1, 128, 16, 256, False)
-    assert (below["lg"], below["epl"]) == (16, 8)
+    assert (below["walk"], below["split_pages"]) == ("tc", 8)
     with pytest.raises(ValueError, match="head_dim 264"):
         pa._check_cuda_args(*(torch.zeros(1, 1, 264),) * 3, None, None, None,
                             None)
+
+
+@pytest.mark.parametrize("h, h_kv, q_len, d, walk, nrs, groups", [
+    (8, 1, 1, 256, "tc", 1, 1),      # Gemma 2B: decode
+    (8, 1, 64, 256, "tc", 4, 16),    # a T = 64 prefill chunk, 512 rows
+    (8, 1, 5, 256, "tc", 4, 2),      # the verify chunk, 40 rows
+    (4, 2, 1, 192, "tc", 1, 1),      # GQA at D = 192, 2 rows
+    (16, 1, 1, 136, "tc", 2, 1),     # 16 rows at D = 136
+    (12, 12, 1, 64, "lanes", 1, 1),  # GPT-3 Small: decode
+    (12, 12, 64, 64, "tc", 4, 2),    # its T = 64 chunk
+    (12, 12, 5, 64, "tc", 1, 1),     # its verify chunk
+    (12, 4, 1, 64, "tc", 1, 1),      # GQA 12/4: 3 rows
+    (12, 6, 1, 64, "lanes", 1, 1),   # GQA 12/6: 2 rows
+])
+def test_split_plan_walk(h, h_kv, q_len, d, walk, nrs, groups):
+    """The walk split_plan picks: the tensor cores above D = 128 and
+    wherever a KV head has 3 rows or more, in row tiles of 8 rows (1, 2 or
+    4 a CTA); lane groups for 1 or 2 rows up to D = 128."""
+    plan = pa.split_plan(h, h_kv, q_len, d, 16, 32, False)
+    rows = (h // h_kv) * q_len
+    assert plan["walk"] == pa.split_walk(d, rows) == walk
+    assert (plan["nrs"], plan["row_groups"]) == (nrs, groups)
+    assert plan["rps"] * plan["nrs"] * groups >= (h // h_kv) * q_len
+    if walk == "tc":
+        assert plan["rps"] == pa.TC_ROWS and plan["lg"] == 0
+
+
+@pytest.mark.parametrize("page, d, quantized", [
+    (16, 256, False), (16, 256, True), (64, 256, False), (120, 256, True),
+    (112, 144, False)])
+def test_split_plan_tc_ring_fits(page, d, quantized):
+    """On the tensor-core walk the ring, the decoded tiles (1-byte pages)
+    and the score buffers fit the H100's shared memory with at least 2
+    stages, for the largest pages split_route lets through."""
+    dtype = torch.int8 if quantized else torch.bfloat16
+    assert pa.split_route(torch.bfloat16, dtype, "convert", page, d)
+    plan = pa.split_plan(8, 1, 64, d, page, 8, quantized)
+    rs = pa.tc_row_bytes(d)
+    stage = 2 * page * d + 8 * page if quantized else 2 * page * rs
+    smem = (plan["stages"] * stage
+            + (2 * (32 * rs + 128) if quantized else 0)
+            + 2 * 4 * plan["nrs"] * 32 * 16)
+    assert 2 <= plan["stages"] <= 4
+    assert smem <= pa.TC_SMEM_BYTES
 
 
 @pytest.mark.parametrize("b, h, h_kv, q_len, d, pps, unit, want", [

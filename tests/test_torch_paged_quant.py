@@ -200,6 +200,7 @@ def test_quantized_plain_matches_pallas_bf16(case, quant):
 @pytest.mark.parametrize("quant, case", [
     ("int8", "mqa_d256_decode"), ("fp8", "mqa_d256_decode"),
     ("fp8", "mqa_d256_chunk_window_sinks_softcap"),
+    ("e5m2", "mqa_d256_chunk_window_sinks_softcap"),
     ("int8", "gqa_d192_decode")])
 def test_d256_quantized_plain_matches_pallas_fp32(case, quant):
     """Head dims above 128 over 1-byte pages (Gemma 2B's MQA at D = 256,
