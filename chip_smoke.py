@@ -16,8 +16,8 @@ Phases, in order; any failure exits nonzero:
    that split operands in registers; sparse: the same three at D 64 and
    128, each with one and two consumer warpgroups, and at D 256 the
    forward and dQ with one and two and the dK/dV one split over the head
-   dim; the 8-bit forward at D 64 and 128 in e4m3, e5m2 and int8; 41 in
-   all) must show
+   dim; the 8-bit forward at D 64, 128 and 256 in e4m3, e5m2 and int8,
+   whose int8 kernels must also show IGMMA; 44 in all) must show
    HGMMA (wgmma) and UTMALDG (TMA) in their
    SASS (cuobjdump) and spill nothing (ptxas report of this build); the 25
    paged split kernels (10 on the lane-group walk, D <= 128 at 1 or 2 rows
@@ -77,9 +77,12 @@ Phases, in order; any failure exits nonzero:
    capacity, one chunk across a page boundary): paged attention over bf16
    and e4m3 pages (paged limit) and the append into bf16 and e4m3 pages
    (bit-exact, the rows past capacity dropped), timed as above. The FA3 8-bit
-   forward (flash_fwd_fp8) in seven cases, each launched once through
+   forward (flash_fwd_fp8) in ten cases, each launched once through
    fp8_attention on the route it must take (checked: the tensor cores but
-   for the s8 case), timed beside the FMA kernel on the same inputs, plus
+   for the s8 case; (h) int8 at (1, 8, 8192, 256), row 6w's shape, (i)
+   e4m3 at Gemma 2B's MQA, (1, 8, 1, 4096, 256), and (j) e5m2 at (h)'s
+   shape, on the D = 256 kernels),
+   timed beside the FMA kernel on the same inputs, plus
    its straight-through backward (o and
    gradients at the bf16 flash limit: p is bf16 on the 8-bit path). The
    block-sparse forward (sparse_fwd) and backward (sparse_bwd) in eight
@@ -253,7 +256,8 @@ Phases, in order; any failure exits nonzero:
    never trains on falling). ``bench.sweep.run_config`` at phase-2 case
    (b)'s (1, 8, 8192, 128) causal: fa2 forward, fa2 forward + backward and
    fa3 int8 forward (the 8-bit kernel), and at case (k)'s (1, 8, 8192,
-   256) fa2 forward and forward + backward, each record "ok" with a roofline
+   256) fa2 forward, fa2 forward + backward and fa3 int8 forward (fp8 case
+   (h)'s shape, the D = 256 8-bit kernel), each record "ok" with a roofline
    share of the card's peak in (0, 1.05] and a time within 1.25x of one
    traced call's kernels; ``profiling.timed`` on one flash call;
    ``bench.scaling`` at size 1 on one NCCL rank.
@@ -274,7 +278,8 @@ numbers of phase 2's matching cases) and of phase 12's
 phase 11's fp32 card check's, numbers of cases (e) and (h),
 ``flash_fwd[packed]`` and ``flash_bwd[packed]`` with case (j),
 ``flash_fwd[sweep]`` and ``flash_bwd[sweep]`` with case (b),
-``flash_fwd_fp8[sweep]`` with fp8 case (b), ``flash_fwd[d256]`` and
+``flash_fwd_fp8[sweep]`` with fp8 case (b), ``flash_fwd_fp8[sweep_d256]``
+with the d = 256 fa3 cell's launches and fp8 case (h), ``flash_fwd[d256]`` and
 ``flash_bwd[d256]``: launches of the d = 256 sweep cells, numbers of case
 (k) with case (l) beside them; ``flash_fwd[fp32_d256]`` and
 ``flash_bwd[fp32_d256]``: launches of phase 7c's timed micro-steps,
@@ -1347,6 +1352,12 @@ FP8_CASES = {
           (8, 12, 12, 512, 64), dict(causal=True), ("segments", "alibi")),
     "g": ("int8 PV s8, (1, 8, 2048, 128) causal", (1, 8, 8, 2048, 128),
           dict(causal=True, fmt="int8", int8_pv="s8"), ()),
+    "h": ("(1, 8, 8192, 256) int8 causal, auto (fused)",
+          (1, 8, 8, 8192, 256), dict(causal=True, fmt="int8"), ()),
+    "i": ("Gemma 2B's MQA (1, 8/1, 4096, 256) e4m3 causal, mode fused",
+          (1, 8, 1, 4096, 256), dict(causal=True, mode="fused"), ()),
+    "j": ("(1, 8, 8192, 256) e5m2 causal, mode fused", (1, 8, 8, 8192, 256),
+          dict(causal=True, mode="fused", fmt="e5m2"), ()),
 }
 FP8_STE_SHAPE = (8, 12, 12, 512, 64)
 
@@ -3306,7 +3317,8 @@ def phase_packed_train(cfg, tc, tokens, seg, dev, on_card, n_warm=2,
 
 # The sweep cells run at phase-2 case (b)'s shape, where flash case (b) and
 # fp8 case (b) hold B1-B3 and B4 against their plain versions, and the d =
-# 256 cells at case (k)'s, where flash case (k) holds the D = 256 kernels.
+# 256 cells at case (k)'s, where flash case (k) and fp8 case (h) hold the
+# D = 256 kernels.
 BENCH_SHAPE = (1, 8, 8192, 128)  # (B, H, N, D), causal
 BENCH_SHAPE_D256 = (1, 8, 8192, 256)
 BENCH_CELLS = {
@@ -3318,6 +3330,8 @@ BENCH_CELLS = {
                      "flash_fwd_fp8_tc", BENCH_SHAPE),
     "fa2_fwd_d256": (("fa2", "forward"), {}, "flash_fwd", BENCH_SHAPE_D256),
     "fa2_bwd_d256": (("fa2", "backward"), {}, "flash_bwd", BENCH_SHAPE_D256),
+    "fa3_int8_fwd_d256": (("fa3", "forward"), dict(fp8=True, fp8_fmt="int8"),
+                          "flash_fwd_fp8_tc", BENCH_SHAPE_D256),
 }
 # a cell's events may exceed its traced kernel time by the gaps between
 # its kernels and the cold L2; a host wait inside them would add far more
@@ -3394,6 +3408,10 @@ def phase_bench(dev, on_card, scaling_kw):
                      f"{r.roofline_frac}")
             if counts[counter] <= 0:
                 fail(f"bench cell {name} launched no {counter}")
+            if counter.endswith("_tc") and counts[counter] != counts[
+                    counter[:-3]]:
+                fail(f"bench cell {name}: {counts[counter[:-3]]} launches, "
+                     f"{counts[counter]} of them on the tensor cores")
             if traced is not None and r.mean_ms > DEVICE_TIME_SLACK * traced:
                 fail(f"bench cell {name}: {r.mean_ms} ms against {traced} ms "
                      "of kernels: the events held more than device work")
@@ -3447,10 +3465,10 @@ def ptxas_entries(text):
 # Tensor-core kernels per library: forward, dK/dV and dQ at D 64, 128 and
 # 256, each in bf16 and in fp32 (3xTF32; at 256 the wide kernels); the
 # sparse ones (bf16) at D 64, 128 and 256, each with one and two consumer
-# warpgroups but the D-split dK/dV at 256 (two); the 8-bit forward at D 64
-# and 128 for e4m3, e5m2 and int8.
+# warpgroups but the D-split dK/dV at 256 (two); the 8-bit forward at D 64,
+# 128 and 256 for e4m3, e5m2 and int8.
 SM90_KERNELS = {"flash_fwd": 6, "flash_bwd": 12, "sparse_fwd": 6,
-                "sparse_bwd": 11, "flash_fwd_fp8": 6}
+                "sparse_bwd": 11, "flash_fwd_fp8": 9}
 # The paged split kernels: bf16, int8 (convert and "qk"), e4m3 and e5m2
 # pages, each on the lane-group walk at 1 and 2 rows (D <= 128) and on the
 # tensor-core walk at 1, 2 and 4 row tiles a CTA.
@@ -3584,7 +3602,8 @@ def sass_report(dumps):
     (TMA load) instructions in its SASS (``dumps[library]``) and, for the
     tensor-core kernels, registers and spill bytes from the build's ptxas
     report. Fails if a tensor-core kernel has no HGMMA or no UTMALDG, or
-    spills, or one is missing."""
+    spills, or one is missing, and if an int8 8-bit kernel
+    (``flash_fwd_fp8_sm90_kernel<DP, 2>``) has no IGMMA (s8 wgmma)."""
     out = {}
     for name, want in SM90_KERNELS.items():
         sass = dumps[name]
@@ -3605,6 +3624,9 @@ def sass_report(dumps):
                 f"entry, {spill} spill bytes")
             if not rec["hgmma"] or not rec["utmaldg"]:
                 fail(f"{fn}: the tensor-core kernel has no HGMMA or no UTMALDG")
+            if (name == "flash_fwd_fp8"
+                    and re.search(r"ILi\d+ELi2EE", fn) and not rec["igmma"]):
+                fail(f"{fn}: the int8 kernel has no IGMMA")
             if spill is None:
                 fail(f"{fn}: no ptxas report from this run's build")
             if spill:
@@ -4192,6 +4214,27 @@ def main() -> int:
         yardstick_ms=r["yardstick_ms"], case=r["case"],
         sweep_cell="fa3_int8_fwd",
         sweep_ms=bench["fa3_int8_fwd"]["record"]["mean_ms"]))
+    # the D = 256 8-bit kernels: launches of the d = 256 fa3 cell, numbers
+    # of fp8 case (h), its shape and call, with cases (i) (Gemma 2B's MQA,
+    # e4m3) and (j) (e5m2) beside them
+    r = report["kernels"]["fp8_h"]
+    c = bench["launches_d256"]
+    kernels.append(dict(
+        name="flash_fwd_fp8[sweep_d256]", **KERNELS["flash_fwd_fp8"],
+        launches=c["flash_fwd_fp8"],
+        launches_tensor_core=c["flash_fwd_fp8_tc"],
+        max_abs_err=max(r["max_abs_err"].values()), ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=None,
+        yardstick_ms=r["yardstick_ms"], case=r["case"], fma_ms=r["fma_ms"],
+        sweep_cell="fa3_int8_fwd_d256",
+        sweep_ms=bench["fa3_int8_fwd_d256"]["record"]["mean_ms"],
+        **{f"{key}_{x}": report["kernels"][f"fp8_{x}"][key]
+           for x in "ij" for key in ("ms", "fma_ms", "plain_ms", "bound_ms",
+                                     "yardstick_ms", "case")},
+        **{f"max_abs_err_{x}": max(
+            report["kernels"][f"fp8_{x}"]["max_abs_err"].values())
+           for x in "ij"}))
     # head dim 256 (bf16 wgmma; the dK/dV kernel split over the head dim):
     # launches of the two d = 256 sweep cells, numbers of flash case (k),
     # their shape and call, with case (l) (GQA, window, sinks, soft-cap,

@@ -35,17 +35,17 @@
 //
 // Two routes, chosen by the caller (ops/fp8_attn._tensor_core_route):
 //
-//   fat_flash_fwd_fp8_sm90 (D <= 128 with D % 32 == 0, int8_pv "bf16", key
+//   fat_flash_fwd_fp8_sm90 (D <= 256 with D % 32 == 0, int8_pv "bf16", key
 //     blocks bk a multiple of 128; every format, bf16 or fp32 output): the
 //     structure of flash_fwd.cu's fat_flash_fwd_sm90. One CTA per (128
 //     query rows, head, batch); warpgroup 0's thread 0 issues TMA loads of
-//     the 1-byte Q tile once and of 1-byte K and V tiles of 64 keys (the
-//     consumers' registers) into a two-stage ring; its warps 1-3 decode
+//     the 1-byte Q tile once and of 1-byte K and V tiles (64 keys; 32 for
+//     e4m3 and e5m2 at D = 256) into a two-stage ring; its warps 1-3 decode
 //     tiles exactly to bf16 (e4m3 and e5m2 through f16, int8 directly) in
 //     the layout flash_sm90.cuh's descriptors read and signal a second
 //     mbarrier per stage. Warpgroups 1-2 own 64 rows each. S = Q·Kᵀ: for
 //     int8 an s8 wgmma m64nNk32 straight from the 1-byte tiles, into s32,
-//     which converts to float exactly (|sum| <= 127^2 * 128 < 2^24); for
+//     which converts to float exactly (|sum| <= 127^2 * 256 < 2^24); for
 //     e4m3 and e5m2 a bf16 wgmma on the decoded Q and K, exact products
 //     with fp32 accumulation. (The e4m3 wgmma was tried first: its
 //     accumulation keeps fewer bits than fp32, and the LSE missed the 1e-4
@@ -59,11 +59,38 @@
 //     at the running max missed the two-ulp limit at near-zero outputs of a
 //     ragged N_q != N_k case). p, dropped, is the register A operand of a
 //     bf16 wgmma on the decoded V (p in 8 bits would be another function,
-//     and 8-bit wgmma cannot read V, which is MN-major for P·V) into a fresh
-//     fragment, folded in as acc += pv * sv[col / bk] (sv is constant over a
-//     key tile, which divides bk). Maps, the s8 wgmma and the decode are in
-//     fp8_sm90.cuh, so flash_sm90.cuh and B1-B3 do not change.
-//   fat_flash_fwd_fp8 (int8_pv "s8", other head dims): the first version,
+//     and 8-bit wgmma cannot read V, which is MN-major for P·V), up to D =
+//     128 into a fresh fragment, folded in as acc += pv * sv[col / bk] (sv
+//     is constant over a key tile, which divides bk). Maps, the s8 wgmma
+//     and the decode are in fp8_sm90.cuh, so flash_sm90.cuh and B1-B3 do
+//     not change.
+//
+//     At D = 256 (any 128 < D <= 256, zeros past D from TMA) registers and
+//     shared memory bind; the choices below were measured with
+//     scripts/fp8_tc_variants.py (PERF.md, row 6w). O alone is 128 of a
+//     consumer's registers, and a fresh P·V fragment beside it spilled:
+//     96-104 bytes as two n128 column halves each folded at once, 1368-1376
+//     as four n64 chunks, the same at 24 / 240 registers as at 40 / 232. So
+//     P·V accumulates straight into O, as B1's does, with O kept in units
+//     of the tile's v scale su: where a tile's sv differs (a new key block:
+//     sv is constant over bk, a multiple of 128 keys), O is first rescaled
+//     by su / sv, and the epilogue multiplies by su. That rounds one ratio
+//     into O at each key-block edge (a relative error near 2^-24 each,
+//     against the plain version's acc + pv * sv), orders of magnitude
+//     inside the bf16 flash limit. v scales must be positive (the
+//     quantizers clamp them at 1e-6), and O's units stay finite while
+//     N_k * max|v| / min sv < 3.4e38. Shared memory: with 64-key tiles the
+//     e4m3 and e5m2 kernels would need 289 KB (1-byte and bf16 Q, two
+//     stages of 1-byte and bf16 K and V); they take 32-key tiles, 193 KB.
+//     int8 (no bf16 Q or K) takes 64-key tiles, 161 KB, but S of a whole
+//     tile beside O spilled 48 bytes (32 at 24 / 240), so its consumers
+//     take S 32 keys at a time, and each half's P·V runs while the next
+//     half's S is computed: at (1, 8, 8192, 256) 29% slower than the
+//     spilling kernel, 6% faster than 32-key tiles. The 1-byte rows are
+//     256 bytes there: two 128-byte column boxes, and the s8 product's
+//     eight k32 steps run over two swizzle atoms as the bf16 product's k16
+//     steps do over its 64-column halves.
+//   fat_flash_fwd_fp8 (int8_pv "s8", D % 32 != 0): the first version,
 //     flash_fwd.cu's FMA body (flash_fwd.cuh) on payloads decoded into fp32
 //     shared-memory tiles.
 
@@ -122,15 +149,25 @@ constexpr int kDecoders = 96;  // warps 1-3 of the producer warpgroup
 
 template <int DP, int FMT>
 struct Fp8Sm90Cfg {
-  // Keys per tile: 64. At D = 128 the O accumulator, the fresh P·V
-  // fragment (64 registers each) and the score fragment must fit 232
-  // registers; with 128-key tiles at D = 64 the two-pass kernels spilled
-  // 56-64 bytes (int8, e5m2).
-  static constexpr int KEYS = 64;
-  static constexpr int STAGES = 2;
   static constexpr bool kDecQK = FMT != 2;  // Q·Kᵀ on decoded bf16 tiles
-  static constexpr int Q_BYTES = kFp8Rows * kRow8;
-  static constexpr int T_BYTES = KEYS * kRow8;    // one 1-byte K or V tile
+  // Keys per tile: 64, where the O accumulator, the P·V fragment and the
+  // score fragment fit the registers (with 128-key tiles at D = 64 the
+  // two-pass kernels spilled 56-64 bytes: int8, e5m2). 32 for e4m3 and
+  // e5m2 at D = 256, whose tiles (1-byte and bf16 Q, two stages of 1-byte
+  // and bf16 K and V) fit one CTA's 227 KB only so: 193 KB, against 289 KB
+  // with 64 keys (int8, with no bf16 Q or K: 161 KB).
+  static constexpr int KEYS = DP > 128 && kDecQK ? 32 : 64;
+  // Keys of S a consumer holds at once: the tile's, but 32 at D = 256,
+  // where S of 64 keys beside O's 128 registers spilled (int8).
+  static constexpr int SUB = DP > 128 ? 32 : KEYS;
+  // P·V into a fresh fragment folded in as acc += pv * sv (D <= 128), or
+  // straight into O, kept in units of the tile's v scale (D = 256: O alone
+  // is 128 registers, and a fragment beside it spilled).
+  static constexpr bool kFold = DP <= 128;
+  static constexpr int STAGES = 2;
+  static constexpr int ROW8 = halves8<DP>() * kRow8;  // bytes a 1-byte row
+  static constexpr int Q_BYTES = kFp8Rows * ROW8;
+  static constexpr int T_BYTES = KEYS * ROW8;     // one 1-byte K or V tile
   static constexpr int VB_BYTES = KEYS * DP * 2;  // a K or V tile in bf16
   static constexpr int QB_BYTES = kDecQK ? kFp8Rows * DP * 2 : 0;
   static constexpr int KB_BYTES = kDecQK ? VB_BYTES : 0;
@@ -138,6 +175,7 @@ struct Fp8Sm90Cfg {
   static constexpr size_t SMEM = 1024 + Q_BYTES + QB_BYTES +
                                  STAGES * (2 * T_BYTES + VB_BYTES + KB_BYTES) +
                                  8 * BARS;
+  static_assert(SMEM <= 232448, "above one CTA's shared memory");
 };
 
 template <int DP, int FMT>
@@ -148,10 +186,10 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           Scales f, void* __restrict__ o, int out_f32,
                           float* __restrict__ lse) {
   using Cfg = Fp8Sm90Cfg<DP, FMT>;
-  constexpr int STAGES = Cfg::STAGES, KEYS = Cfg::KEYS;
+  constexpr int STAGES = Cfg::STAGES, KEYS = Cfg::KEYS, SUB = Cfg::SUB;
   constexpr bool kDecQK = Cfg::kDecQK;
   extern __shared__ char smem_raw[];
-  char* q_s = align_1024(smem_raw);                 // [128][128] bytes
+  char* q_s = align_1024(smem_raw);                 // 1-byte Q, 128 rows
   char* k_s = q_s + Cfg::Q_BYTES;                   // [STAGES] 1-byte tiles
   char* vr_s = k_s + STAGES * Cfg::T_BYTES;         // [STAGES] 1-byte tiles
   char* vb_s = vr_s + STAGES * Cfg::T_BYTES;        // [STAGES] bf16 tiles
@@ -189,17 +227,18 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0 && walk.n_walk > 0) {
       const int kplane = b * a.H_kv + hk;
       mbar_expect_tx(q_full, Cfg::Q_BYTES);
-      tma_tile8<kFp8Rows>(q_s, &tq, q_full, r0, b * a.H + h);
+      tma_tile8<kFp8Rows, DP>(q_s, &tq, q_full, r0, b * a.H + h);
       for (int i = 0; i < 2 * walk.n_walk; ++i) {  // pass 0 K, pass 1 K, V
         const int s = i % STAGES;
         mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
         const int c0 = walk.tile(i % walk.n_walk) * KEYS;
         mbar_expect_tx(&k_full[s], Cfg::T_BYTES);
-        tma_tile8<KEYS>(k_s + s * Cfg::T_BYTES, &tk, &k_full[s], c0, kplane);
+        tma_tile8<KEYS, DP>(k_s + s * Cfg::T_BYTES, &tk, &k_full[s], c0,
+                            kplane);
         if (i >= walk.n_walk) {
           mbar_expect_tx(&v_full[s], Cfg::T_BYTES);
-          tma_tile8<KEYS>(vr_s + s * Cfg::T_BYTES, &tv, &v_full[s], c0,
-                          kplane);
+          tma_tile8<KEYS, DP>(vr_s + s * Cfg::T_BYTES, &tv, &v_full[s], c0,
+                              kplane);
         }
       }
     } else if (threadIdx.x >= 32) {  // the decoders
@@ -244,6 +283,7 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       sqr[r] = row < a.Nq ? f.sq[(size_t)bh * f.nqb + row / f.bq] : 0.f;
     }
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float su = 0.f;  // without kFold: the v scale O is counted in
     float acc[DP / 2];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
@@ -251,37 +291,39 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if (walk.n_walk > 0) mbar_wait(kDecQK ? q_dec : q_full, 0);
     // Step i of the ring: pass 0 (i < n_walk) brings K alone, pass 1 K and
     // V again; both passes run the same S instructions on the same tiles.
-    auto scores = [&](int i, float (&sc)[KEYS / 2], float (&mx)[2]) {
+    // S of keys [sub * SUB, (sub + 1) * SUB) of the tile: returns its first
+    // key.
+    auto scores = [&](int i, int sub, float (&sc)[SUB / 2], float (&mx)[2]) {
       const int s = i % STAGES, ph = (i / STAGES) & 1;
-      const int c0 = walk.tile(i % walk.n_walk) * KEYS;
+      const int c0 = walk.tile(i % walk.n_walk) * KEYS + sub * SUB;
       const float skt = f.sk[kvb + c0 / f.bk];
       if constexpr (kDecQK) {  // exact bf16 decodes, fp32 accumulation
         mbar_wait(&k_dec[s], ph);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk) {
-          wgmma_ss<KEYS>(sc, desc_k<kFp8Rows>(qb_s, 64 * cw, kk),
-                         desc_k<KEYS>(kb_s + s * Cfg::KB_BYTES, 0, kk),
-                         kk > 0);
+          wgmma_ss<SUB>(sc, desc_k<kFp8Rows>(qb_s, 64 * cw, kk),
+                        desc_k<KEYS>(kb_s + s * Cfg::KB_BYTES, sub * SUB, kk),
+                        kk > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sc);
       } else {  // int8: s8 wgmma, exact, into sc's registers as s32
-        auto& si = reinterpret_cast<uint32_t(&)[KEYS / 2]>(sc);
+        auto& si = reinterpret_cast<uint32_t(&)[SUB / 2]>(sc);
         mbar_wait(&k_full[s], ph);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DP / 32; ++kk) {
-          wgmma_s8<KEYS>(si, desc_k<kFp8Rows>(q_s, 64 * cw, kk),
-                         desc_k<KEYS>(k_s + s * Cfg::T_BYTES, 0, kk),
-                         kk > 0);
+          wgmma_s8<SUB>(si, desc_k<kFp8Rows>(q_s, 64 * cw, kk),
+                        desc_k<KEYS>(k_s + s * Cfg::T_BYTES, sub * SUB, kk),
+                        kk > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(si);
 #pragma unroll
-        for (int k = 0; k < KEYS / 2; ++k) {
+        for (int k = 0; k < SUB / 2; ++k) {
           sc[k] = (float)__float_as_int(sc[k]);  // the s32 sum, exactly
         }
       }
@@ -289,15 +331,15 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                             (sqr[1] * skt) * a.scale};
       // Score pipeline at absolute (row, col), as B1's; masked scores count
       // in the row max as the mask value and are held as -inf.
-      const int cls = tile_class(a, row0, row0 + 63, c0, c0 + KEYS - 1);
+      const int cls = tile_class(a, row0, row0 + 63, c0, c0 + SUB - 1);
       uint32_t seg[2] = {0u, 0u};
       if (cls == kSegments) {
-        segment_bits<KEYS>(a.q_ids + (size_t)b * a.Nq, row0, a.Nq,
-                           a.kv_ids + (size_t)b * a.Nk, c0, a.Nk, t, seg);
+        segment_bits<SUB>(a.q_ids + (size_t)b * a.Nq, row0, a.Nq,
+                          a.kv_ids + (size_t)b * a.Nk, c0, a.Nk, t, seg);
       }
       dispatch_tile(cls, post, [&](auto c, auto pp) {
 #pragma unroll
-        for (int k = 0; k < KEYS / 2; ++k) {
+        for (int k = 0; k < SUB / 2; ++k) {
           const int r = (k >> 1) & 1;
           const int row = row0 + acc_row(t, k), col = c0 + acc_col(t, k);
           const bool vis =
@@ -316,8 +358,11 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // fp8_fwd_plain rounds (a one-pass online softmax rounding at the
     // running max missed the two-ulp limit at near-zero outputs).
     for (int w = 0; w < walk.n_walk; ++w) {
-      float sc[KEYS / 2];
-      scores(w, sc, m);
+#pragma unroll
+      for (int sub = 0; sub < KEYS / SUB; ++sub) {
+        float sc[SUB / 2];
+        scores(w, sub, sc, m);
+      }
       mbar_arrive(&empty[w % STAGES]);
     }
 #pragma unroll
@@ -329,39 +374,78 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // Pass 1: p = exp(s - m), l, and P·V.
     for (int w = 0; w < walk.n_walk; ++w) {
       const int i = walk.n_walk + w, s = i % STAGES;
-      float sc[KEYS / 2], unused[2] = {-INFINITY, -INFINITY};
-      const int c0 = scores(i, sc, unused);
-      const float svt = f.sv[kvb + c0 / f.bk];
+      const char* vt = vb_s + s * Cfg::VB_BYTES;
+      uint32_t pa[KEYS / 16][4];  // p in bf16, the A operand of P·V
+      float svt = 0.f;            // the tile's v scale
 #pragma unroll
-      for (int k = 0; k < KEYS / 2; ++k) {
-        const int r = (k >> 1) & 1;
-        float p = expf(sc[k] - m[r]);
-        l[r] += p;
-        if (a.dropout) {
-          const int row = row0 + acc_row(t, k), col = c0 + acc_col(t, k);
-          p = keep(a, bh, row, col) ? p * a.drop_inv : 0.f;
+      for (int sub = 0; sub < KEYS / SUB; ++sub) {
+        // (the scores wait for the previous part's P·V too)
+        float sc[SUB / 2], unused[2] = {-INFINITY, -INFINITY};
+        const int cs = scores(i, sub, sc, unused);
+#pragma unroll
+        for (int k = 0; k < SUB / 2; ++k) {
+          const int r = (k >> 1) & 1;
+          float p = expf(sc[k] - m[r]);
+          l[r] += p;
+          if (a.dropout) {
+            const int row = row0 + acc_row(t, k), col = cs + acc_col(t, k);
+            p = keep(a, bh, row, col) ? p * a.drop_inv : 0.f;
+          }
+          sc[k] = p;
         }
-        sc[k] = p;
+        uint32_t ps[SUB / 16][4];
+        acc_to_a<SUB>(sc, ps);
+#pragma unroll
+        for (int j = 0; j < SUB / 16; ++j) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) pa[sub * SUB / 16 + j][q] = ps[j][q];
+        }
+        if (sub == 0) svt = f.sv[kvb + cs / f.bk];
+        if constexpr (!Cfg::kFold) {
+          // O in units of su: where a tile's sv differs (a new key block),
+          // O is rescaled by su / sv first (before the first tile O is 0).
+          // This part's P·V runs while the next part's S is computed.
+          if (sub == 0) {
+            if (svt != su) {
+              const float r = su == 0.f ? 0.f : su / svt;
+#pragma unroll
+              for (int k = 0; k < DP / 2; ++k) acc[k] *= r;
+              su = svt;
+            }
+            mbar_wait(&v_dec[s], (w / STAGES) & 1);
+          }
+          wgmma_fence();
+          fence_regs(acc);
+#pragma unroll
+          for (int kk = sub * SUB / 16; kk < (sub + 1) * SUB / 16; ++kk) {
+            wgmma_rs<DP>(acc, pa[kk], desc_mn<KEYS>(vt, kk));
+          }
+          wgmma_commit();
+        }
       }
-      uint32_t pa[KEYS / 16][4];
-      acc_to_a<KEYS>(sc, pa);
 
-      float pv[DP / 2];  // P·V of this tile, before its v scale
+      if constexpr (Cfg::kFold) {
+        float pv[DP / 2];  // P·V of this tile, before its v scale
 #pragma unroll
-      for (int k = 0; k < DP / 2; ++k) pv[k] = 0.f;
-      mbar_wait(&v_dec[s], (w / STAGES) & 1);
-      wgmma_fence();
-      fence_regs(pv);
+        for (int k = 0; k < DP / 2; ++k) pv[k] = 0.f;
+        mbar_wait(&v_dec[s], (w / STAGES) & 1);
+        wgmma_fence();
+        fence_regs(pv);
 #pragma unroll
-      for (int kk = 0; kk < KEYS / 16; ++kk) {
-        wgmma_rs<DP>(pv, pa[kk], desc_mn<KEYS>(vb_s + s * Cfg::VB_BYTES, kk));
+        for (int kk = 0; kk < KEYS / 16; ++kk) {
+          wgmma_rs<DP>(pv, pa[kk], desc_mn<KEYS>(vt, kk));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(pv);
+        mbar_arrive(&empty[s]);
+#pragma unroll
+        for (int k = 0; k < DP / 2; ++k) acc[k] = fmaf(pv[k], svt, acc[k]);
+      } else {
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(&empty[s]);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(pv);
-      mbar_arrive(&empty[s]);
-#pragma unroll
-      for (int k = 0; k < DP / 2; ++k) acc[k] = fmaf(pv[k], svt, acc[k]);
     }
 
     // Epilogue: each row's l is spread over the 4 threads of a quad.
@@ -372,13 +456,14 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       const int row = row0 + acc_row(t, 2 * r);
       if (row >= a.Nq) continue;
       const float l_safe = l[r] == 0.f ? 1.f : l[r];
+      const float ou = Cfg::kFold ? 1.f : su;  // O's unit
       const size_t base = (size_t)bh * a.Nq + row;
 #pragma unroll
       for (int n = 0; n < DP / 8; ++n) {
         const int col = acc_col(t, 4 * n);
         if (col < a.D) {
-          const float x0 = acc[4 * n + 2 * r] / l_safe;
-          const float x1 = acc[4 * n + 2 * r + 1] / l_safe;
+          const float x0 = acc[4 * n + 2 * r] * ou / l_safe;
+          const float x1 = acc[4 * n + 2 * r + 1] * ou / l_safe;
           if (out_f32) {
             *reinterpret_cast<float2*>(static_cast<float*>(o) +
                                        base * a.D + col) = make_float2(x0, x1);
@@ -397,13 +482,19 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 template <int DP, int FMT>
 cudaError_t launch_fp8_sm90(const AttnArgs& a, const Scales& f, void* o,
                             int out_f32, float* lse, cudaStream_t st) {
+  using Cfg = Fp8Sm90Cfg<DP, FMT>;
+  constexpr int kv_box = Cfg::KEYS < kBox ? Cfg::KEYS : kBox;
   CUtensorMap tq, tk, tv;
   cudaError_t err = make_map8(&tq, a.q, a.B * a.H, a.Nq, a.D);
-  if (err == cudaSuccess) err = make_map8(&tk, a.k, a.B * a.H_kv, a.Nk, a.D);
-  if (err == cudaSuccess) err = make_map8(&tv, a.v, a.B * a.H_kv, a.Nk, a.D);
+  if (err == cudaSuccess) {
+    err = make_map8(&tk, a.k, a.B * a.H_kv, a.Nk, a.D, kv_box);
+  }
+  if (err == cudaSuccess) {
+    err = make_map8(&tv, a.v, a.B * a.H_kv, a.Nk, a.D, kv_box);
+  }
   if (err != cudaSuccess) return err;
   auto kernel = flash_fwd_fp8_sm90_kernel<DP, FMT>;
-  constexpr size_t smem = Fp8Sm90Cfg<DP, FMT>::SMEM;
+  constexpr size_t smem = Cfg::SMEM;
   err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Nq + kFp8Rows - 1) / kFp8Rows, a.H, a.B);
@@ -465,9 +556,10 @@ int fat_flash_fwd_fp8(const void* q8, const void* k8, const void* v8,
 }
 
 
-// The tensor-core route: D <= 128 with D % 32 == 0, pv_s8 == 0, bk a
+// The tensor-core route: D <= 256 with D % 32 == 0, pv_s8 == 0, bk a
 // multiple of 128; q8, k8 and v8 16-byte aligned (TMA). Same arguments as
-// fat_flash_fwd_fp8.
+// fat_flash_fwd_fp8. D <= 64 runs the DP = 64 kernels, D <= 128 the 128
+// ones, any other D the 256 ones.
 int fat_flash_fwd_fp8_sm90(const void* q8, const void* k8, const void* v8,
                            const void* sq, const void* sk, const void* sv,
                            void* o, void* lse, const void* q_ids,
@@ -479,7 +571,7 @@ int fat_flash_fwd_fp8_sm90(const void* q8, const void* k8, const void* v8,
                            float drop_inv, int bq, int bk, int fmt, int pv_s8,
                            int out_dtype, void* stream) {
   using namespace fat;
-  if (D < 32 || D > 128 || D % 32 != 0 || H_kv < 1 || H % H_kv != 0 ||
+  if (D < 32 || D > 256 || D % 32 != 0 || H_kv < 1 || H % H_kv != 0 ||
       B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535 || bq < 1 ||
       bk < 1 || bk % 128 != 0 || pv_s8 || fmt < 0 || fmt > 2 ||
       out_dtype < 0 || out_dtype > 1) {
@@ -495,9 +587,14 @@ int fat_flash_fwd_fp8_sm90(const void* q8, const void* k8, const void* v8,
            (Nk + bk - 1) / bk, 0};
   auto st = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<float*>(lse);
-  const cudaError_t err =
-      D <= 64 ? sm90::fp8_sm90_by_fmt<64>(fmt, a, f, o, out_dtype, l, st)
-              : sm90::fp8_sm90_by_fmt<128>(fmt, a, f, o, out_dtype, l, st);
+  cudaError_t err;
+  if (D <= 64) {
+    err = sm90::fp8_sm90_by_fmt<64>(fmt, a, f, o, out_dtype, l, st);
+  } else if (D <= 128) {
+    err = sm90::fp8_sm90_by_fmt<128>(fmt, a, f, o, out_dtype, l, st);
+  } else {
+    err = sm90::fp8_sm90_by_fmt<256>(fmt, a, f, o, out_dtype, l, st);
+  }
   return (int)err;
 }
 

@@ -14,7 +14,7 @@ quantized function:
   function. The kernel has two routes, chosen by
   :func:`_tensor_core_route`: Q·Kᵀ on 8-bit wgmma and P·V on bf16 wgmma
   (``fat_flash_fwd_fp8_sm90``, counted also in
-  ``fp8_attention.tc_launches``) for ``int8_pv="bf16"``, D <= 128 with
+  ``fp8_attention.tc_launches``) for ``int8_pv="bf16"``, D <= 256 with
   D % 32 == 0 and key blocks a multiple of 128; the fp32 FMA kernel
   (``fat_flash_fwd_fp8``) for ``int8_pv="s8"`` and other head dims.
 - ``"predecode"``: the payloads are dequantized to bf16 in PyTorch ops and
@@ -164,11 +164,12 @@ def _ptr(t):
 
 def _tensor_core_route(int8_pv: str, d: int, bk: int) -> bool:
     """True where the tensor-core kernel takes the call: p in bf16
-    (``int8_pv="bf16"``), D <= 128 with D % 32 == 0 (whole k32 steps of
-    the 8-bit product), and key blocks a multiple of 128, so that one key
-    tile never spans two v scales. ``int8_pv="s8"`` re-quantizes p per key
-    block, which the FMA kernel keeps."""
-    return int8_pv != "s8" and d <= 128 and d % 32 == 0 and bk % 128 == 0
+    (``int8_pv="bf16"``), D <= 256 with D % 32 == 0 (whole k32 steps of
+    the 8-bit product; 128 < D <= 256 runs the D = 256 kernels), and key
+    blocks a multiple of 128, so that one key tile never spans two v
+    scales. ``int8_pv="s8"`` re-quantizes p per key block, which the FMA
+    kernel keeps."""
+    return int8_pv != "s8" and d <= 256 and d % 32 == 0 and bk % 128 == 0
 
 
 def _fwd_cuda(q8, k8, v8, sq, sk, sv, bq, bk, opts, int8_pv, out_dtype):

@@ -1314,6 +1314,17 @@ FP8_CASES = {
                          dict(causal=False, mode="fused", fmt="e5m2"), ()),
     "d256_int8": ((1, 2, 2, 300, 256), torch.float32,
                   dict(causal=True, fmt="int8"), ()),
+    "d256_e4m3_mqa_window_softcap": ((1, 8, 1, 1000, 256), torch.bfloat16,
+                                     dict(causal=True, mode="fused",
+                                          window=300, sinks=4,
+                                          softcap=30.0), ()),
+    "d256_e5m2_dropout_nq_ne_nk": ((1, 4, 2, 600, 1000, 256), torch.float32,
+                                   dict(causal=True, mode="fused",
+                                        fmt="e5m2", dropout_rate=0.2,
+                                        dropout_seed=13), ()),
+    "d160_int8_segments_alibi": ((2, 4, 4, 512, 160), torch.bfloat16,
+                                 dict(causal=True, fmt="int8"),
+                                 ("segments", "alibi")),
     "int8_d64": ((2, 4, 4, 512, 64), torch.bfloat16,
                  dict(causal=True, fmt="int8"), ()),
     "e4m3_ragged_1000_d128": ((1, 4, 4, 1000, 128), torch.bfloat16,
@@ -1323,13 +1334,16 @@ FP8_CASES = {
     "int8_nq_ne_nk_ragged": ((1, 4, 4, 384, 1000, 128), torch.bfloat16,
                              dict(causal=True, fmt="int8"), ()),
 }
-# The cases the tensor-core route takes (int8_pv "bf16", D <= 128 with
-# D % 32 == 0); the s8 cases and D = 256 stay on the FMA kernel.
+# The cases the tensor-core route takes (int8_pv "bf16", D <= 256 with
+# D % 32 == 0; 128 < D <= 256 on the D = 256 kernels); the s8 cases stay on
+# the FMA kernel.
 FP8_TENSOR_CORE = {"e4m3_causal", "int8_causal", "e5m2_causal",
                    "dropout_one_tile", "gqa_window_sinks_softcap",
                    "segments_alibi", "fp32_ragged_full", "int8_d64",
                    "e4m3_ragged_1000_d128", "e4m3_nq_ne_nk_fp32",
-                   "int8_nq_ne_nk_ragged"}
+                   "int8_nq_ne_nk_ragged", "d256_int8",
+                   "d256_e4m3_mqa_window_softcap",
+                   "d256_e5m2_dropout_nq_ne_nk", "d160_int8_segments_alibi"}
 
 
 def fp8_inputs(shape, dtype, extras, device, seed=0):

@@ -1,8 +1,8 @@
 """The port's FA3 8-bit attention (plain versions, CPU) against the JAX
 package's ``pallas_fp8_attention`` in Pallas interpret mode, from the same
-numpy inputs: fused and predecode, e4m3/e5m2/int8 payloads, GQA, window +
-sinks, soft-cap + segments + ALiBi, dropout with the same seed, int8 PV in
-s8, and the straight-through backward in both flavours.
+numpy inputs: fused and predecode, e4m3/e5m2/int8 payloads, head dims up to
+256, GQA, window + sinks, soft-cap + segments + ALiBi, dropout with the same
+seed, int8 PV in s8, and the straight-through backward in both flavours.
 
 Limits: o and LSE at 5e-3 abs+rel, the JAX package's own fused-vs-oracle
 limit (``tests/test_fp8.py``); STE gradients at 5e-3 abs+rel. The e4m3
@@ -62,6 +62,24 @@ def test_fp8_forward_matches_pallas(shape, mode, fmt):
     q, k, v, _, _ = _inputs(b, h, h, n, d)
     kw = dict(causal=True, mode=mode, fmt=fmt)
     _check(*_both(q, k, v, kw), f"{shape} {mode} {fmt}")
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 2, 256, 256), (1, 4, 1, 384, 160)])
+@pytest.mark.parametrize("fmt", ["fp8", "int8", "e5m2"])
+def test_fp8_forward_matches_pallas_wide_head(shape, fmt):
+    """Head dims above 128, which the card runs on the D = 256 kernels of
+    the tensor-core route (160 reads zeros past D there)."""
+    b, h, h_kv, n, d = shape
+    q, k, v, _, _ = _inputs(b, h, h_kv, n, d, seed=9)
+    kw = dict(causal=True, mode="fused", fmt=fmt)
+    _check(*_both(q, k, v, kw), f"{shape} {fmt}")
+
+
+def test_fp8_wide_head_mqa_window_sinks_softcap():
+    q, k, v, _, _ = _inputs(1, 4, 1, 384, 256, seed=10)
+    kw = dict(causal=True, mode="fused", fmt="int8", window=96, sinks=4,
+              softcap=30.0)
+    _check(*_both(q, k, v, kw), "d256 mqa window sinks softcap")
 
 
 @pytest.mark.parametrize("mode", ["fused", "predecode"])
@@ -205,21 +223,26 @@ def test_prequant_matches_pallas():
     ("bf16", 96, 256, True),
     ("s8", 128, 1024, False),     # p re-quantized per key block: FMA
     ("bf16", 48, 1024, False),    # not whole k32 steps
-    ("bf16", 256, 1024, False),   # beyond the registers of a consumer
+    ("bf16", 256, 1024, True),    # the D = 256 kernels: P·V in n128 halves
+    ("bf16", 160, 1024, True),    # the D = 256 kernels, zeros past D
+    ("bf16", 136, 1024, False),   # not whole k32 steps
+    ("s8", 256, 1024, False),
+    ("bf16", 256, 64, False),
     ("bf16", 64, 64, False),      # a key tile would span two v scales
 ])
 def test_tensor_core_route_rule(int8_pv, d, bk, want):
     """The 8-bit forward's route, from the inputs alone: wgmma for p in
-    bf16 with D <= 128, D % 32 == 0 and key blocks of whole 128s; the FMA
+    bf16 with D <= 256, D % 32 == 0 and key blocks of whole 128s; the FMA
     kernel otherwise."""
     assert fp8_attn._tensor_core_route(int8_pv, d, bk) is want
 
 
 def test_kernel_path_blocks_take_the_tensor_core_route():
     """The blocks fp8_attention quantizes in (ops/specs.fp8_kernel_blocks)
-    are whole 128s of keys for every length, so int8_pv="bf16" at D = 64 or
-    128 always takes the tensor cores."""
+    are whole 128s of keys for every length, so int8_pv="bf16" at D = 64,
+    128 or 256 always takes the tensor cores."""
     from flashattention_tpu_torch.ops.specs import fp8_kernel_blocks
     for n in (1, 100, 200, 1000, 4096, 8192):
         _, bk = fp8_kernel_blocks(n, n)
         assert fp8_attn._tensor_core_route("bf16", 128, bk)
+        assert fp8_attn._tensor_core_route("bf16", 256, bk)
