@@ -16,8 +16,9 @@ Phases, in order; any failure exits nonzero:
    that split operands in registers; sparse: the same three at D 64 and
    128, each with one and two consumer warpgroups, and at D 256 the
    forward and dQ with one and two and the dK/dV one split over the head
-   dim; the 8-bit forward at D 64, 128 and 256 in e4m3, e5m2 and int8,
-   whose int8 kernels must also show IGMMA; 44 in all) must show
+   dim, and the same three in fp32 on 3xTF32 at D 64 with one and two and
+   at D 128 with one; the 8-bit forward at D 64, 128 and 256 in e4m3, e5m2
+   and int8, whose int8 kernels must also show IGMMA; 53 in all) must show
    HGMMA (wgmma) and UTMALDG (TMA) in their
    SASS (cuobjdump) and spill nothing (ptxas report of this build); the 25
    paged split kernels (10 on the lane-group walk, D <= 128 at 1 or 2 rows
@@ -85,28 +86,35 @@ Phases, in order; any failure exits nonzero:
    timed beside the FMA kernel on the same inputs, plus
    its straight-through backward (o and
    gradients at the bf16 flash limit: p is bf16 on the 8-bit path). The
-   block-sparse forward (sparse_fwd) and backward (sparse_bwd) in eight
+   block-sparse forward (sparse_fwd) and backward (sparse_bwd) in eleven
    cases, each launched once on the route it must take (checked by the
    route counters): the model phase's call (2, 12, 4096, 64) and the
    BASELINE head dim (1, 8, 8192, 128) with the local + global pattern,
    and N_q != N_k with 64-row q blocks and an LSE cotangent, on the tensor
-   cores; GQA 12/4 at a ragged N = 1000 in fp32 with an empty q-block row,
-   on the FMA kernels; at head dim 256 on the tensor cores, flash case
+   cores; GQA 12/4 at a ragged N = 1000 in fp32 with an empty q-block row
+   (c), on the fp32 tensor-core kernels (3xTF32); at head dim 256 on the
+   tensor cores, flash case
    (k)'s shape (1, 8, 8192, 256) with the local + global pattern (e),
    GQA 8/2 at D = 136 with N_q != N_k, blocks 64 x 128, an emptied q-block
    row and an LSE cotangent (f), phase 7b's call (1, 8, 1, 4096, 4096, 256)
    (g: MQA, phase 7's pattern) and the same at the attention widths of
    Qwen3.8-Flash-Next's block-sparse (QSA) layers, 24 query heads over 2
-   KV heads (h). o and gradients at the flash limit, LSE
+   KV heads (h); in fp32 on 3xTF32, phase 7d's call (i: case (a) in fp32)
+   and GQA 8/2 at D = 128 with N_q != N_k, blocks 64 x 128, an emptied
+   q-block row and an LSE cotangent (j); and fp32 at D = 256 (k), which
+   the FMA kernels keep; the fp32 cases (c), (i)-(k) also name their
+   kernels under torch.profiler (those of the route, checked). o and
+   gradients at the flash limit (fp32 1e-4), LSE
    at 1e-4 where a row sees a key, -inf exactly on empty q blocks and the mask
    value exactly on rows of visited blocks that see no key, dK = dV = 0
    exactly on KV blocks no q block visits; bounds from the pairs the
    pattern keeps; times of the wrapper (which builds the lists on the
    device, and di in the backward), also issued from the host, and of the
    kernels alone with the lists built beforehand, for the tensor-core
-   cases also of the FMA kernels on the same inputs; SDPA with the
-   expanded boolean mask as the library call (a yardstick where a row sees
-   no key).
+   cases also of the FMA kernels on the same inputs (fp32: with their
+   bound at 67 TFLOP/s beside the route's at 165); SDPA with the expanded
+   boolean mask as the library call (a yardstick where a row sees no key;
+   fp32 with TF32 off).
 3. The serving engine at GPT-3 Small widths (TransformerConfig defaults,
    bf16, random weights from a seed): 64 requests, prompts of 32-400
    tokens, 64 new tokens each. Every launch count is set to 0 just before
@@ -182,12 +190,21 @@ Phases, in order; any failure exits nonzero:
 7c. Phase 7b's widths dense and in fp32 (``gemma_dense_fp32_config``), so
    every attention call runs the fp32 flash kernels at D = 256 (MQA 8/1):
    one loss and its gradients at B=1, N=512 on the card against the CPU in
-   fp32 (1e-3, the MoE fp32 rung), then ``train_step`` at B=1, N=4096: 2
+   fp32 (1e-4, the fp32 rung), then ``train_step`` at B=1, N=4096: 2
    untimed and 3 timed micro-steps, exactly 4 forward and 2 backward flash
    launches each (checked), and one profiled micro-step with the flash
    kernels' share of it, whose flash kernels must be the wide 3xTF32 ones
    (with the sum of the dK/dV partials). Flash case (o) holds these
    kernels at this call's shape.
+7d. Phase 7 in fp32 (dtype and parameters): GPT-3 Small at all 12 layers,
+   B=2, N=4096, the same pattern, so every attention call runs the fp32
+   sparse kernels on 3xTF32 at D = 64: exactly 12 sparse_fwd per no-grad
+   forward, 24 sparse_fwd and 12 sparse_bwd per step, all on the
+   tensor-core route, no flash launch; a profiled step whose sparse
+   kernels must be the fp32 tensor-core ones (their share of the step's
+   kernels reported); card vs CPU at N=512 and the all-ones pattern
+   against the flash route at the fp32 rung (1e-4). Sparse case (i) holds
+   these kernels at this call's shape.
 8. The speculative engine: phase 3's config with spec_gamma=4, 32 requests
    of 32-400-token prompts (phase 3's draws), 32 new tokens each, in three
    arms, each after a warm-up engine: plain (no draft; the reference
@@ -286,7 +303,9 @@ with the d = 256 fa3 cell's launches and fp8 case (h), ``flash_fwd[d256]`` and
 numbers of case (o), its call, with cases (m) and (n) beside them;
 ``sparse_fwd[d256]`` and ``sparse_bwd[d256]``: launches of phase 7b's
 steps, numbers of sparse case (g), phase 7b's call, with cases (e), (f)
-and (h) beside them).
+and (h) beside them; ``sparse_fwd[fp32]`` and ``sparse_bwd[fp32]``:
+launches of phase 7d's steps, numbers of sparse case (i), phase 7d's call,
+with cases (c) and (j) beside them).
 ``--cpu-rehearsal`` skips phases 1-2, runs the others at a tiny width on
 the CPU (phase 9's workers on the CPU, phase 10's rank over gloo) and
 never prints the device line.
@@ -390,6 +409,7 @@ LOGITS_TOL = 5e-2  # bf16 rung of the ladder: bf16 card engine vs fp32 CPU
 FP8_TOL = 1e-1     # FP8 rung: the fp8 card engine vs the fp32 CPU fp8 engine
 TRAIN_TOL = 5e-2   # bf16 card training loss and grads vs the fp32 CPU
 MOE_TOL = 1e-3     # the MoE loss and grads, fp32 card vs fp32 CPU
+FP32_TOL = 1e-4    # fp32 rung: a dense or sparse fp32 model, card vs CPU
 
 KERNELS = {
     "paged_attention": dict(
@@ -1166,18 +1186,35 @@ SPARSE_CASES = {
     "h": ("QSA widths (1, 24, 2, 4096, 4096, 256) bf16 causal, local+global "
           "on 32 x 32 tiles of 128", (1, 24, 2, 4096, 4096, 256), BF16, True,
           (128, 128), local_global(32, 32), False),
+    # fp32 on the 3xTF32 tensor-core kernels: phase 7d's call (case (a) in
+    # fp32), and the edges (one consumer everywhere, a 128-key block over
+    # two dK/dV CTAs, GQA, N_q != N_k, an emptied q-block row, an LSE
+    # cotangent); then an fp32 case the FMA kernels keep (D = 256)
+    "i": ("phase 7d's call (2, 12, 4096, 64) fp32 causal, local+global on "
+          "32 x 32 tiles of 128", (2, 12, 12, 4096, 4096, 64), FP32, True,
+          (128, 128), local_global(32, 32), False),
+    "j": ("GQA 8/2, N_q 384 != N_k 512, D=128 fp32 causal, blocks 64 x 128, "
+          "local+global with q-block row 2 emptied, LSE cotangent",
+          (2, 8, 2, 384, 512, 128), FP32, True, (64, 128),
+          emptied(local_global(6, 4), 2), True),
+    "k": ("GQA 8/2 (1, 8, 2, 1024, 1024, 256) fp32 causal, local+global on "
+          "8 x 8 tiles of 128 (the FMA route)", (1, 8, 2, 1024, 1024, 256),
+          FP32, True, (128, 128), local_global(8, 8), False),
 }
+# the fp32 cases whose kernels are named by the profiler (sa.route_kernels)
+SPARSE_NAMED = ("c", "i", "j", "k")
 
 
 def sparse_launch(q, k, v, o, lse, do, dlse, active, spec, sm90):
     """(forward, backward) callables that launch one route's entry points
-    (``fat_sparse_*_sm90`` where ``sm90``, else the FMA kernels'
-    ``fat_sparse_*``) with the lists and di built once beforehand: the
-    kernels' own time, without the wrapper's list building."""
+    (the dtype's tensor-core kernels, ``fat_sparse_*_sm90[_f32]``, where
+    ``sm90``, else the FMA kernels' ``fat_sparse_*``) with the lists and di
+    built once beforehand: the kernels' own time, without the wrapper's
+    list building."""
     fwd = _build.load_kernel("sparse_fwd", sa._declare_fwd)
     bwd = _build.load_kernel("sparse_bwd", sa._declare_bwd)
-    fwd_fn = fwd.fat_sparse_fwd_sm90 if sm90 else fwd.fat_sparse_fwd
-    bwd_fn = bwd.fat_sparse_bwd_sm90 if sm90 else bwd.fat_sparse_bwd
+    fwd_fn = getattr(fwd, sa._entry("fwd", q.dtype, sm90))
+    bwd_fn = getattr(bwd, sa._entry("bwd", q.dtype, sm90))
     o_out, lse_out = torch.empty_like(o), torch.empty_like(lse)
     grads = [torch.empty_like(x) for x in (q, k, v)]
     di = (o.float() * do.float()).sum(-1)
@@ -1204,6 +1241,34 @@ def sparse_launch(q, k, v, o, lse, do, dlse, active, spec, sm90):
             kv_list.shape[1], q_list.shape[1], code, stream),
             "sparse bwd")
     return run_fwd, run_bwd
+
+
+def sparse_kernel_ms(fwd, bwd, calls=10) -> dict[str, float]:
+    """{sparse kernel: mean device ms a call} over ``calls`` forward and
+    backward calls under torch.profiler (after one of each to warm up), as
+    scripts/flash_kernel_split.py does for the flash kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fwd()
+    bwd()
+    torch.cuda.synchronize()
+    # CUPTI hands the last records of a profile late into the next one: a
+    # throwaway profile takes those of an earlier case
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fwd()
+            bwd()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = re.search(r"sparse_\w+_kernel", e.key)
+        if name:
+            total = (e.device_time_total if hasattr(e, "device_time_total")
+                     else e.cuda_time_total)  # µs over the calls
+            out[name.group(0)] = total / e.count / 1e3
+    return out
 
 
 def sparse_case(timer, gen, dev, key):
@@ -1300,8 +1365,23 @@ def sparse_case(timer, gen, dev, key):
         leaves, do))
     del o_lib, leaves
     pairs = int(vis.sum()) * shape[0] * shape[1]
-    bounds = attention_bounds(q, k, pairs, dlse, BF16_FLOPS_PER_S
-                              if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
+    # the route's rate: bf16 or 3xTF32 wgmma, or fp32 FMAs; where fp32 takes
+    # the tensor cores, the FMA route's bound at 67 TFLOP/s beside it
+    bounds = attention_bounds(q, k, pairs, dlse, flash_peak(dtype) if tc
+                              else FP32_FLOPS_PER_S)
+    if tc and dtype == torch.float32:
+        fma_bounds = attention_bounds(q, k, pairs, dlse, FP32_FLOPS_PER_S)
+        t["fwd_fma_bound_ms"] = fma_bounds["fwd"][0]
+        t["bwd_fma_bound_ms"] = fma_bounds["bwd"][0]
+    if key in SPARSE_NAMED:
+        t["kernel_split_ms"] = split = sparse_kernel_ms(
+            lambda: sa.sparse_fwd(q, k, v, active, spec),
+            lambda: sa.sparse_bwd(q, k, v, o_ref, lse_ref, do, dlse, active,
+                                  spec))
+        want = sa.route_kernels(dtype, shape[-1], spec)
+        if split and set(split) != want:
+            fail(f"sparse {key}: the profiler saw {sorted(split)}; want "
+                 f"{sorted(want)}")
     rec = dict(case=label, shape=shape, dtype=str(dtype).replace("torch.", ""),
                blocks=(bq, bk), route=route, active_tiles=int(active.sum()),
                visible_pairs=pairs, max_abs_err=err,
@@ -1318,8 +1398,16 @@ def sparse_case(timer, gen, dev, key):
         f"mask-value rows exact)")
     fma = (f"; FMA kernels fwd {t['fwd_fma_ms']:.4f} bwd "
            f"{t['bwd_fma_ms']:.4f}" if tc else "")
+    if "fwd_fma_bound_ms" in t:
+        fma += (f" (their bound at {FP32_FLOPS_PER_S / 1e12:g} TFLOP/s: fwd "
+                f"{t['fwd_fma_bound_ms']:.4f} bwd {t['bwd_fma_bound_ms']:.4f})")
     log(f"[kernel]   kernels alone: fwd {t['fwd_kernel_ms']:.4f} bwd "
         f"{t['bwd_kernel_ms']:.4f} ms" + fma)
+    if "kernel_split_ms" in t:
+        log("[kernel]   device ms a call by kernel (torch.profiler): "
+            + (", ".join(f"{n} {x:.4f}"
+                         for n, x in t["kernel_split_ms"].items())
+               or "not measured (no kernel recorded)"))
     log(f"[kernel]   wrapper (lists built on the device): fwd "
         f"{t['fwd_ms']:.4f} ms (issued from the host "
         f"{t['fwd_wall_ms']:.4f}, plain {t['fwd_plain_ms']:.4f}, SDPA "
@@ -2619,9 +2707,11 @@ def _sparse_loss(params, toks, cfg, pattern):
     return ttrain.token_nll(logits, toks[:, 1:]).mean()
 
 
-def _sparse_vs_cpu(cfg, dev, n, pattern, tag):
-    """Loss and gradients through the sparse route: the bf16 card against
-    the fp32 CPU (plain versions), from the same fp32 parameters."""
+def _sparse_vs_cpu(cfg, dev, n, pattern, tag, tol=TRAIN_TOL):
+    """Loss and gradients through the sparse route: the card in ``cfg``'s
+    dtype against the fp32 CPU (plain versions), from the same fp32
+    parameters, at ``tol`` (abs+rel on the loss, global relative L2 on the
+    gradients)."""
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     ref_params = init_params(cfg32, seed=SEED + 5, device="cpu")
     card_params = copy.deepcopy(ref_params).to(dev)
@@ -2638,17 +2728,18 @@ def _sparse_vs_cpu(cfg, dev, n, pattern, tag):
     loss_err = abs(lc - lr)
     rel = (sum(float((gc[k] - gr[k]).square().sum()) for k in gr)
            / sum(float(gr[k].square().sum()) for k in gr)) ** 0.5
+    card = str(cfg.dtype).replace("torch.", "")
     log(f"[{tag}] card vs cpu at N={n}, pattern {pattern.int().tolist()}: "
-        f"loss bf16 {lc:.6f} vs fp32 {lr:.6f} (|diff| {loss_err:.3e}, tol "
-        f"{TRAIN_TOL:g} abs+rel); gradient global relative L2 {rel:.3e} (tol "
-        f"{TRAIN_TOL:g})")
-    if not np.isfinite(lc) or loss_err > TRAIN_TOL + TRAIN_TOL * abs(lr):
+        f"loss card {card} {lc:.6f} vs cpu fp32 {lr:.6f} (|diff| "
+        f"{loss_err:.3e}, tol {tol:g} abs+rel); gradient global relative L2 "
+        f"{rel:.3e} (tol {tol:g})")
+    if not np.isfinite(lc) or loss_err > tol + tol * abs(lr):
         fail(f"sparse model loss card vs cpu differs by {loss_err:.3e}")
-    if not rel <= TRAIN_TOL:
+    if not rel <= tol:
         fail(f"sparse model gradient relative L2 error {rel:.3e} over "
-             f"{TRAIN_TOL:g}")
-    return dict(n=n, loss_card=lc, loss_cpu=lr, loss_abs_err=loss_err,
-                grad_rel_l2=rel, tol=TRAIN_TOL)
+             f"{tol:g}")
+    return dict(n=n, card_dtype=card, loss_card=lc, loss_cpu=lr,
+                loss_abs_err=loss_err, grad_rel_l2=rel, tol=tol)
 
 
 def gemma_sparse_config():
@@ -2683,17 +2774,19 @@ def gemma_dense_fp32_config():
 
 
 def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
-                       tag="sparse"):
+                       tag="sparse", tol=TRAIN_TOL, logits_tol=LOGITS_TOL):
     """The block-sparse slice's main path at ``cfg``: the local + global
     pattern on the n / block_size square of tiles, through
     ``apply_transformer(sparse_pattern=...)``. (1) one no-grad forward;
     (2) forward, next-token CE and backward, one untimed then ``n_timed``
     timed on the host clock up to ``loss.item()``; counts set to 0 just
-    before each and read just after; (3) one step under torch.profiler;
-    (4) loss and gradients, bf16 card vs fp32 CPU, at ``check_n`` with the
-    4 x 4 pattern of tests/test_sparse.py; (5) an all-ones pattern (the
-    sparse route) against no pattern (the flash route), logits at the bf16
-    rung. Log lines start with ``[tag]``."""
+    before each and read just after; (3) one step under torch.profiler,
+    whose sparse kernels must be those of the route (``sa.route_kernels``);
+    (4) loss and gradients, card vs fp32 CPU at ``tol``, at ``check_n``
+    with the 4 x 4 pattern of tests/test_sparse.py; (5) an all-ones pattern
+    (the sparse route) against no pattern (the flash route), logits at
+    ``logits_tol`` (the bf16 rung by default). Log lines start with
+    ``[tag]``."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -2787,12 +2880,22 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
         sparse_kernels_ms=sparse_ms,
         top=sorted(((k, v / 1e3) for k, v in kernels.items()),
                    key=lambda kv: -kv[1])[:12])
+    rec["profile"]["sparse_share"] = (sum(sparse_ms.values()) / (busy * 1e3)
+                                      if kernels else None)
     if kernels:
         log(f"[{tag}] profiled step: {wall * 1e3:.2f} ms wall, kernels "
             f"{busy * 1e3:.2f} ms, device busy {100 * busy / wall:.1f}%; "
             f"sparse kernels {sum(sparse_ms.values()):.4f} ms ("
+            f"{100 * rec['profile']['sparse_share']:.2f}% of the kernels: "
             + ", ".join(f"{k.split('<')[0].split('::')[-1]} {v:.4f}"
                         for k, v in sorted(sparse_ms.items())) + ")")
+        ran = {m.group(0) for k in sparse_ms
+               for m in [re.search(r"sparse_\w+_kernel", k)] if m}
+        want = sa.route_kernels(cfg.dtype, cfg.d_head, sa.SparseSpec(
+            True, 1.0, cfg.block_size, cfg.block_size))
+        if on_card and sparse_ms and ran != want:
+            fail(f"[{tag}] the profiled step ran {sorted(ran)}; want "
+                 f"{sorted(want)}")
         for k, v in rec["profile"]["top"]:
             log(f"[{tag}]   {v:.4f} ms  {k[:90]}")
     else:
@@ -2803,7 +2906,7 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
 
     p4 = torch.tensor([[1, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 1]],
                       dtype=torch.bool)
-    rec["vs_cpu"] = _sparse_vs_cpu(cfg, dev, check_n, p4, tag)
+    rec["vs_cpu"] = _sparse_vs_cpu(cfg, dev, check_n, p4, tag, tol)
 
     params = init_params(cfg, seed=SEED + 7, device=dev)
     with torch.no_grad():
@@ -2813,9 +2916,9 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
     err = (ones - dense).abs()
     rec["ones_vs_dense_max_abs"] = max_err = float(err.max())
     log(f"[{tag}] all-ones pattern vs no pattern (flash route): logits max "
-        f"|diff| {max_err:.3e} (tol {LOGITS_TOL:g} abs+rel; max |logit| "
+        f"|diff| {max_err:.3e} (tol {logits_tol:g} abs+rel; max |logit| "
         f"{float(dense.abs().max()):.3e})")
-    if bool((err > LOGITS_TOL + LOGITS_TOL * dense.abs()).any()):
+    if bool((err > logits_tol + logits_tol * dense.abs()).any()):
         fail(f"all-ones pattern logits differ from the dense route by "
              f"{max_err:.3e}")
     return rec
@@ -3464,11 +3567,12 @@ def ptxas_entries(text):
 
 # Tensor-core kernels per library: forward, dK/dV and dQ at D 64, 128 and
 # 256, each in bf16 and in fp32 (3xTF32; at 256 the wide kernels); the
-# sparse ones (bf16) at D 64, 128 and 256, each with one and two consumer
-# warpgroups but the D-split dK/dV at 256 (two); the 8-bit forward at D 64,
+# sparse ones in bf16 at D 64, 128 and 256, each with one and two consumer
+# warpgroups but the D-split dK/dV at 256 (two), and in fp32 (3xTF32) at
+# D 64 with one and two and at D 128 with one; the 8-bit forward at D 64,
 # 128 and 256 for e4m3, e5m2 and int8.
-SM90_KERNELS = {"flash_fwd": 6, "flash_bwd": 12, "sparse_fwd": 6,
-                "sparse_bwd": 11, "flash_fwd_fp8": 9}
+SM90_KERNELS = {"flash_fwd": 6, "flash_bwd": 12, "sparse_fwd": 9,
+                "sparse_bwd": 17, "flash_fwd_fp8": 9}
 # The paged split kernels: bf16, int8 (convert and "qk"), e4m3 and e5m2
 # pages, each on the lane-group walk at 1 and 2 rows (D <= 128) and on the
 # tensor-core walk at 1, 2 and 4 row tiles a CTA.
@@ -3695,11 +3799,15 @@ def main() -> int:
         dcfg = dataclasses.replace(cfg, d_model=512, n_heads=2, n_kv_heads=1,
                                    pos_encoding="rope", dtype=torch.float32)
         report["dense_fp32_vs_cpu"] = phase_train_vs_cpu(
-            dcfg, "cpu", n=64, tol=MOE_TOL, tag="dense_fp32_vs_cpu")
+            dcfg, "cpu", n=64, tol=FP32_TOL, tag="dense_fp32_vs_cpu")
         report["dense_fp32"] = phase_train(
             dcfg, ttrain.TrainConfig(batch_size=1, seq_len=64, grad_accum=1,
                                      warmup_steps=2),
             "cpu", on_card=False, n_warm=1, n_timed=2, tag="dense_fp32")
+        report["sparse_model_fp32"] = phase_sparse_model(
+            dataclasses.replace(cfg, block_size=16, dtype=torch.float32),
+            "cpu", False, b=2, n=128, check_n=64, tag="sparse_fp32",
+            tol=FP32_TOL, logits_tol=FP32_TOL)
         draft = dataclasses.replace(cfg, n_layers=1)
         report["spec"] = phase_spec(
             cfg, params, ecfg, "cpu", 8, (8, 60), 8,
@@ -3874,13 +3982,24 @@ def main() -> int:
     t0 = time.perf_counter()
     dcfg = gemma_dense_fp32_config()
     report["dense_fp32_vs_cpu"] = phase_train_vs_cpu(
-        dcfg, dev, n=512, tol=MOE_TOL, tag="dense_fp32_vs_cpu")
+        dcfg, dev, n=512, tol=FP32_TOL, tag="dense_fp32_vs_cpu")
     torch.cuda.empty_cache()
     report["dense_fp32"] = phase_train(
         dcfg, ttrain.TrainConfig(batch_size=1, seq_len=4096, grad_accum=1,
                                  warmup_steps=2),
         dev, on_card=True, n_warm=2, n_timed=3, tag="dense_fp32")
     report["dense_fp32"]["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # Phase 7d: phase 7 in fp32 (dtype and parameters), every attention call
+    # on the 3xTF32 sparse kernels at D = 64; card vs CPU and the all-ones
+    # pattern at the fp32 rung
+    t0 = time.perf_counter()
+    report["sparse_model_fp32"] = phase_sparse_model(
+        dataclasses.replace(scfg, dtype=torch.float32), dev, True, b=2,
+        n=4096, check_n=512, tag="sparse_fp32", tol=FP32_TOL,
+        logits_tol=FP32_TOL)
+    report["sparse_model_fp32"]["phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
     # Phase 8: the speculative engine, phase 3's config with gamma 4; the
@@ -3956,7 +4075,8 @@ def main() -> int:
         f"{report['phases_3_7_s']:.1f} s (phases 3c-4c "
         f"{report['phase_3c_s']:.1f} s of it), phase 7b "
         f"{report['sparse_model_d256']['phase_s']:.1f} s, phase 7c "
-        f"{report['dense_fp32']['phase_s']:.1f} s, "
+        f"{report['dense_fp32']['phase_s']:.1f} s, phase 7d "
+        f"{report['sparse_model_fp32']['phase_s']:.1f} s, "
         f"phase 8 {report['spec']['phase_s']:.1f} s, phase 9 "
         f"{report['multihost']['phase_s']:.1f} s, phase 10 "
         f"{report['cp']['phase_s']:.1f} s, phase 11 "
@@ -4331,6 +4451,46 @@ def main() -> int:
             yardstick_ms=rg.get(f"yardstick_{part}_ms"), case=rg["case"],
             kernel_ms=rg[f"{part}_kernel_ms"], fma_ms=rg[f"{part}_fma_ms"],
             wall_ms=rg[f"{part}_wall_ms"], **beside))
+    # sparse in fp32 (3xTF32 wgmma, D <= 128): launches of phase 7d's
+    # forward+backward steps, numbers of sparse case (i), phase 7d's call,
+    # with cases (c) (GQA, ragged N, blocks of 64) and (j) (D = 128, blocks
+    # 64 x 128, GQA, N_q != N_k) beside them, each key suffixed with its
+    # case; fma_ms the FMA kernels on the same inputs with their bound at 67
+    # TFLOP/s, kernel_ms the kernels alone with the lists built beforehand,
+    # step_sparse_ms the sparse kernels' device time in phase 7d's profiled
+    # step
+    recs = {x: report["kernels"][f"sparse_{x}"] for x in "icj"}
+    ri = recs["i"]
+    s7d = report["sparse_model_fp32"]
+    c = s7d["launches"]
+    for name, part, errs in (("sparse_fwd", "fwd", ("o", "lse")),
+                             ("sparse_bwd", "bwd", ("dq", "dk", "dv"))):
+        beside = {}
+        for x in "cj":
+            r = recs[x]
+            beside.update({
+                f"{key}_{x}": r[f"{part}_{key}"]
+                for key in ("ms", "kernel_ms", "fma_ms", "fma_bound_ms",
+                            "plain_ms", "bound_ms")})
+            lib = "library" if f"library_{part}_ms" in r else "yardstick"
+            beside[f"{lib}_ms_{x}"] = r[f"{lib}_{part}_ms"]
+            beside[f"case_{x}"] = r["case"]
+        kernels.append(dict(
+            name=f"{name}[fp32]", **KERNELS[name], launches=c[name],
+            launches_tensor_core=c[f"{name}_tc"],
+            max_abs_err=max(r["max_abs_err"][e] for e in errs
+                            for r in recs.values()),
+            ms=ri[f"{part}_ms"], plain_ms=ri[f"{part}_plain_ms"],
+            bound_ms=ri[f"{part}_bound_ms"],
+            bound_by=ri[f"{part}_bound_by"],
+            library_ms=ri.get(f"library_{part}_ms"),
+            yardstick_ms=ri.get(f"yardstick_{part}_ms"), case=ri["case"],
+            kernel_ms=ri[f"{part}_kernel_ms"], fma_ms=ri[f"{part}_fma_ms"],
+            fma_bound_ms=ri[f"{part}_fma_bound_ms"],
+            wall_ms=ri[f"{part}_wall_ms"],
+            kernel_split_ms=ri.get("kernel_split_ms"),
+            step_sparse_ms=s7d["profile"]["sparse_kernels_ms"],
+            step_median_ms=s7d["median_step_ms"], **beside))
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was launched no time on its main path")

@@ -26,12 +26,12 @@
 // block). The grid is never sized from the counts.
 //
 // What bounds it on this card: 10 D flops per kept (head, row, key) on the
-// tensor cores (989 TFLOP/s bf16) against q, k, v, do and the three
-// gradients moved once, so the operations. Both kernels recompute the
-// scores (7 products per element instead of 5), the price of having no
-// atomics.
+// tensor cores (989 TFLOP/s bf16; 165 fp32 on 3xTF32) against q, k, v, do
+// and the three gradients moved once, so the operations. Both kernels
+// recompute the scores (7 products per element instead of 5), the price of
+// having no atomics.
 //
-// Two routes, chosen by the caller (ops/sparse_attn.py):
+// Three routes, chosen by the caller (ops/sparse_attn.py):
 //
 //   fat_sparse_bwd_sm90 (bf16, D <= 256, block_q and block_k multiples of
 //     64): every product on the tensor cores (wgmma, bf16 in, fp32
@@ -72,13 +72,18 @@
 //       (K MN-major).
 //     Each product's tile is classified once, interior or band, and the
 //     element loop specialised for it.
-//   fat_sparse_bwd (fp32, bf16 with blocks that are not multiples of 64):
-//     the first version below, fp32 FMAs on the CUDA cores (for the
-//     reasons given in sparse_fwd.cu), 32-row / 32-key sub-tiles staged as
-//     fp32.
+//   fat_sparse_bwd_sm90_f32 (fp32, D <= 128, block_q and block_k multiples
+//     of 64): the same two kernels with every product in 3xTF32, on the
+//     schedules of flash_bwd.cu's fp32 kernels (the tiles and stages are set
+//     out where the kernels are defined, below).
+//   fat_sparse_bwd (fp32 at 128 < D <= 256, any dtype with blocks that are
+//     not multiples of 64): the first version below, fp32 FMAs on the CUDA
+//     cores (for the reasons given in sparse_fwd.cu), 32-row / 32-key
+//     sub-tiles staged as fp32.
 
 #include "flash_common.cuh"
 #include "sparse_sm90.cuh"
+#include "tf32_sm90.cuh"
 
 namespace fat {
 
@@ -500,18 +505,19 @@ struct SparseDqCfg {
       1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARS;
 };
 
-// The 64-row tiles [first, end) of the q block starting at row r_lo whose
-// rows can see keys from c0 on.
+// The tiles of `rows` rows [first, end) of the q block starting at row r_lo
+// whose rows can see keys from c0 on.
 struct RowTiles {
   int first, end;
 };
 
 __device__ __forceinline__ RowTiles row_tiles(const AttnArgs& a, int r_lo,
-                                              int block_q, int c0) {
+                                              int block_q, int c0,
+                                              int rows = kSpRows) {
   const int r_hi = min(r_lo + block_q, a.Nq);
   // rows below c0 - offset see none of the CTA's keys
   const int r_begin = a.causal ? max(r_lo, c0 - a.offset) : r_lo;
-  return {r_begin >= r_hi ? r_hi : r_lo + (r_begin - r_lo) / kSpRows * kSpRows,
+  return {r_begin >= r_hi ? r_hi : r_lo + (r_begin - r_lo) / rows * rows,
           r_hi};
 }
 
@@ -970,6 +976,552 @@ cudaError_t sparse_bwd_sm90(const AttnArgs& a, const Lists& s,
                                      st);
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 tensor-core route (3xTF32, D <= 128, blocks multiples of 64)
+// ---------------------------------------------------------------------------
+//
+// flash_bwd.cu's fp32 kernels (every product in 3xTF32, tf32_sm90.cuh) with
+// the list walks above: resident operands (K and V in dkv; q and dO in dq)
+// land by TMA and are split in place (big) and into a small part once;
+// streamed tiles land in their stage, and warps 1-3 of the producer
+// warpgroup transpose (for the products that read them MN-major) and split
+// them, then release the stage. q is split unscaled: s = (q·k) * scale, and
+// dK, dQ are scaled at the store, as the bf16 route. Shared memory holds
+// ~225 KB where NC = 2 or D = 128:
+//   dkv: 64 keys per consumer (NC = 2 only at D <= 64 where block_k % 128
+//     == 0, so a CTA never spans two KV blocks), K and V in two parts
+//     resident (128 KB); for each (query head, q block of the transposed
+//     list) step of the walk, tiles of 16 of the block's rows that can see
+//     the CTA's keys: q and dO in two parts, and qᵀ and dOᵀ in two parts,
+//     padded to 32 columns, per stage (48 KB at D = 64, two stages; 96 KB at
+//     D = 128, one stage).
+//   dq: 64 query rows per consumer (NC = 2 only at D <= 64 where block_q %
+//     128 == 0), q and dO in two parts resident (128 KB); K and V sub-tiles
+//     of 32 keys in two parts and Kᵀ in two parts per stage, over the q
+//     block's list up to the causal stop (48 KB at D = 64, two stages; 96 KB
+//     at D = 128, one stage).
+
+template <int DP, int NC>
+struct SparseDkvF32Cfg {
+  static_assert(DP <= 128 && (NC == 1 || DP <= 64), "fp32: D <= 128");
+  static constexpr int KEYS = 64 * NC;  // keys per CTA
+  static constexpr int R = 16;          // query rows per step
+  static constexpr int STAGES = DP <= 64 ? 2 : 1;
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int KV_BYTES = KEYS * DP * 4;  // K or V, one part
+  static constexpr int T_BYTES = R * DP * 4;      // q or dO, one part
+  static constexpr int TT_BYTES = transposed_bytes<R, DP>();  // qᵀ, dOᵀ
+  // stage: q big, q small, dO big, dO small, qᵀ b, s, dOᵀ b, s
+  static constexpr int STAGE_BYTES = 4 * T_BYTES + 4 * TT_BYTES;
+  static constexpr int BARS = 2 + 3 * STAGES;
+  static constexpr size_t SMEM = 1024 + 4 * KV_BYTES + STAGES * STAGE_BYTES +
+                                 2 * STAGES * R * 4 + 8 * BARS;
+};
+
+template <int DP, int NC>
+struct SparseDqF32Cfg {
+  static_assert(DP <= 128 && (NC == 1 || DP <= 64), "fp32: D <= 128");
+  static constexpr int ROWS = 64 * NC;  // query rows per CTA
+  static constexpr int KEYS = 32;       // keys per step
+  static constexpr int STAGES = DP <= 64 ? 2 : 1;
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int Q_BYTES = ROWS * DP * 4;  // q or dO, one part
+  static constexpr int T_BYTES = KEYS * DP * 4;  // K, V or Kᵀ, one part
+  static_assert(transposed_bytes<KEYS, DP>() == T_BYTES, "Kᵀ tile size");
+  // stage: K big, K small, V big, V small, Kᵀ big, Kᵀ small
+  static constexpr int STAGE_BYTES = 6 * T_BYTES;
+  static constexpr int BARS = 2 + 3 * STAGES;
+  static constexpr size_t SMEM =
+      1024 + 4 * Q_BYTES + STAGES * STAGE_BYTES + 8 * BARS;
+};
+
+template <int DP, int NC>
+__global__ void __launch_bounds__(SparseDkvF32Cfg<DP, NC>::THREADS, 1)
+sparse_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               AttnArgs a, const float* __restrict__ lse,
+                               const float* __restrict__ di,
+                               const int32_t* __restrict__ q_list,
+                               const int32_t* __restrict__ q_count,
+                               int stride, int block_q, int block_k,
+                               float* __restrict__ dk, float* __restrict__ dv) {
+  using Cfg = SparseDkvF32Cfg<DP, NC>;
+  constexpr int KEYS = Cfg::KEYS, R = Cfg::R, STAGES = Cfg::STAGES;
+  constexpr int KVB = Cfg::KV_BYTES, TB = Cfg::T_BYTES, TT = Cfg::TT_BYTES;
+  // Heavy first, as the bf16 route: the KV blocks from the first one.
+  const int sub = block_k / KEYS;
+  const int ik = blockIdx.z / sub;
+  const int c0 = ik * block_k + (blockIdx.z % sub) * KEYS;
+  const int c_end = min(ik * block_k + block_k, a.Nk);  // this KV block's keys
+  if (c0 >= c_end) return;
+
+  extern __shared__ char smem_raw[];
+  char* kb = align_1024(smem_raw);  // [DP/32][KEYS][32] fp32
+  char* ks = kb + KVB;
+  char* vb = ks + KVB;
+  char* vs = vb + KVB;
+  char* stage0 = vs + KVB;
+  float* lse_s = reinterpret_cast<float*>(stage0 + STAGES * Cfg::STAGE_BYTES);
+  float* di_s = lse_s + STAGES * R;
+  uint64_t* kv_landed = reinterpret_cast<uint64_t*>(di_s + STAGES * R);
+  uint64_t* kv_ready = kv_landed + 1;
+  uint64_t* landed = kv_ready + 1;
+  uint64_t* ready = landed + STAGES;
+  uint64_t* empty = ready + STAGES;
+
+  const int b = blockIdx.y, hk = blockIdx.x;
+  const int G = a.H / a.H_kv;
+  const int n_active = q_count[ik];
+  const int32_t* blocks = q_list + (size_t)ik * stride;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_landed, 1);
+    mbar_init(kv_ready, kPrepThreads);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&landed[s], 1);
+      mbar_init(&ready[s], kPrepThreads);
+      mbar_init(&empty[s], 128 * NC);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer
+    if constexpr (NC == 2) reg_dealloc<kProducerRegs32>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int g = 0; g < G; ++g) {
+        const int plane = b * a.H + hk * G + g;
+        for (int w = 0; w < n_active; ++w) {
+          const RowTiles rt =
+              row_tiles(a, blocks[w] * block_q, block_q, c0, R);
+          for (int r0 = rt.first; r0 < rt.end; r0 += R, ++it) {
+            if (it == 0) {
+              mbar_expect_tx(kv_landed, 2 * KVB);
+              tma_tile32<KEYS, DP>(kb, &tk, kv_landed, c0, b * a.H_kv + hk);
+              tma_tile32<KEYS, DP>(vb, &tv, kv_landed, c0, b * a.H_kv + hk);
+            }
+            const int s = it % STAGES;
+            char* st = stage0 + s * Cfg::STAGE_BYTES;
+            mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+            mbar_expect_tx(&landed[s], 2 * TB);
+            tma_tile32<R, DP>(st, &tq, &landed[s], r0, plane);
+            tma_tile32<R, DP>(st + 2 * TB, &tdo, &landed[s], r0, plane);
+          }
+        }
+      }
+    } else if (threadIdx.x >= 32) {
+      const int tid = threadIdx.x - 32;
+      int it = 0;
+      for (int g = 0; g < G; ++g) {
+        const int plane = b * a.H + hk * G + g;
+        for (int w = 0; w < n_active; ++w) {
+          const RowTiles rt =
+              row_tiles(a, blocks[w] * block_q, block_q, c0, R);
+          for (int r0 = rt.first; r0 < rt.end; r0 += R, ++it) {
+            if (it == 0) {
+              mbar_wait(kv_landed, 0);
+              split_tile(kb, kb, ks, KVB, 1.f, tid, kPrepThreads);
+              split_tile(vb, vb, vs, KVB, 1.f, tid, kPrepThreads);
+              fence_proxy_async();
+              mbar_arrive(kv_ready);
+            }
+            const int s = it % STAGES;
+            char* st = stage0 + s * Cfg::STAGE_BYTES;
+            char* tt = st + 4 * TB;  // qᵀ b, s, dOᵀ b, s
+            // The stage is free once its tiles have landed (thread 0
+            // waited for the consumers before loading them).
+            mbar_wait(&landed[s], (it / STAGES) & 1);
+            for (int j = tid; j < R; j += kPrepThreads) {
+              const int row = r0 + j;
+              const size_t at = (size_t)plane * a.Nq + row;
+              lse_s[s * R + j] = row < a.Nq ? lse[at] : 0.f;
+              di_s[s * R + j] = row < a.Nq ? di[at] : 0.f;
+            }
+            // qᵀ and dOᵀ from the landed tiles, then (once every thread
+            // has read them) both split in place.
+            transpose_split<R, DP>(st, tt, tt + TT, 1.f, tid, kPrepThreads);
+            transpose_split<R, DP>(st + 2 * TB, tt + 2 * TT, tt + 3 * TT,
+                                   1.f, tid, kPrepThreads);
+            named_sync(1, kPrepThreads);
+            split_tile(st, st, st + TB, TB, 1.f, tid, kPrepThreads);
+            split_tile(st + 2 * TB, st + 2 * TB, st + 3 * TB, TB, 1.f, tid,
+                       kPrepThreads);
+            fence_proxy_async();
+            mbar_arrive(&ready[s]);
+          }
+        }
+      }
+    }
+  } else {  // consumers: 64 keys each
+    if constexpr (NC == 2) reg_alloc<kConsumerRegs32>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int key0 = c0 + 64 * cw;
+    float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    int it = 0;
+    for (int g = 0; g < G; ++g) {
+      for (int w = 0; w < n_active; ++w) {
+        const RowTiles rt = row_tiles(a, blocks[w] * block_q, block_q, c0, R);
+        for (int r0 = rt.first; r0 < rt.end; r0 += R, ++it) {
+          const int s = it % STAGES;
+          const char* st = stage0 + s * Cfg::STAGE_BYTES;
+          const char* tt = st + 4 * TB;
+          const float* ls = lse_s + s * R;
+          const float* di_t = di_s + s * R;
+          if (it == 0) mbar_wait(kv_ready, 0);
+
+          // Sᵀ = K·qᵀ and dPᵀ = V·dOᵀ (64 keys x R rows each). The
+          // resident tiles' addresses pass through an empty asm each step:
+          // else ptxas keeps their 4 DP / 8 descriptors live across the
+          // walk, and at D = 128 that spilled (255 registers; 202 so).
+          const char *kb_ = kb, *ks_ = ks, *vb_ = vb, *vs_ = vs;
+          asm volatile("" : "+l"(kb_), "+l"(ks_), "+l"(vb_), "+l"(vs_));
+          float sct[R / 2], dpt[R / 2];
+          mbar_wait(&ready[s], (it / STAGES) & 1);
+          wgmma_fence();
+          mma3_ss<KEYS, R, DP / 8>(sct, kb_, ks_, 64 * cw, st, st + TB);
+          mma3_ss<KEYS, R, DP / 8>(dpt, vb_, vs_, 64 * cw, st + 2 * TB,
+                                   st + 3 * TB);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sct);
+          fence_regs(dpt);
+
+          // Interior: every (key, row) pair kept; else the mask per element.
+          const bool interior =
+              key0 + 63 < c_end && r0 + R - 1 < a.Nq &&
+              (!a.causal || key0 + 63 <= r0 + a.offset);
+          auto loop = [&](auto in) {
+#pragma unroll
+            for (int i = 0; i < R / 2; ++i) {
+              const int key = key0 + acc_row(t, i), j = acc_col(t, i);
+              const int row = r0 + j;
+              const bool vis = decltype(in)::value ||
+                               (row < a.Nq && kept(a, row, key, c_end));
+              const float p = vis ? expf(sct[i] * a.scale - ls[j]) : 0.f;
+              sct[i] = p;
+              dpt[i] = p * (dpt[i] - di_t[j]);
+            }
+          };
+          if (interior) {
+            loop(Int<1>{});
+          } else {
+            loop(Int<0>{});
+          }
+          uint32_t pb[R / 8][4], ps[R / 8][4], db[R / 8][4], dsm[R / 8][4];
+          acc_to_tf32_a<R>(sct, pb, ps);
+          acc_to_tf32_a<R>(dpt, db, dsm);
+
+          // dV += pᵀ·dO and dK += dsᵀ·q, against dOᵀ and qᵀ.
+          wgmma_fence();
+          fence_regs(dv_acc);
+          fence_regs(dk_acc);
+          mma3_rs<DP, R / 8>(dv_acc, pb, ps, tt + 2 * TT, tt + 3 * TT);
+          mma3_rs<DP, R / 8>(dk_acc, db, dsm, tt, tt + TT);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dv_acc);
+          fence_regs(dk_acc);
+          keep_regs(pb);
+          keep_regs(ps);
+          keep_regs(db);
+          keep_regs(dsm);
+          mbar_arrive(&empty[s]);
+        }
+      }
+    }
+
+    // Keys of a KV block no q block visits write zeros.
+    const size_t kv_off = ((size_t)b * a.H_kv + hk) * a.Nk;
+#pragma unroll
+    for (int i = 0; i < DP / 2; i += 2) {
+      const int key = key0 + acc_row(t, i), col = acc_col(t, i);
+      if (key < c_end && col < a.D) {
+        const size_t at = (kv_off + key) * a.D + col;
+        *reinterpret_cast<float2*>(dk + at) =
+            make_float2(dk_acc[i] * a.scale, dk_acc[i + 1] * a.scale);
+        *reinterpret_cast<float2*>(dv + at) =
+            make_float2(dv_acc[i], dv_acc[i + 1]);
+      }
+    }
+  }
+}
+
+template <int DP, int NC>
+__global__ void __launch_bounds__(SparseDqF32Cfg<DP, NC>::THREADS, 1)
+sparse_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              AttnArgs a, const float* __restrict__ lse,
+                              const float* __restrict__ di,
+                              const int32_t* __restrict__ kv_list,
+                              const int32_t* __restrict__ kv_count, int stride,
+                              int block_q, int block_k,
+                              float* __restrict__ dq) {
+  using Cfg = SparseDqF32Cfg<DP, NC>;
+  constexpr int ROWS = Cfg::ROWS, KEYS = Cfg::KEYS, STAGES = Cfg::STAGES;
+  constexpr int QB = Cfg::Q_BYTES, TB = Cfg::T_BYTES;
+  // Heavy first, as the forward: the q blocks from the last one.
+  const int sub = block_q / ROWS;
+  const int iq = (a.Nq + block_q - 1) / block_q - 1 - blockIdx.z / sub;
+  const int r0 = iq * block_q + (blockIdx.z % sub) * ROWS;
+  const int r_end = min(iq * block_q + block_q, a.Nq);  // this q block's rows
+  if (r0 >= r_end) return;
+
+  extern __shared__ char smem_raw[];
+  char* qb = align_1024(smem_raw);  // [DP/32][ROWS][32] fp32
+  char* qs = qb + QB;
+  char* dob = qs + QB;
+  char* dos = dob + QB;
+  char* stage0 = dos + QB;  // [STAGES][K b, s, V b, s, Kᵀ b, s]
+  uint64_t* q_landed =
+      reinterpret_cast<uint64_t*>(stage0 + STAGES * Cfg::STAGE_BYTES);
+  uint64_t* q_ready = q_landed + 1;
+  uint64_t* landed = q_ready + 1;
+  uint64_t* ready = landed + STAGES;
+  uint64_t* empty = ready + STAGES;
+
+  const int b = blockIdx.y, h = blockIdx.x;
+  const int hk = h / (a.H / a.H_kv);
+  const ListWalk walk = list_walk(a, kv_list, kv_count, stride, iq, block_k,
+                                  min(r0 + ROWS, r_end) - 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_landed, 1);
+    mbar_init(q_ready, kPrepThreads);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&landed[s], 1);
+      mbar_init(&ready[s], kPrepThreads);
+      mbar_init(&empty[s], 128 * NC);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer
+    if constexpr (NC == 2) reg_dealloc<kProducerRegs32>();
+    if (threadIdx.x == 0) {
+      const int kplane = b * a.H_kv + hk;
+      int it = 0;
+      for (int w = 0; w < walk.n_active; ++w) {
+        for (int c0 = walk.lo(w); c0 < walk.stop_of(w); c0 += KEYS, ++it) {
+          if (it == 0) {
+            mbar_expect_tx(q_landed, 2 * QB);
+            tma_tile32<ROWS, DP>(qb, &tq, q_landed, r0, b * a.H + h);
+            tma_tile32<ROWS, DP>(dob, &tdo, q_landed, r0, b * a.H + h);
+          }
+          const int s = it % STAGES;
+          char* st = stage0 + s * Cfg::STAGE_BYTES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&landed[s], 2 * TB);
+          tma_tile32<KEYS, DP>(st, &tk, &landed[s], c0, kplane);
+          tma_tile32<KEYS, DP>(st + 2 * TB, &tv, &landed[s], c0, kplane);
+        }
+      }
+    } else if (threadIdx.x >= 32) {
+      const int tid = threadIdx.x - 32;
+      int it = 0;
+      for (int w = 0; w < walk.n_active; ++w) {
+        for (int c0 = walk.lo(w); c0 < walk.stop_of(w); c0 += KEYS, ++it) {
+          if (it == 0) {
+            mbar_wait(q_landed, 0);
+            split_tile(qb, qb, qs, QB, 1.f, tid, kPrepThreads);
+            split_tile(dob, dob, dos, QB, 1.f, tid, kPrepThreads);
+            fence_proxy_async();
+            mbar_arrive(q_ready);
+          }
+          const int s = it % STAGES;
+          char* st = stage0 + s * Cfg::STAGE_BYTES;
+          mbar_wait(&landed[s], (it / STAGES) & 1);
+          // Kᵀ from the landed K, V split; K split in place once every
+          // thread has read it.
+          transpose_split<KEYS, DP>(st, st + 4 * TB, st + 5 * TB, 1.f, tid,
+                                    kPrepThreads);
+          split_tile(st + 2 * TB, st + 2 * TB, st + 3 * TB, TB, 1.f, tid,
+                     kPrepThreads);
+          named_sync(1, kPrepThreads);
+          split_tile(st, st, st + TB, TB, 1.f, tid, kPrepThreads);
+          fence_proxy_async();
+          mbar_arrive(&ready[s]);
+        }
+      }
+    }
+  } else {  // consumers: 64 query rows each
+    if constexpr (NC == 2) reg_alloc<kConsumerRegs32>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int row0 = r0 + 64 * cw;
+    const size_t bh = (size_t)b * a.H + h;
+    float lse_r[2], di_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + acc_row(t, 2 * r);
+      lse_r[r] = row < a.Nq ? lse[bh * a.Nq + row] : 0.f;
+      di_r[r] = row < a.Nq ? di[bh * a.Nq + row] : 0.f;
+    }
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+    int it = 0;
+    for (int w = 0; w < walk.n_active; ++w) {
+      const int c_end = walk.end(w);
+      for (int c0 = walk.lo(w); c0 < walk.stop_of(w); c0 += KEYS, ++it) {
+        const int s = it % STAGES;
+        const char* st = stage0 + s * Cfg::STAGE_BYTES;
+        if (it == 0) mbar_wait(q_ready, 0);
+
+        float sc[KEYS / 2], dp[KEYS / 2];  // S and dP: 64 rows x KEYS
+        mbar_wait(&ready[s], (it / STAGES) & 1);
+        wgmma_fence();
+        mma3_ss<ROWS, KEYS, DP / 8>(sc, qb, qs, 64 * cw, st, st + TB);
+        mma3_ss<ROWS, KEYS, DP / 8>(dp, dob, dos, 64 * cw, st + 2 * TB,
+                                    st + 3 * TB);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        const bool interior = c0 + KEYS <= c_end &&
+                              (!a.causal || c0 + KEYS - 1 <= row0 + a.offset);
+        auto loop = [&](auto in) {
+#pragma unroll
+          for (int i = 0; i < KEYS / 2; ++i) {
+            const int r = (i >> 1) & 1;
+            const int row = row0 + acc_row(t, i), col = c0 + acc_col(t, i);
+            const bool vis = decltype(in)::value || kept(a, row, col, c_end);
+            const float p = vis ? expf(sc[i] * a.scale - lse_r[r]) : 0.f;
+            sc[i] = p * (dp[i] - di_r[r]);
+          }
+        };
+        if (interior) {
+          loop(Int<1>{});
+        } else {
+          loop(Int<0>{});
+        }
+        uint32_t db[KEYS / 8][4], dsm[KEYS / 8][4];
+        acc_to_tf32_a<KEYS>(sc, db, dsm);
+
+        wgmma_fence();
+        fence_regs(acc);
+        mma3_rs<DP, KEYS / 8>(acc, db, dsm, st + 4 * TB, st + 5 * TB);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        keep_regs(db);
+        keep_regs(dsm);
+        mbar_arrive(&empty[s]);
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + acc_row(t, 2 * r);
+      if (row >= r_end) continue;
+      const size_t base = (bh * a.Nq + row) * a.D;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = acc_col(t, 4 * n);
+        if (col < a.D) {
+          *reinterpret_cast<float2*>(dq + base + col) =
+              make_float2(acc[4 * n + 2 * r] * a.scale,
+                          acc[4 * n + 2 * r + 1] * a.scale);
+        }
+      }
+    }
+  }
+}
+
+template <int DP, int NC>
+cudaError_t launch_dkv_f32_sm90(const CUtensorMap (&maps)[4],
+                                const AttnArgs& a, const float* lse,
+                                const float* di, const Lists& s, void* dk,
+                                void* dv, cudaStream_t st) {
+  using Cfg = SparseDkvF32Cfg<DP, NC>;
+  auto kernel = sparse_bwd_dkv_f32_sm90_kernel<DP, NC>;
+  const cudaError_t err = set_smem(kernel, Cfg::SMEM);
+  if (err != cudaSuccess) return err;
+  const int n_k_blocks = (a.Nk + s.block_k - 1) / s.block_k;
+  const dim3 grid(a.H_kv, a.B, n_k_blocks * (s.block_k / Cfg::KEYS));
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, st>>>(
+      maps[0], maps[1], maps[2], maps[3], a, lse, di, s.q_list, s.q_count,
+      s.q_stride, s.block_q, s.block_k, static_cast<float*>(dk),
+      static_cast<float*>(dv));
+  return cudaGetLastError();
+}
+
+template <int DP, int NC>
+cudaError_t launch_dq_f32_sm90(const CUtensorMap (&maps)[4],
+                               const AttnArgs& a, const float* lse,
+                               const float* di, const Lists& s, void* dq,
+                               cudaStream_t st) {
+  using Cfg = SparseDqF32Cfg<DP, NC>;
+  auto kernel = sparse_bwd_dq_f32_sm90_kernel<DP, NC>;
+  const cudaError_t err = set_smem(kernel, Cfg::SMEM);
+  if (err != cudaSuccess) return err;
+  const int n_q_blocks = (a.Nq + s.block_q - 1) / s.block_q;
+  const dim3 grid(a.H, a.B, n_q_blocks * (s.block_q / Cfg::ROWS));
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, st>>>(
+      maps[0], maps[1], maps[2], maps[3], a, lse, di, s.kv_list, s.kv_count,
+      s.kv_stride, s.block_q, s.block_k, static_cast<float*>(dq));
+  return cudaGetLastError();
+}
+
+// Maps q, k, v, dout of an fp32 call, in boxes of q_rows and kv_rows rows.
+inline cudaError_t f32_maps(CUtensorMap (&maps)[4], const AttnArgs& a,
+                            const void* dout, int q_rows, int kv_rows) {
+  cudaError_t err = make_map32(&maps[0], a.q, a.B * a.H, a.Nq, a.D, q_rows);
+  if (err == cudaSuccess) {
+    err = make_map32(&maps[1], a.k, a.B * a.H_kv, a.Nk, a.D, kv_rows);
+  }
+  if (err == cudaSuccess) {
+    err = make_map32(&maps[2], a.v, a.B * a.H_kv, a.Nk, a.D, kv_rows);
+  }
+  if (err == cudaSuccess) {
+    err = make_map32(&maps[3], dout, a.B * a.H, a.Nq, a.D, q_rows);
+  }
+  return err;
+}
+
+// The fp32 dK/dV kernel, then the fp32 dQ kernel. Two consumers only at
+// D <= 64 (shared memory) and where the block holds 128 keys (dK/dV) or
+// rows (dQ), so a CTA never spans two blocks of the pattern.
+template <int DP>
+cudaError_t sparse_bwd_f32_sm90(const AttnArgs& a, const Lists& s,
+                                const void* dout, const float* lse,
+                                const float* di, void* dq, void* dk, void* dv,
+                                cudaStream_t st) {
+  using Kv = SparseDkvF32Cfg<DP, 1>;
+  using Dq = SparseDqF32Cfg<DP, 1>;
+  CUtensorMap maps[4];
+  cudaError_t err = f32_maps(maps, a, dout, box_rows<Kv::R>(), box_rows<64>());
+  if (err != cudaSuccess) return err;
+  if constexpr (DP <= 64) {
+    err = s.block_k % 128 == 0
+              ? launch_dkv_f32_sm90<DP, 2>(maps, a, lse, di, s, dk, dv, st)
+              : launch_dkv_f32_sm90<DP, 1>(maps, a, lse, di, s, dk, dv, st);
+  } else {
+    err = launch_dkv_f32_sm90<DP, 1>(maps, a, lse, di, s, dk, dv, st);
+  }
+  if (err != cudaSuccess) return err;
+  // The dQ kernel reads q and dO in tiles of 64 or 128 rows (boxes of 64),
+  // K and V of 32 (the launch above took its maps by value).
+  err = f32_maps(maps, a, dout, box_rows<64>(), box_rows<Dq::KEYS>());
+  if (err != cudaSuccess) return err;
+  if constexpr (DP <= 64) {
+    return s.block_q % 128 == 0
+               ? launch_dq_f32_sm90<DP, 2>(maps, a, lse, di, s, dq, st)
+               : launch_dq_f32_sm90<DP, 1>(maps, a, lse, di, s, dq, st);
+  } else {
+    return launch_dq_f32_sm90<DP, 1>(maps, a, lse, di, s, dq, st);
+  }
+}
+
 }  // namespace sm90
 }  // namespace fat
 
@@ -1047,6 +1599,42 @@ int fat_sparse_bwd_sm90(const void* q, const void* k, const void* v,
   auto* run = D <= 64    ? sm90::sparse_bwd_sm90<64>
               : D <= 128 ? sm90::sparse_bwd_sm90<128>
                          : sm90::sparse_bwd_sm90<256>;
+  const cudaError_t err = run(a, s, dout, l, d, dq, dk, dv, st);
+  return (int)err;
+}
+
+// The fp32 tensor-core route (3xTF32): fp32 only, D <= 128, block_q and
+// block_k multiples of 64; q, k, v and dout 16-byte aligned (TMA). Same
+// arguments as fat_sparse_bwd (dtype must be 1).
+int fat_sparse_bwd_sm90_f32(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* di,
+                            void* dq, void* dk, void* dv, const void* kv_list,
+                            const void* kv_count, const void* q_list,
+                            const void* q_count, int B, int H, int H_kv,
+                            int Nq, int Nk, int D, float scale, int causal,
+                            int block_q, int block_k, int kv_stride,
+                            int q_stride, int dtype, void* stream) {
+  using namespace fat;
+  if (dtype != 1 || D < 8 || D > 128 || D % 8 != 0 || H_kv < 1 ||
+      H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535 ||
+      block_q < 64 || block_k < 64 || block_q % 64 != 0 ||
+      block_k % 64 != 0 || kv_stride < (Nk + block_k - 1) / block_k ||
+      q_stride < (Nq + block_q - 1) / block_q || (Nq + 63) / 64 > 65535 ||
+      (Nk + 63) / 64 > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AttnArgs a{q, k, v, nullptr, nullptr, nullptr, B, H, H_kv, Nq, Nk, D, scale,
+             causal, Nk - Nq, 0, 0, 0.f, 0.f, 0, 0u, 0u, 1.f};
+  const Lists s{static_cast<const int32_t*>(kv_list),
+                static_cast<const int32_t*>(kv_count),
+                static_cast<const int32_t*>(q_list),
+                static_cast<const int32_t*>(q_count),
+                kv_stride, q_stride, block_q, block_k};
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* l = static_cast<const float*>(lse);
+  const auto* d = static_cast<const float*>(di);
+  auto* run = D <= 64 ? sm90::sparse_bwd_f32_sm90<64>
+                      : sm90::sparse_bwd_f32_sm90<128>;
   const cudaError_t err = run(a, s, dout, l, d, dq, dk, dv, st);
   return (int)err;
 }

@@ -15,21 +15,23 @@
 // give o = 0 and lse = -inf; a row of a visited block that sees no key gives
 // o = 0 and lse = the mask value, as the TPU kernel does.
 //
-// Rounding point. p is rounded to bf16 at each row's final max, as the plain
-// version does, so every route walks each q block's list twice: the first
-// pass takes each row's max, the second computes p = exp(s - max), l and P.V.
-// An online softmax rounds p at the running max, and at a cancelling output
-// that difference exceeded the two-ulp limit (case d of
+// Rounding point. In bf16, p is rounded at each row's final max, as the
+// plain version does, so the bf16 routes walk each q block's list twice: the
+// first pass takes each row's max, the second computes p = exp(s - max), l
+// and P.V. An online softmax rounds p at the running max, and at a
+// cancelling output that difference exceeded the two-ulp limit (case d of
 // tests/test_torch_cuda.py). The price is a third product per element (Q.K
-// twice).
+// twice). In fp32, rounding p to v's type rounds nothing, so the fp32
+// tensor-core route walks once with an online softmax.
 //
 // What bounds it on this card: 4 D flops per kept (head, row, key) on the
-// tensor cores (989 TFLOP/s bf16) against q, the active K/V blocks, o and the
-// LSE moved once, so the operations. The grid is never sized from the counts:
-// every block reads its list and count from device memory. GQA: query head h
-// reads KV head h / (H / H_kv), so K/V are never repeated.
+// tensor cores (989 TFLOP/s bf16; 165 fp32 on 3xTF32) against q, the active
+// K/V blocks, o and the LSE moved once, so the operations. The grid is never
+// sized from the counts: every block reads its list and count from device
+// memory. GQA: query head h reads KV head h / (H / H_kv), so K/V are never
+// repeated.
 //
-// Two routes, chosen by the caller (ops/sparse_attn.py):
+// Three routes, chosen by the caller (ops/sparse_attn.py):
 //
 //   fat_sparse_fwd_sm90 (bf16, D <= 256, block_q and block_k multiples of
 //     64): every product on the tensor cores. One CTA per (64 NC query rows
@@ -55,18 +57,31 @@
 //     P.V is two n128 products over V's column halves (wgmma_rs<256>), and
 //     shared memory holds Q (32 KB a consumer) and two stages of K and V
 //     (32 KB each): 192 KB at NC = 2, 160 KB at NC = 1.
-//   fat_sparse_fwd (fp32, bf16 with blocks that are not multiples of 64):
-//     the first version, fp32 FMAs on the CUDA cores. A block of 4
-//     warps owns ROWS rows of one q block, staged once in shared memory as
-//     fp32, and walks each active KV block in 32-key sub-tiles, skipping
-//     sub-tiles wholly above the causal diagonal; a lane owns one key for
-//     the scores and output columns lane, lane + 32, ... for P.V. fp32 stays
-//     there because the tensor cores would round it to TF32, beyond the
-//     fp32 1e-4 limit; other blocks because the TMA box and a consumer's
-//     rows are 64.
+//   fat_sparse_fwd_sm90_f32 (fp32, D <= 128, block_q and block_k multiples
+//     of 64): both products in 3xTF32 (tf32_sm90.cuh: each fp32 operand
+//     split into two TF32 parts, three wgmmas a product, which keeps the
+//     fp32 1e-4 limit where one TF32 product would miss it), on the schedule
+//     of flash_fwd.cu's fp32 kernel with the list walk above: Q resident in
+//     two parts, K/V sub-tiles of 64 keys (D <= 64) or 32 (D <= 128) in two
+//     stages, warps 1-3 of the loading warpgroup splitting each landed K
+//     tile and writing Vᵀ in two parts (TF32 wgmma reads shared memory
+//     K-major only). One pass with an online softmax (above). NC = 2 only at
+//     D <= 64 where block_q % 128 == 0. A q block with count 0 issues
+//     nothing and writes o = 0, lse = -inf.
+//   fat_sparse_fwd (fp32 at 128 < D <= 256, any dtype with blocks that are
+//     not multiples of 64): the first version, fp32 FMAs on the CUDA
+//     cores. A block of 4 warps owns ROWS rows of one q block, staged once
+//     in shared memory as fp32, and walks each active KV block in 32-key
+//     sub-tiles, skipping sub-tiles wholly above the causal diagonal; a lane
+//     owns one key for the scores and output columns lane, lane + 32, ...
+//     for P.V. Other blocks stay here because the TMA box and a consumer's
+//     rows are 64; fp32 above D = 128 because two parts of its tiles do not
+//     fit beside each other (flash_fwd.cu's wide kernel is not ported to the
+//     list walk yet).
 
 #include "flash_common.cuh"
 #include "sparse_sm90.cuh"
+#include "tf32_sm90.cuh"
 
 namespace {
 
@@ -518,6 +533,266 @@ cudaError_t sparse_fwd_sm90(const AttnArgs& a, const int32_t* kv_list,
                                        block_k, o, lse, st);
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 tensor-core route (3xTF32, D <= 128, blocks multiples of 64)
+// ---------------------------------------------------------------------------
+
+// NC consumer warpgroups of 64 query rows of one q block (NC = 2 only at
+// D <= 64 where block_q % 128 == 0); K/V sub-tiles of KEYS keys in STAGES
+// stages, as flash_fwd.cu's FwdF32Cfg: Q in two parts (big, small), per
+// stage K big (where TMA lands it, split in place), K small, V as landed,
+// Vᵀ big and small. 64 + 2 x 80 KB at D = 64 (NC = 2) and at D = 128
+// (64 rows, 32 keys); 32 + 2 x 80 KB at D = 64, NC = 1. A sub-tile never
+// runs past its KV block: KEYS divides 64.
+template <int DP, int NC>
+struct SparseFwdF32Cfg {
+  static_assert(DP <= 128 && (NC == 1 || DP <= 64), "fp32: D <= 128");
+  static constexpr int ROWS = 64 * NC;
+  static constexpr int KEYS = DP <= 64 ? 64 : 32;
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int Q_BYTES = ROWS * DP * 4;  // one part
+  static constexpr int T_BYTES = KEYS * DP * 4;  // K, V or Vᵀ, one part
+  static_assert(transposed_bytes<KEYS, DP>() == T_BYTES, "Vᵀ tile size");
+  static constexpr int STAGE_BYTES = 5 * T_BYTES;
+  static constexpr int BARS = 2 + 3 * STAGES;
+  static constexpr size_t SMEM =
+      1024 + 2 * Q_BYTES + STAGES * STAGE_BYTES + 8 * BARS;
+};
+
+// Warpgroup 0: thread 0 issues TMA (Q at the first sub-tile, then K and V
+// per sub-tile of the list walk); warps 1-3 split Q and each landed K tile
+// in place (big) and into small, and transpose and split V into Vᵀ, then
+// release the stage. Consumers: S = Q·Kᵀ in 3xTF32, the element mask and
+// an online softmax (in fp32, p rounded to v's type rounds nothing, so one
+// pass meets the plain version's final-max frame within the fp32 limit),
+// p split in registers as the A operands of O += P·V against Vᵀ.
+template <int DP, int NC>
+__global__ void __launch_bounds__(SparseFwdF32Cfg<DP, NC>::THREADS, 1)
+sparse_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, AttnArgs a,
+                           const int32_t* __restrict__ kv_list,
+                           const int32_t* __restrict__ kv_count, int stride,
+                           int block_q, int block_k, float* __restrict__ o,
+                           float* __restrict__ lse) {
+  using Cfg = SparseFwdF32Cfg<DP, NC>;
+  constexpr int ROWS = Cfg::ROWS, KEYS = Cfg::KEYS, STAGES = Cfg::STAGES;
+  constexpr int TB = Cfg::T_BYTES;
+  // Heavy first, as the bf16 route: the q blocks from the last one.
+  const int sub = block_q / ROWS;
+  const int iq = (a.Nq + block_q - 1) / block_q - 1 - blockIdx.z / sub;
+  const int r0 = iq * block_q + (blockIdx.z % sub) * ROWS;
+  const int r_end = min(iq * block_q + block_q, a.Nq);  // this q block's rows
+  if (r0 >= r_end) return;
+
+  extern __shared__ char smem_raw[];
+  char* qb = align_1024(smem_raw);  // [DP/32][ROWS][32] fp32
+  char* qs = qb + Cfg::Q_BYTES;
+  char* stage0 = qs + Cfg::Q_BYTES;  // [STAGES][K big, K small, V, Vᵀ b, s]
+  uint64_t* q_landed =
+      reinterpret_cast<uint64_t*>(stage0 + STAGES * Cfg::STAGE_BYTES);
+  uint64_t* q_ready = q_landed + 1;
+  uint64_t* landed = q_ready + 1;
+  uint64_t* ready = landed + STAGES;
+  uint64_t* empty = ready + STAGES;
+
+  const int b = blockIdx.y, h = blockIdx.x;
+  const int hk = h / (a.H / a.H_kv);
+  const ListWalk walk = list_walk(a, kv_list, kv_count, stride, iq, block_k,
+                                  min(r0 + ROWS, r_end) - 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_landed, 1);
+    mbar_init(q_ready, kPrepThreads);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&landed[s], 1);
+      mbar_init(&ready[s], kPrepThreads);
+      mbar_init(&empty[s], 128 * NC);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer
+    if constexpr (NC == 2) reg_dealloc<kProducerRegs32>();
+    if (threadIdx.x == 0) {
+      const int kplane = b * a.H_kv + hk;
+      int it = 0;
+      for (int w = 0; w < walk.n_active; ++w) {
+        for (int c0 = walk.lo(w); c0 < walk.stop_of(w); c0 += KEYS, ++it) {
+          if (it == 0) {
+            mbar_expect_tx(q_landed, Cfg::Q_BYTES);
+            tma_tile32<ROWS, DP>(qb, &tq, q_landed, r0, b * a.H + h);
+          }
+          const int s = it % STAGES;
+          char* st = stage0 + s * Cfg::STAGE_BYTES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&landed[s], 2 * TB);
+          tma_tile32<KEYS, DP>(st, &tk, &landed[s], c0, kplane);
+          tma_tile32<KEYS, DP>(st + 2 * TB, &tv, &landed[s], c0, kplane);
+        }
+      }
+    } else if (threadIdx.x >= 32) {
+      const int tid = threadIdx.x - 32;
+      int it = 0;
+      for (int w = 0; w < walk.n_active; ++w) {
+        for (int c0 = walk.lo(w); c0 < walk.stop_of(w); c0 += KEYS, ++it) {
+          if (it == 0) {
+            mbar_wait(q_landed, 0);
+            split_tile(qb, qb, qs, Cfg::Q_BYTES, 1.f, tid, kPrepThreads);
+            fence_proxy_async();
+            mbar_arrive(q_ready);
+          }
+          const int s = it % STAGES;
+          char* st = stage0 + s * Cfg::STAGE_BYTES;
+          mbar_wait(&landed[s], (it / STAGES) & 1);
+          split_tile(st, st, st + TB, TB, 1.f, tid, kPrepThreads);
+          transpose_split<KEYS, DP>(st + 2 * TB, st + 3 * TB, st + 4 * TB,
+                                    1.f, tid, kPrepThreads);
+          fence_proxy_async();
+          mbar_arrive(&ready[s]);
+        }
+      }
+    }
+  } else {  // consumers: 64 query rows each
+    if constexpr (NC == 2) reg_alloc<kConsumerRegs32>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int row0 = r0 + 64 * cw;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+    int it = 0;
+    for (int w = 0; w < walk.n_active; ++w) {
+      const int c_end = walk.end(w);
+      for (int c0 = walk.lo(w); c0 < walk.stop_of(w); c0 += KEYS, ++it) {
+        const int s = it % STAGES;
+        const char* st = stage0 + s * Cfg::STAGE_BYTES;
+        if (it == 0) mbar_wait(q_ready, 0);
+
+        float sc[KEYS / 2];  // S: 64 rows x KEYS
+        mbar_wait(&ready[s], (it / STAGES) & 1);
+        wgmma_fence();
+        mma3_ss<ROWS, KEYS, DP / 8>(sc, qb, qs, 64 * cw, st, st + TB);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+
+        // Masked scores count in the row max as the mask value and give
+        // p = 0 (held as -inf), so a row whose max is still the mask value
+        // when its first kept key arrives drops them exactly. Interior:
+        // every element kept.
+        float mx[2] = {m[0], m[1]};
+        const bool interior =
+            c0 + KEYS <= c_end &&
+            (!a.causal || c0 + KEYS - 1 <= row0 + a.offset);
+        auto loop = [&](auto in) {
+#pragma unroll
+          for (int i = 0; i < KEYS / 2; ++i) {
+            const int r = (i >> 1) & 1;
+            const int row = row0 + acc_row(t, i), col = c0 + acc_col(t, i);
+            const bool vis = decltype(in)::value || kept(a, row, col, c_end);
+            const float x = sc[i] * a.scale;
+            mx[r] = fmaxf(mx[r], vis ? x : kMaskValue);
+            sc[i] = vis ? x : -INFINITY;
+          }
+        };
+        if (interior) {
+          loop(Int<1>{});
+        } else {
+          loop(Int<0>{});
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+          const float alpha = expf(m[r] - mx[r]);
+          l[r] *= alpha;
+          m[r] = mx[r];
+#pragma unroll
+          for (int i = 0; i < DP / 2; ++i) {
+            if (((i >> 1) & 1) == r) acc[i] *= alpha;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < KEYS / 2; ++i) {
+          const float p = expf(sc[i] - m[(i >> 1) & 1]);
+          l[(i >> 1) & 1] += p;
+          sc[i] = p;
+        }
+        uint32_t pb[KEYS / 8][4], ps[KEYS / 8][4];
+        acc_to_tf32_a<KEYS>(sc, pb, ps);
+
+        wgmma_fence();
+        fence_regs(acc);
+        mma3_rs<DP, KEYS / 8>(acc, pb, ps, st + 3 * TB, st + 4 * TB);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        keep_regs(pb);
+        keep_regs(ps);
+        mbar_arrive(&empty[s]);
+      }
+    }
+
+    // Epilogue: each row's l is spread over the 4 threads of a quad. A
+    // visited block's row that met no key (or whose sub-tiles were all
+    // past the stop) holds the mask value, as the TPU kernel's masked tile
+    // max; rows of a block with count 0 keep -inf.
+    const size_t bh = (size_t)b * a.H + h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(kFull, l[r], 1);
+      l[r] += __shfl_xor_sync(kFull, l[r], 2);
+      if (walk.n_active > 0) m[r] = fmaxf(m[r], kMaskValue);
+      const int row = row0 + acc_row(t, 2 * r);
+      if (row >= r_end) continue;
+      const float l_safe = l[r] == 0.f ? 1.f : l[r];
+      const size_t base = bh * a.Nq + row;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = acc_col(t, 4 * n);
+        if (col < a.D) {
+          *reinterpret_cast<float2*>(o + base * a.D + col) =
+              make_float2(acc[4 * n + 2 * r] / l_safe,
+                          acc[4 * n + 2 * r + 1] / l_safe);
+        }
+      }
+      if ((t & 3) == 0) lse[base] = m[r] + logf(l_safe);
+    }
+  }
+}
+
+template <int DP, int NC>
+cudaError_t launch_sparse_fwd_f32_sm90(const AttnArgs& a,
+                                       const int32_t* kv_list,
+                                       const int32_t* kv_count, int stride,
+                                       int block_q, int block_k, void* o,
+                                       float* lse, cudaStream_t st) {
+  using Cfg = SparseFwdF32Cfg<DP, NC>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map32(&tq, a.q, a.B * a.H, a.Nq, a.D,
+                               box_rows<Cfg::ROWS>());
+  if (err == cudaSuccess) {
+    err = make_map32(&tk, a.k, a.B * a.H_kv, a.Nk, a.D, box_rows<Cfg::KEYS>());
+  }
+  if (err == cudaSuccess) {
+    err = make_map32(&tv, a.v, a.B * a.H_kv, a.Nk, a.D, box_rows<Cfg::KEYS>());
+  }
+  if (err != cudaSuccess) return err;
+  auto kernel = sparse_fwd_f32_sm90_kernel<DP, NC>;
+  err = set_smem(kernel, Cfg::SMEM);
+  if (err != cudaSuccess) return err;
+  const int n_q_blocks = (a.Nq + block_q - 1) / block_q;
+  const dim3 grid(a.H, a.B, n_q_blocks * (block_q / Cfg::ROWS));
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, st>>>(
+      tq, tk, tv, a, kv_list, kv_count, stride, block_q, block_k,
+      static_cast<float*>(o), lse);
+  return cudaGetLastError();
+}
+
 }  // namespace sm90
 }  // namespace fat
 
@@ -582,6 +857,42 @@ int fat_sparse_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                               block_q, block_k, o, l, st)
                  : sm90::sparse_fwd_sm90<256>(a, list, count, stride,
                                               block_q, block_k, o, l, st);
+  return (int)err;
+}
+
+// The fp32 tensor-core route (3xTF32): fp32 only, D <= 128, block_q and
+// block_k multiples of 64; q, k and v 16-byte aligned (TMA). Same arguments
+// as fat_sparse_fwd (dtype must be 1).
+int fat_sparse_fwd_sm90_f32(const void* q, const void* k, const void* v,
+                            void* o, void* lse, const void* kv_list,
+                            const void* kv_count, int B, int H, int H_kv,
+                            int Nq, int Nk, int D, float scale, int causal,
+                            int block_q, int block_k, int stride, int dtype,
+                            void* stream) {
+  using namespace fat;
+  if (dtype != 1 || D < 8 || D > 128 || D % 8 != 0 || H_kv < 1 ||
+      H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535 ||
+      block_q < 64 || block_k < 64 || block_q % 64 != 0 ||
+      block_k % 64 != 0 || stride < (Nk + block_k - 1) / block_k ||
+      (Nq + 63) / 64 > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AttnArgs a{q, k, v, nullptr, nullptr, nullptr, B, H, H_kv, Nq, Nk, D, scale,
+             causal, Nk - Nq, 0, 0, 0.f, 0.f, 0, 0u, 0u, 1.f};
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* list = static_cast<const int32_t*>(kv_list);
+  const auto* count = static_cast<const int32_t*>(kv_count);
+  auto* l = static_cast<float*>(lse);
+  // A CTA never spans two q blocks: two consumers only where a block holds
+  // 128 rows, and at D <= 64 (shared memory).
+  const cudaError_t err =
+      D > 64 ? sm90::launch_sparse_fwd_f32_sm90<128, 1>(
+                   a, list, count, stride, block_q, block_k, o, l, st)
+      : block_q % 128 == 0
+          ? sm90::launch_sparse_fwd_f32_sm90<64, 2>(a, list, count, stride,
+                                                    block_q, block_k, o, l, st)
+          : sm90::launch_sparse_fwd_f32_sm90<64, 1>(
+                a, list, count, stride, block_q, block_k, o, l, st);
   return (int)err;
 }
 

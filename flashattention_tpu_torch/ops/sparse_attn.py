@@ -12,12 +12,15 @@ without a host sync; a kernel reads its loop bound from the count.
 On CUDA tensors :func:`sparse_attention` launches ``csrc/sparse_fwd.cu``
 (counted in ``sparse_attention.fwd_launches``) and, in the backward,
 ``csrc/sparse_bwd.cu`` (a dK/dV kernel over the transposed lists, then a
-dQ kernel; ``sparse_attention.bwd_launches``). Each source has two routes,
-chosen by :func:`_tensor_core_route`: bf16 with D <= 256 and both blocks
-multiples of 64 goes to the tensor-core kernels (wgmma fed by TMA;
-``fat_sparse_fwd_sm90`` / ``fat_sparse_bwd_sm90``, also counted in
-``sparse_attention.fwd_tc_launches`` / ``bwd_tc_launches``), everything
-else to the FMA kernels (``fat_sparse_fwd`` / ``fat_sparse_bwd``). On CPU
+dQ kernel; ``sparse_attention.bwd_launches``). Each source has three routes,
+chosen by :func:`_tensor_core_route` and :func:`_entry`: with both blocks
+multiples of 64, bf16 with D <= 256 goes to the bf16 tensor-core kernels
+(wgmma fed by TMA; ``fat_sparse_fwd_sm90`` / ``fat_sparse_bwd_sm90``) and
+fp32 with D <= 128 to the fp32 ones (3xTF32 wgmma fed by TMA;
+``fat_sparse_fwd_sm90_f32`` / ``fat_sparse_bwd_sm90_f32``), both also
+counted in ``sparse_attention.fwd_tc_launches`` / ``bwd_tc_launches``;
+everything else (fp32 above D = 128, blocks that are not multiples of 64)
+to the FMA kernels (``fat_sparse_fwd`` / ``fat_sparse_bwd``). On CPU
 tensors it runs the plain versions :func:`sparse_fwd_plain` and
 :func:`sparse_bwd_plain`. Nothing falls back: a CUDA input the kernels do
 not take (fp16, a head dim above 256, tensors on different devices; a
@@ -214,13 +217,33 @@ def _shape_args(q, k, spec: SparseSpec):
 
 
 def _tensor_core_route(dtype, d: int, spec: SparseSpec) -> bool:
-    """True where the tensor-core kernels take the call: bf16 with
-    D <= 256 and ``block_q``, ``block_k`` multiples of 64 (the TMA box and
-    a consumer warpgroup's rows); above D = 128 the dK/dV kernel splits the
-    head dim between its two consumers. fp32 would round to TF32 on the
-    tensor cores (beyond its 1e-4 limit), so it keeps the FMA kernels."""
-    return (dtype == torch.bfloat16 and d <= MAX_HEAD_DIM
+    """True where the tensor-core kernels take the call: ``block_q`` and
+    ``block_k`` multiples of 64 (the TMA box and a consumer warpgroup's
+    rows), with bf16 up to D = 256 (above D = 128 the dK/dV kernel splits
+    the head dim between its two consumers) or fp32 up to D = 128 (3xTF32:
+    each operand split into two TF32 parts, which keeps the fp32 1e-4
+    limit). fp32 above D = 128 keeps the FMA kernels."""
+    limit = MAX_HEAD_DIM if dtype == torch.bfloat16 else 128
+    return (dtype in _DTYPE_CODE and d <= limit
             and spec.block_q % 64 == 0 and spec.block_k % 64 == 0)
+
+
+def _entry(part: str, dtype, tc: bool) -> str:
+    """The C entry point of ``part`` ("fwd" or "bwd") on a route: the FMA
+    kernels', or the bf16 or fp32 tensor-core kernels'."""
+    if not tc:
+        return f"fat_sparse_{part}"
+    return f"fat_sparse_{part}_sm90" + ("_f32" if dtype == torch.float32
+                                        else "")
+
+
+def route_kernels(dtype, d: int, spec: SparseSpec) -> frozenset[str]:
+    """The ``__global__`` kernels a forward and a backward call launch (their
+    names in a profiler trace)."""
+    tc = _tensor_core_route(dtype, d, spec)
+    tag = ("_f32_sm90" if dtype == torch.float32 else "_sm90") if tc else ""
+    return frozenset(f"sparse_{k}{tag}_kernel"
+                     for k in ("fwd", "bwd_dkv", "bwd_dq"))
 
 
 def _fwd_cuda(q, k, v, active, spec: SparseSpec):
@@ -234,8 +257,7 @@ def _fwd_cuda(q, k, v, active, spec: SparseSpec):
     kv_list, kv_count = compact_rows(active)
     lib = _build.load_kernel("sparse_fwd", _declare_fwd)
     tc = _tensor_core_route(q.dtype, d, spec)
-    fn = lib.fat_sparse_fwd_sm90 if tc else lib.fat_sparse_fwd
-    err = fn(
+    err = getattr(lib, _entry("fwd", q.dtype, tc))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         kv_list.data_ptr(), kv_count.data_ptr(), *_shape_args(q, k, spec),
         kv_list.shape[1], _DTYPE_CODE[q.dtype],
@@ -257,8 +279,7 @@ def _bwd_cuda(q, k, v, do, lse, di, active, spec: SparseSpec):
     q_list, q_count = compact_rows(active.t())
     lib = _build.load_kernel("sparse_bwd", _declare_bwd)
     tc = _tensor_core_route(q.dtype, q.shape[3], spec)
-    fn = lib.fat_sparse_bwd_sm90 if tc else lib.fat_sparse_bwd
-    err = fn(
+    err = getattr(lib, _entry("bwd", q.dtype, tc))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), kv_list.data_ptr(), kv_count.data_ptr(),
@@ -276,14 +297,16 @@ _SHAPE_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3
 
 def _declare_fwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.fat_sparse_fwd, lib.fat_sparse_fwd_sm90):
+    for fn in (lib.fat_sparse_fwd, lib.fat_sparse_fwd_sm90,
+               lib.fat_sparse_fwd_sm90_f32):
         fn.restype = ctypes.c_int
         fn.argtypes = [p] * 7 + _SHAPE_ARGTYPES + [i, i, p]
 
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.fat_sparse_bwd, lib.fat_sparse_bwd_sm90):
+    for fn in (lib.fat_sparse_bwd, lib.fat_sparse_bwd_sm90,
+               lib.fat_sparse_bwd_sm90_f32):
         fn.restype = ctypes.c_int
         fn.argtypes = [p] * 13 + _SHAPE_ARGTYPES + [i, i, i, p]
 

@@ -1520,9 +1520,10 @@ def random_pattern(n_q_tiles, n_k_tiles, density, empty_row, seed=0):
 
 # name: ((b, h, h_kv, n_q, n_k, d), dtype, causal, (block_q, block_k),
 # pattern, use dlse); chip_smoke.py's sparse cases (a)-(d) at reduced sizes,
-# plus ragged block and head-dim edges with masked rows, in fp32 (the FMA
-# route) and in bf16 (the tensor-core route wherever D <= 256 and both
-# blocks are multiples of 64).
+# plus ragged block and head-dim edges with masked rows, in fp32 (the 3xTF32
+# tensor-core route wherever D <= 128 and both blocks are multiples of 64,
+# else the FMA route) and in bf16 (the tensor-core route wherever D <= 256
+# and both blocks are multiples of 64).
 SPARSE_CASES = {
     "a_model": ((2, 12, 12, 1024, 1024, 64), torch.bfloat16, True, (128, 128),
                 local_global(8), False),
@@ -1568,11 +1569,23 @@ SPARSE_CASES = {
     # of 12 heads): chip_smoke.py's case (h) at a reduced N
     "l_bf16_d256_gqa12": ((1, 24, 2, 1024, 1024, 256), torch.bfloat16, True,
                           (128, 128), local_global(8), False),
+    # fp32 on the 3xTF32 tensor-core kernels: D = 128 with GQA, N_q != N_k,
+    # 64-row q blocks and 128-key blocks (one consumer everywhere, a KV
+    # block over two dK/dV CTAs), an emptied q-block row and an LSE
+    # cotangent (chip_smoke.py's case (j)); the model call at N = 1024 on
+    # tiles of 128 (two consumers: chip_smoke.py's case (i) cut in N)
+    "m_fp32_d128_gqa_ragged": ((2, 8, 2, 384, 512, 128), torch.float32, True,
+                               (64, 128), local_global(6)[:, :4]
+                               & (torch.arange(6) != 2)[:, None], True),
+    "n_fp32_model": ((2, 12, 12, 1024, 1024, 64), torch.float32, True,
+                     (128, 128), local_global(8), False),
 }
 # The cases the tensor-core route takes; the others stay on the FMA kernels.
-SPARSE_TENSOR_CORE = {"a_model", "b_d128", "d_nq_ne_nk", "g_bf16_gqa_ragged",
-                      "h_bf16_d128_masked_rows", "j_bf16_d256_masked_rows",
-                      "k_bf16_d136_gqa_ragged", "l_bf16_d256_gqa12"}
+SPARSE_TENSOR_CORE = {"a_model", "b_d128", "c_gqa_ragged", "d_nq_ne_nk",
+                      "g_bf16_gqa_ragged", "h_bf16_d128_masked_rows",
+                      "j_bf16_d256_masked_rows", "k_bf16_d136_gqa_ragged",
+                      "l_bf16_d256_gqa12", "m_fp32_d128_gqa_ragged",
+                      "n_fp32_model"}
 
 
 def _sparse_case(name, device):
@@ -1633,11 +1646,12 @@ def test_sparse_kernels_match_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["a_model", "j_bf16_d256_masked_rows"])
+@pytest.mark.parametrize("case", ["a_model", "j_bf16_d256_masked_rows",
+                                  "m_fp32_d128_gqa_ragged", "n_fp32_model"])
 def test_sparse_bf16_backward_is_deterministic(cuda_device, case):
-    """The tensor-core sparse backward at the model case and at D = 256,
-    twice: bit-equal gradients (no atomics, so no dependence on block
-    order)."""
+    """The tensor-core sparse backward at the model case and at D = 256 in
+    bf16, and on the fp32 (3xTF32) route, twice: bit-equal gradients (no
+    atomics, so no dependence on block order)."""
     sa, q, k, v, do, dlse, _, spec, active = _sparse_case(case, cuda_device)
     o, lse = sa.sparse_fwd(q, k, v, active, spec)
     t0 = sa.sparse_attention.bwd_tc_launches
@@ -1650,7 +1664,8 @@ def test_sparse_bf16_backward_is_deterministic(cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["a_model", "j_bf16_d256_masked_rows"])
+@pytest.mark.parametrize("case", ["a_model", "j_bf16_d256_masked_rows",
+                                  "n_fp32_model"])
 @pytest.mark.parametrize("part", ["fwd", "bwd"])
 def test_sparse_tensor_core_failure_raises(cuda_device, monkeypatch, part,
                                            case):
@@ -1659,9 +1674,9 @@ def test_sparse_tensor_core_failure_raises(cuda_device, monkeypatch, part,
     sa, q, k, v, do, dlse, _, spec, active = _sparse_case(case, cuda_device)
     calls = []
 
-    class Lib:  # the tensor-core entry fails (cudaErrorInvalidValue)
+    class Lib:  # the tensor-core entries fail (cudaErrorInvalidValue)
         def __getattr__(self, name):
-            if name.endswith("_sm90"):
+            if "_sm90" in name:
                 return lambda *args: 1
             return lambda *args: calls.append(name) or 0
 

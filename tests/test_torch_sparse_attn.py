@@ -29,6 +29,9 @@ TOL = 1e-4
 LSE_TOL = 5e-3
 
 P4 = [[1, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 1]]
+# Longformer/BigBird local + global on 8 x 8 tiles: q tile i sees tiles
+# i - 3 .. i and tile 0
+LG8 = [[int(0 <= i - j < 4 or j == 0) for j in range(8)] for i in range(8)]
 # name: ((b, h, h_kv, n_q, n_k, d), pattern or None, kwargs, use dlse)
 CASES = {
     "causal_4x4": ((1, 2, 2, 512, 512, 64), P4, dict(causal=True), False),
@@ -59,6 +62,14 @@ CASES = {
     # a head dim that is not a multiple of 8: the wrapper pads it to 40
     "d36": ((1, 2, 1, 256, 256, 36), [[1, 0], [1, 1]], dict(causal=True),
             True),
+    # the fp32 tensor-core route's card cases at reduced sizes: the model
+    # call's local + global pattern on tiles of 128 (i), and D = 128 with
+    # GQA, N_q != N_k, blocks 64 x 128, an emptied q-block row and an LSE
+    # cotangent (j)
+    "i_model_fp32": ((1, 2, 2, 1024, 1024, 64), LG8, dict(causal=True),
+                     False),
+    "j_d128_gqa_ragged": ((1, 4, 2, 192, 256, 128), [[1, 0], [0, 0], [1, 1]],
+                          dict(causal=True, block_q=64, block_k=128), True),
 }
 
 
@@ -170,7 +181,7 @@ def test_rejects_like_jax():
 ROUTES = [
     (torch.bfloat16, 64, (128, 128), True),    # a_model
     (torch.bfloat16, 128, (128, 128), True),   # b_d128
-    (torch.float32, 64, (64, 64), False),      # c_gqa_ragged: fp32
+    (torch.float32, 64, (64, 64), True),       # c_gqa_ragged: 3xTF32
     (torch.bfloat16, 64, (64, 128), True),     # d_nq_ne_nk: one consumer
     (torch.float32, 40, (48, 80), False),      # e_edges_d40
     (torch.float32, 256, (128, 64), False),    # f_d256_masked_rows
@@ -183,13 +194,19 @@ ROUTES = [
     (torch.bfloat16, 136, (64, 128), True),    # k_bf16_d136_gqa_ragged
     (torch.bfloat16, 256, (128, 32), False),   # D = 256, block_k below 64
     (torch.bfloat16, 256, (128, 64), True),    # j_bf16_d256_masked_rows
+    (torch.float32, 128, (128, 128), True),    # fp32 at D = 128
+    (torch.float32, 128, (64, 128), True),     # m_fp32_d128_gqa_ragged
+    (torch.float32, 136, (64, 128), False),    # fp32 above D = 128
+    (torch.float32, 256, (128, 128), False),   # fp32 at D = 256
+    (torch.float32, 64, (128, 32), False),     # fp32, block_k below 64
 ]
 
 
 @pytest.mark.parametrize("dtype,d,blocks,tc", ROUTES)
 def test_tensor_core_route(dtype, d, blocks, tc):
-    """bf16 with D <= 256 and both blocks multiples of 64 take the
-    tensor-core kernels; fp32 and other blocks the FMA kernels."""
+    """With both blocks multiples of 64, bf16 up to D = 256 and fp32 up to
+    D = 128 (3xTF32) take the tensor-core kernels; fp32 above D = 128 and
+    other blocks the FMA kernels."""
     spec = sa.SparseSpec(causal=True, scale=0.125, block_q=blocks[0],
                          block_k=blocks[1])
     assert sa._tensor_core_route(dtype, d, spec) is tc
