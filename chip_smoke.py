@@ -16,9 +16,10 @@ Phases, in order; any failure exits nonzero:
    that split operands in registers; sparse: the same three at D 64 and
    128, each with one and two consumer warpgroups, and at D 256 the
    forward and dQ with one and two and the dK/dV one split over the head
-   dim, and the same three in fp32 on 3xTF32 at D 64 with one and two and
-   at D 128 with one; the 8-bit forward at D 64, 128 and 256 in e4m3, e5m2
-   and int8, whose int8 kernels must also show IGMMA; 53 in all) must show
+   dim, and the same three in fp32 on 3xTF32 at D 64 with one and two, at
+   D 128 with one and at D 256 the wide kernels; the 8-bit forward at D 64,
+   128 and 256 in e4m3, e5m2 and int8, whose int8 kernels must also show
+   IGMMA; 56 in all) must show
    HGMMA (wgmma) and UTMALDG (TMA) in their
    SASS (cuobjdump) and spill nothing (ptxas report of this build); the 25
    paged split kernels (10 on the lane-group walk, D <= 128 at 1 or 2 rows
@@ -86,7 +87,7 @@ Phases, in order; any failure exits nonzero:
    timed beside the FMA kernel on the same inputs, plus
    its straight-through backward (o and
    gradients at the bf16 flash limit: p is bf16 on the 8-bit path). The
-   block-sparse forward (sparse_fwd) and backward (sparse_bwd) in eleven
+   block-sparse forward (sparse_fwd) and backward (sparse_bwd) in fourteen
    cases, each launched once on the route it must take (checked by the
    route counters): the model phase's call (2, 12, 4096, 64) and the
    BASELINE head dim (1, 8, 8192, 128) with the local + global pattern,
@@ -101,9 +102,13 @@ Phases, in order; any failure exits nonzero:
    Qwen3.8-Flash-Next's block-sparse (QSA) layers, 24 query heads over 2
    KV heads (h); in fp32 on 3xTF32, phase 7d's call (i: case (a) in fp32)
    and GQA 8/2 at D = 128 with N_q != N_k, blocks 64 x 128, an emptied
-   q-block row and an LSE cotangent (j); and fp32 at D = 256 (k), which
-   the FMA kernels keep; the fp32 cases (c), (i)-(k) also name their
-   kernels under torch.profiler (those of the route, checked). o and
+   q-block row and an LSE cotangent (j); fp32 at D = 256 on the wide
+   3xTF32 kernels, GQA 8/2 at (1, 8, 2, 1024, 1024, 256) (k), phase 7e's
+   call (1, 8, 1, 4096, 4096, 256) (l: MQA, the dK/dV kernel's query-head
+   split and the sum of its partials) and case (f) in fp32 (m); and the
+   FMA route left, blocks 96 x 80 at D = 256 in fp32 with GQA (n); the fp32
+   cases (c), (i)-(n) also name their kernels under torch.profiler (those
+   of the route, with the wide route's split and sum, checked). o and
    gradients at the flash limit (fp32 1e-4), LSE
    at 1e-4 where a row sees a key, -inf exactly on empty q blocks and the mask
    value exactly on rows of visited blocks that see no key, dK = dV = 0
@@ -140,8 +145,8 @@ Phases, in order; any failure exits nonzero:
 4b. The fp8 card engine's first-token logits against the fp8 engine on the
    CPU in float32, at the FP8 rung (1e-1 abs+rel); its distance to the bf16
    card engine and their greedy agreement are reported, not gated.
-3c. Serving a head-dim-256 model: Gemma 2B's attention widths at its 18
-   layers (``gemma_serving_config``: hidden 2048, 8 query heads over 1 KV
+3c. Serving a head-dim-256 model: Gemma 2B's attention widths cut to 6 of
+   its 18 layers (``gemma_serving_config``: hidden 2048, 8 query heads over 1 KV
    head, head dim 256, d_ff 16384, rope, bf16, the port's vocab; weights
    drawn on the card from the seed), batch 32 on 16-slot pages up to 4096
    slots: 32 requests of 256-3072-token prompts, 64 new tokens each, with
@@ -205,6 +210,16 @@ Phases, in order; any failure exits nonzero:
    kernels reported); card vs CPU at N=512 and the all-ones pattern
    against the flash route at the fp32 rung (1e-4). Sparse case (i) holds
    these kernels at this call's shape.
+7e. Phase 7b in fp32 (dtype and parameters: phase 7c's model with the
+   pattern), B=1, N=4096, so every attention call runs the wide 3xTF32
+   sparse kernels at D = 256 (MQA 8/1): exactly 2 sparse_fwd per no-grad
+   forward, 4 sparse_fwd and 2 sparse_bwd per step, all on the
+   tensor-core route, no flash launch; a profiled step whose sparse
+   kernels must be the wide ones with the split of the backward's B
+   operands and the sum of the dK/dV partials (their share of the step's
+   kernels reported); card vs CPU at N=512 and the all-ones pattern
+   against the flash route at 1e-4. Sparse case (l) holds these kernels at
+   this call's shape.
 8. The speculative engine: phase 3's config with spec_gamma=4, 32 requests
    of 32-400-token prompts (phase 3's draws), 32 new tokens each, in three
    arms, each after a warm-up engine: plain (no draft; the reference
@@ -305,7 +320,9 @@ numbers of case (o), its call, with cases (m) and (n) beside them;
 steps, numbers of sparse case (g), phase 7b's call, with cases (e), (f)
 and (h) beside them; ``sparse_fwd[fp32]`` and ``sparse_bwd[fp32]``:
 launches of phase 7d's steps, numbers of sparse case (i), phase 7d's call,
-with cases (c) and (j) beside them).
+with cases (c) and (j) beside them; ``sparse_fwd[fp32_d256]`` and
+``sparse_bwd[fp32_d256]``: launches of phase 7e's steps, numbers of sparse
+case (l), phase 7e's call, with cases (k), (m) and (n) beside them).
 ``--cpu-rehearsal`` skips phases 1-2, runs the others at a tiny width on
 the CPU (phase 9's workers on the CPU, phase 10's rank over gloo) and
 never prints the device line.
@@ -1079,7 +1096,7 @@ def flash_case(timer, gen, dev, key):
     if key in FLASH_SPLIT:
         t["kernel_ms"] = kernel_split_ms(q, k, v, do, kw["causal"])
         ran = {n.split("<")[0] for n in t["kernel_ms"]}
-        if t["kernel_ms"] and ran - {"flash_bwd_sum_kernel"} != \
+        if t["kernel_ms"] and ran - {"kv_sum_kernel"} != \
                 fa.route_kernels(dtype, shape[-1]):
             fail(f"flash {key}: the profiler saw {sorted(ran)}; want "
                  f"{sorted(fa.route_kernels(dtype, shape[-1]))}")
@@ -1189,7 +1206,10 @@ SPARSE_CASES = {
     # fp32 on the 3xTF32 tensor-core kernels: phase 7d's call (case (a) in
     # fp32), and the edges (one consumer everywhere, a 128-key block over
     # two dK/dV CTAs, GQA, N_q != N_k, an emptied q-block row, an LSE
-    # cotangent); then an fp32 case the FMA kernels keep (D = 256)
+    # cotangent); then fp32 at D = 256 on the wide kernels (k), (l) (phase
+    # 7e's call: MQA, 8 dK/dV CTAs a KV block, partials summed) and (m)
+    # (case (f) in fp32: D = 136, the edges above); and the FMA route left,
+    # blocks that are not multiples of 64 (n)
     "i": ("phase 7d's call (2, 12, 4096, 64) fp32 causal, local+global on "
           "32 x 32 tiles of 128", (2, 12, 12, 4096, 4096, 64), FP32, True,
           (128, 128), local_global(32, 32), False),
@@ -1198,11 +1218,37 @@ SPARSE_CASES = {
           (2, 8, 2, 384, 512, 128), FP32, True, (64, 128),
           emptied(local_global(6, 4), 2), True),
     "k": ("GQA 8/2 (1, 8, 2, 1024, 1024, 256) fp32 causal, local+global on "
-          "8 x 8 tiles of 128 (the FMA route)", (1, 8, 2, 1024, 1024, 256),
+          "8 x 8 tiles of 128", (1, 8, 2, 1024, 1024, 256),
           FP32, True, (128, 128), local_global(8, 8), False),
+    "l": ("phase 7e's call (1, 8, 1, 4096, 4096, 256) fp32 causal, "
+          "local+global on 32 x 32 tiles of 128", (1, 8, 1, 4096, 4096, 256),
+          FP32, True, (128, 128), local_global(32, 32), False),
+    "m": ("GQA 8/2, N_q 384 != N_k 512, D=136 fp32 causal, blocks 64 x 128, "
+          "local+global with q-block row 2 emptied, LSE cotangent",
+          (2, 8, 2, 384, 512, 136), FP32, True, (64, 128),
+          emptied(local_global(6, 4), 2), True),
+    "n": ("GQA 8/2 (1, 8, 2, 1000, 1000, 256) fp32 causal, blocks 96 x 80, "
+          "random density 0.4 with an empty q-block row (the FMA route)",
+          (1, 8, 2, 1000, 1000, 256), FP32, True, (96, 80),
+          random_pattern(11, 13, 0.4, 3, SEED), False),
 }
 # the fp32 cases whose kernels are named by the profiler (sa.route_kernels)
-SPARSE_NAMED = ("c", "i", "j", "k")
+SPARSE_NAMED = ("c", "i", "j", "k", "l", "m", "n")
+
+
+# The sparse routes' kernels in a profile: the three of each route, and the
+# fp32 wide route's split of the backward's B operands and sum of its dK/dV
+# partials (sa.route_kernels).
+SPARSE_KERNEL_NAME = r"sparse_\w+_kernel|tf32_split_kernel|kv_sum_kernel"
+
+
+def kv_splits_of(b, h, h_kv, n_k):
+    """The query-head splits of the fp32 wide backward's dK/dV kernel for a
+    call of these widths on this card (``fa._kv_splits``, as the wrapper
+    takes them)."""
+    return fa._kv_splits(b * h_kv, n_k, h // h_kv,
+                         torch.cuda.get_device_properties(
+                             0).multi_processor_count)
 
 
 def sparse_launch(q, k, v, o, lse, do, dlse, active, spec, sm90):
@@ -1224,6 +1270,10 @@ def sparse_launch(q, k, v, o, lse, do, dlse, active, spec, sm90):
     q_list, q_count = sa.compact_rows(active.t())
     code = fa._DTYPE_CODE[q.dtype]
     stream = torch.cuda.current_stream().cuda_stream
+    more = []  # the fp32 tensor-core backward's scratch and query-head splits
+    if sm90 and q.dtype == torch.float32:
+        scratch, splits = fa._wide_scratch(q, k)
+        more = [fa._ptr(scratch), splits]
 
     def run_fwd():
         _build.check(fwd_fn(
@@ -1238,7 +1288,7 @@ def sparse_launch(q, k, v, o, lse, do, dlse, active, spec, sm90):
             lse.data_ptr(), di.data_ptr(), *(g.data_ptr() for g in grads),
             kv_list.data_ptr(), kv_count.data_ptr(), q_list.data_ptr(),
             q_count.data_ptr(), *sa._shape_args(q, k, spec),
-            kv_list.shape[1], q_list.shape[1], code, stream),
+            kv_list.shape[1], q_list.shape[1], code, stream, *more),
             "sparse bwd")
     return run_fwd, run_bwd
 
@@ -1263,7 +1313,7 @@ def sparse_kernel_ms(fwd, bwd, calls=10) -> dict[str, float]:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        name = re.search(r"sparse_\w+_kernel", e.key)
+        name = re.search(SPARSE_KERNEL_NAME, e.key)
         if name:
             total = (e.device_time_total if hasattr(e, "device_time_total")
                      else e.cuda_time_total)  # µs over the calls
@@ -1378,7 +1428,8 @@ def sparse_case(timer, gen, dev, key):
             lambda: sa.sparse_fwd(q, k, v, active, spec),
             lambda: sa.sparse_bwd(q, k, v, o_ref, lse_ref, do, dlse, active,
                                   spec))
-        want = sa.route_kernels(dtype, shape[-1], spec)
+        want = sa.route_kernels(dtype, shape[-1], spec,
+                                kv_splits_of(*shape[:3], n_k))
         if split and set(split) != want:
             fail(f"sparse {key}: the profiler saw {sorted(split)}; want "
                  f"{sorted(want)}")
@@ -2613,14 +2664,19 @@ def phase_train(cfg, tc, dev, on_card, n_warm=2, n_timed=8,
         wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
     busy = sum(kernels.values()) / 1e6
-    flash = {part: sum(v for k, v in kernels.items() if part in k) / 1e3
-             for part in ("flash_fwd", "flash_bwd")}
+    # the backward's share holds the fp32 wide route's split of its B
+    # operands and sum of its dK/dV partials
+    flash = {part: sum(v for k, v in kernels.items() if re.search(pat, k))
+             / 1e3 for part, pat in (
+                 ("flash_fwd", "flash_fwd"),
+                 ("flash_bwd", "flash_bwd|tf32_split_kernel|kv_sum_kernel"))}
     flash_s = sum(flash.values()) / 1e3
     # the flash kernels of the step: those of the dtype's and head dim's
     # route (the dK/dV partials' sum where a GQA/MQA group is split)
-    ran = {n for k in kernels for n in re.findall(r"flash_\w+_kernel", k)}
+    ran = {n for k in kernels for n in re.findall(
+        r"flash_\w+_kernel|tf32_split_kernel|kv_sum_kernel", k)}
     want = fa.route_kernels(cfg.dtype, cfg.d_head)
-    if on_card and kernels and ran - {"flash_bwd_sum_kernel"} != want:
+    if on_card and kernels and ran - {"kv_sum_kernel"} != want:
         fail(f"[{tag}] the profiled micro-step ran the flash kernels "
              f"{sorted(ran)}; want {sorted(want)}")
     rec["profile"] = dict(
@@ -2756,10 +2812,12 @@ def gemma_sparse_config():
 
 def gemma_serving_config():
     """Phase 3c's model and engine: Gemma 2B's attention widths
-    (gemma_sparse_config: 8 query heads over 1 KV head, head dim 256) at
-    its 18 layers, bf16, dropout 0, rope, d_ff 16384, the port's vocab;
-    batch 32 on 16-slot pages, 256 pages a slot, sequences up to 4096."""
-    return (dataclasses.replace(gemma_sparse_config(), n_layers=18),
+    (gemma_sparse_config: 8 query heads over 1 KV head, head dim 256) cut
+    to 6 of its 18 layers (the script's time: the engine runs are host
+    bound, so their time follows the depth), bf16, dropout 0, rope, d_ff
+    16384, the port's vocab; batch 32 on 16-slot pages, 256 pages a slot,
+    sequences up to 4096."""
+    return (dataclasses.replace(gemma_sparse_config(), n_layers=6),
             EngineConfig(max_batch_size=32, page_size=16,
                          num_pages=32 * 256 + 1, max_seq_len=4096,
                          prefill_pad=64))
@@ -2873,7 +2931,8 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
         wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
     busy = sum(kernels.values()) / 1e6
-    sparse_ms = {k: v / 1e3 for k, v in kernels.items() if "sparse_" in k}
+    sparse_ms = {k: v / 1e3 for k, v in kernels.items()
+                 if re.search(SPARSE_KERNEL_NAME, k)}
     rec["profile"] = dict(
         wall_ms=wall * 1e3, kernel_ms=busy * 1e3,
         device_busy_share=busy / wall if kernels else None,
@@ -2890,9 +2949,10 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
             + ", ".join(f"{k.split('<')[0].split('::')[-1]} {v:.4f}"
                         for k, v in sorted(sparse_ms.items())) + ")")
         ran = {m.group(0) for k in sparse_ms
-               for m in [re.search(r"sparse_\w+_kernel", k)] if m}
+               for m in [re.search(SPARSE_KERNEL_NAME, k)] if m}
         want = sa.route_kernels(cfg.dtype, cfg.d_head, sa.SparseSpec(
-            True, 1.0, cfg.block_size, cfg.block_size))
+            True, 1.0, cfg.block_size, cfg.block_size),
+            kv_splits_of(b, cfg.n_heads, cfg.kv_heads, n))
         if on_card and sparse_ms and ran != want:
             fail(f"[{tag}] the profiled step ran {sorted(ran)}; want "
                  f"{sorted(want)}")
@@ -3569,10 +3629,10 @@ def ptxas_entries(text):
 # 256, each in bf16 and in fp32 (3xTF32; at 256 the wide kernels); the
 # sparse ones in bf16 at D 64, 128 and 256, each with one and two consumer
 # warpgroups but the D-split dK/dV at 256 (two), and in fp32 (3xTF32) at
-# D 64 with one and two and at D 128 with one; the 8-bit forward at D 64,
-# 128 and 256 for e4m3, e5m2 and int8.
-SM90_KERNELS = {"flash_fwd": 6, "flash_bwd": 12, "sparse_fwd": 9,
-                "sparse_bwd": 17, "flash_fwd_fp8": 9}
+# D 64 with one and two, at D 128 with one and at D 256 the wide kernels;
+# the 8-bit forward at D 64, 128 and 256 for e4m3, e5m2 and int8.
+SM90_KERNELS = {"flash_fwd": 6, "flash_bwd": 12, "sparse_fwd": 10,
+                "sparse_bwd": 19, "flash_fwd_fp8": 9}
 # The paged split kernels: bf16, int8 (convert and "qk"), e4m3 and e5m2
 # pages, each on the lane-group walk at 1 and 2 rows (D <= 128) and on the
 # tensor-core walk at 1, 2 and 4 row tiles a CTA.
@@ -3808,6 +3868,10 @@ def main() -> int:
             dataclasses.replace(cfg, block_size=16, dtype=torch.float32),
             "cpu", False, b=2, n=128, check_n=64, tag="sparse_fp32",
             tol=FP32_TOL, logits_tol=FP32_TOL)
+        report["sparse_model_d256_fp32"] = phase_sparse_model(
+            dataclasses.replace(dcfg, block_size=16), "cpu", False, b=1,
+            n=128, check_n=64, tag="sparse_d256_fp32", tol=FP32_TOL,
+            logits_tol=FP32_TOL)
         draft = dataclasses.replace(cfg, n_layers=1)
         report["spec"] = phase_spec(
             cfg, params, ecfg, "cpu", 8, (8, 60), 8,
@@ -3911,7 +3975,7 @@ def main() -> int:
     report["vs_cpu_fp8"] = phase_vs_cpu(cfg, params, dev, 100, 16, quant="fp8")
 
     # Phase 3c: serving at Gemma 2B's attention widths (head dim 256, MQA
-    # 8/1, 18 layers); the parameters are drawn on the card, which skips a
+    # 8/1, 6 layers); the parameters are drawn on the card, which skips a
     # host copy of ~1.5 B fp32 parameters
     t0 = time.perf_counter()
     gcfg, gecfg = gemma_serving_config()
@@ -4002,6 +4066,17 @@ def main() -> int:
     report["sparse_model_fp32"]["phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
+    # Phase 7e: phase 7b in fp32 (dtype and parameters: phase 7c's model
+    # with the pattern), every attention call on the wide 3xTF32 sparse
+    # kernels at D = 256 (MQA 8/1); card vs CPU and the all-ones pattern at
+    # the fp32 rung
+    t0 = time.perf_counter()
+    report["sparse_model_d256_fp32"] = phase_sparse_model(
+        gemma_dense_fp32_config(), dev, True, b=1, n=4096, check_n=512,
+        tag="sparse_d256_fp32", tol=FP32_TOL, logits_tol=FP32_TOL)
+    report["sparse_model_d256_fp32"]["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
     # Phase 8: the speculative engine, phase 3's config with gamma 4; the
     # floor's draft is GPT-3 Small at 2 layers
     t0 = time.perf_counter()
@@ -4076,7 +4151,8 @@ def main() -> int:
         f"{report['phase_3c_s']:.1f} s of it), phase 7b "
         f"{report['sparse_model_d256']['phase_s']:.1f} s, phase 7c "
         f"{report['dense_fp32']['phase_s']:.1f} s, phase 7d "
-        f"{report['sparse_model_fp32']['phase_s']:.1f} s, "
+        f"{report['sparse_model_fp32']['phase_s']:.1f} s, phase 7e "
+        f"{report['sparse_model_d256_fp32']['phase_s']:.1f} s, "
         f"phase 8 {report['spec']['phase_s']:.1f} s, phase 9 "
         f"{report['multihost']['phase_s']:.1f} s, phase 10 "
         f"{report['cp']['phase_s']:.1f} s, phase 11 "
@@ -4491,6 +4567,49 @@ def main() -> int:
             kernel_split_ms=ri.get("kernel_split_ms"),
             step_sparse_ms=s7d["profile"]["sparse_kernels_ms"],
             step_median_ms=s7d["median_step_ms"], **beside))
+    # sparse in fp32 at head dim 256 (the wide 3xTF32 kernels): launches of
+    # phase 7e's forward+backward steps, numbers of sparse case (l), phase
+    # 7e's call (MQA: the dK/dV kernel's query-head split and the sum of
+    # its partials), with cases (k) (GQA 8/2, N = 1024, the shape of rows
+    # 10g / 11g) and (m) (D = 136, blocks 64 x 128, GQA, N_q != N_k) beside
+    # them, and case (n), the FMA route left (blocks 96 x 80), each key
+    # suffixed with its case; fma_ms the FMA kernels on the same inputs with
+    # their bound at 67 TFLOP/s, kernel_ms the kernels alone with the lists
+    # built beforehand, step_sparse_ms the sparse kernels' device time in
+    # phase 7e's profiled step
+    recs = {x: report["kernels"][f"sparse_{x}"] for x in "lkmn"}
+    rl = recs["l"]
+    s7e = report["sparse_model_d256_fp32"]
+    c = s7e["launches"]
+    for name, part, errs in (("sparse_fwd", "fwd", ("o", "lse")),
+                             ("sparse_bwd", "bwd", ("dq", "dk", "dv"))):
+        beside = {}
+        for x in "kmn":
+            r = recs[x]
+            beside.update({
+                f"{key}_{x}": r[f"{part}_{key}"]
+                for key in ("ms", "kernel_ms", "fma_ms", "fma_bound_ms",
+                            "plain_ms", "bound_ms") if f"{part}_{key}" in r})
+            lib = "library" if f"library_{part}_ms" in r else "yardstick"
+            beside[f"{lib}_ms_{x}"] = r[f"{lib}_{part}_ms"]
+            beside[f"case_{x}"] = r["case"]
+            beside[f"kernel_split_ms_{x}"] = r.get("kernel_split_ms")
+        kernels.append(dict(
+            name=f"{name}[fp32_d256]", **KERNELS[name], launches=c[name],
+            launches_tensor_core=c[f"{name}_tc"],
+            max_abs_err=max(r["max_abs_err"][e] for e in errs
+                            for r in recs.values()),
+            ms=rl[f"{part}_ms"], plain_ms=rl[f"{part}_plain_ms"],
+            bound_ms=rl[f"{part}_bound_ms"],
+            bound_by=rl[f"{part}_bound_by"],
+            library_ms=rl.get(f"library_{part}_ms"),
+            yardstick_ms=rl.get(f"yardstick_{part}_ms"), case=rl["case"],
+            kernel_ms=rl[f"{part}_kernel_ms"], fma_ms=rl[f"{part}_fma_ms"],
+            fma_bound_ms=rl[f"{part}_fma_bound_ms"],
+            wall_ms=rl[f"{part}_wall_ms"],
+            kernel_split_ms=rl.get("kernel_split_ms"),
+            step_sparse_ms=s7e["profile"]["sparse_kernels_ms"],
+            step_median_ms=s7e["median_step_ms"], **beside))
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was launched no time on its main path")

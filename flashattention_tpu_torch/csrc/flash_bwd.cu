@@ -68,7 +68,7 @@
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
-#include "tf32_sm90.cuh"
+#include "tf32_wide_bwd.cuh"
 
 namespace {
 
@@ -1388,7 +1388,7 @@ cudaError_t launch_bwd_f32_sm90(const AttnArgs& a, const void* dout,
 // that would read a transposed copy are computed transposed, with the
 // transposed side as a register A operand read across a two-part tile
 // (tile_at): dVᵀ += dOᵀ·P_v, dKᵀ += q_sᵀ·dS and dQᵀ += Kᵀ·dSᵀ. Only B
-// operands hold two parts in shared memory; split_pairs makes them once a
+// operands hold two parts in shared memory; split_operands makes them once a
 // call into the wrapper's scratch, and TMA lands both parts (split by the
 // producer in each CTA, once a tile, they sat on the one stage's critical
 // path). A tf32 wgmma of small N runs far below the tensor rate (at N = 16
@@ -1416,55 +1416,9 @@ cudaError_t launch_bwd_f32_sm90(const AttnArgs& a, const void* dout,
 //     two parts (16 KB): 208 KB. Consumer 0 computes S while consumer 1
 //     computes dP, the hand-over and the score pipeline as in dkv; each
 //     holds 128 columns of dQᵀ (2 x 64 x 64, 64 registers).
-
-template <int DP>
-struct DkvWideCfg {
-  static constexpr int KEYS = 64, R = 16, THREADS = 384;
-  static constexpr int GS = 2, NB = 2;  // Sᵀ, dPᵀ k8 steps (mma3_ra)
-  static constexpr int KV_BYTES = KEYS * DP * 4;  // K or V as landed
-  static constexpr int T_BYTES = R * DP * 4;      // q_s or dO, one part
-  static constexpr int X_BYTES = KEYS * kHalf32 * 4;  // P_vᵀ or dSᵀ, a part
-  static constexpr int BARS = 4;
-  static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + 4 * T_BYTES +
-                                 4 * X_BYTES + 2 * R * 4 + 8 * BARS;
-};
-
-template <int DP>
-struct DqWideCfg {
-  static constexpr int ROWS = 64, KEYS = 16, THREADS = 384;
-  static constexpr int GS = 8, NB = 1;  // S, dP k8 steps (mma3_ra)
-  static constexpr int Q_BYTES = ROWS * DP * 4;  // q or dO as landed
-  static constexpr int T_BYTES = KEYS * DP * 4;  // K or V, one part
-  static constexpr int X_BYTES = ROWS * kHalf32 * 4;  // dS, one part
-  static constexpr int BARS = 3;
-  static constexpr size_t SMEM =
-      1024 + 2 * Q_BYTES + 4 * T_BYTES + 2 * X_BYTES + 8 * BARS;
-};
-
-// The hand-over of the wide kernels' product split: consumer HF holds
-// fragment `mine` (64 rows x 16 columns: Sᵀ or S on consumer 0, dPᵀ or dP
-// on consumer 1) and takes its elements [4 HF, 4 HF + 4) (columns 8 HF ..
-// 8 HF + 7). It writes the other consumer's four elements into its slot of
-// its tile (xchg_off: consumer 0 writes into x0, consumer 1 into x1), and
-// after named barrier 2 reads the other product's values at its own four
-// elements into `theirs`. HF is a constant, so no register array is
-// indexed at run time.
-template <int HF>
-__device__ __forceinline__ void hand_over(const float (&mine)[8],
-                                          float (&theirs)[4], char* x0,
-                                          char* x1, int t) {
-  constexpr int GIVE = 4 * (1 - HF);
-  const int at = xchg_off(t);
-  *reinterpret_cast<float4*>((HF == 0 ? x0 : x1) + at) =
-      make_float4(mine[GIVE], mine[GIVE + 1], mine[GIVE + 2],
-                  mine[GIVE + 3]);
-  named_sync(2, 256);
-  const float4 v = *reinterpret_cast<const float4*>((HF == 0 ? x1 : x0) + at);
-  theirs[0] = v.x;
-  theirs[1] = v.y;
-  theirs[2] = v.z;
-  theirs[3] = v.w;
-}
+// The shapes (DkvWideCfg, DqWideCfg) and the hand-over are in tf32_sm90.cuh,
+// the split and the sum kernels in tf32_wide_bwd.cuh: sparse_bwd.cu's wide
+// pair shares them.
 
 template <int DP>
 __global__ void __launch_bounds__(DkvWideCfg<DP>::THREADS, 1)
@@ -1902,59 +1856,10 @@ flash_bwd_dq_f32_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-}  // namespace sm90
-
-// x times `scale` split into `big` and `small` (n4 float4s): the two TF32
-// parts of an operand that the wide kernels read as a B operand, made once
-// a call instead of once a tile in each CTA.
-__global__ void flash_bwd_split_kernel(const float4* __restrict__ x,
-                                       float scale, float4* __restrict__ big,
-                                       float4* __restrict__ small, size_t n4) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float4 b, s;
-    sm90::split4(x[i], scale, b, s);
-    big[i] = b;
-    small[i] = s;
-  }
-}
-
-inline cudaError_t split_pairs(const void* x, float scale, float* big,
-                               float* small, size_t n, cudaStream_t st) {
-  const size_t n4 = n / 4;
-  const size_t want = (n4 + 255) / 256;
-  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  flash_bwd_split_kernel<<<blocks, 256, 0, st>>>(
-      static_cast<const float4*>(x), scale, reinterpret_cast<float4*>(big),
-      reinterpret_cast<float4*>(small), n4);
-  return cudaGetLastError();
-}
-
-// dk and dv as the sums, in split order, of `splits` pairs of partials
-// (part: [splits][dk, dv][n4 float4s]): the fixed order keeps the result
-// independent of which CTA ran first.
-__global__ void flash_bwd_sum_kernel(const float4* __restrict__ part,
-                                     int splits, float4* __restrict__ dk,
-                                     float4* __restrict__ dv, size_t n4) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float4 k = part[i], v = part[n4 + i];
-    for (int s = 1; s < splits; ++s) {
-      const float4 pk = part[2 * s * n4 + i], pv = part[(2 * s + 1) * n4 + i];
-      k = make_float4(k.x + pk.x, k.y + pk.y, k.z + pk.z, k.w + pk.w);
-      v = make_float4(v.x + pv.x, v.y + pv.y, v.z + pv.z, v.w + pv.w);
-    }
-    dk[i] = k;
-    dv[i] = v;
-  }
-}
-
-namespace sm90 {
-
 // `scratch` holds 2 (|q| + |do| + |k| + |v|) floats: q times the scale, dO,
-// K and V, each split into its two parts by split_pairs; with `splits` > 1
+// K and V, each split into its two parts (split_operands); with `splits` > 1
 // (query heads of a KV head's group walked by that many dK/dV CTAs) then
-// 2 splits |k| more for their partial sums.
+// 2 splits |k| more for their partial sums (tf32_wide_bwd.cuh).
 template <int DP>
 cudaError_t launch_bwd_f32_wide_sm90(const AttnArgs& a, const void* dout,
                                      const float* lse, const float* di,
@@ -1963,62 +1868,22 @@ cudaError_t launch_bwd_f32_wide_sm90(const AttnArgs& a, const void* dout,
                                      cudaStream_t st) {
   using Kv = DkvWideCfg<DP>;
   using Dq = DqWideCfg<DP>;
-  const int QH = a.B * a.H, KH = a.B * a.H_kv;
-  const size_t nq = (size_t)QH * a.Nq * a.D, nk = (size_t)KH * a.Nk * a.D;
-  float* qb = scratch;
-  float* qs = qb + nq;
-  float* dob = qs + nq;
-  float* dos = dob + nq;
-  float* kb = dos + nq;
-  float* ks = kb + nk;
-  float* vb = ks + nk;
-  float* vs = vb + nk;
-  cudaError_t err = split_pairs(a.q, a.scale, qb, qs, nq, st);
-  if (err == cudaSuccess) err = split_pairs(dout, 1.f, dob, dos, nq, st);
-  if (err == cudaSuccess) err = split_pairs(a.k, 1.f, kb, ks, nk, st);
-  if (err == cudaSuccess) err = split_pairs(a.v, 1.f, vb, vs, nk, st);
+  const WideScratch w = wide_scratch(a, scratch, splits);
+  cudaError_t err = split_operands(a, dout, a.scale, w, st);
   if (err != cudaSuccess) return err;
-
-  // dkv: K and V as landed in KEYS-row boxes, the parts of q_s and dO in
-  // R-row boxes
   CUtensorMap m[6];
-  constexpr int RB = box_rows<Kv::R>(), KB = box_rows<Kv::KEYS>();
-  err = make_map32(&m[0], qb, QH, a.Nq, a.D, RB);
-  if (err == cudaSuccess) err = make_map32(&m[1], qs, QH, a.Nq, a.D, RB);
-  if (err == cudaSuccess) err = make_map32(&m[2], a.k, KH, a.Nk, a.D, KB);
-  if (err == cudaSuccess) err = make_map32(&m[3], a.v, KH, a.Nk, a.D, KB);
-  if (err == cudaSuccess) err = make_map32(&m[4], dob, QH, a.Nq, a.D, RB);
-  if (err == cudaSuccess) err = make_map32(&m[5], dos, QH, a.Nq, a.D, RB);
+  err = dkv_wide_maps<DP>(m, a, w);
   if (err != cudaSuccess) return err;
   auto dkv_kernel = flash_bwd_dkv_f32_wide_sm90_kernel<DP>;
   err = set_smem(dkv_kernel, Kv::SMEM);
   if (err != cudaSuccess) return err;
-  float* part = splits > 1 ? vs + nk : nullptr;
   const dim3 grid_kv((a.Nk + Kv::KEYS - 1) / Kv::KEYS, a.H_kv * splits, a.B);
   dkv_kernel<<<grid_kv, Kv::THREADS, Kv::SMEM, st>>>(
       m[0], m[1], m[2], m[3], m[4], m[5], a, lse, di,
-      static_cast<float*>(dk), static_cast<float*>(dv), splits, part);
+      static_cast<float*>(dk), static_cast<float*>(dv), splits, w.part);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (part != nullptr) {
-    const size_t n4 = nk / 4, want = (n4 + 255) / 256;
-    flash_bwd_sum_kernel<<<(int)(want < 132 * 16 ? want : 132 * 16), 256, 0,
-                           st>>>(reinterpret_cast<const float4*>(part),
-                                 splits, static_cast<float4*>(dk),
-                                 static_cast<float4*>(dv), n4);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-
-  // dq: q and dO as landed in ROWS-row boxes, the parts of K and V in
-  // KEYS-row boxes
-  constexpr int QR = box_rows<Dq::ROWS>(), KR = box_rows<Dq::KEYS>();
-  err = make_map32(&m[0], a.q, QH, a.Nq, a.D, QR);
-  if (err == cudaSuccess) err = make_map32(&m[1], kb, KH, a.Nk, a.D, KR);
-  if (err == cudaSuccess) err = make_map32(&m[2], ks, KH, a.Nk, a.D, KR);
-  if (err == cudaSuccess) err = make_map32(&m[3], vb, KH, a.Nk, a.D, KR);
-  if (err == cudaSuccess) err = make_map32(&m[4], vs, KH, a.Nk, a.D, KR);
-  if (err == cudaSuccess) err = make_map32(&m[5], dout, QH, a.Nq, a.D, QR);
+  if (err == cudaSuccess) err = sum_partials(w, splits, dk, dv, st);
+  if (err == cudaSuccess) err = dq_wide_maps<DP>(m, a, dout, w);
   if (err != cudaSuccess) return err;
   auto dq_kernel = flash_bwd_dq_f32_wide_sm90_kernel<DP>;
   err = set_smem(dq_kernel, Dq::SMEM);

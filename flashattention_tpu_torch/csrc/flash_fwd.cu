@@ -499,33 +499,15 @@ cudaError_t launch_fwd_f32_sm90(const AttnArgs& a, void* o, float* lse,
 // registers)
 // ---------------------------------------------------------------------------
 
-// One consumer warpgroup of 64 query rows; K/V tiles of 32 keys. Shared
-// memory at 1 KB a fp32 row of 256: Q as landed (64 KB, the A operand of
-// S = Q·Kᵀ, split in registers k8 step by k8 step), then one stage of K
-// big (where TMA lands it, split in place) and small (64 KB), V as landed
-// (32 KB) and Vᵀ big and small (64 KB), which P·V reads K-major: 224 KB.
-// K and V have barriers of their own, so that K's next tile loads while P·V
-// runs and V's while S runs.
-template <int DP>
-struct FwdWideCfg {
-  static constexpr int ROWS = 64, KEYS = 32, THREADS = 256;
-  // S: groups of 8 k8 steps, one register set (mma3_ra)
-  static constexpr int GS = 8, NB = 1;
-  static constexpr int Q_BYTES = ROWS * DP * 4;  // as landed
-  static constexpr int T_BYTES = KEYS * DP * 4;  // K, V or Vᵀ, one part
-  static_assert(transposed_bytes<KEYS, DP>() == T_BYTES, "Vᵀ tile size");
-  static constexpr int BARS = 7;
-  static constexpr size_t SMEM = 1024 + Q_BYTES + 5 * T_BYTES + 8 * BARS;
-};
-
-// Warpgroup 0: thread 0 issues TMA (Q once; per tile of the walk K, once
-// the consumers are done with the last one, and V, once warps 1-3 have
-// transposed the last one); warps 1-3 split each landed K tile in place and
-// into small, and transpose and split each landed V tile into Vᵀ once P·V
-// is done with the last. Consumers: S = Q·Kᵀ in 3xTF32 with Q split in
-// registers (mma3_ra), the score pipeline and online softmax of the bf16
-// kernel, p split in registers as the A operands of O += P·V against Vᵀ
-// (two n128 products a k8 step: O is 128 registers a thread).
+// Shapes: FwdWideCfg (tf32_sm90.cuh). Warpgroup 0: thread 0 issues TMA (Q
+// once; per tile of the walk K, once the consumers are done with the last
+// one, and V, once warps 1-3 have transposed the last one); warps 1-3 split
+// each landed K tile in place and into small, and transpose and split each
+// landed V tile into Vᵀ once P·V is done with the last. Consumers: S = Q·Kᵀ
+// in 3xTF32 with Q split in registers (mma3_ra), the score pipeline and
+// online softmax of the bf16 kernel, p split in registers as the A operands
+// of O += P·V against Vᵀ (two n128 products a k8 step: O is 128 registers a
+// thread).
 template <int DP>
 __global__ void __launch_bounds__(FwdWideCfg<DP>::THREADS, 1)
 flash_fwd_f32_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,

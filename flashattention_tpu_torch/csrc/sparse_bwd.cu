@@ -72,18 +72,21 @@
 //       (K MN-major).
 //     Each product's tile is classified once, interior or band, and the
 //     element loop specialised for it.
-//   fat_sparse_bwd_sm90_f32 (fp32, D <= 128, block_q and block_k multiples
+//   fat_sparse_bwd_sm90_f32 (fp32, D <= 256, block_q and block_k multiples
 //     of 64): the same two kernels with every product in 3xTF32, on the
-//     schedules of flash_bwd.cu's fp32 kernels (the tiles and stages are set
-//     out where the kernels are defined, below).
-//   fat_sparse_bwd (fp32 at 128 < D <= 256, any dtype with blocks that are
-//     not multiples of 64): the first version below, fp32 FMAs on the CUDA
-//     cores (for the reasons given in sparse_fwd.cu), 32-row / 32-key
-//     sub-tiles staged as fp32.
+//     schedules of flash_bwd.cu's fp32 kernels: up to D = 128 its D <= 128
+//     pair, above (any D in (128, 256] runs the 256 instances) its wide
+//     pair, whose B operands are split once a call into the wrapper's
+//     scratch and whose dK/dV CTAs share a KV head's query heads, partials
+//     summed in split order (tf32_wide_bwd.cuh). The tiles and stages are
+//     set out where the kernels are defined, below.
+//   fat_sparse_bwd (blocks that are not multiples of 64, any dtype): the
+//     first version below, fp32 FMAs on the CUDA cores (for the reasons
+//     given in sparse_fwd.cu), 32-row / 32-key sub-tiles staged as fp32.
 
 #include "flash_common.cuh"
 #include "sparse_sm90.cuh"
-#include "tf32_sm90.cuh"
+#include "tf32_wide_bwd.cuh"
 
 namespace fat {
 
@@ -1522,6 +1525,528 @@ cudaError_t sparse_bwd_f32_sm90(const AttnArgs& a, const Lists& s,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 tensor-core route at 128 < D <= 256 (3xTF32, operands split in
+// registers)
+// ---------------------------------------------------------------------------
+//
+// flash_bwd.cu's wide pair (DkvWideCfg, DqWideCfg: resident operands kept as
+// landed and split in registers, products transposed, the B operands split
+// once a call into the wrapper's scratch, two consumers splitting the
+// small-N products and handing each other half of their fragments) with the
+// list walks above and the sparse rounding points: q is split unscaled, s =
+// (q·k) * scale, and dK and dQ are scaled at the store.
+//   dkv: 64 keys a CTA (a 128-key block is two CTAs), walking for each
+//     query head of its share of the group the transposed list and, for
+//     each q block on it, the 16-row steps of the block's rows that can see
+//     the CTA's keys (QTileWalk). A KV head's group is spread over `splits`
+//     CTAs by the rule of ops/flash_attn._kv_splits, each writing its
+//     partial sums (zeros where it walks nothing) for kv_sum_kernel to add
+//     in split order.
+//   dq: 64 query rows a CTA (one q block's), row tiles last to first,
+//     walking the q block's list in 16-key steps up to the causal stop
+//     (SubTileWalk).
+
+// The steps of one dK/dV CTA, whose keys start at c0: for each of `heads`
+// query heads, for each q block of its KV block's transposed list, the
+// R-row tiles of that block that hold a row able to see key c0 or later
+// (row_tiles). Producer, prep warps and consumers walk it alike; the
+// producer looks one step ahead for its L2 prefetch.
+template <int R>
+struct QTileWalk {
+  const int32_t* blocks;
+  int n_active, block_q, Nq;
+  int r_first;  // rows below it see none of the CTA's keys (causal), else 0
+  int heads;
+  int g, w, r0, r_hi;  // the step: head g of the share, list entry w, rows
+
+  __device__ __forceinline__ void seek() {
+    for (; g < heads; ++g, w = 0) {
+      for (; w < n_active; ++w) {
+        const int r_lo = blocks[w] * block_q;
+        r_hi = min(r_lo + block_q, Nq);
+        const int r_begin = max(r_lo, r_first);
+        if (r_begin < r_hi) {
+          r0 = r_lo + (r_begin - r_lo) / R * R;
+          return;
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ bool more() const { return g < heads; }
+  __device__ __forceinline__ void next() {
+    r0 += R;
+    if (r0 >= r_hi) {
+      ++w;
+      seek();
+    }
+  }
+};
+
+// The sub-tiles of KEYS keys of a q block's list walk, in order.
+template <int KEYS>
+struct SubTileWalk {
+  ListWalk lw;
+  int w, c0;
+
+  __device__ __forceinline__ void seek() {
+    for (; w < lw.n_active; ++w) {
+      c0 = lw.lo(w);
+      if (c0 < lw.stop_of(w)) return;
+    }
+  }
+  __device__ __forceinline__ bool more() const { return w < lw.n_active; }
+  __device__ __forceinline__ void next() {
+    c0 += KEYS;
+    if (c0 >= lw.stop_of(w)) {
+      ++w;
+      seek();
+    }
+  }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(DkvWideCfg<DP>::THREADS, 1)
+sparse_bwd_dkv_f32_wide_sm90_kernel(
+    const __grid_constant__ CUtensorMap tqb,
+    const __grid_constant__ CUtensorMap tqs,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdob,
+    const __grid_constant__ CUtensorMap tdos, AttnArgs a,
+    const float* __restrict__ lse, const float* __restrict__ di,
+    const int32_t* __restrict__ q_list, const int32_t* __restrict__ q_count,
+    int stride, int block_q, int block_k, float* __restrict__ dk,
+    float* __restrict__ dv, int splits, float* __restrict__ part) {
+  using Cfg = DkvWideCfg<DP>;
+  constexpr int KEYS = Cfg::KEYS, R = Cfg::R, KVB = Cfg::KV_BYTES;
+  constexpr int TB = Cfg::T_BYTES, XB = Cfg::X_BYTES;
+  extern __shared__ char smem_raw[];
+  char* kx = align_1024(smem_raw);  // [DP/32][KEYS][32] fp32 as landed
+  char* vx = kx + KVB;
+  char* qb = vx + KVB;  // q and dO in two parts, as split before the call
+  char* qs = qb + TB;
+  char* dob = qs + TB;
+  char* dos = dob + TB;
+  char* ptb = dos + TB;  // Pᵀ and dSᵀ: [KEYS][32], query rows as columns
+  char* pts = ptb + XB;
+  char* dtb = pts + XB;
+  char* dts = dtb + XB;
+  float* lse_s = reinterpret_cast<float*>(dts + XB);
+  float* di_s = lse_s + R;
+  uint64_t* kv_landed = reinterpret_cast<uint64_t*>(di_s + R);
+  uint64_t* landed = kv_landed + 1;
+  uint64_t* ready = kv_landed + 2;
+  uint64_t* empty = kv_landed + 3;
+
+  // Heavy first: the key tiles from the first one, on the grid's slower
+  // dimension, so that every split of a heavy KV block (the global column
+  // of a local + global pattern) starts in the first wave. A KV head's
+  // group of query heads is split over `splits` CTAs, each walking
+  // G / splits of them and writing its sums to `part` (null when splits is
+  // 1: dk and dv directly).
+  const int b = blockIdx.z, c0 = blockIdx.y * KEYS;
+  const int hk = blockIdx.x / splits, sp = blockIdx.x % splits;
+  const int G = a.H / a.H_kv, GW = G / splits;
+  const int h_first = hk * G + sp * GW;  // first query head walked
+  const int ik = c0 / block_k;
+  const int c_end = min(ik * block_k + block_k, a.Nk);  // this KV block's keys
+  QTileWalk<R> walk{q_list + (size_t)ik * stride, q_count[ik], block_q, a.Nq,
+                    a.causal ? c0 - a.offset : 0, GW, 0, 0, 0, 0};
+  walk.seek();
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_landed, 1);
+    mbar_init(landed, 1);
+    mbar_init(ready, kPrepThreads);
+    mbar_init(empty, 256);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer
+    reg_dealloc<kProducerRegsWide>();
+    if (threadIdx.x == 0 && walk.more()) {
+      mbar_expect_tx(kv_landed, 2 * KVB);
+      tma_tile32<KEYS, DP>(kx, &tk, kv_landed, c0, b * a.H_kv + hk);
+      tma_tile32<KEYS, DP>(vx, &tv, kv_landed, c0, b * a.H_kv + hk);
+      for (int it = 0; walk.more(); ++it) {
+        const int plane = b * a.H + h_first + walk.g, r0 = walk.r0;
+        mbar_wait(empty, (it & 1) ^ 1);
+        mbar_expect_tx(landed, 4 * TB);
+        tma_tile32<R, DP>(qb, &tqb, landed, r0, plane);
+        tma_tile32<R, DP>(qs, &tqs, landed, r0, plane);
+        tma_tile32<R, DP>(dob, &tdob, landed, r0, plane);
+        tma_tile32<R, DP>(dos, &tdos, landed, r0, plane);
+        walk.next();
+        if (walk.more()) {  // the next step's tiles, into L2
+          const int p1 = b * a.H + h_first + walk.g;
+          tma_prefetch32<R, DP>(&tqb, walk.r0, p1);
+          tma_prefetch32<R, DP>(&tqs, walk.r0, p1);
+          tma_prefetch32<R, DP>(&tdob, walk.r0, p1);
+          tma_prefetch32<R, DP>(&tdos, walk.r0, p1);
+        }
+      }
+    } else if (threadIdx.x >= 32) {
+      const int tid = threadIdx.x - 32;
+      for (int it = 0; walk.more(); walk.next(), ++it) {
+        const size_t plane = (size_t)b * a.H + h_first + walk.g;
+        // The stage is free once its tiles have landed (thread 0 waited
+        // for the consumers before loading them).
+        mbar_wait(landed, it & 1);
+        for (int j = tid; j < R; j += kPrepThreads) {
+          const int row = walk.r0 + j;
+          lse_s[j] = row < a.Nq ? lse[plane * a.Nq + row] : 0.f;
+          di_s[j] = row < a.Nq ? di[plane * a.Nq + row] : 0.f;
+        }
+        mbar_arrive(ready);
+      }
+    }
+  } else {  // consumers: 64 keys, 128 of the head dim's columns each
+    reg_alloc<kConsumerRegsWide>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    float dk_acc[2][32], dv_acc[2][32];  // dKᵀ, dVᵀ: 2 x (64 cols x 64 keys)
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk_acc[m][i] = dv_acc[m][i] = 0.f;
+    }
+
+    for (int it = 0; walk.more(); walk.next(), ++it) {
+      const int r0 = walk.r0;
+      if (it == 0) mbar_wait(kv_landed, 0);
+
+      // Sᵀ (consumer 0) or dPᵀ (consumer 1): 64 keys x R query rows
+      float x[R / 2];
+#pragma unroll
+      for (int i = 0; i < R / 2; ++i) x[i] = 0.f;
+      mbar_wait(ready, it & 1);
+      mma3_ra<KEYS, R, DP / 8, Cfg::GS, Cfg::NB>(
+          x, cw == 0 ? kx : vx, 1.f, cw == 0 ? qb : dob, cw == 0 ? qs : dos,
+          t);
+
+      // The LSE and di of this consumer's two query rows.
+      const int jc = 8 * cw + 2 * (t & 3);  // = acc_col(t, 4 cw)
+      const float ls[2] = {lse_s[jc], lse_s[jc + 1]};
+      const float dd[2] = {di_s[jc], di_s[jc + 1]};
+
+      // The element mask and p, ds on this consumer's half of the pairs
+      // (elements [4 HF, 4 HF + 4): query rows 8 HF .. 8 HF + 7 of the
+      // step); Pᵀ and dSᵀ split into their tiles.
+      auto half = [&](auto hf) {
+        constexpr int HF = decltype(hf)::value;
+        float y[4];  // the other product at this consumer's elements
+        hand_over<HF>(x, y, ptb, dtb, t);
+        float pv[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * HF + e;
+          const int key = c0 + acc_row(t, i), row = r0 + acc_col(t, i);
+          pv[e] = 0.f;
+          ds[e] = 0.f;
+          if (row < a.Nq && kept(a, row, key, c_end)) {
+            const float s = (HF == 0 ? x[i] : y[e]) * a.scale;
+            const float p = expf(s - ls[e & 1]);
+            pv[e] = p;
+            ds[e] = p * ((HF == 0 ? y[e] : x[i]) - dd[e & 1]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int i = 4 * HF + e;
+          const int at = sw_off1<KEYS>(acc_row(t, i), acc_col(t, i));
+          store_split2(ptb, pts, at, pv[e], pv[e + 1]);
+          store_split2(dtb, dts, at, ds[e], ds[e + 1]);
+        }
+      };
+      if (cw == 0) {
+        half(Int<0>{});
+      } else {
+        half(Int<1>{});
+      }
+      fence_proxy_async();
+
+      // dVᵀ[cols] += dOᵀ[cols]·P and dKᵀ[cols] += qᵀ[cols]·dS, A read
+      // across the stage's tiles; the stage is free once they are loaded.
+      uint32_t ob[2][R / 8][4], os[2][R / 8][4];
+      uint32_t qab[2][R / 8][4], qas[2][R / 8][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int kk = 0; kk < R / 8; ++kk) {
+          const int m0 = 128 * cw + 64 * m;
+          tile_at<R>(dob, dos, m0, kk, t, ob[m][kk], os[m][kk]);
+          tile_at<R>(qb, qs, m0, kk, t, qab[m][kk], qas[m][kk]);
+        }
+      }
+      mbar_arrive(empty);
+      named_sync(3, 256);  // Pᵀ and dSᵀ are in place
+
+      wgmma_fence();
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        fence_regs(dv_acc[m]);
+        fence_regs(dk_acc[m]);
+      }
+      mma3_rs_m<KEYS, R / 8, 2>(dv_acc, ob, os, ptb, pts);
+      mma3_rs_m<KEYS, R / 8, 2>(dk_acc, qab, qas, dtb, dts);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        fence_regs(dv_acc[m]);
+        fence_regs(dk_acc[m]);
+        keep_regs(ob[m]);
+        keep_regs(os[m]);
+        keep_regs(qab[m]);
+        keep_regs(qas[m]);
+      }
+    }
+
+    // dKᵀ and dVᵀ fragments: rows are head-dim columns, columns keys. Keys
+    // no step reached (a KV block no q block visits) write zeros, in every
+    // split's partial too.
+    const size_t kv_off = ((size_t)b * a.H_kv + hk) * a.Nk;
+    if (part != nullptr) {  // partial sums of split sp, summed later
+      const size_t nk = (size_t)a.B * a.H_kv * a.Nk * a.D;
+      dk = part + 2 * sp * nk;
+      dv = dk + nk;
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 128 * cw + 64 * m + acc_row(t, i);
+        const int key = c0 + acc_col(t, i);
+        if (key < c_end && col < a.D) {
+          const size_t at = (kv_off + key) * a.D + col;
+          dk[at] = dk_acc[m][i] * a.scale;
+          dv[at] = dv_acc[m][i];
+        }
+      }
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(DqWideCfg<DP>::THREADS, 1)
+sparse_bwd_dq_f32_wide_sm90_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tkb,
+    const __grid_constant__ CUtensorMap tks,
+    const __grid_constant__ CUtensorMap tvb,
+    const __grid_constant__ CUtensorMap tvs,
+    const __grid_constant__ CUtensorMap tdo, AttnArgs a,
+    const float* __restrict__ lse, const float* __restrict__ di,
+    const int32_t* __restrict__ kv_list, const int32_t* __restrict__ kv_count,
+    int stride, int block_q, int block_k, float* __restrict__ dq) {
+  using Cfg = DqWideCfg<DP>;
+  constexpr int ROWS = Cfg::ROWS, KEYS = Cfg::KEYS, QB = Cfg::Q_BYTES;
+  constexpr int TB = Cfg::T_BYTES, XB = Cfg::X_BYTES;
+  extern __shared__ char smem_raw[];
+  char* qx = align_1024(smem_raw);  // [DP/32][ROWS][32] fp32 as landed
+  char* dox = qx + QB;
+  char* kb = dox + QB;  // K and V in two parts, as split before the call
+  char* ks = kb + TB;
+  char* vb = ks + TB;
+  char* vs = vb + TB;
+  char* dsb = vs + TB;  // dS: [ROWS][32], keys as columns
+  char* dss = dsb + XB;
+  uint64_t* q_landed = reinterpret_cast<uint64_t*>(dss + XB);
+  uint64_t* landed = q_landed + 1;
+  uint64_t* empty = q_landed + 2;
+
+  // Heavy first, as the forward: the row tiles from the last one. A CTA's
+  // 64 rows never span two q blocks (block_q is a multiple of 64).
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
+  const int iq = r0 / block_q;
+  const int r_end = min(iq * block_q + block_q, a.Nq);  // this q block's rows
+  const int hk = h / (a.H / a.H_kv);
+  SubTileWalk<KEYS> walk{list_walk(a, kv_list, kv_count, stride, iq, block_k,
+                                   min(r0 + ROWS, r_end) - 1),
+                         0, 0};
+  walk.seek();
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_landed, 1);
+    mbar_init(landed, 1);
+    mbar_init(empty, 256);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer: thread 0 issues TMA
+    reg_dealloc<kProducerRegsWide>();
+    if (threadIdx.x == 0 && walk.more()) {
+      const int kplane = b * a.H_kv + hk;
+      mbar_expect_tx(q_landed, 2 * QB);
+      tma_tile32<ROWS, DP>(qx, &tq, q_landed, r0, b * a.H + h);
+      tma_tile32<ROWS, DP>(dox, &tdo, q_landed, r0, b * a.H + h);
+      for (int it = 0; walk.more(); ++it) {
+        const int c0 = walk.c0;
+        mbar_wait(empty, (it & 1) ^ 1);
+        mbar_expect_tx(landed, 4 * TB);
+        tma_tile32<KEYS, DP>(kb, &tkb, landed, c0, kplane);
+        tma_tile32<KEYS, DP>(ks, &tks, landed, c0, kplane);
+        tma_tile32<KEYS, DP>(vb, &tvb, landed, c0, kplane);
+        tma_tile32<KEYS, DP>(vs, &tvs, landed, c0, kplane);
+        walk.next();
+        if (walk.more()) {  // the next step's tiles, into L2
+          tma_prefetch32<KEYS, DP>(&tkb, walk.c0, kplane);
+          tma_prefetch32<KEYS, DP>(&tks, walk.c0, kplane);
+          tma_prefetch32<KEYS, DP>(&tvb, walk.c0, kplane);
+          tma_prefetch32<KEYS, DP>(&tvs, walk.c0, kplane);
+        }
+      }
+    }
+  } else {  // consumers: 64 query rows, 128 of the head dim's columns each
+    reg_alloc<kConsumerRegsWide>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const size_t bh = (size_t)b * a.H + h;
+    float lse_r[2], di_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + acc_row(t, 2 * r);
+      lse_r[r] = row < a.Nq ? lse[bh * a.Nq + row] : 0.f;
+      di_r[r] = row < a.Nq ? di[bh * a.Nq + row] : 0.f;
+    }
+    float acc[2][32];  // dQᵀ: 2 tiles of 64 cols x 64 rows
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[m][i] = 0.f;
+    }
+
+    for (int it = 0; walk.more(); walk.next(), ++it) {
+      const int c0 = walk.c0, c_end = walk.lw.end(walk.w);
+      if (it == 0) mbar_wait(q_landed, 0);
+
+      float x[KEYS / 2];  // S (consumer 0) or dP (consumer 1): 64 x KEYS
+#pragma unroll
+      for (int i = 0; i < KEYS / 2; ++i) x[i] = 0.f;
+      mbar_wait(landed, it & 1);
+      mma3_ra<ROWS, KEYS, DP / 8, Cfg::GS, Cfg::NB>(
+          x, cw == 0 ? qx : dox, 1.f, cw == 0 ? kb : vb, cw == 0 ? ks : vs,
+          t);
+      // dQᵀ[cols] += Kᵀ[cols]·dSᵀ: its A operands, read across the K tile;
+      // then the stage is free.
+      uint32_t kab[2][KEYS / 8][4], kas[2][KEYS / 8][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int kk = 0; kk < KEYS / 8; ++kk) {
+          tile_at<KEYS>(kb, ks, 128 * cw + 64 * m, kk, t, kab[m][kk],
+                        kas[m][kk]);
+        }
+      }
+      mbar_arrive(empty);
+
+      // The element mask and ds on this consumer's half of the pairs
+      // (elements [4 HF, 4 HF + 4): keys 8 HF .. 8 HF + 7 of the step); dS
+      // in two parts at (row, key), dQᵀ's B operand, K-major over keys.
+      auto half = [&](auto hf) {
+        constexpr int HF = decltype(hf)::value;
+        float y[4];  // the other product at this consumer's elements
+        hand_over<HF>(x, y, dsb, dss, t);
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * HF + e;
+          const int r = (i >> 1) & 1;
+          const int row = r0 + acc_row(t, i), col = c0 + acc_col(t, i);
+          ds[e] = 0.f;
+          if (row < a.Nq && kept(a, row, col, c_end)) {
+            const float s = (HF == 0 ? x[i] : y[e]) * a.scale;
+            const float p = expf(s - lse_r[r]);
+            ds[e] = p * ((HF == 0 ? y[e] : x[i]) - di_r[r]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int i = 4 * HF + e;
+          store_split2(dsb, dss,
+                       sw_off1<ROWS>(acc_row(t, i), acc_col(t, i)), ds[e],
+                       ds[e + 1]);
+        }
+      };
+      if (cw == 0) {
+        half(Int<0>{});
+      } else {
+        half(Int<1>{});
+      }
+      fence_proxy_async();
+      named_sync(3, 256);  // dS is in place
+
+      wgmma_fence();
+#pragma unroll
+      for (int m = 0; m < 2; ++m) fence_regs(acc[m]);
+      mma3_rs_m<ROWS, KEYS / 8, 2>(acc, kab, kas, dsb, dss);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        fence_regs(acc[m]);
+        keep_regs(kab[m]);
+        keep_regs(kas[m]);
+      }
+    }
+
+    // dQᵀ fragments: rows are head-dim columns, columns query rows; rows of
+    // a q block with count 0 write zeros.
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 128 * cw + 64 * m + acc_row(t, i);
+        const int row = r0 + acc_col(t, i);
+        if (row < r_end && col < a.D) {
+          dq[(bh * a.Nq + row) * a.D + col] = acc[m][i] * a.scale;
+        }
+      }
+    }
+  }
+}
+
+// The wide dK/dV kernel (a KV head's group over `splits` CTAs), the sum of
+// its partials where splits > 1, then the wide dQ kernel, after the split
+// of q (unscaled), dO, K and V into `scratch` (tf32_wide_bwd.cuh).
+template <int DP>
+cudaError_t sparse_bwd_f32_wide_sm90(const AttnArgs& a, const Lists& s,
+                                     const void* dout, const float* lse,
+                                     const float* di, void* dq, void* dk,
+                                     void* dv, float* scratch, int splits,
+                                     cudaStream_t st) {
+  using Kv = DkvWideCfg<DP>;
+  using Dq = DqWideCfg<DP>;
+  const WideScratch w = wide_scratch(a, scratch, splits);
+  cudaError_t err = split_operands(a, dout, 1.f, w, st);
+  if (err != cudaSuccess) return err;
+  CUtensorMap m[6];
+  err = dkv_wide_maps<DP>(m, a, w);
+  if (err != cudaSuccess) return err;
+  auto dkv_kernel = sparse_bwd_dkv_f32_wide_sm90_kernel<DP>;
+  err = set_smem(dkv_kernel, Kv::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv(a.H_kv * splits, (a.Nk + Kv::KEYS - 1) / Kv::KEYS, a.B);
+  dkv_kernel<<<grid_kv, Kv::THREADS, Kv::SMEM, st>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], a, lse, di, s.q_list, s.q_count,
+      s.q_stride, s.block_q, s.block_k, static_cast<float*>(dk),
+      static_cast<float*>(dv), splits, w.part);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = sum_partials(w, splits, dk, dv, st);
+  if (err == cudaSuccess) err = dq_wide_maps<DP>(m, a, dout, w);
+  if (err != cudaSuccess) return err;
+  auto dq_kernel = sparse_bwd_dq_f32_wide_sm90_kernel<DP>;
+  err = set_smem(dq_kernel, Dq::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((a.Nq + Dq::ROWS - 1) / Dq::ROWS, a.H, a.B);
+  dq_kernel<<<grid_q, Dq::THREADS, Dq::SMEM, st>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], a, lse, di, s.kv_list, s.kv_count,
+      s.kv_stride, s.block_q, s.block_k, static_cast<float*>(dq));
+  return cudaGetLastError();
+}
+
 }  // namespace sm90
 }  // namespace fat
 
@@ -1603,9 +2128,13 @@ int fat_sparse_bwd_sm90(const void* q, const void* k, const void* v,
   return (int)err;
 }
 
-// The fp32 tensor-core route (3xTF32): fp32 only, D <= 128, block_q and
+// The fp32 tensor-core route (3xTF32): fp32 only, D <= 256, block_q and
 // block_k multiples of 64; q, k, v and dout 16-byte aligned (TMA). Same
-// arguments as fat_sparse_bwd (dtype must be 1).
+// arguments as fat_sparse_bwd (dtype must be 1), then `scratch` and
+// `kv_splits`, both unused (null, 1) for D <= 128. For D > 128 a KV head's
+// query heads are walked by kv_splits dK/dV CTAs (it divides H / H_kv), and
+// scratch holds 2 (|q| + |dout| + |k| + |v|) fp32 values, plus 2 kv_splits
+// |k| where kv_splits > 1, 16-byte aligned.
 int fat_sparse_bwd_sm90_f32(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse, const void* di,
                             void* dq, void* dk, void* dv, const void* kv_list,
@@ -1613,14 +2142,18 @@ int fat_sparse_bwd_sm90_f32(const void* q, const void* k, const void* v,
                             const void* q_count, int B, int H, int H_kv,
                             int Nq, int Nk, int D, float scale, int causal,
                             int block_q, int block_k, int kv_stride,
-                            int q_stride, int dtype, void* stream) {
+                            int q_stride, int dtype, void* stream,
+                            void* scratch, int kv_splits) {
   using namespace fat;
-  if (dtype != 1 || D < 8 || D > 128 || D % 8 != 0 || H_kv < 1 ||
+  if (dtype != 1 || D < 8 || D > 256 || D % 8 != 0 || H_kv < 1 ||
       H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535 ||
       block_q < 64 || block_k < 64 || block_q % 64 != 0 ||
       block_k % 64 != 0 || kv_stride < (Nk + block_k - 1) / block_k ||
       q_stride < (Nq + block_q - 1) / block_q || (Nq + 63) / 64 > 65535 ||
-      (Nk + 63) / 64 > 65535) {
+      (Nk + 63) / 64 > 65535 ||
+      (D > 128 && (scratch == nullptr ||
+                   reinterpret_cast<uintptr_t>(scratch) % 16 != 0 ||
+                   kv_splits < 1 || (H / H_kv) % kv_splits != 0))) {
     return (int)cudaErrorInvalidValue;
   }
   AttnArgs a{q, k, v, nullptr, nullptr, nullptr, B, H, H_kv, Nq, Nk, D, scale,
@@ -1633,9 +2166,14 @@ int fat_sparse_bwd_sm90_f32(const void* q, const void* k, const void* v,
   auto st = static_cast<cudaStream_t>(stream);
   const auto* l = static_cast<const float*>(lse);
   const auto* d = static_cast<const float*>(di);
-  auto* run = D <= 64 ? sm90::sparse_bwd_f32_sm90<64>
-                      : sm90::sparse_bwd_f32_sm90<128>;
-  const cudaError_t err = run(a, s, dout, l, d, dq, dk, dv, st);
+  // Any D in (128, 256] runs the wide pair's 256 instance (TMA reads zeros
+  // past D).
+  const cudaError_t err =
+      D > 128 ? sm90::sparse_bwd_f32_wide_sm90<256>(
+                    a, s, dout, l, d, dq, dk, dv, static_cast<float*>(scratch),
+                    kv_splits, st)
+      : D > 64 ? sm90::sparse_bwd_f32_sm90<128>(a, s, dout, l, d, dq, dk, dv, st)
+               : sm90::sparse_bwd_f32_sm90<64>(a, s, dout, l, d, dq, dk, dv, st);
   return (int)err;
 }
 

@@ -57,27 +57,29 @@
 //     P.V is two n128 products over V's column halves (wgmma_rs<256>), and
 //     shared memory holds Q (32 KB a consumer) and two stages of K and V
 //     (32 KB each): 192 KB at NC = 2, 160 KB at NC = 1.
-//   fat_sparse_fwd_sm90_f32 (fp32, D <= 128, block_q and block_k multiples
+//   fat_sparse_fwd_sm90_f32 (fp32, D <= 256, block_q and block_k multiples
 //     of 64): both products in 3xTF32 (tf32_sm90.cuh: each fp32 operand
 //     split into two TF32 parts, three wgmmas a product, which keeps the
-//     fp32 1e-4 limit where one TF32 product would miss it), on the schedule
-//     of flash_fwd.cu's fp32 kernel with the list walk above: Q resident in
-//     two parts, K/V sub-tiles of 64 keys (D <= 64) or 32 (D <= 128) in two
-//     stages, warps 1-3 of the loading warpgroup splitting each landed K
-//     tile and writing Vᵀ in two parts (TF32 wgmma reads shared memory
-//     K-major only). One pass with an online softmax (above). NC = 2 only at
-//     D <= 64 where block_q % 128 == 0. A q block with count 0 issues
-//     nothing and writes o = 0, lse = -inf.
-//   fat_sparse_fwd (fp32 at 128 < D <= 256, any dtype with blocks that are
-//     not multiples of 64): the first version, fp32 FMAs on the CUDA
-//     cores. A block of 4 warps owns ROWS rows of one q block, staged once
-//     in shared memory as fp32, and walks each active KV block in 32-key
-//     sub-tiles, skipping sub-tiles wholly above the causal diagonal; a lane
-//     owns one key for the scores and output columns lane, lane + 32, ...
-//     for P.V. Other blocks stay here because the TMA box and a consumer's
-//     rows are 64; fp32 above D = 128 because two parts of its tiles do not
-//     fit beside each other (flash_fwd.cu's wide kernel is not ported to the
-//     list walk yet).
+//     fp32 1e-4 limit where one TF32 product would miss it). Up to D = 128,
+//     on the schedule of flash_fwd.cu's fp32 kernel with the list walk
+//     above: Q resident in two parts, K/V sub-tiles of 64 keys (D <= 64) or
+//     32 (D <= 128) in two stages, warps 1-3 of the loading warpgroup
+//     splitting each landed K tile and writing Vᵀ in two parts (TF32 wgmma
+//     reads shared memory K-major only); NC = 2 only at D <= 64 where
+//     block_q % 128 == 0. Above (any D in (128, 256] runs the 256 instance),
+//     two parts of a 64-row Q tile alone would take 128 KB, so the list walk
+//     runs on the schedule of flash_fwd.cu's wide kernel: Q kept as landed
+//     (64 KB) and split in registers k8 step by k8 step as S's A operand,
+//     one stage of 32 keys with K and V on barriers of their own (224 KB),
+//     one consumer of 64 rows. One pass with an online softmax (above). A q
+//     block with count 0 issues nothing and writes o = 0, lse = -inf.
+//   fat_sparse_fwd (blocks that are not multiples of 64, any dtype): the
+//     first version, fp32 FMAs on the CUDA cores. A block of 4 warps owns
+//     ROWS rows of one q block, staged once in shared memory as fp32, and
+//     walks each active KV block in 32-key sub-tiles, skipping sub-tiles
+//     wholly above the causal diagonal; a lane owns one key for the scores
+//     and output columns lane, lane + 32, ... for P.V. Such blocks stay here
+//     because the TMA box and a consumer's rows are 64.
 
 #include "flash_common.cuh"
 #include "sparse_sm90.cuh"
@@ -793,6 +795,240 @@ cudaError_t launch_sparse_fwd_f32_sm90(const AttnArgs& a,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 tensor-core route at 128 < D <= 256 (3xTF32, Q split in
+// registers)
+// ---------------------------------------------------------------------------
+
+// flash_fwd.cu's wide kernel (FwdWideCfg: one consumer warpgroup of 64
+// query rows, Q as landed and split in registers k8 step by k8 step as S's
+// A operand, one stage of 32 keys with K and V on barriers of their own,
+// 224 KB) walking the lists as sparse_fwd_f32_sm90_kernel does: thread 0
+// reads the count and the list and issues TMA for Q at the first sub-tile,
+// then K and V for each sub-tile of each active block up to the causal
+// stop; warps 1-3 split each landed K tile in place and into small, and
+// transpose and split each landed V tile into Vᵀ. A CTA's 64 rows never
+// span two q blocks (block_q is a multiple of 64); a q block with count 0
+// issues nothing and writes o = 0, lse = -inf. The consumer: S = Q·Kᵀ with
+// Q split unscaled (s = (q·k) * scale), the element mask, one pass with an
+// online softmax, O += P·V against Vᵀ (O is 128 registers a thread).
+template <int DP>
+__global__ void __launch_bounds__(FwdWideCfg<DP>::THREADS, 1)
+sparse_fwd_f32_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                AttnArgs a,
+                                const int32_t* __restrict__ kv_list,
+                                const int32_t* __restrict__ kv_count,
+                                int stride, int block_q, int block_k,
+                                float* __restrict__ o,
+                                float* __restrict__ lse) {
+  using Cfg = FwdWideCfg<DP>;
+  constexpr int ROWS = Cfg::ROWS, KEYS = Cfg::KEYS, TB = Cfg::T_BYTES;
+  // Heavy first, as the other routes: the row tiles from the last one.
+  const int r0 = (gridDim.z - 1 - blockIdx.z) * ROWS;
+  const int iq = r0 / block_q;
+  const int r_end = min(iq * block_q + block_q, a.Nq);  // this q block's rows
+
+  extern __shared__ char smem_raw[];
+  char* qx = align_1024(smem_raw);  // [DP/32][ROWS][32] fp32 as landed
+  char* kb = qx + Cfg::Q_BYTES;
+  char* ks = kb + TB;
+  char* vx = ks + TB;  // V as landed
+  char* vtb = vx + TB;
+  char* vts = vtb + TB;
+  uint64_t* q_landed = reinterpret_cast<uint64_t*>(vts + TB);
+  uint64_t* k_landed = q_landed + 1;
+  uint64_t* k_ready = q_landed + 2;
+  uint64_t* k_empty = q_landed + 3;
+  uint64_t* v_landed = q_landed + 4;
+  uint64_t* v_ready = q_landed + 5;
+  uint64_t* v_empty = q_landed + 6;
+
+  const int b = blockIdx.y, h = blockIdx.x;
+  const int hk = h / (a.H / a.H_kv);
+  const ListWalk walk = list_walk(a, kv_list, kv_count, stride, iq, block_k,
+                                  min(r0 + ROWS, r_end) - 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_landed, 1);
+    mbar_init(k_landed, 1);
+    mbar_init(k_ready, kPrepThreads);
+    mbar_init(k_empty, 128);
+    mbar_init(v_landed, 1);
+    mbar_init(v_ready, kPrepThreads);
+    mbar_init(v_empty, 128);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer
+    if (threadIdx.x == 0) {
+      const int kplane = b * a.H_kv + hk;
+      int it = 0;
+      for (int w = 0; w < walk.n_active; ++w) {
+        for (int c0 = walk.lo(w); c0 < walk.stop_of(w); c0 += KEYS, ++it) {
+          if (it == 0) {
+            mbar_expect_tx(q_landed, Cfg::Q_BYTES);
+            tma_tile32<ROWS, DP>(qx, &tq, q_landed, r0, b * a.H + h);
+          }
+          mbar_wait(k_empty, (it & 1) ^ 1);
+          mbar_expect_tx(k_landed, TB);
+          tma_tile32<KEYS, DP>(kb, &tk, k_landed, c0, kplane);
+          if (it > 0) mbar_wait(v_ready, (it - 1) & 1);  // V landed is free
+          mbar_expect_tx(v_landed, TB);
+          tma_tile32<KEYS, DP>(vx, &tv, v_landed, c0, kplane);
+        }
+      }
+    } else if (threadIdx.x >= 32) {
+      const int tid = threadIdx.x - 32;
+      int it = 0;
+      for (int w = 0; w < walk.n_active; ++w) {
+        for (int c0 = walk.lo(w); c0 < walk.stop_of(w); c0 += KEYS, ++it) {
+          const int ph = it & 1;
+          mbar_wait(k_landed, ph);
+          split_tile(kb, kb, ks, TB, 1.f, tid, kPrepThreads);
+          fence_proxy_async();
+          mbar_arrive(k_ready);
+          mbar_wait(v_landed, ph);
+          mbar_wait(v_empty, ph ^ 1);  // P·V of the last tile read Vᵀ
+          transpose_split<KEYS, DP>(vx, vtb, vts, 1.f, tid, kPrepThreads);
+          fence_proxy_async();
+          mbar_arrive(v_ready);
+        }
+      }
+    }
+  } else {  // the consumer: 64 query rows
+    const int t = threadIdx.x - 128;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+    int it = 0;
+    for (int w = 0; w < walk.n_active; ++w) {
+      const int c_end = walk.end(w);
+      for (int c0 = walk.lo(w); c0 < walk.stop_of(w); c0 += KEYS, ++it) {
+        const int ph = it & 1;
+        if (it == 0) mbar_wait(q_landed, 0);
+
+        float sc[KEYS / 2];  // S: 64 rows x KEYS
+#pragma unroll
+        for (int i = 0; i < KEYS / 2; ++i) sc[i] = 0.f;
+        mbar_wait(k_ready, ph);
+        mma3_ra<ROWS, KEYS, DP / 8, Cfg::GS, Cfg::NB>(sc, qx, 1.f, kb, ks, t);
+        mbar_arrive(k_empty);
+
+        // Masked scores count in the row max as the mask value and give
+        // p = 0 (held as -inf), as the D <= 128 route. Interior: every
+        // element kept.
+        float mx[2] = {m[0], m[1]};
+        const bool interior =
+            c0 + KEYS <= c_end && (!a.causal || c0 + KEYS - 1 <= r0 + a.offset);
+        auto loop = [&](auto in) {
+#pragma unroll
+          for (int i = 0; i < KEYS / 2; ++i) {
+            const int r = (i >> 1) & 1;
+            const int row = r0 + acc_row(t, i), col = c0 + acc_col(t, i);
+            const bool vis = decltype(in)::value || kept(a, row, col, c_end);
+            const float x = sc[i] * a.scale;
+            mx[r] = fmaxf(mx[r], vis ? x : kMaskValue);
+            sc[i] = vis ? x : -INFINITY;
+          }
+        };
+        if (interior) {
+          loop(Int<1>{});
+        } else {
+          loop(Int<0>{});
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+          const float alpha = expf(m[r] - mx[r]);
+          l[r] *= alpha;
+          m[r] = mx[r];
+#pragma unroll
+          for (int i = 0; i < DP / 2; ++i) {
+            if (((i >> 1) & 1) == r) acc[i] *= alpha;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < KEYS / 2; ++i) {
+          const float p = expf(sc[i] - m[(i >> 1) & 1]);
+          l[(i >> 1) & 1] += p;
+          sc[i] = p;
+        }
+        uint32_t pb[KEYS / 8][4], ps[KEYS / 8][4];
+        acc_to_tf32_a<KEYS>(sc, pb, ps);
+
+        mbar_wait(v_ready, ph);
+        wgmma_fence();
+        fence_regs(acc);
+        mma3_rs<DP, KEYS / 8>(acc, pb, ps, vtb, vts);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        keep_regs(pb);
+        keep_regs(ps);
+        mbar_arrive(v_empty);
+      }
+    }
+
+    // Epilogue, as the D <= 128 route: a visited block's row that met no
+    // key holds the mask value; rows of a block with count 0 keep -inf.
+    const size_t bh = (size_t)b * a.H + h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(kFull, l[r], 1);
+      l[r] += __shfl_xor_sync(kFull, l[r], 2);
+      if (walk.n_active > 0) m[r] = fmaxf(m[r], kMaskValue);
+      const int row = r0 + acc_row(t, 2 * r);
+      if (row >= r_end) continue;
+      const float l_safe = l[r] == 0.f ? 1.f : l[r];
+      const size_t base = bh * a.Nq + row;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = acc_col(t, 4 * n);
+        if (col < a.D) {
+          *reinterpret_cast<float2*>(o + base * a.D + col) =
+              make_float2(acc[4 * n + 2 * r] / l_safe,
+                          acc[4 * n + 2 * r + 1] / l_safe);
+        }
+      }
+      if ((t & 3) == 0) lse[base] = m[r] + logf(l_safe);
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_sparse_fwd_f32_wide_sm90(const AttnArgs& a,
+                                            const int32_t* kv_list,
+                                            const int32_t* kv_count,
+                                            int stride, int block_q,
+                                            int block_k, void* o, float* lse,
+                                            cudaStream_t st) {
+  using Cfg = FwdWideCfg<DP>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map32(&tq, a.q, a.B * a.H, a.Nq, a.D,
+                               box_rows<Cfg::ROWS>());
+  if (err == cudaSuccess) {
+    err = make_map32(&tk, a.k, a.B * a.H_kv, a.Nk, a.D, box_rows<Cfg::KEYS>());
+  }
+  if (err == cudaSuccess) {
+    err = make_map32(&tv, a.v, a.B * a.H_kv, a.Nk, a.D, box_rows<Cfg::KEYS>());
+  }
+  if (err != cudaSuccess) return err;
+  auto kernel = sparse_fwd_f32_wide_sm90_kernel<DP>;
+  err = set_smem(kernel, Cfg::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.H, a.B, (a.Nq + Cfg::ROWS - 1) / Cfg::ROWS);
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, st>>>(
+      tq, tk, tv, a, kv_list, kv_count, stride, block_q, block_k,
+      static_cast<float*>(o), lse);
+  return cudaGetLastError();
+}
+
 }  // namespace sm90
 }  // namespace fat
 
@@ -860,7 +1096,7 @@ int fat_sparse_fwd_sm90(const void* q, const void* k, const void* v, void* o,
   return (int)err;
 }
 
-// The fp32 tensor-core route (3xTF32): fp32 only, D <= 128, block_q and
+// The fp32 tensor-core route (3xTF32): fp32 only, D <= 256, block_q and
 // block_k multiples of 64; q, k and v 16-byte aligned (TMA). Same arguments
 // as fat_sparse_fwd (dtype must be 1).
 int fat_sparse_fwd_sm90_f32(const void* q, const void* k, const void* v,
@@ -870,7 +1106,7 @@ int fat_sparse_fwd_sm90_f32(const void* q, const void* k, const void* v,
                             int block_q, int block_k, int stride, int dtype,
                             void* stream) {
   using namespace fat;
-  if (dtype != 1 || D < 8 || D > 128 || D % 8 != 0 || H_kv < 1 ||
+  if (dtype != 1 || D < 8 || D > 256 || D % 8 != 0 || H_kv < 1 ||
       H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535 ||
       block_q < 64 || block_k < 64 || block_q % 64 != 0 ||
       block_k % 64 != 0 || stride < (Nk + block_k - 1) / block_k ||
@@ -884,10 +1120,13 @@ int fat_sparse_fwd_sm90_f32(const void* q, const void* k, const void* v,
   const auto* count = static_cast<const int32_t*>(kv_count);
   auto* l = static_cast<float*>(lse);
   // A CTA never spans two q blocks: two consumers only where a block holds
-  // 128 rows, and at D <= 64 (shared memory).
+  // 128 rows, and at D <= 64 (shared memory). Any D in (128, 256] runs the
+  // wide kernel's 256 instance (TMA reads zeros past D).
   const cudaError_t err =
-      D > 64 ? sm90::launch_sparse_fwd_f32_sm90<128, 1>(
-                   a, list, count, stride, block_q, block_k, o, l, st)
+      D > 128  ? sm90::launch_sparse_fwd_f32_wide_sm90<256>(
+                    a, list, count, stride, block_q, block_k, o, l, st)
+      : D > 64 ? sm90::launch_sparse_fwd_f32_sm90<128, 1>(
+                     a, list, count, stride, block_q, block_k, o, l, st)
       : block_q % 128 == 0
           ? sm90::launch_sparse_fwd_f32_sm90<64, 2>(a, list, count, stride,
                                                     block_q, block_k, o, l, st)

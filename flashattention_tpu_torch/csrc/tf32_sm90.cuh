@@ -606,6 +606,85 @@ __device__ __forceinline__ int xchg_off(int t) {
   return sw_off<64>(t >> 1, 16 + 4 * (t & 1));
 }
 
+// ---------------------------------------------------------------------------
+// The wide kernels' shapes (128 < D <= 256), shared by the dense kernels
+// (flash_fwd.cu, flash_bwd.cu) and the block-sparse ones (sparse_fwd.cu,
+// sparse_bwd.cu), which walk lists on the same schedules
+// ---------------------------------------------------------------------------
+
+// Forward: one consumer warpgroup of 64 query rows; K/V tiles of 32 keys.
+// Shared memory at 1 KB a fp32 row of 256: Q as landed (64 KB, the A
+// operand of S = Q·Kᵀ, split in registers k8 step by k8 step), then one
+// stage of K big (where TMA lands it, split in place) and small (64 KB), V
+// as landed (32 KB) and Vᵀ big and small (64 KB), which P·V reads K-major:
+// 224 KB. K and V have barriers of their own, so that K's next tile loads
+// while P·V runs and V's while S runs.
+template <int DP>
+struct FwdWideCfg {
+  static constexpr int ROWS = 64, KEYS = 32, THREADS = 256;
+  // S: groups of 8 k8 steps, one register set (mma3_ra)
+  static constexpr int GS = 8, NB = 1;
+  static constexpr int Q_BYTES = ROWS * DP * 4;  // as landed
+  static constexpr int T_BYTES = KEYS * DP * 4;  // K, V or Vᵀ, one part
+  static_assert(transposed_bytes<KEYS, DP>() == T_BYTES, "Vᵀ tile size");
+  static constexpr int BARS = 7;
+  static constexpr size_t SMEM = 1024 + Q_BYTES + 5 * T_BYTES + 8 * BARS;
+};
+
+// Backward, dK/dV: 64 keys a CTA, K and V as landed (128 KB); per step of
+// R = 16 query rows q and dO in two parts (64 KB), P_vᵀ and dSᵀ in two
+// parts (32 KB): 224 KB (flash_bwd.cu's header of the wide pair).
+template <int DP>
+struct DkvWideCfg {
+  static constexpr int KEYS = 64, R = 16, THREADS = 384;
+  static constexpr int GS = 2, NB = 2;  // Sᵀ, dPᵀ k8 steps (mma3_ra)
+  static constexpr int KV_BYTES = KEYS * DP * 4;  // K or V as landed
+  static constexpr int T_BYTES = R * DP * 4;      // q_s or dO, one part
+  static constexpr int X_BYTES = KEYS * kHalf32 * 4;  // P_vᵀ or dSᵀ, a part
+  static constexpr int BARS = 4;
+  static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + 4 * T_BYTES +
+                                 4 * X_BYTES + 2 * R * 4 + 8 * BARS;
+};
+
+// Backward, dQ: 64 query rows a CTA, q and dO as landed (128 KB); per step
+// of 16 keys K and V in two parts (64 KB), dS in two parts (16 KB): 208 KB.
+template <int DP>
+struct DqWideCfg {
+  static constexpr int ROWS = 64, KEYS = 16, THREADS = 384;
+  static constexpr int GS = 8, NB = 1;  // S, dP k8 steps (mma3_ra)
+  static constexpr int Q_BYTES = ROWS * DP * 4;  // q or dO as landed
+  static constexpr int T_BYTES = KEYS * DP * 4;  // K or V, one part
+  static constexpr int X_BYTES = ROWS * kHalf32 * 4;  // dS, one part
+  static constexpr int BARS = 3;
+  static constexpr size_t SMEM =
+      1024 + 2 * Q_BYTES + 4 * T_BYTES + 2 * X_BYTES + 8 * BARS;
+};
+
+// The hand-over of the wide backward kernels' product split: consumer HF
+// holds fragment `mine` (64 rows x 16 columns: Sᵀ or S on consumer 0, dPᵀ
+// or dP on consumer 1) and takes its elements [4 HF, 4 HF + 4) (columns
+// 8 HF .. 8 HF + 7). It writes the other consumer's four elements into its
+// slot of its tile (xchg_off: consumer 0 writes into x0, consumer 1 into
+// x1), and after named barrier 2 reads the other product's values at its
+// own four elements into `theirs`. HF is a constant, so no register array
+// is indexed at run time.
+template <int HF>
+__device__ __forceinline__ void hand_over(const float (&mine)[8],
+                                          float (&theirs)[4], char* x0,
+                                          char* x1, int t) {
+  constexpr int GIVE = 4 * (1 - HF);
+  const int at = xchg_off(t);
+  *reinterpret_cast<float4*>((HF == 0 ? x0 : x1) + at) =
+      make_float4(mine[GIVE], mine[GIVE + 1], mine[GIVE + 2],
+                  mine[GIVE + 3]);
+  named_sync(2, 256);
+  const float4 v = *reinterpret_cast<const float4*>((HF == 0 ? x1 : x0) + at);
+  theirs[0] = v.x;
+  theirs[1] = v.y;
+  theirs[2] = v.z;
+  theirs[3] = v.w;
+}
+
 // Register split of the fp32 kernels' blocks of two consumer warpgroups:
 // 72 + 2 x 216 registers of a 384-thread block fit the SM's 64K (the
 // producer's splitting and transposing needs more than the bf16 kernels'

@@ -239,7 +239,7 @@ def route_kernels(dtype, d: int) -> frozenset[str]:
     """The ``__global__`` kernels a forward and a backward call launch for
     ``dtype`` and head dim ``d`` (their names in a profiler trace). fp32
     above D = 128 adds the split of the backward's B operands, and under
-    GQA/MQA may add ``flash_bwd_sum_kernel`` (:func:`_kv_splits`)."""
+    GQA/MQA may add ``kv_sum_kernel`` (:func:`_kv_splits`)."""
     if dtype == torch.bfloat16:
         tag = "sm90"
     else:
@@ -247,7 +247,7 @@ def route_kernels(dtype, d: int) -> frozenset[str]:
     names = {f"flash_fwd_{tag}_kernel", f"flash_bwd_dkv_{tag}_kernel",
              f"flash_bwd_dq_{tag}_kernel"}
     if tag == "f32_wide_sm90":
-        names.add("flash_bwd_split_kernel")
+        names.add("tf32_split_kernel")
     return frozenset(names)
 
 
@@ -331,19 +331,7 @@ def _bwd_cuda(q, k, v, do, lse, di, opts: AttnOpts):
     fn = _entry(lib, "fat_flash_bwd", q.dtype)
     more = []
     if fn is lib.fat_flash_bwd_sm90_f32:
-        splits, scratch = 1, None
-        if q.shape[3] > 128:
-            # the two TF32 parts of q * scale, do, k and v, made once by the
-            # call (csrc/flash_bwd.cu, split_pairs), then the dK/dV partial
-            # sums of a split query-head group
-            splits = _kv_splits(
-                k.shape[0] * k.shape[1], k.shape[2], q.shape[1] // k.shape[1],
-                torch.cuda.get_device_properties(
-                    q.device).multi_processor_count)
-            scratch = torch.empty(
-                4 * (q.numel() + k.numel())
-                + (2 * splits * k.numel() if splits > 1 else 0),
-                dtype=torch.float32, device=q.device)
+        scratch, splits = _wide_scratch(q, k)
         more = [_ptr(scratch), splits]
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -368,6 +356,24 @@ def _kv_splits(kv_heads: int, n_k: int, group: int, sms: int) -> int:
     while group % (2 * splits) == 0 and ctas * splits < 2 * sms:
         splits *= 2
     return splits
+
+
+def _wide_scratch(q, k) -> tuple[torch.Tensor | None, int]:
+    """(scratch, kv_splits) of a backward call on an fp32 tensor-core route
+    (this module's and ``sparse_attn``'s): above D = 128 the two TF32 parts
+    of q, do, k and v, made once by the call (``csrc/tf32_wide_bwd.cuh``),
+    then the dK/dV partial sums of a query-head group spread over
+    ``kv_splits`` CTAs (:func:`_kv_splits`); (None, 1) at D <= 128."""
+    if q.shape[3] <= 128:
+        return None, 1
+    splits = _kv_splits(
+        k.shape[0] * k.shape[1], k.shape[2], q.shape[1] // k.shape[1],
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    scratch = torch.empty(
+        4 * (q.numel() + k.numel())
+        + (2 * splits * k.numel() if splits > 1 else 0),
+        dtype=torch.float32, device=q.device)
+    return scratch, splits
 
 
 def _scalar_argtypes():

@@ -14,13 +14,14 @@ On CUDA tensors :func:`sparse_attention` launches ``csrc/sparse_fwd.cu``
 ``csrc/sparse_bwd.cu`` (a dK/dV kernel over the transposed lists, then a
 dQ kernel; ``sparse_attention.bwd_launches``). Each source has three routes,
 chosen by :func:`_tensor_core_route` and :func:`_entry`: with both blocks
-multiples of 64, bf16 with D <= 256 goes to the bf16 tensor-core kernels
-(wgmma fed by TMA; ``fat_sparse_fwd_sm90`` / ``fat_sparse_bwd_sm90``) and
-fp32 with D <= 128 to the fp32 ones (3xTF32 wgmma fed by TMA;
-``fat_sparse_fwd_sm90_f32`` / ``fat_sparse_bwd_sm90_f32``), both also
-counted in ``sparse_attention.fwd_tc_launches`` / ``bwd_tc_launches``;
-everything else (fp32 above D = 128, blocks that are not multiples of 64)
-to the FMA kernels (``fat_sparse_fwd`` / ``fat_sparse_bwd``). On CPU
+multiples of 64, bf16 goes to the bf16 tensor-core kernels (wgmma fed by
+TMA; ``fat_sparse_fwd_sm90`` / ``fat_sparse_bwd_sm90``) and fp32 to the
+fp32 ones (3xTF32 wgmma fed by TMA; ``fat_sparse_fwd_sm90_f32`` /
+``fat_sparse_bwd_sm90_f32``; above D = 128 the wide kernels, whose backward
+takes a scratch the wrapper allocates, ``flash_attn._wide_scratch``), both
+up to D = 256 and both also counted in ``sparse_attention.fwd_tc_launches``
+/ ``bwd_tc_launches``; blocks that are not multiples of 64 go to the FMA
+kernels (``fat_sparse_fwd`` / ``fat_sparse_bwd``). On CPU
 tensors it runs the plain versions :func:`sparse_fwd_plain` and
 :func:`sparse_bwd_plain`. Nothing falls back: a CUDA input the kernels do
 not take (fp16, a head dim above 256, tensors on different devices; a
@@ -56,6 +57,8 @@ from flashattention_tpu_torch.ops.flash_attn import (
     _aligned16,
     _expand_kv,
     _group_sum,
+    _ptr,
+    _wide_scratch,
 )
 from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
@@ -219,12 +222,12 @@ def _shape_args(q, k, spec: SparseSpec):
 def _tensor_core_route(dtype, d: int, spec: SparseSpec) -> bool:
     """True where the tensor-core kernels take the call: ``block_q`` and
     ``block_k`` multiples of 64 (the TMA box and a consumer warpgroup's
-    rows), with bf16 up to D = 256 (above D = 128 the dK/dV kernel splits
-    the head dim between its two consumers) or fp32 up to D = 128 (3xTF32:
-    each operand split into two TF32 parts, which keeps the fp32 1e-4
-    limit). fp32 above D = 128 keeps the FMA kernels."""
-    limit = MAX_HEAD_DIM if dtype == torch.bfloat16 else 128
-    return (dtype in _DTYPE_CODE and d <= limit
+    rows), bf16 or fp32 up to D = 256 (above D = 128 the bf16 dK/dV kernel
+    splits the head dim between its two consumers; fp32 runs 3xTF32, each
+    operand split into two TF32 parts, which keeps the fp32 1e-4 limit, and
+    above D = 128 its wide kernels split the operands they keep as landed
+    in registers). Other blocks keep the FMA kernels."""
+    return (dtype in _DTYPE_CODE and d <= MAX_HEAD_DIM
             and spec.block_q % 64 == 0 and spec.block_k % 64 == 0)
 
 
@@ -237,13 +240,24 @@ def _entry(part: str, dtype, tc: bool) -> str:
                                         else "")
 
 
-def route_kernels(dtype, d: int, spec: SparseSpec) -> frozenset[str]:
+def route_kernels(dtype, d: int, spec: SparseSpec,
+                  kv_splits: int = 1) -> frozenset[str]:
     """The ``__global__`` kernels a forward and a backward call launch (their
-    names in a profiler trace)."""
-    tc = _tensor_core_route(dtype, d, spec)
-    tag = ("_f32_sm90" if dtype == torch.float32 else "_sm90") if tc else ""
-    return frozenset(f"sparse_{k}{tag}_kernel"
-                     for k in ("fwd", "bwd_dkv", "bwd_dq"))
+    names in a profiler trace). fp32 above D = 128 adds the split of the
+    backward's B operands (``tf32_split_kernel``) and, where ``kv_splits``
+    (``flash_attn._wide_scratch``) spreads a KV head's query heads over
+    dK/dV CTAs, the sum of their partials (``kv_sum_kernel``)."""
+    tag = ""
+    if _tensor_core_route(dtype, d, spec):
+        tag = "_sm90"
+        if dtype == torch.float32:
+            tag = "_f32_wide_sm90" if d > 128 else "_f32_sm90"
+    names = {f"sparse_{k}{tag}_kernel" for k in ("fwd", "bwd_dkv", "bwd_dq")}
+    if tag == "_f32_wide_sm90":
+        names.add("tf32_split_kernel")
+        if kv_splits > 1:
+            names.add("kv_sum_kernel")
+    return frozenset(names)
 
 
 def _fwd_cuda(q, k, v, active, spec: SparseSpec):
@@ -279,13 +293,17 @@ def _bwd_cuda(q, k, v, do, lse, di, active, spec: SparseSpec):
     q_list, q_count = compact_rows(active.t())
     lib = _build.load_kernel("sparse_bwd", _declare_bwd)
     tc = _tensor_core_route(q.dtype, q.shape[3], spec)
+    more = []
+    if tc and q.dtype == torch.float32:
+        scratch, splits = _wide_scratch(q, k)
+        more = [_ptr(scratch), splits]
     err = getattr(lib, _entry("bwd", q.dtype, tc))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), kv_list.data_ptr(), kv_count.data_ptr(),
         q_list.data_ptr(), q_count.data_ptr(), *_shape_args(q, k, spec),
         kv_list.shape[1], q_list.shape[1], _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream, *more)
     _build.check(err, "sparse_bwd launch")
     sparse_attention.bwd_launches += 1
     sparse_attention.bwd_tc_launches += tc
@@ -309,6 +327,10 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
                lib.fat_sparse_bwd_sm90_f32):
         fn.restype = ctypes.c_int
         fn.argtypes = [p] * 13 + _SHAPE_ARGTYPES + [i, i, i, p]
+    # the fp32 route takes its scratch and query-head splits (used above
+    # D = 128) last
+    lib.fat_sparse_bwd_sm90_f32.argtypes = ([p] * 13 + _SHAPE_ARGTYPES
+                                            + [i, i, i, p, p, i])
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,14 @@
-"""Phase 2's block-sparse cases on the bf16 tensor-core route (default:
-(a), (b), (d) and (g) of ``chip_smoke.SPARSE_CASES``) for the package of
-one checkout, on one NVIDIA GPU: the kernels alone
-(``fat_sparse_fwd_sm90`` / ``fat_sparse_bwd_sm90`` with the lists and di
-built beforehand, as phase 2's "kernels alone"), printed as one JSON line
-of ms per case, after the ptxas spill report of the two libraries, built
-anew.
+"""Phase 2's block-sparse cases on the tensor-core routes (default: (a),
+(b), (d) and (g) of ``chip_smoke.SPARSE_CASES``, bf16; (i), (c) and (j) are
+fp32 at D <= 128 on 3xTF32) for the package of one checkout, on one NVIDIA
+GPU: the kernels alone (``fat_sparse_fwd_sm90[_f32]`` /
+``fat_sparse_bwd_sm90[_f32]`` with the lists and di built beforehand, as
+phase 2's "kernels alone"), printed as one JSON line of ms per case, after
+the ptxas spill report of the two libraries, built anew.
 
     python3 scripts/sparse_ab.py                    # this checkout
     python3 scripts/sparse_ab.py --tree DIR         # another checkout
-    python3 scripts/sparse_ab.py --cases a,g
+    python3 scripts/sparse_ab.py --cases a,g,i,c,j
 
 With ``--tree`` this checkout's ``chip_smoke.py`` sets up the inputs and
 times the ``flashattention_tpu_torch`` package of DIR, so two versions
@@ -46,6 +46,7 @@ def main() -> int:
         print("sparse_ab: no CUDA device", file=sys.stderr)
         return 1
     from flashattention_tpu_torch import _build
+    from flashattention_tpu_torch.ops import flash_attn as fa
     from flashattention_tpu_torch.ops import sparse_attn as sa
 
     libs = {}
@@ -69,9 +70,8 @@ def main() -> int:
                            block_q=bq, block_k=bk)
         active = sa.tile_pattern(pattern.to(dev), *pattern.shape, bq, bk,
                                  causal, shape[4] - shape[3])
-        if not sa._tensor_core_route(dtype, shape[-1], sp) or \
-                dtype != torch.bfloat16:
-            raise SystemExit(f"sparse_ab: case {key} is not on the bf16 "
+        if not sa._tensor_core_route(dtype, shape[-1], sp):
+            raise SystemExit(f"sparse_ab: case {key} is not on a "
                              f"tensor-core route")
         o, lse = sa.sparse_fwd(q, k, v, active, sp)
         di = (o.float() * do.float()).sum(-1)
@@ -82,20 +82,29 @@ def main() -> int:
         o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
         grads = [torch.empty_like(x) for x in (q, k, v)]
         shape_args = sa._shape_args(q, k, sp)
+        code = fa._DTYPE_CODE[dtype]
+        fwd_fn = getattr(libs["sparse_fwd"], sa._entry("fwd", dtype, True))
+        bwd_fn = getattr(libs["sparse_bwd"], sa._entry("bwd", dtype, True))
+        # an fp32 backward that takes a scratch and query-head splits last
+        # (unused at D <= 128) gets them
+        more = []
+        if len(bwd_fn.argtypes) > 13 + len(shape_args) + 4:
+            scratch, splits = fa._wide_scratch(q, k)
+            more = [fa._ptr(scratch), splits]
 
         def run_fwd():
-            _build.check(libs["sparse_fwd"].fat_sparse_fwd_sm90(
+            _build.check(fwd_fn(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o2.data_ptr(),
                 lse2.data_ptr(), kv_list.data_ptr(), kv_count.data_ptr(),
-                *shape_args, kv_list.shape[1], 0, stream), "sparse fwd")
+                *shape_args, kv_list.shape[1], code, stream), "sparse fwd")
 
         def run_bwd():
-            _build.check(libs["sparse_bwd"].fat_sparse_bwd_sm90(
+            _build.check(bwd_fn(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), di.data_ptr(), *(g.data_ptr() for g in grads),
                 kv_list.data_ptr(), kv_count.data_ptr(), q_list.data_ptr(),
                 q_count.data_ptr(), *shape_args, kv_list.shape[1],
-                q_list.shape[1], 0, stream), "sparse bwd")
+                q_list.shape[1], code, stream, *more), "sparse bwd")
 
         out[key] = dict(fwd_kernel_ms=timer(run_fwd),
                         bwd_kernel_ms=timer(run_bwd))

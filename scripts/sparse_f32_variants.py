@@ -1,21 +1,34 @@
 """Design readings of the fp32 block-sparse kernels (3xTF32 wgmma, D <=
-128) on one NVIDIA GPU: variants built from edited copies of
-``csrc/sparse_fwd.cu`` and ``csrc/sparse_bwd.cu``.
+256) on one NVIDIA GPU: variants built from edited copies of
+``csrc/sparse_fwd.cu`` and ``csrc/sparse_bwd.cu``, or run with other
+arguments.
 
     python3 scripts/sparse_f32_variants.py [--variants a,b,...] [--cases i,c,j]
 
 Cases: chip_smoke's sparse cases (i) (phase 7d's call, (2, 12, 4096, 64)
 causal, local + global on tiles of 128), (c) (GQA 12/4, N = 1000, blocks of
-64) and (j) (D = 128, GQA 8/2, N_q 384 != N_k 512, blocks 64 x 128).
-Variants, with the ptxas registers and spill bytes of each fp32 kernel:
+64) and (j) (D = 128, GQA 8/2, N_q 384 != N_k 512, blocks 64 x 128); and
+at D = 256 on the wide kernels (k) (GQA 8/2, N = 1024), (l) (phase 7e's
+MQA call, (1, 8, 1, 4096, 4096, 256)) and (m) (D = 136, GQA 8/2, N_q 384
+!= N_k 512). Variants, with the ptxas registers and spill bytes of each
+fp32 kernel:
 
 - ``kernel``: the sources as they are;
 - ``prefetch``: the producer thread asks L2 for a step's tiles
   (``tma_prefetch32``) before it waits for their stage to empty, in all
-  three fp32 kernels;
+  three D <= 128 fp32 kernels;
 - ``noprep`` (a diagnostic, wrong numbers): warps 1-3 of the loading
   warpgroup signal each landed tile without splitting or transposing it
-  (the resident operands are still split once).
+  (the resident operands are still split once), D <= 128;
+- ``noprep_wide`` (a diagnostic, wrong numbers): the same in the wide
+  forward (no split of K, no transposed split of V);
+- ``split1``: the sources as they are, the wide backward's dK/dV kernel
+  run with one CTA a KV head's whole query-head group (``kv_splits`` 1,
+  no partials to sum) instead of the wrapper's ``_kv_splits``;
+- ``window_dkv`` (a diagnostic, wrong numbers): the wide dK/dV kernel
+  walks at most 4 entries of its KV block's transposed list, so the
+  global column's CTAs walk no more q blocks than a local block's (the
+  local + global pattern's window is 4): the cost of that imbalance.
 
 Each variant's forward and backward ms, kernels alone with the lists and
 di built beforehand (chip_smoke's Timer: CUDA events, median of 30, L2
@@ -45,6 +58,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from flashattention_tpu_torch import _build  # noqa: E402
+from flashattention_tpu_torch.ops import flash_attn as fa  # noqa: E402
 from flashattention_tpu_torch.ops import sparse_attn as sa  # noqa: E402
 
 AB = _build.BUILD_DIR / "ab"
@@ -117,8 +131,27 @@ def noprep(name, e):
 """, "")
 
 
-VARIANTS = {"kernel": None, "prefetch": prefetch, "noprep": noprep}
-DIAGNOSTIC = {"noprep"}
+def noprep_wide(name, e):
+    if name == "sparse_fwd":
+        e("""          split_tile(kb, kb, ks, TB, 1.f, tid, kPrepThreads);
+""", "")
+        e("""          transpose_split<KEYS, DP>(vx, vtb, vts, 1.f, tid, kPrepThreads);
+""", "")
+
+
+def window_dkv(name, e):
+    if name == "sparse_bwd":
+        e("""  QTileWalk<R> walk{q_list + (size_t)ik * stride, q_count[ik], block_q, a.Nq,""",
+          """  QTileWalk<R> walk{q_list + (size_t)ik * stride, min(q_count[ik], 4), block_q, a.Nq,""")
+
+
+VARIANTS = {"kernel": None, "prefetch": prefetch, "noprep": noprep,
+            "noprep_wide": noprep_wide, "split1": None,
+            "window_dkv": window_dkv}
+DIAGNOSTIC = {"noprep", "noprep_wide", "window_dkv"}
+# variants that run the unedited kernels with other arguments: the wide
+# backward's query-head splits
+SPLITS = {"split1": 1}
 
 
 def build(variant):
@@ -164,8 +197,10 @@ def case(gen, dev, key):
     return (q, k, v, do, o, lse, dlse, active, spec), ref
 
 
-def launchers(lib_fwd, lib_bwd, args):
-    """(fwd, bwd) calls of the fp32 entries; each returns its outputs."""
+def launchers(lib_fwd, lib_bwd, args, splits=None):
+    """(fwd, bwd) calls of the fp32 entries; each returns its outputs.
+    ``splits``: the wide backward's query-head splits, where not the
+    wrapper's."""
     q, k, v, do, o, lse, dlse, active, spec = args
     o_out, lse_out = torch.empty_like(o), torch.empty_like(lse)
     grads = [torch.empty_like(x) for x in (q, k, v)]
@@ -176,6 +211,11 @@ def launchers(lib_fwd, lib_bwd, args):
     q_list, q_count = sa.compact_rows(active.t())
     stream = torch.cuda.current_stream().cuda_stream
     shape = sa._shape_args(q, k, spec)
+    scratch, wrapper_splits = fa._wide_scratch(q, k)
+    if splits is None or scratch is None:
+        splits = wrapper_splits
+    elif splits == 1:  # no partials: the operands' parts alone
+        scratch = scratch[:4 * (q.numel() + k.numel())]
 
     def fwd():
         _build.check(lib_fwd.fat_sparse_fwd_sm90_f32(
@@ -190,7 +230,7 @@ def launchers(lib_fwd, lib_bwd, args):
             lse.data_ptr(), di.data_ptr(), *(g.data_ptr() for g in grads),
             kv_list.data_ptr(), kv_count.data_ptr(), q_list.data_ptr(),
             q_count.data_ptr(), *shape, kv_list.shape[1], q_list.shape[1], 1,
-            stream), "bwd")
+            stream, fa._ptr(scratch), splits), "bwd")
         return grads
     return fwd, bwd
 
@@ -209,8 +249,14 @@ def main() -> int:
         check=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     names = args.variants.split(",")
-    with ThreadPoolExecutor(len(names)) as pool:
-        built = dict(pool.map(build, names))
+    # a variant with other arguments runs the unedited build
+    builds = sorted({n if VARIANTS[n] or n not in SPLITS else "kernel"
+                     for n in names})
+    with ThreadPoolExecutor(len(builds)) as pool:
+        built = dict(pool.map(build, builds))
+    for n in names:
+        if n not in built:
+            built[n] = built["kernel"]
     libs, regs = {}, {}
     for variant, per in built.items():
         libs[variant] = {}
@@ -219,7 +265,7 @@ def main() -> int:
             (sa._declare_fwd if name == "sparse_fwd" else sa._declare_bwd)(lib)
             libs[variant][name] = lib
             regs.update({f"{variant}:{fn}": r for fn, r in
-                         cs.ptxas_entries(log).items() if "f32_sm90" in fn})
+                         cs.ptxas_entries(log).items() if "f32_" in fn})
     for fn, (r, spill) in sorted(regs.items()):
         print(f"[ptxas] {fn}: {r} registers, {spill} spill bytes", flush=True)
     dev = torch.device("cuda")
@@ -231,7 +277,8 @@ def main() -> int:
         rec = out["cases"][key] = {}
         for variant in names:
             fwd, bwd = launchers(libs[variant]["sparse_fwd"],
-                                 libs[variant]["sparse_bwd"], call)
+                                 libs[variant]["sparse_bwd"], call,
+                                 SPLITS.get(variant))
             r = dict(fwd_ms=timer(fwd), bwd_ms=timer(bwd),
                      kernel_ms=cs.sparse_kernel_ms(fwd, bwd))
             if variant not in DIAGNOSTIC:

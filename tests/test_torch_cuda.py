@@ -794,7 +794,8 @@ def flash_kernels_launched(fn, want=()):
     """Names of the flash kernels ``fn()`` launches (torch.profiler;
     ``want``: as in device_kernels_of)."""
     return {n for e in device_kernels_of(fn, want=want)
-            for n in re.findall(r"flash_\w+_kernel", e)}
+            for n in re.findall(
+                r"flash_\w+_kernel|tf32_split_kernel|kv_sum_kernel", e)}
 
 
 def flash_inputs(shape, dtype, extras, device, seed=0):
@@ -858,7 +859,7 @@ def test_flash_kernels_match_plain(cuda_device, case):
     ran = flash_kernels_launched(lambda: (
         fa.flash_fwd(q, k, v, opts),
         fa.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, opts)), want=route)
-    assert ran - {"flash_bwd_sum_kernel"} == route
+    assert ran - {"kv_sum_kernel"} == route
 
 
 @pytest.mark.cuda
@@ -1521,9 +1522,9 @@ def random_pattern(n_q_tiles, n_k_tiles, density, empty_row, seed=0):
 # name: ((b, h, h_kv, n_q, n_k, d), dtype, causal, (block_q, block_k),
 # pattern, use dlse); chip_smoke.py's sparse cases (a)-(d) at reduced sizes,
 # plus ragged block and head-dim edges with masked rows, in fp32 (the 3xTF32
-# tensor-core route wherever D <= 128 and both blocks are multiples of 64,
-# else the FMA route) and in bf16 (the tensor-core route wherever D <= 256
-# and both blocks are multiples of 64).
+# tensor-core route, the wide kernels above D = 128) and in bf16 (the
+# tensor-core route), both wherever D <= 256 and both blocks are multiples
+# of 64, else the FMA route.
 SPARSE_CASES = {
     "a_model": ((2, 12, 12, 1024, 1024, 64), torch.bfloat16, True, (128, 128),
                 local_global(8), False),
@@ -1579,13 +1580,24 @@ SPARSE_CASES = {
                                & (torch.arange(6) != 2)[:, None], True),
     "n_fp32_model": ((2, 12, 12, 1024, 1024, 64), torch.float32, True,
                      (128, 128), local_global(8), False),
+    # fp32 above D = 128 on the wide 3xTF32 kernels: chip_smoke.py's case
+    # (l) (phase 7e's MQA call, 8 dK/dV CTAs a KV block, partials summed)
+    # at N = 1024, and its case (m) (case (f) in fp32: D = 136, GQA, N_q !=
+    # N_k, 64-row q blocks, 128-key blocks, an emptied q-block row, an LSE
+    # cotangent) at a reduced size
+    "o_fp32_d256_mqa": ((1, 8, 1, 1024, 1024, 256), torch.float32, True,
+                        (128, 128), local_global(8), False),
+    "p_fp32_d136_gqa_ragged": ((1, 4, 2, 320, 448, 136), torch.float32, True,
+                               (64, 128), local_global(5)[:, :4]
+                               & (torch.arange(5) != 2)[:, None], True),
 }
 # The cases the tensor-core route takes; the others stay on the FMA kernels.
 SPARSE_TENSOR_CORE = {"a_model", "b_d128", "c_gqa_ragged", "d_nq_ne_nk",
-                      "g_bf16_gqa_ragged", "h_bf16_d128_masked_rows",
-                      "j_bf16_d256_masked_rows", "k_bf16_d136_gqa_ragged",
-                      "l_bf16_d256_gqa12", "m_fp32_d128_gqa_ragged",
-                      "n_fp32_model"}
+                      "f_d256_masked_rows", "g_bf16_gqa_ragged",
+                      "h_bf16_d128_masked_rows", "j_bf16_d256_masked_rows",
+                      "k_bf16_d136_gqa_ragged", "l_bf16_d256_gqa12",
+                      "m_fp32_d128_gqa_ragged", "n_fp32_model",
+                      "o_fp32_d256_mqa", "p_fp32_d136_gqa_ragged"}
 
 
 def _sparse_case(name, device):
@@ -1647,10 +1659,12 @@ def test_sparse_kernels_match_plain(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["a_model", "j_bf16_d256_masked_rows",
-                                  "m_fp32_d128_gqa_ragged", "n_fp32_model"])
-def test_sparse_bf16_backward_is_deterministic(cuda_device, case):
+                                  "m_fp32_d128_gqa_ragged", "n_fp32_model",
+                                  "o_fp32_d256_mqa"])
+def test_sparse_backward_is_deterministic(cuda_device, case):
     """The tensor-core sparse backward at the model case and at D = 256 in
-    bf16, and on the fp32 (3xTF32) route, twice: bit-equal gradients (no
+    bf16, and on the fp32 (3xTF32) routes (at D = 256 with the MQA group's
+    dK/dV partials summed in split order), twice: bit-equal gradients (no
     atomics, so no dependence on block order)."""
     sa, q, k, v, do, dlse, _, spec, active = _sparse_case(case, cuda_device)
     o, lse = sa.sparse_fwd(q, k, v, active, spec)
@@ -1665,7 +1679,7 @@ def test_sparse_bf16_backward_is_deterministic(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["a_model", "j_bf16_d256_masked_rows",
-                                  "n_fp32_model"])
+                                  "n_fp32_model", "o_fp32_d256_mqa"])
 @pytest.mark.parametrize("part", ["fwd", "bwd"])
 def test_sparse_tensor_core_failure_raises(cuda_device, monkeypatch, part,
                                            case):

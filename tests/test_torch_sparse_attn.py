@@ -30,8 +30,10 @@ LSE_TOL = 5e-3
 
 P4 = [[1, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 1]]
 # Longformer/BigBird local + global on 8 x 8 tiles: q tile i sees tiles
-# i - 3 .. i and tile 0
+# i - 3 .. i and tile 0; on 4 x 4 tiles with a window of 2 (q tile 3 skips
+# tile 1)
 LG8 = [[int(0 <= i - j < 4 or j == 0) for j in range(8)] for i in range(8)]
+LG4 = [[int(0 <= i - j < 2 or j == 0) for j in range(4)] for i in range(4)]
 # name: ((b, h, h_kv, n_q, n_k, d), pattern or None, kwargs, use dlse)
 CASES = {
     "causal_4x4": ((1, 2, 2, 512, 512, 64), P4, dict(causal=True), False),
@@ -70,6 +72,10 @@ CASES = {
                      False),
     "j_d128_gqa_ragged": ((1, 4, 2, 192, 256, 128), [[1, 0], [0, 0], [1, 1]],
                           dict(causal=True, block_q=64, block_k=128), True),
+    # the fp32 wide route's main path at a reduced size: phase 7e's MQA call
+    # (D = 256, one KV head) on tiles of 128, with an LSE cotangent
+    "l_d256_fp32_mqa": ((1, 4, 1, 512, 512, 256), LG4, dict(causal=True),
+                        True),
 }
 
 
@@ -184,7 +190,7 @@ ROUTES = [
     (torch.float32, 64, (64, 64), True),       # c_gqa_ragged: 3xTF32
     (torch.bfloat16, 64, (64, 128), True),     # d_nq_ne_nk: one consumer
     (torch.float32, 40, (48, 80), False),      # e_edges_d40
-    (torch.float32, 256, (128, 64), False),    # f_d256_masked_rows
+    (torch.float32, 256, (128, 64), True),     # f_d256_masked_rows: wide
     (torch.bfloat16, 64, (64, 64), True),      # g_bf16_gqa_ragged
     (torch.bfloat16, 128, (128, 64), True),    # h_bf16_d128_masked_rows
     (torch.bfloat16, 40, (48, 80), False),     # i_bf16_blocks_48_80
@@ -196,17 +202,66 @@ ROUTES = [
     (torch.bfloat16, 256, (128, 64), True),    # j_bf16_d256_masked_rows
     (torch.float32, 128, (128, 128), True),    # fp32 at D = 128
     (torch.float32, 128, (64, 128), True),     # m_fp32_d128_gqa_ragged
-    (torch.float32, 136, (64, 128), False),    # fp32 above D = 128
-    (torch.float32, 256, (128, 128), False),   # fp32 at D = 256
+    (torch.float32, 136, (64, 128), True),     # fp32 above D = 128: wide
+    (torch.float32, 256, (128, 128), True),    # fp32 at D = 256: wide
     (torch.float32, 64, (128, 32), False),     # fp32, block_k below 64
+    (torch.float32, 256, (128, 32), False),    # fp32 at D = 256, block_k 32
 ]
 
 
 @pytest.mark.parametrize("dtype,d,blocks,tc", ROUTES)
 def test_tensor_core_route(dtype, d, blocks, tc):
-    """With both blocks multiples of 64, bf16 up to D = 256 and fp32 up to
-    D = 128 (3xTF32) take the tensor-core kernels; fp32 above D = 128 and
-    other blocks the FMA kernels."""
+    """With both blocks multiples of 64, bf16 and fp32 (3xTF32; above D =
+    128 the wide kernels) up to D = 256 take the tensor-core kernels; other
+    blocks the FMA kernels."""
     spec = sa.SparseSpec(causal=True, scale=0.125, block_q=blocks[0],
                          block_k=blocks[1])
     assert sa._tensor_core_route(dtype, d, spec) is tc
+
+
+# (dtype, head dim, blocks, kv_splits) -> the kernels a forward and a
+# backward call launch, as the profiler names them
+ROUTE_KERNELS = [
+    (torch.float32, 256, (128, 128), 8, {
+        "sparse_fwd_f32_wide_sm90_kernel", "sparse_bwd_dkv_f32_wide_sm90_kernel",
+        "sparse_bwd_dq_f32_wide_sm90_kernel", "tf32_split_kernel",
+        "kv_sum_kernel"}),
+    (torch.float32, 136, (64, 128), 1, {
+        "sparse_fwd_f32_wide_sm90_kernel", "sparse_bwd_dkv_f32_wide_sm90_kernel",
+        "sparse_bwd_dq_f32_wide_sm90_kernel", "tf32_split_kernel"}),
+    (torch.float32, 128, (128, 128), 1, {
+        "sparse_fwd_f32_sm90_kernel", "sparse_bwd_dkv_f32_sm90_kernel",
+        "sparse_bwd_dq_f32_sm90_kernel"}),
+    (torch.bfloat16, 256, (128, 128), 1, {
+        "sparse_fwd_sm90_kernel", "sparse_bwd_dkv_sm90_kernel",
+        "sparse_bwd_dq_sm90_kernel"}),
+    (torch.float32, 256, (96, 80), 1, {
+        "sparse_fwd_kernel", "sparse_bwd_dkv_kernel", "sparse_bwd_dq_kernel"}),
+]
+
+
+@pytest.mark.parametrize("dtype,d,blocks,splits,want", ROUTE_KERNELS)
+def test_route_kernels(dtype, d, blocks, splits, want):
+    """fp32 above D = 128 names the wide kernels and the split of the
+    backward's B operands, and the sum of the dK/dV partials where a KV
+    head's query heads are split over CTAs; the other routes their three
+    kernels."""
+    spec = sa.SparseSpec(causal=True, scale=0.0625, block_q=blocks[0],
+                         block_k=blocks[1])
+    assert sa.route_kernels(dtype, d, spec, kv_splits=splits) == want
+
+
+@pytest.mark.parametrize("kv_heads,n_k,group,want", [
+    (1, 4096, 8, 8),   # phase 7e's call: Gemma 2B's MQA, 8 query heads
+    (2, 1024, 4, 4),   # chip_smoke.py's case (k): GQA 8/2
+    (4, 512, 4, 4),    # case (m): B = 2, GQA 8/2, N_k 512
+    (8, 8192, 4, 1),   # enough CTAs without a split
+])
+def test_sparse_wide_backward_splits_the_group(kv_heads, n_k, group, want):
+    """The sparse wide backward spreads a KV head's query heads over dK/dV
+    CTAs by the flash backward's rule: one scratch function, one split rule
+    (on 132 SMs)."""
+    from flashattention_tpu_torch.ops import flash_attn as fa
+
+    assert sa._wide_scratch is fa._wide_scratch
+    assert fa._kv_splits(kv_heads, n_k, group, 132) == want
