@@ -26,8 +26,11 @@ Phases, in order; any failure exits nonzero:
    a KV head; 15 on the tensor-core walk, which must also show HMMA,
    mma.sync) must show
    UBLKCP (1-D bulk copies) and spill nothing, as must the first paged
-   kernel's 36 D = 256 instantiations and the 4 merge kernels; the 20
-   append kernels must
+   kernel's 36 D = 256 instantiations and the 4 merge kernels; the 15
+   sparse mma kernels (forward and dQ at D 64, 128 and 256 with 16- and
+   32-key sub-tiles, dK/dV at D 64, 128 and 256) must show HMMA and spill
+   nothing, as must the sum of the dK/dV chunks (no HMMA); the 20 append
+   kernels must
    spill nothing, and those of 8 elements a lane show 16-byte loads
    (LDG.E.128).
 2. Each kernel against its plain PyTorch version on the card: the paged
@@ -87,7 +90,7 @@ Phases, in order; any failure exits nonzero:
    timed beside the FMA kernel on the same inputs, plus
    its straight-through backward (o and
    gradients at the bf16 flash limit: p is bf16 on the 8-bit path). The
-   block-sparse forward (sparse_fwd) and backward (sparse_bwd) in fourteen
+   block-sparse forward (sparse_fwd) and backward (sparse_bwd) in eighteen
    cases, each launched once on the route it must take (checked by the
    route counters): the model phase's call (2, 12, 4096, 64) and the
    BASELINE head dim (1, 8, 8192, 128) with the local + global pattern,
@@ -106,17 +109,23 @@ Phases, in order; any failure exits nonzero:
    3xTF32 kernels, GQA 8/2 at (1, 8, 2, 1024, 1024, 256) (k), phase 7e's
    call (1, 8, 1, 4096, 4096, 256) (l: MQA, the dK/dV kernel's query-head
    split and the sum of its partials) and case (f) in fp32 (m); and the
-   FMA route left, blocks 96 x 80 at D = 256 in fp32 with GQA (n); the fp32
-   cases (c), (i)-(n) also name their kernels under torch.profiler (those
-   of the route, with the wide route's split and sum, checked). o and
+   FMA route left, blocks 96 x 80 at D = 256 in fp32 with GQA (n); in bf16
+   with blocks that are not multiples of 64, on the mma kernels, phase
+   7f's call (2, 12, 4096, 64) at blocks 32 x 32 with the local + global
+   pattern at width 16 (o), GQA 8/2 at (1, 8, 2, 2048, 2048, 128) with
+   blocks 16 x 16 at width 32 (p), phase 7b's MQA call at blocks 32 x 32
+   and width 16 (q) and case (f)'s edges at blocks 24 x 40 (r); the fp32
+   cases (c), (i)-(n) and the mma cases (o), (q) also name their kernels
+   under torch.profiler (those of the route, with the wide route's split
+   and sum, checked). o and
    gradients at the flash limit (fp32 1e-4), LSE
    at 1e-4 where a row sees a key, -inf exactly on empty q blocks and the mask
    value exactly on rows of visited blocks that see no key, dK = dV = 0
    exactly on KV blocks no q block visits; bounds from the pairs the
    pattern keeps; times of the wrapper (which builds the lists on the
    device, and di in the backward), also issued from the host, and of the
-   kernels alone with the lists built beforehand, for the tensor-core
-   cases also of the FMA kernels on the same inputs (fp32: with their
+   kernels alone with the lists built beforehand, for the tensor-core and
+   mma cases also of the FMA kernels on the same inputs (fp32: with their
    bound at 67 TFLOP/s beside the route's at 165); SDPA with the expanded
    boolean mask as the library call (a yardstick where a row sees no key;
    fp32 with TF32 off).
@@ -220,6 +229,16 @@ Phases, in order; any failure exits nonzero:
    kernels reported); card vs CPU at N=512 and the all-ones pattern
    against the flash route at 1e-4. Sparse case (l) holds these kernels at
    this call's shape.
+7f. Phase 7 at blocks of 32 (``block_size=32``) with the local + global
+   pattern at width 16 (q tile i sees tiles i - 15 .. i and tile 0: about
+   the 512-key window of phase 7's 4 tiles of 128, on 128 x 128 tiles), so
+   every attention call runs the mma kernels: exactly 12 sparse_fwd per
+   no-grad forward, 24 sparse_fwd and 12 sparse_bwd per step, all on the
+   mma route (none on the tensor-core or FMA kernels), no flash launch; a
+   profiled step whose sparse kernels must be the mma ones (their share of
+   the step's kernels reported); card vs CPU at N=512 (block 32) at the
+   bf16 training rung and the all-ones pattern against the flash route.
+   Sparse case (o) holds these kernels at this call's shape.
 8. The speculative engine: phase 3's config with spec_gamma=4, 32 requests
    of 32-400-token prompts (phase 3's draws), 32 new tokens each, in three
    arms, each after a warm-up engine: plain (no draft; the reference
@@ -322,7 +341,10 @@ and (h) beside them; ``sparse_fwd[fp32]`` and ``sparse_bwd[fp32]``:
 launches of phase 7d's steps, numbers of sparse case (i), phase 7d's call,
 with cases (c) and (j) beside them; ``sparse_fwd[fp32_d256]`` and
 ``sparse_bwd[fp32_d256]``: launches of phase 7e's steps, numbers of sparse
-case (l), phase 7e's call, with cases (k), (m) and (n) beside them).
+case (l), phase 7e's call, with cases (k), (m) and (n) beside them;
+``sparse_fwd[mma]`` and ``sparse_bwd[mma]``: launches of phase 7f's steps,
+numbers of sparse case (o), phase 7f's call, with cases (p), (q) and (r)
+beside them).
 ``--cpu-rehearsal`` skips phases 1-2, runs the others at a tiny width on
 the CPU (phase 9's workers on the CPU, phase 10's rank over gloo) and
 never prints the device line.
@@ -1231,36 +1253,66 @@ SPARSE_CASES = {
           "random density 0.4 with an empty q-block row (the FMA route)",
           (1, 8, 2, 1000, 1000, 256), FP32, True, (96, 80),
           random_pattern(11, 13, 0.4, 3, SEED), False),
+    # bf16 with blocks that are not multiples of 64, on the mma kernels
+    # (16-row slices anchored at each block's start): phase 7f's call (o);
+    # blocks of 16 at D = 128 with GQA (p); phase 7b's MQA call at blocks
+    # of 32 (q: a KV block's dK/dV walk spans the group's 8 heads and is
+    # cut into chunks over CTAs, whose warps split the head dim); case
+    # (f)'s edges at blocks 24 x 40 (r: slices past a block's end, partial
+    # key sub-tiles, a column block past D)
+    "o": ("phase 7f's call (2, 12, 4096, 64) bf16 causal, local+global width "
+          "16 on 128 x 128 tiles of 32", (2, 12, 12, 4096, 4096, 64), BF16,
+          True, (32, 32), local_global(128, 128, 16), False),
+    "p": ("GQA 8/2 (1, 8, 2, 2048, 2048, 128) bf16 causal, blocks 16 x 16, "
+          "local+global width 32", (1, 8, 2, 2048, 2048, 128), BF16, True,
+          (16, 16), local_global(128, 128, 32), False),
+    "q": ("phase 7b's call (1, 8, 1, 4096, 4096, 256) bf16 causal at blocks "
+          "32 x 32, local+global width 16", (1, 8, 1, 4096, 4096, 256),
+          BF16, True, (32, 32), local_global(128, 128, 16), False),
+    "r": ("GQA 8/2, N_q 384 != N_k 512, D=136 bf16 causal, blocks 24 x 40, "
+          "local+global with q-block row 2 emptied, LSE cotangent",
+          (2, 8, 2, 384, 512, 136), BF16, True, (24, 40),
+          emptied(local_global(16, 13), 2), True),
 }
-# the fp32 cases whose kernels are named by the profiler (sa.route_kernels)
-SPARSE_NAMED = ("c", "i", "j", "k", "l", "m", "n")
+# the cases whose kernels are named by the profiler (sa.route_kernels)
+SPARSE_NAMED = ("c", "i", "j", "k", "l", "m", "n", "o", "q")
+# the route each case must take (sa._route): the other routes' counts stay 0
+SPARSE_ROUTE_NAMES = {"tc": "tensor cores (wgmma + TMA)",
+                      "mma": "mma kernels (mma.sync, 16-row slices)",
+                      "fma": "FMA"}
 
 
-# The sparse routes' kernels in a profile: the three of each route, and the
+# The sparse routes' kernels in a profile: the three of each route, the
 # fp32 wide route's split of the backward's B operands and sum of its dK/dV
-# partials (sa.route_kernels).
+# partials, and the mma route's sum of its dK/dV chunks
+# (sparse_bwd_sum_mma_kernel; sa.route_kernels).
 SPARSE_KERNEL_NAME = r"sparse_\w+_kernel|tf32_split_kernel|kv_sum_kernel"
 
 
-def kv_splits_of(b, h, h_kv, n_k):
-    """The query-head splits of the fp32 wide backward's dK/dV kernel for a
-    call of these widths on this card (``fa._kv_splits``, as the wrapper
-    takes them)."""
+def kv_splits_of(dtype, d, spec, b, h, h_kv, n_q, n_k):
+    """The dK/dV CTAs that share one KV block's walk for a call of these
+    widths on this card, as the wrapper takes them: the query-head splits
+    of the fp32 wide backward (``fa._kv_splits``), the chunks of the mma
+    route (``sa._mma_chunks``)."""
+    if sa._route(dtype, d, spec) == "mma":
+        return sa._mma_chunks(h, h_kv, n_q, spec.block_q,
+                              b * h_kv * n_k * d)[1]
     return fa._kv_splits(b * h_kv, n_k, h // h_kv,
                          torch.cuda.get_device_properties(
                              0).multi_processor_count)
 
 
-def sparse_launch(q, k, v, o, lse, do, dlse, active, spec, sm90):
+def sparse_launch(q, k, v, o, lse, do, dlse, active, spec, route):
     """(forward, backward) callables that launch one route's entry points
-    (the dtype's tensor-core kernels, ``fat_sparse_*_sm90[_f32]``, where
-    ``sm90``, else the FMA kernels' ``fat_sparse_*``) with the lists and di
-    built once beforehand: the kernels' own time, without the wrapper's
-    list building."""
+    (``route`` as ``sa._route`` names it: the dtype's tensor-core kernels,
+    ``fat_sparse_*_sm90[_f32]``, the mma kernels' ``fat_sparse_*_mma`` or
+    the FMA kernels' ``fat_sparse_*``) with the lists and di built once
+    beforehand: the kernels' own time, without the wrapper's list
+    building."""
     fwd = _build.load_kernel("sparse_fwd", sa._declare_fwd)
     bwd = _build.load_kernel("sparse_bwd", sa._declare_bwd)
-    fwd_fn = getattr(fwd, sa._entry("fwd", q.dtype, sm90))
-    bwd_fn = getattr(bwd, sa._entry("bwd", q.dtype, sm90))
+    fwd_fn = getattr(fwd, sa._entry("fwd", q.dtype, route))
+    bwd_fn = getattr(bwd, sa._entry("bwd", q.dtype, route))
     o_out, lse_out = torch.empty_like(o), torch.empty_like(lse)
     grads = [torch.empty_like(x) for x in (q, k, v)]
     di = (o.float() * do.float()).sum(-1)
@@ -1270,10 +1322,9 @@ def sparse_launch(q, k, v, o, lse, do, dlse, active, spec, sm90):
     q_list, q_count = sa.compact_rows(active.t())
     code = fa._DTYPE_CODE[q.dtype]
     stream = torch.cuda.current_stream().cuda_stream
-    more = []  # the fp32 tensor-core backward's scratch and query-head splits
-    if sm90 and q.dtype == torch.float32:
-        scratch, splits = fa._wide_scratch(q, k)
-        more = [fa._ptr(scratch), splits]
+    # the fp32 tensor-core and the mma backward's scratch and query-head
+    # splits, held by the closures below
+    scratch, more = sa._bwd_scratch(route, q, k, spec)
 
     def run_fwd():
         _build.check(fwd_fn(
@@ -1290,6 +1341,7 @@ def sparse_launch(q, k, v, o, lse, do, dlse, active, spec, sm90):
             q_count.data_ptr(), *sa._shape_args(q, k, spec),
             kv_list.shape[1], q_list.shape[1], code, stream, *more),
             "sparse bwd")
+    run_bwd.scratch = scratch
     return run_fwd, run_bwd
 
 
@@ -1338,7 +1390,8 @@ def sparse_case(timer, gen, dev, key):
     n_q, n_k = shape[3], shape[4]
     active = sa.tile_pattern(pattern.to(dev), *pattern.shape, bq, bk, causal,
                              n_k - n_q)
-    tc = sa._tensor_core_route(dtype, shape[-1], spec)
+    route_key = sa._route(dtype, shape[-1], spec)
+    tc = route_key == "tc"
     reset_counts()
     o, lse = sa.sparse_fwd(q, k, v, active, spec)
     torch.cuda.synchronize()
@@ -1356,11 +1409,13 @@ def sparse_case(timer, gen, dev, key):
     grads = sa.sparse_bwd(q, k, v, o_ref, lse_ref, do, dlse, active, spec)
     torch.cuda.synchronize()
     c = read_counts()
+    mma = route_key == "mma"
     if (c["sparse_fwd"], c["sparse_bwd"], c["sparse_fwd_tc"],
-            c["sparse_bwd_tc"]) != (1, 1, int(tc), int(tc)):
+            c["sparse_bwd_tc"], c["sparse_fwd_mma"], c["sparse_bwd_mma"]) != (
+                1, 1, int(tc), int(tc), int(mma), int(mma)):
         fail(f"sparse {key}: launches {c}; want the "
-             f"{'tensor-core' if tc else 'FMA'} route once each way")
-    route = "tensor cores (wgmma + TMA)" if tc else "FMA"
+             f"{SPARSE_ROUTE_NAMES[route_key]} route once each way")
+    route = SPARSE_ROUTE_NAMES[route_key]
 
     def plain_bwd():
         di = (o_ref.float() * do.float()).sum(-1)
@@ -1389,10 +1444,11 @@ def sparse_case(timer, gen, dev, key):
         bwd_plain_ms=timer(plain_bwd, reps=3 if big else 10, warmup=1),
     )
     # the kernels alone (lists and di built beforehand), and for the
-    # tensor-core cases the FMA kernels on the same inputs
-    for which in ("kernel", "fma") if tc else ("kernel",):
-        run_fwd, run_bwd = sparse_launch(q, k, v, o_ref, lse_ref, do, dlse,
-                                         active, spec, tc and which == "kernel")
+    # tensor-core and mma cases the FMA kernels on the same inputs
+    for which in ("kernel", "fma") if route_key != "fma" else ("kernel",):
+        run_fwd, run_bwd = sparse_launch(
+            q, k, v, o_ref, lse_ref, do, dlse, active, spec,
+            route_key if which == "kernel" else "fma")
         reps = 30 if which == "kernel" else 10
         t[f"fwd_{which}_ms"] = timer(run_fwd, reps=reps)
         t[f"bwd_{which}_ms"] = timer(run_bwd, reps=reps)
@@ -1415,10 +1471,11 @@ def sparse_case(timer, gen, dev, key):
         leaves, do))
     del o_lib, leaves
     pairs = int(vis.sum()) * shape[0] * shape[1]
-    # the route's rate: bf16 or 3xTF32 wgmma, or fp32 FMAs; where fp32 takes
-    # the tensor cores, the FMA route's bound at 67 TFLOP/s beside it
-    bounds = attention_bounds(q, k, pairs, dlse, flash_peak(dtype) if tc
-                              else FP32_FLOPS_PER_S)
+    # the route's rate: bf16 or 3xTF32 wgmma, bf16 mma.sync, or fp32 FMAs;
+    # where fp32 takes the tensor cores, the FMA route's bound at 67 TFLOP/s
+    # beside it
+    bounds = attention_bounds(q, k, pairs, dlse, flash_peak(dtype)
+                              if route_key != "fma" else FP32_FLOPS_PER_S)
     if tc and dtype == torch.float32:
         fma_bounds = attention_bounds(q, k, pairs, dlse, FP32_FLOPS_PER_S)
         t["fwd_fma_bound_ms"] = fma_bounds["fwd"][0]
@@ -1429,7 +1486,8 @@ def sparse_case(timer, gen, dev, key):
             lambda: sa.sparse_bwd(q, k, v, o_ref, lse_ref, do, dlse, active,
                                   spec))
         want = sa.route_kernels(dtype, shape[-1], spec,
-                                kv_splits_of(*shape[:3], n_k))
+                                kv_splits_of(dtype, shape[-1], spec,
+                                             *shape[:5]))
         if split and set(split) != want:
             fail(f"sparse {key}: the profiler saw {sorted(split)}; want "
                  f"{sorted(want)}")
@@ -1448,7 +1506,7 @@ def sparse_case(timer, gen, dev, key):
         + f" ({tol_text(dtype)}; lse {LSE_TOL:g} abs+rel, -inf and "
         f"mask-value rows exact)")
     fma = (f"; FMA kernels fwd {t['fwd_fma_ms']:.4f} bwd "
-           f"{t['bwd_fma_ms']:.4f}" if tc else "")
+           f"{t['bwd_fma_ms']:.4f}" if route_key != "fma" else "")
     if "fwd_fma_bound_ms" in t:
         fma += (f" (their bound at {FP32_FLOPS_PER_S / 1e12:g} TFLOP/s: fwd "
                 f"{t['fwd_fma_bound_ms']:.4f} bwd {t['bwd_fma_bound_ms']:.4f})")
@@ -1796,6 +1854,8 @@ def reset_counts():
     sa.sparse_attention.bwd_launches = 0
     sa.sparse_attention.fwd_tc_launches = 0
     sa.sparse_attention.bwd_tc_launches = 0
+    sa.sparse_attention.fwd_mma_launches = 0
+    sa.sparse_attention.bwd_mma_launches = 0
 
 
 def read_counts():
@@ -1812,7 +1872,9 @@ def read_counts():
             "sparse_fwd": sa.sparse_attention.fwd_launches,
             "sparse_bwd": sa.sparse_attention.bwd_launches,
             "sparse_fwd_tc": sa.sparse_attention.fwd_tc_launches,
-            "sparse_bwd_tc": sa.sparse_attention.bwd_tc_launches}
+            "sparse_bwd_tc": sa.sparse_attention.bwd_tc_launches,
+            "sparse_fwd_mma": sa.sparse_attention.fwd_mma_launches,
+            "sparse_bwd_mma": sa.sparse_attention.bwd_mma_launches}
 
 
 def serving_config():
@@ -2832,13 +2894,17 @@ def gemma_dense_fp32_config():
 
 
 def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
-                       tag="sparse", tol=TRAIN_TOL, logits_tol=LOGITS_TOL):
+                       tag="sparse", tol=TRAIN_TOL, logits_tol=LOGITS_TOL,
+                       width=4):
     """The block-sparse slice's main path at ``cfg``: the local + global
-    pattern on the n / block_size square of tiles, through
+    pattern (``width`` tiles ending at a q tile's own, and tile 0) on the
+    n / block_size square of tiles, through
     ``apply_transformer(sparse_pattern=...)``. (1) one no-grad forward;
     (2) forward, next-token CE and backward, one untimed then ``n_timed``
     timed on the host clock up to ``loss.item()``; counts set to 0 just
-    before each and read just after; (3) one step under torch.profiler,
+    before each and read just after, every sparse launch on the route
+    ``sa._route`` picks for the model's dtype, head dim and block (the
+    tensor cores or the mma kernels); (3) one step under torch.profiler,
     whose sparse kernels must be those of the route (``sa.route_kernels``);
     (4) loss and gradients, card vs fp32 CPU at ``tol``, at ``check_n``
     with the 4 x 4 pattern of tests/test_sparse.py; (5) an all-ones pattern
@@ -2850,7 +2916,10 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
     t0 = time.perf_counter()
     params = init_params(cfg, seed=SEED, device=dev)
     n_tiles = -(-n // cfg.block_size)
-    pattern = local_global(n_tiles, n_tiles).to(dev)
+    pattern = local_global(n_tiles, n_tiles, width).to(dev)
+    route = sa._route(cfg.dtype, cfg.d_head, sa.SparseSpec(
+        True, 1.0, cfg.block_size, cfg.block_size))
+    route_name = {"tc": "tensor-core", "mma": "mma", "fma": "FMA"}[route]
     toks = torch.from_numpy(np.random.default_rng(SEED + 6).integers(
         0, cfg.vocab_size, size=(b, n + 1))).to(dev)
     reach = sa.tile_pattern(pattern, n_tiles, n_tiles, cfg.block_size,
@@ -2858,11 +2927,13 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
     log(f"[{tag}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads, vocab {cfg.vocab_size}, remat "
         f"{cfg.remat_policy if cfg.remat else 'off'}, {cfg.dtype}; B={b} "
-        f"N={n}; local+global pattern: {int(reach.sum())} of "
+        f"N={n}; local+global pattern (width {width}, block "
+        f"{cfg.block_size}, the {route_name} route): {int(reach.sum())} of "
         f"{n_tiles * (n_tiles + 1) // 2} causally reachable tiles (set-up "
         f"{time.perf_counter() - t0:.1f} s)")
     L = cfg.n_layers
-    rec = dict(b=b, n=n, active_tiles=int(reach.sum()),
+    rec = dict(b=b, n=n, block=cfg.block_size, width=width, route=route,
+               active_tiles=int(reach.sum()),
                reachable_tiles=n_tiles * (n_tiles + 1) // 2)
 
     sync(dev)
@@ -2877,10 +2948,10 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
         fail("sparse model logits are misshapen or not finite")
     del logits
     log(f"[{tag}] no-grad forward launches: {counts}")
-    if on_card and (counts["sparse_fwd"], counts["sparse_fwd_tc"],
+    if on_card and (counts["sparse_fwd"], counts[f"sparse_fwd_{route}"],
                     counts["flash_fwd"]) != (L, L, 0):
         fail(f"no-grad forward launched {counts}; want {L} sparse_fwd on the "
-             f"tensor-core route and no flash_fwd")
+             f"{route_name} route and no flash_fwd")
 
     def step():
         params.zero_grad(set_to_none=True)
@@ -2912,15 +2983,17 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
     log(f"[{tag}] launches: {counts}")
     if on_card:
         want = dict(sparse_fwd=2 * L * n_timed, sparse_bwd=L * n_timed,
-                    sparse_fwd_tc=2 * L * n_timed, sparse_bwd_tc=L * n_timed,
                     flash_fwd=0, flash_bwd=0)
+        for r in ("tc", "mma"):
+            want[f"sparse_fwd_{r}"] = want["sparse_fwd"] * (r == route)
+            want[f"sparse_bwd_{r}"] = want["sparse_bwd"] * (r == route)
         got = {k: counts[k] for k in want}
         if got != want:
             fail(f"sparse steps launched {got}; want {want} ({2 * L} "
                  f"sparse_fwd and {L} sparse_bwd per step, all on the "
-                 f"tensor-core route)")
+                 f"{route_name} route)")
         log(f"[{tag}] per step: {2 * L} sparse_fwd + {L} sparse_bwd, all on "
-            f"the tensor-core route, no flash launch (checked); "
+            f"the {route_name} route, no flash launch (checked); "
             f"max_memory_allocated "
             f"{rec['max_memory_allocated'] / 2 ** 30:.3f} GiB")
 
@@ -2946,13 +3019,13 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
             f"{busy * 1e3:.2f} ms, device busy {100 * busy / wall:.1f}%; "
             f"sparse kernels {sum(sparse_ms.values()):.4f} ms ("
             f"{100 * rec['profile']['sparse_share']:.2f}% of the kernels: "
-            + ", ".join(f"{k.split('<')[0].split('::')[-1]} {v:.4f}"
+            + ", ".join(f"{re.search(SPARSE_KERNEL_NAME, k).group(0)} {v:.4f}"
                         for k, v in sorted(sparse_ms.items())) + ")")
         ran = {m.group(0) for k in sparse_ms
                for m in [re.search(SPARSE_KERNEL_NAME, k)] if m}
-        want = sa.route_kernels(cfg.dtype, cfg.d_head, sa.SparseSpec(
-            True, 1.0, cfg.block_size, cfg.block_size),
-            kv_splits_of(b, cfg.n_heads, cfg.kv_heads, n))
+        spec = sa.SparseSpec(True, 1.0, cfg.block_size, cfg.block_size)
+        want = sa.route_kernels(cfg.dtype, cfg.d_head, spec, kv_splits_of(
+            cfg.dtype, cfg.d_head, spec, b, cfg.n_heads, cfg.kv_heads, n, n))
         if on_card and sparse_ms and ran != want:
             fail(f"[{tag}] the profiled step ran {sorted(ran)}; want "
                  f"{sorted(want)}")
@@ -3800,6 +3873,45 @@ def sass_report(dumps):
     return out
 
 
+# The mma kernels of the sparse libraries (bf16, blocks not both multiples
+# of 64): the forward and dQ at D 64, 128 and 256, each with 16- and 32-key
+# sub-tiles, dK/dV at D 64, 128 and 256 (at 256 two warps a key slice,
+# each holding half of the head dim), and the sum of the dK/dV chunks,
+# which only adds (no HMMA).
+MMA_KERNELS = {"sparse_fwd": 6, "sparse_bwd": 10}
+
+
+def mma_report(dumps):
+    """Phase 1's check of the sparse mma route: per ``*_mma_kernel`` of the
+    sparse libraries its mma.sync products (HMMA) in its SASS
+    (``dumps[library]``) and its registers and spill bytes (this build's
+    ptxas report). Fails if one but the sum of the dK/dV chunks has no
+    HMMA, if one spills, or if one is missing."""
+    out = {}
+    for name, want in MMA_KERNELS.items():
+        ptxas = ptxas_entries(_build.BUILD_LOG.get(name, ""))
+        found = 0
+        for part in dumps[name].split("Function : ")[1:]:
+            fn = part.split()[0]
+            if "_mma_kernel" not in fn:
+                continue
+            found += 1
+            regs, spill = ptxas.get(fn, (None, None))
+            out[fn] = dict(hmma=part.count("HMMA"), registers=regs,
+                           spill_bytes=spill)
+            log(f"[sass] {name}: {fn}: {out[fn]['hmma']} HMMA (mma.sync); "
+                f"ptxas: {regs} registers, {spill} spill bytes")
+            if not out[fn]["hmma"] and "sum_mma_kernel" not in fn:
+                fail(f"{fn}: the mma kernel has no HMMA")
+            if spill is None:
+                fail(f"{fn}: no ptxas report from this run's build")
+            if spill:
+                fail(f"{fn}: spills {spill} bytes")
+        if found != want:
+            fail(f"{name}: expected {want} mma kernels, found {found}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -3872,6 +3984,9 @@ def main() -> int:
             dataclasses.replace(dcfg, block_size=16), "cpu", False, b=1,
             n=128, check_n=64, tag="sparse_d256_fp32", tol=FP32_TOL,
             logits_tol=FP32_TOL)
+        report["sparse_model_b32"] = phase_sparse_model(
+            dataclasses.replace(cfg, block_size=8), "cpu", False, b=2,
+            n=128, check_n=64, tag="sparse_b32", width=16)
         draft = dataclasses.replace(cfg, n_layers=1)
         report["spec"] = phase_spec(
             cfg, params, ecfg, "cpu", 8, (8, 60), 8,
@@ -3939,6 +4054,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     report.update(card=smi, build_s=per,
                   tensor_core_kernels=sass_report(dumps),
+                  mma_kernels=mma_report(dumps),
                   paged_split_kernels=split_report(dumps["paged_attention"]),
                   paged_first_kernels=first_report(dumps["paged_attention"]),
                   append_kernels=append_report(dumps["paged_append"]))
@@ -4077,6 +4193,17 @@ def main() -> int:
     report["sparse_model_d256_fp32"]["phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
+    # Phase 7f: phase 7 at blocks of 32 with the local + global pattern at
+    # width 16 (each q tile sees the 16 tiles of 32 that end at its own and
+    # tile 0: about the 512-key window of phase 7's 4 tiles of 128, on a
+    # pattern 4x finer), so every attention call runs the mma kernels
+    t0 = time.perf_counter()
+    report["sparse_model_b32"] = phase_sparse_model(
+        dataclasses.replace(scfg, block_size=32), dev, True, b=2, n=4096,
+        check_n=512, tag="sparse_b32", width=16)
+    report["sparse_model_b32"]["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
     # Phase 8: the speculative engine, phase 3's config with gamma 4; the
     # floor's draft is GPT-3 Small at 2 layers
     t0 = time.perf_counter()
@@ -4152,7 +4279,8 @@ def main() -> int:
         f"{report['sparse_model_d256']['phase_s']:.1f} s, phase 7c "
         f"{report['dense_fp32']['phase_s']:.1f} s, phase 7d "
         f"{report['sparse_model_fp32']['phase_s']:.1f} s, phase 7e "
-        f"{report['sparse_model_d256_fp32']['phase_s']:.1f} s, "
+        f"{report['sparse_model_d256_fp32']['phase_s']:.1f} s, phase 7f "
+        f"{report['sparse_model_b32']['phase_s']:.1f} s, "
         f"phase 8 {report['spec']['phase_s']:.1f} s, phase 9 "
         f"{report['multihost']['phase_s']:.1f} s, phase 10 "
         f"{report['cp']['phase_s']:.1f} s, phase 11 "
@@ -4610,6 +4738,46 @@ def main() -> int:
             kernel_split_ms=rl.get("kernel_split_ms"),
             step_sparse_ms=s7e["profile"]["sparse_kernels_ms"],
             step_median_ms=s7e["median_step_ms"], **beside))
+    # sparse in bf16 with blocks that are not multiples of 64 (the mma
+    # kernels): launches of phase 7f's forward+backward steps, numbers of
+    # sparse case (o), phase 7f's call, with cases (p) (blocks of 16 at D =
+    # 128, GQA), (q) (phase 7b's MQA call at blocks of 32) and (r) (case
+    # (f)'s edges at blocks 24 x 40) beside them, each key suffixed with its
+    # case; fma_ms the FMA kernels on the same inputs, kernel_ms the kernels
+    # alone with the lists built beforehand, step_sparse_ms the sparse
+    # kernels' device time in phase 7f's profiled step
+    recs = {x: report["kernels"][f"sparse_{x}"] for x in "opqr"}
+    ro = recs["o"]
+    s7f = report["sparse_model_b32"]
+    c = s7f["launches"]
+    for name, part, errs in (("sparse_fwd", "fwd", ("o", "lse")),
+                             ("sparse_bwd", "bwd", ("dq", "dk", "dv"))):
+        beside = {}
+        for x in "pqr":
+            r = recs[x]
+            beside.update({
+                f"{key}_{x}": r[f"{part}_{key}"]
+                for key in ("ms", "kernel_ms", "fma_ms", "plain_ms",
+                            "bound_ms")})
+            lib = "library" if f"library_{part}_ms" in r else "yardstick"
+            beside[f"{lib}_ms_{x}"] = r[f"{lib}_{part}_ms"]
+            beside[f"case_{x}"] = r["case"]
+            beside[f"kernel_split_ms_{x}"] = r.get("kernel_split_ms")
+        kernels.append(dict(
+            name=f"{name}[mma]", **KERNELS[name], launches=c[name],
+            launches_mma=c[f"{name}_mma"],
+            max_abs_err=max(r["max_abs_err"][e] for e in errs
+                            for r in recs.values()),
+            ms=ro[f"{part}_ms"], plain_ms=ro[f"{part}_plain_ms"],
+            bound_ms=ro[f"{part}_bound_ms"],
+            bound_by=ro[f"{part}_bound_by"],
+            library_ms=ro.get(f"library_{part}_ms"),
+            yardstick_ms=ro.get(f"yardstick_{part}_ms"), case=ro["case"],
+            kernel_ms=ro[f"{part}_kernel_ms"], fma_ms=ro[f"{part}_fma_ms"],
+            wall_ms=ro[f"{part}_wall_ms"],
+            kernel_split_ms=ro.get("kernel_split_ms"),
+            step_sparse_ms=s7f["profile"]["sparse_kernels_ms"],
+            step_median_ms=s7f["median_step_ms"], **beside))
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was launched no time on its main path")

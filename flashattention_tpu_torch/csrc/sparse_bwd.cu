@@ -31,7 +31,7 @@
 // recompute the scores (7 products per element instead of 5), the price of
 // having no atomics.
 //
-// Three routes, chosen by the caller (ops/sparse_attn.py):
+// Four routes, chosen by the caller (ops/sparse_attn.py):
 //
 //   fat_sparse_bwd_sm90 (bf16, D <= 256, block_q and block_k multiples of
 //     64): every product on the tensor cores (wgmma, bf16 in, fp32
@@ -80,11 +80,46 @@
 //     scratch and whose dK/dV CTAs share a KV head's query heads, partials
 //     summed in split order (tf32_wide_bwd.cuh). The tiles and stages are
 //     set out where the kernels are defined, below.
-//   fat_sparse_bwd (blocks that are not multiples of 64, any dtype): the
-//     first version below, fp32 FMAs on the CUDA cores (for the reasons
-//     given in sparse_fwd.cu), 32-row / 32-key sub-tiles staged as fp32.
+//   fat_sparse_bwd_mma (bf16, D <= 256, block_q and block_k not both
+//     multiples of 64): every product by mma.sync m16n8k16 on 16-row
+//     slices anchored at each block's start (sparse_fwd.cu, sparse_mma.cuh).
+//     dkv: 16 keys a warp, up to 4 slices of one KV block a CTA, K and V
+//       resident; the CTA walks its share of the block's (query head, q
+//       block) entries in 16-row steps of q, dO, LSE and di (a two-stage
+//       ring), S^T = K.q^T and dP^T = V.dO^T, then dV += round(p)^T.dO and
+//       dK += round(ds)^T.q with dO and q by ldmatrix.trans. Where the
+//       trouble was: (1) at D = 256 one warp's dK and dV over 16 keys would
+//       take 256 registers a thread, so two warps share a slice, each
+//       holding half of D and adding the other's partial S^T and dP^T
+//       through shared memory (fp32 adds commute, so both hold the same
+//       sums); (2) a key slice past its block's end, or a step's rows past
+//       their q block's end, are masked, and an idle warp keeps to every
+//       barrier; (3) a global KV block (or, under GQA/MQA, any block: every
+//       head of the group walks it) walked by one CTA set the backward's
+//       time: 8x the others' steps at phase 7f's call, 2048 steps at phase
+//       7b's MQA call (PERF.md rows 10s-11s). So a block's walk is cut
+//       into chunks of MMA_CHUNK_STEPS (32) 16-row steps, one CTA each (in
+//       fewer, longer chunks where the partials would pass
+//       MMA_SCRATCH_BYTES, ops/sparse_attn.py), whose fp32 partials
+//       sparse_bwd_sum_mma_kernel adds in chunk order
+//       (a walk of one chunk stores bf16 itself); the grid covers the
+//       longest walk the pattern allows and a chunk past its block's walk
+//       exits, so the grid is still never sized from the counts; (4)
+//       blocks that are multiples of 64 on one side only (128 x 32) take
+//       this route, one q block's 8 slices over two CTAs.
+//     dq: the forward's layout over the list (K and V sub-tiles in a
+//       ring), S = q.K^T, dP = dO.V^T, dQ += round(ds).K with K by
+//       ldmatrix.trans; q and dO held in registers up to D = 128.
+//     A KV block no q block visits stores exact zeros.
+//   fat_sparse_bwd (fp32 with blocks that are not multiples of 64; bf16 as
+//     the comparison beside the mma kernels): the first version below,
+//     fp32 FMAs on the CUDA cores (for the reasons given in sparse_fwd.cu),
+//     32-row / 32-key sub-tiles staged as fp32.
+
+#include <climits>
 
 #include "flash_common.cuh"
+#include "sparse_mma.cuh"
 #include "sparse_sm90.cuh"
 #include "tf32_wide_bwd.cuh"
 
@@ -2050,6 +2085,578 @@ cudaError_t sparse_bwd_f32_wide_sm90(const AttnArgs& a, const Lists& s,
 }  // namespace sm90
 }  // namespace fat
 
+// ---------------------------------------------------------------------------
+// The mma route (bf16, D <= 256, blocks not both multiples of 64)
+// ---------------------------------------------------------------------------
+
+namespace fat {
+namespace mma {
+
+template <int DP>
+struct DkvMmaCfg {
+  // At D = 256 one warp's dK and dV over 16 keys would take 256 registers
+  // a thread, above the 255 it has: two warps share the keys, each holding
+  // half of the head dim, and add their partial S^T and dP^T through
+  // shared memory.
+  static constexpr int SPLIT = DP == 256 ? 2 : 1;
+  static constexpr int DW = DP / SPLIT;  // dK / dV columns a warp holds
+  // a ring step: 16 rows of q and of dO, their LSE and di
+  __host__ __device__ static constexpr int stage(int rs) {
+    return 2 * kSlice * rs + 2 * kSlice * 4;
+  }
+  __host__ __device__ static constexpr size_t smem(int warps, int rs) {
+    return (size_t)2 * (warps / SPLIT) * kSlice * rs +
+           (size_t)kStages * stage(rs) +
+           (SPLIT == 2 ? (size_t)2 * warps * 32 * 16 * sizeof(float) : 0);
+  }
+};
+
+// One CTA takes up to 4 slices of 16 keys of one KV block (2 at D = 256,
+// two warps a slice), K and V resident in shared memory, and walks the
+// block's transposed list for each query head of its share of the GQA
+// group in 16-row steps of q, dO, LSE and di staged by all threads into a
+// ring. Products are transposed so that P^T and dS^T come out of S^T's
+// accumulator in the A layout: S^T = K.q^T and dP^T = V.dO^T, then dV +=
+// round(p)^T.dO and dK += round(ds)^T.q with dO and q read by
+// ldmatrix.trans. A KV block's walk is E = G * count entries (query head,
+// q block); CTAs take chunks of `chunk_len` of them (blockIdx.y = KV head *
+// chunks + chunk), so that a block many q blocks visit (a global column,
+// and every block under MQA) is not walked by one CTA. Where E <= chunk_len
+// chunk 0 takes it all and stores dK and dV in bf16; else each chunk
+// writes fp32 partials of dK (scaled) and dV into `part` ([chunk][dk,
+// dv][B, H_kv, Nk, D]) and sparse_bwd_sum_mma_kernel adds them in chunk
+// order.
+template <int DP>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+sparse_bwd_dkv_mma_kernel(AttnArgs a, const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ di,
+                          const int32_t* __restrict__ q_list,
+                          const int32_t* __restrict__ q_count, int stride,
+                          int block_q, int block_k,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv,
+                          float* __restrict__ part, int chunk_len,
+                          int chunks) {
+  using Cfg = DkvMmaCfg<DP>;
+  constexpr int SPLIT = Cfg::SPLIT, STAGES = kStages, KS = DP / 16;
+  constexpr int DWS = Cfg::DW / 16;  // 16-column steps of a warp's dK / dV
+  extern __shared__ __align__(128) char smem[];
+  __shared__ __align__(16) uint4 zero_row;
+
+  const int W = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int G = a.H / a.H_kv, D = a.D, rs = tc_row_bytes(D);
+  const int ksteps = (D + 15) / 16;
+  const int kslices = W / SPLIT;  // key slices a CTA
+  const int per = ((block_k + kSlice - 1) / kSlice + kslices - 1) / kslices;
+  const int ik = blockIdx.x / per;
+  const int c_first = ik * block_k + blockIdx.x % per * kslices * kSlice;
+  const int c_end = min(ik * block_k + block_k, a.Nk);  // this KV block's keys
+  if (c_first >= c_end) return;  // the whole CTA past Nk
+  const int half = warp % SPLIT;
+  const int kb = c_first + warp / SPLIT * kSlice;  // this warp's first key
+  const bool live = kb < c_end;
+  const int b = blockIdx.z, hk = blockIdx.y / chunks;
+  const int chunk = blockIdx.y % chunks, n = q_count[ik];
+  const int e_lo = chunk * chunk_len, n_entries = G * n;
+  if (chunk > 0 && e_lo >= n_entries) return;  // chunk 0 stores the zeros
+  const bool direct = n_entries <= chunk_len;  // one CTA takes the block
+  RowWalk ld{q_list + (size_t)ik * stride, n, block_q, a.Nq,
+             a.causal ? c_first - a.offset : INT_MIN,
+             min(n_entries, e_lo + chunk_len), 0, 0};
+  ld.seek(e_lo);
+
+  const auto* qg = static_cast<const __nv_bfloat16*>(a.q);
+  const size_t kv_off = ((size_t)b * a.H_kv + hk) * a.Nk;
+  char* k_s = smem;
+  char* v_s = k_s + kslices * kSlice * rs;
+  char* ring = v_s + kslices * kSlice * rs;
+  const int stage_bytes = Cfg::stage(rs);
+  float* xbuf = reinterpret_cast<float*>(ring + STAGES * stage_bytes);
+  if (threadIdx.x == 0) zero_row = make_uint4(0u, 0u, 0u, 0u);
+  const uint32_t zero = smem_u32(&zero_row);
+  const RowCopy rc = row_copy(D, threadIdx.x, blockDim.x);
+
+  auto issue = [&](int st) {
+    char* qt = ring + st * stage_bytes;
+    float* ls = reinterpret_cast<float*>(qt + 2 * kSlice * rs);
+    const size_t row0 =
+        ((size_t)b * a.H + hk * G + ld.g()) * a.Nq + ld.r0;
+    const int n_ok = ld.r_hi() - ld.r0;
+    load_rows(rc, qt, qg + row0 * D, kSlice, n_ok, rs);
+    load_rows(rc, qt + kSlice * rs, dout + row0 * D, kSlice, n_ok, rs);
+    if (threadIdx.x < 2 * kSlice) {  // the LSE, then di
+      const int j = threadIdx.x % kSlice;
+      const bool ok = j < n_ok;
+      cp_async4(smem_u32(ls + threadIdx.x),
+                (threadIdx.x < kSlice ? lse : di) + row0 + (ok ? j : 0), ok);
+    }
+  };
+
+  float dka[2 * DWS][4], dva[2 * DWS][4];
+#pragma unroll
+  for (int i = 0; i < 2 * DWS; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dka[i][c] = dva[i][c] = 0.f;
+  }
+
+  if (!ld.done()) {
+    const size_t k0 = (kv_off + c_first) * D;
+    load_rows(rc, k_s, static_cast<const __nv_bfloat16*>(a.k) + k0,
+              kslices * kSlice, c_end - c_first, rs);
+    load_rows(rc, v_s, static_cast<const __nv_bfloat16*>(a.v) + k0,
+              kslices * kSlice, c_end - c_first, rs);
+    RowWalk cw = ld;  // the products' cursor
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (!ld.done()) {
+        issue(s);
+        ld.next();
+      }
+      cp_async_commit();
+    }
+    const char* kt = k_s + (warp / SPLIT) * kSlice * rs;
+    const char* vt = v_s + (warp / SPLIT) * kSlice * rs;
+    for (int it = 0; !cw.done(); ++it, cw.next()) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // step `it` landed; every warp is past step it - 1
+      if (!ld.done()) {
+        issue((it + STAGES - 1) % STAGES);
+        ld.next();
+      }
+      cp_async_commit();
+      const char* qt = ring + it % STAGES * stage_bytes;
+      const char* dot = qt + kSlice * rs;
+      const float* ls = reinterpret_cast<const float*>(dot + kSlice * rs);
+      const float* dis = ls + kSlice;
+
+      // S^T and dP^T (16 keys x 16 rows) over this warp's columns
+      float st[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) st[n][c] = dp[n][c] = 0.f;
+      }
+      if (live) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          if (ks >= ksteps || ks / (KS / SPLIT) != half) continue;
+          uint32_t ak[4], av[4], bq[4], bo[4];
+          const int da = ks * 16 + a_col(lane), db = ks * 16 + b_col(lane);
+          ldsm_x4(ak, da < D ? smem_u32(kt + a_row(lane) * rs + da * 2) : zero);
+          ldsm_x4(av, da < D ? smem_u32(vt + a_row(lane) * rs + da * 2) : zero);
+          ldsm_x4(bq, db < D ? smem_u32(qt + b_row(lane) * rs + db * 2) : zero);
+          ldsm_x4(bo, db < D ? smem_u32(dot + b_row(lane) * rs + db * 2)
+                             : zero);
+          mma_16816(st[0], ak, bq[0], bq[1]);
+          mma_16816(st[1], ak, bq[2], bq[3]);
+          mma_16816(dp[0], av, bo[0], bo[1]);
+          mma_16816(dp[1], av, bo[2], bo[3]);
+        }
+      }
+      if constexpr (SPLIT == 2) {  // add the other half's partials
+        float4* xb = reinterpret_cast<float4*>(xbuf) + (it & 1) * W * 32 * 4;
+        float4* mine = xb + (warp * 32 + lane) * 4;
+        mine[0] = make_float4(st[0][0], st[0][1], st[0][2], st[0][3]);
+        mine[1] = make_float4(st[1][0], st[1][1], st[1][2], st[1][3]);
+        mine[2] = make_float4(dp[0][0], dp[0][1], dp[0][2], dp[0][3]);
+        mine[3] = make_float4(dp[1][0], dp[1][1], dp[1][2], dp[1][3]);
+        __syncthreads();
+        const float4* other = xb + ((warp ^ 1) * 32 + lane) * 4;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const float4 x = other[n], y = other[2 + n];
+          st[n][0] += x.x;
+          st[n][1] += x.y;
+          st[n][2] += x.z;
+          st[n][3] += x.w;
+          dp[n][0] += y.x;
+          dp[n][1] += y.y;
+          dp[n][2] += y.z;
+          dp[n][3] += y.w;
+        }
+      }
+      if (!live) continue;
+
+      // p^T and ds^T, rounded to bf16 in the A layout (k = the step's rows)
+      const int r0 = cw.r0, r_hi = cw.r_hi();
+      uint32_t pa[4], sa[4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int key = kb + g + 8 * (c >> 1);
+          const int rr = 8 * n + 2 * tq + (c & 1), row = r0 + rr;
+          p[c] = row < r_hi && kept(a, row, key, c_end)
+                     ? expf(st[n][c] * a.scale - ls[rr])
+                     : 0.f;
+          ds[c] = p[c] * (dp[n][c] - dis[rr]);
+        }
+        pa[2 * n] = pack_bf16(p[0], p[1]);
+        pa[2 * n + 1] = pack_bf16(p[2], p[3]);
+        sa[2 * n] = pack_bf16(ds[0], ds[1]);
+        sa[2 * n + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      // dV += round(p)^T.dO and dK += round(ds)^T.q over this warp's columns
+#pragma unroll
+      for (int j = 0; j < DWS; ++j) {
+        const int dn = half * DWS + j;
+        if (dn >= ksteps) continue;
+        const int d = dn * 16 + a_col(lane);
+        uint32_t bo[4], bq[4];
+        ldsm_x4_t(bo, d < D ? smem_u32(dot + a_row(lane) * rs + d * 2) : zero);
+        ldsm_x4_t(bq, d < D ? smem_u32(qt + a_row(lane) * rs + d * 2) : zero);
+        mma_16816(dva[2 * j], pa, bo[0], bo[1]);
+        mma_16816(dva[2 * j + 1], pa, bo[2], bo[3]);
+        mma_16816(dka[2 * j], sa, bq[0], bq[1]);
+        mma_16816(dka[2 * j + 1], sa, bq[2], bq[3]);
+      }
+    }
+  }
+  if (!live) return;
+
+  // A KV block no q block visits stores exact zeros.
+  const size_t nk = (size_t)a.B * a.H_kv * a.Nk * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kb + g + 8 * r;
+    if (key >= c_end) continue;
+    const size_t base = (kv_off + key) * D;
+#pragma unroll
+    for (int n = 0; n < 2 * DWS; ++n) {
+      const int col = half * Cfg::DW + 8 * n + 2 * tq;
+      if (col >= D) continue;
+      const float2 k2 = make_float2(dka[n][2 * r] * a.scale,
+                                    dka[n][2 * r + 1] * a.scale);
+      const float2 v2 = make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
+      if (direct) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + base + col) =
+            __float22bfloat162_rn(k2);
+        *reinterpret_cast<__nv_bfloat162*>(dv + base + col) =
+            __float22bfloat162_rn(v2);
+      } else {
+        float* pk = part + 2 * chunk * nk + base + col;
+        *reinterpret_cast<float2*>(pk) = k2;
+        *reinterpret_cast<float2*>(pk + nk) = v2;
+      }
+    }
+  }
+}
+
+// dK and dV of the KV blocks whose walk took more than one chunk: the sums
+// of their chunks' fp32 partials in chunk order, rounded to bf16 (the
+// others were stored by their one CTA).
+__global__ void sparse_bwd_sum_mma_kernel(AttnArgs a,
+                                          const float4* __restrict__ part,
+                                          const int32_t* __restrict__ q_count,
+                                          int block_k, int chunk_len,
+                                          __nv_bfloat16* __restrict__ dk,
+                                          __nv_bfloat16* __restrict__ dv) {
+  const size_t n4 = (size_t)a.B * a.H_kv * a.Nk * a.D / 4;
+  const int G = a.H / a.H_kv, d4 = a.D / 4;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int key = (int)(i / d4 % a.Nk);
+    const int n_entries = G * q_count[key / block_k];
+    if (n_entries <= chunk_len) continue;
+    float4 k = part[i], v = part[n4 + i];
+    for (int c = 1; c * chunk_len < n_entries; ++c) {
+      const float4 pk = part[2 * c * n4 + i], pv = part[(2 * c + 1) * n4 + i];
+      k = make_float4(k.x + pk.x, k.y + pk.y, k.z + pk.z, k.w + pk.w);
+      v = make_float4(v.x + pv.x, v.y + pv.y, v.z + pv.z, v.w + pv.w);
+    }
+    auto* k2 = reinterpret_cast<__nv_bfloat162*>(dk) + 2 * i;
+    auto* v2 = reinterpret_cast<__nv_bfloat162*>(dv) + 2 * i;
+    k2[0] = __floats2bfloat162_rn(k.x, k.y);
+    k2[1] = __floats2bfloat162_rn(k.z, k.w);
+    v2[0] = __floats2bfloat162_rn(v.x, v.y);
+    v2[1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+}
+
+template <int DP, int KEYS>
+struct DqMmaCfg {
+  // q and dO held as A fragments in registers up to D = 128; at D = 256
+  // dQ takes 128 registers a thread, so both are read by ldmatrix.
+  static constexpr bool QREG = DP <= 128;
+  __host__ __device__ static constexpr size_t smem(int warps, int rs) {
+    return (size_t)warps * 2 * kSlice * rs + (size_t)kStages * 2 * KEYS * rs;
+  }
+};
+
+// The forward's layout over the q block's list (units of 16 rows of one
+// query head, all warps of a CTA on one list and one KV head, K and V
+// sub-tiles in a ring): S = q.K^T and dP = dO.V^T, then dQ += round(ds).K
+// with K read by ldmatrix.trans.
+template <int DP, int KEYS>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+sparse_bwd_dq_mma_kernel(AttnArgs a, const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ di,
+                         const int32_t* __restrict__ kv_list,
+                         const int32_t* __restrict__ kv_count, int stride,
+                         int block_q, int block_k,
+                         __nv_bfloat16* __restrict__ dq) {
+  using Cfg = DqMmaCfg<DP, KEYS>;
+  constexpr int STAGES = kStages, KS = DP / 16, NT = KEYS / 8;
+  extern __shared__ __align__(128) char smem[];
+  __shared__ __align__(16) uint4 zero_row;
+
+  const int W = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int G = a.H / a.H_kv, D = a.D, rs = tc_row_bytes(D);
+  const int ksteps = (D + 15) / 16;
+  const int units = (block_q + kSlice - 1) / kSlice * G;
+  const int per = (units + W - 1) / W;
+  const int n_q_blocks = (a.Nq + block_q - 1) / block_q;
+  const int iq = n_q_blocks - 1 - blockIdx.x / per;  // heavy first
+  const int u0 = blockIdx.x % per * W, u = u0 + warp;
+  const int b = blockIdx.z, hk = blockIdx.y;
+  const int r_end = min(iq * block_q + block_q, a.Nq);  // this q block's rows
+  const int h = hk * G + u % G;
+  const int r0 = iq * block_q + u / G * kSlice;
+  const bool live = u < units && r0 < r_end;
+  const int r_last = min(iq * block_q + (min(units, u0 + W) - 1) / G * kSlice +
+                             kSlice - 1, r_end - 1);
+  KeyWalk ld = key_walk(a, kv_list + (size_t)iq * stride, kv_count[iq],
+                        block_k, r_last, KEYS, 1);
+
+  const size_t kv_off = ((size_t)b * a.H_kv + hk) * a.Nk * D;
+  const auto* kg = static_cast<const __nv_bfloat16*>(a.k) + kv_off;
+  const auto* vg = static_cast<const __nv_bfloat16*>(a.v) + kv_off;
+  char* q_s = smem + warp * 2 * kSlice * rs;  // this warp's q, then dO
+  char* do_s = q_s + kSlice * rs;
+  char* ring = smem + W * 2 * kSlice * rs;
+  const int stage_bytes = 2 * KEYS * rs;
+  if (threadIdx.x == 0) zero_row = make_uint4(0u, 0u, 0u, 0u);
+  const uint32_t zero = smem_u32(&zero_row);
+  const RowCopy rc = row_copy(D, threadIdx.x, blockDim.x);
+  const RowCopy rc_warp = row_copy(D, lane, 32);
+  const size_t bh = (size_t)b * a.H + h;
+
+  auto issue = [&](int st) {
+    char* kt = ring + st * stage_bytes;
+    const int n_ok = ld.end() - ld.c0;
+    load_rows(rc, kt, kg + (size_t)ld.c0 * D, KEYS, n_ok, rs);
+    load_rows(rc, kt + KEYS * rs, vg + (size_t)ld.c0 * D, KEYS, n_ok, rs);
+  };
+
+  float acc[2 * KS][4];
+#pragma unroll
+  for (int i = 0; i < 2 * KS; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  }
+  float lse_r[2] = {0.f, 0.f}, di_r[2] = {0.f, 0.f};
+  uint32_t qf[Cfg::QREG ? KS : 1][4], of[Cfg::QREG ? KS : 1][4];
+
+  if (!ld.done()) {
+    if (live) {
+      const size_t q0 = (bh * a.Nq + r0) * D;
+      load_rows(rc_warp, q_s, static_cast<const __nv_bfloat16*>(a.q) + q0,
+                kSlice, r_end - r0, rs);
+      load_rows(rc_warp, do_s, dout + q0, kSlice, r_end - r0, rs);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + g + 8 * r;
+        if (row < r_end) {
+          lse_r[r] = lse[bh * a.Nq + row];
+          di_r[r] = di[bh * a.Nq + row];
+        }
+      }
+    }
+    KeyWalk cw = ld;  // the products' cursor
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (!ld.done()) {
+        issue(s);
+        ld.next();
+      }
+      cp_async_commit();
+    }
+    for (int it = 0; !cw.done(); ++it, cw.next()) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // tile `it` landed; every warp is past tile it - 1
+      if (!ld.done()) {
+        issue((it + STAGES - 1) % STAGES);
+        ld.next();
+      }
+      cp_async_commit();
+      if (!live) continue;
+      const char* kt = ring + it % STAGES * stage_bytes;
+      const char* vt = kt + KEYS * rs;
+      if constexpr (Cfg::QREG) {
+        if (it == 0) {
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            const int d = ks * 16 + a_col(lane);
+            if (ks < ksteps) {
+              const int off = a_row(lane) * rs + d * 2;
+              ldsm_x4(qf[ks], d < D ? smem_u32(q_s + off) : zero);
+              ldsm_x4(of[ks], d < D ? smem_u32(do_s + off) : zero);
+            }
+          }
+        }
+      }
+
+      // S = q.K^T and dP = dO.V^T (16 rows x KEYS keys)
+      float sc[NT][4], dp[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sc[n][c] = dp[n][c] = 0.f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        if (ks >= ksteps) continue;
+        uint32_t aq[4], ao[4];
+        if constexpr (Cfg::QREG) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            aq[i] = qf[ks][i];
+            ao[i] = of[ks][i];
+          }
+        } else {
+          const int d = ks * 16 + a_col(lane);
+          const int off = a_row(lane) * rs + d * 2;
+          ldsm_x4(aq, d < D ? smem_u32(q_s + off) : zero);
+          ldsm_x4(ao, d < D ? smem_u32(do_s + off) : zero);
+        }
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bk[4], bv[4];
+          const int d = ks * 16 + b_col(lane);
+          const int off = (np * 16 + b_row(lane)) * rs + d * 2;
+          ldsm_x4(bk, d < D ? smem_u32(kt + off) : zero);
+          ldsm_x4(bv, d < D ? smem_u32(vt + off) : zero);
+          mma_16816(sc[2 * np], aq, bk[0], bk[1]);
+          mma_16816(sc[2 * np + 1], aq, bk[2], bk[3]);
+          mma_16816(dp[2 * np], ao, bv[0], bv[1]);
+          mma_16816(dp[2 * np + 1], ao, bv[2], bv[3]);
+        }
+      }
+
+      // ds rounded to bf16 in the A layout (k = the sub-tile's keys)
+      const int c0 = cw.c0, c_end = cw.end();
+      uint32_t sa[NT / 2][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float ds[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int row = r0 + g + 8 * (c >> 1);
+          const int col = c0 + 8 * n + 2 * tq + (c & 1);
+          const float p = row < r_end && kept(a, row, col, c_end)
+                              ? expf(sc[n][c] * a.scale - lse_r[c >> 1])
+                              : 0.f;
+          ds[c] = p * (dp[n][c] - di_r[c >> 1]);
+        }
+        sa[n / 2][2 * (n & 1)] = pack_bf16(ds[0], ds[1]);
+        sa[n / 2][2 * (n & 1) + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      // dQ += round(ds).K: K's rows are this product's K, ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+#pragma unroll
+        for (int dn = 0; dn < KS; ++dn) {
+          if (dn >= ksteps) continue;
+          uint32_t bf[4];
+          const int d = dn * 16 + a_col(lane);
+          ldsm_x4_t(bf, d < D ? smem_u32(kt + (kk * 16 + a_row(lane)) * rs +
+                                         d * 2)
+                              : zero);
+          mma_16816(acc[2 * dn], sa[kk], bf[0], bf[1]);
+          mma_16816(acc[2 * dn + 1], sa[kk], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  if (!live) return;
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= r_end) continue;
+    const size_t base = (bh * a.Nq + row) * D;
+#pragma unroll
+    for (int n = 0; n < 2 * KS; ++n) {
+      const int col = 8 * n + 2 * tq;
+      if (col < D) {
+        *reinterpret_cast<__nv_bfloat162*>(dq + base + col) =
+            __floats2bfloat162_rn(acc[n][2 * r] * a.scale,
+                                  acc[n][2 * r + 1] * a.scale);
+      }
+    }
+  }
+}
+
+template <int KEYS, int DP>
+cudaError_t launch_sparse_bwd_dq_mma(const AttnArgs& a, const Lists& s,
+                                     const void* dout, const float* lse,
+                                     const float* di, void* dq,
+                                     cudaStream_t st) {
+  const int units = (s.block_q + kSlice - 1) / kSlice * (a.H / a.H_kv);
+  const int warps = cta_warps(units);
+  const size_t smem = DqMmaCfg<DP, KEYS>::smem(warps, tc_row_bytes(a.D));
+  auto kernel = sparse_bwd_dq_mma_kernel<DP, KEYS>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const long long ctas = (long long)((a.Nq + s.block_q - 1) / s.block_q) *
+                         ((units + warps - 1) / warps);
+  if (ctas > 0x7fffffff) return cudaErrorInvalidValue;
+  kernel<<<dim3((unsigned)ctas, a.H_kv, a.B), 32 * warps, smem, st>>>(
+      a, static_cast<const __nv_bfloat16*>(dout), lse, di, s.kv_list,
+      s.kv_count, s.kv_stride, s.block_q, s.block_k,
+      static_cast<__nv_bfloat16*>(dq));
+  return cudaGetLastError();
+}
+
+// dK/dV (each KV block's walk in chunks of chunk_len entries over up to
+// `chunks` CTAs, then the sum of the partials where chunks > 1), then dQ
+// (sub-tiles of 16 keys for blocks of 16 keys or fewer, else 32), on `st`.
+template <int DP>
+cudaError_t sparse_bwd_mma(const AttnArgs& a, const Lists& s,
+                           const void* dout, const float* lse,
+                           const float* di, void* dq, void* dk, void* dv,
+                           float* part, int chunk_len, int chunks,
+                           cudaStream_t st) {
+  using Cfg = DkvMmaCfg<DP>;
+  const int slices = (s.block_k + kSlice - 1) / kSlice;
+  const int warps = cta_warps(slices * Cfg::SPLIT);
+  const size_t smem = Cfg::smem(warps, tc_row_bytes(a.D));
+  auto kernel = sparse_bwd_dkv_mma_kernel<DP>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int per_block = (slices + warps / Cfg::SPLIT - 1) / (warps / Cfg::SPLIT);
+  const long long ctas =
+      (long long)((a.Nk + s.block_k - 1) / s.block_k) * per_block;
+  if (ctas > 0x7fffffff) return cudaErrorInvalidValue;
+  kernel<<<dim3((unsigned)ctas, a.H_kv * chunks, a.B), 32 * warps, smem,
+           st>>>(a, static_cast<const __nv_bfloat16*>(dout), lse, di,
+                 s.q_list, s.q_count, s.q_stride, s.block_q, s.block_k,
+                 static_cast<__nv_bfloat16*>(dk),
+                 static_cast<__nv_bfloat16*>(dv), part, chunk_len, chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (chunks > 1) {
+    const size_t n4 = (size_t)a.B * a.H_kv * a.Nk * a.D / 4;
+    sparse_bwd_sum_mma_kernel<<<sm90::stream_blocks(n4), 256, 0, st>>>(
+        a, reinterpret_cast<const float4*>(part), s.q_count, s.block_k,
+        chunk_len, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return s.block_k <= 16
+             ? launch_sparse_bwd_dq_mma<16, DP>(a, s, dout, lse, di, dq, st)
+             : launch_sparse_bwd_dq_mma<32, DP>(a, s, dout, lse, di, dq, st);
+}
+
+}  // namespace mma
+}  // namespace fat
+
 extern "C" {
 
 // dtype: 0 = bfloat16, 1 = float32 (q, k, v, do and the gradients share
@@ -2089,6 +2696,56 @@ int fat_sparse_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// The mma route: bf16 only, D <= 256, any block_q and block_k (the caller
+// sends blocks that are not both multiples of 64); q, k, v and dout 16-byte
+// aligned (cp.async). Same arguments as fat_sparse_bwd (dtype must be 0),
+// then `scratch`, `chunk_len` and `chunks`: a KV block's walk of (H / H_kv)
+// * q_count entries (query head, q block) is cut into chunks of chunk_len
+// entries, one dK/dV CTA each, chunks * chunk_len covering (H / H_kv) *
+// ceil(Nq / block_q); where chunks > 1 scratch holds their fp32 partials,
+// 2 chunks |k| values, 16-byte aligned (null otherwise).
+int fat_sparse_bwd_mma(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* di,
+                       void* dq, void* dk, void* dv, const void* kv_list,
+                       const void* kv_count, const void* q_list,
+                       const void* q_count, int B, int H, int H_kv, int Nq,
+                       int Nk, int D, float scale, int causal, int block_q,
+                       int block_k, int kv_stride, int q_stride, int dtype,
+                       void* stream, void* scratch, int chunk_len,
+                       int chunks) {
+  using namespace fat;
+  if (dtype != 0 || D < 8 || D > 256 || D % 8 != 0 || H_kv < 1 ||
+      H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || B > 65535 ||
+      block_q < 1 || block_k < 1 || chunk_len < 1 || chunks < 1 ||
+      (long long)chunks * chunk_len <
+          (long long)(H / H_kv) * ((Nq + block_q - 1) / block_q) ||
+      (long long)H_kv * chunks > 65535 ||
+      (chunks > 1 && (scratch == nullptr ||
+                      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)) ||
+      kv_stride < (Nk + block_k - 1) / block_k ||
+      q_stride < (Nq + block_q - 1) / block_q ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) %
+              16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AttnArgs a{q, k, v, nullptr, nullptr, nullptr, B, H, H_kv, Nq, Nk, D, scale,
+             causal, Nk - Nq, 0, 0, 0.f, 0.f, 0, 0u, 0u, 1.f};
+  const Lists s{static_cast<const int32_t*>(kv_list),
+                static_cast<const int32_t*>(kv_count),
+                static_cast<const int32_t*>(q_list),
+                static_cast<const int32_t*>(q_count),
+                kv_stride, q_stride, block_q, block_k};
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* l = static_cast<const float*>(lse);
+  const auto* d = static_cast<const float*>(di);
+  auto* run = D <= 64    ? mma::sparse_bwd_mma<64>
+              : D <= 128 ? mma::sparse_bwd_mma<128>
+                         : mma::sparse_bwd_mma<256>;
+  return (int)run(a, s, dout, l, d, dq, dk, dv,
+                  static_cast<float*>(scratch), chunk_len, chunks, st);
 }
 
 // The tensor-core route: bf16 only, D <= 256, block_q and block_k multiples

@@ -31,7 +31,7 @@
 // memory. GQA: query head h reads KV head h / (H / H_kv), so K/V are never
 // repeated.
 //
-// Three routes, chosen by the caller (ops/sparse_attn.py):
+// Four routes, chosen by the caller (ops/sparse_attn.py):
 //
 //   fat_sparse_fwd_sm90 (bf16, D <= 256, block_q and block_k multiples of
 //     64): every product on the tensor cores. One CTA per (64 NC query rows
@@ -73,15 +73,40 @@
 //     one stage of 32 keys with K and V on barriers of their own (224 KB),
 //     one consumer of 64 rows. One pass with an online softmax (above). A q
 //     block with count 0 issues nothing and writes o = 0, lse = -inf.
-//   fat_sparse_fwd (blocks that are not multiples of 64, any dtype): the
-//     first version, fp32 FMAs on the CUDA cores. A block of 4 warps owns
-//     ROWS rows of one q block, staged once in shared memory as fp32, and
-//     walks each active KV block in 32-key sub-tiles, skipping sub-tiles
-//     wholly above the causal diagonal; a lane owns one key for the scores
-//     and output columns lane, lane + 32, ... for P.V. Such blocks stay here
-//     because the TMA box and a consumer's rows are 64.
+//   fat_sparse_fwd_mma (bf16, D <= 256, block_q and block_k not both
+//     multiples of 64): every product on the tensor cores by mma.sync
+//     m16n8k16. A wgmma tile has 64 rows; kept inside a q block of 16 or
+//     32 rows it would be mostly masked rows, and a CTA never spans two q
+//     blocks (each has its own list). So the unit of work is a 16-row slice
+//     anchored at its block's start (sparse_mma.cuh), one warp a slice:
+//     a CTA takes up to 4 slices of one q block, of the query heads of one
+//     KV head (slice-major), so all its warps walk one list and share each
+//     K/V sub-tile of 16 keys (blocks of 16 keys or fewer) or 32, anchored
+//     at the active KV block's start and staged by cp.async (16 bytes a
+//     lane, odd-16-byte rows, so ldmatrix is conflict-free) into a
+//     two-stage ring (deeper rings cost more resident CTAs than they hid,
+//     scripts/sparse_mma_variants.py). S = Q.K^T with K from ldmatrix,
+//     O += round(p).V with p as the register A operand and V from
+//     ldmatrix.trans; two passes as the other bf16 route. Q's fragments
+//     stay in registers up to D = 128; at D = 256 O takes 128 registers a
+//     thread, so Q is read by ldmatrix at each k-step. Where the trouble
+//     was: a slice past its block's end or past Nq (block_q = 24, 96)
+//     makes its warp idle, which still takes part in every barrier and
+//     ring step and stores nothing; a sub-tile past its KV block's end
+//     (block_k = 40) reads zeros there and masks them; a column block past
+//     D reads a zero row; a q block of 128 rows beside 32-key blocks (128 x
+//     32) is two CTAs of 4 slices on one list. Instantiated at D 64, 128
+//     and 256, each with 16- and 32-key sub-tiles.
+//   fat_sparse_fwd (fp32 with blocks that are not multiples of 64; its bf16
+//     instantiation is the comparison chip_smoke.py times beside the mma
+//     kernels): the first version, fp32 FMAs on the CUDA cores. A block of
+//     4 warps owns ROWS rows of one q block, staged once in shared memory
+//     as fp32, and walks each active KV block in 32-key sub-tiles, skipping
+//     sub-tiles wholly above the causal diagonal; a lane owns one key for
+//     the scores and output columns lane, lane + 32, ... for P.V.
 
 #include "flash_common.cuh"
+#include "sparse_mma.cuh"
 #include "sparse_sm90.cuh"
 #include "tf32_sm90.cuh"
 
@@ -1032,6 +1057,282 @@ cudaError_t launch_sparse_fwd_f32_wide_sm90(const AttnArgs& a,
 }  // namespace sm90
 }  // namespace fat
 
+// ---------------------------------------------------------------------------
+// The mma route (bf16, D <= 256, blocks not both multiples of 64)
+// ---------------------------------------------------------------------------
+
+namespace fat {
+namespace mma {
+
+template <int DP, int KEYS>
+struct FwdMmaCfg {
+  // Q held as A fragments in registers up to D = 128; at D = 256 O takes
+  // 128 registers a thread, so Q is read by ldmatrix at each k-step.
+  static constexpr bool QREG = DP <= 128;
+  __host__ __device__ static constexpr size_t smem(int warps, int rs) {
+    return (size_t)warps * kSlice * rs + (size_t)kStages * 2 * KEYS * rs;
+  }
+};
+
+// One CTA takes W = blockDim.x / 32 units of one q block: unit u is slice
+// u / G of query head hk * G + u % G, one warp a unit, so every warp of
+// the CTA follows one list and reads one KV head, and the warps share each
+// K/V sub-tile, staged by all threads into a ring of kStages.
+template <int DP, int KEYS>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+sparse_fwd_mma_kernel(AttnArgs a, const int32_t* __restrict__ kv_list,
+                      const int32_t* __restrict__ kv_count, int stride,
+                      int block_q, int block_k, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse) {
+  using Cfg = FwdMmaCfg<DP, KEYS>;
+  constexpr int STAGES = kStages, KS = DP / 16, NT = KEYS / 8;
+  extern __shared__ __align__(128) char smem[];
+  __shared__ __align__(16) uint4 zero_row;
+
+  const int W = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int G = a.H / a.H_kv, D = a.D, rs = tc_row_bytes(D);
+  const int ksteps = (D + 15) / 16;
+  const int units = (block_q + kSlice - 1) / kSlice * G;
+  const int per = (units + W - 1) / W;
+  const int n_q_blocks = (a.Nq + block_q - 1) / block_q;
+  // heavy first: causal, a later q block sees more keys
+  const int iq = n_q_blocks - 1 - blockIdx.x / per;
+  const int u0 = blockIdx.x % per * W, u = u0 + warp;
+  const int b = blockIdx.z, hk = blockIdx.y;
+  const int r_end = min(iq * block_q + block_q, a.Nq);  // this q block's rows
+  const int h = hk * G + u % G;
+  const int r0 = iq * block_q + u / G * kSlice;
+  const bool live = u < units && r0 < r_end;  // past Nq: nothing to store
+  const int r_last = min(iq * block_q + (min(units, u0 + W) - 1) / G * kSlice +
+                             kSlice - 1, r_end - 1);
+  const int n_active = kv_count[iq];
+  KeyWalk ld = key_walk(a, kv_list + (size_t)iq * stride, n_active, block_k,
+                        r_last, KEYS, 2);
+
+  const size_t kv_off = ((size_t)b * a.H_kv + hk) * a.Nk * D;
+  const auto* kg = static_cast<const __nv_bfloat16*>(a.k) + kv_off;
+  const auto* vg = static_cast<const __nv_bfloat16*>(a.v) + kv_off;
+  char* q_s = smem + warp * kSlice * rs;  // this warp's 16 rows
+  char* ring = smem + W * kSlice * rs;
+  const int stage_bytes = 2 * KEYS * rs;
+  if (threadIdx.x == 0) zero_row = make_uint4(0u, 0u, 0u, 0u);
+  const uint32_t zero = smem_u32(&zero_row);
+  const RowCopy rc = row_copy(D, threadIdx.x, blockDim.x);
+  const RowCopy rc_warp = row_copy(D, lane, 32);
+
+  // Pass 0 stages K; pass 1 K and V.
+  auto issue = [&](int st) {
+    char* kt = ring + st * stage_bytes;
+    const int n_ok = ld.end() - ld.c0;
+    load_rows(rc, kt, kg + (size_t)ld.c0 * D, KEYS, n_ok, rs);
+    if (ld.pass == 1) {
+      load_rows(rc, kt + KEYS * rs, vg + (size_t)ld.c0 * D, KEYS, n_ok, rs);
+    }
+  };
+
+  // A visited block's row that meets no key keeps the mask value as its
+  // max (lse = the mask value); rows of a block with count 0 keep -inf.
+  float m[2], l[2] = {0.f, 0.f}, acc[2 * KS][4];
+  m[0] = m[1] = n_active > 0 ? kMaskValue : -INFINITY;
+#pragma unroll
+  for (int i = 0; i < 2 * KS; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  }
+  uint32_t qf[Cfg::QREG ? KS : 1][4];
+
+  if (!ld.done()) {
+    if (live) {
+      load_rows(rc_warp, q_s,
+                static_cast<const __nv_bfloat16*>(a.q) +
+                    (((size_t)b * a.H + h) * a.Nq + r0) * D,
+                kSlice, r_end - r0, rs);
+    }
+    KeyWalk cw = ld;  // the products' cursor
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (!ld.done()) {
+        issue(s);
+        ld.next();
+      }
+      cp_async_commit();
+    }
+    bool reduced = false;
+    for (int it = 0; !cw.done(); ++it, cw.next()) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // tile `it` landed; every warp is past tile it - 1
+      if (!ld.done()) {
+        issue((it + STAGES - 1) % STAGES);
+        ld.next();
+      }
+      cp_async_commit();
+      if (!live) continue;
+      const char* kt = ring + it % STAGES * stage_bytes;
+      const char* vt = kt + KEYS * rs;
+      if constexpr (Cfg::QREG) {
+        if (it == 0) {
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            const int d = ks * 16 + a_col(lane);
+            if (ks < ksteps) {
+              ldsm_x4(qf[ks], d < D ? smem_u32(q_s + a_row(lane) * rs + d * 2)
+                                    : zero);
+            }
+          }
+        }
+      }
+
+      // S = Q.K^T over the sub-tile (16 rows x KEYS keys); the same
+      // instructions in both passes, so pass 1 meets the scores whose max
+      // pass 0 took.
+      float sc[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sc[n][c] = 0.f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        if (ks >= ksteps) continue;
+        uint32_t af[4];
+        if constexpr (Cfg::QREG) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) af[i] = qf[ks][i];
+        } else {
+          const int d = ks * 16 + a_col(lane);
+          ldsm_x4(af, d < D ? smem_u32(q_s + a_row(lane) * rs + d * 2) : zero);
+        }
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bf[4];
+          const int d = ks * 16 + b_col(lane);
+          ldsm_x4(bf, d < D ? smem_u32(kt + (np * 16 + b_row(lane)) * rs +
+                                       d * 2)
+                            : zero);
+          mma_16816(sc[2 * np], af, bf[0], bf[1]);
+          mma_16816(sc[2 * np + 1], af, bf[2], bf[3]);
+        }
+      }
+
+      const int c0 = cw.c0, c_end = cw.end();
+      if (cw.pass == 0) {  // each lane's max over its elements
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int row = r0 + g + 8 * (c >> 1);
+            const int col = c0 + 8 * n + 2 * tq + (c & 1);
+            if (kept(a, row, col, c_end)) {
+              m[c >> 1] = fmaxf(m[c >> 1], sc[n][c] * a.scale);
+            }
+          }
+        }
+        continue;
+      }
+      if (!reduced) {  // the rows' final max, over the 4 lanes of a row
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          m[r] = fmaxf(m[r], __shfl_xor_sync(kFull, m[r], 1));
+          m[r] = fmaxf(m[r], __shfl_xor_sync(kFull, m[r], 2));
+        }
+        reduced = true;
+      }
+      // p at the row's final max, rounded to bf16 as P.V's A operand
+      uint32_t pa[NT / 2][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float p[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int row = r0 + g + 8 * (c >> 1);
+          const int col = c0 + 8 * n + 2 * tq + (c & 1);
+          p[c] = kept(a, row, col, c_end)
+                     ? expf(sc[n][c] * a.scale - m[c >> 1])
+                     : 0.f;
+          l[c >> 1] += p[c];
+        }
+        pa[n / 2][2 * (n & 1)] = pack_bf16(p[0], p[1]);
+        pa[n / 2][2 * (n & 1) + 1] = pack_bf16(p[2], p[3]);
+      }
+      // O += P.V: V's rows are P.V's K, read by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+#pragma unroll
+        for (int dn = 0; dn < KS; ++dn) {
+          if (dn >= ksteps) continue;
+          uint32_t bf[4];
+          const int d = dn * 16 + a_col(lane);
+          ldsm_x4_t(bf, d < D ? smem_u32(vt + (kk * 16 + a_row(lane)) * rs +
+                                         d * 2)
+                              : zero);
+          mma_16816(acc[2 * dn], pa[kk], bf[0], bf[1]);
+          mma_16816(acc[2 * dn + 1], pa[kk], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  if (!live) return;
+
+  const size_t bh = (size_t)b * a.H + h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+    const int row = r0 + g + 8 * r;
+    if (row >= r_end) continue;
+    const float l_safe = l[r] == 0.f ? 1.f : l[r];
+    const size_t base = bh * a.Nq + row;
+#pragma unroll
+    for (int n = 0; n < 2 * KS; ++n) {
+      const int col = 8 * n + 2 * tq;
+      if (col < D) {
+        *reinterpret_cast<__nv_bfloat162*>(o + base * D + col) =
+            __floats2bfloat162_rn(acc[n][2 * r] / l_safe,
+                                  acc[n][2 * r + 1] / l_safe);
+      }
+    }
+    if (tq == 0) lse[base] = m[r] + logf(l_safe);
+  }
+}
+
+template <int DP, int KEYS>
+cudaError_t launch_sparse_fwd_mma(const AttnArgs& a, const int32_t* kv_list,
+                                  const int32_t* kv_count, int stride,
+                                  int block_q, int block_k, void* o,
+                                  float* lse, cudaStream_t st) {
+  const int units = (block_q + kSlice - 1) / kSlice * (a.H / a.H_kv);
+  const int warps = cta_warps(units);
+  const size_t smem = FwdMmaCfg<DP, KEYS>::smem(warps, tc_row_bytes(a.D));
+  auto kernel = sparse_fwd_mma_kernel<DP, KEYS>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const long long ctas = (long long)((a.Nq + block_q - 1) / block_q) *
+                         ((units + warps - 1) / warps);
+  if (ctas > 0x7fffffff) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)ctas, a.H_kv, a.B);
+  kernel<<<grid, 32 * warps, smem, st>>>(a, kv_list, kv_count, stride,
+                                         block_q, block_k,
+                                         static_cast<__nv_bfloat16*>(o), lse);
+  return cudaGetLastError();
+}
+
+// Sub-tiles of 16 keys for blocks of 16 keys or fewer, else 32.
+template <int DP>
+cudaError_t sparse_fwd_mma(const AttnArgs& a, const int32_t* kv_list,
+                           const int32_t* kv_count, int stride, int block_q,
+                           int block_k, void* o, float* lse,
+                           cudaStream_t st) {
+  return block_k <= 16
+             ? launch_sparse_fwd_mma<DP, 16>(a, kv_list, kv_count, stride,
+                                             block_q, block_k, o, lse, st)
+             : launch_sparse_fwd_mma<DP, 32>(a, kv_list, kv_count, stride,
+                                             block_q, block_k, o, lse, st);
+}
+
+}  // namespace mma
+}  // namespace fat
+
 extern "C" {
 
 // dtype: 0 = bfloat16, 1 = float32 (q, k, v and o share it); lse is fp32
@@ -1062,6 +1363,35 @@ int fat_sparse_fwd(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// The mma route: bf16 only, D <= 256, any block_q and block_k (the caller
+// sends blocks that are not both multiples of 64); q, k and v 16-byte
+// aligned (cp.async). Same arguments as fat_sparse_fwd (dtype must be 0).
+int fat_sparse_fwd_mma(const void* q, const void* k, const void* v, void* o,
+                       void* lse, const void* kv_list, const void* kv_count,
+                       int B, int H, int H_kv, int Nq, int Nk, int D,
+                       float scale, int causal, int block_q, int block_k,
+                       int stride, int dtype, void* stream) {
+  using namespace fat;
+  if (dtype != 0 || D < 8 || D > 256 || D % 8 != 0 || H_kv < 1 ||
+      H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H_kv > 65535 ||
+      B > 65535 || block_q < 1 || block_k < 1 ||
+      stride < (Nk + block_k - 1) / block_k ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AttnArgs a{q, k, v, nullptr, nullptr, nullptr, B, H, H_kv, Nq, Nk, D, scale,
+             causal, Nk - Nq, 0, 0, 0.f, 0.f, 0, 0u, 0u, 1.f};
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* list = static_cast<const int32_t*>(kv_list);
+  const auto* count = static_cast<const int32_t*>(kv_count);
+  auto* l = static_cast<float*>(lse);
+  auto* run = D <= 64    ? mma::sparse_fwd_mma<64>
+              : D <= 128 ? mma::sparse_fwd_mma<128>
+                         : mma::sparse_fwd_mma<256>;
+  return (int)run(a, list, count, stride, block_q, block_k, o, l, st);
 }
 
 // The tensor-core route: bf16 only, D <= 256, block_q and block_k multiples

@@ -1,0 +1,161 @@
+// Shared by the mma route of sparse_fwd.cu and sparse_bwd.cu (bf16 with
+// blocks that are not both multiples of 64): the 16-row unit of work, the
+// walks that anchor every tile at a block's start, the ldmatrix lane maps
+// and the copies of row tiles into shared memory.
+//
+// The unit of work is a 16-row slice anchored at a block's start: q block
+// iq's slice s holds rows iq * block_q + 16 s .. + 15 and never crosses
+// into the next block, so it follows its own block's list; rows past the
+// block's end (or past Nq) are zero, masked and never stored. Keys are
+// walked the same way, in sub-tiles anchored at each active KV block's
+// start; keys past the block's end (or Nk) are zero and masked. Any block
+// size works; one that is a multiple of 16 wastes nothing. Tiles land by
+// cp.async, 16 bytes a lane, at tc_row_bytes(D) a row (mma_sync.cuh), and
+// a column block at or past D reads a zero row instead (D % 8 == 0, so an
+// 8-column block is wholly inside or wholly past it).
+#pragma once
+
+#include "flash_common.cuh"
+#include "mma_sync.cuh"
+#include "sparse_sm90.cuh"
+
+namespace fat {
+namespace mma {
+
+using sm90::kept;
+using sm90::smem_u32;
+
+constexpr int kSlice = 16;    // rows of a slice: M of m16n8k16
+constexpr int kMaxWarps = 4;  // warps (slices) a CTA
+// Stages of every mma kernel's ring: the shared memory of a third stage
+// cost more resident CTAs than it hid (scripts/sparse_mma_variants.py).
+constexpr int kStages = 2;
+
+// The warps of a CTA for `units` units of one block: one a unit, up to 4.
+__host__ __device__ constexpr int cta_warps(int units) {
+  return units < kMaxWarps ? units : kMaxWarps;
+}
+
+// ldmatrix lane maps (mma_sync.cuh). A operand from a row-major tile
+// (rows = M, columns = K), and the .trans B operand from a tile whose rows
+// are K: the lane's row and column offsets inside the 16 x 16 block.
+__device__ __forceinline__ int a_row(int lane) {
+  return (lane & 7) + 8 * ((lane >> 3) & 1);
+}
+__device__ __forceinline__ int a_col(int lane) { return 8 * (lane >> 4); }
+// The B operand from a tile whose rows are N (two n8 tiles of 16 rows).
+__device__ __forceinline__ int b_row(int lane) {
+  return (lane & 7) + 8 * (lane >> 4);
+}
+__device__ __forceinline__ int b_col(int lane) { return 8 * ((lane >> 3) & 1); }
+
+// The walk of one q block's list (forward, dQ) in KEYS-key sub-tiles, each
+// anchored at an active KV block's start, up to `stop` (the causal stop of
+// the CTA's last row, else Nk), `passes` times over (the forward's max pass
+// and its softmax pass). Every thread walks it alike, the loads a few steps
+// ahead of the products.
+struct KeyWalk {
+  const int32_t* blocks;
+  int n, block_k, Nk, stop, keys, passes;
+  int w, c0, pass;  // the current sub-tile: list entry, first key, pass
+  __device__ __forceinline__ int end() const {  // this KV block's keys end
+    return min(blocks[w] * block_k + block_k, Nk);
+  }
+  __device__ __forceinline__ bool done() const { return pass >= passes; }
+  // The first sub-tile of list entry w_ or a later one, in pass p or later.
+  __device__ __forceinline__ void seek(int w_, int p) {
+    for (; p < passes; ++p, w_ = 0) {
+      for (; w_ < n; ++w_) {
+        const int lo = blocks[w_] * block_k;
+        if (lo < min(min(lo + block_k, Nk), stop)) {
+          w = w_;
+          c0 = lo;
+          pass = p;
+          return;
+        }
+      }
+    }
+    pass = passes;
+  }
+  __device__ __forceinline__ void next() {
+    c0 += keys;
+    if (c0 >= min(end(), stop)) seek(w + 1, pass);
+  }
+};
+
+__device__ __forceinline__ KeyWalk key_walk(const AttnArgs& a,
+                                            const int32_t* list, int n,
+                                            int block_k, int r_last, int keys,
+                                            int passes) {
+  KeyWalk k{list, n, block_k, a.Nk,
+            a.causal ? r_last + a.offset + 1 : a.Nk, keys, passes, 0, 0, 0};
+  k.seek(0, 0);
+  return k;
+}
+
+// The dK/dV walk of one KV block: its entries e = g * n + w (query head g of
+// the GQA group, entry w of the transposed list of n q blocks) from e to
+// e_end (a CTA's chunk of them), each q block in 16-row steps anchored at
+// its start, from the first step that holds a row at or past r_min
+// (causal: the first row that sees the CTA's first key).
+struct RowWalk {
+  const int32_t* blocks;
+  int n, block_q, Nq, r_min, e_end;
+  int e, r0;  // the current step: entry, first row
+  __device__ __forceinline__ int g() const { return e / n; }
+  __device__ __forceinline__ int r_hi() const {  // this q block's rows end
+    return min(blocks[e % n] * block_q + block_q, Nq);
+  }
+  __device__ __forceinline__ bool done() const { return e >= e_end; }
+  __device__ __forceinline__ void seek(int e_) {
+    for (; e_ < e_end; ++e_) {
+      const int lo = blocks[e_ % n] * block_q;
+      const int start =
+          r_min > lo ? lo + (r_min - lo) / kSlice * kSlice : lo;
+      if (start < min(lo + block_q, Nq)) {
+        e = e_;
+        r0 = start;
+        return;
+      }
+    }
+    e = e_end;
+  }
+  __device__ __forceinline__ void next() {
+    r0 += kSlice;
+    if (r0 >= r_hi()) seek(e + 1);
+  }
+};
+
+// A thread's share of copying row tiles of D bf16 columns by cp.async, 16
+// bytes at a time: chunk c of row j first, then `threads` chunks on. Made
+// once a kernel, so a copy costs no integer division.
+struct RowCopy {
+  int cpr, j0, c0, dj, dc;  // chunks a row; first row, chunk; the step
+};
+
+__device__ __forceinline__ RowCopy row_copy(int D, int tid, int threads) {
+  const int cpr = D / 8;
+  const int j0 = tid / cpr, dj = threads / cpr;
+  return RowCopy{cpr, j0, tid - j0 * cpr, dj, threads - dj * cpr};
+}
+
+// `rows` rows from src (row stride D), rows >= n_ok zero-filled, into a tile
+// at dst with row stride rs.
+__device__ __forceinline__ void load_rows(const RowCopy& rc, char* dst,
+                                          const __nv_bfloat16* src, int rows,
+                                          int n_ok, int rs) {
+  for (int j = rc.j0, c = rc.c0; j < rows;) {
+    const bool ok = j < n_ok;
+    cp_async16(smem_u32(dst + j * rs + c * 16),
+               src + (ok ? (size_t)j * rc.cpr * 8 + c * 8 : 0), ok);
+    j += rc.dj;
+    c += rc.dc;
+    if (c >= rc.cpr) {
+      c -= rc.cpr;
+      ++j;
+    }
+  }
+}
+
+}  // namespace mma
+}  // namespace fat

@@ -12,22 +12,24 @@ without a host sync; a kernel reads its loop bound from the count.
 On CUDA tensors :func:`sparse_attention` launches ``csrc/sparse_fwd.cu``
 (counted in ``sparse_attention.fwd_launches``) and, in the backward,
 ``csrc/sparse_bwd.cu`` (a dK/dV kernel over the transposed lists, then a
-dQ kernel; ``sparse_attention.bwd_launches``). Each source has three routes,
-chosen by :func:`_tensor_core_route` and :func:`_entry`: with both blocks
+dQ kernel; ``sparse_attention.bwd_launches``). Each source has four routes,
+chosen by :func:`_route` and named by :func:`_entry`: with both blocks
 multiples of 64, bf16 goes to the bf16 tensor-core kernels (wgmma fed by
 TMA; ``fat_sparse_fwd_sm90`` / ``fat_sparse_bwd_sm90``) and fp32 to the
 fp32 ones (3xTF32 wgmma fed by TMA; ``fat_sparse_fwd_sm90_f32`` /
 ``fat_sparse_bwd_sm90_f32``; above D = 128 the wide kernels, whose backward
 takes a scratch the wrapper allocates, ``flash_attn._wide_scratch``), both
 up to D = 256 and both also counted in ``sparse_attention.fwd_tc_launches``
-/ ``bwd_tc_launches``; blocks that are not multiples of 64 go to the FMA
-kernels (``fat_sparse_fwd`` / ``fat_sparse_bwd``). On CPU
-tensors it runs the plain versions :func:`sparse_fwd_plain` and
+/ ``bwd_tc_launches``; other blocks in bf16 go to the mma kernels
+(``mma.sync`` on 16-row slices anchored at each block's start, any block
+size, D <= 256; ``fat_sparse_fwd_mma`` / ``fat_sparse_bwd_mma``, also
+counted in ``sparse_attention.fwd_mma_launches`` / ``bwd_mma_launches``),
+and in fp32 to the FMA kernels (``fat_sparse_fwd`` / ``fat_sparse_bwd``).
+On CPU tensors it runs the plain versions :func:`sparse_fwd_plain` and
 :func:`sparse_bwd_plain`. Nothing falls back: a CUDA input the kernels do
 not take (fp16, a head dim above 256, tensors on different devices; a
 head dim that is not a multiple of 8 is padded, as in the flash wrapper)
-raises, and so does a failed build or launch of
-either route.
+raises, and so does a failed build or launch of any route.
 
 The function. Query row r sits at key position r + (N_k - N_q). Inside an
 active block pair an element is kept iff col < N_k and, when causal,
@@ -226,16 +228,38 @@ def _tensor_core_route(dtype, d: int, spec: SparseSpec) -> bool:
     splits the head dim between its two consumers; fp32 runs 3xTF32, each
     operand split into two TF32 parts, which keeps the fp32 1e-4 limit, and
     above D = 128 its wide kernels split the operands they keep as landed
-    in registers). Other blocks keep the FMA kernels."""
+    in registers). Other blocks take the mma kernels (bf16) or the FMA
+    kernels (fp32)."""
     return (dtype in _DTYPE_CODE and d <= MAX_HEAD_DIM
             and spec.block_q % 64 == 0 and spec.block_k % 64 == 0)
 
 
-def _entry(part: str, dtype, tc: bool) -> str:
-    """The C entry point of ``part`` ("fwd" or "bwd") on a route: the FMA
-    kernels', or the bf16 or fp32 tensor-core kernels'."""
-    if not tc:
+def _mma_route(dtype, d: int, spec: SparseSpec) -> bool:
+    """True where the mma kernels take the call: bf16 up to D = 256 with
+    blocks that are not both multiples of 64. ``mma.sync`` m16n8k16 gives a
+    warp 16 rows, so the kernels cut each block into 16-row (and 16- or
+    32-key) slices anchored at its start: a 64-row wgmma tile kept inside
+    a block of 16 or 32 would be mostly masked rows."""
+    return (dtype == torch.bfloat16 and d <= MAX_HEAD_DIM
+            and not _tensor_core_route(dtype, d, spec))
+
+
+def _route(dtype, d: int, spec: SparseSpec) -> str:
+    """The route a call takes: "tc" (wgmma), "mma" (``mma.sync``) or "fma"
+    (fp32 with blocks that are not multiples of 64)."""
+    if _tensor_core_route(dtype, d, spec):
+        return "tc"
+    return "mma" if _mma_route(dtype, d, spec) else "fma"
+
+
+def _entry(part: str, dtype, route: str) -> str:
+    """The C entry point of ``part`` ("fwd" or "bwd") on a route
+    (:func:`_route`): the FMA kernels', the mma kernels', or the bf16 or
+    fp32 tensor-core kernels'."""
+    if route == "fma":
         return f"fat_sparse_{part}"
+    if route == "mma":
+        return f"fat_sparse_{part}_mma"
     return f"fat_sparse_{part}_sm90" + ("_f32" if dtype == torch.float32
                                         else "")
 
@@ -246,18 +270,73 @@ def route_kernels(dtype, d: int, spec: SparseSpec,
     names in a profiler trace). fp32 above D = 128 adds the split of the
     backward's B operands (``tf32_split_kernel``) and, where ``kv_splits``
     (``flash_attn._wide_scratch``) spreads a KV head's query heads over
-    dK/dV CTAs, the sum of their partials (``kv_sum_kernel``)."""
-    tag = ""
-    if _tensor_core_route(dtype, d, spec):
-        tag = "_sm90"
-        if dtype == torch.float32:
-            tag = "_f32_wide_sm90" if d > 128 else "_f32_sm90"
+    dK/dV CTAs, the sum of their partials (``kv_sum_kernel``); the mma
+    route, where ``kv_splits`` (the chunks of :func:`_mma_chunks`) cuts a
+    KV block's walk over dK/dV CTAs, the sum of theirs
+    (``sparse_bwd_sum_mma_kernel``)."""
+    tag = {"tc": "_sm90", "mma": "_mma", "fma": ""}[_route(dtype, d, spec)]
+    if tag == "_sm90" and dtype == torch.float32:
+        tag = "_f32_wide_sm90" if d > 128 else "_f32_sm90"
     names = {f"sparse_{k}{tag}_kernel" for k in ("fwd", "bwd_dkv", "bwd_dq")}
     if tag == "_f32_wide_sm90":
         names.add("tf32_split_kernel")
         if kv_splits > 1:
             names.add("kv_sum_kernel")
+    if tag == "_mma" and kv_splits > 1:
+        names.add("sparse_bwd_sum_mma_kernel")
     return frozenset(names)
+
+
+# 16-row steps of the mma dK/dV kernel a CTA walks at most for one KV block,
+# and the most bytes its chunks' fp32 partials may take
+MMA_CHUNK_STEPS = 32
+MMA_SCRATCH_BYTES = 512 * 2 ** 20
+
+
+def _mma_chunks(h: int, h_kv: int, n_q: int, block_q: int,
+                k_numel: int) -> tuple[int, int]:
+    """(chunk_len, chunks) of the mma route's dK/dV kernel: a KV block's
+    walk, (h / h_kv) * its count of (query head, q block) entries, is cut
+    into chunks of ``chunk_len`` entries (``MMA_CHUNK_STEPS`` 16-row steps),
+    one CTA each, so that a block that many q blocks visit (a global
+    column; under GQA/MQA every head of the group) is not walked by one
+    CTA. ``chunks`` covers the longest walk the pattern allows, and no more
+    than the partials of ``MMA_SCRATCH_BYTES`` (2 chunks |k| fp32 values),
+    past which the chunks grow longer. The grid is never sized from the
+    counts: a chunk past its block's walk exits."""
+    longest = (h // h_kv) * -(-n_q // block_q)
+    chunks = -(-longest // max(1, MMA_CHUNK_STEPS // -(-block_q // 16)))
+    chunks = max(1, min(chunks, MMA_SCRATCH_BYTES // (8 * k_numel)))
+    return -(-longest // chunks), chunks
+
+
+def _mma_scratch(q, k, spec: SparseSpec) -> tuple[torch.Tensor | None, list]:
+    """(scratch, [its pointer, chunk_len, chunks]) of a backward call on the
+    mma route (:func:`_mma_chunks`): the fp32 dK/dV partials of the blocks
+    whose walk takes more than one chunk, 2 * chunks * |k| values (None
+    where one chunk covers every walk)."""
+    chunk_len, chunks = _mma_chunks(q.shape[1], k.shape[1], q.shape[2],
+                                    spec.block_q, k.numel())
+    scratch = None
+    if chunks > 1:
+        scratch = torch.empty(2 * chunks * k.numel(), dtype=torch.float32,
+                              device=q.device)
+    return scratch, [_ptr(scratch), chunk_len, chunks]
+
+
+def _bwd_scratch(route: str, q, k,
+                 spec: SparseSpec) -> tuple[torch.Tensor | None, list]:
+    """(scratch, the arguments a route's backward entry takes after the
+    stream): the fp32 tensor-core route's scratch and query-head splits
+    (``flash_attn._wide_scratch``), the mma route's scratch and chunks
+    (:func:`_mma_scratch`). The caller holds the scratch until its launches
+    are issued."""
+    if route == "mma":
+        return _mma_scratch(q, k, spec)
+    if route == "tc" and q.dtype == torch.float32:
+        scratch, splits = _wide_scratch(q, k)
+        return scratch, [_ptr(scratch), splits]
+    return None, []
 
 
 def _fwd_cuda(q, k, v, active, spec: SparseSpec):
@@ -270,15 +349,16 @@ def _fwd_cuda(q, k, v, active, spec: SparseSpec):
         return o.zero_(), lse.fill_(float("-inf"))
     kv_list, kv_count = compact_rows(active)
     lib = _build.load_kernel("sparse_fwd", _declare_fwd)
-    tc = _tensor_core_route(q.dtype, d, spec)
-    err = getattr(lib, _entry("fwd", q.dtype, tc))(
+    route = _route(q.dtype, d, spec)
+    err = getattr(lib, _entry("fwd", q.dtype, route))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         kv_list.data_ptr(), kv_count.data_ptr(), *_shape_args(q, k, spec),
         kv_list.shape[1], _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "sparse_fwd launch")
     sparse_attention.fwd_launches += 1
-    sparse_attention.fwd_tc_launches += tc
+    sparse_attention.fwd_tc_launches += route == "tc"
+    sparse_attention.fwd_mma_launches += route == "mma"
     return o, lse
 
 
@@ -292,12 +372,9 @@ def _bwd_cuda(q, k, v, do, lse, di, active, spec: SparseSpec):
     kv_list, kv_count = compact_rows(active)
     q_list, q_count = compact_rows(active.t())
     lib = _build.load_kernel("sparse_bwd", _declare_bwd)
-    tc = _tensor_core_route(q.dtype, q.shape[3], spec)
-    more = []
-    if tc and q.dtype == torch.float32:
-        scratch, splits = _wide_scratch(q, k)
-        more = [_ptr(scratch), splits]
-    err = getattr(lib, _entry("bwd", q.dtype, tc))(
+    route = _route(q.dtype, q.shape[3], spec)
+    scratch, more = _bwd_scratch(route, q, k, spec)
+    err = getattr(lib, _entry("bwd", q.dtype, route))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), kv_list.data_ptr(), kv_count.data_ptr(),
@@ -306,7 +383,8 @@ def _bwd_cuda(q, k, v, do, lse, di, active, spec: SparseSpec):
         torch.cuda.current_stream(q.device).cuda_stream, *more)
     _build.check(err, "sparse_bwd launch")
     sparse_attention.bwd_launches += 1
-    sparse_attention.bwd_tc_launches += tc
+    sparse_attention.bwd_tc_launches += route == "tc"
+    sparse_attention.bwd_mma_launches += route == "mma"
     return dq, dk, dv
 
 
@@ -315,22 +393,24 @@ _SHAPE_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3
 
 def _declare_fwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.fat_sparse_fwd, lib.fat_sparse_fwd_sm90,
-               lib.fat_sparse_fwd_sm90_f32):
+    for fn in (lib.fat_sparse_fwd, lib.fat_sparse_fwd_mma,
+               lib.fat_sparse_fwd_sm90, lib.fat_sparse_fwd_sm90_f32):
         fn.restype = ctypes.c_int
         fn.argtypes = [p] * 7 + _SHAPE_ARGTYPES + [i, i, p]
 
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.fat_sparse_bwd, lib.fat_sparse_bwd_sm90,
-               lib.fat_sparse_bwd_sm90_f32):
+    for fn in (lib.fat_sparse_bwd, lib.fat_sparse_bwd_mma,
+               lib.fat_sparse_bwd_sm90, lib.fat_sparse_bwd_sm90_f32):
         fn.restype = ctypes.c_int
         fn.argtypes = [p] * 13 + _SHAPE_ARGTYPES + [i, i, i, p]
     # the fp32 route takes its scratch and query-head splits (used above
-    # D = 128) last
+    # D = 128) last, the mma route its scratch and its dK/dV chunks
     lib.fat_sparse_bwd_sm90_f32.argtypes = ([p] * 13 + _SHAPE_ARGTYPES
                                             + [i, i, i, p, p, i])
+    lib.fat_sparse_bwd_mma.argtypes = ([p] * 13 + _SHAPE_ARGTYPES
+                                       + [i, i, i, p, p, i, i])
 
 
 # ---------------------------------------------------------------------------
@@ -416,3 +496,5 @@ sparse_attention.fwd_launches = 0
 sparse_attention.bwd_launches = 0
 sparse_attention.fwd_tc_launches = 0
 sparse_attention.bwd_tc_launches = 0
+sparse_attention.fwd_mma_launches = 0
+sparse_attention.bwd_mma_launches = 0

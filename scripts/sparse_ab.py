@@ -83,8 +83,8 @@ def main() -> int:
         grads = [torch.empty_like(x) for x in (q, k, v)]
         shape_args = sa._shape_args(q, k, sp)
         code = fa._DTYPE_CODE[dtype]
-        fwd_fn = getattr(libs["sparse_fwd"], sa._entry("fwd", dtype, True))
-        bwd_fn = getattr(libs["sparse_bwd"], sa._entry("bwd", dtype, True))
+        fwd_fn = getattr(libs["sparse_fwd"], sa._entry("fwd", dtype, "tc"))
+        bwd_fn = getattr(libs["sparse_bwd"], sa._entry("bwd", dtype, "tc"))
         # an fp32 backward that takes a scratch and query-head splits last
         # (unused at D <= 128) gets them
         more = []

@@ -1590,6 +1590,22 @@ SPARSE_CASES = {
     "p_fp32_d136_gqa_ragged": ((1, 4, 2, 320, 448, 136), torch.float32, True,
                                (64, 128), local_global(5)[:, :4]
                                & (torch.arange(5) != 2)[:, None], True),
+    # bf16 with blocks that are not multiples of 64 on the mma kernels: the
+    # model call at blocks 32 x 32 (chip_smoke.py's case (o) at N = 1024);
+    # 16 x 16 at D = 128 with GQA (case (p) cut); 32 x 32 at D = 256 with
+    # one KV head (case (q) cut: the dK/dV warps split the head dim); and
+    # 24 x 40 at D = 136 with GQA, N_q != N_k, an emptied q-block row and
+    # an LSE cotangent (case (r) cut: slices past a block's end, partial
+    # sub-tiles, a column block past D)
+    "q_bf16_model_b32": ((2, 12, 12, 1024, 1024, 64), torch.bfloat16, True,
+                         (32, 32), local_global(32, width=16), False),
+    "r_bf16_b16_d128_gqa": ((1, 8, 2, 512, 512, 128), torch.bfloat16, True,
+                            (16, 16), local_global(32, width=8), False),
+    "s_bf16_b32_d256_mqa": ((1, 8, 1, 512, 512, 256), torch.bfloat16, True,
+                            (32, 32), local_global(16), True),
+    "t_bf16_b24x40_d136": ((1, 4, 2, 200, 328, 136), torch.bfloat16, True,
+                           (24, 40), random_pattern(9, 9, 0.5, 3, seed=2),
+                           True),
 }
 # The cases the tensor-core route takes; the others stay on the FMA kernels.
 SPARSE_TENSOR_CORE = {"a_model", "b_d128", "c_gqa_ragged", "d_nq_ne_nk",
@@ -1598,6 +1614,9 @@ SPARSE_TENSOR_CORE = {"a_model", "b_d128", "c_gqa_ragged", "d_nq_ne_nk",
                       "k_bf16_d136_gqa_ragged", "l_bf16_d256_gqa12",
                       "m_fp32_d128_gqa_ragged", "n_fp32_model",
                       "o_fp32_d256_mqa", "p_fp32_d136_gqa_ragged"}
+# The cases the mma kernels take (bf16, blocks not both multiples of 64).
+SPARSE_MMA = {"i_bf16_blocks_48_80", "q_bf16_model_b32", "r_bf16_b16_d128_gqa",
+              "s_bf16_b32_d256_mqa", "t_bf16_b24x40_d136"}
 
 
 def _sparse_case(name, device):
@@ -1617,7 +1636,7 @@ def _sparse_case(name, device):
 def _sparse_counts(sa):
     c = sa.sparse_attention
     return (c.fwd_launches, c.bwd_launches, c.fwd_tc_launches,
-            c.bwd_tc_launches)
+            c.bwd_tc_launches, c.fwd_mma_launches, c.bwd_mma_launches)
 
 
 @pytest.mark.cuda
@@ -1651,28 +1670,33 @@ def test_sparse_kernels_match_plain(cuda_device, case):
     unvisited = (~active.any(0)).repeat_interleave(spec.block_k)[:k.shape[2]]
     for g in grads[1:]:
         assert not g[:, :, unvisited].any()
-    tc = int(case in SPARSE_TENSOR_CORE)
+    tc, mma = int(case in SPARSE_TENSOR_CORE), int(case in SPARSE_MMA)
     assert tc == sa._tensor_core_route(q.dtype, q.shape[3], spec)
+    assert mma == sa._mma_route(q.dtype, q.shape[3], spec)
     after = _sparse_counts(sa)
-    assert tuple(x - y for x, y in zip(after, before)) == (1, 1, tc, tc)
+    assert tuple(x - y for x, y in zip(after, before)) == (1, 1, tc, tc, mma,
+                                                            mma)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["a_model", "j_bf16_d256_masked_rows",
                                   "m_fp32_d128_gqa_ragged", "n_fp32_model",
-                                  "o_fp32_d256_mqa"])
+                                  "o_fp32_d256_mqa", "s_bf16_b32_d256_mqa"])
 def test_sparse_backward_is_deterministic(cuda_device, case):
     """The tensor-core sparse backward at the model case and at D = 256 in
-    bf16, and on the fp32 (3xTF32) routes (at D = 256 with the MQA group's
-    dK/dV partials summed in split order), twice: bit-equal gradients (no
-    atomics, so no dependence on block order)."""
+    bf16, on the fp32 (3xTF32) routes (at D = 256 with the MQA group's
+    dK/dV partials summed in split order), and on the mma route at D = 256
+    (partial S^T and dP^T added across the warps that split the head dim),
+    twice: bit-equal gradients (no atomics, so no dependence on block
+    order)."""
     sa, q, k, v, do, dlse, _, spec, active = _sparse_case(case, cuda_device)
     o, lse = sa.sparse_fwd(q, k, v, active, spec)
-    t0 = sa.sparse_attention.bwd_tc_launches
+    route = "mma" if case in SPARSE_MMA else "tc"
+    t0 = getattr(sa.sparse_attention, f"bwd_{route}_launches")
     first = sa.sparse_bwd(q, k, v, o, lse, do, dlse, active, spec)
     second = sa.sparse_bwd(q, k, v, o, lse, do, dlse, active, spec)
     torch.cuda.synchronize()
-    assert sa.sparse_attention.bwd_tc_launches - t0 == 2
+    assert getattr(sa.sparse_attention, f"bwd_{route}_launches") - t0 == 2
     for name, x, y in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(x, y), name
 
@@ -1691,6 +1715,31 @@ def test_sparse_tensor_core_failure_raises(cuda_device, monkeypatch, part,
     class Lib:  # the tensor-core entries fail (cudaErrorInvalidValue)
         def __getattr__(self, name):
             if "_sm90" in name:
+                return lambda *args: 1
+            return lambda *args: calls.append(name) or 0
+
+    monkeypatch.setattr(sa._build, "load_kernel", lambda name, declare: Lib())
+    with pytest.raises(RuntimeError, match=f"sparse_{part} launch"):
+        if part == "fwd":
+            sa.sparse_fwd(q, k, v, active, spec)
+        else:
+            sa.sparse_bwd(q, k, v, q, torch.zeros_like(q[..., 0]).float(), do,
+                          dlse, active, spec)
+    assert calls == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", ["fwd", "bwd"])
+def test_sparse_mma_failure_raises(cuda_device, monkeypatch, part):
+    """An mma launch that reports an error raises; nothing falls back to
+    the FMA kernels or the plain version."""
+    sa, q, k, v, do, dlse, _, spec, active = _sparse_case("q_bf16_model_b32",
+                                                          cuda_device)
+    calls = []
+
+    class Lib:  # the mma entries fail (cudaErrorInvalidValue)
+        def __getattr__(self, name):
+            if name.endswith("_mma"):
                 return lambda *args: 1
             return lambda *args: calls.append(name) or 0
 

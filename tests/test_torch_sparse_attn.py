@@ -76,6 +76,23 @@ CASES = {
     # (D = 256, one KV head) on tiles of 128, with an LSE cotangent
     "l_d256_fp32_mqa": ((1, 4, 1, 512, 512, 256), LG4, dict(causal=True),
                         True),
+    # blocks that are not multiples of 64 (the mma kernels in bf16 on the
+    # card): 16 x 16; 32 x 32 with GQA, N_q != N_k and an LSE cotangent;
+    # 24 x 40 at D = 136 with an emptied q-block row (slices past a block's
+    # end, partial key sub-tiles); 32 x 32 at D = 256 with one KV head
+    "b16_local_global": ((1, 2, 2, 128, 128, 64), LG8, dict(
+        causal=True, block_q=16, block_k=16), False),
+    "b32_gqa_nq_ne_nk": ((2, 4, 2, 96, 160, 64), [[1, 0, 1, 0, 0],
+                                                  [0, 1, 1, 1, 0],
+                                                  [1, 0, 0, 1, 1]],
+                         dict(causal=True, block_q=32, block_k=32), True),
+    "b24x40_d136_empty_row": ((1, 4, 2, 120, 160, 136),
+                              [[1, 0, 0, 1], [0, 0, 0, 0], [1, 1, 0, 0],
+                               [0, 1, 1, 0], [1, 0, 1, 1]],
+                              dict(causal=True, block_q=24, block_k=40),
+                              False),
+    "b32_d256_mqa": ((1, 4, 1, 128, 128, 256), LG4, dict(
+        causal=True, block_q=32, block_k=32), True),
 }
 
 
@@ -210,6 +227,19 @@ ROUTES = [
 
 
 @pytest.mark.parametrize("dtype,d,blocks,tc", ROUTES)
+def test_mma_route(dtype, d, blocks, tc):
+    """bf16 up to D = 256 with blocks that are not both multiples of 64
+    takes the mma kernels; fp32 at such blocks keeps the FMA kernels, and
+    no call takes two routes."""
+    spec = sa.SparseSpec(causal=True, scale=0.125, block_q=blocks[0],
+                         block_k=blocks[1])
+    want = dtype == torch.bfloat16 and not tc
+    assert sa._mma_route(dtype, d, spec) is want
+    assert sa._route(dtype, d, spec) == ("tc" if tc else
+                                         "mma" if want else "fma")
+
+
+@pytest.mark.parametrize("dtype,d,blocks,tc", ROUTES)
 def test_tensor_core_route(dtype, d, blocks, tc):
     """With both blocks multiples of 64, bf16 and fp32 (3xTF32; above D =
     128 the wide kernels) up to D = 256 take the tensor-core kernels; other
@@ -237,18 +267,52 @@ ROUTE_KERNELS = [
         "sparse_bwd_dq_sm90_kernel"}),
     (torch.float32, 256, (96, 80), 1, {
         "sparse_fwd_kernel", "sparse_bwd_dkv_kernel", "sparse_bwd_dq_kernel"}),
+    # bf16 with blocks that are not both multiples of 64: the mma kernels,
+    # with the sum of the dK/dV partials where a KV block's walk is cut
+    # into chunks
+    (torch.bfloat16, 64, (32, 32), 1, {
+        "sparse_fwd_mma_kernel", "sparse_bwd_dkv_mma_kernel",
+        "sparse_bwd_dq_mma_kernel"}),
+    (torch.bfloat16, 256, (128, 32), 8, {
+        "sparse_fwd_mma_kernel", "sparse_bwd_dkv_mma_kernel",
+        "sparse_bwd_dq_mma_kernel", "sparse_bwd_sum_mma_kernel"}),
+    (torch.bfloat16, 136, (24, 40), 1, {
+        "sparse_fwd_mma_kernel", "sparse_bwd_dkv_mma_kernel",
+        "sparse_bwd_dq_mma_kernel"}),
 ]
 
 
 @pytest.mark.parametrize("dtype,d,blocks,splits,want", ROUTE_KERNELS)
 def test_route_kernels(dtype, d, blocks, splits, want):
     """fp32 above D = 128 names the wide kernels and the split of the
-    backward's B operands, and the sum of the dK/dV partials where a KV
-    head's query heads are split over CTAs; the other routes their three
-    kernels."""
+    backward's B operands and the sum of the dK/dV partials where a KV
+    head's query heads are split over CTAs, the mma route the sum of its
+    partials where a KV block's walk is cut into chunks; the other routes
+    their three kernels."""
     spec = sa.SparseSpec(causal=True, scale=0.0625, block_q=blocks[0],
                          block_k=blocks[1])
     assert sa.route_kernels(dtype, d, spec, kv_splits=splits) == want
+
+
+# (B, H, H_kv, N, D, block_q) -> (chunk_len, chunks)
+@pytest.mark.parametrize("b,h,h_kv,n,d,block_q,want", [
+    (2, 12, 12, 4096, 64, 32, (16, 8)),   # phase 7f: the global column in 8
+    (1, 8, 1, 4096, 256, 32, (16, 64)),   # chip_smoke.py's case (q): MQA
+    (1, 8, 2, 2048, 128, 16, (32, 16)),   # case (p): blocks of 16, GQA 8/2
+    (2, 8, 2, 384, 136, 24, (16, 4)),     # case (r): 2 steps an entry
+    (1, 4, 2, 200, 64, 32, (14, 1)),      # every walk in one chunk
+    (2, 12, 12, 16384, 64, 32, (256, 2)),  # the partials' budget: longer
+])
+def test_mma_dkv_chunks(b, h, h_kv, n, d, block_q, want):
+    """The mma dK/dV kernel cuts a KV block's walk of (query head, q block)
+    entries into chunks of 32 16-row steps, enough chunks for the longest
+    walk the pattern allows (every q block, every head of the group), and
+    no more than the fp32 partials of ``MMA_SCRATCH_BYTES`` allow."""
+    k_numel = b * h_kv * n * d
+    chunk_len, chunks = sa._mma_chunks(h, h_kv, n, block_q, k_numel)
+    assert (chunk_len, chunks) == want
+    assert chunk_len * chunks >= h // h_kv * -(-n // block_q)
+    assert chunks == 1 or 8 * chunks * k_numel <= sa.MMA_SCRATCH_BYTES
 
 
 @pytest.mark.parametrize("kv_heads,n_k,group,want", [

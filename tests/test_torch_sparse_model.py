@@ -1,5 +1,6 @@
 """The port's model with a block-sparse pattern against the JAX package's,
-on the CPU in float32 at a tiny width (block_size 16, N = 64: 4 x 4 tiles),
+on the CPU in float32 at a tiny width (block_size 16, N = 64: 4 x 4 tiles;
+block_size 32: 2 x 2),
 weights carried across by ``params_from_jax``: logits, loss and gradients,
 the soft-capped dense-mask fallback, dropout with a pattern, both remat
 policies, and the errors of a pattern with a window or segment ids.
@@ -48,6 +49,8 @@ CASES = {
     "softcap_fallback": (dict(attn_softcap=3.0), [[1, 0], [1, 1]]),
     # head dim 256 (the D-split sparse kernels on the card), one KV head
     "d256_mqa_rope": (dict(D256), [[1, 0], [1, 1]]),
+    # blocks of 32 (the mma kernels on the card in bf16): 2 x 2 tiles
+    "block32": (dict(block_size=32), [[1, 0], [1, 1]]),
 }
 
 
@@ -128,10 +131,12 @@ def _port_loss(params, cfg, toks, pattern, **kw):
     return token_nll(logits, t[:, 1:]).mean()
 
 
-@pytest.mark.parametrize("case", ["learned", "gqa_rope", "d256_mqa_rope"])
+@pytest.mark.parametrize("case", ["learned", "gqa_rope", "d256_mqa_rope",
+                                  "block32_gqa"])
 def test_sparse_loss_and_grads_match_jax(case):
     over = {"learned": {}, "gqa_rope": dict(n_kv_heads=2, pos_encoding="rope"),
-            "d256_mqa_rope": D256}[case]
+            "d256_mqa_rope": D256,
+            "block32_gqa": dict(n_kv_heads=2, block_size=32)}[case]
     pattern = _pattern([[1, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 1]])
     jcfg = jax_config(**over)
     jp = init_transformer(jax.random.key(1), jcfg)
