@@ -26,10 +26,13 @@ Phases, in order; any failure exits nonzero:
    a KV head; 15 on the tensor-core walk, which must also show HMMA,
    mma.sync) must show
    UBLKCP (1-D bulk copies) and spill nothing, as must the first paged
-   kernel's 36 D = 256 instantiations and the 4 merge kernels; the 15
-   sparse mma kernels (forward and dQ at D 64, 128 and 256 with 16- and
-   32-key sub-tiles, dK/dV at D 64, 128 and 256) must show HMMA and spill
-   nothing, as must the sum of the dK/dV chunks (no HMMA); the 20 append
+   kernel's 36 D = 256 instantiations and the 4 merge kernels; the 29
+   sparse mma kernels (bf16: forward and dQ at D 64, 128 and 256 with 16-
+   and 32-key sub-tiles, dK/dV at D 64, 128 and 256; fp32 on 3xTF32: the
+   forward likewise, dQ at D 64 and 128 with 16- and 32-key sub-tiles and
+   at 256 with 16, dK/dV at D 64, 128 and 256) must show HMMA and spill
+   nothing, as must the sum of the dK/dV chunks in bf16 and fp32 (no
+   HMMA); the 20 append
    kernels must
    spill nothing, and those of 8 elements a lane show 16-byte loads
    (LDG.E.128).
@@ -90,7 +93,7 @@ Phases, in order; any failure exits nonzero:
    timed beside the FMA kernel on the same inputs, plus
    its straight-through backward (o and
    gradients at the bf16 flash limit: p is bf16 on the 8-bit path). The
-   block-sparse forward (sparse_fwd) and backward (sparse_bwd) in eighteen
+   block-sparse forward (sparse_fwd) and backward (sparse_bwd) in twenty-one
    cases, each launched once on the route it must take (checked by the
    route counters): the model phase's call (2, 12, 4096, 64) and the
    BASELINE head dim (1, 8, 8192, 128) with the local + global pattern,
@@ -108,25 +111,30 @@ Phases, in order; any failure exits nonzero:
    q-block row and an LSE cotangent (j); fp32 at D = 256 on the wide
    3xTF32 kernels, GQA 8/2 at (1, 8, 2, 1024, 1024, 256) (k), phase 7e's
    call (1, 8, 1, 4096, 4096, 256) (l: MQA, the dK/dV kernel's query-head
-   split and the sum of its partials) and case (f) in fp32 (m); and the
-   FMA route left, blocks 96 x 80 at D = 256 in fp32 with GQA (n); in bf16
+   split and the sum of its partials) and case (f) in fp32 (m); in bf16
    with blocks that are not multiples of 64, on the mma kernels, phase
    7f's call (2, 12, 4096, 64) at blocks 32 x 32 with the local + global
    pattern at width 16 (o), GQA 8/2 at (1, 8, 2, 2048, 2048, 128) with
    blocks 16 x 16 at width 32 (p), phase 7b's MQA call at blocks 32 x 32
-   and width 16 (q) and case (f)'s edges at blocks 24 x 40 (r); the fp32
-   cases (c), (i)-(n) and the mma cases (o), (q) also name their kernels
-   under torch.profiler (those of the route, with the wide route's split
-   and sum, checked). o and
+   and width 16 (q) and case (f)'s edges at blocks 24 x 40 (r); in fp32
+   with such blocks, on the fp32 mma kernels (3xTF32 on m16n8k8), blocks
+   96 x 80 at D = 256 with GQA (n), phase 7g's call (s: case (o) in fp32),
+   phase 7e's MQA call at blocks 32 x 32 and width 16 (t: case (q) in
+   fp32) and case (r) in fp32 (u); the fp32 cases (c), (i)-(n), (s)-(u)
+   and the mma cases (o), (q) also name their kernels under
+   torch.profiler (those of the route, with the wide route's split and
+   sum and the mma route's sum of its chunks, checked). o and
    gradients at the flash limit (fp32 1e-4), LSE
    at 1e-4 where a row sees a key, -inf exactly on empty q blocks and the mask
    value exactly on rows of visited blocks that see no key, dK = dV = 0
    exactly on KV blocks no q block visits; bounds from the pairs the
    pattern keeps; times of the wrapper (which builds the lists on the
    device, and di in the backward), also issued from the host, and of the
-   kernels alone with the lists built beforehand, for the tensor-core and
-   mma cases also of the FMA kernels on the same inputs (fp32: with their
-   bound at 67 TFLOP/s beside the route's at 165); SDPA with the expanded
+   kernels alone with the lists built beforehand, and of the FMA kernels
+   on the same inputs, which no call takes any more (fp32: with their
+   bound at 67 TFLOP/s beside the route's at 165); both launched alone
+   are first held against the plain version at the case's limits; SDPA
+   with the expanded
    boolean mask as the library call (a yardstick where a row sees no key;
    fp32 with TF32 off).
 3. The serving engine at GPT-3 Small widths (TransformerConfig defaults,
@@ -239,6 +247,15 @@ Phases, in order; any failure exits nonzero:
    the step's kernels reported); card vs CPU at N=512 (block 32) at the
    bf16 training rung and the all-ones pattern against the flash route.
    Sparse case (o) holds these kernels at this call's shape.
+7g. Phase 7f in fp32 (dtype and parameters), so every attention call runs
+   the fp32 mma kernels (3xTF32 on m16n8k8): exactly 12 sparse_fwd per
+   no-grad forward, 24 sparse_fwd and 12 sparse_bwd per step, all on the
+   mma route (none on the tensor-core kernels, the FMA kernels or the bf16
+   mma ones, whose names the profile would show), no flash launch; a
+   profiled step whose sparse kernels must be the fp32 mma ones with the
+   sum of the dK/dV chunks (their share of the step's kernels reported);
+   card vs CPU at N=512 and the all-ones pattern against the flash route
+   at 1e-4. Sparse case (s) holds these kernels at this call's shape.
 8. The speculative engine: phase 3's config with spec_gamma=4, 32 requests
    of 32-400-token prompts (phase 3's draws), 32 new tokens each, in three
    arms, each after a warm-up engine: plain (no draft; the reference
@@ -341,10 +358,12 @@ and (h) beside them; ``sparse_fwd[fp32]`` and ``sparse_bwd[fp32]``:
 launches of phase 7d's steps, numbers of sparse case (i), phase 7d's call,
 with cases (c) and (j) beside them; ``sparse_fwd[fp32_d256]`` and
 ``sparse_bwd[fp32_d256]``: launches of phase 7e's steps, numbers of sparse
-case (l), phase 7e's call, with cases (k), (m) and (n) beside them;
+case (l), phase 7e's call, with cases (k) and (m) beside them;
 ``sparse_fwd[mma]`` and ``sparse_bwd[mma]``: launches of phase 7f's steps,
 numbers of sparse case (o), phase 7f's call, with cases (p), (q) and (r)
-beside them).
+beside them; ``sparse_fwd[f32_mma]`` and ``sparse_bwd[f32_mma]``: launches
+of phase 7g's steps, numbers of sparse case (s), phase 7g's call, with
+cases (n), (t) and (u) beside them).
 ``--cpu-rehearsal`` skips phases 1-2, runs the others at a tiny width on
 the CPU (phase 9's workers on the CPU, phase 10's rank over gloo) and
 never prints the device line.
@@ -1230,8 +1249,7 @@ SPARSE_CASES = {
     # two dK/dV CTAs, GQA, N_q != N_k, an emptied q-block row, an LSE
     # cotangent); then fp32 at D = 256 on the wide kernels (k), (l) (phase
     # 7e's call: MQA, 8 dK/dV CTAs a KV block, partials summed) and (m)
-    # (case (f) in fp32: D = 136, the edges above); and the FMA route left,
-    # blocks that are not multiples of 64 (n)
+    # (case (f) in fp32: D = 136, the edges above)
     "i": ("phase 7d's call (2, 12, 4096, 64) fp32 causal, local+global on "
           "32 x 32 tiles of 128", (2, 12, 12, 4096, 4096, 64), FP32, True,
           (128, 128), local_global(32, 32), False),
@@ -1249,10 +1267,6 @@ SPARSE_CASES = {
           "local+global with q-block row 2 emptied, LSE cotangent",
           (2, 8, 2, 384, 512, 136), FP32, True, (64, 128),
           emptied(local_global(6, 4), 2), True),
-    "n": ("GQA 8/2 (1, 8, 2, 1000, 1000, 256) fp32 causal, blocks 96 x 80, "
-          "random density 0.4 with an empty q-block row (the FMA route)",
-          (1, 8, 2, 1000, 1000, 256), FP32, True, (96, 80),
-          random_pattern(11, 13, 0.4, 3, SEED), False),
     # bf16 with blocks that are not multiples of 64, on the mma kernels
     # (16-row slices anchored at each block's start): phase 7f's call (o);
     # blocks of 16 at D = 128 with GQA (p); phase 7b's MQA call at blocks
@@ -1273,13 +1287,31 @@ SPARSE_CASES = {
           "local+global with q-block row 2 emptied, LSE cotangent",
           (2, 8, 2, 384, 512, 136), BF16, True, (24, 40),
           emptied(local_global(16, 13), 2), True),
+    # fp32 with blocks that are not multiples of 64, on the fp32 mma
+    # kernels (3xTF32 on m16n8k8): blocks 96 x 80 at D = 256 with GQA (n,
+    # the FMA route until the fp32 mma kernels); phase 7g's call (s: case
+    # (o) in fp32); phase 7e's MQA call at blocks of 32 (t: case (q) in
+    # fp32, the D split and the chunks); case (r) in fp32 (u)
+    "n": ("GQA 8/2 (1, 8, 2, 1000, 1000, 256) fp32 causal, blocks 96 x 80, "
+          "random density 0.4 with an empty q-block row",
+          (1, 8, 2, 1000, 1000, 256), FP32, True, (96, 80),
+          random_pattern(11, 13, 0.4, 3, SEED), False),
+    "s": ("phase 7g's call (2, 12, 4096, 64) fp32 causal, local+global width "
+          "16 on 128 x 128 tiles of 32", (2, 12, 12, 4096, 4096, 64), FP32,
+          True, (32, 32), local_global(128, 128, 16), False),
+    "t": ("phase 7e's call (1, 8, 1, 4096, 4096, 256) fp32 causal at blocks "
+          "32 x 32, local+global width 16", (1, 8, 1, 4096, 4096, 256),
+          FP32, True, (32, 32), local_global(128, 128, 16), False),
+    "u": ("GQA 8/2, N_q 384 != N_k 512, D=136 fp32 causal, blocks 24 x 40, "
+          "local+global with q-block row 2 emptied, LSE cotangent",
+          (2, 8, 2, 384, 512, 136), FP32, True, (24, 40),
+          emptied(local_global(16, 13), 2), True),
 }
 # the cases whose kernels are named by the profiler (sa.route_kernels)
-SPARSE_NAMED = ("c", "i", "j", "k", "l", "m", "n", "o", "q")
+SPARSE_NAMED = ("c", "i", "j", "k", "l", "m", "n", "o", "q", "s", "t", "u")
 # the route each case must take (sa._route): the other routes' counts stay 0
 SPARSE_ROUTE_NAMES = {"tc": "tensor cores (wgmma + TMA)",
-                      "mma": "mma kernels (mma.sync, 16-row slices)",
-                      "fma": "FMA"}
+                      "mma": "mma kernels (mma.sync, 16-row slices)"}
 
 
 # The sparse routes' kernels in a profile: the three of each route, the
@@ -1308,7 +1340,7 @@ def sparse_launch(q, k, v, o, lse, do, dlse, active, spec, route):
     ``fat_sparse_*_sm90[_f32]``, the mma kernels' ``fat_sparse_*_mma`` or
     the FMA kernels' ``fat_sparse_*``) with the lists and di built once
     beforehand: the kernels' own time, without the wrapper's list
-    building."""
+    building. The forward returns (o, lse), the backward [dq, dk, dv]."""
     fwd = _build.load_kernel("sparse_fwd", sa._declare_fwd)
     bwd = _build.load_kernel("sparse_bwd", sa._declare_bwd)
     fwd_fn = getattr(fwd, sa._entry("fwd", q.dtype, route))
@@ -1332,6 +1364,7 @@ def sparse_launch(q, k, v, o, lse, do, dlse, active, spec, route):
             lse_out.data_ptr(), kv_list.data_ptr(), kv_count.data_ptr(),
             *sa._shape_args(q, k, spec), kv_list.shape[1], code, stream),
             "sparse fwd")
+        return o_out, lse_out
 
     def run_bwd():
         _build.check(bwd_fn(
@@ -1341,6 +1374,7 @@ def sparse_launch(q, k, v, o, lse, do, dlse, active, spec, route):
             q_count.data_ptr(), *sa._shape_args(q, k, spec),
             kv_list.shape[1], q_list.shape[1], code, stream, *more),
             "sparse bwd")
+        return grads
     run_bwd.scratch = scratch
     return run_fwd, run_bwd
 
@@ -1379,8 +1413,9 @@ def sparse_case(timer, gen, dev, key):
     key, -inf exactly on empty q blocks, the mask value exactly on rows of
     visited blocks that see no key; dK = dV = 0 exactly on KV blocks no q
     block visits), each launched once on the route it must take (checked
-    by the route counters), their times (also issued from the host, and on
-    the FMA route where the tensor cores take the case), the bound of the
+    by the route counters), their times (also issued from the host, and of
+    the kernels alone and the FMA kernels on the same inputs, each first
+    held against the plain version likewise), the bound of the
     pairs the pattern keeps, and SDPA with the expanded boolean mask."""
     label, shape, dtype, causal, (bq, bk), pattern, use_dlse = SPARSE_CASES[key]
     q, k, v, do, dlse, _ = _flash_inputs(gen, dev, shape, dtype,
@@ -1396,16 +1431,40 @@ def sparse_case(timer, gen, dev, key):
     o, lse = sa.sparse_fwd(q, k, v, active, spec)
     torch.cuda.synchronize()
     o_ref, lse_ref = sa.sparse_fwd_plain(q, k, v, active, spec)
-    tols = {"o": kernel_tol(dtype, o_ref)}
-    err = {"o": check_close(f"sparse_fwd {key} o", o, o_ref, *tols["o"])}
     empty = torch.isneginf(lse_ref)
-    if not torch.equal(torch.isneginf(lse), empty):
-        fail(f"sparse_fwd {key}: -inf LSE rows differ from the plain version's")
     seen = lse_ref > -1e30
-    if not torch.equal(lse[~seen & ~empty], lse_ref[~seen & ~empty]):
-        fail(f"sparse_fwd {key}: rows that see no key differ in LSE")
-    err["lse"] = check_close(f"sparse_fwd {key} lse", lse[seen], lse_ref[seen],
-                             LSE_TOL)
+    unvisited = (~active.any(0)).repeat_interleave(bk)[:n_k]
+
+    def plain_bwd():
+        di = (o_ref.float() * do.float()).sum(-1)
+        if dlse is not None:
+            di = di - dlse
+        return sa.sparse_bwd_plain(q, k, v, do, lse_ref, di, active, spec)
+
+    refs = dict(zip(("dq", "dk", "dv"), plain_bwd()))
+    tols = {"o": kernel_tol(dtype, o_ref),
+            **{n: kernel_tol(dtype, r) for n, r in refs.items()}}
+
+    def hold(tag, o_out, lse_out, grads_out):
+        """{output: max |kernel - plain|} of one forward's (o, lse) and one
+        backward's gradients at the case's limits; fails on a miss."""
+        err = {"o": check_close(f"{tag}sparse_fwd {key} o", o_out, o_ref,
+                                *tols["o"])}
+        if not torch.equal(torch.isneginf(lse_out), empty):
+            fail(f"{tag}sparse_fwd {key}: -inf LSE rows differ from the plain "
+                 "version's")
+        if not torch.equal(lse_out[~seen & ~empty], lse_ref[~seen & ~empty]):
+            fail(f"{tag}sparse_fwd {key}: rows that see no key differ in LSE")
+        err["lse"] = check_close(f"{tag}sparse_fwd {key} lse", lse_out[seen],
+                                 lse_ref[seen], LSE_TOL)
+        for (name, r), g in zip(refs.items(), grads_out):
+            err[name] = check_close(f"{tag}sparse_bwd {key} {name}", g, r,
+                                    *tols[name])
+        if any(bool(g[:, :, unvisited].any()) for g in grads_out[1:]):
+            fail(f"{tag}sparse_bwd {key}: dK or dV is nonzero on an unvisited "
+                 "KV block")
+        return err
+
     grads = sa.sparse_bwd(q, k, v, o_ref, lse_ref, do, dlse, active, spec)
     torch.cuda.synchronize()
     c = read_counts()
@@ -1416,19 +1475,7 @@ def sparse_case(timer, gen, dev, key):
         fail(f"sparse {key}: launches {c}; want the "
              f"{SPARSE_ROUTE_NAMES[route_key]} route once each way")
     route = SPARSE_ROUTE_NAMES[route_key]
-
-    def plain_bwd():
-        di = (o_ref.float() * do.float()).sum(-1)
-        if dlse is not None:
-            di = di - dlse
-        return sa.sparse_bwd_plain(q, k, v, do, lse_ref, di, active, spec)
-
-    for name, g, r in zip(("dq", "dk", "dv"), grads, plain_bwd()):
-        tols[name] = kernel_tol(dtype, r)
-        err[name] = check_close(f"sparse_bwd {key} {name}", g, r, *tols[name])
-    unvisited = (~active.any(0)).repeat_interleave(bk)[:n_k]
-    if any(bool(g[:, :, unvisited].any()) for g in grads[1:]):
-        fail(f"sparse_bwd {key}: dK or dV is nonzero on an unvisited KV block")
+    err = hold("", o, lse, grads)
     del grads
     big = n_q * n_k * shape[1] * shape[0] > 2 ** 27
     fwd_call = lambda: sa.sparse_fwd(q, k, v, active, spec)
@@ -1443,12 +1490,18 @@ def sparse_case(timer, gen, dev, key):
         bwd_wall_ms=timer.wall(bwd_call),
         bwd_plain_ms=timer(plain_bwd, reps=3 if big else 10, warmup=1),
     )
-    # the kernels alone (lists and di built beforehand), and for the
-    # tensor-core and mma cases the FMA kernels on the same inputs
-    for which in ("kernel", "fma") if route_key != "fma" else ("kernel",):
+    # the kernels alone (lists and di built beforehand), and the FMA kernels
+    # (on no route) on the same inputs, each held against the plain version
+    # at the case's limits before it is timed
+    for which in ("kernel", "fma"):
         run_fwd, run_bwd = sparse_launch(
             q, k, v, o_ref, lse_ref, do, dlse, active, spec,
             route_key if which == "kernel" else "fma")
+        out = [*run_fwd(), run_bwd()]
+        torch.cuda.synchronize()
+        t[f"{which}_max_abs_err"] = hold(
+            "kernels alone: " if which == "kernel" else "FMA kernels: ", *out)
+        del out
         reps = 30 if which == "kernel" else 10
         t[f"fwd_{which}_ms"] = timer(run_fwd, reps=reps)
         t[f"bwd_{which}_ms"] = timer(run_bwd, reps=reps)
@@ -1471,12 +1524,10 @@ def sparse_case(timer, gen, dev, key):
         leaves, do))
     del o_lib, leaves
     pairs = int(vis.sum()) * shape[0] * shape[1]
-    # the route's rate: bf16 or 3xTF32 wgmma, bf16 mma.sync, or fp32 FMAs;
-    # where fp32 takes the tensor cores, the FMA route's bound at 67 TFLOP/s
-    # beside it
-    bounds = attention_bounds(q, k, pairs, dlse, flash_peak(dtype)
-                              if route_key != "fma" else FP32_FLOPS_PER_S)
-    if tc and dtype == torch.float32:
+    # the route's rate: bf16 or 3xTF32 (wgmma or mma.sync); for fp32 the
+    # FMA kernels' bound at 67 TFLOP/s beside it
+    bounds = attention_bounds(q, k, pairs, dlse, flash_peak(dtype))
+    if dtype == torch.float32:
         fma_bounds = attention_bounds(q, k, pairs, dlse, FP32_FLOPS_PER_S)
         t["fwd_fma_bound_ms"] = fma_bounds["fwd"][0]
         t["bwd_fma_bound_ms"] = fma_bounds["bwd"][0]
@@ -1505,8 +1556,9 @@ def sparse_case(timer, gen, dev, key):
         f"max_abs_err " + " ".join(f"{n} {e:.2e}" for n, e in err.items())
         + f" ({tol_text(dtype)}; lse {LSE_TOL:g} abs+rel, -inf and "
         f"mask-value rows exact)")
-    fma = (f"; FMA kernels fwd {t['fwd_fma_ms']:.4f} bwd "
-           f"{t['bwd_fma_ms']:.4f}" if route_key != "fma" else "")
+    fma = (f"; FMA kernels fwd {t['fwd_fma_ms']:.4f} bwd {t['bwd_fma_ms']:.4f}"
+           " (max_abs_err " + " ".join(
+               f"{n} {e:.2e}" for n, e in t["fma_max_abs_err"].items()) + ")")
     if "fwd_fma_bound_ms" in t:
         fma += (f" (their bound at {FP32_FLOPS_PER_S / 1e12:g} TFLOP/s: fwd "
                 f"{t['fwd_fma_bound_ms']:.4f} bwd {t['bwd_fma_bound_ms']:.4f})")
@@ -2919,7 +2971,7 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
     pattern = local_global(n_tiles, n_tiles, width).to(dev)
     route = sa._route(cfg.dtype, cfg.d_head, sa.SparseSpec(
         True, 1.0, cfg.block_size, cfg.block_size))
-    route_name = {"tc": "tensor-core", "mma": "mma", "fma": "FMA"}[route]
+    route_name = {"tc": "tensor-core", "mma": "mma"}[route]
     toks = torch.from_numpy(np.random.default_rng(SEED + 6).integers(
         0, cfg.vocab_size, size=(b, n + 1))).to(dev)
     reach = sa.tile_pattern(pattern, n_tiles, n_tiles, cfg.block_size,
@@ -3873,12 +3925,13 @@ def sass_report(dumps):
     return out
 
 
-# The mma kernels of the sparse libraries (bf16, blocks not both multiples
-# of 64): the forward and dQ at D 64, 128 and 256, each with 16- and 32-key
-# sub-tiles, dK/dV at D 64, 128 and 256 (at 256 two warps a key slice,
-# each holding half of the head dim), and the sum of the dK/dV chunks,
-# which only adds (no HMMA).
-MMA_KERNELS = {"sparse_fwd": 6, "sparse_bwd": 10}
+# The mma kernels of the sparse libraries (blocks not both multiples of
+# 64): in bf16 the forward and dQ at D 64, 128 and 256, each with 16- and
+# 32-key sub-tiles, dK/dV at D 64, 128 and 256 (at 256 two warps a key
+# slice, each holding half of the head dim); in fp32 (3xTF32) the same but
+# dQ at D = 256 with 16-key sub-tiles only; and the sum of the dK/dV chunks
+# in each dtype, which only adds (no HMMA).
+MMA_KERNELS = {"sparse_fwd": 12, "sparse_bwd": 19}
 
 
 def mma_report(dumps):
@@ -3987,6 +4040,10 @@ def main() -> int:
         report["sparse_model_b32"] = phase_sparse_model(
             dataclasses.replace(cfg, block_size=8), "cpu", False, b=2,
             n=128, check_n=64, tag="sparse_b32", width=16)
+        report["sparse_model_b32_fp32"] = phase_sparse_model(
+            dataclasses.replace(cfg, block_size=8, dtype=torch.float32),
+            "cpu", False, b=2, n=128, check_n=64, tag="sparse_b32_fp32",
+            width=16, tol=FP32_TOL, logits_tol=FP32_TOL)
         draft = dataclasses.replace(cfg, n_layers=1)
         report["spec"] = phase_spec(
             cfg, params, ecfg, "cpu", 8, (8, 60), 8,
@@ -4204,6 +4261,17 @@ def main() -> int:
     report["sparse_model_b32"]["phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
+    # Phase 7g: phase 7f in fp32 (dtype and parameters), every attention
+    # call on the fp32 mma kernels (3xTF32 on m16n8k8); card vs CPU and the
+    # all-ones pattern at the fp32 rung
+    t0 = time.perf_counter()
+    report["sparse_model_b32_fp32"] = phase_sparse_model(
+        dataclasses.replace(scfg, dtype=torch.float32, block_size=32), dev,
+        True, b=2, n=4096, check_n=512, tag="sparse_b32_fp32", width=16,
+        tol=FP32_TOL, logits_tol=FP32_TOL)
+    report["sparse_model_b32_fp32"]["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
     # Phase 8: the speculative engine, phase 3's config with gamma 4; the
     # floor's draft is GPT-3 Small at 2 layers
     t0 = time.perf_counter()
@@ -4280,7 +4348,8 @@ def main() -> int:
         f"{report['dense_fp32']['phase_s']:.1f} s, phase 7d "
         f"{report['sparse_model_fp32']['phase_s']:.1f} s, phase 7e "
         f"{report['sparse_model_d256_fp32']['phase_s']:.1f} s, phase 7f "
-        f"{report['sparse_model_b32']['phase_s']:.1f} s, "
+        f"{report['sparse_model_b32']['phase_s']:.1f} s, phase 7g "
+        f"{report['sparse_model_b32_fp32']['phase_s']:.1f} s, "
         f"phase 8 {report['spec']['phase_s']:.1f} s, phase 9 "
         f"{report['multihost']['phase_s']:.1f} s, phase 10 "
         f"{report['cp']['phase_s']:.1f} s, phase 11 "
@@ -4700,19 +4769,19 @@ def main() -> int:
     # 7e's call (MQA: the dK/dV kernel's query-head split and the sum of
     # its partials), with cases (k) (GQA 8/2, N = 1024, the shape of rows
     # 10g / 11g) and (m) (D = 136, blocks 64 x 128, GQA, N_q != N_k) beside
-    # them, and case (n), the FMA route left (blocks 96 x 80), each key
-    # suffixed with its case; fma_ms the FMA kernels on the same inputs with
+    # them, each key suffixed with its case; fma_ms the FMA kernels on the
+    # same inputs with
     # their bound at 67 TFLOP/s, kernel_ms the kernels alone with the lists
     # built beforehand, step_sparse_ms the sparse kernels' device time in
     # phase 7e's profiled step
-    recs = {x: report["kernels"][f"sparse_{x}"] for x in "lkmn"}
+    recs = {x: report["kernels"][f"sparse_{x}"] for x in "lkm"}
     rl = recs["l"]
     s7e = report["sparse_model_d256_fp32"]
     c = s7e["launches"]
     for name, part, errs in (("sparse_fwd", "fwd", ("o", "lse")),
                              ("sparse_bwd", "bwd", ("dq", "dk", "dv"))):
         beside = {}
-        for x in "kmn":
+        for x in "km":
             r = recs[x]
             beside.update({
                 f"{key}_{x}": r[f"{part}_{key}"]
@@ -4778,6 +4847,48 @@ def main() -> int:
             kernel_split_ms=ro.get("kernel_split_ms"),
             step_sparse_ms=s7f["profile"]["sparse_kernels_ms"],
             step_median_ms=s7f["median_step_ms"], **beside))
+    # sparse in fp32 with blocks that are not multiples of 64 (the fp32 mma
+    # kernels, 3xTF32): launches of phase 7g's forward+backward steps,
+    # numbers of sparse case (s), phase 7g's call, with cases (n) (blocks
+    # 96 x 80 at D = 256, GQA), (t) (phase 7e's MQA call at blocks of 32)
+    # and (u) (case (r) in fp32) beside them, each key suffixed with its
+    # case; fma_ms the FMA kernels on the same inputs with their bound at
+    # 67 TFLOP/s, kernel_ms the kernels alone with the lists built
+    # beforehand, step_sparse_ms the sparse kernels' device time in phase
+    # 7g's profiled step
+    recs = {x: report["kernels"][f"sparse_{x}"] for x in "sntu"}
+    rs = recs["s"]
+    s7g = report["sparse_model_b32_fp32"]
+    c = s7g["launches"]
+    for name, part, errs in (("sparse_fwd", "fwd", ("o", "lse")),
+                             ("sparse_bwd", "bwd", ("dq", "dk", "dv"))):
+        beside = {}
+        for x in "ntu":
+            r = recs[x]
+            beside.update({
+                f"{key}_{x}": r[f"{part}_{key}"]
+                for key in ("ms", "kernel_ms", "fma_ms", "fma_bound_ms",
+                            "plain_ms", "bound_ms")})
+            lib = "library" if f"library_{part}_ms" in r else "yardstick"
+            beside[f"{lib}_ms_{x}"] = r[f"{lib}_{part}_ms"]
+            beside[f"case_{x}"] = r["case"]
+            beside[f"kernel_split_ms_{x}"] = r.get("kernel_split_ms")
+        kernels.append(dict(
+            name=f"{name}[f32_mma]", **KERNELS[name], launches=c[name],
+            launches_mma=c[f"{name}_mma"],
+            max_abs_err=max(r["max_abs_err"][e] for e in errs
+                            for r in recs.values()),
+            ms=rs[f"{part}_ms"], plain_ms=rs[f"{part}_plain_ms"],
+            bound_ms=rs[f"{part}_bound_ms"],
+            bound_by=rs[f"{part}_bound_by"],
+            library_ms=rs.get(f"library_{part}_ms"),
+            yardstick_ms=rs.get(f"yardstick_{part}_ms"), case=rs["case"],
+            kernel_ms=rs[f"{part}_kernel_ms"], fma_ms=rs[f"{part}_fma_ms"],
+            fma_bound_ms=rs[f"{part}_fma_bound_ms"],
+            wall_ms=rs[f"{part}_wall_ms"],
+            kernel_split_ms=rs.get("kernel_split_ms"),
+            step_sparse_ms=s7g["profile"]["sparse_kernels_ms"],
+            step_median_ms=s7g["median_step_ms"], **beside))
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was launched no time on its main path")

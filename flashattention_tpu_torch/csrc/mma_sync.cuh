@@ -1,5 +1,6 @@
-// Warp-level tensor-core products (mma.sync m16n8k16, bf16 in, fp32
-// accumulate) and what feeds them: ldmatrix in both forms, movmatrix, bf16
+// Warp-level tensor-core products (mma.sync m16n8k16, bf16 in, and
+// m16n8k8, tf32 in, both with fp32 accumulate) and what feeds them:
+// ldmatrix in both forms, movmatrix, bf16
 // packing, the padded row stride that keeps ldmatrix free of bank conflicts,
 // and cp.async copies into shared memory. Shared by the split paged walk
 // (paged_attention.cu) and the mma route of the block-sparse kernels
@@ -9,7 +10,13 @@
 // g + 8 at columns 2tq, 2tq + 1 (a0 / a1) and 2tq + 8, 2tq + 9 (a2 / a3); B
 // (16 x 8, col) holds column g at rows 2tq, 2tq + 1 (b0) and 2tq + 8,
 // 2tq + 9 (b1); the accumulator holds row g (c0, c1) and row g + 8 (c2, c3)
-// at columns 2tq, 2tq + 1.
+// at columns 2tq, 2tq + 1. Fragments of m16n8k8 tf32: A (16 x 8) holds rows
+// g and g + 8 at columns tq (a0 / a1) and tq + 4 (a2 / a3); B (8 x 8) holds
+// column g at rows tq (b0) and tq + 4 (b1); the accumulator as m16n8k16's.
+// An 8 x 8 b16 matrix of ldmatrix is 8 rows of 4 fp32, so the non-transposed
+// ldmatrix hands each lane the fp32 at (row g, column tq): it loads tf32 A
+// fragments, and B fragments of a tile stored N-major, as it loads bf16
+// ones, a k8 step of fp32 being 32 bytes as a k16 step of bf16 is.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,6 +37,17 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
                                           uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d (16 x 8, fp32) += a (16 x 8, tf32, row) * b (8 x 8, tf32, col)
+__device__ __forceinline__ void mma_1688(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

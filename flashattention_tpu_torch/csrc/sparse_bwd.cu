@@ -31,7 +31,8 @@
 // recompute the scores (7 products per element instead of 5), the price of
 // having no atomics.
 //
-// Four routes, chosen by the caller (ops/sparse_attn.py):
+// Four routes, chosen by the caller (ops/sparse_attn.py), and the first
+// kernels, on no route:
 //
 //   fat_sparse_bwd_sm90 (bf16, D <= 256, block_q and block_k multiples of
 //     64): every product on the tensor cores (wgmma, bf16 in, fp32
@@ -111,10 +112,22 @@
 //       ring), S = q.K^T, dP = dO.V^T, dQ += round(ds).K with K by
 //       ldmatrix.trans; q and dO held in registers up to D = 128.
 //     A KV block no q block visits stores exact zeros.
-//   fat_sparse_bwd (fp32 with blocks that are not multiples of 64; bf16 as
-//     the comparison beside the mma kernels): the first version below,
-//     fp32 FMAs on the CUDA cores (for the reasons given in sparse_fwd.cu),
-//     32-row / 32-key sub-tiles staged as fp32.
+//   fat_sparse_bwd_mma_f32 (fp32, D <= 256, blocks not both multiples of
+//     64): the bf16 mma kernels' layouts, walks and chunks with every
+//     product in 3xTF32 on mma.sync m16n8k8, each operand split in
+//     registers where a warp reads it (sparse_mma.cuh). A operands and the
+//     N-major B operands (K, V, q, dO in S^T, dP^T, S, dP) by ldmatrix; the
+//     MN-major B operands (dO in P^T.dO, q in dS^T.q, K in dS.K) by 32-bit
+//     loads in the permuted k order, P^T, dS^T and dS coming from their
+//     accumulators without shuffles. A walk of one chunk stores fp32 dK and
+//     dV itself; else sparse_bwd_sum_mma_kernel<float> adds the chunks'
+//     partials in chunk order (deterministic). dQ streams 16-key sub-tiles
+//     at D = 256 (q and dO, 33 KB a warp, beside 32-key stages would pass
+//     227 KB), else 16 or 32 keys as bf16.
+//   fat_sparse_bwd (on no route since the fp32 mma kernels; in bf16 and
+//     fp32 the comparison chip_smoke.py times beside the other routes):
+//     the first version below, fp32 FMAs on the CUDA cores (for the reasons
+//     given in sparse_fwd.cu), 32-row / 32-key sub-tiles staged as fp32.
 
 #include <climits>
 
@@ -2176,7 +2189,7 @@ sparse_bwd_dkv_mma_kernel(AttnArgs a, const __nv_bfloat16* __restrict__ dout,
   float* xbuf = reinterpret_cast<float*>(ring + STAGES * stage_bytes);
   if (threadIdx.x == 0) zero_row = make_uint4(0u, 0u, 0u, 0u);
   const uint32_t zero = smem_u32(&zero_row);
-  const RowCopy rc = row_copy(D, threadIdx.x, blockDim.x);
+  const RowCopy rc = row_copy<__nv_bfloat16>(D, threadIdx.x, blockDim.x);
 
   auto issue = [&](int st) {
     char* qt = ring + st * stage_bytes;
@@ -2346,14 +2359,24 @@ sparse_bwd_dkv_mma_kernel(AttnArgs a, const __nv_bfloat16* __restrict__ dout,
 }
 
 // dK and dV of the KV blocks whose walk took more than one chunk: the sums
-// of their chunks' fp32 partials in chunk order, rounded to bf16 (the
-// others were stored by their one CTA).
+// of their chunks' fp32 partials in chunk order, stored as T (the others
+// were stored by their one CTA).
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  auto* p2 = reinterpret_cast<__nv_bfloat162*>(p);
+  p2[0] = __floats2bfloat162_rn(x.x, x.y);
+  p2[1] = __floats2bfloat162_rn(x.z, x.w);
+}
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+
+template <typename T>
 __global__ void sparse_bwd_sum_mma_kernel(AttnArgs a,
                                           const float4* __restrict__ part,
                                           const int32_t* __restrict__ q_count,
                                           int block_k, int chunk_len,
-                                          __nv_bfloat16* __restrict__ dk,
-                                          __nv_bfloat16* __restrict__ dv) {
+                                          T* __restrict__ dk,
+                                          T* __restrict__ dv) {
   const size_t n4 = (size_t)a.B * a.H_kv * a.Nk * a.D / 4;
   const int G = a.H / a.H_kv, d4 = a.D / 4;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
@@ -2367,12 +2390,8 @@ __global__ void sparse_bwd_sum_mma_kernel(AttnArgs a,
       k = make_float4(k.x + pk.x, k.y + pk.y, k.z + pk.z, k.w + pk.w);
       v = make_float4(v.x + pv.x, v.y + pv.y, v.z + pv.z, v.w + pv.w);
     }
-    auto* k2 = reinterpret_cast<__nv_bfloat162*>(dk) + 2 * i;
-    auto* v2 = reinterpret_cast<__nv_bfloat162*>(dv) + 2 * i;
-    k2[0] = __floats2bfloat162_rn(k.x, k.y);
-    k2[1] = __floats2bfloat162_rn(k.z, k.w);
-    v2[0] = __floats2bfloat162_rn(v.x, v.y);
-    v2[1] = __floats2bfloat162_rn(v.z, v.w);
+    store4(dk + 4 * i, k);
+    store4(dv + 4 * i, v);
   }
 }
 
@@ -2432,8 +2451,8 @@ sparse_bwd_dq_mma_kernel(AttnArgs a, const __nv_bfloat16* __restrict__ dout,
   const int stage_bytes = 2 * KEYS * rs;
   if (threadIdx.x == 0) zero_row = make_uint4(0u, 0u, 0u, 0u);
   const uint32_t zero = smem_u32(&zero_row);
-  const RowCopy rc = row_copy(D, threadIdx.x, blockDim.x);
-  const RowCopy rc_warp = row_copy(D, lane, 32);
+  const RowCopy rc = row_copy<__nv_bfloat16>(D, threadIdx.x, blockDim.x);
+  const RowCopy rc_warp = row_copy<__nv_bfloat16>(D, lane, 32);
   const size_t bh = (size_t)b * a.H + h;
 
   auto issue = [&](int st) {
@@ -2642,7 +2661,8 @@ cudaError_t sparse_bwd_mma(const AttnArgs& a, const Lists& s,
   if (err != cudaSuccess) return err;
   if (chunks > 1) {
     const size_t n4 = (size_t)a.B * a.H_kv * a.Nk * a.D / 4;
-    sparse_bwd_sum_mma_kernel<<<sm90::stream_blocks(n4), 256, 0, st>>>(
+    sparse_bwd_sum_mma_kernel<__nv_bfloat16>
+        <<<sm90::stream_blocks(n4), 256, 0, st>>>(
         a, reinterpret_cast<const float4*>(part), s.q_count, s.block_k,
         chunk_len, static_cast<__nv_bfloat16*>(dk),
         static_cast<__nv_bfloat16*>(dv));
@@ -2652,6 +2672,475 @@ cudaError_t sparse_bwd_mma(const AttnArgs& a, const Lists& s,
   return s.block_k <= 16
              ? launch_sparse_bwd_dq_mma<16, DP>(a, s, dout, lse, di, dq, st)
              : launch_sparse_bwd_dq_mma<32, DP>(a, s, dout, lse, di, dq, st);
+}
+
+// ---------------------------------------------------------------------------
+// The fp32 mma route (3xTF32 on m16n8k8, D <= 256, blocks not both
+// multiples of 64)
+// ---------------------------------------------------------------------------
+
+// The bf16 mma dK/dV kernel's layout, walk and chunks (DkvMmaCfg's shared
+// memory at f32_row_bytes(D) a row; at D = 256 two warps a key slice, each
+// holding half of the head dim) with every product in 3xTF32: S^T = K.q^T
+// and dP^T = V.dO^T with K, V (A) and q, dO (N-major B) from ldmatrix,
+// then dV += P^T.dO and dK += dS^T.q with P^T and dS^T from the
+// accumulators and dO, q by 32-bit loads (f32_b). Where one chunk takes
+// the block's walk it stores dK and dV itself; else each chunk writes its
+// fp32 partials into `part`, summed in chunk order by
+// sparse_bwd_sum_mma_kernel<float>.
+template <int DP>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+sparse_bwd_dkv_f32_mma_kernel(AttnArgs a, const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ di,
+                              const int32_t* __restrict__ q_list,
+                              const int32_t* __restrict__ q_count, int stride,
+                              int block_q, int block_k,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              float* __restrict__ part, int chunk_len,
+                              int chunks) {
+  using Cfg = DkvMmaCfg<DP>;
+  constexpr int SPLIT = Cfg::SPLIT, STAGES = kStages, KS = DP / 8;
+  constexpr int DWN = Cfg::DW / 8;  // 8-column steps of a warp's dK / dV
+  extern __shared__ __align__(128) char smem[];
+
+  const int W = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int G = a.H / a.H_kv, D = a.D, rs = f32_row_bytes(D);
+  const int ksteps = D / 8;
+  const int kslices = W / SPLIT;  // key slices a CTA
+  const int per = ((block_k + kSlice - 1) / kSlice + kslices - 1) / kslices;
+  const int ik = blockIdx.x / per;
+  const int c_first = ik * block_k + blockIdx.x % per * kslices * kSlice;
+  const int c_end = min(ik * block_k + block_k, a.Nk);  // this KV block's keys
+  if (c_first >= c_end) return;  // the whole CTA past Nk
+  const int half = warp % SPLIT;
+  const int kb = c_first + warp / SPLIT * kSlice;  // this warp's first key
+  const bool live = kb < c_end;
+  const int b = blockIdx.z, hk = blockIdx.y / chunks;
+  const int chunk = blockIdx.y % chunks, n = q_count[ik];
+  const int e_lo = chunk * chunk_len, n_entries = G * n;
+  if (chunk > 0 && e_lo >= n_entries) return;  // chunk 0 stores the zeros
+  const bool direct = n_entries <= chunk_len;  // one CTA takes the block
+  RowWalk ld{q_list + (size_t)ik * stride, n, block_q, a.Nq,
+             a.causal ? c_first - a.offset : INT_MIN,
+             min(n_entries, e_lo + chunk_len), 0, 0};
+  ld.seek(e_lo);
+
+  const float* qg = static_cast<const float*>(a.q);
+  const size_t kv_off = ((size_t)b * a.H_kv + hk) * a.Nk;
+  char* k_s = smem;
+  char* v_s = k_s + kslices * kSlice * rs;
+  char* ring = v_s + kslices * kSlice * rs;
+  const int stage_bytes = Cfg::stage(rs);
+  float* xbuf = reinterpret_cast<float*>(ring + STAGES * stage_bytes);
+  const RowCopy rc = row_copy<float>(D, threadIdx.x, blockDim.x);
+  // lane maps: ldmatrix A and N-major B rows and column bytes, f32_b's
+  const int oa = a_row(lane) * rs + 2 * a_col(lane);
+  const int ob = b_row(lane) * rs + 2 * b_col(lane);
+  const int ov = 2 * tq * rs + 4 * g;
+
+  auto issue = [&](int st) {
+    char* qt = ring + st * stage_bytes;
+    float* ls = reinterpret_cast<float*>(qt + 2 * kSlice * rs);
+    const size_t row0 =
+        ((size_t)b * a.H + hk * G + ld.g()) * a.Nq + ld.r0;
+    const int n_ok = ld.r_hi() - ld.r0;
+    load_rows(rc, qt, qg + row0 * D, kSlice, n_ok, rs);
+    load_rows(rc, qt + kSlice * rs, dout + row0 * D, kSlice, n_ok, rs);
+    if (threadIdx.x < 2 * kSlice) {  // the LSE, then di
+      const int j = threadIdx.x % kSlice;
+      const bool ok = j < n_ok;
+      cp_async4(smem_u32(ls + threadIdx.x),
+                (threadIdx.x < kSlice ? lse : di) + row0 + (ok ? j : 0), ok);
+    }
+  };
+
+  float dka[DWN][4], dva[DWN][4];
+#pragma unroll
+  for (int i = 0; i < DWN; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dka[i][c] = dva[i][c] = 0.f;
+  }
+
+  if (!ld.done()) {
+    const size_t k0 = (kv_off + c_first) * D;
+    load_rows(rc, k_s, static_cast<const float*>(a.k) + k0, kslices * kSlice,
+              c_end - c_first, rs);
+    load_rows(rc, v_s, static_cast<const float*>(a.v) + k0, kslices * kSlice,
+              c_end - c_first, rs);
+    RowWalk cw = ld;  // the products' cursor
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (!ld.done()) {
+        issue(s);
+        ld.next();
+      }
+      cp_async_commit();
+    }
+    const char* kt = k_s + (warp / SPLIT) * kSlice * rs;
+    const char* vt = v_s + (warp / SPLIT) * kSlice * rs;
+    for (int it = 0; !cw.done(); ++it, cw.next()) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // step `it` landed; every warp is past step it - 1
+      if (!ld.done()) {
+        issue((it + STAGES - 1) % STAGES);
+        ld.next();
+      }
+      cp_async_commit();
+      const char* qt = ring + it % STAGES * stage_bytes;
+      const char* dot = qt + kSlice * rs;
+      const float* ls = reinterpret_cast<const float*>(dot + kSlice * rs);
+      const float* dis = ls + kSlice;
+
+      // S^T and dP^T (16 keys x 16 rows) over this warp's columns
+      float st[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) st[n][c] = dp[n][c] = 0.f;
+      }
+      if (live) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          if (ks >= ksteps || ks / (KS / SPLIT) != half) continue;
+          uint32_t x[4], kb_[4], ks_[4], vb[4], vs[4];
+          ldsm_x4(x, smem_u32(kt + oa + ks * 32));
+          split_frag(x, kb_, ks_);
+          ldsm_x4(x, smem_u32(vt + oa + ks * 32));
+          split_frag(x, vb, vs);
+          uint32_t bb[4], bs[4];
+          ldsm_x4(x, smem_u32(qt + ob + ks * 32));
+          split_frag(x, bb, bs);
+          mma3_1688(st[0], kb_, ks_, bb[0], bb[1], bs[0], bs[1]);
+          mma3_1688(st[1], kb_, ks_, bb[2], bb[3], bs[2], bs[3]);
+          ldsm_x4(x, smem_u32(dot + ob + ks * 32));
+          split_frag(x, bb, bs);
+          mma3_1688(dp[0], vb, vs, bb[0], bb[1], bs[0], bs[1]);
+          mma3_1688(dp[1], vb, vs, bb[2], bb[3], bs[2], bs[3]);
+        }
+      }
+      if constexpr (SPLIT == 2) {  // add the other half's partials
+        float4* xb = reinterpret_cast<float4*>(xbuf) + (it & 1) * W * 32 * 4;
+        float4* mine = xb + (warp * 32 + lane) * 4;
+        mine[0] = make_float4(st[0][0], st[0][1], st[0][2], st[0][3]);
+        mine[1] = make_float4(st[1][0], st[1][1], st[1][2], st[1][3]);
+        mine[2] = make_float4(dp[0][0], dp[0][1], dp[0][2], dp[0][3]);
+        mine[3] = make_float4(dp[1][0], dp[1][1], dp[1][2], dp[1][3]);
+        __syncthreads();
+        const float4* other = xb + ((warp ^ 1) * 32 + lane) * 4;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const float4 x = other[n], y = other[2 + n];
+          st[n][0] += x.x;
+          st[n][1] += x.y;
+          st[n][2] += x.z;
+          st[n][3] += x.w;
+          dp[n][0] += y.x;
+          dp[n][1] += y.y;
+          dp[n][2] += y.z;
+          dp[n][3] += y.w;
+        }
+      }
+      if (!live) continue;
+
+      // p^T and ds^T as split A fragments (k step n = the step's rows
+      // 8 n .. 8 n + 7)
+      const int r0 = cw.r0, r_hi = cw.r_hi();
+      uint32_t pb[2][4], ps[2][4], sb[2][4], ss[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int key = kb + g + 8 * (c >> 1);
+          const int rr = 8 * n + 2 * tq + (c & 1), row = r0 + rr;
+          p[c] = row < r_hi && kept(a, row, key, c_end)
+                     ? expf(st[n][c] * a.scale - ls[rr])
+                     : 0.f;
+          ds[c] = p[c] * (dp[n][c] - dis[rr]);
+        }
+        acc_split(p, pb[n], ps[n]);
+        acc_split(ds, sb[n], ss[n]);
+      }
+      // dV += p^T.dO and dK += ds^T.q over this warp's columns
+#pragma unroll
+      for (int j = 0; j < DWN; ++j) {
+        const int dn = half * DWN + j;
+        if (dn >= ksteps) continue;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int at = n * 8 * rs + ov + dn * 32;
+          uint32_t bb[2], bs[2];
+          f32_b(dot, at, rs, bb, bs);
+          mma3_1688(dva[j], pb[n], ps[n], bb[0], bb[1], bs[0], bs[1]);
+          f32_b(qt, at, rs, bb, bs);
+          mma3_1688(dka[j], sb[n], ss[n], bb[0], bb[1], bs[0], bs[1]);
+        }
+      }
+    }
+  }
+  if (!live) return;
+
+  // A KV block no q block visits stores exact zeros.
+  const size_t nk = (size_t)a.B * a.H_kv * a.Nk * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kb + g + 8 * r;
+    if (key >= c_end) continue;
+    const size_t base = (kv_off + key) * D;
+#pragma unroll
+    for (int j = 0; j < DWN; ++j) {
+      const int col = half * Cfg::DW + 8 * j + 2 * tq;
+      if (col >= D) continue;
+      const float2 k2 = make_float2(dka[j][2 * r] * a.scale,
+                                    dka[j][2 * r + 1] * a.scale);
+      const float2 v2 = make_float2(dva[j][2 * r], dva[j][2 * r + 1]);
+      float* pk = direct ? dk + base + col : part + 2 * chunk * nk + base + col;
+      float* pv = direct ? dv + base + col : pk + nk;
+      *reinterpret_cast<float2*>(pk) = k2;
+      *reinterpret_cast<float2*>(pv) = v2;
+    }
+  }
+}
+
+// The bf16 mma dQ kernel's layout and walk (DqMmaCfg's shared memory at
+// f32_row_bytes(D) a row) in 3xTF32: S = q.K^T and dP = dO.V^T with q, dO
+// (A) and K, V (N-major B) from ldmatrix, then dQ += dS.K with dS from the
+// accumulators and K by 32-bit loads (f32_b). q and dO are read and split
+// at each k8 step: two parts of both beside dQ would not fit in registers.
+template <int DP, int KEYS>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+sparse_bwd_dq_f32_mma_kernel(AttnArgs a, const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ di,
+                             const int32_t* __restrict__ kv_list,
+                             const int32_t* __restrict__ kv_count, int stride,
+                             int block_q, int block_k,
+                             float* __restrict__ dq) {
+  constexpr int STAGES = kStages, KS = DP / 8, NT = KEYS / 8;
+  extern __shared__ __align__(128) char smem[];
+
+  const int W = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int G = a.H / a.H_kv, D = a.D, rs = f32_row_bytes(D);
+  const int ksteps = D / 8;
+  const int units = (block_q + kSlice - 1) / kSlice * G;
+  const int per = (units + W - 1) / W;
+  const int n_q_blocks = (a.Nq + block_q - 1) / block_q;
+  const int iq = n_q_blocks - 1 - blockIdx.x / per;  // heavy first
+  const int u0 = blockIdx.x % per * W, u = u0 + warp;
+  const int b = blockIdx.z, hk = blockIdx.y;
+  const int r_end = min(iq * block_q + block_q, a.Nq);  // this q block's rows
+  const int h = hk * G + u % G;
+  const int r0 = iq * block_q + u / G * kSlice;
+  const bool live = u < units && r0 < r_end;
+  const int r_last = min(iq * block_q + (min(units, u0 + W) - 1) / G * kSlice +
+                             kSlice - 1, r_end - 1);
+  KeyWalk ld = key_walk(a, kv_list + (size_t)iq * stride, kv_count[iq],
+                        block_k, r_last, KEYS, 1);
+
+  const size_t kv_off = ((size_t)b * a.H_kv + hk) * a.Nk * D;
+  const float* kg = static_cast<const float*>(a.k) + kv_off;
+  const float* vg = static_cast<const float*>(a.v) + kv_off;
+  char* q_s = smem + warp * 2 * kSlice * rs;  // this warp's q, then dO
+  char* do_s = q_s + kSlice * rs;
+  char* ring = smem + W * 2 * kSlice * rs;
+  const int stage_bytes = 2 * KEYS * rs;
+  const RowCopy rc = row_copy<float>(D, threadIdx.x, blockDim.x);
+  const RowCopy rc_warp = row_copy<float>(D, lane, 32);
+  const size_t bh = (size_t)b * a.H + h;
+  const int oa = a_row(lane) * rs + 2 * a_col(lane);
+  const int ob = b_row(lane) * rs + 2 * b_col(lane);
+  const int ov = 2 * tq * rs + 4 * g;
+
+  auto issue = [&](int st) {
+    char* kt = ring + st * stage_bytes;
+    const int n_ok = ld.end() - ld.c0;
+    load_rows(rc, kt, kg + (size_t)ld.c0 * D, KEYS, n_ok, rs);
+    load_rows(rc, kt + KEYS * rs, vg + (size_t)ld.c0 * D, KEYS, n_ok, rs);
+  };
+
+  float acc[KS][4];
+#pragma unroll
+  for (int i = 0; i < KS; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  }
+  float lse_r[2] = {0.f, 0.f}, di_r[2] = {0.f, 0.f};
+
+  if (!ld.done()) {
+    if (live) {
+      const size_t q0 = (bh * a.Nq + r0) * D;
+      load_rows(rc_warp, q_s, static_cast<const float*>(a.q) + q0, kSlice,
+                r_end - r0, rs);
+      load_rows(rc_warp, do_s, dout + q0, kSlice, r_end - r0, rs);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + g + 8 * r;
+        if (row < r_end) {
+          lse_r[r] = lse[bh * a.Nq + row];
+          di_r[r] = di[bh * a.Nq + row];
+        }
+      }
+    }
+    KeyWalk cw = ld;  // the products' cursor
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (!ld.done()) {
+        issue(s);
+        ld.next();
+      }
+      cp_async_commit();
+    }
+    for (int it = 0; !cw.done(); ++it, cw.next()) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // tile `it` landed; every warp is past tile it - 1
+      if (!ld.done()) {
+        issue((it + STAGES - 1) % STAGES);
+        ld.next();
+      }
+      cp_async_commit();
+      if (!live) continue;
+      const char* kt = ring + it % STAGES * stage_bytes;
+      const char* vt = kt + KEYS * rs;
+
+      // S = q.K^T and dP = dO.V^T (16 rows x KEYS keys)
+      float sc[NT][4], dp[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sc[n][c] = dp[n][c] = 0.f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        if (ks >= ksteps) continue;
+        uint32_t x[4], qb[4], qsm[4], ob_[4], os_[4];
+        ldsm_x4(x, smem_u32(q_s + oa + ks * 32));
+        split_frag(x, qb, qsm);
+        ldsm_x4(x, smem_u32(do_s + oa + ks * 32));
+        split_frag(x, ob_, os_);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bb[4], bs[4];
+          const int off = np * 16 * rs + ob + ks * 32;
+          ldsm_x4(x, smem_u32(kt + off));
+          split_frag(x, bb, bs);
+          mma3_1688(sc[2 * np], qb, qsm, bb[0], bb[1], bs[0], bs[1]);
+          mma3_1688(sc[2 * np + 1], qb, qsm, bb[2], bb[3], bs[2], bs[3]);
+          ldsm_x4(x, smem_u32(vt + off));
+          split_frag(x, bb, bs);
+          mma3_1688(dp[2 * np], ob_, os_, bb[0], bb[1], bs[0], bs[1]);
+          mma3_1688(dp[2 * np + 1], ob_, os_, bb[2], bb[3], bs[2], bs[3]);
+        }
+      }
+
+      // dQ += ds.K: k step kk is keys 8 kk .. 8 kk + 7, K by f32_b
+      const int c0 = cw.c0, c_end = cw.end();
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        float ds[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int row = r0 + g + 8 * (c >> 1);
+          const int col = c0 + 8 * kk + 2 * tq + (c & 1);
+          const float p = row < r_end && kept(a, row, col, c_end)
+                              ? expf(sc[kk][c] * a.scale - lse_r[c >> 1])
+                              : 0.f;
+          ds[c] = p * (dp[kk][c] - di_r[c >> 1]);
+        }
+        uint32_t sb[4], ss[4];
+        acc_split(ds, sb, ss);
+#pragma unroll
+        for (int dn = 0; dn < KS; ++dn) {
+          if (dn >= ksteps) continue;
+          uint32_t bb[2], bs[2];
+          f32_b(kt, kk * 8 * rs + ov + dn * 32, rs, bb, bs);
+          mma3_1688(acc[dn], sb, ss, bb[0], bb[1], bs[0], bs[1]);
+        }
+      }
+    }
+  }
+  if (!live) return;
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= r_end) continue;
+    const size_t base = (bh * a.Nq + row) * D;
+#pragma unroll
+    for (int dn = 0; dn < KS; ++dn) {
+      const int col = 8 * dn + 2 * tq;
+      if (col < D) {
+        *reinterpret_cast<float2*>(dq + base + col) =
+            make_float2(acc[dn][2 * r] * a.scale, acc[dn][2 * r + 1] * a.scale);
+      }
+    }
+  }
+}
+
+template <int KEYS, int DP>
+cudaError_t launch_sparse_bwd_dq_f32_mma(const AttnArgs& a, const Lists& s,
+                                         const float* dout, const float* lse,
+                                         const float* di, float* dq,
+                                         cudaStream_t st) {
+  const int units = (s.block_q + kSlice - 1) / kSlice * (a.H / a.H_kv);
+  const int warps = cta_warps(units);
+  const size_t smem = DqMmaCfg<DP, KEYS>::smem(warps, f32_row_bytes(a.D));
+  auto kernel = sparse_bwd_dq_f32_mma_kernel<DP, KEYS>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const long long ctas = (long long)((a.Nq + s.block_q - 1) / s.block_q) *
+                         ((units + warps - 1) / warps);
+  if (ctas > 0x7fffffff) return cudaErrorInvalidValue;
+  kernel<<<dim3((unsigned)ctas, a.H_kv, a.B), 32 * warps, smem, st>>>(
+      a, dout, lse, di, s.kv_list, s.kv_count, s.kv_stride, s.block_q,
+      s.block_k, dq);
+  return cudaGetLastError();
+}
+
+// dK/dV (chunks as the bf16 route), the sum of the partials where chunks >
+// 1, then dQ, on `st`. dQ's sub-tiles: 16 keys for blocks of 16 keys or
+// fewer and at D = 256 (q and dO, 33 KB a warp, beside two stages of
+// 32-key K and V tiles would pass 227 KB), else 32.
+template <int DP>
+cudaError_t sparse_bwd_f32_mma(const AttnArgs& a, const Lists& s,
+                               const float* dout, const float* lse,
+                               const float* di, float* dq, float* dk,
+                               float* dv, float* part, int chunk_len,
+                               int chunks, cudaStream_t st) {
+  using Cfg = DkvMmaCfg<DP>;
+  const int slices = (s.block_k + kSlice - 1) / kSlice;
+  const int warps = cta_warps(slices * Cfg::SPLIT);
+  const size_t smem = Cfg::smem(warps, f32_row_bytes(a.D));
+  auto kernel = sparse_bwd_dkv_f32_mma_kernel<DP>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int per_block = (slices + warps / Cfg::SPLIT - 1) / (warps / Cfg::SPLIT);
+  const long long ctas =
+      (long long)((a.Nk + s.block_k - 1) / s.block_k) * per_block;
+  if (ctas > 0x7fffffff) return cudaErrorInvalidValue;
+  kernel<<<dim3((unsigned)ctas, a.H_kv * chunks, a.B), 32 * warps, smem,
+           st>>>(a, dout, lse, di, s.q_list, s.q_count, s.q_stride,
+                 s.block_q, s.block_k, dk, dv, part, chunk_len, chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (chunks > 1) {
+    const size_t n4 = (size_t)a.B * a.H_kv * a.Nk * a.D / 4;
+    sparse_bwd_sum_mma_kernel<float><<<sm90::stream_blocks(n4), 256, 0, st>>>(
+        a, reinterpret_cast<const float4*>(part), s.q_count, s.block_k,
+        chunk_len, dk, dv);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if constexpr (DP == 256) {
+    return launch_sparse_bwd_dq_f32_mma<16, DP>(a, s, dout, lse, di, dq, st);
+  } else {
+    return s.block_k <= 16 ? launch_sparse_bwd_dq_f32_mma<16, DP>(
+                                 a, s, dout, lse, di, dq, st)
+                           : launch_sparse_bwd_dq_f32_mma<32, DP>(
+                                 a, s, dout, lse, di, dq, st);
+  }
 }
 
 }  // namespace mma
@@ -2746,6 +3235,52 @@ int fat_sparse_bwd_mma(const void* q, const void* k, const void* v,
                          : mma::sparse_bwd_mma<256>;
   return (int)run(a, s, dout, l, d, dq, dk, dv,
                   static_cast<float*>(scratch), chunk_len, chunks, st);
+}
+
+// The fp32 mma route (3xTF32): fp32 only, otherwise as fat_sparse_bwd_mma
+// (dtype must be 1); where chunks > 1 scratch holds the chunks' fp32
+// partials, 2 chunks |k| values.
+int fat_sparse_bwd_mma_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse, const void* di,
+                           void* dq, void* dk, void* dv, const void* kv_list,
+                           const void* kv_count, const void* q_list,
+                           const void* q_count, int B, int H, int H_kv,
+                           int Nq, int Nk, int D, float scale, int causal,
+                           int block_q, int block_k, int kv_stride,
+                           int q_stride, int dtype, void* stream,
+                           void* scratch, int chunk_len, int chunks) {
+  using namespace fat;
+  if (dtype != 1 || D < 8 || D > 256 || D % 8 != 0 || H_kv < 1 ||
+      H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || B > 65535 ||
+      block_q < 1 || block_k < 1 || chunk_len < 1 || chunks < 1 ||
+      (long long)chunks * chunk_len <
+          (long long)(H / H_kv) * ((Nq + block_q - 1) / block_q) ||
+      (long long)H_kv * chunks > 65535 ||
+      (chunks > 1 && (scratch == nullptr ||
+                      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)) ||
+      kv_stride < (Nk + block_k - 1) / block_k ||
+      q_stride < (Nq + block_q - 1) / block_q ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) %
+              16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AttnArgs a{q, k, v, nullptr, nullptr, nullptr, B, H, H_kv, Nq, Nk, D, scale,
+             causal, Nk - Nq, 0, 0, 0.f, 0.f, 0, 0u, 0u, 1.f};
+  const Lists s{static_cast<const int32_t*>(kv_list),
+                static_cast<const int32_t*>(kv_count),
+                static_cast<const int32_t*>(q_list),
+                static_cast<const int32_t*>(q_count),
+                kv_stride, q_stride, block_q, block_k};
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* run = D <= 64    ? mma::sparse_bwd_f32_mma<64>
+              : D <= 128 ? mma::sparse_bwd_f32_mma<128>
+                         : mma::sparse_bwd_f32_mma<256>;
+  return (int)run(a, s, static_cast<const float*>(dout),
+                  static_cast<const float*>(lse), static_cast<const float*>(di),
+                  static_cast<float*>(dq), static_cast<float*>(dk),
+                  static_cast<float*>(dv), static_cast<float*>(scratch),
+                  chunk_len, chunks, st);
 }
 
 // The tensor-core route: bf16 only, D <= 256, block_q and block_k multiples

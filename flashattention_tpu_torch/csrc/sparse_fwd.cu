@@ -22,7 +22,7 @@
 // cancelling output that difference exceeded the two-ulp limit (case d of
 // tests/test_torch_cuda.py). The price is a third product per element (Q.K
 // twice). In fp32, rounding p to v's type rounds nothing, so the fp32
-// tensor-core route walks once with an online softmax.
+// routes (tensor-core and mma) walk once with an online softmax.
 //
 // What bounds it on this card: 4 D flops per kept (head, row, key) on the
 // tensor cores (989 TFLOP/s bf16; 165 fp32 on 3xTF32) against q, the active
@@ -31,7 +31,8 @@
 // memory. GQA: query head h reads KV head h / (H / H_kv), so K/V are never
 // repeated.
 //
-// Four routes, chosen by the caller (ops/sparse_attn.py):
+// Four routes, chosen by the caller (ops/sparse_attn.py), and the first
+// kernels, on no route:
 //
 //   fat_sparse_fwd_sm90 (bf16, D <= 256, block_q and block_k multiples of
 //     64): every product on the tensor cores. One CTA per (64 NC query rows
@@ -97,9 +98,23 @@
 //     D reads a zero row; a q block of 128 rows beside 32-key blocks (128 x
 //     32) is two CTAs of 4 slices on one list. Instantiated at D 64, 128
 //     and 256, each with 16- and 32-key sub-tiles.
-//   fat_sparse_fwd (fp32 with blocks that are not multiples of 64; its bf16
-//     instantiation is the comparison chip_smoke.py times beside the mma
-//     kernels): the first version, fp32 FMAs on the CUDA cores. A block of
+//   fat_sparse_fwd_mma_f32 (fp32, D <= 256, block_q and block_k not both
+//     multiples of 64): the bf16 mma route's layout, walk and ring with
+//     every product in 3xTF32 on mma.sync m16n8k8 (sparse_mma.cuh), in one
+//     pass with an online softmax as the fp32 tensor-core route. Each
+//     operand is split into its TF32 parts in registers where a warp reads
+//     it: Q's fragment by ldmatrix at each k8 step, K's likewise (a k8
+//     step of fp32 is 32 bytes, as a k16 step of bf16), P from S's
+//     accumulator, and V, which
+//     P.V reads MN-major where ldmatrix.trans would cut an fp32 apart, by
+//     32-bit loads at rows 8 j + 2 tq, 8 j + 2 tq + 1 (the permuted k of
+//     tf32_sm90.cuh), free of bank conflicts at a row of D + 4 floats.
+//     Shared memory doubles bf16's: 200 KB at D = 256 (4 slices of Q and
+//     two stages of 32-key K and V), one CTA an SM there. Instantiated at
+//     D 64, 128 and 256, each with 16- and 32-key sub-tiles.
+//   fat_sparse_fwd (on no route since the fp32 mma kernels; in bf16 and
+//     fp32 the comparison chip_smoke.py times beside the other routes):
+//     the first version, fp32 FMAs on the CUDA cores. A block of
 //     4 warps owns ROWS rows of one q block, staged once in shared memory
 //     as fp32, and walks each active KV block in 32-key sub-tiles, skipping
 //     sub-tiles wholly above the causal diagonal; a lane owns one key for
@@ -1118,8 +1133,8 @@ sparse_fwd_mma_kernel(AttnArgs a, const int32_t* __restrict__ kv_list,
   const int stage_bytes = 2 * KEYS * rs;
   if (threadIdx.x == 0) zero_row = make_uint4(0u, 0u, 0u, 0u);
   const uint32_t zero = smem_u32(&zero_row);
-  const RowCopy rc = row_copy(D, threadIdx.x, blockDim.x);
-  const RowCopy rc_warp = row_copy(D, lane, 32);
+  const RowCopy rc = row_copy<__nv_bfloat16>(D, threadIdx.x, blockDim.x);
+  const RowCopy rc_warp = row_copy<__nv_bfloat16>(D, lane, 32);
 
   // Pass 0 stages K; pass 1 K and V.
   auto issue = [&](int st) {
@@ -1330,6 +1345,247 @@ cudaError_t sparse_fwd_mma(const AttnArgs& a, const int32_t* kv_list,
                                              block_q, block_k, o, lse, st);
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 mma route (3xTF32 on m16n8k8, D <= 256, blocks not both
+// multiples of 64)
+// ---------------------------------------------------------------------------
+
+// The bf16 mma forward's layout and walk (units of 16 rows of one query
+// head, all warps of a CTA on one list and one KV head, K and V sub-tiles
+// in a ring, FwdMmaCfg's shared memory at f32_row_bytes(D) a row) in one
+// pass with an online softmax: rounding p to v's type rounds nothing in
+// fp32, so p at the running max is p at the final max. S = Q.K^T with K
+// from ldmatrix, O += P.V with P from S's accumulator and V by 32-bit
+// loads (f32_b), every product in 3xTF32. Q's fragment is read by ldmatrix
+// and split at each k8 step: holding both parts in registers at D = 64 (64
+// registers) cost resident CTAs and was 10% slower at phase 7g's call
+// (scripts/sparse_mma_variants.py, "qreg"). The fp32 mma kernels name one
+// CTA an SM as their minimum: with the thread count alone ptxas held some
+// instances to 128 or 168 registers and spilled 32-56 bytes.
+template <int DP, int KEYS>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+sparse_fwd_f32_mma_kernel(AttnArgs a, const int32_t* __restrict__ kv_list,
+                          const int32_t* __restrict__ kv_count, int stride,
+                          int block_q, int block_k, float* __restrict__ o,
+                          float* __restrict__ lse) {
+  constexpr int STAGES = kStages, KS = DP / 8, NT = KEYS / 8;
+  extern __shared__ __align__(128) char smem[];
+
+  const int W = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int G = a.H / a.H_kv, D = a.D, rs = f32_row_bytes(D);
+  const int ksteps = D / 8;
+  const int units = (block_q + kSlice - 1) / kSlice * G;
+  const int per = (units + W - 1) / W;
+  const int n_q_blocks = (a.Nq + block_q - 1) / block_q;
+  // heavy first: causal, a later q block sees more keys
+  const int iq = n_q_blocks - 1 - blockIdx.x / per;
+  const int u0 = blockIdx.x % per * W, u = u0 + warp;
+  const int b = blockIdx.z, hk = blockIdx.y;
+  const int r_end = min(iq * block_q + block_q, a.Nq);  // this q block's rows
+  const int h = hk * G + u % G;
+  const int r0 = iq * block_q + u / G * kSlice;
+  const bool live = u < units && r0 < r_end;  // past Nq: nothing to store
+  const int r_last = min(iq * block_q + (min(units, u0 + W) - 1) / G * kSlice +
+                             kSlice - 1, r_end - 1);
+  const int n_active = kv_count[iq];
+  KeyWalk ld = key_walk(a, kv_list + (size_t)iq * stride, n_active, block_k,
+                        r_last, KEYS, 1);
+
+  const size_t kv_off = ((size_t)b * a.H_kv + hk) * a.Nk * D;
+  const float* kg = static_cast<const float*>(a.k) + kv_off;
+  const float* vg = static_cast<const float*>(a.v) + kv_off;
+  char* q_s = smem + warp * kSlice * rs;  // this warp's 16 rows
+  char* ring = smem + W * kSlice * rs;
+  const int stage_bytes = 2 * KEYS * rs;
+  const RowCopy rc = row_copy<float>(D, threadIdx.x, blockDim.x);
+  const RowCopy rc_warp = row_copy<float>(D, lane, 32);
+  // lane maps: ldmatrix A and N-major B rows and column bytes, f32_b's
+  const int oa = a_row(lane) * rs + 2 * a_col(lane);
+  const int ob = b_row(lane) * rs + 2 * b_col(lane);
+  const int ov = 2 * tq * rs + 4 * g;
+
+  auto issue = [&](int st) {
+    char* kt = ring + st * stage_bytes;
+    const int n_ok = ld.end() - ld.c0;
+    load_rows(rc, kt, kg + (size_t)ld.c0 * D, KEYS, n_ok, rs);
+    load_rows(rc, kt + KEYS * rs, vg + (size_t)ld.c0 * D, KEYS, n_ok, rs);
+  };
+
+  // Masked scores count in the row max as the mask value and give p = 0,
+  // so a row whose max is still the mask value when its first kept key
+  // arrives drops them exactly (alpha = 0).
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[KS][4];
+#pragma unroll
+  for (int i = 0; i < KS; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  }
+
+  if (!ld.done()) {
+    if (live) {
+      load_rows(rc_warp, q_s,
+                static_cast<const float*>(a.q) +
+                    (((size_t)b * a.H + h) * a.Nq + r0) * D,
+                kSlice, r_end - r0, rs);
+    }
+    KeyWalk cw = ld;  // the products' cursor
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (!ld.done()) {
+        issue(s);
+        ld.next();
+      }
+      cp_async_commit();
+    }
+    for (int it = 0; !cw.done(); ++it, cw.next()) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // tile `it` landed; every warp is past tile it - 1
+      if (!ld.done()) {
+        issue((it + STAGES - 1) % STAGES);
+        ld.next();
+      }
+      cp_async_commit();
+      if (!live) continue;
+      const char* kt = ring + it % STAGES * stage_bytes;
+      const char* vt = kt + KEYS * rs;
+
+      // S = Q.K^T over the sub-tile (16 rows x KEYS keys)
+      float sc[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sc[n][c] = 0.f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        if (ks >= ksteps) continue;
+        uint32_t x[4], ab[4], as[4];
+        ldsm_x4(x, smem_u32(q_s + oa + ks * 32));
+        split_frag(x, ab, as);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bb[4], bs[4];
+          ldsm_x4(x, smem_u32(kt + np * 16 * rs + ob + ks * 32));
+          split_frag(x, bb, bs);
+          mma3_1688(sc[2 * np], ab, as, bb[0], bb[1], bs[0], bs[1]);
+          mma3_1688(sc[2 * np + 1], ab, as, bb[2], bb[3], bs[2], bs[3]);
+        }
+      }
+
+      // the online softmax over the 4 lanes of a row
+      const int c0 = cw.c0, c_end = cw.end();
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int row = r0 + g + 8 * (c >> 1);
+          const int col = c0 + 8 * n + 2 * tq + (c & 1);
+          const bool vis = kept(a, row, col, c_end);
+          const float x = sc[n][c] * a.scale;
+          mx[c >> 1] = fmaxf(mx[c >> 1], vis ? x : kMaskValue);
+          sc[n][c] = vis ? x : -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        const float alpha = expf(m[r] - mx[r]);
+        l[r] *= alpha;
+        m[r] = mx[r];
+#pragma unroll
+        for (int dn = 0; dn < KS; ++dn) {
+          acc[dn][2 * r] *= alpha;
+          acc[dn][2 * r + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          sc[n][c] = expf(sc[n][c] - m[c >> 1]);
+          l[c >> 1] += sc[n][c];
+        }
+      }
+      // O += P.V: k step kk is keys 8 kk .. 8 kk + 7, V by f32_b
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        uint32_t pb[4], ps[4];
+        acc_split(sc[kk], pb, ps);
+#pragma unroll
+        for (int dn = 0; dn < KS; ++dn) {
+          if (dn >= ksteps) continue;
+          uint32_t vb[2], vs[2];
+          f32_b(vt, kk * 8 * rs + ov + dn * 32, rs, vb, vs);
+          mma3_1688(acc[dn], pb, ps, vb[0], vb[1], vs[0], vs[1]);
+        }
+      }
+    }
+  }
+  if (!live) return;
+
+  // A visited block's row that met no key (or whose sub-tiles were all
+  // past the stop) holds the mask value; rows of a block with count 0
+  // keep -inf.
+  const size_t bh = (size_t)b * a.H + h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+    if (n_active > 0) m[r] = fmaxf(m[r], kMaskValue);
+    const int row = r0 + g + 8 * r;
+    if (row >= r_end) continue;
+    const float l_safe = l[r] == 0.f ? 1.f : l[r];
+    const size_t base = bh * a.Nq + row;
+#pragma unroll
+    for (int dn = 0; dn < KS; ++dn) {
+      const int col = 8 * dn + 2 * tq;
+      if (col < D) {
+        *reinterpret_cast<float2*>(o + base * D + col) =
+            make_float2(acc[dn][2 * r] / l_safe, acc[dn][2 * r + 1] / l_safe);
+      }
+    }
+    if (tq == 0) lse[base] = m[r] + logf(l_safe);
+  }
+}
+
+template <int DP, int KEYS>
+cudaError_t launch_sparse_fwd_f32_mma(const AttnArgs& a,
+                                      const int32_t* kv_list,
+                                      const int32_t* kv_count, int stride,
+                                      int block_q, int block_k, void* o,
+                                      float* lse, cudaStream_t st) {
+  const int units = (block_q + kSlice - 1) / kSlice * (a.H / a.H_kv);
+  const int warps = cta_warps(units);
+  const size_t smem = FwdMmaCfg<DP, KEYS>::smem(warps, f32_row_bytes(a.D));
+  auto kernel = sparse_fwd_f32_mma_kernel<DP, KEYS>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const long long ctas = (long long)((a.Nq + block_q - 1) / block_q) *
+                         ((units + warps - 1) / warps);
+  if (ctas > 0x7fffffff) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)ctas, a.H_kv, a.B);
+  kernel<<<grid, 32 * warps, smem, st>>>(a, kv_list, kv_count, stride,
+                                         block_q, block_k,
+                                         static_cast<float*>(o), lse);
+  return cudaGetLastError();
+}
+
+// Sub-tiles of 16 keys for blocks of 16 keys or fewer, else 32.
+template <int DP>
+cudaError_t sparse_fwd_f32_mma(const AttnArgs& a, const int32_t* kv_list,
+                               const int32_t* kv_count, int stride,
+                               int block_q, int block_k, void* o, float* lse,
+                               cudaStream_t st) {
+  return block_k <= 16
+             ? launch_sparse_fwd_f32_mma<DP, 16>(a, kv_list, kv_count, stride,
+                                                 block_q, block_k, o, lse, st)
+             : launch_sparse_fwd_f32_mma<DP, 32>(a, kv_list, kv_count, stride,
+                                                 block_q, block_k, o, lse, st);
+}
+
 }  // namespace mma
 }  // namespace fat
 
@@ -1391,6 +1647,37 @@ int fat_sparse_fwd_mma(const void* q, const void* k, const void* v, void* o,
   auto* run = D <= 64    ? mma::sparse_fwd_mma<64>
               : D <= 128 ? mma::sparse_fwd_mma<128>
                          : mma::sparse_fwd_mma<256>;
+  return (int)run(a, list, count, stride, block_q, block_k, o, l, st);
+}
+
+// The fp32 mma route (3xTF32): fp32 only, D <= 256, any block_q and
+// block_k (the caller sends blocks that are not both multiples of 64); q, k
+// and v 16-byte aligned (cp.async). Same arguments as fat_sparse_fwd (dtype
+// must be 1).
+int fat_sparse_fwd_mma_f32(const void* q, const void* k, const void* v,
+                           void* o, void* lse, const void* kv_list,
+                           const void* kv_count, int B, int H, int H_kv,
+                           int Nq, int Nk, int D, float scale, int causal,
+                           int block_q, int block_k, int stride, int dtype,
+                           void* stream) {
+  using namespace fat;
+  if (dtype != 1 || D < 8 || D > 256 || D % 8 != 0 || H_kv < 1 ||
+      H % H_kv != 0 || B < 1 || Nq < 1 || Nk < 1 || H_kv > 65535 ||
+      B > 65535 || block_q < 1 || block_k < 1 ||
+      stride < (Nk + block_k - 1) / block_k ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AttnArgs a{q, k, v, nullptr, nullptr, nullptr, B, H, H_kv, Nq, Nk, D, scale,
+             causal, Nk - Nq, 0, 0, 0.f, 0.f, 0, 0u, 0u, 1.f};
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* list = static_cast<const int32_t*>(kv_list);
+  const auto* count = static_cast<const int32_t*>(kv_count);
+  auto* l = static_cast<float*>(lse);
+  auto* run = D <= 64    ? mma::sparse_fwd_f32_mma<64>
+              : D <= 128 ? mma::sparse_fwd_f32_mma<128>
+                         : mma::sparse_fwd_f32_mma<256>;
   return (int)run(a, list, count, stride, block_q, block_k, o, l, st);
 }
 

@@ -1,7 +1,8 @@
-// Shared by the mma route of sparse_fwd.cu and sparse_bwd.cu (bf16 with
-// blocks that are not both multiples of 64): the 16-row unit of work, the
-// walks that anchor every tile at a block's start, the ldmatrix lane maps
-// and the copies of row tiles into shared memory.
+// Shared by the mma routes of sparse_fwd.cu and sparse_bwd.cu (blocks that
+// are not both multiples of 64: bf16 on m16n8k16, fp32 in 3xTF32 on
+// m16n8k8): the 16-row unit of work, the walks that anchor every tile at a
+// block's start, the ldmatrix lane maps, the copies of row tiles into
+// shared memory and the fp32 route's split products.
 //
 // The unit of work is a 16-row slice anchored at a block's start: q block
 // iq's slice s holds rows iq * block_q + 16 s .. + 15 and never crosses
@@ -10,14 +11,29 @@
 // walked the same way, in sub-tiles anchored at each active KV block's
 // start; keys past the block's end (or Nk) are zero and masked. Any block
 // size works; one that is a multiple of 16 wastes nothing. Tiles land by
-// cp.async, 16 bytes a lane, at tc_row_bytes(D) a row (mma_sync.cuh), and
-// a column block at or past D reads a zero row instead (D % 8 == 0, so an
-// 8-column block is wholly inside or wholly past it).
+// cp.async, 16 bytes a lane, at tc_row_bytes(D) a row for bf16
+// (mma_sync.cuh) or f32_row_bytes(D) for fp32; in bf16 a 16-column block
+// at or past D reads a zero row instead (D % 8 == 0, so an 8-column block
+// is wholly inside or wholly past it), in fp32 a k8 step is 8 columns and
+// the steps past D are skipped.
+//
+// fp32 (3xTF32, tf32_sm90.cuh): every operand is split in registers into
+// big = tf32(x) and small = tf32(x - big) where a warp reads it, and each
+// product is a_s.b_b + a_b.b_s, then + a_b.b_b, three m16n8k8 mma.sync.
+// ldmatrix moves 16-bit elements, and its .trans form would cut an fp32
+// apart, so the B operands stored MN-major (V in P.V, dO in P^T.dO, q in
+// dS^T.q, K in dS.K) are read by 32-bit shared loads. The k index of those
+// products is permuted as in tf32_sm90.cuh (kcol, acc_to_tf32_a): an
+// accumulator fragment of P or dS becomes the A fragment {c0, c2, c1, c3}
+// with no shuffle, its k = tq standing for column 2 tq and k = tq + 4 for
+// 2 tq + 1, so the B fragment of k step j reads rows 8 j + 2 tq and
+// 8 j + 2 tq + 1 at column g (f32_b).
 #pragma once
 
 #include "flash_common.cuh"
 #include "mma_sync.cuh"
 #include "sparse_sm90.cuh"
+#include "tf32_sm90.cuh"
 
 namespace fat {
 namespace mma {
@@ -126,28 +142,32 @@ struct RowWalk {
   }
 };
 
-// A thread's share of copying row tiles of D bf16 columns by cp.async, 16
-// bytes at a time: chunk c of row j first, then `threads` chunks on. Made
-// once a kernel, so a copy costs no integer division.
+// A thread's share of copying row tiles of D columns by cp.async, 16 bytes
+// at a time: chunk c of row j first, then `threads` chunks on. Made once a
+// kernel, so a copy costs no integer division.
 struct RowCopy {
   int cpr, j0, c0, dj, dc;  // chunks a row; first row, chunk; the step
 };
 
+// T is the tile's element type (bf16 or fp32), as load_rows takes it.
+template <typename T>
 __device__ __forceinline__ RowCopy row_copy(int D, int tid, int threads) {
-  const int cpr = D / 8;
+  const int cpr = D * (int)sizeof(T) / 16;
   const int j0 = tid / cpr, dj = threads / cpr;
   return RowCopy{cpr, j0, tid - j0 * cpr, dj, threads - dj * cpr};
 }
 
 // `rows` rows from src (row stride D), rows >= n_ok zero-filled, into a tile
 // at dst with row stride rs.
+template <typename T>
 __device__ __forceinline__ void load_rows(const RowCopy& rc, char* dst,
-                                          const __nv_bfloat16* src, int rows,
-                                          int n_ok, int rs) {
+                                          const T* src, int rows, int n_ok,
+                                          int rs) {
+  constexpr int E = 16 / sizeof(T);  // elements a chunk
   for (int j = rc.j0, c = rc.c0; j < rows;) {
     const bool ok = j < n_ok;
     cp_async16(smem_u32(dst + j * rs + c * 16),
-               src + (ok ? (size_t)j * rc.cpr * 8 + c * 8 : 0), ok);
+               src + (ok ? (size_t)j * rc.cpr * E + c * E : 0), ok);
     j += rc.dj;
     c += rc.dc;
     if (c >= rc.cpr) {
@@ -155,6 +175,61 @@ __device__ __forceinline__ void load_rows(const RowCopy& rc, char* dst,
       ++j;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 (3xTF32 on m16n8k8)
+// ---------------------------------------------------------------------------
+
+// Bytes between two rows of an fp32 tile of D columns (D % 8 == 0): D + 4
+// floats, an odd count of 16-byte units, so the 8 rows one ldmatrix reads
+// fall in 8 different quads of banks, and the 32-bit reads of f32_b, rows
+// 2 tq and 2 tq + 1 at column g, fall in 32 different banks.
+__host__ __device__ constexpr int f32_row_bytes(int D) {
+  return ((D / 4) | 1) * 16;
+}
+
+// A fragment (ldmatrix's four registers, or four accumulator elements) split
+// into its TF32 parts.
+__device__ __forceinline__ void split_frag(const uint32_t (&x)[4],
+                                           uint32_t (&big)[4],
+                                           uint32_t (&small)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    sm90::split1(__uint_as_float(x[j]), big[j], small[j]);
+  }
+}
+
+// An m16n8 accumulator fragment (P or dS over 8 keys or rows) as the split
+// A fragment of one k8 step: {c0, c2, c1, c3} (see the header comment).
+__device__ __forceinline__ void acc_split(const float (&c)[4],
+                                          uint32_t (&big)[4],
+                                          uint32_t (&small)[4]) {
+  const float v[4] = {c[0], c[2], c[1], c[3]};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) sm90::split1(v[j], big[j], small[j]);
+}
+
+// The split B fragment of k step j of an MN-major fp32 tile for the
+// permuted k: rows 8 j + 2 tq and 8 j + 2 tq + 1 at column n0 + g, `at`
+// being the byte offset of row 8 j + 2 tq, column n0 + g.
+__device__ __forceinline__ void f32_b(const char* tile, int at, int rs,
+                                      uint32_t (&big)[2],
+                                      uint32_t (&small)[2]) {
+  sm90::split1(*reinterpret_cast<const float*>(tile + at), big[0], small[0]);
+  sm90::split1(*reinterpret_cast<const float*>(tile + at + rs), big[1],
+               small[1]);
+}
+
+// d += a.b in 3xTF32: a_s.b_b + a_b.b_s, then + a_b.b_b.
+__device__ __forceinline__ void mma3_1688(float (&d)[4],
+                                          const uint32_t (&ab)[4],
+                                          const uint32_t (&as)[4],
+                                          uint32_t bb0, uint32_t bb1,
+                                          uint32_t bs0, uint32_t bs1) {
+  mma_1688(d, as, bb0, bb1);
+  mma_1688(d, ab, bs0, bs1);
+  mma_1688(d, ab, bb0, bb1);
 }
 
 }  // namespace mma

@@ -12,19 +12,23 @@ without a host sync; a kernel reads its loop bound from the count.
 On CUDA tensors :func:`sparse_attention` launches ``csrc/sparse_fwd.cu``
 (counted in ``sparse_attention.fwd_launches``) and, in the backward,
 ``csrc/sparse_bwd.cu`` (a dK/dV kernel over the transposed lists, then a
-dQ kernel; ``sparse_attention.bwd_launches``). Each source has four routes,
-chosen by :func:`_route` and named by :func:`_entry`: with both blocks
-multiples of 64, bf16 goes to the bf16 tensor-core kernels (wgmma fed by
-TMA; ``fat_sparse_fwd_sm90`` / ``fat_sparse_bwd_sm90``) and fp32 to the
-fp32 ones (3xTF32 wgmma fed by TMA; ``fat_sparse_fwd_sm90_f32`` /
-``fat_sparse_bwd_sm90_f32``; above D = 128 the wide kernels, whose backward
-takes a scratch the wrapper allocates, ``flash_attn._wide_scratch``), both
-up to D = 256 and both also counted in ``sparse_attention.fwd_tc_launches``
-/ ``bwd_tc_launches``; other blocks in bf16 go to the mma kernels
-(``mma.sync`` on 16-row slices anchored at each block's start, any block
-size, D <= 256; ``fat_sparse_fwd_mma`` / ``fat_sparse_bwd_mma``, also
-counted in ``sparse_attention.fwd_mma_launches`` / ``bwd_mma_launches``),
-and in fp32 to the FMA kernels (``fat_sparse_fwd`` / ``fat_sparse_bwd``).
+dQ kernel; ``sparse_attention.bwd_launches``). Each source has two routes
+for each dtype, chosen by :func:`_route` and named by :func:`_entry`: with
+both blocks multiples of 64, bf16 goes to the bf16 tensor-core kernels
+(wgmma fed by TMA; ``fat_sparse_fwd_sm90`` / ``fat_sparse_bwd_sm90``) and
+fp32 to the fp32 ones (3xTF32 wgmma fed by TMA; ``fat_sparse_fwd_sm90_f32``
+/ ``fat_sparse_bwd_sm90_f32``; above D = 128 the wide kernels, whose
+backward takes a scratch the wrapper allocates, ``flash_attn._wide_scratch``),
+both up to D = 256 and both also counted in
+``sparse_attention.fwd_tc_launches`` / ``bwd_tc_launches``; other blocks
+go to the mma kernels (``mma.sync`` on 16-row slices anchored at each
+block's start, any block size, D <= 256): bf16 on m16n8k16
+(``fat_sparse_fwd_mma`` / ``fat_sparse_bwd_mma``) and fp32 in 3xTF32 on
+m16n8k8 (``fat_sparse_fwd_mma_f32`` / ``fat_sparse_bwd_mma_f32``), both
+also counted in ``sparse_attention.fwd_mma_launches`` /
+``bwd_mma_launches``. The first kernels, fp32 FMAs on the CUDA cores
+(``fat_sparse_fwd`` / ``fat_sparse_bwd``), lie on no route: they are only
+the comparison ``chip_smoke.py`` times beside the others.
 On CPU tensors it runs the plain versions :func:`sparse_fwd_plain` and
 :func:`sparse_bwd_plain`. Nothing falls back: a CUDA input the kernels do
 not take (fp16, a head dim above 256, tensors on different devices; a
@@ -228,40 +232,35 @@ def _tensor_core_route(dtype, d: int, spec: SparseSpec) -> bool:
     splits the head dim between its two consumers; fp32 runs 3xTF32, each
     operand split into two TF32 parts, which keeps the fp32 1e-4 limit, and
     above D = 128 its wide kernels split the operands they keep as landed
-    in registers). Other blocks take the mma kernels (bf16) or the FMA
-    kernels (fp32)."""
+    in registers). Other blocks take the mma kernels."""
     return (dtype in _DTYPE_CODE and d <= MAX_HEAD_DIM
             and spec.block_q % 64 == 0 and spec.block_k % 64 == 0)
 
 
-def _mma_route(dtype, d: int, spec: SparseSpec) -> bool:
-    """True where the mma kernels take the call: bf16 up to D = 256 with
-    blocks that are not both multiples of 64. ``mma.sync`` m16n8k16 gives a
-    warp 16 rows, so the kernels cut each block into 16-row (and 16- or
-    32-key) slices anchored at its start: a 64-row wgmma tile kept inside
-    a block of 16 or 32 would be mostly masked rows."""
-    return (dtype == torch.bfloat16 and d <= MAX_HEAD_DIM
-            and not _tensor_core_route(dtype, d, spec))
-
-
 def _route(dtype, d: int, spec: SparseSpec) -> str:
-    """The route a call takes: "tc" (wgmma), "mma" (``mma.sync``) or "fma"
-    (fp32 with blocks that are not multiples of 64)."""
-    if _tensor_core_route(dtype, d, spec):
-        return "tc"
-    return "mma" if _mma_route(dtype, d, spec) else "fma"
+    """The route a call takes: "tc" (wgmma) where both blocks are multiples
+    of 64, else "mma". ``mma.sync`` gives a warp 16 rows, so the mma
+    kernels cut each block into 16-row (and 16- or 32-key) slices anchored
+    at its start: a 64-row wgmma tile kept inside a block of 16 or 32 would
+    be mostly masked rows. bf16 runs m16n8k16, fp32 m16n8k8 in 3xTF32 (each
+    operand split into two TF32 parts in registers), on one walk and one
+    chunk rule. A call neither takes (fp16, a head dim above 256) is
+    refused before it gets here (``_check_cuda``)."""
+    return "tc" if _tensor_core_route(dtype, d, spec) else "mma"
 
 
 def _entry(part: str, dtype, route: str) -> str:
     """The C entry point of ``part`` ("fwd" or "bwd") on a route
-    (:func:`_route`): the FMA kernels', the mma kernels', or the bf16 or
-    fp32 tensor-core kernels'."""
+    (:func:`_route`, or "fma": the FMA kernels, which no call takes and
+    chip_smoke.py times beside the others) for ``dtype``: the tensor-core
+    kernels' ``fat_sparse_{part}_sm90[_f32]``, the mma kernels'
+    ``fat_sparse_{part}_mma[_f32]``."""
     if route == "fma":
         return f"fat_sparse_{part}"
+    f32 = "_f32" if dtype == torch.float32 else ""
     if route == "mma":
-        return f"fat_sparse_{part}_mma"
-    return f"fat_sparse_{part}_sm90" + ("_f32" if dtype == torch.float32
-                                        else "")
+        return f"fat_sparse_{part}_mma{f32}"
+    return f"fat_sparse_{part}_sm90{f32}"
 
 
 def route_kernels(dtype, d: int, spec: SparseSpec,
@@ -271,18 +270,19 @@ def route_kernels(dtype, d: int, spec: SparseSpec,
     backward's B operands (``tf32_split_kernel``) and, where ``kv_splits``
     (``flash_attn._wide_scratch``) spreads a KV head's query heads over
     dK/dV CTAs, the sum of their partials (``kv_sum_kernel``); the mma
-    route, where ``kv_splits`` (the chunks of :func:`_mma_chunks`) cuts a
-    KV block's walk over dK/dV CTAs, the sum of theirs
-    (``sparse_bwd_sum_mma_kernel``)."""
-    tag = {"tc": "_sm90", "mma": "_mma", "fma": ""}[_route(dtype, d, spec)]
-    if tag == "_sm90" and dtype == torch.float32:
-        tag = "_f32_wide_sm90" if d > 128 else "_f32_sm90"
+    route (bf16 or fp32), where ``kv_splits`` (the chunks of
+    :func:`_mma_chunks`) cuts a KV block's walk over dK/dV CTAs, the sum of
+    theirs (``sparse_bwd_sum_mma_kernel``)."""
+    tag = {"tc": "_sm90", "mma": "_mma"}[_route(dtype, d, spec)]
+    if dtype == torch.float32:
+        tag = {"_mma": "_f32_mma",
+               "_sm90": "_f32_wide_sm90" if d > 128 else "_f32_sm90"}[tag]
     names = {f"sparse_{k}{tag}_kernel" for k in ("fwd", "bwd_dkv", "bwd_dq")}
     if tag == "_f32_wide_sm90":
         names.add("tf32_split_kernel")
         if kv_splits > 1:
             names.add("kv_sum_kernel")
-    if tag == "_mma" and kv_splits > 1:
+    if tag.endswith("_mma") and kv_splits > 1:
         names.add("sparse_bwd_sum_mma_kernel")
     return frozenset(names)
 
@@ -312,9 +312,9 @@ def _mma_chunks(h: int, h_kv: int, n_q: int, block_q: int,
 
 def _mma_scratch(q, k, spec: SparseSpec) -> tuple[torch.Tensor | None, list]:
     """(scratch, [its pointer, chunk_len, chunks]) of a backward call on the
-    mma route (:func:`_mma_chunks`): the fp32 dK/dV partials of the blocks
-    whose walk takes more than one chunk, 2 * chunks * |k| values (None
-    where one chunk covers every walk)."""
+    mma route, bf16 or fp32 (:func:`_mma_chunks`): the fp32 dK/dV partials
+    of the blocks whose walk takes more than one chunk, 2 * chunks * |k|
+    values (None where one chunk covers every walk)."""
     chunk_len, chunks = _mma_chunks(q.shape[1], k.shape[1], q.shape[2],
                                     spec.block_q, k.numel())
     scratch = None
@@ -394,7 +394,8 @@ _SHAPE_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3
 def _declare_fwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.fat_sparse_fwd, lib.fat_sparse_fwd_mma,
-               lib.fat_sparse_fwd_sm90, lib.fat_sparse_fwd_sm90_f32):
+               lib.fat_sparse_fwd_mma_f32, lib.fat_sparse_fwd_sm90,
+               lib.fat_sparse_fwd_sm90_f32):
         fn.restype = ctypes.c_int
         fn.argtypes = [p] * 7 + _SHAPE_ARGTYPES + [i, i, p]
 
@@ -402,15 +403,16 @@ def _declare_fwd(lib: ctypes.CDLL) -> None:
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.fat_sparse_bwd, lib.fat_sparse_bwd_mma,
-               lib.fat_sparse_bwd_sm90, lib.fat_sparse_bwd_sm90_f32):
+               lib.fat_sparse_bwd_mma_f32, lib.fat_sparse_bwd_sm90,
+               lib.fat_sparse_bwd_sm90_f32):
         fn.restype = ctypes.c_int
         fn.argtypes = [p] * 13 + _SHAPE_ARGTYPES + [i, i, i, p]
     # the fp32 route takes its scratch and query-head splits (used above
-    # D = 128) last, the mma route its scratch and its dK/dV chunks
+    # D = 128) last, the mma routes their scratch and their dK/dV chunks
     lib.fat_sparse_bwd_sm90_f32.argtypes = ([p] * 13 + _SHAPE_ARGTYPES
                                             + [i, i, i, p, p, i])
-    lib.fat_sparse_bwd_mma.argtypes = ([p] * 13 + _SHAPE_ARGTYPES
-                                       + [i, i, i, p, p, i, i])
+    for fn in (lib.fat_sparse_bwd_mma, lib.fat_sparse_bwd_mma_f32):
+        fn.argtypes = [p] * 13 + _SHAPE_ARGTYPES + [i, i, i, p, p, i, i]
 
 
 # ---------------------------------------------------------------------------

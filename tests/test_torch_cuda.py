@@ -1524,7 +1524,7 @@ def random_pattern(n_q_tiles, n_k_tiles, density, empty_row, seed=0):
 # plus ragged block and head-dim edges with masked rows, in fp32 (the 3xTF32
 # tensor-core route, the wide kernels above D = 128) and in bf16 (the
 # tensor-core route), both wherever D <= 256 and both blocks are multiples
-# of 64, else the FMA route.
+# of 64, else the mma route (bf16 on m16n8k16, fp32 in 3xTF32 on m16n8k8).
 SPARSE_CASES = {
     "a_model": ((2, 12, 12, 1024, 1024, 64), torch.bfloat16, True, (128, 128),
                 local_global(8), False),
@@ -1548,7 +1548,7 @@ SPARSE_CASES = {
                                 (128, 64),
                                 torch.tensor([[0, 1, 0, 0], [1, 0, 1, 0]],
                                              dtype=torch.bool), False),
-    # bf16 with blocks that are not multiples of 64: the FMA route
+    # bf16 with blocks that are not multiples of 64: the mma route
     "i_bf16_blocks_48_80": ((1, 4, 2, 200, 328, 40), torch.bfloat16, True,
                             (48, 80), random_pattern(5, 5, 0.5, 2, seed=1),
                             True),
@@ -1606,17 +1606,35 @@ SPARSE_CASES = {
     "t_bf16_b24x40_d136": ((1, 4, 2, 200, 328, 136), torch.bfloat16, True,
                            (24, 40), random_pattern(9, 9, 0.5, 3, seed=2),
                            True),
+    # fp32 with blocks that are not multiples of 64 on the fp32 mma kernels
+    # (3xTF32 on m16n8k8): phase 7g's call at blocks 32 x 32 (chip_smoke.py's
+    # case (s) at N = 1024); phase 7e's MQA call at blocks 32 (case (t) at
+    # N = 512 with an LSE cotangent: the dK/dV warps split the head dim and
+    # a KV block's walk takes 8 chunks); case (u) cut (24 x 40 at D = 136,
+    # GQA, N_q != N_k, an LSE cotangent); 16 x 16 at D = 128 with GQA
+    "u_fp32_model_b32": ((2, 12, 12, 1024, 1024, 64), torch.float32, True,
+                         (32, 32), local_global(32, width=16), False),
+    "v_fp32_b32_d256_mqa": ((1, 8, 1, 512, 512, 256), torch.float32, True,
+                            (32, 32), local_global(16), True),
+    "w_fp32_b24x40_d136": ((1, 4, 2, 200, 328, 136), torch.float32, True,
+                           (24, 40), random_pattern(9, 9, 0.5, 3, seed=2),
+                           True),
+    "x_fp32_b16_d128_gqa": ((1, 8, 2, 512, 512, 128), torch.float32, True,
+                            (16, 16), local_global(32, width=8), False),
 }
-# The cases the tensor-core route takes; the others stay on the FMA kernels.
+# The cases the tensor-core route takes (both blocks multiples of 64).
 SPARSE_TENSOR_CORE = {"a_model", "b_d128", "c_gqa_ragged", "d_nq_ne_nk",
                       "f_d256_masked_rows", "g_bf16_gqa_ragged",
                       "h_bf16_d128_masked_rows", "j_bf16_d256_masked_rows",
                       "k_bf16_d136_gqa_ragged", "l_bf16_d256_gqa12",
                       "m_fp32_d128_gqa_ragged", "n_fp32_model",
                       "o_fp32_d256_mqa", "p_fp32_d136_gqa_ragged"}
-# The cases the mma kernels take (bf16, blocks not both multiples of 64).
-SPARSE_MMA = {"i_bf16_blocks_48_80", "q_bf16_model_b32", "r_bf16_b16_d128_gqa",
-              "s_bf16_b32_d256_mqa", "t_bf16_b24x40_d136"}
+# The cases the mma kernels take (bf16 or fp32, blocks not both multiples
+# of 64): every other case, so no case is left on the FMA kernels.
+SPARSE_MMA = {"e_edges_d40", "i_bf16_blocks_48_80", "q_bf16_model_b32",
+              "r_bf16_b16_d128_gqa", "s_bf16_b32_d256_mqa",
+              "t_bf16_b24x40_d136", "u_fp32_model_b32", "v_fp32_b32_d256_mqa",
+              "w_fp32_b24x40_d136", "x_fp32_b16_d128_gqa"}
 
 
 def _sparse_case(name, device):
@@ -1672,7 +1690,7 @@ def test_sparse_kernels_match_plain(cuda_device, case):
         assert not g[:, :, unvisited].any()
     tc, mma = int(case in SPARSE_TENSOR_CORE), int(case in SPARSE_MMA)
     assert tc == sa._tensor_core_route(q.dtype, q.shape[3], spec)
-    assert mma == sa._mma_route(q.dtype, q.shape[3], spec)
+    assert mma == (sa._route(q.dtype, q.shape[3], spec) == "mma")
     after = _sparse_counts(sa)
     assert tuple(x - y for x, y in zip(after, before)) == (1, 1, tc, tc, mma,
                                                             mma)
@@ -1681,14 +1699,15 @@ def test_sparse_kernels_match_plain(cuda_device, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["a_model", "j_bf16_d256_masked_rows",
                                   "m_fp32_d128_gqa_ragged", "n_fp32_model",
-                                  "o_fp32_d256_mqa", "s_bf16_b32_d256_mqa"])
+                                  "o_fp32_d256_mqa", "s_bf16_b32_d256_mqa",
+                                  "v_fp32_b32_d256_mqa"])
 def test_sparse_backward_is_deterministic(cuda_device, case):
     """The tensor-core sparse backward at the model case and at D = 256 in
     bf16, on the fp32 (3xTF32) routes (at D = 256 with the MQA group's
-    dK/dV partials summed in split order), and on the mma route at D = 256
-    (partial S^T and dP^T added across the warps that split the head dim),
-    twice: bit-equal gradients (no atomics, so no dependence on block
-    order)."""
+    dK/dV partials summed in split order), and on the mma routes at D = 256
+    in bf16 and fp32 (partial S^T and dP^T added across the warps that
+    split the head dim, the chunks' partials summed in chunk order), twice:
+    bit-equal gradients (no atomics, so no dependence on block order)."""
     sa, q, k, v, do, dlse, _, spec, active = _sparse_case(case, cuda_device)
     o, lse = sa.sparse_fwd(q, k, v, active, spec)
     route = "mma" if case in SPARSE_MMA else "tc"
@@ -1729,17 +1748,17 @@ def test_sparse_tensor_core_failure_raises(cuda_device, monkeypatch, part,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["q_bf16_model_b32", "u_fp32_model_b32"])
 @pytest.mark.parametrize("part", ["fwd", "bwd"])
-def test_sparse_mma_failure_raises(cuda_device, monkeypatch, part):
-    """An mma launch that reports an error raises; nothing falls back to
-    the FMA kernels or the plain version."""
-    sa, q, k, v, do, dlse, _, spec, active = _sparse_case("q_bf16_model_b32",
-                                                          cuda_device)
+def test_sparse_mma_failure_raises(cuda_device, monkeypatch, part, case):
+    """An mma launch (bf16 or fp32) that reports an error raises; nothing
+    falls back to the FMA kernels or the plain version."""
+    sa, q, k, v, do, dlse, _, spec, active = _sparse_case(case, cuda_device)
     calls = []
 
     class Lib:  # the mma entries fail (cudaErrorInvalidValue)
         def __getattr__(self, name):
-            if name.endswith("_mma"):
+            if name.endswith(("_mma", "_mma_f32")):
                 return lambda *args: 1
             return lambda *args: calls.append(name) or 0
 

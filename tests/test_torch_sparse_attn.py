@@ -34,6 +34,8 @@ P4 = [[1, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 1]]
 # tile 1)
 LG8 = [[int(0 <= i - j < 4 or j == 0) for j in range(8)] for i in range(8)]
 LG4 = [[int(0 <= i - j < 2 or j == 0) for j in range(4)] for i in range(4)]
+LG16W16 = [[int(0 <= i - j < 16 or j == 0) for j in range(16)]
+           for i in range(16)]
 # name: ((b, h, h_kv, n_q, n_k, d), pattern or None, kwargs, use dlse)
 CASES = {
     "causal_4x4": ((1, 2, 2, 512, 512, 64), P4, dict(causal=True), False),
@@ -92,6 +94,11 @@ CASES = {
                               dict(causal=True, block_q=24, block_k=40),
                               False),
     "b32_d256_mqa": ((1, 4, 1, 128, 128, 256), LG4, dict(
+        causal=True, block_q=32, block_k=32), True),
+    # chip_smoke.py phase 7g's pattern (the fp32 mma kernels on the card) at
+    # a reduced size: local + global at width 16 on blocks of 32, N = 512,
+    # with an LSE cotangent
+    "b32_w16_fp32_dlse": ((1, 2, 2, 512, 512, 64), LG16W16, dict(
         causal=True, block_q=32, block_k=32), True),
 }
 
@@ -223,27 +230,29 @@ ROUTES = [
     (torch.float32, 256, (128, 128), True),    # fp32 at D = 256: wide
     (torch.float32, 64, (128, 32), False),     # fp32, block_k below 64
     (torch.float32, 256, (128, 32), False),    # fp32 at D = 256, block_k 32
+    (torch.float32, 64, (32, 32), False),      # u_fp32_model_b32: phase 7g
+    (torch.float32, 256, (32, 32), False),     # v_fp32_b32_d256_mqa
+    (torch.float32, 136, (24, 40), False),     # w_fp32_b24x40_d136
+    (torch.float32, 128, (16, 16), False),     # x_fp32_b16_d128_gqa
+    (torch.float32, 256, (96, 80), False),     # chip_smoke.py's case (n)
 ]
 
 
 @pytest.mark.parametrize("dtype,d,blocks,tc", ROUTES)
 def test_mma_route(dtype, d, blocks, tc):
-    """bf16 up to D = 256 with blocks that are not both multiples of 64
-    takes the mma kernels; fp32 at such blocks keeps the FMA kernels, and
-    no call takes two routes."""
+    """bf16 and fp32 up to D = 256 with blocks that are not both multiples
+    of 64 take the mma kernels (fp32 in 3xTF32); no call takes the FMA
+    kernels, and none takes two routes."""
     spec = sa.SparseSpec(causal=True, scale=0.125, block_q=blocks[0],
                          block_k=blocks[1])
-    want = dtype == torch.bfloat16 and not tc
-    assert sa._mma_route(dtype, d, spec) is want
-    assert sa._route(dtype, d, spec) == ("tc" if tc else
-                                         "mma" if want else "fma")
+    assert sa._route(dtype, d, spec) == ("tc" if tc else "mma")
 
 
 @pytest.mark.parametrize("dtype,d,blocks,tc", ROUTES)
 def test_tensor_core_route(dtype, d, blocks, tc):
     """With both blocks multiples of 64, bf16 and fp32 (3xTF32; above D =
     128 the wide kernels) up to D = 256 take the tensor-core kernels; other
-    blocks the FMA kernels."""
+    blocks the mma kernels."""
     spec = sa.SparseSpec(causal=True, scale=0.125, block_q=blocks[0],
                          block_k=blocks[1])
     assert sa._tensor_core_route(dtype, d, spec) is tc
@@ -265,8 +274,19 @@ ROUTE_KERNELS = [
     (torch.bfloat16, 256, (128, 128), 1, {
         "sparse_fwd_sm90_kernel", "sparse_bwd_dkv_sm90_kernel",
         "sparse_bwd_dq_sm90_kernel"}),
+    # fp32 with blocks that are not both multiples of 64: the fp32 mma
+    # kernels (3xTF32), with the sum of the chunks' partials where a walk
+    # takes more than one: chip_smoke.py's case (n), phase 7g's call (8
+    # chunks) and case (t) (MQA at D = 256, 64 chunks)
     (torch.float32, 256, (96, 80), 1, {
-        "sparse_fwd_kernel", "sparse_bwd_dkv_kernel", "sparse_bwd_dq_kernel"}),
+        "sparse_fwd_f32_mma_kernel", "sparse_bwd_dkv_f32_mma_kernel",
+        "sparse_bwd_dq_f32_mma_kernel"}),
+    (torch.float32, 64, (32, 32), 8, {
+        "sparse_fwd_f32_mma_kernel", "sparse_bwd_dkv_f32_mma_kernel",
+        "sparse_bwd_dq_f32_mma_kernel", "sparse_bwd_sum_mma_kernel"}),
+    (torch.float32, 256, (32, 32), 64, {
+        "sparse_fwd_f32_mma_kernel", "sparse_bwd_dkv_f32_mma_kernel",
+        "sparse_bwd_dq_f32_mma_kernel", "sparse_bwd_sum_mma_kernel"}),
     # bf16 with blocks that are not both multiples of 64: the mma kernels,
     # with the sum of the dK/dV partials where a KV block's walk is cut
     # into chunks
@@ -313,6 +333,28 @@ def test_mma_dkv_chunks(b, h, h_kv, n, d, block_q, want):
     assert (chunk_len, chunks) == want
     assert chunk_len * chunks >= h // h_kv * -(-n // block_q)
     assert chunks == 1 or 8 * chunks * k_numel <= sa.MMA_SCRATCH_BYTES
+
+
+# (B, H, H_kv, N, D, block) -> (chunk_len, chunks) of an fp32 backward
+@pytest.mark.parametrize("b,h,h_kv,n,d,block,want", [
+    (2, 12, 12, 4096, 64, 32, (16, 8)),   # phase 7g: phase 7f in fp32
+    (1, 8, 1, 4096, 256, 32, (16, 64)),   # chip_smoke.py's case (t): MQA
+    (1, 8, 2, 1000, 256, 96, (5, 9)),     # case (n): 6 steps an entry
+])
+def test_fp32_mma_backward_scratch(b, h, h_kv, n, d, block, want):
+    """The fp32 mma backward takes the bf16 route's chunks and scratch: one
+    chunk rule for both dtypes, partials in fp32 either way (2 chunks |k|
+    values, allocated only where a walk takes more than one chunk)."""
+    q = torch.empty(b, h, n, d, device="meta")
+    k = torch.empty(b, h_kv, n, d, device="meta")
+    spec = sa.SparseSpec(causal=True, scale=d ** -0.5, block_q=block,
+                         block_k=block)
+    assert sa._route(torch.float32, d, spec) == "mma"
+    assert sa._mma_chunks(h, h_kv, n, block, k.numel()) == want
+    scratch, more = sa._bwd_scratch("mma", q, k, spec)
+    assert more[1:] == list(want)
+    assert scratch.dtype == torch.float32
+    assert scratch.numel() == 2 * want[1] * k.numel()
 
 
 @pytest.mark.parametrize("kv_heads,n_k,group,want", [

@@ -1,6 +1,6 @@
 """The port's model with a block-sparse pattern against the JAX package's,
 on the CPU in float32 at a tiny width (block_size 16, N = 64: 4 x 4 tiles;
-block_size 32: 2 x 2),
+block_size 32: 2 x 2, and 20 x 20 at N = 640 with a width-16 pattern),
 weights carried across by ``params_from_jax``: logits, loss and gradients,
 the soft-capped dense-mask fallback, dropout with a pattern, both remat
 policies, and the errors of a pattern with a window or segment ids.
@@ -49,7 +49,7 @@ CASES = {
     "softcap_fallback": (dict(attn_softcap=3.0), [[1, 0], [1, 1]]),
     # head dim 256 (the D-split sparse kernels on the card), one KV head
     "d256_mqa_rope": (dict(D256), [[1, 0], [1, 1]]),
-    # blocks of 32 (the mma kernels on the card in bf16): 2 x 2 tiles
+    # blocks of 32 (the mma kernels on the card, bf16 and fp32): 2 x 2 tiles
     "block32": (dict(block_size=32), [[1, 0], [1, 1]]),
 }
 
@@ -131,16 +131,25 @@ def _port_loss(params, cfg, toks, pattern, **kw):
     return token_nll(logits, t[:, 1:]).mean()
 
 
+# chip_smoke.py phase 7g's pattern (the fp32 mma kernels on the card) at a
+# tiny width: local + global at width 16 on 20 x 20 tiles of 32 (N = 640),
+# so the last q tiles skip some of the tiles between tile 0 and their window
+LG20 = [[int(0 <= i - j < 16 or j == 0) for j in range(20)] for i in range(20)]
+
+
 @pytest.mark.parametrize("case", ["learned", "gqa_rope", "d256_mqa_rope",
-                                  "block32_gqa"])
+                                  "block32_gqa", "block32_width16"])
 def test_sparse_loss_and_grads_match_jax(case):
     over = {"learned": {}, "gqa_rope": dict(n_kv_heads=2, pos_encoding="rope"),
             "d256_mqa_rope": D256,
-            "block32_gqa": dict(n_kv_heads=2, block_size=32)}[case]
-    pattern = _pattern([[1, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 1]])
+            "block32_gqa": dict(n_kv_heads=2, block_size=32),
+            "block32_width16": dict(block_size=32, max_seq_len=640)}[case]
+    n = 640 if case == "block32_width16" else N
+    pattern = _pattern(LG20 if case == "block32_width16" else
+                       [[1, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 1]])
     jcfg = jax_config(**over)
     jp = init_transformer(jax.random.key(1), jcfg)
-    toks = tokens(2, N + 1, jcfg.vocab_size)
+    toks = tokens(2, n + 1, jcfg.vocab_size)
     loss, grads = jax.value_and_grad(_jax_loss(jcfg, toks, pattern))(jp)
     params = port_params(jp, port_config(jcfg))
     tloss = _port_loss(params, port_config(jcfg), toks, pattern)
