@@ -1607,6 +1607,20 @@ FP8_CASES = {
           (1, 8, 1, 4096, 256), dict(causal=True, mode="fused"), ()),
     "j": ("(1, 8, 8192, 256) e5m2 causal, mode fused", (1, 8, 8, 8192, 256),
           dict(causal=True, mode="fused", fmt="e5m2"), ()),
+    # int8_pv "s8" at rows 6b's and 6w's shapes (phase 5b's s8 arm is (k)'s
+    # call), and Phi-2's head dim 80 (microsoft/phi-2: hidden 2560, 32
+    # heads), which is no multiple of 32
+    "k": ("int8 PV s8, (1, 8, 8192, 128) causal", (1, 8, 8, 8192, 128),
+          dict(causal=True, fmt="int8", int8_pv="s8"), ()),
+    "l": ("int8 PV s8, (1, 8, 8192, 256) causal", (1, 8, 8, 8192, 256),
+          dict(causal=True, fmt="int8", int8_pv="s8"), ()),
+    "m": ("Phi-2 (1, 32, 2048, 80) int8 causal, auto (fused)",
+          (1, 32, 32, 2048, 80), dict(causal=True, fmt="int8"), ()),
+    "n": ("Phi-2 (1, 32, 2048, 80) e4m3 causal, mode fused",
+          (1, 32, 32, 2048, 80), dict(causal=True, mode="fused"), ()),
+    # (m) at D = 96, the next multiple of 32 (the same DP = 128 kernels)
+    "o": ("Phi-2's call at D = 96, (1, 32, 2048, 96) int8 causal, auto",
+          (1, 32, 32, 2048, 96), dict(causal=True, fmt="int8"), ()),
 }
 FP8_STE_SHAPE = (8, 12, 12, 512, 64)
 
@@ -1645,7 +1659,7 @@ def fp8_case(timer, gen, dev, key):
     o_api, _ = f8.fp8_attention(q, k, v, fmt=fmt, int8_pv=int8_pv, mode=mode,
                                 **kw, **more)
     torch.cuda.synchronize()
-    want_tc = int(f8._tensor_core_route(int8_pv, d, f8.FP8_KERNEL_BLOCK_K))
+    want_tc = int(f8._tensor_core_route(d, f8.FP8_KERNEL_BLOCK_K))
     if (f8.fp8_attention.launches, f8.fp8_attention.tc_launches) != (
             1, want_tc):
         fail(f"fp8 {key}: fp8_attention launched flash_fwd_fp8 "
@@ -1662,14 +1676,23 @@ def fp8_case(timer, gen, dev, key):
     tol = kernel_tol(BF16, o_ref)
     err = {"o": check_close(f"fp8 {key} o", o, o_ref, *tol)}
     err["lse"] = check_close(f"fp8 {key} lse", lse, lse_ref, LSE_TOL)
-    del o_ref, lse_ref
+    del o, lse
     big = n > 4096
-    ms = timer(lambda: f8.fp8_fwd(*args, int8_pv=int8_pv, out_dtype=BF16))
-    fma_ms = None
-    if want_tc:  # the FMA kernel on the same inputs, through the wrapper
+    fma_ms = fma_err = None
+    if want_tc:  # the FMA kernel on the same inputs, through the wrapper:
+        # held against the plain version at the case's limits, then timed
         with mock.patch.object(f8, "_tensor_core_route", lambda *a_: False):
             fma = lambda: f8.fp8_fwd(*args, int8_pv=int8_pv, out_dtype=BF16)
+            fo, fl = fma()
+            torch.cuda.synchronize()
+            fma_err = {
+                "o": check_close(f"fp8 {key} o (FMA kernel)", fo, o_ref, *tol),
+                "lse": check_close(f"fp8 {key} lse (FMA kernel)", fl,
+                                   lse_ref, LSE_TOL)}
+            del fo, fl
             fma_ms = timer(fma, reps=3 if big else 10, warmup=1)
+    del o_ref, lse_ref
+    ms = timer(lambda: f8.fp8_fwd(*args, int8_pv=int8_pv, out_dtype=BF16))
     plain_ms = timer(lambda: f8.fp8_fwd_plain(*args, int8_pv=int8_pv,
                                               out_dtype=BF16),
                      reps=3 if big else 10, warmup=1)
@@ -1684,14 +1707,17 @@ def fp8_case(timer, gen, dev, key):
                blocks=(bq, bk), max_abs_err=err,
                tol=dict(o=dict(rtol=tol[0], atol=tol[1]), lse=LSE_TOL),
                route="tensor cores" if want_tc else "FMA", ms=ms,
-               fma_ms=fma_ms, plain_ms=plain_ms, library_ms=None,
+               fma_ms=fma_ms, fma_max_abs_err=fma_err, plain_ms=plain_ms,
+               library_ms=None,
                yardstick_ms=yardstick_ms, bound_ms=bound_ms,
                bound_by=bound_by, api_launches=1)
     log(f"[kernel] flash_fwd_fp8 {key} ({label}): {rec['route']}, "
         f"max_abs_err o "
         f"{err['o']:.2e} lse {err['lse']:.2e} ({tol_text(BF16)}: p is bf16; "
         f"lse {LSE_TOL:g})  kernel {ms:.4f} ms ("
-        + ("" if fma_ms is None else f"FMA kernel {fma_ms:.4f}, ")
+        + ("" if fma_ms is None else
+           f"FMA kernel {fma_ms:.4f} (max_abs_err o {fma_err['o']:.2e} lse "
+           f"{fma_err['lse']:.2e}), ")
         + f"plain {plain_ms:.4f}, SDPA on "
         f"the dequantized inputs {yardstick_ms:.4f}, bound {bound_ms:.4f} "
         f"{bound_by}); fp8_attention launched it once (checked)")
@@ -1774,14 +1800,19 @@ def paged_cases(gen):
                 b=32, page=16, q_len=5, quant=quant,
                 lengths=(verify_lengths(gen) + 5).tolist(), **gpt3))
     # Quantized pages: the engine's decode shape in every format and the
-    # int8 schedules, an e4m3 chunk, and scripts/bench_decode.py's shape.
+    # int8 schedules, e4m3 and int8 "full" chunks (phase 3b's calls), and
+    # scripts/bench_decode.py's shape.
     for key, quant, int8_qk in (("int8_qk", "int8", None),
                                 ("int8_convert", "int8", False),
+                                ("int8_full", "int8", "full"),
                                 ("fp8", "fp8", None), ("e5m2", "e5m2", None)):
         cases[f"decode_{key}"] = (f"decode B=32 page=16 {key}", bf, dict(
             b=32, page=16, q_len=0, quant=quant, int8_qk=int8_qk, **gpt3))
-    cases["chunk_fp8"] = ("chunk B=1 T=64 page=16 fp8", bf, dict(
-        b=1, page=16, q_len=64, lengths=[448], quant="fp8", **gpt3))
+    for key, quant, int8_qk in (("fp8", "fp8", None),
+                                ("int8_full", "int8", "full")):
+        cases[f"chunk_{key}"] = (f"chunk B=1 T=64 page=16 {key}", bf, dict(
+            b=1, page=16, q_len=64, lengths=[448], quant=quant,
+            int8_qk=int8_qk, **gpt3))
     bench = dict(b=64, h=8, h_kv=8, d=128, page=64, max_len=2048, q_len=0,
                  lengths=[2048] * 64)
     for quant in (None, "int8", "fp8"):
@@ -1789,6 +1820,10 @@ def paged_cases(gen):
             f"bench_decode B=64 H=8 D=128 len 2048 page 64 {quant or 'bf16'}",
             bf, dict(quant=quant, **bench))
     return cases
+
+
+# The int8 "full" cases: bf16 q takes the split route's tensor-core walk
+FULL_CASES = ("decode_int8_full", "chunk_int8_full", "d256_decode_int8_full")
 
 
 def phase_kernels(dev):
@@ -1806,6 +1841,11 @@ def phase_kernels(dev):
         recs[f"append_{fmt}_verify"] = append_case(timer, gen, dev, fmt,
                                                    "verify")
     recs.update(paged_d256_cases(timer, gen, dev))
+    for key in FULL_CASES:
+        if recs[key]["route"] != "split" or recs[key]["walk"] != "tc":
+            fail(f"paged_attention {key}: took the {recs[key]['route']} "
+                 f"route ({recs[key]['walk']} walk), want the split route's "
+                 f"tensor-core walk")
     for key in FLASH_CASES:
         recs[f"flash_{key}"] = flash_case(timer, gen, dev, key)
         torch.cuda.empty_cache()
@@ -1831,9 +1871,10 @@ def paged_d256_table(gen):
     """Phase 2's paged-attention cases at head dim 256 (Gemma 2B's MQA, 8
     query heads over 1 KV head; phase 3c's calls; PERF.md rows 7w-8w), as
     ``paged_cases`` gives them: the decode step (B = 32, page 16, lengths
-    256-4096) over bf16, int8 ("qk"), e4m3 pages and int8 "full", fp32
-    decode (B = 8), a T = 64 chunk at length 2048 and the verify chunk (B =
-    32, T = 5). SDPA reads the one KV head itself (``enable_gqa``)."""
+    256-4096) over bf16, int8 ("qk"), e4m3 pages and int8 "full" (row
+    8w's call), fp32 decode (B = 8), a T = 64 chunk at length 2048 and the
+    verify chunk (B = 32, T = 5). SDPA reads the one KV head itself
+    (``enable_gqa``)."""
     bf = torch.bfloat16
     gemma = dict(h=8, h_kv=1, d=256, page=16, max_len=4096, gqa=True)
     cases = {}
@@ -1860,11 +1901,11 @@ def paged_d256_table(gen):
 
 def paged_d256_cases(timer, gen, dev):
     """B5/B6 and B7 at head dim 256: ``paged_d256_table``'s cases, the
-    split route's on its tensor-core walk, fp32 decode and the int8 "full"
-    schedule on the first kernel (its D = 256 instantiation, each walk cut
-    into splits), each route and walk checked; the append at the decode
-    step and a T = 64 chunk. bf16 is held to ``paged_tol``'s limit scaled
-    to max|plain|."""
+    split route's on its tensor-core walk (int8 "full" too, checked by
+    phase_kernels), fp32 decode on the first kernel (its D = 256
+    instantiation, each walk cut into splits), each route and walk
+    checked; the append at the decode step and a T = 64 chunk. bf16 is
+    held to ``paged_tol``'s limit scaled to max|plain|."""
     recs = {}
     for key, (name, dtype, kw) in paged_d256_table(gen).items():
         recs[key] = attention_case(timer, gen, dev, name, dtype, **kw)
@@ -1873,10 +1914,9 @@ def paged_d256_cases(timer, gen, dev):
         recs[f"append_bf16_{kind}_d256"] = append_case(
             timer, gen, dev, "bf16", kind, h=1, d=256, max_len=4096)
     torch.cuda.empty_cache()
-    for key in ("d256_decode_int8_full", "d256_decode_fp32"):
-        if recs[key]["route"] != "first":
-            fail(f"paged_attention {key}: took the split route, want the "
-                 f"first kernel")
+    if recs["d256_decode_fp32"]["route"] != "first":
+        fail("paged_attention d256_decode_fp32: took the split route, want "
+             "the first kernel")
     for key in ("d256_decode", "d256_decode_int8_qk", "d256_decode_fp8",
                 "d256_chunk", "d256_verify"):
         if recs[key]["route"] != "split" or recs[key]["walk"] != "tc":
@@ -2001,12 +2041,15 @@ def phase_engine(cfg, params, ecfg, dev, n_req, prompt_range, n_new, on_card):
             fail(f"paged_attention took the split route "
                  f"{counts['paged_attention_split']} times, want every one of"
                  f" its {want_att} launches")
-        # the walk of each kind's calls: G rows at decode, G * T a chunk
+        # the walk of each kind's calls: G rows at decode, G * T a chunk;
+        # the int8 "full" schedule's on the tensor cores at every row count
         g = cfg.n_heads // cfg.kv_heads
+        mode = ("full" if ecfg.quant == "int8" and ecfg.int8_qk == "full"
+                else "convert")
         want_tc = n_layers * (
-            st["decode_steps"] * (pa.split_walk(cfg.d_head, g) == "tc")
-            + st["prefill_chunks"]
-            * (pa.split_walk(cfg.d_head, g * ecfg.prefill_pad) == "tc"))
+            st["decode_steps"] * (pa.split_walk(cfg.d_head, g, mode) == "tc")
+            + st["prefill_chunks"] * (pa.split_walk(
+                cfg.d_head, g * ecfg.prefill_pad, mode) == "tc"))
         if counts["paged_attention_tc"] != want_tc:
             fail(f"paged_attention took the tensor-core walk "
                  f"{counts['paged_attention_tc']} times, want {want_tc}")
@@ -2189,12 +2232,12 @@ def phase_profile(cfg, params, ecfg, dev, steps=20, plen=200,
     return rec
 
 
-def _first_logits(params, cfg, dev, prompt, steps, quant=None):
+def _first_logits(params, cfg, dev, prompt, steps, quant=None, int8_qk=None):
     """First-token logits (float32, host) and greedy tokens of a one-slot
     engine serving ``prompt``."""
     ecfg = EngineConfig(max_batch_size=1, page_size=16, num_pages=40,
                         max_seq_len=cfg.max_seq_len, prefill_pad=64,
-                        quant=quant)
+                        quant=quant, int8_qk=int8_qk)
     eng = ServingEngine(params, cfg, ecfg, device=dev)
     eng.submit(GenerationRequest(0, prompt, steps))
     toks = eng.run()[0]
@@ -2208,11 +2251,13 @@ def _agreement(tc, tr):
     return agree, prefix
 
 
-def phase_vs_cpu(cfg, params, dev, prompt_len, steps, quant=None):
+def phase_vs_cpu(cfg, params, dev, prompt_len, steps, quant=None,
+                 int8_qk=None):
     """The card engine's first-token logits against the same engine on the
     CPU in float32 (plain versions): the bf16 rung for bf16 pages, the FP8
-    rung for quantized pages; the latter also reports, ungated, its distance
-    to the bf16 unquantized card engine."""
+    rung for quantized pages (``int8_qk``: the int8 schedule of both
+    engines); the latter also reports, ungated, its distance to the bf16
+    unquantized card engine."""
     rng = np.random.default_rng(SEED + 1)
     prompt = [int(t) for t in rng.integers(0, cfg.vocab_size, size=prompt_len)]
     tol = LOGITS_TOL if quant is None else FP8_TOL
@@ -2228,11 +2273,12 @@ def phase_vs_cpu(cfg, params, dev, prompt_len, steps, quant=None):
         return o
 
     with mock.patch.object(eng_mod, "paged_attention", paged_checked):
-        lc, tc = _first_logits(params, cfg, dev, prompt, steps, quant)
+        lc, tc = _first_logits(params, cfg, dev, prompt, steps, quant,
+                               int8_qk)
     if not paged_errs:
         fail("the card engine made no paged call: nothing was checked")
     lr, tr = _first_logits(params, dataclasses.replace(cfg, dtype=torch.float32),
-                           "cpu", prompt, steps, quant)
+                           "cpu", prompt, steps, quant, int8_qk)
     err = (lc - lr).abs()
     max_err = float(err.max())
     if not torch.isfinite(lc).all():
@@ -2242,13 +2288,16 @@ def phase_vs_cpu(cfg, params, dev, prompt_len, steps, quant=None):
              f"{max_err:.3e}, over tolerance {tol:g} (abs + rel)")
     agree, prefix = _agreement(tc, tr)
     tag = f"{quant} pages" if quant else "bf16"
+    if int8_qk is not None:
+        tag += f", int8_qk {int8_qk}"
     if cfg.d_head > 128:
         tag += f", head dim {cfg.d_head}"
     log(f"[vs_cpu] {tag}: first-token logits max |card - cpu fp32| "
         f"{max_err:.3e} (tol {tol:g} abs+rel; max |logit| "
         f"{float(lr.abs().max()):.3e}); greedy tokens equal at {agree}/{steps}"
         f" steps, first {prefix} identical")
-    rec = dict(quant=quant, max_abs_err=max_err, tol=tol, greedy_agree=agree,
+    rec = dict(quant=quant, int8_qk=int8_qk, max_abs_err=max_err, tol=tol,
+               greedy_agree=agree,
                greedy_prefix=prefix, steps=steps, paged_calls=len(paged_errs),
                paged_calls_max_abs_err=max(paged_errs, default=0.0))
     limit = (f"rtol {KERNEL_RTOL[cfg.dtype]:g} + atol {WIDE_PAGED_ATOL:g} x "
@@ -2601,13 +2650,14 @@ def phase_multihost(cfg, ecfg, dev, n_req, prompt_range, n_new, draft_cfg):
     return rec
 
 
-def _fa3_fp8_run(q, k, v, do, fmt, saved=None):
+def _fa3_fp8_run(q, k, v, do, fmt, int8_pv, saved=None):
     """fa3_attention(fp8=True) forward and backward: (o, lse, dq, dk, dv).
     With ``saved`` = (o, lse) of another run, the straight-through backward
     takes those in place of this forward's own: its di = rowsum(o * do) then
     reads the same o as that run's backward did."""
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-    o, lse = fa3_attention(*leaves, causal=True, fp8=True, fp8_fmt=fmt)
+    o, lse = fa3_attention(*leaves, causal=True, fp8=True, fp8_fmt=fmt,
+                           int8_pv=int8_pv)
     if saved is None:
         o.backward(do)
     else:
@@ -2626,7 +2676,8 @@ def phase_fa3_fp8(dev, shape, check_shape, on_card):
     """The FA3 8-bit path through its public entry point:
     ``fa3_attention(fp8=True)`` forward and backward on the kernel backend,
     e4m3 (auto mode: more than one q block, so predecode = dequantize +
-    flash_fwd) and int8 (auto mode: fused = flash_fwd_fp8).
+    flash_fwd) and int8 (auto mode: fused = flash_fwd_fp8), with p in bf16
+    and re-quantized (``int8_pv="s8"``), both on its tensor-core route.
 
     At ``shape`` counts are set to 0 just before each run and read just
     after (one 8-bit or flash forward and one flash backward), outputs must
@@ -2642,43 +2693,48 @@ def phase_fa3_fp8(dev, shape, check_shape, on_card):
     exact = sdpa(q.float(), k.float(), v.float(), is_causal=True)
     small = [x[:, :, :check_shape[2]].contiguous() for x in base]
     out = {}
-    for fmt, want in (("fp8", "flash_fwd"), ("int8", "flash_fwd_fp8")):
+    for fmt, int8_pv, want in (("fp8", "bf16", "flash_fwd"),
+                               ("int8", "bf16", "flash_fwd_fp8"),
+                               ("int8", "s8", "flash_fwd_fp8")):
+        arm = fmt if int8_pv == "bf16" else f"{fmt}_{int8_pv}"
         sync(dev)
         reset_counts()
         t0 = time.perf_counter()
-        res = _fa3_fp8_run(q, k, v, do, fmt)
+        res = _fa3_fp8_run(q, k, v, do, fmt, int8_pv)
         sync(dev)
         wall = time.perf_counter() - t0
         counts = read_counts()
         o = res[0]
         if (not all(torch.isfinite(x.float()).all() for x in res)
                 or o.shape != q.shape):
-            fail(f"fa3_attention(fp8=True, {fmt}): non-finite or misshapen "
+            fail(f"fa3_attention(fp8=True, {arm}): non-finite or misshapen "
                  f"output")
         if on_card:
             other = "flash_fwd_fp8" if want == "flash_fwd" else "flash_fwd"
             if (counts[want], counts[other], counts["flash_bwd"]) != (1, 0, 1):
-                fail(f"fa3_attention(fp8=True, {fmt}) launched {counts}; want "
+                fail(f"fa3_attention(fp8=True, {arm}) launched {counts}; want "
                      f"one {want} and one flash_bwd")
             if want == "flash_fwd_fp8" and counts["flash_fwd_fp8_tc"] != 1:
-                fail(f"fa3_attention(fp8=True, {fmt}): flash_fwd_fp8 did not "
+                fail(f"fa3_attention(fp8=True, {arm}): flash_fwd_fp8 did not "
                      f"take the tensor-core route")
         vs_exact = float((o.float() - exact).abs().max())
         del res, o
         # the same call on the CPU at the small shape
-        card = _fa3_fp8_run(*(x.to(dev, torch.bfloat16) for x in small), fmt)
+        card = _fa3_fp8_run(*(x.to(dev, torch.bfloat16) for x in small), fmt,
+                            int8_pv)
         cpu = _fa3_fp8_run(*(x.to(torch.bfloat16) for x in small), fmt,
-                           saved=[x.cpu() for x in card[:2]])
+                           int8_pv, saved=[x.cpu() for x in card[:2]])
         err = {}
         for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), card, cpu):
             tol = ((LSE_TOL, LSE_TOL) if name == "lse"
                    else kernel_tol(BF16, r))
-            err[name] = check_close(f"fa3 fp8 {fmt} {name} card vs cpu",
+            err[name] = check_close(f"fa3 fp8 {arm} {name} card vs cpu",
                                     a.cpu(), r, *tol)
-        out[fmt] = dict(max_abs_vs_exact=vs_exact, fwd_bwd_wall_ms=wall * 1e3,
+        out[arm] = dict(max_abs_vs_exact=vs_exact, fwd_bwd_wall_ms=wall * 1e3,
                         launches=counts, check_shape=check_shape,
                         card_vs_cpu_max_abs=err)
-        log(f"[fa3_fp8] {shape} causal {fmt}: forward+backward {wall * 1e3:.2f}"
+        log(f"[fa3_fp8] {shape} causal {arm}: forward+backward "
+            f"{wall * 1e3:.2f}"
             f" ms wall (first call); launches {counts}; max |o - exact| "
             f"{vs_exact:.3e} (quantization error, not gated); at "
             f"{check_shape} card vs cpu: "
@@ -3755,14 +3811,16 @@ def ptxas_entries(text):
 # sparse ones in bf16 at D 64, 128 and 256, each with one and two consumer
 # warpgroups but the D-split dK/dV at 256 (two), and in fp32 (3xTF32) at
 # D 64 with one and two, at D 128 with one and at D 256 the wide kernels;
-# the 8-bit forward at D 64, 128 and 256 for e4m3, e5m2 and int8.
+# the 8-bit forward at D 64, 128 and 256 for e4m3, e5m2, int8 and int8 with
+# p re-quantized (int8_pv "s8").
 SM90_KERNELS = {"flash_fwd": 6, "flash_bwd": 12, "sparse_fwd": 10,
-                "sparse_bwd": 19, "flash_fwd_fp8": 9}
+                "sparse_bwd": 19, "flash_fwd_fp8": 12}
 # The paged split kernels: bf16, int8 (convert and "qk"), e4m3 and e5m2
 # pages, each on the lane-group walk at 1 and 2 rows (D <= 128) and on the
-# tensor-core walk at 1, 2 and 4 row tiles a CTA.
-SPLIT_KERNELS = 25
-SPLIT_TC_KERNELS = 15
+# tensor-core walk at 1, 2 and 4 row tiles a CTA; int8 "full" on the
+# tensor-core walk only.
+SPLIT_KERNELS = 28
+SPLIT_TC_KERNELS = 18
 
 
 def dump_sass(names) -> dict[str, str]:
@@ -3892,7 +3950,7 @@ def sass_report(dumps):
     tensor-core kernels, registers and spill bytes from the build's ptxas
     report. Fails if a tensor-core kernel has no HGMMA or no UTMALDG, or
     spills, or one is missing, and if an int8 8-bit kernel
-    (``flash_fwd_fp8_sm90_kernel<DP, 2>``) has no IGMMA (s8 wgmma)."""
+    (``flash_fwd_fp8_sm90_kernel<DP, 2, S8>``) has no IGMMA (s8 wgmma)."""
     out = {}
     for name, want in SM90_KERNELS.items():
         sass = dumps[name]
@@ -3914,7 +3972,8 @@ def sass_report(dumps):
             if not rec["hgmma"] or not rec["utmaldg"]:
                 fail(f"{fn}: the tensor-core kernel has no HGMMA or no UTMALDG")
             if (name == "flash_fwd_fp8"
-                    and re.search(r"ILi\d+ELi2EE", fn) and not rec["igmma"]):
+                    and re.search(r"ILi\d+ELi2ELb[01]EE", fn)
+                    and not rec["igmma"]):
                 fail(f"{fn}: the int8 kernel has no IGMMA")
             if spill is None:
                 fail(f"{fn}: no ptxas report from this run's build")
@@ -3987,12 +4046,18 @@ def main() -> int:
                                         8, on_card=False)
         report["profile"] = phase_profile(cfg, params, ecfg, "cpu", steps=4)
         report["vs_cpu"] = phase_vs_cpu(cfg, params, "cpu", 40, 8)
-        for quant, n_req in (("fp8", 8), ("int8", 4)):
-            report[f"engine_{quant}"] = phase_engine(
-                cfg, params, dataclasses.replace(ecfg, quant=quant), "cpu",
-                n_req, (8, 60), 8, on_card=False)
+        for quant, int8_qk, n_req in (("fp8", None, 8), ("int8", None, 4),
+                                      ("int8", "full", 4)):
+            report["engine_" + quant + ("_full" if int8_qk else "")] = \
+                phase_engine(cfg, params,
+                             dataclasses.replace(ecfg, quant=quant,
+                                                 int8_qk=int8_qk),
+                             "cpu", n_req, (8, 60), 8, on_card=False)
         report["vs_cpu_fp8"] = phase_vs_cpu(cfg, params, "cpu", 40, 8,
                                             quant="fp8")
+        report["vs_cpu_int8_full"] = phase_vs_cpu(cfg, params, "cpu", 40, 8,
+                                                  quant="int8",
+                                                  int8_qk="full")
         gcfg = dataclasses.replace(cfg, d_model=512, n_heads=2, n_kv_heads=1,
                                    pos_encoding="rope")
         gparams = init_params(gcfg, seed=SEED, device="cpu")
@@ -4136,16 +4201,22 @@ def main() -> int:
     # Phase 4
     report["vs_cpu"] = phase_vs_cpu(cfg, params, dev, 100, 16)
 
-    # Phase 3b: quantized pages, same config and traffic (int8: 16 requests)
-    for quant, n_req in (("fp8", 64), ("int8", 16)):
-        report[f"engine_{quant}"] = phase_engine(
-            cfg, params, dataclasses.replace(ecfg, quant=quant), dev, n_req,
-            (32, 400), 64, on_card=True)
+    # Phase 3b: quantized pages, same config and traffic (int8: 16
+    # requests, in the default schedules and in "full")
+    for quant, int8_qk, n_req in (("fp8", None, 64), ("int8", None, 16),
+                                  ("int8", "full", 16)):
+        report["engine_" + quant + ("_full" if int8_qk else "")] = \
+            phase_engine(cfg, params,
+                         dataclasses.replace(ecfg, quant=quant,
+                                             int8_qk=int8_qk),
+                         dev, n_req, (32, 400), 64, on_card=True)
     report["profile_fp8"] = phase_profile(
         cfg, params, dataclasses.replace(ecfg, quant="fp8"), dev)
 
     # Phase 4b
     report["vs_cpu_fp8"] = phase_vs_cpu(cfg, params, dev, 100, 16, quant="fp8")
+    report["vs_cpu_int8_full"] = phase_vs_cpu(cfg, params, dev, 100, 16,
+                                              quant="int8", int8_qk="full")
 
     # Phase 3c: serving at Gemma 2B's attention widths (head dim 256, MQA
     # 8/1, 6 layers); the parameters are drawn on the card, which skips a
@@ -4380,6 +4451,9 @@ def main() -> int:
     for name, cases in (
         ("paged_attention", (("engine", "", "decode", "chunk"),
                              ("engine_int8", "int8", "decode_int8_qk", None),
+                             # phase 3b's "full" run on the tensor cores
+                             ("engine_int8_full", "int8,full",
+                              "decode_int8_full", "chunk_int8_full"),
                              ("engine_fp8", "fp8", "decode_fp8",
                               "chunk_fp8"),
                              # phase 3c: head dim 256, numbers of the
@@ -4458,6 +4532,28 @@ def main() -> int:
         bound_by=r["bound_by"], library_ms=None,
         yardstick_ms=r["yardstick_ms"], case=r["case"], path=r["route"],
         fma_ms=r["fma_ms"],
+        # Phi-2's head dim 80: phase-2 cases (m) int8 and (n) e4m3, and
+        # (o), (m) at D = 96
+        **{f"{key}_{x}": report["kernels"][f"fp8_{x}"][key]
+           for x in "mno" for key in ("ms", "fma_ms", "plain_ms",
+                                      "bound_ms", "yardstick_ms", "case")},
+    ))
+    # int8_pv "s8": launches of phase 5b's s8 arm, numbers of phase-2 case
+    # (k), that call's shape, with (l) (D = 256) and (g) beside them
+    r = report["kernels"]["fp8_k"]
+    fa3_s8 = report["fa3_fp8"]["int8_s8"]["launches"]
+    kernels.append(dict(
+        name="flash_fwd_fp8[s8]", **KERNELS["flash_fwd_fp8"],
+        launches=fa3_s8["flash_fwd_fp8"],
+        launches_tensor_core=fa3_s8["flash_fwd_fp8_tc"],
+        max_abs_err=max(r["max_abs_err"].values()), ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=None,
+        yardstick_ms=r["yardstick_ms"], case=r["case"], path=r["route"],
+        fma_ms=r["fma_ms"],
+        **{f"{key}_{x}": report["kernels"][f"fp8_{x}"][key]
+           for x in "lg" for key in ("ms", "fma_ms", "plain_ms", "bound_ms",
+                                     "yardstick_ms", "case")},
     ))
     # sparse_fwd / sparse_bwd: launches of phase 7's forward+backward
     # steps; numbers of phase-2 case (a), the model phase's call

@@ -40,6 +40,9 @@ struct Scales {
   const float* sv;  // (B, H_kv, nkb)
   int bq, bk, nqb, nkb;
   int s8;  // re-quantize p to int8 per row and key block
+  // s8 on the tensor-core route (flash_fwd_fp8.cu): (B, H, Nq, nkb) fp32
+  // scratch of each row's largest kept score in each key block
+  float* bmax = nullptr;
 };
 
 template <int DMAX, bool kQuant>

@@ -23,10 +23,7 @@
 // contribution to P.V is multiplied by sv[col / bk]. With pv_s8 (int8
 // payloads, int8_pv="s8") p is re-quantized per row and key block instead:
 // ps = max(max p, 1e-30) * (1/127), p8 = rint(p / ps), contribution
-// p8 * ps * sv * v8. To know a block's max p before its first tile, a
-// pre-pass over the block's tiles computes each row's largest visible score
-// (which becomes the running max, so p stays in one frame for the whole
-// block) and its largest kept score; this costs one more Q.K over the block.
+// p8 * ps * sv * v8.
 //
 // What bounds it on this card: the tensor-core rate. At the (1, 8, 8192, 128)
 // causal shape the work is 4 * B * H * N^2 * D / 2 flops (about 0.137 TFLOP):
@@ -35,8 +32,9 @@
 //
 // Two routes, chosen by the caller (ops/fp8_attn._tensor_core_route):
 //
-//   fat_flash_fwd_fp8_sm90 (D <= 256 with D % 32 == 0, int8_pv "bf16", key
-//     blocks bk a multiple of 128; every format, bf16 or fp32 output): the
+//   fat_flash_fwd_fp8_sm90 (D <= 256 with D % 16 == 0, the caller padding
+//     other head dims with zero bytes; key blocks bk a multiple of 128;
+//     every format, both int8_pv settings, bf16 or fp32 output): the
 //     structure of flash_fwd.cu's fat_flash_fwd_sm90. One CTA per (128
 //     query rows, head, batch); warpgroup 0's thread 0 issues TMA loads of
 //     the 1-byte Q tile once and of 1-byte K and V tiles (64 keys; 32 for
@@ -79,7 +77,9 @@
 //     against the plain version's acc + pv * sv), orders of magnitude
 //     inside the bf16 flash limit. v scales must be positive (the
 //     quantizers clamp them at 1e-6), and O's units stay finite while
-//     N_k * max|v| / min sv < 3.4e38. Shared memory: with 64-key tiles the
+//     N_k * max|v| / min sv < 3.4e38. A head dim below DP (D % 16 == 0, the
+//     rows' stride a whole 16 bytes for TMA) reads zeros past D from TMA.
+//     Shared memory: with 64-key tiles the
 //     e4m3 and e5m2 kernels would need 289 KB (1-byte and bf16 Q, two
 //     stages of 1-byte and bf16 K and V); they take 32-key tiles, 193 KB.
 //     int8 (no bf16 Q or K) takes 64-key tiles, 161 KB, but S of a whole
@@ -90,9 +90,38 @@
 //     256 bytes there: two 128-byte column boxes, and the s8 product's
 //     eight k32 steps run over two swizzle atoms as the bf16 product's k16
 //     steps do over its 64-column halves.
-//   fat_flash_fwd_fp8 (int8_pv "s8", D % 32 != 0): the first version,
-//     flash_fwd.cu's FMA body (flash_fwd.cuh) on payloads decoded into fp32
-//     shared-memory tiles.
+//
+//     int8_pv "s8" (the S8 kernels, int8 only) is the same two passes with
+//     three changes. Pass 0 also takes each row's largest kept score in
+//     each key block (visible and, with dropout, kept by the mask) and
+//     stores it at a block edge in a (B, H, Nq, nkb) fp32 scratch the
+//     wrapper allocates (4 B a row and block: 256 KB at (1, 8, 8192) with
+//     bk = 1024, read back from L2; shared memory has no room for it at D =
+//     256 beside the tiles, and nkb is unbounded). Pass 1 reads it where a
+//     block starts and derives ps = max(exp(mk - m) * drop_inv, 1e-30) / 127
+//     with the expression it uses for p, so the block's largest p quantizes
+//     to exactly 127, as in the plain version; a block with no kept key
+//     gets ps = 1e-30 / 127 and contributes 0. p8 = rint(p / ps) (the
+//     quotient IEEE division gives, where the plain version divides: two
+//     FMA corrections of p * (1 / ps), div_rn) is an integer in [0, 127],
+//     exact in bf16, and stays the register A operand of the same bf16
+//     wgmma on the decoded V: a 64-key tile's sums are at most 64 * 127^2
+//     < 2^24, exact in fp32, so the tile's product is p8 . v8. (s8 wgmma
+//     reads only K-major B, and V is MN-major for P.V.) Up to D = 128 the
+//     tile folds in as acc += pv * (ps * sv). At D = 256 O is kept in
+//     units of ps * sv per row (the unit in shared memory, unit_s),
+//     rescaled by the old unit over the new where a block starts (a block
+//     with no kept key keeps the unit: it adds 0).
+//     Blocks whose ps lies below kPsFloor keep the unit kPsFloor * sv and
+//     scale p8 by ps / kPsFloor (rounded to bf16: such a block's p are all
+//     below 127 * kPsFloor = 1.1e-19 of the row's max), so a unit never
+//     falls far enough below O for O's units to overflow.
+//   fat_flash_fwd_fp8: the first version, flash_fwd.cu's FMA body
+//     (flash_fwd.cuh) on payloads decoded into fp32 shared-memory tiles,
+//     for key blocks that are not whole 128s (fp8_attention never
+//     quantizes in such blocks; fp8_attention_prequant can be handed
+//     them); chip_smoke holds it against the plain version and times it
+//     beside the tensor-core route.
 
 #include <cuda_fp8.h>
 
@@ -141,11 +170,26 @@ namespace fat {
 namespace sm90 {
 
 // Producer warpgroup (TMA issue and the V decode) and consumer warpgroups:
-// 40 + 2 x 232 registers of a 384-thread block fit the SM's 64K.
+// 40 + 2 x 232 registers of a 384-thread block fit the SM's 64K. s8 at D =
+// 256 takes 24 + 2 x 240 (64,512, as 40 + 2 x 232): each row's p scale,
+// its reciprocal and O's unit beside O's 128 registers spilled at 232,
+// and at 240 until O's unit moved to shared memory.
 constexpr int kFp8ProducerRegs = 40;
 constexpr int kFp8ConsumerRegs = 232;
 constexpr int kFp8Rows = 128;  // query rows per CTA, 64 per consumer
 constexpr int kDecoders = 96;  // warps 1-3 of the producer warpgroup
+// s8 at D = 256: the least p scale O's unit takes (the header)
+constexpr float kPsFloor = 0x1p-70f;
+
+// a / b as IEEE division rounds it, from rb = 1 / b (correctly rounded):
+// two corrections of a * rb by its exact FMA residual (Markstein), without
+// div.rn.f32's range check and slow path each element. s8's quotients lie
+// in [0, 127] with b >= 1e-30 / 127, far from overflow and underflow.
+__device__ __forceinline__ float div_rn(float a, float b, float rb) {
+  float q = a * rb;
+  q = fmaf(fmaf(-b, q, a), rb, q);
+  return fmaf(fmaf(-b, q, a), rb, q);
+}
 
 template <int DP, int FMT>
 struct Fp8Sm90Cfg {
@@ -172,13 +216,16 @@ struct Fp8Sm90Cfg {
   static constexpr int QB_BYTES = kDecQK ? kFp8Rows * DP * 2 : 0;
   static constexpr int KB_BYTES = kDecQK ? VB_BYTES : 0;
   static constexpr int BARS = 2 + 5 * STAGES;
+  // s8 at D = 256: O's unit of each consumer thread's two rows
+  static constexpr int UNIT_BYTES = !kFold && FMT == 2 ? 256 * 2 * 4 : 0;
   static constexpr size_t SMEM = 1024 + Q_BYTES + QB_BYTES +
                                  STAGES * (2 * T_BYTES + VB_BYTES + KB_BYTES) +
-                                 8 * BARS;
+                                 8 * BARS + UNIT_BYTES;
   static_assert(SMEM <= 232448, "above one CTA's shared memory");
 };
 
-template <int DP, int FMT>
+// S8: int8_pv "s8" (FMT == 2 only), p re-quantized per row and key block.
+template <int DP, int FMT, bool S8>
 __global__ void __launch_bounds__(kThreadsWS, 1)
 flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -202,6 +249,7 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* v_full = k_dec + STAGES;    // the 1-byte V tile arrived
   uint64_t* v_dec = v_full + STAGES;    // ... and was decoded to bf16
   uint64_t* empty = v_dec + STAGES;
+  float* unit_s = reinterpret_cast<float*>(empty + STAGES);  // UNIT_BYTES
 
   const int b = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * kFp8Rows;
   const int hk = h / (a.H / a.H_kv);
@@ -223,7 +271,7 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (threadIdx.x < 128) {  // producer warpgroup
-    reg_dealloc<kFp8ProducerRegs>();
+    reg_dealloc<(S8 && DP > 128) ? 24 : kFp8ProducerRegs>();
     if (threadIdx.x == 0 && walk.n_walk > 0) {
       const int kplane = b * a.H_kv + hk;
       mbar_expect_tx(q_full, Cfg::Q_BYTES);
@@ -269,7 +317,7 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   } else {  // consumers
-    reg_alloc<kFp8ConsumerRegs>();
+    reg_alloc<(S8 && DP > 128) ? 240 : kFp8ConsumerRegs>();
     const int cw = threadIdx.x / 128 - 1;  // 64-row slice of the q tile
     const int t = threadIdx.x % 128;
     const int row0 = r0 + 64 * cw;
@@ -284,6 +332,13 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     }
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     float su = 0.f;  // without kFold: the v scale O is counted in
+    // S8: each row's p scale in the current key block and its reciprocal;
+    // with kFold the factor its tiles fold in with (ps * sv); without, O's
+    // unit (ps * sv, ps at least kPsFloor), kept in shared memory (beside
+    // O's 128 registers, in registers it spilled 16 bytes at 240)
+    float ps[2] = {1.f, 1.f}, rps[2] = {1.f, 1.f}, pfold[2] = {0.f, 0.f};
+    float* unit = unit_s + 2 * (threadIdx.x - 128);
+    if constexpr (S8 && !Cfg::kFold) unit[0] = unit[1] = 0.f;
     float acc[DP / 2];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
@@ -293,7 +348,9 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // V again; both passes run the same S instructions on the same tiles.
     // S of keys [sub * SUB, (sub + 1) * SUB) of the tile: returns its first
     // key.
-    auto scores = [&](int i, int sub, float (&sc)[SUB / 2], float (&mx)[2]) {
+    // S8 with `kept`: mk takes each row's largest kept score (pass 0).
+    auto scores = [&](int i, int sub, float (&sc)[SUB / 2], float (&mx)[2],
+                      float (&mk)[2], bool kept) {
       const int s = i % STAGES, ph = (i / STAGES) & 1;
       const int c0 = walk.tile(i % walk.n_walk) * KEYS + sub * SUB;
       const float skt = f.sk[kvb + c0 / f.bk];
@@ -349,22 +406,46 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
               a, h, row, col, sc[k] * fac[r], &dcap);
           mx[r] = fmaxf(mx[r], vis ? x : kMaskValue);
           sc[k] = vis ? x : -INFINITY;
+          if constexpr (S8) {
+            if (kept && vis && (!a.dropout || keep(a, bh, row, col))) {
+              mk[r] = fmaxf(mk[r], x);
+            }
+          }
         }
       });
       return c0;
     };
+    // S8: scratch entry of (row, key block)
+    auto bmax_at = [&](int row, int blk) {
+      return f.bmax + ((size_t)bh * a.Nq + row) * f.nkb + blk;
+    };
+    auto block_of = [&](int w) { return walk.tile(w) * KEYS / f.bk; };
 
     // Pass 0: each row's final max, so that p is rounded to bf16 at it, as
     // fp8_fwd_plain rounds (a one-pass online softmax rounding at the
     // running max missed the two-ulp limit at near-zero outputs).
+    float mk[2] = {-INFINITY, -INFINITY};  // S8: the block's kept max
     for (int w = 0; w < walk.n_walk; ++w) {
 #pragma unroll
       for (int sub = 0; sub < KEYS / SUB; ++sub) {
         float sc[SUB / 2];
-        scores(w, sub, sc, m);
+        scores(w, sub, sc, m, mk, true);
       }
       mbar_arrive(&empty[w % STAGES]);
+      if constexpr (S8) {  // a block's last tile: store its rows' kept max
+        if (w + 1 == walk.n_walk || block_of(w + 1) != block_of(w)) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            mk[r] = fmaxf(mk[r], __shfl_xor_sync(kFull, mk[r], 1));
+            mk[r] = fmaxf(mk[r], __shfl_xor_sync(kFull, mk[r], 2));
+            const int row = row0 + acc_row(t, 2 * r);
+            if ((t & 3) == 0 && row < a.Nq) *bmax_at(row, block_of(w)) = mk[r];
+            mk[r] = -INFINITY;
+          }
+        }
+      }
     }
+    if constexpr (S8) __syncwarp();  // the quad leaders' stores, for pass 1
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       m[r] = fmaxf(m[r], __shfl_xor_sync(kFull, m[r], 1));
@@ -377,11 +458,39 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       const char* vt = vb_s + s * Cfg::VB_BYTES;
       uint32_t pa[KEYS / 16][4];  // p in bf16, the A operand of P·V
       float svt = 0.f;            // the tile's v scale
+      if constexpr (S8) {
+        // A key block starts: its p scales from pass 0's kept maxima, at
+        // the final max m, by the expression p takes below.
+        if (w == 0 || block_of(w - 1) != block_of(w)) {
+          const float svb = f.sv[kvb + block_of(w)];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = row0 + acc_row(t, 2 * r);
+            const float mkr =
+                row < a.Nq ? *bmax_at(row, block_of(w)) : -INFINITY;
+            float pmax = mkr == -INFINITY ? 0.f : expf(mkr - m[r]);
+            if (a.dropout) pmax *= a.drop_inv;
+            ps[r] = fmaxf(pmax, 1e-30f) * (1.f / 127.f);
+            rps[r] = 1.f / ps[r];
+            if constexpr (Cfg::kFold) {
+              pfold[r] = ps[r] * svb;
+            } else if (mkr != -INFINITY) {  // else the block adds 0
+              const float u = fmaxf(ps[r], kPsFloor) * svb;
+              const float ratio = unit[r] == 0.f ? 0.f : unit[r] / u;
+#pragma unroll
+              for (int k = 0; k < DP / 2; ++k) {
+                if (((k >> 1) & 1) == r) acc[k] *= ratio;
+              }
+              unit[r] = u;
+            }
+          }
+        }
+      }
 #pragma unroll
       for (int sub = 0; sub < KEYS / SUB; ++sub) {
         // (the scores wait for the previous part's P·V too)
         float sc[SUB / 2], unused[2] = {-INFINITY, -INFINITY};
-        const int cs = scores(i, sub, sc, unused);
+        const int cs = scores(i, sub, sc, unused, unused, false);
 #pragma unroll
         for (int k = 0; k < SUB / 2; ++k) {
           const int r = (k >> 1) & 1;
@@ -391,22 +500,29 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
             const int row = row0 + acc_row(t, k), col = cs + acc_col(t, k);
             p = keep(a, bh, row, col) ? p * a.drop_inv : 0.f;
           }
+          if constexpr (S8) {
+            p = rintf(div_rn(p, ps[r], rps[r]));
+            // below the floor O's unit is kPsFloor * sv: p8 * ps / kPsFloor
+            // (kPsFloor a power of two)
+            if (!Cfg::kFold && ps[r] < kPsFloor) p *= ps[r] * (1.f / kPsFloor);
+          }
           sc[k] = p;
         }
-        uint32_t ps[SUB / 16][4];
-        acc_to_a<SUB>(sc, ps);
+        uint32_t pf[SUB / 16][4];
+        acc_to_a<SUB>(sc, pf);
 #pragma unroll
         for (int j = 0; j < SUB / 16; ++j) {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) pa[sub * SUB / 16 + j][q] = ps[j][q];
+          for (int q = 0; q < 4; ++q) pa[sub * SUB / 16 + j][q] = pf[j][q];
         }
         if (sub == 0) svt = f.sv[kvb + cs / f.bk];
         if constexpr (!Cfg::kFold) {
           // O in units of su: where a tile's sv differs (a new key block),
-          // O is rescaled by su / sv first (before the first tile O is 0).
-          // This part's P·V runs while the next part's S is computed.
+          // O is rescaled by su / sv first (before the first tile O is 0;
+          // S8 rescaled it above). This part's P·V runs while the next
+          // part's S is computed.
           if (sub == 0) {
-            if (svt != su) {
+            if (!S8 && svt != su) {
               const float r = su == 0.f ? 0.f : su / svt;
 #pragma unroll
               for (int k = 0; k < DP / 2; ++k) acc[k] *= r;
@@ -440,7 +556,9 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         fence_regs(pv);
         mbar_arrive(&empty[s]);
 #pragma unroll
-        for (int k = 0; k < DP / 2; ++k) acc[k] = fmaf(pv[k], svt, acc[k]);
+        for (int k = 0; k < DP / 2; ++k) {
+          acc[k] = fmaf(pv[k], S8 ? pfold[(k >> 1) & 1] : svt, acc[k]);
+        }
       } else {
         wgmma_wait<0>();
         fence_regs(acc);
@@ -456,7 +574,7 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       const int row = row0 + acc_row(t, 2 * r);
       if (row >= a.Nq) continue;
       const float l_safe = l[r] == 0.f ? 1.f : l[r];
-      const float ou = Cfg::kFold ? 1.f : su;  // O's unit
+      const float ou = Cfg::kFold ? 1.f : (S8 ? unit[r] : su);  // O's unit
       const size_t base = (size_t)bh * a.Nq + row;
 #pragma unroll
       for (int n = 0; n < DP / 8; ++n) {
@@ -479,7 +597,7 @@ flash_fwd_fp8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int DP, int FMT>
+template <int DP, int FMT, bool S8>
 cudaError_t launch_fp8_sm90(const AttnArgs& a, const Scales& f, void* o,
                             int out_f32, float* lse, cudaStream_t st) {
   using Cfg = Fp8Sm90Cfg<DP, FMT>;
@@ -493,7 +611,7 @@ cudaError_t launch_fp8_sm90(const AttnArgs& a, const Scales& f, void* o,
     err = make_map8(&tv, a.v, a.B * a.H_kv, a.Nk, a.D, kv_box);
   }
   if (err != cudaSuccess) return err;
-  auto kernel = flash_fwd_fp8_sm90_kernel<DP, FMT>;
+  auto kernel = flash_fwd_fp8_sm90_kernel<DP, FMT, S8>;
   constexpr size_t smem = Cfg::SMEM;
   err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -506,9 +624,12 @@ template <int DP>
 cudaError_t fp8_sm90_by_fmt(int fmt, const AttnArgs& a, const Scales& f,
                             void* o, int out_f32, float* lse,
                             cudaStream_t st) {
-  if (fmt == 0) return launch_fp8_sm90<DP, 0>(a, f, o, out_f32, lse, st);
-  if (fmt == 1) return launch_fp8_sm90<DP, 1>(a, f, o, out_f32, lse, st);
-  if (fmt == 2) return launch_fp8_sm90<DP, 2>(a, f, o, out_f32, lse, st);
+  if (f.s8) return launch_fp8_sm90<DP, 2, true>(a, f, o, out_f32, lse, st);
+  switch (fmt) {
+    case 0: return launch_fp8_sm90<DP, 0, false>(a, f, o, out_f32, lse, st);
+    case 1: return launch_fp8_sm90<DP, 1, false>(a, f, o, out_f32, lse, st);
+    case 2: return launch_fp8_sm90<DP, 2, false>(a, f, o, out_f32, lse, st);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -556,10 +677,12 @@ int fat_flash_fwd_fp8(const void* q8, const void* k8, const void* v8,
 }
 
 
-// The tensor-core route: D <= 256 with D % 32 == 0, pv_s8 == 0, bk a
-// multiple of 128; q8, k8 and v8 16-byte aligned (TMA). Same arguments as
-// fat_flash_fwd_fp8. D <= 64 runs the DP = 64 kernels, D <= 128 the 128
-// ones, any other D the 256 ones.
+// The tensor-core route: D <= 256 with D % 16 == 0 (the caller pads
+// other head dims with zero bytes), bk a multiple of 128; q8, k8 and v8
+// 16-byte aligned (TMA). The arguments of fat_flash_fwd_fp8, and bmax: with
+// pv_s8 (int8 only) fp32 scratch of B * H * Nq * ceil(Nk / bk) floats,
+// else unused. D <= 64 runs the DP = 64 kernels, D <= 128 the 128 ones,
+// any other D the 256 ones.
 int fat_flash_fwd_fp8_sm90(const void* q8, const void* k8, const void* v8,
                            const void* sq, const void* sk, const void* sv,
                            void* o, void* lse, const void* q_ids,
@@ -569,12 +692,13 @@ int fat_flash_fwd_fp8_sm90(const void* q8, const void* k8, const void* v8,
                            float softcap, float softcap_inv, int dropout,
                            uint32_t drop_threshold, uint32_t seed,
                            float drop_inv, int bq, int bk, int fmt, int pv_s8,
-                           int out_dtype, void* stream) {
+                           int out_dtype, void* bmax, void* stream) {
   using namespace fat;
-  if (D < 32 || D > 256 || D % 32 != 0 || H_kv < 1 || H % H_kv != 0 ||
+  if (D < 16 || D > 256 || D % 16 != 0 || H_kv < 1 || H % H_kv != 0 ||
       B < 1 || Nq < 1 || Nk < 1 || H > 65535 || B > 65535 || bq < 1 ||
-      bk < 1 || bk % 128 != 0 || pv_s8 || fmt < 0 || fmt > 2 ||
-      out_dtype < 0 || out_dtype > 1) {
+      bk < 1 || bk % 128 != 0 || fmt < 0 || fmt > 2 ||
+      (pv_s8 && (fmt != 2 || bmax == nullptr)) || out_dtype < 0 ||
+      out_dtype > 1) {
     return (int)cudaErrorInvalidValue;
   }
   AttnArgs a{q8, k8, v8, static_cast<const int32_t*>(q_ids),
@@ -584,7 +708,7 @@ int fat_flash_fwd_fp8_sm90(const void* q8, const void* k8, const void* v8,
              drop_threshold, seed, drop_inv};
   Scales f{static_cast<const float*>(sq), static_cast<const float*>(sk),
            static_cast<const float*>(sv), bq, bk, (Nq + bq - 1) / bq,
-           (Nk + bk - 1) / bk, 0};
+           (Nk + bk - 1) / bk, pv_s8, static_cast<float*>(bmax)};
   auto st = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<float*>(lse);
   cudaError_t err;

@@ -205,7 +205,8 @@ def fa3_attention(q, k, v, causal: bool = False, softmax_scale=None,
                   backend: str = "auto", fp8: bool = False, fp8_seed: int = 0,
                   dropout_rate: float = 0.0, dropout_seed: int | None = None,
                   generator: torch.Generator | None = None,
-                  fp8_fmt: str = "fp8", fp8_sign: torch.Tensor | None = None):
+                  fp8_fmt: str = "fp8", fp8_sign: torch.Tensor | None = None,
+                  int8_pv: str = "bf16"):
     """FA3 generation; ``fp8=True`` runs the 8-bit path.
 
     q and k first go through the randomized-Hadamard rotation
@@ -213,10 +214,12 @@ def fa3_attention(q, k, v, causal: bool = False, softmax_scale=None,
     drawn from a ``torch.Generator`` seeded with ``fp8_seed`` (JAX draws
     them with ``jax.random``; pass its vector to match). The kernel backend
     then runs ``fp8_attention`` (payloads of ``fp8_fmt``, q blocks of 512,
-    k/v blocks of 1024, clamped to the sequence); the tiled and reference
-    backends run on e4m3 fake-quantized inputs (blocks: the largest
-    divisors of N up to ``specs.fa3_block_q`` and ``specs.FA3_BLOCK_K``),
-    whatever ``fp8_fmt`` says, as in the JAX package."""
+    k/v blocks of 1024, clamped to the sequence; with int8 payloads
+    ``int8_pv="s8"`` re-quantizes p per key block, JAX's ``FAT_INT8_PV``);
+    the tiled and reference backends run on e4m3 fake-quantized inputs
+    (blocks: the largest divisors of N up to ``specs.fa3_block_q`` and
+    ``specs.FA3_BLOCK_K``), whatever ``fp8_fmt`` and ``int8_pv`` say, as
+    in the JAX package."""
     if not fp8:
         return flash_attention(q, k, v, causal=causal,
                                softmax_scale=softmax_scale, backend=backend,
@@ -230,7 +233,7 @@ def fa3_attention(q, k, v, causal: bool = False, softmax_scale=None,
             qr, kr, v, causal=causal, softmax_scale=softmax_scale,
             block_q=min(fa3_block_q(q.shape[-1]), FP8_KERNEL_BLOCK_Q),
             block_k=FA3_BLOCK_K, dropout_rate=dropout_rate,
-            dropout_seed=seed, fmt=fp8_fmt)
+            dropout_seed=seed, fmt=fp8_fmt, int8_pv=int8_pv)
     blk_q = fp8_block(q.shape[-2], fa3_block_q(q.shape[-1]))
     blk_k = fp8_block(k.shape[-2], FA3_BLOCK_K)
     return flash_attention(

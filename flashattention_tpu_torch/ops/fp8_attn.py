@@ -11,12 +11,16 @@ quantized function:
   ``fp8_attention.launches``), or to its plain version
   :func:`fp8_fwd_plain` on CPU tensors. ``"fused_cached"`` runs the same
   kernel: decoding each tile once was a TPU VMEM schedule, not another
-  function. The kernel has two routes, chosen by
-  :func:`_tensor_core_route`: Q·Kᵀ on 8-bit wgmma and P·V on bf16 wgmma
-  (``fat_flash_fwd_fp8_sm90``, counted also in
-  ``fp8_attention.tc_launches``) for ``int8_pv="bf16"``, D <= 256 with
-  D % 32 == 0 and key blocks a multiple of 128; the fp32 FMA kernel
-  (``fat_flash_fwd_fp8``) for ``int8_pv="s8"`` and other head dims.
+  function. Every call with key blocks a multiple of 128 and D <= 256
+  takes the tensor-core route (:func:`_tensor_core_route`): Q·Kᵀ on 8-bit
+  wgmma and P·V on bf16 wgmma (``fat_flash_fwd_fp8_sm90``, counted also in
+  ``fp8_attention.tc_launches``), in both ``int8_pv`` settings (s8's p8
+  are integers, exact in bf16); a head dim that is not a multiple of 16
+  is padded with zero bytes first (:func:`kernel_head_dim`). The fp32 FMA
+  kernel (``fat_flash_fwd_fp8``) takes only key blocks that are not whole
+  128s, which :func:`fp8_attention` never quantizes in (its blocks come
+  from ``specs.fp8_kernel_blocks``; :func:`fp8_attention_prequant` can be
+  handed such scales); chip_smoke times it beside the tensor-core route.
 - ``"predecode"``: the payloads are dequantized to bf16 in PyTorch ops and
   the flash forward (``ops/flash_attn.flash_fwd``, kernel B1) runs on them.
 
@@ -162,14 +166,34 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _tensor_core_route(int8_pv: str, d: int, bk: int) -> bool:
-    """True where the tensor-core kernel takes the call: p in bf16
-    (``int8_pv="bf16"``), D <= 256 with D % 32 == 0 (whole k32 steps of
-    the 8-bit product; 128 < D <= 256 runs the D = 256 kernels), and key
+def _tensor_core_route(d: int, bk: int) -> bool:
+    """True where the tensor-core kernel takes the call, in either
+    ``int8_pv`` setting: D <= 256 (128 < D <= 256 runs the D = 256
+    kernels; a head dim below the kernel's reads zeros past D) and key
     blocks a multiple of 128, so that one key tile never spans two v
-    scales. ``int8_pv="s8"`` re-quantizes p per key block, which the FMA
-    kernel keeps."""
-    return int8_pv != "s8" and d <= 256 and d % 32 == 0 and bk % 128 == 0
+    scales."""
+    return d <= 256 and bk % 128 == 0
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim the tensor-core kernel runs a call of head dim ``d``
+    at: ``d`` rounded up to a multiple of 16, so that a payload row is a
+    whole number of 16-byte units, as TMA's strides must be."""
+    return -(-d // 16) * 16
+
+
+def pad_head(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Payloads (..., D) padded with zero bytes to ``width`` columns. A
+    zero byte decodes to 0 in int8, e4m3 and e5m2, and the scales were
+    taken before the pad, so the attention of the padded payloads is the
+    same function with zero columns of o past D."""
+    d = x.shape[-1]
+    if width == d:
+        return x
+    out = torch.zeros(x.shape[:-1] + (width,), dtype=x.dtype,
+                      device=x.device)
+    out[..., :d] = x
+    return out
 
 
 def _fwd_cuda(q8, k8, v8, sq, sk, sv, bq, bk, opts, int8_pv, out_dtype):
@@ -194,42 +218,50 @@ def _fwd_cuda(q8, k8, v8, sq, sk, sv, bq, bk, opts, int8_pv, out_dtype):
             if t.dtype != torch.float32 or tuple(t.shape) != want[name]:
                 raise ValueError(f"{name} must be float32 {want[name]}, is "
                                  f"{t.dtype} {tuple(t.shape)}")
-    q8, k8, v8 = (fa._aligned16(x.contiguous()) for x in (q8, k8, v8))
+    tc = _tensor_core_route(d, bk)
+    s8 = int8_pv == "s8"
+    dk = kernel_head_dim(d) if tc else d
+    q8, k8, v8 = (fa._aligned16(pad_head(x.contiguous(), dk))
+                  for x in (q8, k8, v8))
     sq, sk, sv = sq.contiguous(), sk.contiguous(), sv.contiguous()
-    o = torch.empty((b, h, n_q, d), dtype=out_dtype, device=q8.device)
+    o = torch.empty((b, h, n_q, dk), dtype=out_dtype, device=q8.device)
     lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q8.device)
     if o.numel() == 0 or n_k == 0:
-        return o.zero_(), lse.fill_(float("-inf"))
+        return o.zero_()[..., :d].contiguous(), lse.fill_(float("-inf"))
+    # s8: each row's largest kept score in each key block, written by the
+    # kernel's first pass and read by its second
+    bmax = (torch.empty(b * h * n_q * -(-n_k // bk), dtype=torch.float32,
+                        device=q8.device) if tc and s8 else None)
     cap, rate = opts.softcap, opts.dropout_rate
     lib = _build.load_kernel("flash_fwd_fp8", _declare)
-    tc = _tensor_core_route(int8_pv, d, bk)
-    fn = lib.fat_flash_fwd_fp8_sm90 if tc else lib.fat_flash_fwd_fp8
-    err = fn(
+    args = (
         q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), sq.data_ptr(),
         sk.data_ptr(), sv.data_ptr(), o.data_ptr(), lse.data_ptr(),
         _ptr(opts.q_ids), _ptr(opts.kv_ids), _ptr(opts.slopes),
-        b, h, h_kv, n_q, n_k, d, float(opts.scale), int(opts.causal),
+        b, h, h_kv, n_q, n_k, dk, float(opts.scale), int(opts.causal),
         int(opts.offset), int(opts.window or 0), int(opts.sinks),
         float(cap or 0.0), float(1.0 / cap) if cap else 0.0,
         int(rate > 0.0), fa.dropout_threshold(rate) if rate > 0.0 else 0,
         int(opts.seed) & 0xFFFFFFFF,
         float(1.0 / (1.0 - rate)) if rate > 0.0 else 1.0,
-        int(bq), int(bk), _FMT_CODE[fmt], int(int8_pv == "s8"),
-        _OUT_CODE[out_dtype], torch.cuda.current_stream(q8.device).cuda_stream,
-    )
+        int(bq), int(bk), _FMT_CODE[fmt], int(s8), _OUT_CODE[out_dtype])
+    stream = torch.cuda.current_stream(q8.device).cuda_stream
+    err = (lib.fat_flash_fwd_fp8_sm90(*args, _ptr(bmax), stream) if tc
+           else lib.fat_flash_fwd_fp8(*args, stream))
     _build.check(err, "flash_fwd_fp8 launch")
     fp8_attention.launches += 1
     fp8_attention.tc_launches += tc
-    return o, lse
+    return (o if dk == d else o[..., :d].contiguous()), lse
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-    for fn in (lib.fat_flash_fwd_fp8, lib.fat_flash_fwd_fp8_sm90):
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [p] * 11 + [i, i, i, i, i, i, f, i, i, i, i, f, f, i, u, u, f]
-            + [i, i, i, i, i, p])
+    common = ([p] * 11 + [i, i, i, i, i, i, f, i, i, i, i, f, f, i, u, u, f]
+              + [i, i, i, i, i])
+    lib.fat_flash_fwd_fp8.restype = ctypes.c_int
+    lib.fat_flash_fwd_fp8.argtypes = common + [p]
+    lib.fat_flash_fwd_fp8_sm90.restype = ctypes.c_int
+    lib.fat_flash_fwd_fp8_sm90.argtypes = common + [p, p]
 
 
 def fp8_fwd(q8, k8, v8, sq, sk, sv, bq, bk, opts, *, int8_pv="bf16",

@@ -10,15 +10,15 @@ raises, and a launch that fails raises.
 Two routes, chosen by :func:`split_route` from the inputs alone: the split
 page walk (``fat_paged_attention_split``: the walk cut across CTAs, pages
 brought in by 1-D bulk copies, a second kernel merging the splits) for
-bf16 q over bf16 or 1-byte pages in the convert and "qk" schedules, and
-the first kernel (``fat_paged_attention``, ``fat_paged_attention_quant``)
-for fp32 pages or q, the "full" schedule and shapes the bulk copies cannot
-take. Both take head dims up to :data:`MAX_HEAD_DIM` (256); the split
-route needs D % 8 == 0, and above D = 128 the first kernel cuts its walk
-into splits too (:func:`first_plan`), merged by the split route's merge
-kernel. The split kernel walks a page on the tensor cores above D = 128
-and wherever a KV head has 3 query rows or more, else in lane groups on
-the CUDA cores (:func:`split_walk`). A larger head dim raises on the card
+bf16 q over bf16 or 1-byte pages in every schedule, and the first kernel
+(``fat_paged_attention``, ``fat_paged_attention_quant``) for fp32 pages
+or q and shapes the bulk copies cannot take. Both take head dims up to
+:data:`MAX_HEAD_DIM` (256); the split route needs D % 8 == 0, and above
+D = 128 the first kernel cuts its walk into splits too
+(:func:`first_plan`), merged by the split route's merge kernel. The split
+kernel walks a page on the tensor cores above D = 128, wherever a KV head
+has 3 query rows or more and in the "full" schedule, else in lane groups
+on the CUDA cores (:func:`split_walk`). A larger head dim raises on the card
 (the CPU plain version takes any).
 ``paged_attention.launches`` counts every call,
 ``paged_attention.split_launches`` the split route's,
@@ -141,13 +141,14 @@ _WALK_CODE = {"lanes": 0, "tc": 1}
 
 def split_route(q_dtype, page_dtype, mode, page_size, d, aligned=True):
     """True where the split kernel takes the call: bf16 q over bf16 pages,
-    or over 1-byte pages in the "convert" or "qk" schedule; D <= 256 with
+    or over 1-byte pages in any schedule ("full" on the tensor-core walk,
+    a split one walk step); D <= 256 with
     D % 8 == 0; a page's K (or V) slab of one KV head, ``page * D * elt``
     bytes, and for 1-byte pages its scale plane, ``page * 4`` bytes,
     multiples of 16; three stages of the ring within
     :data:`SPLIT_RING_BYTES`; every tensor the copies read 16-byte aligned
     (``aligned``). Everything else takes the first kernel."""
-    if q_dtype != torch.bfloat16 or mode == "full":
+    if q_dtype != torch.bfloat16:
         return False
     quant = page_dtype in _FMT_CODE
     if not quant and page_dtype != torch.bfloat16:
@@ -168,24 +169,27 @@ def tc_row_bytes(d):
     return ((d // 8) | 1) * 16
 
 
-def split_walk(d, rows):
-    """The split kernel's walk for head dim ``d`` and ``rows`` = G * T
-    query rows a KV head: "tc" (mma.sync products over each page, the head
-    dim cut over the CTA's 4 warps) above D = 128 and wherever a KV head
-    has 3 rows or more, "lanes" (lane groups of D / 8 lanes a slot on the
-    CUDA cores) for 1 or 2 rows up to D = 128. At GPT-3 Small's widths (D =
-    64) the tensor cores are faster from 3 rows on and slower at 1: PERF.md,
-    row 7 (scripts/paged_ab.py, scripts/paged_tc_variants.py)."""
-    return "tc" if d > 128 or rows >= 3 else "lanes"
+def split_walk(d, rows, mode="convert"):
+    """The split kernel's walk for head dim ``d``, ``rows`` = G * T query
+    rows a KV head and the schedule ``mode``: "tc" (mma.sync products over
+    each page, the head dim cut over the CTA's 4 warps) above D = 128,
+    wherever a KV head has 3 rows or more and for "full" (whose p8 are the
+    integer operand of that product; no lane-group "full" exists), "lanes"
+    (lane groups of D / 8 lanes a slot on the CUDA cores) for 1 or 2 rows
+    up to D = 128. At GPT-3 Small's widths (D = 64) the tensor cores are
+    faster from 3 rows on and slower at 1: PERF.md, row 7
+    (scripts/paged_ab.py, scripts/paged_tc_variants.py)."""
+    return "tc" if mode == "full" or d > 128 or rows >= 3 else "lanes"
 
 
 @functools.lru_cache(maxsize=256)
-def split_plan(h, h_kv, q_len, d, page_size, pps, quantized):
+def split_plan(h, h_kv, q_len, d, page_size, pps, quantized, mode="convert"):
     """The split kernel's launch plan, from shapes only (lengths live on
     the device): ``split_pages`` pages per split (at least 4 and
-    :data:`SPLIT_SLOTS` slots), ``n_splits`` to cover ``pps`` pages;
-    ``walk`` (:func:`split_walk`); ``row_groups`` CTAs per KV head;
-    ``stages`` of the ring.
+    :data:`SPLIT_SLOTS` slots; "full": one walk step,
+    :func:`full_step_pages`, also ``step_pages``), ``n_splits`` to cover
+    ``pps`` pages; ``walk`` (:func:`split_walk`); ``row_groups`` CTAs per
+    KV head; ``stages`` of the ring.
 
     On the tensor-core walk a CTA holds ``nrs`` row tiles of ``rps`` =
     :data:`TC_ROWS` rows (1, 2 or 4 tiles: 8, 16 or more rows a KV head),
@@ -193,18 +197,24 @@ def split_plan(h, h_kv, q_len, d, page_size, pps, quantized):
     ``stages`` (2-4) are as many as fit, beside its decoded tiles and score
     buffers, in its share of an SM's shared memory (:data:`TC_CTAS_PER_SM`):
     resident CTAs, not a deeper ring, set the 1-byte pages' time (PERF.md,
-    row 7w). On the lane-group walk a CTA holds the ``rps`` = 1 or 2 rows
-    (``nrs`` = 1), and ``lg`` = D / 8 lanes (4, 8 or 16) hold 8 columns each
-    of a slot."""
+    row 7w). "full" brings a step's K pages, then its V pages, one slab and
+    both scale planes a stage, and keeps the step's scores (a float a row
+    and slot) beside them. On the lane-group walk a CTA holds the ``rps`` =
+    1 or 2 rows (``nrs`` = 1), and ``lg`` = D / 8 lanes (4, 8 or 16) hold 8
+    columns each of a slot."""
     rows = (h // h_kv) * q_len
-    walk = split_walk(d, rows)
+    walk = split_walk(d, rows, mode)
+    full = mode == "full"
+    step = full_step_pages(page_size, pps) if full else 0
     if walk == "tc":
         lg, rps = 0, TC_ROWS
         nrs = 1 if rows <= TC_ROWS else (2 if rows <= 2 * TC_ROWS else 4)
-        stage = (2 * page_size * d + 8 * page_size if quantized
+        stage = (page_size * d + 8 * page_size if full
+                 else 2 * page_size * d + 8 * page_size if quantized
                  else 2 * page_size * tc_row_bytes(d))
         extra = ((2 * (32 * tc_row_bytes(d) + 128) if quantized else 0)
-                 + 2 * 4 * nrs * 32 * 16)
+                 + 2 * 4 * nrs * 32 * 16
+                 + (step * page_size // 16 * nrs * 32 * 16 if full else 0))
         share = TC_SMEM_BYTES // TC_CTAS_PER_SM[nrs]
         stages = max(2, min(4, (share - extra) // stage))
         slots = (TC_WIDE_SLOTS[nrs == 1 and not quantized] if d > 128
@@ -216,11 +226,12 @@ def split_plan(h, h_kv, q_len, d, page_size, pps, quantized):
             8 * page_size if quantized else 0)
         stages = max(3, min(4, SPLIT_RING_TARGET // stage))
         slots = SPLIT_SLOTS[True]
-    split_pages = min(SPLIT_MAX_PAGES, max(4, slots // page_size))
+    split_pages = (step if full
+                   else min(SPLIT_MAX_PAGES, max(4, slots // page_size)))
     return dict(
         split_pages=split_pages, n_splits=-(-pps // split_pages), walk=walk,
         lg=lg, rps=rps, nrs=nrs, row_groups=-(-rows // (rps * nrs)),
-        stages=stages)
+        stages=stages, step_pages=step)
 
 
 @functools.lru_cache(maxsize=256)
@@ -444,7 +455,7 @@ def paged_attention(
     aligned = all(x.data_ptr() % 16 == 0 for x in
                   (qq, k_pages, v_pages, k_scales, v_scales) if x is not None)
     if split_route(q.dtype, k_pages.dtype, mode, page_size, d, aligned):
-        plan = split_plan(h, h_kv, t, d, page_size, pps, quantized)
+        plan = split_plan(h, h_kv, t, d, page_size, pps, quantized, mode)
         part = torch.empty(plan["n_splits"] * b * h * t * (d + 2),
                            dtype=torch.float32, device=q.device)
         err = lib.fat_paged_attention_split(
@@ -457,7 +468,8 @@ def paged_attention(
             int(sinks), float(softcap) if softcap is not None else 0.0,
             _FMT_CODE.get(k_pages.dtype, 0), _MODE_CODE[mode],
             plan["split_pages"], plan["n_splits"], _WALK_CODE[plan["walk"]],
-            plan["lg"], plan["rps"], plan["nrs"], plan["stages"], stream,
+            plan["lg"], plan["rps"], plan["nrs"], plan["stages"],
+            plan["step_pages"], stream,
         )
         _build.check(err, "paged_attention split launch")
         paged_attention.launches += 1
@@ -514,5 +526,5 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fat_paged_attention_split.restype = ctypes.c_int
     lib.fat_paged_attention_split.argtypes = [
         p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, f, i, i,
-        i, i, i, i, i, i, i, p,
+        i, i, i, i, i, i, i, i, p,
     ]

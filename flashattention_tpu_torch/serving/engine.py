@@ -83,6 +83,10 @@ class EngineConfig:
     max_seq_len: int = 512         # per-sequence cap
     prefill_pad: int = 64          # prefill chunk length
     quant: str | None = None       # None | "int8" | "fp8" | "e5m2" pages
+    # int8 pages: the schedule of every paged-attention call, as the JAX
+    # engine's FAT_PAGED_INT8_MXU: None the default rule ("qk" at decode,
+    # convert for chunks), "qk" (or True), "full", False the convert path
+    int8_qk: bool | str | None = None
     prefix_cache: bool = False     # share full prompt-prefix pages
     eos_token: int | None = None
     sampling: SamplingConfig | None = None  # None / temperature 0 = greedy
@@ -228,10 +232,12 @@ def _maybe_rope(q, k, cfg, pos):
 
 def _attn_kwargs(cfg, cache: PagedKVCache):
     """Paged-attention arguments of one layer: the model's, and the scale
-    planes of a quantized cache (the compute type is then q's dtype)."""
+    planes and int8 schedule of a quantized cache (the compute type is then
+    q's dtype)."""
     return dict(k_scales=cache.k_scales, v_scales=cache.v_scales,
                 softmax_scale=cfg.softmax_scale, window=cfg.attention_window,
-                softcap=cfg.attn_softcap, sinks=cfg.attention_sinks)
+                softcap=cfg.attn_softcap, sinks=cfg.attention_sinks,
+                int8_qk=cache.int8_qk)
 
 
 def chunk_prefill(w, cfg, caches: list[PagedKVCache], tokens, page_row,
@@ -417,6 +423,9 @@ class ServingEngine:
                 raise ValueError("target and draft must share a vocabulary")
         elif ecfg.spec_gamma:
             raise ValueError("spec_gamma > 0 requires draft_params/draft_cfg")
+        if ecfg.int8_qk not in (None, True, False, "qk", "full"):
+            raise ValueError(f"int8_qk must be None, a bool, 'qk' or 'full', "
+                             f"got {ecfg.int8_qk!r}")
         if ecfg.prefix_cache and cfg.attention_window is not None:
             raise ValueError(
                 "prefix_cache cannot combine with attention_window: window "
@@ -429,7 +438,7 @@ class ServingEngine:
         self.caches = [
             init_paged_cache(cfg.kv_heads, ecfg.num_pages, ecfg.page_size,
                              cfg.d_head, quant=ecfg.quant, dtype=cfg.dtype,
-                             device=self.device)
+                             device=self.device, int8_qk=ecfg.int8_qk)
             for _ in range(cfg.n_layers)
         ]
         if self.spec:
@@ -443,7 +452,7 @@ class ServingEngine:
                 init_paged_cache(draft_cfg.kv_heads, ecfg.num_pages,
                                  ecfg.page_size, draft_cfg.d_head,
                                  quant=ecfg.quant, dtype=draft_cfg.dtype,
-                                 device=self.device)
+                                 device=self.device, int8_qk=ecfg.int8_qk)
                 for _ in range(draft_cfg.n_layers)
             ]
             self.spec_proposed = 0

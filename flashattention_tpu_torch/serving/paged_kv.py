@@ -36,6 +36,9 @@ class PagedKVCache:
     k_scales: torch.Tensor | None = None  # (H_kv, P, page, 1) fp32 or None
     v_scales: torch.Tensor | None = None
     quant: str | None = None
+    # the int8 schedule paged attention reads these pages in
+    # (ops/paged_attention's int8_qk; None: its default rule)
+    int8_qk: bool | str | None = None
 
     @property
     def page_size(self) -> int:
@@ -55,6 +58,7 @@ def init_paged_cache(
     quant: str | None = None,
     dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device | None = None,
+    int8_qk: bool | str | None = None,
 ) -> PagedKVCache:
     """Zeroed pages on ``device`` (None: the card): ``dtype`` values, or
     the payloads of ``quant`` with scale planes of ones."""
@@ -68,6 +72,7 @@ def init_paged_cache(
         k_pages=torch.zeros(shape, dtype=payload, device=device),
         v_pages=torch.zeros(shape, dtype=payload, device=device),
         quant=quant,
+        int8_qk=int8_qk,
     )
     if quant:
         cache.k_scales, cache.v_scales = (

@@ -3,7 +3,8 @@
 ``csrc/flash_fwd_fp8.cu``, and an A/B of the D <= 128 cases against another
 checkout.
 
-    python3 scripts/fp8_tc_variants.py [--parent DIR] [--variants a,b,...]
+    python3 scripts/fp8_tc_variants.py [--parent DIR] [--ab-cases a,b,...]
+                                       [--variants a,b,...]
 
 Cases: chip_smoke's fp8 case (h), int8 (1, 8, 8192, 256) causal (PERF.md
 row 6w), and (i), Gemma 2B's MQA (1, 8/1, 4096, 256) in e4m3. Variants,
@@ -32,11 +33,12 @@ spill bytes of each:
 Each variant's ms (chip_smoke's Timer: CUDA events, median of 30, L2
 flushed) and, but for the diagnostics, its largest error against the plain
 version with the verdict of chip_smoke's limits. With ``--parent DIR``, fp8
-cases (a)-(g) (D <= 128) on this checkout's kernel and on DIR's, in turns
-A, B, B, A on the same inputs. Variants build with nvcc into
-``flashattention_tpu_torch/_build/ab/`` (all at once) from exact text
-edits; the script stops if one no longer applies. Prints the card's name
-and power limit, then one JSON line; writes
+cases (a)-(g) (D <= 128), or the chip_smoke fp8 cases ``--ab-cases`` names,
+on this checkout's kernel and on DIR's (a tree whose entries take this
+one's arguments), in turns A, B, B, A on the same inputs. Variants build
+with nvcc into ``flashattention_tpu_torch/_build/ab/`` (all at once) from
+exact text edits; the script stops if one no longer applies. Prints the
+card's name and power limit, then one JSON line; writes
 ``chiprun_out/fp8_tc_variants.json``. Exits nonzero without a card.
 """
 
@@ -115,7 +117,9 @@ FOLD = """        float pv[DP / 2];  // P·V of this tile, before its v scale
         fence_regs(pv);
         mbar_arrive(&empty[s]);
 #pragma unroll
-        for (int k = 0; k < DP / 2; ++k) acc[k] = fmaf(pv[k], svt, acc[k]);
+        for (int k = 0; k < DP / 2; ++k) {
+          acc[k] = fmaf(pv[k], S8 ? pfold[(k >> 1) & 1] : svt, acc[k]);
+        }
 """
 FOLD_CHUNKED = """        constexpr int PVN = DP > 128 ? {pvn} : DP;  // columns a product
         const uint64_t lbo16 = (KEYS * 128) >> 4;  // LBO in 16-byte units
@@ -137,7 +141,8 @@ FOLD_CHUNKED = """        constexpr int PVN = DP > 128 ? {pvn} : DP;  // columns
           fence_regs(pv);
 #pragma unroll
           for (int k = 0; k < PVN / 2; ++k) {{
-            acc[c * PVN / 2 + k] = fmaf(pv[k], svt, acc[c * PVN / 2 + k]);
+            acc[c * PVN / 2 + k] = fmaf(pv[k], S8 ? pfold[(k >> 1) & 1] : svt,
+                                        acc[c * PVN / 2 + k]);
           }}
         }}
         mbar_arrive(&empty[s]);
@@ -225,16 +230,16 @@ def nopass0(e):
 #pragma unroll
       for (int sub = 0; sub < KEYS / SUB; ++sub) {
         float sc[SUB / 2];
-        scores(w, sub, sc, m);
+        scores(w, sub, sc, m, mk, true);
       }
       mbar_arrive(&empty[w % STAGES]);
-    }
 """, """    for (int w = 0; w < walk.n_walk; ++w) {
-      const int s = w % STAGES;
-      mbar_wait(kDecQK ? &k_dec[s] : &k_full[s], (w / STAGES) & 1);
-      mbar_arrive(&empty[s]);
-    }
-    m[0] = m[1] = 0.f;
+      {
+        const int s = w % STAGES;
+        mbar_wait(kDecQK ? &k_dec[s] : &k_full[s], (w / STAGES) & 1);
+      }
+      mbar_arrive(&empty[w % STAGES]);
+      m[0] = m[1] = 0.f;
 """)
 
 
@@ -336,6 +341,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout for the D <= 128 A/B")
+    ap.add_argument("--ab-cases", default="a,b,c,d,e,f,g",
+                    help="chip_smoke FP8_CASES keys of the --parent A/B "
+                         "(default: the D <= 128 cases a-g)")
     ap.add_argument("--variants", default=",".join(VARIANTS),
                     help="comma-separated variants (default: all)")
     args = ap.parse_args()
@@ -381,7 +389,7 @@ def main() -> int:
     if parent is not None and libs["parent"][0] is not None:
         # D <= 128, turns parent, change, change, parent
         ab = {}
-        for key in "abcdefg":
+        for key in args.ab_cases.split(","):
             a, pv = case_args(gen, dev, key)
             turns = [timer(on(lib, a, pv)) for lib in
                      (libs["parent"][0], change, change, libs["parent"][0])]

@@ -77,11 +77,11 @@ class Edit:
 
 def noload(src):
     e = Edit(src)
-    e("  if (threadIdx.x == 0) {\n    for (int i = 0; i < min(n, a.stages); "
-      "++i) expect(i);\n  }\n  __syncthreads();\n  for (int i = 0; i < "
-      "min(n, a.stages); ++i) issue(i);\n", "")
+    e("  if (threadIdx.x == 0) {\n    for (int i = 0; i < min(n_items, "
+      "a.stages); ++i) expect(i);\n  }\n  __syncthreads();\n  for (int i = "
+      "0; i < min(n_items, a.stages); ++i) issue(i);\n", "")
     e("    mbar_wait(&full[st], (i / a.stages) & 1);\n    if (threadIdx.x == "
-      "0 && i + a.stages < n) expect(i + a.stages);\n", "")
+      "0 && i + a.stages < n_items) expect(i + a.stages);\n", "")
     e("          fat::sm90::fence_proxy_async();  // stage st is decoded: "
       "refill it\n          issue(i + a.stages);\n", "")
     e("        fat::sm90::fence_proxy_async();\n        issue(i + "
@@ -126,18 +126,18 @@ def producer(src):
       if (empty != nullptr) mbar_init(&empty[s], empty_count);
     }
     fat::sm90::fence_barrier_init();""")
-    e("""constexpr int tc_min_blocks(int nt) {
-  return nt == 1 ? 4 : (nt == 2 ? 3 : 2);
+    e("""constexpr int tc_min_blocks(int nt, int mode) {
+  return nt == 1 ? 4 : (nt == 2 ? (mode == 2 ? 2 : 3) : 2);
 }""", """constexpr int kTcThreads = kSplitThreads + 32;
-constexpr int tc_min_blocks(int nt) {
+constexpr int tc_min_blocks(int nt, int mode) {
   return nt == 1 ? 3 : (nt == 2 ? 2 : 1);
 }""")
-    e("""__global__ void __launch_bounds__(kSplitThreads, tc_min_blocks(NT))
+    e("""__global__ void __launch_bounds__(kSplitThreads, tc_min_blocks(NT, MODE))
 paged_split_tc_kernel(const SplitArgs a) {
   constexpr bool kQuant = FMT != 0;
   constexpr int kRows = kTcRows * NT;
   extern __shared__ __align__(128) char ring[];
-  __shared__ uint64_t full[kMaxStages];""", """__global__ void __launch_bounds__(kTcThreads, tc_min_blocks(NT))
+  __shared__ uint64_t full[kMaxStages];""", """__global__ void __launch_bounds__(kTcThreads, tc_min_blocks(NT, MODE))
 paged_split_tc_kernel(const SplitArgs a) {
   constexpr bool kQuant = FMT != 0;
   constexpr int kRows = kTcRows * NT;
@@ -147,11 +147,9 @@ paged_split_tc_kernel(const SplitArgs a) {
       """    for (int rr = warp; warp < kWarps && rr < kRows; rr += kWarps) {""")
     e("""  const int n = split_page_list(a, walk, b, split, list_lg, list_ph, &n_list,
                                 full);
-  if (n == 0) {  // an empty partial
-    for (int r = row0""", """  const int n = split_page_list(a, walk, b, split, list_lg, list_ph, &n_list,
+  const int n_items""", """  const int n = split_page_list(a, walk, b, split, list_lg, list_ph, &n_list,
                                 full, empty, kWarps);
-  if (n == 0) {  // an empty partial
-    for (int r = row0""")
+  const int n_items""")
     i = e.s.index("  // Page i into its stage: thread 0 announces its bytes")
     j = e.s.index("  // q fragments: lane (g, tq) holds row g of each tile")
     e.s = e.s[:i] + """  if (warp == kWarps) {
@@ -192,11 +190,11 @@ paged_split_tc_kernel(const SplitArgs a) {
 
 """ + e.s[j:]
     e("""    mbar_wait(&full[st], (i / a.stages) & 1);
-    if (threadIdx.x == 0 && i + a.stages < n) expect(i + a.stages);
+    if (threadIdx.x == 0 && i + a.stages < n_items) expect(i + a.stages);
 """, """    mbar_wait(&full[st], (i / a.stages) & 1);
 """)
     e("""        __syncthreads();
-        if (s0 + kTcSlots >= page && i + a.stages < n) {
+        if (s0 + kTcSlots >= page && i + a.stages < n_items) {
           fat::sm90::fence_proxy_async();  // stage st is decoded: refill it
           issue(i + a.stages);
         }""", """        fat::sm90::named_sync(1, kSplitThreads);
@@ -239,9 +237,9 @@ def sections(src):
     e("  constexpr int kRows = kTcRows * NT;\n",
       "  constexpr int kRows = kTcRows * NT;\n"
       "  long long t0_ = clock64(), c_[10] = {0}, tt_;\n")
-    e("                                full);\n  if (n == 0) {",
+    e("                                full);\n  const int n_items",
       "                                full);\n  long long t1_ = clock64();\n"
-      "  c_[0] = t1_ - t0_;\n  if (n == 0) {")
+      "  c_[0] = t1_ - t0_;\n  const int n_items")
     e("  int tile = 0;", "  long long t2_ = clock64();\n  c_[1] = t2_ - t1_;\n"
       "  int tile = 0;")
     e("    mbar_wait(&full[st], (i / a.stages) & 1);\n",
@@ -255,9 +253,9 @@ def sections(src):
     e("      __syncthreads();\n\n      // The tile's scores",
       "      __syncthreads();\n      c_[4] += clock64() - tt_;\n"
       "      tt_ = clock64();\n\n      // The tile's scores")
-    e("      // O^T (this warp's columns",
+    e("      if constexpr (MODE != 2) pv_product(pb);",
       "      c_[5] += clock64() - tt_;\n      tt_ = clock64();\n"
-      "      // O^T (this warp's columns")
+      "      if constexpr (MODE != 2) pv_product(pb);")
     e("    }\n    if constexpr (!kQuant) {\n      __syncthreads();  // every "
       "warp is done", "      c_[6] += clock64() - tt_;\n    }\n"
       "    tt_ = clock64();\n    if constexpr (!kQuant) {\n"
@@ -320,8 +318,8 @@ def split_call(lib, args, kw, *, walk=None, split_pages=None, stages=None,
     pa.split_plan.cache_clear()
     rule = pa.split_walk
     with mock.patch.object(pa, "split_walk",
-                           lambda d_, r_: walk or rule(d_, r_)):
-        plan = pa.split_plan(h, h_kv, t, d, page, pps, quant)
+                           lambda d_, r_, m_: walk or rule(d_, r_, m_)):
+        plan = pa.split_plan(h, h_kv, t, d, page, pps, quant, mode)
     pa.split_plan.cache_clear()
     sp = split_pages or plan["split_pages"]
     n_splits = -(-pps // sp)
@@ -338,7 +336,7 @@ def split_call(lib, args, kw, *, walk=None, split_pages=None, stages=None,
             num_pages, page, pps, d ** -0.5, 0, 0, 0.0,
             pa._FMT_CODE.get(kp.dtype, 0), pa._MODE_CODE[mode], sp, n_splits,
             pa._WALK_CODE[plan["walk"]], plan["lg"], plan["rps"],
-            plan["nrs"], stages or plan["stages"],
+            plan["nrs"], stages or plan["stages"], plan["step_pages"],
             torch.cuda.current_stream().cuda_stream)
         _build.check(err, "paged_attention split launch")
         return out[:, :, 0] if q.dim() == 3 else out

@@ -1081,9 +1081,11 @@ def test_quantized_paged_attention_kernel_matches_plain(cuda_device, name,
               pa.paged_attention.tc_launches)
     o = pa.paged_attention(q, k8, v8, pi, ln, **kw)
     torch.cuda.synchronize()
-    # bf16 q takes the split route in every schedule but "full"
-    split = int(dtype == torch.bfloat16 and int8_qk != "full")
-    tc = split * (pa.split_walk(shape["d"], case_rows(shape)) == "tc")
+    # bf16 q takes the split route in every schedule ("full" on the
+    # tensor-core walk at every row count)
+    split = int(dtype == torch.bfloat16)
+    mode = pa.int8_mode(k8, dtype, max(shape["q_len"], 1), int8_qk)
+    tc = split * (pa.split_walk(shape["d"], case_rows(shape), mode) == "tc")
     assert (pa.paged_attention.launches - before[0],
             pa.paged_attention.split_launches - before[1],
             pa.paged_attention.tc_launches - before[2]) == (1, split, tc)
@@ -1253,6 +1255,40 @@ def test_paged_first_kernel_splits_at_d256(cuda_device, name, monkeypatch):
     assert_allclose(first, ref, rtol=tol, atol=tol, err_msg=name)
 
 
+# The "full" schedule's splits on the tensor-core walk (name: (window,
+# sinks)): Gemma 2B's MQA at 1024 slots a sequence, two 32-page steps, so
+# two splits a sequence, each one step of the sequence's walk.
+FULL_SPLITS = {"plain": (None, 0), "window_sinks": (600, 4),
+               "window_sinks_step_edge": (520, 20)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FULL_SPLITS))
+def test_paged_full_splits_on_tensor_cores(cuda_device, name):
+    """bf16 q over int8 pages in the "full" schedule takes the split route's
+    tensor-core walk, a split a walk step (steps counted from the
+    sequence's walk: sinks, then the band): it agrees with the plain
+    version, two calls are bit-equal, and empty sequences write zeros."""
+    window, sinks = FULL_SPLITS[name]
+    q, kp, vp, pi, ln, kw = _gemma_decode_pages("int8", cuda_device)
+    ln[0] = 0
+    kw.update(int8_qk="full", window=window, sinks=sinks)
+    plan = pa.split_plan(8, 1, 1, 256, 16, 64, True, "full")
+    assert (plan["walk"], plan["split_pages"], plan["n_splits"]) == (
+        "tc", pa.full_step_pages(16, 64), 2)
+    s0 = pa.paged_attention.split_launches, pa.paged_attention.tc_launches
+    first = pa.paged_attention(q, kp, vp, pi, ln, **kw)
+    second = pa.paged_attention(q, kp, vp, pi, ln, **kw)
+    torch.cuda.synchronize()
+    assert (pa.paged_attention.split_launches - s0[0],
+            pa.paged_attention.tc_launches - s0[1]) == (2, 2)
+    assert torch.equal(first, second)
+    assert not first[0].any()
+    ref = pa.paged_attention_plain(q, kp, vp, pi, ln, **kw)
+    tol = KERNEL_TOL[torch.bfloat16]
+    assert_allclose(first, ref, rtol=tol, atol=tol, err_msg=name)
+
+
 @pytest.mark.cuda
 def test_paged_first_kernel_on_split_inputs(cuda_device, monkeypatch):
     """The first kernel still takes inputs the split route takes (as
@@ -1334,17 +1370,38 @@ FP8_CASES = {
                            dict(causal=True, mode="fused"), ()),
     "int8_nq_ne_nk_ragged": ((1, 4, 4, 384, 1000, 128), torch.bfloat16,
                              dict(causal=True, fmt="int8"), ()),
+    # int8_pv "s8" at D = 256 (O in units of ps * sv a row, rescaled where a
+    # block starts), with blocks of no kept key (window, dropout)
+    "s8_d256_blocks": ((1, 4, 4, 1000, 256), torch.bfloat16,
+                       dict(causal=True, fmt="int8", int8_pv="s8",
+                            block_k=256), ()),
+    "s8_d256_dropout_window_gqa": ((1, 4, 2, 700, 256), torch.float32,
+                                   dict(causal=True, fmt="int8",
+                                        int8_pv="s8", block_k=128,
+                                        window=300, sinks=8,
+                                        dropout_rate=0.2, dropout_seed=9),
+                                   ()),
+    "s8_d128_segments_alibi": ((2, 4, 4, 512, 128), torch.bfloat16,
+                               dict(causal=True, fmt="int8", int8_pv="s8",
+                                    block_k=128), ("segments", "alibi")),
+    # head dims that are not a multiple of 32: Phi-2's 80 (zeros past D
+    # from TMA), 48, and 136 and 40 (padded with zero bytes to 144, 48)
+    "phi2_d80_int8": ((1, 8, 8, 600, 80), torch.bfloat16,
+                      dict(causal=True, fmt="int8"), ()),
+    "phi2_d80_e4m3": ((1, 8, 8, 600, 80), torch.bfloat16,
+                      dict(causal=True, mode="fused"), ()),
+    "phi2_d80_s8_dropout": ((1, 4, 4, 512, 80), torch.float32,
+                            dict(causal=True, fmt="int8", int8_pv="s8",
+                                 block_k=128, dropout_rate=0.1,
+                                 dropout_seed=3), ()),
+    "d48_e5m2_gqa": ((1, 4, 2, 300, 48), torch.bfloat16,
+                     dict(causal=True, mode="fused", fmt="e5m2"), ()),
+    "d136_int8_window": ((1, 4, 4, 500, 136), torch.bfloat16,
+                         dict(causal=True, fmt="int8", window=200,
+                              sinks=4), ()),
+    "d40_e4m3_fp32": ((2, 2, 2, 200, 40), torch.float32,
+                      dict(causal=False, mode="fused"), ()),
 }
-# The cases the tensor-core route takes (int8_pv "bf16", D <= 256 with
-# D % 32 == 0; 128 < D <= 256 on the D = 256 kernels); the s8 cases stay on
-# the FMA kernel.
-FP8_TENSOR_CORE = {"e4m3_causal", "int8_causal", "e5m2_causal",
-                   "dropout_one_tile", "gqa_window_sinks_softcap",
-                   "segments_alibi", "fp32_ragged_full", "int8_d64",
-                   "e4m3_ragged_1000_d128", "e4m3_nq_ne_nk_fp32",
-                   "int8_nq_ne_nk_ragged", "d256_int8",
-                   "d256_e4m3_mqa_window_softcap",
-                   "d256_e5m2_dropout_nq_ne_nk", "d160_int8_segments_alibi"}
 
 
 def fp8_inputs(shape, dtype, extras, device, seed=0):
@@ -1372,10 +1429,12 @@ def test_fp8_kernel_matches_plain(cuda_device, case):
     o, lse = fp8_attn.fp8_fwd(q8, k8, v8, sq, sk, sv, bq, bk, opts,
                               int8_pv=int8_pv, out_dtype=dtype)
     torch.cuda.synchronize()
-    tc = int(case in FP8_TENSOR_CORE)
-    assert tc == fp8_attn._tensor_core_route(int8_pv, q.shape[3], bk)
+    # every case takes the tensor-core route (D <= 256, key blocks of
+    # whole 128s), in either int8_pv setting
+    assert fp8_attn._tensor_core_route(q.shape[3], bk)
     assert (fp8_attn.fp8_attention.launches - before[0],
-            fp8_attn.fp8_attention.tc_launches - before[1]) == (1, tc)
+            fp8_attn.fp8_attention.tc_launches - before[1]) == (1, 1)
+    assert o.shape == q.shape
     o_ref, lse_ref = fp8_attn.fp8_fwd_plain(q8, k8, v8, sq, sk, sv, bq, bk,
                                             opts, int8_pv=int8_pv,
                                             out_dtype=dtype)

@@ -194,6 +194,26 @@ def test_fa3_fp8_end_to_end(backend, jax_backend):
     _check((np.asarray(jo), np.asarray(jl)), (to, tl), f"fa3 {backend}")
 
 
+def test_fa3_int8_pv_s8_end_to_end(monkeypatch):
+    """fa3_attention(fp8=True, fp8_fmt="int8", int8_pv="s8") on the kernel
+    backend against JAX's fa3_attention under FAT_INT8_PV=s8, with JAX's
+    rotation signs; s8 is another function than the bf16 P·V."""
+    q, k, v, _, _ = _inputs(1, 2, 2, 256, 64, seed=8)
+    monkeypatch.setenv("FAT_INT8_PV", "s8")
+    jo, jl = jax_fa3(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=True, fp8=True, fp8_seed=6, backend="pallas",
+                     fp8_fmt="int8")
+    sign = torch.from_numpy(np.array(jax.random.rademacher(
+        jax.random.key(6), (64,), dtype=jnp.float32)))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    kw = dict(causal=True, fp8=True, backend="kernel", fp8_sign=sign,
+              fp8_fmt="int8")
+    to, tl = api.fa3_attention(tq, tk, tv, int8_pv="s8", **kw)
+    _check((np.asarray(jo), np.asarray(jl)), (to, tl), "fa3 int8 s8")
+    o_bf16, _ = api.fa3_attention(tq, tk, tv, **kw)
+    assert float((o_bf16 - to).abs().max()) > 0
+
+
 def test_prequant_matches_pallas():
     """fp8_attention_prequant: blocks follow from the scale shapes."""
     from flashattention_tpu.ops.pallas_fp8 import (
@@ -221,20 +241,66 @@ def test_prequant_matches_pallas():
     ("bf16", 128, 1024, True),
     ("bf16", 32, 128, True),      # one k32 step
     ("bf16", 96, 256, True),
-    ("s8", 128, 1024, False),     # p re-quantized per key block: FMA
-    ("bf16", 48, 1024, False),    # not whole k32 steps
+    ("s8", 128, 1024, True),      # p8 integers on the same bf16 P·V
+    ("bf16", 48, 1024, True),     # zeros past D from TMA
     ("bf16", 256, 1024, True),    # the D = 256 kernels: P·V in n128 halves
     ("bf16", 160, 1024, True),    # the D = 256 kernels, zeros past D
-    ("bf16", 136, 1024, False),   # not whole k32 steps
-    ("s8", 256, 1024, False),
+    ("bf16", 136, 1024, True),    # padded to 144 with zero bytes
+    ("s8", 256, 1024, True),
     ("bf16", 256, 64, False),
     ("bf16", 64, 64, False),      # a key tile would span two v scales
 ])
 def test_tensor_core_route_rule(int8_pv, d, bk, want):
-    """The 8-bit forward's route, from the inputs alone: wgmma for p in
-    bf16 with D <= 256, D % 32 == 0 and key blocks of whole 128s; the FMA
-    kernel otherwise."""
-    assert fp8_attn._tensor_core_route(int8_pv, d, bk) is want
+    """The 8-bit forward's route, from the inputs alone: wgmma with D <=
+    256 and key blocks of whole 128s, in either ``int8_pv`` setting (the
+    case's int8_pv says which setting the row stands for); the FMA kernel
+    no call takes."""
+    del int8_pv  # both settings take the same route
+    assert fp8_attn._tensor_core_route(d, bk) is want
+
+
+@pytest.mark.parametrize("d, width", [(80, 80), (48, 48), (136, 144),
+                                      (8, 16), (256, 256)])
+def test_kernel_head_dim(d, width):
+    """The tensor-core kernel's head dim: D rounded up to whole 16 bytes
+    of a payload row (TMA's strides); the kernel reads zeros past it."""
+    assert fp8_attn.kernel_head_dim(d) == width
+
+
+@pytest.mark.parametrize("fmt, int8_pv", [("int8", "bf16"), ("int8", "s8"),
+                                          ("fp8", "bf16")])
+@pytest.mark.parametrize("d", [80, 48, 136])
+def test_padded_head_is_the_same_function(d, fmt, int8_pv):
+    """Payloads padded with zero bytes (pad_head, as the card's wrapper
+    pads to kernel_head_dim; here also to the next multiple of 32) give
+    the unpadded call's o and LSE exactly, and zeros past D."""
+    q, k, v, _, _ = _inputs(1, 2, 2, 256, d, seed=12)
+    q, k, v = (torch.from_numpy(x) for x in (q, k, v))
+    args = fp8_attn.quantize_inputs(q, k, v, BQ, BK, fmt)
+    opts = fp8_attn.fa.make_opts(q, k, causal=True)
+    o, lse = fp8_attn.fp8_fwd_plain(*args, opts, int8_pv=int8_pv,
+                                    out_dtype=torch.float32)
+    for width in {fp8_attn.kernel_head_dim(d), -(-d // 32) * 32}:
+        padded = [fp8_attn.pad_head(x, width) for x in args[:3]]
+        assert padded[0].shape[-1] == width
+        op, lp = fp8_attn.fp8_fwd_plain(*padded, *args[3:], opts,
+                                        int8_pv=int8_pv,
+                                        out_dtype=torch.float32)
+        assert torch.equal(op[..., :d], o), f"{d} -> {width} o"
+        assert torch.equal(lp, lse), f"{d} -> {width} lse"
+        assert not op[..., d:].any()
+
+
+@pytest.mark.parametrize("fmt, int8_pv", [("fp8", "bf16"), ("int8", "bf16"),
+                                          ("int8", "s8")])
+def test_fp8_forward_matches_pallas_head_dim_80(monkeypatch, fmt, int8_pv):
+    """Phi-2's head dim (80, not a multiple of 32: JAX pads it to 128
+    lanes, the card's wrapper to whole 16 bytes) against the JAX kernel."""
+    q, k, v, _, _ = _inputs(1, 4, 2, 256, 80, seed=11)
+    monkeypatch.setenv("FAT_INT8_PV", int8_pv)
+    kw = dict(causal=True, mode="fused", fmt=fmt)
+    _check(*_both(q, k, v, dict(kw, int8_pv=int8_pv), kw),
+           f"d80 {fmt} {int8_pv}")
 
 
 def test_kernel_path_blocks_take_the_tensor_core_route():
@@ -244,5 +310,5 @@ def test_kernel_path_blocks_take_the_tensor_core_route():
     from flashattention_tpu_torch.ops.specs import fp8_kernel_blocks
     for n in (1, 100, 200, 1000, 4096, 8192):
         _, bk = fp8_kernel_blocks(n, n)
-        assert fp8_attn._tensor_core_route("bf16", 128, bk)
-        assert fp8_attn._tensor_core_route("bf16", 256, bk)
+        assert fp8_attn._tensor_core_route(128, bk)
+        assert fp8_attn._tensor_core_route(256, bk)

@@ -116,7 +116,11 @@ SPLIT_ROUTE = {
     "fp32": (torch.float32, torch.float32, "convert", 16, 64, True, False),
     "fp32_q_int8": (torch.float32, torch.int8, "convert", 16, 64, True,
                     False),
-    "int8_full": (torch.bfloat16, torch.int8, "full", 16, 64, True, False),
+    # "full": the split route's tensor-core walk for bf16 q; fp32 q stays
+    # on the first kernel
+    "int8_full": (torch.bfloat16, torch.int8, "full", 16, 64, True, True),
+    "fp32_q_int8_full": (torch.float32, torch.int8, "full", 16, 64, True,
+                         False),
     "d_not_8": (torch.bfloat16, torch.bfloat16, "convert", 16, 36, True,
                 False),
     "d_above_128": (torch.bfloat16, torch.bfloat16, "convert", 16, 256, True,
@@ -158,6 +162,25 @@ def test_split_plan_pages_per_split(page, q_len, pages):
     assert plan["split_pages"] == pages
     assert plan["n_splits"] * pages >= 40
     assert (plan["n_splits"] - 1) * pages < 40
+
+
+@pytest.mark.parametrize("h, h_kv, q_len, d, page, pps, nrs, step", [
+    (12, 12, 1, 64, 16, 32, 1, 32), (12, 12, 64, 64, 16, 32, 4, 32),
+    (8, 1, 1, 256, 16, 256, 1, 32), (12, 4, 5, 64, 32, 20, 2, 16),
+    (4, 4, 1, 32, 16, 3, 1, 3)])
+def test_split_plan_full(h, h_kv, q_len, d, page, pps, nrs, step):
+    """The int8 "full" schedule: the tensor-core walk at every row count
+    (one row included), a split one walk step of full_step_pages pages,
+    and a ring of 2-4 stages of one slab and two scale planes beside the
+    step's scores."""
+    plan = pa.split_plan(h, h_kv, q_len, d, page, pps, True, "full")
+    assert (plan["walk"], plan["nrs"]) == ("tc", nrs)
+    assert plan["split_pages"] == plan["step_pages"] == step \
+        == pa.full_step_pages(page, pps)
+    assert plan["n_splits"] * step >= pps
+    assert 2 <= plan["stages"] <= 4
+    assert pa.split_walk(d, 1, "full") == "tc"
+    assert pa.split_walk(64, 1, "qk") == "lanes"
 
 
 def test_split_plan_fills_the_card_at_the_engine_decode_shape():

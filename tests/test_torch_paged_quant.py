@@ -11,7 +11,9 @@ e5m2 payloads with per-slot fp32 scales.
   denormal payloads to zero, the port's is exact);
 - the int8 schedules "qk" and "full" (JAX's ``FAT_PAGED_INT8_MXU``);
 - the port's CPU float32 engine with ``quant`` against the JAX CPU engine:
-  equal greedy tokens, first-token logits at 1e-4.
+  equal greedy tokens, first-token logits at 1e-4; with
+  ``EngineConfig(int8_qk=...)`` against the JAX engine on its Pallas paged
+  kernel (interpret mode) under the matching ``FAT_PAGED_INT8_MXU``.
 """
 
 import jax
@@ -26,7 +28,11 @@ from flashattention_tpu.ops.pallas_paged import pallas_paged_attention
 from flashattention_tpu.serving import EngineConfig as JaxEngineConfig
 from flashattention_tpu.serving import GenerationRequest as JaxRequest
 from flashattention_tpu.serving import ServingEngine as JaxEngine
-from flashattention_tpu.serving.engine import _lm_logits
+from flashattention_tpu.serving.engine import (
+    _lm_logits,
+    make_chunk_prefill_fn,
+    make_decode_fn,
+)
 from flashattention_tpu.serving.paged_kv import (
     append_to_pages as jax_append_to_pages,
 )
@@ -35,6 +41,7 @@ from flashattention_tpu_torch.ops import paged_append as pap
 from flashattention_tpu_torch.ops import paged_attention as pa
 from flashattention_tpu_torch.ops.quant import PAYLOAD_DTYPE, quantize_tokens
 from flashattention_tpu_torch.serving import GenerationRequest, paged_kv
+from flashattention_tpu_torch.serving import engine as engine_mod
 from flashattention_tpu_torch.utils.testing import assert_allclose
 from test_torch_cuda import CASES, fused_tokens, paged_inputs
 from test_torch_engine import CFG, port_engine, prompts
@@ -295,6 +302,52 @@ def test_engine_quantized_matches_jax(quant):
     assert len(logits) == len(logits_jax) == len(reqs)
     for got, want in zip(logits, logits_jax):
         assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("int8_qk, env", [("full", "full"), ("qk", "qk"),
+                                          (False, "0")])
+def test_engine_int8_schedule_matches_jax(monkeypatch, int8_qk, env):
+    """EngineConfig(int8_qk=...) reaches every paged call of the port's
+    engine, prefill chunks included, as FAT_PAGED_INT8_MXU reaches every
+    call of the JAX engine's Pallas paged kernel (its CPU engine gathers
+    pages instead, which ignores the knob, so its programs are rebuilt on
+    the kernel, run in interpret mode). Page 16: either int8 schedule
+    needs page % 16 == 0. Greedy tokens equal; every paged call of the
+    port's engine takes the requested schedule."""
+    monkeypatch.setenv("FAT_PAGED_INT8_MXU", env)
+    reqs = [(i, p, 5) for i, p in enumerate(prompts(11, (7, 19)))]
+    ecfg = dict(max_batch_size=2, page_size=16, num_pages=16, max_seq_len=64,
+                prefill_pad=16, quant="int8")
+    jparams = init_transformer(jax.random.key(3), CFG)
+    jeng = JaxEngine(jparams, CFG, JaxEngineConfig(**ecfg))
+    jeng._chunk_prefill = make_chunk_prefill_fn(CFG, ecfg["prefill_pad"],
+                                                use_pallas=True)
+    jeng._decode = make_decode_fn(CFG, use_pallas=True)
+    for rid, prompt, n in reqs:
+        jeng.submit(JaxRequest(request_id=rid, prompt=prompt,
+                               max_new_tokens=n))
+    res_jax = jeng.run()
+    eng = port_engine(CFG, jparams, dict(ecfg, int8_qk=int8_qk))
+    modes = []
+    real = pa.paged_attention
+
+    def record(q, k_pages, *args, **kw):
+        t = 1 if q.dim() == 3 else q.shape[2]
+        modes.append(pa.int8_mode(k_pages, q.dtype, t, kw["int8_qk"]))
+        return real(q, k_pages, *args, **kw)
+
+    monkeypatch.setattr(engine_mod, "paged_attention", record)
+    for rid, prompt, n in reqs:
+        eng.submit(GenerationRequest(rid, prompt, n))
+    assert eng.run() == res_jax
+    want = {"full": "full", "qk": "qk", False: "convert"}[int8_qk]
+    assert modes and set(modes) == {want}
+
+
+def test_engine_int8_qk_is_checked():
+    jparams = init_transformer(jax.random.key(3), CFG)
+    with pytest.raises(ValueError, match="int8_qk"):
+        port_engine(CFG, jparams, dict(quant="int8", int8_qk="turbo"))
 
 
 @pytest.mark.parametrize("quant", ["fp8"])
