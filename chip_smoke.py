@@ -21,19 +21,23 @@ Phases, in order; any failure exits nonzero:
    128 and 256 in e4m3, e5m2 and int8, whose int8 kernels must also show
    IGMMA; 56 in all) must show
    HGMMA (wgmma) and UTMALDG (TMA) in their
-   SASS (cuobjdump) and spill nothing (ptxas report of this build); the 25
+   SASS (cuobjdump) and spill nothing (ptxas report of this build); the 6
+   chunked flash kernels above D = 256 (flash_wide: forward, dK/dV and dQ
+   in bf16 and in fp32 on 3xTF32) must show HMMA (mma.sync) and spill
+   nothing; the 40
    paged split kernels (10 on the lane-group walk, D <= 128 at 1 or 2 rows
-   a KV head; 15 on the tensor-core walk, which must also show HMMA,
-   mma.sync) must show
+   a KV head; 30 on the tensor-core walk, 12 of them above D = 256, which
+   must also show HMMA, mma.sync) must show
    UBLKCP (1-D bulk copies) and spill nothing, as must the first paged
-   kernel's 36 D = 256 instantiations and the 4 merge kernels; the 29
+   kernel's 36 D = 256 and 36 chunked (D <= 1024) instantiations and the 4
+   merge kernels; the 29
    sparse mma kernels (bf16: forward and dQ at D 64, 128 and 256 with 16-
    and 32-key sub-tiles, dK/dV at D 64, 128 and 256; fp32 on 3xTF32: the
    forward likewise, dQ at D 64 and 128 with 16- and 32-key sub-tiles and
    at 256 with 16, dK/dV at D 64, 128 and 256) must show HMMA and spill
    nothing, as must the sum of the dK/dV chunks in bf16 and fp32 (no
    HMMA); the 20 append
-   kernels must
+   kernels (any D) must
    spill nothing, and those of 8 elements a lane show 16-byte loads
    (LDG.E.128).
 2. Each kernel against its plain PyTorch version on the card: the paged
@@ -173,6 +177,26 @@ Phases, in order; any failure exits nonzero:
    the paged kernels' share.
 4c. Phase 4 at phase 3c's widths cut to 2 layers (``gemma_sparse_config``,
    served dense): bf16 pages at 5e-2 and e4m3 pages at 1e-1.
+3d. Serving a head-dim-512 model (``wide_config``: Gemma 2B's widths with
+   its query heads halved, 4 over 1 KV head, 2 layers, bf16, weights drawn
+   on the host from the seed) on phase 3c's engine and traffic with 16
+   requests, bf16, e4m3 and int8 pages, phase 3's launch checks (every
+   paged launch on the split route's tensor-core walk, its output cut into
+   two chunks of 256 columns; every append on the kernel). Phase 2 holds
+   its calls (decode, T = 64 chunk and verify chunk, each over bf16, int8
+   "convert", "qk" and "full", e4m3 and e5m2 pages; fp32 on the first
+   kernel's chunked instantiation; D = 264, 384 and 1024 decode; the
+   append in every format at D = 512, decode and chunk, and at 264, 384,
+   1024) against their plain versions, and the flash cases (p)-
+   (y) (phase 5d's call, D = 264, 384, 1024 and GQA with every feature at
+   512, bf16 and fp32) on flash_wide's chunked kernels, naming SDPA's
+   backend at each.
+4d. Phase 4 at phase 3d's model: bf16 pages at 5e-2, e4m3 and int8 at 1e-1.
+5d. Training phase 3d's model: ``train_step`` at B = 1, N = 2048, 2
+   untimed and 4 timed micro-steps, phase 5's launch checks (4 flash_fwd and
+   2 flash_bwd a micro-step, all on flash_wide's kernels) and a profiled
+   micro-step; one loss and its gradients card vs fp32 CPU at N = 512 in
+   bf16 (5e-2) and in fp32 (1e-4).
 5. Training at GPT-3 Small widths (dropout 0.1, remat "full", bf16 compute,
    fp32 parameters), TrainConfig(batch_size=8, seq_len=512, grad_accum=2,
    warmup_steps=2) on the synthetic stream of seed 0: 2 untimed
@@ -482,6 +506,17 @@ KERNELS = {
     "flash_bwd": dict(
         route="cuda", source="flashattention_tpu_torch/csrc/flash_bwd.cu",
         replaces="flashattention_tpu/ops/pallas_attn.py:885"),
+    # above head dim 256: the chunked mma.sync kernels, bf16 and fp32
+    "flash_fwd_wide": dict(
+        route="cuda", source="flashattention_tpu_torch/csrc/flash_wide.cu",
+        replaces="flashattention_tpu/ops/pallas_attn.py:391"),
+    # one call of two kernels: dK/dV, then dQ (the TPU backward's four
+    # launches, :1362 :1390 :1423 :1475)
+    "flash_bwd_wide": dict(
+        route="cuda", source="flashattention_tpu_torch/csrc/flash_wide.cu",
+        replaces="flashattention_tpu/ops/pallas_attn.py:885",
+        also_replaces=["flashattention_tpu/ops/pallas_attn.py:768",
+                       "flashattention_tpu/ops/pallas_attn.py:1040"]),
     "flash_fwd_fp8": dict(
         route="cuda", source="flashattention_tpu_torch/csrc/flash_fwd_fp8.cu",
         replaces="flashattention_tpu/ops/pallas_fp8.py:92"),
@@ -960,6 +995,55 @@ FLASH_CASES = {
     "o": ("phase 7c's call: MQA 8/1 B=1 N=4096 D=256 fp32 causal",
           (1, 8, 1, 4096, 4096, 256), FP32, dict(causal=True), ()),
 }
+# Above head dim 256, flash_wide.cu's chunked kernels: (p) phase 5d's call
+# (Gemma 2B's widths with its query heads halved: 4 over 1 KV head, D =
+# 512), D = 264 (a last chunk of 8 columns) and 384 causal, D = 1024 (8
+# forward chunks), and GQA 4/2 with window, sinks, soft-cap and dropout at
+# D = 512; (u)-(y) the same in fp32 (3xTF32).
+_WIDE_FLASH = {
+    "p": ("phase 5d's call: MQA 4/1 B=1 N=2048 D=512", (1, 4, 1, 2048, 2048,
+                                                         512), {}),
+    "q": ("B=1 H=4 N=1024 D=264", (1, 4, 4, 1024, 1024, 264), {}),
+    "r": ("B=1 H=4 N=1024 D=384", (1, 4, 4, 1024, 1024, 384), {}),
+    "s": ("MQA 2/1 B=1 N=1024 D=1024", (1, 2, 1, 1024, 1024, 1024), {}),
+    "t": ("GQA 4/2 window 256 sinks 4 softcap 30 dropout 0.1, B=1 N=1024 "
+          "D=512", (1, 4, 2, 1024, 1024, 512),
+          dict(window=256, sinks=4, softcap=30.0, dropout_rate=0.1,
+               dropout_seed=21)),
+}
+for (_b, _f), (_label, _shape, _kw) in zip(
+        zip("pqrst", "uvwxy"), _WIDE_FLASH.values()):
+    for _key, _dt, _name in ((_b, BF16, "bf16"), (_f, FP32, "fp32")):
+        FLASH_CASES[_key] = (f"{_label} {_name} causal", _shape, _dt,
+                             dict(causal=True, **_kw), ())
+# the wide cases, whose SDPA backend (PyTorch's pick) the record names
+FLASH_WIDE = tuple("pqrstuvwxy")
+
+
+def sdpa_backend(call, tries=3) -> str:
+    """The backend PyTorch's SDPA dispatcher picks for ``call``, from the
+    names of the device kernels one call launches (torch.profiler): flash,
+    efficient (the cutlass memory-efficient kernels), cudnn, or math (a
+    product and a softmax). CUPTI drops some profiles' records, so a
+    profile that names none is taken again, up to ``tries`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    names = ""
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = " ".join(e.name for e in prof.events()
+                         if e.device_type == DeviceType.CUDA).lower()
+        for tag, backend in (("pytorch_flash", "flash"),
+                             ("flash_fwd", "flash"), ("fmha", "efficient"),
+                             ("cudnn", "cudnn"), ("softmax", "math")):
+            if tag in names:
+                return backend
+    return f"not known ({names[:60]})"
 
 
 def _flash_inputs(gen, dev, shape, dtype, extras):
@@ -1087,8 +1171,12 @@ def flash_case(timer, gen, dev, key):
     c = read_counts()
     if (c["flash_fwd"], c["flash_bwd"]) != (1, 1):
         fail(f"flash {key}: launches {c}; want one each way")
-    route = ("tensor cores (wgmma + TMA)" if dtype == torch.bfloat16
-             else "tensor cores (3xTF32 wgmma + TMA)")
+    if q.shape[-1] > fa.SM90_MAX_HEAD_DIM:
+        route = ("tensor cores (mma.sync, chunked)" if dtype == torch.bfloat16
+                 else "tensor cores (3xTF32 mma.sync, chunked)")
+    else:
+        route = ("tensor cores (wgmma + TMA)" if dtype == torch.bfloat16
+                 else "tensor cores (3xTF32 wgmma + TMA)")
 
     def plain_bwd():
         di = (o_ref.float() * do.float()).sum(-1)
@@ -1155,6 +1243,11 @@ def flash_case(timer, gen, dev, key):
     same = (not extras or extras == ("dlse",)) and kw == dict(causal=causal)
     lib_key = "library" if same else "yardstick"
     t[f"{lib_key}_fwd_ms"], t[f"{lib_key}_bwd_ms"] = sdpa_fwd, sdpa_bwd
+    if key in FLASH_WIDE:
+        t["library_backend"] = sdpa_backend(lambda: sdpa(
+            q, k, v, is_causal=causal, scale=opts.scale, enable_gqa=gqa))
+        log(f"[kernel] flash {key}: SDPA's backend at D = {q.shape[-1]}: "
+            f"{t['library_backend']}")
     bounds, frac = flash_bound(q, k, opts, dlse)
     rec = dict(case=label, shape=shape, dtype=str(dtype).replace("torch.", ""),
                route=route, max_abs_err=err,
@@ -1841,6 +1934,7 @@ def phase_kernels(dev):
         recs[f"append_{fmt}_verify"] = append_case(timer, gen, dev, fmt,
                                                    "verify")
     recs.update(paged_d256_cases(timer, gen, dev))
+    recs.update(paged_wide_cases(timer, gen, dev))
     for key in FULL_CASES:
         if recs[key]["route"] != "split" or recs[key]["walk"] != "tc":
             fail(f"paged_attention {key}: took the {recs[key]['route']} "
@@ -1923,6 +2017,85 @@ def paged_d256_cases(timer, gen, dev):
             fail(f"paged_attention {key}: took the {recs[key]['route']} "
                  f"route ({recs[key]['walk']} walk), want the split route's "
                  f"tensor-core walk")
+    return recs
+
+
+def paged_wide_table(gen):
+    """Phase 2's paged-attention cases above head dim 256, as
+    ``paged_d256_table`` gives them: phase 3d's calls at D = 512 (4 query
+    heads over 1 KV head: the decode step, B = 32, page 16, lengths
+    256-4096, over bf16, int8 ("qk", "convert" and "full"), e4m3 and e5m2
+    pages; fp32 decode at B = 8 on the first kernel's chunked
+    instantiation; a T = 64 chunk at length 2048 and the verify chunk, B =
+    32, T = 5, over bf16, int8 (a chunk's default "convert", "qk" and
+    "full"), e4m3 and e5m2 pages: two row tiles a CTA), then bf16 decode at
+    D = 264 (GQA 8/2: a last output chunk of 8 columns), 384 and 1024 (4
+    output chunks), B = 8."""
+    bf = torch.bfloat16
+    wide = dict(h=4, h_kv=1, d=512, page=16, max_len=4096, gqa=True)
+    formats = (("", None, None), ("_int8_convert", "int8", False),
+               ("_int8_qk", "int8", "qk"), ("_int8_full", "int8", "full"),
+               ("_fp8", "fp8", None), ("_e5m2", "e5m2", None))
+    cases = {}
+    for tag, quant, int8_qk in formats:
+        key = f"d512_decode{tag}"
+        cases[key] = (f"{key} B=32 H=4/1 D=512 page=16 lengths 256-4096", bf,
+                      dict(b=32, q_len=0, quant=quant, int8_qk=int8_qk,
+                           lengths=gemma_decode_lengths(gen), **wide))
+    cases["d512_decode_fp32"] = (
+        "d512_decode_fp32 B=8 H=4/1 D=512 page=16 lengths 256-4096",
+        torch.float32, dict(b=8, q_len=0, lengths=gemma_decode_lengths(gen, 8),
+                            **wide))
+    for tag, quant, int8_qk in formats:
+        cases[f"d512_chunk{tag}"] = (
+            f"d512_chunk{tag} B=1 T=64 H=4/1 D=512 page=16 length 2048", bf,
+            dict(b=1, q_len=64, lengths=[2048], quant=quant, int8_qk=int8_qk,
+                 **wide))
+    for tag, quant, int8_qk in formats:
+        cases[f"d512_verify{tag}"] = (
+            f"d512_verify{tag} B=32 T=5 H=4/1 D=512 page=16 lengths "
+            f"256-4096", bf,
+            dict(b=32, q_len=5, quant=quant, int8_qk=int8_qk,
+                 lengths=[n + 5 for n in gemma_decode_lengths(gen)], **wide))
+    for d, h, h_kv in ((264, 8, 2), (384, 4, 1), (1024, 2, 1)):
+        cases[f"d{d}_decode"] = (
+            f"d{d}_decode B=8 H={h}/{h_kv} D={d} page=16 lengths 256-4096", bf,
+            dict(b=8, q_len=0, lengths=gemma_decode_lengths(gen, 8), h=h,
+                 h_kv=h_kv, d=d, page=16, max_len=4096, gqa=True))
+    return cases
+
+
+def paged_wide_cases(timer, gen, dev):
+    """B5/B6 and B7 above head dim 256: ``paged_wide_table``'s cases, every
+    bf16-q case on the split route's tensor-core walk (each page format
+    and int8 schedule, one and two row tiles), fp32 decode on the first
+    kernel (its chunked instantiation), each route and walk checked; the
+    split route's cases also time the first kernel on their inputs
+    (``attention_case``). The append in every page format at phase 3d's
+    decode step (D = 512, one KV head) and at a T = 64 chunk, and bf16
+    decode at D = 264, 384 and 1024."""
+    recs = {}
+    for key, (name, dtype, kw) in paged_wide_table(gen).items():
+        recs[key] = attention_case(timer, gen, dev, name, dtype, **kw)
+        torch.cuda.empty_cache()
+    for fmt in APPEND_FORMATS:
+        for kind in ("decode", "chunk"):
+            recs[f"append_{fmt}_{kind}_d512"] = append_case(
+                timer, gen, dev, fmt, kind, h=1, d=512, max_len=4096)
+    for d in (264, 384, 1024):
+        recs[f"append_bf16_decode_d{d}"] = append_case(
+            timer, gen, dev, "bf16", "decode", h=1, d=d, max_len=4096)
+    torch.cuda.empty_cache()
+    for key, rec in recs.items():
+        if not key.startswith("d") or "fp32" in key:
+            continue
+        if rec["route"] != "split" or rec["walk"] != "tc":
+            fail(f"paged_attention {key}: took the {rec['route']} route "
+                 f"({rec['walk']} walk), want the split route's tensor-core "
+                 f"walk")
+    if recs["d512_decode_fp32"]["route"] != "first":
+        fail("paged_attention d512_decode_fp32: took the split route, want "
+             "the first kernel")
     return recs
 
 
@@ -2993,6 +3166,85 @@ def gemma_serving_config():
                          prefill_pad=64))
 
 
+def wide_config():
+    """Phases 3d-5d's model: Gemma 2B's widths (gemma_sparse_config:
+    hidden 2048, d_ff 16384, one KV head) with its query heads halved, 4
+    over 1 KV head, so that the head dim is 512 (no public config in the
+    model's d_head = d_model / n_heads parametrisation goes above 256), 2
+    layers, rope, dropout 0, bf16, the port's vocab."""
+    return dataclasses.replace(gemma_sparse_config(), n_heads=4)
+
+
+def wide_serving_config():
+    """Phase 3d's model and engine: ``wide_config`` on phase 3c's engine
+    (batch 32 on 16-slot pages, 256 pages a slot, sequences up to 4096)."""
+    return (wide_config(),
+            EngineConfig(max_batch_size=32, page_size=16,
+                         num_pages=32 * 256 + 1, max_seq_len=4096,
+                         prefill_pad=64))
+
+
+def phase_wide(dev, on_card, n_req=16, prompt_range=(256, 3072), n_new=64,
+               check_prompt=100, train_n=2048, check_n=512):
+    """Phases 3d, 4d and 5d at head dim 512 (``wide_config``): the engine
+    with bf16, e4m3 and int8 pages (phase 3's launch checks: every paged
+    launch on the split route's tensor-core walk, every append on the
+    kernel), the bf16, e4m3 and int8 card engines' first-token logits
+    against the CPU's (phase 4b's rungs; each engine's paged calls held
+    against their plain versions), then ``train_step`` at B = 1, N =
+    ``train_n`` (2 warm-up and 4 timed micro-steps, phase 5's launch
+    checks, one profiled) and one loss with its gradients card vs fp32 CPU
+    in bf16 (5e-2) and in fp32 (1e-4). The parameters are drawn once on the
+    host (2 layers: ~0.4 B fp32 values)."""
+    out = {}
+    cfg, ecfg = wide_serving_config()
+    if not on_card:  # the rehearsal: head dim 512, narrow elsewhere
+        cfg = dataclasses.replace(cfg, d_ff=256, vocab_size=97,
+                                  max_seq_len=256)
+        ecfg = dataclasses.replace(ecfg, max_batch_size=4, num_pages=65,
+                                   max_seq_len=256)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device="cpu")
+    log(f"[wide] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.kv_heads}, head dim {cfg.d_head}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; random weights seed "
+        f"{SEED} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for quant in (None, "fp8", "int8"):
+        out["engine_d512" + (f"_{quant}" if quant else "")] = phase_engine(
+            cfg, params, dataclasses.replace(ecfg, quant=quant), dev, n_req,
+            prompt_range, n_new, on_card=on_card)
+        if on_card:
+            torch.cuda.empty_cache()
+    out["phase_3d_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["vs_cpu_d512"] = phase_vs_cpu(cfg, params, dev, check_prompt, 16)
+    for quant in ("fp8", "int8"):
+        out[f"vs_cpu_d512_{quant}"] = phase_vs_cpu(cfg, params, dev,
+                                                   check_prompt, 16,
+                                                   quant=quant)
+    out["phase_4d_s"] = time.perf_counter() - t0
+    del params
+    t0 = time.perf_counter()
+    tc = ttrain.TrainConfig(batch_size=1, seq_len=train_n, grad_accum=1,
+                            warmup_steps=2)
+    out["train_d512"] = phase_train(cfg, tc, dev, on_card, n_warm=2,
+                                    n_timed=4, tag="train_d512")
+    if on_card:
+        torch.cuda.empty_cache()
+    out["train_d512_vs_cpu"] = phase_train_vs_cpu(
+        cfg, dev, n=check_n, tag="train_d512_vs_cpu")
+    out["train_d512_fp32_vs_cpu"] = phase_train_vs_cpu(
+        dataclasses.replace(cfg, dtype=torch.float32), dev, n=check_n,
+        tol=FP32_TOL, tag="train_d512_fp32_vs_cpu")
+    if on_card:
+        torch.cuda.empty_cache()
+    out["phase_5d_s"] = time.perf_counter() - t0
+    log(f"[wide] phase 3d {out['phase_3d_s']:.1f} s, phase 4d "
+        f"{out['phase_4d_s']:.1f} s, phase 5d {out['phase_5d_s']:.1f} s")
+    return out
+
+
 def gemma_dense_fp32_config():
     """Phase 7c's model: phase 7b's (gemma_sparse_config: Gemma 2B's
     attention widths, 8 query heads over 1 KV head at head dim 256, cut to
@@ -3819,8 +4071,10 @@ SM90_KERNELS = {"flash_fwd": 6, "flash_bwd": 12, "sparse_fwd": 10,
 # pages, each on the lane-group walk at 1 and 2 rows (D <= 128) and on the
 # tensor-core walk at 1, 2 and 4 row tiles a CTA; int8 "full" on the
 # tensor-core walk only.
-SPLIT_KERNELS = 28
-SPLIT_TC_KERNELS = 18
+# Above D = 256 the tensor-core walk's six (format, schedule) pairs at 1 and
+# 2 row tiles again, their q fragments of up to 16 k-steps a warp.
+SPLIT_KERNELS = 40
+SPLIT_TC_KERNELS = 30
 
 
 def dump_sass(names) -> dict[str, str]:
@@ -3874,16 +4128,18 @@ def split_report(sass):
     return out
 
 
-# The first paged kernel at MAXD = 256 (paged_attention_wide_kernel): bf16
-# and fp32 q, six (page format, schedule) pairs, 1, 2 and 4 rows a warp;
-# the merge kernels: bf16 and fp32 out, 4 and 8 columns a lane.
+# The first paged kernel at MAXD = 256 (paged_attention_wide_kernel) and,
+# chunked, at MAXD = 1024 (paged_attention_chunked_kernel): bf16 and fp32
+# q, six (page format, schedule) pairs, 1, 2 and 4 rows a warp; the merge
+# kernels: bf16 and fp32 out, 4 and 8 columns a lane.
 FIRST_WIDE_KERNELS = 36
+FIRST_CHUNKED_KERNELS = 36
 MERGE_KERNELS = 4
 
 
 def first_report(sass):
-    """Phase 1's report of the first paged kernel's MAXD = 256
-    instantiations and of the merge kernels from the SASS of
+    """Phase 1's report of the first paged kernel's MAXD = 256 and chunked
+    MAXD = 1024 instantiations and of the merge kernels from the SASS of
     paged_attention: registers and spill bytes (this build's ptxas
     report). Fails if one spills or a count is off."""
     ptxas = ptxas_entries(_build.BUILD_LOG.get("paged_attention", ""))
@@ -3891,6 +4147,7 @@ def first_report(sass):
     for part in sass.split("Function : ")[1:]:
         fn = part.split()[0]
         if not ("paged_attention_wide_kernel" in fn
+                or "paged_attention_chunked_kernel" in fn
                 or "paged_merge_kernel" in fn):
             continue
         regs, spill = ptxas.get(fn, (None, None))
@@ -3902,15 +4159,18 @@ def first_report(sass):
         if spill:
             fail(f"{fn}: spills {spill} bytes")
     merges = sum("paged_merge_kernel" in fn for fn in out)
-    if (len(out) - merges, merges) != (FIRST_WIDE_KERNELS, MERGE_KERNELS):
+    chunked = sum("paged_attention_chunked_kernel" in fn for fn in out)
+    if (len(out) - merges - chunked, chunked, merges) != (
+            FIRST_WIDE_KERNELS, FIRST_CHUNKED_KERNELS, MERGE_KERNELS):
         fail(f"paged_attention: expected {FIRST_WIDE_KERNELS} first kernels "
-             f"at MAXD = 256 and {MERGE_KERNELS} merge kernels, found "
-             f"{len(out) - merges} and {merges}")
+             f"at MAXD = 256, {FIRST_CHUNKED_KERNELS} chunked ones and "
+             f"{MERGE_KERNELS} merge kernels, found "
+             f"{len(out) - merges - chunked}, {chunked} and {merges}")
     return out
 
 
 # The append kernels: bf16 and fp32 tokens into five page formats, each
-# with 8 elements a lane (16-byte accesses) and with one.
+# with 8 elements a lane (16-byte accesses) and with one, at any D.
 APPEND_KERNELS = 20
 
 
@@ -3940,6 +4200,38 @@ def append_report(sass):
     if len(out) != APPEND_KERNELS:
         fail(f"paged_append: expected {APPEND_KERNELS} kernels, found "
              f"{len(out)}")
+    return out
+
+
+# The flash kernels above D = 256 (flash_wide.cu): forward, dK/dV and dQ
+# in bf16 and in fp32 (3xTF32), all on mma.sync.
+WIDE_KERNELS = 6
+
+
+def wide_report(sass):
+    """Phase 1's check of the chunked flash kernels above D = 256: per
+    ``*_wide_kernel`` of flash_wide its mma.sync products (HMMA) and its
+    registers and spill bytes (this build's ptxas report). Fails if one
+    has no HMMA, spills, or is missing."""
+    ptxas = ptxas_entries(_build.BUILD_LOG.get("flash_wide", ""))
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split()[0]
+        if "_wide_kernel" not in fn:
+            continue
+        regs, spill = ptxas.get(fn, (None, None))
+        out[fn] = dict(hmma=part.count("HMMA"), registers=regs,
+                       spill_bytes=spill)
+        log(f"[sass] flash_wide: {fn}: {out[fn]['hmma']} HMMA (mma.sync); "
+            f"ptxas: {regs} registers, {spill} spill bytes")
+        if not out[fn]["hmma"]:
+            fail(f"{fn}: the chunked kernel has no HMMA")
+        if spill is None:
+            fail(f"{fn}: no ptxas report from this run's build")
+        if spill:
+            fail(f"{fn}: spills {spill} bytes")
+    if len(out) != WIDE_KERNELS:
+        fail(f"flash_wide: expected {WIDE_KERNELS} kernels, found {len(out)}")
     return out
 
 
@@ -4072,6 +4364,9 @@ def main() -> int:
         report["vs_cpu_d256"] = phase_vs_cpu(gcfg, gparams, "cpu", 40, 8)
         report["vs_cpu_d256_fp8"] = phase_vs_cpu(gcfg, gparams, "cpu", 40, 8,
                                                  quant="fp8")
+        report.update(phase_wide("cpu", False, n_req=4, prompt_range=(8, 60),
+                                 n_new=8, check_prompt=40, train_n=64,
+                                 check_n=64))
         report["fa3_fp8"] = phase_fa3_fp8("cpu", (1, 2, 1024, 64),
                                           (1, 2, 640, 64), False)
         tcfg = dataclasses.replace(cfg, dropout_rate=0.1)
@@ -4171,12 +4466,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {name}: {line.strip()}")
     t0 = time.perf_counter()
-    dumps = dump_sass([*SM90_KERNELS, "paged_attention", "paged_append"])
+    dumps = dump_sass([*SM90_KERNELS, "flash_wide", "paged_attention",
+                       "paged_append"])
     log(f"[sass] {len(dumps)} libraries dumped in "
         f"{time.perf_counter() - t0:.2f} s")
     report.update(card=smi, build_s=per,
                   tensor_core_kernels=sass_report(dumps),
                   mma_kernels=mma_report(dumps),
+                  wide_flash_kernels=wide_report(dumps["flash_wide"]),
                   paged_split_kernels=split_report(dumps["paged_attention"]),
                   paged_first_kernels=first_report(dumps["paged_attention"]),
                   append_kernels=append_report(dumps["paged_append"]))
@@ -4249,6 +4546,15 @@ def main() -> int:
     del vparams
     torch.cuda.empty_cache()
     report["phase_3c_s"] = time.perf_counter() - t0
+
+    # Phase 3d: serving at head dim 512 (wide_config: Gemma 2B's widths with
+    # 4 query heads over 1 KV head, 2 layers), 16 requests on phase 3c's
+    # engine and traffic, bf16, e4m3 and int8 pages; 4d: its first-token
+    # logits card vs CPU; 5d: training it (bf16 train_step at B = 1, N =
+    # 2048; card vs fp32 CPU at the bf16 rung, and in fp32 at 1e-4)
+    t0 = time.perf_counter()
+    report.update(phase_wide(dev, True))
+    report["phase_3d_5d_s"] = time.perf_counter() - t0
 
     # Phase 5
     tcfg = TransformerConfig()  # GPT-3 Small, dropout 0.1, remat full, bf16
@@ -4414,7 +4720,8 @@ def main() -> int:
     log(f"[card] phase 1 {report['phase_1_s']:.1f} s, phase 2 "
         f"{report['phase_2_s']:.1f} s, phases 3-7 "
         f"{report['phases_3_7_s']:.1f} s (phases 3c-4c "
-        f"{report['phase_3c_s']:.1f} s of it), phase 7b "
+        f"{report['phase_3c_s']:.1f} s of it), phases 3d-5d "
+        f"{report['phase_3d_5d_s']:.1f} s, phase 7b "
         f"{report['sparse_model_d256']['phase_s']:.1f} s, phase 7c "
         f"{report['dense_fp32']['phase_s']:.1f} s, phase 7d "
         f"{report['sparse_model_fp32']['phase_s']:.1f} s, phase 7e "
@@ -4463,13 +4770,28 @@ def main() -> int:
                              ("engine_d256_int8", "d256,int8",
                               "d256_decode_int8_qk", None),
                              ("engine_d256_fp8", "d256,fp8",
-                              "d256_decode_fp8", None))),
+                              "d256_decode_fp8", None),
+                             # phase 3d: head dim 512, numbers of the
+                             # phase-2 d512 cases
+                             ("engine_d512", "d512", "d512_decode",
+                              "d512_chunk"),
+                             ("engine_d512_int8", "d512,int8",
+                              "d512_decode_int8_qk",
+                              "d512_chunk_int8_convert"),
+                             ("engine_d512_fp8", "d512,fp8",
+                              "d512_decode_fp8", "d512_chunk_fp8"))),
         ("paged_append", tuple((f"engine{q and '_' + q}", q,
                                 f"append_{q or 'bf16'}_decode",
                                 f"append_{q or 'bf16'}_chunk")
                                for q in ("", "int8", "fp8"))
          + (("engine_d256", "d256", "append_bf16_decode_d256",
-             "append_bf16_chunk_d256"),)),
+             "append_bf16_chunk_d256"),
+            ("engine_d512", "d512", "append_bf16_decode_d512",
+             "append_bf16_chunk_d512"),
+            ("engine_d512_int8", "d512,int8", "append_int8_decode_d512",
+             "append_int8_chunk_d512"),
+            ("engine_d512_fp8", "d512,fp8", "append_fp8_decode_d512",
+             "append_fp8_chunk_d512"))),
     ):
         for run, q, decode_case, chunk_case in cases:
             n, n_chunk, more = by_kind(run, name)
@@ -4985,6 +5307,50 @@ def main() -> int:
             kernel_split_ms=rs.get("kernel_split_ms"),
             step_sparse_ms=s7g["profile"]["sparse_kernels_ms"],
             step_median_ms=s7g["median_step_ms"], **beside))
+    # Above head dim 256 (flash_wide.cu's chunked kernels): launches of
+    # phase 5d's timed micro-steps (bf16) and of its fp32 card check;
+    # numbers of flash case (p), phase 5d's call, where SDPA computes the
+    # same function (its backend named), or (u) in fp32, with the D = 264,
+    # 384, 1024 and GQA-with-every-feature cases beside them, each key
+    # suffixed with its case
+    for tag, c, main_case, beside_cases in (
+            ("d512", report["train_d512"]["launches"], "p", "qrst"),
+            ("fp32_d512", report["train_d512_fp32_vs_cpu"]["launches"], "u",
+             "vwxy")):
+        r = report["kernels"][f"flash_{main_case}"]
+        for name, part, errs in (("flash_fwd", "fwd", ("o", "lse")),
+                                 ("flash_bwd", "bwd", ("dq", "dk", "dv"))):
+            beside = {}
+            for x in beside_cases:
+                rx = report["kernels"][f"flash_{x}"]
+                lib = ("library" if f"library_{part}_ms" in rx
+                       else "yardstick")
+                beside.update({f"{key}_{x}": rx[f"{part}_{key}"]
+                               for key in ("ms", "plain_ms", "bound_ms")})
+                beside[f"{lib}_ms_{x}"] = rx[f"{lib}_{part}_ms"]
+                beside[f"library_backend_{x}"] = rx["library_backend"]
+                beside[f"max_abs_err_{x}"] = max(rx["max_abs_err"][e]
+                                                 for e in errs)
+                beside[f"case_{x}"] = rx["case"]
+            kernels.append(dict(
+                name=f"{name}[{tag}]", **KERNELS[f"{name}_wide"],
+                launches=c[name],
+                max_abs_err=max(r["max_abs_err"][e] for e in errs),
+                ms=r[f"{part}_ms"], plain_ms=r[f"{part}_plain_ms"],
+                bound_ms=r[f"{part}_bound_ms"],
+                bound_by=r[f"{part}_bound_by"],
+                library_ms=r[f"library_{part}_ms"],
+                library_backend=r["library_backend"], case=r["case"],
+                wall_ms=r[f"{part}_wall_ms"], **beside))
+    # the first paged kernel's chunked instantiation on phase 2's fp32
+    # decode at D = 512 (fp32 q: no engine call takes it), beside the d512
+    # decode row, whose first_ms is the same kernel on its bf16 inputs
+    r32 = report["kernels"]["d512_decode_fp32"]
+    for k in kernels:
+        if k["name"] == "paged_attention[d512]":
+            k.update({f"fp32_first_{key}": r32[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
+                "case")})
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was launched no time on its main path")

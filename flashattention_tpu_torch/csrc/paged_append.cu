@@ -54,8 +54,15 @@
 // (PERF.md). For
 // 1-byte pages the absmax is a shuffle inside the lane group and one lane
 // writes the scale. Where D is not a multiple of 8, or a tensor or stride
-// is not 16-byte aligned, the same kernel is instantiated with one element
-// a lane (W = 1); the host picks the instantiation.
+// is not 16-byte aligned, the same kernel is instantiated with chunks of
+// one element (W = 1); the host picks the instantiation. A row wider than 32
+// chunks goes through its warp chunk by chunk (chunk c of the row at lane
+// c % 32), so the kernel takes any D: each lane loads its first chunk
+// before the lengths, as above, and any further chunk after the page-table
+// entry; 1-byte pages take the row's absmax over every chunk first, then
+// load each further chunk again (from L1) to quantize it, so the scale is
+// the whole row's. Up to D = 256 at W = 8 a lane has one chunk, so the
+// whole row is in flight before the lengths arrive.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -68,8 +75,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxChunks = 8;  // elements a lane holds at W = 1
-constexpr int kMaxD = 256;     // kMaxChunks * 32 lanes at W = 1, 32 * 8 at W = 8
 
 // Page formats (page_fmt) and token types (src_dtype) of the C interface.
 enum PageFmt { kBf16 = 0, kF32 = 1, kInt8 = 2, kE4m3 = 3, kE5m2 = 4 };
@@ -102,7 +107,7 @@ struct AppendArgs {
   const int32_t* valid_len;  // null: every token of the T is valid
   int B, T, H, num_pages, page_size, pps, D;
   int lanes_log2;       // lanes a row, log2
-  int chunks_per_lane;  // 1 at W = 8, <= kMaxChunks at W = 1
+  int chunks_per_lane;
   float inv_qmax;
 };
 
@@ -167,11 +172,19 @@ __device__ __forceinline__ void store_chunk(T* __restrict__ p,
   }
 }
 
+template <typename S, int W>
+__device__ __forceinline__ float absmax(const S (&x)[W]) {
+  float m = 0.f;
+#pragma unroll
+  for (int e = 0; e < W; ++e) m = fmaxf(m, fabsf(to_float(x[e])));
+  return m;
+}
+
+// Chunk i of a lane is chunk lane + i * G of its row.
 template <typename S, int FMT, int W>
 __global__ void __launch_bounds__(kThreads)
 paged_append_tokens_kernel(const AppendArgs a) {
   using Dt = typename PageType<FMT>::type;
-  constexpr int NC = W == 1 ? kMaxChunks : 1;  // chunks a lane holds
   const int G = 1 << a.lanes_log2;
   const int lane = threadIdx.x & (G - 1);
   const int rows = a.B * a.T * 2 * a.H;
@@ -190,18 +203,14 @@ paged_append_tokens_kernel(const AppendArgs a) {
     b = r / a.T;
   }
 
-  // Independent loads first: the token, lengths[b] and valid_len[b].
+  // Independent loads first: the lane's first chunk, lengths[b] and
+  // valid_len[b].
   const S* src = static_cast<const S*>(kv ? a.v_new : a.k_new) +
                  b * (kv ? a.v_sb : a.k_sb) + h * (kv ? a.v_sh : a.k_sh) +
                  t * (kv ? a.v_st : a.k_st);
-  alignas(16) S x[NC][W];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    const int c = lane + i * G;
-    if (live && i < a.chunks_per_lane && c * W < a.D) {
-      load_chunk<S, W>(src + c * W, x[i]);
-    }
-  }
+  const bool has0 = live && lane * W < a.D;
+  alignas(16) S x[W];
+  if (has0) load_chunk<S, W>(src + lane * W, x);
   const int len = live ? __ldg(a.lengths + b) : 0;
   const int vlen = (live && a.valid_len != nullptr) ? __ldg(a.valid_len + b)
                                                     : a.T;
@@ -220,46 +229,53 @@ paged_append_tokens_kernel(const AppendArgs a) {
   Dt* dst = static_cast<Dt*>(kv ? a.v_pages : a.k_pages) + at * a.D;
 
   if constexpr (FMT == kBf16 || FMT == kF32) {
-    if (keep) {
+    auto put = [&](const S (&y)[W], int c) {
+      alignas(16) Dt z[W];
 #pragma unroll
-      for (int i = 0; i < NC; ++i) {
+      for (int e = 0; e < W; ++e) z[e] = convert<Dt>(y[e]);
+      store_chunk<Dt, W>(dst + c * W, z);
+    };
+    if (keep && has0) {
+      put(x, lane);
+      for (int i = 1; i < a.chunks_per_lane; ++i) {
         const int c = lane + i * G;
-        if (i < a.chunks_per_lane && c * W < a.D) {
-          alignas(16) Dt y[W];
-#pragma unroll
-          for (int e = 0; e < W; ++e) y[e] = convert<Dt>(x[i][e]);
-          store_chunk<Dt, W>(dst + c * W, y);
-        }
+        if (c * W >= a.D) break;
+        alignas(16) S y[W];
+        load_chunk<S, W>(src + c * W, y);
+        put(y, c);
       }
     }
   } else {
     // Every lane of the warp reaches the shuffles: rows past the end and
     // dropped rows take part with what they hold and store nothing.
-    float amax = 0.f;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
+    float amax = has0 ? absmax<S, W>(x) : 0.f;
+    for (int i = 1; has0 && i < a.chunks_per_lane; ++i) {
       const int c = lane + i * G;
-      if (live && i < a.chunks_per_lane && c * W < a.D) {
-#pragma unroll
-        for (int e = 0; e < W; ++e) amax = fmaxf(amax, fabsf(to_float(x[i][e])));
-      }
+      if (c * W >= a.D) break;
+      alignas(16) S y[W];
+      load_chunk<S, W>(src + c * W, y);
+      amax = fmaxf(amax, absmax<S, W>(y));
     }
     for (int o = G >> 1; o > 0; o >>= 1) {
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
     }
     const float scale = fmaxf(amax * a.inv_qmax, 1e-6f);
+    auto put = [&](const S (&y)[W], int c) {
+      alignas(16) uint8_t z[W];
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        z[e] = encode<FMT>(__fdiv_rn(to_float(y[e]), scale));
+      }
+      store_chunk<uint8_t, W>(dst + c * W, z);
+    };
     if (keep) {
-#pragma unroll
-      for (int i = 0; i < NC; ++i) {
+      if (has0) put(x, lane);
+      for (int i = 1; has0 && i < a.chunks_per_lane; ++i) {
         const int c = lane + i * G;
-        if (i < a.chunks_per_lane && c * W < a.D) {
-          alignas(16) uint8_t y[W];
-#pragma unroll
-          for (int e = 0; e < W; ++e) {
-            y[e] = encode<FMT>(__fdiv_rn(to_float(x[i][e]), scale));
-          }
-          store_chunk<uint8_t, W>(dst + c * W, y);
-        }
+        if (c * W >= a.D) break;
+        alignas(16) S y[W];
+        load_chunk<S, W>(src + c * W, y);
+        put(y, c);
       }
       if (lane == 0) (kv ? a.v_scales : a.k_scales)[at] = scale;
     }
@@ -311,7 +327,7 @@ int fat_paged_append_tokens(
     const void* valid_len, int B, int T, int H, int num_pages, int page_size,
     int pps, int D, int page_fmt, int src_dtype, float inv_qmax,
     void* stream) {
-  if (B < 1 || T < 1 || H < 1 || D < 1 || D > kMaxD || num_pages < 1 ||
+  if (B < 1 || T < 1 || H < 1 || D < 1 || num_pages < 1 ||
       page_size < 1 || pps < 1 || page_fmt < kBf16 || page_fmt > kE5m2 ||
       (long long)B * T * 2 * H > INT_MAX) {
     return (int)cudaErrorInvalidValue;
@@ -360,9 +376,6 @@ int fat_paged_append_tokens(
   a.lanes_log2 = lanes_log2;
   a.chunks_per_lane = (chunks + (1 << lanes_log2) - 1) >> lanes_log2;
   a.inv_qmax = inv_qmax;
-  if (a.chunks_per_lane > (vec ? 1 : kMaxChunks)) {
-    return (int)cudaErrorInvalidValue;
-  }
   const int rows = B * T * 2 * H;
   auto st = static_cast<cudaStream_t>(stream);
   int err;

@@ -9,21 +9,24 @@ tensors it runs their plain PyTorch versions, :func:`flash_fwd_plain` and
 :func:`flash_bwd_plain`. Nothing falls back: a CUDA input the kernels do
 not take raises, and so does a failed build or launch.
 
-Every call runs on the tensor cores, by dtype (:func:`_entry`): bf16 runs
-``fat_flash_fwd_sm90`` / ``fat_flash_bwd_sm90`` (wgmma, tiles by TMA; above
-D = 128 the dK/dV kernel splits the head dim between its two consumer
-warpgroups); fp32 runs ``fat_flash_fwd_sm90_f32`` /
+Every call runs on the tensor cores, by dtype and head dim (:func:`_entry`):
+up to D = 256 bf16 runs ``fat_flash_fwd_sm90`` / ``fat_flash_bwd_sm90``
+(wgmma, tiles by TMA; above D = 128 the dK/dV kernel splits the head dim
+between its two consumer warpgroups) and fp32 ``fat_flash_fwd_sm90_f32`` /
 ``fat_flash_bwd_sm90_f32`` (the same on 3xTF32 wgmma: each fp32 operand
 split into two TF32 parts, three products summed in fp32,
 ``csrc/tf32_sm90.cuh``; above D = 128 the operands too large to keep in two
-parts are split in registers). Both up to D = 256, the most
-:func:`make_opts` takes. The sources' third entry points, the first
-kernels (fp32 FMAs on the CUDA cores), are no route of this module: they
-stay as the comparison ``chip_smoke.py`` times.
+parts are split in registers). Above D = 256 both dtypes run
+``fat_flash_fwd_wide`` / ``fat_flash_bwd_wide`` (``csrc/flash_wide.cu``:
+mma.sync, bf16 or 3xTF32; every output cut into column chunks, one CTA a
+chunk, each recomputing the scores over all of D), for any head dim. The
+sources' third entry points, the first kernels (fp32 FMAs on the CUDA
+cores), are no route of this module: they stay as the comparison
+``chip_smoke.py`` times.
 ``kernel_attention.fwd_launches`` and ``bwd_launches`` count every call.
 
 Contract (as in the JAX package): q (B, H, N_q, D), k/v (B, H_kv, N_k, D)
-with H % H_kv == 0 and D <= 256 (:func:`kernel_attention` pads a D that is
+with H % H_kv == 0 and any D (:func:`kernel_attention` pads a D that is
 not a multiple of 8); returns o in q's shape and dtype and an fp32 LSE
 (B, H, N_q). Query row r sits at key position r + q_offset (default
 N_k - N_q). Scores go through one pipeline, in this order:
@@ -63,7 +66,9 @@ from flashattention_tpu_torch.ops.reference import (
 )
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-MAX_HEAD_DIM = 256
+# The largest head dim of the wgmma kernels (flash_fwd.cu, flash_bwd.cu);
+# above it the chunked kernels of flash_wide.cu take the call.
+SM90_MAX_HEAD_DIM = 256
 _M32 = 0xFFFFFFFF
 
 
@@ -225,22 +230,35 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _entry(lib: ctypes.CDLL, prefix: str, dtype):
-    """The tensor-core entry point of ``prefix`` for ``dtype``, which takes
-    every head dim up to MAX_HEAD_DIM (256) and refuses one above: bf16
-    wgmma, or fp32 on 3xTF32, which keeps the fp32 1e-4 limit where one TF32
-    product would not (above D = 128 its kernels split the operands they
-    keep as landed in registers, ``csrc/tf32_sm90.cuh``)."""
-    return getattr(lib, prefix + ("_sm90_f32" if dtype == torch.float32
-                                  else "_sm90"))
+def _entry_name(prefix: str, dtype, d: int) -> tuple[str, str]:
+    """(kernel library, entry point) of ``prefix`` ("fat_flash_fwd" or
+    "fat_flash_bwd") for ``dtype`` and head dim ``d``, all on the tensor
+    cores. Up to :data:`SM90_MAX_HEAD_DIM` (256): bf16 wgmma, or fp32 on
+    3xTF32, which keeps the fp32 1e-4 limit where one TF32 product would
+    not (above D = 128 its kernels split the operands they keep as landed in
+    registers, ``csrc/tf32_sm90.cuh``). Above: the chunked mma.sync kernels
+    of ``csrc/flash_wide.cu``, both dtypes in one entry point."""
+    if d > SM90_MAX_HEAD_DIM:
+        return "flash_wide", prefix + "_wide"
+    lib = "flash_fwd" if prefix == "fat_flash_fwd" else "flash_bwd"
+    return lib, prefix + ("_sm90_f32" if dtype == torch.float32 else "_sm90")
+
+
+def _entry(prefix: str, dtype, d: int):
+    """The loaded entry point :func:`_entry_name` names."""
+    lib, name = _entry_name(prefix, dtype, d)
+    return getattr(_build.load_kernel(lib, _DECLARE[lib]), name)
 
 
 def route_kernels(dtype, d: int) -> frozenset[str]:
     """The ``__global__`` kernels a forward and a backward call launch for
     ``dtype`` and head dim ``d`` (their names in a profiler trace). fp32
-    above D = 128 adds the split of the backward's B operands, and under
-    GQA/MQA may add ``kv_sum_kernel`` (:func:`_kv_splits`)."""
-    if dtype == torch.bfloat16:
+    at 128 < D <= 256 adds the split of the backward's B operands, and under
+    GQA/MQA may add ``kv_sum_kernel`` (:func:`_kv_splits`). Above D = 256
+    both dtypes run the chunked kernels of ``csrc/flash_wide.cu``."""
+    if d > SM90_MAX_HEAD_DIM:
+        tag = "wide"
+    elif dtype == torch.bfloat16:
         tag = "sm90"
     else:
         tag = "f32_wide_sm90" if d > 128 else "f32_sm90"
@@ -306,8 +324,7 @@ def _fwd_cuda(q, k, v, opts: AttnOpts):
     lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
     if o.numel() == 0 or k.shape[2] == 0:
         return o.zero_(), lse.fill_(float("-inf"))
-    fn = _entry(_build.load_kernel("flash_fwd", _declare_fwd),
-                "fat_flash_fwd", q.dtype)
+    fn = _entry("fat_flash_fwd", q.dtype, q.shape[3])
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         _ptr(opts.q_ids), _ptr(opts.kv_ids), _ptr(opts.slopes),
@@ -327,10 +344,9 @@ def _bwd_cuda(q, k, v, do, lse, di, opts: AttnOpts):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.shape[2] == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lib = _build.load_kernel("flash_bwd", _declare_bwd)
-    fn = _entry(lib, "fat_flash_bwd", q.dtype)
+    fn = _entry("fat_flash_bwd", q.dtype, q.shape[3])
     more = []
-    if fn is lib.fat_flash_bwd_sm90_f32:
+    if q.dtype == torch.float32 and q.shape[3] <= SM90_MAX_HEAD_DIM:
         scratch, splits = _wide_scratch(q, k)
         more = [_ptr(scratch), splits]
     err = fn(
@@ -401,6 +417,18 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
                                            + [p, ctypes.c_int])
 
 
+def _declare_wide(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    for fn, n in ((lib.fat_flash_fwd_wide, 8), (lib.fat_flash_bwd_wide, 12)):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p] * n + _scalar_argtypes()
+
+
+# kernel library -> the function that declares its entry points
+_DECLARE = {"flash_fwd": _declare_fwd, "flash_bwd": _declare_bwd,
+            "flash_wide": _declare_wide}
+
+
 # ---------------------------------------------------------------------------
 # Dispatch and autograd
 # ---------------------------------------------------------------------------
@@ -461,9 +489,8 @@ def make_opts(q, k, *, causal=False, softmax_scale=None, dropout_rate=0.0,
     b, h, n_q, d = q.shape
     if h % k.shape[1] != 0:
         raise ValueError(f"H={h} must be a multiple of H_kv={k.shape[1]}")
-    if d > MAX_HEAD_DIM or d % 8:
-        raise ValueError(f"head_dim must be a multiple of 8 up to "
-                         f"{MAX_HEAD_DIM}, got {d}")
+    if d < 1 or d % 8:
+        raise ValueError(f"head_dim must be a multiple of 8, got {d}")
     if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
     if dropout_rate > 0.0 and dropout_seed is None:
@@ -540,7 +567,7 @@ def kernel_attention(q, k, v, *, causal=False, softmax_scale=None,
     the default scale is the unpadded D's, and o and the gradients are
     sliced back to D."""
     d = q.shape[-1]
-    pad = -d % 8 if d <= MAX_HEAD_DIM else 0
+    pad = -d % 8
     if pad:
         if softmax_scale is None:
             softmax_scale = d ** -0.5

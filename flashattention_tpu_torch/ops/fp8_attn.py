@@ -166,13 +166,18 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# The largest head dim the 8-bit kernels take on the card (the plain
+# version takes any); a larger one raises there.
+MAX_HEAD_DIM = 256
+
+
 def _tensor_core_route(d: int, bk: int) -> bool:
     """True where the tensor-core kernel takes the call, in either
     ``int8_pv`` setting: D <= 256 (128 < D <= 256 runs the D = 256
     kernels; a head dim below the kernel's reads zeros past D) and key
     blocks a multiple of 128, so that one key tile never spans two v
     scales."""
-    return d <= 256 and bk % 128 == 0
+    return d <= MAX_HEAD_DIM and bk % 128 == 0
 
 
 def kernel_head_dim(d: int) -> int:
@@ -204,6 +209,9 @@ def _fwd_cuda(q8, k8, v8, sq, sk, sv, bq, bk, opts, int8_pv, out_dtype):
     if out_dtype not in _OUT_CODE:
         raise TypeError(f"the fp8 kernel writes bf16/fp32, not {out_dtype}")
     b, h, n_q, d = q8.shape
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}: the 8-bit kernels "
+                         f"take head dims up to {MAX_HEAD_DIM}")
     h_kv, n_k = k8.shape[1], k8.shape[2]
     want = {"sq": (b, h, -(-n_q // bq)), "sk": (b, h_kv, -(-n_k // bk)),
             "sv": (b, h_kv, -(-n_k // bk))}

@@ -24,7 +24,8 @@ int8/e4m3/e5m2 payloads with (H_kv, P, page, 1) fp32
 ``k_scales``/``v_scales``: each token row is quantized over D on the way
 in (``ops/quant.quantize_tokens``), ``scale = max(absmax * fp32(1 / qmax),
 1e-6)``, payload ``x / scale`` rounded half to even (int8) or cast to
-nearest even (fp8). The kernel's bytes equal the plain version's.
+nearest even (fp8). The kernel's bytes equal the plain version's. Both
+take any head dim D.
 
 The one-token-per-row form of the JAX package's ``pallas_append_decode``
 (physical page, slot and keep flag per row) is this call with
@@ -50,7 +51,6 @@ _PAGE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2,
               torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
 _SRC_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _INV_QMAX = {dt: inv_qmax(fmt) for dt, fmt in FMT_OF_DTYPE.items()}
-_MAX_D = 256  # the kernel holds a row in one warp's registers
 
 
 def paged_append_plain(k_pages, v_pages, k_new, v_new, page_indices, lengths,
@@ -123,8 +123,6 @@ def _check_cuda_args(k_pages, v_pages, k_new, v_new, page_indices, lengths,
                         f"got {k_new.dtype}, {v_new.dtype}")
     if k_new.stride(3) != 1 or v_new.stride(3) != 1:
         raise ValueError("new tokens must have a D stride of 1")
-    if k_pages.shape[3] > _MAX_D:
-        raise ValueError(f"head dim {k_pages.shape[3]} > {_MAX_D}")
     for name, x in (("k_pages", k_pages), ("v_pages", v_pages),
                     ("k_scales", k_scales), ("v_scales", v_scales),
                     ("lengths", lengths), ("valid_len", valid_len)):

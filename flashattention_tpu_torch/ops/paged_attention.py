@@ -13,9 +13,11 @@ brought in by 1-D bulk copies, a second kernel merging the splits) for
 bf16 q over bf16 or 1-byte pages in every schedule, and the first kernel
 (``fat_paged_attention``, ``fat_paged_attention_quant``) for fp32 pages
 or q and shapes the bulk copies cannot take. Both take head dims up to
-:data:`MAX_HEAD_DIM` (256); the split route needs D % 8 == 0, and above
-D = 128 the first kernel cuts its walk into splits too
-(:func:`first_plan`), merged by the split route's merge kernel. The split
+:data:`KERNEL_MAX_HEAD_DIM` (1024); the split route needs D % 8 == 0, and
+above D = 128 the first kernel cuts its walk into splits too
+(:func:`first_plan`), merged by the split route's merge kernel. Above D =
+256 both kernels cut each output row into chunks of 256 columns, one CTA a
+chunk, each computing the scores over all of D. The split
 kernel walks a page on the tensor cores above D = 128, wherever a KV head
 has 3 query rows or more and in the "full" schedule, else in lane groups
 on the CUDA cores (:func:`split_walk`). A larger head dim raises on the card
@@ -80,7 +82,10 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 # payload format codes of the kernel: 0 = the compute type itself
 _FMT_CODE = {torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
 _MODE_CODE = {"convert": 0, "qk": 1, "full": 2}
-MAX_HEAD_DIM = 256
+# The largest head dim of the kernels (kMaxD in csrc/paged_attention.cu):
+# above 256 they cut the output into chunks of CHUNK_HEAD_DIM columns.
+KERNEL_MAX_HEAD_DIM = 1024
+CHUNK_HEAD_DIM = 256
 
 
 def row_positions(lengths, q_len, rows_per_head):
@@ -127,6 +132,9 @@ SPLIT_THREADS = 128
 # static arrays) bounds the ring; the shared memory one CTA may take.
 TC_ROWS = 8
 TC_CTAS_PER_SM = {1: 4, 2: 3, 4: 2}
+# Above D = 256 a CTA holds 1 or 2 row tiles (its q fragments cover up to
+# 16 k-steps a warp) and asks for 2 CTAs an SM.
+TC_CTAS_PER_SM_CHUNKED = {1: 2, 2: 2}
 TC_SMEM_BYTES = 227 * 1024 - 1024
 # Slots a tensor-core split walks above D = 128: 256 for bf16 pages at one
 # row tile (decode), else 128. 1-byte pages decode each tile to bf16 in
@@ -142,7 +150,7 @@ _WALK_CODE = {"lanes": 0, "tc": 1}
 def split_route(q_dtype, page_dtype, mode, page_size, d, aligned=True):
     """True where the split kernel takes the call: bf16 q over bf16 pages,
     or over 1-byte pages in any schedule ("full" on the tensor-core walk,
-    a split one walk step); D <= 256 with
+    a split one walk step); D <= :data:`KERNEL_MAX_HEAD_DIM` with
     D % 8 == 0; a page's K (or V) slab of one KV head, ``page * D * elt``
     bytes, and for 1-byte pages its scale plane, ``page * 4`` bytes,
     multiples of 16; three stages of the ring within
@@ -153,7 +161,7 @@ def split_route(q_dtype, page_dtype, mode, page_size, d, aligned=True):
     quant = page_dtype in _FMT_CODE
     if not quant and page_dtype != torch.bfloat16:
         return False
-    if d > MAX_HEAD_DIM or d % 8:
+    if d > KERNEL_MAX_HEAD_DIM or d % 8:
         return False
     slab = page_size * d * (1 if quant else 2)
     if slab % 16 or (quant and page_size % 4):
@@ -192,7 +200,8 @@ def split_plan(h, h_kv, q_len, d, page_size, pps, quantized, mode="convert"):
     KV head; ``stages`` of the ring.
 
     On the tensor-core walk a CTA holds ``nrs`` row tiles of ``rps`` =
-    :data:`TC_ROWS` rows (1, 2 or 4 tiles: 8, 16 or more rows a KV head),
+    :data:`TC_ROWS` rows (1, 2 or 4 tiles: 8, 16 or more rows a KV head;
+    above D = 256 at most 2, :data:`TC_CTAS_PER_SM_CHUNKED`),
     its splits take :data:`TC_WIDE_SLOTS` slots above D = 128, and
     ``stages`` (2-4) are as many as fit, beside its decoded tiles and score
     buffers, in its share of an SM's shared memory (:data:`TC_CTAS_PER_SM`):
@@ -208,14 +217,17 @@ def split_plan(h, h_kv, q_len, d, page_size, pps, quantized, mode="convert"):
     step = full_step_pages(page_size, pps) if full else 0
     if walk == "tc":
         lg, rps = 0, TC_ROWS
-        nrs = 1 if rows <= TC_ROWS else (2 if rows <= 2 * TC_ROWS else 4)
+        chunked = d > CHUNK_HEAD_DIM
+        nrs = 1 if rows <= TC_ROWS else (
+            2 if rows <= 2 * TC_ROWS or chunked else 4)
         stage = (page_size * d + 8 * page_size if full
                  else 2 * page_size * d + 8 * page_size if quantized
                  else 2 * page_size * tc_row_bytes(d))
         extra = ((2 * (32 * tc_row_bytes(d) + 128) if quantized else 0)
                  + 2 * 4 * nrs * 32 * 16
                  + (step * page_size // 16 * nrs * 32 * 16 if full else 0))
-        share = TC_SMEM_BYTES // TC_CTAS_PER_SM[nrs]
+        share = TC_SMEM_BYTES // (TC_CTAS_PER_SM_CHUNKED if chunked
+                                  else TC_CTAS_PER_SM)[nrs]
         stages = max(2, min(4, (share - extra) // stage))
         slots = (TC_WIDE_SLOTS[nrs == 1 and not quantized] if d > 128
                  else SPLIT_SLOTS[nrs == 1])
@@ -358,11 +370,12 @@ def paged_attention_plain(
 
 def _check_cuda_args(q, k_pages, v_pages, page_indices, lengths, k_scales,
                      v_scales):
-    if q.shape[-1] > MAX_HEAD_DIM:
-        # the kernels stop at 256 (a larger head dim needs more kernel
-        # instantiations); the CPU plain version takes any
-        raise ValueError(f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM}: the "
-                         f"paged kernels take head dims up to {MAX_HEAD_DIM}")
+    if q.shape[-1] > KERNEL_MAX_HEAD_DIM:
+        # the kernels stop at 1024 (the tensor-core walk's q fragments, the
+        # first kernel's whole K tile); the CPU plain version takes any
+        raise ValueError(f"head_dim {q.shape[-1]} > {KERNEL_MAX_HEAD_DIM}: "
+                         f"the paged kernels take head dims up to "
+                         f"{KERNEL_MAX_HEAD_DIM}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"paged_attention kernel takes bf16/fp32 q, got {q.dtype}")
     if k_pages.dtype != v_pages.dtype:

@@ -59,7 +59,6 @@ import torch
 from flashattention_tpu_torch import _build
 from flashattention_tpu_torch.ops.flash_attn import (
     _DTYPE_CODE,
-    MAX_HEAD_DIM,
     _aligned16,
     _expand_kv,
     _group_sum,
@@ -67,6 +66,10 @@ from flashattention_tpu_torch.ops.flash_attn import (
     _wide_scratch,
 )
 from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
+
+# The largest head dim the sparse kernels take on the card (the plain
+# version takes any); a larger one raises there.
+MAX_HEAD_DIM = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,7 +204,8 @@ def _check_cuda(q, k, v, active, spec: SparseSpec, do=None, lse=None):
     b, h, n_q, d = q.shape
     if d > MAX_HEAD_DIM or d % 8:
         raise ValueError(f"head_dim must be a multiple of 8 up to "
-                         f"{MAX_HEAD_DIM}, got {d}")
+                         f"{MAX_HEAD_DIM} (the sparse kernels' limit), got "
+                         f"{d}")
     n_k = k.shape[2]
     want = {"k": tuple(v.shape), "pattern": (-(-n_q // spec.block_q),
                                              -(-n_k // spec.block_k)),

@@ -126,18 +126,19 @@ def producer(src):
       if (empty != nullptr) mbar_init(&empty[s], empty_count);
     }
     fat::sm90::fence_barrier_init();""")
-    e("""constexpr int tc_min_blocks(int nt, int mode) {
-  return nt == 1 ? 4 : (nt == 2 ? (mode == 2 ? 2 : 3) : 2);
+    e("""constexpr int tc_min_blocks(int nt, int mode, int kq) {
+  return kq > kTcSteps ? 2
+                       : (nt == 1 ? 4 : (nt == 2 ? (mode == 2 ? 2 : 3) : 2));
 }""", """constexpr int kTcThreads = kSplitThreads + 32;
-constexpr int tc_min_blocks(int nt, int mode) {
-  return nt == 1 ? 3 : (nt == 2 ? 2 : 1);
+constexpr int tc_min_blocks(int nt, int mode, int kq) {
+  return kq > kTcSteps ? 1 : (nt == 1 ? 3 : (nt == 2 ? 2 : 1));
 }""")
-    e("""__global__ void __launch_bounds__(kSplitThreads, tc_min_blocks(NT, MODE))
+    e("""__global__ void __launch_bounds__(kSplitThreads, tc_min_blocks(NT, MODE, KQ))
 paged_split_tc_kernel(const SplitArgs a) {
   constexpr bool kQuant = FMT != 0;
   constexpr int kRows = kTcRows * NT;
   extern __shared__ __align__(128) char ring[];
-  __shared__ uint64_t full[kMaxStages];""", """__global__ void __launch_bounds__(kTcThreads, tc_min_blocks(NT, MODE))
+  __shared__ uint64_t full[kMaxStages];""", """__global__ void __launch_bounds__(kTcThreads, tc_min_blocks(NT, MODE, KQ))
 paged_split_tc_kernel(const SplitArgs a) {
   constexpr bool kQuant = FMT != 0;
   constexpr int kRows = kTcRows * NT;

@@ -118,6 +118,20 @@ CASES = {
                               q_len=3, lengths=[45]), {}),
     "mqa_d256_page24": (dict(b=2, h=8, h_kv=1, d=256, page=24, pps=4,
                              q_len=0, lengths=[70, 24]), {}),
+    # head dims above 256 (output rows cut into chunks of 256 columns, one
+    # CTA a chunk): 4 query heads over one KV head at D = 512 (the shape of
+    # chip_smoke phase 3d) at decode with an empty sequence and as a chunk;
+    # GQA at D = 264 (a chunk of 8 columns) with window, sinks and
+    # soft-cap; D = 1024 (4 chunks, the kernels' largest)
+    "mqa_d512_decode": (dict(b=2, h=4, h_kv=1, d=512, page=16, pps=5,
+                             q_len=0, lengths=[70, 0]), {}),
+    "mqa_d512_chunk": (dict(b=1, h=4, h_kv=1, d=512, page=16, pps=4,
+                            q_len=6, lengths=[55]), {}),
+    "gqa_d264_chunk_window_sinks_softcap": (
+        dict(b=2, h=4, h_kv=2, d=264, page=16, pps=4, q_len=3,
+             lengths=[50, 21]), dict(window=20, sinks=3, softcap=30.0)),
+    "mqa_d1024_decode": (dict(b=1, h=2, h_kv=1, d=1024, page=16, pps=3,
+                              q_len=0, lengths=[40]), {}),
 }
 # bf16 cases the split route must take (the counter checks it); fp32 takes
 # the first kernel.
@@ -129,7 +143,9 @@ PAGED_SPLIT = {"decode_p16", "decode_p8", "chunk_p16", "chunk_p8",
                "split_page24", "mqa_d256_decode",
                "mqa_d256_chunk_window_sinks_softcap", "gqa_d192_decode",
                "gqa_d136_chunk", "mqa_d256_verify_window_sinks_softcap",
-               "gqa16_d128_chunk", "mqa_d256_page24"}
+               "gqa16_d128_chunk", "mqa_d256_page24", "mqa_d512_decode",
+               "mqa_d512_chunk", "gqa_d264_chunk_window_sinks_softcap",
+               "mqa_d1024_decode"}
 # the cases above D = 128
 PAGED_WIDE = sorted(c for c in CASES if CASES[c][0]["d"] > 128)
 
@@ -316,12 +332,26 @@ def test_paged_first_kernel_above_128_matches_plain(cuda_device, case, quant,
 
 @pytest.mark.cuda
 def test_paged_attention_above_256_raises(cuda_device):
-    """No kernel takes D > 256: the call raises, nothing falls back."""
+    """D = 264 takes the tensor-core walk (two output chunks, the second of
+    8 columns) and matches the plain version; only above the kernels'
+    1024 does the call raise, and nothing falls back."""
     shape = dict(CASES["decode_p16"][0], d=264)
+    q, kp, vp, pi, ln = (torch.from_numpy(x).to(cuda_device).bfloat16()
+                         if i < 3 else torch.from_numpy(x).to(cuda_device)
+                         for i, x in enumerate(paged_inputs(**shape)))
+    before = pa.paged_attention.launches, pa.paged_attention.tc_launches
+    o = pa.paged_attention(q, kp, vp, pi, ln)
+    torch.cuda.synchronize()
+    assert (pa.paged_attention.launches - before[0],
+            pa.paged_attention.tc_launches - before[1]) == (1, 1)
+    ref = pa.paged_attention_plain(q, kp, vp, pi, ln)
+    tol = KERNEL_TOL[torch.bfloat16]
+    assert_allclose(o, ref, rtol=tol, atol=tol)
+    wide = dict(shape, d=1032)
     q, kp, vp, pi, ln = (torch.from_numpy(x).to(cuda_device)
-                         for x in paged_inputs(**shape))
+                         for x in paged_inputs(**wide))
     before = pa.paged_attention.launches
-    with pytest.raises(ValueError, match="head_dim 264"):
+    with pytest.raises(ValueError, match="head_dim 1032"):
         pa.paged_attention(q.bfloat16(), kp.bfloat16(), vp.bfloat16(), pi, ln)
     assert pa.paged_attention.launches == before
 
@@ -342,18 +372,24 @@ def test_paged_attention_kernel_rejects_what_it_does_not_take(cuda_device):
 def device_kernels_of(fn, tries=3, want=()):
     """Names of the device events that ``fn()`` runs, under torch.profiler,
     in launch order, between two marker fills of one element. CUPTI on the
-    card drops records of a profile now and then (the first ones, or the
-    first of fn's) and hands the last records over late, into the next
-    profile, whose first records are then another window's tail. So the
-    window is [fill] [long sleep] [fill] fn [fill] [sleep] [fill]: the
-    first fill only takes a drop, what comes before the long sleep is
-    another window's, the fill after it opens the window, the fill before
-    the next sleep closes it, and the last fill only takes the delay. A
-    record can go missing but never enter the window from elsewhere, so
-    where a marker, or a name of ``want`` (substrings of the kernels fn
-    must launch), is missing, the window is profiled again (``fn`` must be
-    idempotent), at most ``tries`` times; an extra kernel is never retried
-    away: the caller's check sees it."""
+    card drops records of a profile now and then: those of the kernels
+    launched in its first instants (in a run of this file where the wide
+    appends ran just before, every kernel launched before the host's first
+    wait, in most windows), or the first of fn's; and it hands the last
+    records over late, into the next profile, whose first records are then
+    another window's tail. So the window opens with four fills the host
+    waits for and a host pause (50 ms, doubled at each retry), then is [fill]
+    [long sleep] [fill] fn [fill] [sleep] [fill]: the first fill only takes
+    a drop, what comes before the long sleep is another window's, the fill
+    after it opens the window, the fill before the next sleep closes it,
+    and the last fill only takes the delay. A record can go missing but
+    never enter the window from elsewhere, so where a marker, or a name of
+    ``want`` (substrings of the kernels fn must launch), is missing, the
+    window is profiled again (``fn`` must be idempotent), at most ``tries``
+    times; an extra kernel is never retried away: the caller's check sees
+    it."""
+    import time
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -361,8 +397,12 @@ def device_kernels_of(fn, tries=3, want=()):
 
     marker = torch.empty(1, device="cuda")
     seen = []
-    for _ in range(tries):
+    for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                marker.fill_(-1.0)
+            torch.cuda.synchronize()
+            time.sleep(0.05 * 2 ** attempt)
             marker.fill_(0.0)
             torch.cuda._sleep(20 * HOLD_CYCLES)
             marker.fill_(1.0)
@@ -428,7 +468,8 @@ def test_paged_append_kernel_matches_plain(cuda_device, fmt, src, kind):
 # (decode), and views one element off the projection's start leave every
 # token unaligned (chunk).
 SCALAR_ROUTE = {"d100": dict(kind="decode", d=100),
-                "unaligned": dict(kind="chunk", offset=1)}
+                "unaligned": dict(kind="chunk", offset=1),
+                "d300": dict(kind="chunk", d=300)}
 
 
 @pytest.mark.cuda
@@ -437,10 +478,11 @@ SCALAR_ROUTE = {"d100": dict(kind="decode", d=100),
 @pytest.mark.parametrize("fmt", PAGE_FORMATS)
 def test_paged_append_scalar_route_matches_plain(cuda_device, fmt, src, why):
     """Where D is not a multiple of 8 or a token is not 16-byte aligned the
-    kernel holds one element a lane (W = 1, up to eight chunks a lane, the
-    absmax shuffled over all 32 lanes); that instantiation ran (its name
-    in torch.profiler) and equals the plain version bit for bit outside the
-    dump page, payloads and scales, in every format."""
+    kernel takes chunks of one element (W = 1: 2 a lane at D = 64, 4 at
+    100, 10 at 300, the absmax shuffled over all 32 lanes); that
+    instantiation ran (its name in torch.profiler) and equals the plain
+    version bit for bit outside the dump page, payloads and scales, in
+    every format."""
     kw = SCALAR_ROUTE[why]
     pages, k, v, pi, lengths, valid, dump = append_inputs(
         kw["kind"], fmt, src, cuda_device, d=kw.get("d", 64),
@@ -476,6 +518,22 @@ def test_paged_append_rows_kernel_matches_plain(cuda_device):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     # row 5 only (rows 0, 2 and 3 out of range, 1 and 4 ok = 0)
     assert int((got[0] != cast(kp)).any(-1).sum()) == kp.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, kind", [(264, "chunk"), (384, "chunk"),
+                                     (512, "decode"), (512, "chunk"),
+                                     (1024, "chunk"), (2048, "chunk")])
+@pytest.mark.parametrize("fmt", PAGE_FORMATS)
+def test_paged_append_above_256_matches_plain(cuda_device, fmt, d, kind):
+    """Head dims above 256: a row goes through its warp in chunks (several
+    a lane), the 1-byte scale is the whole row's absmax; bit-equal to the
+    plain version outside the dump page, payloads and scales."""
+    pages, k, v, pi, lengths, valid, dump = append_inputs(
+        kind, fmt, torch.bfloat16, cuda_device, d=d)
+    got, want = _append_both(pages, k, v, pi, lengths, valid)
+    assert append_bytes_equal(got, want, dump)
+    assert not append_bytes_equal(got, pages, dump)  # it did write
 
 
 @pytest.mark.cuda
@@ -777,6 +835,39 @@ FLASH_CASES = {
     # split over 8 CTAs, their partials summed after
     "fp32_d256_mqa": ((1, 8, 1, 512, 512, 256), torch.float32,
                       dict(causal=True), ()),
+    # above D = 256: the chunked kernels of flash_wide.cu (O and dQ in
+    # chunks of 256 columns, dK/dV of 128), bf16 and fp32; 264 and 384 end
+    # in a part-filled chunk, 1024 runs 4 and 8 chunks
+    "bf16_d264_causal_dlse": ((1, 2, 2, 200, 200, 264), torch.bfloat16,
+                              dict(causal=True), ("dlse",)),
+    "bf16_d384_causal": ((1, 4, 4, 256, 256, 384), torch.bfloat16,
+                         dict(causal=True), ()),
+    "bf16_d512_mqa_causal": ((1, 4, 1, 300, 300, 512), torch.bfloat16,
+                             dict(causal=True), ()),
+    "bf16_d512_gqa_window_dropout": (
+        (1, 4, 2, 200, 200, 512), torch.bfloat16,
+        dict(causal=True, window=64, sinks=3, softcap=30.0, dropout_rate=0.1,
+             dropout_seed=21), ("dlse",)),
+    "bf16_d512_full_segments_alibi": ((1, 4, 4, 96, 160, 512),
+                                      torch.bfloat16, dict(causal=False),
+                                      ("segments", "alibi")),
+    "bf16_d1024_causal": ((1, 2, 1, 128, 128, 1024), torch.bfloat16,
+                          dict(causal=True), ()),
+    "fp32_d264_causal_dlse": ((1, 2, 2, 200, 200, 264), torch.float32,
+                              dict(causal=True), ("dlse",)),
+    "fp32_d384_causal": ((1, 4, 4, 256, 256, 384), torch.float32,
+                         dict(causal=True), ()),
+    "fp32_d512_mqa_causal": ((1, 4, 1, 300, 300, 512), torch.float32,
+                             dict(causal=True), ()),
+    "fp32_d512_gqa_window_dropout": (
+        (1, 4, 2, 200, 200, 512), torch.float32,
+        dict(causal=True, window=64, sinks=3, softcap=30.0, dropout_rate=0.1,
+             dropout_seed=21), ("dlse",)),
+    "fp32_d512_full_segments_alibi": ((1, 4, 4, 96, 160, 512),
+                                      torch.float32, dict(causal=False),
+                                      ("segments", "alibi")),
+    "fp32_d1024_causal": ((1, 2, 1, 128, 128, 1024), torch.float32,
+                          dict(causal=True), ()),
 }
 
 
@@ -1060,6 +1151,18 @@ QUANT_PAGED = {
     "d192_decode": ("gqa_d192_decode", None),
     "d136_chunk": ("gqa_d136_chunk", None),
     "d136_full": ("gqa_d136_chunk", "full"),
+    # above D = 256 (output chunks of 256 columns): every format and int8
+    # schedule at one row tile (decode) and at two (a chunk of 24 rows a
+    # KV head), a last chunk of 8 columns, 4 chunks
+    "d512_decode": ("mqa_d512_decode", None),
+    "d512_convert": ("mqa_d512_decode", False),
+    "d512_full": ("mqa_d512_decode", "full"),
+    "d512_chunk": ("mqa_d512_chunk", None),
+    "d512_qk_chunk": ("mqa_d512_chunk", "qk"),
+    "d512_full_chunk": ("mqa_d512_chunk", "full"),
+    "d264_chunk": ("gqa_d264_chunk_window_sinks_softcap", None),
+    "d264_full_chunk": ("gqa_d264_chunk_window_sinks_softcap", "full"),
+    "d1024_decode": ("mqa_d1024_decode", None),
 }
 
 

@@ -163,6 +163,19 @@ def test_d256_mqa_matches_jax():
     assert res == res_jax
 
 
+def test_d512_mqa_matches_jax():
+    """Head dim 512 over one KV head (2 query heads, rope), 2 layers: the
+    engine's paged calls and appends above D = 256."""
+    cfg = dataclasses.replace(CFG, d_model=1024, n_heads=2, n_kv_heads=1,
+                              d_ff=512, pos_encoding="rope")
+    reqs = [(i, p, 6) for i, p in enumerate(prompts(12, (13, 30, 5)))]
+    ecfg = dict(max_batch_size=2, page_size=16, num_pages=24,
+                max_seq_len=64, prefill_pad=16)
+    res_jax, res, eng = serve_both(cfg, 8, ecfg, reqs)
+    assert eng.caches[0].k_pages.shape[-1] == 512
+    assert res == res_jax
+
+
 @pytest.mark.parametrize("prefix_cache", [True, False])
 def test_prefix_cache_matches_jax(prefix_cache):
     rng = np.random.default_rng(3)

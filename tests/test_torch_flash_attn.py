@@ -69,6 +69,14 @@ CASES = {
     "d192_segments_alibi": ((2, 2, 2, 64, 100, 192),
                             dict(causal=False, segments=True, alibi=True),
                             False),
+    # above D = 256 (on the card: the chunked kernels of flash_wide.cu; 264
+    # and 384 end in a part-filled chunk, 512 fills two)
+    "d264_causal_dlse": ((1, 2, 2, 64, 96, 264), dict(causal=True), True),
+    "d384_full_mqa": ((1, 2, 1, 48, 80, 384), dict(causal=False), False),
+    "d512_gqa_window_softcap": ((1, 4, 2, 64, 64, 512),
+                                dict(causal=True, window=24, sinks=2,
+                                     softcap=10.0, dropout_rate=0.1,
+                                     dropout_seed=9), True),
 }
 
 
@@ -205,9 +213,21 @@ def test_contract_errors(bad):
     q = torch.zeros(1, 4, 16, 32)
     k = torch.zeros(1, 2, 16, 32)
     kw = dict(causal=True)
-    if bad == "d264":  # above MAX_HEAD_DIM, in bf16 as in fp32
-        q = torch.zeros(1, 4, 16, 264, dtype=torch.bfloat16)
-        k = torch.zeros(1, 2, 16, 264, dtype=torch.bfloat16)
+    if bad == "d264":
+        # a head dim above 256 is no error: it computes, in bf16 as in fp32,
+        # and a D that is not a multiple of 8 above it is padded
+        for dt, d in ((torch.bfloat16, 264), (torch.float32, 264),
+                      (torch.float32, 300)):
+            q, k, v, _, _ = (torch.from_numpy(x).to(dt)
+                             for x in _inputs(1, 4, 2, 16, 16, d))
+            o, lse = fa.kernel_attention(q, k, v, **kw)
+            o_ref, lse_ref = fa.flash_fwd_plain(
+                q, k, v, fa.make_opts(q, k, **kw)) if d % 8 == 0 else (
+                o, lse)
+            assert o.shape == q.shape and o.dtype == dt
+            assert bool(torch.isfinite(o.float()).all())
+            assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
+        return
     elif bad == "heads":
         k = torch.zeros(1, 3, 16, 32)
     elif bad == "window":
@@ -236,36 +256,34 @@ def test_cpu_path_launches_no_kernel():
     assert torch.equal(o.detach(), o_plain)
 
 
-# (dtype, head dim, tensor-core route?): bf16 and fp32 up to D = 256 go to
-# the Hopper kernels (fp32 on 3xTF32). No route takes D = 264 (make_opts
-# refuses it).
+# (dtype, head dim, wgmma route?): bf16 and fp32 up to D = 256 go to the
+# wgmma kernels (fp32 on 3xTF32), above to the chunked mma.sync kernels of
+# flash_wide.cu (both dtypes); every head dim goes to the tensor cores.
 ROUTES = ([("bfloat16", d, True) for d in (40, 64, 128, 136, 192, 256)]
           + [("float32", d, True) for d in (40, 64, 128)]
           + [("float32", d, True) for d in (136, 256)]
           + [("bfloat16", 264, False), ("float32", 264, False)])
 
 
-class _EntryNames:
-    """Stands in for a kernel library: each entry point is its name."""
-
-    def __getattr__(self, name):
-        return name
-
-
 @pytest.mark.parametrize("dtype,d,want", ROUTES)
 def test_tensor_core_route(dtype, d, want):
-    """Every head dim make_opts takes goes to its dtype's tensor-core entry
-    points (fp32 to the 3xTF32 ones); make_opts refuses the rest."""
+    """Every head dim goes to a tensor-core entry point: up to D = 256 its
+    dtype's wgmma one (fp32 to the 3xTF32 ones), above the chunked one,
+    whose kernels route_kernels names."""
     dt = getattr(torch, dtype)
     q = torch.zeros(1, 2, 4, d, dtype=dt)
-    if not want:
-        with pytest.raises(ValueError, match="head_dim"):
-            fa.make_opts(q, q)
-        return
     fa.make_opts(q, q)
     suffix = "_sm90_f32" if dt == torch.float32 else "_sm90"
     for prefix in ("fat_flash_fwd", "fat_flash_bwd"):
-        assert fa._entry(_EntryNames(), prefix, dt) == prefix + suffix
+        lib, name = fa._entry_name(prefix, dt, d)
+        if want:
+            assert name == prefix + suffix
+            assert lib == ("flash_fwd" if "fwd" in prefix else "flash_bwd")
+        else:
+            assert (lib, name) == ("flash_wide", prefix + "_wide")
+    wide = {"flash_fwd_wide_kernel", "flash_bwd_dkv_wide_kernel",
+            "flash_bwd_dq_wide_kernel"}
+    assert (fa.route_kernels(dt, d) == wide) == (not want)
 
 
 # (B * H_kv, N_k, group, SMs, splits): the fp32 dK/dV kernel above D = 128

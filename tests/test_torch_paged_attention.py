@@ -82,6 +82,50 @@ def test_bf16_pages_follow_the_tpu_rounding_points():
                     rtol=5e-2, atol=5e-2)
 
 
+@pytest.mark.parametrize("case", ["mqa_d512_decode",
+                                  "gqa_d264_chunk_window_sinks_softcap"])
+def test_bf16_pages_above_256_follow_the_tpu_rounding_points(case):
+    """bf16 pages above D = 256, decode and chunk, against the Pallas
+    kernel in bf16 at the bf16 rung, as at D <= 256."""
+    shape, kw = CASES[case]
+    q, kp, vp, pi, ln = _inputs(**shape)
+    bf = lambda x: jnp.asarray(x).astype(jnp.bfloat16)
+    o_jax = pallas_paged_attention(
+        bf(q), bf(kp), bf(vp), jnp.asarray(pi), jnp.asarray(ln),
+        interpret=True, compute_dtype=jnp.bfloat16, **kw)
+    tb = lambda x: torch.from_numpy(x).to(torch.bfloat16)
+    o = pa.paged_attention(tb(q), tb(kp), tb(vp), torch.from_numpy(pi),
+                           torch.from_numpy(ln), **kw)
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    assert_allclose(o, np.asarray(o_jax.astype(jnp.float32)),
+                    rtol=5e-2, atol=5e-2, err_msg=case)
+
+
+@pytest.mark.parametrize("h, h_kv, q_len, d, quantized, nrs, groups, chunks", [
+    (4, 1, 1, 512, False, 1, 1, 2),    # chip_smoke phase 3d: decode
+    (4, 1, 64, 512, True, 2, 16, 2),   # its T = 64 chunk: 2 row tiles
+    (4, 1, 5, 512, False, 2, 2, 2),    # its verify chunk, 20 rows
+    (2, 1, 1, 1024, True, 1, 1, 4),    # D = 1024: 4 chunks
+    (4, 2, 3, 264, False, 1, 1, 2)])   # D = 264: a chunk of 8 columns
+def test_split_plan_above_head_dim_256(h, h_kv, q_len, d, quantized, nrs,
+                                       groups, chunks):
+    """Above D = 256 the tensor-core walk holds 1 or 2 row tiles a CTA
+    (each CTA's q fragments cover up to 16 k-steps a warp) in a ring of
+    2-4 stages that fits the H100's shared memory with the decoded tiles
+    and score buffers; the kernel cuts O into ceil(D / 256) chunks."""
+    plan = pa.split_plan(h, h_kv, q_len, d, 16, 32, quantized)
+    assert plan["walk"] == "tc"
+    assert (plan["nrs"], plan["row_groups"]) == (nrs, groups)
+    assert -(-d // pa.CHUNK_HEAD_DIM) == chunks
+    rs = pa.tc_row_bytes(d)
+    stage = 2 * 16 * d + 8 * 16 if quantized else 2 * 16 * rs
+    smem = (plan["stages"] * stage
+            + (2 * (32 * rs + 128) if quantized else 0)
+            + 2 * 4 * plan["nrs"] * 32 * 16)
+    assert 2 <= plan["stages"] <= 4
+    assert smem <= pa.TC_SMEM_BYTES
+
+
 def test_cpu_call_never_counts_a_launch():
     q, kp, vp, pi, ln = _inputs(**CASES["decode_p8"][0])
     before = pa.paged_attention.launches
@@ -126,7 +170,13 @@ SPLIT_ROUTE = {
     "d_above_128": (torch.bfloat16, torch.bfloat16, "convert", 16, 256, True,
                     True),
     "d_above_256": (torch.bfloat16, torch.bfloat16, "convert", 16, 264, True,
-                    False),
+                    True),
+    "int8_full_d512": (torch.bfloat16, torch.int8, "full", 16, 512, True,
+                       True),
+    "d_1024": (torch.bfloat16, torch.bfloat16, "convert", 16, 1024, True,
+               True),
+    "d_above_1024": (torch.bfloat16, torch.bfloat16, "convert", 16, 1032,
+                     True, False),
     "int8_qk_d256": (torch.bfloat16, torch.int8, "qk", 16, 256, True, True),
     # page 6 x D 8 x 1 byte = 48 bytes: 16-byte multiple, but a scale plane
     # of 24 bytes is not
@@ -224,7 +274,8 @@ def test_split_plan_at_head_dim_256():
     (16.5 KB each, the rows padded to 528 bytes), 1-byte pages in 8-page
     splits with 2 stages (8 KB and the scales, beside two decoded bf16
     tiles), so 4 CTAs fit an SM; at D = 128 the same 8 rows also take the
-    tensor cores; above D = 256 no route takes the call."""
+    tensor cores; above D = 256 the call passes the head-dim check (it
+    fails here only for lying on the CPU), above 1024 it does not."""
     plan = pa.split_plan(8, 1, 1, 256, 16, 256, False)
     assert plan["walk"] == "tc"
     assert (plan["rps"], plan["nrs"], plan["row_groups"]) == (8, 1, 1)
@@ -236,9 +287,12 @@ def test_split_plan_at_head_dim_256():
         8, 32, 2)
     below = pa.split_plan(8, 1, 1, 128, 16, 256, False)
     assert (below["walk"], below["split_pages"]) == ("tc", 8)
-    with pytest.raises(ValueError, match="head_dim 264"):
+    with pytest.raises(ValueError, match="must be on"):
         pa._check_cuda_args(*(torch.zeros(1, 1, 264),) * 3, None, None, None,
                             None)
+    with pytest.raises(ValueError, match="head_dim 1032"):
+        pa._check_cuda_args(*(torch.zeros(1, 1, 1032),) * 3, None, None,
+                            None, None)
 
 
 @pytest.mark.parametrize("h, h_kv, q_len, d, walk, nrs, groups", [

@@ -80,7 +80,8 @@ def test_init_paged_cache(quant):
 
 
 @pytest.mark.parametrize("quant", QUANTS)
-@pytest.mark.parametrize("d", [16, 128])  # JAX: scatter (16), Pallas (128)
+# JAX: scatter (16, 264), Pallas (128, 384, 512)
+@pytest.mark.parametrize("d", [16, 128, 264, 384, 512])
 def test_decode_append_bit_equal(quant, d):
     b, h, page, pps = 5, 2, 8, 3
     num_pages = b * pps + 1
@@ -208,7 +209,10 @@ def test_quantized_plain_matches_pallas_bf16(case, quant):
     ("int8", "mqa_d256_decode"), ("fp8", "mqa_d256_decode"),
     ("fp8", "mqa_d256_chunk_window_sinks_softcap"),
     ("e5m2", "mqa_d256_chunk_window_sinks_softcap"),
-    ("int8", "gqa_d192_decode")])
+    ("int8", "gqa_d192_decode"), ("int8", "mqa_d512_decode"),
+    ("fp8", "mqa_d512_decode"), ("fp8", "mqa_d512_chunk"),
+    ("int8", "gqa_d264_chunk_window_sinks_softcap"),
+    ("fp8", "gqa_d264_chunk_window_sinks_softcap")])
 def test_d256_quantized_plain_matches_pallas_fp32(case, quant):
     """Head dims above 128 over 1-byte pages (Gemma 2B's MQA at D = 256,
     GQA at D = 192): the convert path at the fp32 rung."""
@@ -219,7 +223,8 @@ def test_d256_quantized_plain_matches_pallas_fp32(case, quant):
 @pytest.mark.parametrize("mode, env", [("qk", "qk"), ("full", "full"),
                                        (False, "0")])
 @pytest.mark.parametrize("case", ["decode_p16", "chunk_p16", "gqa_decode",
-                                  "window_sinks_chunk", "mqa_d256_decode"])
+                                  "window_sinks_chunk", "mqa_d256_decode",
+                                  "mqa_d512_decode", "mqa_d512_chunk"])
 def test_int8_schedules_match_pallas(monkeypatch, case, mode, env):
     monkeypatch.setenv("FAT_PAGED_INT8_MXU", env)
     o, o_jax = _run_both(case, "int8", jnp.float32,

@@ -120,10 +120,15 @@ def test_apply_transformer_logits_match_jax(case):
     assert_allclose(out, np.asarray(ref), rtol=TOL, atol=TOL, err_msg=case)
 
 
-@pytest.mark.parametrize("case", ["plain", "chunked", "segments", "gqa_rope"])
+@pytest.mark.parametrize("case", ["plain", "chunked", "segments", "gqa_rope",
+                                  "mqa_d512"])
 def test_loss_and_grads_match_jax(case):
+    # mqa_d512: head dim 512 over one KV head (the shape of chip_smoke
+    # phase 5d at 2 query heads)
     kw = {"chunked": dict(loss_chunk=16), "gqa_rope": dict(
-        n_kv_heads=2, pos_encoding="rope")}.get(case, {})
+        n_kv_heads=2, pos_encoding="rope"), "mqa_d512": dict(
+        d_model=1024, n_heads=2, n_kv_heads=1, pos_encoding="rope")}.get(
+        case, {})
     jcfg = jax_config(**kw)
     jp = jax_params(jcfg)
     pcfg = port_config(jcfg)
