@@ -24,7 +24,11 @@ Phases, in order; any failure exits nonzero:
    SASS (cuobjdump) and spill nothing (ptxas report of this build); the 6
    chunked flash kernels above D = 256 (flash_wide: forward, dK/dV and dQ
    in bf16 and in fp32 on 3xTF32) must show HMMA (mma.sync) and spill
-   nothing; the 40
+   nothing, as must the 12 sparse kernels above D = 256 (sparse_wide: the
+   forward and dQ in bf16 and fp32 with 16- and 32-key sub-tiles, dK/dV in
+   each dtype, and the sum of the dK/dV chunks in each dtype, which has no
+   product) and the 4 8-bit forward kernels above D = 256 (fp8_wide: e4m3,
+   e5m2, int8 and int8 "s8", whose int8 ones must also show IMMA); the 40
    paged split kernels (10 on the lane-group walk, D <= 128 at 1 or 2 rows
    a KV head; 30 on the tensor-core walk, 12 of them above D = 256, which
    must also show HMMA, mma.sync) must show
@@ -93,11 +97,14 @@ Phases, in order; any failure exits nonzero:
    fp8_attention on the route it must take (checked: the tensor cores but
    for the s8 case; (h) int8 at (1, 8, 8192, 256), row 6w's shape, (i)
    e4m3 at Gemma 2B's MQA, (1, 8, 1, 4096, 256), and (j) e5m2 at (h)'s
-   shape, on the D = 256 kernels),
-   timed beside the FMA kernel on the same inputs, plus
+   shape, on the D = 256 kernels; above D = 256 on the wide kernels, phase
+   5bx's call (1, 4, 2048, 512) in int8, s8, e4m3 and e5m2 (p)-(s), int8 at
+   D = 264 (t) and D = 1024 (u), and int8 at D = 512 with GQA, window,
+   sinks, soft-cap and dropout (v), each with SDPA's backend named),
+   timed beside the FMA kernel on the same inputs (D <= 256), plus
    its straight-through backward (o and
    gradients at the bf16 flash limit: p is bf16 on the 8-bit path). The
-   block-sparse forward (sparse_fwd) and backward (sparse_bwd) in twenty-one
+   block-sparse forward (sparse_fwd) and backward (sparse_bwd) in twenty-nine
    cases, each launched once on the route it must take (checked by the
    route counters): the model phase's call (2, 12, 4096, 64) and the
    BASELINE head dim (1, 8, 8192, 128) with the local + global pattern,
@@ -124,8 +131,14 @@ Phases, in order; any failure exits nonzero:
    with such blocks, on the fp32 mma kernels (3xTF32 on m16n8k8), blocks
    96 x 80 at D = 256 with GQA (n), phase 7g's call (s: case (o) in fp32),
    phase 7e's MQA call at blocks 32 x 32 and width 16 (t: case (q) in
-   fp32) and case (r) in fp32 (u); the fp32 cases (c), (i)-(n), (s)-(u)
-   and the mma cases (o), (q) also name their kernels under
+   fp32) and case (r) in fp32 (u); above D = 256 on the wide kernels, in
+   bf16 and in fp32 each, phase 7x's call (1, 4, 1, 4096, 4096, 512) (v;
+   fp32 at N = 2048, vf), GQA 8/2 at D = 264 with blocks 96 x 80, an
+   emptied q-block row and an LSE cotangent (w, wf), MQA at D = 512 on
+   blocks of 32 at width 16 (x, xf) and (1, 2, 1, 1024, 1024, 1024) (y, yf),
+   with no FMA comparison (those kernels stop at 256) and SDPA's backend
+   named; the fp32 cases (c), (i)-(n), (s)-(u), the mma cases (o), (q) and
+   the wide cases also name their kernels under
    torch.profiler (those of the route, with the wide route's split and
    sum and the mma route's sum of its chunks, checked). o and
    gradients at the flash limit (fp32 1e-4), LSE
@@ -216,6 +229,12 @@ Phases, in order; any failure exits nonzero:
    the CPU (plain versions): o and gradients at the bf16 flash limit, LSE
    at 1e-4; the CPU's backward takes the card's o and LSE, so both read one
    di = rowsum(o * do).
+5bx. Phase 5b at head dim 512, (1, 4, 2048, 512) causal (phase 3d's
+   model's attention call): e4m3 predecodes onto the flash kernels above
+   256 (one flash_fwd), int8 and s8 take the 8-bit wide kernels (one
+   flash_fwd_fp8 each, counted on that route), each with one flash_bwd;
+   card vs CPU at (1, 4, 512, 512). fp8 cases (p) and (q) hold the 8-bit
+   kernel at this call's shape.
 7. The block-sparse model at GPT-3 Small widths (dropout 0, remat "full",
    bf16, max_seq_len 4096), B=2, N=4096, with the local + global pattern
    of Longformer/BigBird on 32 x 32 tiles (P[i, j] = 0 <= i - j < 4 or
@@ -280,6 +299,15 @@ Phases, in order; any failure exits nonzero:
    sum of the dK/dV chunks (their share of the step's kernels reported);
    card vs CPU at N=512 and the all-ones pattern against the flash route
    at 1e-4. Sparse case (s) holds these kernels at this call's shape.
+7x. Phase 7b at head dim 512 (``wide_config``: Gemma 2B's widths with 4
+   query heads over 1 KV head, 2 layers, B = 1, N = 4096, blocks of 128):
+   every attention call on the wide sparse kernels, exactly 2 sparse_fwd
+   per no-grad forward and 4 sparse_fwd + 2 sparse_bwd per step, no flash
+   launch; a profiled step whose sparse kernels must be the wide ones with
+   the sum of the dK/dV chunks; card vs CPU at N = 512 in bf16 (5e-2) and
+   in fp32 (1e-4, its card launches counted for the fp32 rows), and the
+   all-ones pattern against the flash route. Sparse cases (v) and (vf)
+   hold these kernels at this call's shape (fp32 at N = 2048).
 8. The speculative engine: phase 3's config with spec_gamma=4, 32 requests
    of 32-400-token prompts (phase 3's draws), 32 new tokens each, in three
    arms, each after a warm-up engine: plain (no draft; the reference
@@ -528,6 +556,17 @@ KERNELS = {
         route="cuda", source="flashattention_tpu_torch/csrc/sparse_bwd.cu",
         replaces="flashattention_tpu/ops/pallas_sparse.py:259",
         also_replaces=["flashattention_tpu/ops/pallas_sparse.py:311"]),
+    # above head dim 256: the chunked mma.sync kernels, bf16 and fp32
+    "sparse_fwd_wide": dict(
+        route="cuda", source="flashattention_tpu_torch/csrc/sparse_wide.cu",
+        replaces="flashattention_tpu/ops/pallas_sparse.py:96"),
+    "sparse_bwd_wide": dict(
+        route="cuda", source="flashattention_tpu_torch/csrc/sparse_wide.cu",
+        replaces="flashattention_tpu/ops/pallas_sparse.py:259",
+        also_replaces=["flashattention_tpu/ops/pallas_sparse.py:311"]),
+    "flash_fwd_fp8_wide": dict(
+        route="cuda", source="flashattention_tpu_torch/csrc/fp8_wide.cu",
+        replaces="flashattention_tpu/ops/pallas_fp8.py:92"),
 }
 
 
@@ -1399,12 +1438,49 @@ SPARSE_CASES = {
           "local+global with q-block row 2 emptied, LSE cotangent",
           (2, 8, 2, 384, 512, 136), FP32, True, (24, 40),
           emptied(local_global(16, 13), 2), True),
+    # above head dim 256, on the wide kernels (the mma route's walks and
+    # chunks, the head dim cut into segments and output chunks), each in
+    # bf16 and fp32: phase 7x's call (v; fp32 at N = 2048 for the script's
+    # time), GQA 8/2 at D = 264 with blocks 96 x 80, an emptied q-block row
+    # and an LSE cotangent (w), MQA at D = 512 on blocks of 32 at width 16
+    # (x: 32 dK/dV walk chunks), and D = 1024 (y)
+    "v": ("phase 7x's call (1, 4, 1, 4096, 4096, 512) bf16 causal, "
+          "local+global on 32 x 32 tiles of 128", (1, 4, 1, 4096, 4096, 512),
+          BF16, True, (128, 128), local_global(32, 32), False),
+    "vf": ("phase 7x's call at N = 2048 (1, 4, 1, 2048, 2048, 512) fp32 "
+           "causal, local+global on 16 x 16 tiles of 128",
+           (1, 4, 1, 2048, 2048, 512), FP32, True, (128, 128),
+           local_global(16, 16), False),
+    "w": ("GQA 8/2 (1, 8, 2, 1000, 1000, 264) bf16 causal, blocks 96 x 80, "
+          "random density 0.4 with q-block row 3 emptied, LSE cotangent",
+          (1, 8, 2, 1000, 1000, 264), BF16, True, (96, 80),
+          random_pattern(11, 13, 0.4, 3, SEED), True),
+    "wf": ("GQA 8/2 (1, 8, 2, 1000, 1000, 264) fp32 causal, blocks 96 x 80, "
+           "random density 0.4 with q-block row 3 emptied, LSE cotangent",
+           (1, 8, 2, 1000, 1000, 264), FP32, True, (96, 80),
+           random_pattern(11, 13, 0.4, 3, SEED), True),
+    "x": ("MQA (1, 4, 1, 2048, 2048, 512) bf16 causal at blocks 32 x 32, "
+          "local+global width 16", (1, 4, 1, 2048, 2048, 512), BF16, True,
+          (32, 32), local_global(64, 64, 16), False),
+    "xf": ("MQA (1, 4, 1, 2048, 2048, 512) fp32 causal at blocks 32 x 32, "
+           "local+global width 16", (1, 4, 1, 2048, 2048, 512), FP32, True,
+           (32, 32), local_global(64, 64, 16), False),
+    "y": ("(1, 2, 1, 1024, 1024, 1024) bf16 causal, local+global on 8 x 8 "
+          "tiles of 128", (1, 2, 1, 1024, 1024, 1024), BF16, True,
+          (128, 128), local_global(8, 8), False),
+    "yf": ("(1, 2, 1, 1024, 1024, 1024) fp32 causal, local+global on 8 x 8 "
+           "tiles of 128", (1, 2, 1, 1024, 1024, 1024), FP32, True,
+           (128, 128), local_global(8, 8), False),
 }
+SPARSE_WIDE = ("v", "vf", "w", "wf", "x", "xf", "y", "yf")
 # the cases whose kernels are named by the profiler (sa.route_kernels)
-SPARSE_NAMED = ("c", "i", "j", "k", "l", "m", "n", "o", "q", "s", "t", "u")
+SPARSE_NAMED = ("c", "i", "j", "k", "l", "m", "n", "o", "q", "s", "t", "u",
+                *SPARSE_WIDE)
 # the route each case must take (sa._route): the other routes' counts stay 0
 SPARSE_ROUTE_NAMES = {"tc": "tensor cores (wgmma + TMA)",
-                      "mma": "mma kernels (mma.sync, 16-row slices)"}
+                      "mma": "mma kernels (mma.sync, 16-row slices)",
+                      "wide": "wide kernels (mma.sync, head dim in segments "
+                              "and column chunks)"}
 
 
 # The sparse routes' kernels in a profile: the three of each route, the
@@ -1419,7 +1495,7 @@ def kv_splits_of(dtype, d, spec, b, h, h_kv, n_q, n_k):
     widths on this card, as the wrapper takes them: the query-head splits
     of the fp32 wide backward (``fa._kv_splits``), the chunks of the mma
     route (``sa._mma_chunks``)."""
-    if sa._route(dtype, d, spec) == "mma":
+    if sa._route(dtype, d, spec) in ("mma", "wide"):
         return sa._mma_chunks(h, h_kv, n_q, spec.block_q,
                               b * h_kv * n_k * d)[1]
     return fa._kv_splits(b * h_kv, n_k, h // h_kv,
@@ -1430,14 +1506,13 @@ def kv_splits_of(dtype, d, spec, b, h, h_kv, n_q, n_k):
 def sparse_launch(q, k, v, o, lse, do, dlse, active, spec, route):
     """(forward, backward) callables that launch one route's entry points
     (``route`` as ``sa._route`` names it: the dtype's tensor-core kernels,
-    ``fat_sparse_*_sm90[_f32]``, the mma kernels' ``fat_sparse_*_mma`` or
-    the FMA kernels' ``fat_sparse_*``) with the lists and di built once
-    beforehand: the kernels' own time, without the wrapper's list
-    building. The forward returns (o, lse), the backward [dq, dk, dv]."""
-    fwd = _build.load_kernel("sparse_fwd", sa._declare_fwd)
-    bwd = _build.load_kernel("sparse_bwd", sa._declare_bwd)
-    fwd_fn = getattr(fwd, sa._entry("fwd", q.dtype, route))
-    bwd_fn = getattr(bwd, sa._entry("bwd", q.dtype, route))
+    ``fat_sparse_*_sm90[_f32]``, the mma kernels' ``fat_sparse_*_mma``, the
+    wide kernels' ``fat_sparse_*_wide`` or the FMA kernels'
+    ``fat_sparse_*``) with the lists and di built once beforehand: the
+    kernels' own time, without the wrapper's list building. The forward
+    returns (o, lse), the backward [dq, dk, dv]."""
+    fwd_fn = sa.kernel_fn("fwd", q.dtype, route)
+    bwd_fn = sa.kernel_fn("bwd", q.dtype, route)
     o_out, lse_out = torch.empty_like(o), torch.empty_like(lse)
     grads = [torch.empty_like(x) for x in (q, k, v)]
     di = (o.float() * do.float()).sum(-1)
@@ -1561,10 +1636,12 @@ def sparse_case(timer, gen, dev, key):
     grads = sa.sparse_bwd(q, k, v, o_ref, lse_ref, do, dlse, active, spec)
     torch.cuda.synchronize()
     c = read_counts()
-    mma = route_key == "mma"
+    mma, wide = route_key == "mma", route_key == "wide"
     if (c["sparse_fwd"], c["sparse_bwd"], c["sparse_fwd_tc"],
-            c["sparse_bwd_tc"], c["sparse_fwd_mma"], c["sparse_bwd_mma"]) != (
-                1, 1, int(tc), int(tc), int(mma), int(mma)):
+            c["sparse_bwd_tc"], c["sparse_fwd_mma"], c["sparse_bwd_mma"],
+            c["sparse_fwd_wide"], c["sparse_bwd_wide"]) != (
+                1, 1, int(tc), int(tc), int(mma), int(mma), int(wide),
+                int(wide)):
         fail(f"sparse {key}: launches {c}; want the "
              f"{SPARSE_ROUTE_NAMES[route_key]} route once each way")
     route = SPARSE_ROUTE_NAMES[route_key]
@@ -1584,9 +1661,9 @@ def sparse_case(timer, gen, dev, key):
         bwd_plain_ms=timer(plain_bwd, reps=3 if big else 10, warmup=1),
     )
     # the kernels alone (lists and di built beforehand), and the FMA kernels
-    # (on no route) on the same inputs, each held against the plain version
-    # at the case's limits before it is timed
-    for which in ("kernel", "fma"):
+    # (on no route; D <= 256) on the same inputs, each held against the
+    # plain version at the case's limits before it is timed
+    for which in ("kernel",) if wide else ("kernel", "fma"):
         run_fwd, run_bwd = sparse_launch(
             q, k, v, o_ref, lse_ref, do, dlse, active, spec,
             route_key if which == "kernel" else "fma")
@@ -1615,12 +1692,15 @@ def sparse_case(timer, gen, dev, key):
     lib["fwd_bwd"] = timer(lambda: torch.autograd.grad(
         sdpa(*leaves, attn_mask=vis, scale=spec.scale, enable_gqa=gqa),
         leaves, do))
+    t["library_backend"] = sdpa_backend(
+        lambda: sdpa(q, k, v, attn_mask=vis, scale=spec.scale,
+                     enable_gqa=gqa)) if wide else None
     del o_lib, leaves
     pairs = int(vis.sum()) * shape[0] * shape[1]
     # the route's rate: bf16 or 3xTF32 (wgmma or mma.sync); for fp32 the
     # FMA kernels' bound at 67 TFLOP/s beside it
     bounds = attention_bounds(q, k, pairs, dlse, flash_peak(dtype))
-    if dtype == torch.float32:
+    if dtype == torch.float32 and not wide:
         fma_bounds = attention_bounds(q, k, pairs, dlse, FP32_FLOPS_PER_S)
         t["fwd_fma_bound_ms"] = fma_bounds["fwd"][0]
         t["bwd_fma_bound_ms"] = fma_bounds["bwd"][0]
@@ -1649,9 +1729,10 @@ def sparse_case(timer, gen, dev, key):
         f"max_abs_err " + " ".join(f"{n} {e:.2e}" for n, e in err.items())
         + f" ({tol_text(dtype)}; lse {LSE_TOL:g} abs+rel, -inf and "
         f"mask-value rows exact)")
-    fma = (f"; FMA kernels fwd {t['fwd_fma_ms']:.4f} bwd {t['bwd_fma_ms']:.4f}"
-           " (max_abs_err " + " ".join(
-               f"{n} {e:.2e}" for n, e in t["fma_max_abs_err"].items()) + ")")
+    fma = "" if wide else (
+        f"; FMA kernels fwd {t['fwd_fma_ms']:.4f} bwd {t['bwd_fma_ms']:.4f}"
+        " (max_abs_err " + " ".join(
+            f"{n} {e:.2e}" for n, e in t["fma_max_abs_err"].items()) + ")")
     if "fwd_fma_bound_ms" in t:
         fma += (f" (their bound at {FP32_FLOPS_PER_S / 1e12:g} TFLOP/s: fwd "
                 f"{t['fwd_fma_bound_ms']:.4f} bwd {t['bwd_fma_bound_ms']:.4f})")
@@ -1665,7 +1746,9 @@ def sparse_case(timer, gen, dev, key):
     log(f"[kernel]   wrapper (lists built on the device): fwd "
         f"{t['fwd_ms']:.4f} ms (issued from the host "
         f"{t['fwd_wall_ms']:.4f}, plain {t['fwd_plain_ms']:.4f}, SDPA "
-        f"{lib['fwd']:.4f}, bound {bounds['fwd'][0]:.4f} {bounds['fwd'][1]})  "
+        + (f"({t['library_backend']}) " if wide else "")
+        + f"{lib['fwd']:.4f}, bound {bounds['fwd'][0]:.4f} "
+        f"{bounds['fwd'][1]})  "
         f"bwd {t['bwd_ms']:.4f} ms (issued from the host "
         f"{t['bwd_wall_ms']:.4f}, plain {t['bwd_plain_ms']:.4f}, SDPA "
         f"backward {lib['bwd']:.4f}, forward + backward {lib['fwd_bwd']:.4f}, "
@@ -1714,7 +1797,28 @@ FP8_CASES = {
     # (m) at D = 96, the next multiple of 32 (the same DP = 128 kernels)
     "o": ("Phi-2's call at D = 96, (1, 32, 2048, 96) int8 causal, auto",
           (1, 32, 32, 2048, 96), dict(causal=True, fmt="int8"), ()),
+    # above head dim 256, on the wide kernels: phase 5bx's call in int8, s8,
+    # e4m3 and e5m2 (p-s), int8 at D = 264 (padded to 272) and at D = 1024
+    # (t, u), and int8 at D = 512 with GQA, window, sinks, soft-cap and
+    # dropout (v)
+    "p": ("phase 5bx's call (1, 4, 2048, 512) int8 causal, auto (fused)",
+          (1, 4, 4, 2048, 512), dict(causal=True, fmt="int8"), ()),
+    "q": ("int8 PV s8, (1, 4, 2048, 512) causal", (1, 4, 4, 2048, 512),
+          dict(causal=True, fmt="int8", int8_pv="s8"), ()),
+    "r": ("(1, 4, 2048, 512) e4m3 causal, mode fused", (1, 4, 4, 2048, 512),
+          dict(causal=True, mode="fused"), ()),
+    "s": ("(1, 4, 2048, 512) e5m2 causal, mode fused", (1, 4, 4, 2048, 512),
+          dict(causal=True, mode="fused", fmt="e5m2"), ()),
+    "t": ("(1, 4, 2048, 264) int8 causal, auto (fused; padded to 272)",
+          (1, 4, 4, 2048, 264), dict(causal=True, fmt="int8"), ()),
+    "u": ("(1, 2, 1024, 1024) int8 causal, auto (fused)",
+          (1, 2, 2, 1024, 1024), dict(causal=True, fmt="int8"), ()),
+    "v": ("GQA 8/2 window 256 sinks 4 softcap 30 dropout 0.1, "
+          "(1, 8, 1024, 512) int8", (1, 8, 2, 1024, 512),
+          dict(causal=True, fmt="int8", window=256, sinks=4, softcap=30.0,
+               dropout_rate=0.1, dropout_seed=91), ()),
 }
+FP8_WIDE = tuple("pqrstuv")
 FP8_STE_SHAPE = (8, 12, 12, 512, 64)
 
 
@@ -1748,16 +1852,19 @@ def fp8_case(timer, gen, dev, key):
     fmt, int8_pv = kw.pop("fmt", "fp8"), kw.pop("int8_pv", "bf16")
     mode = kw.pop("mode", "auto")
     # the public call: it must launch the 8-bit kernel once
-    f8.fp8_attention.launches = f8.fp8_attention.tc_launches = 0
+    reset_counts()
     o_api, _ = f8.fp8_attention(q, k, v, fmt=fmt, int8_pv=int8_pv, mode=mode,
                                 **kw, **more)
     torch.cuda.synchronize()
     want_tc = int(f8._tensor_core_route(d, f8.FP8_KERNEL_BLOCK_K))
-    if (f8.fp8_attention.launches, f8.fp8_attention.tc_launches) != (
-            1, want_tc):
+    want_wide = int(f8._wide_route(d))
+    c = read_counts()
+    if (c["flash_fwd_fp8"], c["flash_fwd_fp8_tc"],
+            c["flash_fwd_fp8_wide"]) != (1, want_tc, want_wide):
         fail(f"fp8 {key}: fp8_attention launched flash_fwd_fp8 "
-             f"{f8.fp8_attention.launches} times, {f8.fp8_attention.tc_launches}"
-             f" on the tensor cores; want 1, {want_tc}")
+             f"{c['flash_fwd_fp8']} times, {c['flash_fwd_fp8_tc']} on the "
+             f"tensor cores, {c['flash_fwd_fp8_wide']} on the wide kernels; "
+             f"want 1, {want_tc}, {want_wide}")
     del o_api
     opts = fa.make_opts(q, k, **kw, **more)
     q8, k8, v8, sq, sk, sv, bq, bk = f8.quantize_inputs(
@@ -1793,13 +1900,17 @@ def fp8_case(timer, gen, dev, key):
     qd, kd, vd = (f8.dequantize_bf16(x, sc, blk) for x, sc, blk in
                   ((q8, sq, bq), (k8, sk, bk), (v8, sv, bk)))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    yardstick_ms = timer(lambda: sdpa(qd, kd, vd, is_causal=True,
-                                      scale=opts.scale, enable_gqa=h != h_kv))
+    yard = lambda: sdpa(qd, kd, vd, is_causal=True, scale=opts.scale,
+                        enable_gqa=h != h_kv)
+    yardstick_ms = timer(yard)
     bound_ms, bound_by = fp8_bound(q8, k8, opts, bq, bk, 2, int8_pv)
+    route = ("wide kernels (mma.sync)" if want_wide
+             else "tensor cores" if want_tc else "FMA")
     rec = dict(case=label, shape=shape, fmt=fmt, int8_pv=int8_pv,
                blocks=(bq, bk), max_abs_err=err,
                tol=dict(o=dict(rtol=tol[0], atol=tol[1]), lse=LSE_TOL),
-               route="tensor cores" if want_tc else "FMA", ms=ms,
+               route=route, ms=ms,
+               yardstick_backend=sdpa_backend(yard) if want_wide else None,
                fma_ms=fma_ms, fma_max_abs_err=fma_err, plain_ms=plain_ms,
                library_ms=None,
                yardstick_ms=yardstick_ms, bound_ms=bound_ms,
@@ -1811,8 +1922,9 @@ def fp8_case(timer, gen, dev, key):
         + ("" if fma_ms is None else
            f"FMA kernel {fma_ms:.4f} (max_abs_err o {fma_err['o']:.2e} lse "
            f"{fma_err['lse']:.2e}), ")
-        + f"plain {plain_ms:.4f}, SDPA on "
-        f"the dequantized inputs {yardstick_ms:.4f}, bound {bound_ms:.4f} "
+        + f"plain {plain_ms:.4f}, SDPA on the dequantized inputs "
+        + (f"({rec['yardstick_backend']}) " if want_wide else "")
+        + f"{yardstick_ms:.4f}, bound {bound_ms:.4f} "
         f"{bound_by}); fp8_attention launched it once (checked)")
     return rec
 
@@ -2110,6 +2222,7 @@ def reset_counts():
     pa.paged_attention.tc_launches = 0
     pa.paged_attention.chunk_launches = 0
     f8.fp8_attention.tc_launches = 0
+    f8.fp8_attention.wide_launches = 0
     pap.paged_append.launches = 0
     pap.paged_append.chunk_launches = 0
     fa.kernel_attention.fwd_launches = 0
@@ -2121,6 +2234,8 @@ def reset_counts():
     sa.sparse_attention.bwd_tc_launches = 0
     sa.sparse_attention.fwd_mma_launches = 0
     sa.sparse_attention.bwd_mma_launches = 0
+    sa.sparse_attention.fwd_wide_launches = 0
+    sa.sparse_attention.bwd_wide_launches = 0
 
 
 def read_counts():
@@ -2129,6 +2244,7 @@ def read_counts():
             "paged_attention_tc": pa.paged_attention.tc_launches,
             "paged_attention_chunk": pa.paged_attention.chunk_launches,
             "flash_fwd_fp8_tc": f8.fp8_attention.tc_launches,
+            "flash_fwd_fp8_wide": f8.fp8_attention.wide_launches,
             "paged_append": pap.paged_append.launches,
             "paged_append_chunk": pap.paged_append.chunk_launches,
             "flash_fwd": fa.kernel_attention.fwd_launches,
@@ -2139,7 +2255,9 @@ def read_counts():
             "sparse_fwd_tc": sa.sparse_attention.fwd_tc_launches,
             "sparse_bwd_tc": sa.sparse_attention.bwd_tc_launches,
             "sparse_fwd_mma": sa.sparse_attention.fwd_mma_launches,
-            "sparse_bwd_mma": sa.sparse_attention.bwd_mma_launches}
+            "sparse_bwd_mma": sa.sparse_attention.bwd_mma_launches,
+            "sparse_fwd_wide": sa.sparse_attention.fwd_wide_launches,
+            "sparse_bwd_wide": sa.sparse_attention.bwd_wide_launches}
 
 
 def serving_config():
@@ -2860,6 +2978,8 @@ def phase_fa3_fp8(dev, shape, check_shape, on_card):
     versions), all at the kernels' limits; the CPU's backward takes the
     card's o and LSE, so both backward runs read the same di."""
     gen = torch.Generator().manual_seed(SEED + 4)
+    # the 8-bit kernel's route: wgmma up to D = 256, the wide kernels above
+    route = "wide" if f8._wide_route(shape[-1]) else "tc"
     base = [torch.randn(shape, generator=gen) for _ in range(4)]
     q, k, v, do = (x.to(dev, torch.bfloat16) for x in base)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2887,9 +3007,10 @@ def phase_fa3_fp8(dev, shape, check_shape, on_card):
             if (counts[want], counts[other], counts["flash_bwd"]) != (1, 0, 1):
                 fail(f"fa3_attention(fp8=True, {arm}) launched {counts}; want "
                      f"one {want} and one flash_bwd")
-            if want == "flash_fwd_fp8" and counts["flash_fwd_fp8_tc"] != 1:
+            if want == "flash_fwd_fp8" and counts[
+                    f"flash_fwd_fp8_{route}"] != 1:
                 fail(f"fa3_attention(fp8=True, {arm}): flash_fwd_fp8 did not "
-                     f"take the tensor-core route")
+                     f"take the {route} route")
         vs_exact = float((o.float() - exact).abs().max())
         del res, o
         # the same call on the CPU at the small shape
@@ -3119,10 +3240,14 @@ def _sparse_vs_cpu(cfg, dev, n, pattern, tag, tol=TRAIN_TOL):
     out = {}
     for side, params, c, d in (("card", card_params, cfg, dev),
                                ("cpu_fp32", ref_params, cfg32, "cpu")):
+        sync(dev)
+        reset_counts()
         loss = _sparse_loss(params, toks.to(d), c, pattern.to(d))
         loss.backward()
         out[side] = (loss.item(), {name: p.grad.float().cpu()
                                    for name, p in params.named_parameters()})
+        if side == "card":
+            launches = read_counts()
     (lc, gc), (lr, gr) = out["card"], out["cpu_fp32"]
     loss_err = abs(lc - lr)
     rel = (sum(float((gc[k] - gr[k]).square().sum()) for k in gr)
@@ -3138,7 +3263,8 @@ def _sparse_vs_cpu(cfg, dev, n, pattern, tag, tol=TRAIN_TOL):
         fail(f"sparse model gradient relative L2 error {rel:.3e} over "
              f"{tol:g}")
     return dict(n=n, card_dtype=card, loss_card=lc, loss_cpu=lr,
-                loss_abs_err=loss_err, grad_rel_l2=rel, tol=tol)
+                loss_abs_err=loss_err, grad_rel_l2=rel, tol=tol,
+                launches=launches)
 
 
 def gemma_sparse_config():
@@ -3255,7 +3381,7 @@ def gemma_dense_fp32_config():
 
 def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
                        tag="sparse", tol=TRAIN_TOL, logits_tol=LOGITS_TOL,
-                       width=4):
+                       width=4, fp32_check=False):
     """The block-sparse slice's main path at ``cfg``: the local + global
     pattern (``width`` tiles ending at a q tile's own, and tile 0) on the
     n / block_size square of tiles, through
@@ -3267,7 +3393,9 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
     tensor cores or the mma kernels); (3) one step under torch.profiler,
     whose sparse kernels must be those of the route (``sa.route_kernels``);
     (4) loss and gradients, card vs fp32 CPU at ``tol``, at ``check_n``
-    with the 4 x 4 pattern of tests/test_sparse.py; (5) an all-ones pattern
+    with the 4 x 4 pattern of tests/test_sparse.py (with ``fp32_check``
+    also the same in fp32 against the CPU at 1e-4, its card launches
+    counted); (5) an all-ones pattern
     (the sparse route) against no pattern (the flash route), logits at
     ``logits_tol`` (the bf16 rung by default). Log lines start with
     ``[tag]``."""
@@ -3279,7 +3407,7 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
     pattern = local_global(n_tiles, n_tiles, width).to(dev)
     route = sa._route(cfg.dtype, cfg.d_head, sa.SparseSpec(
         True, 1.0, cfg.block_size, cfg.block_size))
-    route_name = {"tc": "tensor-core", "mma": "mma"}[route]
+    route_name = {"tc": "tensor-core", "mma": "mma", "wide": "wide"}[route]
     toks = torch.from_numpy(np.random.default_rng(SEED + 6).integers(
         0, cfg.vocab_size, size=(b, n + 1))).to(dev)
     reach = sa.tile_pattern(pattern, n_tiles, n_tiles, cfg.block_size,
@@ -3344,7 +3472,7 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
     if on_card:
         want = dict(sparse_fwd=2 * L * n_timed, sparse_bwd=L * n_timed,
                     flash_fwd=0, flash_bwd=0)
-        for r in ("tc", "mma"):
+        for r in ("tc", "mma", "wide"):
             want[f"sparse_fwd_{r}"] = want["sparse_fwd"] * (r == route)
             want[f"sparse_bwd_{r}"] = want["sparse_bwd"] * (r == route)
         got = {k: counts[k] for k in want}
@@ -3400,6 +3528,12 @@ def phase_sparse_model(cfg, dev, on_card, b, n, check_n, n_timed=3,
     p4 = torch.tensor([[1, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 1]],
                       dtype=torch.bool)
     rec["vs_cpu"] = _sparse_vs_cpu(cfg, dev, check_n, p4, tag, tol)
+    if fp32_check:
+        rec["vs_cpu_fp32"] = _sparse_vs_cpu(
+            dataclasses.replace(cfg, dtype=torch.float32), dev, check_n, p4,
+            f"{tag}_fp32", FP32_TOL)
+        if on_card:
+            torch.cuda.empty_cache()
 
     params = init_params(cfg, seed=SEED + 7, device=dev)
     with torch.no_grad():
@@ -4235,6 +4369,51 @@ def wide_report(sass):
     return out
 
 
+# The kernels above head dim 256 of the sparse and 8-bit libraries, all on
+# mma.sync: sparse_wide's forward and dQ in bf16 and fp32 with 16- and
+# 32-key sub-tiles and its dK/dV in each dtype (10), and the sum of the
+# dK/dV chunks in each dtype (2, no product); fp8_wide's forward in e4m3,
+# e5m2, int8 and int8 with p re-quantized ("s8") (4), whose int8 ones must
+# also show IMMA (the s8 mma.sync).
+WIDE_LIB_KERNELS = {"sparse_wide": 12, "fp8_wide": 4}
+
+
+def wide_lib_report(dumps):
+    """Phase 1's check of the sparse and 8-bit kernels above D = 256: per
+    kernel of ``sparse_wide`` and ``fp8_wide`` its mma.sync products (HMMA,
+    and IMMA for the int8 ones) in its SASS and its registers and spill
+    bytes (this build's ptxas report). Fails if one but the chunks' sum has
+    no HMMA, an int8 one has no IMMA, one spills, or one is missing."""
+    out = {}
+    for name, want in WIDE_LIB_KERNELS.items():
+        ptxas = ptxas_entries(_build.BUILD_LOG.get(name, ""))
+        found = 0
+        for part in dumps[name].split("Function : ")[1:]:
+            fn = part.split()[0]
+            if "_kernel" not in fn:
+                continue
+            found += 1
+            regs, spill = ptxas.get(fn, (None, None))
+            rec = dict(hmma=part.count("HMMA"), imma=part.count("IMMA"),
+                       registers=regs, spill_bytes=spill)
+            out[fn] = rec
+            log(f"[sass] {name}: {fn}: {rec['hmma']} HMMA, {rec['imma']} "
+                f"IMMA (mma.sync); ptxas: {regs} registers, {spill} spill "
+                f"bytes")
+            if not rec["hmma"] and "sum_mma_kernel" not in fn:
+                fail(f"{fn}: the wide kernel has no HMMA")
+            if (name == "fp8_wide" and re.search(r"ILi2ELb[01]EE", fn)
+                    and not rec["imma"]):
+                fail(f"{fn}: the int8 kernel has no IMMA")
+            if spill is None:
+                fail(f"{fn}: no ptxas report from this run's build")
+            if spill:
+                fail(f"{fn}: spills {spill} bytes")
+        if found != want:
+            fail(f"{name}: expected {want} kernels, found {found}")
+    return out
+
+
 def sass_report(dumps):
     """Phase 1's check that the tensor-core routes are what they claim: per
     kernel of the flash and sparse libraries, the HGMMA (wgmma) and UTMALDG
@@ -4404,6 +4583,13 @@ def main() -> int:
             dataclasses.replace(cfg, block_size=8, dtype=torch.float32),
             "cpu", False, b=2, n=128, check_n=64, tag="sparse_b32_fp32",
             width=16, tol=FP32_TOL, logits_tol=FP32_TOL)
+        report["sparse_model_d512"] = phase_sparse_model(
+            dataclasses.replace(cfg, d_model=1024, n_heads=2, n_kv_heads=1,
+                                pos_encoding="rope", block_size=16),
+            "cpu", False, b=1, n=128, check_n=64, tag="sparse_d512",
+            fp32_check=True)
+        report["fa3_fp8_d512"] = phase_fa3_fp8("cpu", (1, 2, 256, 512),
+                                               (1, 2, 128, 512), False)
         draft = dataclasses.replace(cfg, n_layers=1)
         report["spec"] = phase_spec(
             cfg, params, ecfg, "cpu", 8, (8, 60), 8,
@@ -4466,14 +4652,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {name}: {line.strip()}")
     t0 = time.perf_counter()
-    dumps = dump_sass([*SM90_KERNELS, "flash_wide", "paged_attention",
-                       "paged_append"])
+    dumps = dump_sass([*SM90_KERNELS, "flash_wide", *WIDE_LIB_KERNELS,
+                       "paged_attention", "paged_append"])
     log(f"[sass] {len(dumps)} libraries dumped in "
         f"{time.perf_counter() - t0:.2f} s")
     report.update(card=smi, build_s=per,
                   tensor_core_kernels=sass_report(dumps),
                   mma_kernels=mma_report(dumps),
                   wide_flash_kernels=wide_report(dumps["flash_wide"]),
+                  wide_sparse_fp8_kernels=wide_lib_report(dumps),
                   paged_split_kernels=split_report(dumps["paged_attention"]),
                   paged_first_kernels=first_report(dumps["paged_attention"]),
                   append_kernels=append_report(dumps["paged_append"]))
@@ -4572,6 +4759,15 @@ def main() -> int:
                                       (1, 8, 1024, 128), True)
     torch.cuda.empty_cache()
 
+    # Phase 5bx: the FA3 8-bit path at head dim 512 (phase 3d's model's
+    # attention call, 4 heads at N = 2048): e4m3 predecode onto the flash
+    # kernels above 256, int8 and s8 on the 8-bit wide kernels
+    t0 = time.perf_counter()
+    report["fa3_fp8_d512"] = phase_fa3_fp8(dev, (1, 4, 2048, 512),
+                                           (1, 4, 512, 512), True)
+    report["fa3_fp8_d512"]["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
     # Phase 7: the block-sparse model at GPT-3 Small widths, N = 4096 (only
     # the position table grows)
     scfg = TransformerConfig(dropout_rate=0.0, max_seq_len=4096)
@@ -4647,6 +4843,17 @@ def main() -> int:
         True, b=2, n=4096, check_n=512, tag="sparse_b32_fp32", width=16,
         tol=FP32_TOL, logits_tol=FP32_TOL)
     report["sparse_model_b32_fp32"]["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # Phase 7x: phase 7b at head dim 512 (wide_config: Gemma 2B's widths
+    # with 4 query heads over 1 KV head, 2 layers, B = 1, N = 4096), every
+    # attention call on the wide sparse kernels; card vs CPU in bf16 and in
+    # fp32 (1e-4), the all-ones pattern against the flash route
+    t0 = time.perf_counter()
+    report["sparse_model_d512"] = phase_sparse_model(
+        wide_config(), dev, True, b=1, n=4096, check_n=512,
+        tag="sparse_d512", fp32_check=True)
+    report["sparse_model_d512"]["phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
     # Phase 8: the speculative engine, phase 3's config with gamma 4; the
@@ -4727,7 +4934,9 @@ def main() -> int:
         f"{report['sparse_model_fp32']['phase_s']:.1f} s, phase 7e "
         f"{report['sparse_model_d256_fp32']['phase_s']:.1f} s, phase 7f "
         f"{report['sparse_model_b32']['phase_s']:.1f} s, phase 7g "
-        f"{report['sparse_model_b32_fp32']['phase_s']:.1f} s, "
+        f"{report['sparse_model_b32_fp32']['phase_s']:.1f} s, phase 7x "
+        f"{report['sparse_model_d512']['phase_s']:.1f} s, phase 5bx "
+        f"{report['fa3_fp8_d512']['phase_s']:.1f} s, "
         f"phase 8 {report['spec']['phase_s']:.1f} s, phase 9 "
         f"{report['multihost']['phase_s']:.1f} s, phase 10 "
         f"{report['cp']['phase_s']:.1f} s, phase 11 "
@@ -5342,6 +5551,78 @@ def main() -> int:
                 library_ms=r[f"library_{part}_ms"],
                 library_backend=r["library_backend"], case=r["case"],
                 wall_ms=r[f"{part}_wall_ms"], **beside))
+    # Above head dim 256 on the sparse wide kernels: launches of phase 7x's
+    # forward+backward steps (bf16) and of its fp32 card check; numbers of
+    # sparse case (v), phase 7x's call, or (vf) in fp32 (that call at N =
+    # 2048), with (w) (D = 264, GQA, blocks 96 x 80, an emptied row, an
+    # LSE cotangent), (x) (MQA at blocks of 32) and (y) (D = 1024) in the
+    # same dtype beside them, each key suffixed with its case; kernel_ms
+    # the kernels alone with the lists built beforehand; SDPA with the
+    # boolean mask (its backend named) the library call where every row
+    # sees a key
+    s7x = report["sparse_model_d512"]
+    for tag, c, cases in (
+            ("d512", s7x["launches"], ("v", "w", "x", "y")),
+            ("fp32_d512", s7x["vs_cpu_fp32"]["launches"],
+             ("vf", "wf", "xf", "yf"))):
+        recs = {x: report["kernels"][f"sparse_{x}"] for x in cases}
+        r = recs[cases[0]]
+        for name, part, errs in (("sparse_fwd", "fwd", ("o", "lse")),
+                                 ("sparse_bwd", "bwd", ("dq", "dk", "dv"))):
+            beside = {}
+            for x in cases[1:]:
+                rx = recs[x]
+                beside.update({f"{key}_{x}": rx[f"{part}_{key}"] for key in (
+                    "ms", "kernel_ms", "plain_ms", "bound_ms")})
+                lib = ("library" if f"library_{part}_ms" in rx
+                       else "yardstick")
+                beside[f"{lib}_ms_{x}"] = rx[f"{lib}_{part}_ms"]
+                beside[f"library_backend_{x}"] = rx["library_backend"]
+                beside[f"case_{x}"] = rx["case"]
+                beside[f"kernel_split_ms_{x}"] = rx.get("kernel_split_ms")
+            kernels.append(dict(
+                name=f"{name}[{tag}]", **KERNELS[f"{name}_wide"],
+                launches=c[name], launches_wide=c[f"{name}_wide"],
+                max_abs_err=max(rx["max_abs_err"][e] for e in errs
+                                for rx in recs.values()),
+                ms=r[f"{part}_ms"], plain_ms=r[f"{part}_plain_ms"],
+                bound_ms=r[f"{part}_bound_ms"],
+                bound_by=r[f"{part}_bound_by"],
+                library_ms=r.get(f"library_{part}_ms"),
+                yardstick_ms=r.get(f"yardstick_{part}_ms"),
+                library_backend=r["library_backend"], case=r["case"],
+                kernel_ms=r[f"{part}_kernel_ms"],
+                wall_ms=r[f"{part}_wall_ms"],
+                kernel_split_ms=r.get("kernel_split_ms"),
+                **({"step_sparse_ms": s7x["profile"]["sparse_kernels_ms"],
+                    "step_median_ms": s7x["median_step_ms"]}
+                   if tag == "d512" else {}), **beside))
+    # The 8-bit forward above head dim 256 (fp8_wide.cu): launches of phase
+    # 5bx's int8 and s8 arms; numbers of fp8 case (p), phase 5bx's int8
+    # call, with the e4m3, e5m2, D = 264, D = 1024 and every-feature cases
+    # (r)-(v) beside it, or (q), its s8 call; SDPA on the dequantized
+    # inputs a yardstick (another function), its backend named
+    f5bx = report["fa3_fp8_d512"]
+    for tag, arm, main_case, beside_cases in (("d512", "int8", "p", "rstuv"),
+                                              ("s8_d512", "int8_s8", "q", "")):
+        r = report["kernels"][f"fp8_{main_case}"]
+        c = f5bx[arm]["launches"]
+        beside = {}
+        for x in beside_cases:
+            rx = report["kernels"][f"fp8_{x}"]
+            beside.update({f"{key}_{x}": rx[key] for key in (
+                "ms", "plain_ms", "bound_ms", "yardstick_ms",
+                "yardstick_backend", "case")})
+            beside[f"max_abs_err_{x}"] = max(rx["max_abs_err"].values())
+        kernels.append(dict(
+            name=f"flash_fwd_fp8[{tag}]", **KERNELS["flash_fwd_fp8_wide"],
+            launches=c["flash_fwd_fp8"], launches_wide=c["flash_fwd_fp8_wide"],
+            max_abs_err=max(r["max_abs_err"].values()), ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None,
+            yardstick_ms=r["yardstick_ms"],
+            yardstick_backend=r["yardstick_backend"], case=r["case"],
+            path=r["route"], **beside))
     # the first paged kernel's chunked instantiation on phase 2's fp32
     # decode at D = 512 (fp32 q: no engine call takes it), beside the d512
     # decode row, whose first_ms is the same kernel on its bf16 inputs

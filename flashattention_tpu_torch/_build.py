@@ -43,7 +43,8 @@ ALLOCATOR_SRC = PKG_DIR.parent / "csrc" / "page_allocator.cc"
 BPE_SRC = PKG_DIR.parent / "csrc" / "bpe_encoder.cc"
 
 KERNELS = ("paged_attention", "paged_append", "flash_fwd", "flash_bwd",
-           "flash_wide", "flash_fwd_fp8", "sparse_fwd", "sparse_bwd")
+           "flash_wide", "flash_fwd_fp8", "fp8_wide", "sparse_fwd",
+           "sparse_bwd", "sparse_wide")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -181,16 +181,6 @@ constexpr int kDecoders = 96;  // warps 1-3 of the producer warpgroup
 // s8 at D = 256: the least p scale O's unit takes (the header)
 constexpr float kPsFloor = 0x1p-70f;
 
-// a / b as IEEE division rounds it, from rb = 1 / b (correctly rounded):
-// two corrections of a * rb by its exact FMA residual (Markstein), without
-// div.rn.f32's range check and slow path each element. s8's quotients lie
-// in [0, 127] with b >= 1e-30 / 127, far from overflow and underflow.
-__device__ __forceinline__ float div_rn(float a, float b, float rb) {
-  float q = a * rb;
-  q = fmaf(fmaf(-b, q, a), rb, q);
-  return fmaf(fmaf(-b, q, a), rb, q);
-}
-
 template <int DP, int FMT>
 struct Fp8Sm90Cfg {
   static constexpr bool kDecQK = FMT != 2;  // Q·Kᵀ on decoded bf16 tiles

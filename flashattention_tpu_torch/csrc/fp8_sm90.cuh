@@ -197,5 +197,15 @@ __device__ __forceinline__ void decode_tile(const char* raw, char* dst,
   }
 }
 
+// a / b as IEEE division rounds it, from rb = 1 / b (correctly rounded):
+// two corrections of a * rb by its exact FMA residual (Markstein), without
+// div.rn.f32's range check and slow path each element. s8's quotients lie
+// in [0, 127] with b >= 1e-30 / 127, far from overflow and underflow.
+__device__ __forceinline__ float div_rn(float a, float b, float rb) {
+  float q = a * rb;
+  q = fmaf(fmaf(-b, q, a), rb, q);
+  return fmaf(fmaf(-b, q, a), rb, q);
+}
+
 }  // namespace sm90
 }  // namespace fat

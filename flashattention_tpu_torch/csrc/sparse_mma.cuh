@@ -232,5 +232,46 @@ __device__ __forceinline__ void mma3_1688(float (&d)[4],
   mma_1688(d, ab, bb0, bb1);
 }
 
+// ---------------------------------------------------------------------------
+// The sum of the dK/dV chunks (sparse_bwd.cu, sparse_wide.cu)
+// ---------------------------------------------------------------------------
+
+// dK and dV of the KV blocks whose walk took more than one chunk: the sums
+// of their chunks' fp32 partials in chunk order, stored as T (the others
+// were stored by their one CTA).
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  auto* p2 = reinterpret_cast<__nv_bfloat162*>(p);
+  p2[0] = __floats2bfloat162_rn(x.x, x.y);
+  p2[1] = __floats2bfloat162_rn(x.z, x.w);
+}
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+
+template <typename T>
+__global__ void sparse_bwd_sum_mma_kernel(AttnArgs a,
+                                          const float4* __restrict__ part,
+                                          const int32_t* __restrict__ q_count,
+                                          int block_k, int chunk_len,
+                                          T* __restrict__ dk,
+                                          T* __restrict__ dv) {
+  const size_t n4 = (size_t)a.B * a.H_kv * a.Nk * a.D / 4;
+  const int G = a.H / a.H_kv, d4 = a.D / 4;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int key = (int)(i / d4 % a.Nk);
+    const int n_entries = G * q_count[key / block_k];
+    if (n_entries <= chunk_len) continue;
+    float4 k = part[i], v = part[n4 + i];
+    for (int c = 1; c * chunk_len < n_entries; ++c) {
+      const float4 pk = part[2 * c * n4 + i], pv = part[(2 * c + 1) * n4 + i];
+      k = make_float4(k.x + pk.x, k.y + pk.y, k.z + pk.z, k.w + pk.w);
+      v = make_float4(v.x + pv.x, v.y + pv.y, v.z + pv.z, v.w + pv.w);
+    }
+    store4(dk + 4 * i, k);
+    store4(dv + 4 * i, v);
+  }
+}
+
 }  // namespace mma
 }  // namespace fat

@@ -705,5 +705,11 @@ constexpr int kConsumerRegsWide = 232;
 // transpose landed tiles.
 constexpr int kPrepThreads = 96;
 
+// Blocks of 256 threads for n4 float4s: one each, at most 16 a SM.
+inline int stream_blocks(size_t n4) {
+  const size_t want = (n4 + 255) / 256;
+  return (int)(want < 132 * 16 ? want : 132 * 16);
+}
+
 }  // namespace sm90
 }  // namespace fat

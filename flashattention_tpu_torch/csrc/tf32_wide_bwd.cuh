@@ -51,12 +51,6 @@ __global__ void kv_sum_kernel(const float4* __restrict__ part, int splits,
 
 namespace sm90 {
 
-// Blocks of 256 threads for n4 float4s: one each, at most 16 a SM.
-inline int stream_blocks(size_t n4) {
-  const size_t want = (n4 + 255) / 256;
-  return (int)(want < 132 * 16 ? want : 132 * 16);
-}
-
 // The layout of a call's scratch: 2 (|q| + |do| + |k| + |v|) floats (each
 // operand's big part, then its small part), then 2 splits |k| for the
 // dK/dV partials where splits > 1 (part is null otherwise).

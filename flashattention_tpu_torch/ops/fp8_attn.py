@@ -15,12 +15,17 @@ quantized function:
   takes the tensor-core route (:func:`_tensor_core_route`): Q·Kᵀ on 8-bit
   wgmma and P·V on bf16 wgmma (``fat_flash_fwd_fp8_sm90``, counted also in
   ``fp8_attention.tc_launches``), in both ``int8_pv`` settings (s8's p8
-  are integers, exact in bf16); a head dim that is not a multiple of 16
-  is padded with zero bytes first (:func:`kernel_head_dim`). The fp32 FMA
-  kernel (``fat_flash_fwd_fp8``) takes only key blocks that are not whole
-  128s, which :func:`fp8_attention` never quantizes in (its blocks come
-  from ``specs.fp8_kernel_blocks``; :func:`fp8_attention_prequant` can be
-  handed such scales); chip_smoke times it beside the tensor-core route.
+  are integers, exact in bf16). Every call above D = 256 takes the wide
+  route (:func:`_wide_route`, any head dim): ``csrc/fp8_wide.cu``'s
+  ``fat_flash_fwd_fp8_wide`` on mma.sync, O cut into column chunks and
+  Q·Kᵀ over all of D in every chunk's CTA (counted also in
+  ``fp8_attention.wide_launches``). On both, a head dim that is not a
+  multiple of 16 is padded with zero bytes first (:func:`kernel_head_dim`).
+  The fp32 FMA kernel (``fat_flash_fwd_fp8``, D <= 256) takes only key
+  blocks that are not whole 128s, which :func:`fp8_attention` never
+  quantizes in (its blocks come from ``specs.fp8_kernel_blocks``;
+  :func:`fp8_attention_prequant` can be handed such scales); chip_smoke
+  times it beside the tensor-core route.
 - ``"predecode"``: the payloads are dequantized to bf16 in PyTorch ops and
   the flash forward (``ops/flash_attn.flash_fwd``, kernel B1) runs on them.
 
@@ -166,9 +171,9 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-# The largest head dim the 8-bit kernels take on the card (the plain
-# version takes any); a larger one raises there.
-MAX_HEAD_DIM = 256
+# The largest head dim of the wgmma and FMA kernels; above it the wide
+# kernels (csrc/fp8_wide.cu) take every call, at any head dim.
+SM90_MAX_HEAD_DIM = 256
 
 
 def _tensor_core_route(d: int, bk: int) -> bool:
@@ -177,7 +182,15 @@ def _tensor_core_route(d: int, bk: int) -> bool:
     kernels; a head dim below the kernel's reads zeros past D) and key
     blocks a multiple of 128, so that one key tile never spans two v
     scales."""
-    return d <= MAX_HEAD_DIM and bk % 128 == 0
+    return d <= SM90_MAX_HEAD_DIM and bk % 128 == 0
+
+
+def _wide_route(d: int) -> bool:
+    """True where the wide kernels take the call: every head dim above
+    256, every format and both ``int8_pv`` settings (their key blocks must
+    be multiples of 32, the wide kernels' key tile, which
+    ``fp8_attention``'s multiples of 128 are)."""
+    return d > SM90_MAX_HEAD_DIM
 
 
 def kernel_head_dim(d: int) -> int:
@@ -209,9 +222,11 @@ def _fwd_cuda(q8, k8, v8, sq, sk, sv, bq, bk, opts, int8_pv, out_dtype):
     if out_dtype not in _OUT_CODE:
         raise TypeError(f"the fp8 kernel writes bf16/fp32, not {out_dtype}")
     b, h, n_q, d = q8.shape
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}: the 8-bit kernels "
-                         f"take head dims up to {MAX_HEAD_DIM}")
+    wide = _wide_route(d)
+    if wide and bk % 32:
+        raise ValueError(f"key blocks of {bk}: above head dim "
+                         f"{SM90_MAX_HEAD_DIM} the 8-bit kernels take key "
+                         f"blocks that are multiples of 32")
     h_kv, n_k = k8.shape[1], k8.shape[2]
     want = {"sq": (b, h, -(-n_q // bq)), "sk": (b, h_kv, -(-n_k // bk)),
             "sv": (b, h_kv, -(-n_k // bk))}
@@ -228,7 +243,7 @@ def _fwd_cuda(q8, k8, v8, sq, sk, sv, bq, bk, opts, int8_pv, out_dtype):
                                  f"{t.dtype} {tuple(t.shape)}")
     tc = _tensor_core_route(d, bk)
     s8 = int8_pv == "s8"
-    dk = kernel_head_dim(d) if tc else d
+    dk = kernel_head_dim(d) if tc or wide else d
     q8, k8, v8 = (fa._aligned16(pad_head(x.contiguous(), dk))
                   for x in (q8, k8, v8))
     sq, sk, sv = sq.contiguous(), sk.contiguous(), sv.contiguous()
@@ -237,11 +252,15 @@ def _fwd_cuda(q8, k8, v8, sq, sk, sv, bq, bk, opts, int8_pv, out_dtype):
     if o.numel() == 0 or n_k == 0:
         return o.zero_()[..., :d].contiguous(), lse.fill_(float("-inf"))
     # s8: each row's largest kept score in each key block, written by the
-    # kernel's first pass and read by its second
-    bmax = (torch.empty(b * h * n_q * -(-n_k // bk), dtype=torch.float32,
-                        device=q8.device) if tc and s8 else None)
+    # kernel's first pass and read by its second; on the wide route one
+    # slot for each O chunk of 128 columns, whose CTAs write their own
+    slots = -(-dk // 128) if wide else 1
+    bmax = (torch.empty(slots * b * h * n_q * -(-n_k // bk),
+                        dtype=torch.float32, device=q8.device)
+            if (tc or wide) and s8 else None)
     cap, rate = opts.softcap, opts.dropout_rate
-    lib = _build.load_kernel("flash_fwd_fp8", _declare)
+    lib = _build.load_kernel("fp8_wide" if wide else "flash_fwd_fp8",
+                             _declare_wide if wide else _declare)
     args = (
         q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), sq.data_ptr(),
         sk.data_ptr(), sv.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -254,22 +273,38 @@ def _fwd_cuda(q8, k8, v8, sq, sk, sv, bq, bk, opts, int8_pv, out_dtype):
         float(1.0 / (1.0 - rate)) if rate > 0.0 else 1.0,
         int(bq), int(bk), _FMT_CODE[fmt], int(s8), _OUT_CODE[out_dtype])
     stream = torch.cuda.current_stream(q8.device).cuda_stream
-    err = (lib.fat_flash_fwd_fp8_sm90(*args, _ptr(bmax), stream) if tc
-           else lib.fat_flash_fwd_fp8(*args, stream))
+    if wide:
+        err = lib.fat_flash_fwd_fp8_wide(*args, _ptr(bmax), stream)
+    elif tc:
+        err = lib.fat_flash_fwd_fp8_sm90(*args, _ptr(bmax), stream)
+    else:
+        err = lib.fat_flash_fwd_fp8(*args, stream)
     _build.check(err, "flash_fwd_fp8 launch")
     fp8_attention.launches += 1
     fp8_attention.tc_launches += tc
+    fp8_attention.wide_launches += wide
     return (o if dk == d else o[..., :d].contiguous()), lse
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-    common = ([p] * 11 + [i, i, i, i, i, i, f, i, i, i, i, f, f, i, u, u, f]
-              + [i, i, i, i, i])
+    p, common = ctypes.c_void_p, _common_argtypes()
     lib.fat_flash_fwd_fp8.restype = ctypes.c_int
     lib.fat_flash_fwd_fp8.argtypes = common + [p]
     lib.fat_flash_fwd_fp8_sm90.restype = ctypes.c_int
     lib.fat_flash_fwd_fp8_sm90.argtypes = common + [p, p]
+
+
+def _common_argtypes() -> list:
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+    return ([p] * 11 + [i, i, i, i, i, i, f, i, i, i, i, f, f, i, u, u, f]
+            + [i, i, i, i, i])
+
+
+def _declare_wide(lib: ctypes.CDLL) -> None:
+    """The wide kernels' entry point: the tensor-core route's arguments."""
+    lib.fat_flash_fwd_fp8_wide.restype = ctypes.c_int
+    lib.fat_flash_fwd_fp8_wide.argtypes = _common_argtypes() + [
+        ctypes.c_void_p, ctypes.c_void_p]
 
 
 def fp8_fwd(q8, k8, v8, sq, sk, sv, bq, bk, opts, *, int8_pv="bf16",
@@ -376,6 +411,7 @@ def fp8_attention(q, k, v, *, causal=False, softmax_scale=None,
 
 fp8_attention.launches = 0
 fp8_attention.tc_launches = 0
+fp8_attention.wide_launches = 0
 
 
 def fp8_attention_prequant(q8, k8, v8, sq, sk, sv, *, causal=False,

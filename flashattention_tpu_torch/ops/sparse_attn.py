@@ -26,14 +26,20 @@ block's start, any block size, D <= 256): bf16 on m16n8k16
 (``fat_sparse_fwd_mma`` / ``fat_sparse_bwd_mma``) and fp32 in 3xTF32 on
 m16n8k8 (``fat_sparse_fwd_mma_f32`` / ``fat_sparse_bwd_mma_f32``), both
 also counted in ``sparse_attention.fwd_mma_launches`` /
-``bwd_mma_launches``. The first kernels, fp32 FMAs on the CUDA cores
+``bwd_mma_launches``. Above D = 256 (:data:`SM90_MAX_HEAD_DIM`) every
+call, any blocks, bf16 or fp32, goes to the wide kernels of
+``csrc/sparse_wide.cu`` (``fat_sparse_fwd_wide`` / ``fat_sparse_bwd_wide``:
+the mma route's walks and chunks with the head dim cut as
+``csrc/flash_wide.cu`` cuts it), also counted in
+``sparse_attention.fwd_wide_launches`` / ``bwd_wide_launches``; they take
+any head dim. The first kernels, fp32 FMAs on the CUDA cores
 (``fat_sparse_fwd`` / ``fat_sparse_bwd``), lie on no route: they are only
 the comparison ``chip_smoke.py`` times beside the others.
 On CPU tensors it runs the plain versions :func:`sparse_fwd_plain` and
 :func:`sparse_bwd_plain`. Nothing falls back: a CUDA input the kernels do
-not take (fp16, a head dim above 256, tensors on different devices; a
-head dim that is not a multiple of 8 is padded, as in the flash wrapper)
-raises, and so does a failed build or launch of any route.
+not take (fp16, tensors on different devices; a head dim that is not a
+multiple of 8 is padded, as in the flash wrapper) raises, and so does a
+failed build or launch of any route.
 
 The function. Query row r sits at key position r + (N_k - N_q). Inside an
 active block pair an element is kept iff col < N_k and, when causal,
@@ -67,9 +73,9 @@ from flashattention_tpu_torch.ops.flash_attn import (
 )
 from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
-# The largest head dim the sparse kernels take on the card (the plain
-# version takes any); a larger one raises there.
-MAX_HEAD_DIM = 256
+# The largest head dim of the tensor-core and mma kernels; above it the
+# wide kernels (csrc/sparse_wide.cu) take every call, at any head dim.
+SM90_MAX_HEAD_DIM = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,10 +208,9 @@ def _check_cuda(q, k, v, active, spec: SparseSpec, do=None, lse=None):
         if t is not None and t.dtype != q.dtype:
             raise TypeError(f"{name} ({t.dtype}) must have q's dtype ({q.dtype})")
     b, h, n_q, d = q.shape
-    if d > MAX_HEAD_DIM or d % 8:
-        raise ValueError(f"head_dim must be a multiple of 8 up to "
-                         f"{MAX_HEAD_DIM} (the sparse kernels' limit), got "
-                         f"{d}")
+    if d % 8:
+        raise ValueError(f"head_dim must be a multiple of 8 (the sparse "
+                         f"kernels' rows), got {d}")
     n_k = k.shape[2]
     want = {"k": tuple(v.shape), "pattern": (-(-n_q // spec.block_q),
                                              -(-n_k // spec.block_k)),
@@ -237,19 +242,24 @@ def _tensor_core_route(dtype, d: int, spec: SparseSpec) -> bool:
     operand split into two TF32 parts, which keeps the fp32 1e-4 limit, and
     above D = 128 its wide kernels split the operands they keep as landed
     in registers). Other blocks take the mma kernels."""
-    return (dtype in _DTYPE_CODE and d <= MAX_HEAD_DIM
+    return (dtype in _DTYPE_CODE and d <= SM90_MAX_HEAD_DIM
             and spec.block_q % 64 == 0 and spec.block_k % 64 == 0)
 
 
 def _route(dtype, d: int, spec: SparseSpec) -> str:
-    """The route a call takes: "tc" (wgmma) where both blocks are multiples
-    of 64, else "mma". ``mma.sync`` gives a warp 16 rows, so the mma
-    kernels cut each block into 16-row (and 16- or 32-key) slices anchored
-    at its start: a 64-row wgmma tile kept inside a block of 16 or 32 would
-    be mostly masked rows. bf16 runs m16n8k16, fp32 m16n8k8 in 3xTF32 (each
-    operand split into two TF32 parts in registers), on one walk and one
-    chunk rule. A call neither takes (fp16, a head dim above 256) is
-    refused before it gets here (``_check_cuda``)."""
+    """The route a call takes: above D = 256 "wide", else "tc" (wgmma)
+    where both blocks are multiples of 64, else "mma". ``mma.sync`` gives a
+    warp 16 rows, so the mma kernels cut each block into 16-row (and 16- or
+    32-key) slices anchored at its start: a 64-row wgmma tile kept inside a
+    block of 16 or 32 would be mostly masked rows. bf16 runs m16n8k16, fp32
+    m16n8k8 in 3xTF32 (each operand split into two TF32 parts in
+    registers), on one walk and one chunk rule. The wide kernels run that
+    walk and chunk rule (any blocks) with every output cut into column
+    chunks and every product over D taken in 64-column segments, so their
+    registers and shared memory do not grow with D. A call none takes
+    (fp16) is refused before it gets here (``_check_cuda``)."""
+    if d > SM90_MAX_HEAD_DIM:
+        return "wide"
     return "tc" if _tensor_core_route(dtype, d, spec) else "mma"
 
 
@@ -258,13 +268,28 @@ def _entry(part: str, dtype, route: str) -> str:
     (:func:`_route`, or "fma": the FMA kernels, which no call takes and
     chip_smoke.py times beside the others) for ``dtype``: the tensor-core
     kernels' ``fat_sparse_{part}_sm90[_f32]``, the mma kernels'
-    ``fat_sparse_{part}_mma[_f32]``."""
+    ``fat_sparse_{part}_mma[_f32]``, the wide kernels'
+    ``fat_sparse_{part}_wide`` (both dtypes)."""
     if route == "fma":
         return f"fat_sparse_{part}"
+    if route == "wide":
+        return f"fat_sparse_{part}_wide"
     f32 = "_f32" if dtype == torch.float32 else ""
     if route == "mma":
         return f"fat_sparse_{part}_mma{f32}"
     return f"fat_sparse_{part}_sm90{f32}"
+
+
+def kernel_fn(part: str, dtype, route: str):
+    """The loaded C entry point :func:`_entry` names: the wide route's in
+    the ``sparse_wide`` library, the others in ``sparse_{part}``."""
+    if route == "wide":
+        lib = _build.load_kernel("sparse_wide", _declare_wide)
+    elif part == "fwd":
+        lib = _build.load_kernel("sparse_fwd", _declare_fwd)
+    else:
+        lib = _build.load_kernel("sparse_bwd", _declare_bwd)
+    return getattr(lib, _entry(part, dtype, route))
 
 
 def route_kernels(dtype, d: int, spec: SparseSpec,
@@ -276,9 +301,11 @@ def route_kernels(dtype, d: int, spec: SparseSpec,
     dK/dV CTAs, the sum of their partials (``kv_sum_kernel``); the mma
     route (bf16 or fp32), where ``kv_splits`` (the chunks of
     :func:`_mma_chunks`) cuts a KV block's walk over dK/dV CTAs, the sum of
-    theirs (``sparse_bwd_sum_mma_kernel``)."""
-    tag = {"tc": "_sm90", "mma": "_mma"}[_route(dtype, d, spec)]
-    if dtype == torch.float32:
+    theirs (``sparse_bwd_sum_mma_kernel``), and so does the wide route
+    (above D = 256, one name for both dtypes)."""
+    tag = {"tc": "_sm90", "mma": "_mma", "wide": "_wide"}[
+        _route(dtype, d, spec)]
+    if dtype == torch.float32 and tag != "_wide":
         tag = {"_mma": "_f32_mma",
                "_sm90": "_f32_wide_sm90" if d > 128 else "_f32_sm90"}[tag]
     names = {f"sparse_{k}{tag}_kernel" for k in ("fwd", "bwd_dkv", "bwd_dq")}
@@ -286,7 +313,7 @@ def route_kernels(dtype, d: int, spec: SparseSpec,
         names.add("tf32_split_kernel")
         if kv_splits > 1:
             names.add("kv_sum_kernel")
-    if tag.endswith("_mma") and kv_splits > 1:
+    if tag in ("_mma", "_f32_mma", "_wide") and kv_splits > 1:
         names.add("sparse_bwd_sum_mma_kernel")
     return frozenset(names)
 
@@ -316,7 +343,7 @@ def _mma_chunks(h: int, h_kv: int, n_q: int, block_q: int,
 
 def _mma_scratch(q, k, spec: SparseSpec) -> tuple[torch.Tensor | None, list]:
     """(scratch, [its pointer, chunk_len, chunks]) of a backward call on the
-    mma route, bf16 or fp32 (:func:`_mma_chunks`): the fp32 dK/dV partials
+    mma or the wide route, bf16 or fp32 (:func:`_mma_chunks`): the fp32 dK/dV partials
     of the blocks whose walk takes more than one chunk, 2 * chunks * |k|
     values (None where one chunk covers every walk)."""
     chunk_len, chunks = _mma_chunks(q.shape[1], k.shape[1], q.shape[2],
@@ -332,10 +359,10 @@ def _bwd_scratch(route: str, q, k,
                  spec: SparseSpec) -> tuple[torch.Tensor | None, list]:
     """(scratch, the arguments a route's backward entry takes after the
     stream): the fp32 tensor-core route's scratch and query-head splits
-    (``flash_attn._wide_scratch``), the mma route's scratch and chunks
-    (:func:`_mma_scratch`). The caller holds the scratch until its launches
-    are issued."""
-    if route == "mma":
+    (``flash_attn._wide_scratch``), the mma and wide routes' scratch and
+    chunks (:func:`_mma_scratch`). The caller holds the scratch until its
+    launches are issued."""
+    if route in ("mma", "wide"):
         return _mma_scratch(q, k, spec)
     if route == "tc" and q.dtype == torch.float32:
         scratch, splits = _wide_scratch(q, k)
@@ -352,9 +379,8 @@ def _fwd_cuda(q, k, v, active, spec: SparseSpec):
     if o.numel() == 0 or k.shape[2] == 0:
         return o.zero_(), lse.fill_(float("-inf"))
     kv_list, kv_count = compact_rows(active)
-    lib = _build.load_kernel("sparse_fwd", _declare_fwd)
     route = _route(q.dtype, d, spec)
-    err = getattr(lib, _entry("fwd", q.dtype, route))(
+    err = kernel_fn("fwd", q.dtype, route)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         kv_list.data_ptr(), kv_count.data_ptr(), *_shape_args(q, k, spec),
         kv_list.shape[1], _DTYPE_CODE[q.dtype],
@@ -363,6 +389,7 @@ def _fwd_cuda(q, k, v, active, spec: SparseSpec):
     sparse_attention.fwd_launches += 1
     sparse_attention.fwd_tc_launches += route == "tc"
     sparse_attention.fwd_mma_launches += route == "mma"
+    sparse_attention.fwd_wide_launches += route == "wide"
     return o, lse
 
 
@@ -375,10 +402,9 @@ def _bwd_cuda(q, k, v, do, lse, di, active, spec: SparseSpec):
         return dq.zero_(), dk.zero_(), dv.zero_()
     kv_list, kv_count = compact_rows(active)
     q_list, q_count = compact_rows(active.t())
-    lib = _build.load_kernel("sparse_bwd", _declare_bwd)
     route = _route(q.dtype, q.shape[3], spec)
     scratch, more = _bwd_scratch(route, q, k, spec)
-    err = getattr(lib, _entry("bwd", q.dtype, route))(
+    err = kernel_fn("bwd", q.dtype, route)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), kv_list.data_ptr(), kv_count.data_ptr(),
@@ -389,6 +415,7 @@ def _bwd_cuda(q, k, v, do, lse, di, active, spec: SparseSpec):
     sparse_attention.bwd_launches += 1
     sparse_attention.bwd_tc_launches += route == "tc"
     sparse_attention.bwd_mma_launches += route == "mma"
+    sparse_attention.bwd_wide_launches += route == "wide"
     return dq, dk, dv
 
 
@@ -417,6 +444,16 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
                                             + [i, i, i, p, p, i])
     for fn in (lib.fat_sparse_bwd_mma, lib.fat_sparse_bwd_mma_f32):
         fn.argtypes = [p] * 13 + _SHAPE_ARGTYPES + [i, i, i, p, p, i, i]
+
+
+def _declare_wide(lib: ctypes.CDLL) -> None:
+    """The wide kernels' entry points: the mma route's arguments."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fat_sparse_fwd_wide.restype = ctypes.c_int
+    lib.fat_sparse_fwd_wide.argtypes = [p] * 7 + _SHAPE_ARGTYPES + [i, i, p]
+    lib.fat_sparse_bwd_wide.restype = ctypes.c_int
+    lib.fat_sparse_bwd_wide.argtypes = ([p] * 13 + _SHAPE_ARGTYPES
+                                        + [i, i, i, p, p, i, i])
 
 
 # ---------------------------------------------------------------------------
@@ -475,8 +512,9 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     None for all tiles. Returns (o in q's shape and dtype, fp32 LSE
     (B, H, N_q)), differentiable in q, k and v through both. A head dim
     that is not a multiple of 8 is padded with zeros up to the next one
-    (``flash_attn.kernel_attention`` does the same), the default scale
-    taken from the unpadded D, and o and the gradients sliced back."""
+    (``flash_attn.kernel_attention`` does the same, at every D), the
+    default scale taken from the unpadded D, and o and the gradients sliced
+    back."""
     if q.dim() != 4:
         raise ValueError(f"expected (B, H, N, D), got {tuple(q.shape)}")
     if k.dim() != 4 or tuple(v.shape) != tuple(k.shape) or \
@@ -491,7 +529,7 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         block_q=int(block_q), block_k=int(block_k))
     if pattern is not None:
         pattern = torch.as_tensor(pattern)
-    pad = -d % 8 if d <= MAX_HEAD_DIM else 0
+    pad = -d % 8
     if pad:
         q, k, v = (torch.nn.functional.pad(x, (0, pad)) for x in (q, k, v))
     o, lse = _SparseAttention.apply(q, k, v, pattern, spec)
@@ -504,3 +542,5 @@ sparse_attention.fwd_tc_launches = 0
 sparse_attention.bwd_tc_launches = 0
 sparse_attention.fwd_mma_launches = 0
 sparse_attention.bwd_mma_launches = 0
+sparse_attention.fwd_wide_launches = 0
+sparse_attention.bwd_wide_launches = 0

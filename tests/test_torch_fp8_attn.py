@@ -1,7 +1,7 @@
 """The port's FA3 8-bit attention (plain versions, CPU) against the JAX
 package's ``pallas_fp8_attention`` in Pallas interpret mode, from the same
 numpy inputs: fused and predecode, e4m3/e5m2/int8 payloads, head dims up to
-256, GQA, window + sinks, soft-cap + segments + ALiBi, dropout with the same
+512, GQA, window + sinks, soft-cap + segments + ALiBi, dropout with the same
 seed, int8 PV in s8, and the straight-through backward in both flavours.
 
 Limits: o and LSE at 5e-3 abs+rel, the JAX package's own fused-vs-oracle
@@ -249,6 +249,8 @@ def test_prequant_matches_pallas():
     ("s8", 256, 1024, True),
     ("bf16", 256, 64, False),
     ("bf16", 64, 64, False),      # a key tile would span two v scales
+    ("bf16", 264, 1024, False),   # above 256: the wide kernels
+    ("s8", 512, 1024, False),
 ])
 def test_tensor_core_route_rule(int8_pv, d, bk, want):
     """The 8-bit forward's route, from the inputs alone: wgmma with D <=
@@ -312,3 +314,57 @@ def test_kernel_path_blocks_take_the_tensor_core_route():
         _, bk = fp8_kernel_blocks(n, n)
         assert fp8_attn._tensor_core_route(128, bk)
         assert fp8_attn._tensor_core_route(256, bk)
+
+
+@pytest.mark.parametrize("fmt, int8_pv", [("fp8", "bf16"), ("e5m2", "bf16"),
+                                          ("int8", "bf16"), ("int8", "s8")])
+@pytest.mark.parametrize("shape", [(1, 4, 2, 256, 264), (1, 2, 1, 256, 512)])
+def test_fp8_forward_matches_pallas_above_256(monkeypatch, shape, fmt,
+                                              int8_pv):
+    """Head dims above 256 (the wide kernels on the card; 264 is padded to
+    272 there), GQA and MQA, every format and int8 with p in s8, against
+    the JAX kernel."""
+    q, k, v, _, _ = _inputs(*shape, seed=13)
+    monkeypatch.setenv("FAT_INT8_PV", int8_pv)
+    kw = dict(causal=True, mode="fused", fmt=fmt)
+    _check(*_both(q, k, v, dict(kw, int8_pv=int8_pv), kw),
+           f"{shape} {fmt} {int8_pv}")
+
+
+@pytest.mark.parametrize("fmt", ["fp8", "int8"])
+def test_ste_backward_above_256_matches_pallas(fmt):
+    """dq, dk, dv of sum(o * do) + sum(lse * dlse) at D = 512, MQA: the
+    straight-through backward on the flash kernels above 256."""
+    q, k, v, do, dlse = _inputs(1, 2, 1, 256, 512, seed=14)
+    kw = dict(causal=True, fmt=fmt)
+
+    def jloss(t):
+        o, lse = pallas_fp8_attention(*t, block_q=BQ, block_k=BK,
+                                      interpret=True, **kw)
+        return jnp.sum(o * do) + jnp.sum(lse * dlse)
+
+    jg = jax.grad(jloss)(tuple(jnp.asarray(x) for x in (q, k, v)))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    o, lse = fp8_attn.fp8_attention(*leaves, block_q=BQ, block_k=BK, **kw)
+    ((o * torch.from_numpy(do)).sum()
+     + (lse * torch.from_numpy(dlse)).sum()).backward()
+    for name, t, j in zip(("dq", "dk", "dv"), leaves, jg):
+        assert_allclose(t.grad, np.asarray(j), rtol=TOL, atol=TOL,
+                        err_msg=f"d512 {fmt} {name}")
+
+
+@pytest.mark.parametrize("d, width", [(264, 272), (260, 272), (384, 384),
+                                      (512, 512), (1024, 1024)])
+def test_wide_route_rule(d, width):
+    """Above D = 256 every call takes the wide kernels (any head dim; the
+    wrapper pads D to whole 16 bytes, kernel_head_dim); up to 256 none
+    does. fp8_attention's key blocks (multiples of 128) are multiples of
+    the wide kernels' 32-key tile."""
+    from flashattention_tpu_torch.ops.specs import fp8_kernel_blocks
+    assert fp8_attn._wide_route(d)
+    assert not fp8_attn._wide_route(fp8_attn.SM90_MAX_HEAD_DIM)
+    assert fp8_attn.kernel_head_dim(d) == width
+    for n in (1, 200, 4096):
+        _, bk = fp8_kernel_blocks(n, n)
+        assert not fp8_attn._tensor_core_route(d, bk)
+        assert bk % 32 == 0

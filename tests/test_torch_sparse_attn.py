@@ -371,3 +371,119 @@ def test_sparse_wide_backward_splits_the_group(kv_heads, n_k, group, want):
 
     assert sa._wide_scratch is fa._wide_scratch
     assert fa._kv_splits(kv_heads, n_k, group, 132) == want
+
+
+# Head dims above 256 (the wide kernels on the card, bf16 and fp32), each
+# with an LSE cotangent: GQA at D = 264 on blocks of 128; MQA at D = 512
+# with q-block row 0 emptied; D = 264 on blocks of 32 with GQA and q-block
+# row 1 emptied; MQA at D = 512 on blocks of 32; D = 260, which the wrapper
+# pads to 264.
+WIDE_CASES = {
+    "d264_gqa_b128": ((1, 4, 2, 256, 256, 264), [[1, 0], [1, 1]], {}),
+    "d512_mqa_b128_empty_row": ((1, 2, 1, 256, 256, 512), [[0, 0], [1, 1]],
+                                {}),
+    "d264_gqa_b32_empty_row": ((1, 4, 2, 128, 128, 264),
+                               [[1, 0, 0, 0], [0, 0, 0, 0], [0, 1, 1, 0],
+                                [1, 0, 1, 1]], dict(block_q=32, block_k=32)),
+    "d512_mqa_b32": ((1, 2, 1, 128, 128, 512), LG4,
+                     dict(block_q=32, block_k=32)),
+    "d260_padded": ((1, 2, 1, 128, 128, 260), [[1, 0], [1, 1]],
+                    dict(block_q=64, block_k=64)),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+def test_sparse_attention_above_256_matches_jax(case, dtype):
+    """o, lse and the gradients under a nonzero LSE cotangent against the
+    JAX kernel in interpret mode, from the same inputs rounded to the same
+    dtype, at the JAX ladder's rung (fp32 1e-4, bf16 5e-2; LSE 5e-3); rows
+    of an emptied q block keep lse = -inf exactly in both."""
+    shape, pattern, kw = WIDE_CASES[case]
+    q, k, v, do, dlse = _inputs(*shape, seed=21)
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    pat = np.asarray(pattern, bool)
+
+    def f(q_, k_, v_):
+        return pallas_sparse_attention(q_, k_, v_, jnp.asarray(pat),
+                                       causal=True, interpret=True, **kw)
+
+    (jo, jl), vjp = jax.vjp(f, *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    jgrads = vjp((jnp.asarray(do, jdt), jnp.asarray(dlse)))
+    ref = [np.asarray(x, np.float32) for x in (jo, jl, *jgrads)]
+    leaves = [torch.from_numpy(x).to(tdt).requires_grad_(True)
+              for x in (q, k, v)]
+    o, lse = sparse_attention(*leaves, torch.from_numpy(pat), causal=True,
+                              **kw)
+    torch.autograd.backward([o, lse], [torch.from_numpy(do).to(tdt),
+                                       torch.from_numpy(dlse)])
+    got = [o, lse] + [t.grad for t in leaves]
+    tol = TOL if dtype == "float32" else 5e-2
+    for name, g, r in zip(("o", "lse", "dq", "dk", "dv"), got, ref):
+        assert tuple(g.shape) == r.shape, name
+        assert g.dtype == (torch.float32 if name == "lse" else tdt), name
+        if name == "lse":
+            empty = np.isneginf(r)
+            np.testing.assert_array_equal(torch.isneginf(g).numpy(), empty)
+            assert_allclose(g[torch.from_numpy(~empty)], r[~empty],
+                            rtol=LSE_TOL, atol=LSE_TOL,
+                            err_msg=f"{case} {dtype} lse")
+            continue
+        assert_allclose(g.float(), r, rtol=tol, atol=tol,
+                        err_msg=f"{case} {dtype} {name}")
+
+
+# head dims above 256 take the wide route, any dtype and blocks
+WIDE_ROUTES = [
+    (torch.bfloat16, 264, (96, 80)), (torch.bfloat16, 512, (128, 128)),
+    (torch.float32, 512, (32, 32)), (torch.float32, 1024, (128, 128)),
+    (torch.bfloat16, 384, (16, 16)),
+]
+
+
+@pytest.mark.parametrize("dtype,d,blocks", WIDE_ROUTES)
+def test_wide_route_above_256(dtype, d, blocks):
+    """Above D = 256 every call takes the wide kernels, which name three
+    kernels of one name for both dtypes and the sum of the dK/dV chunks'
+    partials where a walk takes more than one chunk; the tensor-core
+    route stops at 256."""
+    spec = sa.SparseSpec(causal=True, scale=d ** -0.5, block_q=blocks[0],
+                         block_k=blocks[1])
+    assert sa._route(dtype, d, spec) == "wide"
+    assert not sa._tensor_core_route(dtype, d, spec)
+    assert sa._entry("fwd", dtype, "wide") == "fat_sparse_fwd_wide"
+    assert sa._entry("bwd", dtype, "wide") == "fat_sparse_bwd_wide"
+    names = {"sparse_fwd_wide_kernel", "sparse_bwd_dkv_wide_kernel",
+             "sparse_bwd_dq_wide_kernel"}
+    assert sa.route_kernels(dtype, d, spec, kv_splits=1) == names
+    assert sa.route_kernels(dtype, d, spec, kv_splits=4) == names | {
+        "sparse_bwd_sum_mma_kernel"}
+    # the limit the D <= 256 kernels keep
+    assert sa._route(dtype, sa.SM90_MAX_HEAD_DIM, spec) in ("tc", "mma")
+
+
+# (B, H, H_kv, N, D, block_q) -> (chunk_len, chunks) above D = 256
+@pytest.mark.parametrize("b,h,h_kv,n,d,block_q,want", [
+    (1, 4, 1, 4096, 512, 128, (4, 32)),    # phase 7x's call: 32 chunks
+    (1, 2, 1, 1024, 1024, 128, (4, 4)),    # chip_smoke.py's case (y)
+    (1, 4, 1, 2048, 512, 32, (16, 16)),    # case (x): MQA at blocks of 32
+    (1, 4, 1, 16384, 1024, 128, (128, 4)),  # the partials' budget: longer
+])
+def test_wide_dkv_chunks(b, h, h_kv, n, d, block_q, want):
+    """The wide dK/dV kernel takes the mma route's chunk rule; at wide head
+    dims the partials' budget (2 chunks |k| fp32 values within
+    MMA_SCRATCH_BYTES) bites sooner, and the chunks grow longer rather
+    than pass it."""
+    k_numel = b * h_kv * n * d
+    chunk_len, chunks = sa._mma_chunks(h, h_kv, n, block_q, k_numel)
+    assert (chunk_len, chunks) == want
+    assert chunk_len * chunks >= h // h_kv * -(-n // block_q)
+    assert chunks == 1 or 8 * chunks * k_numel <= sa.MMA_SCRATCH_BYTES
+    q = torch.empty(b, h, n, d, device="meta")
+    k = torch.empty(b, h_kv, n, d, device="meta")
+    spec = sa.SparseSpec(causal=True, scale=d ** -0.5, block_q=block_q,
+                         block_k=block_q)
+    scratch, more = sa._bwd_scratch("wide", q, k, spec)
+    assert more[1:] == list(want)
+    assert (scratch is None) == (chunks == 1)

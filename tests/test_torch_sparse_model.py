@@ -1,5 +1,6 @@
 """The port's model with a block-sparse pattern against the JAX package's,
-on the CPU in float32 at a tiny width (block_size 16, N = 64: 4 x 4 tiles;
+on the CPU in float32 at a tiny width (head dims 16, 256 and 512;
+block_size 16, N = 64: 4 x 4 tiles;
 block_size 32: 2 x 2, and 20 x 20 at N = 640 with a width-16 pattern),
 weights carried across by ``params_from_jax``: logits, loss and gradients,
 the soft-capped dense-mask fallback, dropout with a pattern, both remat
@@ -41,6 +42,7 @@ N = 64
 BASE = dict(vocab_size=97, d_model=64, n_layers=2, n_heads=4, d_ff=128,
             max_seq_len=64, block_size=16, dropout_rate=0.0)
 D256 = dict(d_model=512, n_heads=2, n_kv_heads=1, pos_encoding="rope")
+D512 = dict(d_model=1024, n_heads=2, n_kv_heads=1, pos_encoding="rope")
 # name: (config overrides, pattern); patterns are normalized onto 4 x 4 tiles
 CASES = {
     "learned": ({}, [[1, 0], [0, 1]]),
@@ -51,6 +53,8 @@ CASES = {
     "d256_mqa_rope": (dict(D256), [[1, 0], [1, 1]]),
     # blocks of 32 (the mma kernels on the card, bf16 and fp32): 2 x 2 tiles
     "block32": (dict(block_size=32), [[1, 0], [1, 1]]),
+    # head dim 512 (the wide sparse kernels on the card), one KV head
+    "d512_mqa_rope": (dict(D512), [[1, 0], [1, 1]]),
 }
 
 
@@ -138,10 +142,11 @@ LG20 = [[int(0 <= i - j < 16 or j == 0) for j in range(20)] for i in range(20)]
 
 
 @pytest.mark.parametrize("case", ["learned", "gqa_rope", "d256_mqa_rope",
-                                  "block32_gqa", "block32_width16"])
+                                  "d512_mqa_rope", "block32_gqa",
+                                  "block32_width16"])
 def test_sparse_loss_and_grads_match_jax(case):
     over = {"learned": {}, "gqa_rope": dict(n_kv_heads=2, pos_encoding="rope"),
-            "d256_mqa_rope": D256,
+            "d256_mqa_rope": D256, "d512_mqa_rope": D512,
             "block32_gqa": dict(n_kv_heads=2, block_size=32),
             "block32_width16": dict(block_size=32, max_seq_len=640)}[case]
     n = 640 if case == "block32_width16" else N
