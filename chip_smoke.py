@@ -27,8 +27,9 @@ Phases, in order; any failure exits nonzero:
    nothing, as must the 12 sparse kernels above D = 256 (sparse_wide: the
    forward and dQ in bf16 and fp32 with 16- and 32-key sub-tiles, dK/dV in
    each dtype, and the sum of the dK/dV chunks in each dtype, which has no
-   product) and the 4 8-bit forward kernels above D = 256 (fp8_wide: e4m3,
-   e5m2, int8 and int8 "s8", whose int8 ones must also show IMMA); the 40
+   product) and the 7 8-bit forward kernels above D = 256 (fp8_wide: e4m3,
+   e5m2, int8 and int8 "s8", and the first three again for key blocks off
+   the 32-key tile, whose int8 ones must also show IMMA); the 40
    paged split kernels (10 on the lane-group walk, D <= 128 at 1 or 2 rows
    a KV head; 30 on the tensor-core walk, 12 of them above D = 256, which
    must also show HMMA, mma.sync) must show
@@ -198,16 +199,20 @@ Phases, in order; any failure exits nonzero:
    two chunks of 256 columns; every append on the kernel). Phase 2 holds
    its calls (decode, T = 64 chunk and verify chunk, each over bf16, int8
    "convert", "qk" and "full", e4m3 and e5m2 pages; fp32 on the first
-   kernel's chunked instantiation; D = 264, 384 and 1024 decode; the
+   kernel's chunked instantiation; D = 264, 384 and 1024 decode; above
+   D = 1024, the scores summed over passes: D = 1032 and 2048 over bf16
+   pages, 2048 over int8 and 1032 over e4m3 pages, on both kernels; the
    append in every format at D = 512, decode and chunk, and at 264, 384,
-   1024) against their plain versions, and the flash cases (p)-
-   (y) (phase 5d's call, D = 264, 384, 1024 and GQA with every feature at
-   512, bf16 and fp32) on flash_wide's chunked kernels, naming SDPA's
-   backend at each.
+   1024) against their plain versions, the 8-bit forward at key blocks of
+   48 (int8, e4m3), and the flash cases (p)-(y) (phase 5d's call, D = 264,
+   384, 1024 and GQA with every feature at 512, bf16 and fp32) on
+   flash_wide's kernels (the forward's chunks, the backward's clusters),
+   naming SDPA's backend at each, (p) and (u) kernel by kernel.
 4d. Phase 4 at phase 3d's model: bf16 pages at 5e-2, e4m3 and int8 at 1e-1.
 5d. Training phase 3d's model: ``train_step`` at B = 1, N = 2048, 2
    untimed and 4 timed micro-steps, phase 5's launch checks (4 flash_fwd and
-   2 flash_bwd a micro-step, all on flash_wide's kernels) and a profiled
+   2 flash_bwd a micro-step, all on flash_wide's kernels: the backward's
+   cluster kernels, dK/dV's walk split in 4 and summed) and a profiled
    micro-step; one loss and its gradients card vs fp32 CPU at N = 512 in
    bf16 (5e-2) and in fp32 (1e-4).
 5. Training at GPT-3 Small widths (dropout 0.1, remat "full", bf16 compute,
@@ -463,7 +468,7 @@ from flashattention_tpu_torch.ops import paged_append as pap
 from flashattention_tpu_torch.ops import paged_attention as pa
 from flashattention_tpu_torch.ops import sparse_attn as sa
 from flashattention_tpu_torch.ops.api import fa3_attention
-from flashattention_tpu_torch.ops.quant import quantize_tokens
+from flashattention_tpu_torch.ops.quant import quantize_blocks, quantize_tokens
 from flashattention_tpu_torch.parallel import (
     make_mesh,
     make_pipelined_train_state,
@@ -534,12 +539,14 @@ KERNELS = {
     "flash_bwd": dict(
         route="cuda", source="flashattention_tpu_torch/csrc/flash_bwd.cu",
         replaces="flashattention_tpu/ops/pallas_attn.py:885"),
-    # above head dim 256: the chunked mma.sync kernels, bf16 and fp32
+    # above head dim 256: the forward's chunked mma.sync kernels, bf16 and
+    # fp32
     "flash_fwd_wide": dict(
         route="cuda", source="flashattention_tpu_torch/csrc/flash_wide.cu",
         replaces="flashattention_tpu/ops/pallas_attn.py:391"),
-    # one call of two kernels: dK/dV, then dQ (the TPU backward's four
-    # launches, :1362 :1390 :1423 :1475)
+    # one call: the dK/dV cluster kernel (with its walk split, the sum of
+    # the partials), then the dQ cluster kernel, on wgmma (the TPU
+    # backward's four launches, :1362 :1390 :1423 :1475)
     "flash_bwd_wide": dict(
         route="cuda", source="flashattention_tpu_torch/csrc/flash_wide.cu",
         replaces="flashattention_tpu/ops/pallas_attn.py:885",
@@ -983,7 +990,7 @@ FMA_COMPARE = ("a", "a0", "b", "e", "h", "i", "k", "l", "m", "n", "o")
 # Cases also timed kernel by kernel (torch.profiler, by
 # scripts/flash_kernel_split.py's kernel_ms: only causal or not, no other
 # option), which also shows the kernels of the case's route ran
-FLASH_SPLIT = ("k", "m", "o")
+FLASH_SPLIT = ("k", "m", "o", "p", "u")
 TRAIN_SHAPE = (8, 12, 12, 512, 512, 64)  # B, H, H_kv, N_q, N_k, D
 # key: (label, shape, dtype, kernel_attention kwargs, extras)
 FLASH_CASES = {
@@ -1034,7 +1041,7 @@ FLASH_CASES = {
     "o": ("phase 7c's call: MQA 8/1 B=1 N=4096 D=256 fp32 causal",
           (1, 8, 1, 4096, 4096, 256), FP32, dict(causal=True), ()),
 }
-# Above head dim 256, flash_wide.cu's chunked kernels: (p) phase 5d's call
+# Above head dim 256, flash_wide.cu's kernels: (p) phase 5d's call
 # (Gemma 2B's widths with its query heads halved: 4 over 1 KV head, D =
 # 512), D = 264 (a last chunk of 8 columns) and 384 causal, D = 1024 (8
 # forward chunks), and GQA 4/2 with window, sinks, soft-cap and dropout at
@@ -1211,8 +1218,10 @@ def flash_case(timer, gen, dev, key):
     if (c["flash_fwd"], c["flash_bwd"]) != (1, 1):
         fail(f"flash {key}: launches {c}; want one each way")
     if q.shape[-1] > fa.SM90_MAX_HEAD_DIM:
-        route = ("tensor cores (mma.sync, chunked)" if dtype == torch.bfloat16
-                 else "tensor cores (3xTF32 mma.sync, chunked)")
+        route = ("tensor cores (chunked mma.sync forward, wgmma + TMA "
+                 "cluster backward)" if dtype == torch.bfloat16
+                 else "tensor cores (chunked 3xTF32 mma.sync forward, 3xTF32 "
+                 "wgmma + TMA cluster backward)")
     else:
         route = ("tensor cores (wgmma + TMA)" if dtype == torch.bfloat16
                  else "tensor cores (3xTF32 wgmma + TMA)")
@@ -1817,8 +1826,16 @@ FP8_CASES = {
           "(1, 8, 1024, 512) int8", (1, 8, 2, 1024, 512),
           dict(causal=True, fmt="int8", window=256, sinks=4, softcap=30.0,
                dropout_rate=0.1, dropout_seed=91), ()),
+    # key blocks of 48 (fp8_attention_prequant's scales may have any): a
+    # 32-key tile spans two blocks, int8 and e4m3
+    "w": ("key blocks of 48, (1, 4, 1536, 512) int8 causal",
+          (1, 4, 4, 1536, 512), dict(causal=True, fmt="int8", block_k=48),
+          ()),
+    "x": ("key blocks of 48, (1, 4, 1536, 512) e4m3 causal, mode fused",
+          (1, 4, 4, 1536, 512), dict(causal=True, mode="fused", block_k=48),
+          ()),
 }
-FP8_WIDE = tuple("pqrstuv")
+FP8_WIDE = tuple("pqrstuvwx")
 FP8_STE_SHAPE = (8, 12, 12, 512, 64)
 
 
@@ -1851,6 +1868,7 @@ def fp8_case(timer, gen, dev, key):
     kw = dict(kw)
     fmt, int8_pv = kw.pop("fmt", "fp8"), kw.pop("int8_pv", "bf16")
     mode = kw.pop("mode", "auto")
+    block_k = kw.pop("block_k", None)  # the kernel call's own key blocks
     # the public call: it must launch the 8-bit kernel once
     reset_counts()
     o_api, _ = f8.fp8_attention(q, k, v, fmt=fmt, int8_pv=int8_pv, mode=mode,
@@ -1867,8 +1885,13 @@ def fp8_case(timer, gen, dev, key):
              f"want 1, {want_tc}, {want_wide}")
     del o_api
     opts = fa.make_opts(q, k, **kw, **more)
-    q8, k8, v8, sq, sk, sv, bq, bk = f8.quantize_inputs(
-        q, k, v, f8.FP8_KERNEL_BLOCK_Q, f8.FP8_KERNEL_BLOCK_K, fmt)
+    if block_k is None:
+        q8, k8, v8, sq, sk, sv, bq, bk = f8.quantize_inputs(
+            q, k, v, f8.FP8_KERNEL_BLOCK_Q, f8.FP8_KERNEL_BLOCK_K, fmt)
+    else:  # payloads quantized beforehand, as fp8_attention_prequant's
+        bq, bk = f8.FP8_KERNEL_BLOCK_Q, block_k
+        (q8, sq), (k8, sk), (v8, sv) = (quantize_blocks(x, blk, fmt) for x, blk
+                                        in ((q, bq), (k, bk), (v, bk)))
     args = (q8, k8, v8, sq, sk, sv, bq, bk, opts)
     o, lse = f8.fp8_fwd(*args, int8_pv=int8_pv, out_dtype=BF16)
     torch.cuda.synchronize()
@@ -2174,7 +2197,24 @@ def paged_wide_table(gen):
             f"d{d}_decode B=8 H={h}/{h_kv} D={d} page=16 lengths 256-4096", bf,
             dict(b=8, q_len=0, lengths=gemma_decode_lengths(gen, 8), h=h,
                  h_kv=h_kv, d=d, page=16, max_len=4096, gqa=True))
+    # above 1024 the scores are summed over passes of 1024 columns: bf16
+    # pages of 16 at D = 1032 and int8 ("qk") pages of 16 at D = 2048 take
+    # the first kernel (PAGED_FIRST_WIDE), bf16 and e4m3 pages of 8 the
+    # tensor-core walk
+    for key, d, page, quant in (("d1032_decode", 1032, 16, None),
+                                ("d2048_decode_int8", 2048, 16, "int8"),
+                                ("d2048_decode_p8", 2048, 8, None),
+                                ("d1032_decode_fp8_p8", 1032, 8, "fp8")):
+        cases[key] = (
+            f"{key} B=8 H=2/1 D={d} page={page} lengths 256-4096", bf,
+            dict(b=8, q_len=0, lengths=gemma_decode_lengths(gen, 8), h=2,
+                 h_kv=1, d=d, page=page, max_len=4096, gqa=True, quant=quant))
     return cases
+
+
+# paged_wide_table's cases that take the first kernel's chunked
+# instantiation: fp32 q, and rings past the split route's budget
+PAGED_FIRST_WIDE = ("d512_decode_fp32", "d1032_decode", "d2048_decode_int8")
 
 
 def paged_wide_cases(timer, gen, dev):
@@ -2199,15 +2239,16 @@ def paged_wide_cases(timer, gen, dev):
             timer, gen, dev, "bf16", "decode", h=1, d=d, max_len=4096)
     torch.cuda.empty_cache()
     for key, rec in recs.items():
-        if not key.startswith("d") or "fp32" in key:
+        if not key.startswith("d") or key in PAGED_FIRST_WIDE:
             continue
         if rec["route"] != "split" or rec["walk"] != "tc":
             fail(f"paged_attention {key}: took the {rec['route']} route "
                  f"({rec['walk']} walk), want the split route's tensor-core "
                  f"walk")
-    if recs["d512_decode_fp32"]["route"] != "first":
-        fail("paged_attention d512_decode_fp32: took the split route, want "
-             "the first kernel")
+    for key in PAGED_FIRST_WIDE:
+        if recs[key]["route"] != "first":
+            fail(f"paged_attention {key}: took the split route, want the "
+                 f"first kernel")
     return recs
 
 
@@ -4206,9 +4247,10 @@ SM90_KERNELS = {"flash_fwd": 6, "flash_bwd": 12, "sparse_fwd": 10,
 # tensor-core walk at 1, 2 and 4 row tiles a CTA; int8 "full" on the
 # tensor-core walk only.
 # Above D = 256 the tensor-core walk's six (format, schedule) pairs at 1 and
-# 2 row tiles again, their q fragments of up to 16 k-steps a warp.
-SPLIT_KERNELS = 40
-SPLIT_TC_KERNELS = 30
+# 2 row tiles again, their q fragments of up to 16 k-steps a warp, and
+# above D = 1024 at 1 row tile, those k-steps in passes.
+SPLIT_KERNELS = 46
+SPLIT_TC_KERNELS = 36
 
 
 def dump_sass(names) -> dict[str, str]:
@@ -4337,28 +4379,38 @@ def append_report(sass):
     return out
 
 
-# The flash kernels above D = 256 (flash_wide.cu): forward, dK/dV and dQ
-# in bf16 and in fp32 (3xTF32), all on mma.sync.
-WIDE_KERNELS = 6
+# The flash kernels above D = 256 (flash_wide.cu): the chunked forward in
+# bf16 and fp32 and the chunked fp32 dK/dV and dQ (above 8 chunks of 256)
+# on mma.sync (4); the backward's cluster kernels, dK/dV and dQ in bf16 and
+# fp32 (3xTF32) on wgmma with TMA loads (4); the sums of split dK/dV
+# partials in bf16 and fp32 and the split of fp32 operands (3, no product).
+WIDE_KERNELS = 11
 
 
 def wide_report(sass):
-    """Phase 1's check of the chunked flash kernels above D = 256: per
-    ``*_wide_kernel`` of flash_wide its mma.sync products (HMMA) and its
-    registers and spill bytes (this build's ptxas report). Fails if one
-    has no HMMA, spills, or is missing."""
+    """Phase 1's check of the flash kernels above D = 256: per kernel of
+    flash_wide its products in its SASS, mma.sync (HMMA) for the chunked
+    ``*_wide_kernel`` ones, wgmma (HGMMA) and TMA loads (UTMALDG) for the
+    cluster ``*_sm90_kernel`` ones, and its registers and spill bytes
+    (this build's ptxas report). Fails if one lacks its products, spills,
+    or is missing."""
     ptxas = ptxas_entries(_build.BUILD_LOG.get("flash_wide", ""))
     out = {}
     for part in sass.split("Function : ")[1:]:
         fn = part.split()[0]
-        if "_wide_kernel" not in fn:
+        if "_kernel" not in fn:
             continue
         regs, spill = ptxas.get(fn, (None, None))
-        out[fn] = dict(hmma=part.count("HMMA"), registers=regs,
+        out[fn] = dict(hmma=part.count("HMMA"), hgmma=part.count("HGMMA"),
+                       utmaldg=part.count("UTMALDG"), registers=regs,
                        spill_bytes=spill)
-        log(f"[sass] flash_wide: {fn}: {out[fn]['hmma']} HMMA (mma.sync); "
-            f"ptxas: {regs} registers, {spill} spill bytes")
-        if not out[fn]["hmma"]:
+        log(f"[sass] flash_wide: {fn}: {out[fn]['hmma']} HMMA (mma.sync), "
+            f"{out[fn]['hgmma']} HGMMA (wgmma), {out[fn]['utmaldg']} UTMALDG "
+            f"(TMA); ptxas: {regs} registers, {spill} spill bytes")
+        if "_sm90_kernel" in fn:
+            if not out[fn]["hgmma"] or not out[fn]["utmaldg"]:
+                fail(f"{fn}: the cluster kernel lacks HGMMA or UTMALDG")
+        elif "_wide_kernel" in fn and not out[fn]["hmma"]:
             fail(f"{fn}: the chunked kernel has no HMMA")
         if spill is None:
             fail(f"{fn}: no ptxas report from this run's build")
@@ -4373,9 +4425,10 @@ def wide_report(sass):
 # mma.sync: sparse_wide's forward and dQ in bf16 and fp32 with 16- and
 # 32-key sub-tiles and its dK/dV in each dtype (10), and the sum of the
 # dK/dV chunks in each dtype (2, no product); fp8_wide's forward in e4m3,
-# e5m2, int8 and int8 with p re-quantized ("s8") (4), whose int8 ones must
-# also show IMMA (the s8 mma.sync).
-WIDE_LIB_KERNELS = {"sparse_wide": 12, "fp8_wide": 4}
+# e5m2, int8 and int8 with p re-quantized ("s8"), and the first three again
+# for key blocks off the 32-key tile (7), whose int8 ones must also show
+# IMMA (the s8 mma.sync).
+WIDE_LIB_KERNELS = {"sparse_wide": 12, "fp8_wide": 7}
 
 
 def wide_lib_report(dumps):
@@ -4402,7 +4455,7 @@ def wide_lib_report(dumps):
                 f"bytes")
             if not rec["hmma"] and "sum_mma_kernel" not in fn:
                 fail(f"{fn}: the wide kernel has no HMMA")
-            if (name == "fp8_wide" and re.search(r"ILi2ELb[01]EE", fn)
+            if (name == "fp8_wide" and re.search(r"ILi2ELb[01]ELb[01]EE", fn)
                     and not rec["imma"]):
                 fail(f"{fn}: the int8 kernel has no IMMA")
             if spill is None:
@@ -5550,7 +5603,8 @@ def main() -> int:
                 bound_by=r[f"{part}_bound_by"],
                 library_ms=r[f"library_{part}_ms"],
                 library_backend=r["library_backend"], case=r["case"],
-                wall_ms=r[f"{part}_wall_ms"], **beside))
+                wall_ms=r[f"{part}_wall_ms"],
+                kernel_split_ms=r.get("kernel_ms"), **beside))
     # Above head dim 256 on the sparse wide kernels: launches of phase 7x's
     # forward+backward steps (bf16) and of its fp32 card check; numbers of
     # sparse case (v), phase 7x's call, or (vf) in fp32 (that call at N =

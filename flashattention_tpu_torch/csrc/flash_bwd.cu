@@ -62,9 +62,9 @@
 //     pair keeps its resident operands as landed and splits them in
 //     registers, and computes dVᵀ, dKᵀ and dQᵀ instead of dV, dK and dQ.
 //   fat_flash_bwd (fp32 FMAs on the CUDA cores): the first version, below.
-//     The wrapper no longer takes it (above D = 256 make_opts refuses the
-//     call); it stays as the comparison that chip_smoke.py times on the
-//     tensor-core cases' inputs.
+//     The wrapper no longer takes it (every call goes to a tensor-core
+//     entry; above D = 256 to flash_wide.cu's); it stays as the comparison
+//     that chip_smoke.py times on the tensor-core cases' inputs.
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"

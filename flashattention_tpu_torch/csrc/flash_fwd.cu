@@ -47,9 +47,10 @@
 //     k8 step of it is split in registers as S's A operand; one stage of
 //     32 keys, K and V on barriers of their own (224 KB).
 //   fat_flash_fwd (fp32 FMAs on the CUDA cores, body flash_fwd.cuh, shared
-//     with B4): the first version. The wrapper no longer takes it (above
-//     D = 256 make_opts refuses the call); it stays as the comparison that
-//     chip_smoke.py times on the tensor-core cases' inputs.
+//     with B4): the first version. The wrapper no longer takes it (every
+//     call goes to a tensor-core entry; above D = 256 to flash_wide.cu's);
+//     it stays as the comparison that chip_smoke.py times on the
+//     tensor-core cases' inputs.
 
 #include "flash_fwd.cuh"
 #include "flash_sm90.cuh"

@@ -15,7 +15,11 @@
 // mask after the LSE, and each key tile's P.V folded in times sv[col / bk];
 // with int8_pv "s8" p re-quantized per row and key block, ps = max(max p,
 // 1e-30) / 127 from pass 0's kept maxima, p8 = rint(p / ps) (div_rn), and
-// the tile's p8 . v8 folded in times ps * sv.
+// the tile's p8 . v8 folded in times ps * sv. Key blocks off the 32-key
+// tile (bk not a multiple of 32, never with s8; the SPAN instantiation): a
+// key's sk is its own block's, and a tile's P.V runs once for each block it
+// spans, p zero past the block, each folded in times that block's sv, so
+// the per-block sums of the plain version hold.
 //
 // What bounds it on this card: the tensor-core rate (4 D operations per
 // visible (head, row, key): Q.K on 8-bit operands, P.V on bf16 p), as
@@ -184,21 +188,22 @@ __device__ __forceinline__ void decode_chunk(const char* raw, char* dst) {
   }
 }
 
-// O (16 x 128) += fold[row] * (round(P) . V): P the tile's p (16 x 32) as
-// the bf16 A operand, V the decoded chunk at vb; kGroup output tiles at a
-// time into a fresh accumulator.
-__device__ __forceinline__ void pv_fold(float (&acc)[kChunk / 8][4],
-                                        const float (&p)[kKeys / 8][4],
+// O (16 x 128) += fold[row] * (round(P) . V): P the tile's p (16 x 32),
+// element (n, c) of the fragment given by p(n, c), as the bf16 A operand; V
+// the decoded chunk at vb; kGroup output tiles at a time into a fresh
+// accumulator.
+template <typename P>
+__device__ __forceinline__ void pv_fold(float (&acc)[kChunk / 8][4], P&& p,
                                         const char* vb, const float (&fold)[2],
                                         int lane) {
   constexpr int NT = kKeys / 8, NO = kChunk / 8;
   uint32_t pa[NT / 2][4];
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
-    pa[kk][0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    pa[kk][1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    pa[kk][2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    pa[kk][3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+    pa[kk][0] = pack_bf16(p(2 * kk, 0), p(2 * kk, 1));
+    pa[kk][1] = pack_bf16(p(2 * kk, 2), p(2 * kk, 3));
+    pa[kk][2] = pack_bf16(p(2 * kk + 1, 0), p(2 * kk + 1, 1));
+    pa[kk][3] = pack_bf16(p(2 * kk + 1, 2), p(2 * kk + 1, 3));
   }
   const int at = a_row(lane) * RVB + 2 * a_col(lane);
 #pragma unroll
@@ -226,11 +231,14 @@ __device__ __forceinline__ void pv_fold(float (&acc)[kChunk / 8][4],
 }
 
 // S8: int8_pv "s8" (FMT == 2 only), p re-quantized per row and key block.
-template <int FMT, bool S8>
+// SPAN: key blocks off the 32-key tile (never with S8), a key's sk and sv
+// its own block's.
+template <int FMT, bool S8, bool SPAN>
 __global__ void __launch_bounds__(kThreadsW, 1)
 flash_fwd_fp8_wide_kernel(const AttnArgs a, const Scales f,
                           void* __restrict__ o, int out_f32,
                           float* __restrict__ lse) {
+  static_assert(!(S8 && SPAN), "s8 takes key blocks of whole tiles");
   constexpr int NT = kKeys / 8, NO = kChunk / 8;
   extern __shared__ __align__(128) char smem[];
   char* vb = smem + kStages * STAGE;  // V's chunk decoded to bf16
@@ -329,8 +337,12 @@ flash_fwd_fp8_wide_kernel(const AttnArgs a, const Scales f,
                               ? (float)reinterpret_cast<const int&>(sc[n][c])
                               : sc[n][c];
           const bool vis = row < a.Nq && visible(a, b, row, col);
+          float fr = fac[r];
+          if constexpr (SPAN) {
+            fr = (sqr[r] * f.sk[kvb + min(col, a.Nk - 1) / f.bk]) * a.scale;
+          }
           float dcap;
-          const float x = post_score(a, h, row, col, s * fac[r], &dcap);
+          const float x = post_score(a, h, row, col, s * fr, &dcap);
           if (!pass1) {
             m[r] = fmaxf(m[r], vis ? x : kMaskValue);
             if (S8 && vis && (!a.dropout || keep(a, bh, row, col))) {
@@ -400,8 +412,23 @@ flash_fwd_fp8_wide_kernel(const AttnArgs a, const Scales f,
         sc[n][c] = p;
       }
     }
-    const float fold[2] = {S8 ? ps[0] * svt : svt, S8 ? ps[1] * svt : svt};
-    pv_fold(acc, sc, vb, fold, lane);
+    if constexpr (SPAN) {  // P.V once a key block of the tile
+      const int last = (min(c0 + kKeys, a.Nk) - 1) / f.bk;
+      for (int bl = c0 / f.bk; bl <= last; ++bl) {
+        const float svb = f.sv[kvb + bl];
+        const float fold[2] = {svb, svb};
+        pv_fold(
+            acc,
+            [&](int n, int c) {
+              const int col = c0 + 8 * n + 2 * tq + (c & 1);
+              return col / f.bk == bl ? sc[n][c] : 0.f;
+            },
+            vb, fold, lane);
+      }
+    } else {
+      const float fold[2] = {S8 ? ps[0] * svt : svt, S8 ? ps[1] * svt : svt};
+      pv_fold(acc, [&](int n, int c) { return sc[n][c]; }, vb, fold, lane);
+    }
   }
 
   // Epilogue: each row's l is spread over the 4 lanes of a quad.
@@ -431,10 +458,10 @@ flash_fwd_fp8_wide_kernel(const AttnArgs a, const Scales f,
   }
 }
 
-template <int FMT, bool S8>
+template <int FMT, bool S8, bool SPAN>
 cudaError_t launch(const AttnArgs& a, const Scales& f, void* o, int out_f32,
                    float* lse, cudaStream_t st) {
-  auto kernel = flash_fwd_fp8_wide_kernel<FMT, S8>;
+  auto kernel = flash_fwd_fp8_wide_kernel<FMT, S8, SPAN>;
   cudaError_t err = set_smem(kernel, SMEM);
   if (err != cudaSuccess) return err;
   const int nch = (a.D + kChunk - 1) / kChunk;
@@ -449,8 +476,9 @@ cudaError_t launch(const AttnArgs& a, const Scales& f, void* o, int out_f32,
 extern "C" {
 
 // The 8-bit forward above D = 256: D % 16 == 0 (the caller pads other head
-// dims with zero bytes), bk a multiple of 32 (a key tile never spans two
-// key blocks); q8, k8 and v8 16-byte aligned (cp.async). The arguments of
+// dims with zero bytes), any bk >= 1 (with pv_s8 a multiple of 32, so that
+// a key tile never spans two key blocks); q8, k8 and v8 16-byte aligned
+// (cp.async). The arguments of
 // fat_flash_fwd_fp8_sm90 in flash_fwd_fp8.cu; bmax, with pv_s8 (int8
 // only), is fp32 scratch of ceil(D / 128) * B * H * Nq * ceil(Nk / bk)
 // floats (each O chunk's CTAs their own slot), else unused. Returns
@@ -467,7 +495,8 @@ int fat_flash_fwd_fp8_wide(const void* q8, const void* k8, const void* v8,
                            int out_dtype, void* bmax, void* stream) {
   using namespace fat;
   if (D <= 256 || D % 16 != 0 || H_kv < 1 || H % H_kv != 0 || B < 1 ||
-      Nq < 1 || Nk < 1 || B > 65535 || bq < 1 || bk < 32 || bk % 32 != 0 ||
+      Nq < 1 || Nk < 1 || B > 65535 || bq < 1 || bk < 1 ||
+      (pv_s8 && bk % 32 != 0) ||
       fmt < 0 || fmt > 2 || (pv_s8 && (fmt != 2 || bmax == nullptr)) ||
       out_dtype < 0 || out_dtype > 1 ||
       (long long)H * ((D + 127) / 128) > 65535 ||
@@ -486,14 +515,18 @@ int fat_flash_fwd_fp8_wide(const void* q8, const void* k8, const void* v8,
   auto st = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<float*>(lse);
   cudaError_t err;
+  const bool span = bk % 32 != 0;
   if (pv_s8) {
-    err = fp8w::launch<2, true>(a, f, o, out_dtype, l, st);
+    err = fp8w::launch<2, true, false>(a, f, o, out_dtype, l, st);
   } else if (fmt == 0) {
-    err = fp8w::launch<0, false>(a, f, o, out_dtype, l, st);
+    err = span ? fp8w::launch<0, false, true>(a, f, o, out_dtype, l, st)
+               : fp8w::launch<0, false, false>(a, f, o, out_dtype, l, st);
   } else if (fmt == 1) {
-    err = fp8w::launch<1, false>(a, f, o, out_dtype, l, st);
+    err = span ? fp8w::launch<1, false, true>(a, f, o, out_dtype, l, st)
+               : fp8w::launch<1, false, false>(a, f, o, out_dtype, l, st);
   } else {
-    err = fp8w::launch<2, false>(a, f, o, out_dtype, l, st);
+    err = span ? fp8w::launch<2, false, true>(a, f, o, out_dtype, l, st)
+               : fp8w::launch<2, false, false>(a, f, o, out_dtype, l, st);
   }
   return (int)err;
 }

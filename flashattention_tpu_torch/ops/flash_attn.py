@@ -17,9 +17,14 @@ between its two consumer warpgroups) and fp32 ``fat_flash_fwd_sm90_f32`` /
 split into two TF32 parts, three products summed in fp32,
 ``csrc/tf32_sm90.cuh``; above D = 128 the operands too large to keep in two
 parts are split in registers). Above D = 256 both dtypes run
-``fat_flash_fwd_wide`` / ``fat_flash_bwd_wide`` (``csrc/flash_wide.cu``:
-mma.sync, bf16 or 3xTF32; every output cut into column chunks, one CTA a
-chunk, each recomputing the scores over all of D), for any head dim. The
+``fat_flash_fwd_wide`` / ``fat_flash_bwd_wide`` (``csrc/flash_wide.cu``),
+for any head dim: the forward on mma.sync, every output cut into column
+chunks, one CTA a chunk, each recomputing the scores over all of D; the
+backward on wgmma (fp32 on 3xTF32) in thread block clusters along D, whose
+CTAs multiply their own columns and sum the partial scores through
+distributed shared memory, so the scores are computed once per tile
+(:func:`_wide_bwd_plan`; fp32 above 8 chunks of 256 columns takes chunked
+mma.sync kernels). The
 sources' third entry points, the first kernels (fp32 FMAs on the CUDA
 cores), are no route of this module: they stay as the comparison
 ``chip_smoke.py`` times.
@@ -250,15 +255,30 @@ def _entry(prefix: str, dtype, d: int):
     return getattr(_build.load_kernel(lib, _DECLARE[lib]), name)
 
 
-def route_kernels(dtype, d: int) -> frozenset[str]:
+def route_kernels(dtype, d: int, kv_splits: int = 1) -> frozenset[str]:
     """The ``__global__`` kernels a forward and a backward call launch for
     ``dtype`` and head dim ``d`` (their names in a profiler trace). fp32
     at 128 < D <= 256 adds the split of the backward's B operands, and under
     GQA/MQA may add ``kv_sum_kernel`` (:func:`_kv_splits`). Above D = 256
-    both dtypes run the chunked kernels of ``csrc/flash_wide.cu``."""
+    the forward is flash_wide.cu's chunked kernel and the backward its
+    cluster kernels (fp32 with the split of its B operands), with
+    ``kv_sum_kernel`` where ``kv_splits`` > 1 (:func:`_wide_bwd_plan`);
+    fp32 above 8 chunks of 256 columns takes its chunked mma.sync kernels
+    (:func:`_wide_cluster`)."""
     if d > SM90_MAX_HEAD_DIM:
-        tag = "wide"
-    elif dtype == torch.bfloat16:
+        if not _wide_cluster(dtype, d):
+            return frozenset({"flash_fwd_wide_kernel",
+                              "flash_bwd_dkv_wide_kernel",
+                              "flash_bwd_dq_wide_kernel"})
+        tag = "wide_sm90" if dtype == torch.bfloat16 else "wide_f32_sm90"
+        names = {"flash_fwd_wide_kernel", f"flash_bwd_dkv_{tag}_kernel",
+                 f"flash_bwd_dq_{tag}_kernel"}
+        if dtype == torch.float32:
+            names.add("tf32_split_kernel")
+        if kv_splits > 1:
+            names.add("kv_sum_kernel")
+        return frozenset(names)
+    if dtype == torch.bfloat16:
         tag = "sm90"
     else:
         tag = "f32_wide_sm90" if d > 128 else "f32_sm90"
@@ -346,7 +366,11 @@ def _bwd_cuda(q, k, v, do, lse, di, opts: AttnOpts):
         return dq.zero_(), dk.zero_(), dv.zero_()
     fn = _entry("fat_flash_bwd", q.dtype, q.shape[3])
     more = []
-    if q.dtype == torch.float32 and q.shape[3] <= SM90_MAX_HEAD_DIM:
+    if q.shape[3] > SM90_MAX_HEAD_DIM:
+        scratch, plan = _wide_bwd_scratch(q, k)
+        more = [_ptr(scratch), plan["cluster"], plan["groups"],
+                plan["kv_splits"]]
+    elif q.dtype == torch.float32:
         scratch, splits = _wide_scratch(q, k)
         more = [_ptr(scratch), splits]
     err = fn(
@@ -372,6 +396,65 @@ def _kv_splits(kv_heads: int, n_k: int, group: int, sms: int) -> int:
     while group % (2 * splits) == 0 and ctas * splits < 2 * sms:
         splits *= 2
     return splits
+
+
+# Above D = 256 the backward's CTAs each hold WIDE_BWD_COLS columns of D;
+# the CTAs of one tile form a cluster of at most WIDE_MAX_CLUSTER (the
+# portable cluster size), and above that many chunks bf16 clusters repeat
+# along D (csrc/flash_wide.cu).
+WIDE_BWD_COLS = 256
+WIDE_MAX_CLUSTER = 8
+
+
+def _wide_cluster(dtype, d: int) -> bool:
+    """True where the backward above D = 256 runs the cluster kernels:
+    bf16 at every head dim, fp32 up to WIDE_MAX_CLUSTER chunks (D <= 2048;
+    above, the fp32 chunked mma.sync kernels, whose clusters cannot
+    repeat)."""
+    return dtype == torch.bfloat16 or \
+        -(-d // WIDE_BWD_COLS) <= WIDE_MAX_CLUSTER
+
+
+def _wide_bwd_plan(dtype, d: int, b: int, h: int, h_kv: int, n_k: int,
+                   sms: int) -> dict:
+    """The backward's launch plan above D = 256, from shapes only: D in
+    ``chunks`` of ``cols`` (:data:`WIDE_BWD_COLS`) columns, one CTA a
+    chunk; the chunks of one tile in ``groups`` thread block clusters of
+    ``cluster`` CTAs (as few clusters as :data:`WIDE_MAX_CLUSTER` allows,
+    then as few CTAs each: ``cluster * groups`` >= ``chunks``, every
+    cluster computing the scores over all of D); the dK/dV kernel's
+    query-head walk of a KV head cut over ``kv_splits`` clusters
+    (:func:`_kv_splits` over its ``B * H_kv * cluster * groups`` CTAs of 64
+    keys). Where :func:`_wide_cluster` says no: cluster 0 (the chunked
+    kernels), no splits."""
+    chunks = -(-d // WIDE_BWD_COLS)
+    if not _wide_cluster(dtype, d):
+        return dict(cols=WIDE_BWD_COLS, chunks=chunks, cluster=0, groups=0,
+                    kv_splits=1)
+    groups = -(-chunks // WIDE_MAX_CLUSTER)
+    cluster = -(-chunks // groups)
+    splits = _kv_splits(b * h_kv * cluster * groups, n_k, h // h_kv, sms)
+    return dict(cols=WIDE_BWD_COLS, chunks=chunks, cluster=cluster,
+                groups=groups, kv_splits=splits)
+
+
+def _wide_bwd_scratch(q, k) -> tuple[torch.Tensor | None, dict]:
+    """(scratch, plan) of a backward call above D = 256: the plan
+    (:func:`_wide_bwd_plan`) and fp32 scratch: in fp32 the two TF32 parts
+    of q times the scale, do, k and v (4 (|q| + |k|) floats), made once by
+    the call (``csrc/tf32_wide_bwd.cuh``); then, where the plan splits the
+    dK/dV walk, the splits' partial dK and dV (2 kv_splits |k| floats)."""
+    plan = _wide_bwd_plan(
+        q.dtype, q.shape[3], q.shape[0], q.shape[1], k.shape[1], k.shape[2],
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    n = 0
+    if q.dtype == torch.float32 and plan["cluster"]:
+        n = 4 * (q.numel() + k.numel())
+    if plan["kv_splits"] > 1:
+        n += 2 * plan["kv_splits"] * k.numel()
+    scratch = (torch.empty(n, dtype=torch.float32, device=q.device)
+               if n else None)
+    return scratch, plan
 
 
 def _wide_scratch(q, k) -> tuple[torch.Tensor | None, int]:
@@ -418,10 +501,12 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
 
 
 def _declare_wide(lib: ctypes.CDLL) -> None:
-    p = ctypes.c_void_p
+    p, i = ctypes.c_void_p, ctypes.c_int
     for fn, n in ((lib.fat_flash_fwd_wide, 8), (lib.fat_flash_bwd_wide, 12)):
         fn.restype = ctypes.c_int
         fn.argtypes = [p] * n + _scalar_argtypes()
+    # the backward's plan last: scratch, cluster, groups, kv_splits
+    lib.fat_flash_bwd_wide.argtypes += [p, i, i, i]
 
 
 # kernel library -> the function that declares its entry points

@@ -187,9 +187,10 @@ def _tensor_core_route(d: int, bk: int) -> bool:
 
 def _wide_route(d: int) -> bool:
     """True where the wide kernels take the call: every head dim above
-    256, every format and both ``int8_pv`` settings (their key blocks must
-    be multiples of 32, the wide kernels' key tile, which
-    ``fp8_attention``'s multiples of 128 are)."""
+    256, every format, both ``int8_pv`` settings and any key block (a
+    32-key tile that spans two blocks runs its P.V once a block), but for
+    ``int8_pv="s8"``, whose key blocks must be multiples of the 32-key
+    tile (:func:`_fwd_cuda` raises)."""
     return d > SM90_MAX_HEAD_DIM
 
 
@@ -223,10 +224,10 @@ def _fwd_cuda(q8, k8, v8, sq, sk, sv, bq, bk, opts, int8_pv, out_dtype):
         raise TypeError(f"the fp8 kernel writes bf16/fp32, not {out_dtype}")
     b, h, n_q, d = q8.shape
     wide = _wide_route(d)
-    if wide and bk % 32:
+    if wide and int8_pv == "s8" and bk % 32:
         raise ValueError(f"key blocks of {bk}: above head dim "
-                         f"{SM90_MAX_HEAD_DIM} the 8-bit kernels take key "
-                         f"blocks that are multiples of 32")
+                         f"{SM90_MAX_HEAD_DIM} int8_pv='s8' takes key blocks "
+                         f"that are multiples of 32")
     h_kv, n_k = k8.shape[1], k8.shape[2]
     want = {"sq": (b, h, -(-n_q // bq)), "sk": (b, h_kv, -(-n_k // bk)),
             "sv": (b, h_kv, -(-n_k // bk))}

@@ -12,16 +12,17 @@ page walk (``fat_paged_attention_split``: the walk cut across CTAs, pages
 brought in by 1-D bulk copies, a second kernel merging the splits) for
 bf16 q over bf16 or 1-byte pages in every schedule, and the first kernel
 (``fat_paged_attention``, ``fat_paged_attention_quant``) for fp32 pages
-or q and shapes the bulk copies cannot take. Both take head dims up to
-:data:`KERNEL_MAX_HEAD_DIM` (1024); the split route needs D % 8 == 0, and
+or q and shapes the bulk copies cannot take. Both take any head dim; the
+split route needs D % 8 == 0 and a ring that fits, and
 above D = 128 the first kernel cuts its walk into splits too
 (:func:`first_plan`), merged by the split route's merge kernel. Above D =
 256 both kernels cut each output row into chunks of 256 columns, one CTA a
-chunk, each computing the scores over all of D. The split
+chunk, each computing the scores over all of D, and above
+:data:`PASS_HEAD_DIM` (1024) they sum each tile's scores over passes of
+1024 columns. The split
 kernel walks a page on the tensor cores above D = 128, wherever a KV head
 has 3 query rows or more and in the "full" schedule, else in lane groups
-on the CUDA cores (:func:`split_walk`). A larger head dim raises on the card
-(the CPU plain version takes any).
+on the CUDA cores (:func:`split_walk`).
 ``paged_attention.launches`` counts every call,
 ``paged_attention.split_launches`` the split route's,
 ``paged_attention.tc_launches`` those of the split route on the tensor
@@ -82,9 +83,10 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 # payload format codes of the kernel: 0 = the compute type itself
 _FMT_CODE = {torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
 _MODE_CODE = {"convert": 0, "qk": 1, "full": 2}
-# The largest head dim of the kernels (kMaxD in csrc/paged_attention.cu):
-# above 256 they cut the output into chunks of CHUNK_HEAD_DIM columns.
-KERNEL_MAX_HEAD_DIM = 1024
+# Above 256 the kernels cut the output into chunks of CHUNK_HEAD_DIM
+# columns; above PASS_HEAD_DIM (kPassD in csrc/paged_attention.cu) they sum
+# the scores over passes of that many columns.
+PASS_HEAD_DIM = 1024
 CHUNK_HEAD_DIM = 256
 
 
@@ -150,24 +152,45 @@ _WALK_CODE = {"lanes": 0, "tc": 1}
 def split_route(q_dtype, page_dtype, mode, page_size, d, aligned=True):
     """True where the split kernel takes the call: bf16 q over bf16 pages,
     or over 1-byte pages in any schedule ("full" on the tensor-core walk,
-    a split one walk step); D <= :data:`KERNEL_MAX_HEAD_DIM` with
-    D % 8 == 0; a page's K (or V) slab of one KV head, ``page * D * elt``
-    bytes, and for 1-byte pages its scale plane, ``page * 4`` bytes,
-    multiples of 16; three stages of the ring within
-    :data:`SPLIT_RING_BYTES`; every tensor the copies read 16-byte aligned
-    (``aligned``). Everything else takes the first kernel."""
+    a split one walk step); D % 8 == 0; a page's K (or V) slab of one KV
+    head, ``page * D * elt`` bytes, and for 1-byte pages its scale plane,
+    ``page * 4`` bytes, multiples of 16; three stages of the ring within
+    :data:`SPLIT_RING_BYTES`; above D = 128 a tensor-core CTA of two stages,
+    its decoded tiles and score buffers within :data:`TC_SMEM_BYTES`
+    (:func:`tc_min_smem`: 1-byte pages decode two 16-slot tiles of D
+    columns, 263 KB at D = 2048); every tensor the copies read 16-byte
+    aligned (``aligned``). Everything else takes the first kernel."""
     if q_dtype != torch.bfloat16:
         return False
     quant = page_dtype in _FMT_CODE
     if not quant and page_dtype != torch.bfloat16:
         return False
-    if d > KERNEL_MAX_HEAD_DIM or d % 8:
+    if d % 8:
         return False
     slab = page_size * d * (1 if quant else 2)
     if slab % 16 or (quant and page_size % 4):
         return False
+    if d > 128 and tc_min_smem(d, page_size, quant, mode) > TC_SMEM_BYTES:
+        return False
     return aligned and 3 * (2 * slab + (8 * page_size if quant else 0)) \
         <= SPLIT_RING_BYTES
+
+
+def tc_min_smem(d, page_size, quantized, mode="convert"):
+    """Shared bytes of a tensor-core CTA of two stages and two row tiles
+    (a "full" step of :func:`full_step_pages` at most), the most
+    :func:`split_plan` asks for at its fewest stages: its ring, its decoded
+    tiles and score buffers."""
+    nrs = 2
+    full = mode == "full"
+    stage = (page_size * d + 8 * page_size if full
+             else 2 * page_size * d + 8 * page_size if quantized
+             else 2 * page_size * tc_row_bytes(d))
+    step = max(1, 512 // page_size) if full else 0
+    extra = ((2 * (32 * tc_row_bytes(d) + 128) if quantized else 0)
+             + 2 * 4 * nrs * 32 * 16
+             + step * page_size // 16 * nrs * 32 * 16)
+    return 2 * stage + extra
 
 
 def tc_row_bytes(d):
@@ -201,7 +224,8 @@ def split_plan(h, h_kv, q_len, d, page_size, pps, quantized, mode="convert"):
 
     On the tensor-core walk a CTA holds ``nrs`` row tiles of ``rps`` =
     :data:`TC_ROWS` rows (1, 2 or 4 tiles: 8, 16 or more rows a KV head;
-    above D = 256 at most 2, :data:`TC_CTAS_PER_SM_CHUNKED`),
+    above D = 256 at most 2, :data:`TC_CTAS_PER_SM_CHUNKED`, above
+    :data:`PASS_HEAD_DIM` 1),
     its splits take :data:`TC_WIDE_SLOTS` slots above D = 128, and
     ``stages`` (2-4) are as many as fit, beside its decoded tiles and score
     buffers, in its share of an SM's shared memory (:data:`TC_CTAS_PER_SM`):
@@ -218,7 +242,7 @@ def split_plan(h, h_kv, q_len, d, page_size, pps, quantized, mode="convert"):
     if walk == "tc":
         lg, rps = 0, TC_ROWS
         chunked = d > CHUNK_HEAD_DIM
-        nrs = 1 if rows <= TC_ROWS else (
+        nrs = 1 if rows <= TC_ROWS or d > PASS_HEAD_DIM else (
             2 if rows <= 2 * TC_ROWS or chunked else 4)
         stage = (page_size * d + 8 * page_size if full
                  else 2 * page_size * d + 8 * page_size if quantized
@@ -370,12 +394,6 @@ def paged_attention_plain(
 
 def _check_cuda_args(q, k_pages, v_pages, page_indices, lengths, k_scales,
                      v_scales):
-    if q.shape[-1] > KERNEL_MAX_HEAD_DIM:
-        # the kernels stop at 1024 (the tensor-core walk's q fragments, the
-        # first kernel's whole K tile); the CPU plain version takes any
-        raise ValueError(f"head_dim {q.shape[-1]} > {KERNEL_MAX_HEAD_DIM}: "
-                         f"the paged kernels take head dims up to "
-                         f"{KERNEL_MAX_HEAD_DIM}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"paged_attention kernel takes bf16/fp32 q, got {q.dtype}")
     if k_pages.dtype != v_pages.dtype:

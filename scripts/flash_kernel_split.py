@@ -46,7 +46,8 @@ def kernel_ms(q, k, v, do, causal):
     out = {}
     for e in prof.key_averages():
         name = re.search(
-            r"flash_\w+<[^>]*>|tf32_split_kernel|kv_sum_kernel", e.key)
+            r"flash_\w+_kernel(?:<[^>]*>)?|tf32_split_kernel|kv_sum_kernel",
+            e.key)
         if name:
             total = (e.device_time_total if hasattr(e, "device_time_total")
                      else e.cuda_time_total)  # µs over the CALLS calls

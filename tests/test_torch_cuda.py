@@ -333,8 +333,12 @@ def test_paged_first_kernel_above_128_matches_plain(cuda_device, case, quant,
 @pytest.mark.cuda
 def test_paged_attention_above_256_raises(cuda_device):
     """D = 264 takes the tensor-core walk (two output chunks, the second of
-    8 columns) and matches the plain version; only above the kernels'
-    1024 does the call raise, and nothing falls back."""
+    8 columns) and matches the plain version. Above 1024 no head dim
+    raises: both kernels sum the scores over passes of 1024 columns. D =
+    1032 over bf16 pages of 16 slots (past the split ring's budget) and
+    D = 2048 over int8 pages ("qk" decode) take the first kernel's chunked
+    instantiation; D = 2048 over bf16 pages of 8 and D = 1032 over e4m3
+    pages of 8 take the tensor-core walk. Each matches the plain version."""
     shape = dict(CASES["decode_p16"][0], d=264)
     q, kp, vp, pi, ln = (torch.from_numpy(x).to(cuda_device).bfloat16()
                          if i < 3 else torch.from_numpy(x).to(cuda_device)
@@ -347,13 +351,28 @@ def test_paged_attention_above_256_raises(cuda_device):
     ref = pa.paged_attention_plain(q, kp, vp, pi, ln)
     tol = KERNEL_TOL[torch.bfloat16]
     assert_allclose(o, ref, rtol=tol, atol=tol)
-    wide = dict(shape, d=1032)
-    q, kp, vp, pi, ln = (torch.from_numpy(x).to(cuda_device)
-                         for x in paged_inputs(**wide))
-    before = pa.paged_attention.launches
-    with pytest.raises(ValueError, match="head_dim 1032"):
-        pa.paged_attention(q.bfloat16(), kp.bfloat16(), vp.bfloat16(), pi, ln)
-    assert pa.paged_attention.launches == before
+    # (D, page, pages, tensor-core walk?)
+    for d, page, pages, tc in [(1032, 16, "bf16", 0), (2048, 8, "bf16", 1),
+                               (2048, 16, "int8", 0), (1032, 8, "fp8", 1)]:
+        wide = dict(shape, d=d, page=page, pps=64 // page)
+        q, kp, vp, pi, ln = paged_inputs(**wide)
+        q = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+        pi, ln = (torch.from_numpy(x).to(cuda_device) for x in (pi, ln))
+        if pages == "bf16":
+            kp, vp = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+                      for x in (kp, vp))
+            kw = {}
+        else:
+            kp, ks, vp, vs = quantized_pages(kp, vp, pages, cuda_device)
+            kw = dict(k_scales=ks, v_scales=vs)
+        before = pa.paged_attention.launches, pa.paged_attention.tc_launches
+        o = pa.paged_attention(q, kp, vp, pi, ln, **kw)
+        torch.cuda.synchronize()
+        assert (pa.paged_attention.launches - before[0],
+                pa.paged_attention.tc_launches - before[1]) == (1, tc), d
+        ref = pa.paged_attention_plain(q, kp, vp, pi, ln, **kw)
+        assert torch.isfinite(o.float()).all()
+        assert_allclose(o, ref, rtol=tol, atol=tol, err_msg=f"{d} {pages}")
 
 
 @pytest.mark.cuda
@@ -835,9 +854,14 @@ FLASH_CASES = {
     # split over 8 CTAs, their partials summed after
     "fp32_d256_mqa": ((1, 8, 1, 512, 512, 256), torch.float32,
                       dict(causal=True), ()),
-    # above D = 256: the chunked kernels of flash_wide.cu (O and dQ in
-    # chunks of 256 columns, dK/dV of 128), bf16 and fp32; 264 and 384 end
-    # in a part-filled chunk, 1024 runs 4 and 8 chunks
+    # above D = 256, flash_wide.cu: the forward's O in chunks of 128
+    # columns, one CTA a chunk; the bf16 backward's cluster kernels, 256
+    # columns a CTA, the scores summed over the cluster (264 and 384: 2
+    # CTAs, the last part-filled; 640: 3; 1024: 4; 2056: 9 chunks in two
+    # clusters of 5, each computing the scores over all of D), dK/dV's walk
+    # split over clusters under MQA/GQA; the fp32 backward's cluster kernels
+    # likewise up to 8 chunks, and above that (2056) its chunked mma.sync
+    # kernels, 64 columns of dQ and of dK/dV a CTA
     "bf16_d264_causal_dlse": ((1, 2, 2, 200, 200, 264), torch.bfloat16,
                               dict(causal=True), ("dlse",)),
     "bf16_d384_causal": ((1, 4, 4, 256, 256, 384), torch.bfloat16,
@@ -853,6 +877,14 @@ FLASH_CASES = {
                                       ("segments", "alibi")),
     "bf16_d1024_causal": ((1, 2, 1, 128, 128, 1024), torch.bfloat16,
                           dict(causal=True), ()),
+    "bf16_d640_cluster3": ((1, 4, 4, 192, 192, 640), torch.bfloat16,
+                           dict(causal=True), ()),
+    "bf16_d2056_clusters_repeat": ((1, 2, 2, 128, 128, 2056), torch.bfloat16,
+                                   dict(causal=True), ("dlse",)),
+    # 8 query heads over one KV head: dK/dV's walk over 8 clusters, their
+    # fp32 partials summed in split order
+    "bf16_d1024_mqa_split": ((1, 8, 1, 256, 256, 1024), torch.bfloat16,
+                             dict(causal=True), ()),
     "fp32_d264_causal_dlse": ((1, 2, 2, 200, 200, 264), torch.float32,
                               dict(causal=True), ("dlse",)),
     "fp32_d384_causal": ((1, 4, 4, 256, 256, 384), torch.float32,
@@ -868,6 +900,15 @@ FLASH_CASES = {
                                       ("segments", "alibi")),
     "fp32_d1024_causal": ((1, 2, 1, 128, 128, 1024), torch.float32,
                           dict(causal=True), ()),
+    "fp32_d2056_chunked": ((1, 2, 2, 128, 128, 2056), torch.float32,
+                           dict(causal=True), ("dlse",)),
+    # every feature: causal with a query offset, window + sinks, GQA,
+    # segment ids, soft-cap, ALiBi, dropout and the LSE cotangent
+    "fp32_d1024_every_feature": (
+        (1, 4, 2, 160, 192, 1024), torch.float32,
+        dict(causal=True, q_offset=40, window=96, sinks=4, softcap=30.0,
+             dropout_rate=0.1, dropout_seed=13), ("dlse", "segments",
+                                                   "alibi")),
 }
 
 
@@ -966,6 +1007,26 @@ def test_flash_bf16_backward_is_deterministic(cuda_device):
     second = fa.flash_bwd(q, k, v, o, lse, do, None, opts)
     torch.cuda.synchronize()
     assert fa.kernel_attention.bwd_launches - t0 == 2
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_flash_wide_backward_is_deterministic(cuda_device):
+    """The bf16 backward above D = 256 (cluster kernels, dK/dV's walk split
+    over clusters under MQA and summed after) with dropout, twice:
+    bit-equal gradients, whatever order the CTAs and clusters ran in."""
+    q, k, v, do, _, _ = flash_inputs((1, 4, 1, 512, 512, 512),
+                                     torch.bfloat16, (), cuda_device)
+    opts = fa.make_opts(q, k, causal=True, dropout_rate=0.1, dropout_seed=5)
+    plan = fa._wide_bwd_plan(q.dtype, 512, 1, 4, 1, 512,
+                             torch.cuda.get_device_properties(
+                                 cuda_device).multi_processor_count)
+    assert plan["kv_splits"] > 1
+    o, lse = fa.flash_fwd(q, k, v, opts)
+    first = fa.flash_bwd(q, k, v, o, lse, do, None, opts)
+    second = fa.flash_bwd(q, k, v, o, lse, do, None, opts)
+    torch.cuda.synchronize()
     for name, x, y in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(x, y), name
 
@@ -1672,17 +1733,38 @@ def test_fp8_wide_failure_raises(cuda_device, monkeypatch):
 
 @pytest.mark.cuda
 def test_fp8_wide_rejects_key_blocks_off_its_tile(cuda_device):
-    """Above D = 256 key blocks must be multiples of the wide kernel's
-    32-key tile (fp8_attention's multiples of 128 are); others raise with
-    the limit named."""
+    """Above D = 256 any key block is taken: at blocks of 48 keys a 32-key
+    tile spans two blocks, and the wide kernel (int8 with bf16 p, e4m3)
+    matches the plain version at the bf16 flash limit for o and 1e-4 for
+    the LSE. int8_pv "s8" still takes only multiples of the 32-key tile,
+    and raises with the limit named."""
     from flashattention_tpu_torch.ops.quant import quantize_blocks
 
-    q = torch.randn(1, 2, 96, 512, device=cuda_device)
-    q8, sq = quantize_blocks(q, 96, "int8")
-    k8, sk = quantize_blocks(q, 48, "int8")
-    opts = fa.make_opts(q, q, causal=True)
+    gen = torch.Generator().manual_seed(48)
+    q, k, v = (torch.randn(1, 2, 192, 512, generator=gen).to(cuda_device)
+               for _ in range(3))
+    opts = fa.make_opts(q, k, causal=True)
+    c = fp8_attn.fp8_attention
+    for fmt, int8_pv in (("int8", "bf16"), ("fp8", "bf16")):
+        q8, sq = quantize_blocks(q, 96, fmt)
+        k8, sk = quantize_blocks(k, 48, fmt)
+        v8, sv = quantize_blocks(v, 48, fmt)
+        before = c.wide_launches
+        o, lse = fp8_attn.fp8_fwd(q8, k8, v8, sq, sk, sv, 96, 48, opts,
+                                  int8_pv=int8_pv)
+        torch.cuda.synchronize()
+        assert c.wide_launches - before == 1
+        o_ref, lse_ref = fp8_attn.fp8_fwd_plain(q8, k8, v8, sq, sk, sv, 96,
+                                                48, opts, int8_pv=int8_pv)
+        rtol, atol = flash_tol(torch.bfloat16, o_ref)
+        assert_allclose(o, o_ref, rtol=rtol, atol=atol,
+                        err_msg=f"{fmt} {int8_pv} o")
+        assert_allclose(lse, lse_ref, rtol=1e-4, atol=1e-4,
+                        err_msg=f"{fmt} {int8_pv} lse")
+    (q8, sq), (k8, sk), (v8, sv) = (quantize_blocks(x, b, "int8") for x, b in
+                                    ((q, 96), (k, 48), (v, 48)))
     with pytest.raises(ValueError, match="multiples of 32"):
-        fp8_attn.fp8_fwd(q8, k8, k8, sq, sk, sk, 96, 48, opts)
+        fp8_attn.fp8_fwd(q8, k8, v8, sq, sk, sv, 96, 48, opts, int8_pv="s8")
 
 
 @pytest.mark.cuda

@@ -281,9 +281,18 @@ def test_tensor_core_route(dtype, d, want):
             assert lib == ("flash_fwd" if "fwd" in prefix else "flash_bwd")
         else:
             assert (lib, name) == ("flash_wide", prefix + "_wide")
-    wide = {"flash_fwd_wide_kernel", "flash_bwd_dkv_wide_kernel",
-            "flash_bwd_dq_wide_kernel"}
+    # the cluster backward on wgmma (fp32 with the split of its operands)
+    wide = ({"flash_fwd_wide_kernel", "flash_bwd_dkv_wide_sm90_kernel",
+             "flash_bwd_dq_wide_sm90_kernel"} if dt == torch.bfloat16 else
+            {"flash_fwd_wide_kernel", "flash_bwd_dkv_wide_f32_sm90_kernel",
+             "flash_bwd_dq_wide_f32_sm90_kernel", "tf32_split_kernel"})
     assert (fa.route_kernels(dt, d) == wide) == (not want)
+    if not want:  # the sum of split partials
+        assert fa.route_kernels(dt, d, kv_splits=4) == wide | {"kv_sum_kernel"}
+        # fp32 above 8 chunks: the chunked mma.sync kernels
+        chunked = {"flash_fwd_wide_kernel", "flash_bwd_dkv_wide_kernel",
+                   "flash_bwd_dq_wide_kernel"}
+        assert (fa.route_kernels(dt, 2056) == chunked) == (dt == torch.float32)
 
 
 # (B * H_kv, N_k, group, SMs, splits): the fp32 dK/dV kernel above D = 128
@@ -296,6 +305,40 @@ KV_SPLITS = [(8, 8192, 1, 132, 1), (2, 300, 4, 132, 4), (1, 4096, 8, 132, 8),
 @pytest.mark.parametrize("kv_heads,n_k,group,sms,want", KV_SPLITS)
 def test_kv_splits_fill_the_card(kv_heads, n_k, group, sms, want):
     assert fa._kv_splits(kv_heads, n_k, group, sms) == want
+
+
+# (D, B, H, H_kv, N_k): (chunks, cluster, groups, kv_splits) of the bf16
+# backward above D = 256 on 132 SMs: one cluster of ceil(D / 256) CTAs up to
+# 8 chunks, then the fewest clusters of the fewest CTAs along D; phase 5d's
+# MQA call splits its 4 query heads over 4 clusters (256 dK/dV CTAs).
+WIDE_PLANS = [
+    (264, 2, 4, 4, 300, (2, 2, 1, 1)),       # a last chunk of 8 columns
+    (512, 1, 4, 1, 2048, (2, 2, 1, 4)),      # phase 5d's call
+    (640, 1, 8, 8, 1024, (3, 3, 1, 1)),      # a cluster of 3
+    (1024, 1, 4, 2, 1024, (4, 4, 1, 2)),      # GQA 4/2: split in two
+    (2048, 1, 2, 1, 512, (8, 8, 1, 2)),      # the largest single cluster
+    (2056, 1, 2, 2, 512, (9, 5, 2, 1)),      # clusters repeat along D
+    (1024, 1, 8, 1, 512, (4, 4, 1, 8)),      # MQA: the walk split 8 ways
+    (4096, 1, 4, 4, 256, (16, 8, 2, 1)),
+]
+
+
+@pytest.mark.parametrize("d,b,h,h_kv,n_k,want", WIDE_PLANS)
+def test_wide_bwd_plan(d, b, h, h_kv, n_k, want):
+    plan = fa._wide_bwd_plan(torch.bfloat16, d, b, h, h_kv, n_k, 132)
+    got = (plan["chunks"], plan["cluster"], plan["groups"], plan["kv_splits"])
+    assert got == want
+    assert plan["cols"] == fa.WIDE_BWD_COLS
+    assert plan["cluster"] <= fa.WIDE_MAX_CLUSTER
+    assert plan["cluster"] * plan["groups"] >= plan["chunks"]
+    assert (plan["cluster"] - 1) * plan["groups"] < plan["chunks"]
+    assert (h // h_kv) % plan["kv_splits"] == 0
+    # fp32: the same plan up to 8 chunks; above, the chunked kernels
+    f32 = fa._wide_bwd_plan(torch.float32, d, b, h, h_kv, n_k, 132)
+    if want[2] == 1:
+        assert f32 == plan
+    else:
+        assert (f32["cluster"], f32["groups"], f32["kv_splits"]) == (0, 0, 1)
 
 
 def test_aligned16_copies_an_unaligned_view_only():

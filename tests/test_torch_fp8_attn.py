@@ -215,25 +215,28 @@ def test_fa3_int8_pv_s8_end_to_end(monkeypatch):
 
 
 def test_prequant_matches_pallas():
-    """fp8_attention_prequant: blocks follow from the scale shapes."""
+    """fp8_attention_prequant: blocks follow from the scale shapes. Above
+    D = 256 (the wide kernels' route) key blocks of 48, which a 32-key tile
+    spans two of, at a small size."""
     from flashattention_tpu.ops.pallas_fp8 import (
         pallas_fp8_attention_prequant,
         quantize_tiles,
     )
     from flashattention_tpu_torch.ops.quant import quantize_blocks
 
-    q, k, v, _, _ = _inputs(1, 2, 2, 256, 64, seed=8)
-    jq = [quantize_tiles(jnp.asarray(x), b) for x, b in ((q, 64), (k, 128),
-                                                         (v, 128))]
-    tq = [quantize_blocks(torch.from_numpy(x), b)
-          for x, b in ((q, 64), (k, 128), (v, 128))]
-    jo, jl = pallas_fp8_attention_prequant(
-        *(p for p, _ in jq), *(s for _, s in jq), causal=True,
-        out_dtype=jnp.float32, interpret=True)
-    to, tl = fp8_attn.fp8_attention_prequant(
-        *(p for p, _ in tq), *(s for _, s in tq), causal=True,
-        out_dtype=torch.float32)
-    _check((np.asarray(jo), np.asarray(jl)), (to, tl), "prequant")
+    for n, d, bq, bk in ((256, 64, 64, 128), (96, 512, 48, 48)):
+        q, k, v, _, _ = _inputs(1, 2, 2, n, d, seed=8)
+        blocks = ((q, bq), (k, bk), (v, bk))
+        jq = [quantize_tiles(jnp.asarray(x), b) for x, b in blocks]
+        tq = [quantize_blocks(torch.from_numpy(x), b) for x, b in blocks]
+        jo, jl = pallas_fp8_attention_prequant(
+            *(p for p, _ in jq), *(s for _, s in jq), causal=True,
+            out_dtype=jnp.float32, interpret=True)
+        to, tl = fp8_attn.fp8_attention_prequant(
+            *(p for p, _ in tq), *(s for _, s in tq), causal=True,
+            out_dtype=torch.float32)
+        assert fp8_attn._wide_route(d) == (d > 256)
+        _check((np.asarray(jo), np.asarray(jl)), (to, tl), f"prequant {d}")
 
 
 @pytest.mark.parametrize("int8_pv, d, bk, want", [
